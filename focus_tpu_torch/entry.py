@@ -1,0 +1,86 @@
+"""Entry point of the port: the flagship eval forward and example inputs.
+
+Counterpart of ``__graft_entry__._flagship_cfg`` / ``entry()``: ORViT-
+Motionformer, SSv2 16x224 (the reference's
+``configs/ORViT/SSv2_ORViT-MF_224_16x4.yaml``), with random init-scale
+weights (every parameter from N(0, 0.02^2)) drawn from a seeded
+``torch.Generator`` and inputs made as ``bench.py`` makes them.
+"""
+
+import numpy as np
+import torch
+
+from focus_tpu_torch.config import get_cfg
+from focus_tpu_torch.models.build import build_model, init_weights, resolve_device
+
+INIT_SCALE = 0.02
+
+
+def flagship_cfg(tiny: bool = False):
+    """The flagship config. ``tiny`` shrinks widths and depth for CPU runs
+    but keeps the 224 crop (with 56-pixel patches), where the position
+    embedding needs no resize."""
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_NAME = "Motionformer"
+    cfg.MODEL.NUM_CLASSES = 174
+    cfg.MODEL.LOSS_FUNC = "label_smoothing_cross_entropy"
+    cfg.TRAIN.DATASET = "ssv2"
+    cfg.DATA.TRAIN_CROP_SIZE = 224
+    cfg.DATA.NUM_FRAMES = 16
+    cfg.MF.PATCH_SIZE = 16
+    cfg.MF.PATCH_SIZE_TEMP = 2
+    cfg.MF.EMBED_DIM = 768
+    cfg.MF.DEPTH = 12
+    cfg.MF.NUM_HEADS = 12
+    cfg.MF.TEMPORAL_RESOLUTION = 8
+    cfg.MF.USE_MLP = True
+    cfg.MF.QKV_BIAS = True
+    cfg.ORVIT.ENABLE = True
+    cfg.ORVIT.O = 4
+    cfg.ORVIT.LAYERS = [1, 6, 10]
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    if tiny:
+        cfg.DATA.NUM_FRAMES = 4
+        cfg.MF.PATCH_SIZE = 56
+        cfg.MF.EMBED_DIM = 24
+        cfg.MF.DEPTH = 3
+        cfg.MF.NUM_HEADS = 2
+        cfg.MF.TEMPORAL_RESOLUTION = 2
+        cfg.ORVIT.LAYERS = [1]
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def example_inputs(cfg, batch: int, seed: int, device):
+    """Video [B, T, H, W, 3] in [0, 1) and boxes [B, T/2, O, 4] (normalised
+    cxcywh around the centre), from numpy's RandomState as bench.py."""
+    rs = np.random.RandomState(seed)
+    T, crop = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+    video = rs.rand(batch, T, crop, crop, 3).astype(np.float32)
+    boxes = (rs.rand(batch, T // 2, cfg.ORVIT.O, 4) * 0.5 + 0.25).astype(
+        np.float32)
+    return (torch.from_numpy(video).to(device),
+            torch.from_numpy(boxes).to(device))
+
+
+class EvalForward:
+    """``fn(video, boxes) -> probabilities``; ``fn.model`` is the module."""
+
+    def __init__(self, model):
+        self.model = model
+
+    @torch.no_grad()
+    def __call__(self, video, boxes):
+        return self.model(video, {"orvit_bboxes": boxes})
+
+
+def entry(device="cuda", batch: int = 8, seed: int = 0, tiny: bool = False):
+    """(fn, (video, boxes)): the flagship eval forward and example inputs,
+    on ``device`` (CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    cfg = flagship_cfg(tiny)
+    model = build_model(cfg, device=device, seed=seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    init_weights(model, gen, scale=INIT_SCALE)
+    return EvalForward(model), example_inputs(cfg, batch, seed, device)

@@ -1,0 +1,293 @@
+"""Motionformer: trajectory-attention video ViT (counterpart of
+``focus_tpu/models/motionformer.py``).
+
+Rebuild of the reference model (reference
+``slowfast/models/video_model_builder.py:1103-1353`` and
+``slowfast/models/attention.py:434-557``) as ``nn.Module``s over
+channels-last video ``[B, T, H, W, C]``. Module and parameter names are the
+upstream torch names, so ``load_state_dict(strict=True)`` takes a reference
+``state_dict`` directly.
+
+Numerics follow the JAX package: float32 master weights, dense layers and
+activations at the compute dtype (``TPU.COMPUTE_DTYPE``), LayerNorm
+statistics in float32 with eps 1e-6, the classifier head and the eval
+softmax in float32. Eval only: the unscanned, unpipelined form, without
+MoE or int8 serving.
+"""
+
+from collections import OrderedDict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from focus_tpu_torch.models.build import register
+from focus_tpu_torch.ops import attention as attn_ops
+from focus_tpu_torch.ops.patch_embed import patch_embed_3d, patch_embed_reference
+from focus_tpu_torch.ops.trajectory_block import (
+    fused_trajectory_core,
+    trajectory_core_reference,
+)
+
+
+def linear(x, layer: nn.Linear):
+    """``layer`` applied at x's dtype (float32 weights cast to it)."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def layer_norm(x, ln: nn.LayerNorm):
+    """LayerNorm with float32 statistics, result at x's dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps).to(x.dtype)
+
+
+class Mlp(nn.Module):
+    """ViT MLP (reference ORViT/utils.py:79-98) with exact-erf GELU."""
+
+    def __init__(self, in_features, hidden_features, out_features=None):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features or in_features)
+
+    def forward(self, x):
+        return linear(F.gelu(linear(x, self.fc1)), self.fc2)
+
+
+class TrajectoryAttention(nn.Module):
+    """(reference attention.py:479-557), ``use_original_code=True``: the
+    stage-2 values are the stage-1 aggregates, so only the k half of
+    ``proj_kv`` is read. The non-CLS tokens go through the fused trajectory
+    core (the CUDA kernel on the card, its plain version on the CPU, or the
+    plain version anywhere when ``use_kernels`` is False)."""
+
+    def __init__(self, dim, num_heads=8, qkv_bias=False, attn_drop=0.0):
+        super().__init__()
+        if attn_drop > 0.0:
+            raise NotImplementedError("attention dropout (training only)")
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj_q = nn.Linear(dim, dim, bias=qkv_bias)
+        self.proj_kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x, thw, with_cls_token=True, use_kernels=True):
+        B, N, C = x.shape
+        nf = thw[0]
+        h = self.num_heads
+        hd = C // h
+        scale = hd ** -0.5
+        q, k, v = linear(x, self.qkv).chunk(3, dim=-1)
+
+        if with_cls_token:
+            def split_heads(t):
+                return t.reshape(B, -1, h, hd).transpose(1, 2).reshape(
+                    B * h, -1, hd)
+
+            cls_out = attn_ops.cls_attention(
+                split_heads(q[:, :1]), split_heads(k), split_heads(v), scale
+            ).reshape(B, h, 1, hd).transpose(1, 2).reshape(B, 1, C)
+
+        start = 1 if with_cls_token else 0
+        q_p = q[:, start:].contiguous()
+        n_per_f = q_p.shape[1] // nf
+        kf = k[:, start:].reshape(B, nf, n_per_f, C).contiguous()
+        vf = v[:, start:].reshape(B, nf, n_per_f, C).contiguous()
+        dt = q_p.dtype
+        zeros = torch.zeros(C, dtype=dt, device=x.device)
+        wq2 = self.proj_q.weight.t().to(dt).contiguous()
+        wk2 = self.proj_kv.weight[:C].t().to(dt).contiguous()
+        bq2 = zeros if self.proj_q.bias is None else self.proj_q.bias.to(dt)
+        bk2 = zeros if self.proj_kv.bias is None else self.proj_kv.bias[:C].to(dt)
+        core = fused_trajectory_core if use_kernels else trajectory_core_reference
+        out = core(q_p, kf, vf, wq2, bq2.contiguous(), wk2, bk2.contiguous(),
+                   scale, h)
+        if with_cls_token:
+            out = torch.cat([cls_out, out], dim=1)
+        return linear(out, self.proj)
+
+
+class TrajectoryAttentionBlock(nn.Module):
+    """(reference attention.py:443-476)"""
+
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False,
+                 attn_drop=0.0):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = TrajectoryAttention(dim, num_heads, qkv_bias, attn_drop)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x, metadata, thw, use_kernels=True):
+        x = x + self.attn(layer_norm(x, self.norm1), thw,
+                          use_kernels=use_kernels)
+        return x + self.mlp(layer_norm(x, self.norm2))
+
+
+class SelfAttention(nn.Module):
+    """Joint space-time MHA (reference attention.py:355-385)."""
+
+    def __init__(self, dim, num_heads=8, qkv_bias=False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x):
+        B, N, C = x.shape
+        h = self.num_heads
+        hd = C // h
+        qkv = linear(x, self.qkv).reshape(B, N, 3, h, hd).permute(2, 0, 3, 1, 4)
+        out = attn_ops.joint_attention(qkv[0], qkv[1], qkv[2], hd ** -0.5)
+        return linear(out.transpose(1, 2).reshape(B, N, C), self.proj)
+
+
+class SelfAttentionBlock(nn.Module):
+    """(reference attention.py:388-432, 'SeltAttentionBlock')"""
+
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = SelfAttention(dim, num_heads, qkv_bias)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x):
+        x = x + self.attn(layer_norm(x, self.norm1))
+        return x + self.mlp(layer_norm(x, self.norm2))
+
+
+class ConvWeights(nn.Module):
+    """Holds a Conv3d's parameters in the torch layout [D, C, kt, kh, kw]."""
+
+    def __init__(self, in_chans, dim, kernel):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim, in_chans, *kernel))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+
+class PatchEmbed3D(nn.Module):
+    """3D conv tokenizer (reference stem_helper.py:290-321) with
+    stride == kernel: [B, T, H, W, C] -> tokens [B, T'*H'*W', dim], through
+    the patch-embed kernel (or its plain version when ``use_kernels`` is
+    False). The weight is reshaped to the JAX layout at the call."""
+
+    def __init__(self, dim, kernel, stride, in_chans=3):
+        super().__init__()
+        if tuple(kernel) != tuple(stride):
+            raise NotImplementedError("patch embed with stride != kernel")
+        self.kernel = tuple(kernel)
+        self.proj = ConvWeights(in_chans, dim, self.kernel)
+
+    def forward(self, x, dtype, use_kernels=True):
+        w = self.proj.weight.permute(2, 3, 4, 1, 0)  # [kt, kh, kw, C, D]
+        if use_kernels:
+            return patch_embed_3d(x, w, self.proj.bias, self.kernel, dtype)
+        kt, kh, kw = self.kernel
+        _, T, H, W, _ = x.shape
+        return (patch_embed_reference(x, w, self.proj.bias, self.kernel, dtype),
+                (T // kt, H // kh, W // kw))
+
+
+def interpolate_pos_embed(pos_embed, npatch: int):
+    """The spatial position embedding for ``npatch`` patches: the identity
+    at the 224 crop. Other crops need the bicubic resize of the JAX package
+    (``jax.image.resize``, which ``F.interpolate`` does not reproduce), not
+    ported yet."""
+    if npatch == pos_embed.shape[1] - 1:
+        return pos_embed
+    raise NotImplementedError(
+        f"pos-embed resize from {pos_embed.shape[1] - 1} to {npatch} patches"
+    )
+
+
+@register
+class Motionformer(nn.Module):
+    """(reference video_model_builder.py:1103-1353)"""
+
+    def __init__(self, cfg, dtype=torch.float32):
+        super().__init__()
+        from focus_tpu_torch.models.orvit import ORViTBlock
+
+        c = cfg
+        unported = {
+            "the EPIC-Kitchens verb/noun head": c.TRAIN.DATASET == "epickitchens",
+            "MoE block MLPs": int(c.TPU.MOE.NUM_EXPERTS or 0) > 1,
+            "int8 serving": bool(c.TPU.INT8_SERVING),
+            "tanh GELU (TPU.FAST_GELU)": bool(c.TPU.FAST_GELU),
+            "MF.POS_EMBED other than 'separate' on video input":
+                c.MF.POS_EMBED != "separate" or not c.MF.VIDEO_INPUT,
+            "MF.HEAD_ACT other than 'tanh'": c.MF.USE_MLP and c.MF.HEAD_ACT != "tanh",
+        }
+        missing = [k for k, v in unported.items() if v]
+        if missing:
+            raise NotImplementedError(f"not ported yet: {missing}")
+        self.cfg = cfg
+        self.dtype = dtype
+        self.use_kernels = True
+        D = c.MF.EMBED_DIM
+        self.embed_dim = D
+        self.temporal_resolution = c.MF.TEMPORAL_RESOLUTION
+        num_base_patches = (224 // c.MF.PATCH_SIZE) ** 2
+        kernel = (c.MF.PATCH_SIZE_TEMP, c.MF.PATCH_SIZE, c.MF.PATCH_SIZE)
+        self.patch_embed_3d = PatchEmbed3D(D, kernel, kernel, c.MF.CHANNELS)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, D))
+        self.pos_embed = nn.Parameter(torch.empty(1, num_base_patches + 1, D))
+        self.temp_embed = nn.Parameter(torch.empty(1, self.temporal_resolution, D))
+
+        blocks = []
+        for i in range(c.MF.DEPTH):
+            if i in c.ORVIT.LAYERS:
+                blocks.append(ORViTBlock(
+                    cfg=c, dim=D, num_heads=c.MF.NUM_HEADS,
+                    mlp_ratio=c.MF.MLP_RATIO, qkv_bias=c.MF.QKV_BIAS,
+                    attn_drop=c.MF.ATTN_DROPOUT,
+                    nb_frames=self.temporal_resolution,
+                ))
+            else:
+                blocks.append(TrajectoryAttentionBlock(
+                    D, c.MF.NUM_HEADS, c.MF.MLP_RATIO, c.MF.QKV_BIAS,
+                    c.MF.ATTN_DROPOUT,
+                ))
+        self.blocks = nn.ModuleList(blocks)
+        self.norm = nn.LayerNorm(D, eps=1e-6)
+        if c.MF.USE_MLP:
+            self.pre_logits = nn.Sequential(OrderedDict(fc=nn.Linear(D, D)))
+        self.head = nn.Linear(D, c.MODEL.NUM_CLASSES)
+
+    def tokenize(self, x):
+        """Patch-embed + CLS + separate space and time position embeddings
+        -> (tokens, thw)."""
+        B = x.shape[0]
+        tokens, (_, h_, w_) = self.patch_embed_3d(
+            x, self.dtype, use_kernels=self.use_kernels)
+        npatch = h_ * w_
+        cls_tokens = self.cls_token.to(tokens.dtype).expand(B, 1, -1)
+        tokens = torch.cat([cls_tokens, tokens], dim=1)
+        pos_embed = interpolate_pos_embed(self.pos_embed, npatch)
+        tile_pos = pos_embed[:, 1:].repeat(1, self.temporal_resolution, 1)
+        tile_temp = self.temp_embed.repeat_interleave(npatch, dim=1)
+        total = torch.cat([self.pos_embed[:, :1], tile_pos + tile_temp], dim=1)
+        tokens = tokens + total.to(tokens.dtype)
+        side = int(npatch ** 0.5)
+        return tokens, (self.temporal_resolution, side, side)
+
+    def forward_features(self, x, metadata):
+        """x: [B, T, H, W, C] -> pooled feature [B, d]."""
+        tokens, thw = self.tokenize(x)
+        for blk in self.blocks:
+            tokens = blk(tokens, metadata, thw, use_kernels=self.use_kernels)
+        feat = layer_norm(tokens, self.norm)[:, 0]
+        if self.cfg.MF.USE_MLP:
+            feat = torch.tanh(linear(feat, self.pre_logits.fc))
+        return feat
+
+    def forward(self, x, metadata=None, train: bool = False):
+        """Eval forward: class probabilities [B, num_classes] in float32."""
+        if train:
+            raise NotImplementedError("the PyTorch port is eval-only so far")
+        feat = self.forward_features(x, metadata or {})
+        # the head runs in float32, as flax promotes bf16 features against
+        # its float32 kernel
+        logits = F.linear(feat.float(), self.head.weight, self.head.bias)
+        return torch.softmax(logits, dim=-1)

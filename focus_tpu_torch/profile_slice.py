@@ -1,0 +1,77 @@
+"""Where the time of the flagship eval forward goes, on one GPU.
+
+    python3 -m focus_tpu_torch.profile_slice [--batch 8] [--iters 2] \
+        [--trace trace.json]
+
+Builds ``entry(device="cuda")``, warms up, then traces ``--iters`` forwards
+with ``torch.profiler`` (CPU and CUDA activities). Prints one JSON line:
+the wall time per forward, the summed device time of the device-side
+events (kernels and device copies), the device's busy share of the wall
+time, and the events with the most device time. ``--trace`` also writes the Chrome
+trace to the path given.
+"""
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from focus_tpu_torch.entry import entry
+
+
+def _device_us(evt):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--iters", type=int, default=2)
+    ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--trace", default=None, help="Chrome trace output path")
+    args = ap.parse_args()
+
+    fn, (video, boxes) = entry(device="cuda", batch=args.batch)
+    for _ in range(2):
+        fn(video, boxes)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            fn(video, boxes)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / args.iters
+    # device-side events only: a CPU op's device time repeats its kernels'
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = [r for r in rows if r[2] > 0]
+    rows.sort(key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in rows) / 1e3 / args.iters
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(json.dumps({
+        "profile": "flagship eval forward", "batch": args.batch,
+        "gpu": smi, "wall_ms_per_forward": wall_ms,
+        "device_ms_per_forward": device_ms if rows else "not measured",
+        "device_busy_share": device_ms / wall_ms if rows else "not measured",
+        "top_kernels": [
+            {"name": k[:120], "calls_per_forward": c / args.iters,
+             "device_ms_per_forward": us / 1e3 / args.iters}
+            for k, c, us in rows[: args.top]
+        ],
+    }), flush=True)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()
