@@ -6,14 +6,24 @@ Phases (one JSON line each; any failure exits non-zero):
   1. environment and build: the card's name and power limit, TF32 off for
      every comparison, the CUDA kernels built from focus_tpu_torch/csrc/;
   2. each kernel against its plain PyTorch version on the card, at the
-     shapes the flagship forward gives it, plus extreme stage-1 logits;
-     kernel, plain and (where one exists) library times by CUDA events;
-  3. the port's layers against the golden fixture of the reference
-     ORViT-MF (plain path, float32, on the card);
+     shapes its main path gives it (plus extreme stage-1 logits for the
+     trajectory core, and other row counts, step indices and a narrow
+     decoder for the decode step); kernel, plain and (where one exists)
+     library times by CUDA events;
+  3. the port's layers against the golden fixtures of the reference
+     (ORViT-MF, and STEVE's dVAE, slot attention and transformer decoder;
+     plain path, float32, on the card);
   4. the flagship slice: ORViT-Motionformer SSv2 16x224 (D=768, 12 layers,
      12 heads, ORViT at [1, 6, 10], bf16) at batch 8 through the kernels,
      with launch counts, throughput, peak memory, and the probabilities held
-     against the same model and weights on the plain path.
+     against the same model and weights on the plain path;
+  5. the STEVE slice: encode + KV-cached rollout + dVAE decode at full width
+     (64 px, 256 tokens, decoder D=2048 with 8 blocks, vocabulary 4096,
+     bf16) at 32 and 128 rollout rows through the fused decode step, with
+     launch counts (wrapper calls, and device kernels as the C function
+     counts them), frames per second, the time split, the unfused module
+     rollout beside it, and the logits and token ids held against the plain
+     path.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+DEV = "cuda"  # every phase runs on the card
 # H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -43,6 +54,13 @@ SLICE_TOP1_MIN_SHARE = 0.75
 FIXTURE_ATOL = 2e-4  # the CPU tests' tolerance for this fixture
 TIMED_ITERS = 20
 SLICE_ITERS = 5
+# decode step, kernel vs plain version on the same bf16 inputs: both round at
+# the same points and accumulate in float32, in another order, so a value
+# near a rounding boundary can land one bf16 step (2^-8 relative) apart and
+# carry through the remaining layers; the bound allows a few such steps
+AR_TOL_REL = 2e-2
+STEVE_ITERS = 2
+AR_STEPS = (0, 1, 31, 32, 33, 128, 255)
 
 
 def emit(obj):
@@ -106,7 +124,7 @@ def phase_build():
 
 def core_inputs(B, N, gen, F=8, C=768):
     S = F * N
-    dev = "cuda"
+    dev = DEV
 
     def rnd(*shape, sc=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * sc).bfloat16()
@@ -119,7 +137,7 @@ def core_inputs(B, N, gen, F=8, C=768):
 def extreme_inputs(sign, mag, gen, B=1, F=8, N=196, C=768, heads=12):
     """tests/test_fused_block.py:_extreme_inputs at the kernel's widths:
     stage-1 logits of ~sign*mag nats after the scale."""
-    S, dev = F * N, "cuda"
+    S, dev = F * N, DEV
     scale = (C // heads) ** -0.5
     qdir = torch.randn(B, S, C, generator=gen, device=dev)
     qdir = qdir / qdir.norm(dim=-1, keepdim=True)
@@ -156,7 +174,7 @@ def phase_trajectory_kernel():
     from focus_tpu_torch.ops import trajectory_block as tb
 
     heads, scale = 12, 64 ** -0.5
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     cases, errs = [], []
     timing = None
@@ -213,13 +231,13 @@ def phase_trajectory_kernel():
 def phase_patch_kernel():
     from focus_tpu_torch.ops import patch_embed as pe
 
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEV)
     gen.manual_seed(1)
     kernel, D = (2, 16, 16), 768
-    x32 = torch.rand(8, 16, 224, 224, 3, generator=gen, device="cuda")
+    x32 = torch.rand(8, 16, 224, 224, 3, generator=gen, device=DEV)
     x16 = x32.bfloat16()
-    w = (torch.randn(2, 16, 16, 3, D, generator=gen, device="cuda") * 0.02).bfloat16()
-    b = (torch.randn(D, generator=gen, device="cuda") * 0.02).bfloat16()
+    w = (torch.randn(2, 16, 16, 3, D, generator=gen, device=DEV) * 0.02).bfloat16()
+    b = (torch.randn(D, generator=gen, device=DEV) * 0.02).bfloat16()
     ref = pe.patch_embed_reference(x16.float(), w.float(), b.float(), kernel)
     errs = []
     for x in (x16, x32):  # bf16 video, and the float32 video the model hands it
@@ -254,6 +272,192 @@ def phase_patch_kernel():
             "shape": "video [8,16,224,224,3] f32 -> [8,1568,768] bf16"}
 
 
+def narrow_steve_model(**decoder):
+    """The port's STEVE on the card with SLOTS.DECODER overridden (the
+    kernel phase's other decoder shape; the slice itself comes from
+    ``steve_entry``)."""
+    from focus_tpu_torch.entry import steve_cfg
+    from focus_tpu_torch.models.build import build_model
+
+    cfg = steve_cfg()
+    for key, value in decoder.items():
+        setattr(cfg.SLOTS.DECODER, key, value)
+    return build_model(cfg, device=DEV, seed=0)
+
+
+@torch.no_grad()
+def ar_state(model, packed, rows, gen):
+    """One decode step's inputs at a model's widths: the hoisted cross K/V of
+    random slots, a dictionary row per rollout row as the token, random
+    caches (every row filled, so a read or write beyond row t shows)."""
+    from focus_tpu_torch.models.common import linear
+
+    dec, d, dt = model.steve_decoder, model.d_model, torch.bfloat16
+    L = dec.pos.pe.shape[1]
+    slots = torch.randn(rows, model.num_slots,
+                        model.steve_encoder.slot_proj.in_features,
+                        generator=gen, device=DEV).to(dt)
+    slots = linear(slots, model.steve_encoder.slot_proj)
+    kvs = dec.tf(slots[:, :1], slots, project_kv_only=True)
+    ckv = torch.stack([torch.stack([k.reshape(rows, -1, d),
+                                    v.reshape(rows, -1, d)])
+                       for k, v in kvs]).contiguous()
+    ids = torch.randint(0, model.vocab_size, (rows,), generator=gen,
+                        device=DEV)
+    caches = [torch.randn(dec.tf.num_blocks, L, rows, d, generator=gen,
+                          device=DEV).to(dt) for _ in range(2)]
+    return {"slots": slots, "kvs": kvs, "ckv": ckv,
+            "x": packed.dict_w[ids].contiguous(), "k": caches[0],
+            "v": caches[1], "pos": dec.pos.pe[0, :L].float().contiguous()}
+
+
+def check_ar_step(model, packed, rows, t, gen, tag):
+    """fused_ar_step against ar_step_reference from the same state; the
+    device kernels the one wrapper call launched are counted."""
+    from focus_tpu_torch.ops import ar_decode as ar
+
+    st = ar_state(model, packed, rows, gen)
+    heads = model.steve_decoder.tf.num_heads
+    outs = []
+    for step in (ar.fused_ar_step, ar.ar_step_reference):
+        k, v = st["k"].clone(), st["v"].clone()
+        lg = torch.empty(rows, model.vocab_size, dtype=torch.float32,
+                         device=DEV)
+        ar.DEVICE_LAUNCHES = 0
+        nx, ids, _, _ = step(st["x"], t, packed, st["ckv"], k, v, st["pos"],
+                             heads, logits_out=lg)
+        torch.cuda.synchronize()
+        outs.append((nx, ids.long(), k, v, lg, ar.DEVICE_LAUNCHES))
+    (nx, ids, k, v, lg, device_launches), (_, rids, rk, rv, rlg, stray) = outs
+    if stray != 0:
+        raise AssertionError(f"{tag}: the plain version launched a kernel")
+    err_lg, scale_lg = check_close(f"{tag} logits", lg, rlg, AR_TOL_REL)
+    err_k, _ = check_close(f"{tag} k row", k[:, t], rk[:, t], AR_TOL_REL)
+    err_v, _ = check_close(f"{tag} v row", v[:, t], rv[:, t], AR_TOL_REL)
+    keep = torch.ones(k.shape[1], dtype=torch.bool, device=DEV)
+    keep[t] = False
+    if not (torch.equal(k[:, keep], st["k"][:, keep])
+            and torch.equal(v[:, keep], st["v"][:, keep])):
+        raise AssertionError(f"{tag}: a cache row other than {t} changed")
+    top2 = rlg.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    # logits within err of each other can change the argmax only where the
+    # plain version's top-2 margin is at most 2 err
+    if bool(((ids != rids) & (margin > 2 * err_lg)).any()):
+        raise AssertionError(f"{tag}: ids differ beyond the logits' error")
+    if not torch.equal(nx, packed.dict_w[ids]):
+        raise AssertionError(f"{tag}: next input is not the packed "
+                             "dictionary row of the id")
+    return {"case": tag, "rows": rows, "t": t, "max_abs_err_logits": err_lg,
+            "max_abs_logits": scale_lg, "max_abs_err_k_row": err_k,
+            "max_abs_err_v_row": err_v,
+            "ids_equal": int((ids == rids).sum().item()),
+            "min_top2_margin": margin.min().item(),
+            "device_launches": device_launches}
+
+
+def ar_bound(rows, D, nb, V, S, t):
+    """Least time of one decode step: every weight, the head and the
+    gathered dictionary rows, the small float32 parameters, cache rows < t
+    read and row t written, the hoisted cross K/V, the token in and out."""
+    weights = (nb * 14 * D * D + V * D + rows * D) * 2
+    small = (nb * 11 * D + 3 * D) * 4
+    cache = nb * 2 * (t + 1) * rows * D * 2
+    ckv = nb * 2 * rows * S * D * 2
+    io = 2 * rows * D * 2 + rows * 4
+    flops = (2 * rows * (nb * 14 * D * D + V * D)
+             + nb * 4 * rows * D * (t + 1 + S))
+    return bound(flops, weights + small + cache + ckv + io)
+
+
+@torch.no_grad()
+def time_ar_step(model, packed, rows, t, gen):
+    """Kernel, unfused module step and plain version at one state."""
+    from focus_tpu_torch.models.common import linear
+    from focus_tpu_torch.ops import ar_decode as ar
+
+    st = ar_state(model, packed, rows, gen)
+    dec, d = model.steve_decoder, model.d_model
+    nb, heads = dec.tf.num_blocks, dec.tf.num_heads
+    L = st["k"].shape[1]
+    scratch = ar.workspace(rows, d, DEV)
+    args = (st["x"], t, packed, st["ckv"], st["k"], st["v"], st["pos"], heads)
+    kernel_ms = time_ms(lambda: ar.fused_ar_step(*args, scratch=scratch))
+    reference_ms = time_ms(lambda: ar.ar_step_reference(*args), warmup=1,
+                           iters=5)
+    rdec = model._rollout_decoder(torch.bfloat16)
+    caches = tuple(
+        tuple(c[l].transpose(0, 1).reshape(rows, L, heads, d // heads)
+              .contiguous() for c in (st["k"], st["v"]))
+        for l in range(nb))
+    x = st["x"][:, None]
+
+    def module_step():
+        out, _ = rdec.tf(rdec.pos.at(x, t), st["slots"], caches=caches, t=t,
+                         cross_kvs=st["kvs"])
+        z = linear(out, rdec.head).argmax(dim=-1)
+        return rdec.dict(z).to(torch.bfloat16)
+
+    module_ms = time_ms(module_step, warmup=2)
+    bound_ms, bound_by = ar_bound(rows, d, nb, model.vocab_size,
+                                  model.num_slots, t)
+    return {"rows": rows, "t": t, "kernel_ms": kernel_ms,
+            "module_step_ms": module_ms, "reference_ms": reference_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_ar_decode(model):
+    """The decode step at full width (32, 40 and 128 rows) and at the
+    decoder of configs/movi_e/base.yaml (D=192, 4 blocks, 4 heads of 48)."""
+    from focus_tpu_torch.ops import ar_decode as ar
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2)
+    dec = model.steve_decoder
+    packed = model._packed_decoder(torch.bfloat16)
+    cases = [check_ar_step(model, packed, 32, t, gen, f"rows=32 t={t}")
+             for t in AR_STEPS]
+    cases += [check_ar_step(model, packed, rows, t, gen, f"rows={rows} t={t}")
+              for rows, t in ((40, 256), (40, 5), (128, 128), (128, 255))]
+    timing = time_ar_step(model, packed, 32, 128, gen)
+    timing128 = time_ar_step(model, packed, 128, 128, gen)
+    # every full-width call must have launched the same number of device
+    # kernels, the number the step is designed to launch
+    per_step = {c["device_launches"] for c in cases}
+    if per_step != {ar.launches_per_step(dec.tf.num_blocks)}:
+        raise AssertionError(f"device launches per step {sorted(per_step)}, "
+                             f"designed {ar.launches_per_step(dec.tf.num_blocks)}")
+    per_step = per_step.pop()
+    narrow = narrow_steve_model(DIM=192, NUM_BLOCKS=4, NUM_HEADS=4)
+    npacked = narrow._packed_decoder(torch.bfloat16)
+    cases += [check_ar_step(narrow, npacked, rows, t, gen,
+                            f"D=192 rows={rows} t={t}")
+              for rows, t in ((32, 0), (32, 200), (40, 256))]
+    emit({"phase": "kernel", "name": "ar_decode", "ok": True,
+          "tolerance": f"logits and cache row t: max|err| <= {AR_TOL_REL} x "
+                       "max|ref| (same bf16 rounding points, float32 sums in "
+                       "another order); ids equal wherever the plain "
+                       "version's top-2 margin exceeds twice the logits' "
+                       "error; other cache rows bit-equal; next input == "
+                       "packed dictionary row",
+          "device_launches_per_step": per_step,
+          "device_launches_note": "counted by the C function beside each "
+                                  "<<<>>> of one wrapper call",
+          "library_ms": None,
+          "library_note": "no single PyTorch call computes a decode step",
+          "timing": [timing, timing128], "cases": cases})
+    return {"name": "ar_decode", "route": "cuda",
+            "source": "focus_tpu_torch/csrc/ar_decode.cu",
+            "replaces": "focus_tpu/ops/pallas/ar_decode.py:53",
+            "max_abs_err": max(c["max_abs_err_logits"] for c in cases),
+            "ms": timing["kernel_ms"], "plain_ms": timing["module_step_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": None,
+            "device_launches_per_step": per_step,
+            "shape": "32 rows, t=128, D=2048, 8 blocks, 4 heads, V=4096, "
+                     "7 slots, L=257"}
+
+
 def phase_fixture():
     """The reference's executed ORViT-MF on the port's plain path, f32."""
     from focus_tpu_torch.config import get_cfg
@@ -269,18 +473,197 @@ def phase_fixture():
     cfg.MF.USE_MLP, cfg.MF.QKV_BIAS = True, True
     cfg.ORVIT.ENABLE, cfg.ORVIT.LAYERS, cfg.ORVIT.O = True, [1], 3
     cfg.TPU.COMPUTE_DTYPE = "float32"
-    model = build_model(cfg, device="cuda")
+    model = build_model(cfg, device=DEV)
     model.load_state_dict({k[3:]: torch.from_numpy(v) for k, v in d.items()
                            if k.startswith("sd/")}, strict=True)
     model.use_kernels = False  # head dim 12: the kernels take 64
-    video = torch.from_numpy(d["video"].transpose(0, 2, 3, 4, 1).copy()).cuda()
+    video = torch.from_numpy(d["video"].transpose(0, 2, 3, 4, 1).copy()).to(DEV)
     with torch.no_grad():
-        out = model(video, {"orvit_bboxes": torch.from_numpy(d["boxes"]).cuda()})
+        out = model(video, {"orvit_bboxes": torch.from_numpy(d["boxes"]).to(DEV)})
     err = (out.cpu() - torch.from_numpy(d["out"])).abs().max().item()
     if not err <= FIXTURE_ATOL:
         raise AssertionError(f"fixture orvit_mf_full: max|err| {err:.3e}")
     emit({"phase": "fixture", "name": "orvit_mf_full", "ok": True,
           "max_abs_err": err, "atol": FIXTURE_ATOL})
+
+
+@torch.no_grad()
+def phase_steve_fixtures():
+    """STEVE's modules on the card (plain path, float32) against the
+    reference's executed dVAE, slot attention and transformer decoder."""
+    from focus_tpu_torch.models.common import TransformerDecoder
+    from focus_tpu_torch.models.steve.dvae import DVAE
+    from focus_tpu_torch.models.steve.slot_attention import SlotAttentionVideo
+    from focus_tpu_torch.utils.weights import reference_state_dict
+
+    def load(name, module):
+        d = dict(np.load(os.path.join(REPO, "tests", "fixtures", f"{name}.npz")))
+        sd = {k[3:]: torch.from_numpy(v) for k, v in d.items()
+              if k.startswith("sd/")}
+        module.load_state_dict(reference_state_dict(sd), strict=True)
+        return {k: torch.from_numpy(v).to(DEV) for k, v in d.items()
+                if not k.startswith("sd/")}, module.to(DEV).eval()
+
+    errs = {}
+    d, dvae = load("dvae", DVAE(16, 3))
+    logits = dvae.encoder(d["x"].permute(0, 2, 3, 1))
+    recon = dvae.decoder(d["z_hard"].permute(0, 2, 3, 1))
+    errs["dvae_logits"] = (logits.permute(0, 3, 1, 2) - d["logits"]).abs().max().item()
+    errs["dvae_recon"] = (recon.permute(0, 3, 1, 2) - d["recon"]).abs().max().item()
+    d, sav = load("slot_attention_video",
+                  SlotAttentionVideo(2, 4, 12, 16, 24, 1, 2))
+    slots, attns = sav(d["inputs"], noise=d["noise"])
+    errs["slots"] = (slots - d["slots"]).abs().max().item()
+    errs["attns"] = (attns - d["attns"]).abs().max().item()
+    d, tf = load("steve_transformer_decoder", TransformerDecoder(2, 16, 2))
+    errs["decoder"] = (tf(d["inp"], d["encoder_out"]) - d["out"]).abs().max().item()
+    bad = {k: v for k, v in errs.items() if not v <= FIXTURE_ATOL}
+    emit({"phase": "fixture", "name": "steve modules", "ok": not bad,
+          "max_abs_err": errs, "atol": FIXTURE_ATOL})
+    if bad:
+        raise AssertionError(f"STEVE fixtures: {bad}")
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()`` on the host clock, ending in a
+    synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def steve_rollout(batch, per_step):
+    """``steve_entry(batch=batch)`` on the card: throughput, launches, peak
+    memory and the time split of its reconstruction. Returns the report,
+    the counts of the timed rollouts, and the model and its slots for the
+    comparison with the plain path."""
+    from focus_tpu_torch.entry import steve_entry
+    from focus_tpu_torch.ops import ar_decode as ar
+
+    fn, (video,) = steve_entry(device=DEV, batch=batch)
+    model = fn.model
+    B, T, H, W, C = video.shape
+    rows = B * T
+    gen_len = (model.image_size // 4) ** 2
+    _, first_s = timed(lambda: fn(video))  # warm-up: packs the weights
+    torch.cuda.reset_peak_memory_stats()
+    ar.LAUNCHES = ar.DEVICE_LAUNCHES = 0
+    recon, seconds = timed(lambda: [fn(video)
+                                    for _ in range(STEVE_ITERS)][-1])
+    counts = {"wrapper": ar.LAUNCHES, "device": ar.DEVICE_LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect = {"wrapper": gen_len * STEVE_ITERS,
+              "device": gen_len * STEVE_ITERS * per_step}
+    if counts != expect:
+        raise AssertionError(f"decode-step launches {counts}, expected "
+                             f"{expect} ({STEVE_ITERS} rollouts x {gen_len} "
+                             f"steps x {per_step} kernels)")
+    recon = recon.float()
+    ok = (tuple(recon.shape) == (B, T, H, W, C)
+          and bool(torch.isfinite(recon).all())
+          and recon.min().item() >= 0.0 and recon.max().item() <= 1.0)
+    if not ok:
+        raise AssertionError("STEVE reconstruction: bad shape or values")
+    (slots, _, _), encode_s = timed(
+        lambda: model.encode(video, generator=fn.generator))
+    slots = slots.reshape(rows, model.num_slots, -1)
+    ids, rollout_s = timed(lambda: model.decode_ids(slots))
+    side = model.image_size // 4
+    with torch.no_grad():
+        _, dvae_s = timed(lambda: model.dvae.decoder(
+            torch.nn.functional.one_hot(ids.t(), model.vocab_size)
+            .to(model.dtype).reshape(rows, side, side, model.vocab_size)))
+    model.fused_ar_step = False
+    model.decode_ids(slots)  # casts the module path's weights once
+    _, unfused_s = timed(lambda: model.decode_ids(slots))
+    model.fused_ar_step = True
+    report = {"video": [B, T, H, W, C], "rollout_rows": rows,
+              "timed_rollouts": STEVE_ITERS,
+              "frames_per_sec": rows * STEVE_ITERS / seconds,
+              "ms_per_rollout": 1e3 * seconds / STEVE_ITERS,
+              "first_call_ms_incl_weight_packing": 1e3 * first_s,
+              "peak_memory_gb": peak_gb,
+              "decode_step_launches": counts["wrapper"],
+              "device_launches": counts["device"],
+              "device_launches_per_rollout": counts["device"] // STEVE_ITERS,
+              "split_ms": {"encode": 1e3 * encode_s,
+                           "rollout": 1e3 * rollout_s,
+                           "dvae_decode": 1e3 * dvae_s},
+              "ms_per_step_in_rollout": 1e3 * rollout_s / gen_len,
+              "unfused_module_rollout_ms": 1e3 * unfused_s,
+              "fused_over_unfused": unfused_s / rollout_s}
+    return report, counts, model, slots
+
+
+def ids_vs_plain_path(model, slots):
+    """Free-running rollout, kernel against plain version. Rows are
+    independent and a row's two paths share their state up to its first
+    differing id: up to and at that step the kernel's logits must be within
+    the single-step tolerance of the plain ones, and at that step the plain
+    top-2 margin can be at most twice the logits' error measured there."""
+    gen_len, rows = (model.image_size // 4) ** 2, slots.shape[0]
+    lg_k = torch.empty(gen_len, rows, model.vocab_size, device=DEV)
+    lg_p = torch.empty_like(lg_k)
+    ids_k = model.decode_ids(slots, logits=lg_k)
+    model.use_kernels = False
+    ids_p = model.decode_ids(slots, logits=lg_p)
+    model.use_kernels = True
+    torch.cuda.synchronize()
+    differ = ids_k != ids_p
+    # steps a row's paths share: all up to its first difference (or the end)
+    first = torch.where(differ.any(dim=0), differ.float().argmax(dim=0),
+                        gen_len - 1)
+    shared = torch.arange(gen_len, device=DEV)[:, None] <= first[None]
+    err = (lg_k - lg_p).abs().amax(dim=-1)  # [gen_len, rows]
+    scale = lg_p.abs().amax(dim=(1, 2))  # [gen_len]
+    worst_err = (err / scale[:, None])[shared].max().item()
+    firsts, worst_margin = [], 0.0
+    for b in differ.any(dim=0).nonzero().flatten().tolist():
+        t = int(first[b].item())
+        top2 = lg_p[t, b].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        allowed = 2 * err[t, b].item()
+        firsts.append({"row": b, "step": t, "plain_top2_margin": margin,
+                       "allowed": allowed, "logits_err": err[t, b].item()})
+        worst_margin = max(worst_margin, margin / max(allowed, 1e-30))
+    ok = worst_err <= AR_TOL_REL and worst_margin <= 1.0
+    return ok, {
+        "ids_equal_share": 1.0 - differ.float().mean().item(),
+        "rows_with_a_difference": len(firsts), "rows": rows,
+        "shared_state_steps": int(shared.sum().item()),
+        "max_logits_err_over_max_logits_on_shared_steps": worst_err,
+        "max_abs_logits_err_on_shared_steps": err[shared].max().item(),
+        "first_differences": firsts[:8],
+        "rule": "while a row's two paths share their state, logits max|err| "
+                f"<= {AR_TOL_REL} x max|logits| of the step; at a row's first "
+                "differing step the plain path's top-2 margin <= 2 x that "
+                "row's logits error at that step"}
+
+
+def phase_steve(smi, per_step):
+    """The STEVE slice at full width through ``steve_entry`` and the fused
+    decode step, at 32 rollout rows (batch 8) and at 128 (batch 32), and
+    its ids against the plain path. ``per_step`` is the device launches one
+    wrapper call made in the kernel phase."""
+    main_run, counts, model, slots = steve_rollout(8, per_step)
+    ok, vs_plain = ids_vs_plain_path(model, slots)
+    del model, slots  # the first model's weights go before the second's come
+    torch.cuda.empty_cache()
+    rows_128 = steve_rollout(32, per_step)[0]
+    emit({"phase": "slice", "name": "steve", "ok": ok,
+          "model": "steve_entry: STEVE, config defaults: 64 px (256 tokens, "
+                   "L=257), 7 slots of 192, 3 corrector iterations, 4 "
+                   "predictor blocks, base CNN, decoder D=2048 x 8 blocks x "
+                   "4 heads, vocabulary 4096, bf16; JAX-package "
+                   "initialisers, seed 0",
+          "rows_32": main_run, "rows_128": rows_128,
+          "vs_plain_path": vs_plain, "gpu": smi})
+    if not ok:
+        raise AssertionError("STEVE slice: logits or ids differ beyond the "
+                             "tolerance")
+    return counts
 
 
 def phase_slice(smi):
@@ -289,7 +672,7 @@ def phase_slice(smi):
     from focus_tpu_torch.ops import trajectory_block as tb
 
     B = 8
-    fn, (video, boxes) = entry(device="cuda", batch=B, seed=0)
+    fn, (video, boxes) = entry(device=DEV, batch=B, seed=0)
     model = fn.model
     for _ in range(2):
         fn(video, boxes)
@@ -343,7 +726,7 @@ def main():
         emit({"ok": False, "error": "CUDA is not available"})
         return 1
     try:
-        import focus_tpu_torch  # noqa: F401
+        from focus_tpu_torch.entry import steve_entry
     except ImportError as e:
         emit({"ok": False, "error": f"run from the repository root ({e})"})
         return 1
@@ -354,13 +737,25 @@ def main():
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count()})
     phase_build()
-    kernels = [phase_trajectory_kernel(), phase_patch_kernel()]
+    traj = phase_trajectory_kernel()
+    patch = phase_patch_kernel()
     phase_fixture()
+    phase_steve_fixtures()
     launches = phase_slice(smi)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_note"] = f"over {SLICE_ITERS} flagship forwards"
-    emit({"kernels": kernels})
+    traj["launches"] = launches["trajectory_block"]
+    patch["launches"] = launches["patch_embed"]
+    traj["launches_note"] = patch["launches_note"] = (
+        f"over {SLICE_ITERS} flagship forwards")
+    ar = phase_ar_decode(steve_entry(device=DEV, batch=8)[0].model)
+    torch.cuda.empty_cache()
+    counts = phase_steve(smi, ar["device_launches_per_step"])
+    ar["launches"] = counts["wrapper"]
+    ar["device_launches"] = counts["device"]
+    ar["launches_note"] = (
+        f"wrapper calls (one per decode step) of {STEVE_ITERS} rollouts of "
+        "32 rows through steve_entry; device_launches are the kernels those "
+        "calls launched")
+    emit({"kernels": [traj, patch, ar]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

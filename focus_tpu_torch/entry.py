@@ -1,10 +1,16 @@
-"""Entry point of the port: the flagship eval forward and example inputs.
+"""Entry points of the port: the flagship eval forward and the STEVE
+autoregressive reconstruction, each with example inputs.
 
-Counterpart of ``__graft_entry__._flagship_cfg`` / ``entry()``: ORViT-
+``entry`` is the counterpart of ``__graft_entry__._flagship_cfg`` / ``entry()``: ORViT-
 Motionformer, SSv2 16x224 (the reference's
 ``configs/ORViT/SSv2_ORViT-MF_224_16x4.yaml``), with random init-scale
 weights (every parameter from N(0, 0.02^2)) drawn from a seeded
 ``torch.Generator`` and inputs made as ``bench.py`` makes them.
+``steve_entry`` is the counterpart of the model that
+``scripts/bench_steve_rollout.py`` builds: STEVE at the config defaults
+(64 px, 7 slots, decoder D=2048 with 8 blocks, vocabulary 4096, bf16) with
+the JAX package's initialisers, reconstructing a video through ``encode``
+and the KV-cached token rollout.
 """
 
 import numpy as np
@@ -84,3 +90,53 @@ def entry(device="cuda", batch: int = 8, seed: int = 0, tiny: bool = False):
     gen.manual_seed(seed)
     init_weights(model, gen, scale=INIT_SCALE)
     return EvalForward(model), example_inputs(cfg, batch, seed, device)
+
+
+def steve_cfg(tiny: bool = False):
+    """STEVE at the config defaults with the base CNN. ``tiny`` is a CPU
+    size: 16 px (16 generated tokens), 3 slots, vocabulary 32, decoder
+    D=32 with 2 blocks of 2 heads, float32."""
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_NAME = "STEVE"
+    cfg.MODEL.CNN_NAME = "base"
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    if tiny:
+        cfg.SLOTS.IMG_SIZE = 16
+        cfg.SLOTS.NUM_SLOTS = 3
+        cfg.SLOTS.VOCAB_SIZE = 32
+        cfg.SLOTS.DECODER.DIM = 32
+        cfg.SLOTS.DECODER.NUM_BLOCKS = 2
+        cfg.SLOTS.DECODER.NUM_HEADS = 2
+        cfg.SLOTS.DECODER.DROPOUT = 0.0
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+class Reconstruct:
+    """``fn(video) -> recon [B, T, H, W, 3]``; ``fn.model`` is the module
+    and ``fn.generator`` draws the slot-initialisation noise."""
+
+    def __init__(self, model, generator):
+        self.model = model
+        self.generator = generator
+
+    @torch.no_grad()
+    def __call__(self, video):
+        return self.model.reconstruct_autoregressive(
+            video, generator=self.generator)
+
+
+def steve_entry(device="cuda", batch: int = 8, frames: int = 4, seed: int = 0,
+                tiny: bool = False):
+    """(fn, (video,)): STEVE's autoregressive reconstruction and an example
+    video [batch, frames, H, W, 3] in [0, 1), on ``device`` (CUDA unless
+    the caller asks for the CPU). ``batch * frames`` rows are rolled out."""
+    device = resolve_device(device)
+    cfg = steve_cfg(tiny)
+    model = build_model(cfg, device=device, seed=seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rs = np.random.RandomState(seed)
+    size = cfg.SLOTS.IMG_SIZE
+    video = rs.rand(batch, frames, size, size, 3).astype(np.float32)
+    return Reconstruct(model, gen), (torch.from_numpy(video).to(device),)

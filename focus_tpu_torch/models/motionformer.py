@@ -22,24 +22,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from focus_tpu_torch.models.build import register
+from focus_tpu_torch.models.common import layer_norm, linear
 from focus_tpu_torch.ops import attention as attn_ops
 from focus_tpu_torch.ops.patch_embed import patch_embed_3d, patch_embed_reference
 from focus_tpu_torch.ops.trajectory_block import (
     fused_trajectory_core,
     trajectory_core_reference,
 )
-
-
-def linear(x, layer: nn.Linear):
-    """``layer`` applied at x's dtype (float32 weights cast to it)."""
-    bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    return F.linear(x, layer.weight.to(x.dtype), bias)
-
-
-def layer_norm(x, ln: nn.LayerNorm):
-    """LayerNorm with float32 statistics, result at x's dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(x.dtype)
 
 
 class Mlp(nn.Module):

@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("patch_embed", "trajectory_block")
+SOURCES = ("ar_decode", "patch_embed", "trajectory_block")
 
 _libs: dict = {}
 _lock = threading.Lock()

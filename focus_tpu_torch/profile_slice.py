@@ -1,14 +1,16 @@
-"""Where the time of the flagship eval forward goes, on one GPU.
+"""Where the time of a slice's main path goes, on one GPU.
 
-    python3 -m focus_tpu_torch.profile_slice [--batch 8] [--iters 2] \
-        [--trace trace.json]
+    python3 -m focus_tpu_torch.profile_slice [--model flagship|steve] \
+        [--batch 8] [--iters 2] [--trace trace.json]
 
-Builds ``entry(device="cuda")``, warms up, then traces ``--iters`` forwards
-with ``torch.profiler`` (CPU and CUDA activities). Prints one JSON line:
-the wall time per forward, the summed device time of the device-side
+Builds ``entry(device="cuda")`` (the flagship eval forward) or
+``steve_entry(device="cuda")`` (STEVE's encode + KV-cached rollout + dVAE
+decode; ``--batch`` videos of 4 frames), warms up, then traces ``--iters``
+calls with ``torch.profiler`` (CPU and CUDA activities). Prints one JSON
+line: the wall time per call, the summed device time of the device-side
 events (kernels and device copies), the device's busy share of the wall
-time, and the events with the most device time. ``--trace`` also writes the Chrome
-trace to the path given.
+time, and the events with the most device time. ``--trace`` also writes the
+Chrome trace to the path given.
 """
 
 import argparse
@@ -19,7 +21,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from focus_tpu_torch.entry import entry
+from focus_tpu_torch.entry import entry, steve_entry
 
 
 def _device_us(evt):
@@ -32,20 +34,23 @@ def _device_us(evt):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("flagship", "steve"),
+                    default="flagship")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
 
-    fn, (video, boxes) = entry(device="cuda", batch=args.batch)
+    make = entry if args.model == "flagship" else steve_entry
+    fn, inputs = make(device="cuda", batch=args.batch)
     for _ in range(2):
-        fn(video, boxes)
+        fn(*inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            fn(video, boxes)
+            fn(*inputs)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.iters
     # device-side events only: a CPU op's device time repeats its kernels'
@@ -59,7 +64,9 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(json.dumps({
-        "profile": "flagship eval forward", "batch": args.batch,
+        "profile": {"flagship": "flagship eval forward",
+                    "steve": "STEVE reconstruct_autoregressive"}[args.model],
+        "batch": args.batch,
         "gpu": smi, "wall_ms_per_forward": wall_ms,
         "device_ms_per_forward": device_ms if rows else "not measured",
         "device_busy_share": device_ms / wall_ms if rows else "not measured",

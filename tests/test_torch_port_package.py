@@ -13,7 +13,7 @@ import focus_tpu_torch
 from focus_tpu_torch.config import get_cfg
 from focus_tpu_torch.entry import entry, flagship_cfg
 from focus_tpu_torch.models.build import build_model
-from focus_tpu_torch.ops import patch_embed, trajectory_block
+from focus_tpu_torch.ops import ar_decode, patch_embed, trajectory_block
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(focus_tpu_torch.__file__))
@@ -91,6 +91,7 @@ def test_wrappers_refuse_other_devices():
 @pytest.mark.parametrize("module,source,symbol", [
     (trajectory_block, "trajectory_block.cu", "traj_core_bf16"),
     (patch_embed, "patch_embed.cu", "patch_embed_bf16"),
+    (ar_decode, "ar_decode.cu", "ar_decode_step_bf16"),
 ])
 def test_wrappers_bind_their_cuda_sources(module, source, symbol):
     with open(os.path.join(PKG, "csrc", source)) as f:
@@ -123,6 +124,7 @@ def _c_signature(source, symbol):
 @pytest.mark.parametrize("source,symbol,n_ptr,n_int,n_float", [
     ("trajectory_block.cu", "traj_core_bf16", 9, 6, 1),
     ("patch_embed.cu", "patch_embed_bf16", 4, 10, 0),
+    ("ar_decode.cu", "ar_decode_step_bf16", 17, 7, 1),
 ])
 def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
                                             n_float):
@@ -133,7 +135,7 @@ def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
     order = {"ptr": 0, "int": 1, "float": 2}
     assert [order[k] for k in kinds] == sorted(order[k] for k in kinds)
     module = {"trajectory_block.cu": trajectory_block,
-              "patch_embed.cu": patch_embed}[source]
+              "patch_embed.cu": patch_embed, "ar_decode.cu": ar_decode}[source]
     with open(module.__file__) as f:
         text = f.read()
     assert f"n_ptr={n_ptr}, n_int={n_int}" in text
