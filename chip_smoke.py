@@ -7,9 +7,9 @@ Phases (one JSON line each; any failure exits non-zero):
      every comparison, the CUDA kernels built from focus_tpu_torch/csrc/;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it (plus extreme stage-1 logits for the
-     trajectory core, and other row counts, step indices and a narrow
-     decoder for the decode step); kernel, plain and (where one exists)
-     library times by CUDA events;
+     trajectory core's forward and backward, and other row counts, step
+     indices and a narrow decoder for the decode step); kernel, plain and
+     (where one exists) library times by CUDA events;
   3. the port's layers against the golden fixtures of the reference
      (ORViT-MF, and STEVE's dVAE, slot attention and transformer decoder;
      plain path, float32, on the card);
@@ -17,7 +17,13 @@ Phases (one JSON line each; any failure exits non-zero):
      12 heads, ORViT at [1, 6, 10], bf16) at batch 8 through the kernels,
      with launch counts, throughput, peak memory, and the probabilities held
      against the same model and weights on the plain path;
-  5. the STEVE slice: encode + KV-cached rollout + dVAE decode at full width
+  5. the training slice: the flagship train step (forward, the trajectory
+     core's backward kernel, AdamW) through ``train_entry`` at batch 8, with
+     launch counts per step, train clips per second, peak memory, finite
+     gradients, and at batch 2 the loss, every parameter's gradient and the
+     parameters after one step held against the plain path in float32 from
+     the same weights and batch (the bf16 plain path beside it);
+  6. the STEVE slice: encode + KV-cached rollout + dVAE decode at full width
      (64 px, 256 tokens, decoder D=2048 with 8 blocks, vocabulary 4096,
      bf16) at 32 and 128 rollout rows through the fused decode step, with
      launch counts (wrapper calls, and device kernels as the C function
@@ -29,6 +35,7 @@ The script imports nothing of JAX.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -61,6 +68,22 @@ SLICE_ITERS = 5
 AR_TOL_REL = 2e-2
 STEVE_ITERS = 2
 AR_STEPS = (0, 1, 31, 32, 33, 128, 255)
+# trajectory backward, kernel vs plain float32 on the same bf16 inputs: the
+# kernel adds bf16 rounding of the stage-2 P, dxs and the stage-1 weights of
+# dv to the forward's; each gradient's relative L2 error must stay within 1e-2
+BWD_REL_L2 = 1e-2
+TRAIN_WARMUP, TRAIN_ITERS = 2, 5
+# train step at batch 2, kernel path (bf16) vs plain path (float32) from the
+# same weights and batch
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_COS = 0.99
+TRAIN_GRAD_REL_L2 = 5e-2
+TRAIN_PARAM_REL_L2 = 1e-3
+# where the bf16 plain path itself is farther than TRAIN_GRAD_REL_L2 from the
+# float32 one (the stage-2 weights at init, whose gradient is a difference of
+# near-equal terms that the bf16 rounding of xs perturbs), the kernel path
+# may be at most this factor farther than it
+BF16_SLACK = 1.25
 
 
 def emit(obj):
@@ -226,6 +249,119 @@ def phase_trajectory_kernel():
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": timing["bound_by"], "library_ms": None,
             "shape": "B=8 S=1568 N=196 F=8 C=768 heads=12"}
+
+
+def core_bwd_flops(B, S, F, N, C, heads):
+    # the TPU kernel's form: five stage-1 products (logits, dP, dv, dq, dk),
+    # five C x C products (g, dq2, dWk2, dWq2, dd), three stage-2
+    # contractions over F x C per head (logits, dg, the dxs logit term)
+    return 5 * 2 * B * S * F * N * C + 5 * 2 * B * S * C * C \
+        + 3 * 2 * B * S * F * C * heads
+
+
+def grad_errors(name, got, ref):
+    """max|err|, max|ref| and the relative L2 error of one gradient; raises
+    past max|err| <= KERNEL_TOL_REL x max|ref| or BWD_REL_L2."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    rel_l2 = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+    if not (bool(torch.isfinite(got).all()) and err <= KERNEL_TOL_REL * scale
+            and rel_l2 <= BWD_REL_L2):
+        raise AssertionError(
+            f"{name}: max|err| {err:.3e} vs {KERNEL_TOL_REL} x max|ref| "
+            f"{scale:.3e}, rel L2 {rel_l2:.3e} vs {BWD_REL_L2} (or non-finite)")
+    return {"max_abs_err": err, "max_abs_ref": scale, "rel_l2": rel_l2}
+
+
+GRAD_NAMES = ("dq", "dkf", "dvf", "dwq2", "dbq2", "dwk2")
+
+
+def check_core_backward(tb, args, dout, scale, heads, tag):
+    """The backward kernel (from the forward kernel's xs and q2) against
+    trajectory_core_backward_reference in float32 on the same inputs; the
+    kernel's dxs and dq2 against the reference's, for information."""
+    q, kf, vf, wq2, bq2, wk2, bk2 = args
+    _, xs, q2 = tb._launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
+    scratch = {}
+    before = tb.BWD_DEVICE_LAUNCHES
+    got = tb._launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale,
+                              heads, scratch=scratch)
+    inter = {}
+    ref = tb.trajectory_core_backward_reference(
+        *[a.float() for a in args], dout.float(), scale, heads,
+        intermediates=inter)
+    torch.cuda.synchronize()
+    case = {"case": tag, "device_launches": tb.BWD_DEVICE_LAUNCHES - before}
+    for name, g, r in zip(GRAD_NAMES, got, ref):
+        case[name] = grad_errors(f"{tag} {name}", g, r)
+    for name in ("dxs", "dq2"):
+        d = (scratch[name].float() - inter[name]).abs().max().item()
+        case[f"{name}_max_abs_err"] = d
+        case[f"{name}_max_abs_ref"] = inter[name].abs().max().item()
+    return case, xs, q2
+
+
+def phase_trajectory_backward():
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    heads, scale, C, F = 12, 64 ** -0.5, 768, 8
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3)
+    cases, timing = [], []
+    for N in (196, 200):
+        B, S = 8, F * N
+        args = core_inputs(B, N, gen)
+        dout = (torch.randn(B, S, C, generator=gen, device=DEV) * 0.1).bfloat16()
+        case, xs, q2 = check_core_backward(tb, args, dout, scale, heads,
+                                           f"B={B} N={N}")
+        q, kf, vf, wq2, bq2, wk2, bk2 = args
+        kernel_ms = time_ms(lambda: tb._launch_backward(
+            q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads))
+        plain_ms = time_ms(lambda: tb.trajectory_core_backward_reference(
+            *args, dout, scale, heads), warmup=1, iters=3)
+        ins = nbytes(q, kf, vf, wq2, wk2, dout, xs, q2)
+        outs = nbytes(q, kf, vf) + 4 * (2 * C * C + C)
+        bound_ms, bound_by = bound(core_bwd_flops(B, S, F, N, C, heads),
+                                   ins + outs)
+        timing.append({"B": B, "S": S, "N": N, "kernel_ms": kernel_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by})
+        cases.append(case)
+        del args, dout, xs, q2
+        torch.cuda.empty_cache()
+    for sign, mag in ((-1.0, 60.0), (1.0, 50.0)):
+        args = extreme_inputs(sign, mag, gen)
+        dout = (torch.randn(args[0].shape, generator=gen, device=DEV)
+                * 0.1).bfloat16()
+        cases.append(check_core_backward(tb, args, dout, scale, heads,
+                                         f"extreme {sign * mag}")[0])
+    per_call = {c["device_launches"] for c in cases}
+    if len(per_call) != 1:
+        raise AssertionError(f"backward device launches per call {per_call}")
+    per_call = per_call.pop()
+    emit({"phase": "kernel", "name": "trajectory_block_bwd", "ok": True,
+          "tolerance": f"each of {list(GRAD_NAMES)}: max|err| <= "
+                       f"{KERNEL_TOL_REL} x max|ref| and relative L2 error "
+                       f"<= {BWD_REL_L2} (bf16 kernel from the forward "
+                       "kernel's xs and q2 vs plain float32 on the same bf16 "
+                       "inputs, TF32 off)",
+          "device_launches_per_call": per_call,
+          "library_ms": None,
+          "library_note": "no single PyTorch call computes the trajectory "
+                          "core's backward",
+          "timing": timing, "cases": cases})
+    errs = [c[n]["max_abs_err"] for c in cases for n in GRAD_NAMES]
+    return {"name": "trajectory_block_bwd", "route": "cuda",
+            "source": "focus_tpu_torch/csrc/trajectory_block_bwd.cu",
+            "replaces": "focus_tpu/ops/pallas/trajectory_block.py:1198",
+            "max_abs_err": max(errs), "ms": timing[0]["kernel_ms"],
+            "plain_ms": timing[0]["plain_ms"],
+            "bound_ms": timing[0]["bound_ms"],
+            "bound_by": timing[0]["bound_by"], "library_ms": None,
+            "device_launches_per_call": per_call,
+            "shape": "B=8 S=1568 N=196 F=8 C=768 heads=12 "
+                     f"(S=1600: {timing[1]['kernel_ms']:.4f} ms)"}
 
 
 def phase_patch_kernel():
@@ -721,6 +857,190 @@ def phase_slice(smi):
     return launches
 
 
+def grads_of(model):
+    """Each parameter's gradient in float32; a parameter its graph never
+    read (no .grad) counts as a zero gradient, as JAX gives it."""
+    return {n: torch.zeros_like(p) if p.grad is None else p.grad.float()
+            for n, p in model.named_parameters()}
+
+
+def compare_grads(gk, gp, pk, pp, rel_bound=None):
+    """Per parameter: the kernel path's gradient ``gk`` against the plain
+    path's ``gp`` (cosine, relative L2 within ``rel_bound[name]``, default
+    TRAIN_GRAD_REL_L2, zero pattern) and the parameters after the update.
+    Returns (rows, problems)."""
+    rows, problems = [], []
+    for name, b in gp.items():
+        bound = (rel_bound or {}).get(name, TRAIN_GRAD_REL_L2)
+        a = gk[name]
+        a64, b64 = a.double().flatten(), b.double().flatten()
+        only_one = (a64 == 0) != (b64 == 0)
+        big = b64.abs().max().item()
+        row = {"name": name, "exact_zero_mismatch": int(only_one.sum()),
+               "max_abs_where_one_is_zero": (
+                   (a64 - b64).abs()[only_one].max().item()
+                   if bool(only_one.any()) else 0.0)}
+        if not bool(torch.isfinite(a64).all()):
+            problems.append(f"{name}: non-finite gradient")
+        if bool((a64 != 0).any()) != bool((b64 != 0).any()):
+            problems.append(f"{name}: all-zero gradient in one path only")
+        elif row["max_abs_where_one_is_zero"] > TRAIN_GRAD_REL_L2 * big:
+            problems.append(f"{name}: zero in one path where the other has "
+                            f"{row['max_abs_where_one_is_zero']:.3e} "
+                            f"(max {big:.3e})")
+        if big > 0:
+            row["cos"] = (a64 @ b64 / (a64.norm() * b64.norm())).item()
+            row["rel_l2"] = ((a64 - b64).norm() / b64.norm()).item()
+            if bound > TRAIN_GRAD_REL_L2:
+                row["rel_l2_bound"] = bound
+            if row["cos"] < TRAIN_GRAD_COS or row["rel_l2"] > bound:
+                problems.append(f"{name}: gradient cos {row['cos']:.4f}, "
+                                f"rel L2 {row['rel_l2']:.3e}")
+        row["param_rel_l2"] = ((pk[name].double() - pp[name].double()).norm()
+                               / pp[name].double().norm()).item()
+        if row["param_rel_l2"] > TRAIN_PARAM_REL_L2:
+            problems.append(f"{name}: parameters after the step differ by "
+                            f"{row['param_rel_l2']:.3e} (rel L2)")
+        rows.append(row)
+    return rows, problems
+
+
+def summary(rows):
+    scored = [r for r in rows if "cos" in r]
+    return {"params": len(rows),
+            "params_with_zero_gradient_in_both": len(rows) - len(scored),
+            "min_grad_cos": min(r["cos"] for r in scored),
+            "max_grad_rel_l2": max(r["rel_l2"] for r in scored),
+            "max_param_rel_l2_after_step": max(r["param_rel_l2"] for r in rows),
+            "elements_exactly_zero_in_one_path_only":
+                sum(r["exact_zero_mismatch"] for r in rows),
+            "params_bounded_by_the_bf16_plain_path":
+                sum("rel_l2_bound" in r for r in rows),
+            "max_grad_rel_l2_of_the_others": max(
+                [r["rel_l2"] for r in scored if "rel_l2_bound" not in r]),
+            "worst_grads": sorted(scored, key=lambda r: -r["rel_l2"])[:4]}
+
+
+def train_vs_plain_path():
+    """One train step at batch 2 through the kernels (bf16) and through the
+    plain path in float32, from the same weights and batch: the loss, every
+    parameter's gradient and the parameters after the AdamW update. The
+    plain path in bf16 is held against the float32 one beside it, for
+    information: it rounds where the kernels do not."""
+    from focus_tpu_torch.entry import train_entry
+
+    runs = {}
+    for name in ("kernel", "plain_f32", "plain_bf16"):
+        fn, (video, labels, boxes) = train_entry(device=DEV, batch=2, seed=0)
+        if name != "kernel":
+            fn.model.load_state_dict(runs["kernel"]["init"])
+            fn.model.use_kernels = False
+        if name == "plain_f32":
+            fn.model.dtype = torch.float32
+        init = {k: v.clone() for k, v in fn.model.state_dict().items()}
+        loss = fn(video, labels, boxes)["loss"].item()
+        runs[name] = {"init": init, "loss": loss, "grads": grads_of(fn.model),
+                      "params": {k: p.detach().clone() for k, p
+                                 in fn.model.named_parameters()}}
+        del fn
+        torch.cuda.empty_cache()
+    k, ref, pb = runs["kernel"], runs["plain_f32"], runs["plain_bf16"]
+    bf16_rows, _ = compare_grads(pb["grads"], ref["grads"], pb["params"],
+                                 ref["params"])
+    rel_bound = {r["name"]: max(TRAIN_GRAD_REL_L2, BF16_SLACK * r["rel_l2"])
+                 for r in bf16_rows if "rel_l2" in r}
+    rows, problems = compare_grads(k["grads"], ref["grads"], k["params"],
+                                   ref["params"], rel_bound)
+    loss_rel = abs(k["loss"] - ref["loss"]) / abs(ref["loss"])
+    if not (math.isfinite(k["loss"]) and loss_rel <= TRAIN_LOSS_REL):
+        problems.append(f"loss {k['loss']} vs plain {ref['loss']}")
+    report = {
+        "batch": 2, "loss": k["loss"], "plain_f32_loss": ref["loss"],
+        "plain_bf16_loss": pb["loss"], "loss_rel_err": loss_rel,
+        "kernel_vs_plain_f32": summary(rows),
+        "plain_bf16_vs_plain_f32": summary(bf16_rows),
+        "rule": f"kernel path (bf16) vs plain path (float32), same weights "
+                f"and batch: loss within {TRAIN_LOSS_REL} relative; every "
+                "gradient finite, all-zero in both paths or in neither, and "
+                "where exactly one path has an exact zero the other within "
+                f"{TRAIN_GRAD_REL_L2} x the parameter's max |gradient|; "
+                f"cosine >= {TRAIN_GRAD_COS} and relative L2 <= "
+                f"{TRAIN_GRAD_REL_L2}, or <= {BF16_SLACK} x the bf16 plain "
+                "path's own relative L2 from float32 where that exceeds "
+                f"{TRAIN_GRAD_REL_L2}; parameters after one AdamW step "
+                f"within {TRAIN_PARAM_REL_L2} of their norm (relative L2)"}
+    return report, problems
+
+
+def phase_train(smi, per_call):
+    """The flagship train step through ``train_entry`` at batch 8: launch
+    counts per step, train clips/s, peak memory, finite loss and gradients;
+    then the kernel path against the float32 plain path at batch 2.
+    ``per_call`` is
+    the device kernels one backward wrapper call launched in the kernel
+    phase."""
+    from focus_tpu_torch.entry import train_entry
+    from focus_tpu_torch.ops import patch_embed as pe
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    B = 8
+    fn, (video, labels, boxes) = train_entry(device=DEV, batch=B, seed=0)
+    first = [fn(video, labels, boxes)["loss"] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {"trajectory_block": tb.LAUNCHES,
+                "trajectory_block_bwd": tb.BWD_LAUNCHES,
+                "trajectory_block_bwd_device": tb.BWD_DEVICE_LAUNCHES,
+                "patch_embed": pe.LAUNCHES}
+
+    tb.LAUNCHES = tb.BWD_LAUNCHES = tb.BWD_DEVICE_LAUNCHES = pe.LAUNCHES = 0
+    depth = len(fn.model.blocks)  # 12: one core per block, both directions
+    expect = {"trajectory_block": depth, "trajectory_block_bwd": depth,
+              "trajectory_block_bwd_device": depth * per_call,
+              "patch_embed": 1}
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_ITERS):
+        before = counts()
+        losses.append(fn(video, labels, boxes)["loss"])
+        step = {k: v - before[k] for k, v in counts().items()}
+        if step != expect:
+            raise AssertionError(f"launches in one train step {step}, "
+                                 f"expected {expect}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in first + losses]
+    grads = grads_of(fn.model)
+    nonfinite = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if not all(math.isfinite(x) for x in losses) or nonfinite:
+        raise AssertionError(f"non-finite loss {losses} or gradients "
+                             f"{nonfinite[:5]}")
+    del fn, grads
+    torch.cuda.empty_cache()
+    vs_plain, problems = train_vs_plain_path()
+    emit({"phase": "slice", "name": "train", "ok": not problems,
+          "model": "ORViT-MF SSv2 16x224, D=768, 12 layers, 12 heads, ORViT "
+                   "at [1,6,10], O=4, motion stream, 174 classes, bf16 "
+                   "(float32 master weights); AdamW, base LR 5e-5, weight "
+                   "decay 5e-2, steps_with_relative_lrs, 100 steps per "
+                   "epoch, label-smoothing cross-entropy; init-scale "
+                   "weights, seed 0",
+          "batch": B, "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_ITERS,
+          "orvit_mf_ssv2_16x224_train_clips_per_sec_per_chip":
+              B * TRAIN_ITERS / seconds,
+          "ms_per_step": 1e3 * seconds / TRAIN_ITERS,
+          "peak_memory_gb": peak_gb, "losses": losses,
+          "launches": launches, "launches_per_step": expect,
+          "vs_plain_path": vs_plain, "problems": problems, "gpu": smi})
+    if problems:
+        raise AssertionError(f"train slice: {problems[:5]}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -738,6 +1058,7 @@ def main():
           "device_count": torch.cuda.device_count()})
     phase_build()
     traj = phase_trajectory_kernel()
+    bwd = phase_trajectory_backward()
     patch = phase_patch_kernel()
     phase_fixture()
     phase_steve_fixtures()
@@ -745,7 +1066,16 @@ def main():
     traj["launches"] = launches["trajectory_block"]
     patch["launches"] = launches["patch_embed"]
     traj["launches_note"] = patch["launches_note"] = (
-        f"over {SLICE_ITERS} flagship forwards")
+        f"over {SLICE_ITERS} flagship forwards; launches_train over "
+        f"{TRAIN_ITERS} flagship train steps")
+    train = phase_train(smi, bwd["device_launches_per_call"])
+    traj["launches_train"] = train["trajectory_block"]
+    patch["launches_train"] = train["patch_embed"]
+    bwd["launches"] = train["trajectory_block_bwd"]
+    bwd["device_launches"] = train["trajectory_block_bwd_device"]
+    bwd["launches_note"] = (
+        f"wrapper calls over {TRAIN_ITERS} flagship train steps; "
+        "device_launches are the kernels those calls launched")
     ar = phase_ar_decode(steve_entry(device=DEV, batch=8)[0].model)
     torch.cuda.empty_cache()
     counts = phase_steve(smi, ar["device_launches_per_step"])
@@ -755,7 +1085,7 @@ def main():
         f"wrapper calls (one per decode step) of {STEVE_ITERS} rollouts of "
         "32 rows through steve_entry; device_launches are the kernels those "
         "calls launched")
-    emit({"kernels": [traj, patch, ar]})
+    emit({"kernels": [traj, patch, bwd, ar]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -32,12 +32,7 @@
 // keeping it on chip as the TPU kernel does, with TMA and wgmma, is later
 // work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -49,74 +44,6 @@ constexpr int THREADS = 128;     // stage 2b
 constexpr int MAX_NP = 256;      // keys per frame after padding to 16
 constexpr int MAX_F = 8;         // frames; also the stride of the logits
 constexpr int MAX_HEADS = 16;
-
-__host__ __device__ inline size_t round_up(size_t x, size_t m) {
-  return (x + m - 1) / m * m;
-}
-
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-}
-
-__device__ __forceinline__ void zero16(void* dst) {
-  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 bf16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8, and register j receives (row lane / 4, cols 2 (lane % 4) + {0, 1})
-// of matrix j (or of its transpose with .trans)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) . b (16x8, col), bf16 in, float accumulate
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte asynchronous copy global -> shared (completes at cp_async_wait)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // ---- stage 1 -------------------------------------------------------------
 // Shared memory: two buffers, each a K tile and a V tile [16 KT][LDH] bf16,
@@ -461,10 +388,6 @@ __host__ __device__ inline size_t stage2_lg_bytes(int hpg) {
 __host__ __device__ inline size_t stage2_smem(int F, int hpg) {
   return stage2_xc_bytes(F) + stage2_lg_bytes(hpg) +
          (size_t)S2_CH * (hpg * HD + 8) * sizeof(bf16);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
 __global__ void __launch_bounds__(THREADS) traj_stage2_kernel(

@@ -1,11 +1,17 @@
-"""Entry points of the port: the flagship eval forward and the STEVE
-autoregressive reconstruction, each with example inputs.
+"""Entry points of the port: the flagship eval forward, the flagship train
+step and the STEVE autoregressive reconstruction, each with example inputs.
 
 ``entry`` is the counterpart of ``__graft_entry__._flagship_cfg`` / ``entry()``: ORViT-
 Motionformer, SSv2 16x224 (the reference's
 ``configs/ORViT/SSv2_ORViT-MF_224_16x4.yaml``), with random init-scale
 weights (every parameter from N(0, 0.02^2)) drawn from a seeded
 ``torch.Generator`` and inputs made as ``bench.py`` makes them.
+``train_entry`` is the counterpart of the set-up of
+``scripts/profile_train.py``: the same model (with the eval entry's random
+init-scale weights), batch and inputs with labels, the solver settings of
+``__graft_entry__._flagship_cfg`` (AdamW, base LR 5e-5, weight decay 5e-2,
+steps_with_relative_lrs, no clipping), 100 steps per epoch and the
+label-smoothing cross-entropy.
 ``steve_entry`` is the counterpart of the model that
 ``scripts/bench_steve_rollout.py`` builds: STEVE at the config defaults
 (64 px, 7 slots, decoder D=2048 with 8 blocks, vocabulary 4096, bf16) with
@@ -57,16 +63,22 @@ def flagship_cfg(tiny: bool = False):
     return cfg
 
 
-def example_inputs(cfg, batch: int, seed: int, device):
+def example_inputs(cfg, batch: int, seed: int, device, labels=False):
     """Video [B, T, H, W, 3] in [0, 1) and boxes [B, T/2, O, 4] (normalised
-    cxcywh around the centre), from numpy's RandomState as bench.py."""
+    cxcywh around the centre), from numpy's RandomState as bench.py; with
+    ``labels``, (video, labels [B] int64, boxes), the labels drawn next from
+    the same generator as scripts/profile_train.py draws them."""
     rs = np.random.RandomState(seed)
     T, crop = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
     video = rs.rand(batch, T, crop, crop, 3).astype(np.float32)
     boxes = (rs.rand(batch, T // 2, cfg.ORVIT.O, 4) * 0.5 + 0.25).astype(
         np.float32)
-    return (torch.from_numpy(video).to(device),
-            torch.from_numpy(boxes).to(device))
+    video = torch.from_numpy(video).to(device)
+    boxes = torch.from_numpy(boxes).to(device)
+    if not labels:
+        return video, boxes
+    ids = rs.randint(0, cfg.MODEL.NUM_CLASSES, (batch,)).astype(np.int64)
+    return video, torch.from_numpy(ids).to(device), boxes
 
 
 class EvalForward:
@@ -90,6 +102,61 @@ def entry(device="cuda", batch: int = 8, seed: int = 0, tiny: bool = False):
     gen.manual_seed(seed)
     init_weights(model, gen, scale=INIT_SCALE)
     return EvalForward(model), example_inputs(cfg, batch, seed, device)
+
+
+def train_cfg(tiny: bool = False):
+    """The flagship config with the solver of
+    ``__graft_entry__._flagship_cfg``."""
+    cfg = flagship_cfg(tiny)
+    cfg.SOLVER.OPTIMIZING_METHOD = "adamw"
+    cfg.SOLVER.WEIGHT_DECAY = 5e-2
+    cfg.SOLVER.BASE_LR = 5e-5
+    cfg.SOLVER.LR_POLICY = "steps_with_relative_lrs"
+    cfg.SOLVER.LRS = [1, 0.1, 0.01]
+    cfg.SOLVER.STEPS = [0, 20, 30]
+    cfg.SOLVER.MAX_EPOCH = 35
+    cfg.SOLVER.CLIP_GRAD_L2NORM = None
+    return cfg
+
+
+STEPS_PER_EPOCH = 100  # as scripts/profile_train.py builds its state
+
+
+class TrainStep:
+    """``fn(video, labels, boxes) -> stats``: one supervised train step of
+    ``fn.model`` from ``fn.state``; the stats (loss, top-1 and top-5
+    error) stay on the device."""
+
+    def __init__(self, model, state, step):
+        self.model, self.state, self.step = model, state, step
+
+    def __call__(self, video, labels, boxes):
+        self.state, stats = self.step(self.state, video, labels,
+                                      {"orvit_bboxes": boxes})
+        return stats
+
+
+def train_entry(device="cuda", batch: int = 8, seed: int = 0,
+                tiny: bool = False):
+    """(fn, (video, labels, boxes)): the flagship train step from random
+    init-scale weights (seeded with ``seed``) and an example batch, on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    from focus_tpu_torch.engine.trainer import (
+        build_supervised_state,
+        make_supervised_train_step,
+    )
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    device = resolve_device(device)
+    cfg = train_cfg(tiny)
+    model = build_model(cfg, device=device, seed=seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    init_weights(model, gen, scale=INIT_SCALE)
+    state = build_supervised_state(cfg, model, STEPS_PER_EPOCH)
+    step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
+    return (TrainStep(model, state, step),
+            example_inputs(cfg, batch, seed, device, labels=True))
 
 
 def steve_cfg(tiny: bool = False):

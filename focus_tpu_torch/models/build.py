@@ -155,6 +155,19 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             p.zero_()
 
 
+@torch.no_grad()
+def maybe_zero_init_orvit(cfg, model: nn.Module) -> None:
+    """With ORVIT.ZERO_INIT_ORVIT, zero every parameter of the residually
+    added ORViT blocks (``orvit_blocks.*``, the MViT ADD_LAYERS variant's;
+    the ORViT-Motionformer has none), so the model starts as the plain
+    backbone (reference build.py:66-68 and misc.module_0_init)."""
+    if not (cfg.ORVIT.ENABLE and cfg.ORVIT.ZERO_INIT_ORVIT):
+        return
+    for name, p in model.named_parameters():
+        if name.startswith("orvit_blocks."):
+            p.zero_()
+
+
 def build_model(cfg, device="cuda", seed=None):
     """Construct the module named by ``cfg.MODEL.MODEL_NAME`` on ``device``
     (eval mode), initialised as the JAX package initialises it from a

@@ -11,12 +11,15 @@ upstream torch names, so ``load_state_dict(strict=True)`` takes a reference
 Numerics follow the JAX package: float32 master weights, dense layers and
 activations at the compute dtype (``TPU.COMPUTE_DTYPE``), LayerNorm
 statistics in float32 with eps 1e-6, the classifier head and the eval
-softmax in float32. Eval only: the unscanned, unpipelined form, without
-MoE or int8 serving.
+softmax in float32. ``forward(train=True)`` returns float32 logits and
+applies stochastic depth (``DropPath``) from an explicit
+``torch.Generator``. The unscanned, unpipelined form, without MoE, int8
+serving or dropout.
 """
 
 from collections import OrderedDict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,6 +32,32 @@ from focus_tpu_torch.ops.trajectory_block import (
     fused_trajectory_core,
     trajectory_core_reference,
 )
+
+
+def drop_path(x, drop_prob: float, generator=None):
+    """Stochastic depth per sample (reference ORViT/orvit.py:13-26): each
+    sample's branch is kept with probability 1 - drop_prob and then scaled
+    by 1 / (1 - drop_prob). ``generator`` draws the mask (None: the global
+    generator of x's device)."""
+    keep = 1.0 - drop_prob
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    u = torch.rand(shape, generator=generator, device=x.device)
+    mask = torch.floor(keep + u).to(x.dtype)
+    return x / keep * mask
+
+
+class DropPath(nn.Module):
+    """``drop_path`` at a fixed rate in training; the identity in eval or at
+    rate 0."""
+
+    def __init__(self, drop_prob: float = 0.0):
+        super().__init__()
+        self.drop_prob = float(drop_prob)
+
+    def forward(self, x, train: bool = False, generator=None):
+        if not train or self.drop_prob == 0.0:
+            return x
+        return drop_path(x, self.drop_prob, generator)
 
 
 class Mlp(nn.Module):
@@ -100,17 +129,20 @@ class TrajectoryAttentionBlock(nn.Module):
     """(reference attention.py:443-476)"""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False,
-                 attn_drop=0.0):
+                 attn_drop=0.0, drop_path_rate=0.0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = TrajectoryAttention(dim, num_heads, qkv_bias, attn_drop)
+        self.drop_path = DropPath(drop_path_rate)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, metadata, thw, use_kernels=True):
-        x = x + self.attn(layer_norm(x, self.norm1), thw,
-                          use_kernels=use_kernels)
-        return x + self.mlp(layer_norm(x, self.norm2))
+    def forward(self, x, metadata, thw, use_kernels=True, train=False,
+                generator=None):
+        y = self.attn(layer_norm(x, self.norm1), thw, use_kernels=use_kernels)
+        x = x + self.drop_path(y, train, generator)
+        y = self.mlp(layer_norm(x, self.norm2))
+        return x + self.drop_path(y, train, generator)
 
 
 class SelfAttention(nn.Module):
@@ -207,6 +239,8 @@ class Motionformer(nn.Module):
             "MF.POS_EMBED other than 'separate' on video input":
                 c.MF.POS_EMBED != "separate" or not c.MF.VIDEO_INPUT,
             "MF.HEAD_ACT other than 'tanh'": c.MF.USE_MLP and c.MF.HEAD_ACT != "tanh",
+            "dropout (MF.DROP, MF.POS_DROPOUT, MF.HEAD_DROPOUT)":
+                max(c.MF.DROP, c.MF.POS_DROPOUT, c.MF.HEAD_DROPOUT) > 0.0,
         }
         missing = [k for k, v in unported.items() if v]
         if missing:
@@ -224,6 +258,10 @@ class Motionformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, num_base_patches + 1, D))
         self.temp_embed = nn.Parameter(torch.empty(1, self.temporal_resolution, D))
 
+        # stochastic-depth rates as the JAX model sets them: a linspace to
+        # MF.DROP_PATH over the trajectory blocks; ORViT blocks are built
+        # without one there, so theirs stays 0
+        dpr = [float(r) for r in np.linspace(0, c.MF.DROP_PATH, c.MF.DEPTH)]
         blocks = []
         for i in range(c.MF.DEPTH):
             if i in c.ORVIT.LAYERS:
@@ -236,7 +274,7 @@ class Motionformer(nn.Module):
             else:
                 blocks.append(TrajectoryAttentionBlock(
                     D, c.MF.NUM_HEADS, c.MF.MLP_RATIO, c.MF.QKV_BIAS,
-                    c.MF.ATTN_DROPOUT,
+                    c.MF.ATTN_DROPOUT, drop_path_rate=dpr[i],
                 ))
         self.blocks = nn.ModuleList(blocks)
         self.norm = nn.LayerNorm(D, eps=1e-6)
@@ -261,22 +299,22 @@ class Motionformer(nn.Module):
         side = int(npatch ** 0.5)
         return tokens, (self.temporal_resolution, side, side)
 
-    def forward_features(self, x, metadata):
+    def forward_features(self, x, metadata, train=False, generator=None):
         """x: [B, T, H, W, C] -> pooled feature [B, d]."""
         tokens, thw = self.tokenize(x)
         for blk in self.blocks:
-            tokens = blk(tokens, metadata, thw, use_kernels=self.use_kernels)
+            tokens = blk(tokens, metadata, thw, use_kernels=self.use_kernels,
+                         train=train, generator=generator)
         feat = layer_norm(tokens, self.norm)[:, 0]
         if self.cfg.MF.USE_MLP:
             feat = torch.tanh(linear(feat, self.pre_logits.fc))
         return feat
 
-    def forward(self, x, metadata=None, train: bool = False):
-        """Eval forward: class probabilities [B, num_classes] in float32."""
-        if train:
-            raise NotImplementedError("the PyTorch port is eval-only so far")
-        feat = self.forward_features(x, metadata or {})
+    def forward(self, x, metadata=None, train: bool = False, generator=None):
+        """Class probabilities [B, num_classes] in float32; with ``train``,
+        the float32 logits, stochastic depth drawn from ``generator``."""
+        feat = self.forward_features(x, metadata or {}, train, generator)
         # the head runs in float32, as flax promotes bf16 features against
         # its float32 kernel
         logits = F.linear(feat.float(), self.head.weight, self.head.bias)
-        return torch.softmax(logits, dim=-1)
+        return logits if train else torch.softmax(logits, dim=-1)

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from focus_tpu_torch.models.motionformer import (
+    DropPath,
     Mlp,
     SelfAttentionBlock,
     TrajectoryAttention,
@@ -100,7 +101,8 @@ class ORViTBlock(nn.Module):
     """(reference orvit.py:39-172)"""
 
     def __init__(self, cfg, dim=768, num_heads=12, mlp_ratio=4.0,
-                 qkv_bias=False, attn_drop=0.0, nb_frames=8):
+                 qkv_bias=False, attn_drop=0.0, nb_frames=8,
+                 drop_path_rate=0.0):
         super().__init__()
         c = cfg
         self.cfg = cfg
@@ -115,10 +117,12 @@ class ORViTBlock(nn.Module):
                                               qkv_bias, nb_frames)
             self.motion_mlp = Mlp(self.motion_stream.in_dim,
                                   int(dim * mlp_ratio), dim)
+        self.drop_path = DropPath(drop_path_rate)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x, metadata, thw, use_kernels=True):
+    def forward(self, x, metadata, thw, use_kernels=True, train=False,
+                generator=None):
         box_tensors = metadata["orvit_bboxes"]
         cls_token, patch_tokens = x[:, :1], x[:, 1:]
         BS, _, d = x.shape
@@ -149,5 +153,7 @@ class ORViTBlock(nn.Module):
         if self.cfg.ORVIT.USE_MOTION_STREAM:
             motion = self.motion_stream(box_tensors, H, W)
             patch_out = patch_out + self.motion_mlp(motion)
-        x = x + torch.cat([cls_token_out, patch_out], dim=1)
-        return x + self.mlp(layer_norm(x, self.norm2))
+        y = torch.cat([cls_token_out, patch_out], dim=1)
+        x = x + self.drop_path(y, train, generator)
+        y = self.mlp(layer_norm(x, self.norm2))
+        return x + self.drop_path(y, train, generator)

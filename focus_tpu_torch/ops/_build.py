@@ -3,7 +3,8 @@
 Each ``focus_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, named
 after the source's content hash under ``build/focus_tpu_torch/`` at the
-repository root, and loaded with ``ctypes``. The sources include no
+repository root, and loaded with ``ctypes``. The hash covers the source,
+the shared headers (``csrc/*.cuh``) and the flags. The sources include no
 PyTorch header, so a build takes seconds; ``build_all()`` starts one
 ``nvcc`` per source at once. A failed build raises. Nothing here runs at
 import time, so the CPU-only tests can import every module.
@@ -26,7 +27,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("ar_decode", "patch_embed", "trajectory_block")
+SOURCES = ("ar_decode", "patch_embed", "trajectory_block",
+           "trajectory_block_bwd")
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -47,8 +49,11 @@ def nvcc_path() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(h for h in os.listdir(CSRC) if h.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     lib = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
     return src, lib
 

@@ -1,10 +1,14 @@
 """Non-overlapping 3D patch embed (tokenizer): the plain PyTorch version
-and the wrapper of its CUDA kernel (``csrc/patch_embed.cu``).
+and the wrapper of its CUDA kernel (``csrc/patch_embed.cu``), differentiable
+through a ``torch.autograd.Function``.
 
-Counterpart of ``focus_tpu/ops/pallas/patch_embed.py`` and of the reshape +
-matmul branch of ``PatchEmbed3D`` (``focus_tpu/models/motionformer.py``).
-The public function keeps the JAX layout: video ``[B, T, H, W, C]`` and
-conv weight ``[kt, kh, kw, C, D]``.
+Counterpart of ``focus_tpu/ops/pallas/patch_embed.py`` (``_tokens`` and its
+custom VJP ``_tokens_bwd``) and of the reshape + matmul branch of
+``PatchEmbed3D`` (``focus_tpu/models/motionformer.py``). The public function
+keeps the JAX layout: video ``[B, T, H, W, C]`` and conv weight
+``[kt, kh, kw, C, D]``. As in the JAX package, the backward is plain tensor
+code (a patch gather and two matrix products); only the forward is a
+kernel.
 """
 
 import functools
@@ -17,19 +21,25 @@ from focus_tpu_torch.ops import _build
 LAUNCHES = 0
 
 
-def patch_embed_reference(x, w, b, kernel, dtype=None):
-    """Plain version: patch gather (reshape/permute) + matmul + bias.
-    x [B, T, H, W, C]; w [kt, kh, kw, C, D]; b [D] -> [B, T'*H'*W', D] at
-    ``dtype`` (default x's), float32 accumulation."""
+def gather_patches(x, kernel):
+    """x [B, T, H, W, C] -> patches [B, T'*H'*W', kt*kh*kw*C] in the JAX
+    kernel layout (``_gather_patches_xla``)."""
     kt, kh, kw = kernel
     B, T, H, W, C = x.shape
     t_, h_, w_ = T // kt, H // kh, W // kw
-    dtype = dtype or x.dtype
-    patches = x[:, : t_ * kt, : h_ * kh, : w_ * kw].reshape(
+    return x[:, : t_ * kt, : h_ * kh, : w_ * kw].reshape(
         B, t_, kt, h_, kh, w_, kw, C
     ).permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(
         B, t_ * h_ * w_, kt * kh * kw * C
     )
+
+
+def patch_embed_reference(x, w, b, kernel, dtype=None):
+    """Plain version: patch gather (reshape/permute) + matmul + bias.
+    x [B, T, H, W, C]; w [kt, kh, kw, C, D]; b [D] -> [B, T'*H'*W', D] at
+    ``dtype`` (default x's), float32 accumulation."""
+    dtype = dtype or x.dtype
+    patches = gather_patches(x, kernel)
     wm = w.reshape(-1, w.shape[-1]).to(dtype)
     out = torch.matmul(patches.to(dtype).float(), wm.float()).to(dtype)
     return out + b.to(dtype)
@@ -72,6 +82,53 @@ def _launch(x, w, b, kernel, dtype):
     return out
 
 
+def patch_embed_backward(x, w, dout, kernel, need_dx=True):
+    """(dx, dw, db) of the patch embed (``_tokens_bwd``): dw = patches^T .
+    dout and dx = dout . w^T scattered back to pixels, both at dout's dtype
+    with a float32 result, db the float32 sum of dout. dx is None unless
+    ``need_dx``; pixels outside whole patches get a zero gradient."""
+    kt, kh, kw = kernel
+    B, T, H, W, C = x.shape
+    tp, hp, wp = T // kt, H // kh, W // kw
+    D = w.shape[-1]
+    dt = dout.dtype
+    d2 = dout.reshape(-1, D)
+    patches = gather_patches(x, kernel).to(dt).reshape(d2.shape[0], -1)
+    dw = torch.matmul(patches.t(), d2).float().reshape(w.shape)
+    db = dout.float().sum((0, 1))
+    dx = None
+    if need_dx:
+        dpat = torch.matmul(d2, w.reshape(-1, D).to(dt).t()).float()
+        dx = x.new_zeros(x.shape, dtype=torch.float32)
+        dx[:, : tp * kt, : hp * kh, : wp * kw] = dpat.reshape(
+            B, tp, hp, wp, kt, kh, kw, C
+        ).permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, tp * kt, hp * kh,
+                                                   wp * kw, C)
+    return dx, dw, db
+
+
+class _PatchEmbed(torch.autograd.Function):
+    """The forward kernel (the plain version for a CPU tensor); the
+    backward is ``patch_embed_backward`` on either device."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, kernel, dtype):
+        ctx.save_for_backward(x, w)
+        ctx.kernel, ctx.b_dtype = kernel, b.dtype
+        if x.device.type == "cpu":
+            return patch_embed_reference(x, w, b, kernel, dtype)
+        return _launch(x, w, b, kernel, dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w = ctx.saved_tensors
+        dx, dw, db = patch_embed_backward(x, w, dout, ctx.kernel,
+                                          need_dx=ctx.needs_input_grad[0])
+        if dx is not None:
+            dx = dx.to(x.dtype)
+        return dx, dw.to(w.dtype), db.to(ctx.b_dtype), None, None
+
+
 def patch_embed_3d(x, w, b, kernel, dtype=None):
     """x [B, T, H, W, C] -> (tokens [B, T'*H'*W', D], (T', H', W')).
 
@@ -79,14 +136,12 @@ def patch_embed_3d(x, w, b, kernel, dtype=None):
     stride == kernel. ``dtype`` is the compute and output dtype (default
     x's). A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel, which reads the float32 or bf16 video as given and computes in
-    bf16, or raises.
+    bf16, or raises. The gradient is ``patch_embed_backward`` on both.
     """
     kt, kh, kw = kernel
     _, T, H, W, _ = x.shape
     thw = (T // kt, H // kh, W // kw)
     dtype = dtype or x.dtype
-    if x.device.type == "cpu":
-        return patch_embed_reference(x, w, b, kernel, dtype), thw
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no patch-embed kernel for device {x.device}")
-    return _launch(x, w, b, tuple(kernel), dtype), thw
+    return _PatchEmbed.apply(x, w, b, tuple(kernel), dtype), thw

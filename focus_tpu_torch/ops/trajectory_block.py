@@ -1,15 +1,17 @@
 """Fused trajectory-attention core for the non-CLS tokens: the plain
-PyTorch version and the wrapper of its CUDA kernel
-(``csrc/trajectory_block.cu``).
+PyTorch versions of its forward and backward, and the wrappers of their
+CUDA kernels (``csrc/trajectory_block.cu``, ``csrc/trajectory_block_bwd.cu``)
+joined by a ``torch.autograd.Function``.
 
 Counterpart of ``focus_tpu/ops/pallas/trajectory_block.py``
-(``fused_trajectory_core`` and its ``_xla_reference``), with the JAX
-signature and layout: q ``[B, S, C]``, kf/vf ``[B, F, N, C]``, Wq2/Wk2
-``[C, C]`` as ``[in, out]``, bq2/bk2 ``[C]``; S = F * N. Semantics follow
-reference ``slowfast/models/attention.py:499-557`` with
-``use_original_code=True``.
+(``fused_trajectory_core``, its ``_xla_reference`` and its custom VJP
+``_fused_bwd``), with the JAX signature and layout: q ``[B, S, C]``, kf/vf
+``[B, F, N, C]``, Wq2/Wk2 ``[C, C]`` as ``[in, out]``, bq2/bk2 ``[C]``;
+S = F * N. Semantics follow reference ``slowfast/models/attention.py:499-557``
+with ``use_original_code=True``.
 """
 
+import ctypes
 import functools
 
 import torch
@@ -17,8 +19,12 @@ import torch
 from focus_tpu_torch.ops import _build
 from focus_tpu_torch.ops import attention as attn_ops
 
-# kernel launches since the last reset (one per wrapper call on the card)
+# forward kernel launches since the last reset (one per wrapper call on the
+# card); BWD_LAUNCHES counts backward wrapper calls and BWD_DEVICE_LAUNCHES
+# the device kernels those calls launched, as the C function counts them
 LAUNCHES = 0
+BWD_LAUNCHES = 0
+BWD_DEVICE_LAUNCHES = 0
 
 HEAD_DIM = 64  # the kernel's head dim; also C % 128 == 0, F <= 8, N <= 256,
 # heads <= 16
@@ -51,17 +57,86 @@ def trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
     return attn_ops.temporal_stage_k2w(q2, wk2, xs, F, scale, heads)
 
 
+def trajectory_core_backward_reference(q, kf, vf, wq2, bq2, wk2, bk2, dout,
+                                       scale, heads, intermediates=None):
+    """Plain version of the backward, in float32, step by step as the TPU
+    kernel (``_fused_bwd_kernel``) computes it: the stage-1 and stage-2
+    forward recomputed, then the stage-2 backward (per head g_h, the logits
+    over F, their softmax, dl2, dg_h, dq2, dWk2, dbq2, dWq2, and dxs from the
+    logit, value and own-frame terms), then the stage-1 backward (dv, dz, dq,
+    dk per batch row, head and frame). Returns (dq, dkf, dvf, dwq2, dbq2,
+    dwk2, dbk2) in the operands' dtypes; dbk2 is zero (bk2 drops out of the
+    softmax). A dict passed as ``intermediates`` receives xs, q2, dq2 and
+    dxs (float32)."""
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    hd = C // heads
+    q_, k_, v_, w_q2, b_q2, w_k2, do = (
+        t.float() for t in (q, kf, vf, wq2, bq2, wk2, dout))
+    frame = torch.arange(S, device=q.device) // N
+    rows = torch.arange(S, device=q.device)
+
+    # stage-1 forward: a1[b, h, s, f, n], xs[b, s, f, c]
+    qh = q_.reshape(B, S, heads, hd).permute(0, 2, 1, 3)
+    kh = k_.reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    vh = v_.reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    a1 = torch.softmax(torch.einsum("bhsd,bhfnd->bhsfn", qh, kh) * scale, -1)
+    xs = torch.einsum("bhsfn,bhfnd->bsfhd", a1, vh).reshape(B, S, F, C)
+    x_diag = xs[:, rows, frame]
+    q2 = x_diag @ w_q2 + b_q2
+
+    # stage-2 forward: g[b, s, h, c] = q2_h . Wk2[:, h]^T, a2[b, s, h, f]
+    q2h = q2.reshape(B, S, heads, hd)
+    wk2h = w_k2.reshape(C, heads, hd)
+    g = torch.einsum("bshd,chd->bshc", q2h, wk2h)
+    a2 = torch.softmax(torch.einsum("bshc,bsfc->bshf", g, xs) * scale, -1)
+
+    # stage-2 backward
+    doh = do.reshape(B, S, heads, hd)
+    da2 = torch.einsum("bshd,bsfhd->bshf", doh, xs.reshape(B, S, F, heads, hd))
+    dl2 = scale * a2 * (da2 - (a2 * da2).sum(-1, keepdim=True))
+    dg = torch.einsum("bshf,bsfc->bshc", dl2, xs)
+    dq2 = torch.einsum("bshc,chd->bshd", dg, wk2h).reshape(B, S, C)
+    dwk2 = torch.einsum("bshc,bshd->chd", dg, q2h).reshape(C, C)
+    dbq2 = dq2.sum((0, 1))
+    dwq2 = torch.einsum("bsi,bso->io", x_diag, dq2)
+    dxs = (torch.einsum("bshf,bshc->bsfc", dl2, g)
+           + torch.einsum("bshf,bshd->bsfhd", a2, doh).reshape(B, S, F, C))
+    dxs[:, rows, frame] += dq2 @ w_q2.t()
+
+    # stage-1 backward, per (batch row, head, frame)
+    dxsh = dxs.reshape(B, S, F, heads, hd).permute(0, 3, 1, 2, 4)
+    dv = torch.einsum("bhsfn,bhsfd->bhfnd", a1, dxsh)
+    da1 = torch.einsum("bhsfd,bhfnd->bhsfn", dxsh, vh)
+    dz = a1 * (da1 - (a1 * da1).sum(-1, keepdim=True))
+    dq = scale * torch.einsum("bhsfn,bhfnd->bhsd", dz, kh)
+    dk = scale * torch.einsum("bhsfn,bhsd->bhfnd", dz, qh)
+
+    if intermediates is not None:
+        intermediates.update(xs=xs, q2=q2, dq2=dq2, dxs=dxs)
+    return (dq.permute(0, 2, 1, 3).reshape(B, S, C).to(q.dtype),
+            dk.permute(0, 2, 3, 1, 4).reshape(B, F, N, C).to(kf.dtype),
+            dv.permute(0, 2, 3, 1, 4).reshape(B, F, N, C).to(vf.dtype),
+            dwq2.to(wq2.dtype), dbq2.to(bq2.dtype), dwk2.to(wk2.dtype),
+            torch.zeros_like(bk2))
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     return _build.bind("trajectory_block", "traj_core_bf16",
                        n_ptr=9, n_int=6, n_float=1)
 
 
-def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
-    global LAUNCHES
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel_fn():
+    return _build.bind("trajectory_block_bwd", "traj_core_bwd_bf16",
+                       n_ptr=24, n_int=6, n_float=1)
+
+
+def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
-    args = (q, kf, vf, wq2, bq2, wk2)
+    args = (q, kf, vf, wq2, bq2, wk2) + tuple(extra)
     if any(t.dtype != torch.bfloat16 for t in args):
         raise TypeError("trajectory kernel takes bfloat16 operands, got "
                         f"{[t.dtype for t in args]}")
@@ -82,6 +157,16 @@ def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
         raise ValueError(f"trajectory kernel needs head dim {HEAD_DIM}, "
                          f"C % 128 == 0, F <= 8, N <= 256, heads <= 16 "
                          f"(C={C}, heads={heads}, F={F}, N={N})")
+
+
+def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
+    """Forward kernel -> (out, xs, q2); xs [B, S, F, C] and q2 [B, S, C]
+    are the stage-1 aggregates and stage-2 queries it writes on the way,
+    which the backward reads."""
+    global LAUNCHES
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads)
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
     xs = torch.empty(B, S, F, C, dtype=torch.bfloat16, device=q.device)
     q2 = torch.empty(B, S, C, dtype=torch.bfloat16, device=q.device)
     out = torch.empty(B, S, C, dtype=torch.bfloat16, device=q.device)
@@ -95,17 +180,83 @@ def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
         )
     _build.check(err, "traj_core_bf16")
     LAUNCHES += 1
-    return out
+    return out, xs, q2
+
+
+def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
+                     scratch=None):
+    """Backward kernel -> (dq, dkf, dvf, dwq2, dbq2, dwk2) in the operands'
+    dtype (bf16). A dict passed as ``scratch`` receives the kernel's scratch
+    tensors (among them dxs [B, S, F, C] and dq2 [B, S, C])."""
+    global BWD_LAUNCHES, BWD_DEVICE_LAUNCHES
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads, (dout, xs, q2))
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    if (tuple(dout.shape) != (B, S, C) or tuple(xs.shape) != (B, S, F, C)
+            or tuple(q2.shape) != (B, S, C)):
+        raise ValueError("dout, xs and q2 do not match the operands")
+    dev, M = q.device, B * S
+
+    def buf(*shape, dtype=torch.float32):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    bf = torch.bfloat16
+    grads = (buf(B, S, C, dtype=bf), buf(B, F, N, C, dtype=bf),
+             buf(B, F, N, C, dtype=bf), buf(C, C), buf(C), buf(C, C))
+    work = {"y": buf(M * F, C), "pmat": buf(M * F, C, dtype=bf),
+            "dxs": buf(B, S, F, C, dtype=bf), "a2": buf(M, heads, F),
+            "dq2": buf(B, S, C), "dq2b": buf(M, C, dtype=bf),
+            "dd": buf(M, C), "part": buf(16, C, C),
+            "stats": buf(3, B, heads, F, S)}
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bwd_kernel_fn()(
+            q.data_ptr(), kf.data_ptr(), vf.data_ptr(), wq2.data_ptr(),
+            wk2.data_ptr(), dout.data_ptr(), xs.data_ptr(), q2.data_ptr(),
+            *(g.data_ptr() for g in grads),
+            *(w.data_ptr() for w in work.values()),
+            ctypes.addressof(launched),
+            B, S, F, N, C, heads, float(scale), stream,
+        )
+    _build.check(err, "traj_core_bwd_bf16")
+    BWD_LAUNCHES += 1
+    BWD_DEVICE_LAUNCHES += launched.value
+    if scratch is not None:
+        scratch.update(work)
+    dq, dkf, dvf, dwq2, dbq2, dwk2 = grads
+    return (dq, dkf, dvf, dwq2.to(wq2.dtype), dbq2.to(bq2.dtype),
+            dwk2.to(wk2.dtype))
+
+
+class _FusedCore(torch.autograd.Function):
+    """Forward kernel, with xs and q2 kept for the backward kernel (the
+    counterpart of ``jax.custom_vjp`` over ``fused_trajectory_core``)."""
+
+    @staticmethod
+    def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
+        out, xs, q2 = _launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
+        ctx.save_for_backward(q, kf, vf, wq2, bq2, wk2, bk2, xs, q2)
+        ctx.scale, ctx.heads = scale, heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, kf, vf, wq2, bq2, wk2, bk2, xs, q2 = ctx.saved_tensors
+        grads = _launch_backward(q, kf, vf, wq2, bq2, wk2, dout.contiguous(),
+                                 xs, q2, ctx.scale, ctx.heads)
+        return (*grads, torch.zeros_like(bk2), None, None)
 
 
 def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
     """Trajectory attention for the non-CLS tokens -> [B, S, C].
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (bf16, contiguous, head dim 64) or raises."""
+    A CPU tensor takes the plain version (its gradient is autograd's); a
+    CUDA tensor launches the forward kernel, and its gradient the backward
+    kernel (bf16, contiguous, head dim 64), or raises."""
     if q.device.type == "cpu":
         return trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2,
                                          scale, heads)
     if q.device.type != "cuda":
         raise ValueError(f"no trajectory kernel for device {q.device}")
-    return _launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
+    return _FusedCore.apply(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads)

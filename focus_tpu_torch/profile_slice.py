@@ -1,12 +1,14 @@
 """Where the time of a slice's main path goes, on one GPU.
 
-    python3 -m focus_tpu_torch.profile_slice [--model flagship|steve] \
+    python3 -m focus_tpu_torch.profile_slice [--model flagship|steve|train] \
         [--batch 8] [--iters 2] [--trace trace.json]
 
-Builds ``entry(device="cuda")`` (the flagship eval forward) or
-``steve_entry(device="cuda")`` (STEVE's encode + KV-cached rollout + dVAE
-decode; ``--batch`` videos of 4 frames), warms up, then traces ``--iters``
-calls with ``torch.profiler`` (CPU and CUDA activities). Prints one JSON
+Builds ``entry(device="cuda")`` (the flagship eval forward),
+``train_entry(device="cuda")`` (one flagship train step: forward, backward
+and the AdamW update) or ``steve_entry(device="cuda")`` (STEVE's encode +
+KV-cached rollout + dVAE decode; ``--batch`` videos of 4 frames), warms up,
+then traces ``--iters`` calls with ``torch.profiler`` (CPU and CUDA
+activities). Prints one JSON
 line: the wall time per call, the summed device time of the device-side
 events (kernels and device copies), the device's busy share of the wall
 time, and the events with the most device time. ``--trace`` also writes the
@@ -21,7 +23,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from focus_tpu_torch.entry import entry, steve_entry
+from focus_tpu_torch.entry import entry, steve_entry, train_entry
 
 
 def _device_us(evt):
@@ -34,7 +36,7 @@ def _device_us(evt):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("flagship", "steve"),
+    ap.add_argument("--model", choices=("flagship", "steve", "train"),
                     default="flagship")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=2)
@@ -42,7 +44,8 @@ def main():
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
 
-    make = entry if args.model == "flagship" else steve_entry
+    make = {"flagship": entry, "steve": steve_entry,
+            "train": train_entry}[args.model]
     fn, inputs = make(device="cuda", batch=args.batch)
     for _ in range(2):
         fn(*inputs)
@@ -53,9 +56,11 @@ def main():
             fn(*inputs)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.iters
-    # device-side events only: a CPU op's device time repeats its kernels'
+    # device-side events only: a CPU op's device time repeats its kernels',
+    # and so does a user annotation's span on the device (the optimizer's)
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
     rows = [r for r in rows if r[2] > 0]
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows) / 1e3 / args.iters
@@ -65,14 +70,15 @@ def main():
     ).stdout.strip()
     print(json.dumps({
         "profile": {"flagship": "flagship eval forward",
-                    "steve": "STEVE reconstruct_autoregressive"}[args.model],
+                    "steve": "STEVE reconstruct_autoregressive",
+                    "train": "flagship train step"}[args.model],
         "batch": args.batch,
-        "gpu": smi, "wall_ms_per_forward": wall_ms,
-        "device_ms_per_forward": device_ms if rows else "not measured",
+        "gpu": smi, "wall_ms_per_call": wall_ms,
+        "device_ms_per_call": device_ms if rows else "not measured",
         "device_busy_share": device_ms / wall_ms if rows else "not measured",
         "top_kernels": [
-            {"name": k[:120], "calls_per_forward": c / args.iters,
-             "device_ms_per_forward": us / 1e3 / args.iters}
+            {"name": k[:120], "launches_per_call": c / args.iters,
+             "device_ms_per_call": us / 1e3 / args.iters}
             for k, c, us in rows[: args.top]
         ],
     }), flush=True)

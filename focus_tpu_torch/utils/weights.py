@@ -131,6 +131,14 @@ def jax_params_to_state_dict(params, under: Tuple[str, ...] = ()
     return sd
 
 
+def jax_grads_to_state_dict(grads, under: Tuple[str, ...] = ()
+                            ) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree (``jax.grad`` with respect to params) keyed by
+    the port's parameter names: it has the params' structure, so it maps as
+    they do, transposes and all."""
+    return jax_params_to_state_dict(grads, under)
+
+
 def reference_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A reference (upstream) ``state_dict`` without the constant buffers
     that the port computes instead of storing: the decoder blocks' causal

@@ -11,7 +11,7 @@ import torch
 
 import focus_tpu_torch
 from focus_tpu_torch.config import get_cfg
-from focus_tpu_torch.entry import entry, flagship_cfg
+from focus_tpu_torch.entry import entry, flagship_cfg, train_cfg, train_entry
 from focus_tpu_torch.models.build import build_model
 from focus_tpu_torch.ops import ar_decode, patch_embed, trajectory_block
 
@@ -53,6 +53,8 @@ def test_entry_points_default_to_cuda():
         entry()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(flagship_cfg(tiny=True))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_entry(tiny=True)
 
 
 def test_entry_on_cpu_runs_tiny_slice():
@@ -65,14 +67,51 @@ def test_entry_on_cpu_runs_tiny_slice():
     torch.testing.assert_close(fn(video, boxes), probs, rtol=0, atol=0)
 
 
-def test_eval_only():
+def test_train_mode_returns_logits():
     fn, (video, boxes) = entry(device="cpu", batch=1, tiny=True)
-    with pytest.raises(NotImplementedError):
-        fn.model(video, {"orvit_bboxes": boxes}, train=True)
+    meta = {"orvit_bboxes": boxes}
+    logits = fn.model(video, meta, train=True)
+    assert logits.shape == (1, 174) and logits.dtype == torch.float32
+    torch.testing.assert_close(torch.softmax(logits, -1).detach(),
+                               fn(video, boxes))
+
+
+@pytest.mark.parametrize("key,value", [
+    ("MF.ATTN_DROPOUT", 0.1), ("MF.DROP", 0.1), ("MF.POS_DROPOUT", 0.1),
+    ("MF.HEAD_DROPOUT", 0.1),
+])
+def test_dropout_outside_the_slice_raises(key, value):
     cfg = flagship_cfg(tiny=True)
-    cfg.MF.ATTN_DROPOUT = 0.1
+    section, name = key.split(".")
+    setattr(getattr(cfg, section), name, value)
     with pytest.raises(NotImplementedError):
         build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("MIXUP.ENABLE", True), ("TPU.GRAD_ACCUM", 2), ("DETECTION.ENABLE", True),
+    ("TPU.MOE.NUM_EXPERTS", 4), ("TPU.REMAT", True), ("TPU.ZERO1", True),
+])
+def test_train_options_outside_the_slice_raise(key, value):
+    from focus_tpu_torch.engine.trainer import make_supervised_train_step
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    cfg = train_cfg(tiny=True)
+    *path, name = key.split(".")
+    node = cfg
+    for part in path:
+        node = getattr(node, part)
+    setattr(node, name, value)
+    with pytest.raises(NotImplementedError,
+                       match="MoE" if "MOE" in key else key):
+        make_supervised_train_step(None, cfg, get_loss_func(cfg))
+
+
+def test_ek_loss_raises():
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    with pytest.raises(NotImplementedError, match="EK_loss"):
+        get_loss_func("EK_loss")(None, None)
 
 
 def test_wrappers_refuse_other_devices():
@@ -90,6 +129,7 @@ def test_wrappers_refuse_other_devices():
 
 @pytest.mark.parametrize("module,source,symbol", [
     (trajectory_block, "trajectory_block.cu", "traj_core_bf16"),
+    (trajectory_block, "trajectory_block_bwd.cu", "traj_core_bwd_bf16"),
     (patch_embed, "patch_embed.cu", "patch_embed_bf16"),
     (ar_decode, "ar_decode.cu", "ar_decode_step_bf16"),
 ])
@@ -123,6 +163,7 @@ def _c_signature(source, symbol):
 
 @pytest.mark.parametrize("source,symbol,n_ptr,n_int,n_float", [
     ("trajectory_block.cu", "traj_core_bf16", 9, 6, 1),
+    ("trajectory_block_bwd.cu", "traj_core_bwd_bf16", 24, 6, 1),
     ("patch_embed.cu", "patch_embed_bf16", 4, 10, 0),
     ("ar_decode.cu", "ar_decode_step_bf16", 17, 7, 1),
 ])
@@ -135,6 +176,7 @@ def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
     order = {"ptr": 0, "int": 1, "float": 2}
     assert [order[k] for k in kinds] == sorted(order[k] for k in kinds)
     module = {"trajectory_block.cu": trajectory_block,
+              "trajectory_block_bwd.cu": trajectory_block,
               "patch_embed.cu": patch_embed, "ar_decode.cu": ar_decode}[source]
     with open(module.__file__) as f:
         text = f.read()
