@@ -29,7 +29,14 @@ Phases (one JSON line each; any failure exits non-zero):
      launch counts (wrapper calls, and device kernels as the C function
      counts them), frames per second, the time split, the unfused module
      rollout beside it, and the logits and token ids held against the plain
-     path.
+     path;
+  7. the W8A8 serving matrix: the flagship forward at batch 8, exact-erf
+     bf16 and the labeled variants TPU.FAST_GELU, TPU.INT8_SERVING and both,
+     one after the other (launch counts, clips per second, peak memory,
+     probabilities against the same variant on the plain path and against
+     the exact-erf bf16 model), and STEVE's
+     rollout through the W8A8 decode step at 32 and 128 rows (frames per
+     second, launch counts, time split, ids against the W8A8 plain path).
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -47,8 +54,9 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEV = "cuda"  # every phase runs on the card
-# H100 SXM data sheet: dense bf16 tensor-core rate and HBM3 bandwidth
+# H100 SXM data sheet: dense bf16 and int8 tensor-core rates, HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # kernel vs plain float32 on the same bf16 inputs: the kernels round their
 # intermediates (stage-1 weights, xs, q2, g, stage-2 weights; the patch-embed
@@ -68,6 +76,16 @@ SLICE_ITERS = 5
 AR_TOL_REL = 2e-2
 STEVE_ITERS = 2
 AR_STEPS = (0, 1, 31, 32, 33, 128, 255)
+# W8A8 decode step, kernel vs plain version on the same inputs: the bf16
+# causes above, and where an activation lands next to a rounding boundary of
+# its code (a bf16 step apart in xn, ctx or the hidden) the code flips and
+# moves that output by one quantum, s_row * s_col * |w code| <= amax_a *
+# amax_w / 127, which then carries through the remaining layers like a bf16
+# step; the bound allows 1.5x the bf16 one
+AR_W8A8_TOL_REL = 3e-2
+# serving variants against the exact-erf bf16 model on the same weights
+# (tests/test_int8_serving.py:81)
+VARIANT_PROB_ATOL = 0.05
 # trajectory backward, kernel vs plain float32 on the same bf16 inputs: the
 # kernel adds bf16 rounding of the stage-2 P, dxs and the stage-1 weights of
 # dv to the forward's; each gradient's relative L2 error must stay within 1e-2
@@ -116,8 +134,11 @@ def time_ms(fn, warmup=3, iters=TIMED_ITERS):
     return statistics.median(times)
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops, nbytes, int8_ops=0):
+    """Least time (ms) and what binds it: bf16 operations and int8
+    operations at their peak rates, or the bytes at the memory rate."""
+    t_ops = flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -428,6 +449,8 @@ def ar_state(model, packed, rows, gen):
     caches (every row filled, so a read or write beyond row t shows)."""
     from focus_tpu_torch.models.common import linear
 
+    from focus_tpu_torch.ops.ar_decode import next_input
+
     dec, d, dt = model.steve_decoder, model.d_model, torch.bfloat16
     L = dec.pos.pe.shape[1]
     slots = torch.randn(rows, model.num_slots,
@@ -443,15 +466,30 @@ def ar_state(model, packed, rows, gen):
     caches = [torch.randn(dec.tf.num_blocks, L, rows, d, generator=gen,
                           device=DEV).to(dt) for _ in range(2)]
     return {"slots": slots, "kvs": kvs, "ckv": ckv,
-            "x": packed.dict_w[ids].contiguous(), "k": caches[0],
+            "x": next_input(packed, ids, dt).contiguous(), "k": caches[0],
             "v": caches[1], "pos": dec.pos.pe[0, :L].float().contiguous()}
 
 
+def ar_counts(ar):
+    """The decode-step wrappers' counts: bf16 and W8A8 calls, and the device
+    kernels those calls launched."""
+    return {"bf16": ar.LAUNCHES, "bf16_device": ar.DEVICE_LAUNCHES,
+            "w8a8": ar.W8A8_LAUNCHES, "w8a8_device": ar.W8A8_DEVICE_LAUNCHES}
+
+
+def reset_ar_counts(ar):
+    ar.LAUNCHES = ar.DEVICE_LAUNCHES = 0
+    ar.W8A8_LAUNCHES = ar.W8A8_DEVICE_LAUNCHES = 0
+
+
 def check_ar_step(model, packed, rows, t, gen, tag):
-    """fused_ar_step against ar_step_reference from the same state; the
-    device kernels the one wrapper call launched are counted."""
+    """fused_ar_step against ar_step_reference from the same state (the
+    bf16 or the W8A8 step, as ``packed`` is); the device kernels the one
+    wrapper call launched are counted."""
     from focus_tpu_torch.ops import ar_decode as ar
 
+    w8a8 = isinstance(packed, ar.PackedDecoderW8A8)
+    tol = AR_W8A8_TOL_REL if w8a8 else AR_TOL_REL
     st = ar_state(model, packed, rows, gen)
     heads = model.steve_decoder.tf.num_heads
     outs = []
@@ -459,17 +497,21 @@ def check_ar_step(model, packed, rows, t, gen, tag):
         k, v = st["k"].clone(), st["v"].clone()
         lg = torch.empty(rows, model.vocab_size, dtype=torch.float32,
                          device=DEV)
-        ar.DEVICE_LAUNCHES = 0
+        reset_ar_counts(ar)
         nx, ids, _, _ = step(st["x"], t, packed, st["ckv"], k, v, st["pos"],
                              heads, logits_out=lg)
         torch.cuda.synchronize()
-        outs.append((nx, ids.long(), k, v, lg, ar.DEVICE_LAUNCHES))
-    (nx, ids, k, v, lg, device_launches), (_, rids, rk, rv, rlg, stray) = outs
-    if stray != 0:
-        raise AssertionError(f"{tag}: the plain version launched a kernel")
-    err_lg, scale_lg = check_close(f"{tag} logits", lg, rlg, AR_TOL_REL)
-    err_k, _ = check_close(f"{tag} k row", k[:, t], rk[:, t], AR_TOL_REL)
-    err_v, _ = check_close(f"{tag} v row", v[:, t], rv[:, t], AR_TOL_REL)
+        outs.append((nx, ids.long(), k, v, lg, ar_counts(ar)))
+    (nx, ids, k, v, lg, counts), (_, rids, rk, rv, rlg, stray) = outs
+    mode, other = ("w8a8", "bf16") if w8a8 else ("bf16", "w8a8")
+    if (any(stray.values()) or counts[mode] != 1 or counts[other]
+            or counts[f"{other}_device"]):
+        raise AssertionError(f"{tag}: launch counts {counts}, plain "
+                             f"version {stray}")
+    device_launches = counts[f"{mode}_device"]
+    err_lg, scale_lg = check_close(f"{tag} logits", lg, rlg, tol)
+    err_k, _ = check_close(f"{tag} k row", k[:, t], rk[:, t], tol)
+    err_v, _ = check_close(f"{tag} v row", v[:, t], rv[:, t], tol)
     keep = torch.ones(k.shape[1], dtype=torch.bool, device=DEV)
     keep[t] = False
     if not (torch.equal(k[:, keep], st["k"][:, keep])
@@ -481,7 +523,7 @@ def check_ar_step(model, packed, rows, t, gen, tag):
     # plain version's top-2 margin is at most 2 err
     if bool(((ids != rids) & (margin > 2 * err_lg)).any()):
         raise AssertionError(f"{tag}: ids differ beyond the logits' error")
-    if not torch.equal(nx, packed.dict_w[ids]):
+    if not torch.equal(nx, ar.next_input(packed, ids, torch.bfloat16)):
         raise AssertionError(f"{tag}: next input is not the packed "
                              "dictionary row of the id")
     return {"case": tag, "rows": rows, "t": t, "max_abs_err_logits": err_lg,
@@ -492,18 +534,24 @@ def check_ar_step(model, packed, rows, t, gen, tag):
             "device_launches": device_launches}
 
 
-def ar_bound(rows, D, nb, V, S, t):
+def ar_bound(rows, D, nb, V, S, t, w8a8=False):
     """Least time of one decode step: every weight, the head and the
     gathered dictionary rows, the small float32 parameters, cache rows < t
-    read and row t written, the hoisted cross K/V, the token in and out."""
-    weights = (nb * 14 * D * D + V * D + rows * D) * 2
+    read and row t written, the hoisted cross K/V, the token in and out.
+    W8A8: 1-byte weights plus their float32 scales, and the products as
+    int8 operations."""
+    n_w = nb * 14 * D * D + V * D + rows * D
     small = (nb * 11 * D + 3 * D) * 4
     cache = nb * 2 * (t + 1) * rows * D * 2
     ckv = nb * 2 * rows * S * D * 2
     io = 2 * rows * D * 2 + rows * 4
-    flops = (2 * rows * (nb * 14 * D * D + V * D)
-             + nb * 4 * rows * D * (t + 1 + S))
-    return bound(flops, weights + small + cache + ckv + io)
+    gemm_ops = 2 * rows * (nb * 14 * D * D + V * D)
+    attn_flops = nb * 4 * rows * D * (t + 1 + S)
+    if w8a8:
+        scales = (nb * 14 * D + V + -(-V // D) * D) * 4
+        return bound(attn_flops, n_w + scales + small + cache + ckv + io,
+                     int8_ops=gemm_ops)
+    return bound(gemm_ops + attn_flops, n_w * 2 + small + cache + ckv + io)
 
 
 @torch.no_grad()
@@ -594,6 +642,86 @@ def phase_ar_decode(model):
                      "7 slots, L=257"}
 
 
+@torch.no_grad()
+def time_ar_w8a8(model, packed, packed_bf16, rows, t, gen):
+    """The W8A8 kernel, its plain version and (same state, same call) the
+    bf16 kernel."""
+    from focus_tpu_torch.ops import ar_decode as ar
+
+    st = ar_state(model, packed, rows, gen)
+    dec, d = model.steve_decoder, model.d_model
+    nb, heads = dec.tf.num_blocks, dec.tf.num_heads
+    args = (st["x"], t, packed, st["ckv"], st["k"], st["v"], st["pos"], heads)
+    scratch = ar.workspace(rows, d, DEV, w8a8=True)
+    kernel_ms = time_ms(lambda: ar.fused_ar_step(*args, scratch=scratch))
+    plain_ms = time_ms(lambda: ar.ar_step_reference(*args), warmup=1,
+                       iters=5)
+    bf16_scratch = ar.workspace(rows, d, DEV)
+    bf16_ms = time_ms(lambda: ar.fused_ar_step(
+        st["x"], t, packed_bf16, st["ckv"], st["k"], st["v"], st["pos"],
+        heads, scratch=bf16_scratch))
+    bound_ms, bound_by = ar_bound(rows, d, nb, model.vocab_size,
+                                  model.num_slots, t, w8a8=True)
+    return {"rows": rows, "t": t, "kernel_ms": kernel_ms,
+            "reference_ms": plain_ms, "bf16_kernel_ms_same_state": bf16_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_ar_decode_w8a8(model):
+    """The W8A8 decode step (the TPU kernel with int8=True) against its
+    plain version at the kernel phase's states: 32 rows at AR_STEPS, 40 rows
+    at t=5 and 256, 128 rows at t=128 and 255, and the D=192 decoder."""
+    from focus_tpu_torch.ops import ar_decode as ar
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    nb = model.steve_decoder.tf.num_blocks
+    packed = model._packed_decoder(torch.bfloat16, w8a8=True)
+    cases = [check_ar_step(model, packed, 32, t, gen, f"w8a8 rows=32 t={t}")
+             for t in AR_STEPS]
+    cases += [check_ar_step(model, packed, rows, t, gen,
+                            f"w8a8 rows={rows} t={t}")
+              for rows, t in ((40, 5), (40, 256), (128, 128), (128, 255))]
+    designed = ar.launches_per_step(nb, w8a8=True)
+    per_step = {c["device_launches"] for c in cases}
+    if per_step != {designed}:
+        raise AssertionError(f"W8A8 device launches per step "
+                             f"{sorted(per_step)}, designed {designed}")
+    bf16_packed = model._packed_decoder(torch.bfloat16)
+    timing = time_ar_w8a8(model, packed, bf16_packed, 32, 128, gen)
+    timing128 = time_ar_w8a8(model, packed, bf16_packed, 128, 128, gen)
+    narrow = narrow_steve_model(DIM=192, NUM_BLOCKS=4, NUM_HEADS=4)
+    npacked = narrow._packed_decoder(torch.bfloat16, w8a8=True)
+    narrow_cases = [check_ar_step(narrow, npacked, rows, t, gen,
+                                  f"w8a8 D=192 rows={rows} t={t}")
+                    for rows, t in ((32, 0), (32, 200), (40, 256))]
+    if {c["device_launches"] for c in narrow_cases} != {
+            ar.launches_per_step(4, w8a8=True)}:
+        raise AssertionError("W8A8 device launches per step at D=192")
+    cases += narrow_cases
+    emit({"phase": "kernel", "name": "ar_decode_w8a8", "ok": True,
+          "tolerance": f"logits and cache row t: max|err| <= {AR_W8A8_TOL_REL}"
+                       " x max|ref| (the bf16 causes, and an activation code "
+                       "that flips next to its rounding boundary moves an "
+                       "output by one quantum); ids equal wherever the plain "
+                       "version's top-2 margin exceeds twice the logits' "
+                       "error; other cache rows bit-equal; next input == the "
+                       "dequantized dictionary row of the id",
+          "device_launches_per_step": designed,
+          "library_ms": None,
+          "library_note": "no single PyTorch call computes a decode step",
+          "timing": [timing, timing128], "cases": cases})
+    return {"name": "ar_decode_w8a8", "route": "cuda",
+            "source": "focus_tpu_torch/csrc/ar_decode.cu",
+            "replaces": "focus_tpu/ops/pallas/ar_decode.py:53 (int8=True)",
+            "max_abs_err": max(c["max_abs_err_logits"] for c in cases),
+            "ms": timing["kernel_ms"], "plain_ms": timing["reference_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": None, "device_launches_per_step": designed,
+            "shape": "32 rows, t=128, D=2048, 8 blocks, 4 heads, V=4096, "
+                     "7 slots, L=257; int8 weights, float32 scales"}
+
+
 def phase_fixture():
     """The reference's executed ORViT-MF on the port's plain path, f32."""
     from focus_tpu_torch.config import get_cfg
@@ -670,32 +798,35 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
-def steve_rollout(batch, per_step):
-    """``steve_entry(batch=batch)`` on the card: throughput, launches, peak
-    memory and the time split of its reconstruction. Returns the report,
-    the counts of the timed rollouts, and the model and its slots for the
-    comparison with the plain path."""
+def steve_rollout(batch, per_step, int8=False):
+    """``steve_entry(batch=batch, int8=int8)`` on the card: throughput,
+    launches, peak memory and the time split of its reconstruction. Returns
+    the report, the counts of the timed rollouts, and the model and its
+    slots for the comparison with the plain path. The bf16 rollout is also
+    timed through the unfused module path."""
     from focus_tpu_torch.entry import steve_entry
     from focus_tpu_torch.ops import ar_decode as ar
 
-    fn, (video,) = steve_entry(device=DEV, batch=batch)
+    fn, (video,) = steve_entry(device=DEV, batch=batch, int8=int8)
     model = fn.model
     B, T, H, W, C = video.shape
     rows = B * T
     gen_len = (model.image_size // 4) ** 2
     _, first_s = timed(lambda: fn(video))  # warm-up: packs the weights
     torch.cuda.reset_peak_memory_stats()
-    ar.LAUNCHES = ar.DEVICE_LAUNCHES = 0
+    reset_ar_counts(ar)
     recon, seconds = timed(lambda: [fn(video)
                                     for _ in range(STEVE_ITERS)][-1])
-    counts = {"wrapper": ar.LAUNCHES, "device": ar.DEVICE_LAUNCHES}
+    mode, other = ("w8a8", "bf16") if int8 else ("bf16", "w8a8")
+    got = ar_counts(ar)
+    counts = {"wrapper": got[mode], "device": got[f"{mode}_device"]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expect = {"wrapper": gen_len * STEVE_ITERS,
               "device": gen_len * STEVE_ITERS * per_step}
-    if counts != expect:
-        raise AssertionError(f"decode-step launches {counts}, expected "
+    if counts != expect or got[other] or got[f"{other}_device"]:
+        raise AssertionError(f"decode-step launches {got}, expected {mode} "
                              f"{expect} ({STEVE_ITERS} rollouts x {gen_len} "
-                             f"steps x {per_step} kernels)")
+                             f"steps x {per_step} kernels) and no {other}")
     recon = recon.float()
     ok = (tuple(recon.shape) == (B, T, H, W, C)
           and bool(torch.isfinite(recon).all())
@@ -711,10 +842,12 @@ def steve_rollout(batch, per_step):
         _, dvae_s = timed(lambda: model.dvae.decoder(
             torch.nn.functional.one_hot(ids.t(), model.vocab_size)
             .to(model.dtype).reshape(rows, side, side, model.vocab_size)))
-    model.fused_ar_step = False
-    model.decode_ids(slots)  # casts the module path's weights once
-    _, unfused_s = timed(lambda: model.decode_ids(slots))
-    model.fused_ar_step = True
+    unfused_s = None
+    if not int8:  # the module path is bf16 in both modes
+        model.fused_ar_step = False
+        model.decode_ids(slots)  # casts the module path's weights once
+        _, unfused_s = timed(lambda: model.decode_ids(slots))
+        model.fused_ar_step = True
     report = {"video": [B, T, H, W, C], "rollout_rows": rows,
               "timed_rollouts": STEVE_ITERS,
               "frames_per_sec": rows * STEVE_ITERS / seconds,
@@ -727,18 +860,20 @@ def steve_rollout(batch, per_step):
               "split_ms": {"encode": 1e3 * encode_s,
                            "rollout": 1e3 * rollout_s,
                            "dvae_decode": 1e3 * dvae_s},
-              "ms_per_step_in_rollout": 1e3 * rollout_s / gen_len,
-              "unfused_module_rollout_ms": 1e3 * unfused_s,
-              "fused_over_unfused": unfused_s / rollout_s}
+              "ms_per_step_in_rollout": 1e3 * rollout_s / gen_len}
+    if unfused_s is not None:
+        report["unfused_module_rollout_ms"] = 1e3 * unfused_s
+        report["fused_over_unfused"] = unfused_s / rollout_s
     return report, counts, model, slots
 
 
-def ids_vs_plain_path(model, slots):
+def ids_vs_plain_path(model, slots, tol=AR_TOL_REL):
     """Free-running rollout, kernel against plain version. Rows are
     independent and a row's two paths share their state up to its first
     differing id: up to and at that step the kernel's logits must be within
-    the single-step tolerance of the plain ones, and at that step the plain
-    top-2 margin can be at most twice the logits' error measured there."""
+    the single-step tolerance ``tol`` of the plain ones, and at that step
+    the plain top-2 margin can be at most twice the logits' error measured
+    there."""
     gen_len, rows = (model.image_size // 4) ** 2, slots.shape[0]
     lg_k = torch.empty(gen_len, rows, model.vocab_size, device=DEV)
     lg_p = torch.empty_like(lg_k)
@@ -764,7 +899,7 @@ def ids_vs_plain_path(model, slots):
         firsts.append({"row": b, "step": t, "plain_top2_margin": margin,
                        "allowed": allowed, "logits_err": err[t, b].item()})
         worst_margin = max(worst_margin, margin / max(allowed, 1e-30))
-    ok = worst_err <= AR_TOL_REL and worst_margin <= 1.0
+    ok = worst_err <= tol and worst_margin <= 1.0
     return ok, {
         "ids_equal_share": 1.0 - differ.float().mean().item(),
         "rows_with_a_difference": len(firsts), "rows": rows,
@@ -773,7 +908,7 @@ def ids_vs_plain_path(model, slots):
         "max_abs_logits_err_on_shared_steps": err[shared].max().item(),
         "first_differences": firsts[:8],
         "rule": "while a row's two paths share their state, logits max|err| "
-                f"<= {AR_TOL_REL} x max|logits| of the step; at a row's first "
+                f"<= {tol} x max|logits| of the step; at a row's first "
                 "differing step the plain path's top-2 margin <= 2 x that "
                 "row's logits error at that step"}
 
@@ -802,18 +937,52 @@ def phase_steve(smi, per_step):
     return counts
 
 
-def phase_slice(smi):
-    from focus_tpu_torch.entry import entry
+def phase_steve_w8a8(smi, per_step):
+    """STEVE's rollout through ``steve_entry(int8=True)``: the W8A8 fused
+    step at 32 rollout rows (batch 8) and at 128 (batch 32); its ids against
+    the W8A8 plain path, and the share equal to the bf16 rollout's ids from
+    the same slots (for information). ``per_step`` is the device launches
+    one W8A8 wrapper call made in the kernel phase."""
+    main_run, counts, model, slots = steve_rollout(8, per_step, int8=True)
+    ok, vs_plain = ids_vs_plain_path(model, slots, AR_W8A8_TOL_REL)
+    ids_w8a8 = model.decode_ids(slots)
+    model.int8_serving = False
+    ids_bf16 = model.decode_ids(slots)
+    model.int8_serving = True
+    same_as_bf16 = (ids_w8a8 == ids_bf16).float().mean().item()
+    del model, slots
+    torch.cuda.empty_cache()
+    rows_128 = steve_rollout(32, per_step, int8=True)[0]
+    emit({"phase": "slice", "name": "steve_w8a8", "ok": ok,
+          "model": "steve_entry(int8=True): STEVE at the config defaults (as "
+                   "the steve phase) with TPU.INT8_SERVING: the W8A8 fused "
+                   "decode step, a labeled serving variant",
+          "steve_rollout_kv_int8_fps": main_run["frames_per_sec"],
+          "steve_rollout_kv_int8_fps_128_rows": rows_128["frames_per_sec"],
+          "rows_32": main_run, "rows_128": rows_128,
+          "vs_plain_path": vs_plain,
+          "ids_equal_to_bf16_rollout_share": same_as_bf16, "gpu": smi})
+    if not ok:
+        raise AssertionError("STEVE W8A8 slice: logits or ids differ beyond "
+                             "the tolerance")
+    return counts
+
+
+def flagship_run(fn, video, boxes):
+    """``fn`` (an ``entry`` forward) at its batch: 2 warm-up and SLICE_ITERS
+    timed batches with the kernels' launch counts (one trajectory core per
+    block, 12, and one patch embed per forward, asserted), then the same
+    model on the plain path. Returns (report, launches, probabilities)."""
     from focus_tpu_torch.ops import patch_embed as pe
     from focus_tpu_torch.ops import trajectory_block as tb
 
-    B = 8
-    fn, (video, boxes) = entry(device=DEV, batch=B, seed=0)
     model = fn.model
+    B = video.shape[0]
     for _ in range(2):
         fn(video, boxes)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
     tb.LAUNCHES = pe.LAUNCHES = 0
     t0 = time.perf_counter()
     for _ in range(SLICE_ITERS):
@@ -822,7 +991,8 @@ def phase_slice(smi):
     seconds = time.perf_counter() - t0
     launches = {"trajectory_block": tb.LAUNCHES, "patch_embed": pe.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expect = {"trajectory_block": 12 * SLICE_ITERS, "patch_embed": SLICE_ITERS}
+    expect = {"trajectory_block": len(model.blocks) * SLICE_ITERS,
+              "patch_embed": SLICE_ITERS}
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
 
@@ -837,22 +1007,89 @@ def phase_slice(smi):
     ok = (tuple(probs.shape) == (B, 174) and finite
           and max_abs <= SLICE_PROB_ATOL and top1 >= SLICE_TOP1_MIN_SHARE
           and bool(((sums - 1).abs() < 1e-3).all()))
-    result = {"phase": "slice", "ok": ok,
-              "model": "ORViT-MF SSv2 16x224, D=768, 12 layers, 12 heads, "
-                       "ORViT at [1,6,10], O=4, bf16, exact-erf GELU",
-              "batch": B, "timed_batches": SLICE_ITERS,
+    report = {"ok": ok, "batch": B, "timed_batches": SLICE_ITERS,
               "clips_per_sec": B * SLICE_ITERS / seconds,
               "ms_per_batch": 1e3 * seconds / SLICE_ITERS,
-              "peak_memory_gb": peak_gb, "launches": launches,
+              "peak_memory_gb": peak_gb,
+              "allocated_before_the_timed_batches_gb": resident_gb,
+              "launches": launches,
               "launches_per_forward": {k: v / SLICE_ITERS
                                        for k, v in launches.items()},
               "vs_plain_path": {"max_abs_prob": max_abs,
                                 "atol": SLICE_PROB_ATOL,
                                 "top1_agreement": top1,
                                 "top1_min_share": SLICE_TOP1_MIN_SHARE},
-              "finite": finite, "gpu": smi}
-    emit(result)
-    if not ok:
+              "finite": finite}
+    return report, launches, probs
+
+
+# bench.py's serving matrix: the exact-erf bf16 headline, then the labeled
+# variants under bench.py's metric names
+VARIANTS = (("erf_bf16_clips_per_sec", False, False),
+            ("fast_gelu_clips_per_sec", True, False),
+            ("int8_serving_clips_per_sec", False, True),
+            ("tanh_int8_clips_per_sec", True, True))
+
+
+def phase_serving(smi):
+    """bench.py's serving matrix through ``entry(fast_gelu=..., int8=...)``
+    at batch 8, one model after the other in this phase (so that the
+    variants are compared on one host state), each as ``flagship_run``
+    drives it; each variant's probabilities against the exact-erf bf16
+    model's on the same weights and inputs."""
+    from focus_tpu_torch.entry import entry
+
+    @torch.no_grad()  # no graph: it would keep the parameters alive
+    def fingerprint(model):  # one float64 sum per parameter
+        return torch.stack([p.double().sum() for p in model.parameters()])
+
+    result = {"phase": "slice", "name": "serving_matrix",
+              "model": "ORViT-MF SSv2 16x224, D=768, 12 layers, 12 heads, "
+                       "ORViT at [1,6,10], O=4, bf16; exact-erf GELU, then "
+                       "the labeled serving variants (TPU.FAST_GELU: tanh "
+                       "GELU; TPU.INT8_SERVING: W8A8 qkv, proj, fc1, fc2 "
+                       "through torch._int_mm)"}
+    launches, problems = {}, []
+    for metric, fast_gelu, int8 in VARIANTS:
+        fn, (video, boxes) = entry(device=DEV, batch=8, seed=0,
+                                   fast_gelu=fast_gelu, int8=int8)
+        weights = fingerprint(fn.model)
+        report, counts, probs = flagship_run(fn, video, boxes)
+        if not (fast_gelu or int8):
+            base_weights, base_probs = weights, probs
+        elif not torch.equal(weights, base_weights):
+            raise AssertionError(f"{metric}: weights differ from the erf "
+                                 "bf16 model's")
+        else:
+            vs_erf = (probs - base_probs).abs().max().item()
+            report["vs_erf_bf16_max_abs_prob"] = vs_erf
+            report["vs_erf_bf16_atol"] = VARIANT_PROB_ATOL
+            report["ok"] = report["ok"] and vs_erf < VARIANT_PROB_ATOL
+        if not report["ok"]:
+            problems.append(metric)
+        result[metric] = report.pop("clips_per_sec")
+        result[metric.replace("clips_per_sec", "detail")] = {
+            "fast_gelu": fast_gelu, "int8_serving": int8, **report}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        del fn
+        torch.cuda.empty_cache()
+    emit({**result, "ok": not problems, "gpu": smi})
+    if problems:
+        raise AssertionError(f"serving variants failed: {problems}")
+    return launches
+
+
+def phase_slice(smi):
+    from focus_tpu_torch.entry import entry
+
+    fn, (video, boxes) = entry(device=DEV, batch=8, seed=0)
+    report, launches, _ = flagship_run(fn, video, boxes)
+    emit({"phase": "slice",
+          "model": "ORViT-MF SSv2 16x224, D=768, 12 layers, 12 heads, "
+                   "ORViT at [1,6,10], O=4, bf16, exact-erf GELU",
+          **report, "gpu": smi})
+    if not report["ok"]:
         raise AssertionError("slice check failed")
     return launches
 
@@ -1067,7 +1304,9 @@ def main():
     patch["launches"] = launches["patch_embed"]
     traj["launches_note"] = patch["launches_note"] = (
         f"over {SLICE_ITERS} flagship forwards; launches_train over "
-        f"{TRAIN_ITERS} flagship train steps")
+        f"{TRAIN_ITERS} flagship train steps; launches_serving over "
+        f"{SLICE_ITERS} forwards of each of the {len(VARIANTS)} models of the "
+        "serving matrix")
     train = phase_train(smi, bwd["device_launches_per_call"])
     traj["launches_train"] = train["trajectory_block"]
     patch["launches_train"] = train["patch_embed"]
@@ -1076,7 +1315,10 @@ def main():
     bwd["launches_note"] = (
         f"wrapper calls over {TRAIN_ITERS} flagship train steps; "
         "device_launches are the kernels those calls launched")
-    ar = phase_ar_decode(steve_entry(device=DEV, batch=8)[0].model)
+    steve_model = steve_entry(device=DEV, batch=8)[0].model
+    ar = phase_ar_decode(steve_model)
+    arq = phase_ar_decode_w8a8(steve_model)
+    del steve_model
     torch.cuda.empty_cache()
     counts = phase_steve(smi, ar["device_launches_per_step"])
     ar["launches"] = counts["wrapper"]
@@ -1085,7 +1327,17 @@ def main():
         f"wrapper calls (one per decode step) of {STEVE_ITERS} rollouts of "
         "32 rows through steve_entry; device_launches are the kernels those "
         "calls launched")
-    emit({"kernels": [traj, patch, bwd, ar]})
+    serving = phase_serving(smi)
+    traj["launches_serving"] = serving["trajectory_block"]
+    patch["launches_serving"] = serving["patch_embed"]
+    counts = phase_steve_w8a8(smi, arq["device_launches_per_step"])
+    arq["launches"] = counts["wrapper"]
+    arq["device_launches"] = counts["device"]
+    arq["launches_note"] = (
+        f"wrapper calls (one per decode step) of {STEVE_ITERS} rollouts of "
+        "32 rows through steve_entry(int8=True); device_launches are the "
+        "kernels those calls launched")
+    emit({"kernels": [traj, patch, bwd, ar, arq]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

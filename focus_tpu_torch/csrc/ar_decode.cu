@@ -39,6 +39,23 @@
 // products unchanged), keeps two to four chunks per warp loaded ahead in
 // registers so that ~32 KB of weights are in flight on every SM, and leaves
 // the activations, at most 64 rows, to L2.
+//
+// W8A8 mode (ar_decode_step_w8a8; the TPU kernel with int8=True): the same
+// launch sequence over int8 weight codes with float32 scales per output
+// column and JAX chunk. Every product quantizes its A operand per row,
+// s = max(amax, 1e-8) * (1/127), codes round-half-even(a / s) with a true
+// division: the LayerNorms emit the codes and scale of their output beside
+// it, and one row-quantization launch each takes the self-attention
+// context, the cross context and the FFN hidden (per D-wide group for fc2).
+// The int8 GEMM (mma.sync m16n8k32 s8, a 16-byte load carrying 16 k values
+// with the same permuted-k trick) sums its warps' partial tiles in int32,
+// which is exact, and dequantizes once, float(acc) * s_row * s_col, in the
+// epilogue; fc2's four K groups are each summed over their own warps and
+// dequantized before they are added in group order, as the TPU kernel adds
+// its chunk partials. The gather writes the dequantized dictionary row,
+// (float(127 * code) * (1/127)) * scale, which is what the TPU kernel's
+// one-hot W8A8 product gives. 14 launches a layer + 3. Bound: the weight
+// stream halves (0.48 GB at D = 2048, 8 layers) against the bf16 step's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +67,8 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr float LN_EPS = 1e-6f;
+constexpr float QUANT_EPS = 1e-8f;
+constexpr float INV127 = (float)(1.0 / 127.0);  // as the TPU kernel rounds it
 constexpr int GEMM_WARPS = 8;      // the warps of a block split K
 constexpr int GEMM_THREADS = 32 * GEMM_WARPS;
 constexpr int GEMM_MAX_MT = 4;     // 16-row tiles a block holds: 64 rows
@@ -155,6 +174,58 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
+// Maximum over the block's threads; `red` holds one float per warp.
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
+// The row scale of an A operand whose largest |value| is amax, and the code
+// of a value: s = max(amax, 1e-8) * (1/127), round-half-even(a / s).
+__device__ __forceinline__ float quant_scale(float amax) {
+  return __fmul_rn(fmaxf(amax, QUANT_EPS), INV127);
+}
+
+__device__ __forceinline__ int8_t quant_code(float a, float s) {
+  const int q = __float2int_rn(__fdiv_rn(a, s));
+  return (int8_t)(q < -127 ? -127 : (q > 127 ? 127 : q));
+}
+
+// ---- row quantization (W8A8) -------------------------------------------------
+// One block per (row, group) of a [rows, K] bf16 operand cut into `groups`
+// runs of K / groups: the run's codes and its scale (scale[row, group]).
+
+__global__ void __launch_bounds__(ROW_THREADS)
+quantize_rows_kernel(const bf16* __restrict__ a, int K, int groups,
+                     int8_t* __restrict__ q, float* __restrict__ scale) {
+  __shared__ float red[ROW_THREADS / 32];
+  const int kg = K / groups;
+  const size_t base = (size_t)blockIdx.x * K + (size_t)blockIdx.y * kg;
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < kg; i += ROW_THREADS)
+    amax = fmaxf(amax, fabsf(__bfloat162float(a[base + i])));
+  const float s = quant_scale(block_max(amax, red));
+  for (int i = threadIdx.x; i < kg; i += ROW_THREADS)
+    q[base + i] = quant_code(__bfloat162float(a[base + i]), s);
+  if (threadIdx.x == 0) scale[(size_t)blockIdx.x * groups + blockIdx.y] = s;
+}
+
+cudaError_t launch_quantize_rows(const bf16* a, int rows, int K, int groups,
+                                 int8_t* q, float* scale,
+                                 cudaStream_t stream) {
+  quantize_rows_kernel<<<dim3(rows, groups), ROW_THREADS, 0, stream>>>(
+      a, K, groups, q, scale);
+  ++step_launches;
+  return cudaGetLastError();
+}
+
 // ---- LayerNorm -------------------------------------------------------------
 // One block per row. first != 0: the input is x (bf16) + pos[t]; the normed
 // row is the new float32 residual stream `xs` and its bf16 rounding `xn`
@@ -162,6 +233,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // Mean, then the mean of squared deviations, as the TPU kernel's `_ln`. With
 // REG a thread keeps its LN_REG values of the row in registers between the
 // three passes (D <= ROW_THREADS * LN_REG); without, it reads them again.
+// With xq (W8A8) the block also writes the int8 codes of xn and its row
+// scale xscale[row], from the bf16-rounded values.
 
 template <bool REG>
 __global__ void __launch_bounds__(ROW_THREADS)
@@ -169,7 +242,8 @@ layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ pos,
                  const int* __restrict__ t, int L, float* xs,
                  const float* __restrict__ gamma,
                  const float* __restrict__ beta, bf16* __restrict__ xn, int D,
-                 int first) {
+                 int first, int8_t* __restrict__ xq,
+                 float* __restrict__ xscale) {
   __shared__ float red[ROW_THREADS / 32];
   const size_t row = (size_t)blockIdx.x * D;
   const float* prow = first ? pos + (size_t)clamp_step(t, L) * D : nullptr;
@@ -198,6 +272,7 @@ layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ pos,
     }
   }
   const float rstd = rsqrtf(block_sum(sq, red) / (float)D + LN_EPS);
+  float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < iters; ++i) {
     const int idx = threadIdx.x + i * ROW_THREADS;
@@ -205,22 +280,37 @@ layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ pos,
       const float y =
           ((REG ? v[i] : value(idx)) - mean) * rstd * gamma[idx] + beta[idx];
       if (first) xs[row + idx] = y;
-      xn[row + idx] = __float2bfloat16_rn(y);
+      const bf16 yb = __float2bfloat16_rn(y);
+      xn[row + idx] = yb;
+      const float yr = __bfloat162float(yb);
+      if constexpr (REG) v[i] = yr;
+      amax = fmaxf(amax, fabsf(yr));
     }
   }
+  if (xq == nullptr) return;  // the same for the whole block
+  const float qs = quant_scale(block_max(amax, red));
+#pragma unroll
+  for (int i = 0; i < iters; ++i) {
+    const int idx = threadIdx.x + i * ROW_THREADS;
+    if (idx < D)
+      xq[row + idx] =
+          quant_code(REG ? v[i] : __bfloat162float(xn[row + idx]), qs);
+  }
+  if (threadIdx.x == 0) xscale[blockIdx.x] = qs;
 }
 
 cudaError_t launch_layernorm(const bf16* x, const float* pos, const int* t,
                              int L, float* xs, const float* gamma,
                              const float* beta, bf16* xn, int rows, int D,
-                             int first, cudaStream_t stream) {
+                             int first, int8_t* xq, float* xscale,
+                             cudaStream_t stream) {
   if (D <= ROW_THREADS * LN_REG) {
     layernorm_kernel<true><<<rows, ROW_THREADS, 0, stream>>>(
-        x, pos, t, L, xs, gamma, beta, xn, D, first);
+        x, pos, t, L, xs, gamma, beta, xn, D, first, xq, xscale);
     ++step_launches;
   } else {
     layernorm_kernel<false><<<rows, ROW_THREADS, 0, stream>>>(
-        x, pos, t, L, xs, gamma, beta, xn, D, first);
+        x, pos, t, L, xs, gamma, beta, xn, D, first, xq, xscale);
     ++step_launches;
   }
   return cudaGetLastError();
@@ -249,7 +339,44 @@ struct GemmArgs {
   bf16* v_rows;
   const int* t;
   int L, D;
+  // W8A8 (skinny_gemm_s8_kernel): K is cut into `groups` runs of K / groups,
+  // each with its own scales, dequantized before the runs are added
+  const int8_t* aq;       // [M, K] codes
+  const float* a_scale;   // [M, groups]
+  const int8_t* wq;       // [N, K] codes
+  const float* w_scale;   // [groups, N]
+  int groups;
 };
+
+// The epilogue of output element (m, n) with value v (float32).
+__device__ __forceinline__ void gemm_store(const GemmArgs& g, int m, int n,
+                                           float v, int t) {
+  const size_t o = (size_t)m * g.N + n;
+  switch (g.epilogue) {
+    case EPI_QKV: {
+      const int which = n / g.D, col = n - which * g.D;
+      if (which == 0) {
+        g.out_bf16[(size_t)m * g.D + col] = __float2bfloat16_rn(v * g.scale);
+      } else {
+        bf16* rows = which == 1 ? g.k_rows : g.v_rows;
+        rows[((size_t)t * g.M + m) * g.D + col] = __float2bfloat16_rn(v);
+      }
+      break;
+    }
+    case EPI_RESIDUAL:
+      g.out_f32[o] += g.bias ? v + g.bias[n] : v;
+      break;
+    case EPI_SCALE:
+      g.out_bf16[o] = __float2bfloat16_rn(v * g.scale);
+      break;
+    case EPI_BIAS_RELU:
+      g.out_bf16[o] = __float2bfloat16_rn(fmaxf(v + g.bias[n], 0.f));
+      break;
+    default:
+      g.out_f32[o] = v;
+      break;
+  }
+}
 
 // The register stages a warp keeps loaded ahead of its mma: more for small
 // tiles, so that a block has ~32 KB of weights in flight.
@@ -359,31 +486,7 @@ skinny_gemm_kernel(const GemmArgs g) {
     float v = red(0, r, c);
 #pragma unroll
     for (int w = 1; w < GEMM_WARPS; ++w) v += red(w, r, c);
-    const size_t o = (size_t)m * N + n;
-    switch (g.epilogue) {
-      case EPI_QKV: {
-        const int which = n / g.D, col = n - which * g.D;
-        if (which == 0) {
-          g.out_bf16[(size_t)m * g.D + col] = __float2bfloat16_rn(v * g.scale);
-        } else {
-          bf16* rows = which == 1 ? g.k_rows : g.v_rows;
-          rows[((size_t)t * M + m) * g.D + col] = __float2bfloat16_rn(v);
-        }
-        break;
-      }
-      case EPI_RESIDUAL:
-        g.out_f32[o] += g.bias ? v + g.bias[n] : v;
-        break;
-      case EPI_SCALE:
-        g.out_bf16[o] = __float2bfloat16_rn(v * g.scale);
-        break;
-      case EPI_BIAS_RELU:
-        g.out_bf16[o] = __float2bfloat16_rn(fmaxf(v + g.bias[n], 0.f));
-        break;
-      default:
-        g.out_f32[o] = v;
-        break;
-    }
+    gemm_store(g, m, n, v, t);
   }
 }
 
@@ -424,6 +527,200 @@ cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t stream) {
   }
   return vec ? launch_gemm_rows<2, true>(g, stream)
              : launch_gemm_rows<2, false>(g, stream);
+}
+
+// ---- skinny int8 GEMM (W8A8) -------------------------------------------------
+// The bf16 kernel's blocking over int8 codes: mma.sync m16n8k32 s8 with int32
+// accumulators, a lane's 16-byte load carrying 16 k values of a 64-wide
+// chunk (words 0, 1 feed the chunk's first mma, words 2, 3 the second, for A
+// and B alike). The warps are split evenly over the K groups (fc2: 2 warps
+// for each of its 4 D-wide groups; 1 group elsewhere), and each warp walks
+// the chunks of its own group only.
+
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Sixteen consecutive int8 of `row` from element e; elements at or beyond
+// `limit`, or of an invalid row, read as zero. VEC: every 16-element group
+// is whole and 16-byte aligned (one predicated load).
+template <bool VEC>
+__device__ __forceinline__ Vec8 load16s8(const int8_t* row, int e, int limit,
+                                         bool valid) {
+  Vec8 v;
+  if constexpr (VEC) {
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (valid && e < limit) u = __ldg(reinterpret_cast<const uint4*>(row + e));
+    v.w[0] = u.x;
+    v.w[1] = u.y;
+    v.w[2] = u.z;
+    v.w[3] = u.w;
+    return v;
+  }
+  const unsigned char* p = reinterpret_cast<const unsigned char*>(row);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t word = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int k = e + 4 * i + b;
+      if (valid && k < limit) word |= (uint32_t)p[k] << (8 * b);
+    }
+    v.w[i] = word;
+  }
+  return v;
+}
+
+// Chunk c of a K run [k_lo, k_hi): a lane reads k = k_lo + 64 c + 16 tig ..
+// + 15 of its rows; past k_hi it reads zeros.
+template <int MT, int NT, bool VEC>
+__device__ __forceinline__ void gemm_s8_load(GemmFrag<MT, NT>& f,
+                                             const GemmArgs& g, int c,
+                                             int k_lo, int k_hi, int m0,
+                                             int n0, int gid, int tig) {
+  const int k = k_lo + c * 64 + tig * 16;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = n0 + nt * 8 + gid;
+    f.b[nt] = load16s8<VEC>(g.wq + (size_t)n * g.K, k, k_hi, n < g.N);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r0 = m0 + mt * 16 + gid, r1 = r0 + 8;
+    f.a[mt][0] = load16s8<VEC>(g.aq + (size_t)r0 * g.K, k, k_hi, r0 < g.M);
+    f.a[mt][1] = load16s8<VEC>(g.aq + (size_t)r1 * g.K, k, k_hi, r1 < g.M);
+  }
+}
+
+template <int MT, int NT, bool VEC>
+__global__ void __launch_bounds__(GEMM_THREADS)
+skinny_gemm_s8_kernel(const GemmArgs g) {
+  constexpr int BM = 16 * MT;
+  constexpr int BN = 8 * NT;
+  constexpr int STAGES = gemm_stages(MT, NT);
+  extern __shared__ int gemm_red_s32[];  // [GEMM_WARPS][BM][BN + 1]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int M = g.M, N = g.N;
+  const int wpg = GEMM_WARPS / g.groups;  // warps per K group
+  const int kg = g.K / g.groups;
+  const int k_lo = (warp / wpg) * kg, k_hi = k_lo + kg;
+  const int w0 = warp % wpg;
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+
+  const int nchunks = (kg + 63) / 64;
+  GemmFrag<MT, NT> f[STAGES];
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s)
+    gemm_s8_load<MT, NT, VEC>(f[s], g, w0 + s * wpg, k_lo, k_hi, m0, n0, gid,
+                              tig);
+  for (int c = w0; c < nchunks; c += wpg * STAGES) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_s8_16832(acc[mt][nt], f[s].a[mt][0].w[0], f[s].a[mt][1].w[0],
+                       f[s].a[mt][0].w[1], f[s].a[mt][1].w[1],
+                       f[s].b[nt].w[0], f[s].b[nt].w[1]);
+          mma_s8_16832(acc[mt][nt], f[s].a[mt][0].w[2], f[s].a[mt][1].w[2],
+                       f[s].a[mt][0].w[3], f[s].a[mt][1].w[3],
+                       f[s].b[nt].w[2], f[s].b[nt].w[3]);
+        }
+      gemm_s8_load<MT, NT, VEC>(f[s], g, c + (s + STAGES) * wpg, k_lo, k_hi,
+                                m0, n0, gid, tig);
+    }
+  }
+
+  auto red = [&](int w, int r, int c) -> int& {
+    return gemm_red_s32[((size_t)w * BM + r) * (BN + 1) + c];
+  };
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int r = mt * 16 + gid, c = nt * 8 + tig * 2;
+      red(warp, r, c) = acc[mt][nt][0];
+      red(warp, r, c + 1) = acc[mt][nt][1];
+      red(warp, r + 8, c) = acc[mt][nt][2];
+      red(warp, r + 8, c + 1) = acc[mt][nt][3];
+    }
+  __syncthreads();
+
+  const int t = g.epilogue == EPI_QKV ? clamp_step(g.t, g.L) : 0;
+  for (int idx = threadIdx.x; idx < BM * BN; idx += GEMM_THREADS) {
+    const int r = idx / BN, c = idx % BN;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    // each group: its warps' int32 partials (exact), then the dequant; the
+    // groups' float32 parts are added in group order
+    float v = 0.f;
+    for (int gi = 0; gi < g.groups; ++gi) {
+      int iv = 0;
+      for (int w = gi * wpg; w < (gi + 1) * wpg; ++w) iv += red(w, r, c);
+      const float part =
+          __fmul_rn(__fmul_rn((float)iv, g.a_scale[(size_t)m * g.groups + gi]),
+                    g.w_scale[(size_t)gi * N + n]);
+      v = gi == 0 ? part : __fadd_rn(v, part);
+    }
+    gemm_store(g, m, n, v, t);
+  }
+}
+
+template <int MT, int NT, bool VEC>
+cudaError_t launch_gemm_s8_tile(const GemmArgs& g, cudaStream_t stream) {
+  constexpr size_t smem = gemm_smem_bytes<MT, NT>();  // int32 as float32
+  if (smem > 48 * 1024) {  // above the default limit: asked for once
+    static cudaError_t attr = cudaFuncSetAttribute(
+        skinny_gemm_s8_kernel<MT, NT, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return attr;
+  }
+  const dim3 grid((g.N + 8 * NT - 1) / (8 * NT), (g.M + 16 * MT - 1) / (16 * MT));
+  skinny_gemm_s8_kernel<MT, NT, VEC><<<grid, GEMM_THREADS, smem, stream>>>(g);
+  ++step_launches;
+  return cudaGetLastError();
+}
+
+template <int NT, bool VEC>
+cudaError_t launch_gemm_s8_rows(const GemmArgs& g, cudaStream_t stream) {
+  const int mt = (g.M + 15) / 16;
+  switch (mt < GEMM_MAX_MT ? mt : GEMM_MAX_MT) {
+    case 1: return launch_gemm_s8_tile<1, NT, VEC>(g, stream);
+    case 2: return launch_gemm_s8_tile<2, NT, VEC>(g, stream);
+    case 3: return launch_gemm_s8_tile<3, NT, VEC>(g, stream);
+    default: return launch_gemm_s8_tile<4, NT, VEC>(g, stream);
+  }
+}
+
+cudaError_t launch_gemm_s8(const GemmArgs& g, cudaStream_t stream) {
+  if (g.groups < 1 || GEMM_WARPS % g.groups != 0 || g.K % g.groups != 0)
+    return cudaErrorInvalidValue;
+  const bool wide = (g.N + 31) / 32 >= GEMM_WIDE_BLOCKS;
+  const bool vec = (g.K / g.groups) % 16 == 0 && aligned16(g.aq) &&
+                   aligned16(g.wq);
+  if (wide) {
+    return vec ? launch_gemm_s8_rows<4, true>(g, stream)
+               : launch_gemm_s8_rows<4, false>(g, stream);
+  }
+  return vec ? launch_gemm_s8_rows<2, true>(g, stream)
+             : launch_gemm_s8_rows<2, false>(g, stream);
 }
 
 // ---- decode attention --------------------------------------------------------
@@ -595,10 +892,15 @@ __device__ __forceinline__ void take_better(float& best, int& bi, float v,
   }
 }
 
+// W8A8 (dict_q non-null): the next input is the dictionary row's codes,
+// dequantized with the scales of the row's group of D vocabulary rows.
 __global__ void __launch_bounds__(ROW_THREADS)
 argmax_gather_kernel(const float* __restrict__ logits,
-                     const bf16* __restrict__ dict, bf16* __restrict__ next_x,
-                     int* __restrict__ ids, int V, int D) {
+                     const bf16* __restrict__ dict,
+                     const int8_t* __restrict__ dict_q,
+                     const float* __restrict__ dict_s,
+                     bf16* __restrict__ next_x, int* __restrict__ ids, int V,
+                     int D) {
   __shared__ float sm_best[ROW_THREADS / 32];
   __shared__ int sm_idx[ROW_THREADS / 32];
   __shared__ int sm_z;
@@ -625,6 +927,14 @@ argmax_gather_kernel(const float* __restrict__ logits,
   }
   __syncthreads();
   const int z = sm_z;
+  if (dict_q != nullptr) {
+    const int8_t* code = dict_q + (size_t)z * D;
+    const float* s = dict_s + (size_t)(z / D) * D;
+    for (int i = threadIdx.x; i < D; i += ROW_THREADS)
+      next_x[(size_t)m * D + i] = __float2bfloat16_rn(__fmul_rn(
+          __fmul_rn((float)(127 * (int)code[i]), INV127), s[i]));
+    return;
+  }
   for (int i = threadIdx.x; i < D; i += ROW_THREADS)
     next_x[(size_t)m * D + i] = dict[(size_t)z * D + i];
 }
@@ -637,36 +947,53 @@ argmax_gather_kernel(const float* __restrict__ logits,
     if (e_ != cudaSuccess) return (int)e_;     \
   } while (0)
 
+// The weights of one mode: bf16 matrices, or (W8A8) int8 codes with their
+// float32 scales.
+struct StepWeights {
+  const bf16* w;         // [nb, 14 D^2]
+  const int8_t* wq;      // W8A8: [nb, 14 D^2] codes
+  const float* ws;       // W8A8: [nb, 14, D] scales
+  const bf16* head_w;    // [V, D]
+  const int8_t* head_q;  // W8A8: [V, D] codes, head_s [V]
+  const float* head_s;
+  const bf16* dict_w;    // [V, D]
+  const int8_t* dict_q;  // W8A8: [V, D] codes, dict_s [ceil(V / D), D]
+  const float* dict_s;
+};
+
 static int decode_step(
-    const void* x, const void* t, const void* wstack, const void* lnp,
+    const void* x, const void* t, const StepWeights& W, const void* lnp,
     const void* bias, const void* ckv, void* k_cache, void* v_cache,
-    const void* flnp, const void* pos, const void* head_w, const void* dict_w,
-    void* next_x, void* ids, void* logits, void* work, int B, int D, int heads,
-    int nb, int L, int S, int V, float scale, void* stream) {
+    const void* flnp, const void* pos, void* next_x, void* ids, void* logits,
+    void* work, int B, int D, int heads, int nb, int L, int S, int V,
+    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tp = static_cast<const int*>(t);
   const size_t bd = (size_t)B * D, dd = (size_t)D * D;
   const int hd = D / heads;
+  const bool w8a8 = W.wq != nullptr;
   float* xs = static_cast<float*>(work);
   bf16* xn = reinterpret_cast<bf16*>(xs + bd);
   bf16* q = xn + bd;
   bf16* ctx = q + bd;
   bf16* hid = ctx + bd;  // [B, 4D]
+  // W8A8: the codes of the current A operand [B, <= 4D] and its row scales
+  // [B, <= 4], each from a 16-byte boundary after the bf16 scratch
+  const size_t aq_off = (18 * bd + 15) / 16 * 16;
+  int8_t* aq = static_cast<int8_t*>(work) + aq_off;
+  float* as = reinterpret_cast<float*>(aq + (4 * bd + 15) / 16 * 16);
   const float* lnp_f = static_cast<const float*>(lnp);
   const float* bias_f = static_cast<const float*>(bias);
   const float* flnp_f = static_cast<const float*>(flnp);
   const bf16* ckv_b = static_cast<const bf16*>(ckv);
+  int8_t* xq = w8a8 ? aq : nullptr;  // LayerNorm outputs' codes and scales
+  float* xscale = w8a8 ? as : nullptr;
 
   for (int l = 0; l < nb; ++l) {
-    const bf16* w = static_cast<const bf16*>(wstack) + (size_t)l * 14 * dd;
     const float* ln = lnp_f + (size_t)l * 6 * D;
     const float* bl = bias_f + (size_t)l * 5 * D;
     bf16* kl = static_cast<bf16*>(k_cache) + (size_t)l * L * bd;
     bf16* vl = static_cast<bf16*>(v_cache) + (size_t)l * L * bd;
-
-    AR_CHECK(launch_layernorm(static_cast<const bf16*>(x),
-                              static_cast<const float*>(pos), tp, L, xs, ln,
-                              ln + D, xn, B, D, l == 0 ? 1 : 0, st));
 
     GemmArgs g = {};
     g.M = B;
@@ -674,10 +1001,34 @@ static int decode_step(
     g.t = tp;
     g.L = L;
     g.D = D;
+    // a [B, K] times the layer's matrix from JAX chunk `chunk` on (W8A8: the
+    // codes and scales of a, already in aq and as, in `groups` K runs)
+    auto dense = [&](const bf16* a, int chunk, int groups) {
+      if (!w8a8) {
+        g.a = a;
+        g.w = W.w + (size_t)l * 14 * dd + (size_t)chunk * dd;
+        return launch_gemm(g, st);
+      }
+      g.aq = aq;
+      g.a_scale = as;
+      g.wq = W.wq + (size_t)l * 14 * dd + (size_t)chunk * dd;
+      g.w_scale = W.ws + ((size_t)l * 14 + chunk) * D;
+      g.groups = groups;
+      return launch_gemm_s8(g, st);
+    };
+    auto quantize = [&](const bf16* a, int K, int groups) {
+      return w8a8 ? launch_quantize_rows(a, B, K, groups, aq, as, st)
+                  : cudaSuccess;
+    };
 
-    g.a = xn; g.w = w; g.N = 3 * D; g.K = D; g.epilogue = EPI_QKV;
+    AR_CHECK(launch_layernorm(static_cast<const bf16*>(x),
+                              static_cast<const float*>(pos), tp, L, xs, ln,
+                              ln + D, xn, B, D, l == 0 ? 1 : 0, xq, xscale,
+                              st));
+
+    g.N = 3 * D; g.K = D; g.epilogue = EPI_QKV;
     g.out_bf16 = q; g.k_rows = kl; g.v_rows = vl;
-    AR_CHECK(launch_gemm(g, st));
+    AR_CHECK(dense(xn, 0, 1));
 
     AttArgs at = {};
     at.q = q; at.out = ctx; at.L = L; at.D = D; at.hd = hd;
@@ -685,15 +1036,16 @@ static int decode_step(
     at.t = tp;
     AR_CHECK(launch_attention(at, B, heads, st));
 
-    g.a = ctx; g.w = w + 3 * dd; g.N = D; g.K = D; g.epilogue = EPI_RESIDUAL;
+    AR_CHECK(quantize(ctx, D, 1));
+    g.N = D; g.K = D; g.epilogue = EPI_RESIDUAL;
     g.out_f32 = xs; g.bias = nullptr;
-    AR_CHECK(launch_gemm(g, st));
+    AR_CHECK(dense(ctx, 3, 1));
 
     AR_CHECK(launch_layernorm(nullptr, nullptr, tp, L, xs, ln + 2 * D,
-                              ln + 3 * D, xn, B, D, 0, st));
+                              ln + 3 * D, xn, B, D, 0, xq, xscale, st));
 
-    g.a = xn; g.w = w + 4 * dd; g.epilogue = EPI_SCALE; g.out_bf16 = q;
-    AR_CHECK(launch_gemm(g, st));
+    g.epilogue = EPI_SCALE; g.out_bf16 = q;
+    AR_CHECK(dense(xn, 4, 1));
 
     at.k = ckv_b + (size_t)(2 * l) * B * S * D;
     at.v = ckv_b + (size_t)(2 * l + 1) * B * S * D;
@@ -701,32 +1053,40 @@ static int decode_step(
     at.t = nullptr; at.count = S;
     AR_CHECK(launch_attention(at, B, heads, st));
 
-    g.a = ctx; g.w = w + 5 * dd; g.epilogue = EPI_RESIDUAL; g.out_f32 = xs;
-    AR_CHECK(launch_gemm(g, st));
+    AR_CHECK(quantize(ctx, D, 1));
+    g.epilogue = EPI_RESIDUAL; g.out_f32 = xs;
+    AR_CHECK(dense(ctx, 5, 1));
 
     AR_CHECK(launch_layernorm(nullptr, nullptr, tp, L, xs, ln + 4 * D,
-                              ln + 5 * D, xn, B, D, 0, st));
+                              ln + 5 * D, xn, B, D, 0, xq, xscale, st));
 
-    g.a = xn; g.w = w + 6 * dd; g.N = 4 * D; g.K = D;
+    g.N = 4 * D; g.K = D;
     g.epilogue = EPI_BIAS_RELU; g.bias = bl; g.out_bf16 = hid;
-    AR_CHECK(launch_gemm(g, st));
+    AR_CHECK(dense(xn, 6, 1));
 
-    g.a = hid; g.w = w + 10 * dd; g.N = D; g.K = 4 * D;
+    AR_CHECK(quantize(hid, 4 * D, 4));  // fc2: one scale per D-wide group
+    g.N = D; g.K = 4 * D;
     g.epilogue = EPI_RESIDUAL; g.bias = bl + 4 * D; g.out_f32 = xs;
-    AR_CHECK(launch_gemm(g, st));
+    AR_CHECK(dense(hid, 10, 4));
   }
 
   AR_CHECK(launch_layernorm(nullptr, nullptr, tp, L, xs, flnp_f, flnp_f + D, xn,
-                            B, D, 0, st));
+                            B, D, 0, xq, xscale, st));
 
   GemmArgs g = {};
-  g.a = xn; g.w = static_cast<const bf16*>(head_w);
   g.M = B; g.N = V; g.K = D; g.epilogue = EPI_F32;
   g.out_f32 = static_cast<float*>(logits);
-  AR_CHECK(launch_gemm(g, st));
+  if (w8a8) {
+    g.aq = aq; g.a_scale = as; g.wq = W.head_q; g.w_scale = W.head_s;
+    g.groups = 1;
+    AR_CHECK(launch_gemm_s8(g, st));
+  } else {
+    g.a = xn; g.w = W.head_w;
+    AR_CHECK(launch_gemm(g, st));
+  }
 
   argmax_gather_kernel<<<B, ROW_THREADS, 0, st>>>(
-      static_cast<const float*>(logits), static_cast<const bf16*>(dict_w),
+      static_cast<const float*>(logits), W.dict_w, W.dict_q, W.dict_s,
       static_cast<bf16*>(next_x), static_cast<int*>(ids), V, D);
   ++step_launches;
   return (int)cudaGetLastError();
@@ -741,10 +1101,40 @@ extern "C" int ar_decode_step_bf16(
     const void* flnp, const void* pos, const void* head_w, const void* dict_w,
     void* next_x, void* ids, void* logits, void* work, int* launched, int B,
     int D, int heads, int nb, int L, int S, int V, float scale, void* stream) {
+  StepWeights W = {};
+  W.w = static_cast<const bf16*>(wstack);
+  W.head_w = static_cast<const bf16*>(head_w);
+  W.dict_w = static_cast<const bf16*>(dict_w);
   step_launches = 0;
-  const int err = decode_step(x, t, wstack, lnp, bias, ckv, k_cache, v_cache,
-                              flnp, pos, head_w, dict_w, next_x, ids, logits,
-                              work, B, D, heads, nb, L, S, V, scale, stream);
+  const int err = decode_step(x, t, W, lnp, bias, ckv, k_cache, v_cache, flnp,
+                              pos, next_x, ids, logits, work, B, D, heads, nb,
+                              L, S, V, scale, stream);
+  *launched = step_launches;
+  return err;
+}
+
+// The W8A8 step: int8 codes and float32 scales as ops/ar_decode.py's
+// PackedDecoderW8A8 holds them; `work` as ar_decode.workspace(w8a8=True)
+// sizes it (the bf16 step's scratch, then the codes and row scales of an A
+// operand). Otherwise as ar_decode_step_bf16.
+extern "C" int ar_decode_step_w8a8(
+    const void* x, const void* t, const void* wq, const void* wscale,
+    const void* lnp, const void* bias, const void* ckv, void* k_cache,
+    void* v_cache, const void* flnp, const void* pos, const void* head_q,
+    const void* head_s, const void* dict_q, const void* dict_s, void* next_x,
+    void* ids, void* logits, void* work, int* launched, int B, int D,
+    int heads, int nb, int L, int S, int V, float scale, void* stream) {
+  StepWeights W = {};
+  W.wq = static_cast<const int8_t*>(wq);
+  W.ws = static_cast<const float*>(wscale);
+  W.head_q = static_cast<const int8_t*>(head_q);
+  W.head_s = static_cast<const float*>(head_s);
+  W.dict_q = static_cast<const int8_t*>(dict_q);
+  W.dict_s = static_cast<const float*>(dict_s);
+  step_launches = 0;
+  const int err = decode_step(x, t, W, lnp, bias, ckv, k_cache, v_cache, flnp,
+                              pos, next_x, ids, logits, work, B, D, heads, nb,
+                              L, S, V, scale, stream);
   *launched = step_launches;
   return err;
 }

@@ -92,11 +92,16 @@ class EvalForward:
         return self.model(video, {"orvit_bboxes": boxes})
 
 
-def entry(device="cuda", batch: int = 8, seed: int = 0, tiny: bool = False):
+def entry(device="cuda", batch: int = 8, seed: int = 0, tiny: bool = False,
+          fast_gelu: bool = False, int8: bool = False):
     """(fn, (video, boxes)): the flagship eval forward and example inputs,
-    on ``device`` (CUDA unless the caller asks for the CPU)."""
+    on ``device`` (CUDA unless the caller asks for the CPU). ``fast_gelu``
+    and ``int8`` set ``TPU.FAST_GELU`` and ``TPU.INT8_SERVING``, the
+    labeled serving variants, as ``bench.py``'s ``variant_cfg`` does."""
     device = resolve_device(device)
     cfg = flagship_cfg(tiny)
+    cfg.TPU.FAST_GELU = fast_gelu
+    cfg.TPU.INT8_SERVING = int8
     model = build_model(cfg, device=device, seed=seed)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -194,12 +199,15 @@ class Reconstruct:
 
 
 def steve_entry(device="cuda", batch: int = 8, frames: int = 4, seed: int = 0,
-                tiny: bool = False):
+                tiny: bool = False, int8: bool = False):
     """(fn, (video,)): STEVE's autoregressive reconstruction and an example
     video [batch, frames, H, W, 3] in [0, 1), on ``device`` (CUDA unless
-    the caller asks for the CPU). ``batch * frames`` rows are rolled out."""
+    the caller asks for the CPU). ``batch * frames`` rows are rolled out.
+    ``int8`` sets ``TPU.INT8_SERVING``: the W8A8 fused decode step, as
+    ``scripts/bench_steve_rollout.py``'s ``kvint8`` part does."""
     device = resolve_device(device)
     cfg = steve_cfg(tiny)
+    cfg.TPU.INT8_SERVING = int8
     model = build_model(cfg, device=device, seed=seed)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -13,8 +13,14 @@ activations at the compute dtype (``TPU.COMPUTE_DTYPE``), LayerNorm
 statistics in float32 with eps 1e-6, the classifier head and the eval
 softmax in float32. ``forward(train=True)`` returns float32 logits and
 applies stochastic depth (``DropPath``) from an explicit
-``torch.Generator``. The unscanned, unpipelined form, without MoE, int8
-serving or dropout.
+``torch.Generator``. The unscanned, unpipelined form, without MoE or
+dropout.
+
+The serving variants are labeled, as in the JAX package:
+``TPU.INT8_SERVING`` runs the big dense layers (qkv and proj of both
+attentions, fc1 and fc2 of every MLP) as dynamic W8A8 dense layers
+(``ops/quant.py``) in eval only; ``TPU.FAST_GELU`` takes the tanh GELU in
+train and eval alike.
 """
 
 from collections import OrderedDict
@@ -28,6 +34,7 @@ from focus_tpu_torch.models.build import register
 from focus_tpu_torch.models.common import layer_norm, linear
 from focus_tpu_torch.ops import attention as attn_ops
 from focus_tpu_torch.ops.patch_embed import patch_embed_3d, patch_embed_reference
+from focus_tpu_torch.ops.quant import quantized_linear
 from focus_tpu_torch.ops.trajectory_block import (
     fused_trajectory_core,
     trajectory_core_reference,
@@ -60,16 +67,30 @@ class DropPath(nn.Module):
         return drop_path(x, self.drop_prob, generator)
 
 
-class Mlp(nn.Module):
-    """ViT MLP (reference ORViT/utils.py:79-98) with exact-erf GELU."""
+def int8_or_dense(x, layer: nn.Linear, quant: bool):
+    """One dense layer: W8A8 (``ops/quant.py``) where ``quant`` (int8
+    serving, eval), else at x's dtype. The parameters are the same either
+    way, so one state_dict serves both."""
+    return quantized_linear(x, layer) if quant else linear(x, layer)
 
-    def __init__(self, in_features, hidden_features, out_features=None):
+
+class Mlp(nn.Module):
+    """ViT MLP (reference ORViT/utils.py:79-98): exact-erf GELU, or the tanh
+    form with ``fast_gelu`` (flax's ``nn.gelu(approximate=True)``);
+    ``int8_dense`` makes fc1 and fc2 W8A8 in eval."""
+
+    def __init__(self, in_features, hidden_features, out_features=None,
+                 fast_gelu=False, int8_dense=False):
         super().__init__()
+        self.fast_gelu, self.int8_dense = fast_gelu, int8_dense
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features or in_features)
 
-    def forward(self, x):
-        return linear(F.gelu(linear(x, self.fc1)), self.fc2)
+    def forward(self, x, train=False):
+        quant = self.int8_dense and not train
+        h = int8_or_dense(x, self.fc1, quant)
+        h = F.gelu(h, approximate="tanh" if self.fast_gelu else "none")
+        return int8_or_dense(h, self.fc2, quant)
 
 
 class TrajectoryAttention(nn.Module):
@@ -77,25 +98,31 @@ class TrajectoryAttention(nn.Module):
     stage-2 values are the stage-1 aggregates, so only the k half of
     ``proj_kv`` is read. The non-CLS tokens go through the fused trajectory
     core (the CUDA kernel on the card, its plain version on the CPU, or the
-    plain version anywhere when ``use_kernels`` is False)."""
+    plain version anywhere when ``use_kernels`` is False). ``int8_dense``
+    makes qkv and proj W8A8 in eval; proj_q and proj_kv feed the core at
+    the compute dtype."""
 
-    def __init__(self, dim, num_heads=8, qkv_bias=False, attn_drop=0.0):
+    def __init__(self, dim, num_heads=8, qkv_bias=False, attn_drop=0.0,
+                 int8_dense=False):
         super().__init__()
         if attn_drop > 0.0:
             raise NotImplementedError("attention dropout (training only)")
         self.num_heads = num_heads
+        self.int8_dense = int8_dense
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj_q = nn.Linear(dim, dim, bias=qkv_bias)
         self.proj_kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, thw, with_cls_token=True, use_kernels=True):
+    def forward(self, x, thw, with_cls_token=True, use_kernels=True,
+                train=False):
         B, N, C = x.shape
         nf = thw[0]
         h = self.num_heads
         hd = C // h
         scale = hd ** -0.5
-        q, k, v = linear(x, self.qkv).chunk(3, dim=-1)
+        quant = self.int8_dense and not train
+        q, k, v = int8_or_dense(x, self.qkv, quant).chunk(3, dim=-1)
 
         if with_cls_token:
             def split_heads(t):
@@ -122,60 +149,70 @@ class TrajectoryAttention(nn.Module):
                    scale, h)
         if with_cls_token:
             out = torch.cat([cls_out, out], dim=1)
-        return linear(out, self.proj)
+        return int8_or_dense(out, self.proj, quant)
 
 
 class TrajectoryAttentionBlock(nn.Module):
     """(reference attention.py:443-476)"""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False,
-                 attn_drop=0.0, drop_path_rate=0.0):
+                 attn_drop=0.0, drop_path_rate=0.0, fast_gelu=False,
+                 int8_dense=False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = TrajectoryAttention(dim, num_heads, qkv_bias, attn_drop)
+        self.attn = TrajectoryAttention(dim, num_heads, qkv_bias, attn_drop,
+                                        int8_dense)
         self.drop_path = DropPath(drop_path_rate)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu=fast_gelu,
+                       int8_dense=int8_dense)
 
     def forward(self, x, metadata, thw, use_kernels=True, train=False,
                 generator=None):
-        y = self.attn(layer_norm(x, self.norm1), thw, use_kernels=use_kernels)
+        y = self.attn(layer_norm(x, self.norm1), thw, use_kernels=use_kernels,
+                      train=train)
         x = x + self.drop_path(y, train, generator)
-        y = self.mlp(layer_norm(x, self.norm2))
+        y = self.mlp(layer_norm(x, self.norm2), train)
         return x + self.drop_path(y, train, generator)
 
 
 class SelfAttention(nn.Module):
     """Joint space-time MHA (reference attention.py:355-385)."""
 
-    def __init__(self, dim, num_heads=8, qkv_bias=False):
+    def __init__(self, dim, num_heads=8, qkv_bias=False, int8_dense=False):
         super().__init__()
         self.num_heads = num_heads
+        self.int8_dense = int8_dense
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x):
+    def forward(self, x, train=False):
         B, N, C = x.shape
         h = self.num_heads
         hd = C // h
-        qkv = linear(x, self.qkv).reshape(B, N, 3, h, hd).permute(2, 0, 3, 1, 4)
+        quant = self.int8_dense and not train
+        qkv = int8_or_dense(x, self.qkv, quant).reshape(B, N, 3, h, hd)
+        qkv = qkv.permute(2, 0, 3, 1, 4)
         out = attn_ops.joint_attention(qkv[0], qkv[1], qkv[2], hd ** -0.5)
-        return linear(out.transpose(1, 2).reshape(B, N, C), self.proj)
+        return int8_or_dense(out.transpose(1, 2).reshape(B, N, C), self.proj,
+                             quant)
 
 
 class SelfAttentionBlock(nn.Module):
     """(reference attention.py:388-432, 'SeltAttentionBlock')"""
 
-    def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False):
+    def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False,
+                 fast_gelu=False, int8_dense=False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = SelfAttention(dim, num_heads, qkv_bias)
+        self.attn = SelfAttention(dim, num_heads, qkv_bias, int8_dense)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu=fast_gelu,
+                       int8_dense=int8_dense)
 
-    def forward(self, x):
-        x = x + self.attn(layer_norm(x, self.norm1))
-        return x + self.mlp(layer_norm(x, self.norm2))
+    def forward(self, x, train=False):
+        x = x + self.attn(layer_norm(x, self.norm1), train)
+        return x + self.mlp(layer_norm(x, self.norm2), train)
 
 
 class ConvWeights(nn.Module):
@@ -234,8 +271,6 @@ class Motionformer(nn.Module):
         unported = {
             "the EPIC-Kitchens verb/noun head": c.TRAIN.DATASET == "epickitchens",
             "MoE block MLPs": int(c.TPU.MOE.NUM_EXPERTS or 0) > 1,
-            "int8 serving": bool(c.TPU.INT8_SERVING),
-            "tanh GELU (TPU.FAST_GELU)": bool(c.TPU.FAST_GELU),
             "MF.POS_EMBED other than 'separate' on video input":
                 c.MF.POS_EMBED != "separate" or not c.MF.VIDEO_INPUT,
             "MF.HEAD_ACT other than 'tanh'": c.MF.USE_MLP and c.MF.HEAD_ACT != "tanh",
@@ -275,6 +310,8 @@ class Motionformer(nn.Module):
                 blocks.append(TrajectoryAttentionBlock(
                     D, c.MF.NUM_HEADS, c.MF.MLP_RATIO, c.MF.QKV_BIAS,
                     c.MF.ATTN_DROPOUT, drop_path_rate=dpr[i],
+                    fast_gelu=bool(c.TPU.FAST_GELU),
+                    int8_dense=bool(c.TPU.INT8_SERVING),
                 ))
         self.blocks = nn.ModuleList(blocks)
         self.norm = nn.LayerNorm(D, eps=1e-6)

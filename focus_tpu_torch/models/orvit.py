@@ -79,14 +79,17 @@ class MotionStream(nn.Module):
         self.box_categories = nn.Parameter(torch.empty(nb_frames, O, in_dim))
         # the reference passes the ORViT block's num_heads through
         # (orvit.py:93,237-239); ORVIT.MOTION_STREAM_N_HEADS is never read
-        self.attn = SelfAttentionBlock(in_dim, num_heads, mlp_ratio, qkv_bias)
+        self.attn = SelfAttentionBlock(
+            in_dim, num_heads, mlp_ratio, qkv_bias,
+            fast_gelu=bool(c.TPU.FAST_GELU),
+            int8_dense=bool(c.TPU.INT8_SERVING))
 
-    def forward(self, box_tensors, H: int, W: int):
+    def forward(self, box_tensors, H: int, W: int, train=False):
         c = self.cfg
         BS, T, O = box_tensors.shape[:3]
         box_emb = self.c_coord_to_feature(box_tensors)
         box_emb = self.box_categories[None].to(box_emb.dtype) + box_emb
-        flat = self.attn(box_emb.reshape(BS, T * O, self.in_dim))
+        flat = self.attn(box_emb.reshape(BS, T * O, self.in_dim), train)
         box_emb = flat.reshape(BS, T, O, self.in_dim)
         # splat object vectors into their boxes ('layout' mode, reference
         # orvit.py:182-190) with temporal average pooling
@@ -98,7 +101,10 @@ class MotionStream(nn.Module):
 
 
 class ORViTBlock(nn.Module):
-    """(reference orvit.py:39-172)"""
+    """(reference orvit.py:39-172). ``TPU.FAST_GELU`` and
+    ``TPU.INT8_SERVING`` reach the trajectory attention, the motion stream,
+    ``motion_mlp`` and ``mlp``; the ``TwoLayerReluMlp``s stay plain dense
+    layers, as in the JAX package."""
 
     def __init__(self, cfg, dim=768, num_heads=12, mlp_ratio=4.0,
                  qkv_bias=False, attn_drop=0.0, nb_frames=8,
@@ -111,15 +117,20 @@ class ORViTBlock(nn.Module):
         self.box_categories = nn.Parameter(torch.empty(nb_frames, c.ORVIT.O, dim))
         self.c_coord_to_feature = TwoLayerReluMlp(4, dim // 2, dim)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = TrajectoryAttention(dim, num_heads, qkv_bias, attn_drop)
+        fast_gelu = bool(c.TPU.FAST_GELU)
+        int8_dense = bool(c.TPU.INT8_SERVING)
+        self.attn = TrajectoryAttention(dim, num_heads, qkv_bias, attn_drop,
+                                        int8_dense)
         if c.ORVIT.USE_MOTION_STREAM:
             self.motion_stream = MotionStream(c, dim, num_heads, mlp_ratio,
                                               qkv_bias, nb_frames)
             self.motion_mlp = Mlp(self.motion_stream.in_dim,
-                                  int(dim * mlp_ratio), dim)
+                                  int(dim * mlp_ratio), dim,
+                                  fast_gelu=fast_gelu, int8_dense=int8_dense)
         self.drop_path = DropPath(drop_path_rate)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu=fast_gelu,
+                       int8_dense=int8_dense)
 
     def forward(self, x, metadata, thw, use_kernels=True, train=False,
                 generator=None):
@@ -144,16 +155,17 @@ class ORViTBlock(nn.Module):
         ).reshape(BS, T * (H * W + O), d)
         all_tokens = torch.cat([cls_token, all_tokens], dim=1)
         all_tokens = self.attn(layer_norm(all_tokens, self.norm1),
-                               (T, H * W + O, 1), use_kernels=use_kernels)
+                               (T, H * W + O, 1), use_kernels=use_kernels,
+                               train=train)
 
         cls_token_out, rest = all_tokens[:, :1], all_tokens[:, 1:]
         patch_out = rest.reshape(BS, T, H * W + O, d)[:, :, : H * W].reshape(
             BS, T * H * W, d
         )
         if self.cfg.ORVIT.USE_MOTION_STREAM:
-            motion = self.motion_stream(box_tensors, H, W)
-            patch_out = patch_out + self.motion_mlp(motion)
+            motion = self.motion_stream(box_tensors, H, W, train)
+            patch_out = patch_out + self.motion_mlp(motion, train)
         y = torch.cat([cls_token_out, patch_out], dim=1)
         x = x + self.drop_path(y, train, generator)
-        y = self.mlp(layer_norm(x, self.norm2))
+        y = self.mlp(layer_norm(x, self.norm2), train)
         return x + self.drop_path(y, train, generator)

@@ -9,7 +9,8 @@ is ``reconstruct_autoregressive``. The rollout has three forms:
 
 - ``_decode_ids_cached_fused``: one fused step per token
   (``ops/ar_decode.py``: the CUDA kernels on the card, their plain version
-  on the CPU or when ``use_kernels`` is False);
+  on the CPU or when ``use_kernels`` is False), the W8A8 step under
+  ``TPU.INT8_SERVING``;
 - ``_decode_ids_cached``: the KV-cached rollout through the modules;
 - ``_decode_ids_full``: the full-prefix re-decode, the parity oracle.
 
@@ -228,14 +229,14 @@ class STEVE(nn.Module):
 
     def __init__(self, cfg, dtype=torch.float32):
         super().__init__()
-        if bool(cfg.TPU.INT8_SERVING):
-            raise NotImplementedError(
-                "TPU.INT8_SERVING (the W8A8 decode step) is not ported yet")
         c = cfg.SLOTS
         self.dtype = dtype
         self.vocab_size, self.num_slots = c.VOCAB_SIZE, c.NUM_SLOTS
         self.image_size, self.d_model = c.IMG_SIZE, c.DECODER.DIM
         self.fused_ar_step = bool(cfg.TPU.FUSED_AR_STEP)
+        # the W8A8 fused step (a labeled serving variant); as in the JAX
+        # package it reaches only the fused rollout
+        self.int8_serving = bool(cfg.TPU.INT8_SERVING)
         self.use_kernels = True
         self._rollout_cache = {}  # kind -> (weights' fingerprint, value)
         self.dvae = DVAE(c.VOCAB_SIZE, c.IMG_CHANNELS)
@@ -324,10 +325,14 @@ class STEVE(nn.Module):
 
         return self._cached(("modules", dtype), cast)
 
-    def _packed_decoder(self, dtype):
+    def _packed_decoder(self, dtype, w8a8=False):
         """The decoder's weights as the fused step reads them, packed once
-        per state of the weights."""
+        per state of the weights; ``w8a8``: the W8A8 pack, quantized from
+        the pack at ``dtype`` and kept beside it."""
         dec = self.steve_decoder
+        if w8a8:
+            return self._cached(("packed_w8a8", dtype), lambda: (
+                ar_decode.quantize_packed(self._packed_decoder(dtype))))
         return self._cached(("packed", dtype), lambda: (
             ar_decode.stack_decoder_params(dec.tf, dec.head,
                                            dec.dict.dictionary, dtype)))
@@ -362,13 +367,16 @@ class STEVE(nn.Module):
 
     def _decode_ids_cached_fused(self, slots, gen_len, logits=None):
         """KV-cached rollout with the whole per-token decoder body, the
-        token head, the argmax and the dictionary lookup in one fused step.
-        Outside the step stay the hoisted cross-attention K/V, once per
-        rollout, and the weight packing, once per state of the weights."""
+        token head, the argmax and the dictionary lookup in one fused step
+        (W8A8 under ``int8_serving``, at every row count: the JAX package
+        gates its fused step to 64 rows or fewer and rolls larger batches
+        out in bf16). Outside the step stay the hoisted cross-attention K/V,
+        once per rollout, and the weight packing, once per state of the
+        weights."""
         B, d, dtype = slots.shape[0], self.d_model, slots.dtype
         dec = self.steve_decoder
         nb, L = dec.tf.num_blocks, 1 + gen_len
-        packed = self._packed_decoder(dtype)
+        packed = self._packed_decoder(dtype, w8a8=self.int8_serving)
         pos = dec.pos.pe[0, :L].float().contiguous()
         bos = self._bos(slots)
         cross_kvs = dec.tf(bos, slots, project_kv_only=True)
@@ -381,7 +389,8 @@ class STEVE(nn.Module):
         ids = []
         if self.use_kernels:
             step = ar_decode.fused_ar_step
-            extra = {"scratch": ar_decode.workspace(B, d, slots.device)}
+            extra = {"scratch": ar_decode.workspace(B, d, slots.device,
+                                                    self.int8_serving)}
         else:
             step, extra = ar_decode.ar_step_reference, {}
         for t in range(gen_len):

@@ -3,7 +3,7 @@ PyTorch version, the weight packing, and the wrapper of its CUDA kernels
 (``csrc/ar_decode.cu``).
 
 Counterpart of ``focus_tpu/ops/pallas/ar_decode.py`` (``fused_ar_step``,
-``stack_decoder_params``). One step takes the current token embedding of
+``stack_decoder_params``, ``quantize_wstack``). One step takes the current token embedding of
 every rollout row through the whole KV-cached decoder and the token head:
 
   position row t added, layer 0 starts from the normed input; per layer
@@ -24,6 +24,16 @@ q, the K/V row (to the cache dtype, before it is used for position t), the
 attention contexts, every LayerNorm output, the FFN hidden; the softmax
 weights stay float32 through PV; the residual stream is float32; the next
 input is the dictionary row as packed at ``dt``.
+
+The W8A8 mode (``TPU.INT8_SERVING``; ``quantize_packed`` gives its
+``PackedDecoderW8A8``) is the TPU kernel's ``int8=True`` ``mm``: every
+product quantizes its A operand per row, s = max(amax, 1e-8) * (1/127),
+codes round(a / s), against int8 weight codes with one float32 scale per
+output column and JAX chunk, accumulates in int32 and dequantizes as
+float(acc) * s_row * s_col. fc2 quantizes the hidden per D-wide group and
+adds the dequantized group partials in group order; the next input is the
+dequantized dictionary row, which is what the TPU kernel's one-hot W8A8
+product gives. LayerNorm, attention and the cache writes are as above.
 """
 
 import ctypes
@@ -38,8 +48,15 @@ from focus_tpu_torch.ops import _build
 LAUNCHES = 0
 # device kernels those calls launched, as the C function counted them
 DEVICE_LAUNCHES = 0
+# the same two counts for the W8A8 step
+W8A8_LAUNCHES = 0
+W8A8_DEVICE_LAUNCHES = 0
 LN_EPS = 1e-6
 MAX_HEAD_DIM = 1024  # the attention kernel's per-lane register budget
+QUANT_EPS = 1e-8
+# 1/127 as the TPU kernel multiplies by it; a Python float multiplies a
+# float32 tensor as the float32 value it rounds to
+INV127 = 1.0 / 127.0
 
 
 class PackedDecoder(NamedTuple):
@@ -60,12 +77,40 @@ class PackedDecoder(NamedTuple):
     dict_w: torch.Tensor
 
 
-def launches_per_step(num_blocks: int) -> int:
+class PackedDecoderW8A8(NamedTuple):
+    """The W8A8 pack (``quantize_packed``): the matrices of
+    ``PackedDecoder`` as int8 codes in the same layout, with float32 scales
+    at the TPU kernel's chunk granularity.
+
+    wq [nb, 14*D*D] int8; wscale [nb, 14, D] float32, one row per JAX
+    chunk: q, k, v, o, cross q, cross o and the four D-row chunks of fc1
+    (one scale per output row over K = D), then fc2's four D-wide K groups
+    (scale [10 + j, n] for output row n over k in [jD, (j+1)D));
+    head_q [V, D] int8 and head_s [V] float32 (one scale per vocabulary
+    row); dict_q [V, D] int8 and dict_s [ceil(V/D), D] float32 (one scale
+    per group of D vocabulary rows and output dim; the last group may be
+    partial); lnp, bias, flnp as in ``PackedDecoder``."""
+
+    wq: torch.Tensor
+    wscale: torch.Tensor
+    lnp: torch.Tensor
+    bias: torch.Tensor
+    flnp: torch.Tensor
+    head_q: torch.Tensor
+    head_s: torch.Tensor
+    dict_q: torch.Tensor
+    dict_s: torch.Tensor
+
+
+def launches_per_step(num_blocks: int, w8a8: bool = False) -> int:
     """Device kernels one step is designed to launch (``DEVICE_LAUNCHES``
-    holds what the calls did launch): per layer 3 LayerNorms, 6 skinny
-    GEMMs (q|k|v, o, cross q, cross o, fc1, fc2) and 2 attentions; then the
-    final LayerNorm, the head GEMM and the argmax/gather."""
-    return 11 * num_blocks + 3
+    and ``W8A8_DEVICE_LAUNCHES`` hold what the calls did launch): per layer
+    3 LayerNorms, 6 skinny GEMMs (q|k|v, o, cross q, cross o, fc1, fc2) and
+    2 attentions; then the final LayerNorm, the head GEMM and the
+    argmax/gather. The W8A8 step adds 3 row-quantization launches a layer
+    (the two attention contexts and the FFN hidden; the LayerNorms
+    quantize their own output)."""
+    return (14 if w8a8 else 11) * num_blocks + 3
 
 
 @torch.no_grad()
@@ -94,6 +139,62 @@ def stack_decoder_params(tf, head, dictionary, dtype=torch.bfloat16):
     )
 
 
+def _quantize_chunks(w, K):
+    """Codes and scales of ``w`` [R, C] over runs of K consecutive elements
+    of a row (the TPU kernel's ``quantize_wstack``: scale max(amax, 1e-8)
+    / 127, codes round(w / s), from the values as stored) -> (int8 [R, C],
+    float32 [R, C // K])."""
+    R, C = w.shape
+    w32 = w.float().reshape(R, C // K, K)
+    s = w32.abs().amax(dim=-1).clamp_min(QUANT_EPS) / 127.0
+    q = torch.round(w32 / s[..., None]).to(torch.int8)
+    return q.reshape(R, C), s
+
+
+@torch.no_grad()
+def quantize_packed(packed: PackedDecoder) -> PackedDecoderW8A8:
+    """The W8A8 pack of a ``PackedDecoder``, quantized from its values at
+    the compute dtype, with the JAX chunk granularity of ``quantize_wstack``
+    (the per-layer chunks, and the head and dictionary chunks of its head
+    row) carried over to this packing."""
+    nb = packed.wstack.shape[0]
+    V, D = packed.head_w.shape
+    dd = D * D
+    wq, ws = [], []
+    for l in range(nb):
+        w = packed.wstack[l]
+        q1, s1 = _quantize_chunks(w[:10 * dd].view(10 * D, D), D)
+        q2, s2 = _quantize_chunks(w[10 * dd:].view(D, 4 * D), D)
+        wq.append(torch.cat([q1.reshape(-1), q2.reshape(-1)]))
+        ws.append(torch.cat([s1.reshape(10, D), s2.t()]))
+    head_q, head_s = _quantize_chunks(packed.head_w, D)
+    # dictionary chunk j: rows jD..(j+1)D, one scale per output dim
+    groups = -(-V // D)
+    dict_w = packed.dict_w.float()
+    pad = torch.zeros(groups * D - V, D, dtype=dict_w.dtype,
+                      device=dict_w.device)
+    d3 = torch.cat([dict_w, pad]).view(groups, D, D)
+    dict_s = d3.abs().amax(dim=1).clamp_min(QUANT_EPS) / 127.0
+    dict_q = torch.round(d3 / dict_s[:, None]).to(torch.int8)
+    return PackedDecoderW8A8(
+        torch.stack(wq).contiguous(), torch.stack(ws).contiguous(),
+        packed.lnp, packed.bias, packed.flnp, head_q.contiguous(),
+        head_s.reshape(V).contiguous(), dict_q.reshape(-1, D)[:V].contiguous(),
+        dict_s.contiguous())
+
+
+def next_input(packed, ids, dtype):
+    """The next step's input for token ``ids``: the packed dictionary row,
+    or for the W8A8 pack its dequantized codes as the TPU kernel's one-hot
+    W8A8 product forms them, (float(127 * code) * f32(1/127)) * scale."""
+    if isinstance(packed, PackedDecoder):
+        return packed.dict_w[ids]
+    ids = ids.long()
+    D = packed.dict_q.shape[1]
+    codes = packed.dict_q[ids].float() * 127.0
+    return (codes * INV127 * packed.dict_s[ids // D]).to(dtype)
+
+
 def _ln(x32, gamma, beta):
     m = x32.mean(dim=-1, keepdim=True)
     v = ((x32 - m) ** 2).mean(dim=-1, keepdim=True)
@@ -103,6 +204,24 @@ def _ln(x32, gamma, beta):
 def _mm(a, w):
     """a [B, K] x w [N, K]^T with float32 accumulation -> float32."""
     return torch.matmul(a.float(), w.float().t())
+
+
+def _quantize_rows(a):
+    """The TPU kernel's activation quantization of ``a`` [B, K]: codes (as
+    float, integral) and float32 scales [B, 1], s = max(amax, 1e-8) *
+    (1/127) from the values as stored, codes round(a / s)."""
+    af = a.float()
+    s = af.abs().amax(dim=-1, keepdim=True).clamp_min(QUANT_EPS) * INV127
+    return torch.round(af / s), s
+
+
+def _qmm(a, wq, ws):
+    """W8A8 product a [B, K] x wq [N, K]^T with scales ws [N] -> float32:
+    the int32 sum is formed exactly (float64 holds these integers), then
+    float(acc) * s_row * s_col."""
+    codes, s = _quantize_rows(a)
+    acc = torch.matmul(codes.double(), wq.double().t())
+    return acc.float() * s * ws
 
 
 def _attend(q, k, v, heads):
@@ -121,55 +240,92 @@ def _attend(q, k, v, heads):
 def ar_step_reference(x, t, packed, ckv, k_cache, v_cache, pos, heads,
                       logits_out=None):
     """Plain version of ``fused_ar_step``: same arguments and results, the
-    same rounding points, float32 accumulation."""
+    same rounding points, float32 accumulation (int32 for the W8A8 pack's
+    products)."""
     dt = x.dtype
     B, D = x.shape
-    nb = packed.wstack.shape[0]
+    w8a8 = isinstance(packed, PackedDecoderW8A8)
+    nb = packed.lnp.shape[0]
     t = int(t)
     scale = (D // heads) ** -0.5
     dd = D * D
     xs = _ln(x.float() + pos[t].float(), packed.lnp[0, 0], packed.lnp[0, 1])
     for l in range(nb):
-        w = packed.wstack[l]
         lnp, bias = packed.lnp[l], packed.bias[l]
+        if w8a8:
+            wl, sl = packed.wq[l], packed.wscale[l]
+
+            def mm(a, c0, c1):  # chunks c0..c1-1, each D output rows
+                return _qmm(a, wl[c0 * dd:c1 * dd].view(-1, D),
+                            sl[c0:c1].reshape(-1))
+
+            def fc2(h):  # each D-wide group dequantized, then summed in order
+                w2 = wl[10 * dd:].view(D, 4 * D)
+                out = _qmm(h[:, :D], w2[:, :D], sl[10])
+                for j in range(1, 4):
+                    out = out + _qmm(h[:, j * D:(j + 1) * D],
+                                     w2[:, j * D:(j + 1) * D], sl[10 + j])
+                return out
+        else:
+            wl = packed.wstack[l]
+
+            def mm(a, c0, c1):
+                return _mm(a, wl[c0 * dd:c1 * dd].view(-1, D))
+
+            def fc2(h):
+                return _mm(h, wl[10 * dd:].view(D, 4 * D))
         xn = xs.to(dt) if l == 0 else _ln(xs, lnp[0], lnp[1]).to(dt)
-        qkv = _mm(xn, w[:3 * dd].view(3 * D, D))
+        qkv = mm(xn, 0, 3)
         q = (qkv[:, :D] * scale).to(dt)
         k_cache[l, t] = qkv[:, D:2 * D].to(k_cache.dtype)
         v_cache[l, t] = qkv[:, 2 * D:].to(v_cache.dtype)
         ctx = _attend(q, k_cache[l, :t + 1].transpose(0, 1),
                       v_cache[l, :t + 1].transpose(0, 1), heads).to(dt)
-        xs = xs + _mm(ctx, w[3 * dd:4 * dd].view(D, D))
+        xs = xs + mm(ctx, 3, 4)
         xn = _ln(xs, lnp[2], lnp[3]).to(dt)
-        q2 = (_mm(xn, w[4 * dd:5 * dd].view(D, D)) * scale).to(dt)
+        q2 = (mm(xn, 4, 5) * scale).to(dt)
         cctx = _attend(q2, ckv[l, 0], ckv[l, 1], heads).to(dt)
-        xs = xs + _mm(cctx, w[5 * dd:6 * dd].view(D, D))
+        xs = xs + mm(cctx, 5, 6)
         xn = _ln(xs, lnp[4], lnp[5]).to(dt)
-        h = torch.relu(_mm(xn, w[6 * dd:10 * dd].view(4 * D, D))
-                       + bias[:4 * D]).to(dt)
-        xs = xs + (_mm(h, w[10 * dd:].view(D, 4 * D)) + bias[4 * D:])
+        h = torch.relu(mm(xn, 6, 10) + bias[:4 * D]).to(dt)
+        xs = xs + (fc2(h) + bias[4 * D:])
     xn = _ln(xs, packed.flnp[0], packed.flnp[1]).to(dt)
-    logits = _mm(xn, packed.head_w)
+    if w8a8:
+        logits = _qmm(xn, packed.head_q, packed.head_s)
+    else:
+        logits = _mm(xn, packed.head_w)
     if logits_out is not None:
         logits_out.copy_(logits)
     ids = torch.argmax(logits, dim=-1)  # first index among ties
-    return packed.dict_w[ids], ids.to(torch.int32), k_cache, v_cache
+    return next_input(packed, ids, dt), ids.to(torch.int32), k_cache, v_cache
 
 
-def _workspace_bytes(rows, dim):
-    # float32 residual stream; xn, q, ctx and the 4D-wide FFN hidden at bf16
-    return rows * dim * (4 + 3 * 2 + 4 * 2)
+def _round16(n):
+    return (n + 15) // 16 * 16
 
 
-def workspace(rows, dim, device):
+def _workspace_bytes(rows, dim, w8a8=False):
+    # float32 residual stream; xn, q, ctx and the 4D-wide FFN hidden at bf16;
+    # W8A8: then the int8 codes of an A operand (up to 4D wide) and its row
+    # scales (up to 4 groups), each from a 16-byte boundary
+    n = rows * dim * (4 + 3 * 2 + 4 * 2)
+    if w8a8:
+        n = _round16(n) + _round16(rows * 4 * dim) + rows * 4 * 4
+    return n
+
+
+def workspace(rows, dim, device, w8a8=False):
     """Scratch for one step of ``rows`` rollout rows, reusable across
-    steps."""
-    return torch.empty(_workspace_bytes(rows, dim), dtype=torch.uint8,
+    steps (``w8a8``: for the W8A8 step)."""
+    return torch.empty(_workspace_bytes(rows, dim, w8a8), dtype=torch.uint8,
                        device=device)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _kernel_fn(w8a8=False):
+    if w8a8:
+        return _build.bind("ar_decode", "ar_decode_step_w8a8",
+                           n_ptr=20, n_int=7, n_float=1)
     return _build.bind("ar_decode", "ar_decode_step_bf16",
                        n_ptr=17, n_int=7, n_float=1)
 
@@ -181,36 +337,61 @@ def _step_table(device, length):
     return torch.arange(length, dtype=torch.int32, device=device)
 
 
-def _launch(x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out,
-            scratch):
-    global LAUNCHES, DEVICE_LAUNCHES
+def _check_operands(x, t, packed, ckv, k_cache, v_cache, pos, heads,
+                    logits_out, scratch):
+    """The kernels' rules on the operands -> (t, scratch, logits_out, dims);
+    raises on a dtype, device, layout or shape they do not take."""
+    w8a8 = isinstance(packed, PackedDecoderW8A8)
     B, D = x.shape
     nb, L = k_cache.shape[0], k_cache.shape[1]
-    S, V = ckv.shape[3], packed.head_w.shape[0]
+    S = ckv.shape[3]
     dev = x.device
-    bf16s = (x, packed.wstack, packed.head_w, packed.dict_w, ckv, k_cache,
-             v_cache)
+    bf16s = (x, ckv, k_cache, v_cache)
     f32s = (packed.lnp, packed.bias, packed.flnp, pos)
+    if w8a8:
+        V = packed.head_q.shape[0]
+        i8s = (packed.wq, packed.head_q, packed.dict_q)
+        f32s += (packed.wscale, packed.head_s, packed.dict_s)
+        if any(a.dtype != torch.int8 for a in i8s):
+            raise TypeError("the W8A8 step takes int8 weight codes, got "
+                            f"{[a.dtype for a in i8s]}")
+    else:
+        V = packed.head_w.shape[0]
+        i8s = ()
+        bf16s += (packed.wstack, packed.head_w, packed.dict_w)
     if any(a.dtype != torch.bfloat16 for a in bf16s):
         raise TypeError("the decode-step kernel computes in bfloat16, got "
                         f"{[a.dtype for a in bf16s]}")
     if any(a.dtype != torch.float32 for a in f32s):
-        raise TypeError("LayerNorm parameters, biases and the position table "
-                        f"must be float32, got {[a.dtype for a in f32s]}")
-    if any(a.device != dev or not a.is_contiguous() for a in bf16s + f32s):
+        raise TypeError("LayerNorm parameters, biases, scales and the "
+                        "position table must be float32, got "
+                        f"{[a.dtype for a in f32s]}")
+    if any(a.device != dev or not a.is_contiguous()
+           for a in bf16s + f32s + i8s):
         raise ValueError("decode-step operands must be contiguous and on "
                          "one device")
     hd = D // max(heads, 1)
     if heads < 1 or D != heads * hd or hd > MAX_HEAD_DIM:
         raise ValueError(f"D={D} must be heads={heads} x a head dim of at "
                          f"most {MAX_HEAD_DIM}")
+    if w8a8:
+        weights_ok = (
+            tuple(packed.wq.shape) == (nb, 14 * D * D)
+            and tuple(packed.wscale.shape) == (nb, 14, D)
+            and tuple(packed.head_q.shape) == (V, D)
+            and tuple(packed.head_s.shape) == (V,)
+            and tuple(packed.dict_q.shape) == (V, D)
+            and tuple(packed.dict_s.shape) == (-(-V // D), D))
+    else:
+        weights_ok = (
+            tuple(packed.wstack.shape) == (nb, 14 * D * D)
+            and tuple(packed.head_w.shape) == (V, D)
+            and tuple(packed.dict_w.shape) == (V, D))
     shapes_ok = (
-        tuple(packed.wstack.shape) == (nb, 14 * D * D)
+        weights_ok
         and tuple(packed.lnp.shape) == (nb, 6, D)
         and tuple(packed.bias.shape) == (nb, 5 * D)
         and tuple(packed.flnp.shape) == (2, D)
-        and tuple(packed.head_w.shape) == (V, D)
-        and tuple(packed.dict_w.shape) == (V, D)
         and tuple(ckv.shape) == (nb, 2, B, S, D) and S >= 1
         and tuple(k_cache.shape) == (nb, L, B, D)
         and tuple(v_cache.shape) == (nb, L, B, D)
@@ -222,9 +403,9 @@ def _launch(x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out,
     if not 0 <= t < L:
         raise ValueError(f"step {t} outside the cache's {L} rows")
     if scratch is None:
-        scratch = workspace(B, D, dev)
+        scratch = workspace(B, D, dev, w8a8)
     elif (scratch.device != dev or scratch.dtype != torch.uint8
-          or scratch.numel() < _workspace_bytes(B, D)):
+          or scratch.numel() < _workspace_bytes(B, D, w8a8)):
         raise ValueError("workspace too small or on another device")
     if logits_out is None:
         logits_out = torch.empty(B, V, dtype=torch.float32, device=dev)
@@ -232,24 +413,47 @@ def _launch(x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out,
           or tuple(logits_out.shape) != (B, V)
           or not logits_out.is_contiguous()):
         raise ValueError(f"logits_out must be contiguous float32 [{B}, {V}]")
+    return t, scratch, logits_out, (B, D, heads, nb, L, S, V)
+
+
+def _launch(x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out,
+            scratch):
+    global LAUNCHES, DEVICE_LAUNCHES, W8A8_LAUNCHES, W8A8_DEVICE_LAUNCHES
+    t, scratch, logits_out, dims = _check_operands(
+        x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out, scratch)
+    w8a8 = isinstance(packed, PackedDecoderW8A8)
+    B, D, L = dims[0], dims[1], dims[4]
+    dev = x.device
     next_x = torch.empty(B, D, dtype=torch.bfloat16, device=dev)
     ids = torch.empty(B, dtype=torch.int32, device=dev)
     t_dev = _step_table(dev, L)
+    if w8a8:
+        weights = (packed.wq, packed.wscale, packed.lnp, packed.bias)
+        head = (packed.head_q, packed.head_s, packed.dict_q, packed.dict_s)
+        name = "ar_decode_step_w8a8"
+    else:
+        weights = (packed.wstack, packed.lnp, packed.bias)
+        head = (packed.head_w, packed.dict_w)
+        name = "ar_decode_step_bf16"
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn()(
-            x.data_ptr(), t_dev.data_ptr() + 4 * t, packed.wstack.data_ptr(),
-            packed.lnp.data_ptr(), packed.bias.data_ptr(), ckv.data_ptr(),
+        err = _kernel_fn(w8a8)(
+            x.data_ptr(), t_dev.data_ptr() + 4 * t,
+            *[a.data_ptr() for a in weights], ckv.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), packed.flnp.data_ptr(),
-            pos.data_ptr(), packed.head_w.data_ptr(),
-            packed.dict_w.data_ptr(), next_x.data_ptr(), ids.data_ptr(),
-            logits_out.data_ptr(), scratch.data_ptr(),
-            ctypes.addressof(launched), B, D, heads, nb, L, S, V, float(hd ** -0.5), stream,
+            pos.data_ptr(), *[a.data_ptr() for a in head],
+            next_x.data_ptr(), ids.data_ptr(), logits_out.data_ptr(),
+            scratch.data_ptr(), ctypes.addressof(launched), *dims,
+            float((D // heads) ** -0.5), stream,
         )
-    _build.check(err, "ar_decode_step_bf16")
-    LAUNCHES += 1
-    DEVICE_LAUNCHES += launched.value
+    _build.check(err, name)
+    if w8a8:
+        W8A8_LAUNCHES += 1
+        W8A8_DEVICE_LAUNCHES += launched.value
+    else:
+        LAUNCHES += 1
+        DEVICE_LAUNCHES += launched.value
     return next_x, ids, k_cache, v_cache
 
 
@@ -258,12 +462,15 @@ def fused_ar_step(x, t, packed, ckv, k_cache, v_cache, pos, heads,
     """One decode step -> (next_x [B, D], ids [B] int32, k_cache, v_cache).
 
     x [B, D] is the raw token embedding (position row t is added inside);
-    t the step index; ``packed`` a ``PackedDecoder``; ckv [nb, 2, B, S, D];
+    t the step index; ``packed`` a ``PackedDecoder``, or a
+    ``PackedDecoderW8A8`` for the W8A8 step; ckv [nb, 2, B, S, D];
     k_cache / v_cache [nb, L, B, D], row t of every layer written in place;
     pos [L, D] float32. ``logits_out`` (float32 [B, V]) receives the
     vocabulary logits; ``scratch`` is a ``workspace`` to reuse across
     steps. A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernels (bf16, contiguous) or raises.
+    kernels (bf16 activations, contiguous) or raises. The bf16 step counts
+    into ``LAUNCHES`` and ``DEVICE_LAUNCHES``, the W8A8 step into
+    ``W8A8_LAUNCHES`` and ``W8A8_DEVICE_LAUNCHES``.
     """
     if x.device.type == "cpu":
         return ar_step_reference(x, t, packed, ckv, k_cache, v_cache, pos,

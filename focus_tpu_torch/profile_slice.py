@@ -1,7 +1,7 @@
 """Where the time of a slice's main path goes, on one GPU.
 
     python3 -m focus_tpu_torch.profile_slice [--model flagship|steve|train] \
-        [--batch 8] [--iters 2] [--trace trace.json]
+        [--batch 8] [--iters 2] [--trace trace.json] [--int8] [--fast-gelu]
 
 Builds ``entry(device="cuda")`` (the flagship eval forward),
 ``train_entry(device="cuda")`` (one flagship train step: forward, backward
@@ -12,7 +12,10 @@ activities). Prints one JSON
 line: the wall time per call, the summed device time of the device-side
 events (kernels and device copies), the device's busy share of the wall
 time, and the events with the most device time. ``--trace`` also writes the
-Chrome trace to the path given.
+Chrome trace to the path given. The labeled serving variants:
+``--int8`` (``TPU.INT8_SERVING``: W8A8 dense layers in the flagship, the
+W8A8 decode step in STEVE) and ``--fast-gelu`` (``TPU.FAST_GELU``, the
+flagship only).
 """
 
 import argparse
@@ -42,11 +45,23 @@ def main():
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
+    ap.add_argument("--int8", action="store_true",
+                    help="TPU.INT8_SERVING (flagship or steve)")
+    ap.add_argument("--fast-gelu", action="store_true",
+                    help="TPU.FAST_GELU (flagship)")
     args = ap.parse_args()
 
+    variant = {}
+    if args.int8:
+        variant["int8"] = True
+    if args.fast_gelu:
+        variant["fast_gelu"] = True
+    if args.model == "train" and variant or (
+            args.model == "steve" and args.fast_gelu):
+        ap.error(f"--model {args.model} takes no {sorted(variant)}")
     make = {"flagship": entry, "steve": steve_entry,
             "train": train_entry}[args.model]
-    fn, inputs = make(device="cuda", batch=args.batch)
+    fn, inputs = make(device="cuda", batch=args.batch, **variant)
     for _ in range(2):
         fn(*inputs)
     torch.cuda.synchronize()
@@ -72,7 +87,7 @@ def main():
         "profile": {"flagship": "flagship eval forward",
                     "steve": "STEVE reconstruct_autoregressive",
                     "train": "flagship train step"}[args.model],
-        "batch": args.batch,
+        "variant": variant, "batch": args.batch,
         "gpu": smi, "wall_ms_per_call": wall_ms,
         "device_ms_per_call": device_ms if rows else "not measured",
         "device_busy_share": device_ms / wall_ms if rows else "not measured",

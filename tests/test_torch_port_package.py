@@ -132,6 +132,7 @@ def test_wrappers_refuse_other_devices():
     (trajectory_block, "trajectory_block_bwd.cu", "traj_core_bwd_bf16"),
     (patch_embed, "patch_embed.cu", "patch_embed_bf16"),
     (ar_decode, "ar_decode.cu", "ar_decode_step_bf16"),
+    (ar_decode, "ar_decode.cu", "ar_decode_step_w8a8"),
 ])
 def test_wrappers_bind_their_cuda_sources(module, source, symbol):
     with open(os.path.join(PKG, "csrc", source)) as f:
@@ -166,6 +167,7 @@ def _c_signature(source, symbol):
     ("trajectory_block_bwd.cu", "traj_core_bwd_bf16", 24, 6, 1),
     ("patch_embed.cu", "patch_embed_bf16", 4, 10, 0),
     ("ar_decode.cu", "ar_decode_step_bf16", 17, 7, 1),
+    ("ar_decode.cu", "ar_decode_step_w8a8", 20, 7, 1),
 ])
 def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
                                             n_float):

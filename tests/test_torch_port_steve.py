@@ -434,9 +434,8 @@ def test_steve_options_not_ported_raise():
     with pytest.raises(NotImplementedError, match="training forward"):
         fn.model(video, 1.0, True, train=True)
     cfg = steve_cfg(tiny=True)
-    cfg.TPU.INT8_SERVING = True
-    with pytest.raises(NotImplementedError, match="INT8_SERVING"):
-        build_model(cfg, device="cpu")
+    cfg.TPU.INT8_SERVING = True  # ported: the W8A8 fused step
+    assert build_model(cfg, device="cpu").int8_serving
     with pytest.raises(ValueError, match="only the fused step"):
         fn.model.fused_ar_step = False
         fn.model.decode_ids(torch.zeros(1, 3, 192),
