@@ -36,7 +36,17 @@ Phases (one JSON line each; any failure exits non-zero):
      probabilities against the same variant on the plain path and against
      the exact-erf bf16 model), and STEVE's
      rollout through the W8A8 decode step at 32 and 128 rows (frames per
-     second, launch counts, time split, ids against the W8A8 plain path).
+     second, launch counts, time split, ids against the W8A8 plain path);
+  8. the trajectory core's forward versions: the flagship forward at batch
+     8 under FWD_VERSION 4, 5 and 6 (clips per second, peak memory, 12
+     launches of the chosen kernel per forward and none of the others, the
+     probabilities against the plain path), after the v5 and v6 kernels are
+     held against their step-by-step plain versions in phase 2;
+  9. the learned-v slice: 12 learned-v trajectory blocks
+     (``use_original_code=False``) at D=768 on x [8, 1569, 768] bf16
+     through the space-stage kernel (ms per stack, 12 launches per stack,
+     peak memory, the output against the plain path), and at batch 2 one
+     forward and backward against the float32 plain path.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -383,6 +393,252 @@ def phase_trajectory_backward():
             "device_launches_per_call": per_call,
             "shape": "B=8 S=1568 N=196 F=8 C=768 heads=12 "
                      f"(S=1600: {timing[1]['kernel_ms']:.4f} ms)"}
+
+
+def space_stage_bytes_flops(BH, S, F, N, d):
+    """The space stage's least work: q, k and v read once (bf16), the
+    [BH, S, F, d] output written once, and the QK^T and PV products."""
+    return 2 * (3 * BH * S * d + BH * S * F * d), 2 * 2 * BH * S * F * N * d
+
+
+def phase_space_stage():
+    """Kernel 8 (the learned-v path's stage 1) against its plain version
+    at the learned-v slice's shapes (BH = 96, F = 8, N = 196 and 200), with
+    its kernel, plain and SDPA times, and the autograd Function's backward
+    (the plain float32 backward) at B = 2 against autograd of the float32
+    plain forward."""
+    from focus_tpu_torch.ops import attention as attn_ops
+    from focus_tpu_torch.ops import trajectory_attention as ta
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    BH, F, d, scale = 96, 8, 64, 64 ** -0.5
+    cases, timing = [], None
+    for N in (196, 200):
+        S = F * N
+        q, k, v = ((torch.randn(BH, S, d, generator=gen, device=DEV))
+                   .bfloat16() for _ in range(3))
+        out = ta.space_stage(q, k, v, F, scale)
+        ref = attn_ops.space_stage(q.float(), k.float(), v.float(), F, scale)
+        torch.cuda.synchronize()
+        err, ref_max = check_close(f"space_stage N={N}", out, ref)
+        case = {"BH": BH, "S": S, "F": F, "N": N, "d": d,
+                "max_abs_err": err, "max_abs_ref": ref_max}
+        case["kernel_ms"] = time_ms(lambda: ta.space_stage(q, k, v, F, scale))
+        case["plain_ms"] = time_ms(
+            lambda: attn_ops.space_stage(q, k, v, F, scale), warmup=1,
+            iters=5)
+        # one PyTorch call for the same function: SDPA with q broadcast over
+        # the frames, giving [BH, F, S, d]; the transpose to [BH, S, F, d]
+        # the port writes directly is timed apart
+        kf, vf = k.reshape(BH, F, N, d), v.reshape(BH, F, N, d)
+        qx = q.unsqueeze(1).expand(BH, F, S, d)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = sdpa(qx, kf, vf, scale=scale)
+        check_close(f"SDPA N={N}", lib.transpose(1, 2), ref)
+        case["library_ms"] = time_ms(lambda: sdpa(qx, kf, vf, scale=scale))
+        case["library_transpose_ms"] = time_ms(
+            lambda: lib.transpose(1, 2).contiguous())
+        nbytes_, flops = space_stage_bytes_flops(BH, S, F, N, d)
+        case["bound_ms"], case["bound_by"] = bound(flops, nbytes_)
+        cases.append(case)
+        if N == 196:
+            timing = case
+        del q, k, v, out, ref, lib, qx
+        torch.cuda.empty_cache()
+    # the backward of the autograd Function at B = 2 (BH = 24)
+    N, S = 196, F * 196
+    leaves = [(torch.randn(24, S, d, generator=gen, device=DEV)).bfloat16()
+              .requires_grad_(True) for _ in range(3)]
+    g = (torch.randn(24, S, F, d, generator=gen, device=DEV) * 0.1).bfloat16()
+    before = ta.LAUNCHES
+    ta.space_stage(*leaves, F, scale).backward(g)
+    launched = ta.LAUNCHES - before
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    attn_ops.space_stage(*ref_leaves, F, scale).backward(g.float())
+    torch.cuda.synchronize()
+    bwd = {name: grad_errors(f"space_stage backward {name}", t.grad, r.grad)
+           for name, t, r in zip(("dq", "dk", "dv"), leaves, ref_leaves)}
+    if launched != 1:
+        raise AssertionError(f"space_stage backward case: {launched} "
+                             "forward launches, expected 1")
+    emit({"phase": "kernel", "name": "space_stage", "ok": True,
+          "tolerance": f"max|err| <= {KERNEL_TOL_REL} x max|ref| (bf16 "
+                       "weights and output vs plain float32 on the same "
+                       "inputs); backward: each gradient max|err| <= "
+                       f"{KERNEL_TOL_REL} x max|ref| and relative L2 <= "
+                       f"{BWD_REL_L2} against autograd of the float32 plain "
+                       "forward",
+          "library_call": "F.scaled_dot_product_attention, q expanded over "
+                          "the frames to [BH, F, S, d], kf / vf [BH, F, N, "
+                          "d]; its transpose to [BH, S, F, d] timed apart",
+          "cases": cases,
+          "backward": {"BH": 24, "S": S, "N": N, **bwd}})
+    return {"name": "space_stage", "route": "cuda",
+            "source": "focus_tpu_torch/csrc/trajectory_attention.cu",
+            "replaces": "focus_tpu/ops/pallas/trajectory_attention.py:35",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"],
+            "shape": "BH=96 S=1568 F=8 N=196 d=64 "
+                     f"(N=200: {cases[1]['kernel_ms']:.4f} ms)"}
+
+
+VARIANT_SOURCES = {5: ("focus_tpu_torch/csrc/trajectory_block_v5.cu",
+                       "focus_tpu/ops/pallas/trajectory_block.py:872"),
+                   6: ("focus_tpu_torch/csrc/trajectory_block_v6.cu",
+                       "focus_tpu/ops/pallas/trajectory_block.py:711")}
+
+
+def variant_counts(tb):
+    return {"v4": tb.LAUNCHES, "v5": tb.V5_LAUNCHES,
+            "v5_device": tb.V5_DEVICE_LAUNCHES, "v6": tb.V6_LAUNCHES,
+            "v6_device": tb.V6_DEVICE_LAUNCHES, "bwd": tb.BWD_LAUNCHES}
+
+
+def run_version(tb, version, fn):
+    """``fn()`` under FWD_VERSION = ``version``, restored to 4 after."""
+    tb.FWD_VERSION = version
+    try:
+        return fn()
+    finally:
+        tb.FWD_VERSION = 4
+
+
+def phase_variants():
+    """The forward versions 5 and 6 of the trajectory core against their
+    step-by-step plain versions (the gate) and against the plain trajectory
+    core (reported: the variants' k2v identity holds only where every
+    head's stage-1 weights agree), at B = 8 and N = 196 and 200, and on the
+    two extreme inputs (both gated); kernel, plain and version-4 times on
+    the same inputs; one backward per version at B = 2 through _FusedCore
+    against the version-4 gradients."""
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    heads, scale, C = 12, 64 ** -0.5, 768
+    plain = {5: tb.trajectory_core_v5_reference,
+             6: tb.trajectory_core_v6_reference}
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8)
+    results = {v: {"cases": [], "timing": []} for v in (5, 6)}
+    inputs = [(f"B=8 N={N}", core_inputs(8, N, gen)) for N in (196, 200)]
+    inputs += [(f"extreme {sign * mag}", extreme_inputs(sign, mag, gen))
+               for sign, mag in ((-1.0, 60.0), (1.0, 50.0))]
+    for tag, args in inputs:
+        true = tb.trajectory_core_reference(*[a.float() for a in args],
+                                            scale, heads)
+        extreme = tag.startswith("extreme")
+        for v in (5, 6):
+            before = variant_counts(tb)
+            out = run_version(tb, v, lambda: tb.fused_trajectory_core(
+                *args, scale, heads))
+            after = variant_counts(tb)
+            own = plain[v](*args, scale, heads)
+            torch.cuda.synchronize()
+            err, ref_max = check_close(f"v{v} {tag} vs its plain version",
+                                       out, own)
+            true_err = (out.float() - true).abs().max().item()
+            case = {"case": tag, "max_abs_err": err, "max_abs_ref": ref_max,
+                    "vs_trajectory_core_max_abs_err": true_err,
+                    "trajectory_core_max_abs": true.abs().max().item(),
+                    "device_launches": after[f"v{v}_device"]
+                    - before[f"v{v}_device"],
+                    "wrapper_launches": {k: after[k] - before[k]
+                                         for k in ("v4", "v5", "v6")}}
+            if case["wrapper_launches"] != {
+                    "v4": 0, "v5": int(v == 5), "v6": int(v == 6)}:
+                raise AssertionError(f"v{v} {tag}: launches "
+                                     f"{case['wrapper_launches']}")
+            if extreme:
+                check_close(f"v{v} {tag} vs the trajectory core", out, true)
+            results[v]["cases"].append(case)
+            if not extreme:
+                B, S, C_ = args[0].shape
+                N = args[1].shape[2]
+                t = {"case": tag,
+                     "kernel_ms": run_version(tb, v, lambda: time_ms(
+                         lambda: tb.fused_trajectory_core(*args, scale,
+                                                          heads))),
+                     "v4_kernel_ms_same_inputs": time_ms(
+                         lambda: tb.fused_trajectory_core(*args, scale,
+                                                          heads)),
+                     "plain_ms": time_ms(lambda: plain[v](*args, scale,
+                                                          heads),
+                                         warmup=1, iters=3)}
+                t["bound_ms"], t["bound_by"] = bound(
+                    core_flops(B, S, 8, N, C_), nbytes(*args) + nbytes(out))
+                results[v]["timing"].append(t)
+            del out, own
+        del true
+        torch.cuda.empty_cache()
+
+    # one backward per version at B = 2, against version 4's gradients
+    args = core_inputs(2, 196, gen)
+    dout = (torch.randn(args[0].shape, generator=gen, device=DEV)
+            * 0.1).bfloat16()
+
+    def grads(version):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        before = variant_counts(tb)
+        out = run_version(tb, version, lambda: tb.fused_trajectory_core(
+            *leaves, scale, heads))
+        out.backward(dout)
+        torch.cuda.synchronize()
+        after = variant_counts(tb)
+        return ([t.grad for t in leaves[:6]],
+                {k: after[k] - before[k] for k in ("v4", "v5", "v6", "bwd")})
+
+    ref, _ = grads(4)
+    for v in (5, 6):
+        got, counts = grads(v)
+        expect = {"v4": int(v == 5), "v5": int(v == 5), "v6": int(v == 6),
+                  "bwd": 1}
+        if counts != expect:
+            raise AssertionError(f"v{v} backward: launches {counts}, "
+                                 f"expected {expect}")
+        results[v]["backward"] = {
+            "launches": counts,
+            "bitwise_equal_to_v4": all(torch.equal(a, b)
+                                       for a, b in zip(got, ref)),
+            **{n: grad_errors(f"v{v} backward {n}", a, b)
+               for n, a, b in zip(GRAD_NAMES, got, ref)}}
+    rows = []
+    for v in (5, 6):
+        r = results[v]
+        per_call = {c["device_launches"] for c in r["cases"]}
+        if len(per_call) != 1:
+            raise AssertionError(f"v{v} device launches per call {per_call}")
+        per_call = per_call.pop()
+        emit({"phase": "kernel", "name": f"trajectory_block_v{v}", "ok": True,
+              "tolerance": f"max|err| <= {KERNEL_TOL_REL} x max|ref| against "
+                           f"trajectory_core_v{v}_reference on the same bf16 "
+                           "inputs (its rounding points, float32 sums), and "
+                           "against the plain trajectory core on the extreme "
+                           "inputs; on the random inputs the distance to the "
+                           "trajectory core is reported, not gated: the "
+                           "variant computes another function there (the k2v "
+                           "identity needs equal stage-1 weights in every "
+                           "head); backward: each gradient within "
+                           f"{KERNEL_TOL_REL} x max|ref| and {BWD_REL_L2} "
+                           "relative L2 of version 4's",
+              "device_launches_per_call": per_call,
+              "library_ms": None,
+              "library_note": "no single PyTorch call computes trajectory "
+                              "attention",
+              **r})
+        t = r["timing"][0]
+        rows.append({
+            "name": f"trajectory_block_v{v}", "route": "cuda",
+            "source": VARIANT_SOURCES[v][0], "replaces": VARIANT_SOURCES[v][1],
+            "max_abs_err": max(c["max_abs_err"] for c in r["cases"]),
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "device_launches_per_call": per_call,
+            "v4_ms_same_inputs": t["v4_kernel_ms_same_inputs"],
+            "shape": "B=8 S=1568 N=196 F=8 C=768 heads=12 "
+                     f"(S=1600: {r['timing'][1]['kernel_ms']:.4f} ms)"})
+    return rows
 
 
 def phase_patch_kernel():
@@ -968,11 +1224,16 @@ def phase_steve_w8a8(smi, per_step):
     return counts
 
 
+CORE_KERNELS = {4: "trajectory_block", 5: "trajectory_block_v5",
+                6: "trajectory_block_v6"}
+
+
 def flagship_run(fn, video, boxes):
     """``fn`` (an ``entry`` forward) at its batch: 2 warm-up and SLICE_ITERS
     timed batches with the kernels' launch counts (one trajectory core per
-    block, 12, and one patch embed per forward, asserted), then the same
-    model on the plain path. Returns (report, launches, probabilities)."""
+    block, 12, of the version ``FWD_VERSION`` names and none of the others,
+    and one patch embed per forward, asserted), then the same model on the
+    plain path. Returns (report, launches, probabilities)."""
     from focus_tpu_torch.ops import patch_embed as pe
     from focus_tpu_torch.ops import trajectory_block as tb
 
@@ -983,16 +1244,20 @@ def flagship_run(fn, video, boxes):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident_gb = torch.cuda.memory_allocated() / 1e9
-    tb.LAUNCHES = pe.LAUNCHES = 0
+    tb.LAUNCHES = tb.V5_LAUNCHES = tb.V6_LAUNCHES = pe.LAUNCHES = 0
     t0 = time.perf_counter()
     for _ in range(SLICE_ITERS):
         probs = fn(video, boxes)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"trajectory_block": tb.LAUNCHES, "patch_embed": pe.LAUNCHES}
+    launches = {"trajectory_block": tb.LAUNCHES,
+                "trajectory_block_v5": tb.V5_LAUNCHES,
+                "trajectory_block_v6": tb.V6_LAUNCHES,
+                "patch_embed": pe.LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expect = {"trajectory_block": len(model.blocks) * SLICE_ITERS,
-              "patch_embed": SLICE_ITERS}
+    expect = {k: 0 for k in CORE_KERNELS.values()}
+    expect[CORE_KERNELS[tb.FWD_VERSION]] = len(model.blocks) * SLICE_ITERS
+    expect["patch_embed"] = SLICE_ITERS
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
 
@@ -1091,6 +1356,196 @@ def phase_slice(smi):
           **report, "gpu": smi})
     if not report["ok"]:
         raise AssertionError("slice check failed")
+    return launches
+
+
+def phase_flagship_fwd_versions(smi):
+    """The flagship forward at batch 8 through ``entry()`` under
+    FWD_VERSION 4, 5 and 6, one after the other on one model, each as
+    ``flagship_run`` drives it (12 launches of the chosen forward kernel
+    per forward and none of the others; probabilities against the plain
+    path); then one ``train_entry`` step at batch 2 under 5 and under 6
+    with its launch counts (v5: 12 forward, 12 kernel-1 recompute and 12
+    backward launches). FWD_VERSION is 4 again after the phase, whatever
+    happens."""
+    from focus_tpu_torch.entry import entry, train_entry
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    fn, (video, boxes) = entry(device=DEV, batch=8, seed=0)
+    result = {"phase": "slice", "name": "flagship_fwd_versions",
+              "model": "ORViT-MF SSv2 16x224, D=768, 12 layers, 12 heads, "
+                       "ORViT at [1,6,10], O=4, bf16, exact-erf GELU; the "
+                       "trajectory core's forward kernel by FWD_VERSION"}
+    launches, problems, probs = {}, [], {}
+    try:
+        for version in (4, 5, 6):
+            tb.FWD_VERSION = version
+            report, counts, probs[version] = flagship_run(fn, video, boxes)
+            if version != 4:
+                report["vs_fwd_version_4_max_abs_prob"] = (
+                    probs[version] - probs[4]).abs().max().item()
+            result[f"fwd_version_{version}"] = report
+            if not report["ok"]:
+                problems.append(version)
+            launches[version] = counts[CORE_KERNELS[version]]
+        del fn
+        torch.cuda.empty_cache()
+        # one train step per variant at batch 2: v5 forms no xs, so its
+        # backward recomputes xs and q2 with a kernel-1 launch per block
+        for version in (5, 6):
+            tb.FWD_VERSION = version
+            fn, batch = train_entry(device=DEV, batch=2, seed=0)
+            before = variant_counts(tb)
+            loss = fn(*batch)["loss"].item()
+            torch.cuda.synchronize()
+            got = {k: v - before[k] for k, v in variant_counts(tb).items()
+                   if k in ("v4", "v5", "v6", "bwd")}
+            depth = len(fn.model.blocks)
+            expect = {"v4": depth if version == 5 else 0,
+                      "v5": depth if version == 5 else 0,
+                      "v6": depth if version == 6 else 0, "bwd": depth}
+            result[f"train_step_fwd_version_{version}"] = {
+                "batch": 2, "loss": loss, "launches": got,
+                "expected": expect}
+            if got != expect or not math.isfinite(loss):
+                problems.append(f"train step {version}")
+            del fn, batch
+            torch.cuda.empty_cache()
+    finally:
+        tb.FWD_VERSION = 4
+    emit({**result, "ok": not problems, "gpu": smi})
+    if problems:
+        raise AssertionError(f"flagship forward or train step failed under "
+                             f"FWD_VERSION {problems}")
+    return launches
+
+
+def phase_learned_v(smi):
+    """The learned-v slice: 12 ``TrajectoryAttentionBlock(768, 12,
+    qkv_bias=True, use_original_code=False)`` with seeded init-scale
+    weights on x [8, 1569, 768] bf16, thw (8, 14, 14)
+    (``profile_block.learned_v_stack``): eval ms per stack with 12 space-
+    stage launches per stack, peak memory, the output against the plain
+    path; then at batch 2 one forward and backward of sum(out * target) /
+    numel through the kernel (bf16) against the float32 plain path, the
+    bf16 plain path beside it."""
+    from focus_tpu_torch.ops import trajectory_attention as ta
+    from focus_tpu_torch.profile_block import learned_v_stack
+
+    model, x = learned_v_stack(device=DEV, batch=8, seed=0)
+    depth = len(model.blocks)
+    with torch.no_grad():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ta.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _ in range(SLICE_ITERS):
+            out = model(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ta.LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if launches != depth * SLICE_ITERS:
+            raise AssertionError(f"space_stage launches {launches}, "
+                                 f"expected {depth * SLICE_ITERS}")
+        model.use_kernels = False
+        plain = model(x)
+        model.use_kernels = True
+        torch.cuda.synchronize()
+    err, ref_max = check_close("learned_v stack vs plain path", out, plain)
+    del out, plain
+
+    # batch 2: forward and backward, kernel path (bf16) vs plain float32,
+    # and the bf16 plain path beside it
+    x2 = x[:2].clone()
+    target = torch.randn(x2.shape, generator=torch.Generator(
+        device=DEV).manual_seed(1), device=DEV)
+    runs = {}
+    for name in ("kernel", "plain_bf16", "plain_f32"):
+        model.zero_grad(set_to_none=True)
+        model.use_kernels = name == "kernel"
+        inp = x2.float() if name == "plain_f32" else x2
+        before = ta.LAUNCHES
+        loss = (model(inp, train=True).float() * target).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[name] = {"loss": loss.item(), "launches": ta.LAUNCHES - before,
+                      "grads": grads_of(model)}
+    model.use_kernels = True
+    model.zero_grad(set_to_none=True)
+    k, pb, ref = runs["kernel"], runs["plain_bf16"], runs["plain_f32"]
+    problems = []
+    if k["launches"] != depth or pb["launches"] or ref["launches"]:
+        problems.append(f"launches {k['launches']} / {pb['launches']} / "
+                        f"{ref['launches']}")
+    loss_rel = abs(k["loss"] - ref["loss"]) / abs(ref["loss"])
+    if not (math.isfinite(k["loss"]) and loss_rel <= TRAIN_LOSS_REL):
+        problems.append(f"loss {k['loss']} vs plain {ref['loss']}")
+
+    def cos_rel(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return ((a @ b / (a.norm() * b.norm()).clamp_min(1e-300)).item(),
+                ((a - b).norm() / b.norm().clamp_min(1e-300)).item())
+
+    rows = []
+    for name, b in ref["grads"].items():
+        a = k["grads"][name]
+        if not bool(torch.isfinite(a).all()):
+            problems.append(f"{name}: non-finite gradient")
+            continue
+        cos, rel = cos_rel(a, b)
+        bf_cos, bf_rel = cos_rel(pb["grads"][name], b)
+        row = {"name": name, "cos": cos, "rel_l2": rel,
+               "plain_bf16_cos": bf_cos, "plain_bf16_rel_l2": bf_rel}
+        # the train phase's rule for relative L2, applied to the cosine: the
+        # kernel path may be BF16_SLACK times as far from 1 as the bf16
+        # plain path where that is farther than 1 - TRAIN_GRAD_COS (the
+        # stage-2 query projection at init, whose gradient is a difference
+        # of near-equal terms that bf16 rounding perturbs)
+        allowed = max(1.0 - TRAIN_GRAD_COS, BF16_SLACK * (1.0 - bf_cos))
+        if allowed > 1.0 - TRAIN_GRAD_COS:
+            row["one_minus_cos_bound"] = allowed
+        if 1.0 - cos > allowed:
+            problems.append(f"{name}: gradient cos {cos:.4f} (bf16 plain "
+                            f"path {bf_cos:.4f})")
+        rows.append(row)
+    rows.sort(key=lambda r: r["cos"])
+    emit({"phase": "slice", "name": "learned_v", "ok": not problems,
+          "model": "12 x TrajectoryAttentionBlock(768, 12 heads, qkv_bias, "
+                   "use_original_code=False), init-scale weights N(0, "
+                   "0.02^2) seed 0, x [8, 1569, 768] bf16 (numpy seed 0), "
+                   "thw (8, 14, 14)",
+          "batch": 8, "timed_stacks": SLICE_ITERS,
+          "ms_per_stack": 1e3 * seconds / SLICE_ITERS,
+          "peak_memory_gb": peak_gb, "space_stage_launches": launches,
+          "space_stage_launches_per_stack": launches / SLICE_ITERS,
+          "vs_plain_path": {"max_abs_err": err, "max_abs_ref": ref_max,
+                            "rule": f"max|err| <= {KERNEL_TOL_REL} x "
+                                    "max|ref| (both bf16)"},
+          "train_batch_2": {
+              "loss": k["loss"], "plain_f32_loss": ref["loss"],
+              "plain_bf16_loss": pb["loss"], "loss_rel_err": loss_rel,
+              "space_stage_launches": k["launches"],
+              "params": len(rows),
+              "min_grad_cos": rows[0]["cos"],
+              "max_grad_rel_l2": max(r["rel_l2"] for r in rows),
+              "min_plain_bf16_grad_cos": min(r["plain_bf16_cos"]
+                                             for r in rows),
+              "params_bounded_by_the_bf16_plain_path": sum(
+                  "one_minus_cos_bound" in r for r in rows),
+              "worst_grads": rows[:4],
+              "rule": f"loss within {TRAIN_LOSS_REL} relative of the "
+                      "float32 plain path; every gradient finite with cosine "
+                      f">= {TRAIN_GRAD_COS} against it, or 1 - cosine at "
+                      f"most {BF16_SLACK} x the bf16 plain path's own where "
+                      "that is larger"},
+          "problems": problems, "gpu": smi})
+    if problems:
+        raise AssertionError(f"learned_v slice: {problems[:5]}")
+    del model, x
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1296,6 +1751,8 @@ def main():
     phase_build()
     traj = phase_trajectory_kernel()
     bwd = phase_trajectory_backward()
+    space = phase_space_stage()
+    v5, v6 = phase_variants()
     patch = phase_patch_kernel()
     phase_fixture()
     phase_steve_fixtures()
@@ -1307,6 +1764,17 @@ def main():
         f"{TRAIN_ITERS} flagship train steps; launches_serving over "
         f"{SLICE_ITERS} forwards of each of the {len(VARIANTS)} models of the "
         "serving matrix")
+    versions = phase_flagship_fwd_versions(smi)
+    for row, version in ((v5, 5), (v6, 6)):
+        row["launches"] = versions[version]
+        row["launches_note"] = (
+            f"over {SLICE_ITERS} flagship forwards through entry() under "
+            f"FWD_VERSION={version} (12 per forward; kernel 1 launched 0 "
+            "times in them)")
+    space["launches"] = phase_learned_v(smi)
+    space["launches_note"] = (
+        f"over {SLICE_ITERS} eval forwards of the 12-block learned-v stack "
+        "(12 per stack)")
     train = phase_train(smi, bwd["device_launches_per_call"])
     traj["launches_train"] = train["trajectory_block"]
     patch["launches_train"] = train["patch_embed"]
@@ -1337,7 +1805,7 @@ def main():
         f"wrapper calls (one per decode step) of {STEVE_ITERS} rollouts of "
         "32 rows through steve_entry(int8=True); device_launches are the "
         "kernels those calls launched")
-    emit({"kernels": [traj, patch, bwd, ar, arq]})
+    emit({"kernels": [traj, patch, bwd, ar, arq, space, v5, v6]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

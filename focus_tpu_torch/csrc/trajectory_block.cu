@@ -30,325 +30,14 @@
 // head's stage 1. This version keeps xs in a bf16 scratch in device memory
 // ([B, S, F, C], ~154 MB at B = 8; q2 adds ~19 MB) between the launches;
 // keeping it on chip as the TPU kernel does, with TMA and wgmma, is later
-// work.
+// work. Stage 1 and the GEMM live in trajectory_core.cuh, shared with the
+// v5 and v6 forward kernels and the space-stage kernel.
 
-#include "mma_sm90.cuh"
+#include "trajectory_core.cuh"
 
 namespace {
 
-constexpr int HD = 64;           // head dim
-constexpr int LDH = HD + 8;      // bf16 stride of 64-wide tiles (144 bytes)
-constexpr int S1_ROWS = 128;     // stage-1 query rows per block (8 warps x 16)
-constexpr int S1_THREADS = 256;
 constexpr int THREADS = 128;     // stage 2b
-constexpr int MAX_NP = 256;      // keys per frame after padding to 16
-constexpr int MAX_F = 8;         // frames; also the stride of the logits
-constexpr int MAX_HEADS = 16;
-
-// ---- stage 1 -------------------------------------------------------------
-// Shared memory: two buffers, each a K tile and a V tile [16 KT][LDH] bf16,
-// so the next frame's tiles are copied in (cp.async) while this frame's are
-// used; the first K tile has at least 128 rows because it first stages the
-// Q tile. KT = keys per frame / 16, rounded up to an instantiated size.
-
-template <int KT>
-__host__ __device__ constexpr int stage1_krows() {
-  return 16 * KT > S1_ROWS ? 16 * KT : S1_ROWS;
-}
-
-template <int KT>
-constexpr size_t stage1_smem() {
-  return (size_t)(stage1_krows<KT>() + 3 * 16 * KT) * LDH * sizeof(bf16);
-}
-
-template <int KT>
-__global__ void __launch_bounds__(S1_THREADS) traj_stage1_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ kf,
-    const bf16* __restrict__ vf, bf16* __restrict__ xs, int S, int F, int N,
-    int C, float scale) {
-  constexpr int NP = 16 * KT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* K0 = reinterpret_cast<bf16*>(smem);
-  bf16* V0 = K0 + stage1_krows<KT>() * LDH;
-  bf16* K1 = V0 + NP * LDH;
-  bf16* V1 = K1 + NP * LDH;
-
-  const int s0 = blockIdx.x * S1_ROWS, head = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
-  const int hoff = head * HD;
-
-  // the Q tile, staged through the first K buffer into A fragments
-  for (int i = tid; i < S1_ROWS * 8; i += S1_THREADS) {
-    const int r = i >> 3, c8 = (i & 7) * 8, s = s0 + r;
-    bf16* dst = K0 + r * LDH + c8;
-    if (s < S) copy16(dst, q + ((size_t)b * S + s) * C + hoff + c8);
-    else zero16(dst);
-  }
-  __syncthreads();
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-    ldmatrix_x4(qa[ks], K0 + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDH +
-                            ks * 16 + 8 * (lane >> 4));
-  __syncthreads();
-  // padding key rows stay zero in both buffers
-  for (int i = tid; i < (NP - N) * 8; i += S1_THREADS) {
-    const int r = N + (i >> 3), c8 = (i & 7) * 8;
-    zero16(K0 + r * LDH + c8);
-    zero16(V0 + r * LDH + c8);
-    zero16(K1 + r * LDH + c8);
-    zero16(V1 + r * LDH + c8);
-  }
-  auto issue_frame = [&](int f) {
-    const size_t kv0 = ((size_t)b * F + f) * N * C + hoff;
-    bf16* Kd = (f & 1) ? K1 : K0;
-    bf16* Vd = (f & 1) ? V1 : V0;
-    for (int i = tid; i < N * 8; i += S1_THREADS) {
-      const int r = i >> 3, c8 = (i & 7) * 8;
-      cp_async16(Kd + r * LDH + c8, kf + kv0 + (size_t)r * C + c8);
-      cp_async16(Vd + r * LDH + c8, vf + kv0 + (size_t)r * C + c8);
-    }
-    cp_async_commit();
-  };
-  issue_frame(0);
-
-  const int row0 = s0 + warp * 16 + g, row1 = row0 + 8;
-  for (int f = 0; f < F; ++f) {
-    if (f + 1 < F) {
-      issue_frame(f + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // frame f's tiles have landed for every thread
-    const bf16* Ks = (f & 1) ? K1 : K0;
-    const bf16* Vs = (f & 1) ? V1 : V0;
-
-    // logits of this warp's 16 rows against the frame's keys: tile n holds
-    // keys 8n + 2t + {0, 1} of rows g (elements 0, 1) and g + 8 (2, 3)
-    float sacc[2 * KT][4];
-#pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, Ks + (j * 16 + (lane & 7) + 8 * (lane >> 4)) * LDH +
-                            ks * 16 + 8 * ((lane >> 3) & 1));
-        mma_16816(sacc[2 * j], qa[ks], kb[0], kb[1]);
-        mma_16816(sacc[2 * j + 1], qa[ks], kb[2], kb[3]);
-      }
-    }
-
-    // max-subtracted softmax over the N valid keys (a row's values are
-    // spread over the 4 lanes of a quad)
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n * 8 + 2 * t + (e & 1);
-        const float v = key < N ? sacc[n][e] * scale : -INFINITY;
-        sacc[n][e] = v;
-        if (e < 2) m0 = fmaxf(m0, v);
-        else m1 = fmaxf(m1, v);
-      }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-    }
-    // __expf (ex2.approx) errs by a few ulp, far below the bf16 rounding
-    // the weights get next
-    float l0 = 0.0f, l1 = 0.0f;
-#pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n * 8 + 2 * t + (e & 1);
-        const float p = key < N ? __expf(sacc[n][e] - (e < 2 ? m0 : m1)) : 0.0f;
-        sacc[n][e] = p;
-        if (e < 2) l0 += p;
-        else l1 += p;
-      }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-    }
-    const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
-
-    // P . V: the normalised bf16 weights of key tile j are the A fragment
-    float oacc[HD / 8][4];
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[n][e] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      const uint32_t pa[4] = {
-          pack_bf16x2(sacc[2 * j][0] * inv0, sacc[2 * j][1] * inv0),
-          pack_bf16x2(sacc[2 * j][2] * inv1, sacc[2 * j][3] * inv1),
-          pack_bf16x2(sacc[2 * j + 1][0] * inv0, sacc[2 * j + 1][1] * inv0),
-          pack_bf16x2(sacc[2 * j + 1][2] * inv1, sacc[2 * j + 1][3] * inv1)};
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, Vs + (j * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
-                                       LDH + dp * 16 + 8 * (lane >> 4));
-        mma_16816(oacc[2 * dp], pa, vb[0], vb[1]);
-        mma_16816(oacc[2 * dp + 1], pa, vb[2], vb[3]);
-      }
-    }
-
-    bf16* out0 = xs + (((size_t)b * S + row0) * F + f) * C + hoff + 2 * t;
-    bf16* out1 = xs + (((size_t)b * S + row1) * F + f) * C + hoff + 2 * t;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      if (row0 < S)
-        *reinterpret_cast<__nv_bfloat162*>(out0 + n * 8) =
-            __floats2bfloat162_rn(oacc[n][0], oacc[n][1]);
-      if (row1 < S)
-        *reinterpret_cast<__nv_bfloat162*>(out1 + n * 8) =
-            __floats2bfloat162_rn(oacc[n][2], oacc[n][3]);
-    }
-    __syncthreads();  // this buffer is refilled by the next iteration's copy
-  }
-}
-
-template <int KT>
-cudaError_t launch_stage1(const bf16* q, const bf16* kf, const bf16* vf,
-                          bf16* xs, int B, int S, int F, int N, int C,
-                          int heads, float scale, cudaStream_t st) {
-  constexpr size_t smem = stage1_smem<KT>();
-  cudaError_t err = cudaFuncSetAttribute(
-      traj_stage1_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + S1_ROWS - 1) / S1_ROWS, heads, B);
-  traj_stage1_kernel<KT><<<grid, S1_THREADS, smem, st>>>(q, kf, vf, xs, S, F,
-                                                         N, C, scale);
-  return cudaGetLastError();
-}
-
-// ---- stage 2a: q2 = x_diag . Wq2 + bq2 -----------------------------------
-// A tiled GEMM over the flattened rows m = b * S + s (M = B * S): 128 x 128
-// output tiles, 8 warps of 64 x 32, k-steps of 32 copied in (cp.async) one
-// step ahead of use. Row m of A is xs[m, s / N] (its own-frame aggregate),
-// gathered as the tile is copied. The result is rounded to bf16, as the
-// plain version rounds q2.
-
-constexpr int GM = 128, GN = 128, GK = 32, G_THREADS = 256;
-constexpr int LDA_G = GK + 8;  // bf16 strides keep ldmatrix conflict-free
-constexpr int LDB_G = GN + 8;
-
-__global__ void __launch_bounds__(G_THREADS) traj_q2_kernel(
-    const bf16* __restrict__ xs, const bf16* __restrict__ wq2,
-    const bf16* __restrict__ bq2, bf16* __restrict__ q2, int M, int S, int F,
-    int N, int C) {
-  __shared__ __align__(128) bf16 As[2][GM * LDA_G];
-  __shared__ __align__(128) bf16 Bs[2][GK * LDB_G];
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / 4, wn = warp % 4;  // warp tile rows wm*64, cols wn*32
-
-  // each thread copies two 16-byte pieces of A and of B per k-step
-  const bf16* arow[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int m = m0 + ((tid + j * G_THREADS) >> 2);
-    arow[j] = m < M ? xs + ((size_t)m * F + (m % S) / N) * C : nullptr;
-  }
-  auto load_tile = [&](int stage, int k0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + j * G_THREADS;
-      bf16* dst = As[stage] + (i >> 2) * LDA_G + (i & 3) * 8;
-      if (arow[j]) cp_async16(dst, arow[j] + k0 + (i & 3) * 8);
-      else zero16(dst);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = tid + j * G_THREADS;
-      const int r = i >> 4, n = n0 + (i & 15) * 8;
-      bf16* dst = Bs[stage] + r * LDB_G + (i & 15) * 8;
-      if (n < C) cp_async16(dst, wq2 + (size_t)(k0 + r) * C + n);
-      else zero16(dst);
-    }
-    cp_async_commit();
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  const int KT = C / GK;
-  load_tile(0, 0);
-  for (int kt = 0; kt < KT; ++kt) {
-    if (kt + 1 < KT) {
-      load_tile((kt + 1) & 1, (kt + 1) * GK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* At = As[kt & 1];
-    const bf16* Bt = Bs[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < GK / 16; ++kk) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(af[i], At + (wm * 64 + i * 16 + (lane & 7) +
-                                 8 * ((lane >> 3) & 1)) * LDA_G +
-                               kk * 16 + 8 * (lane >> 4));
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {
-        uint32_t r4[4];
-        ldmatrix_x4_trans(r4, Bt + (kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
-                                       LDB_G + wn * 32 + jp * 16 + 8 * (lane >> 4));
-        bfr[2 * jp][0] = r4[0];
-        bfr[2 * jp][1] = r4[1];
-        bfr[2 * jp + 1][0] = r4[2];
-        bfr[2 * jp + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_16816(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's copy
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn * 32 + j * 8 + 2 * t;
-      if (col >= C) continue;
-      const float b0 = __bfloat162float(bq2[col]);
-      const float b1 = __bfloat162float(bq2[col + 1]);
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int row = m0 + wm * 64 + i * 16 + g + 8 * hi;
-        if (row < M)
-          *reinterpret_cast<__nv_bfloat162*>(q2 + (size_t)row * C + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * hi] + b0,
-                                    acc[i][j][2 * hi + 1] + b1);
-      }
-    }
-  }
-}
 
 // ---- stage 2b: stage-2 logits, F-softmax and the weighted sum ------------
 // One block per 64 flattened rows (4 warps of 16 rows) and group of up to
@@ -571,23 +260,14 @@ extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
   const bf16* kf_ = static_cast<const bf16*>(kf);
   const bf16* vf_ = static_cast<const bf16*>(vf);
   bf16* xs_ = static_cast<bf16*>(xs);
-  const int kt = (N + 15) / 16;
-  if (kt <= 4)
-    err = launch_stage1<4>(q_, kf_, vf_, xs_, B, S, F, N, C, heads, scale, st);
-  else if (kt <= 8)
-    err = launch_stage1<8>(q_, kf_, vf_, xs_, B, S, F, N, C, heads, scale, st);
-  else if (kt <= 13)
-    err = launch_stage1<13>(q_, kf_, vf_, xs_, B, S, F, N, C, heads, scale, st);
-  else
-    err = launch_stage1<16>(q_, kf_, vf_, xs_, B, S, F, N, C, heads, scale, st);
+  err = launch_stage1<false>(q_, kf_, vf_, xs_, B, S, F, N, C, heads, scale,
+                             st);
   if (err != cudaSuccess) return (int)err;
 
   const int M = B * S;
-  const dim3 gq((C + GN - 1) / GN, (M + GM - 1) / GM);
-  traj_q2_kernel<<<gq, G_THREADS, 0, st>>>(
-      xs_, static_cast<const bf16*>(wq2), static_cast<const bf16*>(bq2),
-      static_cast<bf16*>(q2), M, S, F, N, C);
-  err = cudaGetLastError();
+  err = launch_gemm(xs_, static_cast<const bf16*>(wq2),
+                    static_cast<const bf16*>(bq2), static_cast<bf16*>(q2), M,
+                    S, F, N, C, st);
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem2 = stage2_smem(F, heads_per_group(heads));

@@ -16,6 +16,15 @@ applies stochastic depth (``DropPath``) from an explicit
 ``torch.Generator``. The unscanned, unpipelined form, without MoE or
 dropout.
 
+Trajectory attention takes both of the reference's forms: the original
+code (the default; the fused trajectory core, whose kernel version the
+module constant ``ops/trajectory_block.FWD_VERSION`` selects: 4, or the
+JAX package's variants 5 and 6, which agree with 4 only where every head's
+stage-1 weights agree)
+and learned values (``use_original_code=False`` on ``TrajectoryAttention``
+and ``TrajectoryAttentionBlock``, through the space-stage kernel). As in
+the JAX package, no config key reaches the latter from ``Motionformer``.
+
 The serving variants are labeled, as in the JAX package:
 ``TPU.INT8_SERVING`` runs the big dense layers (qkv and proj of both
 attentions, fc1 and fc2 of every MLP) as dynamic W8A8 dense layers
@@ -35,6 +44,7 @@ from focus_tpu_torch.models.common import layer_norm, linear
 from focus_tpu_torch.ops import attention as attn_ops
 from focus_tpu_torch.ops.patch_embed import patch_embed_3d, patch_embed_reference
 from focus_tpu_torch.ops.quant import quantized_linear
+from focus_tpu_torch.ops.trajectory_attention import space_stage
 from focus_tpu_torch.ops.trajectory_block import (
     fused_trajectory_core,
     trajectory_core_reference,
@@ -94,21 +104,33 @@ class Mlp(nn.Module):
 
 
 class TrajectoryAttention(nn.Module):
-    """(reference attention.py:479-557), ``use_original_code=True``: the
-    stage-2 values are the stage-1 aggregates, so only the k half of
-    ``proj_kv`` is read. The non-CLS tokens go through the fused trajectory
-    core (the CUDA kernel on the card, its plain version on the CPU, or the
-    plain version anywhere when ``use_kernels`` is False). ``int8_dense``
-    makes qkv and proj W8A8 in eval; proj_q and proj_kv feed the core at
-    the compute dtype."""
+    """(reference attention.py:479-557), in both of its forms.
+
+    ``use_original_code=True`` (the default, as in the JAX package and the
+    reference's checkpoints): the stage-2 values are the stage-1
+    aggregates, so only the k half of ``proj_kv`` is read, and the non-CLS
+    tokens go through the fused trajectory core (``ops/trajectory_block.py``:
+    a CUDA kernel on the card, the version ``FWD_VERSION`` names; its plain
+    version on the CPU).
+
+    ``use_original_code=False`` (learned values): stage 1 alone through the
+    space-stage kernel (``ops/trajectory_attention.py``; its plain version on
+    the CPU), then ``proj_q`` over the own-frame aggregates, ``proj_kv`` over
+    all of them (a plain GEMM, as ``nn.Dense`` is in JAX), and the temporal
+    stage over the learned k2 and v2.
+
+    ``use_kernels=False`` runs the plain versions anywhere. ``int8_dense``
+    makes qkv and proj W8A8 in eval; proj_q and proj_kv stay at the compute
+    dtype."""
 
     def __init__(self, dim, num_heads=8, qkv_bias=False, attn_drop=0.0,
-                 int8_dense=False):
+                 int8_dense=False, use_original_code=True):
         super().__init__()
         if attn_drop > 0.0:
             raise NotImplementedError("attention dropout (training only)")
         self.num_heads = num_heads
         self.int8_dense = int8_dense
+        self.use_original_code = use_original_code
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj_q = nn.Linear(dim, dim, bias=qkv_bias)
         self.proj_kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
@@ -124,16 +146,23 @@ class TrajectoryAttention(nn.Module):
         quant = self.int8_dense and not train
         q, k, v = int8_or_dense(x, self.qkv, quant).chunk(3, dim=-1)
 
-        if with_cls_token:
-            def split_heads(t):
-                return t.reshape(B, -1, h, hd).transpose(1, 2).reshape(
-                    B * h, -1, hd)
+        def split_heads(t):
+            return t.reshape(B, -1, h, hd).transpose(1, 2).reshape(
+                B * h, -1, hd)
 
+        if with_cls_token:
             cls_out = attn_ops.cls_attention(
                 split_heads(q[:, :1]), split_heads(k), split_heads(v), scale
             ).reshape(B, h, 1, hd).transpose(1, 2).reshape(B, 1, C)
 
         start = 1 if with_cls_token else 0
+        if not self.use_original_code:
+            out = self._learned_v(*(split_heads(t[:, start:]).contiguous()
+                                    for t in (q, k, v)),
+                                  B, nf, scale, use_kernels)
+            if with_cls_token:
+                out = torch.cat([cls_out, out], dim=1)
+            return int8_or_dense(out, self.proj, quant)
         q_p = q[:, start:].contiguous()
         n_per_f = q_p.shape[1] // nf
         kf = k[:, start:].reshape(B, nf, n_per_f, C).contiguous()
@@ -151,17 +180,31 @@ class TrajectoryAttention(nn.Module):
             out = torch.cat([cls_out, out], dim=1)
         return int8_or_dense(out, self.proj, quant)
 
+    def _learned_v(self, q_, k_, v_, B, nf, scale, use_kernels):
+        """The non-CLS tokens with learned values (JAX
+        ``models/motionformer.py:250-294``): q_, k_, v_ [B*h, S, hd]."""
+        h = self.num_heads
+        BH, S, hd = q_.shape
+        C = h * hd
+        xs = space_stage(q_, k_, v_, nf, scale, use_kernels=use_kernels)
+        xs = xs.reshape(B, h, S, nf, hd).permute(0, 2, 3, 1, 4).reshape(
+            B, S, nf, C)
+        q2 = linear(attn_ops.take_diagonal(xs, nf), self.proj_q)
+        k2, v2 = linear(xs, self.proj_kv).chunk(2, dim=-1)
+        return attn_ops.temporal_stage(q2, k2, v2, xs, nf, scale, h,
+                                       use_original_code=False)
+
 
 class TrajectoryAttentionBlock(nn.Module):
     """(reference attention.py:443-476)"""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False,
                  attn_drop=0.0, drop_path_rate=0.0, fast_gelu=False,
-                 int8_dense=False):
+                 int8_dense=False, use_original_code=True):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = TrajectoryAttention(dim, num_heads, qkv_bias, attn_drop,
-                                        int8_dense)
+                                        int8_dense, use_original_code)
         self.drop_path = DropPath(drop_path_rate)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu=fast_gelu,

@@ -27,8 +27,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("ar_decode", "patch_embed", "trajectory_block",
-           "trajectory_block_bwd")
+SOURCES = ("ar_decode", "patch_embed", "trajectory_attention",
+           "trajectory_block", "trajectory_block_bwd", "trajectory_block_v5",
+           "trajectory_block_v6")
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -14,8 +14,11 @@ Trajectory attention (reference ``slowfast/models/attention.py:479-557``):
   frames' keys, producing per-frame aggregates x[b, q, f, d];
   stage 2 — temporal attention along the trajectory, with the query taken
   from the diagonal frame (the aggregate of the query's own frame).
-Only the reference's ``use_original_code=True`` form (values = stage-1
-aggregates) is ported.
+Both forms of the reference are here: ``use_original_code=True`` (the
+default, kept for checkpoint parity: the stage-2 values are the stage-1
+aggregates, so the k2 projection reassociates onto the query side,
+``temporal_stage_k2w``) and ``use_original_code=False`` (learned values
+v2 from ``proj_kv``, ``temporal_stage``).
 """
 
 import torch
@@ -48,6 +51,25 @@ def take_diagonal(x, f: int):
     xg = x.reshape(B, f, p, F, d)
     diag = torch.diagonal(xg, dim1=1, dim2=3)  # [B, p, d, f]
     return diag.permute(0, 3, 1, 2).reshape(B, S, d)
+
+
+def temporal_stage(q2, k2, v2, x, f: int, scale: float, h: int,
+                   use_original_code: bool = True):
+    """Stage 2: attention over the F per-frame aggregates.
+
+    q2: [B, S, C] (projected diagonal), k2/v2: [B, S, F, C], x: [B, S, F, C].
+    The values are x (``use_original_code``) or v2. Returns [B, S, C].
+    """
+    B, S, C = q2.shape
+    d = C // h
+    q2h = (q2.reshape(B, S, h, d) * scale).to(q2.dtype)
+    k2h = k2.reshape(B, S, f, h, d)
+    logits = torch.einsum("bshd,bsfhd->bhsf", _f32(q2h), _f32(k2h))
+    attn = torch.softmax(logits, dim=-1).to(q2.dtype)
+    src = x if use_original_code else v2
+    srch = src.reshape(B, S, f, h, d)
+    out = torch.einsum("bhsf,bsfhd->bshd", _f32(attn), _f32(srch))
+    return out.to(q2.dtype).reshape(B, S, C)
 
 
 def temporal_stage_k2w(q2, wk2, xs, f: int, scale: float, h: int):

@@ -1,0 +1,117 @@
+"""Trajectory-attention stage 1 alone (the space stage): its plain PyTorch
+forward and backward, and the wrapper of its CUDA kernel
+(``csrc/trajectory_attention.cu``) joined to the plain backward by a
+``torch.autograd.Function``.
+
+Counterpart of ``focus_tpu/ops/pallas/trajectory_attention.py``
+(``space_stage``, ``space_stage_fused`` and its backward
+``_space_stage_bwd``), with the JAX signature and layout: q_, k_, v_
+``[BH, S, d]`` with S = F * N, result ``[BH, S, F, d]``:
+
+    out[bh, q, f] = softmax(q . k_f^T * scale) . v_f
+
+over frame f's N keys, a true max-subtracted softmax whose weights are
+rounded to v's dtype before the product. The learned-v trajectory attention
+(``use_original_code=False``) runs it; the fused trajectory core
+(``ops/trajectory_block.py``) does not.
+"""
+
+import functools
+
+import torch
+
+from focus_tpu_torch.ops import _build
+from focus_tpu_torch.ops import attention as attn_ops
+
+# kernel launches since the last reset (one per wrapper call on the card)
+LAUNCHES = 0
+
+HEAD_DIM = 64  # the kernel's head dim; also N <= 256
+
+
+def space_stage_backward_reference(q, kf, vf, g, scale):
+    """Plain backward in float32, step by step as ``_space_stage_bwd``: the
+    per-frame softmax recomputed from q and kf, then dp = g . vf^T, the
+    softmax's backward, and dq, dk, dv. q [BH, S, d]; kf, vf [BH, F, N, d];
+    g [BH, S, F, d]. Returns (dq, dkf, dvf) in the operands' dtypes."""
+    q32, k32, v32, g32 = (t.float() for t in (q, kf, vf, g))
+    logits = torch.einsum("bqd,bfnd->bqfn", q32, k32) * scale
+    p = torch.softmax(logits, dim=-1)
+    dp = torch.einsum("bqfd,bfnd->bqfn", g32, v32)
+    dlogits = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bqfn,bfnd->bqd", dlogits, k32) * scale
+    dk = torch.einsum("bqfn,bqd->bfnd", dlogits, q32) * scale
+    dv = torch.einsum("bqfn,bqfd->bfnd", p, g32)
+    return dq.to(q.dtype), dk.to(kf.dtype), dv.to(vf.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    return _build.bind("trajectory_attention", "space_stage_bf16",
+                       n_ptr=4, n_int=5, n_float=1)
+
+
+def _launch(q, kf, vf, scale):
+    """Kernel -> out [BH, S, F, d] (bf16), written in that layout."""
+    global LAUNCHES
+    BH, S, d = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    args = (q, kf, vf)
+    if any(t.dtype != torch.bfloat16 for t in args):
+        raise TypeError("space-stage kernel takes bfloat16 operands, got "
+                        f"{[t.dtype for t in args]}")
+    if any(t.device != q.device for t in args):
+        raise ValueError("space-stage kernel operands must share one device")
+    if any(not t.is_contiguous() for t in args):
+        raise ValueError("space-stage kernel operands must be contiguous")
+    if (tuple(kf.shape) != (BH, F, N, d) or tuple(vf.shape) != (BH, F, N, d)
+            or S != F * N):
+        raise ValueError(f"bad shapes for the space-stage kernel: "
+                         f"{[tuple(t.shape) for t in args]}")
+    if d != HEAD_DIM or N > 256:
+        raise ValueError(f"space-stage kernel needs head dim {HEAD_DIM} and "
+                         f"N <= 256 (d={d}, N={N})")
+    out = torch.empty(BH, S, F, d, dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel_fn()(q.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                           out.data_ptr(), BH, S, F, N, d, float(scale),
+                           stream)
+    _build.check(err, "space_stage_bf16")
+    LAUNCHES += 1
+    return out
+
+
+class _SpaceStage(torch.autograd.Function):
+    """The kernel forward with the plain float32 backward (the JAX
+    package's backward is plain XLA too, ``_space_stage_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, kf, vf, scale):
+        ctx.save_for_backward(q, kf, vf)
+        ctx.scale = scale
+        return _launch(q, kf, vf, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kf, vf = ctx.saved_tensors
+        return (*space_stage_backward_reference(q, kf, vf, g, ctx.scale),
+                None)
+
+
+def space_stage(q_, k_, v_, f: int, scale: float, use_kernels: bool = True):
+    """Drop-in for ``attn_ops.space_stage``: q_, k_, v_ [BH, S, d] with
+    S = F * N -> [BH, S, F, d].
+
+    A CPU tensor (or ``use_kernels=False``) takes the plain version, whose
+    gradient is autograd's; a CUDA tensor launches the kernel (bf16,
+    contiguous, head dim 64), whose gradient is the plain backward, or
+    raises."""
+    if q_.device.type == "cpu" or not use_kernels:
+        return attn_ops.space_stage(q_, k_, v_, f, scale)
+    if q_.device.type != "cuda":
+        raise ValueError(f"no space-stage kernel for device {q_.device}")
+    BH, S, d = q_.shape
+    n = S // f
+    return _SpaceStage.apply(q_, k_.reshape(BH, f, n, d),
+                             v_.reshape(BH, f, n, d), scale)

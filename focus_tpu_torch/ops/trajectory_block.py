@@ -9,6 +9,19 @@ Counterpart of ``focus_tpu/ops/pallas/trajectory_block.py``
 ``[B, F, N, C]``, Wq2/Wk2 ``[C, C]`` as ``[in, out]``, bq2/bk2 ``[C]``;
 S = F * N. Semantics follow reference ``slowfast/models/attention.py:499-557``
 with ``use_original_code=True``.
+
+Forward versions: the module constant ``FWD_VERSION``, read at each call as
+the JAX package reads its own, picks the forward kernel on the card. 4 (the
+default) is ``csrc/trajectory_block.cu``; 5 and 6 compute the stage-2
+logits through ``k2v = V . Wk2`` as the TPU kernels v5 and v6 do
+(``csrc/trajectory_block_v5.cu``, which never forms the per-frame
+aggregates xs, and ``csrc/trajectory_block_v6.cu``, which does), which
+equals version 4 only where every head's stage-1 weights agree: elsewhere
+they compute another function. 3 and 7 are not ported yet and raise. Every version has the
+same backward kernel, which reads xs and q2: v5 recomputes them with the
+version-4 kernel first. CPU tensors take ``trajectory_core_reference`` at
+every version; ``trajectory_core_v5_reference`` and
+``trajectory_core_v6_reference`` follow the two variants step by step.
 """
 
 import ctypes
@@ -25,6 +38,14 @@ from focus_tpu_torch.ops import attention as attn_ops
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_DEVICE_LAUNCHES = 0
+# the v5 and v6 forward kernels: wrapper calls, and the device kernels those
+# calls launched (k2v is a launch of its own)
+V5_LAUNCHES = V5_DEVICE_LAUNCHES = 0
+V6_LAUNCHES = V6_DEVICE_LAUNCHES = 0
+
+# forward kernel on the card: 4 (csrc/trajectory_block.cu), 5 or 6
+FWD_VERSION = 4
+PORTED_FWD_VERSIONS = (4, 5, 6)
 
 HEAD_DIM = 64  # the kernel's head dim; also C % 128 == 0, F <= 8, N <= 256,
 # heads <= 16
@@ -55,6 +76,102 @@ def trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
     q2 = torch.matmul(x_diag.float(), wq2.to(q.dtype).float()).to(q.dtype)
     q2 = q2 + bq2.to(q.dtype)
     return attn_ops.temporal_stage_k2w(q2, wk2, xs, F, scale, heads)
+
+
+def check_fwd_version(version=None):
+    """``version`` (default: ``FWD_VERSION``) if the port has its kernel,
+    else NotImplementedError."""
+    version = FWD_VERSION if version is None else version
+    if version not in PORTED_FWD_VERSIONS:
+        raise NotImplementedError(
+            f"trajectory-core FWD_VERSION={version!r}: the port has the "
+            f"forward kernels {PORTED_FWD_VERSIONS}; v3 (per-frame grid) and "
+            "v7 (transposed-packed stage 1) are not ported yet")
+    return version
+
+
+def _variant_stage1(q, kf, vf, wk2, scale, heads):
+    """The pieces v5 and v6 share, in float32 from operands at q's dtype:
+    the head-split q, k, v; the stage-1 weights p = exp(logit - max) with a
+    true max per frame (the TPU kernels clamp exp2 with no max instead) and
+    the per-frame sums s; and k2v = V . Wk2 rounded to q's dtype as the
+    kernels keep it, split by head."""
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    hd, dt = C // heads, q.dtype
+    qh = q.float().reshape(B, S, heads, hd).permute(0, 2, 1, 3)
+    kh = kf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    vh = vf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    logits = torch.einsum("bhsd,bhfnd->bhsfn", qh, kh) * scale
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))  # [B, h, S, F, N]
+    s = p.sum(-1)  # [B, h, S, F]
+    k2v = (vf.float().reshape(B, F * N, C) @ wk2.to(dt).float()).to(dt)
+    k2vh = k2v.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    return vh, p, s, k2vh
+
+
+def _variant_a2(x_diag, wq2, bq2, p, s, k2vh, scale, heads):
+    """q2 = x_diag . Wq2 + bq2 (rounded to x_diag's dtype); per head h
+    M_h = q2_h . k2v_h^T and the stage-2 logits l2_h[f] = sum_{n in f}
+    p_h M_h / s_h[f] * scale; returns a2 = softmax_f(l2) in float32.
+    l2_h is q2_h . (xs_f . Wk2)_h only where every head's stage-1 weights
+    equal head h's: xs_f's channels of head h' carry head h' weights, and
+    Wk2 mixes all channels into every head (``csrc/trajectory_k2v.cuh``)."""
+    B, S, C = x_diag.shape
+    dt = x_diag.dtype
+    q2 = (x_diag.float() @ wq2.to(dt).float() + bq2.to(dt).float()).to(dt)
+    q2h = q2.float().reshape(B, S, heads, C // heads).permute(0, 2, 1, 3)
+    m = torch.einsum("bhsd,bhfnd->bhsfn", q2h, k2vh)
+    l2 = (p * m).sum(-1) / s * scale
+    return torch.softmax(l2, dim=-1)
+
+
+def trajectory_core_v6_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
+                                 heads):
+    """Plain version of the v6 kernel, step by step (TPU
+    ``_fused_kernel_v6``): k2v = V . Wk2; stage 1 per frame as version 4
+    computes it, xs_f = round(p_f / s_f) . V_f rounded; x_diag; q2; the
+    stage-2 logits read off M_h = q2_h . k2v_h^T and the stage-1 weights;
+    a2 = softmax over frames (float32); out = sum_f a2_f xs_f. Float32
+    arithmetic with the kernel's rounding points (q's dtype); bk2 drops
+    out."""
+    del bk2
+    B, S, C = q.shape
+    F = kf.shape[1]
+    dt = q.dtype
+    vh, p, s, k2vh = _variant_stage1(q, kf, vf, wk2, scale, heads)
+    w1 = (p / s[..., None]).to(dt).float()
+    xs = torch.einsum("bhsfn,bhfnd->bsfhd", w1, vh).to(dt)  # [B,S,F,h,hd]
+    x_diag = attn_ops.take_diagonal(xs.reshape(B, S, F, C), F)
+    a2 = _variant_a2(x_diag, wq2, bq2, p, s, k2vh, scale, heads)
+    out = torch.einsum("bhsf,bsfhd->bshd", a2, xs.float())
+    return out.to(dt).reshape(B, S, C)
+
+
+def trajectory_core_v5_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
+                                 heads):
+    """Plain version of the v5 kernel, step by step (TPU
+    ``_fused_kernel_v5``), which never forms xs: k2v = V . Wk2; the
+    per-frame weights p and normalisers s; x_diag from the own-frame
+    weights alone, round(p_own / s_own) . V_own rounded; q2; M_h, l2 and
+    a2 as in v6; and the folded final product out_h = round(p * a2_f /
+    s_f) . V_h over all F * N keys at once. Float32 arithmetic with the
+    kernel's rounding points (q's dtype); bk2 drops out."""
+    del bk2
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    hd, dt = C // heads, q.dtype
+    vh, p, s, k2vh = _variant_stage1(q, kf, vf, wk2, scale, heads)
+    xd = torch.empty(B, heads, S, hd, dtype=torch.float32, device=q.device)
+    for f in range(F):
+        rows = slice(f * N, (f + 1) * N)
+        own = (p[:, :, rows, f] / s[:, :, rows, f, None]).to(dt).float()
+        xd[:, :, rows] = own @ vh[:, :, f]
+    x_diag = xd.to(dt).permute(0, 2, 1, 3).reshape(B, S, C)
+    a2 = _variant_a2(x_diag, wq2, bq2, p, s, k2vh, scale, heads)
+    w = (p * (a2 / s)[..., None]).to(dt).float()
+    out = torch.einsum("bhsfn,bhfnd->bshd", w, vh)
+    return out.to(dt).reshape(B, S, C)
 
 
 def trajectory_core_backward_reference(q, kf, vf, wq2, bq2, wk2, bk2, dout,
@@ -133,6 +250,16 @@ def _bwd_kernel_fn():
                        n_ptr=24, n_int=6, n_float=1)
 
 
+_VARIANT_SYMBOLS = {5: ("trajectory_block_v5", "traj_core_v5_bf16"),
+                    6: ("trajectory_block_v6", "traj_core_v6_bf16")}
+
+
+@functools.lru_cache(maxsize=None)
+def _variant_kernel_fn(version):
+    return _build.bind(*_VARIANT_SYMBOLS[version], n_ptr=11, n_int=6,
+                       n_float=1)
+
+
 def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
@@ -183,6 +310,47 @@ def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
     return out, xs, q2
 
 
+def _launch_variant(version, q, kf, vf, wq2, bq2, wk2, scale, heads):
+    """The v5 or v6 forward kernel -> (out, xs, q2, scratch). v6 writes xs
+    [B, S, F, C] and q2 [B, S, C] as version 4 does (the backward reads
+    them); v5 forms no xs (None) and its q2 comes from the own-frame
+    aggregates alone. ``scratch`` holds k2v [B, F * N, C] and, for v5, the
+    own-frame aggregates x_diag [B, S, C]."""
+    global V5_LAUNCHES, V5_DEVICE_LAUNCHES, V6_LAUNCHES, V6_DEVICE_LAUNCHES
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads)
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+
+    def buf(*shape):
+        return torch.empty(*shape, dtype=torch.bfloat16, device=q.device)
+
+    scratch = {"k2v": buf(B, F * N, C)}
+    if version == 6:
+        xs = buf(B, S, F, C)
+    else:
+        xs, scratch["x_diag"] = None, buf(B, S, C)
+    q2, out = buf(B, S, C), buf(B, S, C)
+    aggregates = xs if version == 6 else scratch["x_diag"]
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _variant_kernel_fn(version)(
+            q.data_ptr(), kf.data_ptr(), vf.data_ptr(), wq2.data_ptr(),
+            bq2.data_ptr(), wk2.data_ptr(), scratch["k2v"].data_ptr(),
+            aggregates.data_ptr(), q2.data_ptr(), out.data_ptr(),
+            ctypes.addressof(launched),
+            B, S, F, N, C, heads, float(scale), stream,
+        )
+    _build.check(err, _VARIANT_SYMBOLS[version][1])
+    if version == 5:
+        V5_LAUNCHES += 1
+        V5_DEVICE_LAUNCHES += launched.value
+    else:
+        V6_LAUNCHES += 1
+        V6_DEVICE_LAUNCHES += launched.value
+    return out, xs, q2, scratch
+
+
 def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
                      scratch=None):
     """Backward kernel -> (dq, dkf, dvf, dwq2, dbq2, dwk2) in the operands'
@@ -230,12 +398,21 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
 
 
 class _FusedCore(torch.autograd.Function):
-    """Forward kernel, with xs and q2 kept for the backward kernel (the
-    counterpart of ``jax.custom_vjp`` over ``fused_trajectory_core``)."""
+    """The forward kernel of ``FWD_VERSION``, with xs and q2 kept for the
+    backward kernel (the counterpart of ``jax.custom_vjp`` over
+    ``fused_trajectory_core``). v5 forms no xs: its backward first
+    recomputes xs and q2 with the version-4 kernel (counted in
+    ``LAUNCHES``), as the TPU backward recomputes stage 1 itself."""
 
     @staticmethod
-    def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
-        out, xs, q2 = _launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
+    def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads, version):
+        if version == 4:
+            out, xs, q2 = _launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
+        else:
+            out, xs, q2, _ = _launch_variant(version, q, kf, vf, wq2, bq2,
+                                             wk2, scale, heads)
+            if xs is None:
+                q2 = None
         ctx.save_for_backward(q, kf, vf, wq2, bq2, wk2, bk2, xs, q2)
         ctx.scale, ctx.heads = scale, heads
         return out
@@ -243,20 +420,27 @@ class _FusedCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, kf, vf, wq2, bq2, wk2, bk2, xs, q2 = ctx.saved_tensors
+        if xs is None:
+            _, xs, q2 = _launch(q, kf, vf, wq2, bq2, wk2, ctx.scale,
+                                ctx.heads)
         grads = _launch_backward(q, kf, vf, wq2, bq2, wk2, dout.contiguous(),
                                  xs, q2, ctx.scale, ctx.heads)
-        return (*grads, torch.zeros_like(bk2), None, None)
+        return (*grads, torch.zeros_like(bk2), None, None, None)
 
 
 def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
     """Trajectory attention for the non-CLS tokens -> [B, S, C].
 
-    A CPU tensor takes the plain version (its gradient is autograd's); a
-    CUDA tensor launches the forward kernel, and its gradient the backward
-    kernel (bf16, contiguous, head dim 64), or raises."""
+    A CPU tensor takes the plain version at every ``FWD_VERSION`` (its
+    gradient is autograd's); a CUDA tensor launches the forward kernel of
+    ``FWD_VERSION`` (4, 5 or 6; others raise before any launch), and its
+    gradient the backward kernel (bf16, contiguous, head dim 64), or
+    raises."""
     if q.device.type == "cpu":
         return trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2,
                                          scale, heads)
     if q.device.type != "cuda":
         raise ValueError(f"no trajectory kernel for device {q.device}")
-    return _FusedCore.apply(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads)
+    version = check_fwd_version()
+    return _FusedCore.apply(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
+                            version)

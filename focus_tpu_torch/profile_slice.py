@@ -1,7 +1,8 @@
 """Where the time of a slice's main path goes, on one GPU.
 
-    python3 -m focus_tpu_torch.profile_slice [--model flagship|steve|train] \
-        [--batch 8] [--iters 2] [--trace trace.json] [--int8] [--fast-gelu]
+    python3 -m focus_tpu_torch.profile_slice \
+        [--model flagship|steve|train|learned_v] [--batch 8] [--iters 2] \
+        [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 4|5|6]
 
 Builds ``entry(device="cuda")`` (the flagship eval forward),
 ``train_entry(device="cuda")`` (one flagship train step: forward, backward
@@ -15,7 +16,11 @@ time, and the events with the most device time. ``--trace`` also writes the
 Chrome trace to the path given. The labeled serving variants:
 ``--int8`` (``TPU.INT8_SERVING``: W8A8 dense layers in the flagship, the
 W8A8 decode step in STEVE) and ``--fast-gelu`` (``TPU.FAST_GELU``, the
-flagship only).
+flagship only). ``--fwd-version`` sets the trajectory core's
+``FWD_VERSION`` (flagship and train). ``--model learned_v`` is the eval
+forward of ``profile_block.learned_v_stack``: 12 learned-v trajectory
+blocks (``use_original_code=False``) at D=768, 12 heads, 8 x 14 x 14
+tokens plus CLS.
 """
 
 import argparse
@@ -27,6 +32,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from focus_tpu_torch.entry import entry, steve_entry, train_entry
+from focus_tpu_torch.ops import trajectory_block
+from focus_tpu_torch.profile_block import learned_v_stack
 
 
 def _device_us(evt):
@@ -39,7 +46,8 @@ def _device_us(evt):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("flagship", "steve", "train"),
+    ap.add_argument("--model",
+                    choices=("flagship", "steve", "train", "learned_v"),
                     default="flagship")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=2)
@@ -49,6 +57,8 @@ def main():
                     help="TPU.INT8_SERVING (flagship or steve)")
     ap.add_argument("--fast-gelu", action="store_true",
                     help="TPU.FAST_GELU (flagship)")
+    ap.add_argument("--fwd-version", type=int, choices=(4, 5, 6), default=4,
+                    help="the trajectory core's FWD_VERSION (flagship, train)")
     args = ap.parse_args()
 
     variant = {}
@@ -56,12 +66,24 @@ def main():
         variant["int8"] = True
     if args.fast_gelu:
         variant["fast_gelu"] = True
-    if args.model == "train" and variant or (
+    if args.model in ("train", "learned_v") and variant or (
             args.model == "steve" and args.fast_gelu):
         ap.error(f"--model {args.model} takes no {sorted(variant)}")
-    make = {"flagship": entry, "steve": steve_entry,
-            "train": train_entry}[args.model]
-    fn, inputs = make(device="cuda", batch=args.batch, **variant)
+    if args.fwd_version != 4 and args.model not in ("flagship", "train"):
+        ap.error(f"--model {args.model} takes no --fwd-version")
+    trajectory_block.FWD_VERSION = args.fwd_version
+    if args.model == "learned_v":
+        model, x = learned_v_stack(device="cuda", batch=args.batch)
+
+        @torch.no_grad()
+        def fn(x):
+            return model(x)
+
+        inputs = (x,)
+    else:
+        make = {"flagship": entry, "steve": steve_entry,
+                "train": train_entry}[args.model]
+        fn, inputs = make(device="cuda", batch=args.batch, **variant)
     for _ in range(2):
         fn(*inputs)
     torch.cuda.synchronize()
@@ -86,8 +108,11 @@ def main():
     print(json.dumps({
         "profile": {"flagship": "flagship eval forward",
                     "steve": "STEVE reconstruct_autoregressive",
-                    "train": "flagship train step"}[args.model],
-        "variant": variant, "batch": args.batch,
+                    "train": "flagship train step",
+                    "learned_v": "12 learned-v trajectory blocks, eval"}[
+                        args.model],
+        "variant": variant, "fwd_version": args.fwd_version,
+        "batch": args.batch,
         "gpu": smi, "wall_ms_per_call": wall_ms,
         "device_ms_per_call": device_ms if rows else "not measured",
         "device_busy_share": device_ms / wall_ms if rows else "not measured",

@@ -13,7 +13,13 @@ import focus_tpu_torch
 from focus_tpu_torch.config import get_cfg
 from focus_tpu_torch.entry import entry, flagship_cfg, train_cfg, train_entry
 from focus_tpu_torch.models.build import build_model
-from focus_tpu_torch.ops import ar_decode, patch_embed, trajectory_block
+from focus_tpu_torch.ops import (
+    _build,
+    ar_decode,
+    patch_embed,
+    trajectory_attention,
+    trajectory_block,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(focus_tpu_torch.__file__))
@@ -125,6 +131,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no patch-embed kernel"):
         patch_embed.patch_embed_3d(x, torch.zeros(2, 16, 16, 3, 8, device="meta"),
                                    torch.zeros(8, device="meta"), (2, 16, 16))
+    with pytest.raises(ValueError, match="no space-stage kernel"):
+        trajectory_attention.space_stage(q, q, q, 2, 0.125)
 
 
 @pytest.mark.parametrize("module,source,symbol", [
@@ -133,6 +141,9 @@ def test_wrappers_refuse_other_devices():
     (patch_embed, "patch_embed.cu", "patch_embed_bf16"),
     (ar_decode, "ar_decode.cu", "ar_decode_step_bf16"),
     (ar_decode, "ar_decode.cu", "ar_decode_step_w8a8"),
+    (trajectory_attention, "trajectory_attention.cu", "space_stage_bf16"),
+    (trajectory_block, "trajectory_block_v5.cu", "traj_core_v5_bf16"),
+    (trajectory_block, "trajectory_block_v6.cu", "traj_core_v6_bf16"),
 ])
 def test_wrappers_bind_their_cuda_sources(module, source, symbol):
     with open(os.path.join(PKG, "csrc", source)) as f:
@@ -168,6 +179,9 @@ def _c_signature(source, symbol):
     ("patch_embed.cu", "patch_embed_bf16", 4, 10, 0),
     ("ar_decode.cu", "ar_decode_step_bf16", 17, 7, 1),
     ("ar_decode.cu", "ar_decode_step_w8a8", 20, 7, 1),
+    ("trajectory_attention.cu", "space_stage_bf16", 4, 5, 1),
+    ("trajectory_block_v5.cu", "traj_core_v5_bf16", 11, 6, 1),
+    ("trajectory_block_v6.cu", "traj_core_v6_bf16", 11, 6, 1),
 ])
 def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
                                             n_float):
@@ -179,8 +193,20 @@ def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
     assert [order[k] for k in kinds] == sorted(order[k] for k in kinds)
     module = {"trajectory_block.cu": trajectory_block,
               "trajectory_block_bwd.cu": trajectory_block,
+              "trajectory_block_v5.cu": trajectory_block,
+              "trajectory_block_v6.cu": trajectory_block,
+              "trajectory_attention.cu": trajectory_attention,
               "patch_embed.cu": patch_embed, "ar_decode.cu": ar_decode}[source]
     with open(module.__file__) as f:
         text = f.read()
     assert f"n_ptr={n_ptr}, n_int={n_int}" in text
     assert (f"n_float={n_float}" in text) == (n_float > 0)
+
+
+def test_every_cuda_source_is_built():
+    """ops/_build.py's SOURCES names every csrc/*.cu, so build_all() (and
+    chip_smoke.py's build phase) compiles each of them."""
+    sources = {f[:-3] for f in os.listdir(os.path.join(PKG, "csrc"))
+               if f.endswith(".cu")}
+    assert set(_build.SOURCES) == sources
+    assert len(_build.SOURCES) == len(sources)
