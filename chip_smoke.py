@@ -38,10 +38,12 @@ Phases (one JSON line each; any failure exits non-zero):
      rollout through the W8A8 decode step at 32 and 128 rows (frames per
      second, launch counts, time split, ids against the W8A8 plain path);
   8. the trajectory core's forward versions: the flagship forward at batch
-     8 under FWD_VERSION 4, 5 and 6 (clips per second, peak memory, 12
+     8 under FWD_VERSION 4, 3, 5 and 6 (clips per second, peak memory, 12
      launches of the chosen kernel per forward and none of the others, the
-     probabilities against the plain path), after the v5 and v6 kernels are
-     held against their step-by-step plain versions in phase 2;
+     probabilities against the plain path), after the v3, v5 and v6 kernels
+     are held against their step-by-step plain versions in phase 2 (v3 also
+     against the plain trajectory core, whose function it computes); the
+     train step of phase 5 runs under FWD_VERSION 3 too;
   9. the learned-v slice: 12 learned-v trajectory blocks
      (``use_original_code=False``) at D=768 on x [8, 1569, 768] bf16
      through the space-stage kernel (ms per stack, 12 launches per stack,
@@ -485,14 +487,17 @@ def phase_space_stage():
                      f"(N=200: {cases[1]['kernel_ms']:.4f} ms)"}
 
 
-VARIANT_SOURCES = {5: ("focus_tpu_torch/csrc/trajectory_block_v5.cu",
+VARIANT_SOURCES = {3: ("focus_tpu_torch/csrc/trajectory_block_v3.cu",
+                       "focus_tpu/ops/pallas/trajectory_block.py:57"),
+                   5: ("focus_tpu_torch/csrc/trajectory_block_v5.cu",
                        "focus_tpu/ops/pallas/trajectory_block.py:872"),
                    6: ("focus_tpu_torch/csrc/trajectory_block_v6.cu",
                        "focus_tpu/ops/pallas/trajectory_block.py:711")}
 
 
 def variant_counts(tb):
-    return {"v4": tb.LAUNCHES, "v5": tb.V5_LAUNCHES,
+    return {"v4": tb.LAUNCHES, "v3": tb.V3_LAUNCHES,
+            "v3_device": tb.V3_DEVICE_LAUNCHES, "v5": tb.V5_LAUNCHES,
             "v5_device": tb.V5_DEVICE_LAUNCHES, "v6": tb.V6_LAUNCHES,
             "v6_device": tb.V6_DEVICE_LAUNCHES, "bwd": tb.BWD_LAUNCHES}
 
@@ -506,22 +511,28 @@ def run_version(tb, version, fn):
         tb.FWD_VERSION = 4
 
 
+VERSIONS = (3, 5, 6)  # the forward versions beside kernel 1 (version 4)
+
+
 def phase_variants():
-    """The forward versions 5 and 6 of the trajectory core against their
+    """The forward versions 3, 5 and 6 of the trajectory core against their
     step-by-step plain versions (the gate) and against the plain trajectory
-    core (reported: the variants' k2v identity holds only where every
-    head's stage-1 weights agree), at B = 8 and N = 196 and 200, and on the
-    two extreme inputs (both gated); kernel, plain and version-4 times on
-    the same inputs; one backward per version at B = 2 through _FusedCore
-    against the version-4 gradients."""
+    core (gated for v3, which computes its function; reported for v5 and v6:
+    their k2v identity holds only where every head's stage-1 weights
+    agree), at B = 8 and N = 196 and 200, and on the two extreme inputs
+    (gated for all); kernel, plain and version-4 times on the same inputs;
+    one backward per version at B = 2 through _FusedCore against the
+    version-4 gradients."""
     from focus_tpu_torch.ops import trajectory_block as tb
 
     heads, scale, C = 12, 64 ** -0.5, 768
-    plain = {5: tb.trajectory_core_v5_reference,
+    plain = {3: tb.trajectory_core_v3_reference,
+             5: tb.trajectory_core_v5_reference,
              6: tb.trajectory_core_v6_reference}
+    counted = ("v4",) + tuple(f"v{v}" for v in VERSIONS)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(8)
-    results = {v: {"cases": [], "timing": []} for v in (5, 6)}
+    results = {v: {"cases": [], "timing": []} for v in VERSIONS}
     inputs = [(f"B=8 N={N}", core_inputs(8, N, gen)) for N in (196, 200)]
     inputs += [(f"extreme {sign * mag}", extreme_inputs(sign, mag, gen))
                for sign, mag in ((-1.0, 60.0), (1.0, 50.0))]
@@ -529,7 +540,7 @@ def phase_variants():
         true = tb.trajectory_core_reference(*[a.float() for a in args],
                                             scale, heads)
         extreme = tag.startswith("extreme")
-        for v in (5, 6):
+        for v in VERSIONS:
             before = variant_counts(tb)
             out = run_version(tb, v, lambda: tb.fused_trajectory_core(
                 *args, scale, heads))
@@ -545,12 +556,12 @@ def phase_variants():
                     "device_launches": after[f"v{v}_device"]
                     - before[f"v{v}_device"],
                     "wrapper_launches": {k: after[k] - before[k]
-                                         for k in ("v4", "v5", "v6")}}
-            if case["wrapper_launches"] != {
-                    "v4": 0, "v5": int(v == 5), "v6": int(v == 6)}:
+                                         for k in counted}}
+            if case["wrapper_launches"] != {k: int(k == f"v{v}")
+                                            for k in counted}:
                 raise AssertionError(f"v{v} {tag}: launches "
                                      f"{case['wrapper_launches']}")
-            if extreme:
+            if extreme or v == 3:
                 check_close(f"v{v} {tag} vs the trajectory core", out, true)
             results[v]["cases"].append(case)
             if not extreme:
@@ -587,13 +598,15 @@ def phase_variants():
         torch.cuda.synchronize()
         after = variant_counts(tb)
         return ([t.grad for t in leaves[:6]],
-                {k: after[k] - before[k] for k in ("v4", "v5", "v6", "bwd")})
+                {k: after[k] - before[k] for k in counted + ("bwd",)})
 
     ref, _ = grads(4)
-    for v in (5, 6):
+    for v in VERSIONS:
         got, counts = grads(v)
-        expect = {"v4": int(v == 5), "v5": int(v == 5), "v6": int(v == 6),
-                  "bwd": 1}
+        # v5 forms no xs: its backward recomputes xs and q2 with kernel 1
+        expect = {k: int(k == f"v{v}" or (k == "v4" and v == 5))
+                  for k in counted}
+        expect["bwd"] = 1
         if counts != expect:
             raise AssertionError(f"v{v} backward: launches {counts}, "
                                  f"expected {expect}")
@@ -604,22 +617,26 @@ def phase_variants():
             **{n: grad_errors(f"v{v} backward {n}", a, b)
                for n, a, b in zip(GRAD_NAMES, got, ref)}}
     rows = []
-    for v in (5, 6):
+    for v in VERSIONS:
         r = results[v]
         per_call = {c["device_launches"] for c in r["cases"]}
-        if len(per_call) != 1:
+        if len(per_call) != 1 or (v == 3 and per_call != {1}):
             raise AssertionError(f"v{v} device launches per call {per_call}")
         per_call = per_call.pop()
+        against_core = (
+            "and against the plain trajectory core (float32) on every input: "
+            "v3 computes its function, rounded at other points"
+            if v == 3 else
+            "and against the plain trajectory core on the extreme inputs; on "
+            "the random inputs the distance to the trajectory core is "
+            "reported, not gated: the variant computes another function "
+            "there (the k2v identity needs equal stage-1 weights in every "
+            "head)")
         emit({"phase": "kernel", "name": f"trajectory_block_v{v}", "ok": True,
               "tolerance": f"max|err| <= {KERNEL_TOL_REL} x max|ref| against "
                            f"trajectory_core_v{v}_reference on the same bf16 "
-                           "inputs (its rounding points, float32 sums), and "
-                           "against the plain trajectory core on the extreme "
-                           "inputs; on the random inputs the distance to the "
-                           "trajectory core is reported, not gated: the "
-                           "variant computes another function there (the k2v "
-                           "identity needs equal stage-1 weights in every "
-                           "head); backward: each gradient within "
+                           "inputs (its rounding points, float32 sums), "
+                           f"{against_core}; backward: each gradient within "
                            f"{KERNEL_TOL_REL} x max|ref| and {BWD_REL_L2} "
                            "relative L2 of version 4's",
               "device_launches_per_call": per_call,
@@ -1224,8 +1241,8 @@ def phase_steve_w8a8(smi, per_step):
     return counts
 
 
-CORE_KERNELS = {4: "trajectory_block", 5: "trajectory_block_v5",
-                6: "trajectory_block_v6"}
+CORE_KERNELS = {4: "trajectory_block", 3: "trajectory_block_v3",
+                5: "trajectory_block_v5", 6: "trajectory_block_v6"}
 
 
 def flagship_run(fn, video, boxes):
@@ -1244,13 +1261,15 @@ def flagship_run(fn, video, boxes):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident_gb = torch.cuda.memory_allocated() / 1e9
-    tb.LAUNCHES = tb.V5_LAUNCHES = tb.V6_LAUNCHES = pe.LAUNCHES = 0
+    tb.LAUNCHES = tb.V3_LAUNCHES = tb.V5_LAUNCHES = tb.V6_LAUNCHES = 0
+    pe.LAUNCHES = 0
     t0 = time.perf_counter()
     for _ in range(SLICE_ITERS):
         probs = fn(video, boxes)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"trajectory_block": tb.LAUNCHES,
+                "trajectory_block_v3": tb.V3_LAUNCHES,
                 "trajectory_block_v5": tb.V5_LAUNCHES,
                 "trajectory_block_v6": tb.V6_LAUNCHES,
                 "patch_embed": pe.LAUNCHES}
@@ -1361,13 +1380,13 @@ def phase_slice(smi):
 
 def phase_flagship_fwd_versions(smi):
     """The flagship forward at batch 8 through ``entry()`` under
-    FWD_VERSION 4, 5 and 6, one after the other on one model, each as
+    FWD_VERSION 4, 3, 5 and 6, one after the other on one model, each as
     ``flagship_run`` drives it (12 launches of the chosen forward kernel
     per forward and none of the others; probabilities against the plain
     path); then one ``train_entry`` step at batch 2 under 5 and under 6
     with its launch counts (v5: 12 forward, 12 kernel-1 recompute and 12
-    backward launches). FWD_VERSION is 4 again after the phase, whatever
-    happens."""
+    backward launches; the train step under 3 is ``phase_train``'s).
+    FWD_VERSION is 4 again after the phase, whatever happens."""
     from focus_tpu_torch.entry import entry, train_entry
     from focus_tpu_torch.ops import trajectory_block as tb
 
@@ -1378,7 +1397,7 @@ def phase_flagship_fwd_versions(smi):
                        "trajectory core's forward kernel by FWD_VERSION"}
     launches, problems, probs = {}, [], {}
     try:
-        for version in (4, 5, 6):
+        for version in CORE_KERNELS:
             tb.FWD_VERSION = version
             report, counts, probs[version] = flagship_run(fn, video, boxes)
             if version != 4:
@@ -1399,9 +1418,9 @@ def phase_flagship_fwd_versions(smi):
             loss = fn(*batch)["loss"].item()
             torch.cuda.synchronize()
             got = {k: v - before[k] for k, v in variant_counts(tb).items()
-                   if k in ("v4", "v5", "v6", "bwd")}
+                   if k in ("v4", "v3", "v5", "v6", "bwd")}
             depth = len(fn.model.blocks)
-            expect = {"v4": depth if version == 5 else 0,
+            expect = {"v4": depth if version == 5 else 0, "v3": 0,
                       "v5": depth if version == 5 else 0,
                       "v6": depth if version == 6 else 0, "bwd": depth}
             result[f"train_step_fwd_version_{version}"] = {
@@ -1664,56 +1683,90 @@ def train_vs_plain_path():
     return report, problems
 
 
-def phase_train(smi, per_call):
-    """The flagship train step through ``train_entry`` at batch 8: launch
-    counts per step, train clips/s, peak memory, finite loss and gradients;
-    then the kernel path against the float32 plain path at batch 2.
-    ``per_call`` is
-    the device kernels one backward wrapper call launched in the kernel
-    phase."""
+def train_run(per_call, version):
+    """The flagship train step through ``train_entry`` at batch 8 under
+    FWD_VERSION ``version``: TRAIN_WARMUP warm-up and TRAIN_ITERS timed
+    steps with the launch counts of each step asserted (12 of the version's
+    forward kernel and none of the other forward kernels, 12 backward
+    wrapper calls of ``per_call`` device kernels each, one patch embed),
+    train clips/s, peak memory, finite loss and gradients; then the kernel
+    path against the float32 plain path at batch 2. Returns (report,
+    launches, problems)."""
     from focus_tpu_torch.entry import train_entry
     from focus_tpu_torch.ops import patch_embed as pe
     from focus_tpu_torch.ops import trajectory_block as tb
 
-    B = 8
-    fn, (video, labels, boxes) = train_entry(device=DEV, batch=B, seed=0)
-    first = [fn(video, labels, boxes)["loss"] for _ in range(TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
     def counts():
         return {"trajectory_block": tb.LAUNCHES,
+                "trajectory_block_v3": tb.V3_LAUNCHES,
                 "trajectory_block_bwd": tb.BWD_LAUNCHES,
                 "trajectory_block_bwd_device": tb.BWD_DEVICE_LAUNCHES,
                 "patch_embed": pe.LAUNCHES}
 
-    tb.LAUNCHES = tb.BWD_LAUNCHES = tb.BWD_DEVICE_LAUNCHES = pe.LAUNCHES = 0
-    depth = len(fn.model.blocks)  # 12: one core per block, both directions
-    expect = {"trajectory_block": depth, "trajectory_block_bwd": depth,
-              "trajectory_block_bwd_device": depth * per_call,
-              "patch_embed": 1}
-    t0 = time.perf_counter()
-    losses = []
-    for _ in range(TRAIN_ITERS):
-        before = counts()
-        losses.append(fn(video, labels, boxes)["loss"])
-        step = {k: v - before[k] for k, v in counts().items()}
-        if step != expect:
-            raise AssertionError(f"launches in one train step {step}, "
-                                 f"expected {expect}")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [x.item() for x in first + losses]
-    grads = grads_of(fn.model)
-    nonfinite = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())]
-    if not all(math.isfinite(x) for x in losses) or nonfinite:
-        raise AssertionError(f"non-finite loss {losses} or gradients "
-                             f"{nonfinite[:5]}")
-    del fn, grads
-    torch.cuda.empty_cache()
-    vs_plain, problems = train_vs_plain_path()
+    def run():
+        B = 8
+        fn, (video, labels, boxes) = train_entry(device=DEV, batch=B, seed=0)
+        first = [fn(video, labels, boxes)["loss"]
+                 for _ in range(TRAIN_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tb.LAUNCHES = tb.V3_LAUNCHES = tb.BWD_LAUNCHES = 0
+        tb.BWD_DEVICE_LAUNCHES = pe.LAUNCHES = 0
+        depth = len(fn.model.blocks)  # 12: one core per block, both ways
+        expect = {k: 0 for k in counts()}
+        expect.update({CORE_KERNELS[version]: depth,
+                       "trajectory_block_bwd": depth,
+                       "trajectory_block_bwd_device": depth * per_call,
+                       "patch_embed": 1})
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(TRAIN_ITERS):
+            before = counts()
+            losses.append(fn(video, labels, boxes)["loss"])
+            step = {k: v - before[k] for k, v in counts().items()}
+            if step != expect:
+                raise AssertionError(f"launches in one train step under "
+                                     f"FWD_VERSION={version}: {step}, "
+                                     f"expected {expect}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [x.item() for x in first + losses]
+        grads = grads_of(fn.model)
+        nonfinite = [n for n, g in grads.items()
+                     if not bool(torch.isfinite(g).all())]
+        if not all(math.isfinite(x) for x in losses) or nonfinite:
+            raise AssertionError(f"non-finite loss {losses} or gradients "
+                                 f"{nonfinite[:5]} under "
+                                 f"FWD_VERSION={version}")
+        del fn, grads
+        torch.cuda.empty_cache()
+        vs_plain, problems = train_vs_plain_path()
+        report = {
+            "fwd_version": version, "batch": B,
+            "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_ITERS,
+            "orvit_mf_ssv2_16x224_train_clips_per_sec_per_chip":
+                B * TRAIN_ITERS / seconds,
+            "ms_per_step": 1e3 * seconds / TRAIN_ITERS,
+            "peak_memory_gb": peak_gb, "losses": losses,
+            "launches": launches, "launches_per_step": expect,
+            "vs_plain_path": vs_plain, "problems": problems}
+        return report, launches, problems
+
+    return run_version(tb, version, run)
+
+
+def phase_train(smi, per_call):
+    """The flagship train step (``train_run``) under FWD_VERSION 4, the
+    default, and under 3 as a sub-result. ``per_call`` is the device
+    kernels one backward wrapper call launched in the kernel phase. Returns
+    the launches of both runs by version."""
+    reports, launches, problems = {}, {}, []
+    for version in (4, 3):
+        reports[version], launches[version], bad = train_run(per_call,
+                                                             version)
+        problems += [f"FWD_VERSION={version}: {p}" for p in bad]
     emit({"phase": "slice", "name": "train", "ok": not problems,
           "model": "ORViT-MF SSv2 16x224, D=768, 12 layers, 12 heads, ORViT "
                    "at [1,6,10], O=4, motion stream, 174 classes, bf16 "
@@ -1721,13 +1774,7 @@ def phase_train(smi, per_call):
                    "decay 5e-2, steps_with_relative_lrs, 100 steps per "
                    "epoch, label-smoothing cross-entropy; init-scale "
                    "weights, seed 0",
-          "batch": B, "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_ITERS,
-          "orvit_mf_ssv2_16x224_train_clips_per_sec_per_chip":
-              B * TRAIN_ITERS / seconds,
-          "ms_per_step": 1e3 * seconds / TRAIN_ITERS,
-          "peak_memory_gb": peak_gb, "losses": losses,
-          "launches": launches, "launches_per_step": expect,
-          "vs_plain_path": vs_plain, "problems": problems, "gpu": smi})
+          **reports[4], "fwd_version_3": reports[3], "gpu": smi})
     if problems:
         raise AssertionError(f"train slice: {problems[:5]}")
     return launches
@@ -1752,7 +1799,7 @@ def main():
     traj = phase_trajectory_kernel()
     bwd = phase_trajectory_backward()
     space = phase_space_stage()
-    v5, v6 = phase_variants()
+    v3, v5, v6 = phase_variants()
     patch = phase_patch_kernel()
     phase_fixture()
     phase_steve_fixtures()
@@ -1765,7 +1812,7 @@ def main():
         f"{SLICE_ITERS} forwards of each of the {len(VARIANTS)} models of the "
         "serving matrix")
     versions = phase_flagship_fwd_versions(smi)
-    for row, version in ((v5, 5), (v6, 6)):
+    for row, version in ((v3, 3), (v5, 5), (v6, 6)):
         row["launches"] = versions[version]
         row["launches_note"] = (
             f"over {SLICE_ITERS} flagship forwards through entry() under "
@@ -1775,14 +1822,21 @@ def main():
     space["launches_note"] = (
         f"over {SLICE_ITERS} eval forwards of the 12-block learned-v stack "
         "(12 per stack)")
-    train = phase_train(smi, bwd["device_launches_per_call"])
+    trains = phase_train(smi, bwd["device_launches_per_call"])
+    train = trains[4]
     traj["launches_train"] = train["trajectory_block"]
+    v3["launches_train"] = trains[3]["trajectory_block_v3"]
+    v3["launches_note"] += (
+        f"; launches_train over {TRAIN_ITERS} flagship train steps under "
+        "FWD_VERSION=3 (12 per step; kernel 1 launched 0 times in them)")
     patch["launches_train"] = train["patch_embed"]
     bwd["launches"] = train["trajectory_block_bwd"]
     bwd["device_launches"] = train["trajectory_block_bwd_device"]
     bwd["launches_note"] = (
         f"wrapper calls over {TRAIN_ITERS} flagship train steps; "
-        "device_launches are the kernels those calls launched")
+        "device_launches are the kernels those calls launched; "
+        "launches_fwd_version_3 over as many steps under FWD_VERSION=3")
+    bwd["launches_fwd_version_3"] = trains[3]["trajectory_block_bwd"]
     steve_model = steve_entry(device=DEV, batch=8)[0].model
     ar = phase_ar_decode(steve_model)
     arq = phase_ar_decode_w8a8(steve_model)
@@ -1805,7 +1859,7 @@ def main():
         f"wrapper calls (one per decode step) of {STEVE_ITERS} rollouts of "
         "32 rows through steve_entry(int8=True); device_launches are the "
         "kernels those calls launched")
-    emit({"kernels": [traj, patch, bwd, ar, arq, space, v5, v6]})
+    emit({"kernels": [traj, patch, bwd, ar, arq, space, v5, v6, v3]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

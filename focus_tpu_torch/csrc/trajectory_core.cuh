@@ -2,8 +2,10 @@
 // (trajectory_block.cu, trajectory_block_v5.cu, trajectory_block_v6.cu,
 // trajectory_attention.cu): the stage-1 kernel, per frame softmax(q . k_f^T
 // * scale) . v_f for every query row (or its own frame alone), and a tiled
-// bf16 GEMM with an optional row gather and bias. ops/_build.py hashes this
-// header with every source.
+// bf16 GEMM with an optional row gather and bias. trajectory_block_v3.cu
+// shares the limits and tile sizes (HD, LDH, MAX_*, the GEMM's GM .. LDB_G)
+// and writes its own loops. ops/_build.py hashes this header with every
+// source.
 
 #pragma once
 

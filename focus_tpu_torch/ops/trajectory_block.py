@@ -1,7 +1,7 @@
 """Fused trajectory-attention core for the non-CLS tokens: the plain
 PyTorch versions of its forward and backward, and the wrappers of their
-CUDA kernels (``csrc/trajectory_block.cu``, ``csrc/trajectory_block_bwd.cu``)
-joined by a ``torch.autograd.Function``.
+CUDA kernels (``csrc/trajectory_block.cu``, ``csrc/trajectory_block_bwd.cu``
+and the other forward versions) joined by a ``torch.autograd.Function``.
 
 Counterpart of ``focus_tpu/ops/pallas/trajectory_block.py``
 (``fused_trajectory_core``, its ``_xla_reference`` and its custom VJP
@@ -12,16 +12,20 @@ with ``use_original_code=True``.
 
 Forward versions: the module constant ``FWD_VERSION``, read at each call as
 the JAX package reads its own, picks the forward kernel on the card. 4 (the
-default) is ``csrc/trajectory_block.cu``; 5 and 6 compute the stage-2
+default) is ``csrc/trajectory_block.cu``, three launches; 3 is
+``csrc/trajectory_block_v3.cu``, the same function in one launch per call,
+rounded as the TPU kernel v3 rounds it; 5 and 6 compute the stage-2
 logits through ``k2v = V . Wk2`` as the TPU kernels v5 and v6 do
 (``csrc/trajectory_block_v5.cu``, which never forms the per-frame
 aggregates xs, and ``csrc/trajectory_block_v6.cu``, which does), which
 equals version 4 only where every head's stage-1 weights agree: elsewhere
-they compute another function. 3 and 7 are not ported yet and raise. Every version has the
-same backward kernel, which reads xs and q2: v5 recomputes them with the
-version-4 kernel first. CPU tensors take ``trajectory_core_reference`` at
-every version; ``trajectory_core_v5_reference`` and
-``trajectory_core_v6_reference`` follow the two variants step by step.
+they compute another function. 7 is not ported yet and raises. Every
+version has the same backward kernel, which reads xs and q2: v3 and v6
+write them as version 4 does, v5 recomputes them with the version-4 kernel
+first. CPU tensors take ``trajectory_core_reference`` at every version, as
+the JAX package takes its XLA composition off the TPU;
+``trajectory_core_v3_reference``, ``trajectory_core_v5_reference`` and
+``trajectory_core_v6_reference`` follow the three kernels step by step.
 """
 
 import ctypes
@@ -38,14 +42,15 @@ from focus_tpu_torch.ops import attention as attn_ops
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_DEVICE_LAUNCHES = 0
-# the v5 and v6 forward kernels: wrapper calls, and the device kernels those
-# calls launched (k2v is a launch of its own)
+# the v3, v5 and v6 forward kernels: wrapper calls, and the device kernels
+# those calls launched (one per v3 call; k2v is a launch of its own)
+V3_LAUNCHES = V3_DEVICE_LAUNCHES = 0
 V5_LAUNCHES = V5_DEVICE_LAUNCHES = 0
 V6_LAUNCHES = V6_DEVICE_LAUNCHES = 0
 
-# forward kernel on the card: 4 (csrc/trajectory_block.cu), 5 or 6
+# forward kernel on the card: 4 (csrc/trajectory_block.cu), 3, 5 or 6
 FWD_VERSION = 4
-PORTED_FWD_VERSIONS = (4, 5, 6)
+PORTED_FWD_VERSIONS = (3, 4, 5, 6)
 
 HEAD_DIM = 64  # the kernel's head dim; also C % 128 == 0, F <= 8, N <= 256,
 # heads <= 16
@@ -85,26 +90,34 @@ def check_fwd_version(version=None):
     if version not in PORTED_FWD_VERSIONS:
         raise NotImplementedError(
             f"trajectory-core FWD_VERSION={version!r}: the port has the "
-            f"forward kernels {PORTED_FWD_VERSIONS}; v3 (per-frame grid) and "
-            "v7 (transposed-packed stage 1) are not ported yet")
+            f"forward kernels {PORTED_FWD_VERSIONS}; v7 (transposed-packed "
+            "stage 1) is not ported yet")
     return version
 
 
-def _variant_stage1(q, kf, vf, wk2, scale, heads):
-    """The pieces v5 and v6 share, in float32 from operands at q's dtype:
-    the head-split q, k, v; the stage-1 weights p = exp(logit - max) with a
-    true max per frame (the TPU kernels clamp exp2 with no max instead) and
-    the per-frame sums s; and k2v = V . Wk2 rounded to q's dtype as the
-    kernels keep it, split by head."""
+def _stage1_weights(q, kf, vf, scale, heads):
+    """The stage-1 pieces v3, v5 and v6 share, in float32 from operands at
+    q's dtype: the head-split v, the unnormalised weights p = exp(logit -
+    max) with a true max per frame (the TPU kernels clamp exp2 with no max
+    instead) and the per-frame sums s."""
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
-    hd, dt = C // heads, q.dtype
+    hd = C // heads
     qh = q.float().reshape(B, S, heads, hd).permute(0, 2, 1, 3)
     kh = kf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
     vh = vf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
     logits = torch.einsum("bhsd,bhfnd->bhsfn", qh, kh) * scale
     p = torch.exp(logits - logits.amax(-1, keepdim=True))  # [B, h, S, F, N]
-    s = p.sum(-1)  # [B, h, S, F]
+    return vh, p, p.sum(-1)  # s: [B, h, S, F]
+
+
+def _variant_stage1(q, kf, vf, wk2, scale, heads):
+    """The pieces v5 and v6 share: ``_stage1_weights`` and k2v = V . Wk2
+    rounded to q's dtype as the kernels keep it, split by head."""
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    hd, dt = C // heads, q.dtype
+    vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
     k2v = (vf.float().reshape(B, F * N, C) @ wk2.to(dt).float()).to(dt)
     k2vh = k2v.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
     return vh, p, s, k2vh
@@ -124,6 +137,37 @@ def _variant_a2(x_diag, wq2, bq2, p, s, k2vh, scale, heads):
     m = torch.einsum("bhsd,bhfnd->bhsfn", q2h, k2vh)
     l2 = (p * m).sum(-1) / s * scale
     return torch.softmax(l2, dim=-1)
+
+
+def trajectory_core_v3_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
+                                 heads):
+    """Plain version of the v3 kernel, step by step (TPU
+    ``_fused_kernel_v3`` under its ``KERNEL_FLAGS``): stage 1 per frame and
+    head with the weights rounded before they are normalised, xs_f =
+    round(round(p_f) . V_f / s_f); x_diag; q2 = (x_diag . Wq2 + bq2) * scale
+    in float32; per head g_h = round(q2_h) . Wk2_h^T left in float32, the
+    stage-2 logits l2[f] = g_h . xs_f, a2 = softmax over frames (float32);
+    out = sum_f a2_f xs_f rounded once. The function of
+    ``trajectory_core_reference``, rounded at other points (version 4
+    normalises the weights before it rounds them, and rounds q2 and g).
+    Float32 arithmetic with the kernel's rounding points (q's dtype); bk2
+    drops out."""
+    del bk2
+    B, S, C = q.shape
+    F = kf.shape[1]
+    hd, dt = C // heads, q.dtype
+    vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
+    o = torch.einsum("bhsfn,bhfnd->bhsfd", p.to(dt).float(), vh)
+    xs = (o / s[..., None]).to(dt).permute(0, 2, 3, 1, 4)  # [B,S,F,h,hd]
+    x_diag = attn_ops.take_diagonal(xs.reshape(B, S, F, C), F)
+    q2 = (x_diag.float() @ wq2.to(dt).float() + bq2.float()) * scale
+    g = torch.einsum("bshd,chd->bshc", q2.to(dt).float().reshape(
+        B, S, heads, hd), wk2.float().reshape(C, heads, hd))
+    xsf = xs.float()
+    a2 = torch.softmax(torch.einsum("bshc,bsfc->bshf", g,
+                                    xsf.reshape(B, S, F, C)), dim=-1)
+    out = torch.einsum("bshf,bsfhd->bshd", a2, xsf)
+    return out.to(dt).reshape(B, S, C)
 
 
 def trajectory_core_v6_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
@@ -245,6 +289,12 @@ def _kernel_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def _v3_kernel_fn():
+    return _build.bind("trajectory_block_v3", "traj_core_v3_bf16",
+                       n_ptr=10, n_int=6, n_float=1)
+
+
+@functools.lru_cache(maxsize=None)
 def _bwd_kernel_fn():
     return _build.bind("trajectory_block_bwd", "traj_core_bwd_bf16",
                        n_ptr=24, n_int=6, n_float=1)
@@ -307,6 +357,32 @@ def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
         )
     _build.check(err, "traj_core_bf16")
     LAUNCHES += 1
+    return out, xs, q2
+
+
+def _launch_v3(q, kf, vf, wq2, bq2, wk2, scale, heads):
+    """The v3 forward kernel, one device launch -> (out, xs, q2), written
+    as ``_launch`` writes them (q2 unscaled, with its bias), so the backward
+    kernel reads them unchanged."""
+    global V3_LAUNCHES, V3_DEVICE_LAUNCHES
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads)
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    xs = torch.empty(B, S, F, C, dtype=torch.bfloat16, device=q.device)
+    q2 = torch.empty(B, S, C, dtype=torch.bfloat16, device=q.device)
+    out = torch.empty(B, S, C, dtype=torch.bfloat16, device=q.device)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _v3_kernel_fn()(
+            q.data_ptr(), kf.data_ptr(), vf.data_ptr(), wq2.data_ptr(),
+            bq2.data_ptr(), wk2.data_ptr(), xs.data_ptr(), q2.data_ptr(),
+            out.data_ptr(), ctypes.addressof(launched),
+            B, S, F, N, C, heads, float(scale), stream,
+        )
+    _build.check(err, "traj_core_v3_bf16")
+    V3_LAUNCHES += 1
+    V3_DEVICE_LAUNCHES += launched.value
     return out, xs, q2
 
 
@@ -400,14 +476,16 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
 class _FusedCore(torch.autograd.Function):
     """The forward kernel of ``FWD_VERSION``, with xs and q2 kept for the
     backward kernel (the counterpart of ``jax.custom_vjp`` over
-    ``fused_trajectory_core``). v5 forms no xs: its backward first
+    ``fused_trajectory_core``); v3 and v6 write them as version 4 does.
+    v5 forms no xs: its backward first
     recomputes xs and q2 with the version-4 kernel (counted in
     ``LAUNCHES``), as the TPU backward recomputes stage 1 itself."""
 
     @staticmethod
     def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads, version):
-        if version == 4:
-            out, xs, q2 = _launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
+        if version in (3, 4):
+            launch = _launch_v3 if version == 3 else _launch
+            out, xs, q2 = launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
         else:
             out, xs, q2, _ = _launch_variant(version, q, kf, vf, wq2, bq2,
                                              wk2, scale, heads)
@@ -433,9 +511,9 @@ def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
 
     A CPU tensor takes the plain version at every ``FWD_VERSION`` (its
     gradient is autograd's); a CUDA tensor launches the forward kernel of
-    ``FWD_VERSION`` (4, 5 or 6; others raise before any launch), and its
-    gradient the backward kernel (bf16, contiguous, head dim 64), or
-    raises."""
+    ``FWD_VERSION`` (3, 4, 5 or 6; 7 and others raise before any launch),
+    and its gradient the backward kernel (bf16, contiguous, head dim 64),
+    or raises."""
     if q.device.type == "cpu":
         return trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2,
                                          scale, heads)

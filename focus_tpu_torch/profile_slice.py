@@ -2,7 +2,7 @@
 
     python3 -m focus_tpu_torch.profile_slice \
         [--model flagship|steve|train|learned_v] [--batch 8] [--iters 2] \
-        [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 4|5|6]
+        [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 3|4|5|6]
 
 Builds ``entry(device="cuda")`` (the flagship eval forward),
 ``train_entry(device="cuda")`` (one flagship train step: forward, backward
@@ -57,7 +57,8 @@ def main():
                     help="TPU.INT8_SERVING (flagship or steve)")
     ap.add_argument("--fast-gelu", action="store_true",
                     help="TPU.FAST_GELU (flagship)")
-    ap.add_argument("--fwd-version", type=int, choices=(4, 5, 6), default=4,
+    ap.add_argument("--fwd-version", type=int, choices=trajectory_block.PORTED_FWD_VERSIONS,
+                    default=4,
                     help="the trajectory core's FWD_VERSION (flagship, train)")
     args = ap.parse_args()
 

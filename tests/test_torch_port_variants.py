@@ -1,8 +1,8 @@
-"""The trajectory core's forward versions 5 and 6 on the CPU: their plain
-versions (step by step as the kernels compute) against the JAX package's
-Pallas v5 and v6 kernels in interpret mode and against ``_xla_reference``,
-where the variants' k2v identity holds and where it does not, and the
-``FWD_VERSION`` dispatch."""
+"""The trajectory core's forward versions 3, 5 and 6 on the CPU: their
+plain versions (step by step as the kernels compute) against the JAX
+package's Pallas v3, v5 and v6 kernels in interpret mode and against
+``_xla_reference`` (v3 everywhere; v5 and v6 where their k2v identity holds
+and where it does not), and the ``FWD_VERSION`` dispatch."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,21 +15,24 @@ from focus_tpu_torch.ops import trajectory_block as ttb
 from tests.test_torch_port_kernels import core_inputs, extreme_inputs
 
 HEADS = 4
-PORT = {5: ttb.trajectory_core_v5_reference,
+PORT = {3: ttb.trajectory_core_v3_reference,
+        5: ttb.trajectory_core_v5_reference,
         6: ttb.trajectory_core_v6_reference}
-PALLAS = {5: jtb._fused_fwd_pallas_v5, 6: jtb._fused_fwd_pallas_v6}
+PALLAS = {3: jtb._fused_fwd_pallas, 5: jtb._fused_fwd_pallas_v5,
+          6: jtb._fused_fwd_pallas_v6}
 
 
 def port(version, args, scale, heads=HEADS):
     return PORT[version](*map(torch.from_numpy, args), scale, heads).numpy()
 
 
-@pytest.mark.parametrize("version", [5, 6])
+@pytest.mark.parametrize("version", [3, 5, 6])
 @pytest.mark.parametrize("N", [12, 13])
 def test_variant_reference_matches_pallas_interpret(version, N):
     """The plain version against the TPU kernel it follows, in interpret
     mode, on tests/test_fused_block.py:make_inputs (atol 2e-5, that test's
-    tolerance)."""
+    tolerance); v3 under the JAX package's ``KERNEL_FLAGS``, as that test
+    runs it."""
     args = core_inputs(N=N)
     scale = (16 // HEADS) ** -0.5
     ref = PALLAS[version](*map(jnp.asarray, args), scale, HEADS,
@@ -38,7 +41,7 @@ def test_variant_reference_matches_pallas_interpret(version, N):
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("version", [5, 6])
+@pytest.mark.parametrize("version", [3, 5, 6])
 @pytest.mark.parametrize("sign,mag", [(-1.0, 25.0), (-1.0, 60.0), (1.0, 50.0)])
 def test_variant_reference_extreme_logits(version, sign, mag):
     """Peaked stage-1 logits: the true per-frame max keeps the variants
@@ -77,35 +80,50 @@ def test_variant_k2v_identity_needs_equal_head_weights(version, heads):
         assert gap > 1e-3 and np.abs(pallas - true).max() > 1e-3
 
 
+@pytest.mark.parametrize("heads", [1, 4])
+def test_v3_reference_is_the_trajectory_core(heads):
+    """v3 computes the trajectory core's function: in float32 (where its
+    rounding points round nothing) its plain version equals
+    ``trajectory_core_reference`` (atol 2e-5), unlike v5 and v6."""
+    args = [torch.from_numpy(a) for a in core_inputs(N=13, seed=4)]
+    scale = (16 // heads) ** -0.5
+    np.testing.assert_allclose(
+        ttb.trajectory_core_v3_reference(*args, scale, heads).numpy(),
+        ttb.trajectory_core_reference(*args, scale, heads).numpy(),
+        atol=2e-5)
+
+
 @pytest.mark.parametrize("version", [3, 4, 5, 6, 7])
 def test_cpu_path_is_the_plain_core_at_every_version(version, monkeypatch):
     monkeypatch.setattr(ttb, "FWD_VERSION", version)
     args = [torch.from_numpy(a) for a in core_inputs()]
-    before = (ttb.LAUNCHES, ttb.V5_LAUNCHES, ttb.V6_LAUNCHES)
+    before = (ttb.LAUNCHES, ttb.V3_LAUNCHES, ttb.V5_LAUNCHES,
+              ttb.V6_LAUNCHES)
     out = ttb.fused_trajectory_core(*args, 0.5, HEADS)
     assert torch.equal(out, ttb.trajectory_core_reference(*args, 0.5, HEADS))
-    assert (ttb.LAUNCHES, ttb.V5_LAUNCHES, ttb.V6_LAUNCHES) == before
+    assert (ttb.LAUNCHES, ttb.V3_LAUNCHES, ttb.V5_LAUNCHES,
+            ttb.V6_LAUNCHES) == before
 
 
-@pytest.mark.parametrize("version", [3, 7, 8])
+@pytest.mark.parametrize("version", [7, 8])
 def test_unported_versions_raise(version, monkeypatch):
     """The check fused_trajectory_core makes on the card before any
     launch."""
     monkeypatch.setattr(ttb, "FWD_VERSION", version)
-    with pytest.raises(NotImplementedError, match="v3 .* and v7"):
+    with pytest.raises(NotImplementedError, match="v7 .* is not ported"):
         ttb.check_fwd_version()
 
 
-@pytest.mark.parametrize("version", [4, 5, 6])
+@pytest.mark.parametrize("version", [3, 4, 5, 6])
 def test_ported_versions_pass_the_check(version):
     assert ttb.check_fwd_version(version) == version
 
 
-@pytest.mark.parametrize("version", [4, 5, 6])
+@pytest.mark.parametrize("version", [3, 4, 5, 6])
 def test_fused_core_function_per_version(version, monkeypatch):
     """_FusedCore's control flow on the CPU, its launches replaced by the
     plain versions: the version's forward, kernel 7 from that forward's xs
-    and q2 (v4, v6), or from xs and q2 recomputed with the version-4
+    and q2 (v3, v4, v6), or from xs and q2 recomputed with the version-4
     launch first (v5, which forms no xs), and the gradients of the plain
     core."""
     calls = []
@@ -123,6 +141,10 @@ def test_fused_core_function_per_version(version, monkeypatch):
         calls.append("v4")
         return plain(*a)
 
+    def launch_v3(*a):
+        calls.append("v3")
+        return plain(*a)
+
     def launch_variant(v, *a):
         calls.append(f"v{v}")
         out, xs, q2 = plain(*a)
@@ -136,6 +158,7 @@ def test_fused_core_function_per_version(version, monkeypatch):
             heads)[:6]
 
     monkeypatch.setattr(ttb, "_launch", launch)
+    monkeypatch.setattr(ttb, "_launch_v3", launch_v3)
     monkeypatch.setattr(ttb, "_launch_variant", launch_variant)
     monkeypatch.setattr(ttb, "_launch_backward", launch_backward)
     args = [torch.from_numpy(a).requires_grad_(True) for a in core_inputs()]
@@ -143,7 +166,7 @@ def test_fused_core_function_per_version(version, monkeypatch):
     dout = torch.from_numpy(
         np.random.RandomState(6).randn(*out.shape).astype(np.float32))
     out.backward(dout)
-    expect = {4: ["v4", "bwd"], 5: ["v5", "v4", "bwd"], 6: ["v6", "bwd"]}
+    expect = {3: ["v3", "bwd"], 4: ["v4", "bwd"], 5: ["v5", "v4", "bwd"], 6: ["v6", "bwd"]}
     assert calls == expect[version]
     ref = ttb.trajectory_core_backward_reference(
         *[a.detach() for a in args], dout, 0.5, HEADS)
