@@ -38,12 +38,13 @@ Phases (one JSON line each; any failure exits non-zero):
      rollout through the W8A8 decode step at 32 and 128 rows (frames per
      second, launch counts, time split, ids against the W8A8 plain path);
   8. the trajectory core's forward versions: the flagship forward at batch
-     8 under FWD_VERSION 4, 3, 5 and 6 (clips per second, peak memory, 12
+     8 under FWD_VERSION 4, 3, 7, 5 and 6 (clips per second, peak memory, 12
      launches of the chosen kernel per forward and none of the others, the
-     probabilities against the plain path), after the v3, v5 and v6 kernels
-     are held against their step-by-step plain versions in phase 2 (v3 also
-     against the plain trajectory core, whose function it computes); the
-     train step of phase 5 runs under FWD_VERSION 3 too;
+     probabilities against the plain path), after the v3, v7, v5 and v6
+     kernels are held against their step-by-step plain versions in phase 2
+     (v3 and v7 also against the plain trajectory core, whose function they
+     compute); the train step of phase 5 runs under FWD_VERSION 3 and 7
+     too;
   9. the learned-v slice: 12 learned-v trajectory blocks
      (``use_original_code=False``) at D=768 on x [8, 1569, 768] bf16
      through the space-stage kernel (ms per stack, 12 launches per stack,
@@ -489,6 +490,8 @@ def phase_space_stage():
 
 VARIANT_SOURCES = {3: ("focus_tpu_torch/csrc/trajectory_block_v3.cu",
                        "focus_tpu/ops/pallas/trajectory_block.py:57"),
+                   7: ("focus_tpu_torch/csrc/trajectory_block_v7.cu",
+                       "focus_tpu/ops/pallas/trajectory_block.py:545"),
                    5: ("focus_tpu_torch/csrc/trajectory_block_v5.cu",
                        "focus_tpu/ops/pallas/trajectory_block.py:872"),
                    6: ("focus_tpu_torch/csrc/trajectory_block_v6.cu",
@@ -497,7 +500,8 @@ VARIANT_SOURCES = {3: ("focus_tpu_torch/csrc/trajectory_block_v3.cu",
 
 def variant_counts(tb):
     return {"v4": tb.LAUNCHES, "v3": tb.V3_LAUNCHES,
-            "v3_device": tb.V3_DEVICE_LAUNCHES, "v5": tb.V5_LAUNCHES,
+            "v3_device": tb.V3_DEVICE_LAUNCHES, "v7": tb.V7_LAUNCHES,
+            "v7_device": tb.V7_DEVICE_LAUNCHES, "v5": tb.V5_LAUNCHES,
             "v5_device": tb.V5_DEVICE_LAUNCHES, "v6": tb.V6_LAUNCHES,
             "v6_device": tb.V6_DEVICE_LAUNCHES, "bwd": tb.BWD_LAUNCHES}
 
@@ -511,22 +515,24 @@ def run_version(tb, version, fn):
         tb.FWD_VERSION = 4
 
 
-VERSIONS = (3, 5, 6)  # the forward versions beside kernel 1 (version 4)
+VERSIONS = (3, 7, 5, 6)  # the forward versions beside kernel 1 (version 4)
+SAME_FUNCTION = (3, 7)  # the versions that compute kernel 1's function
 
 
 def phase_variants():
-    """The forward versions 3, 5 and 6 of the trajectory core against their
-    step-by-step plain versions (the gate) and against the plain trajectory
-    core (gated for v3, which computes its function; reported for v5 and v6:
-    their k2v identity holds only where every head's stage-1 weights
-    agree), at B = 8 and N = 196 and 200, and on the two extreme inputs
-    (gated for all); kernel, plain and version-4 times on the same inputs;
-    one backward per version at B = 2 through _FusedCore against the
-    version-4 gradients."""
+    """The forward versions 3, 7, 5 and 6 of the trajectory core against
+    their step-by-step plain versions (the gate) and against the plain
+    trajectory core (gated for v3 and v7, which compute its function;
+    reported for v5 and v6: their k2v identity holds only where every
+    head's stage-1 weights agree), at B = 8 and N = 196 and 200, and on the
+    two extreme inputs (gated for all); kernel, plain and version-4 times
+    on the same inputs (and kernel 3's beside v7); one backward per version
+    at B = 2 through _FusedCore against the version-4 gradients."""
     from focus_tpu_torch.ops import trajectory_block as tb
 
     heads, scale, C = 12, 64 ** -0.5, 768
     plain = {3: tb.trajectory_core_v3_reference,
+             7: tb.trajectory_core_v7_reference,
              5: tb.trajectory_core_v5_reference,
              6: tb.trajectory_core_v6_reference}
     counted = ("v4",) + tuple(f"v{v}" for v in VERSIONS)
@@ -561,7 +567,7 @@ def phase_variants():
                                             for k in counted}:
                 raise AssertionError(f"v{v} {tag}: launches "
                                      f"{case['wrapper_launches']}")
-            if extreme or v == 3:
+            if extreme or v in SAME_FUNCTION:
                 check_close(f"v{v} {tag} vs the trajectory core", out, true)
             results[v]["cases"].append(case)
             if not extreme:
@@ -577,6 +583,11 @@ def phase_variants():
                      "plain_ms": time_ms(lambda: plain[v](*args, scale,
                                                           heads),
                                          warmup=1, iters=3)}
+                if v == 7:
+                    t["v3_kernel_ms_same_inputs"] = run_version(
+                        tb, 3, lambda: time_ms(
+                            lambda: tb.fused_trajectory_core(*args, scale,
+                                                             heads)))
                 t["bound_ms"], t["bound_by"] = bound(
                     core_flops(B, S, 8, N, C_), nbytes(*args) + nbytes(out))
                 results[v]["timing"].append(t)
@@ -620,13 +631,13 @@ def phase_variants():
     for v in VERSIONS:
         r = results[v]
         per_call = {c["device_launches"] for c in r["cases"]}
-        if len(per_call) != 1 or (v == 3 and per_call != {1}):
+        if len(per_call) != 1 or (v in SAME_FUNCTION and per_call != {1}):
             raise AssertionError(f"v{v} device launches per call {per_call}")
         per_call = per_call.pop()
         against_core = (
             "and against the plain trajectory core (float32) on every input: "
-            "v3 computes its function, rounded at other points"
-            if v == 3 else
+            f"v{v} computes its function, rounded at other points"
+            if v in SAME_FUNCTION else
             "and against the plain trajectory core on the extreme inputs; on "
             "the random inputs the distance to the trajectory core is "
             "reported, not gated: the variant computes another function "
@@ -645,7 +656,7 @@ def phase_variants():
                               "attention",
               **r})
         t = r["timing"][0]
-        rows.append({
+        row = {
             "name": f"trajectory_block_v{v}", "route": "cuda",
             "source": VARIANT_SOURCES[v][0], "replaces": VARIANT_SOURCES[v][1],
             "max_abs_err": max(c["max_abs_err"] for c in r["cases"]),
@@ -654,7 +665,10 @@ def phase_variants():
             "library_ms": None, "device_launches_per_call": per_call,
             "v4_ms_same_inputs": t["v4_kernel_ms_same_inputs"],
             "shape": "B=8 S=1568 N=196 F=8 C=768 heads=12 "
-                     f"(S=1600: {r['timing'][1]['kernel_ms']:.4f} ms)"})
+                     f"(S=1600: {r['timing'][1]['kernel_ms']:.4f} ms)"}
+        if v == 7:
+            row["v3_ms_same_inputs"] = t["v3_kernel_ms_same_inputs"]
+        rows.append(row)
     return rows
 
 
@@ -1242,7 +1256,8 @@ def phase_steve_w8a8(smi, per_step):
 
 
 CORE_KERNELS = {4: "trajectory_block", 3: "trajectory_block_v3",
-                5: "trajectory_block_v5", 6: "trajectory_block_v6"}
+                7: "trajectory_block_v7", 5: "trajectory_block_v5",
+                6: "trajectory_block_v6"}
 
 
 def flagship_run(fn, video, boxes):
@@ -1262,7 +1277,7 @@ def flagship_run(fn, video, boxes):
     torch.cuda.reset_peak_memory_stats()
     resident_gb = torch.cuda.memory_allocated() / 1e9
     tb.LAUNCHES = tb.V3_LAUNCHES = tb.V5_LAUNCHES = tb.V6_LAUNCHES = 0
-    pe.LAUNCHES = 0
+    tb.V7_LAUNCHES = pe.LAUNCHES = 0
     t0 = time.perf_counter()
     for _ in range(SLICE_ITERS):
         probs = fn(video, boxes)
@@ -1270,6 +1285,7 @@ def flagship_run(fn, video, boxes):
     seconds = time.perf_counter() - t0
     launches = {"trajectory_block": tb.LAUNCHES,
                 "trajectory_block_v3": tb.V3_LAUNCHES,
+                "trajectory_block_v7": tb.V7_LAUNCHES,
                 "trajectory_block_v5": tb.V5_LAUNCHES,
                 "trajectory_block_v6": tb.V6_LAUNCHES,
                 "patch_embed": pe.LAUNCHES}
@@ -1380,12 +1396,13 @@ def phase_slice(smi):
 
 def phase_flagship_fwd_versions(smi):
     """The flagship forward at batch 8 through ``entry()`` under
-    FWD_VERSION 4, 3, 5 and 6, one after the other on one model, each as
+    FWD_VERSION 4, 3, 7, 5 and 6, one after the other on one model, each as
     ``flagship_run`` drives it (12 launches of the chosen forward kernel
     per forward and none of the others; probabilities against the plain
     path); then one ``train_entry`` step at batch 2 under 5 and under 6
     with its launch counts (v5: 12 forward, 12 kernel-1 recompute and 12
-    backward launches; the train step under 3 is ``phase_train``'s).
+    backward launches; the train steps under 3 and 7 are
+    ``phase_train``'s).
     FWD_VERSION is 4 again after the phase, whatever happens."""
     from focus_tpu_torch.entry import entry, train_entry
     from focus_tpu_torch.ops import trajectory_block as tb
@@ -1418,9 +1435,9 @@ def phase_flagship_fwd_versions(smi):
             loss = fn(*batch)["loss"].item()
             torch.cuda.synchronize()
             got = {k: v - before[k] for k, v in variant_counts(tb).items()
-                   if k in ("v4", "v3", "v5", "v6", "bwd")}
+                   if k in ("v4", "v3", "v7", "v5", "v6", "bwd")}
             depth = len(fn.model.blocks)
-            expect = {"v4": depth if version == 5 else 0, "v3": 0,
+            expect = {"v4": depth if version == 5 else 0, "v3": 0, "v7": 0,
                       "v5": depth if version == 5 else 0,
                       "v6": depth if version == 6 else 0, "bwd": depth}
             result[f"train_step_fwd_version_{version}"] = {
@@ -1699,6 +1716,7 @@ def train_run(per_call, version):
     def counts():
         return {"trajectory_block": tb.LAUNCHES,
                 "trajectory_block_v3": tb.V3_LAUNCHES,
+                "trajectory_block_v7": tb.V7_LAUNCHES,
                 "trajectory_block_bwd": tb.BWD_LAUNCHES,
                 "trajectory_block_bwd_device": tb.BWD_DEVICE_LAUNCHES,
                 "patch_embed": pe.LAUNCHES}
@@ -1710,7 +1728,7 @@ def train_run(per_call, version):
                  for _ in range(TRAIN_WARMUP)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        tb.LAUNCHES = tb.V3_LAUNCHES = tb.BWD_LAUNCHES = 0
+        tb.LAUNCHES = tb.V3_LAUNCHES = tb.V7_LAUNCHES = tb.BWD_LAUNCHES = 0
         tb.BWD_DEVICE_LAUNCHES = pe.LAUNCHES = 0
         depth = len(fn.model.blocks)  # 12: one core per block, both ways
         expect = {k: 0 for k in counts()}
@@ -1759,11 +1777,11 @@ def train_run(per_call, version):
 
 def phase_train(smi, per_call):
     """The flagship train step (``train_run``) under FWD_VERSION 4, the
-    default, and under 3 as a sub-result. ``per_call`` is the device
+    default, and under 3 and 7 as sub-results. ``per_call`` is the device
     kernels one backward wrapper call launched in the kernel phase. Returns
-    the launches of both runs by version."""
+    the launches of every run by version."""
     reports, launches, problems = {}, {}, []
-    for version in (4, 3):
+    for version in (4, 3, 7):
         reports[version], launches[version], bad = train_run(per_call,
                                                              version)
         problems += [f"FWD_VERSION={version}: {p}" for p in bad]
@@ -1774,7 +1792,8 @@ def phase_train(smi, per_call):
                    "decay 5e-2, steps_with_relative_lrs, 100 steps per "
                    "epoch, label-smoothing cross-entropy; init-scale "
                    "weights, seed 0",
-          **reports[4], "fwd_version_3": reports[3], "gpu": smi})
+          **reports[4], "fwd_version_3": reports[3],
+          "fwd_version_7": reports[7], "gpu": smi})
     if problems:
         raise AssertionError(f"train slice: {problems[:5]}")
     return launches
@@ -1799,7 +1818,7 @@ def main():
     traj = phase_trajectory_kernel()
     bwd = phase_trajectory_backward()
     space = phase_space_stage()
-    v3, v5, v6 = phase_variants()
+    v3, v7, v5, v6 = phase_variants()
     patch = phase_patch_kernel()
     phase_fixture()
     phase_steve_fixtures()
@@ -1812,7 +1831,7 @@ def main():
         f"{SLICE_ITERS} forwards of each of the {len(VARIANTS)} models of the "
         "serving matrix")
     versions = phase_flagship_fwd_versions(smi)
-    for row, version in ((v3, 3), (v5, 5), (v6, 6)):
+    for row, version in ((v3, 3), (v7, 7), (v5, 5), (v6, 6)):
         row["launches"] = versions[version]
         row["launches_note"] = (
             f"over {SLICE_ITERS} flagship forwards through entry() under "
@@ -1825,18 +1844,22 @@ def main():
     trains = phase_train(smi, bwd["device_launches_per_call"])
     train = trains[4]
     traj["launches_train"] = train["trajectory_block"]
-    v3["launches_train"] = trains[3]["trajectory_block_v3"]
-    v3["launches_note"] += (
-        f"; launches_train over {TRAIN_ITERS} flagship train steps under "
-        "FWD_VERSION=3 (12 per step; kernel 1 launched 0 times in them)")
+    for row, version in ((v3, 3), (v7, 7)):
+        row["launches_train"] = trains[version][CORE_KERNELS[version]]
+        row["launches_note"] += (
+            f"; launches_train over {TRAIN_ITERS} flagship train steps under "
+            f"FWD_VERSION={version} (12 per step; kernel 1 launched 0 times "
+            "in them)")
     patch["launches_train"] = train["patch_embed"]
     bwd["launches"] = train["trajectory_block_bwd"]
     bwd["device_launches"] = train["trajectory_block_bwd_device"]
     bwd["launches_note"] = (
         f"wrapper calls over {TRAIN_ITERS} flagship train steps; "
         "device_launches are the kernels those calls launched; "
-        "launches_fwd_version_3 over as many steps under FWD_VERSION=3")
+        "launches_fwd_version_3 and _7 over as many steps under "
+        "FWD_VERSION=3 and 7")
     bwd["launches_fwd_version_3"] = trains[3]["trajectory_block_bwd"]
+    bwd["launches_fwd_version_7"] = trains[7]["trajectory_block_bwd"]
     steve_model = steve_entry(device=DEV, batch=8)[0].model
     ar = phase_ar_decode(steve_model)
     arq = phase_ar_decode_w8a8(steve_model)
@@ -1859,7 +1882,7 @@ def main():
         f"wrapper calls (one per decode step) of {STEVE_ITERS} rollouts of "
         "32 rows through steve_entry(int8=True); device_launches are the "
         "kernels those calls launched")
-    emit({"kernels": [traj, patch, bwd, ar, arq, space, v5, v6, v3]})
+    emit({"kernels": [traj, patch, bwd, ar, arq, space, v5, v6, v3, v7]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 // trajectory_attention.cu): the stage-1 kernel, per frame softmax(q . k_f^T
 // * scale) . v_f for every query row (or its own frame alone), and a tiled
 // bf16 GEMM with an optional row gather and bias. trajectory_block_v3.cu
-// shares the limits and tile sizes (HD, LDH, MAX_*, the GEMM's GM .. LDB_G)
-// and writes its own loops. ops/_build.py hashes this header with every
+// and trajectory_block_v7.cu share the limits and tile sizes (HD, LDH,
+// MAX_*, the GEMM's GM .. LDB_G) through trajectory_stage2.cuh and write
+// their own stage-1 loops. ops/_build.py hashes this header with every
 // source.
 
 #pragma once

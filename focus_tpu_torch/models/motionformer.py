@@ -18,9 +18,10 @@ dropout.
 
 Trajectory attention takes both of the reference's forms: the original
 code (the default; the fused trajectory core, whose kernel version the
-module constant ``ops/trajectory_block.FWD_VERSION`` selects: 4, 3 (the
-same function in one launch), or the JAX package's variants 5 and 6, which
-agree with 4 only where every head's stage-1 weights agree)
+module constant ``ops/trajectory_block.FWD_VERSION`` selects: 4, 3 or 7
+(the same function in one launch, v7 with a transposed stage 1), or the
+JAX package's variants 5 and 6, which agree with 4 only where every head's
+stage-1 weights agree)
 and learned values (``use_original_code=False`` on ``TrajectoryAttention``
 and ``TrajectoryAttentionBlock``, through the space-stage kernel). As in
 the JAX package, no config key reaches the latter from ``Motionformer``.

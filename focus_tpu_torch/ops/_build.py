@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 )
 SOURCES = ("ar_decode", "patch_embed", "trajectory_attention",
            "trajectory_block", "trajectory_block_bwd", "trajectory_block_v3",
-           "trajectory_block_v5", "trajectory_block_v6")
+           "trajectory_block_v5", "trajectory_block_v6", "trajectory_block_v7")
 
 _libs: dict = {}
 _lock = threading.Lock()

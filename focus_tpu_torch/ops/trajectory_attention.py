@@ -14,6 +14,11 @@ over frame f's N keys, a true max-subtracted softmax whose weights are
 rounded to v's dtype before the product. The learned-v trajectory attention
 (``use_original_code=False``) runs it; the fused trajectory core
 (``ops/trajectory_block.py``) does not.
+
+Float32 operands on the card: the kernel takes bf16 alone, so a CUDA call
+with a float32 operand raises ``TypeError``: its float32 mode is open
+(ROADMAP.md section 3, fault 1). Nothing on the card falls back to the
+plain version.
 """
 
 import functools
@@ -59,7 +64,8 @@ def _launch(q, kf, vf, scale):
     args = (q, kf, vf)
     if any(t.dtype != torch.bfloat16 for t in args):
         raise TypeError("space-stage kernel takes bfloat16 operands, got "
-                        f"{[t.dtype for t in args]}")
+                        f"{[t.dtype for t in args]}; its float32 mode is "
+                        "open (ROADMAP.md section 3, fault 1)")
     if any(t.device != q.device for t in args):
         raise ValueError("space-stage kernel operands must share one device")
     if any(not t.is_contiguous() for t in args):
@@ -70,7 +76,8 @@ def _launch(q, kf, vf, scale):
                          f"{[tuple(t.shape) for t in args]}")
     if d != HEAD_DIM or N > 256:
         raise ValueError(f"space-stage kernel needs head dim {HEAD_DIM} and "
-                         f"N <= 256 (d={d}, N={N})")
+                         f"N <= 256 (d={d}, N={N}); N > 256 (HR-336) waits "
+                         "for ROADMAP.md section 1 item 3")
     out = torch.empty(BH, S, F, d, dtype=torch.bfloat16, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -106,7 +113,7 @@ def space_stage(q_, k_, v_, f: int, scale: float, use_kernels: bool = True):
     A CPU tensor (or ``use_kernels=False``) takes the plain version, whose
     gradient is autograd's; a CUDA tensor launches the kernel (bf16,
     contiguous, head dim 64), whose gradient is the plain backward, or
-    raises."""
+    raises: a float32 operand raises ``TypeError``."""
     if q_.device.type == "cpu" or not use_kernels:
         return attn_ops.space_stage(q_, k_, v_, f, scale)
     if q_.device.type != "cuda":

@@ -12,20 +12,29 @@ with ``use_original_code=True``.
 
 Forward versions: the module constant ``FWD_VERSION``, read at each call as
 the JAX package reads its own, picks the forward kernel on the card. 4 (the
-default) is ``csrc/trajectory_block.cu``, three launches; 3 is
-``csrc/trajectory_block_v3.cu``, the same function in one launch per call,
-rounded as the TPU kernel v3 rounds it; 5 and 6 compute the stage-2
+default) is ``csrc/trajectory_block.cu``, three launches; 3 and 7 are
+``csrc/trajectory_block_v3.cu`` and ``csrc/trajectory_block_v7.cu``, the
+same function in one launch per call, rounded as the TPU kernels v3 and v7
+round it (v7 with its stage 1 transposed, head outer, and the per-frame
+sums on the tensor cores); 5 and 6 compute the stage-2
 logits through ``k2v = V . Wk2`` as the TPU kernels v5 and v6 do
 (``csrc/trajectory_block_v5.cu``, which never forms the per-frame
 aggregates xs, and ``csrc/trajectory_block_v6.cu``, which does), which
 equals version 4 only where every head's stage-1 weights agree: elsewhere
-they compute another function. 7 is not ported yet and raises. Every
-version has the same backward kernel, which reads xs and q2: v3 and v6
+they compute another function. Every
+version has the same backward kernel, which reads xs and q2: v3, v6 and v7
 write them as version 4 does, v5 recomputes them with the version-4 kernel
 first. CPU tensors take ``trajectory_core_reference`` at every version, as
 the JAX package takes its XLA composition off the TPU;
-``trajectory_core_v3_reference``, ``trajectory_core_v5_reference`` and
-``trajectory_core_v6_reference`` follow the three kernels step by step.
+``trajectory_core_v3_reference`` (also ``trajectory_core_v7_reference``),
+``trajectory_core_v5_reference`` and ``trajectory_core_v6_reference``
+follow the kernels step by step.
+
+Float32 operands on the card: the kernels take bf16 alone, so a CUDA call
+with a float32 operand (the ``TPU.COMPUTE_DTYPE: float32`` case, which the
+JAX kernel serves in float32) raises ``TypeError``: the kernels' float32
+mode is open (ROADMAP.md section 3, fault 1). Nothing on the card falls
+back to the plain version.
 """
 
 import ctypes
@@ -42,15 +51,17 @@ from focus_tpu_torch.ops import attention as attn_ops
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_DEVICE_LAUNCHES = 0
-# the v3, v5 and v6 forward kernels: wrapper calls, and the device kernels
-# those calls launched (one per v3 call; k2v is a launch of its own)
+# the v3, v5, v6 and v7 forward kernels: wrapper calls, and the device
+# kernels those calls launched (one per v3 or v7 call; k2v is a launch of
+# its own)
 V3_LAUNCHES = V3_DEVICE_LAUNCHES = 0
 V5_LAUNCHES = V5_DEVICE_LAUNCHES = 0
 V6_LAUNCHES = V6_DEVICE_LAUNCHES = 0
+V7_LAUNCHES = V7_DEVICE_LAUNCHES = 0
 
-# forward kernel on the card: 4 (csrc/trajectory_block.cu), 3, 5 or 6
+# forward kernel on the card: 4 (csrc/trajectory_block.cu), 3, 5, 6 or 7
 FWD_VERSION = 4
-PORTED_FWD_VERSIONS = (3, 4, 5, 6)
+PORTED_FWD_VERSIONS = (3, 4, 5, 6, 7)
 
 HEAD_DIM = 64  # the kernel's head dim; also C % 128 == 0, F <= 8, N <= 256,
 # heads <= 16
@@ -90,8 +101,7 @@ def check_fwd_version(version=None):
     if version not in PORTED_FWD_VERSIONS:
         raise NotImplementedError(
             f"trajectory-core FWD_VERSION={version!r}: the port has the "
-            f"forward kernels {PORTED_FWD_VERSIONS}; v7 (transposed-packed "
-            "stage 1) is not ported yet")
+            f"forward kernels {PORTED_FWD_VERSIONS} and no other")
     return version
 
 
@@ -141,17 +151,18 @@ def _variant_a2(x_diag, wq2, bq2, p, s, k2vh, scale, heads):
 
 def trajectory_core_v3_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
                                  heads):
-    """Plain version of the v3 kernel, step by step (TPU
-    ``_fused_kernel_v3`` under its ``KERNEL_FLAGS``): stage 1 per frame and
-    head with the weights rounded before they are normalised, xs_f =
-    round(round(p_f) . V_f / s_f); x_diag; q2 = (x_diag . Wq2 + bq2) * scale
-    in float32; per head g_h = round(q2_h) . Wk2_h^T left in float32, the
-    stage-2 logits l2[f] = g_h . xs_f, a2 = softmax over frames (float32);
-    out = sum_f a2_f xs_f rounded once. The function of
-    ``trajectory_core_reference``, rounded at other points (version 4
-    normalises the weights before it rounds them, and rounds q2 and g).
-    Float32 arithmetic with the kernel's rounding points (q's dtype); bk2
-    drops out."""
+    """Plain version of the v3 and v7 kernels, step by step (TPU
+    ``_fused_kernel_v3`` under its ``KERNEL_FLAGS`` and ``_fused_kernel_v7``,
+    which round at the same points and differ in arrangement alone): stage 1
+    per frame and head with the weights rounded before they are normalised,
+    s_f the float32 sum of the unrounded weights, xs_f = round(round(p_f) .
+    V_f / s_f); x_diag; q2 = (x_diag . Wq2 + bq2) * scale in float32; per
+    head g_h = round(q2_h) . Wk2_h^T left in float32, the stage-2 logits
+    l2[f] = g_h . xs_f, a2 = softmax over frames (float32); out = sum_f a2_f
+    xs_f rounded once. The function of ``trajectory_core_reference``,
+    rounded at other points (version 4 normalises the weights before it
+    rounds them, and rounds q2 and g). Float32 arithmetic with the kernels'
+    rounding points (q's dtype); bk2 drops out."""
     del bk2
     B, S, C = q.shape
     F = kf.shape[1]
@@ -168,6 +179,10 @@ def trajectory_core_v3_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
                                     xsf.reshape(B, S, F, C)), dim=-1)
     out = torch.einsum("bshf,bsfhd->bshd", a2, xsf)
     return out.to(dt).reshape(B, S, C)
+
+
+# kernel 4 (v7) rounds where kernel 3 (v3) does: one plain version for both
+trajectory_core_v7_reference = trajectory_core_v3_reference
 
 
 def trajectory_core_v6_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
@@ -295,6 +310,12 @@ def _v3_kernel_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def _v7_kernel_fn():
+    return _build.bind("trajectory_block_v7", "traj_core_v7_bf16",
+                       n_ptr=10, n_int=6, n_float=1)
+
+
+@functools.lru_cache(maxsize=None)
 def _bwd_kernel_fn():
     return _build.bind("trajectory_block_bwd", "traj_core_bwd_bf16",
                        n_ptr=24, n_int=6, n_float=1)
@@ -316,7 +337,8 @@ def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
     args = (q, kf, vf, wq2, bq2, wk2) + tuple(extra)
     if any(t.dtype != torch.bfloat16 for t in args):
         raise TypeError("trajectory kernel takes bfloat16 operands, got "
-                        f"{[t.dtype for t in args]}")
+                        f"{[t.dtype for t in args]}; its float32 mode is "
+                        "open (ROADMAP.md section 3, fault 1)")
     if any(t.device != q.device for t in args):
         raise ValueError("trajectory kernel operands must share one device")
     if any(not t.is_contiguous() for t in args):
@@ -333,7 +355,8 @@ def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
             or heads > 16):
         raise ValueError(f"trajectory kernel needs head dim {HEAD_DIM}, "
                          f"C % 128 == 0, F <= 8, N <= 256, heads <= 16 "
-                         f"(C={C}, heads={heads}, F={F}, N={N})")
+                         f"(C={C}, heads={heads}, F={F}, N={N}); N > 256 "
+                         "(HR-336) waits for ROADMAP.md section 1 item 3")
 
 
 def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
@@ -360,11 +383,11 @@ def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
     return out, xs, q2
 
 
-def _launch_v3(q, kf, vf, wq2, bq2, wk2, scale, heads):
-    """The v3 forward kernel, one device launch -> (out, xs, q2), written
-    as ``_launch`` writes them (q2 unscaled, with its bias), so the backward
-    kernel reads them unchanged."""
-    global V3_LAUNCHES, V3_DEVICE_LAUNCHES
+def _launch_one(kernel_fn, symbol, q, kf, vf, wq2, bq2, wk2, scale, heads):
+    """A one-launch forward kernel (v3 or v7, bound by ``kernel_fn`` once
+    the operands pass their check) -> (out, xs, q2, device launches), xs
+    and q2 written as ``_launch`` writes them (q2 unscaled, with its bias),
+    so the backward kernel reads them unchanged."""
     _check_operands(q, kf, vf, wq2, bq2, wk2, heads)
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
@@ -374,15 +397,35 @@ def _launch_v3(q, kf, vf, wq2, bq2, wk2, scale, heads):
     launched = ctypes.c_int(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _v3_kernel_fn()(
+        err = kernel_fn()(
             q.data_ptr(), kf.data_ptr(), vf.data_ptr(), wq2.data_ptr(),
             bq2.data_ptr(), wk2.data_ptr(), xs.data_ptr(), q2.data_ptr(),
             out.data_ptr(), ctypes.addressof(launched),
             B, S, F, N, C, heads, float(scale), stream,
         )
-    _build.check(err, "traj_core_v3_bf16")
+    _build.check(err, symbol)
+    return out, xs, q2, launched.value
+
+
+def _launch_v3(q, kf, vf, wq2, bq2, wk2, scale, heads):
+    """The v3 forward kernel, one device launch -> (out, xs, q2)."""
+    global V3_LAUNCHES, V3_DEVICE_LAUNCHES
+    out, xs, q2, launched = _launch_one(
+        _v3_kernel_fn, "traj_core_v3_bf16", q, kf, vf, wq2, bq2, wk2,
+        scale, heads)
     V3_LAUNCHES += 1
-    V3_DEVICE_LAUNCHES += launched.value
+    V3_DEVICE_LAUNCHES += launched
+    return out, xs, q2
+
+
+def _launch_v7(q, kf, vf, wq2, bq2, wk2, scale, heads):
+    """The v7 forward kernel, one device launch -> (out, xs, q2)."""
+    global V7_LAUNCHES, V7_DEVICE_LAUNCHES
+    out, xs, q2, launched = _launch_one(
+        _v7_kernel_fn, "traj_core_v7_bf16", q, kf, vf, wq2, bq2, wk2,
+        scale, heads)
+    V7_LAUNCHES += 1
+    V7_DEVICE_LAUNCHES += launched
     return out, xs, q2
 
 
@@ -476,15 +519,15 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
 class _FusedCore(torch.autograd.Function):
     """The forward kernel of ``FWD_VERSION``, with xs and q2 kept for the
     backward kernel (the counterpart of ``jax.custom_vjp`` over
-    ``fused_trajectory_core``); v3 and v6 write them as version 4 does.
+    ``fused_trajectory_core``); v3, v6 and v7 write them as version 4 does.
     v5 forms no xs: its backward first
     recomputes xs and q2 with the version-4 kernel (counted in
     ``LAUNCHES``), as the TPU backward recomputes stage 1 itself."""
 
     @staticmethod
     def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads, version):
-        if version in (3, 4):
-            launch = _launch_v3 if version == 3 else _launch
+        if version in (3, 4, 7):
+            launch = {3: _launch_v3, 4: _launch, 7: _launch_v7}[version]
             out, xs, q2 = launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
         else:
             out, xs, q2, _ = _launch_variant(version, q, kf, vf, wq2, bq2,
@@ -511,9 +554,9 @@ def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
 
     A CPU tensor takes the plain version at every ``FWD_VERSION`` (its
     gradient is autograd's); a CUDA tensor launches the forward kernel of
-    ``FWD_VERSION`` (3, 4, 5 or 6; 7 and others raise before any launch),
-    and its gradient the backward kernel (bf16, contiguous, head dim 64),
-    or raises."""
+    ``FWD_VERSION`` (3, 4, 5, 6 or 7; others raise before any launch), and
+    its gradient the backward kernel (bf16, contiguous, head dim 64), or
+    raises: a float32 operand raises ``TypeError``."""
     if q.device.type == "cpu":
         return trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2,
                                          scale, heads)

@@ -2,7 +2,7 @@
 
     python3 -m focus_tpu_torch.profile_slice \
         [--model flagship|steve|train|learned_v] [--batch 8] [--iters 2] \
-        [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 3|4|5|6]
+        [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 3|4|5|6|7]
 
 Builds ``entry(device="cuda")`` (the flagship eval forward),
 ``train_entry(device="cuda")`` (one flagship train step: forward, backward

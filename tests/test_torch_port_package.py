@@ -145,6 +145,7 @@ def test_wrappers_refuse_other_devices():
     (trajectory_block, "trajectory_block_v3.cu", "traj_core_v3_bf16"),
     (trajectory_block, "trajectory_block_v5.cu", "traj_core_v5_bf16"),
     (trajectory_block, "trajectory_block_v6.cu", "traj_core_v6_bf16"),
+    (trajectory_block, "trajectory_block_v7.cu", "traj_core_v7_bf16"),
 ])
 def test_wrappers_bind_their_cuda_sources(module, source, symbol):
     with open(os.path.join(PKG, "csrc", source)) as f:
@@ -184,6 +185,7 @@ def _c_signature(source, symbol):
     ("trajectory_block_v3.cu", "traj_core_v3_bf16", 10, 6, 1),
     ("trajectory_block_v5.cu", "traj_core_v5_bf16", 11, 6, 1),
     ("trajectory_block_v6.cu", "traj_core_v6_bf16", 11, 6, 1),
+    ("trajectory_block_v7.cu", "traj_core_v7_bf16", 10, 6, 1),
 ])
 def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
                                             n_float):
@@ -198,6 +200,7 @@ def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
               "trajectory_block_v3.cu": trajectory_block,
               "trajectory_block_v5.cu": trajectory_block,
               "trajectory_block_v6.cu": trajectory_block,
+              "trajectory_block_v7.cu": trajectory_block,
               "trajectory_attention.cu": trajectory_attention,
               "patch_embed.cu": patch_embed, "ar_decode.cu": ar_decode}[source]
     with open(module.__file__) as f:
@@ -213,3 +216,22 @@ def test_every_cuda_source_is_built():
                if f.endswith(".cu")}
     assert set(_build.SOURCES) == sources
     assert len(_build.SOURCES) == len(sources)
+
+
+@pytest.mark.parametrize("source", sorted(
+    f for f in os.listdir(os.path.join(PKG, "csrc"))
+    if f.endswith((".cu", ".cuh"))))
+def test_cuda_sources_include_only_cuda_and_their_own_headers(source):
+    """Every csrc source includes the CUDA toolkit's headers and the other
+    csrc headers alone: no PyTorch header (a plain C interface, built in
+    seconds) and no header from outside the package."""
+    with open(os.path.join(PKG, "csrc", source)) as f:
+        includes = re.findall(r'^#include\s+([<"][^>"]+[>"])', f.read(), re.M)
+    csrc = set(os.listdir(os.path.join(PKG, "csrc")))
+    for inc in includes:
+        name = inc[1:-1]
+        if inc.startswith('"'):
+            assert name in csrc and name.endswith(".cuh"), (source, inc)
+        else:
+            assert not name.startswith(("torch", "ATen", "c10", "pybind11")), (
+                source, inc)
