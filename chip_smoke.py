@@ -25,11 +25,13 @@ Phases (one JSON line each; any failure exits non-zero):
      the same weights and batch (the bf16 plain path beside it);
   6. the STEVE slice: encode + KV-cached rollout + dVAE decode at full width
      (64 px, 256 tokens, decoder D=2048 with 8 blocks, vocabulary 4096,
-     bf16) at 32 and 128 rollout rows through the fused decode step, with
-     launch counts (wrapper calls, and device kernels as the C function
-     counts them), frames per second, the time split, the unfused module
-     rollout beside it, and the logits and token ids held against the plain
-     path;
+     bf16) at 32 and 128 rollout rows through the fused decode step, the
+     rollout one replay of its captured CUDA graph, with launch counts
+     (steps, and device kernels as the C function counts them, every one
+     with the PDL attribute), frames per second, the time split, the same
+     reconstructions launched step by step and the unfused module rollout
+     beside it, the graph's ids and logits bit-equal to the step-by-step
+     rollout's, and the logits and token ids held against the plain path;
   7. the W8A8 serving matrix: the flagship forward at batch 8, exact-erf
      bf16 and the labeled variants TPU.FAST_GELU, TPU.INT8_SERVING and both,
      one after the other (launch counts, clips per second, peak memory,
@@ -145,6 +147,23 @@ def time_ms(fn, warmup=3, iters=TIMED_ITERS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_ms_back_to_back(fn, warmup=3, iters=TIMED_ITERS):
+    """Mean time of ``iters`` calls issued back to back between two CUDA
+    events: the host's per-call work overlaps the card's, so this reads the
+    device time wherever the host issues faster than the card runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(flops, nbytes, int8_ops=0):
@@ -428,6 +447,8 @@ def phase_space_stage():
         case = {"BH": BH, "S": S, "F": F, "N": N, "d": d,
                 "max_abs_err": err, "max_abs_ref": ref_max}
         case["kernel_ms"] = time_ms(lambda: ta.space_stage(q, k, v, F, scale))
+        case["kernel_ms_back_to_back"] = time_ms_back_to_back(
+            lambda: ta.space_stage(q, k, v, F, scale))
         case["plain_ms"] = time_ms(
             lambda: attn_ops.space_stage(q, k, v, F, scale), warmup=1,
             iters=5)
@@ -440,10 +461,13 @@ def phase_space_stage():
         lib = sdpa(qx, kf, vf, scale=scale)
         check_close(f"SDPA N={N}", lib.transpose(1, 2), ref)
         case["library_ms"] = time_ms(lambda: sdpa(qx, kf, vf, scale=scale))
+        case["library_ms_back_to_back"] = time_ms_back_to_back(
+            lambda: sdpa(qx, kf, vf, scale=scale))
         case["library_transpose_ms"] = time_ms(
             lambda: lib.transpose(1, 2).contiguous())
         nbytes_, flops = space_stage_bytes_flops(BH, S, F, N, d)
         case["bound_ms"], case["bound_by"] = bound(flops, nbytes_)
+        case["plan"] = ta.space_stage_plan(BH, S, F, N)
         cases.append(case)
         if N == 196:
             timing = case
@@ -475,17 +499,27 @@ def phase_space_stage():
           "library_call": "F.scaled_dot_product_attention, q expanded over "
                           "the frames to [BH, F, S, d], kf / vf [BH, F, N, "
                           "d]; its transpose to [BH, S, F, d] timed apart",
+          "timing": "kernel_ms / library_ms: median of per-call CUDA-event "
+                    "times, each call from an idle card (the host's launch "
+                    "work included); *_back_to_back: 20 calls issued back "
+                    "to back between two events, the mean",
           "cases": cases,
           "backward": {"BH": 24, "S": S, "N": N, **bwd}})
     return {"name": "space_stage", "route": "cuda",
             "source": "focus_tpu_torch/csrc/trajectory_attention.cu",
             "replaces": "focus_tpu/ops/pallas/trajectory_attention.py:35",
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
+            "ms": timing["kernel_ms_back_to_back"],
+            "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-            "library_ms": timing["library_ms"],
-            "shape": "BH=96 S=1568 F=8 N=196 d=64 "
-                     f"(N=200: {cases[1]['kernel_ms']:.4f} ms)"}
+            "library_ms": timing["library_ms_back_to_back"],
+            "ms_per_call": timing["kernel_ms"],
+            "library_ms_per_call": timing["library_ms"],
+            "ms_note": "ms and library_ms: 20 calls back to back between "
+                       "two events; *_per_call: the median of calls each "
+                       "from an idle card, the host's launch work included",
+            "shape": "BH=96 S=1568 F=8 N=196 d=64 (N=200: "
+                     f"{cases[1]['kernel_ms_back_to_back']:.4f} ms)"}
 
 
 VARIANT_SOURCES = {3: ("focus_tpu_torch/csrc/trajectory_block_v3.cu",
@@ -758,15 +792,20 @@ def ar_state(model, packed, rows, gen):
 
 
 def ar_counts(ar):
-    """The decode-step wrappers' counts: bf16 and W8A8 calls, and the device
-    kernels those calls launched."""
+    """The decode-step counts: bf16 and W8A8 steps, the device kernels they
+    launched and, of those, the ones launched with the PDL attribute, and
+    the rollout-graph replays."""
     return {"bf16": ar.LAUNCHES, "bf16_device": ar.DEVICE_LAUNCHES,
-            "w8a8": ar.W8A8_LAUNCHES, "w8a8_device": ar.W8A8_DEVICE_LAUNCHES}
+            "bf16_pdl": ar.PDL_LAUNCHES, "w8a8": ar.W8A8_LAUNCHES,
+            "w8a8_device": ar.W8A8_DEVICE_LAUNCHES,
+            "w8a8_pdl": ar.W8A8_PDL_LAUNCHES,
+            "graph_replays": ar.GRAPH_REPLAYS}
 
 
 def reset_ar_counts(ar):
-    ar.LAUNCHES = ar.DEVICE_LAUNCHES = 0
-    ar.W8A8_LAUNCHES = ar.W8A8_DEVICE_LAUNCHES = 0
+    ar.LAUNCHES = ar.DEVICE_LAUNCHES = ar.PDL_LAUNCHES = 0
+    ar.W8A8_LAUNCHES = ar.W8A8_DEVICE_LAUNCHES = ar.W8A8_PDL_LAUNCHES = 0
+    ar.GRAPH_REPLAYS = 0
 
 
 def check_ar_step(model, packed, rows, t, gen, tag):
@@ -792,10 +831,13 @@ def check_ar_step(model, packed, rows, t, gen, tag):
     (nx, ids, k, v, lg, counts), (_, rids, rk, rv, rlg, stray) = outs
     mode, other = ("w8a8", "bf16") if w8a8 else ("bf16", "w8a8")
     if (any(stray.values()) or counts[mode] != 1 or counts[other]
-            or counts[f"{other}_device"]):
+            or counts[f"{other}_device"] or counts["graph_replays"]):
         raise AssertionError(f"{tag}: launch counts {counts}, plain "
                              f"version {stray}")
     device_launches = counts[f"{mode}_device"]
+    if counts[f"{mode}_pdl"] != device_launches:
+        raise AssertionError(f"{tag}: {counts[f'{mode}_pdl']} of "
+                             f"{device_launches} kernels launched with PDL")
     err_lg, scale_lg = check_close(f"{tag} logits", lg, rlg, tol)
     err_k, _ = check_close(f"{tag} k row", k[:, t], rk[:, t], tol)
     err_v, _ = check_close(f"{tag} v row", v[:, t], rv[:, t], tol)
@@ -818,7 +860,8 @@ def check_ar_step(model, packed, rows, t, gen, tag):
             "max_abs_err_v_row": err_v,
             "ids_equal": int((ids == rids).sum().item()),
             "min_top2_margin": margin.min().item(),
-            "device_launches": device_launches}
+            "device_launches": device_launches,
+            "pdl_launches": counts[f"{mode}_pdl"]}
 
 
 def ar_bound(rows, D, nb, V, S, t, w8a8=False):
@@ -854,6 +897,8 @@ def time_ar_step(model, packed, rows, t, gen):
     scratch = ar.workspace(rows, d, DEV)
     args = (st["x"], t, packed, st["ckv"], st["k"], st["v"], st["pos"], heads)
     kernel_ms = time_ms(lambda: ar.fused_ar_step(*args, scratch=scratch))
+    back_to_back_ms = time_ms_back_to_back(
+        lambda: ar.fused_ar_step(*args, scratch=scratch))
     reference_ms = time_ms(lambda: ar.ar_step_reference(*args), warmup=1,
                            iters=5)
     rdec = model._rollout_decoder(torch.bfloat16)
@@ -873,6 +918,7 @@ def time_ar_step(model, packed, rows, t, gen):
     bound_ms, bound_by = ar_bound(rows, d, nb, model.vocab_size,
                                   model.num_slots, t)
     return {"rows": rows, "t": t, "kernel_ms": kernel_ms,
+            "kernel_ms_back_to_back": back_to_back_ms,
             "module_step_ms": module_ms, "reference_ms": reference_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -912,8 +958,10 @@ def phase_ar_decode(model):
                        "error; other cache rows bit-equal; next input == "
                        "packed dictionary row",
           "device_launches_per_step": per_step,
-          "device_launches_note": "counted by the C function beside each "
-                                  "<<<>>> of one wrapper call",
+          "device_launches_note": "counted by the C function's launch "
+                                  "helper in one wrapper call; every one "
+                                  "launched with the PDL attribute "
+                                  "(pdl_launches, each case)",
           "library_ms": None,
           "library_note": "no single PyTorch call computes a decode step",
           "timing": [timing, timing128], "cases": cases})
@@ -941,6 +989,8 @@ def time_ar_w8a8(model, packed, packed_bf16, rows, t, gen):
     args = (st["x"], t, packed, st["ckv"], st["k"], st["v"], st["pos"], heads)
     scratch = ar.workspace(rows, d, DEV, w8a8=True)
     kernel_ms = time_ms(lambda: ar.fused_ar_step(*args, scratch=scratch))
+    back_to_back_ms = time_ms_back_to_back(
+        lambda: ar.fused_ar_step(*args, scratch=scratch))
     plain_ms = time_ms(lambda: ar.ar_step_reference(*args), warmup=1,
                        iters=5)
     bf16_scratch = ar.workspace(rows, d, DEV)
@@ -950,6 +1000,7 @@ def time_ar_w8a8(model, packed, packed_bf16, rows, t, gen):
     bound_ms, bound_by = ar_bound(rows, d, nb, model.vocab_size,
                                   model.num_slots, t, w8a8=True)
     return {"rows": rows, "t": t, "kernel_ms": kernel_ms,
+            "kernel_ms_back_to_back": back_to_back_ms,
             "reference_ms": plain_ms, "bf16_kernel_ms_same_state": bf16_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1089,7 +1140,10 @@ def steve_rollout(batch, per_step, int8=False):
     """``steve_entry(batch=batch, int8=int8)`` on the card: throughput,
     launches, peak memory and the time split of its reconstruction. Returns
     the report, the counts of the timed rollouts, and the model and its
-    slots for the comparison with the plain path. The bf16 rollout is also
+    slots for the comparison with the plain path. The rollout replays its
+    captured CUDA graph; the same reconstructions with the steps launched
+    one by one are timed beside it, and the two rollouts' ids and logits
+    are held bit-equal (``graph_vs_per_call``). The bf16 rollout is also
     timed through the unfused module path."""
     from focus_tpu_torch.entry import steve_entry
     from focus_tpu_torch.ops import ar_decode as ar
@@ -1099,7 +1153,8 @@ def steve_rollout(batch, per_step, int8=False):
     B, T, H, W, C = video.shape
     rows = B * T
     gen_len = (model.image_size // 4) ** 2
-    _, first_s = timed(lambda: fn(video))  # warm-up: packs the weights
+    # warm-up: packs the weights, captures the rollout graph
+    _, first_s = timed(lambda: fn(video))
     torch.cuda.reset_peak_memory_stats()
     reset_ar_counts(ar)
     recon, seconds = timed(lambda: [fn(video)
@@ -1110,19 +1165,28 @@ def steve_rollout(batch, per_step, int8=False):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expect = {"wrapper": gen_len * STEVE_ITERS,
               "device": gen_len * STEVE_ITERS * per_step}
-    if counts != expect or got[other] or got[f"{other}_device"]:
+    if (counts != expect or got[other] or got[f"{other}_device"]
+            or got[f"{mode}_pdl"] != counts["device"]
+            or got["graph_replays"] != STEVE_ITERS):
         raise AssertionError(f"decode-step launches {got}, expected {mode} "
                              f"{expect} ({STEVE_ITERS} rollouts x {gen_len} "
-                             f"steps x {per_step} kernels) and no {other}")
+                             f"steps x {per_step} kernels, all with PDL, in "
+                             f"{STEVE_ITERS} graph replays) and no {other}")
     recon = recon.float()
     ok = (tuple(recon.shape) == (B, T, H, W, C)
           and bool(torch.isfinite(recon).all())
           and recon.min().item() >= 0.0 and recon.max().item() <= 1.0)
     if not ok:
         raise AssertionError("STEVE reconstruction: bad shape or values")
+    # the same reconstructions with the steps launched one by one
+    model.rollout_graphs = False
+    fn(video)
+    _, per_call_s = timed(lambda: [fn(video) for _ in range(STEVE_ITERS)])
+    model.rollout_graphs = True
     (slots, _, _), encode_s = timed(
         lambda: model.encode(video, generator=fn.generator))
     slots = slots.reshape(rows, model.num_slots, -1)
+    graph_check = graph_vs_per_call(model, slots)
     ids, rollout_s = timed(lambda: model.decode_ids(slots))
     side = model.image_size // 4
     with torch.no_grad():
@@ -1139,7 +1203,14 @@ def steve_rollout(batch, per_step, int8=False):
               "timed_rollouts": STEVE_ITERS,
               "frames_per_sec": rows * STEVE_ITERS / seconds,
               "ms_per_rollout": 1e3 * seconds / STEVE_ITERS,
-              "first_call_ms_incl_weight_packing": 1e3 * first_s,
+              "rollout": "one CUDA-graph replay of the 256 steps",
+              "per_call_frames_per_sec": rows * STEVE_ITERS / per_call_s,
+              "per_call_ms_per_rollout": 1e3 * per_call_s / STEVE_ITERS,
+              "graph_replays": got["graph_replays"],
+              "pdl_launches": got[f"{mode}_pdl"],
+              "graph_vs_per_call": graph_check,
+              "first_call_ms_incl_weight_packing_and_capture":
+                  1e3 * first_s,
               "peak_memory_gb": peak_gb,
               "decode_step_launches": counts["wrapper"],
               "device_launches": counts["device"],
@@ -1152,6 +1223,35 @@ def steve_rollout(batch, per_step, int8=False):
         report["unfused_module_rollout_ms"] = 1e3 * unfused_s
         report["fused_over_unfused"] = unfused_s / rollout_s
     return report, counts, model, slots
+
+
+def graph_vs_per_call(model, slots):
+    """The rollout replayed from its captured graph against the same
+    rollout launched step by step, from the same slots: ids and every
+    step's logits bit-equal, and the rollout's time both ways."""
+    from focus_tpu_torch.ops import ar_decode as ar
+
+    gen_len, rows = (model.image_size // 4) ** 2, slots.shape[0]
+    runs = {}
+    for graphs in (True, False):
+        model.rollout_graphs = graphs
+        lg = torch.empty(gen_len, rows, model.vocab_size, device=DEV)
+        ids = model.decode_ids(slots, logits=lg)
+        _, seconds = timed(lambda: model.decode_ids(slots))
+        runs[graphs] = (ids, lg, seconds)
+    model.rollout_graphs = True
+    (ids_g, lg_g, graph_s), (ids_c, lg_c, call_s) = runs[True], runs[False]
+    same = torch.equal(ids_g, ids_c) and torch.equal(lg_g, lg_c)
+    if not same:
+        raise AssertionError(
+            f"graph rollout differs from the per-call rollout: ids equal "
+            f"{(ids_g == ids_c).float().mean().item():.4f}, logits max|err| "
+            f"{(lg_g - lg_c).abs().max().item()}")
+    del runs, lg_g, lg_c
+    return {"ids_and_logits_bit_equal": same, "steps": gen_len,
+            "graph_rollout_ms": 1e3 * graph_s,
+            "per_call_rollout_ms": 1e3 * call_s,
+            "graph_captures_so_far": ar.GRAPH_CAPTURES}
 
 
 def ids_vs_plain_path(model, slots, tol=AR_TOL_REL):
@@ -1207,6 +1307,7 @@ def phase_steve(smi, per_step):
     wrapper call made in the kernel phase."""
     main_run, counts, model, slots = steve_rollout(8, per_step)
     ok, vs_plain = ids_vs_plain_path(model, slots)
+    model.free_rollout_graphs()  # the 32-row graphs' buffers go first
     del model, slots  # the first model's weights go before the second's come
     torch.cuda.empty_cache()
     rows_128 = steve_rollout(32, per_step)[0]
@@ -1237,6 +1338,7 @@ def phase_steve_w8a8(smi, per_step):
     ids_bf16 = model.decode_ids(slots)
     model.int8_serving = True
     same_as_bf16 = (ids_w8a8 == ids_bf16).float().mean().item()
+    model.free_rollout_graphs()
     del model, slots
     torch.cuda.empty_cache()
     rows_128 = steve_rollout(32, per_step, int8=True)[0]
@@ -1869,9 +1971,10 @@ def main():
     ar["launches"] = counts["wrapper"]
     ar["device_launches"] = counts["device"]
     ar["launches_note"] = (
-        f"wrapper calls (one per decode step) of {STEVE_ITERS} rollouts of "
-        "32 rows through steve_entry; device_launches are the kernels those "
-        "calls launched")
+        f"decode steps of {STEVE_ITERS} rollouts of 32 rows through "
+        "steve_entry, each rollout one replay of its captured graph; "
+        "device_launches are the kernels those steps launched (counted at "
+        "the capture), every one with the PDL attribute")
     serving = phase_serving(smi)
     traj["launches_serving"] = serving["trajectory_block"]
     patch["launches_serving"] = serving["patch_embed"]
@@ -1879,9 +1982,10 @@ def main():
     arq["launches"] = counts["wrapper"]
     arq["device_launches"] = counts["device"]
     arq["launches_note"] = (
-        f"wrapper calls (one per decode step) of {STEVE_ITERS} rollouts of "
-        "32 rows through steve_entry(int8=True); device_launches are the "
-        "kernels those calls launched")
+        f"decode steps of {STEVE_ITERS} rollouts of 32 rows through "
+        "steve_entry(int8=True), each rollout one replay of its captured "
+        "graph; device_launches are the kernels those steps launched "
+        "(counted at the capture), every one with the PDL attribute")
     emit({"kernels": [traj, patch, bwd, ar, arq, space, v5, v6, v3, v7]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

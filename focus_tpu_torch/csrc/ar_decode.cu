@@ -21,6 +21,28 @@
 //   argmax_gather_kernel  first-index argmax of a row's logits and the
 //                         dictionary row of the argmax as the next input.
 //
+// Every launch goes through launch_pdl: cudaLaunchKernelEx with programmatic
+// stream serialization (programmatic dependent launch, PDL), so that a
+// kernel's blocks start while the kernel before it drains, and the card
+// never waits on a launch. Each kernel first issues what does not depend on
+// the kernel before it (its weight rows as bulk L2 prefetches, its bias,
+// scales, LayerNorm gamma / beta and position row, the cross-attention's
+// hoisted slot K/V), then executes griddepcontrol.wait, which returns once
+// the kernel before it has completed and its writes are visible, and only
+// then triggers its own dependents (griddepcontrol.launch_dependents) and
+// reads the activations. Invariant: no kernel writes device memory, or reads
+// anything an earlier kernel of the step writes, before its wait: the
+// scratch buffers are reused from one kernel to the next, so a write before
+// the wait could race the previous kernel's reads of the same bytes (and a
+// read, its writes). A prefetch is only a hint to L2 and cannot change a
+// result. The next kernel's blocks become resident beside the draining
+// ones: a GEMM block keeps 256 threads and 17-68 KB of shared memory (its
+// warps' partial tiles, at most 64 rows x 32 columns), the row kernels and
+// the attention 256 threads and at most 33 KB, so at least two blocks of
+// any two kernels of the step fit an SM together. The whole step, or a
+// whole rollout of steps, can be captured into one CUDA graph
+// (ops/ar_decode.py RolloutGraph): the programmatic edges are kept.
+//
 // The step index t is read from device memory, so the same launch sequence
 // serves every step. Any vocabulary size, row count and head dim up to 1024
 // are taken; every load is bounds-checked (`load8`), so nothing reads past a
@@ -78,9 +100,63 @@ constexpr int LN_REG = 16;         // row values a layernorm thread keeps
 constexpr int ATT_WARPS = 8;
 constexpr int ATT_MAX_CHUNKS = 4;  // 256-wide head-dim chunks: head dim <= 1024
 
-// Kernel launches of the step in progress on this host thread: one is added
-// beside every <<<>>> and the total handed back to the caller.
+// Kernel launches of the step in progress on this host thread, and those of
+// them made with the PDL attribute: launch_pdl adds to both, and the totals
+// are handed back to the caller.
 thread_local int step_launches = 0;
+thread_local int step_pdl_launches = 0;
+
+// The one way a kernel of the step is launched: with programmatic stream
+// serialization, so that it may start before the kernel ahead of it has
+// finished (its griddepcontrol.wait holds it back where it must).
+template <typename... KArgs, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                       size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  ++step_launches;
+  if (err == cudaSuccess) ++step_pdl_launches;
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Before the wait: hints that move constant operands toward L2.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// `bytes` (a multiple of 16) from a 16-byte aligned `p` toward L2
+__device__ __forceinline__ void prefetch_l2_bulk(const void* p,
+                                                 uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n"
+               :: "l"(p), "r"(bytes) : "memory");
+}
+
+// Waits until the kernel before this one in the stream has completed and
+// its writes are visible; returns at once when there is none to wait for.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Lets the next kernel's blocks be scheduled (they stop at their own wait).
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Each thread of the block prefetches every 128-byte line of [p, p + n
+// floats) it is given, 32 floats a line.
+__device__ __forceinline__ void prefetch_floats(const float* p, int n) {
+  for (int i = threadIdx.x * 32; i < n; i += blockDim.x * 32)
+    prefetch_l2(p + i);
+}
 
 struct Vec8 {
   uint32_t w[4];  // eight bf16
@@ -206,6 +282,8 @@ __global__ void __launch_bounds__(ROW_THREADS)
 quantize_rows_kernel(const bf16* __restrict__ a, int K, int groups,
                      int8_t* __restrict__ q, float* __restrict__ scale) {
   __shared__ float red[ROW_THREADS / 32];
+  pdl_wait();  // `a` is the kernel before's output
+  pdl_trigger();
   const int kg = K / groups;
   const size_t base = (size_t)blockIdx.x * K + (size_t)blockIdx.y * kg;
   float amax = 0.f;
@@ -220,10 +298,8 @@ quantize_rows_kernel(const bf16* __restrict__ a, int K, int groups,
 cudaError_t launch_quantize_rows(const bf16* a, int rows, int K, int groups,
                                  int8_t* q, float* scale,
                                  cudaStream_t stream) {
-  quantize_rows_kernel<<<dim3(rows, groups), ROW_THREADS, 0, stream>>>(
-      a, K, groups, q, scale);
-  ++step_launches;
-  return cudaGetLastError();
+  return launch_pdl(quantize_rows_kernel, dim3(rows, groups), dim3(ROW_THREADS),
+                    0, stream, a, K, groups, q, scale);
 }
 
 // ---- LayerNorm -------------------------------------------------------------
@@ -246,7 +322,13 @@ layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ pos,
                  float* __restrict__ xscale) {
   __shared__ float red[ROW_THREADS / 32];
   const size_t row = (size_t)blockIdx.x * D;
+  // t, pos, gamma and beta are written by no kernel of the step
   const float* prow = first ? pos + (size_t)clamp_step(t, L) * D : nullptr;
+  prefetch_floats(gamma, D);
+  prefetch_floats(beta, D);
+  if (first) prefetch_floats(prow, D);
+  pdl_wait();
+  pdl_trigger();
   auto value = [&](int i) {
     return first ? __bfloat162float(x[row + i]) + prow[i] : xs[row + i];
   };
@@ -304,16 +386,10 @@ cudaError_t launch_layernorm(const bf16* x, const float* pos, const int* t,
                              const float* beta, bf16* xn, int rows, int D,
                              int first, int8_t* xq, float* xscale,
                              cudaStream_t stream) {
-  if (D <= ROW_THREADS * LN_REG) {
-    layernorm_kernel<true><<<rows, ROW_THREADS, 0, stream>>>(
-        x, pos, t, L, xs, gamma, beta, xn, D, first, xq, xscale);
-    ++step_launches;
-  } else {
-    layernorm_kernel<false><<<rows, ROW_THREADS, 0, stream>>>(
-        x, pos, t, L, xs, gamma, beta, xn, D, first, xq, xscale);
-    ++step_launches;
-  }
-  return cudaGetLastError();
+  return launch_pdl(D <= ROW_THREADS * LN_REG ? layernorm_kernel<true>
+                                             : layernorm_kernel<false>,
+                    dim3(rows), dim3(ROW_THREADS), 0, stream, x, pos, t, L,
+                    xs, gamma, beta, xn, D, first, xq, xscale);
 }
 
 // ---- skinny GEMM -----------------------------------------------------------
@@ -427,6 +503,15 @@ skinny_gemm_kernel(const GemmArgs g) {
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int M = g.M, N = g.N;
 
+  // before the wait: the block's weight rows (one bulk prefetch a row; the
+  // row tiles of a 128-row product share them) and bias
+  if (blockIdx.y == 0 && (int)threadIdx.x < BN && n0 + (int)threadIdx.x < N) {
+    const int n = n0 + threadIdx.x;
+    if (VEC) prefetch_l2_bulk(g.w + (size_t)n * g.K, (uint32_t)g.K * 2u);
+    if (g.bias) prefetch_l2(g.bias + n);
+  }
+  pdl_wait();
+
   float acc[MT][NT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -444,6 +529,7 @@ skinny_gemm_kernel(const GemmArgs g) {
 #pragma unroll
   for (int s = 0; s < STAGES; ++s)
     gemm_load<MT, NT, VEC>(f[s], g, warp + s * GEMM_WARPS, m0, n0, gid, tig);
+  pdl_trigger();
   for (int c = warp; c < nchunks; c += GEMM_WARPS * STAGES) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
@@ -500,9 +586,8 @@ cudaError_t launch_gemm_tile(const GemmArgs& g, cudaStream_t stream) {
     if (attr != cudaSuccess) return attr;
   }
   const dim3 grid((g.N + 8 * NT - 1) / (8 * NT), (g.M + 16 * MT - 1) / (16 * MT));
-  skinny_gemm_kernel<MT, NT, VEC><<<grid, GEMM_THREADS, smem, stream>>>(g);
-  ++step_launches;
-  return cudaGetLastError();
+  return launch_pdl(skinny_gemm_kernel<MT, NT, VEC>, grid, dim3(GEMM_THREADS),
+                    smem, stream, g);
 }
 
 template <int NT, bool VEC>
@@ -615,6 +700,16 @@ skinny_gemm_s8_kernel(const GemmArgs g) {
   const int k_lo = (warp / wpg) * kg, k_hi = k_lo + kg;
   const int w0 = warp % wpg;
 
+  // before the wait: the block's weight-code rows, scales and bias
+  if (blockIdx.y == 0 && (int)threadIdx.x < BN && n0 + (int)threadIdx.x < N) {
+    const int n = n0 + threadIdx.x;
+    if (VEC) prefetch_l2_bulk(g.wq + (size_t)n * g.K, (uint32_t)g.K);
+    for (int gi = 0; gi < g.groups; ++gi)
+      prefetch_l2(g.w_scale + (size_t)gi * N + n);
+    if (g.bias) prefetch_l2(g.bias + n);
+  }
+  pdl_wait();
+
   int acc[MT][NT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -629,6 +724,7 @@ skinny_gemm_s8_kernel(const GemmArgs g) {
   for (int s = 0; s < STAGES; ++s)
     gemm_s8_load<MT, NT, VEC>(f[s], g, w0 + s * wpg, k_lo, k_hi, m0, n0, gid,
                               tig);
+  pdl_trigger();
   for (int c = w0; c < nchunks; c += wpg * STAGES) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
@@ -693,9 +789,8 @@ cudaError_t launch_gemm_s8_tile(const GemmArgs& g, cudaStream_t stream) {
     if (attr != cudaSuccess) return attr;
   }
   const dim3 grid((g.N + 8 * NT - 1) / (8 * NT), (g.M + 16 * MT - 1) / (16 * MT));
-  skinny_gemm_s8_kernel<MT, NT, VEC><<<grid, GEMM_THREADS, smem, stream>>>(g);
-  ++step_launches;
-  return cudaGetLastError();
+  return launch_pdl(skinny_gemm_s8_kernel<MT, NT, VEC>, grid,
+                    dim3(GEMM_THREADS), smem, stream, g);
 }
 
 template <int NT, bool VEC>
@@ -757,6 +852,16 @@ attention_kernel(const AttArgs a) {
   const bf16* qrow = a.q + (size_t)b * a.D + (size_t)h * hd;
   const bf16* kb = a.k + (long long)b * a.stride_b + (long long)h * hd;
   const bf16* vb = a.v + (long long)b * a.stride_b + (long long)h * hd;
+
+  // before the wait: the cross-attention's hoisted slot K/V (constant over
+  // the rollout); the self-attention's cache row t is the kernel before's
+  if (VEC && a.t == nullptr && (int)threadIdx.x < 2 * n) {
+    const int j = threadIdx.x >> 1;
+    prefetch_l2_bulk(((threadIdx.x & 1) ? vb : kb) + (long long)j * a.stride_j,
+                     (uint32_t)hd * 2u);
+  }
+  pdl_wait();
+  pdl_trigger();
 
   float qf[ATT_CHUNKS][8], acc[ATT_CHUNKS][8];
 #pragma unroll
@@ -863,21 +968,12 @@ cudaError_t launch_attention(const AttArgs& a, int rows, int heads,
   const bool vec = a.hd % 8 == 0 && a.D % 8 == 0 && a.stride_j % 8 == 0 &&
                    a.stride_b % 8 == 0 && aligned16(a.q) && aligned16(a.k) &&
                    aligned16(a.v);
-  const int threads = 32 * ATT_WARPS;
-  if (!vec) {
-    attention_kernel<false, ATT_MAX_CHUNKS><<<grid, threads, smem, stream>>>(a);
-    ++step_launches;
-  } else if (a.hd <= 256) {
-    attention_kernel<true, 1><<<grid, threads, smem, stream>>>(a);
-    ++step_launches;
-  } else if (a.hd <= 512) {
-    attention_kernel<true, 2><<<grid, threads, smem, stream>>>(a);
-    ++step_launches;
-  } else {
-    attention_kernel<true, ATT_MAX_CHUNKS><<<grid, threads, smem, stream>>>(a);
-    ++step_launches;
-  }
-  return cudaGetLastError();
+  const dim3 threads(32 * ATT_WARPS);
+  return launch_pdl(!vec ? attention_kernel<false, ATT_MAX_CHUNKS>
+                    : a.hd <= 256 ? attention_kernel<true, 1>
+                    : a.hd <= 512 ? attention_kernel<true, 2>
+                                  : attention_kernel<true, ATT_MAX_CHUNKS>,
+                    grid, threads, smem, stream, a);
 }
 
 // ---- argmax and dictionary gather ------------------------------------------
@@ -904,6 +1000,8 @@ argmax_gather_kernel(const float* __restrict__ logits,
   __shared__ float sm_best[ROW_THREADS / 32];
   __shared__ int sm_idx[ROW_THREADS / 32];
   __shared__ int sm_z;
+  pdl_wait();  // the logits are the kernel before's output
+  pdl_trigger();
   const int m = blockIdx.x;
   const float* row = logits + (size_t)m * V;
   float best = -INFINITY;
@@ -1085,16 +1183,16 @@ static int decode_step(
     AR_CHECK(launch_gemm(g, st));
   }
 
-  argmax_gather_kernel<<<B, ROW_THREADS, 0, st>>>(
+  return (int)launch_pdl(
+      argmax_gather_kernel, dim3(B), dim3(ROW_THREADS), 0, st,
       static_cast<const float*>(logits), W.dict_w, W.dict_q, W.dict_s,
       static_cast<bf16*>(next_x), static_cast<int*>(ids), V, D);
-  ++step_launches;
-  return (int)cudaGetLastError();
 }
 
 // One decode step for B rollout rows. Shapes as ops/ar_decode.py documents
-// them; `work` holds B * D * 18 bytes of scratch; `launched` (host memory)
-// receives the number of kernels the call launched. Returns a cudaError_t.
+// them; `work` holds B * D * 18 bytes of scratch; `launched` (host memory,
+// two ints) receives the number of kernels the call launched and the number
+// launched with the PDL attribute. Returns a cudaError_t.
 extern "C" int ar_decode_step_bf16(
     const void* x, const void* t, const void* wstack, const void* lnp,
     const void* bias, const void* ckv, void* k_cache, void* v_cache,
@@ -1105,11 +1203,12 @@ extern "C" int ar_decode_step_bf16(
   W.w = static_cast<const bf16*>(wstack);
   W.head_w = static_cast<const bf16*>(head_w);
   W.dict_w = static_cast<const bf16*>(dict_w);
-  step_launches = 0;
+  step_launches = step_pdl_launches = 0;
   const int err = decode_step(x, t, W, lnp, bias, ckv, k_cache, v_cache, flnp,
                               pos, next_x, ids, logits, work, B, D, heads, nb,
                               L, S, V, scale, stream);
-  *launched = step_launches;
+  launched[0] = step_launches;
+  launched[1] = step_pdl_launches;
   return err;
 }
 
@@ -1131,10 +1230,11 @@ extern "C" int ar_decode_step_w8a8(
   W.head_s = static_cast<const float*>(head_s);
   W.dict_q = static_cast<const int8_t*>(dict_q);
   W.dict_s = static_cast<const float*>(dict_s);
-  step_launches = 0;
+  step_launches = step_pdl_launches = 0;
   const int err = decode_step(x, t, W, lnp, bias, ckv, k_cache, v_cache, flnp,
                               pos, next_x, ids, logits, work, B, D, heads, nb,
                               L, S, V, scale, stream);
-  *launched = step_launches;
+  launched[0] = step_launches;
+  launched[1] = step_pdl_launches;
   return err;
 }

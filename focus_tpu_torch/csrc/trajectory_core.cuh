@@ -1,6 +1,7 @@
 // Pieces of the trajectory-attention kernels shared by their sources
-// (trajectory_block.cu, trajectory_block_v5.cu, trajectory_block_v6.cu,
-// trajectory_attention.cu): the stage-1 kernel, per frame softmax(q . k_f^T
+// (trajectory_block.cu, trajectory_block_v5.cu, trajectory_block_v6.cu;
+// the space stage, trajectory_attention.cu, has a wgmma kernel of its
+// own): the stage-1 kernel, per frame softmax(q . k_f^T
 // * scale) . v_f for every query row (or its own frame alone), and a tiled
 // bf16 GEMM with an optional row gather and bias. trajectory_block_v3.cu
 // and trajectory_block_v7.cu share the limits and tile sizes (HD, LDH,

@@ -10,7 +10,8 @@ is ``reconstruct_autoregressive``. The rollout has three forms:
 - ``_decode_ids_cached_fused``: one fused step per token
   (``ops/ar_decode.py``: the CUDA kernels on the card, their plain version
   on the CPU or when ``use_kernels`` is False), the W8A8 step under
-  ``TPU.INT8_SERVING``;
+  ``TPU.INT8_SERVING``; on the card one captured CUDA graph of all its
+  steps is replayed per rollout (``ar_decode.RolloutGraph``);
 - ``_decode_ids_cached``: the KV-cached rollout through the modules;
 - ``_decode_ids_full``: the full-prefix re-decode, the parity oracle.
 
@@ -224,7 +225,10 @@ class STEVE(nn.Module):
     ``reconstruct_autoregressive(video) -> recon [B, T, H, W, C]`` in
     [0, 1]; ``encode(video) -> (slots, attns_vis, attns)``;
     ``decode(slots) -> pixels``. ``use_kernels = False`` runs the fused
-    rollout on the plain version of its kernels.
+    rollout on the plain version of its kernels. On the card the fused
+    rollout replays a CUDA graph of all its steps, captured once per rows,
+    mode, length, dtype and logits flag (``free_rollout_graphs`` drops
+    them); ``rollout_graphs = False`` launches it step by step instead.
     """
 
     def __init__(self, cfg, dtype=torch.float32):
@@ -238,7 +242,9 @@ class STEVE(nn.Module):
         # package it reaches only the fused rollout
         self.int8_serving = bool(cfg.TPU.INT8_SERVING)
         self.use_kernels = True
+        self.rollout_graphs = True
         self._rollout_cache = {}  # kind -> (weights' fingerprint, value)
+        self._rollout_graphs = {}  # ar_decode.rollout_graph_key -> graph
         self.dvae = DVAE(c.VOCAB_SIZE, c.IMG_CHANNELS)
         self.steve_encoder = STEVEEncoder(cfg)
         self.steve_decoder = STEVEDecoder(cfg, dtype=dtype)
@@ -337,6 +343,25 @@ class STEVE(nn.Module):
             ar_decode.stack_decoder_params(dec.tf, dec.head,
                                            dec.dict.dictionary, dtype)))
 
+    def free_rollout_graphs(self):
+        """Drop the captured rollouts and the static buffers they own."""
+        self._rollout_graphs.clear()
+
+    def _rollout_graph(self, packed, rows, gen_len, dtype, with_logits,
+                       device):
+        """The captured rollout for this shape and mode, captured again
+        when the weights' pack changed."""
+        key = ar_decode.rollout_graph_key(rows, self.int8_serving, gen_len,
+                                          dtype, with_logits)
+        graph = self._rollout_graphs.get(key)
+        if graph is None or graph.packed is not packed:
+            self._rollout_graphs.pop(key, None)  # its buffers go first
+            tf = self.steve_decoder.tf
+            graph = self._rollout_graphs[key] = ar_decode.RolloutGraph(
+                packed, tf.num_heads, rows, self.d_model, self.num_slots,
+                gen_len, device, with_logits=with_logits, dtype=dtype)
+        return graph
+
     def _bos(self, slots):
         B = slots.shape[0]
         return self.steve_decoder.bos.to(slots.dtype).expand(B, 1, self.d_model)
@@ -372,7 +397,9 @@ class STEVE(nn.Module):
         gates its fused step to 64 rows or fewer and rolls larger batches
         out in bf16). Outside the step stay the hoisted cross-attention K/V,
         once per rollout, and the weight packing, once per state of the
-        weights."""
+        weights. On the card (``use_kernels`` and ``rollout_graphs``) the
+        steps are one replay of a captured graph, whose ids and logits are
+        those of the step-by-step launches bit for bit."""
         B, d, dtype = slots.shape[0], self.d_model, slots.dtype
         dec = self.steve_decoder
         nb, L = dec.tf.num_blocks, 1 + gen_len
@@ -386,6 +413,11 @@ class STEVE(nn.Module):
         k_cache = torch.zeros(nb, L, B, d, dtype=dtype, device=slots.device)
         v_cache = torch.zeros_like(k_cache)
         x = bos[:, 0].contiguous()
+        if (self.use_kernels and self.rollout_graphs
+                and slots.device.type == "cuda"):
+            graph = self._rollout_graph(packed, B, gen_len, dtype,
+                                        logits is not None, slots.device)
+            return graph.run(x, ckv, pos, logits).long()
         ids = []
         if self.use_kernels:
             step = ar_decode.fused_ar_step

@@ -34,6 +34,12 @@ float(acc) * s_row * s_col. fc2 quantizes the hidden per D-wide group and
 adds the dequantized group partials in group order; the next input is the
 dequantized dictionary row, which is what the TPU kernel's one-hot W8A8
 product gives. LayerNorm, attention and the cache writes are as above.
+
+On the card every kernel of a step is launched with programmatic dependent
+launch (PDL), so a kernel's blocks start while the one before it drains
+(``csrc/ar_decode.cu``). ``RolloutGraph`` captures a whole rollout of
+steps once as a CUDA graph and replays it: the same kernels on the same
+operands, with no launch from the host per step.
 """
 
 import ctypes
@@ -44,13 +50,21 @@ import torch
 
 from focus_tpu_torch.ops import _build
 
-# wrapper calls that launched the kernels (one per decode step on the card)
+# decode steps run on the card (a wrapper call, or one step of a graph
+# replay, counted as many times as the graph is replayed)
 LAUNCHES = 0
-# device kernels those calls launched, as the C function counted them
+# device kernels those steps launched, as the C function counted them (for a
+# graph, at its capture)
 DEVICE_LAUNCHES = 0
-# the same two counts for the W8A8 step
+# of those, the kernels launched with the PDL attribute
+PDL_LAUNCHES = 0
+# the same three counts for the W8A8 step
 W8A8_LAUNCHES = 0
 W8A8_DEVICE_LAUNCHES = 0
+W8A8_PDL_LAUNCHES = 0
+# replays of captured rollouts (RolloutGraph.run), and captures made
+GRAPH_REPLAYS = 0
+GRAPH_CAPTURES = 0
 LN_EPS = 1e-6
 MAX_HEAD_DIM = 1024  # the attention kernel's per-lane register budget
 QUANT_EPS = 1e-8
@@ -416,16 +430,27 @@ def _check_operands(x, t, packed, ckv, k_cache, v_cache, pos, heads,
     return t, scratch, logits_out, (B, D, heads, nb, L, S, V)
 
 
-def _launch(x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out,
-            scratch):
-    global LAUNCHES, DEVICE_LAUNCHES, W8A8_LAUNCHES, W8A8_DEVICE_LAUNCHES
-    t, scratch, logits_out, dims = _check_operands(
-        x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out, scratch)
+def _count(w8a8, steps, kernels, pdl):
+    global LAUNCHES, DEVICE_LAUNCHES, PDL_LAUNCHES
+    global W8A8_LAUNCHES, W8A8_DEVICE_LAUNCHES, W8A8_PDL_LAUNCHES
+    if w8a8:
+        W8A8_LAUNCHES += steps
+        W8A8_DEVICE_LAUNCHES += kernels
+        W8A8_PDL_LAUNCHES += pdl
+    else:
+        LAUNCHES += steps
+        DEVICE_LAUNCHES += kernels
+        PDL_LAUNCHES += pdl
+
+
+def _call(x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out,
+          scratch, next_x, ids, dims):
+    """One step's kernels on the current stream, on checked operands, into
+    ``next_x`` and ``ids``; nothing allocated, nothing counted. Returns
+    (device kernels launched, of them with the PDL attribute)."""
     w8a8 = isinstance(packed, PackedDecoderW8A8)
-    B, D, L = dims[0], dims[1], dims[4]
+    D, L = dims[1], dims[4]
     dev = x.device
-    next_x = torch.empty(B, D, dtype=torch.bfloat16, device=dev)
-    ids = torch.empty(B, dtype=torch.int32, device=dev)
     t_dev = _step_table(dev, L)
     if w8a8:
         weights = (packed.wq, packed.wscale, packed.lnp, packed.bias)
@@ -435,7 +460,7 @@ def _launch(x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out,
         weights = (packed.wstack, packed.lnp, packed.bias)
         head = (packed.head_w, packed.dict_w)
         name = "ar_decode_step_bf16"
-    launched = ctypes.c_int(0)
+    launched = (ctypes.c_int * 2)(0, 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn(w8a8)(
@@ -448,12 +473,19 @@ def _launch(x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out,
             float((D // heads) ** -0.5), stream,
         )
     _build.check(err, name)
-    if w8a8:
-        W8A8_LAUNCHES += 1
-        W8A8_DEVICE_LAUNCHES += launched.value
-    else:
-        LAUNCHES += 1
-        DEVICE_LAUNCHES += launched.value
+    return launched[0], launched[1]
+
+
+def _launch(x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out,
+            scratch):
+    t, scratch, logits_out, dims = _check_operands(
+        x, t, packed, ckv, k_cache, v_cache, pos, heads, logits_out, scratch)
+    B, D = dims[0], dims[1]
+    next_x = torch.empty(B, D, dtype=torch.bfloat16, device=x.device)
+    ids = torch.empty(B, dtype=torch.int32, device=x.device)
+    kernels, pdl = _call(x, t, packed, ckv, k_cache, v_cache, pos, heads,
+                         logits_out, scratch, next_x, ids, dims)
+    _count(isinstance(packed, PackedDecoderW8A8), 1, kernels, pdl)
     return next_x, ids, k_cache, v_cache
 
 
@@ -469,8 +501,8 @@ def fused_ar_step(x, t, packed, ckv, k_cache, v_cache, pos, heads,
     vocabulary logits; ``scratch`` is a ``workspace`` to reuse across
     steps. A CPU tensor takes the plain version; a CUDA tensor launches the
     kernels (bf16 activations, contiguous) or raises. The bf16 step counts
-    into ``LAUNCHES`` and ``DEVICE_LAUNCHES``, the W8A8 step into
-    ``W8A8_LAUNCHES`` and ``W8A8_DEVICE_LAUNCHES``.
+    into ``LAUNCHES``, ``DEVICE_LAUNCHES`` and ``PDL_LAUNCHES``, the W8A8
+    step into the ``W8A8_`` three.
     """
     if x.device.type == "cpu":
         return ar_step_reference(x, t, packed, ckv, k_cache, v_cache, pos,
@@ -479,3 +511,106 @@ def fused_ar_step(x, t, packed, ckv, k_cache, v_cache, pos, heads,
         raise ValueError(f"no decode-step kernel for device {x.device}")
     return _launch(x, t, packed, ckv, k_cache, v_cache, pos, heads,
                    logits_out, scratch)
+
+
+def rollout_graph_key(rows, w8a8, gen_len, dtype, with_logits):
+    """What a captured rollout is kept under: its rows, mode, length and
+    dtype, and whether it writes every step's logits."""
+    return (int(rows), bool(w8a8), int(gen_len), dtype, bool(with_logits))
+
+
+def rollout_buffers(packed, rows, dim, slots, gen_len, with_logits,
+                    dtype=torch.bfloat16):
+    """The static buffers a ``RolloutGraph`` owns, name -> (shape, dtype):
+    the token ping-pong (step t reads x[t % 2] and writes x[(t + 1) % 2]),
+    the caches of L = gen_len + 1 rows, the hoisted cross K/V, the position
+    table, every step's ids, and the logits (every step's, or one step's
+    that the next overwrites)."""
+    nb = packed.lnp.shape[0]
+    w8a8 = isinstance(packed, PackedDecoderW8A8)
+    V = (packed.head_q if w8a8 else packed.head_w).shape[0]
+    L = gen_len + 1
+    return {
+        "x": ((2, rows, dim), dtype),
+        "k_cache": ((nb, L, rows, dim), dtype),
+        "v_cache": ((nb, L, rows, dim), dtype),
+        "ckv": ((nb, 2, rows, slots, dim), dtype),
+        "pos": ((L, dim), torch.float32),
+        "ids": ((gen_len, rows), torch.int32),
+        "logits": ((gen_len if with_logits else 1, rows, V), torch.float32),
+    }
+
+
+class RolloutGraph:
+    """A whole rollout of ``gen_len`` fused steps, captured once as one CUDA
+    graph into static buffers (``rollout_buffers``) and replayed per
+    rollout: the same kernels on the same operands as ``gen_len`` calls of
+    ``fused_ar_step``, so the ids and logits are bit-equal to theirs, with
+    no host work between steps. The step index of step t is row t of the
+    device step table, a constant of the graph; cache rows past t are never
+    read before step t writes them, so the caches need no reset between
+    replays. The weights' pack is part of the graph: a new pack needs a new
+    capture. A capture that fails raises; nothing falls back to per-step
+    launches."""
+
+    def __init__(self, packed, heads, rows, dim, slots, gen_len, device,
+                 with_logits=False, dtype=torch.bfloat16):
+        global GRAPH_CAPTURES
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"a rollout graph runs on CUDA, not {device}")
+        self.packed, self.gen_len = packed, gen_len
+        self.w8a8 = isinstance(packed, PackedDecoderW8A8)
+        self.with_logits = with_logits
+        for name, (shape, dt) in rollout_buffers(
+                packed, rows, dim, slots, gen_len, with_logits, dtype).items():
+            setattr(self, name, torch.zeros(shape, dtype=dt, device=device))
+        self.scratch = workspace(rows, dim, device, self.w8a8)
+        x, ids, logits = self.x, self.ids, self.logits
+        _, _, _, dims = _check_operands(
+            x[0], 0, packed, self.ckv, self.k_cache, self.v_cache, self.pos,
+            heads, logits[0], self.scratch)
+        _step_table(x.device, dims[4])  # before the capture, not in its pool
+
+        def step(t):
+            return _call(x[t % 2], t, packed, self.ckv, self.k_cache,
+                         self.v_cache, self.pos, heads,
+                         logits[t if with_logits else 0], self.scratch,
+                         x[(t + 1) % 2], ids[t], dims)
+
+        # one step outside the capture first: the kernels' lazily set
+        # attributes are set there, not inside it
+        with torch.cuda.device(device):
+            _count(self.w8a8, 1, *step(0))
+            torch.cuda.synchronize(device)
+            self.graph = torch.cuda.CUDAGraph()
+            stream = torch.cuda.Stream(device)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            kernels = pdl = 0
+            with torch.cuda.graph(self.graph, stream=stream):
+                for t in range(gen_len):
+                    k, p = step(t)
+                    kernels, pdl = kernels + k, pdl + p
+            torch.cuda.current_stream(device).wait_stream(stream)
+        self.kernels, self.pdl_kernels = kernels, pdl
+        GRAPH_CAPTURES += 1
+
+    def run(self, x0, ckv, pos, logits=None):
+        """Replay the rollout from the first token ``x0`` [B, D], the
+        hoisted cross K/V ``ckv`` and the position table ``pos`` (at least
+        L rows); ``logits`` (float32 [gen_len, B, V]) receives every step's
+        logits where the graph was captured with them. Returns the ids
+        [gen_len, B] int32 (a new tensor)."""
+        global GRAPH_REPLAYS
+        if (logits is not None) != self.with_logits:
+            raise ValueError("logits are written by a graph captured with "
+                             "with_logits=True, and only by it")
+        self.x[0].copy_(x0)
+        self.ckv.copy_(ckv)
+        self.pos.copy_(pos[:self.pos.shape[0]])
+        self.graph.replay()
+        GRAPH_REPLAYS += 1
+        _count(self.w8a8, self.gen_len, self.kernels, self.pdl_kernels)
+        if logits is not None:
+            logits.copy_(self.logits)
+        return self.ids.clone()

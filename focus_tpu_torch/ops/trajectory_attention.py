@@ -17,7 +17,7 @@ rounded to v's dtype before the product. The learned-v trajectory attention
 
 Float32 operands on the card: the kernel takes bf16 alone, so a CUDA call
 with a float32 operand raises ``TypeError``: its float32 mode is open
-(ROADMAP.md section 3, fault 1). Nothing on the card falls back to the
+(ROADMAP.md section 1 item 8). Nothing on the card falls back to the
 plain version.
 """
 
@@ -32,6 +32,37 @@ from focus_tpu_torch.ops import attention as attn_ops
 LAUNCHES = 0
 
 HEAD_DIM = 64  # the kernel's head dim; also N <= 256
+MAX_KEYS = 256  # keys a frame: the widest wgmma of the logits
+SMEM_LIMIT = 232_448  # shared memory a block may use on this card
+H100_SMS = 132
+
+
+def _check_keys(N):
+    if not 1 <= N <= MAX_KEYS:
+        raise ValueError(f"space-stage kernel needs N <= {MAX_KEYS} (N={N});"
+                         " N > 256 (HR-336) waits for ROADMAP.md section 1 "
+                         "item 3")
+
+
+def space_stage_plan(BH, S, F, N, sms=H100_SMS):
+    """The kernel's launch plan, as ``csrc/trajectory_attention.cu``
+    computes it: keys padded to an instantiated wgmma width, the frame
+    slots of K and V that fit beside the Q ring and the output staging
+    tiles, shared memory, and the persistent grid walking (bh, 128-query
+    tile) units. Raises ``ValueError`` where the kernel takes no such N."""
+    _check_keys(N)
+    padded = next(w for w in (64, 128, 208, 256) if N <= w)
+    row = 2 * HEAD_DIM  # bytes of a bf16 row
+    rows, consumers = 128, 2  # query rows a unit, warpgroups of 64 rows
+    fixed = 1024 + 2 * rows * row + consumers * 2 * 64 * row + 1024
+    stage = 2 * padded * row
+    stages = min(4, (SMEM_LIMIT - fixed) // stage)
+    tiles = -(-S // rows)
+    units = BH * tiles
+    return {"padded_keys": padded, "stages": stages,
+            "smem_bytes": fixed + stages * stage, "query_tiles": tiles,
+            "rows_per_tile": rows, "units": units, "grid": min(units, sms),
+            "threads": 128 * (consumers + 1)}
 
 
 def space_stage_backward_reference(q, kf, vf, g, scale):
@@ -65,7 +96,7 @@ def _launch(q, kf, vf, scale):
     if any(t.dtype != torch.bfloat16 for t in args):
         raise TypeError("space-stage kernel takes bfloat16 operands, got "
                         f"{[t.dtype for t in args]}; its float32 mode is "
-                        "open (ROADMAP.md section 3, fault 1)")
+                        "open (ROADMAP.md section 1 item 8)")
     if any(t.device != q.device for t in args):
         raise ValueError("space-stage kernel operands must share one device")
     if any(not t.is_contiguous() for t in args):
@@ -74,10 +105,10 @@ def _launch(q, kf, vf, scale):
             or S != F * N):
         raise ValueError(f"bad shapes for the space-stage kernel: "
                          f"{[tuple(t.shape) for t in args]}")
-    if d != HEAD_DIM or N > 256:
-        raise ValueError(f"space-stage kernel needs head dim {HEAD_DIM} and "
-                         f"N <= 256 (d={d}, N={N}); N > 256 (HR-336) waits "
-                         "for ROADMAP.md section 1 item 3")
+    if d != HEAD_DIM:
+        raise ValueError(f"space-stage kernel needs head dim {HEAD_DIM} "
+                         f"(d={d})")
+    _check_keys(N)
     out = torch.empty(BH, S, F, d, dtype=torch.bfloat16, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -33,7 +33,7 @@ follow the kernels step by step.
 Float32 operands on the card: the kernels take bf16 alone, so a CUDA call
 with a float32 operand (the ``TPU.COMPUTE_DTYPE: float32`` case, which the
 JAX kernel serves in float32) raises ``TypeError``: the kernels' float32
-mode is open (ROADMAP.md section 3, fault 1). Nothing on the card falls
+mode is open (ROADMAP.md section 1 item 8). Nothing on the card falls
 back to the plain version.
 """
 
@@ -338,7 +338,7 @@ def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
     if any(t.dtype != torch.bfloat16 for t in args):
         raise TypeError("trajectory kernel takes bfloat16 operands, got "
                         f"{[t.dtype for t in args]}; its float32 mode is "
-                        "open (ROADMAP.md section 3, fault 1)")
+                        "open (ROADMAP.md section 1 item 8)")
     if any(t.device != q.device for t in args):
         raise ValueError("trajectory kernel operands must share one device")
     if any(not t.is_contiguous() for t in args):

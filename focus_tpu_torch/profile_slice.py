@@ -11,8 +11,13 @@ KV-cached rollout + dVAE decode; ``--batch`` videos of 4 frames), warms up,
 then traces ``--iters`` calls with ``torch.profiler`` (CPU and CUDA
 activities). Prints one JSON
 line: the wall time per call, the summed device time of the device-side
-events (kernels and device copies), the device's busy share of the wall
-time, and the events with the most device time. ``--trace`` also writes the
+events (kernels and device copies), the time the device was busy with at
+least one of them (kernels launched with programmatic dependent launch
+overlap, so the sum can exceed it) and its share of the wall time, the
+events with the most device time, and the events that add the most to the
+busy time (``top_exposed``: from the later of an event's start and the end
+of every event before it, to its own end). STEVE's rollout is one replay of its
+captured CUDA graph (made in the warm-up). ``--trace`` also writes the
 Chrome trace to the path given. The labeled serving variants:
 ``--int8`` (``TPU.INT8_SERVING``: W8A8 dense layers in the flagship, the
 W8A8 decode step in STEVE) and ``--fast-gelu`` (``TPU.FAST_GELU``, the
@@ -42,6 +47,25 @@ def _device_us(evt):
         if v is not None:
             return float(v)
     return 0.0
+
+
+def _busy_us(prof):
+    """Length of the union of the device-side events' intervals (us), and
+    each event name's exposed share of it: the time from the later of its
+    start and every earlier event's end to its own end, which is what it
+    adds to the device's busy time when kernels overlap."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and e.time_range.end > e.time_range.start)
+    total, end, exposed = 0.0, float("-inf"), {}
+    for a, b, name in spans:
+        if b > end:
+            total += b - max(a, end)
+            exposed[name] = exposed.get(name, 0.0) + b - max(a, end)
+            end = b
+    return total, exposed
 
 
 def main():
@@ -102,6 +126,8 @@ def main():
     rows = [r for r in rows if r[2] > 0]
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows) / 1e3 / args.iters
+    busy_us, exposed = _busy_us(prof)
+    busy_ms = busy_us / 1e3 / args.iters
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -116,11 +142,16 @@ def main():
         "batch": args.batch,
         "gpu": smi, "wall_ms_per_call": wall_ms,
         "device_ms_per_call": device_ms if rows else "not measured",
-        "device_busy_share": device_ms / wall_ms if rows else "not measured",
+        "device_busy_ms_per_call": busy_ms if rows else "not measured",
+        "device_busy_share": busy_ms / wall_ms if rows else "not measured",
         "top_kernels": [
             {"name": k[:120], "launches_per_call": c / args.iters,
              "device_ms_per_call": us / 1e3 / args.iters}
             for k, c, us in rows[: args.top]
+        ],
+        "top_exposed": [
+            {"name": k[:120], "exposed_device_ms_per_call": us / 1e3 / args.iters}
+            for k, us in sorted(exposed.items(), key=lambda kv: -kv[1])[: args.top]
         ],
     }), flush=True)
     if args.trace:
