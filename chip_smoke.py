@@ -330,22 +330,59 @@ def grad_errors(name, got, ref):
 GRAD_NAMES = ("dq", "dkf", "dvf", "dwq2", "dbq2", "dwk2")
 
 
+# device kernels one backward call launches (csrc/trajectory_block_bwd.cu:
+# the stage-2 row kernel, dd, dWq2, dWk2, dxs, the sums, stage-1 dq, dk/dv)
+BWD_DEVICE_LAUNCHES_PER_CALL = 8
+
+
+def check_bwd_scratch(scratch, B, S, F, C):
+    """The backward's scratch holds neither the first design's float32
+    Y = xs . Wk2 nor its P [B S F, C], nor any float32 tensor of that size."""
+    if "y" in scratch or "pmat" in scratch:
+        raise AssertionError(f"backward scratch still holds {sorted(scratch)}")
+    big = [name for name, t in scratch.items()
+           if t.dtype == torch.float32 and t.numel() >= B * S * F * C]
+    if big:
+        raise AssertionError(f"float32 [B S F, C] scratch in the backward: {big}")
+    return sorted(scratch)
+
+
 def check_core_backward(tb, args, dout, scale, heads, tag):
     """The backward kernel (from the forward kernel's xs and q2) against
     trajectory_core_backward_reference in float32 on the same inputs; the
-    kernel's dxs and dq2 against the reference's, for information."""
+    kernel's dxs and dq2 against the reference's, for information; a second
+    call on the same inputs must give the same bits; its scratch must hold
+    no float32 [B S F, C] tensor."""
     q, kf, vf, wq2, bq2, wk2, bk2 = args
     _, xs, q2 = tb._launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
     scratch = {}
     before = tb.BWD_DEVICE_LAUNCHES
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = tb._launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale,
                               heads, scratch=scratch)
+    torch.cuda.synchronize()
+    call_peak = torch.cuda.max_memory_allocated() - resident
+    launched = tb.BWD_DEVICE_LAUNCHES - before
+    again = tb._launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale,
+                                heads)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not bit_equal:
+        raise AssertionError(f"{tag}: two backward calls on the same inputs "
+                             "differ")
+    del again
     inter = {}
     ref = tb.trajectory_core_backward_reference(
         *[a.float() for a in args], dout.float(), scale, heads,
         intermediates=inter)
     torch.cuda.synchronize()
-    case = {"case": tag, "device_launches": tb.BWD_DEVICE_LAUNCHES - before}
+    B, S, C = q.shape
+    case = {"case": tag, "device_launches": launched,
+            "bit_equal_second_call": bit_equal,
+            "scratch": check_bwd_scratch(scratch, B, S, kf.shape[1], C),
+            "scratch_gb": nbytes(*scratch.values()) / 1e9,
+            "call_peak_gb": call_peak / 1e9}
     for name, g, r in zip(GRAD_NAMES, got, ref):
         case[name] = grad_errors(f"{tag} {name}", g, r)
     for name in ("dxs", "dq2"):
@@ -389,16 +426,24 @@ def phase_trajectory_backward():
                 * 0.1).bfloat16()
         cases.append(check_core_backward(tb, args, dout, scale, heads,
                                          f"extreme {sign * mag}")[0])
+    # N in (208, 256]: frames padded to 256 keys, the dq kernel's other form
+    args = core_inputs(2, 232, gen)
+    dout = (torch.randn(args[0].shape, generator=gen, device=DEV)
+            * 0.1).bfloat16()
+    cases.append(check_core_backward(tb, args, dout, scale, heads,
+                                     "B=2 N=232")[0])
     per_call = {c["device_launches"] for c in cases}
-    if len(per_call) != 1:
-        raise AssertionError(f"backward device launches per call {per_call}")
+    if per_call != {BWD_DEVICE_LAUNCHES_PER_CALL}:
+        raise AssertionError(f"backward device launches per call {per_call}, "
+                             f"expected {BWD_DEVICE_LAUNCHES_PER_CALL}")
     per_call = per_call.pop()
     emit({"phase": "kernel", "name": "trajectory_block_bwd", "ok": True,
           "tolerance": f"each of {list(GRAD_NAMES)}: max|err| <= "
                        f"{KERNEL_TOL_REL} x max|ref| and relative L2 error "
                        f"<= {BWD_REL_L2} (bf16 kernel from the forward "
                        "kernel's xs and q2 vs plain float32 on the same bf16 "
-                       "inputs, TF32 off)",
+                       "inputs, TF32 off); a second call bit-equal to the "
+                       "first; no float32 [B S F, C] scratch",
           "device_launches_per_call": per_call,
           "library_ms": None,
           "library_note": "no single PyTorch call computes the trajectory "

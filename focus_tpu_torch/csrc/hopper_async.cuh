@@ -1,5 +1,6 @@
 // Inline-PTX pieces of Hopper's asynchronous machinery for the port's
-// redesigned kernels (trajectory_attention.cu): mbarriers, TMA tensor copies
+// redesigned kernels (trajectory_attention.cu, trajectory_block_bwd.cu):
+// mbarriers, TMA tensor copies
 // (tensor maps encoded on the host through the runtime's driver entry point,
 // so the build links no -lcuda), the async-proxy fence, and warpgroup
 // matrix multiplies (wgmma) with their shared-memory descriptors for tiles
@@ -69,6 +70,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(cvta_smem(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(cvta_smem(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a 4-d tile global -> shared, completed on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(cvta_smem(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(cvta_smem(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -152,6 +165,19 @@ template <int R>
 __device__ __forceinline__ void reg_fence(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d[64 x 16] (+)= A[64 x 16] . B[16 x 16], both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d[64 x 64] (+)= A[64 x 16] . B[16 x 64], both K-major in shared memory
@@ -356,9 +382,10 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
 template <int NP>
 __device__ __forceinline__ void wgmma_ss(float (&d)[NP / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
-  static_assert(NP == 64 || NP == 128 || NP == 208 || NP == 256,
+  static_assert(NP == 16 || NP == 64 || NP == 128 || NP == 208 || NP == 256,
                 "no wgmma instantiated for this width");
-  if constexpr (NP == 64) wgmma_ss_n64(d, da, db, accumulate);
+  if constexpr (NP == 16) wgmma_ss_n16(d, da, db, accumulate);
+  else if constexpr (NP == 64) wgmma_ss_n64(d, da, db, accumulate);
   else if constexpr (NP == 128) wgmma_ss_n128(d, da, db, accumulate);
   else if constexpr (NP == 208) wgmma_ss_n208(d, da, db, accumulate);
   else wgmma_ss_n256(d, da, db, accumulate);
@@ -409,6 +436,24 @@ inline cudaError_t make_bf16_map(CUtensorMap* map, const void* base, int rank,
                         const_cast<void*>(base), dims, strides, box,
                         elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map of a float32 tensor, unswizzled (rows of `dims[0]`
+// elements), otherwise as make_bf16_map.
+inline cudaError_t make_f32_map(CUtensorMap* map, const void* base, int rank,
+                                const cuuint64_t* dims,
+                                const cuuint64_t* strides,
+                                const cuuint32_t* box) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                        const_cast<void*>(base), dims, strides, box,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

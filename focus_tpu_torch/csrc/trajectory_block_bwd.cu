@@ -7,63 +7,140 @@
 // output gradient dout, and two residuals the forward kernel already writes
 // to device memory: the stage-1 aggregates xs [B, S, F, C] and q2 [B, S, C].
 //
-// Stage 2 is rewritten so that every product is a plain GEMM. With
-// Y = xs . Wk2 (rows m * F + f, all heads at once), the stage-2 logits are
-// l2[m, h, f] = scale * q2[m, h] . Y[m, f, h] (the TPU kernel's
-// g_h = q2_h . Wk2_h^T dotted with xs[f], reassociated), and with
-// dl2 = scale * a2 * (da2 - sum_f a2 da2) and P[m, f, h] = dl2[m, h, f] q2[m, h]:
-//   dq2[m, h]  = sum_f dl2[m, h, f] Y[m, f, h]
-//   dxs[m, f]  = P[m, f] . Wk2^T + a2[m, h(c), f] dout[m, c]
-//                + [f == own frame] (dq2 . Wq2^T)[m]
-//   dWk2       = xs^T . P   (over all M * F rows)
-//   dWq2       = x_diag^T . dq2,  dbq2 = sum_m dq2
-// Stage 1 follows the FlashAttention-2 backward: the keys of a frame (N <= 256)
-// fit one tile, so per (batch, head, 128 queries) a block recomputes the true
-// max-subtracted softmax P over a frame's keys, takes r = sum_n P dP, forms
-// dS = P (dP - r) and accumulates dq over the F frames in registers, writing
-// the row statistics (max, 1 / sum, r); a second kernel per (batch, head,
-// frame, 64 keys) loops over the queries with those statistics and
-// accumulates dk and dv in registers. P, r and dS stay in float32, and dS
-// enters the tensor cores as a pair of bf16 values (its rounding and the
-// rest), because dq = sum_n dS k_n cancels: sum_n dS = 0, so where a frame's
-// keys are nearly equal dq is a small difference of large terms, which bf16
-// P or dS (2^-9) would swamp. No atomics: every sum across blocks (the
-// split-K weight gradients, dbq2) is a second pass in a fixed order, so the
-// result is deterministic.
+// Stage 2 follows the TPU kernel's g-form. Per row m and head h,
+// g_h = q2_h . Wk2_h^T (K = 64), the logits l2[h, f] = scale g_h . xs_f,
+// a2 = softmax_f(l2), da2 = dout_h . xs_f,h, dl2 = scale a2 (da2 - sum_f a2
+// da2) and dg_h = sum_f dl2 xs_f; then
+//   dq2_h = dg_h . Wk2_h,  dWk2[:, h] = sum_m dg_h^T q2_h,
+//   dWq2  = x_diag^T dq2,  dbq2 = sum_m dq2,  dd = dq2 . Wq2^T,
+//   dxs_f = sum_h dl2[h, f] g_h + a2[h(c), f] dout + [f == own frame] dd.
+// Nothing of size [B S F, C] but xs and dxs exists: g and dg live in
+// registers and shared memory. dq2 reduces over the columns of C and dWk2
+// over the rows, and the register file holds one of the two accumulators
+// for a block's rows (dq2: 32 rows x C) or columns (dWk2: 32 columns x C),
+// not both, so dg is formed twice, once row-owned and once column-owned.
+// Operations stage 2 issues at M = B S rows (B = 8, S = 1568, F = 8,
+// C = 768, 12 heads): six C x C products on the tensor cores, 2 M C^2 each
+// (g twice, dq2, dWk2, dWq2, dd: 88.8 GFLOP), and on the CUDA cores the
+// logits, dg twice and the dxs logit term, 2 M F C heads each (7.4 GFLOP),
+// and da2 (0.15): ~96 GFLOP in all, against ~385 in the first design's
+// Y = xs . Wk2 form. xs is read three times: by the logits-and-dq2 kernel
+// (two passes over a block's columns, which do not fit shared memory
+// together) and by the dWk2 kernel.
 //
-// Launches, all on the caller's stream behind one C call: Y GEMM; the
-// stage-2 row kernel; dq2 . Wq2^T; the dxs GEMM with its epilogue; dWk2 and
-// dWq2 as split-K GEMMs each followed by a fixed-order sum; the dbq2 column
-// sum and its sum; the stage-1 dq kernel; the stage-1 dk/dv kernel. 12 in all,
-// counted into *launched.
+// Stage 1 follows the FlashAttention-2 backward on wgmma and TMA (the
+// machinery of trajectory_attention.cu: a producer warpgroup issuing TMA
+// copies into a ring of mbarrier-guarded slots, two consumer warpgroups at
+// wgmma, setmaxnreg moving registers from the producer to the consumers).
+// The dq kernel takes 128 queries of a (batch row, head) and streams the F
+// frames' K, V and dO tiles: the logits S = Q K_f^T (m64 x NP keys, NP the
+// frame's keys padded to an instantiated width), the true max-subtracted
+// softmax P in float32 registers, dP = dO V_f^T beside it (208 registers at
+// NP = 208; dq's accumulators wait in shared memory meanwhile), r = sum_n
+// P dP, dS = P (dP - r) and dq += dS K_f. It writes the row statistics
+// (log2-sum-exp and r). The dk/dv kernel takes 128 keys of all frames
+// together (F N = 1568 rows at N = 196, not a frame padded to 256 rows),
+// streams the queries in chunks of 64 with the statistics of every frame,
+// and lets each key row read its own frame's: S^T = K Q^T, dP^T = V dO_f^T
+// per frame present (rows of another frame discarded), P^T and dS^T,
+// dv += P^T dO_f and dk += dS^T Q. The logits are formed twice (once a
+// kernel) and dP twice, where the first design formed dP three times.
+// r stays a dP sum: r = dxs . xs from stage 2's bf16 operands misses the
+// gate on the extreme inputs (tests/test_torch_port_bwd_redesign.py).
 //
-// Rounding points: Y, dq2 (float32 copy), dd, the stage-1 weights P, r, dS
-// and every accumulator stay in float32; P (stage 2), dq2 (GEMM copy) and
-// dxs are rounded to bf16 as operands of mma.sync m16n8k16 (bf16 in, float32
-// accumulate), as are the stage-1 weights for dv; dS is split into two bf16
-// operands.
+// Where the time goes on an H100 (chip_smoke.py, PERF.md): the stage-2 row
+// kernel is held by its register footprint (dq2's 32 x C accumulators: one
+// block of 8 warps an SM, too few to hide mma.sync's latency chains) and by
+// Wk2 streamed through L2 once a pass per 32 rows; the dWk2 and dxs kernels
+// by the same per-tile streaming of q2 and Wk2. Stage 2 on wgmma with row
+// tiles shared across a cluster is the next design.
 //
-// Bound on this card: at B = 8, S = 1568, N = 196 the backward needs ~231
-// GFLOP in the TPU kernel's form (five stage-1 products of 2 B S F N C, five
-// C x C products of 2 B S C^2, three small stage-2 contractions) against
-// ~0.3 GB of inputs and outputs: bound by operations (0.23 ms at the bf16
-// peak). This first version spends ~3.5x those operations on stage 2 (the
-// three xs-sized GEMMs of the rewrite) to keep each launch a plain GEMM, and
-// keeps Y (float32), P and dxs ([B, S, F, C] each) in device memory; keeping
-// them on chip with wgmma and TMA is later work.
+// Rounding points: g, l2, a2, dl2, dq2 (float32 copy), dd, P, r, dS and every
+// accumulator stay in float32; dg, dq2 (GEMM copy), dxs and the stage-1
+// weights P for dv are rounded to bf16 as tensor-core operands; dS enters
+// dq and dk as a pair of bf16 values (its rounding and the rest), because
+// dq = sum_n dS k_n cancels (sum_n dS = 0), which bf16 dS would swamp. No
+// atomics: every cross-block sum (dWq2, dWk2 and dbq2 partials) is a second
+// pass in a fixed order, so two calls give the same bits.
+//
+// Launches, all on the caller's stream behind one C call: the stage-2 row
+// kernel (logits, a2, dl2, dq2, dbq2 partials); dd = dq2 . Wq2^T; the dWq2
+// split-K GEMM; the dWk2 kernel; the dxs kernel; one fixed-order sum of the
+// three partial sets; the stage-1 dq kernel; the stage-1 dk/dv kernel. 8 in
+// all, counted into *launched.
+//
+// Bound on this card at B = 8, S = 1568, N = 196: ~231 GFLOP in the TPU
+// kernel's form (five stage-1 products of 2 B S F N C, five C x C products,
+// three stage-2 contractions) against ~0.3 GB of inputs and outputs: bound
+// by operations (0.23 ms at the bf16 peak).
 
+#include <type_traits>
+
+#include "hopper_async.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
 
 constexpr int HD = 64;           // head dim
-constexpr int LDH = HD + 8;      // bf16 stride of 64-wide tiles (144 bytes)
-constexpr int MAX_NP = 256;      // keys per frame after padding to 16
 constexpr int MAX_F = 8;
 constexpr int MAX_HEADS = 16;
-constexpr int SPLITS = 16;       // split-K depth of the weight gradients
+constexpr int SPLITS = 16;       // split-K depth of dWq2
+constexpr int W_SPLITS = 5;      // row splits of dWk2
+constexpr int SMEM_LIMIT = 232448;
 
 thread_local int launches = 0;   // device kernels of the current call
+
+__device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// x = hi + lo with both bf16: hi its rounding, lo the rounding of the rest
+// (~2^-17 relative together), packed in pairs as mma operands
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16x2(a - hf.x, b - hf.y);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a row's F <= 8 statistics of one head from shared memory (16-byte aligned
+// when F % 4 == 0), zero past F
+__device__ __forceinline__ void load_row_stats(const float* p, int F,
+                                               float (&d)[MAX_F]) {
+  if (F % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < MAX_F / 4; ++q) {
+      const float4 v = q * 4 < F ? reinterpret_cast<const float4*>(p)[q]
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      d[4 * q] = v.x;
+      d[4 * q + 1] = v.y;
+      d[4 * q + 2] = v.z;
+      d[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < MAX_F; ++f) d[f] = f < F ? p[f] : 0.0f;
+  }
+}
+
+cudaError_t set_smem(const void* kernel, size_t bytes) {
+  if (bytes > (size_t)SMEM_LIMIT) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
 
 // ---- a tiled bf16 GEMM with float32 accumulation -------------------------
 // C[M, N] = op(A)[M, K] . op(B)[K, N] over one K chunk per blockIdx.z. A is
@@ -77,24 +154,17 @@ constexpr int LD_K = GK + 8;     // tiles stored [row][k]
 constexpr int LD_MN = GM + 8;    // tiles stored [k][row]
 constexpr int TILE = GM * LD_K;  // >= GK * LD_MN
 
-enum Epilogue { EPI_F32 = 0, EPI_DXS = 1 };
-
 struct GemmArgs {
   const bf16* a;
   const bf16* b;
   int M, N, K, lda, ldb;
   int k_chunk;                  // K per blockIdx.z, a multiple of GK
   int gather, S, Nk, F;         // AT: stored row k at (k F + (k % S) / Nk) lda
-  float* out;                   // EPI_F32: out[z * out_z + row * N + col]
+  float* out;                   // out[z * out_z + row * N + col]
   size_t out_z;
-  bf16* dxs;                    // EPI_DXS, rows m * F + f, N = C:
-  const float* a2;              //   + a2[m, col / 64, f] * dout[m, col]
-  const bf16* dout;             //   + dd[m, col] on the own frame
-  const float* dd;
-  int heads;
 };
 
-template <bool AT, bool BT, int EPI>
+template <bool AT, bool BT>
 __global__ void __launch_bounds__(G_THREADS) gemm_kernel(const GemmArgs p) {
   __shared__ __align__(128) bf16 As[2][TILE];
   __shared__ __align__(128) bf16 Bs[2][TILE];
@@ -215,36 +285,18 @@ __global__ void __launch_bounds__(G_THREADS) gemm_kernel(const GemmArgs p) {
       for (int hi = 0; hi < 2; ++hi) {
         const int row = m0 + wm * 64 + i * 16 + g + 8 * hi;
         if (row >= p.M) continue;
-        float v0 = acc[i][j][2 * hi], v1 = acc[i][j][2 * hi + 1];
-        if (EPI == EPI_F32) {
-          *reinterpret_cast<float2*>(p.out + blockIdx.z * p.out_z +
-                                     (size_t)row * p.N + col) =
-              make_float2(v0, v1);
-        } else {
-          const int m = row / p.F, f = row % p.F;
-          const float a = p.a2[((size_t)m * p.heads + col / HD) * p.F + f];
-          const float2 d = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(p.dout + (size_t)m * p.N + col));
-          v0 = fmaf(a, d.x, v0);
-          v1 = fmaf(a, d.y, v1);
-          if (f == (m % p.S) / p.Nk) {
-            const float2 e =
-                *reinterpret_cast<const float2*>(p.dd + (size_t)m * p.N + col);
-            v0 += e.x;
-            v1 += e.y;
-          }
-          *reinterpret_cast<__nv_bfloat162*>(p.dxs + (size_t)row * p.N + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
+        *reinterpret_cast<float2*>(p.out + blockIdx.z * p.out_z +
+                                   (size_t)row * p.N + col) =
+            make_float2(acc[i][j][2 * hi], acc[i][j][2 * hi + 1]);
       }
     }
   }
 }
 
-template <bool AT, bool BT, int EPI>
+template <bool AT, bool BT>
 cudaError_t gemm(const GemmArgs& p, int splits, cudaStream_t st) {
   const dim3 grid((p.N + GN - 1) / GN, (p.M + GM - 1) / GM, splits);
-  gemm_kernel<AT, BT, EPI><<<grid, G_THREADS, 0, st>>>(p);
+  gemm_kernel<AT, BT><<<grid, G_THREADS, 0, st>>>(p);
   ++launches;
   return cudaGetLastError();
 }
@@ -254,248 +306,878 @@ inline int split_chunk(int K) {
   return (int)round_up((size_t)(K + SPLITS - 1) / SPLITS, GK);
 }
 
-// out[i] = sum_z part[z * n + i], z in order (n % 4 == 0)
-__global__ void sum_splits_kernel(const float* __restrict__ part,
-                                  float* __restrict__ out, int n, int splits) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n / 4;
+// out[i] = sum_z part[z * n + i] in a fixed order (n % 4 == 0), one job a
+// blockIdx.y
+struct SumJob {
+  const float* part;
+  float* out;
+  int n, splits;
+};
+struct SumJobs {
+  SumJob job[3];
+};
+
+__global__ void __launch_bounds__(256) sum_splits_kernel(const SumJobs jobs) {
+  const SumJob j = jobs.job[blockIdx.y];
+  if (j.splits > 64) {
+    // many splits, few columns: the 8 warps of a block take 32 columns and
+    // contiguous eighths of the splits, then add their sums in warp order
+    __shared__ float part[8][32];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int per = (j.splits + 7) / 8;
+    const int z0 = warp * per, z1 = min(j.splits, z0 + per);
+    for (int c0 = blockIdx.x * 32; c0 < j.n; c0 += gridDim.x * 32) {
+      const int c = c0 + lane;
+      float s = 0.0f;
+      if (c < j.n) {
+#pragma unroll 8
+        for (int z = z0; z < z1; ++z) s += j.part[(size_t)z * j.n + c];
+      }
+      part[warp][lane] = s;
+      __syncthreads();
+      if (warp == 0 && c < j.n) {
+        float t = 0.0f;
+        for (int w = 0; w < 8; ++w) t += part[w][lane];
+        j.out[c] = t;
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < j.n / 4;
        i += gridDim.x * blockDim.x) {
     float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int z = 0; z < splits; ++z) {
-      const float4 v = reinterpret_cast<const float4*>(part + (size_t)z * n)[i];
+#pragma unroll 8
+    for (int z = 0; z < j.splits; ++z) {
+      const float4 v = reinterpret_cast<const float4*>(j.part + (size_t)z * j.n)[i];
       s.x += v.x;
       s.y += v.y;
       s.z += v.z;
       s.w += v.w;
     }
-    reinterpret_cast<float4*>(out)[i] = s;
+    reinterpret_cast<float4*>(j.out)[i] = s;
   }
 }
 
-cudaError_t sum_splits(const float* part, float* out, int n, cudaStream_t st) {
-  const int blocks = min((n / 4 + 255) / 256, 1024);
-  sum_splits_kernel<<<blocks, 256, 0, st>>>(part, out, n, SPLITS);
-  ++launches;
-  return cudaGetLastError();
+// ---- stage 2 ---------------------------------------------------------------
+// Rows m = b * S + s. Tiles of 32 rows or columns, 8 warps, mma.sync
+// m16n8k16 (bf16 in, float32 accumulate), operands copied into padded
+// shared memory by cp.async one slice ahead of use.
+
+constexpr int S2_RT = 32;        // rows (or columns) a block or slice
+constexpr int S2_CW = 32;        // columns of C a slice
+constexpr int S2_THREADS = 256;
+
+// bf16 row strides: q2 and Wk2 rows (C + 8), xs rows of a slice (F x 32 + 8);
+// float32 rows of the per-row statistics [heads x F]: 4 words past a multiple
+// of 8, so that the 8 rows a warp's lanes read fall in 8 different banks
+__host__ __device__ inline int s2_lq(int C) { return C + 8; }
+__host__ __device__ inline int s2_lx(int F) { return F * S2_CW + 8; }
+__host__ __device__ inline int s2_lhf(int HF) { return (HF + 7) / 8 * 8 + 4; }
+
+constexpr int S2_LD = S2_CW + 8;   // bf16 rows of a slice of dout
+constexpr int S2_LF = S2_CW + 4;   // float32 rows of a slice of dd
+
+size_t rows_smem(int C, int F, int heads) {
+  return (size_t)(S2_RT * s2_lq(C) + 2 * S2_RT * s2_lx(F) +
+                  2 * S2_CW * s2_lq(C)) * sizeof(bf16) +
+         (size_t)2 * S2_RT * s2_lhf(heads * F) * sizeof(float) +
+         (size_t)2 * S2_RT * S2_LD * sizeof(bf16);
 }
 
-// part[z, c] = sum of x[m, c] over row chunk z; 32 columns x 8 row lanes
-__global__ void __launch_bounds__(256) colsum_kernel(
-    const float* __restrict__ x, float* __restrict__ part, int M, int C,
-    int rows) {
-  __shared__ float red[8][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + tx;
-  const int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
-  float s = 0.0f;
-  if (c < C)
-    for (int r = r0 + ty; r < r1; r += 8) s += x[(size_t)r * C + c];
-  red[ty][tx] = s;
-  __syncthreads();
-  if (ty == 0 && c < C) {
-    for (int k = 1; k < 8; ++k) s += red[k][tx];
-    part[(size_t)blockIdx.y * C + c] = s;
-  }
-}
-
-// ---- stage 2, per row ----------------------------------------------------
-// One block per flattened row m = b * S + s, one warp per head; a lane owns
-// two of the head's 64 channels. Reads Y, xs, q2 and dout; writes a2, dq2
-// (float32 and a bf16 copy for the GEMMs) and P.
-
-__device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__global__ void stage2_rows_kernel(
+// The stage-2 row kernel: one block per 32 rows; warp w holds rows
+// 16 (w & 1) and the heads h = (w >> 1) + 4 i. Pass 1 over the column
+// slices of C: g_h for the slice (K = 64 from the q2 tile) dotted with the
+// slice of xs_f gives the logits' partial sums, and the slice of head h's
+// own columns gives da2; then a2 and dl2 (also written out, [M, heads, F]).
+// Pass 2 over the slices again: dg_h for the slice (rounded to bf16, an A
+// fragment) times Wk2's rows of the slice accumulates dq2_h in registers.
+// Writes dq2 (float32 and bf16) and per-warp column sums of dq2 (the dbq2
+// partials, [2 * blocks, C]).
+template <int HPW>
+__global__ void __launch_bounds__(S2_THREADS, 1) stage2_rows_kernel(
     const bf16* __restrict__ xs, const bf16* __restrict__ q2,
-    const float* __restrict__ y, const bf16* __restrict__ dout,
-    float* __restrict__ a2o, float* __restrict__ dq2, bf16* __restrict__ dq2b,
-    bf16* __restrict__ pmat, int F, int C, int heads, float scale) {
-  const int m = blockIdx.x, h = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (h >= heads) return;
-  const int c = h * HD + 2 * lane;
-  const float2 qv = ld_bf16x2(q2 + (size_t)m * C + c);
-  const float2 dv = ld_bf16x2(dout + (size_t)m * C + c);
-  float2 yv[MAX_F];
-  float l[MAX_F], da[MAX_F];
-#pragma unroll
-  for (int f = 0; f < MAX_F; ++f) {
-    yv[f] = make_float2(0.0f, 0.0f);
-    l[f] = da[f] = 0.0f;
-    if (f < F) {
-      const size_t r = ((size_t)m * F + f) * C + c;
-      yv[f] = *reinterpret_cast<const float2*>(y + r);
-      const float2 xv = ld_bf16x2(xs + r);
-      l[f] = warp_sum(qv.x * yv[f].x + qv.y * yv[f].y) * scale;
-      da[f] = warp_sum(dv.x * xv.x + dv.y * xv.y);
-    }
-  }
-  float mx = -INFINITY;
-#pragma unroll
-  for (int f = 0; f < MAX_F; ++f)
-    if (f < F) mx = fmaxf(mx, l[f]);
-  float sum = 0.0f;
-#pragma unroll
-  for (int f = 0; f < MAX_F; ++f) {
-    l[f] = f < F ? expf(l[f] - mx) : 0.0f;
-    sum += l[f];
-  }
-  float r2 = 0.0f;
-#pragma unroll
-  for (int f = 0; f < MAX_F; ++f) {
-    l[f] /= sum;  // a2
-    r2 += l[f] * da[f];
-  }
-  float2 dq = make_float2(0.0f, 0.0f);
-#pragma unroll
-  for (int f = 0; f < MAX_F; ++f) {
-    if (f >= F) break;
-    const float dl = scale * l[f] * (da[f] - r2);
-    dq.x = fmaf(dl, yv[f].x, dq.x);
-    dq.y = fmaf(dl, yv[f].y, dq.y);
-    *reinterpret_cast<__nv_bfloat162*>(pmat + ((size_t)m * F + f) * C + c) =
-        __floats2bfloat162_rn(dl * qv.x, dl * qv.y);
-    if (lane == f) a2o[((size_t)m * heads + h) * F + f] = l[f];
-  }
-  *reinterpret_cast<float2*>(dq2 + (size_t)m * C + c) = dq;
-  *reinterpret_cast<__nv_bfloat162*>(dq2b + (size_t)m * C + c) =
-      __floats2bfloat162_rn(dq.x, dq.y);
-}
-
-// x = hi + lo with both bf16: hi its rounding, lo the rounding of the rest
-// (~2^-17 relative together), packed in pairs as mma operands
-__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
-                                             uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16x2(a - hf.x, b - hf.y);
-}
-
-// ---- stage 1, dq ---------------------------------------------------------
-// One block per batch row, head and 128 queries (8 warps of 16 rows), looping
-// over the frames as the forward's stage 1 does, with the same shared-memory
-// plan (double-buffered K and V tiles of the frame's keys, the first K buffer
-// staging the Q tile). Per frame a warp recomputes its rows' logits over all
-// keys in registers and the max-subtracted softmax P (float32, kept there),
-// then in a first pass over the key tiles dP = dO V^T and r = sum_n P dP, in
-// a second dP again, dS = P (dP - r) and dq += dS K. Writes dq and the
-// statistics stats[{max, 1 / sum, r}][b][head][f][s] for the dk/dv kernel.
-
-constexpr int S1_ROWS = 128;
-constexpr int S1_THREADS = 256;
-
-template <int KT>
-__host__ __device__ constexpr int stage1_krows() {
-  return 16 * KT > S1_ROWS ? 16 * KT : S1_ROWS;
-}
-
-template <int KT>
-constexpr size_t stage1_smem() {
-  return (size_t)(stage1_krows<KT>() + 3 * 16 * KT) * LDH * sizeof(bf16);
-}
-
-template <int KT>
-__global__ void __launch_bounds__(S1_THREADS) stage1_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ kf,
-    const bf16* __restrict__ vf, const bf16* __restrict__ dxs,
-    bf16* __restrict__ dq, float* __restrict__ stats, int S, int F, int N,
-    int C, int heads, float scale) {
-  constexpr int NP = 16 * KT;
+    const bf16* __restrict__ dout, const bf16* __restrict__ wk2,
+    float* __restrict__ a2o, float* __restrict__ dl2o,
+    float* __restrict__ dq2, bf16* __restrict__ dq2b,
+    float* __restrict__ bpart, int M, int F, int C, int heads, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* K0 = reinterpret_cast<bf16*>(smem);
-  bf16* V0 = K0 + stage1_krows<KT>() * LDH;
-  bf16* K1 = V0 + NP * LDH;
-  bf16* V1 = K1 + NP * LDH;
+  const int LQ = s2_lq(C), LX = s2_lx(F), HF = heads * F, LH = s2_lhf(HF);
+  bf16* Q2s = reinterpret_cast<bf16*>(smem);           // [RT][LQ]
+  bf16* XS = Q2s + S2_RT * LQ;                          // [2][RT][LX]
+  bf16* WB = XS + 2 * S2_RT * LX;                       // [2][CW][LQ]
+  float* L2S = reinterpret_cast<float*>(WB + 2 * S2_CW * LQ);  // [RT][LH]
+  float* D2S = L2S + S2_RT * LH;                        // [RT][LH]
+  bf16* DOS = reinterpret_cast<bf16*>(D2S + S2_RT * LH);  // [2][RT][LD]
 
-  const int s0 = blockIdx.x * S1_ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int m0 = blockIdx.x * S2_RT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int hoff = head * HD;
+  const int rg = warp & 1, hq = warp >> 1;
+  const int rA = rg * 16 + g, rB = rA + 8;   // this thread's local rows
+  const int ncs = C / S2_CW;
+  const int c8n = C / 8;
 
-  for (int i = tid; i < S1_ROWS * 8; i += S1_THREADS) {
-    const int r = i >> 3, c8 = (i & 7) * 8, s = s0 + r;
-    bf16* dst = K0 + r * LDH + c8;
-    if (s < S) copy16(dst, q + ((size_t)b * S + s) * C + hoff + c8);
+  for (int i = tid; i < S2_RT * c8n; i += S2_THREADS) {
+    const int r = i / c8n, c8 = (i % c8n) * 8;
+    bf16* dst = Q2s + r * LQ + c8;
+    if (m0 + r < M) cp_async16(dst, q2 + (size_t)(m0 + r) * C + c8);
     else zero16(dst);
   }
-  __syncthreads();
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-    ldmatrix_x4(qa[ks], K0 + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDH +
-                            ks * 16 + 8 * (lane >> 4));
-  __syncthreads();
-  for (int i = tid; i < (NP - N) * 8; i += S1_THREADS) {
-    const int r = N + (i >> 3), c8 = (i & 7) * 8;
-    zero16(K0 + r * LDH + c8);
-    zero16(V0 + r * LDH + c8);
-    zero16(K1 + r * LDH + c8);
-    zero16(V1 + r * LDH + c8);
-  }
-  auto issue_frame = [&](int f) {
-    const size_t kv0 = ((size_t)b * F + f) * N * C + hoff;
-    bf16* Kd = (f & 1) ? K1 : K0;
-    bf16* Vd = (f & 1) ? V1 : V0;
-    for (int i = tid; i < N * 8; i += S1_THREADS) {
-      const int r = i >> 3, c8 = (i & 7) * 8;
-      cp_async16(Kd + r * LDH + c8, kf + kv0 + (size_t)r * C + c8);
-      cp_async16(Vd + r * LDH + c8, vf + kv0 + (size_t)r * C + c8);
+  cp_async_commit();
+
+  auto load_cs = [&](int cs, int buf) {
+    bf16* xd = XS + buf * S2_RT * LX;
+    for (int i = tid; i < S2_RT * F * 4; i += S2_THREADS) {
+      const int r = i / (F * 4), f = (i >> 2) % F, c8 = (i & 3) * 8;
+      bf16* dst = xd + r * LX + f * S2_CW + c8;
+      if (m0 + r < M)
+        cp_async16(dst, xs + ((size_t)(m0 + r) * F + f) * C + cs * S2_CW + c8);
+      else
+        zero16(dst);
+    }
+    bf16* wd = WB + buf * S2_CW * LQ;
+    for (int i = tid; i < S2_CW * c8n; i += S2_THREADS) {
+      const int r = i / c8n, c8 = (i % c8n) * 8;
+      cp_async16(wd + r * LQ + c8, wk2 + (size_t)(cs * S2_CW + r) * C + c8);
+    }
+    for (int i = tid; i < S2_RT * (S2_CW / 8); i += S2_THREADS) {
+      const int r = i / (S2_CW / 8), c8 = (i % (S2_CW / 8)) * 8;
+      bf16* dst = DOS + (buf * S2_RT + r) * S2_LD + c8;
+      if (m0 + r < M) cp_async16(dst, dout + (size_t)(m0 + r) * C + cs * S2_CW + c8);
+      else zero16(dst);
     }
     cp_async_commit();
   };
-  issue_frame(0);
 
-  const int row0 = s0 + warp * 16 + g, row1 = row0 + 8;
-  const size_t plane = (size_t)gridDim.z * heads * F * S;
-  float dqacc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqacc[n][e] = 0.0f;
-
-  for (int f = 0; f < F; ++f) {
-    if (f + 1 < F) {
-      issue_frame(f + 1);
+  // a pass over the column slices of C: slice cs + 1 is copied in while
+  // slice cs is used; a slice's buffers are refilled two slices on
+  auto next_slice = [&](int cs) {
+    if (cs + 1 < ncs) {
+      load_cs(cs + 1, (cs + 1) & 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* Ks = (f & 1) ? K1 : K0;
-    const bf16* Vs = (f & 1) ? V1 : V0;
+  };
 
-    // logits, tile n: keys 8n + 2t + {0, 1} of rows g (0, 1) and g + 8 (2, 3)
-    float sacc[2 * KT][4];
+  {  // pass 1: the logits and da2, per-thread partial sums over the slices
+    // l2p: the logits of the warp's heads; d2p: da2 of the head whose
+    // columns the slice holds (two consecutive slices), if it is the warp's
+    float l2p[HPW][MAX_F][2], d2p[MAX_F][2];
 #pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
+    for (int f = 0; f < MAX_F; ++f) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.0f;
+      for (int i = 0; i < HPW; ++i) l2p[i][f][0] = l2p[i][f][1] = 0.0f;
+      d2p[f][0] = d2p[f][1] = 0.0f;
+    }
+    load_cs(0, 0);
+    for (int cs = 0; cs < ncs; ++cs) {
+      next_slice(cs);
+      const bf16* X = XS + (cs & 1) * S2_RT * LX;
+      const bf16* W = WB + (cs & 1) * S2_CW * LQ;
+      // g_h[16 rows x 32 columns of the slice] for each of the warp's heads
+      float gacc[HPW][4][4];
 #pragma unroll
-    for (int j = 0; j < KT; ++j) {
+      for (int hi = 0; hi < HPW; ++hi) {
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, Ks + (j * 16 + (lane & 7) + 8 * (lane >> 4)) * LDH +
-                            ks * 16 + 8 * ((lane >> 3) & 1));
-        mma_16816(sacc[2 * j], qa[ks], kb[0], kb[1]);
-        mma_16816(sacc[2 * j + 1], qa[ks], kb[2], kb[3]);
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gacc[hi][j][e] = 0.0f;
+        const int h = hq + 4 * hi;
+        if (h >= heads) continue;
+#pragma unroll
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          uint32_t a[4];
+          ldmatrix_x4(a, Q2s + (rg * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LQ +
+                             h * HD + ks * 16 + 8 * (lane >> 4));
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            uint32_t b[4];
+            ldmatrix_x4(b, W + (jp * 16 + (lane & 7) + 8 * (lane >> 4)) * LQ +
+                               h * HD + ks * 16 + 8 * ((lane >> 3) & 1));
+            mma_16816(gacc[hi][2 * jp], a, b[0], b[1]);
+            mma_16816(gacc[hi][2 * jp + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      // da2 = dout_h . xs_f,h over the slice for the head whose it is
+      const int hc = (cs * S2_CW) / HD;
+      const bool own = hc % 4 == hq;
+      const bf16* DO = DOS + (cs & 1) * S2_RT * S2_LD;
+      float2 da[4], db[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        da[j] = own ? ld_bf16x2(DO + rA * S2_LD + 8 * j + 2 * t) : make_float2(0.0f, 0.0f);
+        db[j] = own ? ld_bf16x2(DO + rB * S2_LD + 8 * j + 2 * t) : make_float2(0.0f, 0.0f);
+      }
+      // the slice's part of g_h . xs_f and dout_h . xs_f, xs read once
+#pragma unroll
+      for (int f = 0; f < MAX_F; ++f) {
+        if (f >= F) break;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 xa = ld_bf16x2(X + rA * LX + f * S2_CW + 8 * j + 2 * t);
+          const float2 xb = ld_bf16x2(X + rB * LX + f * S2_CW + 8 * j + 2 * t);
+#pragma unroll
+          for (int hi = 0; hi < HPW; ++hi) {
+            l2p[hi][f][0] = fmaf(gacc[hi][j][0], xa.x, fmaf(gacc[hi][j][1], xa.y, l2p[hi][f][0]));
+            l2p[hi][f][1] = fmaf(gacc[hi][j][2], xb.x, fmaf(gacc[hi][j][3], xb.y, l2p[hi][f][1]));
+          }
+          if (own) {
+            d2p[f][0] = fmaf(da[j].x, xa.x, fmaf(da[j].y, xa.y, d2p[f][0]));
+            d2p[f][1] = fmaf(db[j].x, xb.x, fmaf(db[j].y, xb.y, d2p[f][1]));
+          }
+        }
+      }
+      // head hc's da2 is complete after its second slice
+      if (own && (cs * S2_CW + S2_CW) % HD == 0) {
+#pragma unroll
+        for (int f = 0; f < MAX_F; ++f) {
+          const float da2a = quad_sum(d2p[f][0]), da2b = quad_sum(d2p[f][1]);
+          if (t == 0 && f < F) {
+            D2S[rA * LH + hc * F + f] = da2a;
+            D2S[rB * LH + hc * F + f] = da2b;
+          }
+          d2p[f][0] = d2p[f][1] = 0.0f;
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int hi = 0; hi < HPW; ++hi) {
+      const int h = hq + 4 * hi;
+      if (h >= heads) continue;
+#pragma unroll
+      for (int f = 0; f < MAX_F; ++f) {
+        if (f >= F) break;
+        const float la = quad_sum(l2p[hi][f][0]), lb = quad_sum(l2p[hi][f][1]);
+        if (t == 0) {
+          L2S[rA * LH + h * F + f] = la;
+          L2S[rB * LH + h * F + f] = lb;
+        }
       }
     }
+  }
+  __syncthreads();
+  // a2 and dl2 per (row, head), in place of the logits and da2
+  for (int i = tid; i < S2_RT * heads; i += S2_THREADS) {
+    const int r = i / heads, h = i % heads;
+    float* l = L2S + r * LH + h * F;
+    float* d = D2S + r * LH + h * F;
+    float mx = -INFINITY;
+    for (int f = 0; f < F; ++f) mx = fmaxf(mx, l[f] * scale);
+    float sum = 0.0f;
+    for (int f = 0; f < F; ++f) {
+      l[f] = expf(l[f] * scale - mx);
+      sum += l[f];
+    }
+    float r2 = 0.0f;
+    for (int f = 0; f < F; ++f) {
+      l[f] /= sum;
+      r2 += l[f] * d[f];
+    }
+    for (int f = 0; f < F; ++f) {
+      d[f] = scale * l[f] * (d[f] - r2);
+      if (m0 + r < M) {
+        const size_t o = ((size_t)(m0 + r) * heads + h) * F + f;
+        a2o[o] = l[f];
+        dl2o[o] = d[f];
+      }
+    }
+  }
+  __syncthreads();
+
+  // pass 2: dg_h over each slice as A fragments (k = the slice's columns),
+  // then dq2_h += dg_h . Wk2[slice, h]
+  float dqacc[HPW][8][4];
+#pragma unroll
+  for (int i = 0; i < HPW; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqacc[i][j][e] = 0.0f;
+  load_cs(0, 0);
+  for (int cs = 0; cs < ncs; ++cs) {
+    next_slice(cs);
+    const bf16* X = XS + (cs & 1) * S2_RT * LX;
+    const bf16* W = WB + (cs & 1) * S2_CW * LQ;
+#pragma unroll
+    for (int ks = 0; ks < S2_CW / 16; ++ks) {
+      // xs at this thread's A-fragment places: rows rA, rB, columns
+      // ks 16 + 2t (+1) and + 8, every frame
+      uint32_t xr[MAX_F][4];
+#pragma unroll
+      for (int f = 0; f < MAX_F; ++f) {
+        const int c = f * S2_CW + ks * 16 + 2 * t;
+        const bool ok = f < F;
+        xr[f][0] = ok ? *reinterpret_cast<const uint32_t*>(X + rA * LX + c) : 0u;
+        xr[f][1] = ok ? *reinterpret_cast<const uint32_t*>(X + rB * LX + c) : 0u;
+        xr[f][2] = ok ? *reinterpret_cast<const uint32_t*>(X + rA * LX + c + 8) : 0u;
+        xr[f][3] = ok ? *reinterpret_cast<const uint32_t*>(X + rB * LX + c + 8) : 0u;
+      }
+#pragma unroll
+      for (int hi = 0; hi < HPW; ++hi) {
+        const int h = hq + 4 * hi;
+        if (h >= heads) continue;
+        float dla[MAX_F], dlb[MAX_F];
+        load_row_stats(D2S + rA * LH + h * F, F, dla);
+        load_row_stats(D2S + rB * LH + h * F, F, dlb);
+        float v[4][2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q][0] = v[q][1] = 0.0f;
+#pragma unroll
+        for (int f = 0; f < MAX_F; ++f) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float d = (q & 1) ? dlb[f] : dla[f];
+            const float2 x = unpack_bf16x2(xr[f][q]);
+            v[q][0] = fmaf(d, x.x, v[q][0]);
+            v[q][1] = fmaf(d, x.y, v[q][1]);
+          }
+        }
+        uint32_t a[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a[q] = pack_bf16x2(v[q][0], v[q][1]);
+#pragma unroll
+        for (int jp = 0; jp < HD / 16; ++jp) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, W + (ks * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LQ +
+                                   h * HD + jp * 16 + 8 * (lane >> 4));
+          mma_16816(dqacc[hi][2 * jp], a, b[0], b[1]);
+          mma_16816(dqacc[hi][2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // dq2 and its bf16 copy; column sums of this warp's 16 rows (rows past M
+  // hold zeros: their xs and q2 were copied in as zeros)
+#pragma unroll
+  for (int hi = 0; hi < HPW; ++hi) {
+    const int h = hq + 4 * hi;
+    if (h >= heads) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = h * HD + 8 * j + 2 * t;
+      const float* v = dqacc[hi][j];
+      if (m0 + rA < M) {
+        *reinterpret_cast<float2*>(dq2 + (size_t)(m0 + rA) * C + col) = make_float2(v[0], v[1]);
+        *reinterpret_cast<__nv_bfloat162*>(dq2b + (size_t)(m0 + rA) * C + col) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+      if (m0 + rB < M) {
+        *reinterpret_cast<float2*>(dq2 + (size_t)(m0 + rB) * C + col) = make_float2(v[2], v[3]);
+        *reinterpret_cast<__nv_bfloat162*>(dq2b + (size_t)(m0 + rB) * C + col) =
+            __floats2bfloat162_rn(v[2], v[3]);
+      }
+      float s0 = v[0] + v[2], s1 = v[1] + v[3];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (g == 0)
+        *reinterpret_cast<float2*>(bpart + ((size_t)blockIdx.x * 2 + rg) * C + col) =
+            make_float2(s0, s1);
+    }
+  }
+}
+
+// The dWk2 kernel: one block per 32 columns c of Wk2's rows and one of
+// W_SPLITS row ranges; warp w accumulates dWk2[c0 + 16 (w & 1) + 0..15,
+// head h] for the heads h = (w >> 1) + 4 i over the range. Per 32 rows:
+// dg_h[c][row] for every head from the slice of xs and dl2, rounded to bf16
+// in shared memory (all threads), then dWk2 += dg_h^T q2_h. Writes the
+// partial [z, C, C].
+constexpr int W_LDG = S2_CW + 8;   // dg rows [head][row][column]
+
+size_t dwk2_smem(int C, int F, int heads) {
+  return (size_t)(2 * S2_RT * s2_lx(F) + 2 * S2_RT * s2_lq(C) +
+                  heads * S2_RT * W_LDG) * sizeof(bf16) +
+         (size_t)2 * S2_RT * s2_lhf(heads * F) * sizeof(float);
+}
+
+template <int HPW>
+__global__ void __launch_bounds__(S2_THREADS, 1) stage2_dwk2_kernel(
+    const bf16* __restrict__ xs, const bf16* __restrict__ q2,
+    const float* __restrict__ dl2, float* __restrict__ wpart, int M, int F,
+    int C, int heads, int rows_per_split) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LQ = s2_lq(C), LX = s2_lx(F), HF = heads * F, LH = s2_lhf(HF);
+  bf16* XS = reinterpret_cast<bf16*>(smem);             // [2][RT][LX]
+  bf16* Q2s = XS + 2 * S2_RT * LX;                      // [2][RT][LQ]
+  bf16* DG = Q2s + 2 * S2_RT * LQ;                      // [heads][RT][LDG]
+  float* DL = reinterpret_cast<float*>(DG + heads * S2_RT * W_LDG);  // [2][RT][LH]
+
+  const int c0 = blockIdx.x * S2_CW, z = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & 1, hq = warp >> 1;
+  const int r_begin = z * rows_per_split;
+  const int r_end = min(M, r_begin + rows_per_split);
+  const int nsub = r_end > r_begin ? (r_end - r_begin + S2_RT - 1) / S2_RT : 0;
+  const int c8n = C / 8;
+
+  auto load_sub = [&](int i, int buf) {
+    const int r0 = r_begin + i * S2_RT;
+    bf16* xd = XS + buf * S2_RT * LX;
+    for (int k = tid; k < S2_RT * F * 4; k += S2_THREADS) {
+      const int r = k / (F * 4), f = (k >> 2) % F, c8 = (k & 3) * 8;
+      bf16* dst = xd + r * LX + f * S2_CW + c8;
+      if (r0 + r < r_end)
+        cp_async16(dst, xs + ((size_t)(r0 + r) * F + f) * C + c0 + c8);
+      else
+        zero16(dst);
+    }
+    bf16* qd = Q2s + buf * S2_RT * LQ;
+    for (int k = tid; k < S2_RT * c8n; k += S2_THREADS) {
+      const int r = k / c8n, c8 = (k % c8n) * 8;
+      bf16* dst = qd + r * LQ + c8;
+      if (r0 + r < r_end) cp_async16(dst, q2 + (size_t)(r0 + r) * C + c8);
+      else zero16(dst);
+    }
+    float* dd = DL + buf * S2_RT * LH;
+    if (HF % 4 == 0) {
+      for (int k = tid; k < S2_RT * (HF / 4); k += S2_THREADS) {
+        const int r = k / (HF / 4), c4 = (k % (HF / 4)) * 4;
+        float* dst = dd + r * LH + c4;
+        if (r0 + r < r_end) cp_async16(dst, dl2 + (size_t)(r0 + r) * HF + c4);
+        else zero16(dst);
+      }
+    } else {
+      for (int k = tid; k < S2_RT * HF; k += S2_THREADS)
+        dd[(k / HF) * LH + k % HF] =
+            r0 + k / HF < r_end ? dl2[(size_t)r0 * HF + k] : 0.0f;
+    }
+    cp_async_commit();
+  };
+
+  float acc[HPW][8][4];
+#pragma unroll
+  for (int i = 0; i < HPW; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  if (nsub > 0) load_sub(0, 0);
+  for (int i = 0; i < nsub; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < nsub) {
+      load_sub(i + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* X = XS + buf * S2_RT * LX;
+    const bf16* Q = Q2s + buf * S2_RT * LQ;
+    const float* D = DL + buf * S2_RT * LH;
+    {  // dg_h[row][c] = sum_f dl2[row, h, f] xs[row, f, c]: a thread takes
+       // one row, 8 columns and half the heads, its xs held in registers
+      const int r = tid & 31, cg = (tid >> 5) & 3, hh = tid >> 7;
+      const int hpt = (heads + 1) / 2;
+      uint32_t xv[MAX_F][4];
+#pragma unroll
+      for (int f = 0; f < MAX_F; ++f) {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (f < F)
+          u = *reinterpret_cast<const uint4*>(X + r * LX + f * S2_CW + cg * 8);
+        xv[f][0] = u.x;
+        xv[f][1] = u.y;
+        xv[f][2] = u.z;
+        xv[f][3] = u.w;
+      }
+      for (int h = hh * hpt; h < min(heads, hh * hpt + hpt); ++h) {
+        float dl[MAX_F];
+        load_row_stats(D + r * LH + h * F, F, dl);
+        float v[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) v[q] = 0.0f;
+#pragma unroll
+        for (int f = 0; f < MAX_F; ++f) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 x = unpack_bf16x2(xv[f][q]);
+            v[2 * q] = fmaf(dl[f], x.x, v[2 * q]);
+            v[2 * q + 1] = fmaf(dl[f], x.y, v[2 * q + 1]);
+          }
+        }
+        *reinterpret_cast<uint4*>(DG + (h * S2_RT + r) * W_LDG + cg * 8) =
+            make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                       pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int hi = 0; hi < HPW; ++hi) {
+      const int h = hq + 4 * hi;
+      if (h >= heads) continue;
+#pragma unroll
+      for (int ks = 0; ks < S2_RT / 16; ++ks) {
+        uint32_t a[4];  // dg_h^T: stored [k = row][m = column]
+        ldmatrix_x4_trans(a, DG + (h * S2_RT + ks * 16 + (lane & 7) + 8 * (lane >> 4)) *
+                                     W_LDG + mt * 16 + 8 * ((lane >> 3) & 1));
+#pragma unroll
+        for (int jp = 0; jp < HD / 16; ++jp) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, Q + (ks * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LQ +
+                                   h * HD + jp * 16 + 8 * (lane >> 4));
+          mma_16816(acc[hi][2 * jp], a, b[0], b[1]);
+          mma_16816(acc[hi][2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // DG and this buffer are written again
+  }
+
+  float* out = wpart + (size_t)z * C * C;
+#pragma unroll
+  for (int hi = 0; hi < HPW; ++hi) {
+    const int h = hq + 4 * hi;
+    if (h >= heads) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = h * HD + 8 * j + 2 * t;
+      const int row = c0 + mt * 16 + g;
+      *reinterpret_cast<float2*>(out + (size_t)row * C + col) =
+          make_float2(acc[hi][j][0], acc[hi][j][1]);
+      *reinterpret_cast<float2*>(out + (size_t)(row + 8) * C + col) =
+          make_float2(acc[hi][j][2], acc[hi][j][3]);
+    }
+  }
+}
+
+// The dxs kernel: one block per 32 rows; warp w owns rows 16 (w & 1) and
+// the 8 columns 8 (w >> 1) of each 32-column slice of C. Per slice and head:
+// g_h for the warp's columns (K = 64), accumulated into the slice of dxs_f
+// for every frame with dl2[row, h, f]; then the value term a2[row, h(c), f]
+// dout[row, c], dd on the row's own frame, and one rounding to bf16.
+size_t dxs_smem(int C, int F, int heads) {
+  return (size_t)(S2_RT * s2_lq(C) + 2 * S2_CW * s2_lq(C)) * sizeof(bf16) +
+         (size_t)2 * S2_RT * s2_lhf(heads * F) * sizeof(float) +
+         (size_t)2 * S2_RT * S2_LD * sizeof(bf16) +
+         (size_t)2 * S2_RT * S2_LF * sizeof(float);
+}
+
+__global__ void __launch_bounds__(S2_THREADS, 1) stage2_dxs_kernel(
+    const bf16* __restrict__ q2, const bf16* __restrict__ wk2,
+    const bf16* __restrict__ dout, const float* __restrict__ a2,
+    const float* __restrict__ dl2, const float* __restrict__ dd,
+    bf16* __restrict__ dxs, int M, int S, int N, int F, int C, int heads) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int LQ = s2_lq(C), HF = heads * F, LH = s2_lhf(HF);
+  bf16* Q2s = reinterpret_cast<bf16*>(smem);            // [RT][LQ]
+  bf16* WB = Q2s + S2_RT * LQ;                           // [2][CW][LQ]
+  float* A2S = reinterpret_cast<float*>(WB + 2 * S2_CW * LQ);  // [RT][LH]
+  float* DLS = A2S + S2_RT * LH;
+  float* DDS = DLS + S2_RT * LH;                           // [2][RT][LF]
+  bf16* DOS = reinterpret_cast<bf16*>(DDS + 2 * S2_RT * S2_LF);  // [2][RT][LD]
+
+  const int m0 = blockIdx.x * S2_RT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 1, cq = warp >> 1;
+  const int rA = rg * 16 + g, rB = rA + 8;
+  const int ncs = C / S2_CW;
+  const int c8n = C / 8;
+
+  for (int i = tid; i < S2_RT * c8n; i += S2_THREADS) {
+    const int r = i / c8n, c8 = (i % c8n) * 8;
+    bf16* dst = Q2s + r * LQ + c8;
+    if (m0 + r < M) cp_async16(dst, q2 + (size_t)(m0 + r) * C + c8);
+    else zero16(dst);
+  }
+  cp_async_commit();
+  for (int i = tid; i < S2_RT * HF; i += S2_THREADS) {
+    const bool ok = m0 + i / HF < M;
+    const int o = (i / HF) * LH + i % HF;
+    A2S[o] = ok ? a2[(size_t)m0 * HF + i] : 0.0f;
+    DLS[o] = ok ? dl2[(size_t)m0 * HF + i] : 0.0f;
+  }
+  auto load_w = [&](int cs, int buf) {
+    bf16* wd = WB + buf * S2_CW * LQ;
+    for (int i = tid; i < S2_CW * c8n; i += S2_THREADS) {
+      const int r = i / c8n, c8 = (i % c8n) * 8;
+      cp_async16(wd + r * LQ + c8, wk2 + (size_t)(cs * S2_CW + r) * C + c8);
+    }
+    // the slice of dout (bf16) and dd (float32) of the block's rows
+    for (int i = tid; i < S2_RT * (S2_CW / 8); i += S2_THREADS) {
+      const int r = i / (S2_CW / 8), c8 = (i % (S2_CW / 8)) * 8;
+      bf16* dst = DOS + (buf * S2_RT + r) * S2_LD + c8;
+      if (m0 + r < M) cp_async16(dst, dout + (size_t)(m0 + r) * C + cs * S2_CW + c8);
+      else zero16(dst);
+    }
+    for (int i = tid; i < S2_RT * (S2_CW / 4); i += S2_THREADS) {
+      const int r = i / (S2_CW / 4), c4 = (i % (S2_CW / 4)) * 4;
+      float* dst = DDS + (buf * S2_RT + r) * S2_LF + c4;
+      if (m0 + r < M) cp_async16(dst, dd + (size_t)(m0 + r) * C + cs * S2_CW + c4);
+      else zero16(dst);
+    }
+    cp_async_commit();
+  };
+
+  // own frames and dout rows of this thread's two rows
+  const int mA = m0 + rA, mB = m0 + rB;
+  const int ownA = mA < M ? (mA % S) / N : -1, ownB = mB < M ? (mB % S) / N : -1;
+
+  load_w(0, 0);
+  for (int cs = 0; cs < ncs; ++cs) {
+    const int buf = cs & 1;
+    if (cs + 1 < ncs) {
+      load_w(cs + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* W = WB + buf * S2_CW * LQ;
+    float acc[MAX_F][4];
+#pragma unroll
+    for (int f = 0; f < MAX_F; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[f][e] = 0.0f;
+    for (int h = 0; h < heads; ++h) {
+      uint32_t a[HD / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)
+        ldmatrix_x4(a[ks], Q2s + (rg * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LQ +
+                               h * HD + ks * 16 + 8 * (lane >> 4));
+      float gacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t b[4];
+        ldmatrix_x4(b, W + (cq * 8 + (lane & 7)) * LQ + h * HD + kk * 32 + 8 * (lane >> 3));
+        mma_16816(gacc, a[2 * kk], b[0], b[1]);
+        mma_16816(gacc, a[2 * kk + 1], b[2], b[3]);
+      }
+      float la[MAX_F], lb[MAX_F];
+      load_row_stats(DLS + rA * LH + h * F, F, la);
+      load_row_stats(DLS + rB * LH + h * F, F, lb);
+#pragma unroll
+      for (int f = 0; f < MAX_F; ++f) {
+        acc[f][0] = fmaf(la[f], gacc[0], acc[f][0]);
+        acc[f][1] = fmaf(la[f], gacc[1], acc[f][1]);
+        acc[f][2] = fmaf(lb[f], gacc[2], acc[f][2]);
+        acc[f][3] = fmaf(lb[f], gacc[3], acc[f][3]);
+      }
+    }
+    // value term, own-frame term, one rounding
+    const int col = cs * S2_CW + cq * 8 + 2 * t;
+    const int hc = col / HD;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = half ? mB : mA, r = half ? rB : rA, own = half ? ownB : ownA;
+      if (m >= M) continue;
+      const float2 d = ld_bf16x2(DOS + (buf * S2_RT + r) * S2_LD + cq * 8 + 2 * t);
+      const float2 e = *reinterpret_cast<const float2*>(
+          DDS + (buf * S2_RT + r) * S2_LF + cq * 8 + 2 * t);
+#pragma unroll
+      for (int f = 0; f < MAX_F; ++f) {
+        if (f >= F) break;
+        const float w = A2S[r * LH + hc * F + f];
+        float v0 = fmaf(w, d.x, acc[f][2 * half]);
+        float v1 = fmaf(w, d.y, acc[f][2 * half + 1]);
+        if (f == own) {
+          v0 += e.x;
+          v1 += e.y;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(dxs + ((size_t)m * F + f) * C + col) =
+            __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two slices on
+  }
+}
+
+// ---- stage 1 on wgmma and TMA ------------------------------------------------
+// Tiles of 64 channels are 128-byte rows in the 128-byte swizzled layout that
+// TMA writes and wgmma's descriptors read (hopper_async.cuh). Thread block:
+// two consumer warpgroups (64 rows each) and a producer warpgroup whose one
+// issuing thread keeps the ring full; setmaxnreg gives the consumers the
+// producer's registers.
+
+constexpr int S1_WG = 2;
+constexpr int S1_THREADS = 128 * (S1_WG + 1);
+constexpr int S1_PRODUCER_REGS = 40;
+constexpr int S1_CONSUMER_REGS = 232;
+constexpr int ROW_BYTES = HD * 2;
+constexpr int WG_TILE = 64 * ROW_BYTES;    // 64 rows
+constexpr int S1_ROWS = 64 * S1_WG;        // queries (dq) or keys (dk/dv) a block
+constexpr int S1_ALIGN = 1024;
+constexpr int S1_BAR_BYTES = 1024;
+constexpr int MAX_STAGES = 4;
+
+// keys a frame is padded to: the instantiated wgmma widths
+__host__ __device__ constexpr int padded_keys(int n) {
+  return n <= 64 ? 64 : (n <= 128 ? 128 : (n <= 208 ? 208 : 256));
+}
+
+// dq: a ring slot holds K_f and V_f [NP rows] and dO_f [128 rows]. Up to
+// NP = 208 a consumer thread holds P and dP of a frame at once (208
+// registers) and keeps its dq accumulators in shared memory between frames
+// (dq_one_pass); at NP = 256 it forms dP twice over 64-key chunks instead.
+__host__ __device__ constexpr bool dq_one_pass(int np) { return np <= 208; }
+constexpr int DQ_ACC_BYTES = S1_WG * 128 * 32 * 4;   // 32 floats a thread
+__host__ __device__ constexpr int dq_stage_bytes(int np) {
+  return 2 * np * ROW_BYTES + S1_ROWS * ROW_BYTES;
+}
+__host__ __device__ constexpr int dq_fixed_bytes(int np) {
+  return S1_ALIGN + S1_ROWS * ROW_BYTES + (dq_one_pass(np) ? DQ_ACC_BYTES : 0) +
+         S1_BAR_BYTES;
+}
+__host__ __device__ constexpr int dq_stages(int np) {
+  return (SMEM_LIMIT - dq_fixed_bytes(np)) / dq_stage_bytes(np) < 3
+             ? (SMEM_LIMIT - dq_fixed_bytes(np)) / dq_stage_bytes(np)
+             : 3;
+}
+__host__ __device__ constexpr int dq_smem_bytes(int np) {
+  return dq_fixed_bytes(np) + dq_stages(np) * dq_stage_bytes(np);
+}
+static_assert(dq_stages(256) >= 2, "two frame slots at N = 256");
+
+__device__ __forceinline__ void setmaxnreg_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(S1_PRODUCER_REGS));
+}
+__device__ __forceinline__ void setmaxnreg_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(S1_CONSUMER_REGS));
+}
+
+// The stage-1 dq kernel: one block per 128 queries of a (batch row, head).
+// Per frame: S = Q K_f^T by wgmma m64nNPk16 (4 k-steps), the softmax on the
+// accumulators (keys >= N at -inf), dP = dO_f V_f^T the same way, r = sum_n
+// P dP, dS = P (dP - r) in place of P, then dq += dS K_f (K read MN-major
+// from the slot) with dS as hi + lo A fragments, four k-steps at a time. At
+// NP = 256 dP goes in 64-key chunks, once for r and again for dS. Writes dq and stats[{lse2, r}][b][head]
+// [f][s], lse2 = log2 of the softmax's denominator with the max folded in.
+template <int NP>
+__global__ void __launch_bounds__(S1_THREADS, 1) stage1_dq_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap o_map, bf16* __restrict__ dq,
+    float* __restrict__ stats, int S, int S4, int F, int N, int C, int heads,
+    float scale) {
+  constexpr int KV = NP * ROW_BYTES;
+  constexpr int STAGE = dq_stage_bytes(NP);
+  constexpr int STAGES = dq_stages(NP);
+  constexpr int NC = NP / 64;      // whole 64-key chunks
+  constexpr int TAIL = NP % 64;    // 0, or 16 at NP = 208
+  constexpr int SAFE_KEYS = NP == 64 ? 0 : (NP == 128 ? 64 : (NP == 208 ? 128 : 208));
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((S1_ALIGN - (cvta_smem(smem_raw) & (S1_ALIGN - 1))) &
+                  (S1_ALIGN - 1));
+  unsigned char* ring = smem;
+  unsigned char* qbuf = ring + STAGES * STAGE;
+  float* dqs = reinterpret_cast<float*>(qbuf + S1_ROWS * ROW_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      qbuf + S1_ROWS * ROW_BYTES + (dq_one_pass(NP) ? DQ_ACC_BYTES : 0));
+  uint64_t* full = bars;
+  uint64_t* empty = bars + MAX_STAGES;
+  uint64_t* q_full = bars + 2 * MAX_STAGES;
+
+  const int s0 = blockIdx.x * S1_ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * S1_WG);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * S1_WG) {  // the producer warpgroup: one thread issues
+    setmaxnreg_producer();
+    if (tid == 128 * S1_WG) {
+      mbar_arrive_expect_tx(q_full, S1_ROWS * ROW_BYTES);
+      tma_load_3d(qbuf, &q_map, q_full, head * HD, s0, b);
+      for (int f = 0; f < F; ++f) {
+        const int st = f % STAGES;
+        const uint32_t ph = (f / STAGES) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_arrive_expect_tx(&full[st], STAGE);
+        unsigned char* slot = ring + st * STAGE;
+        tma_load_3d(slot, &k_map, &full[st], head * HD, 0, b * F + f);
+        tma_load_3d(slot + KV, &v_map, &full[st], head * HD, 0, b * F + f);
+        tma_load_4d(slot + 2 * KV, &o_map, &full[st], head * HD, f, s0, b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_consumer();
+  // rows 16 warp + g and + 8 of the warpgroup's 64, in the accumulators'
+  // layout (element 4j + e: key / channel 8j + 2 t4 + (e & 1), the second
+  // row for e >= 2)
+  const int wg = tid >> 7, warp = (tid & 127) >> 5;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int row0 = s0 + wg * 64 + 16 * warp + g, row1 = row0 + 8;
+  const float sl2 = scale * 1.4426950408889634f;
+  const size_t plane = (size_t)gridDim.z * heads * F * S4;
+  auto write_stats = [&](int f, float lse0, float lse1, float r0, float r1) {
+    if (t4 != 0) return;
+    float* stp = stats + (((size_t)b * heads + head) * F + f) * S4;
+    if (row0 < S) {
+      stp[row0] = lse0;
+      stp[plane + row0] = r0;
+    }
+    if (row1 < S) {
+      stp[row1] = lse1;
+      stp[plane + row1] = r1;
+    }
+  };
+  auto write_dq = [&](const float (&acc)[32]) {
+    bf16* out0 = dq + ((size_t)b * S + row0) * C + head * HD + 2 * t4;
+    bf16* out1 = dq + ((size_t)b * S + row1) * C + head * HD + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(out0 + 8 * j) =
+            __floats2bfloat162_rn(scale * acc[4 * j], scale * acc[4 * j + 1]);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(out1 + 8 * j) =
+            __floats2bfloat162_rn(scale * acc[4 * j + 2], scale * acc[4 * j + 3]);
+    }
+  };
+  mbar_wait(q_full, 0);
+  const uint64_t qdesc = wgmma_desc_sw128(qbuf + wg * WG_TILE, 16, 1024);
+  float dqacc[32];  // the chunked form's accumulators (NP = 256)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqacc[i] = 0.0f;
+
+  for (int f = 0; f < F; ++f) {
+    const int st = f % STAGES;
+    mbar_wait(&full[st], (f / STAGES) & 1);
+    unsigned char* slot = ring + st * STAGE;
+    unsigned char* vbase = slot + KV;
+    const uint64_t kdesc = wgmma_desc_sw128(slot, 16, 1024);
+    const uint64_t odesc = wgmma_desc_sw128(slot + 2 * KV + wg * WG_TILE, 16, 1024);
+
+    float sacc[NP / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < HD / 16; ++k)
+      wgmma_ss<NP>(sacc, qdesc + 2 * k, kdesc + 2 * k, k);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sacc);
+
+    // true max-subtracted softmax over the frame's N keys, P normalised
     float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
+    for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = n * 8 + 2 * t + (e & 1);
-        const float v = key < N ? sacc[n][e] * scale : -INFINITY;
-        sacc[n][e] = v;
+        const int key = 8 * j + 2 * t4 + (e & 1);
+        const float v = (8 * j + 8 <= SAFE_KEYS || key < N) ? sacc[4 * j + e]
+                                                            : -INFINITY;
+        sacc[4 * j + e] = v;
         if (e < 2) m0 = fmaxf(m0, v);
         else m1 = fmaxf(m1, v);
       }
@@ -504,378 +1186,571 @@ __global__ void __launch_bounds__(S1_THREADS) stage1_dq_kernel(
       m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
       m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
     }
+    const float mb0 = m0 * sl2, mb1 = m1 * sl2;
     float l0 = 0.0f, l1 = 0.0f;
 #pragma unroll
-    for (int n = 0; n < 2 * KT; ++n)
+    for (int j = 0; j < NP / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = n * 8 + 2 * t + (e & 1);
-        const float p = key < N ? __expf(sacc[n][e] - (e < 2 ? m0 : m1)) : 0.0f;
-        sacc[n][e] = p;
+        const float p = fast_exp2(fmaf(sacc[4 * j + e], sl2, e < 2 ? -mb0 : -mb1));
+        sacc[4 * j + e] = p;
         if (e < 2) l0 += p;
         else l1 += p;
       }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-    }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
     const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
 #pragma unroll
-    for (int n = 0; n < 2 * KT; ++n) {
-      sacc[n][0] *= inv0;
-      sacc[n][1] *= inv0;
-      sacc[n][2] *= inv1;
-      sacc[n][3] *= inv1;
+    for (int j = 0; j < NP / 8; ++j) {
+      sacc[4 * j] *= inv0;
+      sacc[4 * j + 1] *= inv0;
+      sacc[4 * j + 2] *= inv1;
+      sacc[4 * j + 3] *= inv1;
     }
 
-    // dO = dxs[b, s, f, head] as A fragments
-    uint32_t da[HD / 16][4];
-    {
-      const bf16* d0 = dxs + (((size_t)b * S + row0) * F + f) * C + hoff + 2 * t;
-      const bf16* d1 = dxs + (((size_t)b * S + row1) * F + f) * C + hoff + 2 * t;
-      const bool ok0 = row0 < S, ok1 = row1 < S;
+    if constexpr (dq_one_pass(NP)) {
+      float dp[NP / 2];
+      wgmma_fence();
+      const uint64_t vd = wgmma_desc_sw128(vbase, 16, 1024);
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        da[ks][0] = ok0 ? ldg32(d0 + ks * 16) : 0u;
-        da[ks][1] = ok1 ? ldg32(d1 + ks * 16) : 0u;
-        da[ks][2] = ok0 ? ldg32(d0 + ks * 16 + 8) : 0u;
-        da[ks][3] = ok1 ? ldg32(d1 + ks * 16 + 8) : 0u;
+      for (int k = 0; k < HD / 16; ++k)
+        wgmma_ss<NP>(dp, odesc + 2 * k, vd + 2 * k, k);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dp);
+      float r0 = 0.0f, r1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NP / 8; ++j) {
+        r0 += sacc[4 * j] * dp[4 * j] + sacc[4 * j + 1] * dp[4 * j + 1];
+        r1 += sacc[4 * j + 2] * dp[4 * j + 2] + sacc[4 * j + 3] * dp[4 * j + 3];
       }
+      r0 = quad_sum(r0);
+      r1 = quad_sum(r1);
+      write_stats(f, mb0 + __log2f(l0), mb1 + __log2f(l1), r0, r1);
+#pragma unroll
+      for (int j = 0; j < NP / 8; ++j) {  // dS in place of P
+        sacc[4 * j] *= dp[4 * j] - r0;
+        sacc[4 * j + 1] *= dp[4 * j + 1] - r0;
+        sacc[4 * j + 2] *= dp[4 * j + 2] - r1;
+        sacc[4 * j + 3] *= dp[4 * j + 3] - r1;
+      }
+      float dqacc[32];
+      float* mine = dqs + (size_t)(tid >> 5) * 32 * 32 + lane;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqacc[i] = f > 0 ? mine[32 * i] : 0.0f;
+      const uint64_t kd = wgmma_desc_sw128(slot, 16, 1024);
+      constexpr int KSTEPS = NP / 16;
+#pragma unroll
+      for (int g4 = 0; g4 < (KSTEPS + 3) / 4; ++g4) {
+        uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int kk = 4 * g4 + q;
+          if (kk >= KSTEPS) break;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int js = 2 * kk + half;
+            split_bf16x2(sacc[4 * js], sacc[4 * js + 1], hi[q][2 * half],
+                         lo[q][2 * half]);
+            split_bf16x2(sacc[4 * js + 2], sacc[4 * js + 3],
+                         hi[q][2 * half + 1], lo[q][2 * half + 1]);
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int kk = 4 * g4 + q;
+          if (kk >= KSTEPS) break;
+          wgmma_rs_n64_tb(dqacc, hi[q], kd + (uint64_t)(kk * 128), 1);
+          wgmma_rs_n64_tb(dqacc, lo[q], kd + (uint64_t)(kk * 128), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dqacc);
+      }
+      mbar_arrive(&empty[st]);  // this frame's slot is read for the last time
+      if (f + 1 < F) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) mine[32 * i] = dqacc[i];
+      } else {
+        write_dq(dqacc);
+      }
+      continue;
     }
-    // dP of key tile j: tile 0 keys 16 j + 2t + {0, 1}, tile 1 keys + 8
-    auto dp_tile = [&](int j, float (&dpa)[2][4]) {
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dpa[n][e] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        uint32_t vb[4];
-        ldmatrix_x4(vb, Vs + (j * 16 + (lane & 7) + 8 * (lane >> 4)) * LDH +
-                            ks * 16 + 8 * ((lane >> 3) & 1));
-        mma_16816(dpa[0], da[ks], vb[0], vb[1]);
-        mma_16816(dpa[1], da[ks], vb[2], vb[3]);
-      }
-    };
 
     // pass 1: r = sum_n P dP
     float r0 = 0.0f, r1 = 0.0f;
 #pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      float dpa[2][4];
-      dp_tile(j, dpa);
+    for (int c = 0; c < NC; ++c) {
+      float dp[32];
+      const uint64_t vd = wgmma_desc_sw128(vbase + c * WG_TILE, 16, 1024);
+      wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        r0 += sacc[2 * j + h][0] * dpa[h][0] + sacc[2 * j + h][1] * dpa[h][1];
-        r1 += sacc[2 * j + h][2] * dpa[h][2] + sacc[2 * j + h][3] * dpa[h][3];
-      }
-    }
+      for (int k = 0; k < HD / 16; ++k)
+        wgmma_ss_n64(dp, odesc + 2 * k, vd + 2 * k, k);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dp);
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      r0 += __shfl_xor_sync(0xffffffffu, r0, o);
-      r1 += __shfl_xor_sync(0xffffffffu, r1, o);
-    }
-    if (t == 0) {
-      float* st = stats + (((size_t)b * heads + head) * F + f) * S;
-      if (row0 < S) {
-        st[row0] = m0;
-        st[plane + row0] = inv0;
-        st[2 * plane + row0] = r0;
-      }
-      if (row1 < S) {
-        st[row1] = m1;
-        st[plane + row1] = inv1;
-        st[2 * plane + row1] = r1;
+      for (int j = 0; j < 8; ++j) {
+        r0 += sacc[(8 * c + j) * 4] * dp[4 * j] + sacc[(8 * c + j) * 4 + 1] * dp[4 * j + 1];
+        r1 += sacc[(8 * c + j) * 4 + 2] * dp[4 * j + 2] + sacc[(8 * c + j) * 4 + 3] * dp[4 * j + 3];
       }
     }
+    if constexpr (TAIL > 0) {
+      float dp[TAIL / 2];
+      const uint64_t vd = wgmma_desc_sw128(vbase + NC * WG_TILE, 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k)
+        wgmma_ss<TAIL>(dp, odesc + 2 * k, vd + 2 * k, k);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int j = 0; j < TAIL / 8; ++j) {
+        r0 += sacc[(8 * NC + j) * 4] * dp[4 * j] + sacc[(8 * NC + j) * 4 + 1] * dp[4 * j + 1];
+        r1 += sacc[(8 * NC + j) * 4 + 2] * dp[4 * j + 2] + sacc[(8 * NC + j) * 4 + 3] * dp[4 * j + 3];
+      }
+    }
+    r0 = quad_sum(r0);
+    r1 = quad_sum(r1);
+    write_stats(f, mb0 + __log2f(l0), mb1 + __log2f(l1), r0, r1);
 
     // pass 2: dS = P (dP - r) as hi + lo A fragments, dq += dS K
 #pragma unroll
-    for (int j = 0; j < KT; ++j) {
-      float dpa[2][4];
-      dp_tile(j, dpa);
-      uint32_t dsh[4], dsl[4];
+    for (int c = 0; c < NC; ++c) {
+      float dp[32];
+      const uint64_t vd = wgmma_desc_sw128(vbase + c * WG_TILE, 16, 1024);
+      wgmma_fence();
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        split_bf16x2(sacc[2 * j + h][0] * (dpa[h][0] - r0),
-                     sacc[2 * j + h][1] * (dpa[h][1] - r0), dsh[2 * h],
-                     dsl[2 * h]);
-        split_bf16x2(sacc[2 * j + h][2] * (dpa[h][2] - r1),
-                     sacc[2 * j + h][3] * (dpa[h][3] - r1), dsh[2 * h + 1],
-                     dsl[2 * h + 1]);
+      for (int k = 0; k < HD / 16; ++k)
+        wgmma_ss_n64(dp, odesc + 2 * k, vd + 2 * k, k);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dp);
+      uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int jl = 2 * kk + half, js = 8 * c + jl;
+          split_bf16x2(sacc[4 * js] * (dp[4 * jl] - r0),
+                       sacc[4 * js + 1] * (dp[4 * jl + 1] - r0),
+                       hi[kk][2 * half], lo[kk][2 * half]);
+          split_bf16x2(sacc[4 * js + 2] * (dp[4 * jl + 2] - r1),
+                       sacc[4 * js + 3] * (dp[4 * jl + 3] - r1),
+                       hi[kk][2 * half + 1], lo[kk][2 * half + 1]);
+        }
       }
+      const uint64_t kd = wgmma_desc_sw128(slot + c * WG_TILE, 16, 1024);
+      wgmma_fence();
 #pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(kb, Ks + (j * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) *
-                                       LDH + dp * 16 + 8 * (lane >> 4));
-        mma_16816(dqacc[2 * dp], dsh, kb[0], kb[1]);
-        mma_16816(dqacc[2 * dp], dsl, kb[0], kb[1]);
-        mma_16816(dqacc[2 * dp + 1], dsh, kb[2], kb[3]);
-        mma_16816(dqacc[2 * dp + 1], dsl, kb[2], kb[3]);
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_n64_tb(dqacc, hi[kk], kd + (uint64_t)(kk * 128), 1);
+        wgmma_rs_n64_tb(dqacc, lo[kk], kd + (uint64_t)(kk * 128), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dqacc);
+    }
+    if constexpr (TAIL > 0) {
+      float dp[TAIL / 2];
+      const uint64_t vd = wgmma_desc_sw128(vbase + NC * WG_TILE, 16, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k)
+        wgmma_ss<TAIL>(dp, odesc + 2 * k, vd + 2 * k, k);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dp);
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int js = 8 * NC + half;
+        split_bf16x2(sacc[4 * js] * (dp[4 * half] - r0),
+                     sacc[4 * js + 1] * (dp[4 * half + 1] - r0), hi[2 * half],
+                     lo[2 * half]);
+        split_bf16x2(sacc[4 * js + 2] * (dp[4 * half + 2] - r1),
+                     sacc[4 * js + 3] * (dp[4 * half + 3] - r1),
+                     hi[2 * half + 1], lo[2 * half + 1]);
+      }
+      const uint64_t kd = wgmma_desc_sw128(slot + NC * WG_TILE, 16, 1024);
+      wgmma_fence();
+      wgmma_rs_n64_tb(dqacc, hi, kd, 1);
+      wgmma_rs_n64_tb(dqacc, lo, kd, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dqacc);
+    }
+    mbar_arrive(&empty[st]);  // this frame's slot is read for the last time
+  }
+  if constexpr (!dq_one_pass(NP)) write_dq(dqacc);
+}
+
+// dk/dv: a ring slot holds a chunk of 64 queries: Q, dO of each frame the
+// block's keys touch, and the statistics of every frame [2][F][64] (float32)
+constexpr int QC = 64;
+
+__host__ __device__ inline int kv_frames(int N, int F) {
+  const int n = (S1_ROWS - 1) / N + 2;
+  return n < F ? n : F;
+}
+__host__ __device__ inline int kv_stat_bytes(int F) {
+  return (int)round_up((size_t)2 * F * QC * sizeof(float), S1_ALIGN);
+}
+__host__ __device__ inline int kv_stage_bytes(int N, int F) {
+  return QC * ROW_BYTES * (1 + kv_frames(N, F)) + kv_stat_bytes(F);
+}
+__host__ __device__ inline int kv_fixed_bytes() {
+  return S1_ALIGN + 2 * S1_ROWS * ROW_BYTES + S1_BAR_BYTES;
+}
+inline int kv_stages(int N, int F) {
+  const int n = (SMEM_LIMIT - kv_fixed_bytes()) / kv_stage_bytes(N, F);
+  return n < MAX_STAGES ? n : MAX_STAGES;
+}
+
+// The stage-1 dk/dv kernel: one block per 128 keys of a (batch row, head),
+// the keys of all frames in one run (key j = f N + n). Per chunk of 64
+// queries: S^T = K Q^T and dP^T = V dO_f^T for each frame f the warpgroup's
+// 64 keys touch (a row keeps its own frame's), P^T = exp2(scale log2(e)
+// S^T - lse2[f(row)]) and dS^T = P^T (dP^T - r[f(row)]) in float32, then
+// dv += P^T dO_f (rows of other frames masked) and dk += dS^T Q (hi + lo),
+// Q and dO read MN-major from the slot.
+__global__ void __launch_bounds__(S1_THREADS, 1) stage1_dkdv_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap o_map,
+    const __grid_constant__ CUtensorMap st_map, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int B, int S, int F, int N, int C, int heads,
+    float scale, int stages) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((S1_ALIGN - (cvta_smem(smem_raw) & (S1_ALIGN - 1))) &
+                  (S1_ALIGN - 1));
+  const int nfmax = kv_frames(N, F);
+  const int stage_bytes = kv_stage_bytes(N, F);
+  unsigned char* kbuf = smem;
+  unsigned char* vbuf = kbuf + S1_ROWS * ROW_BYTES;
+  unsigned char* ring = vbuf + S1_ROWS * ROW_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + stages * stage_bytes);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + MAX_STAGES;
+  uint64_t* kv_full = bars + 2 * MAX_STAGES;
+
+  const int FN = F * N;
+  const int j0 = blockIdx.x * S1_ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int fu_lo = j0 / N;
+  const int fu_hi = min(F - 1, (min(j0 + S1_ROWS, FN) - 1) / N);
+  const int nch = (S + QC - 1) / QC;
+  const int sbytes = F * QC * (int)sizeof(float);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * S1_WG);
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * S1_WG) {
+    setmaxnreg_producer();
+    if (tid == 128 * S1_WG) {
+      mbar_arrive_expect_tx(kv_full, 2 * S1_ROWS * ROW_BYTES);
+      tma_load_3d(kbuf, &k_map, kv_full, head * HD, j0, b);
+      tma_load_3d(vbuf, &v_map, kv_full, head * HD, j0, b);
+      const int nfu = fu_hi - fu_lo + 1;
+      for (int c = 0; c < nch; ++c) {
+        const int st = c % stages;
+        const uint32_t ph = (c / stages) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_arrive_expect_tx(&full[st], QC * ROW_BYTES * (1 + nfu) + 2 * sbytes);
+        unsigned char* slot = ring + st * stage_bytes;
+        tma_load_3d(slot, &q_map, &full[st], head * HD, c * QC, b);
+        for (int i = 0; i < nfu; ++i)
+          tma_load_4d(slot + QC * ROW_BYTES * (1 + i), &o_map, &full[st],
+                      head * HD, fu_lo + i, c * QC, b);
+        unsigned char* sb = slot + QC * ROW_BYTES * (1 + nfmax);
+        tma_load_3d(sb, &st_map, &full[st], c * QC, 0, b * heads + head);
+        tma_load_3d(sb + sbytes, &st_map, &full[st], c * QC, 0,
+                    (B + b) * heads + head);
       }
     }
-    __syncthreads();  // this buffer is refilled by the next iteration's copy
+    return;
   }
 
-  bf16* out0 = dq + ((size_t)b * S + row0) * C + hoff + 2 * t;
-  bf16* out1 = dq + ((size_t)b * S + row1) * C + hoff + 2 * t;
+  setmaxnreg_consumer();
+  const int wg = tid >> 7, warp = (tid & 127) >> 5;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int kA = j0 + wg * 64 + 16 * warp + g, kB = kA + 8;  // key rows
+  const bool vA = kA < FN, vB = kB < FN;
+  const int fA = vA ? kA / N : F - 1, fB = vB ? kB / N : F - 1;
+  const int wlo = j0 + wg * 64;
+  const bool active = wlo < FN;
+  const int wf_lo = active ? wlo / N : 0;
+  const int wf_hi = active ? (min(wlo + 64, FN) - 1) / N : 0;
+  const float sl2 = scale * 1.4426950408889634f;
+  const uint64_t kd = wgmma_desc_sw128(kbuf + wg * WG_TILE, 16, 1024);
+  const uint64_t vd = wgmma_desc_sw128(vbuf + wg * WG_TILE, 16, 1024);
+  float dkacc[32], dvacc[32];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(out0 + n * 8) =
-          __floats2bfloat162_rn(scale * dqacc[n][0], scale * dqacc[n][1]);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(out1 + n * 8) =
-          __floats2bfloat162_rn(scale * dqacc[n][2], scale * dqacc[n][3]);
+  for (int i = 0; i < 32; ++i) dkacc[i] = dvacc[i] = 0.0f;
+  if (active) mbar_wait(kv_full, 0);
+
+  for (int c = 0; c < nch; ++c) {
+    const int st = c % stages;
+    mbar_wait(&full[st], (c / stages) & 1);
+    if (!active) {
+      mbar_arrive(&empty[st]);
+      continue;
+    }
+    unsigned char* slot = ring + st * stage_bytes;
+    const float* lse = reinterpret_cast<const float*>(slot + QC * ROW_BYTES * (1 + nfmax));
+    const float* rst = lse + F * QC;
+    const uint64_t qd = wgmma_desc_sw128(slot, 16, 1024);
+    auto odesc = [&](int f) {
+      return wgmma_desc_sw128(slot + QC * ROW_BYTES * (1 + f - fu_lo), 16, 1024);
+    };
+
+    float sacc[32], dpacc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < HD / 16; ++k) wgmma_ss_n64(sacc, kd + 2 * k, qd + 2 * k, k);
+    const uint64_t od0 = odesc(wf_lo);
+#pragma unroll
+    for (int k = 0; k < HD / 16; ++k) wgmma_ss_n64(dpacc, vd + 2 * k, od0 + 2 * k, k);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sacc);
+    reg_fence(dpacc);
+    for (int fr = wf_lo + 1; fr <= wf_hi; ++fr) {  // rows of a later frame
+      float dp2[32];
+      const uint64_t od = odesc(fr);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < HD / 16; ++k) wgmma_ss_n64(dp2, vd + 2 * k, od + 2 * k, k);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dp2);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (((i & 2) ? fB : fA) == fr) dpacc[i] = dp2[i];
+    }
+
+    // P^T and dS^T, rows: keys, columns: the chunk's queries
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t4 + (e & 1);
+        const int fr = e < 2 ? fA : fB;
+        const bool ok = (e < 2 ? vA : vB) && c * QC + col < S;
+        // (statistics past S are not written: read them for valid queries)
+        const float p = ok ? fast_exp2(fmaf(sacc[4 * j + e], sl2, -lse[fr * QC + col]))
+                           : 0.0f;
+        dpacc[4 * j + e] = ok ? p * (dpacc[4 * j + e] - rst[fr * QC + col]) : 0.0f;
+        sacc[4 * j + e] = p;
+      }
+    uint32_t pa[4][4], dsh[4][4], dsl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 8 * kk + 2 * q;
+        pa[kk][q] = pack_bf16x2(sacc[i], sacc[i + 1]);
+        split_bf16x2(dpacc[i], dpacc[i + 1], dsh[kk][q], dsl[kk][q]);
+      }
+    }
+    if (wf_lo == wf_hi) {
+      const uint64_t od = odesc(wf_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs_n64_tb(dvacc, pa[kk], od + (uint64_t)(kk * 128), 1);
+    } else {
+      for (int fr = wf_lo; fr <= wf_hi; ++fr) {  // each frame's rows alone
+        uint32_t pm[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            pm[kk][q] = (((q & 1) ? fB : fA) == fr) ? pa[kk][q] : 0u;
+        const uint64_t od = odesc(fr);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_n64_tb(dvacc, pm[kk], od + (uint64_t)(kk * 128), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dvacc);
+      }
+      wgmma_fence();
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_n64_tb(dkacc, dsh[kk], qd + (uint64_t)(kk * 128), 1);
+      wgmma_rs_n64_tb(dkacc, dsl[kk], qd + (uint64_t)(kk * 128), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dkacc);
+    reg_fence(dvacc);
+    mbar_arrive(&empty[st]);
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? kB : kA;
+    if (key >= FN) continue;
+    const size_t o = ((size_t)b * FN + key) * C + head * HD + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * j) = __floats2bfloat162_rn(
+          scale * dkacc[4 * j + 2 * half], scale * dkacc[4 * j + 2 * half + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * j) = __floats2bfloat162_rn(
+          dvacc[4 * j + 2 * half], dvacc[4 * j + 2 * half + 1]);
+    }
   }
 }
 
-template <int KT>
+template <int NP>
 cudaError_t launch_stage1_dq(const bf16* q, const bf16* kf, const bf16* vf,
                              const bf16* dxs, bf16* dq, float* stats, int B,
-                             int S, int F, int N, int C, int heads, float scale,
-                             cudaStream_t st) {
-  constexpr size_t smem = stage1_smem<KT>();
-  cudaError_t err = cudaFuncSetAttribute(
-      stage1_dq_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
+                             int S, int S4, int F, int N, int C, int heads,
+                             float scale, cudaStream_t st) {
+  CUtensorMap qm, km, vm, om;
+  const cuuint64_t row = (cuuint64_t)C * 2;
+  {  // q [B, S, C]: 128 rows of one head
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {row, row * S};
+    const cuuint32_t box[3] = {HD, S1_ROWS, 1};
+    const cudaError_t e = make_bf16_map(&qm, q, 3, dims, strides, box);
+    if (e != cudaSuccess) return e;
+  }
+  {  // kf, vf [B F, N, C]: a frame's NP keys of one head (past N: zeros)
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)B * F};
+    const cuuint64_t strides[2] = {row, row * N};
+    const cuuint32_t box[3] = {HD, NP, 1};
+    cudaError_t e = make_bf16_map(&km, kf, 3, dims, strides, box);
+    if (e != cudaSuccess) return e;
+    e = make_bf16_map(&vm, vf, 3, dims, strides, box);
+    if (e != cudaSuccess) return e;
+  }
+  {  // dxs [B, S, F, C]: 128 rows of one frame and head
+    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)F, (cuuint64_t)S,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {row, row * F, row * F * S};
+    const cuuint32_t box[4] = {HD, 1, S1_ROWS, 1};
+    const cudaError_t e = make_bf16_map(&om, dxs, 4, dims, strides, box);
+    if (e != cudaSuccess) return e;
+  }
+  constexpr int smem = dq_smem_bytes(NP);
+  static const cudaError_t attr = set_smem((const void*)stage1_dq_kernel<NP>, smem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((S + S1_ROWS - 1) / S1_ROWS, heads, B);
-  stage1_dq_kernel<KT><<<grid, S1_THREADS, smem, st>>>(
-      q, kf, vf, dxs, dq, stats, S, F, N, C, heads, scale);
+  stage1_dq_kernel<NP><<<grid, S1_THREADS, smem, st>>>(
+      qm, km, vm, om, dq, stats, S, S4, F, N, C, heads, scale);
   ++launches;
   return cudaGetLastError();
 }
 
-// ---- stage 1, dk and dv --------------------------------------------------
-// One block per batch row, head, frame and 64 keys (4 warps of 16 keys). A
-// warp keeps its keys' K and V rows as A fragments and loops over the
-// queries in chunks of 64 (Q and dO chunks and their statistics copied in one
-// chunk ahead): S^T = K Q^T and dP^T = V dO^T, P^T = exp(scale S^T - max)
-// / sum and dS^T = P^T (dP^T - r) in float32, then dv += P^T dO (P^T in bf16)
-// and dk += dS^T Q (dS^T as hi + lo), accumulated in registers over all
-// queries.
-
-constexpr int KV_KEYS = 64;
-constexpr int KV_THREADS = 128;
-constexpr int QC = 64;  // queries per chunk
-
-__global__ void __launch_bounds__(KV_THREADS) stage1_dkdv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ kf,
-    const bf16* __restrict__ vf, const bf16* __restrict__ dxs,
-    const float* __restrict__ stats, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int S, int F, int N, int C, int heads,
-    float scale) {
-  __shared__ __align__(128) bf16 Qs[2][QC * LDH];
-  __shared__ __align__(128) bf16 Ds[2][QC * LDH];
-  __shared__ float St[2][3][QC];
-  const int n0 = blockIdx.x * KV_KEYS;
-  const int head = blockIdx.y / F, f = blockIdx.y % F, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int hoff = head * HD;
-
-  // this block's K and V rows, staged through the first chunk buffers
-  for (int i = tid; i < KV_KEYS * 8; i += KV_THREADS) {
-    const int r = i >> 3, c8 = (i & 7) * 8, n = n0 + r;
-    const size_t src = (((size_t)b * F + f) * N + n) * C + hoff + c8;
-    if (n < N) {
-      copy16(Qs[0] + r * LDH + c8, kf + src);
-      copy16(Ds[0] + r * LDH + c8, vf + src);
-    } else {
-      zero16(Qs[0] + r * LDH + c8);
-      zero16(Ds[0] + r * LDH + c8);
-    }
+cudaError_t launch_stage1_dkdv(const bf16* q, const bf16* kf, const bf16* vf,
+                               const bf16* dxs, const float* stats, bf16* dk,
+                               bf16* dv, int B, int S, int S4, int F, int N,
+                               int C, int heads, float scale,
+                               cudaStream_t st) {
+  CUtensorMap qm, km, vm, om, sm;
+  const cuuint64_t row = (cuuint64_t)C * 2;
+  {  // q [B, S, C]: a chunk of 64 queries of one head
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {row, row * S};
+    const cuuint32_t box[3] = {HD, QC, 1};
+    const cudaError_t e = make_bf16_map(&qm, q, 3, dims, strides, box);
+    if (e != cudaSuccess) return e;
   }
-  __syncthreads();
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int off = (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDH +
-                    ks * 16 + 8 * (lane >> 4);
-    ldmatrix_x4(ka[ks], Qs[0] + off);
-    ldmatrix_x4(va[ks], Ds[0] + off);
+  {  // kf, vf as [B, F N, C]: 128 keys of one head (past F N: zeros)
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)F * N, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {row, row * F * N};
+    const cuuint32_t box[3] = {HD, S1_ROWS, 1};
+    cudaError_t e = make_bf16_map(&km, kf, 3, dims, strides, box);
+    if (e != cudaSuccess) return e;
+    e = make_bf16_map(&vm, vf, 3, dims, strides, box);
+    if (e != cudaSuccess) return e;
   }
-  __syncthreads();
-
-  const size_t plane = (size_t)gridDim.z * heads * F * S;
-  const float* stm = stats + (((size_t)b * heads + head) * F + f) * S;
-  auto issue = [&](int chunk, int stage) {
-    const int s0 = chunk * QC;
-    for (int i = tid; i < QC * 8; i += KV_THREADS) {
-      const int r = i >> 3, c8 = (i & 7) * 8, s = s0 + r;
-      bf16* qd = Qs[stage] + r * LDH + c8;
-      bf16* dd = Ds[stage] + r * LDH + c8;
-      if (s < S) {
-        cp_async16(qd, q + ((size_t)b * S + s) * C + hoff + c8);
-        cp_async16(dd, dxs + (((size_t)b * S + s) * F + f) * C + hoff + c8);
-      } else {
-        zero16(qd);
-        zero16(dd);
-      }
-    }
-    // a query past S gets weight 0 (1 / sum = 0)
-    for (int i = tid; i < QC; i += KV_THREADS) {
-      const int s = s0 + i;
-      St[stage][0][i] = s < S ? stm[s] : 0.0f;
-      St[stage][1][i] = s < S ? stm[plane + s] : 0.0f;
-      St[stage][2][i] = s < S ? stm[2 * plane + s] : 0.0f;
-    }
-    cp_async_commit();
-  };
-
-  float dkacc[HD / 8][4], dvacc[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dkacc[n][e] = dvacc[n][e] = 0.0f;
-
-  const int nchunks = (S + QC - 1) / QC;
-  issue(0, 0);
-  for (int c = 0; c < nchunks; ++c) {
-    if (c + 1 < nchunks) {
-      issue(c + 1, (c + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* Qc = Qs[c & 1];
-    const bf16* Dc = Ds[c & 1];
-    const float* smax = St[c & 1][0];
-    const float* sinv = St[c & 1][1];
-    const float* sr = St[c & 1][2];
-
-    // S^T and dP^T, tile n: queries 8n + 2t + {0, 1} of keys g (0, 1) and
-    // g + 8 (2, 3)
-    float sacc[QC / 8][4], dpacc[QC / 8][4];
-#pragma unroll
-    for (int n = 0; n < QC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[n][e] = dpacc[n][e] = 0.0f;
-#pragma unroll
-    for (int qb = 0; qb < QC / 16; ++qb) {
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        const int off = (qb * 16 + (lane & 7) + 8 * (lane >> 4)) * LDH + ks * 16 +
-                        8 * ((lane >> 3) & 1);
-        uint32_t bq[4], bd[4];
-        ldmatrix_x4(bq, Qc + off);
-        ldmatrix_x4(bd, Dc + off);
-        mma_16816(sacc[2 * qb], ka[ks], bq[0], bq[1]);
-        mma_16816(sacc[2 * qb + 1], ka[ks], bq[2], bq[3]);
-        mma_16816(dpacc[2 * qb], va[ks], bd[0], bd[1]);
-        mma_16816(dpacc[2 * qb + 1], va[ks], bd[2], bd[3]);
-      }
-    }
-    // P^T (bf16) and dS^T (hi + lo) as A fragments over the query dimension
-    uint32_t pa[QC / 16][4], dsh[QC / 16][4], dsl[QC / 16][4];
-#pragma unroll
-    for (int kb = 0; kb < QC / 16; ++kb) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int n = 2 * kb + half;
-        const int qi = 8 * n + 2 * t;
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qq = qi + (e & 1);
-          p[e] = __expf(sacc[n][e] * scale - smax[qq]) * sinv[qq];
-          ds[e] = p[e] * (dpacc[n][e] - sr[qq]);
-        }
-        pa[kb][2 * half] = pack_bf16x2(p[0], p[1]);
-        pa[kb][2 * half + 1] = pack_bf16x2(p[2], p[3]);
-        split_bf16x2(ds[0], ds[1], dsh[kb][2 * half], dsl[kb][2 * half]);
-        split_bf16x2(ds[2], ds[3], dsh[kb][2 * half + 1], dsl[kb][2 * half + 1]);
-      }
-    }
-    // dv += P^T dO, dk += dS^T Q (B operands stored [query][dim])
-#pragma unroll
-    for (int kb = 0; kb < QC / 16; ++kb) {
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        const int off = (kb * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDH +
-                        dp * 16 + 8 * (lane >> 4);
-        uint32_t bd[4], bq[4];
-        ldmatrix_x4_trans(bd, Dc + off);
-        ldmatrix_x4_trans(bq, Qc + off);
-        mma_16816(dvacc[2 * dp], pa[kb], bd[0], bd[1]);
-        mma_16816(dvacc[2 * dp + 1], pa[kb], bd[2], bd[3]);
-        mma_16816(dkacc[2 * dp], dsh[kb], bq[0], bq[1]);
-        mma_16816(dkacc[2 * dp], dsl[kb], bq[0], bq[1]);
-        mma_16816(dkacc[2 * dp + 1], dsh[kb], bq[2], bq[3]);
-        mma_16816(dkacc[2 * dp + 1], dsl[kb], bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // this buffer is refilled by the next iteration's copy
+  {  // dxs [B, S, F, C]: 64 queries of one frame and head
+    const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)F, (cuuint64_t)S,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {row, row * F, row * F * S};
+    const cuuint32_t box[4] = {HD, 1, QC, 1};
+    const cudaError_t e = make_bf16_map(&om, dxs, 4, dims, strides, box);
+    if (e != cudaSuccess) return e;
   }
+  {  // stats [2 B heads, F, S4] float32: 64 queries of every frame
+    const cuuint64_t dims[3] = {(cuuint64_t)S4, (cuuint64_t)F,
+                                (cuuint64_t)2 * B * heads};
+    const cuuint64_t strides[2] = {(cuuint64_t)S4 * 4, (cuuint64_t)S4 * 4 * F};
+    const cuuint32_t box[3] = {QC, (cuuint32_t)F, 1};
+    const cudaError_t e = make_f32_map(&sm, stats, 3, dims, strides, box);
+    if (e != cudaSuccess) return e;
+  }
+  const int stages = kv_stages(N, F);
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)kv_fixed_bytes() + (size_t)stages * kv_stage_bytes(N, F);
+  cudaError_t e = set_smem((const void*)stage1_dkdv_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((F * N + S1_ROWS - 1) / S1_ROWS, heads, B);
+  stage1_dkdv_kernel<<<grid, S1_THREADS, smem, st>>>(
+      qm, km, vm, om, sm, dk, dv, B, S, F, N, C, heads, scale, stages);
+  ++launches;
+  return cudaGetLastError();
+}
 
-  const int key0 = n0 + warp * 16 + g, key1 = key0 + 8;
-  const size_t base = ((size_t)b * F + f) * N;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    const int col = hoff + n * 8 + 2 * t;
-    if (key0 < N) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + (base + key0) * C + col) =
-          __floats2bfloat162_rn(scale * dkacc[n][0], scale * dkacc[n][1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + (base + key0) * C + col) =
-          __floats2bfloat162_rn(dvacc[n][0], dvacc[n][1]);
-    }
-    if (key1 < N) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + (base + key1) * C + col) =
-          __floats2bfloat162_rn(scale * dkacc[n][2], scale * dkacc[n][3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + (base + key1) * C + col) =
-          __floats2bfloat162_rn(dvacc[n][2], dvacc[n][3]);
-    }
+// f(std::integral_constant<int, HPW>) with HPW = ceil(heads / 4), the heads
+// a warp of the stage-2 row and dWk2 kernels takes
+template <class Fn>
+cudaError_t with_heads_per_warp(int heads, Fn&& f) {
+  switch ((heads + 3) / 4) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    default: return f(std::integral_constant<int, 4>{});
   }
 }
 
 int backward(const bf16* q, const bf16* kf, const bf16* vf, const bf16* wq2,
              const bf16* wk2, const bf16* dout, const bf16* xs, const bf16* q2,
              bf16* dq, bf16* dkf, bf16* dvf, float* dwq2, float* dbq2,
-             float* dwk2, float* y, bf16* pmat, bf16* dxs, float* a2,
-             float* dq2, bf16* dq2b, float* dd, float* part, float* stats,
-             int B, int S, int F, int N, int C, int heads, float scale,
-             cudaStream_t st) {
+             float* dwk2, float* a2, float* dl2, bf16* dxs, float* dq2,
+             bf16* dq2b, float* dd, float* part, float* wpart, float* bpart,
+             float* stats, int B, int S, int F, int N, int C, int heads,
+             float scale, cudaStream_t st) {
   cudaError_t err;
-  const int M = B * S, MF = M * F;
+  const int M = B * S;
+  const int S4 = (int)round_up((size_t)S, 4);
 
-  // Y = xs . Wk2 (float32)
-  GemmArgs ga = {};
-  ga.a = xs; ga.lda = C; ga.b = wk2; ga.ldb = C;
-  ga.M = MF; ga.N = C; ga.K = C; ga.k_chunk = C;
-  ga.out = y;
-  if ((err = gemm<false, false, EPI_F32>(ga, 1, st)) != cudaSuccess) return err;
-
-  stage2_rows_kernel<<<M, heads * 32, 0, st>>>(xs, q2, y, dout, a2, dq2, dq2b,
-                                               pmat, F, C, heads, scale);
-  ++launches;
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // logits, a2, dl2, dq2 and the dbq2 partials
+  err = with_heads_per_warp(heads, [&](auto hpw) {
+    constexpr int HPW = decltype(hpw)::value;
+    const size_t smem = rows_smem(C, F, heads);
+    const cudaError_t e = set_smem((const void*)stage2_rows_kernel<HPW>, smem);
+    if (e != cudaSuccess) return e;
+    stage2_rows_kernel<HPW><<<(M + S2_RT - 1) / S2_RT, S2_THREADS, smem, st>>>(
+        xs, q2, dout, wk2, a2, dl2, dq2, dq2b, bpart, M, F, C, heads, scale);
+    ++launches;
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
 
   // dd = dq2 . Wq2^T (float32)
   GemmArgs gd = {};
   gd.a = dq2b; gd.lda = C; gd.b = wq2; gd.ldb = C;
   gd.M = M; gd.N = C; gd.K = C; gd.k_chunk = C;
   gd.out = dd;
-  if ((err = gemm<false, true, EPI_F32>(gd, 1, st)) != cudaSuccess) return err;
-
-  // dxs = P . Wk2^T + value term + own-frame term (bf16)
-  GemmArgs gx = {};
-  gx.a = pmat; gx.lda = C; gx.b = wk2; gx.ldb = C;
-  gx.M = MF; gx.N = C; gx.K = C; gx.k_chunk = C;
-  gx.S = S; gx.Nk = N; gx.F = F;
-  gx.dxs = dxs; gx.a2 = a2; gx.dout = dout; gx.dd = dd; gx.heads = heads;
-  if ((err = gemm<false, true, EPI_DXS>(gx, 1, st)) != cudaSuccess) return err;
-
-  // dWk2 = xs^T . P over the M * F rows, split-K
-  GemmArgs gk = {};
-  gk.a = xs; gk.lda = C; gk.b = pmat; gk.ldb = C;
-  gk.M = C; gk.N = C; gk.K = MF; gk.k_chunk = split_chunk(MF);
-  gk.out = part; gk.out_z = (size_t)C * C;
-  if ((err = gemm<true, false, EPI_F32>(gk, SPLITS, st)) != cudaSuccess) return err;
-  if ((err = sum_splits(part, dwk2, C * C, st)) != cudaSuccess) return err;
+  if ((err = gemm<false, true>(gd, 1, st)) != cudaSuccess) return err;
 
   // dWq2 = x_diag^T . dq2 over the M rows (own-frame rows of xs), split-K
   GemmArgs gq = {};
@@ -883,34 +1758,65 @@ int backward(const bf16* q, const bf16* kf, const bf16* vf, const bf16* wq2,
   gq.b = dq2b; gq.ldb = C;
   gq.M = C; gq.N = C; gq.K = M; gq.k_chunk = split_chunk(M);
   gq.out = part; gq.out_z = (size_t)C * C;
-  if ((err = gemm<true, false, EPI_F32>(gq, SPLITS, st)) != cudaSuccess) return err;
-  if ((err = sum_splits(part, dwq2, C * C, st)) != cudaSuccess) return err;
+  if ((err = gemm<true, false>(gq, SPLITS, st)) != cudaSuccess) return err;
 
-  // dbq2 = sum over rows of dq2 (float32)
-  const int rows = (M + SPLITS - 1) / SPLITS;
-  colsum_kernel<<<dim3((C + 31) / 32, SPLITS), 256, 0, st>>>(dq2, part, M, C,
-                                                             rows);
-  ++launches;
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = sum_splits(part, dbq2, C, st)) != cudaSuccess) return err;
-
-  // stage 1: dq (and the row statistics), then dk and dv
-  const int kt = (N + 15) / 16;
-  if (kt <= 4)
-    err = launch_stage1_dq<4>(q, kf, vf, dxs, dq, stats, B, S, F, N, C, heads, scale, st);
-  else if (kt <= 8)
-    err = launch_stage1_dq<8>(q, kf, vf, dxs, dq, stats, B, S, F, N, C, heads, scale, st);
-  else if (kt <= 13)
-    err = launch_stage1_dq<13>(q, kf, vf, dxs, dq, stats, B, S, F, N, C, heads, scale, st);
-  else
-    err = launch_stage1_dq<16>(q, kf, vf, dxs, dq, stats, B, S, F, N, C, heads, scale, st);
+  // dWk2 partials over W_SPLITS row ranges
+  err = with_heads_per_warp(heads, [&](auto hpw) {
+    constexpr int HPW = decltype(hpw)::value;
+    const size_t smem = dwk2_smem(C, F, heads);
+    const cudaError_t e = set_smem((const void*)stage2_dwk2_kernel<HPW>, smem);
+    if (e != cudaSuccess) return e;
+    const int rows_per = (int)round_up((size_t)(M + W_SPLITS - 1) / W_SPLITS, S2_RT);
+    stage2_dwk2_kernel<HPW><<<dim3(C / S2_CW, W_SPLITS), S2_THREADS, smem, st>>>(
+        xs, q2, dl2, wpart, M, F, C, heads, rows_per);
+    ++launches;
+    return cudaGetLastError();
+  });
   if (err != cudaSuccess) return err;
 
-  const dim3 gkv((N + KV_KEYS - 1) / KV_KEYS, heads * F, B);
-  stage1_dkdv_kernel<<<gkv, KV_THREADS, 0, st>>>(q, kf, vf, dxs, stats, dkf,
-                                                 dvf, S, F, N, C, heads, scale);
-  ++launches;
-  return cudaGetLastError();
+  // dxs (bf16)
+  {
+    const size_t smem = dxs_smem(C, F, heads);
+    if ((err = set_smem((const void*)stage2_dxs_kernel, smem)) != cudaSuccess)
+      return err;
+    stage2_dxs_kernel<<<(M + S2_RT - 1) / S2_RT, S2_THREADS, smem, st>>>(
+        q2, wk2, dout, a2, dl2, dd, dxs, M, S, N, F, C, heads);
+    ++launches;
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+
+  // the three fixed-order sums
+  {
+    SumJobs jobs;
+    jobs.job[0] = {part, dwq2, C * C, SPLITS};
+    jobs.job[1] = {wpart, dwk2, C * C, W_SPLITS};
+    jobs.job[2] = {bpart, dbq2, C, 2 * ((M + S2_RT - 1) / S2_RT)};
+    sum_splits_kernel<<<dim3(min((C * C / 4 + 255) / 256, 1024), 3), 256, 0, st>>>(jobs);
+    ++launches;
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+
+  // stage 1: dq (and the row statistics), then dk and dv
+  switch (padded_keys(N)) {
+    case 64:
+      err = launch_stage1_dq<64>(q, kf, vf, dxs, dq, stats, B, S, S4, F, N, C, heads, scale, st);
+      break;
+    case 128:
+      err = launch_stage1_dq<128>(q, kf, vf, dxs, dq, stats, B, S, S4, F, N, C, heads, scale, st);
+      break;
+    case 208:
+      err = launch_stage1_dq<208>(q, kf, vf, dxs, dq, stats, B, S, S4, F, N, C, heads, scale, st);
+      break;
+    default:
+      err = launch_stage1_dq<256>(q, kf, vf, dxs, dq, stats, B, S, S4, F, N, C, heads, scale, st);
+  }
+  if (err != cudaSuccess) return err;
+  return launch_stage1_dkdv(q, kf, vf, dxs, stats, dkf, dvf, B, S, S4, F, N,
+                            C, heads, scale, st);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -918,25 +1824,30 @@ int backward(const bf16* q, const bf16* kf, const bf16* vf, const bf16* wq2,
 // Inputs (bf16, contiguous): q [B, S, C]; kf, vf [B, F, N, C]; wq2, wk2
 // [C, C] ([in, out]); dout [B, S, C]; the forward's xs [B, S, F, C] and q2
 // [B, S, C]. Outputs: dq [B, S, C], dkf, dvf [B, F, N, C] in bf16; dwq2,
-// dwk2 [C, C] and dbq2 [C] in float32. Scratch: y float32 [B S F, C]; pmat,
-// dxs bf16 [B S F, C]; a2 float32 [B S, heads, F]; dq2 float32 and dq2b bf16
-// [B S, C]; dd float32 [B S, C]; part float32 [16, C, C]; stats float32
-// [3, B, heads, F, S]. S = F * N, C = heads * 64 (a multiple of 128),
-// F <= 8, N <= 256, heads <= 16. Launches on ``stream``, stores the number
-// of device kernels launched in *launched, and returns the first
-// cudaError_t met.
+// dwk2 [C, C] and dbq2 [C] in float32. Scratch: a2, dl2 float32 [B S,
+// heads, F]; dxs bf16 [B, S, F, C]; dq2 float32 and dq2b bf16 [B S, C]; dd
+// float32 [B S, C]; part float32 [16, C, C]; wpart float32 [5, C, C];
+// bpart float32 [2 ceil(B S / 32), C]; stats float32 [2, B, heads, F, S4]
+// with S4 = S rounded up to 4. S = F * N, C = heads * 64 (a multiple of
+// 128, at most 768: the stage-2 tiles' shared memory), F <= 8, N <= 256.
+// Launches on ``stream``, stores the number of device kernels launched in
+// *launched, and returns the first cudaError_t met.
 extern "C" int traj_core_bwd_bf16(
     const void* q, const void* kf, const void* vf, const void* wq2,
     const void* wk2, const void* dout, const void* xs, const void* q2,
     void* dq, void* dkf, void* dvf, void* dwq2, void* dbq2, void* dwk2,
-    void* y, void* pmat, void* dxs, void* a2, void* dq2, void* dq2b, void* dd,
-    void* part, void* stats, int* launched, int B, int S, int F, int N, int C,
-    int heads, float scale, void* stream) {
+    void* a2, void* dl2, void* dxs, void* dq2, void* dq2b, void* dd,
+    void* part, void* wpart, void* bpart, void* stats, int* launched, int B,
+    int S, int F, int N, int C, int heads, float scale, void* stream) {
   launches = 0;
   *launched = 0;
-  if (B <= 0 || N <= 0 || N > MAX_NP || F <= 0 || F > MAX_F || S != F * N ||
-      heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0)
+  if (B <= 0 || N <= 0 || N > 256 || F <= 0 || F > MAX_F || S != F * N ||
+      heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0 ||
+      C > 768)
     return (int)cudaErrorInvalidValue;
+  const void* tma_ptrs[] = {q, kf, vf, dxs, stats};
+  for (const void* p : tma_ptrs)
+    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
   const int err = backward(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kf),
       static_cast<const bf16*>(vf), static_cast<const bf16*>(wq2),
@@ -944,12 +1855,13 @@ extern "C" int traj_core_bwd_bf16(
       static_cast<const bf16*>(xs), static_cast<const bf16*>(q2),
       static_cast<bf16*>(dq), static_cast<bf16*>(dkf), static_cast<bf16*>(dvf),
       static_cast<float*>(dwq2), static_cast<float*>(dbq2),
-      static_cast<float*>(dwk2), static_cast<float*>(y),
-      static_cast<bf16*>(pmat), static_cast<bf16*>(dxs),
-      static_cast<float*>(a2), static_cast<float*>(dq2),
-      static_cast<bf16*>(dq2b), static_cast<float*>(dd),
-      static_cast<float*>(part), static_cast<float*>(stats), B, S, F, N, C,
-      heads, scale, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(dwk2), static_cast<float*>(a2),
+      static_cast<float*>(dl2), static_cast<bf16*>(dxs),
+      static_cast<float*>(dq2), static_cast<bf16*>(dq2b),
+      static_cast<float*>(dd), static_cast<float*>(part),
+      static_cast<float*>(wpart), static_cast<float*>(bpart),
+      static_cast<float*>(stats), B, S, F, N, C, heads, scale,
+      static_cast<cudaStream_t>(stream));
   *launched = launches;
   return err;
 }

@@ -297,6 +297,76 @@ def trajectory_core_backward_reference(q, kf, vf, wq2, bq2, wk2, bk2, dout,
             torch.zeros_like(bk2))
 
 
+def trajectory_core_backward_mirror(q, kf, vf, wq2, wk2, dout, xs, q2,
+                                    scale, heads, r_from_stage2=False):
+    """Plain mirror of the backward kernel (``csrc/trajectory_block_bwd.cu``):
+    its order of work and its rounding points, in float32 arithmetic on
+    operands at q's dtype, from the forward's residuals xs [B, S, F, C] and
+    q2 [B, S, C]. Stage 2 in the TPU kernel's g-form: g_h = q2_h . Wk2_h^T
+    (float32), the logits g_h . xs_f, a2, da2 = dout_h . xs_f,h, dl2; dg_h =
+    sum_f dl2 xs_f rounded; dq2 = dg_h . Wk2_h (float32) and its rounding
+    dq2b; dWk2 = sum dg_h^T q2_h, dWq2 = x_diag^T dq2b, dbq2 = sum dq2, dd =
+    dq2b . Wq2^T; dxs = sum_h dl2 g_h + a2 dout + dd on the own frame,
+    rounded. Stage 1: the true max-subtracted softmax P, dP = dxs . V, dS =
+    P (dP - r) in float32, dq and dk from dS, dv from P rounded. r is
+    sum_n P dP, as the dq kernel forms it; with ``r_from_stage2`` it is
+    dxs_f,h . xs_f,h of the rounded operands instead, which stage 2 could
+    hand over and which misses the gate on peaked stage-1 logits. Returns (dq, dkf, dvf) at q's dtype and (dwq2, dbq2, dwk2) in
+    float32. Nothing on the card calls it."""
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    hd, dt = C // heads, q.dtype
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    xsf = xs.float()
+    xsh = xsf.reshape(B, S, F, heads, hd)
+    q2h = q2.float().reshape(B, S, heads, hd)
+    wk2h = wk2.float().reshape(C, heads, hd)
+    doh = dout.float().reshape(B, S, heads, hd)
+    rows = torch.arange(S, device=q.device)
+    frame = rows // N
+
+    # stage 2: logits and dl2
+    g = torch.einsum("bshd,chd->bshc", q2h, wk2h)
+    a2 = torch.softmax(torch.einsum("bshc,bsfc->bshf", g, xsf) * scale, -1)
+    da2 = torch.einsum("bshd,bsfhd->bshf", doh, xsh)
+    dl2 = scale * a2 * (da2 - (a2 * da2).sum(-1, keepdim=True))
+    # dq2 and the weight gradients from dg, rounded as an operand
+    dgb = rnd(torch.einsum("bshf,bsfc->bshc", dl2, xsf))
+    dq2 = torch.einsum("bshc,chd->bshd", dgb, wk2h).reshape(B, S, C)
+    dq2b = rnd(dq2)
+    dwk2 = torch.einsum("bshc,bshd->chd", dgb, q2h).reshape(C, C)
+    dwq2 = torch.einsum("bsi,bso->io", xsf[:, rows, frame], dq2b)
+    dbq2 = dq2.sum((0, 1))
+    dd = dq2b @ wq2.float().t()
+    # dxs, rounded once
+    dxs = (torch.einsum("bshf,bshc->bsfc", dl2, g)
+           + torch.einsum("bshf,bshd->bsfhd", a2, doh).reshape(B, S, F, C))
+    dxs[:, rows, frame] += dd
+    dxsh = rnd(dxs).reshape(B, S, F, heads, hd).permute(0, 3, 1, 2, 4)
+
+    # stage 1
+    qh = q.float().reshape(B, S, heads, hd).permute(0, 2, 1, 3)
+    kh = kf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    vh = vf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    p = torch.softmax(torch.einsum("bhsd,bhfnd->bhsfn", qh, kh) * scale, -1)
+    dp = torch.einsum("bhsfd,bhfnd->bhsfn", dxsh, vh)
+    if r_from_stage2:
+        r = (dxsh * xsh.permute(0, 3, 1, 2, 4)).sum(-1)
+    else:
+        r = (p * dp).sum(-1)
+    ds = p * (dp - r[..., None])
+    dq = scale * torch.einsum("bhsfn,bhfnd->bhsd", ds, kh)
+    dk = scale * torch.einsum("bhsfn,bhsd->bhfnd", ds, qh)
+    dv = torch.einsum("bhsfn,bhsfd->bhfnd", rnd(p), dxsh)
+    return (dq.permute(0, 2, 1, 3).reshape(B, S, C).to(dt),
+            dk.permute(0, 2, 3, 1, 4).reshape(B, F, N, C).to(dt),
+            dv.permute(0, 2, 3, 1, 4).reshape(B, F, N, C).to(dt),
+            dwq2, dbq2, dwk2)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     return _build.bind("trajectory_block", "traj_core_bf16",
@@ -318,7 +388,7 @@ def _v7_kernel_fn():
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel_fn():
     return _build.bind("trajectory_block_bwd", "traj_core_bwd_bf16",
-                       n_ptr=24, n_int=6, n_float=1)
+                       n_ptr=25, n_int=6, n_float=1)
 
 
 _VARIANT_SYMBOLS = {5: ("trajectory_block_v5", "traj_core_v5_bf16"),
@@ -474,7 +544,9 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
                      scratch=None):
     """Backward kernel -> (dq, dkf, dvf, dwq2, dbq2, dwk2) in the operands'
     dtype (bf16). A dict passed as ``scratch`` receives the kernel's scratch
-    tensors (among them dxs [B, S, F, C] and dq2 [B, S, C])."""
+    tensors (among them dxs [B, S, F, C] and dq2 [B, S, C]); none of them is
+    a float32 [B S F, C] tensor. Its stage-2 tiles hold C <= 768 (12
+    heads)."""
     global BWD_LAUNCHES, BWD_DEVICE_LAUNCHES
     _check_operands(q, kf, vf, wq2, bq2, wk2, heads, (dout, xs, q2))
     B, S, C = q.shape
@@ -482,6 +554,9 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
     if (tuple(dout.shape) != (B, S, C) or tuple(xs.shape) != (B, S, F, C)
             or tuple(q2.shape) != (B, S, C)):
         raise ValueError("dout, xs and q2 do not match the operands")
+    if C > 768:
+        raise ValueError(f"trajectory backward kernel holds C <= 768 (12 "
+                         f"heads) in its stage-2 tiles, got C={C}")
     dev, M = q.device, B * S
 
     def buf(*shape, dtype=torch.float32):
@@ -490,11 +565,12 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
     bf = torch.bfloat16
     grads = (buf(B, S, C, dtype=bf), buf(B, F, N, C, dtype=bf),
              buf(B, F, N, C, dtype=bf), buf(C, C), buf(C), buf(C, C))
-    work = {"y": buf(M * F, C), "pmat": buf(M * F, C, dtype=bf),
-            "dxs": buf(B, S, F, C, dtype=bf), "a2": buf(M, heads, F),
-            "dq2": buf(B, S, C), "dq2b": buf(M, C, dtype=bf),
-            "dd": buf(M, C), "part": buf(16, C, C),
-            "stats": buf(3, B, heads, F, S)}
+    work = {"a2": buf(M, heads, F), "dl2": buf(M, heads, F),
+            "dxs": buf(B, S, F, C, dtype=bf), "dq2": buf(B, S, C),
+            "dq2b": buf(M, C, dtype=bf), "dd": buf(M, C),
+            "part": buf(16, C, C), "wpart": buf(5, C, C),
+            "bpart": buf(2 * -(-M // 32), C),
+            "stats": buf(2, B, heads, F, -(-S // 4) * 4)}
     launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -16,7 +16,8 @@ least one of them (kernels launched with programmatic dependent launch
 overlap, so the sum can exceed it) and its share of the wall time, the
 events with the most device time, and the events that add the most to the
 busy time (``top_exposed``: from the later of an event's start and the end
-of every event before it, to its own end). STEVE's rollout is one replay of its
+of every event before it, to its own end), and the peak device memory
+allocated over the traced calls. STEVE's rollout is one replay of its
 captured CUDA graph (made in the warm-up). ``--trace`` also writes the
 Chrome trace to the path given. The labeled serving variants:
 ``--int8`` (``TPU.INT8_SERVING``: W8A8 dense layers in the flagship, the
@@ -112,12 +113,14 @@ def main():
     for _ in range(2):
         fn(*inputs)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
             fn(*inputs)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.iters
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # device-side events only: a CPU op's device time repeats its kernels',
     # and so does a user annotation's span on the device (the optimizer's)
     rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
@@ -144,6 +147,7 @@ def main():
         "device_ms_per_call": device_ms if rows else "not measured",
         "device_busy_ms_per_call": busy_ms if rows else "not measured",
         "device_busy_share": busy_ms / wall_ms if rows else "not measured",
+        "peak_memory_gb": peak_gb,
         "top_kernels": [
             {"name": k[:120], "launches_per_call": c / args.iters,
              "device_ms_per_call": us / 1e3 / args.iters}

@@ -177,7 +177,7 @@ def _c_signature(source, symbol):
 
 @pytest.mark.parametrize("source,symbol,n_ptr,n_int,n_float", [
     ("trajectory_block.cu", "traj_core_bf16", 9, 6, 1),
-    ("trajectory_block_bwd.cu", "traj_core_bwd_bf16", 24, 6, 1),
+    ("trajectory_block_bwd.cu", "traj_core_bwd_bf16", 25, 6, 1),
     ("patch_embed.cu", "patch_embed_bf16", 4, 10, 0),
     ("ar_decode.cu", "ar_decode_step_bf16", 17, 7, 1),
     ("ar_decode.cu", "ar_decode_step_w8a8", 20, 7, 1),
