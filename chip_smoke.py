@@ -7,9 +7,12 @@ Phases (one JSON line each; any failure exits non-zero):
      every comparison, the CUDA kernels built from focus_tpu_torch/csrc/;
   2. each kernel against its plain PyTorch version on the card, at the
      shapes its main path gives it (plus extreme stage-1 logits for the
-     trajectory core's forward and backward, and other row counts, step
-     indices and a narrow decoder for the decode step); kernel, plain and
-     (where one exists) library times by CUDA events;
+     trajectory core's forward and backward, ragged and small shapes, the
+     xs and q2 the forward writes, the patch embed at the 336 crop, T = 15
+     and other C and D, and other row counts, step indices and a narrow
+     decoder for the decode step), the redesigned kernels twice bit-equal;
+     kernel, plain and (where one exists) library times by CUDA events, the
+     patch embed and F.conv3d in turns on the same bf16 video;
   3. the port's layers against the golden fixtures of the reference
      (ORViT-MF, and STEVE's dVAE, slot attention and transformer decoder;
      plain path, float32, on the card);
@@ -246,6 +249,25 @@ def check_close(name, out, ref, rel=KERNEL_TOL_REL):
     return err, scale
 
 
+def check_stage1_outputs(tb, args, scale, heads, tag):
+    """xs and q2 that kernel 1 writes on the way (what kernel 7 reads),
+    against the plain stage 1 and q2 in float32 on the same inputs, and a
+    second call bit-equal to the first (out, xs and q2)."""
+    first = tb._launch(*args[:6], scale, heads)
+    second = tb._launch(*args[:6], scale, heads)
+    xs_ref, q2_ref = tb.trajectory_core_stage1_reference(
+        *[a.float() for a in args[:5]], scale, heads)
+    torch.cuda.synchronize()
+    xs_err, xs_max = check_close(f"trajectory_block {tag} xs", first[1], xs_ref)
+    q2_err, q2_max = check_close(f"trajectory_block {tag} q2", first[2], q2_ref)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    if not same:
+        raise AssertionError(f"trajectory_block {tag}: two calls differ")
+    return {"xs_max_abs_err": xs_err, "xs_max_abs_ref": xs_max,
+            "q2_max_abs_err": q2_err, "q2_max_abs_ref": q2_max,
+            "two_calls_bitwise_equal": same}
+
+
 def phase_trajectory_kernel():
     from focus_tpu_torch.ops import trajectory_block as tb
 
@@ -254,7 +276,8 @@ def phase_trajectory_kernel():
     gen.manual_seed(0)
     cases, errs = [], []
     timing = None
-    for B, N in ((2, 196), (2, 200), (8, 196), (8, 200)):
+    # B=2 N=65: ragged query tiles (S = 520) and keys padded 65 -> 128
+    for B, N in ((2, 196), (2, 200), (1, 196), (2, 65), (8, 196), (8, 200)):
         args = core_inputs(B, N, gen)
         out = tb.fused_trajectory_core(*args, scale, heads)
         ref = tb.trajectory_core_reference(*[a.float() for a in args],
@@ -263,10 +286,14 @@ def phase_trajectory_kernel():
         err, ref_max = check_close(f"trajectory_block B={B} N={N}", out, ref)
         errs.append(err)
         case = {"B": B, "S": 8 * N, "N": N, "max_abs_err": err,
-                "max_abs_ref": ref_max}
+                "max_abs_ref": ref_max,
+                **check_stage1_outputs(tb, args, scale, heads,
+                                       f"B={B} N={N}")}
         if B == 8:
             S, C = 8 * N, 768
             case["kernel_ms"] = time_ms(
+                lambda: tb.fused_trajectory_core(*args, scale, heads))
+            case["kernel_ms_back_to_back"] = time_ms_back_to_back(
                 lambda: tb.fused_trajectory_core(*args, scale, heads))
             case["plain_ms"] = time_ms(
                 lambda: tb.trajectory_core_reference(*args, scale, heads),
@@ -274,10 +301,27 @@ def phase_trajectory_kernel():
             case["bound_ms"], case["bound_by"] = bound(
                 core_flops(B, S, 8, N, C), nbytes(*args) + nbytes(out))
             case["xs_scratch_bytes"] = B * S * 8 * C * 2
+            case["plan"] = tb.trajectory_core_plan(B, S, 8, N, heads)
             if N == 196:
                 timing = case
         del args, out, ref
         cases.append(case)
+    # the other shapes the kernel takes: 16 heads (at M = 7200 in 64-row
+    # blocks with two stage-2 ring slots), 2 heads, F = 4 and F = 1 (frames
+    # past F read as zero)
+    for B, N, F, h in ((1, 256, 8, 16), (4, 225, 8, 16), (2, 50, 4, 2),
+                       (1, 196, 1, 12)):
+        args = core_inputs(B, N, gen, F=F, C=64 * h)
+        out = tb.fused_trajectory_core(*args, scale, h)
+        ref = tb.trajectory_core_reference(*[a.float() for a in args],
+                                           scale, h)
+        torch.cuda.synchronize()
+        tag = f"B={B} N={N} F={F} heads={h}"
+        err, ref_max = check_close(f"trajectory_block {tag}", out, ref)
+        errs.append(err)
+        cases.append({"B": B, "N": N, "F": F, "heads": h, "max_abs_err": err,
+                      "max_abs_ref": ref_max,
+                      **check_stage1_outputs(tb, args, scale, h, tag)})
     for sign, mag in ((-1.0, 25.0), (-1.0, 60.0), (1.0, 50.0)):
         args = extreme_inputs(sign, mag, gen)
         out = tb.fused_trajectory_core(*args, scale, heads)
@@ -288,10 +332,14 @@ def phase_trajectory_kernel():
                                    out, ref)
         errs.append(err)
         cases.append({"extreme_logit_nats": sign * mag, "max_abs_err": err,
-                      "max_abs_ref": ref_max})
+                      "max_abs_ref": ref_max,
+                      **check_stage1_outputs(tb, args, scale, heads,
+                                             f"extreme {sign * mag}")})
     emit({"phase": "kernel", "name": "trajectory_block", "ok": True,
           "tolerance": f"max|err| <= {KERNEL_TOL_REL} x max|ref| (bf16 "
-                       "intermediates vs plain float32 on the same inputs)",
+                       "intermediates vs plain float32 on the same inputs), "
+                       "for out and for the xs and q2 the kernel writes; two "
+                       "calls bit-equal",
           "library_ms": None,
           "library_note": "no single PyTorch call computes trajectory attention",
           "cases": cases})
@@ -301,7 +349,13 @@ def phase_trajectory_kernel():
             "max_abs_err": max(errs), "ms": timing["kernel_ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": timing["bound_by"], "library_ms": None,
-            "shape": "B=8 S=1568 N=196 F=8 C=768 heads=12"}
+            "ms_back_to_back": timing["kernel_ms_back_to_back"],
+            "ms_note": "ms: the median of calls each from an idle card (the "
+                       "host's launch work included); ms_back_to_back: 20 "
+                       "calls issued back to back between two events, the "
+                       "mean",
+            "shape": "B=8 S=1568 N=196 F=8 C=768 heads=12 (S=1600: "
+                     f"{cases[5]['kernel_ms']:.4f} ms)"}
 
 
 def core_bwd_flops(B, S, F, N, C, heads):
@@ -751,47 +805,137 @@ def phase_variants():
     return rows
 
 
+def time_in_turns(fns, warmup=3, iters=TIMED_ITERS):
+    """Median per-call CUDA-event time (ms) of each callable, the callables
+    called in turns (one call of each a round) after ``warmup`` calls of
+    each: a comparison that the card's clocks and its neighbours move
+    alike."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(iters):
+        for i, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
+def patch_case(pe, shape, kernel, D, gen, dtype):
+    """Kernel 2 on a random video of ``shape`` at ``dtype`` against the
+    plain version in float32 (same bf16-rounded video, weight and bias),
+    and a second call bit-equal to the first."""
+    x = torch.rand(*shape, generator=gen, device=DEV).to(dtype)
+    w = (torch.randn(*kernel, shape[-1], D, generator=gen, device=DEV)
+         * 0.02).bfloat16()
+    b = (torch.randn(D, generator=gen, device=DEV) * 0.02).bfloat16()
+    out, thw = pe.patch_embed_3d(x, w, b, kernel, torch.bfloat16)
+    again, _ = pe.patch_embed_3d(x, w, b, kernel, torch.bfloat16)
+    ref = pe.patch_embed_reference(x.bfloat16().float(), w.float(), b.float(),
+                                   kernel)
+    torch.cuda.synchronize()
+    B, T, H, W, _ = shape
+    tp, hp, wp = T // kernel[0], H // kernel[1], W // kernel[2]
+    if tuple(out.shape) != (B, tp * hp * wp, D) or thw != (tp, hp, wp):
+        raise AssertionError(f"patch_embed {shape}: shape {tuple(out.shape)}")
+    tag = f"patch_embed {list(shape)} {str(dtype)[6:]} D={D}"
+    err, ref_max = check_close(tag, out, ref)
+    if not torch.equal(out, again):
+        raise AssertionError(f"{tag}: two calls differ")
+    return {"video": list(shape), "dtype": str(dtype)[6:], "kernel": kernel,
+            "D": D, "max_abs_err": err, "max_abs_ref": ref_max,
+            "two_calls_bitwise_equal": True,
+            "plan": pe.patch_embed_plan(shape, kernel, D, dtype)}
+
+
 def phase_patch_kernel():
+    """Kernel 2 against its plain version on the flagship's video (bf16 and
+    the float32 video the model hands it), the 336 crop, T = 15 (the last
+    frame outside every tubelet) and other C and D, each call twice
+    bit-equal; its time on the float32 video; and, in turns on the same
+    bf16 video, the kernel and F.conv3d on a contiguous NCTHW copy and on
+    the channels_last_3d view (no copy), the faster of the two being
+    ``library_ms``."""
     from focus_tpu_torch.ops import patch_embed as pe
 
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1)
     kernel, D = (2, 16, 16), 768
+    cases = [patch_case(pe, shape, k, d, gen, dtype) for shape, k, d, dtype in (
+        ((8, 16, 224, 224, 3), kernel, D, torch.bfloat16),
+        ((8, 16, 224, 224, 3), kernel, D, torch.float32),
+        ((4, 16, 336, 336, 3), kernel, D, torch.float32),
+        ((8, 15, 224, 224, 3), kernel, D, torch.float32),
+        ((2, 4, 64, 64, 8), kernel, 384, torch.bfloat16),
+        ((2, 5, 40, 40, 3), (2, 8, 8), 100, torch.bfloat16),
+        ((1, 4, 37, 45, 1), (1, 4, 5), 36, torch.float32),
+        ((1, 2, 15, 15, 3), (1, 3, 3), 64, torch.bfloat16))]
     x32 = torch.rand(8, 16, 224, 224, 3, generator=gen, device=DEV)
     x16 = x32.bfloat16()
     w = (torch.randn(2, 16, 16, 3, D, generator=gen, device=DEV) * 0.02).bfloat16()
     b = (torch.randn(D, generator=gen, device=DEV) * 0.02).bfloat16()
-    ref = pe.patch_embed_reference(x16.float(), w.float(), b.float(), kernel)
-    errs = []
-    for x in (x16, x32):  # bf16 video, and the float32 video the model hands it
-        out, thw = pe.patch_embed_3d(x, w, b, kernel, torch.bfloat16)
-        torch.cuda.synchronize()
-        assert tuple(out.shape) == (8, 1568, D) and thw == (8, 14, 14)
-        errs.append(check_close(f"patch_embed {x.dtype}", out, ref)[0])
     kernel_ms = time_ms(lambda: pe.patch_embed_3d(x32, w, b, kernel, torch.bfloat16))
+    kernel_b2b_ms = time_ms_back_to_back(
+        lambda: pe.patch_embed_3d(x32, w, b, kernel, torch.bfloat16))
     plain_ms = time_ms(lambda: pe.patch_embed_reference(x32, w, b, kernel,
                                                          torch.bfloat16))
-    x_ncthw = x16.permute(0, 4, 1, 2, 3).contiguous()
+    conv = torch.nn.functional.conv3d
     w_conv = w.permute(4, 3, 0, 1, 2).contiguous()
-    library_ms = time_ms(
-        lambda: torch.nn.functional.conv3d(x_ncthw, w_conv, b, stride=kernel))
+    w_conv_cl = w_conv.contiguous(memory_format=torch.channels_last_3d)
+    x_ncthw = x16.permute(0, 4, 1, 2, 3).contiguous()
+    x_cl = x16.permute(0, 4, 1, 2, 3)  # channels_last_3d strides, no copy
+    ref16 = pe.patch_embed_reference(x16.float(), w.float(), b.float(), kernel)
+    for name, lib in (("ncthw_copy", conv(x_ncthw, w_conv, b, stride=kernel)),
+                      ("channels_last_view",
+                       conv(x_cl, w_conv_cl, b, stride=kernel))):
+        check_close(f"F.conv3d {name}", lib.flatten(2).transpose(1, 2), ref16)
+    k16_ms, ncthw_ms, cl_ms = time_in_turns([
+        lambda: pe.patch_embed_3d(x16, w, b, kernel, torch.bfloat16),
+        lambda: conv(x_ncthw, w_conv, b, stride=kernel),
+        lambda: conv(x_cl, w_conv_cl, b, stride=kernel)])
+    library_ms = min(ncthw_ms, cl_ms)
+    library_form = ("contiguous NCTHW copy" if ncthw_ms <= cl_ms
+                    else "channels_last_3d view")
     M, K = 8 * 1568, 2 * 16 * 16 * 3
     bound_ms, bound_by = bound(2 * M * K * D,
                                nbytes(x32, w, b) + M * D * 2)
+    bound16_ms, _ = bound(2 * M * K * D, nbytes(x16, w, b) + M * D * 2)
     emit({"phase": "kernel", "name": "patch_embed", "ok": True,
           "tolerance": f"max|err| <= {KERNEL_TOL_REL} x max|ref| (bf16 output "
-                       "vs plain float32 on the same bf16 inputs)",
-          "max_abs_err_bf16_video": errs[0], "max_abs_err_f32_video": errs[1],
-          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-          "library_ms": library_ms,
-          "library_call": "F.conv3d, bf16, NCTHW input permuted beforehand",
+                       "vs plain float32 on the same bf16-rounded inputs); "
+                       "two calls bit-equal",
+          "cases": cases,
+          "kernel_ms": kernel_ms, "kernel_ms_back_to_back": kernel_b2b_ms,
+          "plain_ms": plain_ms,
+          "in_turns": {"kernel_bf16_ms": k16_ms,
+                       "conv3d_ncthw_copy_ms": ncthw_ms,
+                       "conv3d_channels_last_view_ms": cl_ms,
+                       "bound_bf16_ms": bound16_ms,
+                       "timing": f"{TIMED_ITERS} rounds of one call each, "
+                                 "the medians"},
+          "library_ms": library_ms, "library_form": library_form,
+          "library_call": "F.conv3d on the same bf16 video, bias included; "
+                          "the faster of the contiguous NCTHW copy (made "
+                          "beforehand) and the channels_last_3d view",
           "bound_ms": bound_ms, "bound_by": bound_by})
     return {"name": "patch_embed", "route": "cuda",
             "source": "focus_tpu_torch/csrc/patch_embed.cu",
             "replaces": "focus_tpu/ops/pallas/patch_embed.py:33",
-            "max_abs_err": max(errs), "ms": kernel_ms, "plain_ms": plain_ms,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
+            "ms_bf16_in_turns": k16_ms, "bound_ms_bf16": bound16_ms,
+            "ms_back_to_back": kernel_b2b_ms,
+            "library_note": f"F.conv3d ({library_form}) in turns with the "
+                            "kernel on the same bf16 video; ms is the kernel "
+                            "on the float32 video the model hands it",
             "shape": "video [8,16,224,224,3] f32 -> [8,1568,768] bf16"}
 
 

@@ -1,0 +1,244 @@
+"""Hold this tree's kernels against another commit's build of them, on one
+GPU, in one process.
+
+    git archive <commit> focus_tpu_torch/csrc | tar -x -C proof/parent
+    python3 -m focus_tpu_torch.compare_parent \
+        --parent proof/parent/focus_tpu_torch/csrc
+
+Compiles the other commit's sources (with this tree's nvcc flags, into
+``build/parent/``) and calls both builds through this tree's wrappers on
+the same inputs:
+
+  - bit-equality: kernel 8 (``space_stage_bf16``, the space stage at the
+    learned-v shapes), and the v5 and v6 forwards (``traj_core_v5_bf16``,
+    ``traj_core_v6_bf16``: out, xs and q2) at the flagship's shapes and on
+    an extreme input; ``torch.equal`` on every output;
+  - kernel 1 (``traj_core_bf16``) at B = 8, N = 196 and 200: the other
+    build, this one, this one, the other, each the median of 20 per-call
+    CUDA-event times, and each build's output against the plain version;
+  - kernel 2 (``patch_embed_bf16``) on the flagship's video
+    [8, 16, 224, 224, 3]: the other build, this one and ``F.conv3d`` (on a
+    contiguous NCTHW copy and on the channels_last_3d view of the same bf16
+    video) called in turns, 20 rounds after warm-up, the medians; and both
+    builds on the float32 video.
+
+Prints one JSON line per comparison and the card's nvidia-smi line; exits
+non-zero if a bit-equality fails or no CUDA device is present.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+from focus_tpu_torch.ops import _build
+from focus_tpu_torch.ops import patch_embed as pe
+from focus_tpu_torch.ops import trajectory_attention as ta
+from focus_tpu_torch.ops import trajectory_block as tb
+
+SYMBOLS = {  # source -> (symbol, n_ptr, n_int, n_float)
+    "trajectory_attention": ("space_stage_bf16", 4, 5, 1),
+    "trajectory_block": ("traj_core_bf16", 9, 6, 1),
+    "trajectory_block_v5": ("traj_core_v5_bf16", 11, 6, 1),
+    "trajectory_block_v6": ("traj_core_v6_bf16", 11, 6, 1),
+    "patch_embed": ("patch_embed_bf16", 4, 10, 0),
+}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def build_parent(csrc):
+    """Compile the other commit's sources in parallel -> {source: bound C
+    function}."""
+    out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "parent")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name in SYMBOLS:
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
+               os.path.join(csrc, f"{name}.cu")]
+        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT,
+                                             text=True))
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the other {name}.cu:\n{log}")
+        symbol, n_ptr, n_int, n_float = SYMBOLS[name]
+        fn = getattr(ctypes.CDLL(lib), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+class use:
+    """Within the block, ``module.<attr>`` returns ``fn`` (the other
+    build's bound function) instead of this tree's."""
+
+    def __init__(self, module, attr, fn):
+        self.module, self.attr, self.fn = module, attr, fn
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.attr)
+        setattr(self.module, self.attr, self.fn)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.saved)
+
+
+def time_turns(fns, warmup=3, iters=20):
+    """Median per-call CUDA-event time (ms) of each callable, the callables
+    called in turns, one call of each a round."""
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(iters):
+        for i, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end))
+    return [statistics.median(t) for t in times]
+
+
+def core_inputs(B, N, gen, F=8, C=768):
+    def rnd(*shape, sc=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * sc).bfloat16()
+
+    return [rnd(B, F * N, C), rnd(B, F, N, C), rnd(B, F, N, C),
+            rnd(C, C, sc=3 * C ** -0.5), rnd(C, sc=0.1),
+            rnd(C, C, sc=3 * C ** -0.5)]
+
+
+def max_rel(out, ref):
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True,
+                    help="the other commit's focus_tpu_torch/csrc directory")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        emit({"ok": False, "error": "CUDA is not available"})
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    parent = build_parent(args.parent)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    scale, heads, failures = 64 ** -0.5, 12, []
+
+    # kernel 8, bit for bit
+    for N in (196, 200, 65):
+        S = 8 * N
+        q, k, v = (torch.randn(96, S, 64, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(3))
+        kf, vf = k.reshape(96, 8, N, 64), v.reshape(96, 8, N, 64)
+        mine = ta._launch(q, kf, vf, scale)
+        with use(ta, "_kernel_fn", lambda: parent["trajectory_attention"]):
+            theirs = ta._launch(q, kf, vf, scale)
+        torch.cuda.synchronize()
+        same = torch.equal(mine, theirs)
+        failures += [] if same else [f"space_stage N={N}"]
+        emit({"compare": "space_stage", "N": N, "bitwise_equal": same})
+
+    # v5 and v6, bit for bit (out, xs, q2)
+    inputs = [("B=8 N=196", core_inputs(8, 196, gen)),
+              ("B=2 N=200", core_inputs(2, 200, gen))]
+    for tag, a in inputs:
+        for version in (5, 6):
+            mine = tb._launch_variant(version, *a, scale, heads)
+            with use(tb, "_variant_kernel_fn",
+                     lambda v: parent[f"trajectory_block_v{v}"]):
+                theirs = tb._launch_variant(version, *a, scale, heads)
+            torch.cuda.synchronize()
+            same = all(x is None and y is None or torch.equal(x, y)
+                       for x, y in zip(mine[:3], theirs[:3]))
+            same = same and all(torch.equal(mine[3][k], theirs[3][k])
+                                for k in mine[3])
+            failures += [] if same else [f"v{version} {tag}"]
+            emit({"compare": f"trajectory_block_v{version}", "case": tag,
+                  "bitwise_equal": same})
+
+    # kernel 1: the other build and this one in turns
+    for N in (196, 200):
+        a = core_inputs(8, N, gen)
+        ref = tb.trajectory_core_reference(*[t.float() for t in a], None,
+                                           scale, heads)
+        out = tb._launch(*a, scale, heads)[0]
+        with use(tb, "_kernel_fn", lambda: parent["trajectory_block"]):
+            out_p = tb._launch(*a, scale, heads)[0]
+
+        def theirs():
+            with use(tb, "_kernel_fn", lambda: parent["trajectory_block"]):
+                tb._launch(*a, scale, heads)
+
+        def mine():
+            tb._launch(*a, scale, heads)
+
+        t_p1, t_c1, t_c2, t_p2 = time_turns([theirs, mine, mine, theirs])
+        emit({"compare": "trajectory_block", "B": 8, "N": N,
+              "other_ms": [t_p1, t_p2], "this_ms": [t_c1, t_c2],
+              "this_max_err_rel": max_rel(out, ref),
+              "other_max_err_rel": max_rel(out_p, ref)})
+
+    # kernel 2 and F.conv3d in turns on the same bf16 video
+    kernel, D = (2, 16, 16), 768
+    x32 = torch.rand(8, 16, 224, 224, 3, generator=gen, device="cuda")
+    x16 = x32.bfloat16()
+    w = (torch.randn(2, 16, 16, 3, D, generator=gen, device="cuda")
+         * 0.02).bfloat16()
+    b = (torch.randn(D, generator=gen, device="cuda") * 0.02).bfloat16()
+    w_conv = w.permute(4, 3, 0, 1, 2).contiguous()
+    w_conv_cl = w_conv.contiguous(memory_format=torch.channels_last_3d)
+    x_ncthw = x16.permute(0, 4, 1, 2, 3).contiguous()
+    x_cl = x16.permute(0, 4, 1, 2, 3)
+    conv = torch.nn.functional.conv3d
+    ref = pe.patch_embed_reference(x16.float(), w.float(), b.float(), kernel)
+
+    def run(x, other):
+        if other:
+            with use(pe, "_kernel_fn", lambda: parent["patch_embed"]):
+                return pe._launch(x, w, b, kernel, torch.bfloat16)
+        return pe._launch(x, w, b, kernel, torch.bfloat16)
+
+    errs = {f"{who}_{x.dtype}": max_rel(run(x, who == "other"), ref)
+            for who in ("other", "this") for x in (x16, x32)}
+    t = time_turns([lambda: run(x16, True), lambda: run(x16, False),
+                    lambda: conv(x_ncthw, w_conv, b, stride=kernel),
+                    lambda: conv(x_cl, w_conv_cl, b, stride=kernel)])
+    t32 = time_turns([lambda: run(x32, True), lambda: run(x32, False),
+                      lambda: run(x32, False), lambda: run(x32, True)])
+    emit({"compare": "patch_embed", "video": [8, 16, 224, 224, 3],
+          "bf16_in_turns_ms": {"other": t[0], "this": t[1],
+                               "conv3d_ncthw_copy": t[2],
+                               "conv3d_channels_last_view": t[3]},
+          "f32_ms": {"other": [t32[0], t32[3]], "this": [t32[1], t32[2]]},
+          "max_err_rel": errs})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    emit({"ok": not failures, "failures": failures, "gpu": smi})
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

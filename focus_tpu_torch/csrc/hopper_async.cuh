@@ -1,5 +1,7 @@
 // Inline-PTX pieces of Hopper's asynchronous machinery for the port's
-// redesigned kernels (trajectory_attention.cu, trajectory_block_bwd.cu):
+// redesigned kernels (space_stage_core.cuh, shared by
+// trajectory_attention.cu and trajectory_block.cu; trajectory_block_bwd.cu;
+// patch_embed.cu):
 // mbarriers, TMA tensor copies
 // (tensor maps encoded on the host through the runtime's driver entry point,
 // so the build links no -lcuda), the async-proxy fence, and warpgroup
@@ -60,6 +62,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---- TMA ----------------------------------------------------------------------
+
+// a 2-d tile global -> shared, completed on `bar` (its bytes counted there)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(cvta_smem(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(cvta_smem(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 
 // a 3-d tile global -> shared, completed on `bar` (its bytes counted there)
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -378,6 +391,70 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
         "r"(accumulate));
 }
 
+// d[64 x 256] (+)= A[64 x 16] (registers, the m16n8k16 A fragment of each
+// warp's 16 rows) . B[16 x 256], B MN-major in shared memory (trans-b):
+// four 64-column groups of the 128-byte swizzled layout, lbo bytes apart
+__device__ __forceinline__ void wgmma_rs_n256_tb(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // d[64 x NP] (+)= A . B for the instantiated key counts NP
 template <int NP>
 __device__ __forceinline__ void wgmma_ss(float (&d)[NP / 2], uint64_t da,
@@ -421,22 +498,24 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map of a bf16 tensor of `rank` dims (innermost first, `dims[0]`
-// elements of 128 bytes, so the 128-byte swizzle covers a row), byte
-// strides of dims 1.. and the box copied per TMA call. Elements outside the
+// A tensor map of a bf16 tensor of `rank` dims (innermost first), byte
+// strides of dims 1.. and the box copied per TMA call, in the 128-byte
+// swizzled layout (a box row of 64 elements, 128 bytes) or another
+// `swizzle` (the 32-byte one for rows of 16 elements). Elements outside the
 // tensor read as zero and are not written.
 inline cudaError_t make_bf16_map(CUtensorMap* map, const void* base, int rank,
                                  const cuuint64_t* dims,
                                  const cuuint64_t* strides,
-                                 const cuuint32_t* box) {
+                                 const cuuint32_t* box,
+                                 CUtensorMapSwizzle swizzle =
+                                     CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                         const_cast<void*>(base), dims, strides, box,
                         elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

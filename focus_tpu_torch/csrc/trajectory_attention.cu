@@ -21,361 +21,18 @@
 // spends one ex2 per logit (scale * log2(e) folded into one FMA before it)
 // and lets one warpgroup's exponentials overlap the other's products.
 //
-// Design (one launch a call; a persistent grid of one block per SM, each
-// walking (bh, 128-query tile) units bh-major, so that the blocks in flight
-// share a few bh's K/V in L2 and the producer loads the next unit's tiles
-// under the current one's work; 1,248 units at the learned-v shape, 9 or
-// 10 a block):
-//   - a producer warpgroup (one thread issues; setmaxnreg leaves it 40
-//     registers and gives the consumers 232) keeps a ring of `stages` frame
-//     slots in flight, each K_f and V_f [NP, 64] bf16 copied by TMA in the
-//     128-byte swizzled layout (keys past N read as zero), and a ring of two
-//     Q tiles [128, 64]; every slot has a full and an empty mbarrier;
-//   - two consumer warpgroups own 64 query rows each. Per frame: the logits
-//     S = Q . K_f^T by wgmma m64nNPk16 from shared memory (4 k-steps), the
-//     softmax on the accumulator registers (keys >= N at -inf, the row max
-//     and sum over the quad of lanes that holds a row), P normalised and
-//     rounded to bf16 in registers, which become the A operand of the
-//     second wgmma, m64n64k16 against V_f read MN-major (transposed) from
-//     the slot: P never goes through shared memory;
-//   - the two warpgroups take turns at the tensor cores (ping-pong on two
-//     named barriers): a turn issues PV of the frame before and QK of this
-//     frame back to back, then hands over, so that one warpgroup's
-//     products run while the other's softmax does; a warpgroup writes the
-//     frame before's output as soon as its PV is done, while its QK runs;
-//   - the output tile [64, 64] of a frame is written into one of two
-//     swizzled staging tiles of the warpgroup and leaves by a TMA store
-//     (rows past S are not written), which runs while the next frame's
-//     wgmmas do; each staging tile is reused only after its previous store
-//     has read it;
-//   - shared memory at NP = 208 (N = 196, 200): three K/V slots of 52 KB,
-//     the Q ring 32 KB and the staging tiles 32 KB, 227 KB, one block an
-//     SM; a consumer thread holds the logits of one frame (104 registers),
-//     P of the frame before (52) and the outputs (32) at once.
+// Design: the kernel lives in space_stage_core.cuh, which the fused
+// trajectory core's forward (trajectory_block.cu) shares; this source calls
+// it with one head of C = 64 channels and B = BH, as [BH, S, d] /
+// [BH, F, N, d] / [BH, S, F, d] tensors: a persistent grid of one block an
+// SM walking (bh, 128-query tile) units, a producer warpgroup filling a TMA
+// ring of K_f / V_f frame slots, two ping-pong consumer warpgroups running
+// Q K^T and P V on wgmma with the softmax on the accumulator registers, and
+// TMA output stores. At N = 196 and 200 the keys pad to 208 (one m64n208
+// wgmma), three K/V slots fit beside the Q ring and the staging tiles (227
+// KB), one block an SM.
 
-#include "hopper_async.cuh"
-
-typedef __nv_bfloat16 bf16;
-
-namespace {
-
-constexpr int SS_HD = 64;                        // head dim: a row is 128 B
-constexpr int SS_ROW_BYTES = SS_HD * 2;
-constexpr int SS_WG = 2;                         // consumer warpgroups
-constexpr int SS_ROWS = 64 * SS_WG;              // query rows a unit
-constexpr int SS_THREADS = 128 * (SS_WG + 1);   // and the producer's
-// registers a thread after setmaxnreg: the producer warpgroup gives up what
-// the consumers take (3 x 168 = 40 + 2 x 232 a lane of each SM sub-partition)
-constexpr int SS_PRODUCER_REGS = 40;
-constexpr int SS_CONSUMER_REGS = 232;
-constexpr int SS_MAX_NP = 256;
-constexpr int SS_MAX_STAGES = 4;
-constexpr int SS_Q_SLOTS = 2;
-constexpr int SS_OUT_SLOTS = 2;                  // staging tiles a warpgroup
-constexpr int SS_Q_BYTES = SS_ROWS * SS_ROW_BYTES;
-constexpr int SS_WG_ROWS_BYTES = 64 * SS_ROW_BYTES;  // 64 rows of a tile
-constexpr int SS_OUT_BYTES = SS_WG_ROWS_BYTES;
-constexpr int SS_ALIGN = 1024;                   // the 128-byte swizzle atom
-constexpr int SS_BAR_BYTES = 1024;
-constexpr int SS_SMEM_LIMIT = 232448;
-
-// keys a frame is padded to: the instantiated wgmma widths
-__host__ __device__ constexpr int ss_padded_keys(int n) {
-  return n <= 64 ? 64 : (n <= 128 ? 128 : (n <= 208 ? 208 : 256));
-}
-
-__host__ __device__ constexpr int ss_stage_bytes(int np) {
-  return 2 * np * SS_ROW_BYTES;  // K_f and V_f
-}
-
-__host__ __device__ constexpr int ss_fixed_bytes() {
-  return SS_ALIGN + SS_Q_SLOTS * SS_Q_BYTES +
-         SS_WG * SS_OUT_SLOTS * SS_OUT_BYTES + SS_BAR_BYTES;
-}
-
-__host__ __device__ constexpr int ss_stages(int np) {
-  return (SS_SMEM_LIMIT - ss_fixed_bytes()) / ss_stage_bytes(np) <
-                 SS_MAX_STAGES
-             ? (SS_SMEM_LIMIT - ss_fixed_bytes()) / ss_stage_bytes(np)
-             : SS_MAX_STAGES;
-}
-
-__host__ __device__ constexpr int ss_smem_bytes(int np) {
-  return ss_fixed_bytes() + ss_stages(np) * ss_stage_bytes(np);
-}
-
-static_assert(ss_stages(SS_MAX_NP) >= 2, "two frame slots at N = 256");
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int NP>
-__global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
-    const __grid_constant__ CUtensorMap q_map,
-    const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map,
-    const __grid_constant__ CUtensorMap o_map, int BH, int S, int F, int N,
-    float scale_log2e) {
-  constexpr int KV_TILE = NP * SS_ROW_BYTES;
-  constexpr int STAGES = ss_stages(NP);
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((SS_ALIGN - (cvta_smem(smem_raw) & (SS_ALIGN - 1))) &
-                  (SS_ALIGN - 1));
-  unsigned char* kv = smem;                    // slot s: K, then V
-  unsigned char* qbuf = kv + STAGES * 2 * KV_TILE;
-  unsigned char* obuf = qbuf + SS_Q_SLOTS * SS_Q_BYTES;
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(obuf + SS_WG * SS_OUT_SLOTS * SS_OUT_BYTES);
-  uint64_t* kv_full = bars;
-  uint64_t* kv_empty = bars + SS_MAX_STAGES;
-  uint64_t* q_full = bars + 2 * SS_MAX_STAGES;
-  uint64_t* q_empty = q_full + SS_Q_SLOTS;
-
-  const int tiles = (S + SS_ROWS - 1) / SS_ROWS;
-  const int units = BH * tiles;
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&kv_full[s], 1);
-      mbar_init(&kv_empty[s], 128 * SS_WG);
-    }
-    for (int s = 0; s < SS_Q_SLOTS; ++s) {
-      mbar_init(&q_full[s], 1);
-      mbar_init(&q_empty[s], 128 * SS_WG);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (tid >= 128 * SS_WG) {  // the producer warpgroup: one thread issues
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
-                 :: "n"(SS_PRODUCER_REGS));
-    if (tid == 128 * SS_WG) {
-      int stage = 0, u = 0;
-      uint32_t phase = 0;
-      for (int unit = blockIdx.x; unit < units; unit += gridDim.x, ++u) {
-        const int bh = unit / tiles, s0 = (unit % tiles) * SS_ROWS;
-        const int qs = u & 1;
-        mbar_wait(&q_empty[qs], ((u >> 1) & 1) ^ 1);
-        mbar_arrive_expect_tx(&q_full[qs], SS_Q_BYTES);
-        tma_load_3d(qbuf + qs * SS_Q_BYTES, &q_map, &q_full[qs], 0, s0, bh);
-        for (int f = 0; f < F; ++f) {
-          mbar_wait(&kv_empty[stage], phase ^ 1);
-          mbar_arrive_expect_tx(&kv_full[stage], 2 * KV_TILE);
-          unsigned char* kd = kv + stage * 2 * KV_TILE;
-          tma_load_3d(kd, &k_map, &kv_full[stage], 0, 0, bh * F + f);
-          tma_load_3d(kd + KV_TILE, &v_map, &kv_full[stage], 0, 0, bh * F + f);
-          if (++stage == STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
-               :: "n"(SS_CONSUMER_REGS));
-  // a consumer warpgroup: rows 16 warp + g and + 8 of its 64, in the
-  // accumulators' layout (element 4j + e: key / channel 8j + 2 t4 + (e & 1),
-  // the second row for e >= 2)
-  const int wg = tid >> 7, wtid = tid & 127, warp = wtid >> 5;
-  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const bool storer = wtid == 0;
-  unsigned char* my_out = obuf + wg * SS_OUT_SLOTS * SS_OUT_BYTES;
-  // keys below this always exist (N is above the next smaller width)
-  constexpr int SAFE_KEYS = NP == 64 ? 0 : (NP == 128 ? 64 : (NP == 208 ? 128 : 208));
-  // The two warpgroups take turns at the tensor cores (named barriers 3 and
-  // 4): a turn issues PV of the frame before and QK of this frame, so one
-  // warpgroup's products run while the other's softmax does.
-  if (wg == 1) named_barrier_arrive(3, 256);  // warpgroup 0 goes first
-  int stage = 0, oslot = 0, u = 0;
-  uint32_t phase = 0;
-  uint32_t pa[NP / 16][4];  // P of the frame before, bf16 A fragments
-  float oacc[32];
-  for (int unit = blockIdx.x; unit < units; unit += gridDim.x, ++u) {
-    const int bh = unit / tiles;
-    const int row0 = (unit % tiles) * SS_ROWS + wg * 64;  // this warpgroup's
-    const int qs = u & 1;
-    const bool last_unit = unit + (int)gridDim.x >= units;
-    mbar_wait(&q_full[qs], (u >> 1) & 1);
-    const uint64_t dq = wgmma_desc_sw128(
-        qbuf + qs * SS_Q_BYTES + wg * SS_WG_ROWS_BYTES, 16, 1024);
-    int pstage = 0;  // the slot of the frame before
-    for (int f = 0; f <= F; ++f) {
-      const bool qk = f < F, pv = f > 0;
-      float sacc[NP / 2];
-      named_barrier(3 + wg, 256);  // this warpgroup's turn
-      wgmma_fence();
-      if (pv) {  // P . V_f-1: V MN-major, a k-step is 16 keys = 2048 bytes
-        const uint64_t dv = wgmma_desc_sw128(
-            kv + pstage * 2 * KV_TILE + KV_TILE, 16, 1024);
-#pragma unroll
-        for (int kk = 0; kk < NP / 16; ++kk)
-          wgmma_rs_n64_tb(oacc, pa[kk], dv + (uint64_t)(kk * 128), kk);
-      }
-      wgmma_commit();  // group 1: PV (empty at f = 0)
-      if (qk) {  // logits: 4 k-steps of 16 channels, 32 bytes along a row
-        mbar_wait(&kv_full[stage], phase);
-        const uint64_t dk =
-            wgmma_desc_sw128(kv + stage * 2 * KV_TILE, 16, 1024);
-#pragma unroll
-        for (int k = 0; k < SS_HD / 16; ++k)
-          wgmma_ss<NP>(sacc, dq + 2 * k, dk + 2 * k, k);
-      }
-      wgmma_commit();  // group 2: QK (empty at f = F)
-      if (!(wg == 1 && f == F && last_unit))  // the other's turn (none
-        named_barrier_arrive(3 + (1 - wg), 256);  // after the last)
-      wgmma_wait<1>();  // PV done: its output leaves while QK runs
-      reg_fence(oacc);
-
-      if (pv) {  // the frame before: its slot is free, its output leaves
-        mbar_arrive(&kv_empty[pstage]);
-        unsigned char* ob = my_out + oslot * SS_OUT_BYTES;
-        if (storer) tma_store_wait_read<SS_OUT_SLOTS - 1>();
-        named_barrier(1 + wg, 128);  // the staging tile is free again
-        const int r0 = 16 * warp + g, r1 = r0 + 8;
-#pragma unroll
-        for (int j = 0; j < SS_HD / 8; ++j) {
-          *reinterpret_cast<uint32_t*>(ob + r0 * SS_ROW_BYTES +
-                                       ((j ^ (r0 & 7)) << 4) + 4 * t4) =
-              pack_bf16x2(oacc[4 * j], oacc[4 * j + 1]);
-          *reinterpret_cast<uint32_t*>(ob + r1 * SS_ROW_BYTES +
-                                       ((j ^ (r1 & 7)) << 4) + 4 * t4) =
-              pack_bf16x2(oacc[4 * j + 2], oacc[4 * j + 3]);
-        }
-        fence_async_smem();
-        named_barrier(1 + wg, 128);
-        if (storer) {
-          if (row0 < S) tma_store_4d(&o_map, ob, 0, f - 1, row0, bh);
-          tma_store_commit();
-        }
-        oslot ^= 1;
-      }
-      wgmma_wait<0>();
-      reg_fence(sacc);
-      if (!qk) continue;
-      if (f == F - 1) mbar_arrive(&q_empty[qs]);  // Q read for the last time
-      pstage = stage;
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-
-      // softmax over the frame's N keys on the logits' registers
-      float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NP / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = 8 * j + 2 * t4 + (e & 1);
-          const float v = (8 * j + 8 <= SAFE_KEYS || key < N) ? sacc[4 * j + e]
-                                                              : -INFINITY;
-          sacc[4 * j + e] = v;
-          if (e < 2) m0 = fmaxf(m0, v);
-          else m1 = fmaxf(m1, v);
-        }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-      }
-      const float mb0 = m0 * scale_log2e, mb1 = m1 * scale_log2e;
-      float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < NP / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {  // ex2(-inf) = 0 for the padding
-          const float p = fast_exp2(
-              fmaf(sacc[4 * j + e], scale_log2e, e < 2 ? -mb0 : -mb1));
-          sacc[4 * j + e] = p;
-          if (e < 2) l0 += p;
-          else l1 += p;
-        }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-      }
-      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-      // keys 16 kk .. 16 kk + 15 as the A fragment of k-step kk
-#pragma unroll
-      for (int kk = 0; kk < NP / 16; ++kk) {
-        pa[kk][0] = pack_bf16x2(sacc[8 * kk] * inv0, sacc[8 * kk + 1] * inv0);
-        pa[kk][1] = pack_bf16x2(sacc[8 * kk + 2] * inv1, sacc[8 * kk + 3] * inv1);
-        pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4] * inv0, sacc[8 * kk + 5] * inv0);
-        pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6] * inv1, sacc[8 * kk + 7] * inv1);
-      }
-    }
-  }
-  if (storer) tma_store_wait_all();
-}
-
-template <int NP>
-cudaError_t launch_space_stage(const bf16* q, const bf16* kf, const bf16* vf,
-                               bf16* out, int BH, int S, int F, int N,
-                               float scale, cudaStream_t st) {
-  CUtensorMap qm, km, vm, om;
-  const cuuint64_t row = SS_ROW_BYTES;
-  {  // q [BH, S, 64]: a unit's 128 rows (rows past S read as zero)
-    const cuuint64_t dims[3] = {SS_HD, (cuuint64_t)S, (cuuint64_t)BH};
-    const cuuint64_t strides[2] = {row, row * S};
-    const cuuint32_t box[3] = {SS_HD, SS_ROWS, 1};
-    const cudaError_t e = make_bf16_map(&qm, q, 3, dims, strides, box);
-    if (e != cudaSuccess) return e;
-  }
-  {  // kf, vf [BH * F, N, 64]: a frame's NP rows (keys past N read as zero)
-    const cuuint64_t dims[3] = {SS_HD, (cuuint64_t)N, (cuuint64_t)BH * F};
-    const cuuint64_t strides[2] = {row, row * N};
-    const cuuint32_t box[3] = {SS_HD, NP, 1};
-    cudaError_t e = make_bf16_map(&km, kf, 3, dims, strides, box);
-    if (e != cudaSuccess) return e;
-    e = make_bf16_map(&vm, vf, 3, dims, strides, box);
-    if (e != cudaSuccess) return e;
-  }
-  {  // out [BH, S, F, 64]: 64 rows of one frame (rows past S not written)
-    const cuuint64_t dims[4] = {SS_HD, (cuuint64_t)F, (cuuint64_t)S,
-                                (cuuint64_t)BH};
-    const cuuint64_t strides[3] = {row, row * F, row * F * S};
-    const cuuint32_t box[4] = {SS_HD, 1, 64, 1};
-    const cudaError_t e = make_bf16_map(&om, out, 4, dims, strides, box);
-    if (e != cudaSuccess) return e;
-  }
-  constexpr int smem = ss_smem_bytes(NP);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      space_stage_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (attr != cudaSuccess) return attr;
-  static int sms = 0;  // the card's SM count, asked for once
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-  }
-  const int units = BH * ((S + SS_ROWS - 1) / SS_ROWS);
-  const int grid = units < sms ? units : sms;
-  space_stage_kernel<NP><<<grid, SS_THREADS, smem, st>>>(
-      qm, km, vm, om, BH, S, F, N, scale * 1.4426950408889634f);
-  return cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-}  // namespace
+#include "space_stage_core.cuh"
 
 // q [BH, S, d]; kf, vf [BH, F, N, d]; out [BH, S, F, d]; all bf16 and
 // contiguous from 16-byte boundaries, with S = F * N, d = 64, N <= 256.
@@ -387,22 +44,8 @@ extern "C" int space_stage_bf16(const void* q, const void* kf, const void* vf,
       d != SS_HD || !aligned16(q) || !aligned16(kf) || !aligned16(vf) ||
       !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(kf);
-  const bf16* vb = static_cast<const bf16*>(vf);
-  bf16* ob = static_cast<bf16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (ss_padded_keys(N)) {
-    case 64:
-      return (int)launch_space_stage<64>(qb, kb, vb, ob, BH, S, F, N, scale, st);
-    case 128:
-      return (int)launch_space_stage<128>(qb, kb, vb, ob, BH, S, F, N, scale,
-                                          st);
-    case 208:
-      return (int)launch_space_stage<208>(qb, kb, vb, ob, BH, S, F, N, scale,
-                                          st);
-    default:
-      return (int)launch_space_stage<256>(qb, kb, vb, ob, BH, S, F, N, scale,
-                                          st);
-  }
+  return (int)launch_space_stage_keys(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kf),
+      static_cast<const bf16*>(vf), static_cast<bf16*>(out), BH, 1, S, F, N,
+      scale, static_cast<cudaStream_t>(stream));
 }

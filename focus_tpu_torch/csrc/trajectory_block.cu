@@ -4,237 +4,336 @@
 // (_fused_kernel_v4, called through _fused_fwd_pallas_v4 /
 // fused_trajectory_core). Same function, three launches:
 //
-//   stage 1 (one block per batch row, head and 128-query tile): for every
-//     frame f, a true max-subtracted softmax of q . k_f^T * scale over that
-//     frame's N keys, then P . v_f, written as xs[b, s, f, head] in bf16.
-//     Each warp owns 16 query rows and keeps their logits for a whole frame
-//     in registers (mma.sync m16n8k16, ldmatrix from the frame's K/V tiles
-//     in shared memory); the softmax runs on those registers and the bf16
-//     weights feed the PV product directly as A fragments.
-//   stage 2a (a tiled GEMM): q2 = x_diag . Wq2 + bq2, where the own-frame
-//     row x_diag = xs[b, s, s / N] is gathered as the tiles are copied in.
-//   stage 2b (one block per 64 query rows and group of heads): per head
-//     g_h = q2_h . Wk2[:, h]^T, logits g_h . xs[f] over all C channels
-//     times scale, a softmax over the F frames, and sum_f a2[f] xs[f, h].
-//     The k2 bias is constant over frames and drops out of that softmax.
+//   stage 1 (space_stage_core.cuh, shared with the space stage): for every
+//     frame f and head, a true max-subtracted softmax of q . k_f^T * scale
+//     over that frame's N keys, then P . v_f, written as xs[b, s, f, head]
+//     in bf16; a persistent grid of one block an SM, a TMA producer
+//     warpgroup and two ping-pong wgmma consumer warpgroups, TMA output
+//     stores.
+//   stage 2a (a tiled GEMM, trajectory_core.cuh): q2 = x_diag . Wq2 + bq2,
+//     where the own-frame row x_diag = xs[b, s, s / N] is gathered as the
+//     tiles are copied in.
+//   stage 2b (traj_stage2_kernel below, one block per 48 or 64 rows and
+//     every head): per head g_h = q2_h . Wk2[:, h]^T, logits g_h . xs[f]
+//     over all C channels times scale, a softmax over the F frames, and
+//     sum_f a2[f] xs[f, h]. The k2 bias is constant over frames and drops
+//     out of that softmax.
 //
 // Rounding points follow the plain version at bf16 (ops/attention.py):
 // stage-1 weights, xs, q2, g and the stage-2 weights are rounded to bf16;
-// every product accumulates in float32 (the matrix products on the tensor
-// cores with mma.sync).
+// every product accumulates in float32 on the tensor cores.
 //
 // Bound on this card: ~92 GFLOP per call at the flagship shape (B = 8,
-// S = 1568) against ~60 MB of inputs and outputs, so it is bound by
-// operations. The catch for a design is that stage-2 logits for one head
-// contract against all C channels of xs, so every head's stage 2 needs every
-// head's stage 1. This version keeps xs in a bf16 scratch in device memory
-// ([B, S, F, C], ~154 MB at B = 8; q2 adds ~19 MB) between the launches;
-// keeping it on chip as the TPU kernel does, with TMA and wgmma, is later
-// work. Stage 1 and the GEMM live in trajectory_core.cuh, shared with the
-// v5 and v6 forward kernels and the space-stage kernel.
+// S = 1568, 12 heads) against ~60 MB of inputs and outputs, 0.093 ms, so it
+// is bound by operations. The catch for a design is that stage-2 logits for
+// one head contract against all C channels of xs, so every head's stage 2
+// needs every head's stage 1: xs [B, S, F, C] (154 MB at B = 8) goes
+// through device memory between the launches, written once by stage 1 and
+// read by stage 2 once for the logits of all heads and once for the
+// weighted sum (the byte floor of this form, ~0.17 ms with q, kf, vf, q2
+// and out).
+//
+// Stage 2b's design: a block owns 64 rows (48 where that fills the last
+// wave of blocks better) and all heads, so a row block's xs is read once
+// for the logits. One thread keeps a ring of three 16-channel chunks in
+// flight by TMA on mbarriers: each chunk is Wk2's 16 rows of every head
+// ([16][64] boxes in the 128-byte swizzled layout) and the block's xs at
+// those channels ([rows][8 frames][16] in the 32-byte swizzled layout, so
+// the 8 frame lines an ldmatrix reads hit distinct banks; frames past F
+// and rows past M read as zero). For each chunk, warp h forms g_h for all
+// the block's rows on the tensor cores (mma.sync, its q2 fragments held in
+// registers for the whole call, each Wk2 fragment serving two 16-row
+// tiles), rounds it to bf16 and parks it in one of two g buffers
+// [row][head][channel]; after one block barrier each warp takes its rows
+// and, per row, adds the chunk's logits with one m16n8k16 product: the
+// row's g [16 heads (padding zero) x 16 channels] times its xs [16 channels
+// x 8 frames], accumulated in registers over the chunks. That barrier also
+// frees the slot and g buffer of the chunk before, which the next copy and
+// the next chunk's g take. After the last chunk the softmax over frames
+// runs on those registers, the weights go to shared memory, and the block
+// reads its rows' xs once more for the weighted sum, 16 bytes a thread, one
+// head's 64 channels at a time from the last head to the first: the chunks
+// read last are the likeliest still in L2.
 
 #include "trajectory_core.cuh"
+#include "space_stage_core.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;     // stage 2b
+// ---- stage 2b: stage-2 logits of all heads, F-softmax and the weighted sum
 
-// ---- stage 2b: stage-2 logits, F-softmax and the weighted sum ------------
-// One block per 64 flattened rows (4 warps of 16 rows) and group of up to
-// MAX_HPG heads: the output channels of head h need only that head's
-// weights, so the heads are split over blocks to give the card enough
-// warps. A warp keeps its rows' q2 fragments for the group's heads in
-// registers. For each 32-channel chunk of xs, the chunk and the matching
-// rows of Wk2 are copied to shared memory; per head, a warp forms its rows'
-// g_h chunk = q2_h . Wk2[chunk, h]^T with mma.sync, rounds it to bf16 and
-// dots it with the chunk for every frame. Each thread keeps its partial
-// logits in registers across chunks; the four lanes sharing a row add
-// theirs once at the end. Shared memory: XC [64][F * LDC + 8] bf16 (the
-// extra 8 spread a row's reads over the banks) | LG [64][heads per
-// group][MAX_F] float | WK [32][heads per group * 64 + 8] bf16.
+constexpr int S2_ROWS = 64;                                // rows a block, at most
+constexpr int S2_MIN_ROWS = 48;                            // or 48 (see s2_rows)
+constexpr int S2_WARPS = MAX_HEADS;                        // g: one head a warp
+constexpr int S2_THREADS = 32 * S2_WARPS;
+constexpr int S2_MAX_LROWS = S2_ROWS / S2_WARPS;           // logits: rows a warp
+constexpr int S2_CH = 16;                                  // channels a chunk
+constexpr int S2_MAX_STAGES = 3;                           // chunks in flight
+constexpr int S2_SMEM_LIMIT = 232448;
+constexpr int S2_ALIGN = 1024;                             // the swizzle atoms
+// a chunk's Wk2 rows of one head, [16 channels][64] bf16 in the 128-byte
+// swizzled layout, and its xs, [64 rows][8 frames][16 channels] bf16 in the
+// 32-byte swizzled layout (frames past F and rows past M read as zero)
+constexpr int S2_WK_HEAD_BYTES = S2_CH * HD * 2;
+constexpr int S2_XS_ROW_BYTES = MAX_F * S2_CH * 2;
+// bf16 stride of a (row, head) line of g: 48 bytes, so the 8 lines an
+// ldmatrix reads hit distinct banks
+constexpr int S2_LINE = S2_CH + 8;
+constexpr int S2_ZERO_BYTES = 16;                          // g of padding heads
+constexpr int S2_BAR_BYTES = 64;
 
-constexpr int S2_ROWS = 64;
-constexpr int S2_CH = 32;          // xs channels per chunk
-constexpr int LDC = S2_CH + 8;
-constexpr int MAX_HPG = 3;          // heads per block
-
-__host__ __device__ inline int head_groups(int heads) {
-  return (heads + MAX_HPG - 1) / MAX_HPG;
+__host__ __device__ inline int s2_stage_bytes(int heads, int rows) {
+  return heads * S2_WK_HEAD_BYTES + rows * S2_XS_ROW_BYTES;
 }
 
-__host__ __device__ inline int heads_per_group(int heads) {
-  return (heads + head_groups(heads) - 1) / head_groups(heads);
+// bf16 stride of a row of g: 4 (mod 8) words, so the 8 rows a warp writes
+// at once hit distinct banks
+__host__ __device__ inline int s2_g_ld(int heads) {
+  return heads * S2_LINE + ((heads & 1) ? 0 : 8);
 }
 
-__host__ __device__ inline size_t stage2_xc_bytes(int F) {
-  return round_up((size_t)S2_ROWS * (F * LDC + 8) * sizeof(bf16), 128);
+__host__ __device__ inline int s2_g_bytes(int heads, int rows) {
+  return (rows * s2_g_ld(heads) * 2 + 15) / 16 * 16;
 }
 
-__host__ __device__ inline size_t stage2_lg_bytes(int hpg) {
-  return round_up((size_t)S2_ROWS * hpg * MAX_F * sizeof(float), 128);
+__host__ __device__ inline int s2_fixed_bytes(int heads, int rows) {
+  return S2_ALIGN + 2 * s2_g_bytes(heads, rows) + S2_ZERO_BYTES + S2_BAR_BYTES;
 }
 
-__host__ __device__ inline size_t stage2_smem(int F, int hpg) {
-  return stage2_xc_bytes(F) + stage2_lg_bytes(hpg) +
-         (size_t)S2_CH * (hpg * HD + 8) * sizeof(bf16);
+// chunks in flight: three where they fit (12 heads), else two (16 heads)
+__host__ __device__ inline int s2_stages(int heads, int rows) {
+  const int fit = (S2_SMEM_LIMIT - s2_fixed_bytes(heads, rows)) /
+                  s2_stage_bytes(heads, rows);
+  return fit < S2_MAX_STAGES ? fit : S2_MAX_STAGES;
 }
 
-__global__ void __launch_bounds__(THREADS) traj_stage2_kernel(
-    const bf16* __restrict__ xs, const bf16* __restrict__ q2,
-    const bf16* __restrict__ wk2, bf16* __restrict__ out, int M, int F, int C,
-    int heads, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int hpg = heads_per_group(heads);
-  const int h0 = blockIdx.x * hpg, h1 = min(h0 + hpg, heads);
-  if (h0 >= h1) return;
-  const int XCR = F * LDC + 8, LDW = (h1 - h0) * HD + 8;
-  bf16* XC = reinterpret_cast<bf16*>(smem);
-  float* LG = reinterpret_cast<float*>(smem + stage2_xc_bytes(F));
-  bf16* WK = reinterpret_cast<bf16*>(smem + stage2_xc_bytes(F) +
-                                     stage2_lg_bytes(hpg));
+__host__ __device__ inline int s2_smem(int heads, int rows) {
+  return s2_fixed_bytes(heads, rows) +
+         s2_stages(heads, rows) * s2_stage_bytes(heads, rows);
+}
 
-  const int m0 = blockIdx.y * S2_ROWS;
+// rows a block: 64, or 48 where that takes fewer waves x rows on `sms`
+// SMs (one block an SM): M = 12544 (B = 8, N = 196) is 196 blocks of 64 in
+// two waves, or 262 of 48 in two; M = 12800 (N = 200) 200 of 64 in two,
+// or 267 of 48 in three
+__host__ __device__ inline int s2_rows(int M, int sms) {
+  const int w64 = ((M + 63) / 64 + sms - 1) / sms;
+  const int w48 = ((M + 47) / 48 + sms - 1) / sms;
+  return w48 * 48 < w64 * 64 ? S2_MIN_ROWS : S2_ROWS;
+}
+
+__global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
+    const __grid_constant__ CUtensorMap wk_map,
+    const __grid_constant__ CUtensorMap xs_map, const bf16* __restrict__ xs,
+    const bf16* __restrict__ q2, bf16* __restrict__ out, int M, int F, int C,
+    int heads, int rows, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((S2_ALIGN - (cvta_smem(smem_raw) & (S2_ALIGN - 1))) &
+                  (S2_ALIGN - 1));
+  const int stages = s2_stages(heads, rows);
+  const int stage_bytes = s2_stage_bytes(heads, rows);
+  const int mtiles = rows / 16, lrows = rows / S2_WARPS;
+  const int GLD = s2_g_ld(heads);
+  unsigned char* ring = smem;  // slot s: Wk2 of every head, then xs
+  bf16* G = reinterpret_cast<bf16*>(ring + stages * stage_bytes);  // [2]
+  bf16* zero_line = G + s2_g_bytes(heads, rows);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(zero_line) + S2_ZERO_BYTES);
+
+  const int m0 = blockIdx.x * rows;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g, r1 = r0 + 8;  // this thread's block rows
-
-  // q2 A fragments of rows r0 / r1 for every head of the group
-  uint32_t a[MAX_HPG][HD / 16][4];
-  {
-    const bool ok0 = m0 + r0 < M, ok1 = m0 + r1 < M;
-    const bf16* q2r0 = q2 + (size_t)(m0 + r0) * C + 2 * t;
-    const bf16* q2r1 = q2 + (size_t)(m0 + r1) * C + 2 * t;
-#pragma unroll
-    for (int hi = 0; hi < MAX_HPG; ++hi)
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int col = (h0 + hi) * HD + kk * 16;
-        const bool live = h0 + hi < h1;
-        a[hi][kk][0] = live && ok0 ? ldg32(q2r0 + col) : 0u;
-        a[hi][kk][1] = live && ok1 ? ldg32(q2r1 + col) : 0u;
-        a[hi][kk][2] = live && ok0 ? ldg32(q2r0 + col + 8) : 0u;
-        a[hi][kk][3] = live && ok1 ? ldg32(q2r1 + col + 8) : 0u;
-      }
+  const int g = lane >> 2, t = lane & 3;  // mma fragment row / column pair
+  const bool g_warp = warp < heads;  // this warp forms g of head `warp`
+  const int nch = C / S2_CH;
+  if (tid < S2_ZERO_BYTES / 4) reinterpret_cast<uint32_t*>(zero_line)[tid] = 0u;
+  // one thread feeds the ring: chunk ci (Wk2 rows cc .. cc + 15 of every
+  // head and the block's xs at those channels) into slot ci % stages
+  auto issue = [&](int ci) {
+    const int s = ci % stages, cc = ci * S2_CH;
+    unsigned char* slot = ring + s * stage_bytes;
+    mbar_arrive_expect_tx(&full[s], stage_bytes);
+    for (int h = 0; h < heads; ++h)
+      tma_load_2d(slot + h * S2_WK_HEAD_BYTES, &wk_map, &full[s], h * HD, cc);
+    tma_load_3d(slot + heads * S2_WK_HEAD_BYTES, &xs_map, &full[s], cc, 0, m0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
+    for (int ci = 0; ci < stages - 1 && ci < nch; ++ci) issue(ci);
   }
 
-  // partial logits of rows r0 / r1 over this thread's columns
-  float part[MAX_HPG][MAX_F][2];
+  // q2 A fragments of head `warp` for the block's rows 16 mt + g and + 8
+  uint32_t a[S2_ROWS / 16][HD / 16][4];
 #pragma unroll
-  for (int hi = 0; hi < MAX_HPG; ++hi)
+  for (int mt = 0; mt < S2_ROWS / 16; ++mt) {
+    const int r0 = m0 + mt * 16 + g, r1 = r0 + 8;
+    const bool live = g_warp && mt < mtiles;
+    const bool ok0 = live && r0 < M, ok1 = live && r1 < M;
+    const bf16* p0 = q2 + (size_t)(ok0 ? r0 : 0) * C + warp * HD + 2 * t;
+    const bf16* p1 = q2 + (size_t)(ok1 ? r1 : 0) * C + warp * HD + 2 * t;
 #pragma unroll
-    for (int f = 0; f < MAX_F; ++f) part[hi][f][0] = part[hi][f][1] = 0.0f;
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      a[mt][kk][0] = ok0 ? ldg32(p0 + kk * 16) : 0u;
+      a[mt][kk][1] = ok1 ? ldg32(p1 + kk * 16) : 0u;
+      a[mt][kk][2] = ok0 ? ldg32(p0 + kk * 16 + 8) : 0u;
+      a[mt][kk][3] = ok1 ? ldg32(p1 + kk * 16 + 8) : 0u;
+    }
+  }
+  __syncthreads();  // the barriers are initialised
 
-  for (int cc = 0; cc < C; cc += S2_CH) {
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < S2_ROWS * F * (S2_CH / 8); i += THREADS) {
-      const int r = i / (F * (S2_CH / 8)), rem = i % (F * (S2_CH / 8));
-      const int f = rem / (S2_CH / 8), c8 = (rem % (S2_CH / 8)) * 8;
-      const int m = m0 + r;
-      bf16* dst = XC + r * XCR + f * LDC + c8;
-      if (m < M) copy16(dst, xs + ((size_t)m * F + f) * C + cc + c8);
-      else zero16(dst);
-    }
-    const int w8 = (h1 - h0) * HD / 8;
-    for (int i = tid; i < S2_CH * w8; i += THREADS) {
-      const int r = i / w8, c8 = (i % w8) * 8;
-      copy16(WK + r * LDW + c8, wk2 + (size_t)(cc + r) * C + h0 * HD + c8);
-    }
-    __syncthreads();
+  // logits of this warp's rows lrows warp + q: element e of lacc[q] is
+  // head g + 8 (e >> 1), frame 2 t + (e & 1)
+  float lacc[S2_MAX_LROWS][4];
 #pragma unroll
-    for (int hi = 0; hi < MAX_HPG; ++hi) {
-      if (h0 + hi >= h1) break;
-      // g[r, cc + 8j + 2t + {0, 1}] for rows r0 (elements 0, 1), r1 (2, 3)
-      float acc[S2_CH / 8][4];
+  for (int q = 0; q < S2_MAX_LROWS; ++q)
 #pragma unroll
-      for (int j = 0; j < S2_CH / 8; ++j)
+    for (int e = 0; e < 4; ++e) lacc[q][e] = 0.0f;
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int ci = 0; ci < nch; ++ci) {
+    mbar_wait(&full[s], phase);
+    const unsigned char* slot = ring + s * stage_bytes;
+    const unsigned char* xc = slot + heads * S2_WK_HEAD_BYTES;
+    bf16* Gb = G + (ci & 1) * (s2_g_bytes(heads, rows) / 2);
+
+    // g[r, h, c] = round(q2_h . Wk2[cc + c, h]^T) of head h = warp for the
+    // block's 64 rows, two row tiles at a time, into Gb [row][head][channel]
+    if (g_warp) {
+      const unsigned char* wk = slot + warp * S2_WK_HEAD_BYTES;
+      const int c = (lane & 7) + 8 * (lane >> 4);  // this lane's Wk2 row
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+      for (int half = 0; half < 2; ++half) {
+        if (2 * half >= mtiles) break;
+        float acc[2][2][4];
 #pragma unroll
-      for (int jp = 0; jp < S2_CH / 16; ++jp)
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           uint32_t kb[4];
-          ldmatrix_x4(kb, WK + (jp * 16 + (lane & 7) + 8 * (lane >> 4)) * LDW +
-                              hi * HD + kk * 16 + 8 * ((lane >> 3) & 1));
-          mma_16816(acc[2 * jp], a[hi][kk], kb[0], kb[1]);
-          mma_16816(acc[2 * jp + 1], a[hi][kk], kb[2], kb[3]);
+          const int j = 2 * kk + ((lane >> 3) & 1);  // 16-byte piece of the row
+          ldmatrix_x4(kb, reinterpret_cast<const bf16*>(
+                              wk + c * 128 + ((j ^ (c & 7)) << 4)));
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (2 * half + i >= mtiles) break;
+            mma_16816(acc[i][0], a[2 * half + i][kk], kb[0], kb[1]);
+            mma_16816(acc[i][1], a[2 * half + i][kk], kb[2], kb[3]);
+          }
         }
 #pragma unroll
-      for (int j = 0; j < S2_CH / 8; ++j)
+        for (int i = 0; i < 2; ++i) {
+          if (2 * half + i >= mtiles) break;
+          bf16* g0 = Gb + ((2 * half + i) * 16 + g) * GLD + warp * S2_LINE + 2 * t;
+          bf16* g1 = g0 + 8 * GLD;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = round_bf16(acc[j][e]);
-      const bf16* x0 = XC + r0 * XCR + 2 * t;
-      const bf16* x1 = XC + r1 * XCR + 2 * t;
-#pragma unroll
-      for (int f = 0; f < MAX_F; ++f) {
-        if (f >= F) break;
-#pragma unroll
-        for (int j = 0; j < S2_CH / 8; ++j) {
-          const float2 xa = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(x0 + f * LDC + 8 * j));
-          const float2 xb = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(x1 + f * LDC + 8 * j));
-          part[hi][f][0] = fmaf(acc[j][0], xa.x, fmaf(acc[j][1], xa.y, part[hi][f][0]));
-          part[hi][f][1] = fmaf(acc[j][2], xb.x, fmaf(acc[j][3], xb.y, part[hi][f][1]));
+          for (int j = 0; j < 2; ++j) {
+            *reinterpret_cast<uint32_t*>(g0 + 8 * j) =
+                pack_bf16x2(acc[i][j][0], acc[i][j][1]);
+            *reinterpret_cast<uint32_t*>(g1 + 8 * j) =
+                pack_bf16x2(acc[i][j][2], acc[i][j][3]);
+          }
         }
       }
     }
-  }
+    // every head's g of the chunk is in Gb; every warp is past chunk ci - 1,
+    // whose slot the next chunk's copy takes and whose g buffer the next
+    // chunk's g overwrites
+    __syncthreads();
+    if (tid == 0 && ci + stages - 1 < nch) issue(ci + stages - 1);
 
-  // the four lanes of a quad hold one row's columns: add their partials
+    // per row: logits[h, f] += g[r, h, :] . xs[r, f, :] over the chunk, one
+    // m16n8k16 (A: 16 heads x 16 channels, B: 16 channels x 8 frames); xs
+    // line (row, frame) R holds its two 16-byte halves swapped where bit 2
+    // of R (of the frame) is set
 #pragma unroll
-  for (int hi = 0; hi < MAX_HPG; ++hi) {
-    if (h0 + hi >= h1) break;
+    for (int rp = 0; rp < S2_MAX_LROWS; rp += 2) {
+      if (rp >= lrows) break;
+      const int r = warp * lrows + rp;
+      const int f = lane & 7, half = (lane >> 3) & 1;
+      const int rx = rp + 1 < lrows ? r + (lane >> 4) : r;
+      uint32_t xb[4];  // rows r (0, 1) and r + 1 (2, 3)
+      ldmatrix_x4(xb, reinterpret_cast<const bf16*>(
+                          xc + (rx * MAX_F + f) * 32 +
+                          ((half ^ (f >> 2)) << 4)));
+      const int h = (lane & 7) + 8 * ((lane >> 3) & 1);
 #pragma unroll
-    for (int f = 0; f < MAX_F; ++f) {
-      if (f >= F) break;
-      float p0 = part[hi][f][0], p1 = part[hi][f][1];
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        p0 += __shfl_xor_sync(0xffffffffu, p0, o);
-        p1 += __shfl_xor_sync(0xffffffffu, p1, o);
+      for (int q = 0; q < 2; ++q) {
+        if (rp + q >= lrows) break;
+        uint32_t ga[4];
+        ldmatrix_x4(ga, h < heads ? Gb + (r + q) * GLD + h * S2_LINE +
+                                        8 * (lane >> 4)
+                                  : zero_line);
+        mma_16816(lacc[rp + q], ga, xb[2 * q], xb[2 * q + 1]);
       }
-      if ((f & 3) == t) {
-        LG[(r0 * hpg + hi) * MAX_F + f] = p0;
-        LG[(r1 * hpg + hi) * MAX_F + f] = p1;
+    }
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+  __syncthreads();  // every chunk is consumed: the ring holds a2 from here
+
+  // softmax over frames (a row and head's frames lie on the quad's 4 lanes,
+  // two each) -> bf16-rounded weights a2 [row][head][frame] in shared memory
+  float* A2 = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int q = 0; q < S2_MAX_LROWS; ++q) {
+    if (q >= lrows) break;
+    const int r = warp * lrows + q;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int h = g + 8 * hh, f0 = 2 * t, f1 = f0 + 1;
+      const float l0 = f0 < F ? lacc[q][2 * hh] * scale : -INFINITY;
+      const float l1 = f1 < F ? lacc[q][2 * hh + 1] * scale : -INFINITY;
+      float mx = fmaxf(l0, l1);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float e0 = f0 < F ? expf(l0 - mx) : 0.0f;
+      const float e1 = f1 < F ? expf(l1 - mx) : 0.0f;
+      float sum = e0 + e1;
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (h < heads) {
+        float* a2 = A2 + (r * MAX_HEADS + h) * MAX_F;
+        a2[f0] = round_bf16(e0 / sum);
+        a2[f1] = round_bf16(e1 / sum);
       }
     }
   }
   __syncthreads();
 
-  // softmax over frames -> bf16-rounded weights, in place
-  for (int p = tid; p < S2_ROWS * (h1 - h0); p += THREADS) {
-    float* l = LG + ((p / (h1 - h0)) * hpg + p % (h1 - h0)) * MAX_F;
-    float mx = -INFINITY;
-    for (int f = 0; f < F; ++f) mx = fmaxf(mx, l[f] * scale);
-    float sum = 0.0f;
-    for (int f = 0; f < F; ++f) sum += expf(l[f] * scale - mx);
-    for (int f = 0; f < F; ++f) l[f] = round_bf16(expf(l[f] * scale - mx) / sum);
-  }
-  __syncthreads();
-
-  // out[m, c] = sum_f a2[m, head(c), f] * xs[m, f, c] for this group's
-  // channels, 8 channels a thread
-  const int c8n = (h1 - h0) * HD / 8;
-  for (int i = tid; i < S2_ROWS * c8n; i += THREADS) {
-    const int r = i / c8n, c8 = h0 * HD + (i % c8n) * 8, m = m0 + r;
-    if (m >= M) continue;
-    const float* a2 = LG + (r * hpg + (c8 / HD - h0)) * MAX_F;
+  // out[m, c] = sum_f a2[m, head(c), f] xs[m, f, c]: 64 rows x 8 pieces of
+  // 8 channels, one head's 64 channels at a time, the last head first
+  const int r = tid >> 3, c8 = (tid & 7) * 8, m = m0 + r;
+  if (r >= rows || m >= M) return;
+  for (int h = heads - 1; h >= 0; --h) {
+    const float* a2 = A2 + (r * MAX_HEADS + h) * MAX_F;
+    const bf16* xp = xs + (size_t)m * F * C + h * HD + c8;
+    uint4 raw[MAX_F];
+#pragma unroll
+    for (int f = 0; f < MAX_F; ++f)
+      if (f < F) raw[f] = *reinterpret_cast<const uint4*>(xp + (size_t)f * C);
     float o[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) o[j] = 0.0f;
-    for (int f = 0; f < F; ++f) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(xs + ((size_t)m * F + f) * C + c8);
-      const bf16* xv = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int f = 0; f < MAX_F; ++f) {
+      if (f >= F) break;
+      const bf16* xv = reinterpret_cast<const bf16*>(&raw[f]);
 #pragma unroll
       for (int j = 0; j < 8; ++j) o[j] = fmaf(a2[f], __bfloat162float(xv[j]), o[j]);
     }
     uint4 packed;
-    bf16* ov = reinterpret_cast<bf16*>(&packed);
+    uint32_t* pv = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) ov[j] = __float2bfloat16(o[j]);
-    *reinterpret_cast<uint4*>(out + (size_t)m * C + c8) = packed;
+    for (int j = 0; j < 4; ++j) pv[j] = pack_bf16x2(o[2 * j], o[2 * j + 1]);
+    *reinterpret_cast<uint4*>(out + (size_t)m * C + h * HD + c8) = packed;
   }
 }
 
@@ -242,26 +341,26 @@ __global__ void __launch_bounds__(THREADS) traj_stage2_kernel(
 
 // q [B, S, C]; kf, vf [B, F, N, C]; wq2, wk2 [C, C] ([in, out]); bq2 [C];
 // scratch xs [B, S, F, C] and q2 [B, S, C]; out [B, S, C]; all bf16 and
-// contiguous, with S = F * N, C = heads * 64 (a multiple of 128),
-// F <= 8, N <= 256, heads <= 16. Launches the three stages on ``stream``
-// and returns the first cudaError_t met.
+// contiguous from 16-byte boundaries, with S = F * N, C = heads * 64 (a
+// multiple of 128), F <= 8, N <= 256, heads <= 16. Launches the three
+// stages on ``stream`` and returns the first cudaError_t met.
 extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
                               const void* wq2, const void* bq2,
                               const void* wk2, void* xs, void* q2, void* out,
                               int B, int S, int F, int N, int C, int heads,
                               float scale, void* stream) {
   if (B <= 0 || N <= 0 || N > MAX_NP || F <= 0 || F > MAX_F || S != F * N ||
-      heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0)
+      heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0 ||
+      !aligned16(q) || !aligned16(kf) || !aligned16(vf) || !aligned16(xs) ||
+      !aligned16(q2) || !aligned16(out) || !aligned16(wk2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 
-  const bf16* q_ = static_cast<const bf16*>(q);
-  const bf16* kf_ = static_cast<const bf16*>(kf);
-  const bf16* vf_ = static_cast<const bf16*>(vf);
   bf16* xs_ = static_cast<bf16*>(xs);
-  err = launch_stage1<false>(q_, kf_, vf_, xs_, B, S, F, N, C, heads, scale,
-                             st);
+  err = launch_space_stage_keys(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(kf),
+      static_cast<const bf16*>(vf), xs_, B, heads, S, F, N, scale, st);
   if (err != cudaSuccess) return (int)err;
 
   const int M = B * S;
@@ -270,14 +369,38 @@ extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
                     S, F, N, C, st);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem2 = stage2_smem(F, heads_per_group(heads));
-  err = cudaFuncSetAttribute(traj_stage2_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 g2(head_groups(heads), (M + S2_ROWS - 1) / S2_ROWS);
-  traj_stage2_kernel<<<g2, THREADS, smem2, st>>>(
-      xs_, static_cast<const bf16*>(q2), static_cast<const bf16*>(wk2),
-      static_cast<bf16*>(out), M, F, C, heads, scale);
+  static int sms = 0;  // the card's SM count, asked for once
+  if (sms == 0) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int rows = s2_rows(M, sms);
+  CUtensorMap wk_map, xs_map;
+  {  // Wk2 [C, C]: a chunk's 16 rows of one head's 64 columns
+    const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)C};
+    const cuuint64_t strides[1] = {(cuuint64_t)C * 2};
+    const cuuint32_t box[2] = {HD, S2_CH};
+    err = make_bf16_map(&wk_map, wk2, 2, dims, strides, box);
+    if (err != cudaSuccess) return (int)err;
+  }
+  {  // xs [M, F, C]: a chunk's 16 channels of 8 frames of 64 rows
+    const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)F, (cuuint64_t)M};
+    const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)F * C * 2};
+    const cuuint32_t box[3] = {S2_CH, MAX_F, (cuuint32_t)rows};
+    err = make_bf16_map(&xs_map, xs_, 3, dims, strides, box,
+                        CU_TENSOR_MAP_SWIZZLE_32B);
+    if (err != cudaSuccess) return (int)err;
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      traj_stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S2_SMEM_LIMIT);
+  if (attr != cudaSuccess) return (int)attr;
+  traj_stage2_kernel<<<(M + rows - 1) / rows, S2_THREADS, s2_smem(heads, rows),
+                       st>>>(wk_map, xs_map, xs_, static_cast<const bf16*>(q2),
+                             static_cast<bf16*>(out), M, F, C, heads, rows,
+                             scale);
   return (int)cudaGetLastError();
 }

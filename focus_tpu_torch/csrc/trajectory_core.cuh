@@ -1,13 +1,14 @@
-// Pieces of the trajectory-attention kernels shared by their sources
-// (trajectory_block.cu, trajectory_block_v5.cu, trajectory_block_v6.cu;
-// the space stage, trajectory_attention.cu, has a wgmma kernel of its
-// own): the stage-1 kernel, per frame softmax(q . k_f^T
-// * scale) . v_f for every query row (or its own frame alone), and a tiled
-// bf16 GEMM with an optional row gather and bias. trajectory_block_v3.cu
-// and trajectory_block_v7.cu share the limits and tile sizes (HD, LDH,
-// MAX_*, the GEMM's GM .. LDB_G) through trajectory_stage2.cuh and write
-// their own stage-1 loops. ops/_build.py hashes this header with every
-// source.
+// Pieces of the trajectory-attention kernels shared by their sources: the
+// mma.sync stage-1 kernel, per frame softmax(q . k_f^T * scale) . v_f for
+// every query row (or its own frame alone), which the v5 and v6 forwards
+// (trajectory_block_v5.cu, trajectory_block_v6.cu) run, and a tiled bf16
+// GEMM with an optional row gather and bias, which they and the version-4
+// forward (trajectory_block.cu, for q2) run. The version-4 forward and the
+// space stage run stage 1 on wgmma and TMA (space_stage_core.cuh).
+// trajectory_block_v3.cu and trajectory_block_v7.cu share the limits and
+// tile sizes (HD, LDH, MAX_*, the GEMM's GM .. LDB_G) through
+// trajectory_stage2.cuh and write their own stage-1 loops. ops/_build.py
+// hashes this header with every source.
 
 #pragma once
 

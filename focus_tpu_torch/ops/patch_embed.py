@@ -45,6 +45,43 @@ def patch_embed_reference(x, w, b, kernel, dtype=None):
     return out + b.to(dtype)
 
 
+# the kernel's launch plan (csrc/patch_embed.cu)
+BLOCK_ROWS = 128        # patch rows a block: two consumer warpgroups of 64
+BLOCK_COLS = 256        # output columns a block: one m64n256 wgmma
+STAGE_K = 64            # K a stage: one 128-byte row of a weight box
+MAX_STAGES = 4
+SMEM_LIMIT = 232_448    # shared memory a block may use on this card
+
+
+def patch_embed_plan(video_shape, kernel, D, video_dtype=torch.float32):
+    """The kernel's launch plan, as ``csrc/patch_embed.cu`` computes it for
+    a video of ``video_shape`` [B, T, H, W, C] (its base 16-byte aligned,
+    as PyTorch allocates it): the GEMM's M, K and D, the grid of
+    (column block, row block), the ring's stages and shared memory, and the
+    width of the video copies (elements, 16 bytes where the runs of kw * C
+    values allow it)."""
+    B, T, H, W, C = video_shape
+    kt, kh, kw = kernel
+    elem = torch.empty(0, dtype=video_dtype).element_size()
+    M = B * (T // kt) * (H // kh) * (W // kw)
+    K = kt * kh * kw * C
+    a_bytes = BLOCK_ROWS * (STAGE_K + 8) * elem
+    b_bytes = (BLOCK_COLS // 64) * STAGE_K * 128
+    tail = BLOCK_ROWS * 8 + 256
+    stages = min(MAX_STAGES, (SMEM_LIMIT - 1024 - tail) // (a_bytes + b_bytes))
+    width = next((v for v in (16 // elem, 8 // elem, 4 // elem)
+                  if v >= 1 and (kw * C) % v == 0 and (W * C) % v == 0), 1)
+    return {"M": M, "K": K, "D": D,
+            "grid": (-(-D // BLOCK_COLS), -(-M // BLOCK_ROWS)),
+            "rows_per_block": BLOCK_ROWS, "cols_per_block": BLOCK_COLS,
+            "threads": 384, "stages": stages, "k_steps": -(-K // STAGE_K),
+            "smem_bytes": 1024 + stages * (a_bytes + b_bytes) + tail,
+            "copy_elements": width, "copy_bytes": width * elem,
+            "weight_row": -(-D // 8) * 8,
+            "output_staging_bytes": 2 * 64 * (BLOCK_COLS + 8) * 2,
+            "a_stage_bytes": a_bytes}
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     return _build.bind("patch_embed", "patch_embed_bf16", n_ptr=4, n_int=10)
@@ -67,7 +104,12 @@ def _launch(x, w, b, kernel, dtype):
     if not (w.device == b.device == x.device):
         raise ValueError("video, weight and bias must be on one device")
     tp, hp, wp = T // kt, H // kh, W // kw
-    w2 = w.reshape(kt * kh * kw * C, D).to(torch.bfloat16).contiguous()
+    # the kernel reads the weight [K, D] by TMA, whose rows are multiples of
+    # 16 bytes from a 16-byte boundary: D is padded to a multiple of 8
+    w2 = w.reshape(kt * kh * kw * C, D).to(torch.bfloat16)
+    if D % 8:
+        w2 = torch.nn.functional.pad(w2, (0, -D % 8))
+    w2 = w2.contiguous()
     b2 = b.to(torch.bfloat16).contiguous()
     out = torch.empty(B, tp * hp * wp, D, dtype=torch.bfloat16, device=x.device)
     with torch.cuda.device(x.device):

@@ -67,11 +67,11 @@ HEAD_DIM = 64  # the kernel's head dim; also C % 128 == 0, F <= 8, N <= 256,
 # heads <= 16
 
 
-def trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
-    """Plain version: stage 1 (``space_stage``), the diagonal, q2, then
-    stage 2 with the k2 projection on the query side
-    (``temporal_stage_k2w``). bk2 is constant over frames and drops out."""
-    del bk2
+def trajectory_core_stage1_reference(q, kf, vf, wq2, bq2, scale, heads):
+    """The plain version's first half -> (xs [B, S, F, C], q2 [B, S, C]) at
+    q's dtype: stage 1 (``space_stage``) per head, the diagonal, and q2 =
+    x_diag . Wq2 + bq2, the two tensors the forward kernel writes on the
+    way and the backward reads."""
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     hd = C // heads
@@ -90,8 +90,79 @@ def trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
     )
     x_diag = attn_ops.take_diagonal(xs, F)
     q2 = torch.matmul(x_diag.float(), wq2.to(q.dtype).float()).to(q.dtype)
-    q2 = q2 + bq2.to(q.dtype)
+    return xs, q2 + bq2.to(q.dtype)
+
+
+def trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
+    """Plain version: stage 1 (``space_stage``), the diagonal, q2, then
+    stage 2 with the k2 projection on the query side
+    (``temporal_stage_k2w``). bk2 is constant over frames and drops out."""
+    del bk2
+    F = kf.shape[1]
+    xs, q2 = trajectory_core_stage1_reference(q, kf, vf, wq2, bq2, scale,
+                                              heads)
     return attn_ops.temporal_stage_k2w(q2, wk2, xs, F, scale, heads)
+
+
+# kernel 1's launch plan (csrc/trajectory_block.cu; its stage 1 is the
+# space stage's kernel, csrc/space_stage_core.cuh)
+GEMM_TILE = 128        # the q2 GEMM's output tiles (trajectory_core.cuh)
+STAGE2_ROWS = (64, 48)  # rows a stage-2 block: 64, or 48 where it takes fewer waves x rows
+STAGE2_WARPS = 16      # one head a warp for g (heads <= 16)
+STAGE2_CHANNELS = 16   # xs and Wk2 channels a chunk
+STAGE2_MAX_STAGES = 3  # chunks in flight, where they fit
+SMEM_LIMIT = 232_448
+MAX_FRAMES, MAX_HEADS = 8, 16
+
+
+def stage2_rows(M, sms=132):
+    """Rows a stage-2 block for M rows on ``sms`` SMs (one block an SM), as
+    ``s2_rows`` picks them: 48 where waves x rows is smaller than with 64."""
+    waves = {r: -(-(-(-M // r)) // sms) for r in STAGE2_ROWS}
+    return 48 if waves[48] * 48 < waves[64] * 64 else 64
+
+
+def trajectory_core_plan(B, S, F, N, heads, sms=132):
+    """Kernel 1's launch plan, as ``csrc/trajectory_block.cu`` computes it:
+    stage 1 as the space stage plans it for B x heads head rows
+    (``trajectory_attention.space_stage_plan``); the q2 GEMM's tiles; and
+    stage 2's blocks of 48 or 64 rows with every head (one warp a head
+    forms g), its ring of 16-channel chunks fed by TMA, its two g buffers,
+    shared memory and waves, and the number of blocks that read a row
+    block's xs for the logits (one: every head's logits come from the same
+    block). Raises ``ValueError`` where the kernel takes no such shape."""
+    from focus_tpu_torch.ops import trajectory_attention as ta
+
+    C = heads * HEAD_DIM
+    if not (1 <= heads <= MAX_HEADS and C % 128 == 0 and 1 <= F <= MAX_FRAMES
+            and S == F * N and B >= 1):
+        raise ValueError(f"trajectory kernel needs C % 128 == 0, heads <= "
+                         f"{MAX_HEADS}, F <= {MAX_FRAMES}, S = F N (B={B}, "
+                         f"S={S}, F={F}, N={N}, heads={heads})")
+    stage1 = ta.space_stage_plan(B * heads, S, F, N, sms)
+    M = B * S
+    rows = stage2_rows(M, sms)
+    line = STAGE2_CHANNELS + 8
+    g_ld = heads * line + (0 if heads % 2 else 8)
+    g_bytes = -(-rows * g_ld * 2 // 16) * 16
+    stage_bytes = (heads * STAGE2_CHANNELS * HEAD_DIM * 2
+                   + rows * MAX_FRAMES * STAGE2_CHANNELS * 2)
+    fixed = 1024 + 2 * g_bytes + 16 + 64
+    stages = min(STAGE2_MAX_STAGES, (SMEM_LIMIT - fixed) // stage_bytes)
+    blocks = -(-M // rows)
+    stage2 = {
+        "rows_per_block": rows, "blocks": blocks, "waves": -(-blocks // sms),
+        "threads": 32 * STAGE2_WARPS, "g_warps": heads,
+        "heads_per_block": heads, "chunk_channels": STAGE2_CHANNELS,
+        "chunks": C // STAGE2_CHANNELS, "stages": stages, "g_buffers": 2,
+        "stage_bytes": stage_bytes, "smem_bytes": fixed + stages * stage_bytes,
+        "xs_logit_reads_per_row_block": 1,
+        "a2_bytes": rows * MAX_HEADS * MAX_FRAMES * 4,
+        "ring_bytes": stages * stage_bytes,
+    }
+    gemm = {"grid": (-(-C // GEMM_TILE), -(-M // GEMM_TILE)), "threads": 256}
+    return {"stage1": stage1, "gemm": gemm, "stage2": stage2, "rows": M,
+            "channels": C}
 
 
 def check_fwd_version(version=None):

@@ -31,6 +31,7 @@ tokens plus CLS.
 
 import argparse
 import json
+import re
 import subprocess
 import time
 
@@ -40,6 +41,32 @@ from torch.profiler import ProfilerActivity, profile
 from focus_tpu_torch.entry import entry, steve_entry, train_entry
 from focus_tpu_torch.ops import trajectory_block
 from focus_tpu_torch.profile_block import learned_v_stack
+
+
+# device kernels of the port's hand-written kernels, by the start of their
+# names: kernel 1's three stages apart (its stage 1 is the space stage's
+# kernel, which kernel 8 launches in the learned-v model), kernel 2, kernel
+# 7's kernels together
+KERNEL_GROUPS = (
+    ("space_stage_kernel", "kernel 1 stage 1 (flagship) / kernel 8 (learned_v)"),
+    ("traj_gemm_kernel", "kernel 1 q2 GEMM"),
+    ("traj_stage2_kernel", "kernel 1 stage 2"),
+    ("patch_embed_kernel", "kernel 2 (patch embed)"),
+)
+
+
+def kernel_groups(rows, iters):
+    """{group: device ms and launches per call} of the rows whose names
+    start with a KERNEL_GROUPS prefix (template arguments follow it)."""
+    groups = {}
+    for name, count, us in rows:
+        for prefix, label in KERNEL_GROUPS:
+            if re.search(rf"(?:^|::|\s){prefix}[<(]", name):
+                g = groups.setdefault(label, {"device_ms_per_call": 0.0,
+                                              "launches_per_call": 0.0})
+                g["device_ms_per_call"] += us / 1e3 / iters
+                g["launches_per_call"] += count / iters
+    return groups
 
 
 def _device_us(evt):
@@ -148,6 +175,7 @@ def main():
         "device_busy_ms_per_call": busy_ms if rows else "not measured",
         "device_busy_share": busy_ms / wall_ms if rows else "not measured",
         "peak_memory_gb": peak_gb,
+        "kernel_groups": kernel_groups(rows, args.iters),
         "top_kernels": [
             {"name": k[:120], "launches_per_call": c / args.iters,
              "device_ms_per_call": us / 1e3 / args.iters}

@@ -66,9 +66,15 @@ def test_space_stage_plan_refuses_what_the_kernel_does_not_take(N):
         tta.space_stage_plan(4, 8 * max(N, 1), 8, N)
 
 
+def _space_stage_source():
+    """Kernel 8's source and the stage-1 header its kernel lives in (shared
+    with the fused core's forward)."""
+    return _source("trajectory_attention.cu") + _source("space_stage_core.cuh")
+
+
 def test_space_stage_plan_matches_the_cuda_source():
     """The plan's constants are the kernel's."""
-    src = _source("trajectory_attention.cu")
+    src = _space_stage_source()
     const = dict(re.findall(r"constexpr int (SS_\w+) = ([^;]+);", src))
     assert const["SS_SMEM_LIMIT"] == str(tta.SMEM_LIMIT)
     assert const["SS_MAX_NP"] == str(tta.MAX_KEYS)
@@ -81,8 +87,8 @@ def test_space_stage_plan_matches_the_cuda_source():
 def test_space_stage_kernel_is_its_own_hopper_kernel():
     """Kernel 8 runs both products on wgmma, fills its frame slots by TMA
     completed on mbarriers, and no longer launches the fused core's stage
-    1, which trajectory_core.cuh keeps for kernels 1, 5 and 6."""
-    src = _source("trajectory_attention.cu")
+    1, which trajectory_core.cuh keeps for kernels 5 and 6."""
+    src = _space_stage_source()
     assert "launch_stage1" not in src and "trajectory_core.cuh" not in src
     assert "wgmma_ss<NP>" in src and "wgmma_rs_n64_tb" in src
     assert "tma_load_3d" in src and "mbar_wait" in src
