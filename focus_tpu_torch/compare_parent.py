@@ -10,12 +10,20 @@ Compiles the other commit's sources (with this tree's nvcc flags, into
 the same inputs:
 
   - bit-equality: kernel 8 (``space_stage_bf16``, the space stage at the
-    learned-v shapes), and the v5 and v6 forwards (``traj_core_v5_bf16``,
-    ``traj_core_v6_bf16``: out, xs and q2) at the flagship's shapes and on
-    an extreme input; ``torch.equal`` on every output;
+    learned-v shapes), kernel 1 (``traj_core_bf16``: out, xs and q2 at B =
+    8, N = 196 and 200, and on an extreme input), and the v5 and v6
+    forwards (``traj_core_v5_bf16``, ``traj_core_v6_bf16``: out, xs and q2)
+    at the flagship's shapes and on an extreme input; ``torch.equal`` on
+    every output;
   - kernel 1 (``traj_core_bf16``) at B = 8, N = 196 and 200: the other
     build, this one, this one, the other, each the median of 20 per-call
     CUDA-event times, and each build's output against the plain version;
+  - kernels 3 and 4 (``traj_core_v3_bf16``, ``traj_core_v7_bf16``, from
+    whichever of the other build's sources defines them) at B = 8, N = 196
+    and 200: the other build, this one and kernel 1 of this one on the
+    same inputs, in turns (the median of 20 per-call times, and the median
+    of 5 rounds of 20 calls back to back), each against its plain
+    version;
   - kernel 2 (``patch_embed_bf16``) on the flagship's video
     [8, 16, 224, 224, 3]: the other build, this one and ``F.conv3d`` (on a
     contiguous NCTHW copy and on the channels_last_3d view of the same bf16
@@ -41,11 +49,13 @@ from focus_tpu_torch.ops import patch_embed as pe
 from focus_tpu_torch.ops import trajectory_attention as ta
 from focus_tpu_torch.ops import trajectory_block as tb
 
-SYMBOLS = {  # source -> (symbol, n_ptr, n_int, n_float)
-    "trajectory_attention": ("space_stage_bf16", 4, 5, 1),
-    "trajectory_block": ("traj_core_bf16", 9, 6, 1),
-    "trajectory_block_v5": ("traj_core_v5_bf16", 11, 6, 1),
-    "trajectory_block_v6": ("traj_core_v6_bf16", 11, 6, 1),
+SYMBOLS = {  # kernel -> (symbol, n_ptr, n_int, n_float)
+    "space_stage": ("space_stage_bf16", 4, 5, 1),
+    "v4": ("traj_core_bf16", 9, 6, 1),
+    "v3": ("traj_core_v3_bf16", 10, 6, 1),
+    "v7": ("traj_core_v7_bf16", 10, 6, 1),
+    "v5": ("traj_core_v5_bf16", 11, 6, 1),
+    "v6": ("traj_core_v6_bf16", 11, 6, 1),
     "patch_embed": ("patch_embed_bf16", 4, 10, 0),
 }
 
@@ -54,30 +64,45 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def source_of(csrc, symbol):
+    """The other commit's ``.cu`` file (its name, no suffix) that defines
+    ``symbol``."""
+    for name in sorted(os.listdir(csrc)):
+        if name.endswith(".cu"):
+            with open(os.path.join(csrc, name)) as f:
+                if f'extern "C" int {symbol}(' in f.read():
+                    return name[:-3]
+    raise RuntimeError(f"no source in {csrc} defines {symbol}")
+
+
 def build_parent(csrc):
-    """Compile the other commit's sources in parallel -> {source: bound C
-    function}."""
+    """Compile the other commit's sources that define SYMBOLS, in parallel
+    -> {kernel: bound C function}."""
+    sources = {kernel: source_of(csrc, entry[0])
+               for kernel, entry in SYMBOLS.items()}
     out_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "parent")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name in SYMBOLS:
+    for name in set(sources.values()):
         lib = os.path.join(out_dir, f"lib{name}.so")
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib,
                os.path.join(csrc, f"{name}.cu")]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True))
-    fns = {}
+    libs = {}
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the other {name}.cu:\n{log}")
-        symbol, n_ptr, n_int, n_float = SYMBOLS[name]
-        fn = getattr(ctypes.CDLL(lib), symbol)
+        libs[name] = ctypes.CDLL(lib)
+    fns = {}
+    for kernel, (symbol, n_ptr, n_int, n_float) in SYMBOLS.items():
+        fn = getattr(libs[sources[kernel]], symbol)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        fns[name] = fn
+        fns[kernel] = fn
     return fns
 
 
@@ -125,6 +150,45 @@ def core_inputs(B, N, gen, F=8, C=768):
             rnd(C, C, sc=3 * C ** -0.5)]
 
 
+def extreme_inputs(gen, sign=-1.0, mag=60.0, B=1, F=8, N=196, C=768,
+                   heads=12):
+    """Stage-1 logits of ~sign * mag nats after the scale
+    (tests/test_fused_block.py:_extreme_inputs at the kernels' widths)."""
+    scale = (C // heads) ** -0.5
+    qdir = torch.randn(B, F * N, C, generator=gen, device="cuda")
+    qdir = qdir / qdir.norm(dim=-1, keepdim=True)
+    amp = (mag / scale) ** 0.5
+    kf = (qdir.reshape(B, F, N, C)[:, :1, :1].expand(B, F, N, C) * amp
+          + torch.randn(B, F, N, C, generator=gen, device="cuda") * 0.01)
+    rest = [torch.randn(*shape, generator=gen, device="cuda") * sc
+            for shape, sc in (((B, F, N, C), 0.2), ((C, C), 0.1), ((C,), 0.1),
+                              ((C, C), 0.1))]
+    return [t.bfloat16().contiguous()
+            for t in [qdir * amp * sign, kf] + rest]
+
+
+def time_turns_back_to_back(fns, rounds=5, iters=20):
+    """Per-call time (ms) of each callable as the mean of ``iters`` calls
+    issued back to back between two events; the callables take turns, one
+    run of ``iters`` each a round; the median over ``rounds`` rounds."""
+    for fn in fns:
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end) / iters)
+    return [statistics.median(t) for t in times]
+
+
 def max_rel(out, ref):
     return ((out.float() - ref.float()).abs().max()
             / ref.float().abs().max()).item()
@@ -153,21 +217,31 @@ def main():
                    .bfloat16() for _ in range(3))
         kf, vf = k.reshape(96, 8, N, 64), v.reshape(96, 8, N, 64)
         mine = ta._launch(q, kf, vf, scale)
-        with use(ta, "_kernel_fn", lambda: parent["trajectory_attention"]):
+        with use(ta, "_kernel_fn", lambda: parent["space_stage"]):
             theirs = ta._launch(q, kf, vf, scale)
         torch.cuda.synchronize()
         same = torch.equal(mine, theirs)
         failures += [] if same else [f"space_stage N={N}"]
         emit({"compare": "space_stage", "N": N, "bitwise_equal": same})
 
-    # v5 and v6, bit for bit (out, xs, q2)
+    # kernel 1 (its stage 1 and GEMM share code with the mode V3), v5 and
+    # v6, bit for bit (out, xs, q2; v5's and v6's scratch too)
     inputs = [("B=8 N=196", core_inputs(8, 196, gen)),
-              ("B=2 N=200", core_inputs(2, 200, gen))]
+              ("B=8 N=200", core_inputs(8, 200, gen)),
+              ("extreme -60", extreme_inputs(gen))]
     for tag, a in inputs:
+        mine = tb._launch(*a, scale, heads)
+        with use(tb, "_kernel_fn", lambda: parent["v4"]):
+            theirs = tb._launch(*a, scale, heads)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(mine, theirs))
+        failures += [] if same else [f"v4 {tag}"]
+        emit({"compare": "trajectory_block", "case": tag,
+              "outputs": ["out", "xs", "q2"], "bitwise_equal": same})
+        del mine, theirs
         for version in (5, 6):
             mine = tb._launch_variant(version, *a, scale, heads)
-            with use(tb, "_variant_kernel_fn",
-                     lambda v: parent[f"trajectory_block_v{v}"]):
+            with use(tb, "_variant_kernel_fn", lambda v: parent[f"v{v}"]):
                 theirs = tb._launch_variant(version, *a, scale, heads)
             torch.cuda.synchronize()
             same = all(x is None and y is None or torch.equal(x, y)
@@ -177,6 +251,9 @@ def main():
             failures += [] if same else [f"v{version} {tag}"]
             emit({"compare": f"trajectory_block_v{version}", "case": tag,
                   "bitwise_equal": same})
+            del mine, theirs
+    del inputs
+    torch.cuda.empty_cache()
 
     # kernel 1: the other build and this one in turns
     for N in (196, 200):
@@ -184,11 +261,11 @@ def main():
         ref = tb.trajectory_core_reference(*[t.float() for t in a], None,
                                            scale, heads)
         out = tb._launch(*a, scale, heads)[0]
-        with use(tb, "_kernel_fn", lambda: parent["trajectory_block"]):
+        with use(tb, "_kernel_fn", lambda: parent["v4"]):
             out_p = tb._launch(*a, scale, heads)[0]
 
         def theirs():
-            with use(tb, "_kernel_fn", lambda: parent["trajectory_block"]):
+            with use(tb, "_kernel_fn", lambda: parent["v4"]):
                 tb._launch(*a, scale, heads)
 
         def mine():
@@ -199,6 +276,44 @@ def main():
               "other_ms": [t_p1, t_p2], "this_ms": [t_c1, t_c2],
               "this_max_err_rel": max_rel(out, ref),
               "other_max_err_rel": max_rel(out_p, ref)})
+
+    # kernels 3 and 4: the other build, this one and kernel 1 in turns
+    for N in (196, 200):
+        a = core_inputs(8, N, gen)
+        ref = tb.trajectory_core_v3_reference(*a, None, scale, heads)
+        for v in (3, 7):
+            attr = f"_v{v}_kernel_fn"
+            launch = getattr(tb, f"_launch_v{v}")
+            out = launch(*a, scale, heads)[0]
+            with use(tb, attr, lambda: parent[f"v{v}"]):
+                out_p = launch(*a, scale, heads)[0]
+
+            def theirs():
+                with use(tb, attr, lambda: parent[f"v{v}"]):
+                    launch(*a, scale, heads)
+
+            def mine():
+                launch(*a, scale, heads)
+
+            def kernel_1():
+                tb._launch(*a, scale, heads)
+
+            turns = [theirs, mine, kernel_1, mine, theirs]
+            per_call = time_turns(turns)
+            b2b = time_turns_back_to_back(turns)
+            emit({"compare": f"trajectory_block_v{v}", "B": 8, "N": N,
+                  "other_ms": [per_call[0], per_call[4]],
+                  "this_ms": [per_call[1], per_call[3]],
+                  "kernel_1_ms": per_call[2],
+                  "other_ms_back_to_back": [b2b[0], b2b[4]],
+                  "this_ms_back_to_back": [b2b[1], b2b[3]],
+                  "kernel_1_ms_back_to_back": b2b[2],
+                  "this_max_err_rel": max_rel(out, ref),
+                  "other_max_err_rel": max_rel(out_p, ref),
+                  "plain": "trajectory_core_v3_reference on the same bf16 "
+                           "inputs"})
+        del a, ref
+        torch.cuda.empty_cache()
 
     # kernel 2 and F.conv3d in turns on the same bf16 video
     kernel, D = (2, 16, 16), 768

@@ -1,6 +1,7 @@
 // The trajectory-attention stage 1 on wgmma and TMA, shared by the space
 // stage (trajectory_attention.cu, kernel 8) and the fused trajectory core's
-// forward (trajectory_block.cu, kernel 1):
+// forward (trajectory_block.cu, kernel 1, and in the rounding mode V3 below
+// kernels 3 and 4):
 //
 //   out[b, s, f, h] = softmax(q[b, s, h] . kf[b, f, :, h]^T * scale)
 //                     . vf[b, f, :, h]
@@ -56,6 +57,19 @@
 //     the Q ring 32 KB and the staging tiles 32 KB, 227 KB, one block an
 //     SM; a consumer thread holds the logits of one frame (104 registers),
 //     P of the frame before (52) and the outputs (32) at once.
+//
+// Rounding mode V3 (the trajectory core's forward versions 3 and 7, whose
+// TPU kernels round the weights before they normalise them): the consumer
+// packs the unnormalised p = exp(logit * scale - max) to bf16 as the A
+// operand of P . V, keeps 1 / s of the unrounded row sums s, and scales the
+// frame's float32 P . V sums by it before the bf16 store: xs = round((
+// round(p) . V) * (1 / s)). The plain version divides, o / s; o * (1 / s)
+// is within one float32 step of it before the bf16 rounding, and the card
+// holds xs against the plain version's within the kernels' gate. 1 / s of
+// the frame before lives across the turn as P does (two registers): it is
+// formed after this frame's softmax and read when this frame's output
+// leaves, one turn later. With V3 false the arithmetic is the space
+// stage's, bit for bit.
 
 #pragma once
 
@@ -117,7 +131,7 @@ __device__ __forceinline__ float ss_exp2(float x) {
   return y;
 }
 
-template <int NP>
+template <int NP, bool V3>
 __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
@@ -204,6 +218,7 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
   uint32_t phase = 0;
   uint32_t pa[NP / 16][4];  // P of the frame before, bf16 A fragments
   float oacc[32];
+  float pinv0 = 0.f, pinv1 = 0.f;  // V3: its rows' 1 / s
   for (int unit = blockIdx.x; unit < units; unit += gridDim.x, ++u) {
     const int bh = unit / tiles;
     const int b = bh / heads, c0 = (bh % heads) * SS_HD;
@@ -246,6 +261,10 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
         unsigned char* ob = my_out + oslot * SS_OUT_BYTES;
         if (storer) tma_store_wait_read<SS_OUT_SLOTS - 1>();
         named_barrier(1 + wg, 128);  // the staging tile is free again
+        if constexpr (V3) {  // the frame before's sums, normalised
+#pragma unroll
+          for (int e = 0; e < 32; ++e) oacc[e] *= (e & 2) ? pinv1 : pinv0;
+        }
         const int r0 = 16 * warp + g, r1 = r0 + 8;
 #pragma unroll
         for (int j = 0; j < SS_HD / 8; ++j) {
@@ -311,12 +330,24 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
       }
       const float inv0 = 1.f / l0, inv1 = 1.f / l1;
       // keys 16 kk .. 16 kk + 15 as the A fragment of k-step kk
+      if constexpr (V3) {  // rounded unnormalised; 1 / s waits for P . V
+        pinv0 = inv0;
+        pinv1 = inv1;
 #pragma unroll
-      for (int kk = 0; kk < NP / 16; ++kk) {
-        pa[kk][0] = pack_bf16x2(sacc[8 * kk] * inv0, sacc[8 * kk + 1] * inv0);
-        pa[kk][1] = pack_bf16x2(sacc[8 * kk + 2] * inv1, sacc[8 * kk + 3] * inv1);
-        pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4] * inv0, sacc[8 * kk + 5] * inv0);
-        pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6] * inv1, sacc[8 * kk + 7] * inv1);
+        for (int kk = 0; kk < NP / 16; ++kk) {
+          pa[kk][0] = pack_bf16x2(sacc[8 * kk], sacc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16x2(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < NP / 16; ++kk) {
+          pa[kk][0] = pack_bf16x2(sacc[8 * kk] * inv0, sacc[8 * kk + 1] * inv0);
+          pa[kk][1] = pack_bf16x2(sacc[8 * kk + 2] * inv1, sacc[8 * kk + 3] * inv1);
+          pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4] * inv0, sacc[8 * kk + 5] * inv0);
+          pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6] * inv1, sacc[8 * kk + 7] * inv1);
+        }
       }
     }
   }
@@ -324,7 +355,7 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
 }
 
 // q [B, S, C], kf / vf [B, F, N, C], out [B, S, F, C] with C = heads * 64
-template <int NP>
+template <int NP, bool V3>
 cudaError_t launch_space_stage(const bf16* q, const bf16* kf, const bf16* vf,
                                bf16* out, int B, int heads, int S, int F,
                                int N, float scale, cudaStream_t st) {
@@ -357,7 +388,7 @@ cudaError_t launch_space_stage(const bf16* q, const bf16* kf, const bf16* vf,
   }
   constexpr int smem = ss_smem_bytes(NP);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      space_stage_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      space_stage_kernel<NP, V3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return attr;
   static int sms = 0;  // the card's SM count, asked for once
@@ -370,29 +401,31 @@ cudaError_t launch_space_stage(const bf16* q, const bf16* kf, const bf16* vf,
   }
   const int units = B * heads * ((S + SS_ROWS - 1) / SS_ROWS);
   const int grid = units < sms ? units : sms;
-  space_stage_kernel<NP><<<grid, SS_THREADS, smem, st>>>(
+  space_stage_kernel<NP, V3><<<grid, SS_THREADS, smem, st>>>(
       qm, km, vm, om, B * heads, heads, S, F, N, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-// the instantiation for N keys a frame (N <= SS_MAX_NP)
-inline cudaError_t launch_space_stage_keys(const bf16* q, const bf16* kf,
-                                           const bf16* vf, bf16* out, int B,
-                                           int heads, int S, int F, int N,
-                                           float scale, cudaStream_t st) {
+// the instantiation for N keys a frame (N <= SS_MAX_NP), in the space
+// stage's rounding or (V3) the forward versions 3 and 7's
+template <bool V3 = false>
+cudaError_t launch_space_stage_keys(const bf16* q, const bf16* kf,
+                                    const bf16* vf, bf16* out, int B,
+                                    int heads, int S, int F, int N,
+                                    float scale, cudaStream_t st) {
   switch (ss_padded_keys(N)) {
     case 64:
-      return launch_space_stage<64>(q, kf, vf, out, B, heads, S, F, N, scale,
-                                    st);
+      return launch_space_stage<64, V3>(q, kf, vf, out, B, heads, S, F, N,
+                                        scale, st);
     case 128:
-      return launch_space_stage<128>(q, kf, vf, out, B, heads, S, F, N,
-                                     scale, st);
+      return launch_space_stage<128, V3>(q, kf, vf, out, B, heads, S, F, N,
+                                         scale, st);
     case 208:
-      return launch_space_stage<208>(q, kf, vf, out, B, heads, S, F, N,
-                                     scale, st);
+      return launch_space_stage<208, V3>(q, kf, vf, out, B, heads, S, F, N,
+                                         scale, st);
     default:
-      return launch_space_stage<256>(q, kf, vf, out, B, heads, S, F, N,
-                                     scale, st);
+      return launch_space_stage<256, V3>(q, kf, vf, out, B, heads, S, F, N,
+                                         scale, st);
   }
 }
 

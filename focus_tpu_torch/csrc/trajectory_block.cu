@@ -1,8 +1,10 @@
 // Fused trajectory-attention core for Hopper (sm_90a), non-CLS tokens.
 //
-// Replaces the TPU kernel focus_tpu/ops/pallas/trajectory_block.py
-// (_fused_kernel_v4, called through _fused_fwd_pallas_v4 /
-// fused_trajectory_core). Same function, three launches:
+// Replaces three TPU kernels of focus_tpu/ops/pallas/trajectory_block.py:
+// _fused_kernel_v4 (called through _fused_fwd_pallas_v4 /
+// fused_trajectory_core, the default FWD_VERSION = 4) and, in the rounding
+// mode V3, _fused_kernel_v3 and _fused_kernel_v7 (FWD_VERSION = 3 and 7).
+// One function, three launches:
 //
 //   stage 1 (space_stage_core.cuh, shared with the space stage): for every
 //     frame f and head, a true max-subtracted softmax of q . k_f^T * scale
@@ -22,6 +24,25 @@
 // Rounding points follow the plain version at bf16 (ops/attention.py):
 // stage-1 weights, xs, q2, g and the stage-2 weights are rounded to bf16;
 // every product accumulates in float32 on the tensor cores.
+//
+// Versions 3 and 7 compute the same function, rounded where the TPU's v3
+// and v7 kernels round it (trajectory_core_v3_reference in
+// ops/trajectory_block.py; the two TPU kernels are bit-equal in bf16 and
+// differ in arrangement alone: v7 transposes the logits so that keys sit on
+// the TPU's sublanes and sums the weights with a masked MXU product, which
+// on this card costs a P^T round trip through shared memory and extra
+// products). So on this card one design serves both, this one, with V3:
+//   stage 1: the weights rounded before they are normalised, xs =
+//     round((round(p) . V) * (1 / s)) with s the float32 sum of the
+//     unrounded p (space_stage_core.cuh);
+//   stage 2a: the GEMM also writes the stage-2 query round((x_diag . Wq2 +
+//     bq2) * scale) into out, which stage 2b reads back for the block's rows
+//     before it writes them; q2 stays unscaled, as the backward reads it;
+//   stage 2b: g kept in float32 (the TPU kernels' fouter form) as a bf16
+//     pair, hi = round(g) and lo = round(g - hi) (|g - hi - lo| <= 2^-16
+//     |g|), each chunk's logits two m16n8k16 products instead of one, no
+//     logit scale after (the query carries it), and the stage-2 weights a2
+//     left in float32.
 //
 // Bound on this card: ~92 GFLOP per call at the flagship shape (B = 8,
 // S = 1568, 12 heads) against ~60 MB of inputs and outputs, 0.093 ms, so it
@@ -54,6 +75,14 @@
 // reads its rows' xs once more for the weighted sum, 16 bytes a thread, one
 // head's 64 channels at a time from the last head to the first: the chunks
 // read last are the likeliest still in L2.
+//
+// In the mode V3 a (row, head) line of a g buffer holds the chunk's 16 hi
+// values, then its 16 lo values, then 8 of padding (80 bytes: the 8 lines
+// an ldmatrix reads still hit distinct banks), so the two g buffers take
+// 5/3 of the bytes. At 12 heads and 64 rows the ring has two slots (208
+// KB) and at 48 rows three (205 KB); from 14 heads on only 48 rows leave
+// two. The rows follow s2_rows_v3: 48 at B = 8, N = 196 (two waves either
+// way), 64 at N = 200 (48 would take a third wave).
 
 #include "trajectory_core.cuh"
 #include "space_stage_core.cuh"
@@ -76,9 +105,11 @@ constexpr int S2_ALIGN = 1024;                             // the swizzle atoms
 // 32-byte swizzled layout (frames past F and rows past M read as zero)
 constexpr int S2_WK_HEAD_BYTES = S2_CH * HD * 2;
 constexpr int S2_XS_ROW_BYTES = MAX_F * S2_CH * 2;
-// bf16 stride of a (row, head) line of g: 48 bytes, so the 8 lines an
-// ldmatrix reads hit distinct banks
+// bf16 length of a (row, head) line of g: 48 bytes, so the 8 lines an
+// ldmatrix reads hit distinct banks; in the mode V3 the chunk's hi values,
+// its lo values and the padding, 80 bytes, as conflict-free
 constexpr int S2_LINE = S2_CH + 8;
+constexpr int S2_LINE_V3 = 2 * S2_CH + 8;
 constexpr int S2_ZERO_BYTES = 16;                          // g of padding heads
 constexpr int S2_BAR_BYTES = 64;
 
@@ -86,30 +117,42 @@ __host__ __device__ inline int s2_stage_bytes(int heads, int rows) {
   return heads * S2_WK_HEAD_BYTES + rows * S2_XS_ROW_BYTES;
 }
 
+template <bool V3>
+__host__ __device__ constexpr int s2_line() {
+  return V3 ? S2_LINE_V3 : S2_LINE;
+}
+
 // bf16 stride of a row of g: 4 (mod 8) words, so the 8 rows a warp writes
 // at once hit distinct banks
+template <bool V3>
 __host__ __device__ inline int s2_g_ld(int heads) {
-  return heads * S2_LINE + ((heads & 1) ? 0 : 8);
+  return heads * s2_line<V3>() + ((heads & 1) ? 0 : 8);
 }
 
+template <bool V3>
 __host__ __device__ inline int s2_g_bytes(int heads, int rows) {
-  return (rows * s2_g_ld(heads) * 2 + 15) / 16 * 16;
+  return (rows * s2_g_ld<V3>(heads) * 2 + 15) / 16 * 16;
 }
 
+template <bool V3>
 __host__ __device__ inline int s2_fixed_bytes(int heads, int rows) {
-  return S2_ALIGN + 2 * s2_g_bytes(heads, rows) + S2_ZERO_BYTES + S2_BAR_BYTES;
+  return S2_ALIGN + 2 * s2_g_bytes<V3>(heads, rows) + S2_ZERO_BYTES +
+         S2_BAR_BYTES;
 }
 
-// chunks in flight: three where they fit (12 heads), else two (16 heads)
+// chunks in flight: three where they fit (12 heads), else two (16 heads;
+// V3 at 12 heads and 64 rows)
+template <bool V3>
 __host__ __device__ inline int s2_stages(int heads, int rows) {
-  const int fit = (S2_SMEM_LIMIT - s2_fixed_bytes(heads, rows)) /
+  const int fit = (S2_SMEM_LIMIT - s2_fixed_bytes<V3>(heads, rows)) /
                   s2_stage_bytes(heads, rows);
   return fit < S2_MAX_STAGES ? fit : S2_MAX_STAGES;
 }
 
+template <bool V3>
 __host__ __device__ inline int s2_smem(int heads, int rows) {
-  return s2_fixed_bytes(heads, rows) +
-         s2_stages(heads, rows) * s2_stage_bytes(heads, rows);
+  return s2_fixed_bytes<V3>(heads, rows) +
+         s2_stages<V3>(heads, rows) * s2_stage_bytes(heads, rows);
 }
 
 // rows a block: 64, or 48 where that takes fewer waves x rows on `sms`
@@ -122,22 +165,40 @@ __host__ __device__ inline int s2_rows(int M, int sms) {
   return w48 * 48 < w64 * 64 ? S2_MIN_ROWS : S2_ROWS;
 }
 
+// the mode V3's rows: as s2_rows, but 48 where 64 rows would leave fewer
+// than two chunks in flight (14 heads and more)
+__host__ __device__ inline int s2_rows_v3(int M, int sms, int heads) {
+  return s2_stages<true>(heads, S2_ROWS) < 2 ? S2_MIN_ROWS : s2_rows(M, sms);
+}
+
+// V3: g's bf16 hi part at p and its lo part, round(g - hi), S2_CH further
+__device__ __forceinline__ void store_hi_lo(bf16* p, float a, float b) {
+  const uint32_t hi = pack_bf16x2(a, b);
+  const float2 h = unpack_bf16x2(hi);
+  *reinterpret_cast<uint32_t*>(p) = hi;
+  *reinterpret_cast<uint32_t*>(p + S2_CH) = pack_bf16x2(a - h.x, b - h.y);
+}
+
+// query: q2 [M, C], or (V3) the scaled stage-2 query that the GEMM parked
+// in out, read for the block's rows before the block writes them
+template <bool V3>
 __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
     const __grid_constant__ CUtensorMap wk_map,
     const __grid_constant__ CUtensorMap xs_map, const bf16* __restrict__ xs,
-    const bf16* __restrict__ q2, bf16* __restrict__ out, int M, int F, int C,
-    int heads, int rows, float scale) {
+    const bf16* query, bf16* out, int M, int F, int C, int heads, int rows,
+    float scale) {
+  constexpr int LINE = s2_line<V3>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((S2_ALIGN - (cvta_smem(smem_raw) & (S2_ALIGN - 1))) &
                   (S2_ALIGN - 1));
-  const int stages = s2_stages(heads, rows);
+  const int stages = s2_stages<V3>(heads, rows);
   const int stage_bytes = s2_stage_bytes(heads, rows);
   const int mtiles = rows / 16, lrows = rows / S2_WARPS;
-  const int GLD = s2_g_ld(heads);
+  const int GLD = s2_g_ld<V3>(heads);
   unsigned char* ring = smem;  // slot s: Wk2 of every head, then xs
   bf16* G = reinterpret_cast<bf16*>(ring + stages * stage_bytes);  // [2]
-  bf16* zero_line = G + s2_g_bytes(heads, rows);
+  bf16* zero_line = G + s2_g_bytes<V3>(heads, rows);
   uint64_t* full = reinterpret_cast<uint64_t*>(
       reinterpret_cast<unsigned char*>(zero_line) + S2_ZERO_BYTES);
 
@@ -163,21 +224,25 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
     for (int ci = 0; ci < stages - 1 && ci < nch; ++ci) issue(ci);
   }
 
-  // q2 A fragments of head `warp` for the block's rows 16 mt + g and + 8
+  // query A fragments of head `warp` for the block's rows 16 mt + g and
+  // + 8 (V3: plain loads, out is written later in this launch)
+  auto ld = [](const bf16* p) {
+    return V3 ? *reinterpret_cast<const uint32_t*>(p) : ldg32(p);
+  };
   uint32_t a[S2_ROWS / 16][HD / 16][4];
 #pragma unroll
   for (int mt = 0; mt < S2_ROWS / 16; ++mt) {
     const int r0 = m0 + mt * 16 + g, r1 = r0 + 8;
     const bool live = g_warp && mt < mtiles;
     const bool ok0 = live && r0 < M, ok1 = live && r1 < M;
-    const bf16* p0 = q2 + (size_t)(ok0 ? r0 : 0) * C + warp * HD + 2 * t;
-    const bf16* p1 = q2 + (size_t)(ok1 ? r1 : 0) * C + warp * HD + 2 * t;
+    const bf16* p0 = query + (size_t)(ok0 ? r0 : 0) * C + warp * HD + 2 * t;
+    const bf16* p1 = query + (size_t)(ok1 ? r1 : 0) * C + warp * HD + 2 * t;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      a[mt][kk][0] = ok0 ? ldg32(p0 + kk * 16) : 0u;
-      a[mt][kk][1] = ok1 ? ldg32(p1 + kk * 16) : 0u;
-      a[mt][kk][2] = ok0 ? ldg32(p0 + kk * 16 + 8) : 0u;
-      a[mt][kk][3] = ok1 ? ldg32(p1 + kk * 16 + 8) : 0u;
+      a[mt][kk][0] = ok0 ? ld(p0 + kk * 16) : 0u;
+      a[mt][kk][1] = ok1 ? ld(p1 + kk * 16) : 0u;
+      a[mt][kk][2] = ok0 ? ld(p0 + kk * 16 + 8) : 0u;
+      a[mt][kk][3] = ok1 ? ld(p1 + kk * 16 + 8) : 0u;
     }
   }
   __syncthreads();  // the barriers are initialised
@@ -196,10 +261,11 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
     mbar_wait(&full[s], phase);
     const unsigned char* slot = ring + s * stage_bytes;
     const unsigned char* xc = slot + heads * S2_WK_HEAD_BYTES;
-    bf16* Gb = G + (ci & 1) * (s2_g_bytes(heads, rows) / 2);
+    bf16* Gb = G + (ci & 1) * (s2_g_bytes<V3>(heads, rows) / 2);
 
     // g[r, h, c] = round(q2_h . Wk2[cc + c, h]^T) of head h = warp for the
     // block's 64 rows, two row tiles at a time, into Gb [row][head][channel]
+    // (V3: its hi and lo parts)
     if (g_warp) {
       const unsigned char* wk = slot + warp * S2_WK_HEAD_BYTES;
       const int c = (lane & 7) + 8 * (lane >> 4);  // this lane's Wk2 row
@@ -229,14 +295,19 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           if (2 * half + i >= mtiles) break;
-          bf16* g0 = Gb + ((2 * half + i) * 16 + g) * GLD + warp * S2_LINE + 2 * t;
+          bf16* g0 = Gb + ((2 * half + i) * 16 + g) * GLD + warp * LINE + 2 * t;
           bf16* g1 = g0 + 8 * GLD;
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            *reinterpret_cast<uint32_t*>(g0 + 8 * j) =
-                pack_bf16x2(acc[i][j][0], acc[i][j][1]);
-            *reinterpret_cast<uint32_t*>(g1 + 8 * j) =
-                pack_bf16x2(acc[i][j][2], acc[i][j][3]);
+            if constexpr (V3) {
+              store_hi_lo(g0 + 8 * j, acc[i][j][0], acc[i][j][1]);
+              store_hi_lo(g1 + 8 * j, acc[i][j][2], acc[i][j][3]);
+            } else {
+              *reinterpret_cast<uint32_t*>(g0 + 8 * j) =
+                  pack_bf16x2(acc[i][j][0], acc[i][j][1]);
+              *reinterpret_cast<uint32_t*>(g1 + 8 * j) =
+                  pack_bf16x2(acc[i][j][2], acc[i][j][3]);
+            }
           }
         }
       }
@@ -248,9 +319,9 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
     if (tid == 0 && ci + stages - 1 < nch) issue(ci + stages - 1);
 
     // per row: logits[h, f] += g[r, h, :] . xs[r, f, :] over the chunk, one
-    // m16n8k16 (A: 16 heads x 16 channels, B: 16 channels x 8 frames); xs
-    // line (row, frame) R holds its two 16-byte halves swapped where bit 2
-    // of R (of the frame) is set
+    // m16n8k16 (A: 16 heads x 16 channels, B: 16 channels x 8 frames; V3:
+    // one for hi, then one for lo); xs line (row, frame) R holds its two
+    // 16-byte halves swapped where bit 2 of R (of the frame) is set
 #pragma unroll
     for (int rp = 0; rp < S2_MAX_LROWS; rp += 2) {
       if (rp >= lrows) break;
@@ -266,10 +337,13 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
       for (int q = 0; q < 2; ++q) {
         if (rp + q >= lrows) break;
         uint32_t ga[4];
-        ldmatrix_x4(ga, h < heads ? Gb + (r + q) * GLD + h * S2_LINE +
-                                        8 * (lane >> 4)
-                                  : zero_line);
+        const bf16* gl = Gb + (r + q) * GLD + h * LINE + 8 * (lane >> 4);
+        ldmatrix_x4(ga, h < heads ? gl : zero_line);
         mma_16816(lacc[rp + q], ga, xb[2 * q], xb[2 * q + 1]);
+        if constexpr (V3) {
+          ldmatrix_x4(ga, h < heads ? gl + S2_CH : zero_line);
+          mma_16816(lacc[rp + q], ga, xb[2 * q], xb[2 * q + 1]);
+        }
       }
     }
     if (++s == stages) {
@@ -281,6 +355,7 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
 
   // softmax over frames (a row and head's frames lie on the quad's 4 lanes,
   // two each) -> bf16-rounded weights a2 [row][head][frame] in shared memory
+  // (V3: float32; its scale is 1, the query carries the scale)
   float* A2 = reinterpret_cast<float*>(ring);
 #pragma unroll
   for (int q = 0; q < S2_MAX_LROWS; ++q) {
@@ -301,8 +376,8 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       if (h < heads) {
         float* a2 = A2 + (r * MAX_HEADS + h) * MAX_F;
-        a2[f0] = round_bf16(e0 / sum);
-        a2[f1] = round_bf16(e1 / sum);
+        a2[f0] = V3 ? e0 / sum : round_bf16(e0 / sum);
+        a2[f1] = V3 ? e1 / sum : round_bf16(e1 / sum);
       }
     }
   }
@@ -337,37 +412,34 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
   }
 }
 
-}  // namespace
-
-// q [B, S, C]; kf, vf [B, F, N, C]; wq2, wk2 [C, C] ([in, out]); bq2 [C];
-// scratch xs [B, S, F, C] and q2 [B, S, C]; out [B, S, C]; all bf16 and
-// contiguous from 16-byte boundaries, with S = F * N, C = heads * 64 (a
-// multiple of 128), F <= 8, N <= 256, heads <= 16. Launches the three
-// stages on ``stream`` and returns the first cudaError_t met.
-extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
-                              const void* wq2, const void* bq2,
-                              const void* wk2, void* xs, void* q2, void* out,
-                              int B, int S, int F, int N, int C, int heads,
-                              float scale, void* stream) {
+// the three launches on ``st``, each counted in *launched
+template <bool V3>
+int traj_core_run(const void* q, const void* kf, const void* vf,
+                  const void* wq2, const void* bq2, const void* wk2, void* xs,
+                  void* q2, void* out, int* launched, int B, int S, int F,
+                  int N, int C, int heads, float scale, cudaStream_t st) {
+  *launched = 0;
   if (B <= 0 || N <= 0 || N > MAX_NP || F <= 0 || F > MAX_F || S != F * N ||
       heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0 ||
       !aligned16(q) || !aligned16(kf) || !aligned16(vf) || !aligned16(xs) ||
       !aligned16(q2) || !aligned16(out) || !aligned16(wk2))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 
   bf16* xs_ = static_cast<bf16*>(xs);
-  err = launch_space_stage_keys(
+  bf16* out_ = static_cast<bf16*>(out);
+  err = launch_space_stage_keys<V3>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(kf),
       static_cast<const bf16*>(vf), xs_, B, heads, S, F, N, scale, st);
   if (err != cudaSuccess) return (int)err;
+  ++*launched;
 
   const int M = B * S;
   err = launch_gemm(xs_, static_cast<const bf16*>(wq2),
                     static_cast<const bf16*>(bq2), static_cast<bf16*>(q2), M,
-                    S, F, N, C, st);
+                    S, F, N, C, st, V3 ? out_ : nullptr, scale);
   if (err != cudaSuccess) return (int)err;
+  ++*launched;
 
   static int sms = 0;  // the card's SM count, asked for once
   if (sms == 0) {
@@ -377,7 +449,7 @@ extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
-  const int rows = s2_rows(M, sms);
+  const int rows = V3 ? s2_rows_v3(M, sms, heads) : s2_rows(M, sms);
   CUtensorMap wk_map, xs_map;
   {  // Wk2 [C, C]: a chunk's 16 rows of one head's 64 columns
     const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)C};
@@ -395,12 +467,59 @@ extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
     if (err != cudaSuccess) return (int)err;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      traj_stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      traj_stage2_kernel<V3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S2_SMEM_LIMIT);
   if (attr != cudaSuccess) return (int)attr;
-  traj_stage2_kernel<<<(M + rows - 1) / rows, S2_THREADS, s2_smem(heads, rows),
-                       st>>>(wk_map, xs_map, xs_, static_cast<const bf16*>(q2),
-                             static_cast<bf16*>(out), M, F, C, heads, rows,
-                             scale);
-  return (int)cudaGetLastError();
+  // V3: the query is the scaled one in out, and the logits take no scale
+  traj_stage2_kernel<V3><<<(M + rows - 1) / rows, S2_THREADS,
+                           s2_smem<V3>(heads, rows), st>>>(
+      wk_map, xs_map, xs_, V3 ? out_ : static_cast<const bf16*>(q2), out_, M,
+      F, C, heads, rows, V3 ? 1.0f : scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return (int)err;
+}
+
+}  // namespace
+
+// q [B, S, C]; kf, vf [B, F, N, C]; wq2, wk2 [C, C] ([in, out]); bq2 [C];
+// scratch xs [B, S, F, C] and q2 [B, S, C]; out [B, S, C]; all bf16 and
+// contiguous from 16-byte boundaries, with S = F * N, C = heads * 64 (a
+// multiple of 128), F <= 8, N <= 256, heads <= 16. Launches the three
+// stages on ``stream`` and returns the first cudaError_t met.
+extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
+                              const void* wq2, const void* bq2,
+                              const void* wk2, void* xs, void* q2, void* out,
+                              int B, int S, int F, int N, int C, int heads,
+                              float scale, void* stream) {
+  int launched = 0;
+  return traj_core_run<false>(q, kf, vf, wq2, bq2, wk2, xs, q2, out,
+                              &launched, B, S, F, N, C, heads, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The forward versions 3 and 7 (the rounding mode V3; one function, so one
+// design): the operands as traj_core_bf16's, xs and q2 written as it writes
+// them (q2 unscaled, with its bias), as the backward kernel reads them. The
+// three launches are counted in *launched.
+extern "C" int traj_core_v3_bf16(const void* q, const void* kf,
+                                 const void* vf, const void* wq2,
+                                 const void* bq2, const void* wk2, void* xs,
+                                 void* q2, void* out, int* launched, int B,
+                                 int S, int F, int N, int C, int heads,
+                                 float scale, void* stream) {
+  return traj_core_run<true>(q, kf, vf, wq2, bq2, wk2, xs, q2, out, launched,
+                             B, S, F, N, C, heads, scale,
+                             static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int traj_core_v7_bf16(const void* q, const void* kf,
+                                 const void* vf, const void* wq2,
+                                 const void* bq2, const void* wk2, void* xs,
+                                 void* q2, void* out, int* launched, int B,
+                                 int S, int F, int N, int C, int heads,
+                                 float scale, void* stream) {
+  return traj_core_run<true>(q, kf, vf, wq2, bq2, wk2, xs, q2, out, launched,
+                             B, S, F, N, C, heads, scale,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -2,13 +2,11 @@
 // mma.sync stage-1 kernel, per frame softmax(q . k_f^T * scale) . v_f for
 // every query row (or its own frame alone), which the v5 and v6 forwards
 // (trajectory_block_v5.cu, trajectory_block_v6.cu) run, and a tiled bf16
-// GEMM with an optional row gather and bias, which they and the version-4
-// forward (trajectory_block.cu, for q2) run. The version-4 forward and the
-// space stage run stage 1 on wgmma and TMA (space_stage_core.cuh).
-// trajectory_block_v3.cu and trajectory_block_v7.cu share the limits and
-// tile sizes (HD, LDH, MAX_*, the GEMM's GM .. LDB_G) through
-// trajectory_stage2.cuh and write their own stage-1 loops. ops/_build.py
-// hashes this header with every source.
+// GEMM with an optional row gather, bias and scaled second output, which
+// they and the forward versions 4, 3 and 7 (trajectory_block.cu, for q2)
+// run. Versions 4, 3 and 7 and the space stage run stage 1 on wgmma and
+// TMA (space_stage_core.cuh). ops/_build.py hashes this header with every
+// source.
 
 #pragma once
 
@@ -259,7 +257,11 @@ cudaError_t launch_stage1(const bf16* q, const bf16* kf, const bf16* vf,
 // of A is A[m * F + (m % S) / N]: with F > 1 the own-frame aggregate
 // xs[b, s, s / N] of the flattened row m = b * S + s, gathered as the tile
 // is copied (q2 = x_diag . Wq2 + bq2); with F = 1 and S = N, row m itself
-// (k2v = V . Wk2; q2 from x_diag). A null bias adds nothing.
+// (k2v = V . Wk2; q2 from x_diag). A null bias adds nothing. A non-null
+// ``scaled`` also receives round((acc + bias) * scale) (the stage-2 query of
+// the forward versions 3 and 7, rounded from float32, not from the rounded
+// out: round(round(x) * scale) is round(x * scale) only where scale is a
+// power of two).
 
 constexpr int GM = 128, GN = 128, GK = 32, G_THREADS = 256;
 constexpr int LDA_G = GK + 8;  // bf16 strides keep ldmatrix conflict-free
@@ -267,8 +269,9 @@ constexpr int LDB_G = GN + 8;
 
 __global__ void __launch_bounds__(G_THREADS) traj_gemm_kernel(
     const bf16* __restrict__ a, const bf16* __restrict__ w,
-    const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int S,
-    int F, int N, int C) {
+    const bf16* __restrict__ bias, bf16* __restrict__ out,
+    bf16* __restrict__ scaled, int M, int S, int F, int N, int C,
+    float scale) {
   __shared__ __align__(128) bf16 As[2][GM * LDA_G];
   __shared__ __align__(128) bf16 Bs[2][GK * LDB_G];
   const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
@@ -360,10 +363,14 @@ __global__ void __launch_bounds__(G_THREADS) traj_gemm_kernel(
 #pragma unroll
       for (int hi = 0; hi < 2; ++hi) {
         const int row = m0 + wm * 64 + i * 16 + g + 8 * hi;
-        if (row < M)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * hi] + b0,
-                                    acc[i][j][2 * hi + 1] + b1);
+        if (row >= M) continue;
+        const float v0 = acc[i][j][2 * hi] + b0;
+        const float v1 = acc[i][j][2 * hi + 1] + b1;
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * C + col) =
+            __floats2bfloat162_rn(v0, v1);
+        if (scaled)
+          *reinterpret_cast<__nv_bfloat162*>(scaled + (size_t)row * C + col) =
+              __floats2bfloat162_rn(v0 * scale, v1 * scale);
       }
     }
   }
@@ -372,10 +379,11 @@ __global__ void __launch_bounds__(G_THREADS) traj_gemm_kernel(
 
 cudaError_t launch_gemm(const bf16* a, const bf16* w, const bf16* bias,
                         bf16* out, int M, int S, int F, int N, int C,
-                        cudaStream_t st) {
+                        cudaStream_t st, bf16* scaled = nullptr,
+                        float scale = 1.0f) {
   const dim3 grid((C + GN - 1) / GN, (M + GM - 1) / GM);
-  traj_gemm_kernel<<<grid, G_THREADS, 0, st>>>(a, w, bias, out, M, S, F, N,
-                                               C);
+  traj_gemm_kernel<<<grid, G_THREADS, 0, st>>>(a, w, bias, out, scaled, M, S,
+                                               F, N, C, scale);
   return cudaGetLastError();
 }
 

@@ -28,8 +28,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("ar_decode", "patch_embed", "trajectory_attention",
-           "trajectory_block", "trajectory_block_bwd", "trajectory_block_v3",
-           "trajectory_block_v5", "trajectory_block_v6", "trajectory_block_v7")
+           "trajectory_block", "trajectory_block_bwd", "trajectory_block_v5",
+           "trajectory_block_v6")
 
 _libs: dict = {}
 _lock = threading.Lock()

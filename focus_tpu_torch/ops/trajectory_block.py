@@ -12,11 +12,11 @@ with ``use_original_code=True``.
 
 Forward versions: the module constant ``FWD_VERSION``, read at each call as
 the JAX package reads its own, picks the forward kernel on the card. 4 (the
-default) is ``csrc/trajectory_block.cu``, three launches; 3 and 7 are
-``csrc/trajectory_block_v3.cu`` and ``csrc/trajectory_block_v7.cu``, the
-same function in one launch per call, rounded as the TPU kernels v3 and v7
-round it (v7 with its stage 1 transposed, head outer, and the per-frame
-sums on the tensor cores); 5 and 6 compute the stage-2
+default) is ``csrc/trajectory_block.cu``, three launches; 3 and 7 are the
+same source's three launches in its rounding mode V3 (``traj_core_v3_bf16``
+and ``traj_core_v7_bf16``), the same function rounded as the TPU kernels v3
+and v7 round it: those two kernels differ in their arrangement for the TPU
+alone, so on this card one design serves both; 5 and 6 compute the stage-2
 logits through ``k2v = V . Wk2`` as the TPU kernels v5 and v6 do
 (``csrc/trajectory_block_v5.cu``, which never forms the per-frame
 aggregates xs, and ``csrc/trajectory_block_v6.cu``, which does), which
@@ -52,8 +52,8 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_DEVICE_LAUNCHES = 0
 # the v3, v5, v6 and v7 forward kernels: wrapper calls, and the device
-# kernels those calls launched (one per v3 or v7 call; k2v is a launch of
-# its own)
+# kernels those calls launched (three per v3 or v7 call: stage 1, the q2
+# GEMM and stage 2; in v5 and v6 k2v is a launch of its own)
 V3_LAUNCHES = V3_DEVICE_LAUNCHES = 0
 V5_LAUNCHES = V5_DEVICE_LAUNCHES = 0
 V6_LAUNCHES = V6_DEVICE_LAUNCHES = 0
@@ -105,7 +105,8 @@ def trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
 
 
 # kernel 1's launch plan (csrc/trajectory_block.cu; its stage 1 is the
-# space stage's kernel, csrc/space_stage_core.cuh)
+# space stage's kernel, csrc/space_stage_core.cuh), and kernels 3 and 4's,
+# the same launches in the rounding mode V3
 GEMM_TILE = 128        # the q2 GEMM's output tiles (trajectory_core.cuh)
 STAGE2_ROWS = (64, 48)  # rows a stage-2 block: 64, or 48 where it takes fewer waves x rows
 STAGE2_WARPS = 16      # one head a warp for g (heads <= 16)
@@ -115,22 +116,45 @@ SMEM_LIMIT = 232_448
 MAX_FRAMES, MAX_HEADS = 8, 16
 
 
-def stage2_rows(M, sms=132):
+def _stage2_bytes(heads, rows, v3=False):
+    """(g line length in bf16, bytes of one ring slot, fixed bytes, ring
+    slots) of a stage-2 block, as
+    ``csrc/trajectory_block.cu`` computes them: a (row, head) line of g
+    holds the chunk's 16 channels and 8 of padding, in the mode V3 its 16
+    hi values, 16 lo values and the padding."""
+    line = STAGE2_CHANNELS * (2 if v3 else 1) + 8
+    g_ld = heads * line + (0 if heads % 2 else 8)
+    g_bytes = -(-rows * g_ld * 2 // 16) * 16
+    stage_bytes = (heads * STAGE2_CHANNELS * HEAD_DIM * 2
+                   + rows * MAX_FRAMES * STAGE2_CHANNELS * 2)
+    fixed = 1024 + 2 * g_bytes + 16 + 64
+    stages = min(STAGE2_MAX_STAGES, (SMEM_LIMIT - fixed) // stage_bytes)
+    return line, stage_bytes, fixed, stages
+
+
+def stage2_rows(M, sms=132, heads=12, v3=False):
     """Rows a stage-2 block for M rows on ``sms`` SMs (one block an SM), as
-    ``s2_rows`` picks them: 48 where waves x rows is smaller than with 64."""
+    ``s2_rows`` picks them: 48 where waves x rows is smaller than with 64;
+    in the mode V3 (``s2_rows_v3``) also 48 where 64 rows of ``heads``
+    heads leave fewer than two ring slots."""
+    if v3 and _stage2_bytes(heads, 64, True)[3] < 2:
+        return 48
     waves = {r: -(-(-(-M // r)) // sms) for r in STAGE2_ROWS}
     return 48 if waves[48] * 48 < waves[64] * 64 else 64
 
 
-def trajectory_core_plan(B, S, F, N, heads, sms=132):
-    """Kernel 1's launch plan, as ``csrc/trajectory_block.cu`` computes it:
-    stage 1 as the space stage plans it for B x heads head rows
-    (``trajectory_attention.space_stage_plan``); the q2 GEMM's tiles; and
-    stage 2's blocks of 48 or 64 rows with every head (one warp a head
-    forms g), its ring of 16-channel chunks fed by TMA, its two g buffers,
-    shared memory and waves, and the number of blocks that read a row
-    block's xs for the logits (one: every head's logits come from the same
-    block). Raises ``ValueError`` where the kernel takes no such shape."""
+def trajectory_core_plan(B, S, F, N, heads, sms=132, v3=False):
+    """Kernel 1's launch plan, as ``csrc/trajectory_block.cu`` computes it,
+    or with ``v3`` kernels 3 and 4's (the same launches in the rounding
+    mode V3): stage 1 as the space stage plans it for B x heads head rows
+    (``trajectory_attention.space_stage_plan``); the q2 GEMM's tiles (in
+    V3 it also writes the scaled stage-2 query into out); and stage 2's
+    blocks of 48 or 64 rows with every head (one warp a head forms g), its
+    ring of 16-channel chunks fed by TMA, its two g buffers (V3: hi and lo
+    in each line), shared memory and waves, and the number of blocks that
+    read a row block's xs for the logits (one: every head's logits come
+    from the same block). Raises ``ValueError`` where the kernel takes no
+    such shape."""
     from focus_tpu_torch.ops import trajectory_attention as ta
 
     C = heads * HEAD_DIM
@@ -141,28 +165,26 @@ def trajectory_core_plan(B, S, F, N, heads, sms=132):
                          f"S={S}, F={F}, N={N}, heads={heads})")
     stage1 = ta.space_stage_plan(B * heads, S, F, N, sms)
     M = B * S
-    rows = stage2_rows(M, sms)
-    line = STAGE2_CHANNELS + 8
-    g_ld = heads * line + (0 if heads % 2 else 8)
-    g_bytes = -(-rows * g_ld * 2 // 16) * 16
-    stage_bytes = (heads * STAGE2_CHANNELS * HEAD_DIM * 2
-                   + rows * MAX_FRAMES * STAGE2_CHANNELS * 2)
-    fixed = 1024 + 2 * g_bytes + 16 + 64
-    stages = min(STAGE2_MAX_STAGES, (SMEM_LIMIT - fixed) // stage_bytes)
+    rows = stage2_rows(M, sms, heads, v3)
+    line, stage_bytes, fixed, stages = _stage2_bytes(heads, rows, v3)
     blocks = -(-M // rows)
     stage2 = {
         "rows_per_block": rows, "blocks": blocks, "waves": -(-blocks // sms),
         "threads": 32 * STAGE2_WARPS, "g_warps": heads,
         "heads_per_block": heads, "chunk_channels": STAGE2_CHANNELS,
         "chunks": C // STAGE2_CHANNELS, "stages": stages, "g_buffers": 2,
+        "g_line": line, "g_parts": 2 if v3 else 1,
+        "logit_mma_per_row_chunk": 2 if v3 else 1,
         "stage_bytes": stage_bytes, "smem_bytes": fixed + stages * stage_bytes,
         "xs_logit_reads_per_row_block": 1,
         "a2_bytes": rows * MAX_HEADS * MAX_FRAMES * 4,
         "ring_bytes": stages * stage_bytes,
     }
-    gemm = {"grid": (-(-C // GEMM_TILE), -(-M // GEMM_TILE)), "threads": 256}
+    gemm = {"grid": (-(-C // GEMM_TILE), -(-M // GEMM_TILE)), "threads": 256,
+            "outputs": 2 if v3 else 1}
     return {"stage1": stage1, "gemm": gemm, "stage2": stage2, "rows": M,
-            "channels": C}
+            "channels": C, "rounding": "v3" if v3 else "v4",
+            "device_launches": 3}
 
 
 def check_fwd_version(version=None):
@@ -220,6 +242,30 @@ def _variant_a2(x_diag, wq2, bq2, p, s, k2vh, scale, heads):
     return torch.softmax(l2, dim=-1)
 
 
+def _v3_xs(q, kf, vf, scale, heads):
+    """xs [B, S, F, C] at q's dtype as v3 and v7 form it: per frame and
+    head round(round(p_f) . V_f / s_f), the weights rounded before they are
+    normalised and s_f the float32 sum of the unrounded weights."""
+    B, S, C = q.shape
+    F = kf.shape[1]
+    vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
+    o = torch.einsum("bhsfn,bhfnd->bhsfd", p.to(q.dtype).float(), vh)
+    return (o / s[..., None]).to(q.dtype).permute(0, 2, 3, 1, 4).reshape(
+        B, S, F, C)
+
+
+def trajectory_core_v3_stage1_reference(q, kf, vf, wq2, bq2, scale, heads):
+    """The v3 / v7 plain version's first half -> (xs [B, S, F, C], q2
+    [B, S, C]) at q's dtype, the two tensors kernels 3 and 4 write for the
+    backward: xs as ``_v3_xs`` forms it and q2 = round(x_diag . Wq2 + bq2),
+    unscaled."""
+    dt = q.dtype
+    xs = _v3_xs(q, kf, vf, scale, heads)
+    x_diag = attn_ops.take_diagonal(xs, kf.shape[1])
+    q2 = x_diag.float() @ wq2.to(dt).float() + bq2.to(dt).float()
+    return xs, q2.to(dt)
+
+
 def trajectory_core_v3_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
                                  heads):
     """Plain version of the v3 and v7 kernels, step by step (TPU
@@ -238,17 +284,65 @@ def trajectory_core_v3_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
     B, S, C = q.shape
     F = kf.shape[1]
     hd, dt = C // heads, q.dtype
-    vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
-    o = torch.einsum("bhsfn,bhfnd->bhsfd", p.to(dt).float(), vh)
-    xs = (o / s[..., None]).to(dt).permute(0, 2, 3, 1, 4)  # [B,S,F,h,hd]
-    x_diag = attn_ops.take_diagonal(xs.reshape(B, S, F, C), F)
+    xs = _v3_xs(q, kf, vf, scale, heads)
+    x_diag = attn_ops.take_diagonal(xs, F)
     q2 = (x_diag.float() @ wq2.to(dt).float() + bq2.float()) * scale
     g = torch.einsum("bshd,chd->bshc", q2.to(dt).float().reshape(
         B, S, heads, hd), wk2.float().reshape(C, heads, hd))
     xsf = xs.float()
-    a2 = torch.softmax(torch.einsum("bshc,bsfc->bshf", g,
-                                    xsf.reshape(B, S, F, C)), dim=-1)
-    out = torch.einsum("bshf,bsfhd->bshd", a2, xsf)
+    a2 = torch.softmax(torch.einsum("bshc,bsfc->bshf", g, xsf), dim=-1)
+    out = torch.einsum("bshf,bsfhd->bshd", a2,
+                       xsf.reshape(B, S, F, heads, hd))
+    return out.to(dt).reshape(B, S, C)
+
+
+def trajectory_core_v3_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
+                              intermediates=None):
+    """Plain mirror of kernels 3 and 4 on the card (``csrc/trajectory_block.cu``
+    in its rounding mode V3): their steps and rounding points, in float32
+    arithmetic on operands at q's dtype. Stage 1 (``space_stage_core.cuh``):
+    p = exp(logit * scale - max) rounded unnormalised, s the float32 sum of
+    the unrounded p, xs = round((round(p) . V) * (1 / s)). The q2 GEMM: q2 =
+    round(x_diag . Wq2 + bq2) for the backward and the stage-2 query qs =
+    round((x_diag . Wq2 + bq2) * scale). Stage 2 chunk by chunk of 16
+    channels: g_h = qs_h . Wk2_h^T in float32, split as hi = round(g) and
+    lo = round(g - hi); the logits add hi . xs_f, then lo . xs_f; a2 =
+    softmax over frames, float32 and unrounded; out = round(sum_f a2_f
+    xs_f). Returns out; a dict passed as ``intermediates`` receives xs, q2,
+    qs, g, g_hi, g_lo, logits and a2. Nothing on the card calls it."""
+    del bk2
+    B, S, C = q.shape
+    F = kf.shape[1]
+    hd, dt = C // heads, q.dtype
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
+    o = torch.einsum("bhsfn,bhfnd->bhsfd", rnd(p), vh)
+    xs = (o * (1 / s)[..., None]).to(dt).permute(0, 2, 3, 1, 4).reshape(
+        B, S, F, C)
+    x_diag = attn_ops.take_diagonal(xs, F)
+    acc = x_diag.float() @ wq2.to(dt).float() + bq2.to(dt).float()
+    q2, qs = acc.to(dt), rnd(acc * scale)
+    g = torch.einsum("bshd,chd->bshc", qs.reshape(B, S, heads, hd),
+                     wk2.to(dt).float().reshape(C, heads, hd))
+    hi = rnd(g)
+    lo = rnd(g - hi)
+    xsf = xs.float()
+    logits = torch.zeros(B, S, heads, F, dtype=torch.float32, device=q.device)
+    for c0 in range(0, C, STAGE2_CHANNELS):
+        ch = slice(c0, c0 + STAGE2_CHANNELS)
+        logits = logits + torch.einsum("bshc,bsfc->bshf", hi[..., ch],
+                                       xsf[..., ch])
+        logits = logits + torch.einsum("bshc,bsfc->bshf", lo[..., ch],
+                                       xsf[..., ch])
+    a2 = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bshf,bsfhd->bshd", a2,
+                       xsf.reshape(B, S, F, heads, hd))
+    if intermediates is not None:
+        intermediates.update(xs=xs, q2=q2, qs=qs, g=g, g_hi=hi, g_lo=lo,
+                             logits=logits, a2=a2)
     return out.to(dt).reshape(B, S, C)
 
 
@@ -446,13 +540,13 @@ def _kernel_fn():
 
 @functools.lru_cache(maxsize=None)
 def _v3_kernel_fn():
-    return _build.bind("trajectory_block_v3", "traj_core_v3_bf16",
+    return _build.bind("trajectory_block", "traj_core_v3_bf16",
                        n_ptr=10, n_int=6, n_float=1)
 
 
 @functools.lru_cache(maxsize=None)
 def _v7_kernel_fn():
-    return _build.bind("trajectory_block_v7", "traj_core_v7_bf16",
+    return _build.bind("trajectory_block", "traj_core_v7_bf16",
                        n_ptr=10, n_int=6, n_float=1)
 
 
@@ -525,10 +619,11 @@ def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
 
 
 def _launch_one(kernel_fn, symbol, q, kf, vf, wq2, bq2, wk2, scale, heads):
-    """A one-launch forward kernel (v3 or v7, bound by ``kernel_fn`` once
-    the operands pass their check) -> (out, xs, q2, device launches), xs
-    and q2 written as ``_launch`` writes them (q2 unscaled, with its bias),
-    so the backward kernel reads them unchanged."""
+    """The v3 or v7 forward (kernel 1's three launches in the rounding mode
+    V3, bound by ``kernel_fn`` once the operands pass their check) -> (out,
+    xs, q2, device launches), xs and q2 written as ``_launch`` writes them
+    (q2 unscaled, with its bias), so the backward kernel reads them
+    unchanged."""
     _check_operands(q, kf, vf, wq2, bq2, wk2, heads)
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
@@ -549,7 +644,7 @@ def _launch_one(kernel_fn, symbol, q, kf, vf, wq2, bq2, wk2, scale, heads):
 
 
 def _launch_v3(q, kf, vf, wq2, bq2, wk2, scale, heads):
-    """The v3 forward kernel, one device launch -> (out, xs, q2)."""
+    """The v3 forward, three device launches -> (out, xs, q2)."""
     global V3_LAUNCHES, V3_DEVICE_LAUNCHES
     out, xs, q2, launched = _launch_one(
         _v3_kernel_fn, "traj_core_v3_bf16", q, kf, vf, wq2, bq2, wk2,
@@ -560,7 +655,8 @@ def _launch_v3(q, kf, vf, wq2, bq2, wk2, scale, heads):
 
 
 def _launch_v7(q, kf, vf, wq2, bq2, wk2, scale, heads):
-    """The v7 forward kernel, one device launch -> (out, xs, q2)."""
+    """The v7 forward (the v3 design: the two TPU kernels compute one
+    function), three device launches -> (out, xs, q2)."""
     global V7_LAUNCHES, V7_DEVICE_LAUNCHES
     out, xs, q2, launched = _launch_one(
         _v7_kernel_fn, "traj_core_v7_bf16", q, kf, vf, wq2, bq2, wk2,

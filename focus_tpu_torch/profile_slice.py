@@ -44,12 +44,18 @@ from focus_tpu_torch.profile_block import learned_v_stack
 
 
 # device kernels of the port's hand-written kernels, by the start of their
-# names: kernel 1's three stages apart (its stage 1 is the space stage's
-# kernel, which kernel 8 launches in the learned-v model), kernel 2, kernel
-# 7's kernels together
+# names (a regular expression; a kernel counts in the first group it
+# matches): kernel 1's three stages apart (its stage 1 is the space stage's
+# kernel, which kernel 8 launches in the learned-v model), and kernels 3
+# and 4's (FWD_VERSION 3 and 7: the same kernels in the rounding mode V3,
+# template argument true; the q2 GEMM is one kernel for all three), kernel
+# 2, kernel 7's kernels together
+_V3 = r"(?:true|\(bool\)1)"
 KERNEL_GROUPS = (
+    (rf"space_stage_kernel<\d+, {_V3}>", "kernels 3 / 4 stage 1 (mode V3)"),
+    (rf"traj_stage2_kernel<{_V3}>", "kernels 3 / 4 stage 2 (mode V3)"),
     ("space_stage_kernel", "kernel 1 stage 1 (flagship) / kernel 8 (learned_v)"),
-    ("traj_gemm_kernel", "kernel 1 q2 GEMM"),
+    ("traj_gemm_kernel", "kernel 1 / 3 / 4 q2 GEMM"),
     ("traj_stage2_kernel", "kernel 1 stage 2"),
     ("patch_embed_kernel", "kernel 2 (patch embed)"),
 )
@@ -66,6 +72,7 @@ def kernel_groups(rows, iters):
                                               "launches_per_call": 0.0})
                 g["device_ms_per_call"] += us / 1e3 / iters
                 g["launches_per_call"] += count / iters
+                break
     return groups
 
 

@@ -100,13 +100,15 @@ def test_trajectory_core_plan_matches_the_cuda_source():
     assert const["S2_MAX_STAGES"] == str(ttb.STAGE2_MAX_STAGES)
     assert const["S2_SMEM_LIMIT"] == str(ttb.SMEM_LIMIT)
     assert const["S2_LINE"] == "S2_CH + 8"
+    assert const["S2_LINE_V3"] == "2 * S2_CH + 8"
     assert const["S2_WK_HEAD_BYTES"] == "S2_CH * HD * 2"
     assert const["S2_XS_ROW_BYTES"] == "MAX_F * S2_CH * 2"
     assert (const["S2_ALIGN"], const["S2_ZERO_BYTES"],
             const["S2_BAR_BYTES"]) == ("1024", "16", "64")
-    assert "return heads * S2_LINE + ((heads & 1) ? 0 : 8);" in src
+    assert "return heads * s2_line<V3>() + ((heads & 1) ? 0 : 8);" in src
+    assert "return V3 ? S2_LINE_V3 : S2_LINE;" in src
     assert "return w48 * 48 < w64 * 64 ? S2_MIN_ROWS : S2_ROWS;" in src
-    assert "S2_ALIGN + 2 * s2_g_bytes(heads, rows) + S2_ZERO_BYTES" in src
+    assert "S2_ALIGN + 2 * s2_g_bytes<V3>(heads, rows) + S2_ZERO_BYTES" in src
     core = _source("trajectory_core.cuh")
     assert "constexpr int GM = 128, GN = 128" in core
     assert ttb.GEMM_TILE == 128
@@ -183,7 +185,7 @@ def test_kernel_1_runs_stage_1_on_the_shared_wgmma_core():
     k1 = _source("trajectory_block.cu")
     assert "launch_stage1" not in k1
     assert '#include "space_stage_core.cuh"' in k1
-    assert "launch_space_stage_keys(" in k1 and "launch_gemm(" in k1
+    assert "launch_space_stage_keys<V3>(" in k1 and "launch_gemm(" in k1
     assert '#include "space_stage_core.cuh"' in _source("trajectory_attention.cu")
     core = _source("space_stage_core.cuh")
     assert "__global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(" in core
@@ -198,9 +200,10 @@ def test_kernel_1_stage_2_holds_every_head_in_one_block():
     launch, no head-group grid dimension, the logits on mma.sync."""
     src = _source("trajectory_block.cu")
     assert len(re.findall(r"<<<", src)) == 1
-    assert "traj_stage2_kernel<<<(M + rows - 1) / rows, S2_THREADS" in src
+    assert "traj_stage2_kernel<V3><<<(M + rows - 1) / rows, S2_THREADS" in src
     assert "constexpr int MAX_HPG" not in src and "head_groups(" not in src
-    assert src.count("mma_16816(") == 3
+    # g's two products, the logits' (and the mode V3's second, for lo)
+    assert src.count("mma_16816(") == 4
     assert "tma_load_2d(" in src and "tma_load_3d(" in src
     assert "CU_TENSOR_MAP_SWIZZLE_32B" in src and "cp_async16" not in src
 

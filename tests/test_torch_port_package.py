@@ -142,10 +142,10 @@ def test_wrappers_refuse_other_devices():
     (ar_decode, "ar_decode.cu", "ar_decode_step_bf16"),
     (ar_decode, "ar_decode.cu", "ar_decode_step_w8a8"),
     (trajectory_attention, "trajectory_attention.cu", "space_stage_bf16"),
-    (trajectory_block, "trajectory_block_v3.cu", "traj_core_v3_bf16"),
+    (trajectory_block, "trajectory_block.cu", "traj_core_v3_bf16"),
     (trajectory_block, "trajectory_block_v5.cu", "traj_core_v5_bf16"),
     (trajectory_block, "trajectory_block_v6.cu", "traj_core_v6_bf16"),
-    (trajectory_block, "trajectory_block_v7.cu", "traj_core_v7_bf16"),
+    (trajectory_block, "trajectory_block.cu", "traj_core_v7_bf16"),
 ])
 def test_wrappers_bind_their_cuda_sources(module, source, symbol):
     with open(os.path.join(PKG, "csrc", source)) as f:
@@ -182,10 +182,10 @@ def _c_signature(source, symbol):
     ("ar_decode.cu", "ar_decode_step_bf16", 17, 7, 1),
     ("ar_decode.cu", "ar_decode_step_w8a8", 20, 7, 1),
     ("trajectory_attention.cu", "space_stage_bf16", 4, 5, 1),
-    ("trajectory_block_v3.cu", "traj_core_v3_bf16", 10, 6, 1),
+    ("trajectory_block.cu", "traj_core_v3_bf16", 10, 6, 1),
     ("trajectory_block_v5.cu", "traj_core_v5_bf16", 11, 6, 1),
     ("trajectory_block_v6.cu", "traj_core_v6_bf16", 11, 6, 1),
-    ("trajectory_block_v7.cu", "traj_core_v7_bf16", 10, 6, 1),
+    ("trajectory_block.cu", "traj_core_v7_bf16", 10, 6, 1),
 ])
 def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
                                             n_float):
@@ -197,10 +197,8 @@ def test_ctypes_binding_matches_c_signature(source, symbol, n_ptr, n_int,
     assert [order[k] for k in kinds] == sorted(order[k] for k in kinds)
     module = {"trajectory_block.cu": trajectory_block,
               "trajectory_block_bwd.cu": trajectory_block,
-              "trajectory_block_v3.cu": trajectory_block,
               "trajectory_block_v5.cu": trajectory_block,
               "trajectory_block_v6.cu": trajectory_block,
-              "trajectory_block_v7.cu": trajectory_block,
               "trajectory_attention.cu": trajectory_attention,
               "patch_embed.cu": patch_embed, "ar_decode.cu": ar_decode}[source]
     with open(module.__file__) as f:
