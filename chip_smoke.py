@@ -251,6 +251,23 @@ def core_flops(B, S, F, N, C):
         + 2 * B * S * F * C * (C // 64) + 2 * B * S * F * C
 
 
+def k2v_flops(B, S, F, N, C):
+    """Operations that kernels 5 and 6's function needs in its k2v form:
+    the k2v and q2 GEMMs, and QK, PV and P . k2v over all F N keys with
+    the stage-2 logits' row dots and the mix. The own-frame aggregates are
+    not counted apart: the pass's PV over each row's own frame forms them
+    (csrc/trajectory_k2v.cuh forms them once more, in a launch of their
+    own, for q2; ``own_frame_flops``)."""
+    return 2 * B * F * N * C * C + 2 * B * S * C * C \
+        + 6 * B * S * F * N * C + 2 * 2 * B * S * F * C
+
+
+def own_frame_flops(B, S, N, C):
+    """QK and PV of each row's own frame: the own-frame launch of kernels 5
+    and 6, which the design does beside ``k2v_flops``."""
+    return 4 * B * S * N * C
+
+
 def check_close(name, out, ref, rel=KERNEL_TOL_REL):
     out, ref = out.float(), ref.float()
     err = (out - ref).abs().max().item()
@@ -702,6 +719,42 @@ VERSIONS = (3, 7, 5, 6)  # the forward versions beside kernel 1 (version 4)
 SAME_FUNCTION = (3, 7)  # the versions that compute kernel 1's function
 # kernels 3 and 4 are kernel 1's three launches in the rounding mode V3
 SAME_FUNCTION_DEVICE_LAUNCHES = 3
+# kernels 5 and 6: the k2v GEMM, the own-frame aggregates, the q2 GEMM and
+# the pass (csrc/trajectory_k2v.cuh)
+K2V_DEVICE_LAUNCHES = 4
+
+
+def check_k2v_outputs(tb, args, scale, heads, tag):
+    """Kernels 5 and 6 on the same inputs, each called twice: the two calls
+    bit-equal (out, q2 and v5's x_diag; v6's xs); v6's xs on each row's own
+    frame bit-equal to v5's x_diag (both come from the own-frame launch and
+    the pass with one softmax and one product order, so the q2 that kernel
+    7 reads belongs to the xs it reads), and the two versions' q2 bit-equal
+    (one GEMM on those rows)."""
+    from focus_tpu_torch.ops import attention as attn_ops
+
+    runs = {v: [tb._launch_variant(v, *args[:6], scale, heads)
+                for _ in range(2)] for v in (5, 6)}
+    torch.cuda.synchronize()
+    report = {}
+    for v, (a, b) in runs.items():
+        pairs = [("out", a[0], b[0]), ("q2", a[2], b[2])]
+        pairs += ([("xs", a[1], b[1])] if v == 6
+                  else [("x_diag", a[3]["x_diag"], b[3]["x_diag"])])
+        same = {name: torch.equal(x, y) for name, x, y in pairs}
+        if not all(same.values()):
+            raise AssertionError(f"v{v} {tag}: two calls differ {same}")
+        report[f"v{v}_two_calls_bitwise_equal"] = same
+    x_diag = runs[5][0][3]["x_diag"]
+    own = attn_ops.take_diagonal(runs[6][0][1], args[1].shape[1])
+    gap = (own.float() - x_diag.float()).abs().max().item()
+    report["v6_xs_own_frame_vs_x_diag_max_abs_diff"] = gap
+    report["v6_q2_bitwise_equal_to_v5"] = torch.equal(runs[6][0][2],
+                                                      runs[5][0][2])
+    if gap != 0 or not report["v6_q2_bitwise_equal_to_v5"]:
+        raise AssertionError(f"{tag}: v6's own-frame xs or q2 is not the "
+                             f"own-frame launch's ({report})")
+    return report
 
 
 def phase_variants():
@@ -712,7 +765,12 @@ def phase_variants():
     head's stage-1 weights agree), at B = 8 and N = 196 and 200, and on the
     two extreme inputs (gated for all); for v3 and v7 also the xs and q2
     they write against the plain stage 1 in their rounding, and two calls
-    bit-equal; kernel, plain and version-4 times on the same inputs (each
+    bit-equal; for v5 and v6 two calls bit-equal and v6's own-frame xs
+    bit-equal to the x_diag both form (``check_k2v_outputs``), all of it
+    also at B = 2 with N = 256, 65, and 24 at F = 4, and at one frame; the
+    device launches a call (3 for v3 and v7, 4 for v5 and v6); kernel,
+    plain and
+    version-4 times on the same inputs (each
     call from an idle card, and 20 back to back; and kernel 3's beside v7);
     one backward per version at B = 2 through _FusedCore against the
     version-4 gradients."""
@@ -760,6 +818,8 @@ def phase_variants():
             if v in SAME_FUNCTION:
                 case.update(check_v3_stage1_outputs(tb, v, args, scale,
                                                     heads, tag))
+            elif v == 6:  # both k2v kernels' outputs, once per input
+                case.update(check_k2v_outputs(tb, args, scale, heads, tag))
             results[v]["cases"].append(case)
             if not extreme:
                 B, S, C_ = args[0].shape
@@ -789,6 +849,13 @@ def phase_variants():
                                                              heads)))
                 t["bound_ms"], t["bound_by"] = bound(
                     core_flops(B, S, 8, N, C_), nbytes(*args) + nbytes(out))
+                if v in (5, 6):  # the k2v form's work; v6 also writes xs
+                    t["bound_ms_kernel_1_function"] = t["bound_ms"]
+                    t["bound_ms"], t["bound_by"] = bound(
+                        k2v_flops(B, S, 8, N, C_),
+                        nbytes(*args[:6]) + nbytes(out) * (9 if v == 6 else 1))
+                    t["design_gflop"] = (k2v_flops(B, S, 8, N, C_)
+                                         + own_frame_flops(B, S, N, C_)) / 1e9
                 results[v]["timing"].append(t)
             del out, own
         del true
@@ -826,14 +893,38 @@ def phase_variants():
                                        for a, b in zip(got, ref)),
             **{n: grad_errors(f"v{v} backward {n}", a, b)
                for n, a, b in zip(GRAD_NAMES, got, ref)}}
+
+    # the other forms of kernels 5 and 6: keys padded to 256 (one Q tile
+    # and one staging tile), to 128 and, at F = 4, to 64 (own-frame units
+    # that span several frames), and one frame
+    for B, N, F in ((2, 256, 8), (2, 65, 8), (2, 24, 4), (1, 196, 1)):
+        args = core_inputs(B, N, gen, F=F)
+        tag = f"B={B} N={N} F={F}"
+        for v in (5, 6):
+            before = variant_counts(tb)
+            out = run_version(tb, v, lambda: tb.fused_trajectory_core(
+                *args, scale, heads))
+            after = variant_counts(tb)
+            own = plain[v](*args, scale, heads)
+            torch.cuda.synchronize()
+            err, ref_max = check_close(f"v{v} {tag} vs its plain version",
+                                       out, own)
+            results[v]["cases"].append(
+                {"case": tag, "max_abs_err": err, "max_abs_ref": ref_max,
+                 "device_launches": after[f"v{v}_device"]
+                 - before[f"v{v}_device"]})
+            del out, own
+        results[6]["cases"][-1].update(
+            check_k2v_outputs(tb, args, scale, heads, tag))
     rows = []
     for v in VERSIONS:
         r = results[v]
         per_call = {c["device_launches"] for c in r["cases"]}
-        if len(per_call) != 1 or (
-                v in SAME_FUNCTION
-                and per_call != {SAME_FUNCTION_DEVICE_LAUNCHES}):
-            raise AssertionError(f"v{v} device launches per call {per_call}")
+        expect = (SAME_FUNCTION_DEVICE_LAUNCHES if v in SAME_FUNCTION
+                  else K2V_DEVICE_LAUNCHES)
+        if per_call != {expect}:
+            raise AssertionError(f"v{v} device launches per call {per_call}, "
+                                 f"expected {expect}")
         per_call = per_call.pop()
         against_core = (
             "and against the plain trajectory core (float32) on every input: "
@@ -855,7 +946,10 @@ def phase_variants():
                               f"mean|ref| within {V3_XS_MEAN_REL} where "
                               "kernel 1's xs must read above it, and two "
                               "calls bit-equal (out, xs, q2)"
-                              if v in SAME_FUNCTION else "")
+                              if v in SAME_FUNCTION else
+                              "; two calls bit-equal (out, q2, v5's x_diag, "
+                              "v6's xs), v6's own-frame xs bit-equal to "
+                              "x_diag and v6's q2 to v5's")
                            + "; backward: each gradient within "
                            f"{KERNEL_TOL_REL} x max|ref| and {BWD_REL_L2} "
                            "relative L2 of version 4's",
@@ -884,6 +978,16 @@ def phase_variants():
                      f"(S=1600: {r['timing'][1]['kernel_ms']:.4f} ms)"}
         if v == 7:
             row["v3_ms_same_inputs"] = t["v3_kernel_ms_same_inputs"]
+        if v in (5, 6):
+            row["bound_ms_kernel_1_function"] = t["bound_ms_kernel_1_function"]
+            row["design_gflop"] = t["design_gflop"]
+            row["bound_note"] = (
+                "bound_ms: the function's work in its k2v form (k2v_flops: "
+                "the k2v and q2 GEMMs, QK, PV and P . k2v over all keys, the "
+                "stage-2 row dots and the mix) at the bf16 peak; "
+                "bound_ms_kernel_1_function: kernel 1's function "
+                "(core_flops); design_gflop: what the four launches do, the "
+                "own-frame launch's own_frame_flops included")
         rows.append(row)
     return rows
 

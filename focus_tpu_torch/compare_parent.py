@@ -10,18 +10,20 @@ Compiles the other commit's sources (with this tree's nvcc flags, into
 the same inputs:
 
   - bit-equality: kernel 8 (``space_stage_bf16``, the space stage at the
-    learned-v shapes), kernel 1 (``traj_core_bf16``: out, xs and q2 at B =
-    8, N = 196 and 200, and on an extreme input), and the v5 and v6
-    forwards (``traj_core_v5_bf16``, ``traj_core_v6_bf16``: out, xs and q2)
-    at the flagship's shapes and on an extreme input; ``torch.equal`` on
-    every output;
+    learned-v shapes), kernel 1 (``traj_core_bf16``: out, xs and q2) and
+    kernels 3, 4, 5 and 6 (``traj_core_v3_bf16``, ``traj_core_v7_bf16``,
+    ``traj_core_v5_bf16``, ``traj_core_v6_bf16``: out and the xs, q2 and
+    scratch each writes) at B = 8, N = 196 and 200, and on an extreme
+    input; ``torch.equal`` on every output, and beside it the largest
+    difference of the two builds' outputs over the other's largest value;
   - kernel 1 (``traj_core_bf16``) at B = 8, N = 196 and 200: the other
     build, this one, this one, the other, each the median of 20 per-call
     CUDA-event times, and each build's output against the plain version;
-  - kernels 3 and 4 (``traj_core_v3_bf16``, ``traj_core_v7_bf16``, from
-    whichever of the other build's sources defines them) at B = 8, N = 196
-    and 200: the other build, this one and kernel 1 of this one on the
-    same inputs, in turns (the median of 20 per-call times, and the median
+  - kernels 3, 4, 5 and 6 (``traj_core_v3_bf16``, ``traj_core_v7_bf16``,
+    ``traj_core_v5_bf16``, ``traj_core_v6_bf16``, each from whichever of
+    the other build's sources defines it) at B = 8, N = 196 and 200: the
+    other build, this one and kernel 1 of this one on the same inputs, in
+    turns (the median of 20 per-call times, and the median
     of 5 rounds of 20 calls back to back), each against its plain
     version;
   - kernel 2 (``patch_embed_bf16``) on the flagship's video
@@ -36,6 +38,7 @@ non-zero if a bit-equality fails or no CUDA device is present.
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import statistics
@@ -194,6 +197,25 @@ def max_rel(out, ref):
             / ref.float().abs().max()).item()
 
 
+def forward_version(parent, v):
+    """(the module attribute that binds forward version ``v``, its launch,
+    the binder to put there for the other build) for 3, 7, 5 and 6."""
+    if v in (3, 7):
+        return (f"_v{v}_kernel_fn", getattr(tb, f"_launch_v{v}"),
+                lambda: parent[f"v{v}"])
+    return ("_variant_kernel_fn", functools.partial(tb._launch_variant, v),
+            lambda version: parent[f"v{version}"])
+
+
+def outputs(result):
+    """{name: tensor} of what a forward launch wrote: out, xs, q2 and the
+    scratch of v5 and v6."""
+    named = dict(zip(("out", "xs", "q2"), result[:3]))
+    if len(result) > 3:
+        named.update(result[3])
+    return {k: t for k, t in named.items() if t is not None}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
@@ -224,8 +246,8 @@ def main():
         failures += [] if same else [f"space_stage N={N}"]
         emit({"compare": "space_stage", "N": N, "bitwise_equal": same})
 
-    # kernel 1 (its stage 1 and GEMM share code with the mode V3), v5 and
-    # v6, bit for bit (out, xs, q2; v5's and v6's scratch too)
+    # kernel 1 (its stage 1 and GEMM share code with the mode V3 and with
+    # v5 and v6), kernels 3, 4, 5 and 6, bit for bit
     inputs = [("B=8 N=196", core_inputs(8, 196, gen)),
               ("B=8 N=200", core_inputs(8, 200, gen)),
               ("extreme -60", extreme_inputs(gen))]
@@ -239,18 +261,18 @@ def main():
         emit({"compare": "trajectory_block", "case": tag,
               "outputs": ["out", "xs", "q2"], "bitwise_equal": same})
         del mine, theirs
-        for version in (5, 6):
-            mine = tb._launch_variant(version, *a, scale, heads)
-            with use(tb, "_variant_kernel_fn", lambda v: parent[f"v{v}"]):
-                theirs = tb._launch_variant(version, *a, scale, heads)
+        for version in (3, 7, 5, 6):
+            attr, launch, other = forward_version(parent, version)
+            mine = outputs(launch(*a, scale, heads))
+            with use(tb, attr, other):
+                theirs = outputs(launch(*a, scale, heads))
             torch.cuda.synchronize()
-            same = all(x is None and y is None or torch.equal(x, y)
-                       for x, y in zip(mine[:3], theirs[:3]))
-            same = same and all(torch.equal(mine[3][k], theirs[3][k])
-                                for k in mine[3])
-            failures += [] if same else [f"v{version} {tag}"]
+            same = {k: torch.equal(mine[k], theirs[k]) for k in mine}
+            failures += [] if all(same.values()) else [f"v{version} {tag}"]
             emit({"compare": f"trajectory_block_v{version}", "case": tag,
-                  "bitwise_equal": same})
+                  "bitwise_equal": same,
+                  "max_diff_rel_to_other": {k: max_rel(mine[k], theirs[k])
+                                            for k in mine}})
             del mine, theirs
     del inputs
     torch.cuda.empty_cache()
@@ -277,19 +299,23 @@ def main():
               "this_max_err_rel": max_rel(out, ref),
               "other_max_err_rel": max_rel(out_p, ref)})
 
-    # kernels 3 and 4: the other build, this one and kernel 1 in turns
+    # kernels 3, 4, 5 and 6: the other build, this one and kernel 1 in
+    # turns
+    plain = {3: tb.trajectory_core_v3_reference,
+             7: tb.trajectory_core_v7_reference,
+             5: tb.trajectory_core_v5_reference,
+             6: tb.trajectory_core_v6_reference}
     for N in (196, 200):
         a = core_inputs(8, N, gen)
-        ref = tb.trajectory_core_v3_reference(*a, None, scale, heads)
-        for v in (3, 7):
-            attr = f"_v{v}_kernel_fn"
-            launch = getattr(tb, f"_launch_v{v}")
+        for v in (3, 7, 5, 6):
+            ref = plain[v](*a, None, scale, heads)
+            attr, launch, other = forward_version(parent, v)
             out = launch(*a, scale, heads)[0]
-            with use(tb, attr, lambda: parent[f"v{v}"]):
+            with use(tb, attr, other):
                 out_p = launch(*a, scale, heads)[0]
 
             def theirs():
-                with use(tb, attr, lambda: parent[f"v{v}"]):
+                with use(tb, attr, other):
                     launch(*a, scale, heads)
 
             def mine():
@@ -310,9 +336,9 @@ def main():
                   "kernel_1_ms_back_to_back": b2b[2],
                   "this_max_err_rel": max_rel(out, ref),
                   "other_max_err_rel": max_rel(out_p, ref),
-                  "plain": "trajectory_core_v3_reference on the same bf16 "
-                           "inputs"})
-        del a, ref
+                  "plain": f"{plain[v].__name__} on the same bf16 inputs"})
+            del ref
+        del a
         torch.cuda.empty_cache()
 
     # kernel 2 and F.conv3d in turns on the same bf16 video

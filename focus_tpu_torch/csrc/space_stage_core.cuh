@@ -1,7 +1,7 @@
 // The trajectory-attention stage 1 on wgmma and TMA, shared by the space
 // stage (trajectory_attention.cu, kernel 8) and the fused trajectory core's
 // forward (trajectory_block.cu, kernel 1, and in the rounding mode V3 below
-// kernels 3 and 4):
+// kernels 3 and 4; in the own-frame mode below, kernels 5 and 6's x_diag):
 //
 //   out[b, s, f, h] = softmax(q[b, s, h] . kf[b, f, :, h]^T * scale)
 //                     . vf[b, f, :, h]
@@ -70,6 +70,14 @@
 // formed after this frame's softmax and read when this frame's output
 // leaves, one turn later. With V3 false the arithmetic is the space
 // stage's, bit for bit.
+//
+// Own-frame mode (DIAG; trajectory_k2v.cuh's own_frame_kernel, the forward
+// versions 5 and 6): a unit visits only the frames its 128 rows lie in
+// (one or two at N = 196) and stores each row's own frame alone, x_diag
+// [B, S, C], by plain stores from the registers. The arithmetic is the
+// space stage's, so x_diag is the own-frame rows of what the space stage
+// writes, bit for bit; the softmax lives in ss_frame_softmax, which
+// trajectory_k2v.cuh's pass calls too.
 
 #pragma once
 
@@ -131,13 +139,97 @@ __device__ __forceinline__ float ss_exp2(float x) {
   return y;
 }
 
+// The softmax of one frame on the logits' registers (a warpgroup's 64 rows
+// by NP keys in the accumulators' layout: element 4j + e is key 8j + 2 t4 +
+// (e & 1), the second row for e >= 2): keys >= N at -inf, the row max and
+// sum over the quad of lanes that holds a row, one ex2 per logit (scale *
+// log2(e) folded into one FMA before it), and the weights packed to bf16 as
+// the A fragments of the products that follow (k-step kk: keys 16 kk ..
+// 16 kk + 15). Normalised before the rounding, or (V3) unnormalised, the
+// caller scaling the products by inv0 / inv1 = 1 / s of its two rows.
 template <int NP, bool V3>
-__global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
-    const __grid_constant__ CUtensorMap q_map,
-    const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map,
-    const __grid_constant__ CUtensorMap o_map, int BH, int heads, int S,
-    int F, int N, float scale_log2e) {
+__device__ __forceinline__ void ss_frame_softmax(float (&sacc)[NP / 2],
+                                                 uint32_t (&pa)[NP / 16][4],
+                                                 int N, int t4,
+                                                 float scale_log2e,
+                                                 float& inv0, float& inv1) {
+  // keys below this always exist (N is above the next smaller width)
+  constexpr int SAFE_KEYS = NP == 64 ? 0 : (NP == 128 ? 64 : (NP == 208 ? 128 : 208));
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t4 + (e & 1);
+      const float v = (8 * j + 8 <= SAFE_KEYS || key < N) ? sacc[4 * j + e]
+                                                          : -INFINITY;
+      sacc[4 * j + e] = v;
+      if (e < 2) m0 = fmaxf(m0, v);
+      else m1 = fmaxf(m1, v);
+    }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  const float mb0 = m0 * scale_log2e, mb1 = m1 * scale_log2e;
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // ex2(-inf) = 0 for the padding
+      const float p = ss_exp2(
+          fmaf(sacc[4 * j + e], scale_log2e, e < 2 ? -mb0 : -mb1));
+      sacc[4 * j + e] = p;
+      if (e < 2) l0 += p;
+      else l1 += p;
+    }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+  }
+  inv0 = 1.f / l0;
+  inv1 = 1.f / l1;
+  if constexpr (V3) {  // rounded unnormalised; 1 / s waits for P . V
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk) {
+      pa[kk][0] = pack_bf16x2(sacc[8 * kk], sacc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16x2(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < NP / 16; ++kk) {
+      pa[kk][0] = pack_bf16x2(sacc[8 * kk] * inv0, sacc[8 * kk + 1] * inv0);
+      pa[kk][1] = pack_bf16x2(sacc[8 * kk + 2] * inv1, sacc[8 * kk + 3] * inv1);
+      pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4] * inv0, sacc[8 * kk + 5] * inv0);
+      pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6] * inv1, sacc[8 * kk + 7] * inv1);
+    }
+  }
+}
+
+// The frames a unit of 128 query rows from s0 visits, [lo, hi): all F, or
+// (DIAG) the frames its rows lie in
+template <bool DIAG>
+__device__ __forceinline__ void ss_unit_frames(int s0, int S, int F, int N,
+                                               int& lo, int& hi) {
+  lo = DIAG ? s0 / N : 0;
+  hi = DIAG ? (min(s0 + SS_ROWS, S) - 1) / N + 1 : F;
+}
+
+// The kernel's body. With DIAG (the own-frame mode of the trajectory
+// core's forward versions 5 and 6) a unit visits only the frames its rows
+// lie in (one or two at N = 196) and each row's own frame alone leaves, as
+// diag[b, s, head] ([B, S, C]) by plain stores from the registers; o_map
+// is not used then, and diag is not used otherwise.
+template <int NP, bool V3, bool DIAG>
+__device__ __forceinline__ void space_stage_body(
+    const CUtensorMap* q_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, const CUtensorMap* o_map, bf16* diag, int BH,
+    int heads, int S, int F, int N, float scale_log2e) {
+  static_assert(!(V3 && DIAG), "the own-frame mode rounds as the space stage");
   constexpr int KV_TILE = NP * SS_ROW_BYTES;
   constexpr int STAGES = ss_stages(NP);
   extern __shared__ unsigned char smem_raw[];
@@ -180,15 +272,17 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
         const int bh = unit / tiles, s0 = (unit % tiles) * SS_ROWS;
         const int b = bh / heads, c0 = (bh % heads) * SS_HD;
         const int qs = u & 1;
+        int f_lo, f_hi;
+        ss_unit_frames<DIAG>(s0, S, F, N, f_lo, f_hi);
         mbar_wait(&q_empty[qs], ((u >> 1) & 1) ^ 1);
         mbar_arrive_expect_tx(&q_full[qs], SS_Q_BYTES);
-        tma_load_3d(qbuf + qs * SS_Q_BYTES, &q_map, &q_full[qs], c0, s0, b);
-        for (int f = 0; f < F; ++f) {
+        tma_load_3d(qbuf + qs * SS_Q_BYTES, q_map, &q_full[qs], c0, s0, b);
+        for (int f = f_lo; f < f_hi; ++f) {
           mbar_wait(&kv_empty[stage], phase ^ 1);
           mbar_arrive_expect_tx(&kv_full[stage], 2 * KV_TILE);
           unsigned char* kd = kv + stage * 2 * KV_TILE;
-          tma_load_3d(kd, &k_map, &kv_full[stage], c0, 0, b * F + f);
-          tma_load_3d(kd + KV_TILE, &v_map, &kv_full[stage], c0, 0, b * F + f);
+          tma_load_3d(kd, k_map, &kv_full[stage], c0, 0, b * F + f);
+          tma_load_3d(kd + KV_TILE, v_map, &kv_full[stage], c0, 0, b * F + f);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -208,8 +302,6 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
   const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const bool storer = wtid == 0;
   unsigned char* my_out = obuf + wg * SS_OUT_SLOTS * SS_OUT_BYTES;
-  // keys below this always exist (N is above the next smaller width)
-  constexpr int SAFE_KEYS = NP == 64 ? 0 : (NP == 128 ? 64 : (NP == 208 ? 128 : 208));
   // The two warpgroups take turns at the tensor cores (named barriers 3 and
   // 4): a turn issues PV of the frame before and QK of this frame, so one
   // warpgroup's products run while the other's softmax does.
@@ -222,15 +314,20 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
   for (int unit = blockIdx.x; unit < units; unit += gridDim.x, ++u) {
     const int bh = unit / tiles;
     const int b = bh / heads, c0 = (bh % heads) * SS_HD;
-    const int row0 = (unit % tiles) * SS_ROWS + wg * 64;  // this warpgroup's
+    const int s0 = (unit % tiles) * SS_ROWS;
+    const int row0 = s0 + wg * 64;  // this warpgroup's
     const int qs = u & 1;
     const bool last_unit = unit + (int)gridDim.x >= units;
+    int f_lo, f_hi;
+    ss_unit_frames<DIAG>(s0, S, F, N, f_lo, f_hi);
+    const int nf = f_hi - f_lo;
     mbar_wait(&q_full[qs], (u >> 1) & 1);
     const uint64_t dq = wgmma_desc_sw128(
         qbuf + qs * SS_Q_BYTES + wg * SS_WG_ROWS_BYTES, 16, 1024);
     int pstage = 0;  // the slot of the frame before
-    for (int f = 0; f <= F; ++f) {
-      const bool qk = f < F, pv = f > 0;
+    for (int i = 0; i <= nf; ++i) {
+      const int f = f_lo + i;  // QK of frame f, PV of frame f - 1
+      const bool qk = i < nf, pv = i > 0;
       float sacc[NP / 2];
       named_barrier(3 + wg, 256);  // this warpgroup's turn
       wgmma_fence();
@@ -241,7 +338,7 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
         for (int kk = 0; kk < NP / 16; ++kk)
           wgmma_rs_n64_tb(oacc, pa[kk], dv + (uint64_t)(kk * 128), kk);
       }
-      wgmma_commit();  // group 1: PV (empty at f = 0)
+      wgmma_commit();  // group 1: PV (empty at i = 0)
       if (qk) {  // logits: 4 k-steps of 16 channels, 32 bytes along a row
         mbar_wait(&kv_full[stage], phase);
         const uint64_t dk =
@@ -250,108 +347,138 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
         for (int k = 0; k < SS_HD / 16; ++k)
           wgmma_ss<NP>(sacc, dq + 2 * k, dk + 2 * k, k);
       }
-      wgmma_commit();  // group 2: QK (empty at f = F)
-      if (!(wg == 1 && f == F && last_unit))  // the other's turn (none
+      wgmma_commit();  // group 2: QK (empty at i = nf)
+      if (!(wg == 1 && i == nf && last_unit))  // the other's turn (none
         named_barrier_arrive(3 + (1 - wg), 256);  // after the last)
       wgmma_wait<1>();  // PV done: its output leaves while QK runs
       reg_fence(oacc);
 
       if (pv) {  // the frame before: its slot is free, its output leaves
         mbar_arrive(&kv_empty[pstage]);
-        unsigned char* ob = my_out + oslot * SS_OUT_BYTES;
-        if (storer) tma_store_wait_read<SS_OUT_SLOTS - 1>();
-        named_barrier(1 + wg, 128);  // the staging tile is free again
-        if constexpr (V3) {  // the frame before's sums, normalised
-#pragma unroll
-          for (int e = 0; e < 32; ++e) oacc[e] *= (e & 2) ? pinv1 : pinv0;
-        }
         const int r0 = 16 * warp + g, r1 = r0 + 8;
+        if constexpr (DIAG) {  // the rows whose own frame it is
+          const int C = heads * SS_HD;
+          const int s_0 = row0 + r0, s_1 = row0 + r1;
+          bf16* o0 = diag + ((size_t)b * S + s_0) * C + c0 + 2 * t4;
+          bf16* o1 = o0 + (size_t)8 * C;
+          const bool w0 = s_0 < S && s_0 / N == f - 1;
+          const bool w1 = s_1 < S && s_1 / N == f - 1;
 #pragma unroll
-        for (int j = 0; j < SS_HD / 8; ++j) {
-          *reinterpret_cast<uint32_t*>(ob + r0 * SS_ROW_BYTES +
-                                       ((j ^ (r0 & 7)) << 4) + 4 * t4) =
-              pack_bf16x2(oacc[4 * j], oacc[4 * j + 1]);
-          *reinterpret_cast<uint32_t*>(ob + r1 * SS_ROW_BYTES +
-                                       ((j ^ (r1 & 7)) << 4) + 4 * t4) =
-              pack_bf16x2(oacc[4 * j + 2], oacc[4 * j + 3]);
+          for (int j = 0; j < SS_HD / 8; ++j) {
+            if (w0)
+              *reinterpret_cast<uint32_t*>(o0 + 8 * j) =
+                  pack_bf16x2(oacc[4 * j], oacc[4 * j + 1]);
+            if (w1)
+              *reinterpret_cast<uint32_t*>(o1 + 8 * j) =
+                  pack_bf16x2(oacc[4 * j + 2], oacc[4 * j + 3]);
+          }
+        } else {
+          unsigned char* ob = my_out + oslot * SS_OUT_BYTES;
+          if (storer) tma_store_wait_read<SS_OUT_SLOTS - 1>();
+          named_barrier(1 + wg, 128);  // the staging tile is free again
+          if constexpr (V3) {  // the frame before's sums, normalised
+#pragma unroll
+            for (int e = 0; e < 32; ++e) oacc[e] *= (e & 2) ? pinv1 : pinv0;
+          }
+#pragma unroll
+          for (int j = 0; j < SS_HD / 8; ++j) {
+            *reinterpret_cast<uint32_t*>(ob + r0 * SS_ROW_BYTES +
+                                         ((j ^ (r0 & 7)) << 4) + 4 * t4) =
+                pack_bf16x2(oacc[4 * j], oacc[4 * j + 1]);
+            *reinterpret_cast<uint32_t*>(ob + r1 * SS_ROW_BYTES +
+                                         ((j ^ (r1 & 7)) << 4) + 4 * t4) =
+                pack_bf16x2(oacc[4 * j + 2], oacc[4 * j + 3]);
+          }
+          fence_async_smem();
+          named_barrier(1 + wg, 128);
+          if (storer) {
+            if (row0 < S) tma_store_4d(o_map, ob, c0, f - 1, row0, b);
+            tma_store_commit();
+          }
+          oslot ^= 1;
         }
-        fence_async_smem();
-        named_barrier(1 + wg, 128);
-        if (storer) {
-          if (row0 < S) tma_store_4d(&o_map, ob, c0, f - 1, row0, b);
-          tma_store_commit();
-        }
-        oslot ^= 1;
       }
       wgmma_wait<0>();
       reg_fence(sacc);
       if (!qk) continue;
-      if (f == F - 1) mbar_arrive(&q_empty[qs]);  // Q read for the last time
+      if (i == nf - 1) mbar_arrive(&q_empty[qs]);  // Q read for the last time
       pstage = stage;
       if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
       }
-
-      // softmax over the frame's N keys on the logits' registers
-      float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NP / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = 8 * j + 2 * t4 + (e & 1);
-          const float v = (8 * j + 8 <= SAFE_KEYS || key < N) ? sacc[4 * j + e]
-                                                              : -INFINITY;
-          sacc[4 * j + e] = v;
-          if (e < 2) m0 = fmaxf(m0, v);
-          else m1 = fmaxf(m1, v);
-        }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-      }
-      const float mb0 = m0 * scale_log2e, mb1 = m1 * scale_log2e;
-      float l0 = 0.f, l1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < NP / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {  // ex2(-inf) = 0 for the padding
-          const float p = ss_exp2(
-              fmaf(sacc[4 * j + e], scale_log2e, e < 2 ? -mb0 : -mb1));
-          sacc[4 * j + e] = p;
-          if (e < 2) l0 += p;
-          else l1 += p;
-        }
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        l0 += __shfl_xor_sync(0xffffffffu, l0, o);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, o);
-      }
-      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-      // keys 16 kk .. 16 kk + 15 as the A fragment of k-step kk
-      if constexpr (V3) {  // rounded unnormalised; 1 / s waits for P . V
+      float inv0, inv1;
+      ss_frame_softmax<NP, V3>(sacc, pa, N, t4, scale_log2e, inv0, inv1);
+      if constexpr (V3) {
         pinv0 = inv0;
         pinv1 = inv1;
-#pragma unroll
-        for (int kk = 0; kk < NP / 16; ++kk) {
-          pa[kk][0] = pack_bf16x2(sacc[8 * kk], sacc[8 * kk + 1]);
-          pa[kk][1] = pack_bf16x2(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-          pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-          pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < NP / 16; ++kk) {
-          pa[kk][0] = pack_bf16x2(sacc[8 * kk] * inv0, sacc[8 * kk + 1] * inv0);
-          pa[kk][1] = pack_bf16x2(sacc[8 * kk + 2] * inv1, sacc[8 * kk + 3] * inv1);
-          pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4] * inv0, sacc[8 * kk + 5] * inv0);
-          pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6] * inv1, sacc[8 * kk + 7] * inv1);
-        }
       }
     }
   }
   if (storer) tma_store_wait_all();
+}
+
+template <int NP, bool V3>
+__global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap o_map, int BH, int heads, int S,
+    int F, int N, float scale_log2e) {
+  space_stage_body<NP, V3, false>(&q_map, &k_map, &v_map, &o_map, nullptr,
+                                  BH, heads, S, F, N, scale_log2e);
+}
+
+// the card's SM count, asked for once
+inline cudaError_t ss_sm_count(int* sms) {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  *sms = count;
+  return cudaSuccess;
+}
+
+// tensor maps of q [B, S, C] (a unit's 128 rows of one head; rows past S
+// read as zeros) and of the nkv [B F, N, C] tensors kv[i] (a frame's NP
+// keys of one head; keys past N read as zeros), C = heads * 64
+template <int NP>
+cudaError_t ss_input_maps(const bf16* q, CUtensorMap* qm, int nkv,
+                          const bf16* const* kv, CUtensorMap* kvm, int B,
+                          int heads, int S, int F, int N) {
+  const cuuint64_t C = (cuuint64_t)heads * SS_HD;
+  const cuuint64_t row = C * 2;  // bytes of a [.., C] row
+  {
+    const cuuint64_t dims[3] = {C, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {row, row * S};
+    const cuuint32_t box[3] = {SS_HD, SS_ROWS, 1};
+    const cudaError_t e = make_bf16_map(qm, q, 3, dims, strides, box);
+    if (e != cudaSuccess) return e;
+  }
+  const cuuint64_t dims[3] = {C, (cuuint64_t)N, (cuuint64_t)B * F};
+  const cuuint64_t strides[2] = {row, row * N};
+  const cuuint32_t box[3] = {SS_HD, NP, 1};
+  for (int i = 0; i < nkv; ++i) {
+    const cudaError_t e = make_bf16_map(&kvm[i], kv[i], 3, dims, strides, box);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// a tensor map of out [B, S, F, C]: 64 rows of one frame and head (rows
+// past S are not written)
+inline cudaError_t ss_frames_map(CUtensorMap* om, bf16* out, int B,
+                                 int heads, int S, int F) {
+  const cuuint64_t C = (cuuint64_t)heads * SS_HD;
+  const cuuint64_t row = C * 2;
+  const cuuint64_t dims[4] = {C, (cuuint64_t)F, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {row, row * F, row * F * S};
+  const cuuint32_t box[4] = {SS_HD, 1, 64, 1};
+  return make_bf16_map(om, out, 4, dims, strides, box);
 }
 
 // q [B, S, C], kf / vf [B, F, N, C], out [B, S, F, C] with C = heads * 64
@@ -359,50 +486,25 @@ template <int NP, bool V3>
 cudaError_t launch_space_stage(const bf16* q, const bf16* kf, const bf16* vf,
                                bf16* out, int B, int heads, int S, int F,
                                int N, float scale, cudaStream_t st) {
-  CUtensorMap qm, km, vm, om;
-  const cuuint64_t C = (cuuint64_t)heads * SS_HD;
-  const cuuint64_t row = C * 2;  // bytes of a [.., C] row
-  {  // q [B, S, C]: a unit's 128 rows of one head (rows past S: zeros)
-    const cuuint64_t dims[3] = {C, (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t strides[2] = {row, row * S};
-    const cuuint32_t box[3] = {SS_HD, SS_ROWS, 1};
-    const cudaError_t e = make_bf16_map(&qm, q, 3, dims, strides, box);
-    if (e != cudaSuccess) return e;
-  }
-  {  // kf, vf [B F, N, C]: a frame's NP keys of one head (past N: zeros)
-    const cuuint64_t dims[3] = {C, (cuuint64_t)N, (cuuint64_t)B * F};
-    const cuuint64_t strides[2] = {row, row * N};
-    const cuuint32_t box[3] = {SS_HD, NP, 1};
-    cudaError_t e = make_bf16_map(&km, kf, 3, dims, strides, box);
-    if (e != cudaSuccess) return e;
-    e = make_bf16_map(&vm, vf, 3, dims, strides, box);
-    if (e != cudaSuccess) return e;
-  }
-  {  // out [B, S, F, C]: 64 rows of one frame and head (past S not written)
-    const cuuint64_t dims[4] = {C, (cuuint64_t)F, (cuuint64_t)S,
-                                (cuuint64_t)B};
-    const cuuint64_t strides[3] = {row, row * F, row * F * S};
-    const cuuint32_t box[4] = {SS_HD, 1, 64, 1};
-    const cudaError_t e = make_bf16_map(&om, out, 4, dims, strides, box);
-    if (e != cudaSuccess) return e;
-  }
+  CUtensorMap qm, kvm[2], om;
+  const bf16* kv[2] = {kf, vf};
+  cudaError_t e = ss_input_maps<NP>(q, &qm, 2, kv, kvm, B, heads, S, F, N);
+  if (e != cudaSuccess) return e;
+  e = ss_frames_map(&om, out, B, heads, S, F);
+  if (e != cudaSuccess) return e;
   constexpr int smem = ss_smem_bytes(NP);
   static const cudaError_t attr = cudaFuncSetAttribute(
       space_stage_kernel<NP, V3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return attr;
-  static int sms = 0;  // the card's SM count, asked for once
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-  }
+  int sms = 0;
+  e = ss_sm_count(&sms);
+  if (e != cudaSuccess) return e;
   const int units = B * heads * ((S + SS_ROWS - 1) / SS_ROWS);
   const int grid = units < sms ? units : sms;
   space_stage_kernel<NP, V3><<<grid, SS_THREADS, smem, st>>>(
-      qm, km, vm, om, B * heads, heads, S, F, N, scale * 1.4426950408889634f);
+      qm, kvm[0], kvm[1], om, B * heads, heads, S, F, N,
+      scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 

@@ -1,25 +1,28 @@
 // Trajectory core, forward version 5, for Hopper (sm_90a), non-CLS tokens.
 //
-// Replaces the TPU kernel focus_tpu/ops/pallas/trajectory_block.py
+// Replaces the TPU kernel focus_tpu/ops/pallas/trajectory_block.py:872
 // (_fused_kernel_v5, called through _fused_fwd_pallas_v5 under
 // FWD_VERSION = 5): fully frame-batched, the per-frame aggregates xs are
-// never formed. Stage 1 writes only the own-frame aggregates x_diag, q2 =
-// x_diag . Wq2 + bq2, the stage-2 logits are read off M_h = q2_h . k2v_h^T
-// and the stage-1 weights (k2v = V . Wk2), and the temporal weights fold
-// into the stage-1 ones: out_h = (p a2_f / s_f) . V_h over all F x N keys.
-// The shared parts and the launch sequence (four launches) are in
-// trajectory_k2v.cuh, which also states where the k2v identity holds. The
-// backward kernel reads xs and q2, which this version does not keep:
-// ops/trajectory_block.py recomputes them with version 4 first.
+// never formed. The design, shared with version 6 and told apart by one
+// flag, is in trajectory_k2v.cuh: k2v = V . Wk2, the own-frame aggregates
+// x_diag, q2 = x_diag . Wq2 + bq2, then one wgmma / TMA pass over the
+// frames that reads the stage-2 logits off Y_f = P . k2v_f (the TPU
+// kernel's M_h = q2_h . k2v_h^T is never formed) and mixes O_f = P . V_f
+// with an online softmax over frames (four launches). Version 5 mixes the
+// float32 O_f and stores no xs; the backward kernel reads xs and q2, which
+// this version does not keep: ops/trajectory_block.py recomputes them with
+// version 4 first.
 //
-// Rounding points: the own-frame weights and x_diag, k2v, q2 and the folded
-// weights p a2 / s are rounded to bf16; the stage-2 logits come from
-// float32 p, a2 is float32; out is rounded once.
+// Rounding points (trajectory_core_k2v_mirror in ops/trajectory_block.py):
+// k2v, the normalised stage-1 weights P, x_diag and q2 are rounded to bf16;
+// O_f, Y_f, the stage-2 logits and the frame softmax stay float32; out is
+// rounded once. The TPU kernel folds p a2 / s into bf16 weights instead.
 //
-// Bound on this card: the same function as version 4, 0.0930 ms at B = 8,
-// S = 1568 (operations). k2v (14.8 GFLOP at B = 8), M (30 GFLOP) and the
-// logits computed twice in the stage-2 kernel (60 GFLOP) are work this
-// variant chooses beyond it; the 154 MB xs round trip of version 4 is gone.
+// Bounds on this card at B = 8, S = 1568, 12 heads: 0.1219 ms for the
+// function in its k2v form (120.5 GFLOP at 989 TFLOP/s, operations; the
+// own-frame launch adds 7.6 that the pass also does); 0.0930 ms for the
+// function of version 4. The first design (an mma.sync stage 1 and an
+// M-form stage 2 that computed the logits twice) did 158 GFLOP.
 
 #include "trajectory_k2v.cuh"
 

@@ -1,23 +1,29 @@
 // Trajectory core, forward version 6, for Hopper (sm_90a), non-CLS tokens.
 //
-// Replaces the TPU kernel focus_tpu/ops/pallas/trajectory_block.py
+// Replaces the TPU kernel focus_tpu/ops/pallas/trajectory_block.py:711
 // (_fused_kernel_v6, called through _fused_fwd_pallas_v6 under
 // FWD_VERSION = 6): version 4's structure with the stage-2 logits read off
-// M_h = q2_h . k2v_h^T and the stage-1 weights, k2v = V . Wk2, in place of
-// version 4's (q2_h . Wk2_h^T) . xs_f. Stage 1 writes xs, q2 is gathered
-// from it, and the final mix sum_f a2_f xs_f is version 4's, so the
-// backward kernel reads this kernel's xs and q2 as it reads version 4's.
-// The shared parts and the launch sequence (four launches) are in
-// trajectory_k2v.cuh, which also states where the k2v identity holds.
+// k2v = V . Wk2 in place of version 4's (q2_h . Wk2_h^T) . xs_f. The
+// design, shared with version 5 and told apart by one flag, is in
+// trajectory_k2v.cuh: k2v, the own-frame aggregates x_diag (parked in out),
+// q2 = x_diag . Wq2 + bq2, then one wgmma / TMA pass over the frames that
+// reads the stage-2 logits off Y_f = P . k2v_f and mixes with an online
+// softmax over frames (four launches). Version 6 stores xs_f = bf16(P .
+// V_f) by TMA and mixes those rounded values, so the backward kernel reads
+// this kernel's xs and q2 as it reads version 4's; xs's own-frame rows are
+// x_diag's bits, so the q2 it reads belongs to the xs it reads.
 //
-// Rounding points: stage-1 weights, xs, k2v and q2 are rounded to bf16 as
-// version 4 rounds them; the stage-2 logits come from float32 p and the
-// stage-2 weights a2 stay float32 (the TPU kernel's), out is rounded once.
+// Rounding points (trajectory_core_k2v_mirror in ops/trajectory_block.py):
+// k2v, the normalised stage-1 weights P, xs and q2 are rounded to bf16;
+// Y_f, the stage-2 logits and the frame softmax stay float32; out is
+// rounded once.
 //
-// Bound on this card: the same function as version 4, 0.0930 ms at B = 8,
-// S = 1568 (operations). The k2v product (14.8 GFLOP at B = 8), M (30 GFLOP)
-// and the recomputed stage-1 logits (30 GFLOP) are work this variant
-// chooses beyond it.
+// Bounds on this card at B = 8, S = 1568, 12 heads: 0.1219 ms for the
+// function in its k2v form (120.5 GFLOP at 989 TFLOP/s, operations; the
+// own-frame launch adds 7.6 that the pass also does; the 154 MB xs store
+// alone is 0.046 ms at 3.35 TB/s); 0.0930 ms for the function of version
+// 4. The first design (an mma.sync stage 1 and an M-form stage 2
+// that recomputed the logits) did 150 GFLOP.
 
 #include "trajectory_k2v.cuh"
 

@@ -19,16 +19,18 @@ and v7 round it: those two kernels differ in their arrangement for the TPU
 alone, so on this card one design serves both; 5 and 6 compute the stage-2
 logits through ``k2v = V . Wk2`` as the TPU kernels v5 and v6 do
 (``csrc/trajectory_block_v5.cu``, which never forms the per-frame
-aggregates xs, and ``csrc/trajectory_block_v6.cu``, which does), which
-equals version 4 only where every head's stage-1 weights agree: elsewhere
-they compute another function. Every
+aggregates xs, and ``csrc/trajectory_block_v6.cu``, which does: one design
+with a flag, ``csrc/trajectory_k2v.cuh``, four launches), which equals
+version 4 only where every head's stage-1 weights agree: elsewhere they
+compute another function. Every
 version has the same backward kernel, which reads xs and q2: v3, v6 and v7
 write them as version 4 does, v5 recomputes them with the version-4 kernel
 first. CPU tensors take ``trajectory_core_reference`` at every version, as
 the JAX package takes its XLA composition off the TPU;
 ``trajectory_core_v3_reference`` (also ``trajectory_core_v7_reference``),
 ``trajectory_core_v5_reference`` and ``trajectory_core_v6_reference``
-follow the kernels step by step.
+follow the TPU kernels step by step, and ``trajectory_core_v3_mirror`` and
+``trajectory_core_k2v_mirror`` the card's kernels 3 / 4 and 5 / 6.
 
 Float32 operands on the card: the kernels take bf16 alone, so a CUDA call
 with a float32 operand (the ``TPU.COMPUTE_DTYPE: float32`` case, which the
@@ -53,7 +55,8 @@ BWD_LAUNCHES = 0
 BWD_DEVICE_LAUNCHES = 0
 # the v3, v5, v6 and v7 forward kernels: wrapper calls, and the device
 # kernels those calls launched (three per v3 or v7 call: stage 1, the q2
-# GEMM and stage 2; in v5 and v6 k2v is a launch of its own)
+# GEMM and stage 2; four per v5 or v6 call: the k2v GEMM, the own-frame
+# aggregates, the q2 GEMM and the pass)
 V3_LAUNCHES = V3_DEVICE_LAUNCHES = 0
 V5_LAUNCHES = V5_DEVICE_LAUNCHES = 0
 V6_LAUNCHES = V6_DEVICE_LAUNCHES = 0
@@ -398,6 +401,89 @@ def trajectory_core_v5_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
     return out.to(dt).reshape(B, S, C)
 
 
+def trajectory_core_k2v_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
+                               version, intermediates=None):
+    """Plain mirror of kernels 5 (``version`` 6) and 6 (``version`` 5) on
+    the card (``csrc/trajectory_k2v.cuh``): their steps and rounding points,
+    in float32 arithmetic on operands at q's dtype. k2v = round(V . Wk2);
+    per frame and head the normalised stage-1 weights P = round(p * (1 /
+    s)) (p = exp(logit * scale - max), s their float32 sum), O_f = P . V_f
+    and Y_f = P . k2v_f in float32; xs = round(O); x_diag the own frame's
+    rows of xs; q2 = round(x_diag . Wq2 + bq2); the stage-2 logits l2_f =
+    (q2_h . Y_f) * scale, which equal the TPU kernels' sum_n p M / s with
+    M_h = q2_h . k2v_h^T in exact arithmetic; then the softmax over frames
+    online, frame by frame: a running max m, sum z and mix acc, rescaled by
+    exp(m - m_new) and added exp(l2_f - m_new) times xs_f (v6) or O_f (v5);
+    out = round(acc / z). Returns out; a dict passed as ``intermediates``
+    receives k2v, p_bf16 (P), o, y, xs, x_diag, q2, l2 and the unrounded
+    out_f32 ([B, heads, S, ...] head-split where per head). Nothing on the
+    card calls it."""
+    del bk2
+    if version not in (5, 6):
+        raise ValueError(f"the k2v design serves versions 5 and 6, not "
+                         f"{version!r}")
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    hd, dt = C // heads, q.dtype
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    k2v = rnd(vf.float().reshape(B, F * N, C) @ wk2.to(dt).float())
+    k2vh = k2v.reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
+    w = rnd(p * (1 / s)[..., None])  # [B, h, S, F, N]
+    o = torch.einsum("bhsfn,bhfnd->bhsfd", w, vh)
+    y = torch.einsum("bhsfn,bhfnd->bhsfd", w, k2vh)
+    xs = o.to(dt).permute(0, 2, 3, 1, 4).reshape(B, S, F, C)
+    x_diag = attn_ops.take_diagonal(xs, F)
+    q2 = (x_diag.float() @ wq2.to(dt).float() + bq2.to(dt).float()).to(dt)
+    q2h = q2.float().reshape(B, S, heads, hd).permute(0, 2, 1, 3)
+    l2 = torch.einsum("bhsd,bhsfd->bhsf", q2h, y) * scale
+    mixed = rnd(o) if version == 6 else o
+    m = torch.full(l2.shape[:-1], -torch.inf, device=q.device)
+    z = torch.zeros_like(m)
+    acc = torch.zeros(B, heads, S, hd, device=q.device)
+    for f in range(F):
+        m_new = torch.maximum(m, l2[..., f])
+        alpha, wf = torch.exp(m - m_new), torch.exp(l2[..., f] - m_new)
+        z = z * alpha + wf
+        acc = acc * alpha[..., None] + wf[..., None] * mixed[..., f, :]
+        m = m_new
+    out = (acc / z[..., None]).permute(0, 2, 1, 3).reshape(B, S, C)
+    if intermediates is not None:
+        intermediates.update(k2v=k2v, p_bf16=w, o=o, y=y, xs=xs,
+                             x_diag=x_diag, q2=q2, l2=l2, out_f32=out)
+    return out.to(dt)
+
+
+# kernels 5 and 6's pass (csrc/trajectory_k2v.cuh): units of 128 query rows,
+# frame slots of K, V and k2v
+K2V_PASS_ROWS = 128
+
+
+def k2v_pass_plan(N):
+    """The pass's shared-memory plan at N keys a frame, as
+    ``csrc/trajectory_k2v.cuh`` computes it (``kp_slots``, ``kp_stages``,
+    ``k2v_pass_smem_bytes``): keys padded to an instantiated wgmma width,
+    Q tiles, and xs staging tiles a warpgroup (two of each, one at NP =
+    256), frame slots of K, V and k2v (at most four, as many as fit), and
+    the bytes. Raises ``ValueError`` where the kernel takes no such N."""
+    from focus_tpu_torch.ops import trajectory_attention as ta
+
+    ta._check_keys(N)
+    np_ = next(w for w in (64, 128, 208, 256) if N <= w)
+    row_bytes = 2 * HEAD_DIM
+    slots = 1 if np_ > 208 else 2
+    stage_bytes = 3 * np_ * row_bytes
+    fixed = (1024 + slots * K2V_PASS_ROWS * row_bytes
+             + 2 * slots * 64 * row_bytes + 1024)
+    stages = min(4, (SMEM_LIMIT - fixed) // stage_bytes)
+    return {"padded_keys": np_, "slots": slots,
+            "stage_bytes": stage_bytes, "stages": stages,
+            "smem_bytes": fixed + stages * stage_bytes}
+
+
 def trajectory_core_backward_reference(q, kf, vf, wq2, bq2, wk2, bk2, dout,
                                        scale, heads, intermediates=None):
     """Plain version of the backward, in float32, step by step as the TPU
@@ -667,11 +753,13 @@ def _launch_v7(q, kf, vf, wq2, bq2, wk2, scale, heads):
 
 
 def _launch_variant(version, q, kf, vf, wq2, bq2, wk2, scale, heads):
-    """The v5 or v6 forward kernel -> (out, xs, q2, scratch). v6 writes xs
-    [B, S, F, C] and q2 [B, S, C] as version 4 does (the backward reads
-    them); v5 forms no xs (None) and its q2 comes from the own-frame
-    aggregates alone. ``scratch`` holds k2v [B, F * N, C] and, for v5, the
-    own-frame aggregates x_diag [B, S, C]."""
+    """The v5 or v6 forward kernel, four device launches -> (out, xs, q2,
+    scratch). v6 writes xs [B, S, F, C] and q2 [B, S, C] as version 4 does
+    (the backward reads them; xs's own-frame rows are the own-frame
+    launch's x_diag, which v6 parks in out); v5 forms no xs (None). Both
+    form q2 from the own-frame aggregates. ``scratch`` holds k2v
+    [B, F * N, C] and, for v5, the own-frame aggregates x_diag
+    [B, S, C]."""
     global V5_LAUNCHES, V5_DEVICE_LAUNCHES, V6_LAUNCHES, V6_DEVICE_LAUNCHES
     _check_operands(q, kf, vf, wq2, bq2, wk2, heads)
     B, S, C = q.shape

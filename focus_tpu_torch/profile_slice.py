@@ -48,14 +48,21 @@ from focus_tpu_torch.profile_block import learned_v_stack
 # matches): kernel 1's three stages apart (its stage 1 is the space stage's
 # kernel, which kernel 8 launches in the learned-v model), and kernels 3
 # and 4's (FWD_VERSION 3 and 7: the same kernels in the rounding mode V3,
-# template argument true; the q2 GEMM is one kernel for all three), kernel
-# 2, kernel 7's kernels together
-_V3 = r"(?:true|\(bool\)1)"
+# template argument true; the GEMM is one kernel for all versions), kernels
+# 5 and 6's own-frame launch and pass (FWD_VERSION 6 and 5; the pass's
+# second template argument is true for v5), kernel 2, kernel 7's kernels
+# together
+_TRUE = r"(?:true|\(bool\)1)"
+_FALSE = r"(?:false|\(bool\)0)"
 KERNEL_GROUPS = (
-    (rf"space_stage_kernel<\d+, {_V3}>", "kernels 3 / 4 stage 1 (mode V3)"),
-    (rf"traj_stage2_kernel<{_V3}>", "kernels 3 / 4 stage 2 (mode V3)"),
+    (rf"space_stage_kernel<\d+, {_TRUE}>", "kernels 3 / 4 stage 1 (mode V3)"),
+    (rf"traj_stage2_kernel<{_TRUE}>", "kernels 3 / 4 stage 2 (mode V3)"),
     ("space_stage_kernel", "kernel 1 stage 1 (flagship) / kernel 8 (learned_v)"),
-    ("traj_gemm_kernel", "kernel 1 / 3 / 4 q2 GEMM"),
+    ("own_frame_kernel", "kernels 5 / 6 own-frame x_diag"),
+    (rf"k2v_pass_kernel<\d+, {_TRUE}>", "kernel 6 pass (v5)"),
+    (rf"k2v_pass_kernel<\d+, {_FALSE}>", "kernel 5 pass (v6)"),
+    ("traj_gemm_kernel",
+     "kernel 1 / 3 / 4 q2 GEMM, kernels 5 / 6 k2v and q2 GEMMs"),
     ("traj_stage2_kernel", "kernel 1 stage 2"),
     ("patch_embed_kernel", "kernel 2 (patch embed)"),
 )

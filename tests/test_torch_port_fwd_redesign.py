@@ -181,7 +181,8 @@ def test_patch_embed_plan_matches_the_cuda_source():
 def test_kernel_1_runs_stage_1_on_the_shared_wgmma_core():
     """Kernel 1 no longer launches the mma.sync stage 1; it and kernel 8
     include the shared stage-1 header, which holds the one persistent
-    wgmma / TMA kernel; v5 and v6 keep trajectory_core.cuh's stage 1."""
+    wgmma / TMA kernel; v5 and v6 now run their own-frame aggregates on it
+    too, and trajectory_core.cuh keeps no mma.sync stage 1."""
     k1 = _source("trajectory_block.cu")
     assert "launch_stage1" not in k1
     assert '#include "space_stage_core.cuh"' in k1
@@ -191,8 +192,10 @@ def test_kernel_1_runs_stage_1_on_the_shared_wgmma_core():
     assert "__global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(" in core
     assert "setmaxnreg" in core and "tma_store_4d" in core
     for variant in ("trajectory_block_v5.cu", "trajectory_block_v6.cu"):
-        assert "space_stage_core.cuh" not in _source(variant)
-    assert "launch_stage1<" in _source("trajectory_k2v.cuh")
+        assert '#include "trajectory_k2v.cuh"' in _source(variant)
+    assert '#include "space_stage_core.cuh"' in _source("trajectory_k2v.cuh")
+    assert "launch_stage1" not in _source("trajectory_k2v.cuh")
+    assert "launch_own_frame<NP>(" in _source("trajectory_k2v.cuh")
 
 
 def test_kernel_1_stage_2_holds_every_head_in_one_block():

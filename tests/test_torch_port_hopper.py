@@ -87,7 +87,9 @@ def test_space_stage_plan_matches_the_cuda_source():
 def test_space_stage_kernel_is_its_own_hopper_kernel():
     """Kernel 8 runs both products on wgmma, fills its frame slots by TMA
     completed on mbarriers, and no longer launches the fused core's stage
-    1, which trajectory_core.cuh keeps for kernels 5 and 6."""
+    1; trajectory_core.cuh keeps no mma.sync stage 1 (kernels 5 and 6 run
+    their own-frame aggregates on the same wgmma kernel since their
+    redesign)."""
     src = _space_stage_source()
     assert "launch_stage1" not in src and "trajectory_core.cuh" not in src
     assert "wgmma_ss<NP>" in src and "wgmma_rs_n64_tb" in src
@@ -97,7 +99,8 @@ def test_space_stage_kernel_is_its_own_hopper_kernel():
     hdr = _source("hopper_async.cuh")
     assert "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16" in hdr
     assert "cp.async.bulk.tensor.3d" in hdr
-    assert "launch_stage1" in _source("trajectory_core.cuh")
+    assert "launch_stage1" not in _source("trajectory_core.cuh")
+    assert "traj_stage1_kernel" not in _source("trajectory_core.cuh")
 
 
 def test_space_stage_wrapper_refuses_257_keys_before_any_build(monkeypatch):

@@ -294,5 +294,7 @@ def test_profile_groups_name_the_v3_stage_kernels():
     assert ms == {"kernels 3 / 4 stage 1 (mode V3)": 2.8,
                   "kernel 1 stage 1 (flagship) / kernel 8 (learned_v)": 2.7,
                   "kernels 3 / 4 stage 2 (mode V3)": 2.6,
-                  "kernel 1 stage 2": 2.3, "kernel 1 / 3 / 4 q2 GEMM": 1.9}
+                  "kernel 1 stage 2": 2.3,
+                  "kernel 1 / 3 / 4 q2 GEMM, kernels 5 / 6 k2v and q2 GEMMs":
+                      1.9}
     assert sum(v["launches_per_call"] for v in groups.values()) == 72
