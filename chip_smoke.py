@@ -56,7 +56,16 @@ Phases (one JSON line each; any failure exits non-zero):
      (``use_original_code=False``) at D=768 on x [8, 1569, 768] bf16
      through the space-stage kernel (ms per stack, 12 launches per stack,
      peak memory, the output against the plain path), and at batch 2 one
-     forward and backward against the float32 plain path.
+     forward and backward against the float32 plain path;
+ 10. the HR-336 EPIC-Kitchens eval forward (ORViT-MF-HR, EK100 16x336,
+     verb and noun heads, N = 441 keys a frame, 445 in the ORViT blocks):
+     kernel 1 at N > 256 (its chunked stage 1) at N = 441 and 445 (B=4),
+     257 and 512 (B=2) and on the extreme inputs at N = 441 against its
+     plain version, two calls bit-equal, three device kernels a call;
+     ``hr_entry(batch=4)`` at full width and depth (12 kernel-1 launches a
+     forward, clips per second, peak memory, verb and noun probabilities
+     against the plain path); kernels 3 to 8 and an HR train step refusing
+     N = 441 before any launch.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -1738,12 +1747,30 @@ CORE_KERNELS = {4: "trajectory_block", 3: "trajectory_block_v3",
                 6: "trajectory_block_v6"}
 
 
-def flagship_run(fn, video, boxes):
-    """``fn`` (an ``entry`` forward) at its batch: 2 warm-up and SLICE_ITERS
-    timed batches with the kernels' launch counts (one trajectory core per
-    block, 12, of the version ``FWD_VERSION`` names and none of the others,
-    and one patch embed per forward, asserted), then the same model on the
-    plain path. Returns (report, launches, probabilities)."""
+def probs_vs_plain(probs, plain, shape):
+    """One head's probabilities (of ``shape``) against the plain path's:
+    finite, rows summing to 1, max |difference| within SLICE_PROB_ATOL and
+    top-1 agreement at least SLICE_TOP1_MIN_SHARE."""
+    finite = bool(torch.isfinite(probs).all() and torch.isfinite(plain).all())
+    max_abs = (probs - plain).abs().max().item()
+    top1 = (probs.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    sums_ok = bool(((probs.sum(-1) - 1).abs() < 1e-3).all())
+    ok = (tuple(probs.shape) == shape and finite and sums_ok
+          and max_abs <= SLICE_PROB_ATOL and top1 >= SLICE_TOP1_MIN_SHARE)
+    return ok, {"max_abs_prob": max_abs, "top1_agreement": top1,
+                "finite": finite}
+
+
+def flagship_run(fn, video, boxes, heads=None):
+    """``fn`` (an ``entry`` or ``hr_entry`` forward) at its batch: 2 warm-up
+    and SLICE_ITERS timed batches with the kernels' launch counts reset
+    just before them (one trajectory core per block, 12, of the version
+    ``FWD_VERSION`` names and none of the others, and one patch embed per
+    forward, asserted), then the same model on the plain path, whose
+    probabilities the kernel path's are held against (``probs_vs_plain``):
+    the flagship's 174, or with ``heads`` ({name: classes}) each head of an
+    EPIC-Kitchens model's pair (verb, {name: probabilities}). Returns
+    (report, launches, the last timed output)."""
     from focus_tpu_torch.ops import patch_embed as pe
     from focus_tpu_torch.ops import trajectory_block as tb
 
@@ -1778,13 +1805,19 @@ def flagship_run(fn, video, boxes):
     plain = fn(video, boxes)
     model.use_kernels = True
     torch.cuda.synchronize()
-    finite = bool(torch.isfinite(probs).all() and torch.isfinite(plain).all())
-    max_abs = (probs - plain).abs().max().item()
-    top1 = (probs.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    sums = probs.sum(-1)
-    ok = (tuple(probs.shape) == (B, 174) and finite
-          and max_abs <= SLICE_PROB_ATOL and top1 >= SLICE_TOP1_MIN_SHARE
-          and bool(((sums - 1).abs() < 1e-3).all()))
+    vs_plain = {"atol": SLICE_PROB_ATOL,
+                "top1_min_share": SLICE_TOP1_MIN_SHARE}
+    if heads is None:
+        ok, check = probs_vs_plain(probs, plain, (B, 174))
+        finite = check.pop("finite")
+        vs_plain.update(check)
+    else:
+        ok, finite = True, True
+        for name, classes in heads.items():
+            head_ok, check = probs_vs_plain(probs[1][name], plain[1][name],
+                                            (B, classes))
+            ok, finite = ok and head_ok, finite and check["finite"]
+            vs_plain[name] = {"ok": head_ok, "classes": classes, **check}
     report = {"ok": ok, "batch": B, "timed_batches": SLICE_ITERS,
               "clips_per_sec": B * SLICE_ITERS / seconds,
               "ms_per_batch": 1e3 * seconds / SLICE_ITERS,
@@ -1793,10 +1826,7 @@ def flagship_run(fn, video, boxes):
               "launches": launches,
               "launches_per_forward": {k: v / SLICE_ITERS
                                        for k, v in launches.items()},
-              "vs_plain_path": {"max_abs_prob": max_abs,
-                                "atol": SLICE_PROB_ATOL,
-                                "top1_agreement": top1,
-                                "top1_min_share": SLICE_TOP1_MIN_SHARE},
+              "vs_plain_path": vs_plain,
               "finite": finite}
     return report, launches, probs
 
@@ -1870,6 +1900,193 @@ def phase_slice(smi):
     if not report["ok"]:
         raise AssertionError("slice check failed")
     return launches
+
+
+# kernel 1 at N > 256 keys a frame (its chunked stage 1): the 336 crop's
+# N = 441 (the plain blocks) and 445 (the ORViT blocks, 4 box tokens a
+# frame) at the HR batch, and the narrowest and widest chunked forms
+HR_KERNEL_CASES = ((4, 441), (4, 445), (2, 257), (2, 512))
+HR_BATCH = 4  # scripts/bench_companions.py hr336
+KERNEL_1_DEVICE_LAUNCHES_PER_CALL = 3
+HR_HEADS = {"verb": 97, "noun": 300}
+
+
+def device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` launches, as
+    torch.profiler traces them on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def check_kernel_1_launches(tb, args, scale, heads, tag):
+    """One call of kernel 1's wrapper launches its three device kernels
+    (at N > 256 the chunked stage 1 first); returns their names."""
+    names = device_kernels(lambda: tb._launch(*args[:6], scale, heads))
+    stage1 = ("space_stage_chunked_kernel" if args[1].shape[2] > 256
+              else "space_stage_kernel")
+    if (len(names) != KERNEL_1_DEVICE_LAUNCHES_PER_CALL
+            or stage1 not in names[0]):
+        raise AssertionError(f"trajectory_block {tag}: device kernels "
+                             f"{names}, expected {stage1}, the GEMM and "
+                             "stage 2")
+    return names
+
+
+def hr_refusals(tb, gen, model, video, boxes):
+    """On the card at N = 441: kernels 3 to 8 raise ValueError before any
+    launch, and so does an HR train step (a forward that wants a
+    gradient) before kernel 1 launches."""
+    from focus_tpu_torch.ops import trajectory_attention as ta
+
+    args = core_inputs(1, 441, gen)
+    q, kf, vf = args[:3]
+    (B, S, C), F = q.shape, kf.shape[1]
+    xs = torch.empty(B, S, F, C, dtype=torch.bfloat16, device=DEV)
+    BH = B * C // 64
+    calls = {
+        "trajectory_block_v3": lambda: tb._launch_v3(*args[:6], 0.125, 12),
+        "trajectory_block_v7": lambda: tb._launch_v7(*args[:6], 0.125, 12),
+        "trajectory_block_v5": lambda: tb._launch_variant(5, *args[:6],
+                                                          0.125, 12),
+        "trajectory_block_v6": lambda: tb._launch_variant(6, *args[:6],
+                                                          0.125, 12),
+        "trajectory_block_bwd": lambda: tb._launch_backward(
+            *args[:6], args[0], xs, args[0], 0.125, 12),
+        "space_stage": lambda: ta._launch(
+            q.reshape(BH, S, 64), kf.reshape(BH, F, 441, 64),
+            vf.reshape(BH, F, 441, 64), 0.125),
+    }
+
+    def counts():
+        return (tb.LAUNCHES, variant_counts(tb), ta.LAUNCHES)
+
+    before = counts()
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            refused[name] = str(e).split(";")[0]
+    try:
+        model(video[:1], {"orvit_bboxes": boxes[:1]}, train=True)
+    except ValueError as e:
+        refused["hr_train_step"] = str(e).split(":")[0]
+    torch.cuda.synchronize()
+    if set(refused) != set(calls) | {"hr_train_step"} or counts() != before:
+        raise AssertionError(f"N = 441: refused {sorted(refused)}, launch "
+                             f"counts {before} -> {counts()}")
+    return refused
+
+
+def phase_hr336(smi):
+    """The HR-336 EPIC-Kitchens eval forward (BASELINE.json config 4):
+    kernel 1 at N > 256 against its plain version (out, xs, q2 within
+    KERNEL_TOL_REL, two calls bit-equal, three device kernels a call,
+    ms per call and back to back beside bound_ms), at HR_KERNEL_CASES and
+    on the extreme inputs at N = 441; then ``hr_entry(batch=4)`` at full
+    width and depth with kernel 2 on the [4, 16, 336, 336, 3] video: 2
+    warm-up and SLICE_ITERS timed batches with the launch counts reset just
+    before them (12 kernel-1 and 1 kernel-2 launches a forward and none of
+    the other forward versions), clips per second and peak memory, and the
+    verb and noun probabilities against the same model on the plain path
+    (SLICE_PROB_ATOL, top-1 agreement SLICE_TOP1_MIN_SHARE, each head);
+    then kernels 3 to 8 and an HR train step refusing N = 441 before any
+    launch. Returns kernel 1's and kernel 2's HR numbers for the kernels
+    line."""
+    from focus_tpu_torch.entry import hr_entry
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    heads, scale = 12, 64 ** -0.5
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+    cases, errs, timing = [], [], {}
+    for B, N in HR_KERNEL_CASES:
+        args = core_inputs(B, N, gen)
+        out = tb.fused_trajectory_core(*args, scale, heads)
+        ref = tb.trajectory_core_reference(*[a.float() for a in args],
+                                           scale, heads)
+        torch.cuda.synchronize()
+        tag = f"B={B} N={N}"
+        err, ref_max = check_close(f"trajectory_block {tag}", out, ref)
+        del ref
+        errs.append(err)
+        S, C = 8 * N, 768
+        case = {"B": B, "S": S, "N": N, "max_abs_err": err,
+                "max_abs_ref": ref_max,
+                **check_stage1_outputs(tb, args, scale, heads, tag),
+                "device_kernels": check_kernel_1_launches(tb, args, scale,
+                                                          heads, tag),
+                "kernel_ms": time_ms(
+                    lambda: tb.fused_trajectory_core(*args, scale, heads)),
+                "kernel_ms_back_to_back": time_ms_back_to_back(
+                    lambda: tb.fused_trajectory_core(*args, scale, heads)),
+                "plan": tb.trajectory_core_plan(B, S, 8, N, heads)}
+        case["bound_ms"], case["bound_by"] = bound(
+            core_flops(B, S, 8, N, C), nbytes(*args) + nbytes(out))
+        if (B, N) == (HR_BATCH, 441):
+            case["plain_ms"] = time_ms(
+                lambda: tb.trajectory_core_reference(*args, scale, heads),
+                warmup=1, iters=5)
+        timing[(B, N)] = case
+        cases.append(case)
+        del args, out
+    for sign, mag in ((-1.0, 25.0), (-1.0, 60.0), (1.0, 50.0)):
+        args = extreme_inputs(sign, mag, gen, N=441)
+        out = tb.fused_trajectory_core(*args, scale, heads)
+        ref = tb.trajectory_core_reference(*[a.float() for a in args],
+                                           scale, heads)
+        torch.cuda.synchronize()
+        tag = f"extreme {sign * mag} N=441"
+        err, ref_max = check_close(f"trajectory_block {tag}", out, ref)
+        errs.append(err)
+        cases.append({"extreme_logit_nats": sign * mag, "N": 441,
+                      "max_abs_err": err, "max_abs_ref": ref_max,
+                      **check_stage1_outputs(tb, args, scale, heads, tag),
+                      "device_kernels": check_kernel_1_launches(
+                          tb, args, scale, heads, tag)})
+        del args, out, ref
+    torch.cuda.empty_cache()
+
+    fn, (video, boxes) = hr_entry(device=DEV, batch=HR_BATCH, seed=0)
+    run, launches, _ = flagship_run(fn, video, boxes, HR_HEADS)
+    refused = hr_refusals(tb, gen, fn.model, video, boxes)
+    clips_per_sec = run.pop("clips_per_sec")
+    report = {"phase": "hr336", "ok": run.pop("ok"),
+              "model": "ORViT-MF-HR EK100 16x336 (configs/ORViT/"
+                       "EK_ORVIT_MF_HR.yaml), D=768, 12 layers, 12 heads, "
+                       "ORViT at [1,6,10], O=4, verb [97] and noun [300] "
+                       "heads, bf16, exact-erf GELU; N = 441 keys a frame "
+                       "(445 in the ORViT blocks)",
+              "hr336_ek_b4_clips_per_sec": clips_per_sec, **run,
+              "refused_at_n441": refused,
+              "kernel_1": {"tolerance": f"max|err| <= {KERNEL_TOL_REL} x "
+                                        "max|ref| for out, xs and q2; two "
+                                        "calls bit-equal; "
+                                        f"{KERNEL_1_DEVICE_LAUNCHES_PER_CALL}"
+                                        " device kernels a call",
+                           "cases": cases},
+              "gpu": smi}
+    emit(report)
+    if not report["ok"]:
+        raise AssertionError("HR-336 forward check failed")
+    del fn, video, boxes
+    torch.cuda.empty_cache()
+    t441, t445 = timing[(HR_BATCH, 441)], timing[(HR_BATCH, 445)]
+    return {"launches": launches, "max_abs_err": max(errs),
+            "ms": t441["kernel_ms"],
+            "ms_back_to_back": t441["kernel_ms_back_to_back"],
+            "plain_ms": t441["plain_ms"], "bound_ms": t441["bound_ms"],
+            "bound_by": t441["bound_by"],
+            "ms_n445": t445["kernel_ms"],
+            "ms_back_to_back_n445": t445["kernel_ms_back_to_back"],
+            "bound_ms_n445": t445["bound_ms"]}
 
 
 def phase_flagship_fwd_versions(smi):
@@ -2303,8 +2520,14 @@ def main():
     launches = phase_slice(smi)
     traj["launches"] = launches["trajectory_block"]
     patch["launches"] = launches["patch_embed"]
+    hr = phase_hr336(smi)
+    traj["hr336"] = {k: v for k, v in hr.items() if k != "launches"}
+    traj["launches_hr336"] = hr["launches"]["trajectory_block"]
+    patch["launches_hr336"] = hr["launches"]["patch_embed"]
     traj["launches_note"] = patch["launches_note"] = (
-        f"over {SLICE_ITERS} flagship forwards; launches_train over "
+        f"over {SLICE_ITERS} flagship forwards; launches_hr336 over "
+        f"{SLICE_ITERS} HR-336 forwards at batch {HR_BATCH} (kernel 1 at N = "
+        "441 and 445, hr336: its times there at B = 4); launches_train over "
         f"{TRAIN_ITERS} flagship train steps; launches_serving over "
         f"{SLICE_ITERS} forwards of each of the {len(VARIANTS)} models of the "
         "serving matrix")

@@ -10,12 +10,15 @@ Compiles the other commit's sources (with this tree's nvcc flags, into
 the same inputs:
 
   - bit-equality: kernel 8 (``space_stage_bf16``, the space stage at the
-    learned-v shapes), kernel 1 (``traj_core_bf16``: out, xs and q2) and
-    kernels 3, 4, 5 and 6 (``traj_core_v3_bf16``, ``traj_core_v7_bf16``,
-    ``traj_core_v5_bf16``, ``traj_core_v6_bf16``: out and the xs, q2 and
-    scratch each writes) at B = 8, N = 196 and 200, and on an extreme
-    input; ``torch.equal`` on every output, and beside it the largest
-    difference of the two builds' outputs over the other's largest value;
+    learned-v shapes and at N = 65 and 256), kernel 1 (``traj_core_bf16``:
+    out, xs and q2) and kernels 3, 4, 5 and 6 (``traj_core_v3_bf16``,
+    ``traj_core_v7_bf16``, ``traj_core_v5_bf16``, ``traj_core_v6_bf16``:
+    out and the xs, q2 and scratch each writes) at B = 8, N = 196 and 200,
+    on an extreme input, and at B = 2, N = 65 and 256 (the narrowest and
+    widest key widths at N <= 256); ``torch.equal`` on every output, and
+    beside it the largest difference of the two builds' outputs over the
+    other's largest value. No comparison at N > 256: kernel 1 takes such N
+    since its chunked stage 1, which an older build refuses;
   - kernel 1 (``traj_core_bf16``) at B = 8, N = 196 and 200: the other
     build, this one, this one, the other, each the median of 20 per-call
     CUDA-event times, and each build's output against the plain version;
@@ -233,7 +236,7 @@ def main():
     scale, heads, failures = 64 ** -0.5, 12, []
 
     # kernel 8, bit for bit
-    for N in (196, 200, 65):
+    for N in (196, 200, 65, 256):
         S = 8 * N
         q, k, v = (torch.randn(96, S, 64, generator=gen, device="cuda")
                    .bfloat16() for _ in range(3))
@@ -250,7 +253,9 @@ def main():
     # v5 and v6), kernels 3, 4, 5 and 6, bit for bit
     inputs = [("B=8 N=196", core_inputs(8, 196, gen)),
               ("B=8 N=200", core_inputs(8, 200, gen)),
-              ("extreme -60", extreme_inputs(gen))]
+              ("extreme -60", extreme_inputs(gen)),
+              ("B=2 N=65", core_inputs(2, 65, gen)),
+              ("B=2 N=256", core_inputs(2, 256, gen))]
     for tag, a in inputs:
         mine = tb._launch(*a, scale, heads)
         with use(tb, "_kernel_fn", lambda: parent["v4"]):

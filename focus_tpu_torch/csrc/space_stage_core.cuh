@@ -71,6 +71,23 @@
 // leaves, one turn later. With V3 false the arithmetic is the space
 // stage's, bit for bit.
 //
+// Chunked form (CH = 2; kernel 1 alone, at SS_MAX_NP < N <= SS_MAX_KEYS:
+// the 336 crop's N = 441, 445). A frame's logits at NP = 448 would take
+// 224 registers a consumer thread, and one frame's K and V 115 KB, so a
+// frame's keys go in two chunks of 224 (of 256 past N = 448) and the ring's
+// unit is a (frame, chunk) slot of 57 KB: three of them beside the Q ring
+// and one staging tile a warpgroup (a frame leaves every second turn). A
+// turn issues P . V of the chunk before and the logits of this chunk; the
+// softmax runs online across a frame's chunks (ss_chunk_softmax: chunk 0
+// starts the row max m and sum l, chunk 1 raises m and scales l and the
+// P . V sums by exp(m_old - m_new) after chunk 0's P . V has completed and
+// before its own accumulates), the weights are packed unnormalised
+// relative to the running max, and the frame's float32 sums are scaled by
+// 1 / l before the bf16 store: the rounding of the mode V3, which moves
+// kernel 1's rounding point at N > 256 only. Bound at B x heads = 48, S =
+// 3528, F = 8, N = 441 (B = 4, the HR batch): 152.9 GFLOP (0.155 ms at 989
+// TFLOP/s) against 238 MB (the output 173 MB; 0.071 ms), so operations.
+//
 // Own-frame mode (DIAG; trajectory_k2v.cuh's own_frame_kernel, the forward
 // versions 5 and 6): a unit visits only the frames its 128 rows lie in
 // (one or two at N = 196) and stores each row's own frame alone, x_diag
@@ -96,6 +113,10 @@ constexpr int SS_THREADS = 128 * (SS_WG + 1);   // and the producer's
 constexpr int SS_PRODUCER_REGS = 40;
 constexpr int SS_CONSUMER_REGS = 232;
 constexpr int SS_MAX_NP = 256;
+// the chunked form (kernel 1 alone, N > SS_MAX_NP): a frame's keys in
+// SS_CHUNKS chunks of at most SS_MAX_NP, up to SS_MAX_KEYS keys a frame
+constexpr int SS_MAX_KEYS = 512;
+constexpr int SS_CHUNKS = 2;
 constexpr int SS_MAX_STAGES = 4;
 constexpr int SS_Q_SLOTS = 2;
 constexpr int SS_OUT_SLOTS = 2;                  // staging tiles a warpgroup
@@ -111,27 +132,42 @@ __host__ __device__ constexpr int ss_padded_keys(int n) {
   return n <= 64 ? 64 : (n <= 128 ? 128 : (n <= 208 ? 208 : 256));
 }
 
+// keys a chunk in the chunked form: two chunks of 224 up to N = 448
+// (441 and 445 at the 336 crop), else of 256
+__host__ __device__ constexpr int ss_chunk_keys(int n) {
+  return n <= 448 ? 224 : 256;
+}
+
 __host__ __device__ constexpr int ss_stage_bytes(int np) {
-  return 2 * np * SS_ROW_BYTES;  // K_f and V_f
+  return 2 * np * SS_ROW_BYTES;  // K_f and V_f (of a chunk)
 }
 
-__host__ __device__ constexpr int ss_fixed_bytes() {
+// output staging tiles a warpgroup: two, or one in the chunked form, where
+// a frame leaves every second turn (the bytes go to a third K/V slot)
+__host__ __device__ constexpr int ss_out_slots(int ch) {
+  return ch > 1 ? 1 : SS_OUT_SLOTS;
+}
+
+__host__ __device__ constexpr int ss_fixed_bytes(int ch = 1) {
   return SS_ALIGN + SS_Q_SLOTS * SS_Q_BYTES +
-         SS_WG * SS_OUT_SLOTS * SS_OUT_BYTES + SS_BAR_BYTES;
+         SS_WG * ss_out_slots(ch) * SS_OUT_BYTES + SS_BAR_BYTES;
 }
 
-__host__ __device__ constexpr int ss_stages(int np) {
-  return (SS_SMEM_LIMIT - ss_fixed_bytes()) / ss_stage_bytes(np) <
+__host__ __device__ constexpr int ss_stages(int np, int ch = 1) {
+  return (SS_SMEM_LIMIT - ss_fixed_bytes(ch)) / ss_stage_bytes(np) <
                  SS_MAX_STAGES
-             ? (SS_SMEM_LIMIT - ss_fixed_bytes()) / ss_stage_bytes(np)
+             ? (SS_SMEM_LIMIT - ss_fixed_bytes(ch)) / ss_stage_bytes(np)
              : SS_MAX_STAGES;
 }
 
-__host__ __device__ constexpr int ss_smem_bytes(int np) {
-  return ss_fixed_bytes() + ss_stages(np) * ss_stage_bytes(np);
+__host__ __device__ constexpr int ss_smem_bytes(int np, int ch = 1) {
+  return ss_fixed_bytes(ch) + ss_stages(np, ch) * ss_stage_bytes(np);
 }
 
 static_assert(ss_stages(SS_MAX_NP) >= 2, "two frame slots at N = 256");
+static_assert(ss_stages(224, SS_CHUNKS) >= 3 &&
+                  ss_stages(256, SS_CHUNKS) >= 2,
+              "three chunk slots at N <= 448, two at N <= 512");
 
 __device__ __forceinline__ float ss_exp2(float x) {
   float y;
@@ -210,6 +246,79 @@ __device__ __forceinline__ void ss_frame_softmax(float (&sacc)[NP / 2],
   }
 }
 
+// The softmax of one chunk of a frame's keys in the chunked form (keys
+// 0 .. nvalid - 1 of the chunk exist; the accumulators' layout as above),
+// online across the frame's chunks: the first chunk (first) starts the
+// rows' running max m and sum l; a later one raises m where its logits do
+// and scales l and the frame's P . V sums so far (oacc, complete: the
+// chunk before's P . V ran in this turn) by exp(m_old - m_new). The
+// weights are packed unnormalised, relative to the running max, as in the
+// rounding mode V3; the caller scales the frame's sums by 1 / l before
+// the bf16 store.
+template <int NP>
+__device__ __forceinline__ void ss_chunk_softmax(
+    float (&sacc)[NP / 2], uint32_t (&pa)[NP / 16][4], float (&oacc)[32],
+    int nvalid, bool first, int t4, float scale_log2e, float& m0, float& m1,
+    float& l0, float& l1) {
+  float c0 = -INFINITY, c1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t4 + (e & 1);
+      const float v = key < nvalid ? sacc[4 * j + e] : -INFINITY;
+      sacc[4 * j + e] = v;
+      if (e < 2) c0 = fmaxf(c0, v);
+      else c1 = fmaxf(c1, v);
+    }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, o));
+    c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, o));
+  }
+  const float n0 = first ? c0 : fmaxf(m0, c0);
+  const float n1 = first ? c1 : fmaxf(m1, c1);
+  // unfused products, so that m_old = m_new gives exp(0) = 1 exactly
+  const float mb0 = __fmul_rn(n0, scale_log2e);
+  const float mb1 = __fmul_rn(n1, scale_log2e);
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // ex2(-inf) = 0 for the padding
+      const float p = ss_exp2(
+          fmaf(sacc[4 * j + e], scale_log2e, e < 2 ? -mb0 : -mb1));
+      sacc[4 * j + e] = p;
+      if (e < 2) s0 += p;
+      else s1 += p;
+    }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  if (first) {
+    l0 = s0;
+    l1 = s1;
+  } else {  // exp(m_old - m_new): 1 where the chunk left the max as it was
+    const float a0 = ss_exp2(__fmul_rn(m0, scale_log2e) - mb0);
+    const float a1 = ss_exp2(__fmul_rn(m1, scale_log2e) - mb1);
+    l0 = fmaf(l0, a0, s0);
+    l1 = fmaf(l1, a1, s1);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) oacc[e] *= (e & 2) ? a1 : a0;
+  }
+  m0 = n0;
+  m1 = n1;
+#pragma unroll
+  for (int kk = 0; kk < NP / 16; ++kk) {
+    pa[kk][0] = pack_bf16x2(sacc[8 * kk], sacc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16x2(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
 // The frames a unit of 128 query rows from s0 visits, [lo, hi): all F, or
 // (DIAG) the frames its rows lie in
 template <bool DIAG>
@@ -223,15 +332,23 @@ __device__ __forceinline__ void ss_unit_frames(int s0, int S, int F, int N,
 // core's forward versions 5 and 6) a unit visits only the frames its rows
 // lie in (one or two at N = 196) and each row's own frame alone leaves, as
 // diag[b, s, head] ([B, S, C]) by plain stores from the registers; o_map
-// is not used then, and diag is not used otherwise.
-template <int NP, bool V3, bool DIAG>
+// is not used then, and diag is not used otherwise. With CH > 1 (the
+// chunked form, kernel 1 at N > SS_MAX_NP) NP is the width of a chunk: a
+// slot of the ring holds one chunk of a frame's keys (keys c NP .. c NP +
+// NP - 1 of chunk c; keys past N read as zero), a turn issues P . V of the
+// chunk before and the logits of this chunk, the softmax runs online
+// across a frame's chunks (ss_chunk_softmax), and a frame leaves after its
+// last chunk's P . V, its sums scaled by 1 / l.
+template <int NP, bool V3, bool DIAG, int CH = 1>
 __device__ __forceinline__ void space_stage_body(
     const CUtensorMap* q_map, const CUtensorMap* k_map,
     const CUtensorMap* v_map, const CUtensorMap* o_map, bf16* diag, int BH,
     int heads, int S, int F, int N, float scale_log2e) {
   static_assert(!(V3 && DIAG), "the own-frame mode rounds as the space stage");
+  static_assert(CH == 1 || !(V3 || DIAG), "the chunked form is kernel 1's");
   constexpr int KV_TILE = NP * SS_ROW_BYTES;
-  constexpr int STAGES = ss_stages(NP);
+  constexpr int STAGES = ss_stages(NP, CH);
+  constexpr int OUT_SLOTS = ss_out_slots(CH);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((SS_ALIGN - (cvta_smem(smem_raw) & (SS_ALIGN - 1))) &
@@ -240,7 +357,7 @@ __device__ __forceinline__ void space_stage_body(
   unsigned char* qbuf = kv + STAGES * 2 * KV_TILE;
   unsigned char* obuf = qbuf + SS_Q_SLOTS * SS_Q_BYTES;
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(obuf + SS_WG * SS_OUT_SLOTS * SS_OUT_BYTES);
+      reinterpret_cast<uint64_t*>(obuf + SS_WG * OUT_SLOTS * SS_OUT_BYTES);
   uint64_t* kv_full = bars;
   uint64_t* kv_empty = bars + SS_MAX_STAGES;
   uint64_t* q_full = bars + 2 * SS_MAX_STAGES;
@@ -277,17 +394,19 @@ __device__ __forceinline__ void space_stage_body(
         mbar_wait(&q_empty[qs], ((u >> 1) & 1) ^ 1);
         mbar_arrive_expect_tx(&q_full[qs], SS_Q_BYTES);
         tma_load_3d(qbuf + qs * SS_Q_BYTES, q_map, &q_full[qs], c0, s0, b);
-        for (int f = f_lo; f < f_hi; ++f) {
-          mbar_wait(&kv_empty[stage], phase ^ 1);
-          mbar_arrive_expect_tx(&kv_full[stage], 2 * KV_TILE);
-          unsigned char* kd = kv + stage * 2 * KV_TILE;
-          tma_load_3d(kd, k_map, &kv_full[stage], c0, 0, b * F + f);
-          tma_load_3d(kd + KV_TILE, v_map, &kv_full[stage], c0, 0, b * F + f);
-          if (++stage == STAGES) {
-            stage = 0;
-            phase ^= 1;
+        for (int f = f_lo; f < f_hi; ++f)
+          for (int c = 0; c < CH; ++c) {  // chunk c: keys from c NP
+            mbar_wait(&kv_empty[stage], phase ^ 1);
+            mbar_arrive_expect_tx(&kv_full[stage], 2 * KV_TILE);
+            unsigned char* kd = kv + stage * 2 * KV_TILE;
+            tma_load_3d(kd, k_map, &kv_full[stage], c0, c * NP, b * F + f);
+            tma_load_3d(kd + KV_TILE, v_map, &kv_full[stage], c0, c * NP,
+                        b * F + f);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
-        }
       }
     }
     return;
@@ -301,7 +420,7 @@ __device__ __forceinline__ void space_stage_body(
   const int wg = tid >> 7, wtid = tid & 127, warp = wtid >> 5;
   const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const bool storer = wtid == 0;
-  unsigned char* my_out = obuf + wg * SS_OUT_SLOTS * SS_OUT_BYTES;
+  unsigned char* my_out = obuf + wg * OUT_SLOTS * SS_OUT_BYTES;
   // The two warpgroups take turns at the tensor cores (named barriers 3 and
   // 4): a turn issues PV of the frame before and QK of this frame, so one
   // warpgroup's products run while the other's softmax does.
@@ -310,7 +429,8 @@ __device__ __forceinline__ void space_stage_body(
   uint32_t phase = 0;
   uint32_t pa[NP / 16][4];  // P of the frame before, bf16 A fragments
   float oacc[32];
-  float pinv0 = 0.f, pinv1 = 0.f;  // V3: its rows' 1 / s
+  float pinv0 = 0.f, pinv1 = 0.f;  // V3, CH > 1: its rows' 1 / s
+  float rm0 = 0.f, rm1 = 0.f, rl0 = 0.f, rl1 = 0.f;  // CH > 1: running m, l
   for (int unit = blockIdx.x; unit < units; unit += gridDim.x, ++u) {
     const int bh = unit / tiles;
     const int b = bh / heads, c0 = (bh % heads) * SS_HD;
@@ -320,23 +440,29 @@ __device__ __forceinline__ void space_stage_body(
     const bool last_unit = unit + (int)gridDim.x >= units;
     int f_lo, f_hi;
     ss_unit_frames<DIAG>(s0, S, F, N, f_lo, f_hi);
-    const int nf = f_hi - f_lo;
+    const int items = (f_hi - f_lo) * CH;  // (frame, chunk) slots
     mbar_wait(&q_full[qs], (u >> 1) & 1);
     const uint64_t dq = wgmma_desc_sw128(
         qbuf + qs * SS_Q_BYTES + wg * SS_WG_ROWS_BYTES, 16, 1024);
-    int pstage = 0;  // the slot of the frame before
-    for (int i = 0; i <= nf; ++i) {
-      const int f = f_lo + i;  // QK of frame f, PV of frame f - 1
-      const bool qk = i < nf, pv = i > 0;
+    int pstage = 0;  // the slot of the item before
+    for (int i = 0; i <= items; ++i) {
+      // QK of item i (frame f_lo + i / CH, chunk i % CH), PV of item i - 1
+      // (frame pf); with CH = 1 an item is a frame
+      const int pf = f_lo + (i - 1) / CH;
+      const bool qk = i < items, pv = i > 0;
+      const bool frame_done = CH == 1 || (i - 1) % CH == CH - 1;
       float sacc[NP / 2];
       named_barrier(3 + wg, 256);  // this warpgroup's turn
       wgmma_fence();
       if (pv) {  // P . V_f-1: V MN-major, a k-step is 16 keys = 2048 bytes
         const uint64_t dv = wgmma_desc_sw128(
             kv + pstage * 2 * KV_TILE + KV_TILE, 16, 1024);
+        // a frame's first chunk starts its sums, a later one adds to them
+        const int acc = CH > 1 && (i - 1) % CH != 0;
 #pragma unroll
         for (int kk = 0; kk < NP / 16; ++kk)
-          wgmma_rs_n64_tb(oacc, pa[kk], dv + (uint64_t)(kk * 128), kk);
+          wgmma_rs_n64_tb(oacc, pa[kk], dv + (uint64_t)(kk * 128),
+                          CH > 1 ? (acc | kk) : kk);
       }
       wgmma_commit();  // group 1: PV (empty at i = 0)
       if (qk) {  // logits: 4 k-steps of 16 channels, 32 bytes along a row
@@ -347,22 +473,24 @@ __device__ __forceinline__ void space_stage_body(
         for (int k = 0; k < SS_HD / 16; ++k)
           wgmma_ss<NP>(sacc, dq + 2 * k, dk + 2 * k, k);
       }
-      wgmma_commit();  // group 2: QK (empty at i = nf)
-      if (!(wg == 1 && i == nf && last_unit))  // the other's turn (none
+      wgmma_commit();  // group 2: QK (empty at i = items)
+      if (!(wg == 1 && i == items && last_unit))  // the other's turn (none
         named_barrier_arrive(3 + (1 - wg), 256);  // after the last)
       wgmma_wait<1>();  // PV done: its output leaves while QK runs
       reg_fence(oacc);
 
-      if (pv) {  // the frame before: its slot is free, its output leaves
+      if (pv) {  // the item before: its slot is free
         mbar_arrive(&kv_empty[pstage]);
+      }
+      if (pv && frame_done) {  // frame pf is complete: its output leaves
         const int r0 = 16 * warp + g, r1 = r0 + 8;
         if constexpr (DIAG) {  // the rows whose own frame it is
           const int C = heads * SS_HD;
           const int s_0 = row0 + r0, s_1 = row0 + r1;
           bf16* o0 = diag + ((size_t)b * S + s_0) * C + c0 + 2 * t4;
           bf16* o1 = o0 + (size_t)8 * C;
-          const bool w0 = s_0 < S && s_0 / N == f - 1;
-          const bool w1 = s_1 < S && s_1 / N == f - 1;
+          const bool w0 = s_0 < S && s_0 / N == pf;
+          const bool w1 = s_1 < S && s_1 / N == pf;
 #pragma unroll
           for (int j = 0; j < SS_HD / 8; ++j) {
             if (w0)
@@ -374,9 +502,9 @@ __device__ __forceinline__ void space_stage_body(
           }
         } else {
           unsigned char* ob = my_out + oslot * SS_OUT_BYTES;
-          if (storer) tma_store_wait_read<SS_OUT_SLOTS - 1>();
+          if (storer) tma_store_wait_read<OUT_SLOTS - 1>();
           named_barrier(1 + wg, 128);  // the staging tile is free again
-          if constexpr (V3) {  // the frame before's sums, normalised
+          if constexpr (V3 || CH > 1) {  // the frame's sums, normalised
 #pragma unroll
             for (int e = 0; e < 32; ++e) oacc[e] *= (e & 2) ? pinv1 : pinv0;
           }
@@ -392,26 +520,36 @@ __device__ __forceinline__ void space_stage_body(
           fence_async_smem();
           named_barrier(1 + wg, 128);
           if (storer) {
-            if (row0 < S) tma_store_4d(o_map, ob, c0, f - 1, row0, b);
+            if (row0 < S) tma_store_4d(o_map, ob, c0, pf, row0, b);
             tma_store_commit();
           }
-          oslot ^= 1;
+          if constexpr (OUT_SLOTS > 1) oslot ^= 1;
         }
       }
       wgmma_wait<0>();
       reg_fence(sacc);
       if (!qk) continue;
-      if (i == nf - 1) mbar_arrive(&q_empty[qs]);  // Q read for the last time
+      if (i == items - 1) mbar_arrive(&q_empty[qs]);  // Q read for the last time
       pstage = stage;
       if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
       }
-      float inv0, inv1;
-      ss_frame_softmax<NP, V3>(sacc, pa, N, t4, scale_log2e, inv0, inv1);
-      if constexpr (V3) {
-        pinv0 = inv0;
-        pinv1 = inv1;
+      if constexpr (CH > 1) {
+        const int c = i % CH;
+        ss_chunk_softmax<NP>(sacc, pa, oacc, N - c * NP, c == 0, t4,
+                             scale_log2e, rm0, rm1, rl0, rl1);
+        if (c == CH - 1) {  // the frame's 1 / l, read when it leaves
+          pinv0 = 1.f / rl0;
+          pinv1 = 1.f / rl1;
+        }
+      } else {
+        float inv0, inv1;
+        ss_frame_softmax<NP, V3>(sacc, pa, N, t4, scale_log2e, inv0, inv1);
+        if constexpr (V3) {
+          pinv0 = inv0;
+          pinv1 = inv1;
+        }
       }
     }
   }
@@ -427,6 +565,26 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
     int F, int N, float scale_log2e) {
   space_stage_body<NP, V3, false>(&q_map, &k_map, &v_map, &o_map, nullptr,
                                   BH, heads, S, F, N, scale_log2e);
+}
+
+// the chunked form (kernel 1 at N > SS_MAX_NP), NP keys a chunk
+template <int NP>
+__global__ void __launch_bounds__(SS_THREADS, 1) space_stage_chunked_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap o_map, int BH, int heads, int S,
+    int F, int N, float scale_log2e) {
+  space_stage_body<NP, false, false, SS_CHUNKS>(
+      &q_map, &k_map, &v_map, &o_map, nullptr, BH, heads, S, F, N,
+      scale_log2e);
+}
+
+// the kernel of a width and form: the chunked one where CH > 1
+template <int NP, bool V3, int CH>
+auto ss_kernel() {
+  if constexpr (CH > 1) return &space_stage_chunked_kernel<NP>;
+  else return &space_stage_kernel<NP, V3>;
 }
 
 // the card's SM count, asked for once
@@ -445,7 +603,8 @@ inline cudaError_t ss_sm_count(int* sms) {
 
 // tensor maps of q [B, S, C] (a unit's 128 rows of one head; rows past S
 // read as zeros) and of the nkv [B F, N, C] tensors kv[i] (a frame's NP
-// keys of one head; keys past N read as zeros), C = heads * 64
+// keys of one head, or in the chunked form a chunk's NP keys from its
+// first key; keys past N read as zeros), C = heads * 64
 template <int NP>
 cudaError_t ss_input_maps(const bf16* q, CUtensorMap* qm, int nkv,
                           const bf16* const* kv, CUtensorMap* kvm, int B,
@@ -481,8 +640,9 @@ inline cudaError_t ss_frames_map(CUtensorMap* om, bf16* out, int B,
   return make_bf16_map(om, out, 4, dims, strides, box);
 }
 
-// q [B, S, C], kf / vf [B, F, N, C], out [B, S, F, C] with C = heads * 64
-template <int NP, bool V3>
+// q [B, S, C], kf / vf [B, F, N, C], out [B, S, F, C] with C = heads * 64;
+// CH > 1: the chunked form, NP keys a chunk
+template <int NP, bool V3, int CH = 1>
 cudaError_t launch_space_stage(const bf16* q, const bf16* kf, const bf16* vf,
                                bf16* out, int B, int heads, int S, int F,
                                int N, float scale, cudaStream_t st) {
@@ -492,19 +652,19 @@ cudaError_t launch_space_stage(const bf16* q, const bf16* kf, const bf16* vf,
   if (e != cudaSuccess) return e;
   e = ss_frames_map(&om, out, B, heads, S, F);
   if (e != cudaSuccess) return e;
-  constexpr int smem = ss_smem_bytes(NP);
+  constexpr int smem = ss_smem_bytes(NP, CH);
+  const auto kernel = ss_kernel<NP, V3, CH>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      space_stage_kernel<NP, V3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   int sms = 0;
   e = ss_sm_count(&sms);
   if (e != cudaSuccess) return e;
   const int units = B * heads * ((S + SS_ROWS - 1) / SS_ROWS);
   const int grid = units < sms ? units : sms;
-  space_stage_kernel<NP, V3><<<grid, SS_THREADS, smem, st>>>(
-      qm, kvm[0], kvm[1], om, B * heads, heads, S, F, N,
-      scale * 1.4426950408889634f);
+  kernel<<<grid, SS_THREADS, smem, st>>>(qm, kvm[0], kvm[1], om, B * heads,
+                                         heads, S, F, N,
+                                         scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 

@@ -412,14 +412,30 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
   }
 }
 
-// the three launches on ``st``, each counted in *launched
+// stage 1 at SS_MAX_NP < N <= SS_MAX_KEYS (the 336 crop: N = 441, 445):
+// the chunked form, two chunks of 224 keys up to N = 448, else of 256
+cudaError_t launch_space_stage_chunked(const bf16* q, const bf16* kf,
+                                       const bf16* vf, bf16* out, int B,
+                                       int heads, int S, int F, int N,
+                                       float scale, cudaStream_t st) {
+  if (ss_chunk_keys(N) == 224)
+    return launch_space_stage<224, false, SS_CHUNKS>(q, kf, vf, out, B, heads,
+                                                     S, F, N, scale, st);
+  return launch_space_stage<256, false, SS_CHUNKS>(q, kf, vf, out, B, heads,
+                                                   S, F, N, scale, st);
+}
+
+// the three launches on ``st``, each counted in *launched; N <= SS_MAX_KEYS
+// in the rounding of version 4 (stage 1 in its chunked form past
+// SS_MAX_NP), N <= SS_MAX_NP in the mode V3
 template <bool V3>
 int traj_core_run(const void* q, const void* kf, const void* vf,
                   const void* wq2, const void* bq2, const void* wk2, void* xs,
                   void* q2, void* out, int* launched, int B, int S, int F,
                   int N, int C, int heads, float scale, cudaStream_t st) {
   *launched = 0;
-  if (B <= 0 || N <= 0 || N > MAX_NP || F <= 0 || F > MAX_F || S != F * N ||
+  constexpr int max_keys = V3 ? SS_MAX_NP : SS_MAX_KEYS;
+  if (B <= 0 || N <= 0 || N > max_keys || F <= 0 || F > MAX_F || S != F * N ||
       heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0 ||
       !aligned16(q) || !aligned16(kf) || !aligned16(vf) || !aligned16(xs) ||
       !aligned16(q2) || !aligned16(out) || !aligned16(wk2))
@@ -428,9 +444,14 @@ int traj_core_run(const void* q, const void* kf, const void* vf,
 
   bf16* xs_ = static_cast<bf16*>(xs);
   bf16* out_ = static_cast<bf16*>(out);
-  err = launch_space_stage_keys<V3>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kf),
-      static_cast<const bf16*>(vf), xs_, B, heads, S, F, N, scale, st);
+  const auto* q_ = static_cast<const bf16*>(q);
+  const auto* kf_ = static_cast<const bf16*>(kf);
+  const auto* vf_ = static_cast<const bf16*>(vf);
+  err = !V3 && N > SS_MAX_NP
+            ? launch_space_stage_chunked(q_, kf_, vf_, xs_, B, heads, S, F, N,
+                                         scale, st)
+            : launch_space_stage_keys<V3>(q_, kf_, vf_, xs_, B, heads, S, F,
+                                          N, scale, st);
   if (err != cudaSuccess) return (int)err;
   ++*launched;
 
@@ -485,7 +506,7 @@ int traj_core_run(const void* q, const void* kf, const void* vf,
 // q [B, S, C]; kf, vf [B, F, N, C]; wq2, wk2 [C, C] ([in, out]); bq2 [C];
 // scratch xs [B, S, F, C] and q2 [B, S, C]; out [B, S, C]; all bf16 and
 // contiguous from 16-byte boundaries, with S = F * N, C = heads * 64 (a
-// multiple of 128), F <= 8, N <= 256, heads <= 16. Launches the three
+// multiple of 128), F <= 8, N <= 512, heads <= 16. Launches the three
 // stages on ``stream`` and returns the first cudaError_t met.
 extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
                               const void* wq2, const void* bq2,
@@ -499,9 +520,9 @@ extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
 }
 
 // The forward versions 3 and 7 (the rounding mode V3; one function, so one
-// design): the operands as traj_core_bf16's, xs and q2 written as it writes
-// them (q2 unscaled, with its bias), as the backward kernel reads them. The
-// three launches are counted in *launched.
+// design): the operands as traj_core_bf16's but N <= 256, xs and q2
+// written as it writes them (q2 unscaled, with its bias), as the backward
+// kernel reads them. The three launches are counted in *launched.
 extern "C" int traj_core_v3_bf16(const void* q, const void* kf,
                                  const void* vf, const void* wq2,
                                  const void* bq2, const void* wk2, void* xs,

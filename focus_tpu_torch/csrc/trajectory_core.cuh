@@ -13,7 +13,6 @@
 namespace {
 
 constexpr int HD = 64;           // head dim
-constexpr int MAX_NP = 256;      // keys per frame after padding
 constexpr int MAX_F = 8;         // frames; also the stride of the logits
 constexpr int MAX_HEADS = 16;
 

@@ -1,5 +1,6 @@
 """Entry points of the port: the flagship eval forward, the flagship train
-step and the STEVE autoregressive reconstruction, each with example inputs.
+step, the HR-336 EPIC-Kitchens eval forward and the STEVE autoregressive
+reconstruction, each with example inputs.
 
 ``entry`` is the counterpart of ``__graft_entry__._flagship_cfg`` / ``entry()``: ORViT-
 Motionformer, SSv2 16x224 (the reference's
@@ -12,6 +13,12 @@ init-scale weights), batch and inputs with labels, the solver settings of
 ``__graft_entry__._flagship_cfg`` (AdamW, base LR 5e-5, weight decay 5e-2,
 steps_with_relative_lrs, no clipping), 100 steps per epoch and the
 label-smoothing cross-entropy.
+``hr_entry`` is the HR-336 path: ORViT-Motionformer-HR on EPIC-Kitchens
+at the 336 crop (the reference's ``configs/ORViT/EK_ORVIT_MF_HR.yaml``; the
+JAX package's ``scripts/bench_companions.py hr336`` at batch 4), whose
+verb and noun heads and 21 x 21 patch grid (441 tokens a frame, 445 in the
+ORViT blocks) the flagship lacks, with the eval entry's random init-scale
+weights.
 ``steve_entry`` is the counterpart of the model that
 ``scripts/bench_steve_rollout.py`` builds: STEVE at the config defaults
 (64 px, 7 slots, decoder D=2048 with 8 blocks, vocabulary 4096, bf16) with
@@ -82,7 +89,8 @@ def example_inputs(cfg, batch: int, seed: int, device, labels=False):
 
 
 class EvalForward:
-    """``fn(video, boxes) -> probabilities``; ``fn.model`` is the module."""
+    """``fn(video, boxes) -> probabilities`` (the EPIC-Kitchens model's
+    verb and noun pair); ``fn.model`` is the module."""
 
     def __init__(self, model):
         self.model = model
@@ -92,21 +100,56 @@ class EvalForward:
         return self.model(video, {"orvit_bboxes": boxes})
 
 
+def _eval_entry(cfg, device, batch, seed):
+    """(EvalForward of ``cfg``'s model with random init-scale weights
+    seeded with ``seed``, example inputs) on ``device``."""
+    device = resolve_device(device)
+    model = build_model(cfg, device=device, seed=seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    init_weights(model, gen, scale=INIT_SCALE)
+    return EvalForward(model), example_inputs(cfg, batch, seed, device)
+
+
 def entry(device="cuda", batch: int = 8, seed: int = 0, tiny: bool = False,
           fast_gelu: bool = False, int8: bool = False):
     """(fn, (video, boxes)): the flagship eval forward and example inputs,
     on ``device`` (CUDA unless the caller asks for the CPU). ``fast_gelu``
     and ``int8`` set ``TPU.FAST_GELU`` and ``TPU.INT8_SERVING``, the
     labeled serving variants, as ``bench.py``'s ``variant_cfg`` does."""
-    device = resolve_device(device)
     cfg = flagship_cfg(tiny)
     cfg.TPU.FAST_GELU = fast_gelu
     cfg.TPU.INT8_SERVING = int8
-    model = build_model(cfg, device=device, seed=seed)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    init_weights(model, gen, scale=INIT_SCALE)
-    return EvalForward(model), example_inputs(cfg, batch, seed, device)
+    return _eval_entry(cfg, device, batch, seed)
+
+
+def hr_cfg(tiny: bool = False):
+    """ORViT-Motionformer-HR, EK100 16x336: the flagship's widths (D=768,
+    12 layers, 12 heads, 2 x 16 x 16 patches, 8 temporal positions, the
+    tanh pre-logits MLP, ORViT at [1, 6, 10] with O = 4 and its motion
+    stream, bf16) with the model fields of
+    ``configs/ORViT/EK_ORVIT_MF_HR.yaml``: the EPIC-Kitchens verb and noun
+    heads, the 336 crop and its drop-path rate (inactive in eval).
+    ``tiny`` is the flagship's tiny size at the 336 crop: a 6 x 6 grid of
+    56-pixel patches, so the 4 x 4 position grid is resized."""
+    cfg = flagship_cfg(tiny)
+    cfg.TRAIN.DATASET = cfg.TEST.DATASET = "epickitchens"
+    cfg.MODEL.NUM_CLASSES = 97
+    cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = 336
+    cfg.MF.DROP_PATH = 0.2
+    cfg.MF.HEAD_ACT = "tanh"
+    cfg.ORVIT.USE_MOTION_STREAM = True
+    cfg.ORVIT.MOTION_STREAM_ATTN_TYPE = "joint"
+    return cfg
+
+
+def hr_entry(device="cuda", batch: int = 4, seed: int = 0,
+             tiny: bool = False):
+    """(fn, (video, boxes)): the HR-336 EPIC-Kitchens eval forward, ``fn(video,
+    boxes) -> (verb, {"verb": verb, "noun": noun})`` probabilities, and
+    example inputs (video [batch, 16, 336, 336, 3]), on ``device`` (CUDA
+    unless the caller asks for the CPU)."""
+    return _eval_entry(hr_cfg(tiny), device, batch, seed)
 
 
 def train_cfg(tiny: bool = False):

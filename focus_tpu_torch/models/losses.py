@@ -45,10 +45,12 @@ def label_smoothing_cross_entropy(logits, labels, smoothing: float = 0.1):
 
 
 def ek_loss(preds, labels):
-    """The EPIC-Kitchens verb + noun loss: its dual-head model is not
-    ported, so neither is the loss."""
-    raise NotImplementedError("EK_loss (the EPIC-Kitchens dual head is not "
-                              "ported)")
+    """The EPIC-Kitchens verb + noun loss: not ported yet. The dual-head
+    model serves its eval forward; its train step (this loss, and the
+    backward kernel at the 336 crop's N = 441 keys) is ROADMAP.md section
+    1 item 2."""
+    raise NotImplementedError("EK_loss (the EPIC-Kitchens train step is not "
+                              "ported yet)")
 
 
 _LOSSES = {

@@ -33,6 +33,7 @@ attentions, fc1 and fc2 of every MLP) as dynamic W8A8 dense layers
 train and eval alike.
 """
 
+import math
 from collections import OrderedDict
 
 import numpy as np
@@ -291,16 +292,58 @@ class PatchEmbed3D(nn.Module):
                 (T // kt, H // kh, W // kw))
 
 
+EK_CLASSES = (97, 300)  # EPIC-Kitchens verbs and nouns
+
+
+def _keys_cubic(x):
+    """Keys' cubic convolution kernel with a = -0.5 at distances x >= 0."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def bicubic_weights(n_in: int, n_out: int, device=None):
+    """[n_in, n_out] float64 weights of ``jax.image.resize(..., "bicubic")``
+    along one axis (its ``compute_weight_mat`` with antialiasing, no
+    translation): output j samples input position (j + 0.5) n_in / n_out -
+    0.5 (half-pixel centres) with Keys' cubic, a = -0.5, widened by n_in /
+    n_out on a downscale; taps outside the input are dropped and each
+    output's weights renormalised to sum to 1 (not clamped to the edge).
+    ``F.interpolate``'s bicubic (a = -0.75, edge clamping) is another
+    function."""
+    eps32 = float(np.finfo(np.float32).eps)
+    inv = n_in / n_out
+    sample = (torch.arange(n_out, dtype=torch.float64, device=device) + 0.5
+              ) * inv - 0.5
+    src = torch.arange(n_in, dtype=torch.float64, device=device)
+    w = _keys_cubic((sample[None, :] - src[:, None]).abs() / max(inv, 1.0))
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * eps32,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
 def interpolate_pos_embed(pos_embed, npatch: int):
-    """The spatial position embedding for ``npatch`` patches: the identity
-    at the 224 crop. Other crops need the bicubic resize of the JAX package
-    (``jax.image.resize``, which ``F.interpolate`` does not reproduce), not
-    ported yet."""
-    if npatch == pos_embed.shape[1] - 1:
+    """The position embedding [1, 1 + npatch, D] for ``npatch`` patches
+    (JAX ``models/motionformer.py:interpolate_pos_embed``, reference
+    video_model_builder.py:1285-1300): the identity where the grid has
+    ``npatch`` patches already (the 224 crop), else the CLS row as it is and
+    the square spatial grid resized as ``jax.image.resize(grid, (1, side,
+    side, D), "bicubic")`` resizes it, by the separable ``bicubic_weights``
+    in float64, rows then columns."""
+    n = pos_embed.shape[1] - 1
+    if npatch == n:
         return pos_embed
-    raise NotImplementedError(
-        f"pos-embed resize from {pos_embed.shape[1] - 1} to {npatch} patches"
-    )
+    side_in, side = math.isqrt(n), math.isqrt(npatch)
+    D = pos_embed.shape[-1]
+    grid = pos_embed[0, 1:].double().reshape(side_in, side_in, D)
+    w = bicubic_weights(side_in, side, pos_embed.device)
+    rows = (w.t() @ grid.reshape(side_in, side_in * D)).reshape(
+        side, side_in, D)
+    grid = torch.einsum("jJ,IjD->IJD", w, rows).reshape(1, npatch, D)
+    return torch.cat([pos_embed[:, :1], grid.to(pos_embed.dtype)], dim=1)
 
 
 @register
@@ -313,7 +356,6 @@ class Motionformer(nn.Module):
 
         c = cfg
         unported = {
-            "the EPIC-Kitchens verb/noun head": c.TRAIN.DATASET == "epickitchens",
             "MoE block MLPs": int(c.TPU.MOE.NUM_EXPERTS or 0) > 1,
             "MF.POS_EMBED other than 'separate' on video input":
                 c.MF.POS_EMBED != "separate" or not c.MF.VIDEO_INPUT,
@@ -361,7 +403,14 @@ class Motionformer(nn.Module):
         self.norm = nn.LayerNorm(D, eps=1e-6)
         if c.MF.USE_MLP:
             self.pre_logits = nn.Sequential(OrderedDict(fc=nn.Linear(D, D)))
-        self.head = nn.Linear(D, c.MODEL.NUM_CLASSES)
+        # EPIC-Kitchens: a verb head and a noun head (head0, head1), as the
+        # JAX model sets them whatever MODEL.NUM_CLASSES says
+        self.ek_heads = c.TRAIN.DATASET == "epickitchens"
+        if self.ek_heads:
+            self.head0 = nn.Linear(D, EK_CLASSES[0])
+            self.head1 = nn.Linear(D, EK_CLASSES[1])
+        else:
+            self.head = nn.Linear(D, c.MODEL.NUM_CLASSES)
 
     def tokenize(self, x):
         """Patch-embed + CLS + separate space and time position embeddings
@@ -393,9 +442,17 @@ class Motionformer(nn.Module):
 
     def forward(self, x, metadata=None, train: bool = False, generator=None):
         """Class probabilities [B, num_classes] in float32; with ``train``,
-        the float32 logits, stochastic depth drawn from ``generator``."""
+        the float32 logits, stochastic depth drawn from ``generator``. The
+        EPIC-Kitchens model returns ``(verb, {"verb": verb, "noun": noun})``
+        as the JAX model does, probabilities [B, 97] and [B, 300] (logits
+        with ``train``)."""
         feat = self.forward_features(x, metadata or {}, train, generator)
-        # the head runs in float32, as flax promotes bf16 features against
+        # the heads run in float32, as flax promotes bf16 features against
         # its float32 kernel
-        logits = F.linear(feat.float(), self.head.weight, self.head.bias)
-        return logits if train else torch.softmax(logits, dim=-1)
+        heads = (self.head0, self.head1) if self.ek_heads else (self.head,)
+        outs = [F.linear(feat.float(), h.weight, h.bias) for h in heads]
+        if not train:
+            outs = [torch.softmax(o, dim=-1) for o in outs]
+        if self.ek_heads:
+            return outs[0], {"verb": outs[0], "noun": outs[1]}
+        return outs[0]

@@ -17,8 +17,8 @@ rounded to v's dtype before the product. The learned-v trajectory attention
 
 Float32 operands on the card: the kernel takes bf16 alone, so a CUDA call
 with a float32 operand raises ``TypeError``: its float32 mode is open
-(ROADMAP.md section 1 item 8). Nothing on the card falls back to the
-plain version.
+(ROADMAP.md section 2 A2). Nothing on the card falls back to the plain
+version.
 """
 
 import functools
@@ -40,8 +40,8 @@ H100_SMS = 132
 def _check_keys(N):
     if not 1 <= N <= MAX_KEYS:
         raise ValueError(f"space-stage kernel needs N <= {MAX_KEYS} (N={N});"
-                         " N > 256 (HR-336) waits for ROADMAP.md section 1 "
-                         "item 3")
+                         " N > 256 (HR-336) waits for ROADMAP.md section 2 "
+                         "A1")
 
 
 def space_stage_plan(BH, S, F, N, sms=H100_SMS):
@@ -96,7 +96,7 @@ def _launch(q, kf, vf, scale):
     if any(t.dtype != torch.bfloat16 for t in args):
         raise TypeError("space-stage kernel takes bfloat16 operands, got "
                         f"{[t.dtype for t in args]}; its float32 mode is "
-                        "open (ROADMAP.md section 1 item 8)")
+                        "open (ROADMAP.md section 2 A2)")
     if any(t.device != q.device for t in args):
         raise ValueError("space-stage kernel operands must share one device")
     if any(not t.is_contiguous() for t in args):

@@ -29,14 +29,21 @@ first. CPU tensors take ``trajectory_core_reference`` at every version, as
 the JAX package takes its XLA composition off the TPU;
 ``trajectory_core_v3_reference`` (also ``trajectory_core_v7_reference``),
 ``trajectory_core_v5_reference`` and ``trajectory_core_v6_reference``
-follow the TPU kernels step by step, and ``trajectory_core_v3_mirror`` and
-``trajectory_core_k2v_mirror`` the card's kernels 3 / 4 and 5 / 6.
+follow the TPU kernels step by step, and ``trajectory_core_v3_mirror``,
+``trajectory_core_k2v_mirror`` and ``trajectory_core_chunked_mirror`` the
+card's kernels 3 / 4, 5 / 6 and kernel 1 at N > 256.
+
+Keys a frame: kernel 1 takes N <= 512 (the 336 crop's 441 and 445; past
+256 its stage 1 runs in the chunked form, ``csrc/space_stage_core.cuh``);
+kernels 3 to 7 take N <= 256 and refuse more before any build (ROADMAP.md
+section 2 A1), so a forward at N > 256 that wants a gradient raises before
+it launches.
 
 Float32 operands on the card: the kernels take bf16 alone, so a CUDA call
 with a float32 operand (the ``TPU.COMPUTE_DTYPE: float32`` case, which the
 JAX kernel serves in float32) raises ``TypeError``: the kernels' float32
-mode is open (ROADMAP.md section 1 item 8). Nothing on the card falls
-back to the plain version.
+mode is open (ROADMAP.md section 2 A2). Nothing on the card falls back to
+the plain version.
 """
 
 import ctypes
@@ -66,8 +73,9 @@ V7_LAUNCHES = V7_DEVICE_LAUNCHES = 0
 FWD_VERSION = 4
 PORTED_FWD_VERSIONS = (3, 4, 5, 6, 7)
 
-HEAD_DIM = 64  # the kernel's head dim; also C % 128 == 0, F <= 8, N <= 256,
-# heads <= 16
+HEAD_DIM = 64  # the kernels' head dim; also C % 128 == 0, F <= 8, heads <= 16
+MAX_KEYS = 256  # keys a frame, kernels 3 to 7
+MAX_KEYS_CHUNKED = 512  # keys a frame, kernel 1 (two chunks past MAX_KEYS)
 
 
 def trajectory_core_stage1_reference(q, kf, vf, wq2, bq2, scale, heads):
@@ -146,11 +154,43 @@ def stage2_rows(M, sms=132, heads=12, v3=False):
     return 48 if waves[48] * 48 < waves[64] * 64 else 64
 
 
+STAGE1_CHUNKS = 2  # kernel 1's stage 1 past MAX_KEYS: a frame in two chunks
+
+
+def chunked_stage1_plan(BH, S, F, N, sms=132):
+    """Kernel 1's stage 1 at MAX_KEYS < N <= MAX_KEYS_CHUNKED, as
+    ``csrc/space_stage_core.cuh`` plans its chunked form: a ring slot holds
+    one chunk of a frame's keys (K and V, ``chunk_keys`` rows each), one
+    output staging tile a warpgroup (a frame leaves every second turn), as
+    many slots as fit beside them and the Q ring (at most four), and the
+    space stage's persistent grid of (bh, 128-query tile) units. Raises
+    ``ValueError`` where the chunked form takes no such N."""
+    from focus_tpu_torch.ops import trajectory_attention as ta
+
+    if not MAX_KEYS < N <= MAX_KEYS_CHUNKED:
+        raise ValueError(f"kernel 1's chunked stage 1 takes {MAX_KEYS} < N "
+                         f"<= {MAX_KEYS_CHUNKED} (N={N})")
+    cw = chunk_keys(N)
+    row = 2 * HEAD_DIM
+    rows, consumers, out_slots = 128, 2, 1
+    fixed = 1024 + 2 * rows * row + consumers * out_slots * 64 * row + 1024
+    stage = 2 * cw * row
+    stages = min(4, (ta.SMEM_LIMIT - fixed) // stage)
+    tiles = -(-S // rows)
+    units = BH * tiles
+    return {"padded_keys": STAGE1_CHUNKS * cw, "chunk_keys": cw,
+            "chunks": STAGE1_CHUNKS, "out_slots": out_slots,
+            "stages": stages, "smem_bytes": fixed + stages * stage,
+            "query_tiles": tiles, "rows_per_tile": rows, "units": units,
+            "grid": min(units, sms), "threads": 128 * (consumers + 1)}
+
+
 def trajectory_core_plan(B, S, F, N, heads, sms=132, v3=False):
     """Kernel 1's launch plan, as ``csrc/trajectory_block.cu`` computes it,
     or with ``v3`` kernels 3 and 4's (the same launches in the rounding
     mode V3): stage 1 as the space stage plans it for B x heads head rows
-    (``trajectory_attention.space_stage_plan``); the q2 GEMM's tiles (in
+    (``trajectory_attention.space_stage_plan``; kernel 1 at N > 256 in its
+    chunked form, ``chunked_stage1_plan``); the q2 GEMM's tiles (in
     V3 it also writes the scaled stage-2 query into out); and stage 2's
     blocks of 48 or 64 rows with every head (one warp a head forms g), its
     ring of 16-channel chunks fed by TMA, its two g buffers (V3: hi and lo
@@ -166,7 +206,10 @@ def trajectory_core_plan(B, S, F, N, heads, sms=132, v3=False):
         raise ValueError(f"trajectory kernel needs C % 128 == 0, heads <= "
                          f"{MAX_HEADS}, F <= {MAX_FRAMES}, S = F N (B={B}, "
                          f"S={S}, F={F}, N={N}, heads={heads})")
-    stage1 = ta.space_stage_plan(B * heads, S, F, N, sms)
+    if v3 or N <= MAX_KEYS:
+        stage1 = ta.space_stage_plan(B * heads, S, F, N, sms)
+    else:
+        stage1 = chunked_stage1_plan(B * heads, S, F, N, sms)
     M = B * S
     rows = stage2_rows(M, sms, heads, v3)
     line, stage_bytes, fixed, stages = _stage2_bytes(heads, rows, v3)
@@ -297,6 +340,70 @@ def trajectory_core_v3_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
     out = torch.einsum("bshf,bsfhd->bshd", a2,
                        xsf.reshape(B, S, F, heads, hd))
     return out.to(dt).reshape(B, S, C)
+
+
+def chunk_keys(N):
+    """Keys a chunk of kernel 1's stage 1 at N > MAX_KEYS (its chunked
+    form, ``ss_chunk_keys``): two chunks of 224 up to N = 448, else of
+    256."""
+    return 224 if N <= 448 else 256
+
+
+def trajectory_core_chunked_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale,
+                                   heads, intermediates=None):
+    """Plain mirror of kernel 1 at N > 256 (``csrc/space_stage_core.cuh``
+    in its chunked form): its steps and rounding points, in float32
+    arithmetic on operands at q's dtype. Stage 1 per frame and head over
+    the frame's keys in two chunks (``chunk_keys``), the softmax online
+    across them: chunk 0's row max m0, p0 = exp(logit * scale - m0 *
+    scale), l = sum p0, o = round(p0) . V_0; chunk 1 raises the max to m1,
+    scales l and o by exp((m0 - m1) * scale) and adds its own p1 =
+    exp(logit * scale - m1 * scale) and round(p1) . V_1; xs = round(o * (1
+    / l)). The weights are rounded unnormalised, as in the mode V3, where
+    kernel 1 at N <= 256 normalises them first. Then as kernel 1 at any N:
+    q2 = round(x_diag . Wq2 + bq2) and stage 2 (``temporal_stage_k2w``).
+    Returns out; a dict passed as ``intermediates`` receives xs and q2.
+    Nothing on the card calls it.
+
+    Against the plain version in float32 on the same bf16 operands (B=1,
+    F=8, 2 heads; tests/test_torch_port_hr336.py) out differs by 4.6e-3,
+    4.4e-3 and 4.4e-3 x max|ref| at N = 257, 441 and 512 on the CPU, as
+    near as the plain version in bf16 (4.0e-3 to 4.8e-3), within half
+    the card's 2e-2 gate."""
+    del bk2
+    B, S, C = q.shape
+    F, N = kf.shape[1], kf.shape[2]
+    hd, dt = C // heads, q.dtype
+    cw = chunk_keys(N)
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    qh = q.float().reshape(B, S, heads, hd).permute(0, 2, 1, 3)
+    kh = kf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    vh = vf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+    logits = torch.einsum("bhsd,bhfnd->bhsfn", qh, kh) * scale
+    m = l = o = None
+    for keys in (slice(0, cw), slice(cw, N)):
+        part = logits[..., keys]
+        m_new = part.amax(-1) if m is None else torch.maximum(
+            m, part.amax(-1))
+        p = torch.exp(part - m_new[..., None])
+        pv = torch.einsum("bhsfn,bhfnd->bhsfd", rnd(p), vh[:, :, :, keys])
+        if m is None:
+            l, o = p.sum(-1), pv
+        else:
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + pv
+        m = m_new
+    xs = (o * (1 / l)[..., None]).to(dt).permute(0, 2, 3, 1, 4).reshape(
+        B, S, F, C)
+    x_diag = attn_ops.take_diagonal(xs, F)
+    q2 = (x_diag.float() @ wq2.to(dt).float() + bq2.to(dt).float()).to(dt)
+    if intermediates is not None:
+        intermediates.update(xs=xs, q2=q2)
+    return attn_ops.temporal_stage_k2w(q2, wk2, xs, F, scale, heads)
 
 
 def trajectory_core_v3_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
@@ -652,14 +759,18 @@ def _variant_kernel_fn(version):
                        n_float=1)
 
 
-def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
+def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=(),
+                    max_keys=MAX_KEYS):
+    """Raises where the kernel takes no such operands: bf16 alone,
+    contiguous on one device, the layout's shapes, and N <= ``max_keys``
+    keys a frame (kernel 1: MAX_KEYS_CHUNKED; the others: MAX_KEYS)."""
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     args = (q, kf, vf, wq2, bq2, wk2) + tuple(extra)
     if any(t.dtype != torch.bfloat16 for t in args):
         raise TypeError("trajectory kernel takes bfloat16 operands, got "
                         f"{[t.dtype for t in args]}; its float32 mode is "
-                        "open (ROADMAP.md section 1 item 8)")
+                        "open (ROADMAP.md section 2 A2)")
     if any(t.device != q.device for t in args):
         raise ValueError("trajectory kernel operands must share one device")
     if any(not t.is_contiguous() for t in args):
@@ -672,12 +783,14 @@ def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
     if not shapes_ok:
         raise ValueError(f"bad shapes for the trajectory kernel: "
                          f"{[tuple(t.shape) for t in args]}")
-    if (C != heads * HEAD_DIM or C % 128 or F > 8 or N > 256
+    if (C != heads * HEAD_DIM or C % 128 or F > 8 or N > max_keys
             or heads > 16):
+        wider = ("" if max_keys > MAX_KEYS else
+                 f"; N > {MAX_KEYS} (HR-336) is kernel 1's forward alone, "
+                 "the others wait for ROADMAP.md section 2 A1")
         raise ValueError(f"trajectory kernel needs head dim {HEAD_DIM}, "
-                         f"C % 128 == 0, F <= 8, N <= 256, heads <= 16 "
-                         f"(C={C}, heads={heads}, F={F}, N={N}); N > 256 "
-                         "(HR-336) waits for ROADMAP.md section 1 item 3")
+                         f"C % 128 == 0, F <= 8, N <= {max_keys}, heads <= "
+                         f"16 (C={C}, heads={heads}, F={F}, N={N}){wider}")
 
 
 def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
@@ -685,7 +798,8 @@ def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
     are the stage-1 aggregates and stage-2 queries it writes on the way,
     which the backward reads."""
     global LAUNCHES
-    _check_operands(q, kf, vf, wq2, bq2, wk2, heads)
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads,
+                    max_keys=MAX_KEYS_CHUNKED)
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     xs = torch.empty(B, S, F, C, dtype=torch.bfloat16, device=q.device)
@@ -857,6 +971,13 @@ class _FusedCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads, version):
+        N = kf.shape[2]
+        if N > MAX_KEYS and any(ctx.needs_input_grad[:6]):
+            raise ValueError(
+                f"trajectory backward kernel takes N <= {MAX_KEYS} (N={N}): "
+                "the HR-336 train step waits for ROADMAP.md section 2 A1; "
+                "kernel 1 serves the forward alone there (under "
+                "torch.no_grad)")
         if version in (3, 4, 7):
             launch = {3: _launch_v3, 4: _launch, 7: _launch_v7}[version]
             out, xs, q2 = launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
@@ -887,7 +1008,9 @@ def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
     gradient is autograd's); a CUDA tensor launches the forward kernel of
     ``FWD_VERSION`` (3, 4, 5, 6 or 7; others raise before any launch), and
     its gradient the backward kernel (bf16, contiguous, head dim 64), or
-    raises: a float32 operand raises ``TypeError``."""
+    raises: a float32 operand raises ``TypeError``, and N > 256 keys a
+    frame ``ValueError`` except in version 4's forward without a gradient
+    (N <= 512)."""
     if q.device.type == "cpu":
         return trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2,
                                          scale, heads)

@@ -1,12 +1,15 @@
 """Where the time of a slice's main path goes, on one GPU.
 
     python3 -m focus_tpu_torch.profile_slice \
-        [--model flagship|steve|train|learned_v] [--batch 8] [--iters 2] \
+        [--model flagship|steve|train|learned_v|hr336] [--batch 8] \
+        [--iters 2] \
         [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 3|4|5|6|7]
 
 Builds ``entry(device="cuda")`` (the flagship eval forward),
 ``train_entry(device="cuda")`` (one flagship train step: forward, backward
-and the AdamW update) or ``steve_entry(device="cuda")`` (STEVE's encode +
+and the AdamW update), ``hr_entry(device="cuda")`` (the HR-336
+EPIC-Kitchens eval forward; ``--batch`` defaults to 4 there, as the JAX
+companion's) or ``steve_entry(device="cuda")`` (STEVE's encode +
 KV-cached rollout + dVAE decode; ``--batch`` videos of 4 frames), warms up,
 then traces ``--iters`` calls with ``torch.profiler`` (CPU and CUDA
 activities). Prints one JSON
@@ -38,7 +41,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from focus_tpu_torch.entry import entry, steve_entry, train_entry
+from focus_tpu_torch.entry import entry, hr_entry, steve_entry, train_entry
 from focus_tpu_torch.ops import trajectory_block
 from focus_tpu_torch.profile_block import learned_v_stack
 
@@ -46,7 +49,8 @@ from focus_tpu_torch.profile_block import learned_v_stack
 # device kernels of the port's hand-written kernels, by the start of their
 # names (a regular expression; a kernel counts in the first group it
 # matches): kernel 1's three stages apart (its stage 1 is the space stage's
-# kernel, which kernel 8 launches in the learned-v model), and kernels 3
+# kernel, which kernel 8 launches in the learned-v model, or at N > 256 its
+# chunked form), and kernels 3
 # and 4's (FWD_VERSION 3 and 7: the same kernels in the rounding mode V3,
 # template argument true; the GEMM is one kernel for all versions), kernels
 # 5 and 6's own-frame launch and pass (FWD_VERSION 6 and 5; the pass's
@@ -58,6 +62,7 @@ KERNEL_GROUPS = (
     (rf"space_stage_kernel<\d+, {_TRUE}>", "kernels 3 / 4 stage 1 (mode V3)"),
     (rf"traj_stage2_kernel<{_TRUE}>", "kernels 3 / 4 stage 2 (mode V3)"),
     ("space_stage_kernel", "kernel 1 stage 1 (flagship) / kernel 8 (learned_v)"),
+    ("space_stage_chunked_kernel", "kernel 1 stage 1, chunked (N > 256, HR-336)"),
     ("own_frame_kernel", "kernels 5 / 6 own-frame x_diag"),
     (rf"k2v_pass_kernel<\d+, {_TRUE}>", "kernel 6 pass (v5)"),
     (rf"k2v_pass_kernel<\d+, {_FALSE}>", "kernel 5 pass (v6)"),
@@ -113,9 +118,11 @@ def _busy_us(prof):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model",
-                    choices=("flagship", "steve", "train", "learned_v"),
+                    choices=("flagship", "steve", "train", "learned_v",
+                             "hr336"),
                     default="flagship")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="8 (hr336: 4)")
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
@@ -133,12 +140,14 @@ def main():
         variant["int8"] = True
     if args.fast_gelu:
         variant["fast_gelu"] = True
-    if args.model in ("train", "learned_v") and variant or (
+    if args.model in ("train", "learned_v", "hr336") and variant or (
             args.model == "steve" and args.fast_gelu):
         ap.error(f"--model {args.model} takes no {sorted(variant)}")
     if args.fwd_version != 4 and args.model not in ("flagship", "train"):
         ap.error(f"--model {args.model} takes no --fwd-version")
     trajectory_block.FWD_VERSION = args.fwd_version
+    if args.batch is None:
+        args.batch = 4 if args.model == "hr336" else 8
     if args.model == "learned_v":
         model, x = learned_v_stack(device="cuda", batch=args.batch)
 
@@ -149,7 +158,7 @@ def main():
         inputs = (x,)
     else:
         make = {"flagship": entry, "steve": steve_entry,
-                "train": train_entry}[args.model]
+                "train": train_entry, "hr336": hr_entry}[args.model]
         fn, inputs = make(device="cuda", batch=args.batch, **variant)
     for _ in range(2):
         fn(*inputs)
@@ -180,7 +189,8 @@ def main():
         "profile": {"flagship": "flagship eval forward",
                     "steve": "STEVE reconstruct_autoregressive",
                     "train": "flagship train step",
-                    "learned_v": "12 learned-v trajectory blocks, eval"}[
+                    "learned_v": "12 learned-v trajectory blocks, eval",
+                    "hr336": "HR-336 EPIC-Kitchens eval forward"}[
                         args.model],
         "variant": variant, "fwd_version": args.fwd_version,
         "batch": args.batch,

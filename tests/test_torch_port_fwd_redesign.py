@@ -82,7 +82,7 @@ def test_trajectory_core_plan_at_the_flagship_shapes():
         "stages"] == 2
 
 
-@pytest.mark.parametrize("N,heads,S", [(257, 12, 8 * 257), (196, 17, 8 * 196),
+@pytest.mark.parametrize("N,heads,S", [(513, 12, 8 * 513), (196, 17, 8 * 196),
                                        (196, 12, 8 * 196 + 1)])
 def test_trajectory_core_plan_refuses_what_the_kernel_does_not_take(N, heads,
                                                                     S):
@@ -232,7 +232,7 @@ def _meta(*shape, dtype=torch.bfloat16):
     return torch.empty(*shape, dtype=dtype, device="meta")
 
 
-@pytest.mark.parametrize("N,dtype,error", [(257, torch.bfloat16, ValueError),
+@pytest.mark.parametrize("N,dtype,error", [(513, torch.bfloat16, ValueError),
                                            (196, torch.float32, TypeError)])
 def test_trajectory_wrapper_refuses_before_any_build(monkeypatch, N, dtype,
                                                      error):
