@@ -64,8 +64,15 @@ Phases (one JSON line each; any failure exits non-zero):
      plain version, two calls bit-equal, three device kernels a call;
      ``hr_entry(batch=4)`` at full width and depth (12 kernel-1 launches a
      forward, clips per second, peak memory, verb and noun probabilities
-     against the plain path); kernels 3 to 8 and an HR train step refusing
-     N = 441 before any launch.
+     against the plain path); kernels 3 to 6 and 8 refusing N = 441 and
+     kernel 7 N = 513 before any launch;
+ 11. the HR-336 EPIC-Kitchens train step: ``hr_train_entry(batch=4)`` at
+     full width and depth under EK_loss (12 kernel-1 and 12 kernel-7 calls
+     and 1 patch embed a step asserted, train clips per second, peak
+     memory, finite loss and gradients; at batch 2 the loss, gradients and
+     parameters after a step against the float32 plain path), after kernel
+     7 is held at N = 441, 445, 257 and 512 and on an extreme input at N =
+     441 in phase 2 (its dq kernel's chunked form).
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -562,6 +569,44 @@ def phase_trajectory_backward():
             * 0.1).bfloat16()
     cases.append(check_core_backward(tb, args, dout, scale, heads,
                                      "B=2 N=232")[0])
+    del args, dout
+    torch.cuda.empty_cache()
+    # N > 256: the dq kernel's chunked form, at the HR-336 shapes (N = 441
+    # and 445 at B = 4, timed) and the narrowest and widest chunked N
+    for B, N in HR_KERNEL_CASES:
+        S = F * N
+        args = core_inputs(B, N, gen)
+        dout = (torch.randn(B, S, C, generator=gen, device=DEV)
+                * 0.1).bfloat16()
+        case, xs, q2 = check_core_backward(tb, args, dout, scale, heads,
+                                           f"B={B} N={N}")
+        cases.append(case)
+        if B == HR_BATCH:
+            q, kf, vf, wq2, bq2, wk2, bk2 = args
+
+            def call():
+                tb._launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2,
+                                    scale, heads)
+
+            ins = nbytes(q, kf, vf, wq2, wk2, dout, xs, q2)
+            outs = nbytes(q, kf, vf) + 4 * (2 * C * C + C)
+            bound_ms, bound_by = bound(core_bwd_flops(B, S, F, N, C, heads),
+                                       ins + outs)
+            timing.append({
+                "B": B, "S": S, "N": N, "kernel_ms": time_ms(call),
+                "kernel_ms_back_to_back": time_ms_back_to_back(call),
+                "plain_ms": time_ms(
+                    lambda: tb.trajectory_core_backward_reference(
+                        *args, dout, scale, heads), warmup=1, iters=3),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+        del args, dout, xs, q2
+        torch.cuda.empty_cache()
+    args = extreme_inputs(-1.0, 60.0, gen, N=441)
+    dout = (torch.randn(args[0].shape, generator=gen, device=DEV)
+            * 0.1).bfloat16()
+    cases.append(check_core_backward(tb, args, dout, scale, heads,
+                                     "extreme -60.0 N=441")[0])
+    del args, dout
     per_call = {c["device_launches"] for c in cases}
     if per_call != {BWD_DEVICE_LAUNCHES_PER_CALL}:
         raise AssertionError(f"backward device launches per call {per_call}, "
@@ -580,6 +625,7 @@ def phase_trajectory_backward():
                           "core's backward",
           "timing": timing, "cases": cases})
     errs = [c[n]["max_abs_err"] for c in cases for n in GRAD_NAMES]
+    hr = {t["N"]: t for t in timing if t["B"] == HR_BATCH}
     return {"name": "trajectory_block_bwd", "route": "cuda",
             "source": "focus_tpu_torch/csrc/trajectory_block_bwd.cu",
             "replaces": "focus_tpu/ops/pallas/trajectory_block.py:1198",
@@ -589,7 +635,19 @@ def phase_trajectory_backward():
             "bound_by": timing[0]["bound_by"], "library_ms": None,
             "device_launches_per_call": per_call,
             "shape": "B=8 S=1568 N=196 F=8 C=768 heads=12 "
-                     f"(S=1600: {timing[1]['kernel_ms']:.4f} ms)"}
+                     f"(S=1600: {timing[1]['kernel_ms']:.4f} ms)",
+            "hr336": {
+                "ms": hr[441]["kernel_ms"],
+                "ms_back_to_back": hr[441]["kernel_ms_back_to_back"],
+                "plain_ms": hr[441]["plain_ms"],
+                "bound_ms": hr[441]["bound_ms"],
+                "bound_by": hr[441]["bound_by"],
+                "ms_n445": hr[445]["kernel_ms"],
+                "ms_back_to_back_n445": hr[445]["kernel_ms_back_to_back"],
+                "plain_ms_n445": hr[445]["plain_ms"],
+                "bound_ms_n445": hr[445]["bound_ms"],
+                "shape": "B=4 S=3528 N=441 (and S=3560 N=445) F=8 C=768 "
+                         "heads=12: the dq kernel's chunked form"}}
 
 
 def space_stage_bytes_flops(BH, S, F, N, d):
@@ -1939,10 +1997,9 @@ def check_kernel_1_launches(tb, args, scale, heads, tag):
     return names
 
 
-def hr_refusals(tb, gen, model, video, boxes):
-    """On the card at N = 441: kernels 3 to 8 raise ValueError before any
-    launch, and so does an HR train step (a forward that wants a
-    gradient) before kernel 1 launches."""
+def hr_refusals(tb, gen):
+    """On the card: kernels 3 to 6 and 8 raise ValueError at N = 441
+    before any launch, and the backward (kernel 7) at N = 513."""
     from focus_tpu_torch.ops import trajectory_attention as ta
 
     args = core_inputs(1, 441, gen)
@@ -1950,6 +2007,8 @@ def hr_refusals(tb, gen, model, video, boxes):
     (B, S, C), F = q.shape, kf.shape[1]
     xs = torch.empty(B, S, F, C, dtype=torch.bfloat16, device=DEV)
     BH = B * C // 64
+    wide = core_inputs(1, 513, gen)
+    xs_wide = torch.empty(1, 8 * 513, F, C, dtype=torch.bfloat16, device=DEV)
     calls = {
         "trajectory_block_v3": lambda: tb._launch_v3(*args[:6], 0.125, 12),
         "trajectory_block_v7": lambda: tb._launch_v7(*args[:6], 0.125, 12),
@@ -1957,15 +2016,16 @@ def hr_refusals(tb, gen, model, video, boxes):
                                                           0.125, 12),
         "trajectory_block_v6": lambda: tb._launch_variant(6, *args[:6],
                                                           0.125, 12),
-        "trajectory_block_bwd": lambda: tb._launch_backward(
-            *args[:6], args[0], xs, args[0], 0.125, 12),
+        "trajectory_block_bwd_n513": lambda: tb._launch_backward(
+            *wide[:6], wide[0], xs_wide, wide[0], 0.125, 12),
         "space_stage": lambda: ta._launch(
             q.reshape(BH, S, 64), kf.reshape(BH, F, 441, 64),
             vf.reshape(BH, F, 441, 64), 0.125),
     }
 
     def counts():
-        return (tb.LAUNCHES, variant_counts(tb), ta.LAUNCHES)
+        return (tb.LAUNCHES, tb.BWD_LAUNCHES, variant_counts(tb),
+                ta.LAUNCHES)
 
     before = counts()
     refused = {}
@@ -1974,14 +2034,11 @@ def hr_refusals(tb, gen, model, video, boxes):
             call()
         except ValueError as e:
             refused[name] = str(e).split(";")[0]
-    try:
-        model(video[:1], {"orvit_bboxes": boxes[:1]}, train=True)
-    except ValueError as e:
-        refused["hr_train_step"] = str(e).split(":")[0]
     torch.cuda.synchronize()
-    if set(refused) != set(calls) | {"hr_train_step"} or counts() != before:
-        raise AssertionError(f"N = 441: refused {sorted(refused)}, launch "
-                             f"counts {before} -> {counts()}")
+    if set(refused) != set(calls) or counts() != before:
+        raise AssertionError(f"N = 441 (kernel 7: 513): refused "
+                             f"{sorted(refused)}, launch counts {before} -> "
+                             f"{counts()}")
     return refused
 
 
@@ -1997,8 +2054,8 @@ def phase_hr336(smi):
     the other forward versions), clips per second and peak memory, and the
     verb and noun probabilities against the same model on the plain path
     (SLICE_PROB_ATOL, top-1 agreement SLICE_TOP1_MIN_SHARE, each head);
-    then kernels 3 to 8 and an HR train step refusing N = 441 before any
-    launch. Returns kernel 1's and kernel 2's HR numbers for the kernels
+    then kernels 3 to 6 and 8 refusing N = 441 and kernel 7 N = 513
+    before any launch. Returns kernel 1's and kernel 2's HR numbers for the kernels
     line."""
     from focus_tpu_torch.entry import hr_entry
     from focus_tpu_torch.ops import trajectory_block as tb
@@ -2056,7 +2113,7 @@ def phase_hr336(smi):
 
     fn, (video, boxes) = hr_entry(device=DEV, batch=HR_BATCH, seed=0)
     run, launches, _ = flagship_run(fn, video, boxes, HR_HEADS)
-    refused = hr_refusals(tb, gen, fn.model, video, boxes)
+    refused = hr_refusals(tb, gen)
     clips_per_sec = run.pop("clips_per_sec")
     report = {"phase": "hr336", "ok": run.pop("ok"),
               "model": "ORViT-MF-HR EK100 16x336 (configs/ORViT/"
@@ -2065,7 +2122,7 @@ def phase_hr336(smi):
                        "heads, bf16, exact-erf GELU; N = 441 keys a frame "
                        "(445 in the ORViT blocks)",
               "hr336_ek_b4_clips_per_sec": clips_per_sec, **run,
-              "refused_at_n441": refused,
+              "refused_at_n441_kernel_7_at_n513": refused,
               "kernel_1": {"tolerance": f"max|err| <= {KERNEL_TOL_REL} x "
                                         "max|ref| for out, xs and q2; two "
                                         "calls bit-equal; "
@@ -2344,17 +2401,19 @@ def summary(rows):
             "worst_grads": sorted(scored, key=lambda r: -r["rel_l2"])[:4]}
 
 
-def train_vs_plain_path():
+def train_vs_plain_path(make=None):
     """One train step at batch 2 through the kernels (bf16) and through the
     plain path in float32, from the same weights and batch: the loss, every
     parameter's gradient and the parameters after the AdamW update. The
     plain path in bf16 is held against the float32 one beside it, for
-    information: it rounds where the kernels do not."""
+    information: it rounds where the kernels do not. ``make`` is the entry
+    point (default ``train_entry``)."""
     from focus_tpu_torch.entry import train_entry
 
+    make = make or train_entry
     runs = {}
     for name in ("kernel", "plain_f32", "plain_bf16"):
-        fn, (video, labels, boxes) = train_entry(device=DEV, batch=2, seed=0)
+        fn, (video, labels, boxes) = make(device=DEV, batch=2, seed=0)
         if name != "kernel":
             fn.model.load_state_dict(runs["kernel"]["init"])
             fn.model.use_kernels = False
@@ -2395,76 +2454,97 @@ def train_vs_plain_path():
     return report, problems
 
 
-def train_run(per_call, version):
-    """The flagship train step through ``train_entry`` at batch 8 under
-    FWD_VERSION ``version``: TRAIN_WARMUP warm-up and TRAIN_ITERS timed
-    steps with the launch counts of each step asserted (12 of the version's
-    forward kernel and none of the other forward kernels, 12 backward
-    wrapper calls of ``per_call`` device kernels each, one patch embed),
-    train clips/s, peak memory, finite loss and gradients; then the kernel
-    path against the float32 plain path at batch 2. Returns (report,
-    launches, problems)."""
-    from focus_tpu_torch.entry import train_entry
+def train_counts():
+    """Launch counts of the train phases: every forward kernel's wrapper
+    calls, the backward's wrapper calls and device kernels, the patch
+    embed's calls."""
     from focus_tpu_torch.ops import patch_embed as pe
     from focus_tpu_torch.ops import trajectory_block as tb
 
-    def counts():
-        return {"trajectory_block": tb.LAUNCHES,
-                "trajectory_block_v3": tb.V3_LAUNCHES,
-                "trajectory_block_v7": tb.V7_LAUNCHES,
-                "trajectory_block_bwd": tb.BWD_LAUNCHES,
-                "trajectory_block_bwd_device": tb.BWD_DEVICE_LAUNCHES,
-                "patch_embed": pe.LAUNCHES}
+    return {"trajectory_block": tb.LAUNCHES,
+            "trajectory_block_v3": tb.V3_LAUNCHES,
+            "trajectory_block_v5": tb.V5_LAUNCHES,
+            "trajectory_block_v6": tb.V6_LAUNCHES,
+            "trajectory_block_v7": tb.V7_LAUNCHES,
+            "trajectory_block_bwd": tb.BWD_LAUNCHES,
+            "trajectory_block_bwd_device": tb.BWD_DEVICE_LAUNCHES,
+            "patch_embed": pe.LAUNCHES}
+
+
+def timed_train_steps(make, batch, core_kernel, per_call, tag):
+    """``make``'s train step at ``batch``: TRAIN_WARMUP warm-up and
+    TRAIN_ITERS timed steps with the launch counts reset just before them
+    and each step's asserted (12 of ``core_kernel``'s wrapper and none of
+    the other forward kernels, 12 backward wrapper calls of ``per_call``
+    device kernels each, one patch embed), finite losses and gradients.
+    Returns (report, launches, the stats' keys)."""
+    from focus_tpu_torch.ops import patch_embed as pe
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    fn, (video, labels, boxes) = make(device=DEV, batch=batch, seed=0)
+    first = [fn(video, labels, boxes)["loss"] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb.LAUNCHES = tb.V3_LAUNCHES = tb.V5_LAUNCHES = tb.V6_LAUNCHES = 0
+    tb.V7_LAUNCHES = tb.BWD_LAUNCHES = tb.BWD_DEVICE_LAUNCHES = 0
+    pe.LAUNCHES = 0
+    depth = len(fn.model.blocks)  # 12: one core per block, both ways
+    expect = {k: 0 for k in train_counts()}
+    expect.update({core_kernel: depth, "trajectory_block_bwd": depth,
+                   "trajectory_block_bwd_device": depth * per_call,
+                   "patch_embed": 1})
+    t0 = time.perf_counter()
+    losses, keys = [], set()
+    for _ in range(TRAIN_ITERS):
+        before = train_counts()
+        stats = fn(video, labels, boxes)
+        losses.append(stats["loss"])
+        keys |= set(stats)
+        step = {k: v - before[k] for k, v in train_counts().items()}
+        if step != expect:
+            raise AssertionError(f"launches in one train step ({tag}): "
+                                 f"{step}, expected {expect}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = train_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in first + losses]
+    grads = grads_of(fn.model)
+    nonfinite = [n for n, g in grads.items()
+                 if not bool(torch.isfinite(g).all())]
+    if not all(math.isfinite(x) for x in losses) or nonfinite:
+        raise AssertionError(f"non-finite loss {losses} or gradients "
+                             f"{nonfinite[:5]} ({tag})")
+    del fn, grads, video, labels, boxes
+    torch.cuda.empty_cache()
+    report = {"batch": batch, "warmup_steps": TRAIN_WARMUP,
+              "timed_steps": TRAIN_ITERS,
+              "clips_per_sec": batch * TRAIN_ITERS / seconds,
+              "ms_per_step": 1e3 * seconds / TRAIN_ITERS,
+              "peak_memory_gb": peak_gb, "losses": losses,
+              "launches": launches, "launches_per_step": expect}
+    return report, launches, keys
+
+
+def train_run(per_call, version):
+    """The flagship train step through ``train_entry`` at batch 8 under
+    FWD_VERSION ``version`` (``timed_train_steps``: 12 of the version's
+    forward kernel a step), train clips/s, peak memory; then the kernel
+    path against the float32 plain path at batch 2. Returns (report,
+    launches, problems)."""
+    from focus_tpu_torch.entry import train_entry
+    from focus_tpu_torch.ops import trajectory_block as tb
 
     def run():
-        B = 8
-        fn, (video, labels, boxes) = train_entry(device=DEV, batch=B, seed=0)
-        first = [fn(video, labels, boxes)["loss"]
-                 for _ in range(TRAIN_WARMUP)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tb.LAUNCHES = tb.V3_LAUNCHES = tb.V7_LAUNCHES = tb.BWD_LAUNCHES = 0
-        tb.BWD_DEVICE_LAUNCHES = pe.LAUNCHES = 0
-        depth = len(fn.model.blocks)  # 12: one core per block, both ways
-        expect = {k: 0 for k in counts()}
-        expect.update({CORE_KERNELS[version]: depth,
-                       "trajectory_block_bwd": depth,
-                       "trajectory_block_bwd_device": depth * per_call,
-                       "patch_embed": 1})
-        t0 = time.perf_counter()
-        losses = []
-        for _ in range(TRAIN_ITERS):
-            before = counts()
-            losses.append(fn(video, labels, boxes)["loss"])
-            step = {k: v - before[k] for k, v in counts().items()}
-            if step != expect:
-                raise AssertionError(f"launches in one train step under "
-                                     f"FWD_VERSION={version}: {step}, "
-                                     f"expected {expect}")
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        losses = [x.item() for x in first + losses]
-        grads = grads_of(fn.model)
-        nonfinite = [n for n, g in grads.items()
-                     if not bool(torch.isfinite(g).all())]
-        if not all(math.isfinite(x) for x in losses) or nonfinite:
-            raise AssertionError(f"non-finite loss {losses} or gradients "
-                                 f"{nonfinite[:5]} under "
-                                 f"FWD_VERSION={version}")
-        del fn, grads
-        torch.cuda.empty_cache()
+        steps, launches, _ = timed_train_steps(
+            train_entry, 8, CORE_KERNELS[version], per_call,
+            f"FWD_VERSION={version}")
         vs_plain, problems = train_vs_plain_path()
         report = {
-            "fwd_version": version, "batch": B,
-            "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_ITERS,
+            "fwd_version": version,
             "orvit_mf_ssv2_16x224_train_clips_per_sec_per_chip":
-                B * TRAIN_ITERS / seconds,
-            "ms_per_step": 1e3 * seconds / TRAIN_ITERS,
-            "peak_memory_gb": peak_gb, "losses": losses,
-            "launches": launches, "launches_per_step": expect,
-            "vs_plain_path": vs_plain, "problems": problems}
+                steps.pop("clips_per_sec"),
+            **steps, "vs_plain_path": vs_plain, "problems": problems}
         return report, launches, problems
 
     return run_version(tb, version, run)
@@ -2491,6 +2571,43 @@ def phase_train(smi, per_call):
           "fwd_version_7": reports[7], "gpu": smi})
     if problems:
         raise AssertionError(f"train slice: {problems[:5]}")
+    return launches
+
+
+def phase_hr336_train(smi, per_call):
+    """The HR-336 EPIC-Kitchens train step (``hr_train_entry``, batch 4,
+    EK_loss, FWD_VERSION 4) through ``timed_train_steps`` (12 kernel-1
+    calls a step, 9 at N = 441 and 3 at 445, 12 backward calls of
+    ``per_call`` device kernels, one patch embed), train clips/s, ms a
+    step, peak memory, the loss the only stat; then the kernel path against
+    the float32 plain path at batch 2 under ``train_vs_plain_path``'s
+    rules. Returns the launches."""
+    from focus_tpu_torch.entry import hr_train_entry
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    if tb.FWD_VERSION != 4:
+        raise AssertionError(f"FWD_VERSION={tb.FWD_VERSION}, expected 4")
+    steps, launches, keys = timed_train_steps(
+        hr_train_entry, HR_BATCH, "trajectory_block", per_call, "HR-336")
+    if keys != {"loss"}:
+        raise AssertionError(f"HR-336 train stats {sorted(keys)}, expected "
+                             "the loss alone")
+    vs_plain, problems = train_vs_plain_path(hr_train_entry)
+    emit({"phase": "slice", "name": "hr336_train", "ok": not problems,
+          "model": "ORViT-MF-HR EK100 16x336 (configs/ORViT/"
+                   "EK_ORVIT_MF_HR.yaml), D=768, 12 layers, 12 heads, ORViT "
+                   "at [1,6,10], O=4, motion stream, verb [97] and noun "
+                   "[300] heads, bf16 (float32 master weights); AdamW, base "
+                   "LR 1e-5, ORViT LR 1e-4, weight decay 5e-2, "
+                   "steps_with_relative_lrs, drop path 0.2, 100 steps per "
+                   "epoch, EK_loss (verb + noun cross-entropy); init-scale "
+                   "weights, seed 0; N = 441 keys a frame (445 in the ORViT "
+                   "blocks)",
+          "hr336_ek_b4_train_clips_per_sec": steps.pop("clips_per_sec"),
+          **steps, "vs_plain_path": vs_plain, "problems": problems,
+          "gpu": smi})
+    if problems:
+        raise AssertionError(f"HR-336 train slice: {problems[:5]}")
     return launches
 
 
@@ -2528,7 +2645,9 @@ def main():
         f"over {SLICE_ITERS} flagship forwards; launches_hr336 over "
         f"{SLICE_ITERS} HR-336 forwards at batch {HR_BATCH} (kernel 1 at N = "
         "441 and 445, hr336: its times there at B = 4); launches_train over "
-        f"{TRAIN_ITERS} flagship train steps; launches_serving over "
+        f"{TRAIN_ITERS} flagship train steps; launches_hr336_train over "
+        f"{TRAIN_ITERS} HR-336 train steps at batch {HR_BATCH}; "
+        "launches_serving over "
         f"{SLICE_ITERS} forwards of each of the {len(VARIANTS)} models of the "
         "serving matrix")
     versions = phase_flagship_fwd_versions(smi)
@@ -2562,6 +2681,15 @@ def main():
         "FWD_VERSION=3 and 7")
     bwd["launches_fwd_version_3"] = trains[3]["trajectory_block_bwd"]
     bwd["launches_fwd_version_7"] = trains[7]["trajectory_block_bwd"]
+    hr_train = phase_hr336_train(smi, bwd["device_launches_per_call"])
+    bwd["launches_hr336_train"] = hr_train["trajectory_block_bwd"]
+    bwd["device_launches_hr336_train"] = hr_train["trajectory_block_bwd_device"]
+    traj["launches_hr336_train"] = hr_train["trajectory_block"]
+    patch["launches_hr336_train"] = hr_train["patch_embed"]
+    bwd["launches_note"] += (
+        f"; launches_hr336_train over {TRAIN_ITERS} HR-336 train steps at "
+        f"batch {HR_BATCH} (N = 441 and 445, the dq kernel's chunked form; "
+        "hr336: its times there)")
     steve_model = steve_entry(device=DEV, batch=8)[0].model
     ar = phase_ar_decode(steve_model)
     arq = phase_ar_decode_w8a8(steve_model)

@@ -19,6 +19,13 @@ the same inputs:
     beside it the largest difference of the two builds' outputs over the
     other's largest value. No comparison at N > 256: kernel 1 takes such N
     since its chunked stage 1, which an older build refuses;
+  - kernel 7 (``traj_core_bwd_bf16``, the backward) bit for bit on all six
+    gradients at B = 8, N = 196 and 200, B = 2, N = 232 (its dq kernel's
+    NP = 256 form) and an extreme input, from the xs and q2 of this tree's
+    kernel 1 on the same inputs; and at B = 8, N = 196 the other build,
+    this one, this one, the other in turns (the median of 20 per-call
+    times). N > 256 has no parent to compare against: the backward takes
+    such N since its chunked dq kernel, which an older build refuses;
   - kernel 1 (``traj_core_bf16``) at B = 8, N = 196 and 200: the other
     build, this one, this one, the other, each the median of 20 per-call
     CUDA-event times, and each build's output against the plain version;
@@ -63,6 +70,7 @@ SYMBOLS = {  # kernel -> (symbol, n_ptr, n_int, n_float)
     "v5": ("traj_core_v5_bf16", 11, 6, 1),
     "v6": ("traj_core_v6_bf16", 11, 6, 1),
     "patch_embed": ("patch_embed_bf16", 4, 10, 0),
+    "bwd": ("traj_core_bwd_bf16", 25, 6, 1),
 }
 
 
@@ -281,6 +289,40 @@ def main():
             del mine, theirs
     del inputs
     torch.cuda.empty_cache()
+
+    # kernel 7, bit for bit on the six gradients, then in turns at N = 196
+    def backward(a, dout, xs, q2, other=False):
+        if other:
+            with use(tb, "_bwd_kernel_fn", lambda: parent["bwd"]):
+                return tb._launch_backward(*a, dout, xs, q2, scale, heads)
+        return tb._launch_backward(*a, dout, xs, q2, scale, heads)
+
+    for tag, a in (("B=8 N=196", core_inputs(8, 196, gen)),
+                   ("B=8 N=200", core_inputs(8, 200, gen)),
+                   ("B=2 N=232", core_inputs(2, 232, gen)),
+                   ("extreme -60", extreme_inputs(gen))):
+        dout = (torch.randn(a[0].shape, generator=gen, device="cuda")
+                * 0.1).bfloat16()
+        _, xs, q2 = tb._launch(*a, scale, heads)
+        mine = backward(a, dout, xs, q2)
+        theirs = backward(a, dout, xs, q2, other=True)
+        torch.cuda.synchronize()
+        names = ("dq", "dkf", "dvf", "dwq2", "dbq2", "dwk2")
+        same = {n: torch.equal(x, y) for n, x, y in zip(names, mine, theirs)}
+        failures += [] if all(same.values()) else [f"bwd {tag}"]
+        row = {"compare": "trajectory_block_bwd", "case": tag,
+               "bitwise_equal": same,
+               "max_diff_rel_to_other": {
+                   n: max_rel(x, y) for n, x, y in zip(names, mine, theirs)}}
+        if tag == "B=8 N=196":
+            t = time_turns([lambda: backward(a, dout, xs, q2, other=True),
+                            lambda: backward(a, dout, xs, q2),
+                            lambda: backward(a, dout, xs, q2),
+                            lambda: backward(a, dout, xs, q2, other=True)])
+            row.update(other_ms=[t[0], t[3]], this_ms=[t[1], t[2]])
+        emit(row)
+        del a, dout, xs, q2, mine, theirs
+        torch.cuda.empty_cache()
 
     # kernel 1: the other build and this one in turns
     for N in (196, 200):

@@ -38,7 +38,11 @@
 // softmax P in float32 registers, dP = dO V_f^T beside it (208 registers at
 // NP = 208; dq's accumulators wait in shared memory meanwhile), r = sum_n
 // P dP, dS = P (dP - r) and dq += dS K_f. It writes the row statistics
-// (log2-sum-exp and r). The dk/dv kernel takes 128 keys of all frames
+// (log2-sum-exp and r). At 256 < N <= 512 (the 336 crop's 441 and 445) a
+// frame's keys go in two chunks of 224 or 256 (stage1_dq_chunked_kernel):
+// a first sweep over the chunks carries the max, the softmax's sum and r
+// online, a second forms P, dS and dq; one launch as at N <= 256, whose
+// forms are unchanged. The dk/dv kernel takes 128 keys of all frames
 // together (F N = 1568 rows at N = 196, not a frame padded to 256 rows),
 // streams the queries in chunks of 64 with the statistics of every frame,
 // and lets each key row read its own frame's: S^T = K Q^T, dP^T = V dO_f^T
@@ -1011,10 +1015,16 @@ constexpr int S1_ALIGN = 1024;
 constexpr int S1_BAR_BYTES = 1024;
 constexpr int MAX_STAGES = 4;
 
-// keys a frame is padded to: the instantiated wgmma widths
+// keys a frame is padded to: the instantiated wgmma widths, and past 256 two
+// chunks of one (stage1_dq_chunked_kernel; kernel 1's chunk_keys)
 __host__ __device__ constexpr int padded_keys(int n) {
-  return n <= 64 ? 64 : (n <= 128 ? 128 : (n <= 208 ? 208 : 256));
+  return n <= 64 ? 64
+                 : (n <= 128 ? 128
+                             : (n <= 208 ? 208
+                                         : (n <= 256 ? 256
+                                                     : (n <= 448 ? 448 : 512))));
 }
+constexpr int MAX_KEYS = 512;
 
 // dq: a ring slot holds K_f and V_f [NP rows] and dO_f [128 rows]. Up to
 // NP = 208 a consumer thread holds P and dP of a frame at once (208
@@ -1044,6 +1054,42 @@ __device__ __forceinline__ void setmaxnreg_producer() {
 }
 __device__ __forceinline__ void setmaxnreg_consumer() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(S1_CONSUMER_REGS));
+}
+
+// The dq kernels' stores, by a consumer thread for its rows row0 and row1 =
+// row0 + 8 (quad lane t4): frame f's statistics {lse2, r} (stp points at
+// the frame's lse2 row, r lies a plane further) by the quad's first
+// thread, and dq = scale * acc rounded to bf16.
+__device__ __forceinline__ void dq_store_stats(float* stp, size_t plane,
+                                               int S, int row0, int row1,
+                                               int t4, float lse0, float lse1,
+                                               float r0, float r1) {
+  if (t4 != 0) return;
+  if (row0 < S) {
+    stp[row0] = lse0;
+    stp[plane + row0] = r0;
+  }
+  if (row1 < S) {
+    stp[row1] = lse1;
+    stp[plane + row1] = r1;
+  }
+}
+
+__device__ __forceinline__ void dq_store(bf16* dq, int b, int S, int C,
+                                         int head, int row0, int row1,
+                                         int t4, float scale,
+                                         const float (&acc)[32]) {
+  bf16* out0 = dq + ((size_t)b * S + row0) * C + head * HD + 2 * t4;
+  bf16* out1 = dq + ((size_t)b * S + row1) * C + head * HD + 2 * t4;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(out0 + 8 * j) =
+          __floats2bfloat162_rn(scale * acc[4 * j], scale * acc[4 * j + 1]);
+    if (row1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(out1 + 8 * j) =
+          __floats2bfloat162_rn(scale * acc[4 * j + 2], scale * acc[4 * j + 3]);
+  }
 }
 
 // The stage-1 dq kernel: one block per 128 queries of a (batch row, head).
@@ -1121,29 +1167,11 @@ __global__ void __launch_bounds__(S1_THREADS, 1) stage1_dq_kernel(
   const float sl2 = scale * 1.4426950408889634f;
   const size_t plane = (size_t)gridDim.z * heads * F * S4;
   auto write_stats = [&](int f, float lse0, float lse1, float r0, float r1) {
-    if (t4 != 0) return;
-    float* stp = stats + (((size_t)b * heads + head) * F + f) * S4;
-    if (row0 < S) {
-      stp[row0] = lse0;
-      stp[plane + row0] = r0;
-    }
-    if (row1 < S) {
-      stp[row1] = lse1;
-      stp[plane + row1] = r1;
-    }
+    dq_store_stats(stats + (((size_t)b * heads + head) * F + f) * S4, plane,
+                   S, row0, row1, t4, lse0, lse1, r0, r1);
   };
   auto write_dq = [&](const float (&acc)[32]) {
-    bf16* out0 = dq + ((size_t)b * S + row0) * C + head * HD + 2 * t4;
-    bf16* out1 = dq + ((size_t)b * S + row1) * C + head * HD + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      if (row0 < S)
-        *reinterpret_cast<__nv_bfloat162*>(out0 + 8 * j) =
-            __floats2bfloat162_rn(scale * acc[4 * j], scale * acc[4 * j + 1]);
-      if (row1 < S)
-        *reinterpret_cast<__nv_bfloat162*>(out1 + 8 * j) =
-            __floats2bfloat162_rn(scale * acc[4 * j + 2], scale * acc[4 * j + 3]);
-    }
+    dq_store(dq, b, S, C, head, row0, row1, t4, scale, acc);
   };
   mbar_wait(q_full, 0);
   const uint64_t qdesc = wgmma_desc_sw128(qbuf + wg * WG_TILE, 16, 1024);
@@ -1386,6 +1414,295 @@ __global__ void __launch_bounds__(S1_THREADS, 1) stage1_dq_kernel(
     mbar_arrive(&empty[st]);  // this frame's slot is read for the last time
   }
   if constexpr (!dq_one_pass(NP)) write_dq(dqacc);
+}
+
+// dq at 256 < N <= 512 keys a frame (the 336 crop's 441 and 445). A frame
+// is too wide for one consumer's registers (NP = 448 alone is 224 floats of
+// logits a thread) and for a ring slot (K_f and V_f 115 to 128 KB), so the
+// keys go in two chunks of CH (kernel 1's chunk_keys: 224 up to N = 448,
+// else 256). A ring slot holds K_c and V_c [CH rows] and dO_f [128 rows],
+// and the producer streams each frame's two chunks twice, in two sweeps:
+//   sweep 1: S_c = Q K_c^T and dP_c = dO V_c^T (64 keys at a time), the row
+//     max m, l = sum exp(s - m) and r' = sum exp(s - m) dP carried online
+//     (both scaled by exp(m_old - m_new) when chunk 1 raises the max); then
+//     r = r' / l and lse2 = log2 of the denominator with the max folded in;
+//   sweep 2: S_c and dP_c again, P_c = exp2(s scale log2(e) - lse2) (as the
+//     dk/dv kernel forms it), dS_c = P_c (dP_c - r), and dq += dS_c K_c with
+//     dS as hi + lo A fragments.
+// r stays a dP sum: r = dxs . xs from stage 2's bf16 operands misses dq's
+// gate. Sweep 2 re-reads K and V from L2 rather than keeping a frame's two
+// chunks resident, which would leave room for one slot and no overlap of
+// copies and products.
+__host__ __device__ constexpr int dq_chunk_keys(int np) { return np / 2; }
+__host__ __device__ constexpr int dqc_stage_bytes(int ch) {
+  return 2 * ch * ROW_BYTES + S1_ROWS * ROW_BYTES;
+}
+constexpr int DQC_FIXED_BYTES = S1_ALIGN + S1_ROWS * ROW_BYTES + S1_BAR_BYTES;
+__host__ __device__ constexpr int dqc_stages(int ch) {
+  return (SMEM_LIMIT - DQC_FIXED_BYTES) / dqc_stage_bytes(ch) < 3
+             ? (SMEM_LIMIT - DQC_FIXED_BYTES) / dqc_stage_bytes(ch)
+             : 3;
+}
+__host__ __device__ constexpr int dqc_smem_bytes(int ch) {
+  return DQC_FIXED_BYTES + dqc_stages(ch) * dqc_stage_bytes(ch);
+}
+static_assert(dqc_stages(224) >= 2 && dqc_stages(256) >= 2,
+              "two chunk slots at N = 448 and 512");
+
+// dp[64 x W] = dO_f (the warpgroup's 64 rows) . V[W keys from v]^T
+template <int W>
+__device__ __forceinline__ void dq_dp(float (&dp)[W / 2], uint64_t odesc,
+                                      const unsigned char* v) {
+  const uint64_t vd = wgmma_desc_sw128(v, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k) wgmma_ss<W>(dp, odesc + 2 * k, vd + 2 * k, k);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(dp);
+}
+
+// dq += dS K over W keys of the chunk from 8-key group j0 on: dS = P (dP -
+// r) from the chunk's P (sacc) and dp of those keys, as hi + lo A fragments
+// (W / 16 k-steps); kd addresses K's first key of the group (MN-major).
+// j0 is a constant once the caller's loop is unrolled.
+template <int W, int NS>
+__device__ __forceinline__ void dq_accumulate(float (&dqacc)[32],
+                                              const float (&sacc)[NS],
+                                              const float (&dp)[W / 2],
+                                              int j0, float r0, float r1,
+                                              uint64_t kd) {
+  constexpr int KS = W / 16;
+  uint32_t hi[KS][4], lo[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int jl = 2 * kk + half, js = j0 + jl;
+      split_bf16x2(sacc[4 * js] * (dp[4 * jl] - r0),
+                   sacc[4 * js + 1] * (dp[4 * jl + 1] - r0), hi[kk][2 * half],
+                   lo[kk][2 * half]);
+      split_bf16x2(sacc[4 * js + 2] * (dp[4 * jl + 2] - r1),
+                   sacc[4 * js + 3] * (dp[4 * jl + 3] - r1),
+                   hi[kk][2 * half + 1], lo[kk][2 * half + 1]);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_rs_n64_tb(dqacc, hi[kk], kd + (uint64_t)(kk * 128), 1);
+    wgmma_rs_n64_tb(dqacc, lo[kk], kd + (uint64_t)(kk * 128), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(dqacc);
+}
+
+// S_c = Q K_c^T for the warpgroup's 64 queries and the CH keys of the slot,
+// the keys at or past N (valid keys in this chunk) at -inf
+template <int CH>
+__device__ __forceinline__ void dq_chunk_logits(float (&sacc)[CH / 2],
+                                                uint64_t qdesc,
+                                                const unsigned char* slot,
+                                                int valid, int t4) {
+  const uint64_t kdesc = wgmma_desc_sw128(slot, 16, 1024);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k)
+    wgmma_ss<CH>(sacc, qdesc + 2 * k, kdesc + 2 * k, k);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(sacc);
+  if (valid < CH) {
+#pragma unroll
+    for (int j = 0; j < CH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + 2 * t4 + (e & 1) >= valid) sacc[4 * j + e] = -INFINITY;
+  }
+}
+
+// The chunked dq kernel: one block per 128 queries of a (batch row, head),
+// as stage1_dq_kernel; ring slot i = 4 f + 2 sweep + chunk. Writes dq and
+// the row statistics in stage1_dq_kernel's layout.
+template <int CH>
+__global__ void __launch_bounds__(S1_THREADS, 1) stage1_dq_chunked_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap o_map, bf16* __restrict__ dq,
+    float* __restrict__ stats, int S, int S4, int F, int N, int C, int heads,
+    float scale) {
+  constexpr int KV = CH * ROW_BYTES;
+  constexpr int STAGE = dqc_stage_bytes(CH);
+  constexpr int STAGES = dqc_stages(CH);
+  constexpr int NC = CH / 64;      // whole 64-key groups of a chunk
+  constexpr int TAIL = CH % 64;    // 0, or 32 at CH = 224: two 16-key steps
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((S1_ALIGN - (cvta_smem(smem_raw) & (S1_ALIGN - 1))) &
+                  (S1_ALIGN - 1));
+  unsigned char* ring = smem;
+  unsigned char* qbuf = ring + STAGES * STAGE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qbuf + S1_ROWS * ROW_BYTES);
+  uint64_t* full = bars;
+  uint64_t* empty = bars + MAX_STAGES;
+  uint64_t* q_full = bars + 2 * MAX_STAGES;
+
+  const int s0 = blockIdx.x * S1_ROWS, head = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * S1_WG);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 128 * S1_WG) {  // the producer warpgroup: one thread starts the copies
+    setmaxnreg_producer();
+    if (tid == 128 * S1_WG) {
+      mbar_arrive_expect_tx(q_full, S1_ROWS * ROW_BYTES);
+      tma_load_3d(qbuf, &q_map, q_full, head * HD, s0, b);
+      for (int i = 0; i < 4 * F; ++i) {
+        const int f = i >> 2, c = i & 1;
+        const int st = i % STAGES;
+        const uint32_t ph = (i / STAGES) & 1;
+        mbar_wait(&empty[st], ph ^ 1);
+        mbar_arrive_expect_tx(&full[st], STAGE);
+        unsigned char* slot = ring + st * STAGE;
+        tma_load_3d(slot, &k_map, &full[st], head * HD, c * CH, b * F + f);
+        tma_load_3d(slot + KV, &v_map, &full[st], head * HD, c * CH, b * F + f);
+        tma_load_4d(slot + 2 * KV, &o_map, &full[st], head * HD, f, s0, b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_consumer();
+  const int wg = tid >> 7, warp = (tid & 127) >> 5;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int row0 = s0 + wg * 64 + 16 * warp + g, row1 = row0 + 8;
+  const float sl2 = scale * 1.4426950408889634f;
+  const size_t plane = (size_t)gridDim.z * heads * F * S4;
+  mbar_wait(q_full, 0);
+  const uint64_t qdesc = wgmma_desc_sw128(qbuf + wg * WG_TILE, 16, 1024);
+  float dqacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dqacc[i] = 0.0f;
+  float sacc[CH / 2];
+
+  int i = 0;  // ring slots consumed
+  for (int f = 0; f < F; ++f) {
+    const uint64_t odesc_off = 2 * KV + wg * WG_TILE;
+    // sweep 1: the online max, l and r' (per-thread partial sums)
+    float m0 = -INFINITY, m1 = -INFINITY;
+    float l0 = 0.0f, l1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
+#pragma unroll 1
+    for (int c = 0; c < 2; ++c, ++i) {
+      const int st = i % STAGES;
+      mbar_wait(&full[st], (i / STAGES) & 1);
+      unsigned char* slot = ring + st * STAGE;
+      const uint64_t odesc = wgmma_desc_sw128(slot + odesc_off, 16, 1024);
+      dq_chunk_logits<CH>(sacc, qdesc, slot, N - c * CH, t4);
+      float c0 = -INFINITY, c1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < CH / 8; ++j) {
+        c0 = fmaxf(c0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        c1 = fmaxf(c1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        c0 = fmaxf(c0, __shfl_xor_sync(0xffffffffu, c0, o));
+        c1 = fmaxf(c1, __shfl_xor_sync(0xffffffffu, c1, o));
+      }
+      const float n0 = fmaxf(m0, c0), n1 = fmaxf(m1, c1);
+      const float mb0 = n0 * sl2, mb1 = n1 * sl2;
+      const float a0 = fast_exp2(m0 * sl2 - mb0), a1 = fast_exp2(m1 * sl2 - mb1);
+      m0 = n0;
+      m1 = n1;
+      l0 *= a0;
+      q0 *= a0;
+      l1 *= a1;
+      q1 *= a1;
+#pragma unroll
+      for (int j = 0; j < CH / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = fast_exp2(fmaf(sacc[4 * j + e], sl2, e < 2 ? -mb0 : -mb1));
+          sacc[4 * j + e] = p;
+          if (e < 2) l0 += p;
+          else l1 += p;
+        }
+      unsigned char* vbase = slot + KV;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        float dp[32];
+        dq_dp<64>(dp, odesc, vbase + cc * WG_TILE);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int js = 8 * cc + j;
+          q0 += sacc[4 * js] * dp[4 * j] + sacc[4 * js + 1] * dp[4 * j + 1];
+          q1 += sacc[4 * js + 2] * dp[4 * j + 2] + sacc[4 * js + 3] * dp[4 * j + 3];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < TAIL / 16; ++u) {
+        float dp[8];
+        dq_dp<16>(dp, odesc, vbase + NC * WG_TILE + u * 16 * ROW_BYTES);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int js = 8 * NC + 2 * u + j;
+          q0 += sacc[4 * js] * dp[4 * j] + sacc[4 * js + 1] * dp[4 * j + 1];
+          q1 += sacc[4 * js + 2] * dp[4 * j + 2] + sacc[4 * js + 3] * dp[4 * j + 3];
+        }
+      }
+      mbar_arrive(&empty[st]);
+    }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float r0 = quad_sum(q0) / l0, r1 = quad_sum(q1) / l1;
+    const float lse0 = m0 * sl2 + __log2f(l0), lse1 = m1 * sl2 + __log2f(l1);
+    dq_store_stats(stats + (((size_t)b * heads + head) * F + f) * S4, plane,
+                   S, row0, row1, t4, lse0, lse1, r0, r1);
+
+    // sweep 2: P, dS = P (dP - r) and dq += dS K
+#pragma unroll 1
+    for (int c = 0; c < 2; ++c, ++i) {
+      const int st = i % STAGES;
+      mbar_wait(&full[st], (i / STAGES) & 1);
+      unsigned char* slot = ring + st * STAGE;
+      const uint64_t odesc = wgmma_desc_sw128(slot + odesc_off, 16, 1024);
+      dq_chunk_logits<CH>(sacc, qdesc, slot, N - c * CH, t4);
+#pragma unroll
+      for (int j = 0; j < CH / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sacc[4 * j + e] =
+              fast_exp2(fmaf(sacc[4 * j + e], sl2, e < 2 ? -lse0 : -lse1));
+      unsigned char* vbase = slot + KV;
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) {
+        float dp[32];
+        dq_dp<64>(dp, odesc, vbase + cc * WG_TILE);
+        dq_accumulate<64>(dqacc, sacc, dp, 8 * cc, r0, r1,
+                          wgmma_desc_sw128(slot + cc * WG_TILE, 16, 1024));
+      }
+#pragma unroll
+      for (int u = 0; u < TAIL / 16; ++u) {
+        float dp[8];
+        dq_dp<16>(dp, odesc, vbase + NC * WG_TILE + u * 16 * ROW_BYTES);
+        dq_accumulate<16>(dqacc, sacc, dp, 8 * NC + 2 * u, r0, r1,
+                          wgmma_desc_sw128(slot + NC * WG_TILE, 16, 1024) +
+                              (uint64_t)(u * 128));
+      }
+      mbar_arrive(&empty[st]);  // this chunk's slot is read for the last time
+    }
+  }
+
+  dq_store(dq, b, S, C, head, row0, row1, t4, scale, dqacc);
 }
 
 // dk/dv: a ring slot holds a chunk of 64 queries: Q, dO of each frame the
@@ -1631,10 +1948,14 @@ cudaError_t launch_stage1_dq(const bf16* q, const bf16* kf, const bf16* vf,
     const cudaError_t e = make_bf16_map(&qm, q, 3, dims, strides, box);
     if (e != cudaSuccess) return e;
   }
-  {  // kf, vf [B F, N, C]: a frame's NP keys of one head (past N: zeros)
+  // past 256 keys the chunked kernel, which copies a chunk at a time
+  constexpr bool chunked = NP > 256;
+  constexpr int CH = chunked ? dq_chunk_keys(NP) : NP;
+  {  // kf, vf [B F, N, C]: a frame's NP keys (chunked: CH keys) of one head
+     // (past N: zeros)
     const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)B * F};
     const cuuint64_t strides[2] = {row, row * N};
-    const cuuint32_t box[3] = {HD, NP, 1};
+    const cuuint32_t box[3] = {HD, CH, 1};
     cudaError_t e = make_bf16_map(&km, kf, 3, dims, strides, box);
     if (e != cudaSuccess) return e;
     e = make_bf16_map(&vm, vf, 3, dims, strides, box);
@@ -1648,12 +1969,22 @@ cudaError_t launch_stage1_dq(const bf16* q, const bf16* kf, const bf16* vf,
     const cudaError_t e = make_bf16_map(&om, dxs, 4, dims, strides, box);
     if (e != cudaSuccess) return e;
   }
-  constexpr int smem = dq_smem_bytes(NP);
-  static const cudaError_t attr = set_smem((const void*)stage1_dq_kernel<NP>, smem);
-  if (attr != cudaSuccess) return attr;
   const dim3 grid((S + S1_ROWS - 1) / S1_ROWS, heads, B);
-  stage1_dq_kernel<NP><<<grid, S1_THREADS, smem, st>>>(
-      qm, km, vm, om, dq, stats, S, S4, F, N, C, heads, scale);
+  if constexpr (chunked) {
+    constexpr int smem = dqc_smem_bytes(CH);
+    static const cudaError_t attr =
+        set_smem((const void*)stage1_dq_chunked_kernel<CH>, smem);
+    if (attr != cudaSuccess) return attr;
+    stage1_dq_chunked_kernel<CH><<<grid, S1_THREADS, smem, st>>>(
+        qm, km, vm, om, dq, stats, S, S4, F, N, C, heads, scale);
+  } else {
+    constexpr int smem = dq_smem_bytes(NP);
+    static const cudaError_t attr =
+        set_smem((const void*)stage1_dq_kernel<NP>, smem);
+    if (attr != cudaSuccess) return attr;
+    stage1_dq_kernel<NP><<<grid, S1_THREADS, smem, st>>>(
+        qm, km, vm, om, dq, stats, S, S4, F, N, C, heads, scale);
+  }
   ++launches;
   return cudaGetLastError();
 }
@@ -1807,8 +2138,14 @@ int backward(const bf16* q, const bf16* kf, const bf16* vf, const bf16* wq2,
     case 208:
       err = launch_stage1_dq<208>(q, kf, vf, dxs, dq, stats, B, S, S4, F, N, C, heads, scale, st);
       break;
-    default:
+    case 256:
       err = launch_stage1_dq<256>(q, kf, vf, dxs, dq, stats, B, S, S4, F, N, C, heads, scale, st);
+      break;
+    case 448:  // the chunked form, two chunks of 224 keys
+      err = launch_stage1_dq<448>(q, kf, vf, dxs, dq, stats, B, S, S4, F, N, C, heads, scale, st);
+      break;
+    default:   // the chunked form, two chunks of 256 keys
+      err = launch_stage1_dq<512>(q, kf, vf, dxs, dq, stats, B, S, S4, F, N, C, heads, scale, st);
   }
   if (err != cudaSuccess) return err;
   return launch_stage1_dkdv(q, kf, vf, dxs, stats, dkf, dvf, B, S, S4, F, N,
@@ -1829,7 +2166,8 @@ bool aligned16(const void* p) {
 // float32 [B S, C]; part float32 [16, C, C]; wpart float32 [5, C, C];
 // bpart float32 [2 ceil(B S / 32), C]; stats float32 [2, B, heads, F, S4]
 // with S4 = S rounded up to 4. S = F * N, C = heads * 64 (a multiple of
-// 128, at most 768: the stage-2 tiles' shared memory), F <= 8, N <= 256.
+// 128, at most 768: the stage-2 tiles' shared memory), F <= 8, N <= 512
+// (past 256 the dq kernel's chunked form).
 // Launches on ``stream``, stores the number of device kernels launched in
 // *launched, and returns the first cudaError_t met.
 extern "C" int traj_core_bwd_bf16(
@@ -1841,7 +2179,7 @@ extern "C" int traj_core_bwd_bf16(
     int S, int F, int N, int C, int heads, float scale, void* stream) {
   launches = 0;
   *launched = 0;
-  if (B <= 0 || N <= 0 || N > 256 || F <= 0 || F > MAX_F || S != F * N ||
+  if (B <= 0 || N <= 0 || N > MAX_KEYS || F <= 0 || F > MAX_F || S != F * N ||
       heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0 ||
       C > 768)
     return (int)cudaErrorInvalidValue;

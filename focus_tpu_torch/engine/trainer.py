@@ -6,8 +6,10 @@ One step normalises a uint8 video on the device, runs the model in train
 mode (float32 logits, stochastic depth from the state's generator), takes
 the loss and its gradient, applies one optimizer update and returns the
 loss and the top-1 / top-5 errors as device tensors: nothing in it waits
-for the device. Mixup, gradient accumulation, the detection loss, MoE,
-remat and ZeRO-1 are not ported and raise.
+for the device. EPIC-Kitchens (``TRAIN.DATASET: epickitchens``) takes a
+dict of verb and noun labels and its stats are the loss alone, as the JAX
+step computes no top-k for it. Mixup, gradient accumulation, the
+detection loss, MoE, remat and ZeRO-1 are not ported and raise.
 """
 
 from __future__ import annotations
@@ -81,9 +83,12 @@ def build_supervised_state(cfg, model, steps_per_epoch: int) -> TrainState:
 def make_supervised_train_step(model, cfg, loss_fn):
     """``step(state, video, labels, metadata) -> (state, stats)``: one
     forward, backward and optimizer update; ``stats`` holds ``loss`` and,
-    for single-label data, ``top1_err`` and ``top5_err`` (device tensors)."""
+    for single-label data other than EPIC-Kitchens, ``top1_err`` and
+    ``top5_err`` (device tensors). ``labels`` is a tensor, or for
+    EPIC-Kitchens a dict of the verb and noun labels."""
     _check_options(cfg)
-    want_topk = not cfg.DATA.MULTI_LABEL
+    is_ek = cfg.TRAIN.DATASET == "epickitchens"
+    want_topk = not is_ek and not cfg.DATA.MULTI_LABEL
 
     def train_step(state, video, labels, metadata):
         video = device_normalize(video, cfg)

@@ -19,6 +19,10 @@ JAX package's ``scripts/bench_companions.py hr336`` at batch 4), whose
 verb and noun heads and 21 x 21 patch grid (441 tokens a frame, 445 in the
 ORViT blocks) the flagship lacks, with the eval entry's random init-scale
 weights.
+``hr_train_entry`` is its train step: the same model with the solver and
+loss of ``configs/ORViT/EK_ORVIT_MF_HR.yaml`` (``EK_loss``, see
+``hr_train_cfg``), one AdamW step a call on a batch with verb and noun
+labels.
 ``steve_entry`` is the counterpart of the model that
 ``scripts/bench_steve_rollout.py`` builds: STEVE at the config defaults
 (64 px, 7 slots, decoder D=2048 with 8 blocks, vocabulary 4096, bf16) with
@@ -31,6 +35,7 @@ import torch
 
 from focus_tpu_torch.config import get_cfg
 from focus_tpu_torch.models.build import build_model, init_weights, resolve_device
+from focus_tpu_torch.models.motionformer import EK_CLASSES
 
 INIT_SCALE = 0.02
 
@@ -74,7 +79,9 @@ def example_inputs(cfg, batch: int, seed: int, device, labels=False):
     """Video [B, T, H, W, 3] in [0, 1) and boxes [B, T/2, O, 4] (normalised
     cxcywh around the centre), from numpy's RandomState as bench.py; with
     ``labels``, (video, labels [B] int64, boxes), the labels drawn next from
-    the same generator as scripts/profile_train.py draws them."""
+    the same generator as scripts/profile_train.py draws them. For
+    EPIC-Kitchens the labels are a dict: verb ids in [0, 97), then noun ids
+    in [0, 300), drawn in that order."""
     rs = np.random.RandomState(seed)
     T, crop = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
     video = rs.rand(batch, T, crop, crop, 3).astype(np.float32)
@@ -84,8 +91,14 @@ def example_inputs(cfg, batch: int, seed: int, device, labels=False):
     boxes = torch.from_numpy(boxes).to(device)
     if not labels:
         return video, boxes
-    ids = rs.randint(0, cfg.MODEL.NUM_CLASSES, (batch,)).astype(np.int64)
-    return video, torch.from_numpy(ids).to(device), boxes
+    def ids(n):
+        return torch.from_numpy(rs.randint(0, n, (batch,)).astype(
+            np.int64)).to(device)
+
+    if cfg.TRAIN.DATASET == "epickitchens":
+        verb = ids(EK_CLASSES[0])
+        return video, {"verb": verb, "noun": ids(EK_CLASSES[1])}, boxes
+    return video, ids(cfg.MODEL.NUM_CLASSES), boxes
 
 
 class EvalForward:
@@ -170,10 +183,37 @@ def train_cfg(tiny: bool = False):
 STEPS_PER_EPOCH = 100  # as scripts/profile_train.py builds its state
 
 
+def hr_train_cfg(tiny: bool = False):
+    """``hr_cfg`` with the solver fields of
+    ``configs/ORViT/EK_ORVIT_MF_HR.yaml``: AdamW, base LR 1e-5 and 1e-4 for
+    the ORViT parameters, weight decay 5e-2, steps_with_relative_lrs (LRS
+    [1, 0.1, 0.01] at epochs [0, 19, 40], 50 epochs, no warm-up); the
+    yaml's drop-path rate 0.2 is active in training.
+
+    ``MODEL.LOSS_FUNC`` is ``EK_loss`` (plain cross-entropy on each head,
+    summed), where the yaml names ``label_smoothing_cross_entropy``: the JAX
+    package takes the loss from that key (``focus_tpu/engine/trainer.py``),
+    and label smoothing fails there on the dual head's dict of verb and
+    noun labels, so it trains EPIC-Kitchens only under ``EK_loss``, the
+    reference's own verb + noun sum (``tools/train_net.py:93-100``)."""
+    cfg = hr_cfg(tiny)
+    cfg.SOLVER.OPTIMIZING_METHOD = "adamw"
+    cfg.SOLVER.BASE_LR = 1e-5
+    cfg.SOLVER.ORVIT_BASE_LR = 1e-4
+    cfg.SOLVER.WEIGHT_DECAY = 5e-2
+    cfg.SOLVER.LR_POLICY = "steps_with_relative_lrs"
+    cfg.SOLVER.LRS = [1, 0.1, 0.01]
+    cfg.SOLVER.STEPS = [0, 19, 40]
+    cfg.SOLVER.MAX_EPOCH = 50
+    cfg.SOLVER.WARMUP_EPOCHS = 0.0
+    cfg.MODEL.LOSS_FUNC = "EK_loss"
+    return cfg
+
+
 class TrainStep:
     """``fn(video, labels, boxes) -> stats``: one supervised train step of
-    ``fn.model`` from ``fn.state``; the stats (loss, top-1 and top-5
-    error) stay on the device."""
+    ``fn.model`` from ``fn.state``; the stats (the loss, and the top-1 and
+    top-5 errors where the step computes them) stay on the device."""
 
     def __init__(self, model, state, step):
         self.model, self.state, self.step = model, state, step
@@ -184,11 +224,9 @@ class TrainStep:
         return stats
 
 
-def train_entry(device="cuda", batch: int = 8, seed: int = 0,
-                tiny: bool = False):
-    """(fn, (video, labels, boxes)): the flagship train step from random
-    init-scale weights (seeded with ``seed``) and an example batch, on
-    ``device`` (CUDA unless the caller asks for the CPU)."""
+def _train_entry(cfg, device, batch, seed):
+    """(TrainStep of ``cfg``'s model with random init-scale weights seeded
+    with ``seed``, example inputs with labels) on ``device``."""
     from focus_tpu_torch.engine.trainer import (
         build_supervised_state,
         make_supervised_train_step,
@@ -196,7 +234,6 @@ def train_entry(device="cuda", batch: int = 8, seed: int = 0,
     from focus_tpu_torch.models.losses import get_loss_func
 
     device = resolve_device(device)
-    cfg = train_cfg(tiny)
     model = build_model(cfg, device=device, seed=seed)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -205,6 +242,27 @@ def train_entry(device="cuda", batch: int = 8, seed: int = 0,
     step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
     return (TrainStep(model, state, step),
             example_inputs(cfg, batch, seed, device, labels=True))
+
+
+def train_entry(device="cuda", batch: int = 8, seed: int = 0,
+                tiny: bool = False):
+    """(fn, (video, labels, boxes)): the flagship train step from random
+    init-scale weights (seeded with ``seed``) and an example batch, on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+    return _train_entry(train_cfg(tiny), device, batch, seed)
+
+
+def hr_train_entry(device="cuda", batch: int = 4, seed: int = 0,
+                   tiny: bool = False):
+    """(fn, (video, labels, boxes)): the HR-336 EPIC-Kitchens train step
+    (``hr_train_cfg``) from random init-scale weights (seeded with
+    ``seed``) and an example batch, on ``device`` (CUDA unless the caller
+    asks for the CPU): video [batch, 16, 336, 336, 3], labels {"verb":
+    [batch], "noun": [batch]}, boxes [batch, 8, 4, 4]; ``fn`` returns
+    {"loss"}. Batch 4 is the HR companion's (``scripts/bench_companions.py
+    hr336``); the recipe's own is 2 a GPU (``TRAIN.BATCH_SIZE`` 16 over
+    ``NUM_GPUS`` 8). 100 steps an epoch, as ``train_entry``."""
+    return _train_entry(hr_train_cfg(tiny), device, batch, seed)
 
 
 def steve_cfg(tiny: bool = False):

@@ -45,12 +45,13 @@ def label_smoothing_cross_entropy(logits, labels, smoothing: float = 0.1):
 
 
 def ek_loss(preds, labels):
-    """The EPIC-Kitchens verb + noun loss: not ported yet. The dual-head
-    model serves its eval forward; its train step (this loss, and the
-    backward kernel at the 336 crop's N = 441 keys) is ROADMAP.md section
-    1 item 2."""
-    raise NotImplementedError("EK_loss (the EPIC-Kitchens train step is not "
-                              "ported yet)")
+    """The EPIC-Kitchens verb + noun loss, summed and not averaged, as the
+    reference recipe takes it (reference tools/train_net.py:93-100: loss =
+    verb + noun). preds: (first, {"verb", "noun"}) from the dual-head
+    model; labels: {"verb", "noun"}, each integer ids or soft targets."""
+    _, out = preds
+    return (cross_entropy(out["verb"], labels["verb"])
+            + cross_entropy(out["noun"], labels["noun"]))
 
 
 _LOSSES = {

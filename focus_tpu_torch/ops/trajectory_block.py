@@ -33,11 +33,13 @@ follow the TPU kernels step by step, and ``trajectory_core_v3_mirror``,
 ``trajectory_core_k2v_mirror`` and ``trajectory_core_chunked_mirror`` the
 card's kernels 3 / 4, 5 / 6 and kernel 1 at N > 256.
 
-Keys a frame: kernel 1 takes N <= 512 (the 336 crop's 441 and 445; past
-256 its stage 1 runs in the chunked form, ``csrc/space_stage_core.cuh``);
-kernels 3 to 7 take N <= 256 and refuse more before any build (ROADMAP.md
-section 2 A1), so a forward at N > 256 that wants a gradient raises before
-it launches.
+Keys a frame: kernel 1 and the backward kernel take N <= 512 (the 336
+crop's 441 and 445; past 256 kernel 1's stage 1 runs in the chunked form,
+``csrc/space_stage_core.cuh``, and the backward's dq kernel in its own,
+``stage1_dq_chunked_kernel``), so version 4 trains there; kernels 3 to 6
+take N <= 256 and refuse more before any build (ROADMAP.md section 2 A1),
+and a forward of versions 3, 5, 6 or 7 at N > 256 that wants a gradient
+raises before it launches.
 
 Float32 operands on the card: the kernels take bf16 alone, so a CUDA call
 with a float32 operand (the ``TPU.COMPUTE_DTYPE: float32`` case, which the
@@ -74,8 +76,8 @@ FWD_VERSION = 4
 PORTED_FWD_VERSIONS = (3, 4, 5, 6, 7)
 
 HEAD_DIM = 64  # the kernels' head dim; also C % 128 == 0, F <= 8, heads <= 16
-MAX_KEYS = 256  # keys a frame, kernels 3 to 7
-MAX_KEYS_CHUNKED = 512  # keys a frame, kernel 1 (two chunks past MAX_KEYS)
+MAX_KEYS = 256  # keys a frame, kernels 3 to 6
+MAX_KEYS_CHUNKED = 512  # keys a frame, kernels 1 and 7 (two chunks past MAX_KEYS)
 
 
 def trajectory_core_stage1_reference(q, kf, vf, wq2, bq2, scale, heads):
@@ -655,6 +657,26 @@ def trajectory_core_backward_reference(q, kf, vf, wq2, bq2, wk2, bk2, dout,
             torch.zeros_like(bk2))
 
 
+def _chunked_softmax_and_r(logits, dp, cw):
+    """The chunked dq kernel's first sweep over a frame's keys in chunks of
+    ``cw`` (float32): the max m, l = sum exp(s - m) and r' = sum exp(s -
+    m) dP carried online -> (P = exp(s - m - log l), r = r' / l)."""
+    m = l = rp = None
+    for keys in (slice(0, cw), slice(cw, logits.shape[-1])):
+        part = logits[..., keys]
+        m_new = part.amax(-1) if m is None else torch.maximum(
+            m, part.amax(-1))
+        p = torch.exp(part - m_new[..., None])
+        pl, pr = p.sum(-1), (p * dp[..., keys]).sum(-1)
+        if m is None:
+            l, rp = pl, pr
+        else:
+            alpha = torch.exp(m - m_new)
+            l, rp = l * alpha + pl, rp * alpha + pr
+        m = m_new
+    return torch.exp(logits - (m + torch.log(l))[..., None]), rp / l
+
+
 def trajectory_core_backward_mirror(q, kf, vf, wq2, wk2, dout, xs, q2,
                                     scale, heads, r_from_stage2=False):
     """Plain mirror of the backward kernel (``csrc/trajectory_block_bwd.cu``):
@@ -669,8 +691,13 @@ def trajectory_core_backward_mirror(q, kf, vf, wq2, wk2, dout, xs, q2,
     P (dP - r) in float32, dq and dk from dS, dv from P rounded. r is
     sum_n P dP, as the dq kernel forms it; with ``r_from_stage2`` it is
     dxs_f,h . xs_f,h of the rounded operands instead, which stage 2 could
-    hand over and which misses the gate on peaked stage-1 logits. Returns (dq, dkf, dvf) at q's dtype and (dwq2, dbq2, dwk2) in
-    float32. Nothing on the card calls it."""
+    hand over and which misses the gate on peaked stage-1 logits. At N >
+    MAX_KEYS the order of the chunked dq kernel: a first sweep over a
+    frame's two chunks (``chunk_keys``) carries the max m, l = sum exp(s -
+    m) and r' = sum exp(s - m) dP online (both scaled by exp(m_old - m_new)
+    when chunk 1 raises the max), r = r' / l; then P = exp(s - m - log l)
+    for dS, dk and dv. Returns (dq, dkf, dvf) at q's dtype and (dwq2, dbq2,
+    dwk2) in float32. Nothing on the card calls it."""
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     hd, dt = C // heads, q.dtype
@@ -709,12 +736,15 @@ def trajectory_core_backward_mirror(q, kf, vf, wq2, wk2, dout, xs, q2,
     qh = q.float().reshape(B, S, heads, hd).permute(0, 2, 1, 3)
     kh = kf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
     vh = vf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
-    p = torch.softmax(torch.einsum("bhsd,bhfnd->bhsfn", qh, kh) * scale, -1)
+    logits = torch.einsum("bhsd,bhfnd->bhsfn", qh, kh) * scale
     dp = torch.einsum("bhsfd,bhfnd->bhsfn", dxsh, vh)
+    if N > MAX_KEYS:
+        p, r = _chunked_softmax_and_r(logits, dp, chunk_keys(N))
+    else:
+        p = torch.softmax(logits, -1)
+        r = (p * dp).sum(-1)
     if r_from_stage2:
         r = (dxsh * xsh.permute(0, 3, 1, 2, 4)).sum(-1)
-    else:
-        r = (p * dp).sum(-1)
     ds = p * (dp - r[..., None])
     dq = scale * torch.einsum("bhsfn,bhfnd->bhsd", ds, kh)
     dk = scale * torch.einsum("bhsfn,bhsd->bhfnd", ds, qh)
@@ -763,7 +793,8 @@ def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=(),
                     max_keys=MAX_KEYS):
     """Raises where the kernel takes no such operands: bf16 alone,
     contiguous on one device, the layout's shapes, and N <= ``max_keys``
-    keys a frame (kernel 1: MAX_KEYS_CHUNKED; the others: MAX_KEYS)."""
+    keys a frame (kernels 1 and 7: MAX_KEYS_CHUNKED; the others:
+    MAX_KEYS)."""
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     args = (q, kf, vf, wq2, bq2, wk2) + tuple(extra)
@@ -786,8 +817,9 @@ def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=(),
     if (C != heads * HEAD_DIM or C % 128 or F > 8 or N > max_keys
             or heads > 16):
         wider = ("" if max_keys > MAX_KEYS else
-                 f"; N > {MAX_KEYS} (HR-336) is kernel 1's forward alone, "
-                 "the others wait for ROADMAP.md section 2 A1")
+                 f"; N > {MAX_KEYS} (HR-336) is kernel 1's and its "
+                 "backward's alone, the others wait for ROADMAP.md section "
+                 "2 A1")
         raise ValueError(f"trajectory kernel needs head dim {HEAD_DIM}, "
                          f"C % 128 == 0, F <= 8, N <= {max_keys}, heads <= "
                          f"16 (C={C}, heads={heads}, F={F}, N={N}){wider}")
@@ -915,9 +947,11 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
     dtype (bf16). A dict passed as ``scratch`` receives the kernel's scratch
     tensors (among them dxs [B, S, F, C] and dq2 [B, S, C]); none of them is
     a float32 [B S F, C] tensor. Its stage-2 tiles hold C <= 768 (12
-    heads)."""
+    heads); N <= 512 keys a frame (past 256 its dq kernel's chunked
+    form), and 513 is refused before any build."""
     global BWD_LAUNCHES, BWD_DEVICE_LAUNCHES
-    _check_operands(q, kf, vf, wq2, bq2, wk2, heads, (dout, xs, q2))
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads, (dout, xs, q2),
+                    max_keys=MAX_KEYS_CHUNKED)
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     if (tuple(dout.shape) != (B, S, C) or tuple(xs.shape) != (B, S, F, C)
@@ -941,9 +975,10 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
             "bpart": buf(2 * -(-M // 32), C),
             "stats": buf(2, B, heads, F, -(-S // 4) * 4)}
     launched = ctypes.c_int(0)
+    kernel = _bwd_kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _bwd_kernel_fn()(
+        err = kernel(
             q.data_ptr(), kf.data_ptr(), vf.data_ptr(), wq2.data_ptr(),
             wk2.data_ptr(), dout.data_ptr(), xs.data_ptr(), q2.data_ptr(),
             *(g.data_ptr() for g in grads),
@@ -972,12 +1007,11 @@ class _FusedCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads, version):
         N = kf.shape[2]
-        if N > MAX_KEYS and any(ctx.needs_input_grad[:6]):
+        if N > MAX_KEYS and version != 4 and any(ctx.needs_input_grad[:6]):
             raise ValueError(
-                f"trajectory backward kernel takes N <= {MAX_KEYS} (N={N}): "
-                "the HR-336 train step waits for ROADMAP.md section 2 A1; "
-                "kernel 1 serves the forward alone there (under "
-                "torch.no_grad)")
+                f"trajectory forward kernel of FWD_VERSION={version} takes "
+                f"N <= {MAX_KEYS} (N={N}): past {MAX_KEYS} keys a frame "
+                "version 4 trains alone (ROADMAP.md section 2 A1)")
         if version in (3, 4, 7):
             launch = {3: _launch_v3, 4: _launch, 7: _launch_v7}[version]
             out, xs, q2 = launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
@@ -1009,8 +1043,8 @@ def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
     ``FWD_VERSION`` (3, 4, 5, 6 or 7; others raise before any launch), and
     its gradient the backward kernel (bf16, contiguous, head dim 64), or
     raises: a float32 operand raises ``TypeError``, and N > 256 keys a
-    frame ``ValueError`` except in version 4's forward without a gradient
-    (N <= 512)."""
+    frame ``ValueError`` except in version 4, whose forward and backward
+    take N <= 512."""
     if q.device.type == "cpu":
         return trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2,
                                          scale, heads)

@@ -1,7 +1,8 @@
 """Where the time of a slice's main path goes, on one GPU.
 
     python3 -m focus_tpu_torch.profile_slice \
-        [--model flagship|steve|train|learned_v|hr336] [--batch 8] \
+        [--model flagship|steve|train|learned_v|hr336|hr336_train] \
+        [--batch 8] \
         [--iters 2] \
         [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 3|4|5|6|7]
 
@@ -9,7 +10,8 @@ Builds ``entry(device="cuda")`` (the flagship eval forward),
 ``train_entry(device="cuda")`` (one flagship train step: forward, backward
 and the AdamW update), ``hr_entry(device="cuda")`` (the HR-336
 EPIC-Kitchens eval forward; ``--batch`` defaults to 4 there, as the JAX
-companion's) or ``steve_entry(device="cuda")`` (STEVE's encode +
+companion's), ``hr_train_entry(device="cuda")`` (``hr336_train``: one
+HR-336 train step, batch 4) or ``steve_entry(device="cuda")`` (STEVE's encode +
 KV-cached rollout + dVAE decode; ``--batch`` videos of 4 frames), warms up,
 then traces ``--iters`` calls with ``torch.profiler`` (CPU and CUDA
 activities). Prints one JSON
@@ -41,7 +43,13 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from focus_tpu_torch.entry import entry, hr_entry, steve_entry, train_entry
+from focus_tpu_torch.entry import (
+    entry,
+    hr_entry,
+    hr_train_entry,
+    steve_entry,
+    train_entry,
+)
 from focus_tpu_torch.ops import trajectory_block
 from focus_tpu_torch.profile_block import learned_v_stack
 
@@ -54,8 +62,8 @@ from focus_tpu_torch.profile_block import learned_v_stack
 # and 4's (FWD_VERSION 3 and 7: the same kernels in the rounding mode V3,
 # template argument true; the GEMM is one kernel for all versions), kernels
 # 5 and 6's own-frame launch and pass (FWD_VERSION 6 and 5; the pass's
-# second template argument is true for v5), kernel 2, kernel 7's kernels
-# together
+# second template argument is true for v5), kernel 2, and kernel 7's eight
+# kernels one by one (its dq kernel at N > 256 in its chunked form)
 _TRUE = r"(?:true|\(bool\)1)"
 _FALSE = r"(?:false|\(bool\)0)"
 KERNEL_GROUPS = (
@@ -70,6 +78,14 @@ KERNEL_GROUPS = (
      "kernel 1 / 3 / 4 q2 GEMM, kernels 5 / 6 k2v and q2 GEMMs"),
     ("traj_stage2_kernel", "kernel 1 stage 2"),
     ("patch_embed_kernel", "kernel 2 (patch embed)"),
+    ("stage2_rows_kernel", "kernel 7 stage-2 rows"),
+    ("stage2_dwk2_kernel", "kernel 7 stage-2 dWk2"),
+    ("stage2_dxs_kernel", "kernel 7 stage-2 dxs"),
+    ("gemm_kernel", "kernel 7 dd and dWq2 GEMMs"),
+    ("sum_splits_kernel", "kernel 7 sums"),
+    ("stage1_dq_kernel", "kernel 7 stage-1 dq"),
+    ("stage1_dq_chunked_kernel", "kernel 7 stage-1 dq, chunked (N > 256)"),
+    ("stage1_dkdv_kernel", "kernel 7 stage-1 dk/dv"),
 )
 
 
@@ -119,10 +135,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model",
                     choices=("flagship", "steve", "train", "learned_v",
-                             "hr336"),
+                             "hr336", "hr336_train"),
                     default="flagship")
     ap.add_argument("--batch", type=int, default=None,
-                    help="8 (hr336: 4)")
+                    help="8 (hr336, hr336_train: 4)")
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
@@ -140,14 +156,14 @@ def main():
         variant["int8"] = True
     if args.fast_gelu:
         variant["fast_gelu"] = True
-    if args.model in ("train", "learned_v", "hr336") and variant or (
+    if args.model in ("train", "learned_v", "hr336", "hr336_train") and variant or (
             args.model == "steve" and args.fast_gelu):
         ap.error(f"--model {args.model} takes no {sorted(variant)}")
     if args.fwd_version != 4 and args.model not in ("flagship", "train"):
         ap.error(f"--model {args.model} takes no --fwd-version")
     trajectory_block.FWD_VERSION = args.fwd_version
     if args.batch is None:
-        args.batch = 4 if args.model == "hr336" else 8
+        args.batch = 4 if args.model.startswith("hr336") else 8
     if args.model == "learned_v":
         model, x = learned_v_stack(device="cuda", batch=args.batch)
 
@@ -158,7 +174,8 @@ def main():
         inputs = (x,)
     else:
         make = {"flagship": entry, "steve": steve_entry,
-                "train": train_entry, "hr336": hr_entry}[args.model]
+                "train": train_entry, "hr336": hr_entry,
+                "hr336_train": hr_train_entry}[args.model]
         fn, inputs = make(device="cuda", batch=args.batch, **variant)
     for _ in range(2):
         fn(*inputs)
@@ -190,7 +207,8 @@ def main():
                     "steve": "STEVE reconstruct_autoregressive",
                     "train": "flagship train step",
                     "learned_v": "12 learned-v trajectory blocks, eval",
-                    "hr336": "HR-336 EPIC-Kitchens eval forward"}[
+                    "hr336": "HR-336 EPIC-Kitchens eval forward",
+                    "hr336_train": "HR-336 EPIC-Kitchens train step"}[
                         args.model],
         "variant": variant, "fwd_version": args.fwd_version,
         "batch": args.batch,

@@ -4,8 +4,9 @@ against the JAX package on the same numpy inputs and weights; kernel 1's
 chunked stage 1 (N > 256 keys a frame) through its plain mirror
 (``ops/trajectory_block.trajectory_core_chunked_mirror``) against the
 interpret-mode Pallas kernel, ``_xla_reference`` and the plain version; its
-launch plan held to the CUDA source's constants; and the wrappers of
-kernels 3 to 8 refusing N > 256 before any build."""
+launch plan held to the CUDA source's constants; the wrappers of
+kernels 3 to 6 and 8 refusing N > 256 before any build, and the backward's
+(kernel 7) N > 512."""
 
 import os
 import re
@@ -284,44 +285,65 @@ def test_kernel_1_takes_512_keys_and_refuses_513(monkeypatch):
         ttb._launch(*_meta_args(513)[:6], 0.125, 2)
 
 
+def _launch_backward_at(N):
+    """The backward wrapper on meta operands at N keys a frame (F = 2)."""
+    args = _meta_args(N)
+    xs = torch.empty(1, 2 * N, 2, 128, dtype=torch.bfloat16, device="meta")
+    return ttb._launch_backward(*args[:6], args[0], xs, args[0], 0.125, 2)
+
+
 @pytest.mark.parametrize("kernel", ["v3", "v7", "v5", "v6", "backward",
                                     "space_stage"])
 def test_kernels_3_to_8_refuse_257_keys_before_any_build(monkeypatch,
                                                          kernel):
-    """Kernels 3 to 8 stop at N <= 256 and say so before any build."""
+    """Kernels 3 to 6 and 8 stop at N <= 256 and say so before any build.
+    The backward (kernel 7) takes N <= 512: it passes its check at 512 (and
+    reaches the build) and refuses 513 with "N <= 512" before any build."""
     from focus_tpu_torch.ops import _build
 
     monkeypatch.setattr(_build, "bind", _no_build)
     args = _meta_args(257)
-    xs = torch.empty(1, 514, 2, 128, dtype=torch.bfloat16, device="meta")
     calls = {
         "v3": lambda: ttb._launch_v3(*args[:6], 0.125, 2),
         "v7": lambda: ttb._launch_v7(*args[:6], 0.125, 2),
         "v5": lambda: ttb._launch_variant(5, *args[:6], 0.125, 2),
         "v6": lambda: ttb._launch_variant(6, *args[:6], 0.125, 2),
-        "backward": lambda: ttb._launch_backward(
-            *args[:6], args[0], xs, args[0], 0.125, 2),
         "space_stage": lambda: tta._launch(
             args[0].reshape(2, 514, 64), args[1].reshape(2, 2, 257, 64),
             args[2].reshape(2, 2, 257, 64), 0.125),
     }
+    if kernel == "backward":
+        with pytest.raises(AssertionError, match="kernel built"):
+            _launch_backward_at(512)
+        with pytest.raises(ValueError, match="N <= 512"):
+            _launch_backward_at(513)
+        return
     with pytest.raises(ValueError, match="N <= 256"):
         calls[kernel]()
 
 
-def test_hr_train_step_refuses_before_the_forward_launches(monkeypatch):
-    """At N > 256 a forward that wants a gradient raises before kernel 1
-    launches: the backward kernel takes N <= 256."""
+@pytest.mark.parametrize("version", [3, 4, 5, 6, 7])
+def test_hr_train_step_refuses_before_the_forward_launches(monkeypatch,
+                                                           version):
+    """At N = 441 with a gradient wanted, version 4 reaches its forward
+    launch (the backward kernel takes N <= 512); versions 3, 5, 6 and 7
+    raise before theirs, whose kernels take N <= 256. Without a gradient
+    every version reaches its launch."""
     def no_launch(*a, **k):
         raise AssertionError("forward launched")
 
-    monkeypatch.setattr(ttb, "_launch", no_launch)
+    for name in ("_launch", "_launch_v3", "_launch_v7", "_launch_variant"):
+        monkeypatch.setattr(ttb, name, no_launch)
     args = _meta_args(441, grad=True)
-    with pytest.raises(ValueError, match="N <= 256"):
-        ttb._FusedCore.apply(*args, 0.125, 2, 4)
+    if version == 4:
+        with pytest.raises(AssertionError, match="forward launched"):
+            ttb._FusedCore.apply(*args, 0.125, 2, version)
+    else:
+        with pytest.raises(ValueError, match="N <= 256"):
+            ttb._FusedCore.apply(*args, 0.125, 2, version)
     args = _meta_args(441)
     with pytest.raises(AssertionError, match="forward launched"):
-        ttb._FusedCore.apply(*args, 0.125, 2, 4)
+        ttb._FusedCore.apply(*args, 0.125, 2, version)
 
 
 def test_profile_groups_name_the_chunked_stage_1():

@@ -3,6 +3,7 @@ points that default to CUDA and raise without it, wrappers that take the
 plain version only for CPU tensors, and the CUDA sources they bind."""
 
 import ast
+import math
 import os
 import re
 
@@ -114,10 +115,19 @@ def test_train_options_outside_the_slice_raise(key, value):
 
 
 def test_ek_loss_raises():
+    """EK_loss is ported (the JAX package's verb + noun sum): on the dual
+    head's pair of zero logits it gives ln 97 + ln 300, and it raises
+    KeyError where a head's labels are missing, as the JAX function does."""
     from focus_tpu_torch.models.losses import get_loss_func
 
-    with pytest.raises(NotImplementedError, match="EK_loss"):
-        get_loss_func("EK_loss")(None, None)
+    loss = get_loss_func("EK_loss")
+    verb, noun = torch.zeros(2, 97), torch.zeros(2, 300)
+    ids = torch.zeros(2, dtype=torch.long)
+    got = loss((verb, {"verb": verb, "noun": noun}), {"verb": ids,
+                                                      "noun": ids})
+    assert got.item() == pytest.approx(math.log(97) + math.log(300))
+    with pytest.raises(KeyError, match="noun"):
+        loss((verb, {"verb": verb, "noun": noun}), {"verb": ids})
 
 
 def test_wrappers_refuse_other_devices():
