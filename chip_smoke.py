@@ -55,8 +55,10 @@ Phases (one JSON line each; any failure exits non-zero):
   9. the learned-v slice: 12 learned-v trajectory blocks
      (``use_original_code=False``) at D=768 on x [8, 1569, 768] bf16
      through the space-stage kernel (ms per stack, 12 launches per stack,
-     peak memory, the output against the plain path), and at batch 2 one
-     forward and backward against the float32 plain path;
+     peak memory, the output against the plain path), the same stack at
+     the 336 crop (x [4, 3529, 768], N = 441, kernel 8's chunked form),
+     and at batch 2 one forward and backward against the float32 plain
+     path;
  10. the HR-336 EPIC-Kitchens eval forward (ORViT-MF-HR, EK100 16x336,
      verb and noun heads, N = 441 keys a frame, 445 in the ORViT blocks):
      kernel 1 at N > 256 (its chunked stage 1) at N = 441 and 445 (B=4),
@@ -64,15 +66,23 @@ Phases (one JSON line each; any failure exits non-zero):
      plain version, two calls bit-equal, three device kernels a call;
      ``hr_entry(batch=4)`` at full width and depth (12 kernel-1 launches a
      forward, clips per second, peak memory, verb and noun probabilities
-     against the plain path); kernels 3 to 6 and 8 refusing N = 441 and
-     kernel 7 N = 513 before any launch;
+     against the plain path); kernels 1 and 3 to 8 refusing N = 513
+     before any launch;
  11. the HR-336 EPIC-Kitchens train step: ``hr_train_entry(batch=4)`` at
      full width and depth under EK_loss (12 kernel-1 and 12 kernel-7 calls
      and 1 patch embed a step asserted, train clips per second, peak
      memory, finite loss and gradients; at batch 2 the loss, gradients and
      parameters after a step against the float32 plain path), after kernel
      7 is held at N = 441, 445, 257 and 512 and on an extreme input at N =
-     441 in phase 2 (its dq kernel's chunked form).
+     441 in phase 2 (its dq kernel's chunked form);
+ 12. the HR-336 forward under every FWD_VERSION: ``hr_entry(batch=4)``
+     under 4, 3, 7, 5 and 6 on one model (12 launches of the version's
+     kernel a forward, the probabilities against the plain path), then one
+     ``hr_train_entry`` step at batch 2 under each (launch counts, finite
+     loss and gradients, v3 and v7's loss against version 4's), after
+     kernels 3 to 6 and 8 are held past 256 keys a frame (their chunked
+     forms: N = 441 and 445 at B = 4, 257 and 512 at B = 2, extreme inputs
+     at 441) in phase 2.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -80,6 +90,7 @@ The script imports nothing of JAX.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -322,22 +333,42 @@ def mean_rel(out, ref):
 def check_v3_stage1_outputs(tb, version, args, scale, heads, tag):
     """xs and q2 that kernel 3 or 4 writes on the way (what kernel 7 reads)
     against trajectory_core_v3_stage1_reference on the same bf16 operands:
-    max|err| within KERNEL_TOL_REL x max|ref| (xs and q2) and xs's
-    mean|err| / mean|ref| within V3_XS_MEAN_REL, which kernel 1's xs (the
-    other rounding of the stage-1 weights) must exceed on the same inputs;
-    and a second call bit-equal to the first (out, xs and q2)."""
+    max|err| within KERNEL_TOL_REL x max|ref| (xs and q2); at N <= 256
+    xs's mean|err| / mean|ref| within V3_XS_MEAN_REL, which kernel 1's xs
+    (the other rounding of the stage-1 weights) must exceed on the same
+    inputs; past 256 keys a frame, where stage 1 is kernel 1's chunked
+    kernel in both roundings, xs and q2 bit-equal to kernel 1's and xs's
+    mean|err| / mean|ref| within V3_XS_MEAN_REL of the chunked stage 1's
+    plain mirror (the rounding of chunk 0's weights against chunk 0's max
+    moves xs ~1e-3 from the V3 reference there); and a second call
+    bit-equal to the first (out, xs and q2)."""
     name = f"trajectory_block_v{version}"
     launch = {3: tb._launch_v3, 7: tb._launch_v7}[version]
     first = launch(*args[:6], scale, heads)
     second = launch(*args[:6], scale, heads)
-    v4_xs = tb._launch(*args[:6], scale, heads)[1]
+    v4 = tb._launch(*args[:6], scale, heads)
     xs_ref, q2_ref = tb.trajectory_core_v3_stage1_reference(*args[:5], scale,
                                                             heads)
     torch.cuda.synchronize()
     xs_err, xs_max = check_close(f"{name} {tag} xs", first[1], xs_ref)
     q2_err, q2_max = check_close(f"{name} {tag} q2", first[2], q2_ref)
-    xs_mean, v4_mean = mean_rel(first[1], xs_ref), mean_rel(v4_xs, xs_ref)
-    if not xs_mean <= V3_XS_MEAN_REL < v4_mean:
+    xs_mean, v4_mean = mean_rel(first[1], xs_ref), mean_rel(v4[1], xs_ref)
+    report = {"xs_max_abs_err": xs_err, "xs_max_abs_ref": xs_max,
+              "xs_mean_err_rel": xs_mean, "kernel_1_xs_mean_err_rel": v4_mean,
+              "q2_max_abs_err": q2_err, "q2_max_abs_ref": q2_max}
+    if args[1].shape[2] > tb.MAX_KEYS:
+        mirror_xs = tb._chunked_xs(*args[:3], scale, heads)
+        report["xs_mean_err_rel_vs_chunked_mirror"] = mean_rel(first[1],
+                                                              mirror_xs)
+        report["xs_q2_bitwise_equal_to_kernel_1"] = (
+            torch.equal(first[1], v4[1]) and torch.equal(first[2], v4[2]))
+        del mirror_xs
+        if not (report["xs_q2_bitwise_equal_to_kernel_1"]
+                and report["xs_mean_err_rel_vs_chunked_mirror"]
+                <= V3_XS_MEAN_REL):
+            raise AssertionError(f"{name} {tag}: xs / q2 not kernel 1's, or "
+                                 f"off the chunked mirror ({report})")
+    elif not xs_mean <= V3_XS_MEAN_REL < v4_mean:
         raise AssertionError(
             f"{name} {tag} xs: mean|err| / mean|ref| {xs_mean:.3e}, kernel "
             f"1's {v4_mean:.3e}; the bound {V3_XS_MEAN_REL} must lie "
@@ -345,10 +376,8 @@ def check_v3_stage1_outputs(tb, version, args, scale, heads, tag):
     same = all(torch.equal(a, b) for a, b in zip(first, second))
     if not same:
         raise AssertionError(f"{name} {tag}: two calls differ")
-    return {"xs_max_abs_err": xs_err, "xs_max_abs_ref": xs_max,
-            "xs_mean_err_rel": xs_mean, "kernel_1_xs_mean_err_rel": v4_mean,
-            "q2_max_abs_err": q2_err, "q2_max_abs_ref": q2_max,
-            "two_calls_bitwise_equal": same}
+    report["two_calls_bitwise_equal"] = same
+    return report
 
 
 def phase_trajectory_kernel():
@@ -656,12 +685,58 @@ def space_stage_bytes_flops(BH, S, F, N, d):
     return 2 * (3 * BH * S * d + BH * S * F * d), 2 * 2 * BH * S * F * N * d
 
 
+def sdpa_times(q, kf, vf, F, scale, ref, tag):
+    """One PyTorch call for the space stage's function: SDPA with q
+    broadcast over the frames, giving [BH, F, S, d] (checked against
+    ``ref``); the transpose to [BH, S, F, d] the port writes directly is
+    timed apart."""
+    BH, S, d = q.shape
+    qx = q.unsqueeze(1).expand(BH, F, S, d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qx, kf, vf, scale=scale)
+    check_close(f"SDPA {tag}", lib.transpose(1, 2), ref)
+    return {"library_ms": time_ms(lambda: sdpa(qx, kf, vf, scale=scale)),
+            "library_ms_back_to_back": time_ms_back_to_back(
+                lambda: sdpa(qx, kf, vf, scale=scale)),
+            "library_transpose_ms": time_ms(
+                lambda: lib.transpose(1, 2).contiguous())}
+
+
+def space_stage_case(ta, attn_ops, q, k, v, F, scale, tag):
+    """Kernel 8 on q, k, v [BH, S, d] against its plain version in float32
+    (KERNEL_TOL_REL), a second call bit-equal to the first, and (past 256
+    keys a frame) the device kernels of one call: the chunked form alone.
+    Returns (case, out, ref)."""
+    out = ta.space_stage(q, k, v, F, scale)
+    again = ta.space_stage(q, k, v, F, scale)
+    ref = attn_ops.space_stage(q.float(), k.float(), v.float(), F, scale)
+    torch.cuda.synchronize()
+    err, ref_max = check_close(f"space_stage {tag}", out, ref)
+    if not torch.equal(out, again):
+        raise AssertionError(f"space_stage {tag}: two calls differ")
+    BH, S, d = q.shape
+    case = {"case": tag, "BH": BH, "S": S, "F": F, "N": S // F, "d": d,
+            "max_abs_err": err, "max_abs_ref": ref_max,
+            "two_calls_bitwise_equal": True}
+    if S // F > 256:
+        names = device_kernels(lambda: ta.space_stage(q, k, v, F, scale))
+        if len(names) != 1 or "space_stage_chunked_kernel" not in names[0]:
+            raise AssertionError(f"space_stage {tag}: device kernels "
+                                 f"{names}, expected the chunked form alone")
+        case["device_kernels"] = names
+    return case, out, ref
+
+
 def phase_space_stage():
     """Kernel 8 (the learned-v path's stage 1) against its plain version
     at the learned-v slice's shapes (BH = 96, F = 8, N = 196 and 200), with
-    its kernel, plain and SDPA times, and the autograd Function's backward
-    (the plain float32 backward) at B = 2 against autograd of the float32
-    plain forward."""
+    its kernel, plain and SDPA times; past 256 keys a frame (its chunked
+    form) at the HR learned-v shape, BH = 48 with N = 441 and 445 (kernel
+    times and bound_ms at both, plain and SDPA at 441), BH = 24 with N =
+    257 and 512, and an extreme input at N = 441, each within the gate,
+    two calls bit-equal and one device kernel a call; and the autograd
+    Function's backward (the plain float32 backward) at B = 2 (N = 196 and
+    441) against autograd of the float32 plain forward."""
     from focus_tpu_torch.ops import attention as attn_ops
     from focus_tpu_torch.ops import trajectory_attention as ta
 
@@ -673,59 +748,97 @@ def phase_space_stage():
         S = F * N
         q, k, v = ((torch.randn(BH, S, d, generator=gen, device=DEV))
                    .bfloat16() for _ in range(3))
-        out = ta.space_stage(q, k, v, F, scale)
-        ref = attn_ops.space_stage(q.float(), k.float(), v.float(), F, scale)
-        torch.cuda.synchronize()
-        err, ref_max = check_close(f"space_stage N={N}", out, ref)
-        case = {"BH": BH, "S": S, "F": F, "N": N, "d": d,
-                "max_abs_err": err, "max_abs_ref": ref_max}
+        case, out, ref = space_stage_case(ta, attn_ops, q, k, v, F, scale,
+                                          f"N={N}")
         case["kernel_ms"] = time_ms(lambda: ta.space_stage(q, k, v, F, scale))
         case["kernel_ms_back_to_back"] = time_ms_back_to_back(
             lambda: ta.space_stage(q, k, v, F, scale))
         case["plain_ms"] = time_ms(
             lambda: attn_ops.space_stage(q, k, v, F, scale), warmup=1,
             iters=5)
-        # one PyTorch call for the same function: SDPA with q broadcast over
-        # the frames, giving [BH, F, S, d]; the transpose to [BH, S, F, d]
-        # the port writes directly is timed apart
-        kf, vf = k.reshape(BH, F, N, d), v.reshape(BH, F, N, d)
-        qx = q.unsqueeze(1).expand(BH, F, S, d)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = sdpa(qx, kf, vf, scale=scale)
-        check_close(f"SDPA N={N}", lib.transpose(1, 2), ref)
-        case["library_ms"] = time_ms(lambda: sdpa(qx, kf, vf, scale=scale))
-        case["library_ms_back_to_back"] = time_ms_back_to_back(
-            lambda: sdpa(qx, kf, vf, scale=scale))
-        case["library_transpose_ms"] = time_ms(
-            lambda: lib.transpose(1, 2).contiguous())
+        case.update(sdpa_times(q, k.reshape(BH, F, N, d),
+                               v.reshape(BH, F, N, d), F, scale, ref,
+                               f"N={N}"))
         nbytes_, flops = space_stage_bytes_flops(BH, S, F, N, d)
         case["bound_ms"], case["bound_by"] = bound(flops, nbytes_)
         case["plan"] = ta.space_stage_plan(BH, S, F, N)
         cases.append(case)
         if N == 196:
             timing = case
-        del q, k, v, out, ref, lib, qx
+        del q, k, v, out, ref
         torch.cuda.empty_cache()
-    # the backward of the autograd Function at B = 2 (BH = 24)
-    N, S = 196, F * 196
-    leaves = [(torch.randn(24, S, d, generator=gen, device=DEV)).bfloat16()
-              .requires_grad_(True) for _ in range(3)]
-    g = (torch.randn(24, S, F, d, generator=gen, device=DEV) * 0.1).bfloat16()
-    before = ta.LAUNCHES
-    ta.space_stage(*leaves, F, scale).backward(g)
-    launched = ta.LAUNCHES - before
-    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
-    attn_ops.space_stage(*ref_leaves, F, scale).backward(g.float())
-    torch.cuda.synchronize()
-    bwd = {name: grad_errors(f"space_stage backward {name}", t.grad, r.grad)
-           for name, t, r in zip(("dq", "dk", "dv"), leaves, ref_leaves)}
-    if launched != 1:
-        raise AssertionError(f"space_stage backward case: {launched} "
-                             "forward launches, expected 1")
+    # past 256 keys a frame, the chunked form: the HR learned-v shape
+    # (batch 4, BH = 48) at N = 441 and 445, timed; the narrowest and
+    # widest chunked N at BH = 24; an extreme input at N = 441
+    hr = {}
+    for BH_, N in ((4 * 12, 441), (4 * 12, 445), (2 * 12, 257),
+                   (2 * 12, 512)):
+        S = F * N
+        q, k, v = ((torch.randn(BH_, S, d, generator=gen, device=DEV))
+                   .bfloat16() for _ in range(3))
+        case, out, ref = space_stage_case(ta, attn_ops, q, k, v, F, scale,
+                                          f"BH={BH_} N={N}")
+        if BH_ == 4 * 12:
+            def call():
+                ta.space_stage(q, k, v, F, scale)
+
+            case["kernel_ms"] = time_ms(call)
+            case["kernel_ms_back_to_back"] = time_ms_back_to_back(call)
+            nbytes_, flops = space_stage_bytes_flops(BH_, S, F, N, d)
+            case["bound_ms"], case["bound_by"] = bound(flops, nbytes_)
+            case["plan"] = ta.space_stage_plan(BH_, S, F, N)
+            if N == 441:
+                case["plain_ms"] = time_ms(
+                    lambda: attn_ops.space_stage(q, k, v, F, scale),
+                    warmup=1, iters=5)
+                case.update(sdpa_times(q, k.reshape(BH_, F, N, d),
+                                       v.reshape(BH_, F, N, d), F, scale,
+                                       ref, f"BH={BH_} N={N}"))
+            hr[N] = case
+        cases.append(case)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    for sign, mag in ((-1.0, 60.0), (1.0, 50.0)):
+        q, kf, vf = extreme_inputs(sign, mag, gen, B=12, N=441, C=64,
+                                   heads=1)[:3]
+        cases.append(space_stage_case(
+            ta, attn_ops, q, kf.reshape(12, F * 441, d),
+            vf.reshape(12, F * 441, d), F, scale,
+            f"extreme {sign * mag} N=441")[0])
+        del q, kf, vf
+    # the backward of the autograd Function at B = 2 (BH = 24), at N = 196
+    # and (the chunked forward) 441
+    bwd = {}
+    for N in (196, 441):
+        S = F * N
+        leaves = [(torch.randn(24, S, d, generator=gen, device=DEV))
+                  .bfloat16().requires_grad_(True) for _ in range(3)]
+        g = (torch.randn(24, S, F, d, generator=gen, device=DEV)
+             * 0.1).bfloat16()
+        before = ta.LAUNCHES
+        ta.space_stage(*leaves, F, scale).backward(g)
+        launched = ta.LAUNCHES - before
+        ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+        attn_ops.space_stage(*ref_leaves, F, scale).backward(g.float())
+        torch.cuda.synchronize()
+        bwd[f"N={N}"] = {
+            "BH": 24, "S": S, "N": N,
+            **{name: grad_errors(f"space_stage backward N={N} {name}",
+                                 t.grad, r.grad)
+               for name, t, r in zip(("dq", "dk", "dv"), leaves, ref_leaves)}}
+        if launched != 1:
+            raise AssertionError(f"space_stage backward N={N}: {launched} "
+                                 "forward launches, expected 1")
+        del leaves, g, ref_leaves
+        torch.cuda.empty_cache()
     emit({"phase": "kernel", "name": "space_stage", "ok": True,
           "tolerance": f"max|err| <= {KERNEL_TOL_REL} x max|ref| (bf16 "
                        "weights and output vs plain float32 on the same "
-                       "inputs); backward: each gradient max|err| <= "
+                       "inputs; past 256 keys a frame the chunked form, "
+                       "whose weights are rounded unnormalised, ROADMAP.md "
+                       "section 3); two calls bit-equal; past 256 one "
+                       "device kernel a call, the chunked form; backward: "
+                       "each gradient max|err| <= "
                        f"{KERNEL_TOL_REL} x max|ref| and relative L2 <= "
                        f"{BWD_REL_L2} against autograd of the float32 plain "
                        "forward",
@@ -736,8 +849,7 @@ def phase_space_stage():
                     "times, each call from an idle card (the host's launch "
                     "work included); *_back_to_back: 20 calls issued back "
                     "to back between two events, the mean",
-          "cases": cases,
-          "backward": {"BH": 24, "S": S, "N": N, **bwd}})
+          "cases": cases, "backward": bwd})
     return {"name": "space_stage", "route": "cuda",
             "source": "focus_tpu_torch/csrc/trajectory_attention.cu",
             "replaces": "focus_tpu/ops/pallas/trajectory_attention.py:35",
@@ -752,7 +864,22 @@ def phase_space_stage():
                        "two events; *_per_call: the median of calls each "
                        "from an idle card, the host's launch work included",
             "shape": "BH=96 S=1568 F=8 N=196 d=64 (N=200: "
-                     f"{cases[1]['kernel_ms_back_to_back']:.4f} ms)"}
+                     f"{cases[1]['kernel_ms_back_to_back']:.4f} ms)",
+            "hr336": {
+                "ms": hr[441]["kernel_ms_back_to_back"],
+                "ms_per_call": hr[441]["kernel_ms"],
+                "plain_ms": hr[441]["plain_ms"],
+                "bound_ms": hr[441]["bound_ms"],
+                "bound_by": hr[441]["bound_by"],
+                "library_ms": hr[441]["library_ms_back_to_back"],
+                "library_ms_per_call": hr[441]["library_ms"],
+                "library_transpose_ms": hr[441]["library_transpose_ms"],
+                "ms_n445": hr[445]["kernel_ms_back_to_back"],
+                "ms_per_call_n445": hr[445]["kernel_ms"],
+                "bound_ms_n445": hr[445]["bound_ms"],
+                "shape": "BH=48 S=3528 N=441 (and S=3560 N=445) F=8 d=64: "
+                         "the learned-v stack at the 336 crop, batch 4; the "
+                         "chunked form"}}
 
 
 VARIANT_SOURCES = {3: ("focus_tpu_torch/csrc/trajectory_block.cu",
@@ -789,6 +916,29 @@ SAME_FUNCTION_DEVICE_LAUNCHES = 3
 # kernels 5 and 6: the k2v GEMM, the own-frame aggregates, the q2 GEMM and
 # the pass (csrc/trajectory_k2v.cuh)
 K2V_DEVICE_LAUNCHES = 4
+
+
+def check_variant_device_kernels(tb, version, args, scale, heads, tag):
+    """Past 256 keys a frame, the device kernels one call of version
+    ``version``'s wrapper launches, as torch.profiler traces them: v3 and
+    v7 the chunked stage 1, the GEMM and the V3 stage 2; v5 and v6 the k2v
+    GEMM, the own-frame launch and the q2 GEMM and the pass, both of them
+    in their chunked form (template argument CH = 2)."""
+    if version in SAME_FUNCTION:
+        launch = {3: tb._launch_v3, 7: tb._launch_v7}[version]
+        names = device_kernels(lambda: launch(*args[:6], scale, heads))
+        expect = [r"space_stage_chunked_kernel<", r"traj_gemm_kernel",
+                  r"traj_stage2_kernel<"]
+    else:
+        names = device_kernels(lambda: tb._launch_variant(
+            version, *args[:6], scale, heads))
+        expect = [r"traj_gemm_kernel", r"own_frame_kernel<\d+, 2>",
+                  r"traj_gemm_kernel", r"k2v_pass_kernel<\d+, [^,]+, 2>"]
+    if len(names) != len(expect) or not all(
+            re.search(e, n) for e, n in zip(expect, names)):
+        raise AssertionError(f"v{version} {tag}: device kernels {names}, "
+                             f"expected {expect}")
+    return names
 
 
 def check_k2v_outputs(tb, args, scale, heads, tag):
@@ -829,16 +979,19 @@ def phase_variants():
     their step-by-step plain versions (the gate) and against the plain
     trajectory core (gated for v3 and v7, which compute its function;
     reported for v5 and v6: their k2v identity holds only where every
-    head's stage-1 weights agree), at B = 8 and N = 196 and 200, and on the
-    two extreme inputs (gated for all); for v3 and v7 also the xs and q2
+    head's stage-1 weights agree), at B = 8 and N = 196 and 200, at the
+    HR-336 shapes past 256 keys a frame (B = 4 with N = 441 and 445, B = 2
+    with N = 257 and 512; their chunked forms, whose device kernels are
+    checked by name), and on the two extreme inputs at N = 196 and at N =
+    441 (gated for all); for v3 and v7 also the xs and q2
     they write against the plain stage 1 in their rounding, and two calls
     bit-equal; for v5 and v6 two calls bit-equal and v6's own-frame xs
     bit-equal to the x_diag both form (``check_k2v_outputs``), all of it
     also at B = 2 with N = 256, 65, and 24 at F = 4, and at one frame; the
     device launches a call (3 for v3 and v7, 4 for v5 and v6); kernel,
-    plain and
-    version-4 times on the same inputs (each
-    call from an idle card, and 20 back to back; and kernel 3's beside v7);
+    plain and version-4 times on the same inputs at B = 8 and at B = 4
+    with N = 441 and 445 (each call from an idle card, and 20 back to
+    back; and kernel 3's beside v7);
     one backward per version at B = 2 through _FusedCore against the
     version-4 gradients."""
     from focus_tpu_torch.ops import trajectory_block as tb
@@ -852,13 +1005,21 @@ def phase_variants():
     gen = torch.Generator(device=DEV)
     gen.manual_seed(8)
     results = {v: {"cases": [], "timing": []} for v in VERSIONS}
-    inputs = [(f"B=8 N={N}", core_inputs(8, N, gen)) for N in (196, 200)]
-    inputs += [(f"extreme {sign * mag}", extreme_inputs(sign, mag, gen))
+    # (tag, inputs, timed)
+    inputs = [(f"B=8 N={N}", core_inputs(8, N, gen), True)
+              for N in (196, 200)]
+    inputs += [(f"extreme {sign * mag}", extreme_inputs(sign, mag, gen),
+                False) for sign, mag in ((-1.0, 60.0), (1.0, 50.0))]
+    inputs += [(f"B={B} N={N}", core_inputs(B, N, gen), B == HR_BATCH)
+               for B, N in HR_KERNEL_CASES]
+    inputs += [(f"extreme {sign * mag} N=441",
+                extreme_inputs(sign, mag, gen, N=441), False)
                for sign, mag in ((-1.0, 60.0), (1.0, 50.0))]
-    for tag, args in inputs:
+    for tag, args, timed in inputs:
         true = tb.trajectory_core_reference(*[a.float() for a in args],
                                             scale, heads)
         extreme = tag.startswith("extreme")
+        chunked = args[1].shape[2] > tb.MAX_KEYS
         for v in VERSIONS:
             before = variant_counts(tb)
             out = run_version(tb, v, lambda: tb.fused_trajectory_core(
@@ -887,8 +1048,11 @@ def phase_variants():
                                                     heads, tag))
             elif v == 6:  # both k2v kernels' outputs, once per input
                 case.update(check_k2v_outputs(tb, args, scale, heads, tag))
+            if chunked:
+                case["device_kernels"] = check_variant_device_kernels(
+                    tb, v, args, scale, heads, tag)
             results[v]["cases"].append(case)
-            if not extreme:
+            if timed:
                 B, S, C_ = args[0].shape
                 N = args[1].shape[2]
                 t = {"case": tag,
@@ -1026,6 +1190,8 @@ def phase_variants():
                               "attention",
               **r})
         t = r["timing"][0]
+        hr = {x["case"]: x for x in r["timing"]}
+        hr441, hr445 = hr[f"B={HR_BATCH} N=441"], hr[f"B={HR_BATCH} N=445"]
         row = {
             "name": f"trajectory_block_v{v}", "route": "cuda",
             "source": VARIANT_SOURCES[v][0], "replaces": VARIANT_SOURCES[v][1],
@@ -1042,7 +1208,23 @@ def phase_variants():
                        "calls issued back to back between two events, the "
                        "mean",
             "shape": "B=8 S=1568 N=196 F=8 C=768 heads=12 "
-                     f"(S=1600: {r['timing'][1]['kernel_ms']:.4f} ms)"}
+                     f"(S=1600: {r['timing'][1]['kernel_ms']:.4f} ms)",
+            "hr336": {
+                "ms": hr441["kernel_ms"],
+                "ms_back_to_back": hr441["kernel_ms_back_to_back"],
+                "plain_ms": hr441["plain_ms"],
+                "bound_ms": hr441["bound_ms"],
+                "bound_by": hr441["bound_by"],
+                "v4_ms_same_inputs": hr441["v4_kernel_ms_same_inputs"],
+                "v4_ms_back_to_back_same_inputs":
+                    hr441["v4_kernel_ms_back_to_back_same_inputs"],
+                "ms_n445": hr445["kernel_ms"],
+                "ms_back_to_back_n445": hr445["kernel_ms_back_to_back"],
+                "plain_ms_n445": hr445["plain_ms"],
+                "bound_ms_n445": hr445["bound_ms"],
+                "v4_ms_same_inputs_n445": hr445["v4_kernel_ms_same_inputs"],
+                "shape": f"B={HR_BATCH} S=3528 N=441 (and S=3560 N=445) F=8 "
+                         "C=768 heads=12: the chunked form"}}
         if v == 7:
             row["v3_ms_same_inputs"] = t["v3_kernel_ms_same_inputs"]
         if v in (5, 6):
@@ -1998,29 +2180,29 @@ def check_kernel_1_launches(tb, args, scale, heads, tag):
 
 
 def hr_refusals(tb, gen):
-    """On the card: kernels 3 to 6 and 8 raise ValueError at N = 441
-    before any launch, and the backward (kernel 7) at N = 513."""
+    """On the card: the wrappers of kernels 1 and 3 to 8 raise ValueError
+    at N = 513 keys a frame before any launch."""
     from focus_tpu_torch.ops import trajectory_attention as ta
 
-    args = core_inputs(1, 441, gen)
-    q, kf, vf = args[:3]
+    N = 513
+    wide = core_inputs(1, N, gen)
+    q, kf, vf = wide[:3]
     (B, S, C), F = q.shape, kf.shape[1]
-    xs = torch.empty(B, S, F, C, dtype=torch.bfloat16, device=DEV)
+    xs_wide = torch.empty(B, S, F, C, dtype=torch.bfloat16, device=DEV)
     BH = B * C // 64
-    wide = core_inputs(1, 513, gen)
-    xs_wide = torch.empty(1, 8 * 513, F, C, dtype=torch.bfloat16, device=DEV)
     calls = {
-        "trajectory_block_v3": lambda: tb._launch_v3(*args[:6], 0.125, 12),
-        "trajectory_block_v7": lambda: tb._launch_v7(*args[:6], 0.125, 12),
-        "trajectory_block_v5": lambda: tb._launch_variant(5, *args[:6],
+        "trajectory_block": lambda: tb._launch(*wide[:6], 0.125, 12),
+        "trajectory_block_v3": lambda: tb._launch_v3(*wide[:6], 0.125, 12),
+        "trajectory_block_v7": lambda: tb._launch_v7(*wide[:6], 0.125, 12),
+        "trajectory_block_v5": lambda: tb._launch_variant(5, *wide[:6],
                                                           0.125, 12),
-        "trajectory_block_v6": lambda: tb._launch_variant(6, *args[:6],
+        "trajectory_block_v6": lambda: tb._launch_variant(6, *wide[:6],
                                                           0.125, 12),
-        "trajectory_block_bwd_n513": lambda: tb._launch_backward(
+        "trajectory_block_bwd": lambda: tb._launch_backward(
             *wide[:6], wide[0], xs_wide, wide[0], 0.125, 12),
         "space_stage": lambda: ta._launch(
-            q.reshape(BH, S, 64), kf.reshape(BH, F, 441, 64),
-            vf.reshape(BH, F, 441, 64), 0.125),
+            q.reshape(BH, S, 64), kf.reshape(BH, F, N, 64),
+            vf.reshape(BH, F, N, 64), 0.125),
     }
 
     def counts():
@@ -2036,9 +2218,8 @@ def hr_refusals(tb, gen):
             refused[name] = str(e).split(";")[0]
     torch.cuda.synchronize()
     if set(refused) != set(calls) or counts() != before:
-        raise AssertionError(f"N = 441 (kernel 7: 513): refused "
-                             f"{sorted(refused)}, launch counts {before} -> "
-                             f"{counts()}")
+        raise AssertionError(f"N = 513: refused {sorted(refused)}, launch "
+                             f"counts {before} -> {counts()}")
     return refused
 
 
@@ -2054,9 +2235,8 @@ def phase_hr336(smi):
     the other forward versions), clips per second and peak memory, and the
     verb and noun probabilities against the same model on the plain path
     (SLICE_PROB_ATOL, top-1 agreement SLICE_TOP1_MIN_SHARE, each head);
-    then kernels 3 to 6 and 8 refusing N = 441 and kernel 7 N = 513
-    before any launch. Returns kernel 1's and kernel 2's HR numbers for the kernels
-    line."""
+    then kernels 1 and 3 to 8 refusing N = 513 before any launch. Returns
+    kernel 1's and kernel 2's HR numbers for the kernels line."""
     from focus_tpu_torch.entry import hr_entry
     from focus_tpu_torch.ops import trajectory_block as tb
 
@@ -2122,7 +2302,7 @@ def phase_hr336(smi):
                        "heads, bf16, exact-erf GELU; N = 441 keys a frame "
                        "(445 in the ORViT blocks)",
               "hr336_ek_b4_clips_per_sec": clips_per_sec, **run,
-              "refused_at_n441_kernel_7_at_n513": refused,
+              "refused_at_n513": refused,
               "kernel_1": {"tolerance": f"max|err| <= {KERNEL_TOL_REL} x "
                                         "max|ref| for out, xs and q2; two "
                                         "calls bit-equal; "
@@ -2208,42 +2388,136 @@ def phase_flagship_fwd_versions(smi):
     return launches
 
 
+def phase_hr336_fwd_versions(smi, per_call):
+    """The HR-336 eval forward at batch 4 through ``hr_entry()`` under
+    FWD_VERSION 4, 3, 7, 5 and 6, one after the other on one model, each as
+    ``flagship_run`` drives it (12 launches of the chosen forward kernel
+    per forward, nine at N = 441 and three at 445, and none of the others;
+    verb and noun probabilities against the plain path); every version's
+    distance from version 4's probabilities is reported (v5 and v6 compute
+    another function at more than one head, ROADMAP.md section 3 defect
+    5). Then one ``hr_train_entry`` step at batch 2 from the same seed
+    under 4, 3, 7, 5 and 6, with its launch counts asserted (12 forward
+    calls of the version's kernel, each of its device count; 12 kernel-7
+    calls of ``per_call`` device kernels; under 5 also 12 kernel-1
+    recomputes of xs and q2), the loss and every gradient finite, and
+    under 3 and 7 the loss within TRAIN_LOSS_REL of version 4's on the same
+    batch. FWD_VERSION is 4 again after the phase, whatever happens.
+    Returns the launches of each version's kernel: over the SLICE_ITERS
+    timed forwards, and in its train step."""
+    from focus_tpu_torch.entry import hr_entry, hr_train_entry
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    result = {"phase": "slice", "name": "hr336_fwd_versions",
+              "model": "ORViT-MF-HR EK100 16x336 (configs/ORViT/"
+                       "EK_ORVIT_MF_HR.yaml), D=768, 12 layers, 12 heads, "
+                       "ORViT at [1,6,10], O=4, verb [97] and noun [300] "
+                       "heads, bf16, exact-erf GELU; N = 441 keys a frame "
+                       "(445 in the ORViT blocks); the trajectory core's "
+                       "forward kernel by FWD_VERSION"}
+    launches, problems, probs = {}, [], {}
+    device_per_call = {3: SAME_FUNCTION_DEVICE_LAUNCHES,
+                       7: SAME_FUNCTION_DEVICE_LAUNCHES,
+                       5: K2V_DEVICE_LAUNCHES, 6: K2V_DEVICE_LAUNCHES}
+    try:
+        fn, (video, boxes) = hr_entry(device=DEV, batch=HR_BATCH, seed=0)
+        for version in CORE_KERNELS:
+            tb.FWD_VERSION = version
+            report, counts, out = flagship_run(fn, video, boxes, HR_HEADS)
+            probs[version] = out[1]
+            if version != 4:
+                report["vs_fwd_version_4_max_abs_prob"] = {
+                    name: (probs[version][name] - probs[4][name]).abs()
+                    .max().item() for name in HR_HEADS}
+            if version in (5, 6):
+                report["vs_fwd_version_4_note"] = (
+                    "another function than version 4's at more than one "
+                    "head (ROADMAP.md section 3 defect 5)")
+            result[f"fwd_version_{version}"] = report
+            if not report["ok"]:
+                problems.append(version)
+            launches[version] = {"hr336": counts[CORE_KERNELS[version]]}
+        del fn, video, boxes, probs
+        torch.cuda.empty_cache()
+        # one train step per version at batch 2, from the same seed
+        loss_v4 = None
+        for version in CORE_KERNELS:
+            tb.FWD_VERSION = version
+            fn, batch = hr_train_entry(device=DEV, batch=2, seed=0)
+            depth = len(fn.model.blocks)
+            before = variant_counts(tb)
+            before["bwd_device"] = tb.BWD_DEVICE_LAUNCHES
+            loss = fn(*batch)["loss"].item()
+            torch.cuda.synchronize()
+            after = variant_counts(tb)
+            after["bwd_device"] = tb.BWD_DEVICE_LAUNCHES
+            got = {k: v - before[k] for k, v in after.items()}
+            key = f"v{version}"
+            expect = {k: 0 for k in got}
+            expect.update({key: depth, "bwd": depth,
+                           "bwd_device": depth * per_call})
+            if version == 5:  # v5 forms no xs: kernel 1 recomputes it
+                expect["v4"] = depth
+            if version != 4:
+                expect[f"{key}_device"] = depth * device_per_call[version]
+            nonfinite = [n for n, g in grads_of(fn.model).items()
+                         if not bool(torch.isfinite(g).all())]
+            step = {"batch": 2, "loss": loss, "launches": got,
+                    "expected": expect, "nonfinite_grads": nonfinite[:5]}
+            if version == 4:
+                loss_v4 = loss
+            else:
+                step["loss_rel_to_fwd_version_4"] = (abs(loss - loss_v4)
+                                                     / abs(loss_v4))
+            bad = got != expect or not math.isfinite(loss) or nonfinite
+            if version in SAME_FUNCTION:
+                bad = bad or step["loss_rel_to_fwd_version_4"] > TRAIN_LOSS_REL
+            if bad:
+                problems.append(f"train step {version}")
+            result[f"train_step_fwd_version_{version}"] = step
+            launches[version]["hr336_train"] = got[key]
+            del fn, batch
+            torch.cuda.empty_cache()
+    finally:
+        tb.FWD_VERSION = 4
+    emit({**result, "ok": not problems,
+          "rule": "each forward as flagship_run holds it (12 launches of the "
+                  "version's kernel and none of the others', probabilities "
+                  f"within {SLICE_PROB_ATOL} of the plain path's, top-1 "
+                  f"agreement >= {SLICE_TOP1_MIN_SHARE}, each head); each "
+                  "train step's launch counts, a finite loss and finite "
+                  "gradients, and under 3 and 7 the loss within "
+                  f"{TRAIN_LOSS_REL} (relative) of version 4's",
+          "gpu": smi})
+    if problems:
+        raise AssertionError(f"HR-336 forward or train step failed under "
+                             f"FWD_VERSION {problems}")
+    return launches
+
+
 def phase_learned_v(smi):
     """The learned-v slice: 12 ``TrajectoryAttentionBlock(768, 12,
     qkv_bias=True, use_original_code=False)`` with seeded init-scale
     weights on x [8, 1569, 768] bf16, thw (8, 14, 14)
     (``profile_block.learned_v_stack``): eval ms per stack with 12 space-
     stage launches per stack, peak memory, the output against the plain
-    path; then at batch 2 one forward and backward of sum(out * target) /
-    numel through the kernel (bf16) against the float32 plain path, the
-    bf16 plain path beside it."""
+    path (``learned_v_eval``); the same at the 336 crop, thw (8, 21, 21),
+    x [4, 3529, 768] (N = 441 keys a frame, kernel 8's chunked form); then
+    at batch 2 one forward and backward of sum(out * target) / numel
+    through the kernel (bf16) against the float32 plain path, the bf16
+    plain path beside it. Returns the launches of the timed stacks at 224
+    and at 336."""
     from focus_tpu_torch.ops import trajectory_attention as ta
     from focus_tpu_torch.profile_block import learned_v_stack
 
+    hr_model, hr_x = learned_v_stack(device=DEV, batch=HR_BATCH, seed=0,
+                                     hr=True)
+    hr_eval = learned_v_eval(ta, hr_model, hr_x)
+    del hr_model, hr_x
+    torch.cuda.empty_cache()
     model, x = learned_v_stack(device=DEV, batch=8, seed=0)
     depth = len(model.blocks)
-    with torch.no_grad():
-        for _ in range(2):
-            model(x)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ta.LAUNCHES = 0
-        t0 = time.perf_counter()
-        for _ in range(SLICE_ITERS):
-            out = model(x)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = ta.LAUNCHES
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if launches != depth * SLICE_ITERS:
-            raise AssertionError(f"space_stage launches {launches}, "
-                                 f"expected {depth * SLICE_ITERS}")
-        model.use_kernels = False
-        plain = model(x)
-        model.use_kernels = True
-        torch.cuda.synchronize()
-    err, ref_max = check_close("learned_v stack vs plain path", out, plain)
-    del out, plain
+    run = learned_v_eval(ta, model, x)
 
     # batch 2: forward and backward, kernel path (bf16) vs plain float32,
     # and the bf16 plain path beside it
@@ -2305,13 +2579,11 @@ def phase_learned_v(smi):
                    "use_original_code=False), init-scale weights N(0, "
                    "0.02^2) seed 0, x [8, 1569, 768] bf16 (numpy seed 0), "
                    "thw (8, 14, 14)",
-          "batch": 8, "timed_stacks": SLICE_ITERS,
-          "ms_per_stack": 1e3 * seconds / SLICE_ITERS,
-          "peak_memory_gb": peak_gb, "space_stage_launches": launches,
-          "space_stage_launches_per_stack": launches / SLICE_ITERS,
-          "vs_plain_path": {"max_abs_err": err, "max_abs_ref": ref_max,
-                            "rule": f"max|err| <= {KERNEL_TOL_REL} x "
-                                    "max|ref| (both bf16)"},
+          "batch": 8, **run,
+          "hr336": {"model": "the same stack at the 336 crop: x [4, 3529, "
+                             "768] bf16 (numpy seed 0), thw (8, 21, 21), N "
+                             "= 441 keys a frame (kernel 8's chunked form)",
+                    "batch": HR_BATCH, **hr_eval},
           "train_batch_2": {
               "loss": k["loss"], "plain_f32_loss": ref["loss"],
               "plain_bf16_loss": pb["loss"], "loss_rel_err": loss_rel,
@@ -2334,7 +2606,44 @@ def phase_learned_v(smi):
         raise AssertionError(f"learned_v slice: {problems[:5]}")
     del model, x
     torch.cuda.empty_cache()
-    return launches
+    return run["space_stage_launches"], hr_eval["space_stage_launches"]
+
+
+def learned_v_eval(ta, model, x):
+    """The stack's eval forward on x: 2 warm-up and SLICE_ITERS timed
+    stacks with kernel 8's launch count reset just before them (one a
+    block asserted), ms per stack, peak memory, and the last output
+    against the plain path (KERNEL_TOL_REL, both bf16)."""
+    depth = len(model.blocks)
+    with torch.no_grad():
+        for _ in range(2):
+            model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ta.LAUNCHES = 0
+        t0 = time.perf_counter()
+        for _ in range(SLICE_ITERS):
+            out = model(x)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ta.LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if launches != depth * SLICE_ITERS:
+            raise AssertionError(f"space_stage launches {launches}, "
+                                 f"expected {depth * SLICE_ITERS}")
+        model.use_kernels = False
+        plain = model(x)
+        model.use_kernels = True
+        torch.cuda.synchronize()
+    err, ref_max = check_close(
+        f"learned_v stack vs plain path, x {list(x.shape)}", out, plain)
+    return {"timed_stacks": SLICE_ITERS,
+            "ms_per_stack": 1e3 * seconds / SLICE_ITERS,
+            "peak_memory_gb": peak_gb, "space_stage_launches": launches,
+            "space_stage_launches_per_stack": launches / SLICE_ITERS,
+            "vs_plain_path": {"max_abs_err": err, "max_abs_ref": ref_max,
+                              "rule": f"max|err| <= {KERNEL_TOL_REL} x "
+                                      "max|ref| (both bf16)"}}
 
 
 def grads_of(model):
@@ -2658,10 +2967,12 @@ def main():
             f"FWD_VERSION={version} (12 per forward, each "
             f"{row['device_launches_per_call']} device kernels; kernel 1's "
             "wrapper called 0 times in them)")
-    space["launches"] = phase_learned_v(smi)
+    space["launches"], space["launches_hr336"] = phase_learned_v(smi)
     space["launches_note"] = (
         f"over {SLICE_ITERS} eval forwards of the 12-block learned-v stack "
-        "(12 per stack)")
+        f"(12 per stack); launches_hr336 over {SLICE_ITERS} eval forwards of "
+        f"the stack at the 336 crop, batch {HR_BATCH} (N = 441, the chunked "
+        "form; hr336: its times at BH = 48)")
     trains = phase_train(smi, bwd["device_launches_per_call"])
     train = trains[4]
     traj["launches_train"] = train["trajectory_block"]
@@ -2690,6 +3001,17 @@ def main():
         f"; launches_hr336_train over {TRAIN_ITERS} HR-336 train steps at "
         f"batch {HR_BATCH} (N = 441 and 445, the dq kernel's chunked form; "
         "hr336: its times there)")
+    hr_versions = phase_hr336_fwd_versions(
+        smi, bwd["device_launches_per_call"])
+    for row, version in ((v3, 3), (v7, 7), (v5, 5), (v6, 6)):
+        row["launches_hr336"] = hr_versions[version]["hr336"]
+        row["launches_hr336_train"] = hr_versions[version]["hr336_train"]
+        row["launches_note"] += (
+            f"; launches_hr336 over {SLICE_ITERS} HR-336 forwards at batch "
+            f"{HR_BATCH} under FWD_VERSION={version} (12 per forward, nine "
+            "at N = 441 and three at 445, the chunked form; hr336: its "
+            "times at B = 4); launches_hr336_train in one HR-336 train step "
+            f"at batch 2 under FWD_VERSION={version} (12)")
     steve_model = steve_entry(device=DEV, batch=8)[0].model
     ar = phase_ar_decode(steve_model)
     arq = phase_ar_decode_w8a8(steve_model)

@@ -17,15 +17,16 @@ the same inputs:
     on an extreme input, and at B = 2, N = 65 and 256 (the narrowest and
     widest key widths at N <= 256); ``torch.equal`` on every output, and
     beside it the largest difference of the two builds' outputs over the
-    other's largest value. No comparison at N > 256: kernel 1 takes such N
-    since its chunked stage 1, which an older build refuses;
+    other's largest value. Kernel 1 also at B = 2, N = 441 and 512 (its
+    chunked stage 1, which the other build has too where it takes such N).
+    Kernels 3 to 6 and 8 are compared at N <= 256 alone: a build from
+    before their chunked forms refuses more keys a frame;
   - kernel 7 (``traj_core_bwd_bf16``, the backward) bit for bit on all six
     gradients at B = 8, N = 196 and 200, B = 2, N = 232 (its dq kernel's
     NP = 256 form) and an extreme input, from the xs and q2 of this tree's
     kernel 1 on the same inputs; and at B = 8, N = 196 the other build,
     this one, this one, the other in turns (the median of 20 per-call
-    times). N > 256 has no parent to compare against: the backward takes
-    such N since its chunked dq kernel, which an older build refuses;
+    times); and at B = 2, N = 441 and 512 (its chunked dq kernel);
   - kernel 1 (``traj_core_bf16``) at B = 8, N = 196 and 200: the other
     build, this one, this one, the other, each the median of 20 per-call
     CUDA-event times, and each build's output against the plain version;
@@ -263,7 +264,9 @@ def main():
               ("B=8 N=200", core_inputs(8, 200, gen)),
               ("extreme -60", extreme_inputs(gen)),
               ("B=2 N=65", core_inputs(2, 65, gen)),
-              ("B=2 N=256", core_inputs(2, 256, gen))]
+              ("B=2 N=256", core_inputs(2, 256, gen)),
+              ("B=2 N=441", core_inputs(2, 441, gen)),
+              ("B=2 N=512", core_inputs(2, 512, gen))]
     for tag, a in inputs:
         mine = tb._launch(*a, scale, heads)
         with use(tb, "_kernel_fn", lambda: parent["v4"]):
@@ -274,6 +277,8 @@ def main():
         emit({"compare": "trajectory_block", "case": tag,
               "outputs": ["out", "xs", "q2"], "bitwise_equal": same})
         del mine, theirs
+        if a[1].shape[2] > tb.MAX_KEYS:
+            continue  # kernels 3 to 6: no parent past 256 keys a frame
         for version in (3, 7, 5, 6):
             attr, launch, other = forward_version(parent, version)
             mine = outputs(launch(*a, scale, heads))
@@ -300,7 +305,9 @@ def main():
     for tag, a in (("B=8 N=196", core_inputs(8, 196, gen)),
                    ("B=8 N=200", core_inputs(8, 200, gen)),
                    ("B=2 N=232", core_inputs(2, 232, gen)),
-                   ("extreme -60", extreme_inputs(gen))):
+                   ("extreme -60", extreme_inputs(gen)),
+                   ("B=2 N=441", core_inputs(2, 441, gen)),
+                   ("B=2 N=512", core_inputs(2, 512, gen))):
         dout = (torch.randn(a[0].shape, generator=gen, device="cuda")
                 * 0.1).bfloat16()
         _, xs, q2 = tb._launch(*a, scale, heads)

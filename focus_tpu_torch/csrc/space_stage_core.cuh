@@ -71,20 +71,22 @@
 // leaves, one turn later. With V3 false the arithmetic is the space
 // stage's, bit for bit.
 //
-// Chunked form (CH = 2; kernel 1 alone, at SS_MAX_NP < N <= SS_MAX_KEYS:
-// the 336 crop's N = 441, 445). A frame's logits at NP = 448 would take
-// 224 registers a consumer thread, and one frame's K and V 115 KB, so a
-// frame's keys go in two chunks of 224 (of 256 past N = 448) and the ring's
-// unit is a (frame, chunk) slot of 57 KB: three of them beside the Q ring
-// and one staging tile a warpgroup (a frame leaves every second turn). A
-// turn issues P . V of the chunk before and the logits of this chunk; the
-// softmax runs online across a frame's chunks (ss_chunk_softmax: chunk 0
-// starts the row max m and sum l, chunk 1 raises m and scales l and the
-// P . V sums by exp(m_old - m_new) after chunk 0's P . V has completed and
-// before its own accumulates), the weights are packed unnormalised
-// relative to the running max, and the frame's float32 sums are scaled by
-// 1 / l before the bf16 store: the rounding of the mode V3, which moves
-// kernel 1's rounding point at N > 256 only. Bound at B x heads = 48, S =
+// Chunked form (CH = 2, at SS_MAX_NP < N <= SS_MAX_KEYS: the 336 crop's N
+// = 441, 445; kernel 1's stage 1 and so kernels 3 and 4's, kernel 8, and in
+// the own-frame mode kernels 5 and 6's x_diag). A frame's logits at NP =
+// 448 would take 224 registers a consumer thread, and one frame's K and V
+// 115 KB, so a frame's keys go in two chunks of 224 (of 256 past N = 448)
+// and the ring's unit is a (frame, chunk) slot of 57 KB: three of them
+// beside the Q ring and one staging tile a warpgroup (a frame leaves every
+// second turn). A turn issues P . V of the chunk before and the logits of
+// this chunk; the softmax runs online across a frame's chunks
+// (ss_chunk_softmax: chunk 0 starts the row max m and sum l, chunk 1 raises
+// m and scales l and the P . V sums by exp(m_old - m_new) after chunk 0's
+// P . V has completed and before its own accumulates), the weights are
+// packed unnormalised relative to the running max, and the frame's float32
+// sums are scaled by 1 / l before the bf16 store: the rounding of the mode
+// V3, which moves the rounding point of kernels 1, 5, 6 and 8 at N > 256
+// only (kernels 3 and 4 round there already). Bound at B x heads = 48, S =
 // 3528, F = 8, N = 441 (B = 4, the HR batch): 152.9 GFLOP (0.155 ms at 989
 // TFLOP/s) against 238 MB (the output 173 MB; 0.071 ms), so operations.
 //
@@ -113,8 +115,9 @@ constexpr int SS_THREADS = 128 * (SS_WG + 1);   // and the producer's
 constexpr int SS_PRODUCER_REGS = 40;
 constexpr int SS_CONSUMER_REGS = 232;
 constexpr int SS_MAX_NP = 256;
-// the chunked form (kernel 1 alone, N > SS_MAX_NP): a frame's keys in
-// SS_CHUNKS chunks of at most SS_MAX_NP, up to SS_MAX_KEYS keys a frame
+// the chunked form (N > SS_MAX_NP; every stage-1 kernel and the k2v pass):
+// a frame's keys in SS_CHUNKS chunks of at most SS_MAX_NP, up to
+// SS_MAX_KEYS keys a frame
 constexpr int SS_MAX_KEYS = 512;
 constexpr int SS_CHUNKS = 2;
 constexpr int SS_MAX_STAGES = 4;
@@ -246,20 +249,20 @@ __device__ __forceinline__ void ss_frame_softmax(float (&sacc)[NP / 2],
   }
 }
 
-// The softmax of one chunk of a frame's keys in the chunked form (keys
+// The weights of one chunk of a frame's keys in the chunked form (keys
 // 0 .. nvalid - 1 of the chunk exist; the accumulators' layout as above),
-// online across the frame's chunks: the first chunk (first) starts the
-// rows' running max m and sum l; a later one raises m where its logits do
-// and scales l and the frame's P . V sums so far (oacc, complete: the
-// chunk before's P . V ran in this turn) by exp(m_old - m_new). The
-// weights are packed unnormalised, relative to the running max, as in the
-// rounding mode V3; the caller scales the frame's sums by 1 / l before
-// the bf16 store.
+// the softmax online across the frame's chunks: the first chunk (first)
+// starts the rows' running max m and sum l; a later one raises m where its
+// logits do and scales l by a = exp(m_old - m_new), which it also returns
+// (a0, a1 of the two rows), for the caller to scale the frame's sums so
+// far by. The weights are packed unnormalised, relative to the running
+// max, as in the rounding mode V3; the caller scales the frame's sums by
+// 1 / l before the bf16 store.
 template <int NP>
-__device__ __forceinline__ void ss_chunk_softmax(
-    float (&sacc)[NP / 2], uint32_t (&pa)[NP / 16][4], float (&oacc)[32],
-    int nvalid, bool first, int t4, float scale_log2e, float& m0, float& m1,
-    float& l0, float& l1) {
+__device__ __forceinline__ void ss_chunk_weights(
+    float (&sacc)[NP / 2], uint32_t (&pa)[NP / 16][4], int nvalid,
+    bool first, int t4, float scale_log2e, float& m0, float& m1, float& l0,
+    float& l1, float& a0, float& a1) {
   float c0 = -INFINITY, c1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < NP / 8; ++j)
@@ -300,13 +303,12 @@ __device__ __forceinline__ void ss_chunk_softmax(
   if (first) {
     l0 = s0;
     l1 = s1;
+    a0 = a1 = 1.f;
   } else {  // exp(m_old - m_new): 1 where the chunk left the max as it was
-    const float a0 = ss_exp2(__fmul_rn(m0, scale_log2e) - mb0);
-    const float a1 = ss_exp2(__fmul_rn(m1, scale_log2e) - mb1);
+    a0 = ss_exp2(__fmul_rn(m0, scale_log2e) - mb0);
+    a1 = ss_exp2(__fmul_rn(m1, scale_log2e) - mb1);
     l0 = fmaf(l0, a0, s0);
     l1 = fmaf(l1, a1, s1);
-#pragma unroll
-    for (int e = 0; e < 32; ++e) oacc[e] *= (e & 2) ? a1 : a0;
   }
   m0 = n0;
   m1 = n1;
@@ -317,6 +319,28 @@ __device__ __forceinline__ void ss_chunk_softmax(
     pa[kk][2] = pack_bf16x2(sacc[8 * kk + 4], sacc[8 * kk + 5]);
     pa[kk][3] = pack_bf16x2(sacc[8 * kk + 6], sacc[8 * kk + 7]);
   }
+}
+
+// the frame's sums so far (oacc, complete: the chunk before's P . V ran in
+// this turn) scaled by a later chunk's exp(m_old - m_new) of their row
+__device__ __forceinline__ void ss_rescale(float (&oacc)[32], float a0,
+                                           float a1) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) oacc[e] *= (e & 2) ? a1 : a0;
+}
+
+// The softmax of one chunk (ss_chunk_weights) with the frame's P . V sums
+// so far rescaled, as the stage-1 kernel body runs it; the k2v pass
+// (trajectory_k2v.cuh) rescales its second sums, P . k2v, by the same a
+template <int NP>
+__device__ __forceinline__ void ss_chunk_softmax(
+    float (&sacc)[NP / 2], uint32_t (&pa)[NP / 16][4], float (&oacc)[32],
+    int nvalid, bool first, int t4, float scale_log2e, float& m0, float& m1,
+    float& l0, float& l1) {
+  float a0, a1;
+  ss_chunk_weights<NP>(sacc, pa, nvalid, first, t4, scale_log2e, m0, m1, l0,
+                       l1, a0, a1);
+  if (!first) ss_rescale(oacc, a0, a1);
 }
 
 // The frames a unit of 128 query rows from s0 visits, [lo, hi): all F, or
@@ -330,22 +354,22 @@ __device__ __forceinline__ void ss_unit_frames(int s0, int S, int F, int N,
 
 // The kernel's body. With DIAG (the own-frame mode of the trajectory
 // core's forward versions 5 and 6) a unit visits only the frames its rows
-// lie in (one or two at N = 196) and each row's own frame alone leaves, as
-// diag[b, s, head] ([B, S, C]) by plain stores from the registers; o_map
-// is not used then, and diag is not used otherwise. With CH > 1 (the
-// chunked form, kernel 1 at N > SS_MAX_NP) NP is the width of a chunk: a
+// lie in (one or two at N = 196 and 441) and each row's own frame alone
+// leaves, as diag[b, s, head] ([B, S, C]) by plain stores from the
+// registers; o_map is not used then, and diag is not used otherwise. With
+// CH > 1 (the chunked form, N > SS_MAX_NP) NP is the width of a chunk: a
 // slot of the ring holds one chunk of a frame's keys (keys c NP .. c NP +
 // NP - 1 of chunk c; keys past N read as zero), a turn issues P . V of the
 // chunk before and the logits of this chunk, the softmax runs online
 // across a frame's chunks (ss_chunk_softmax), and a frame leaves after its
-// last chunk's P . V, its sums scaled by 1 / l.
+// last chunk's P . V, its sums scaled by 1 / l (in both modes).
 template <int NP, bool V3, bool DIAG, int CH = 1>
 __device__ __forceinline__ void space_stage_body(
     const CUtensorMap* q_map, const CUtensorMap* k_map,
     const CUtensorMap* v_map, const CUtensorMap* o_map, bf16* diag, int BH,
     int heads, int S, int F, int N, float scale_log2e) {
   static_assert(!(V3 && DIAG), "the own-frame mode rounds as the space stage");
-  static_assert(CH == 1 || !(V3 || DIAG), "the chunked form is kernel 1's");
+  static_assert(CH == 1 || !V3, "the chunked form rounds as V3 already");
   constexpr int KV_TILE = NP * SS_ROW_BYTES;
   constexpr int STAGES = ss_stages(NP, CH);
   constexpr int OUT_SLOTS = ss_out_slots(CH);
@@ -429,7 +453,7 @@ __device__ __forceinline__ void space_stage_body(
   uint32_t phase = 0;
   uint32_t pa[NP / 16][4];  // P of the frame before, bf16 A fragments
   float oacc[32];
-  float pinv0 = 0.f, pinv1 = 0.f;  // V3, CH > 1: its rows' 1 / s
+  float pinv0 = 0.f, pinv1 = 0.f;  // V3, CH > 1: its rows' 1 / s (or l)
   float rm0 = 0.f, rm1 = 0.f, rl0 = 0.f, rl1 = 0.f;  // CH > 1: running m, l
   for (int unit = blockIdx.x; unit < units; unit += gridDim.x, ++u) {
     const int bh = unit / tiles;
@@ -485,6 +509,7 @@ __device__ __forceinline__ void space_stage_body(
       if (pv && frame_done) {  // frame pf is complete: its output leaves
         const int r0 = 16 * warp + g, r1 = r0 + 8;
         if constexpr (DIAG) {  // the rows whose own frame it is
+          if constexpr (CH > 1) ss_rescale(oacc, pinv0, pinv1);  // 1 / l
           const int C = heads * SS_HD;
           const int s_0 = row0 + r0, s_1 = row0 + r1;
           bf16* o0 = diag + ((size_t)b * S + s_0) * C + c0 + 2 * t4;
@@ -567,7 +592,7 @@ __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_kernel(
                                   BH, heads, S, F, N, scale_log2e);
 }
 
-// the chunked form (kernel 1 at N > SS_MAX_NP), NP keys a chunk
+// the chunked form (N > SS_MAX_NP), NP keys a chunk
 template <int NP>
 __global__ void __launch_bounds__(SS_THREADS, 1) space_stage_chunked_kernel(
     const __grid_constant__ CUtensorMap q_map,
@@ -689,6 +714,22 @@ cudaError_t launch_space_stage_keys(const bf16* q, const bf16* kf,
       return launch_space_stage<256, V3>(q, kf, vf, out, B, heads, S, F, N,
                                          scale, st);
   }
+}
+
+// the chunked form for SS_MAX_NP < N <= SS_MAX_KEYS (the 336 crop: N =
+// 441, 445), two chunks of ss_chunk_keys(N) keys: kernel 1's stage 1 (and
+// so kernels 3 and 4's) at heads of 64 channels side by side, kernel 8 at
+// heads = 1, B = BH
+inline cudaError_t launch_space_stage_chunked(const bf16* q, const bf16* kf,
+                                              const bf16* vf, bf16* out,
+                                              int B, int heads, int S, int F,
+                                              int N, float scale,
+                                              cudaStream_t st) {
+  if (ss_chunk_keys(N) == 224)
+    return launch_space_stage<224, false, SS_CHUNKS>(q, kf, vf, out, B, heads,
+                                                     S, F, N, scale, st);
+  return launch_space_stage<256, false, SS_CHUNKS>(q, kf, vf, out, B, heads,
+                                                   S, F, N, scale, st);
 }
 
 inline bool aligned16(const void* p) {

@@ -31,21 +31,35 @@
 // TMA output stores. At N = 196 and 200 the keys pad to 208 (one m64n208
 // wgmma), three K/V slots fit beside the Q ring and the staging tiles (227
 // KB), one block an SM.
+//
+// Past 256 keys a frame (N <= 512: the learned-v model at the 336 crop, N =
+// 441) the header's chunked form runs, kernel 1's at N > 256: two chunks of
+// 224 keys a frame (256 past N = 448), a ring slot a chunk, the softmax
+// online across the chunks, the weights rounded unnormalised and the
+// frame's sums scaled by 1 / l (the TPU kernel, and this one at N <= 256,
+// normalise before the rounding). Bound at BH = 48, S = 3528, N = 441:
+// 152.9 GFLOP (0.155 ms) against 238 MB (0.071 ms), so operations.
 
 #include "space_stage_core.cuh"
 
 // q [BH, S, d]; kf, vf [BH, F, N, d]; out [BH, S, F, d]; all bf16 and
-// contiguous from 16-byte boundaries, with S = F * N, d = 64, N <= 256.
+// contiguous from 16-byte boundaries, with S = F * N, d = 64, N <= 512.
 // Launches one kernel on ``stream`` and returns the first cudaError_t met.
 extern "C" int space_stage_bf16(const void* q, const void* kf, const void* vf,
                                 void* out, int BH, int S, int F, int N, int d,
                                 float scale, void* stream) {
-  if (BH <= 0 || N <= 0 || N > SS_MAX_NP || F <= 0 || S != F * N ||
+  if (BH <= 0 || N <= 0 || N > SS_MAX_KEYS || F <= 0 || S != F * N ||
       d != SS_HD || !aligned16(q) || !aligned16(kf) || !aligned16(vf) ||
       !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_space_stage_keys(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(kf),
-      static_cast<const bf16*>(vf), static_cast<bf16*>(out), BH, 1, S, F, N,
-      scale, static_cast<cudaStream_t>(stream));
+  const auto* q_ = static_cast<const bf16*>(q);
+  const auto* kf_ = static_cast<const bf16*>(kf);
+  const auto* vf_ = static_cast<const bf16*>(vf);
+  auto* out_ = static_cast<bf16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N > SS_MAX_NP)
+    return (int)launch_space_stage_chunked(q_, kf_, vf_, out_, BH, 1, S, F, N,
+                                           scale, st);
+  return (int)launch_space_stage_keys(q_, kf_, vf_, out_, BH, 1, S, F, N,
+                                      scale, st);
 }

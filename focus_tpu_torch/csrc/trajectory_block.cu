@@ -11,7 +11,8 @@
 //     over that frame's N keys, then P . v_f, written as xs[b, s, f, head]
 //     in bf16; a persistent grid of one block an SM, a TMA producer
 //     warpgroup and two ping-pong wgmma consumer warpgroups, TMA output
-//     stores.
+//     stores; past 256 keys a frame (N <= 512) its chunked form, the same
+//     kernel in both roundings below.
 //   stage 2a (a tiled GEMM, trajectory_core.cuh): q2 = x_diag . Wq2 + bq2,
 //     where the own-frame row x_diag = xs[b, s, s / N] is gathered as the
 //     tiles are copied in.
@@ -412,30 +413,19 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
   }
 }
 
-// stage 1 at SS_MAX_NP < N <= SS_MAX_KEYS (the 336 crop: N = 441, 445):
-// the chunked form, two chunks of 224 keys up to N = 448, else of 256
-cudaError_t launch_space_stage_chunked(const bf16* q, const bf16* kf,
-                                       const bf16* vf, bf16* out, int B,
-                                       int heads, int S, int F, int N,
-                                       float scale, cudaStream_t st) {
-  if (ss_chunk_keys(N) == 224)
-    return launch_space_stage<224, false, SS_CHUNKS>(q, kf, vf, out, B, heads,
-                                                     S, F, N, scale, st);
-  return launch_space_stage<256, false, SS_CHUNKS>(q, kf, vf, out, B, heads,
-                                                   S, F, N, scale, st);
-}
-
 // the three launches on ``st``, each counted in *launched; N <= SS_MAX_KEYS
-// in the rounding of version 4 (stage 1 in its chunked form past
-// SS_MAX_NP), N <= SS_MAX_NP in the mode V3
+// in both roundings. Past SS_MAX_NP stage 1 is the chunked form in both
+// (launch_space_stage_chunked), whose weights are rounded unnormalised as
+// the mode V3 rounds them, so the mode V3 runs kernel 1's stage 1 there and
+// its xs is kernel 1's; its GEMM (the scaled second output) and stage 2
+// stay its own
 template <bool V3>
 int traj_core_run(const void* q, const void* kf, const void* vf,
                   const void* wq2, const void* bq2, const void* wk2, void* xs,
                   void* q2, void* out, int* launched, int B, int S, int F,
                   int N, int C, int heads, float scale, cudaStream_t st) {
   *launched = 0;
-  constexpr int max_keys = V3 ? SS_MAX_NP : SS_MAX_KEYS;
-  if (B <= 0 || N <= 0 || N > max_keys || F <= 0 || F > MAX_F || S != F * N ||
+  if (B <= 0 || N <= 0 || N > SS_MAX_KEYS || F <= 0 || F > MAX_F || S != F * N ||
       heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0 ||
       !aligned16(q) || !aligned16(kf) || !aligned16(vf) || !aligned16(xs) ||
       !aligned16(q2) || !aligned16(out) || !aligned16(wk2))
@@ -447,7 +437,7 @@ int traj_core_run(const void* q, const void* kf, const void* vf,
   const auto* q_ = static_cast<const bf16*>(q);
   const auto* kf_ = static_cast<const bf16*>(kf);
   const auto* vf_ = static_cast<const bf16*>(vf);
-  err = !V3 && N > SS_MAX_NP
+  err = N > SS_MAX_NP
             ? launch_space_stage_chunked(q_, kf_, vf_, xs_, B, heads, S, F, N,
                                          scale, st)
             : launch_space_stage_keys<V3>(q_, kf_, vf_, xs_, B, heads, S, F,
@@ -520,9 +510,12 @@ extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
 }
 
 // The forward versions 3 and 7 (the rounding mode V3; one function, so one
-// design): the operands as traj_core_bf16's but N <= 256, xs and q2
-// written as it writes them (q2 unscaled, with its bias), as the backward
-// kernel reads them. The three launches are counted in *launched.
+// design): the operands as traj_core_bf16's (N <= 512; past 256 stage 1 is
+// kernel 1's chunked form, whose rounding is already V3's but for chunk 0's
+// weights, rounded against chunk 0's max and rescaled in float32 after the
+// product), xs and q2 written as it writes them (q2 unscaled, with its
+// bias), as the backward kernel reads them. The three launches are counted
+// in *launched.
 extern "C" int traj_core_v3_bf16(const void* q, const void* kf,
                                  const void* vf, const void* wq2,
                                  const void* bq2, const void* wk2, void* xs,

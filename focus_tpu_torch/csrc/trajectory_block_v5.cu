@@ -14,7 +14,9 @@
 // version 4 first.
 //
 // Rounding points (trajectory_core_k2v_mirror in ops/trajectory_block.py):
-// k2v, the normalised stage-1 weights P, x_diag and q2 are rounded to bf16;
+// k2v, the normalised stage-1 weights P (past 256 keys a frame the
+// unnormalised ones, the products' sums scaled by 1 / l), x_diag and q2
+// are rounded to bf16;
 // O_f, Y_f, the stage-2 logits and the frame softmax stay float32; out is
 // rounded once. The TPU kernel folds p a2 / s into bf16 weights instead.
 //
@@ -29,8 +31,8 @@
 // q [B, S, C]; kf, vf [B, F, N, C]; wq2, wk2 [C, C] ([in, out]); bq2 [C];
 // scratch k2v [B, F * N, C], x_diag [B, S, C] and q2 [B, S, C]; out
 // [B, S, C]; all bf16 and contiguous, S = F * N, C = heads * 64 (a
-// multiple of 128), F <= 8, N <= 256, heads <= 16. The launches made go
-// into *launched.
+// multiple of 128), F <= 8, N <= 512 (past 256 the chunked own-frame
+// launch and pass), heads <= 16. The launches made go into *launched.
 extern "C" int traj_core_v5_bf16(const void* q, const void* kf,
                                  const void* vf, const void* wq2,
                                  const void* bq2, const void* wk2, void* k2v,

@@ -58,6 +58,24 @@
 // warpgroup (222 KB); at NP = 256 two 96 KB slots with one Q tile and one
 // staging tile a warpgroup (226 KB).
 //
+// Chunked form (SS_MAX_NP < N <= SS_MAX_KEYS, the 336 crop's N = 441 and
+// 445): a frame's keys go in two chunks of ss_chunk_keys(N) (224 up to N =
+// 448, else 256), as in the stage-1 kernel's chunked form. Launch 2 is the
+// stage-1 body's chunked form in its own-frame mode. The pass's slot holds
+// K_c, V_c and k2v_c of one chunk (86 KB at 224 keys, 96 KB at 256: two
+// slots with one Q tile and one staging tile a warpgroup, 207 or 226 KB),
+// and a chunk takes the two turns a frame takes at N <= 256: its logits,
+// then P packed unnormalised against the running max (ss_chunk_weights)
+// and O_c = P . V_c, Y_c = P . k2v_c accumulated onto the frame's sums,
+// which a later chunk first rescales by exp(m_old - m_new) with l. After
+// the frame's last chunk O_f and Y_f are scaled by 1 / l, then l2, the
+// frame softmax and the mix run as at N <= 256. The arithmetic of O_f is
+// the own-frame launch's (the same ss_chunk_weights, product order and 1 /
+// l), so v6's own-frame xs is still x_diag's bits. The two accumulators
+// beside the frame's logits leave no registers for q2, which this form
+// reads at each frame's end. The weights are rounded unnormalised here,
+// where the pass normalises them before the rounding at N <= 256.
+//
 // Bounds on this card at B = 8, S = 1568, N = 196, 12 heads: the function
 // in this form needs 120.5 GFLOP (the k2v and q2 GEMMs 14.8 each, the pass
 // 90.9), 0.1219 ms at 989 TFLOP/s (chip_smoke.py k2v_flops); launch 2 adds
@@ -98,25 +116,28 @@ __host__ __device__ constexpr int k2v_pass_smem_bytes(int np) {
   return kp_fixed_bytes(np) + kp_stages(np) * kp_stage_bytes(np);
 }
 
-static_assert(kp_stages(208) >= 2 && kp_stages(SS_MAX_NP) >= 2,
-              "two frame slots at N <= 256");
+static_assert(kp_stages(208) >= 2 && kp_stages(SS_MAX_NP) >= 2 &&
+                  kp_stages(224) >= 2,
+              "two frame (or chunk) slots at N <= 512");
 
 // launch 2: the own-frame aggregates x_diag [B, S, C] on the space stage's
-// kernel body in its own-frame mode
-template <int NP>
+// kernel body in its own-frame mode (CH > 1: its chunked form, NP keys a
+// chunk)
+template <int NP, int CH>
 __global__ void __launch_bounds__(SS_THREADS, 1) own_frame_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, bf16* x_diag, int BH,
     int heads, int S, int F, int N, float scale_log2e) {
-  space_stage_body<NP, false, true>(&q_map, &k_map, &v_map, &k_map, x_diag,
-                                    BH, heads, S, F, N, scale_log2e);
+  space_stage_body<NP, false, true, CH>(&q_map, &k_map, &v_map, &k_map,
+                                        x_diag, BH, heads, S, F, N,
+                                        scale_log2e);
 }
 
 // q [B, S, C], kf / vf [B, F, N, C] -> x_diag [B, S, C]: row s's aggregate
 // over its own frame s / N alone, bit-equal to the space stage's row s of
 // that frame
-template <int NP>
+template <int NP, int CH>
 cudaError_t launch_own_frame(const bf16* q, const bf16* kf, const bf16* vf,
                              bf16* x_diag, int B, int heads, int S, int F,
                              int N, float scale, cudaStream_t st) {
@@ -124,9 +145,9 @@ cudaError_t launch_own_frame(const bf16* q, const bf16* kf, const bf16* vf,
   const bf16* kv[2] = {kf, vf};
   cudaError_t e = ss_input_maps<NP>(q, &qm, 2, kv, kvm, B, heads, S, F, N);
   if (e != cudaSuccess) return e;
-  constexpr int smem = ss_smem_bytes(NP);
+  constexpr int smem = ss_smem_bytes(NP, CH);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      own_frame_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      own_frame_kernel<NP, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return attr;
   int sms = 0;
@@ -134,7 +155,7 @@ cudaError_t launch_own_frame(const bf16* q, const bf16* kf, const bf16* vf,
   if (e != cudaSuccess) return e;
   const int units = B * heads * ((S + SS_ROWS - 1) / SS_ROWS);
   const int grid = units < sms ? units : sms;
-  own_frame_kernel<NP><<<grid, SS_THREADS, smem, st>>>(
+  own_frame_kernel<NP, CH><<<grid, SS_THREADS, smem, st>>>(
       qm, kvm[0], kvm[1], x_diag, B * heads, heads, S, F, N,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
@@ -142,8 +163,8 @@ cudaError_t launch_own_frame(const bf16* q, const bf16* kf, const bf16* vf,
 
 // q [B, S, C] and q2 [B, S, C] (unscaled, with its bias); K, V, k2v
 // [B F, N, C] through their maps; v6 (!V5) writes xs [B, S, F, C] through
-// xs_map; out [B, S, C]
-template <int NP, bool V5>
+// xs_map; out [B, S, C]. CH > 1: the chunked form, NP keys a chunk
+template <int NP, bool V5, int CH>
 __global__ void __launch_bounds__(SS_THREADS, 1) k2v_pass_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
@@ -199,19 +220,21 @@ __global__ void __launch_bounds__(SS_THREADS, 1) k2v_pass_kernel(
         mbar_wait(&q_empty[qs], ((u / QS) & 1) ^ 1);
         mbar_arrive_expect_tx(&q_full[qs], SS_Q_BYTES);
         tma_load_3d(qbuf + qs * SS_Q_BYTES, &q_map, &q_full[qs], c0, s0, b);
-        for (int f = 0; f < F; ++f) {
-          mbar_wait(&kv_empty[stage], phase ^ 1);
-          mbar_arrive_expect_tx(&kv_full[stage], 3 * KV_TILE);
-          unsigned char* kd = kv + stage * 3 * KV_TILE;
-          tma_load_3d(kd, &k_map, &kv_full[stage], c0, 0, b * F + f);
-          tma_load_3d(kd + KV_TILE, &v_map, &kv_full[stage], c0, 0, b * F + f);
-          tma_load_3d(kd + 2 * KV_TILE, &y_map, &kv_full[stage], c0, 0,
-                      b * F + f);
-          if (++stage == STAGES) {
-            stage = 0;
-            phase ^= 1;
+        for (int f = 0; f < F; ++f)
+          for (int c = 0; c < CH; ++c) {  // chunk c: keys from c NP
+            mbar_wait(&kv_empty[stage], phase ^ 1);
+            mbar_arrive_expect_tx(&kv_full[stage], 3 * KV_TILE);
+            unsigned char* kd = kv + stage * 3 * KV_TILE;
+            tma_load_3d(kd, &k_map, &kv_full[stage], c0, c * NP, b * F + f);
+            tma_load_3d(kd + KV_TILE, &v_map, &kv_full[stage], c0, c * NP,
+                        b * F + f);
+            tma_load_3d(kd + 2 * KV_TILE, &y_map, &kv_full[stage], c0, c * NP,
+                        b * F + f);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
-        }
       }
     }
     return;
@@ -242,9 +265,10 @@ __global__ void __launch_bounds__(SS_THREADS, 1) k2v_pass_kernel(
     const int s_0 = row0 + r0, s_1 = row0 + r1;            // this thread's
     const int qs = u % QS;
     // q2 of the thread's two rows at its 16 channels of the head, as bf16
-    // pairs (rows past S: zero; they are not stored)
+    // pairs (rows past S: zero; they are not stored), read once a unit, or
+    // in the chunked form at each frame's end
     uint32_t qa[SS_HD / 8], qb[SS_HD / 8];
-    {
+    auto load_q2 = [&]() {
       const bf16* p0 = q2 + ((size_t)b * S + s_0) * C + c0 + 2 * t4;
       const bf16* p1 = p0 + (size_t)8 * C;
 #pragma unroll
@@ -252,7 +276,8 @@ __global__ void __launch_bounds__(SS_THREADS, 1) k2v_pass_kernel(
         qa[j] = s_0 < S ? ldg32(p0 + 8 * j) : 0u;
         qb[j] = s_1 < S ? ldg32(p1 + 8 * j) : 0u;
       }
-    }
+    };
+    if constexpr (CH == 1) load_q2();
     mbar_wait(&q_full[qs], (u / QS) & 1);
     const uint64_t dq = wgmma_desc_sw128(
         qbuf + qs * SS_Q_BYTES + wg * SS_WG_ROWS_BYTES, 16, 1024);
@@ -263,50 +288,76 @@ __global__ void __launch_bounds__(SS_THREADS, 1) k2v_pass_kernel(
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] = 0.f;
     for (int f = 0; f < F; ++f) {
-      unsigned char* slot = kv + stage * 3 * KV_TILE;
-      float sacc[NP / 2];
-      named_barrier(3 + wg, 256);  // this warpgroup's turn: the logits
-      mbar_wait(&kv_full[stage], phase);
-      wgmma_fence();
-      {  // logits: 4 k-steps of 16 channels, 32 bytes along a row
-        const uint64_t dk = wgmma_desc_sw128(slot, 16, 1024);
-#pragma unroll
-        for (int k = 0; k < SS_HD / 16; ++k)
-          wgmma_ss<NP>(sacc, dq + 2 * k, dk + 2 * k, k);
-      }
-      wgmma_commit();
-      named_barrier_arrive(3 + (1 - wg), 256);  // the other's turn
-      wgmma_wait<0>();
-      reg_fence(sacc);
-      if (f == F - 1) mbar_arrive(&q_empty[qs]);  // Q read for the last time
-      uint32_t pa[NP / 16][4];
-      float inv0, inv1;
-      ss_frame_softmax<NP, false>(sacc, pa, N, t4, scale_log2e, inv0, inv1);
-      // Y_f = P . k2v_f and O_f = P . V_f, both MN-major: a k-step is 16
-      // keys = 2048 bytes
+      // Y_f = P . k2v_f and O_f = P . V_f (in the chunked form summed over
+      // the frame's chunks, with the stage-1 softmax's running max and sum)
       float yacc[32], oacc[32];
-      named_barrier(3 + wg, 256);  // this warpgroup's turn: the products
-      wgmma_fence();
-      {
-        const uint64_t dv = wgmma_desc_sw128(slot + KV_TILE, 16, 1024);
-        const uint64_t dy = wgmma_desc_sw128(slot + 2 * KV_TILE, 16, 1024);
+      float rm0 = 0.f, rm1 = 0.f, rl0 = 0.f, rl1 = 0.f;
+      for (int c = 0; c < CH; ++c) {
+        const bool last = f == F - 1 && c == CH - 1;
+        unsigned char* slot = kv + stage * 3 * KV_TILE;
+        float sacc[NP / 2];
+        named_barrier(3 + wg, 256);  // this warpgroup's turn: the logits
+        mbar_wait(&kv_full[stage], phase);
+        wgmma_fence();
+        {  // logits: 4 k-steps of 16 channels, 32 bytes along a row
+          const uint64_t dk = wgmma_desc_sw128(slot, 16, 1024);
 #pragma unroll
-        for (int kk = 0; kk < NP / 16; ++kk)
-          wgmma_rs_n64_tb(yacc, pa[kk], dy + (uint64_t)(kk * 128), kk);
+          for (int k = 0; k < SS_HD / 16; ++k)
+            wgmma_ss<NP>(sacc, dq + 2 * k, dk + 2 * k, k);
+        }
+        wgmma_commit();
+        named_barrier_arrive(3 + (1 - wg), 256);  // the other's turn
+        wgmma_wait<0>();
+        reg_fence(sacc);
+        if (last) mbar_arrive(&q_empty[qs]);  // Q read for the last time
+        uint32_t pa[NP / 16][4];
+        if constexpr (CH > 1) {  // online across the chunks, unnormalised
+          float a0, a1;
+          ss_chunk_weights<NP>(sacc, pa, N - c * NP, c == 0, t4, scale_log2e,
+                               rm0, rm1, rl0, rl1, a0, a1);
+          if (c > 0) {  // the chunk before's sums, complete
+            ss_rescale(oacc, a0, a1);
+            ss_rescale(yacc, a0, a1);
+          }
+        } else {
+          float inv0, inv1;
+          ss_frame_softmax<NP, false>(sacc, pa, N, t4, scale_log2e, inv0,
+                                      inv1);
+        }
+        // both products MN-major: a k-step is 16 keys = 2048 bytes; a
+        // frame's first chunk starts its sums, a later one adds to them
+        const int add = CH > 1 && c > 0;
+        named_barrier(3 + wg, 256);  // this warpgroup's turn: the products
+        wgmma_fence();
+        {
+          const uint64_t dv = wgmma_desc_sw128(slot + KV_TILE, 16, 1024);
+          const uint64_t dy = wgmma_desc_sw128(slot + 2 * KV_TILE, 16, 1024);
 #pragma unroll
-        for (int kk = 0; kk < NP / 16; ++kk)
-          wgmma_rs_n64_tb(oacc, pa[kk], dv + (uint64_t)(kk * 128), kk);
+          for (int kk = 0; kk < NP / 16; ++kk)
+            wgmma_rs_n64_tb(yacc, pa[kk], dy + (uint64_t)(kk * 128),
+                            add | kk);
+#pragma unroll
+          for (int kk = 0; kk < NP / 16; ++kk)
+            wgmma_rs_n64_tb(oacc, pa[kk], dv + (uint64_t)(kk * 128),
+                            add | kk);
+        }
+        wgmma_commit();
+        if (!(wg == 1 && last_unit && last))      // the other's turn (none
+          named_barrier_arrive(3 + (1 - wg), 256);  // after the last)
+        wgmma_wait<0>();
+        reg_fence(yacc);
+        reg_fence(oacc);
+        mbar_arrive(&kv_empty[stage]);  // the slot is free
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
-      wgmma_commit();
-      if (!(wg == 1 && last_unit && f == F - 1))  // the other's turn (none
-        named_barrier_arrive(3 + (1 - wg), 256);  // after the last)
-      wgmma_wait<0>();
-      reg_fence(yacc);
-      reg_fence(oacc);
-      mbar_arrive(&kv_empty[stage]);  // the slot is free
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
+      if constexpr (CH > 1) {  // the frame's sums, normalised: 1 / l
+        const float i0 = 1.f / rl0, i1 = 1.f / rl1;
+        ss_rescale(oacc, i0, i1);
+        ss_rescale(yacc, i0, i1);
+        load_q2();
       }
 
       // l2_f = q2_h . Y_f * scale, a row's 64 channels on the quad's lanes
@@ -382,7 +433,7 @@ __global__ void __launch_bounds__(SS_THREADS, 1) k2v_pass_kernel(
   if (storer) tma_store_wait_all();
 }
 
-template <int NP, bool V5>
+template <int NP, bool V5, int CH>
 cudaError_t launch_k2v_pass(const bf16* q, const bf16* kf, const bf16* vf,
                             const bf16* k2v, const bf16* q2, bf16* xs,
                             bf16* out, int B, int heads, int S, int F, int N,
@@ -396,7 +447,8 @@ cudaError_t launch_k2v_pass(const bf16* q, const bf16* kf, const bf16* vf,
   if (e != cudaSuccess) return e;
   constexpr int smem = k2v_pass_smem_bytes(NP);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      k2v_pass_kernel<NP, V5>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k2v_pass_kernel<NP, V5, CH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return attr;
   int sms = 0;
@@ -404,39 +456,46 @@ cudaError_t launch_k2v_pass(const bf16* q, const bf16* kf, const bf16* vf,
   if (e != cudaSuccess) return e;
   const int units = B * heads * ((S + SS_ROWS - 1) / SS_ROWS);
   const int grid = units < sms ? units : sms;
-  k2v_pass_kernel<NP, V5><<<grid, SS_THREADS, smem, st>>>(
+  k2v_pass_kernel<NP, V5, CH><<<grid, SS_THREADS, smem, st>>>(
       qm, kvm[0], kvm[1], kvm[2], xm, q2, out, B * heads, heads, S, F, N,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-// launches 2 and 4 at the instantiated key width for N (N <= SS_MAX_NP)
+// launches 2, 3 and 4 at the instantiated key width for N (N <= SS_MAX_NP),
+// or past it in the chunked form, two chunks of ss_chunk_keys(N) keys
 template <bool V5>
 cudaError_t launch_k2v_keys(const bf16* q, const bf16* kf, const bf16* vf,
                             const bf16* k2v, bf16* x_diag, const bf16* wq2,
                             const bf16* bq2, bf16* q2, bf16* xs, bf16* out,
                             int B, int heads, int S, int F, int N,
                             float scale, int* launched, cudaStream_t st) {
-  auto run = [&](auto np) -> cudaError_t {
-    constexpr int NP = decltype(np)::value;
-    cudaError_t e = launch_own_frame<NP>(q, kf, vf, x_diag, B, heads, S, F,
-                                         N, scale, st);
+  auto run = [&](auto np, auto ch) -> cudaError_t {
+    constexpr int NP = decltype(np)::value, CH = decltype(ch)::value;
+    cudaError_t e = launch_own_frame<NP, CH>(q, kf, vf, x_diag, B, heads, S,
+                                             F, N, scale, st);
     if (e != cudaSuccess) return e;
     ++*launched;
     // row m of x_diag itself (F = S = N = 1 in the GEMM's gather)
     e = launch_gemm(x_diag, wq2, bq2, q2, B * S, 1, 1, 1, heads * HD, st);
     if (e != cudaSuccess) return e;
     ++*launched;
-    e = launch_k2v_pass<NP, V5>(q, kf, vf, k2v, q2, xs, out, B, heads, S, F,
-                                N, scale, st);
+    e = launch_k2v_pass<NP, V5, CH>(q, kf, vf, k2v, q2, xs, out, B, heads, S,
+                                    F, N, scale, st);
     if (e == cudaSuccess) ++*launched;
     return e;
   };
+  using one = std::integral_constant<int, 1>;
+  using chunks = std::integral_constant<int, SS_CHUNKS>;
+  if (N > SS_MAX_NP)
+    return ss_chunk_keys(N) == 224
+               ? run(std::integral_constant<int, 224>(), chunks())
+               : run(std::integral_constant<int, 256>(), chunks());
   switch (ss_padded_keys(N)) {
-    case 64: return run(std::integral_constant<int, 64>());
-    case 128: return run(std::integral_constant<int, 128>());
-    case 208: return run(std::integral_constant<int, 208>());
-    default: return run(std::integral_constant<int, 256>());
+    case 64: return run(std::integral_constant<int, 64>(), one());
+    case 128: return run(std::integral_constant<int, 128>(), one());
+    case 208: return run(std::integral_constant<int, 208>(), one());
+    default: return run(std::integral_constant<int, 256>(), one());
   }
 }
 
@@ -450,7 +509,7 @@ int traj_core_k2v(const void* q, const void* kf, const void* vf,
                   int B, int S, int F, int N, int C, int heads, float scale,
                   void* stream) {
   *launched = 0;
-  if (B <= 0 || N <= 0 || N > SS_MAX_NP || F <= 0 || F > MAX_F ||
+  if (B <= 0 || N <= 0 || N > SS_MAX_KEYS || F <= 0 || F > MAX_F ||
       S != F * N || heads <= 0 || heads > MAX_HEADS || C != heads * HD ||
       C % GN != 0 || !aligned16(q) || !aligned16(kf) || !aligned16(vf) ||
       !aligned16(k2v) || !aligned16(agg) || !aligned16(q2) || !aligned16(out))

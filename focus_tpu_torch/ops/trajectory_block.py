@@ -33,13 +33,14 @@ follow the TPU kernels step by step, and ``trajectory_core_v3_mirror``,
 ``trajectory_core_k2v_mirror`` and ``trajectory_core_chunked_mirror`` the
 card's kernels 3 / 4, 5 / 6 and kernel 1 at N > 256.
 
-Keys a frame: kernel 1 and the backward kernel take N <= 512 (the 336
-crop's 441 and 445; past 256 kernel 1's stage 1 runs in the chunked form,
-``csrc/space_stage_core.cuh``, and the backward's dq kernel in its own,
-``stage1_dq_chunked_kernel``), so version 4 trains there; kernels 3 to 6
-take N <= 256 and refuse more before any build (ROADMAP.md section 2 A1),
-and a forward of versions 3, 5, 6 or 7 at N > 256 that wants a gradient
-raises before it launches.
+Keys a frame: every forward kernel and the backward kernel take N <= 512
+(the 336 crop's 441 and 445) and refuse 513 before any build, so every
+version trains there. Past 256 the stage 1 of kernels 1, 3 and 4 and the
+own-frame launch of kernels 5 and 6 run in the chunked form of
+``csrc/space_stage_core.cuh`` (two chunks of ``chunk_keys`` keys a frame,
+the softmax online across them, the weights rounded unnormalised), the
+pass of kernels 5 and 6 in its own chunked form (``k2v_pass_plan``), and
+the backward's dq kernel in its own, ``stage1_dq_chunked_kernel``.
 
 Float32 operands on the card: the kernels take bf16 alone, so a CUDA call
 with a float32 operand (the ``TPU.COMPUTE_DTYPE: float32`` case, which the
@@ -55,6 +56,14 @@ import torch
 
 from focus_tpu_torch.ops import _build
 from focus_tpu_torch.ops import attention as attn_ops
+from focus_tpu_torch.ops import trajectory_attention as ta
+# the stage-1 kernel's chunked form past MAX_KEYS keys a frame, shared with
+# kernel 8 (csrc/space_stage_core.cuh)
+from focus_tpu_torch.ops.trajectory_attention import (
+    MAX_KEYS_CHUNKED,
+    STAGE1_CHUNKS,
+    chunk_keys,
+)
 
 # forward kernel launches since the last reset (one per wrapper call on the
 # card); BWD_LAUNCHES counts backward wrapper calls and BWD_DEVICE_LAUNCHES
@@ -76,8 +85,8 @@ FWD_VERSION = 4
 PORTED_FWD_VERSIONS = (3, 4, 5, 6, 7)
 
 HEAD_DIM = 64  # the kernels' head dim; also C % 128 == 0, F <= 8, heads <= 16
-MAX_KEYS = 256  # keys a frame, kernels 3 to 6
-MAX_KEYS_CHUNKED = 512  # keys a frame, kernels 1 and 7 (two chunks past MAX_KEYS)
+# keys a frame in one pass; past it (up to MAX_KEYS_CHUNKED) two chunks
+MAX_KEYS = 256
 
 
 def trajectory_core_stage1_reference(q, kf, vf, wq2, bq2, scale, heads):
@@ -156,62 +165,27 @@ def stage2_rows(M, sms=132, heads=12, v3=False):
     return 48 if waves[48] * 48 < waves[64] * 64 else 64
 
 
-STAGE1_CHUNKS = 2  # kernel 1's stage 1 past MAX_KEYS: a frame in two chunks
-
-
-def chunked_stage1_plan(BH, S, F, N, sms=132):
-    """Kernel 1's stage 1 at MAX_KEYS < N <= MAX_KEYS_CHUNKED, as
-    ``csrc/space_stage_core.cuh`` plans its chunked form: a ring slot holds
-    one chunk of a frame's keys (K and V, ``chunk_keys`` rows each), one
-    output staging tile a warpgroup (a frame leaves every second turn), as
-    many slots as fit beside them and the Q ring (at most four), and the
-    space stage's persistent grid of (bh, 128-query tile) units. Raises
-    ``ValueError`` where the chunked form takes no such N."""
-    from focus_tpu_torch.ops import trajectory_attention as ta
-
-    if not MAX_KEYS < N <= MAX_KEYS_CHUNKED:
-        raise ValueError(f"kernel 1's chunked stage 1 takes {MAX_KEYS} < N "
-                         f"<= {MAX_KEYS_CHUNKED} (N={N})")
-    cw = chunk_keys(N)
-    row = 2 * HEAD_DIM
-    rows, consumers, out_slots = 128, 2, 1
-    fixed = 1024 + 2 * rows * row + consumers * out_slots * 64 * row + 1024
-    stage = 2 * cw * row
-    stages = min(4, (ta.SMEM_LIMIT - fixed) // stage)
-    tiles = -(-S // rows)
-    units = BH * tiles
-    return {"padded_keys": STAGE1_CHUNKS * cw, "chunk_keys": cw,
-            "chunks": STAGE1_CHUNKS, "out_slots": out_slots,
-            "stages": stages, "smem_bytes": fixed + stages * stage,
-            "query_tiles": tiles, "rows_per_tile": rows, "units": units,
-            "grid": min(units, sms), "threads": 128 * (consumers + 1)}
-
-
 def trajectory_core_plan(B, S, F, N, heads, sms=132, v3=False):
     """Kernel 1's launch plan, as ``csrc/trajectory_block.cu`` computes it,
     or with ``v3`` kernels 3 and 4's (the same launches in the rounding
     mode V3): stage 1 as the space stage plans it for B x heads head rows
-    (``trajectory_attention.space_stage_plan``; kernel 1 at N > 256 in its
-    chunked form, ``chunked_stage1_plan``); the q2 GEMM's tiles (in
-    V3 it also writes the scaled stage-2 query into out); and stage 2's
+    (``trajectory_attention.space_stage_plan``; at N > 256 its chunked
+    form, ``trajectory_attention.chunked_stage1_plan``, in both roundings);
+    the q2 GEMM's tiles (in V3 it also writes the scaled stage-2 query into
+    out); and stage 2's
     blocks of 48 or 64 rows with every head (one warp a head forms g), its
     ring of 16-channel chunks fed by TMA, its two g buffers (V3: hi and lo
     in each line), shared memory and waves, and the number of blocks that
     read a row block's xs for the logits (one: every head's logits come
     from the same block). Raises ``ValueError`` where the kernel takes no
     such shape."""
-    from focus_tpu_torch.ops import trajectory_attention as ta
-
     C = heads * HEAD_DIM
     if not (1 <= heads <= MAX_HEADS and C % 128 == 0 and 1 <= F <= MAX_FRAMES
             and S == F * N and B >= 1):
         raise ValueError(f"trajectory kernel needs C % 128 == 0, heads <= "
                          f"{MAX_HEADS}, F <= {MAX_FRAMES}, S = F N (B={B}, "
                          f"S={S}, F={F}, N={N}, heads={heads})")
-    if v3 or N <= MAX_KEYS:
-        stage1 = ta.space_stage_plan(B * heads, S, F, N, sms)
-    else:
-        stage1 = chunked_stage1_plan(B * heads, S, F, N, sms)
+    stage1 = ta.space_stage_plan(B * heads, S, F, N, sms)
     M = B * S
     rows = stage2_rows(M, sms, heads, v3)
     line, stage_bytes, fixed, stages = _stage2_bytes(heads, rows, v3)
@@ -344,11 +318,31 @@ def trajectory_core_v3_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale,
     return out.to(dt).reshape(B, S, C)
 
 
-def chunk_keys(N):
-    """Keys a chunk of kernel 1's stage 1 at N > MAX_KEYS (its chunked
-    form, ``ss_chunk_keys``): two chunks of 224 up to N = 448, else of
-    256."""
-    return 224 if N <= 448 else 256
+def _chunked_stage1(q, kf, values, scale, heads):
+    """The chunked stage 1 (``trajectory_attention.chunked_stage1_sums``)
+    per head of q [B, S, C] and kf [B, F, N, C], for each of ``values``
+    ([B, F, N, C]) its frame sums times 1 / l in float32, [B, heads, S, F,
+    hd]."""
+    B, S, C = q.shape
+    F = kf.shape[1]
+    hd = C // heads
+
+    def rows(t):  # [B, ..., C] -> [B heads, ..., hd]
+        lead = t.shape[1:-1]
+        return t.reshape(B, *lead, heads, hd).movedim(-2, 1).reshape(
+            B * heads, *lead, hd)
+
+    sums = ta.chunked_stage1_sums(rows(q), rows(kf),
+                                  [rows(v) for v in values], scale)
+    return [a.reshape(B, heads, S, F, hd) for a in sums]
+
+
+def _chunked_xs(q, kf, vf, scale, heads):
+    """xs [B, S, F, C] at q's dtype as the chunked stage 1 forms it
+    (kernels 1, 3 and 4 at N > 256): round(o * (1 / l)) per head."""
+    B, S, C = q.shape
+    o, = _chunked_stage1(q, kf, [vf], scale, heads)
+    return o.to(q.dtype).permute(0, 2, 3, 1, 4).reshape(B, S, kf.shape[1], C)
 
 
 def trajectory_core_chunked_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale,
@@ -357,15 +351,16 @@ def trajectory_core_chunked_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale,
     in its chunked form): its steps and rounding points, in float32
     arithmetic on operands at q's dtype. Stage 1 per frame and head over
     the frame's keys in two chunks (``chunk_keys``), the softmax online
-    across them: chunk 0's row max m0, p0 = exp(logit * scale - m0 *
-    scale), l = sum p0, o = round(p0) . V_0; chunk 1 raises the max to m1,
-    scales l and o by exp((m0 - m1) * scale) and adds its own p1 =
-    exp(logit * scale - m1 * scale) and round(p1) . V_1; xs = round(o * (1
-    / l)). The weights are rounded unnormalised, as in the mode V3, where
-    kernel 1 at N <= 256 normalises them first. Then as kernel 1 at any N:
-    q2 = round(x_diag . Wq2 + bq2) and stage 2 (``temporal_stage_k2w``).
-    Returns out; a dict passed as ``intermediates`` receives xs and q2.
-    Nothing on the card calls it.
+    across them (``trajectory_attention.chunked_stage1_sums``): chunk 0's
+    row max m0, p0 = exp(logit * scale - m0 * scale), l = sum p0, o =
+    round(p0) . V_0; chunk 1 raises the max to m1, scales l and o by
+    exp((m0 - m1) * scale) and adds its own p1 = exp(logit * scale - m1 *
+    scale) and round(p1) . V_1; xs = round(o * (1 / l)). The weights are
+    rounded unnormalised, as in the mode V3, where kernel 1 at N <= 256
+    normalises them first. Then as kernel 1 at any N: q2 = round(x_diag .
+    Wq2 + bq2) and stage 2 (``temporal_stage_k2w``). Returns out; a dict
+    passed as ``intermediates`` receives xs and q2. Nothing on the card
+    calls it.
 
     Against the plain version in float32 on the same bf16 operands (B=1,
     F=8, 2 heads; tests/test_torch_port_hr336.py) out differs by 4.6e-3,
@@ -373,34 +368,9 @@ def trajectory_core_chunked_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale,
     near as the plain version in bf16 (4.0e-3 to 4.8e-3), within half
     the card's 2e-2 gate."""
     del bk2
-    B, S, C = q.shape
-    F, N = kf.shape[1], kf.shape[2]
-    hd, dt = C // heads, q.dtype
-    cw = chunk_keys(N)
-
-    def rnd(t):
-        return t.to(dt).float()
-
-    qh = q.float().reshape(B, S, heads, hd).permute(0, 2, 1, 3)
-    kh = kf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
-    vh = vf.float().reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
-    logits = torch.einsum("bhsd,bhfnd->bhsfn", qh, kh) * scale
-    m = l = o = None
-    for keys in (slice(0, cw), slice(cw, N)):
-        part = logits[..., keys]
-        m_new = part.amax(-1) if m is None else torch.maximum(
-            m, part.amax(-1))
-        p = torch.exp(part - m_new[..., None])
-        pv = torch.einsum("bhsfn,bhfnd->bhsfd", rnd(p), vh[:, :, :, keys])
-        if m is None:
-            l, o = p.sum(-1), pv
-        else:
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + pv
-        m = m_new
-    xs = (o * (1 / l)[..., None]).to(dt).permute(0, 2, 3, 1, 4).reshape(
-        B, S, F, C)
+    F = kf.shape[1]
+    dt = q.dtype
+    xs = _chunked_xs(q, kf, vf, scale, heads)
     x_diag = attn_ops.take_diagonal(xs, F)
     q2 = (x_diag.float() @ wq2.to(dt).float() + bq2.to(dt).float()).to(dt)
     if intermediates is not None:
@@ -414,7 +384,10 @@ def trajectory_core_v3_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
     in its rounding mode V3): their steps and rounding points, in float32
     arithmetic on operands at q's dtype. Stage 1 (``space_stage_core.cuh``):
     p = exp(logit * scale - max) rounded unnormalised, s the float32 sum of
-    the unrounded p, xs = round((round(p) . V) * (1 / s)). The q2 GEMM: q2 =
+    the unrounded p, xs = round((round(p) . V) * (1 / s)); at N > 256 the
+    chunked form's, ``trajectory_core_chunked_mirror``'s (the same rounding
+    but for chunk 0's weights, rounded against chunk 0's max and rescaled
+    in float32 after the product). The q2 GEMM: q2 =
     round(x_diag . Wq2 + bq2) for the backward and the stage-2 query qs =
     round((x_diag . Wq2 + bq2) * scale). Stage 2 chunk by chunk of 16
     channels: g_h = qs_h . Wk2_h^T in float32, split as hi = round(g) and
@@ -430,10 +403,13 @@ def trajectory_core_v3_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
     def rnd(t):
         return t.to(dt).float()
 
-    vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
-    o = torch.einsum("bhsfn,bhfnd->bhsfd", rnd(p), vh)
-    xs = (o * (1 / s)[..., None]).to(dt).permute(0, 2, 3, 1, 4).reshape(
-        B, S, F, C)
+    if kf.shape[2] > MAX_KEYS:
+        xs = _chunked_xs(q, kf, vf, scale, heads)
+    else:
+        vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
+        o = torch.einsum("bhsfn,bhfnd->bhsfd", rnd(p), vh)
+        xs = (o * (1 / s)[..., None]).to(dt).permute(0, 2, 3, 1, 4).reshape(
+            B, S, F, C)
     x_diag = attn_ops.take_diagonal(xs, F)
     acc = x_diag.float() @ wq2.to(dt).float() + bq2.to(dt).float()
     q2, qs = acc.to(dt), rnd(acc * scale)
@@ -523,10 +499,15 @@ def trajectory_core_k2v_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
     M_h = q2_h . k2v_h^T in exact arithmetic; then the softmax over frames
     online, frame by frame: a running max m, sum z and mix acc, rescaled by
     exp(m - m_new) and added exp(l2_f - m_new) times xs_f (v6) or O_f (v5);
-    out = round(acc / z). Returns out; a dict passed as ``intermediates``
-    receives k2v, p_bf16 (P), o, y, xs, x_diag, q2, l2 and the unrounded
-    out_f32 ([B, heads, S, ...] head-split where per head). Nothing on the
-    card calls it."""
+    out = round(acc / z). At N > 256 the chunked form's stage 1
+    (``_chunked_stage1``, as the own-frame launch and the pass form it): a
+    frame's keys in two chunks, P rounded unnormalised against the running
+    max, O and Y summed over the chunks and rescaled online, then O_f = O /
+    l and Y_f = Y / l in float32 (the products' sums times 1 / l), xs =
+    round(O_f). Returns out; a dict passed as ``intermediates`` receives
+    k2v, p_bf16 (P, at N <= 256), o, y, xs, x_diag, q2, l2 and the
+    unrounded out_f32 ([B, heads, S, ...] head-split where per head).
+    Nothing on the card calls it."""
     del bk2
     if version not in (5, 6):
         raise ValueError(f"the k2v design serves versions 5 and 6, not "
@@ -539,11 +520,16 @@ def trajectory_core_k2v_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
         return t.to(dt).float()
 
     k2v = rnd(vf.float().reshape(B, F * N, C) @ wk2.to(dt).float())
-    k2vh = k2v.reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
-    vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
-    w = rnd(p * (1 / s)[..., None])  # [B, h, S, F, N]
-    o = torch.einsum("bhsfn,bhfnd->bhsfd", w, vh)
-    y = torch.einsum("bhsfn,bhfnd->bhsfd", w, k2vh)
+    w = None
+    if N > MAX_KEYS:
+        o, y = _chunked_stage1(q, kf, [vf, k2v.reshape(B, F, N, C)], scale,
+                               heads)
+    else:
+        k2vh = k2v.reshape(B, F, N, heads, hd).permute(0, 3, 1, 2, 4)
+        vh, p, s = _stage1_weights(q, kf, vf, scale, heads)
+        w = rnd(p * (1 / s)[..., None])  # [B, h, S, F, N]
+        o = torch.einsum("bhsfn,bhfnd->bhsfd", w, vh)
+        y = torch.einsum("bhsfn,bhfnd->bhsfd", w, k2vh)
     xs = o.to(dt).permute(0, 2, 3, 1, 4).reshape(B, S, F, C)
     x_diag = attn_ops.take_diagonal(xs, F)
     q2 = (x_diag.float() @ wq2.to(dt).float() + bq2.to(dt).float()).to(dt)
@@ -561,8 +547,10 @@ def trajectory_core_k2v_mirror(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
         m = m_new
     out = (acc / z[..., None]).permute(0, 2, 1, 3).reshape(B, S, C)
     if intermediates is not None:
-        intermediates.update(k2v=k2v, p_bf16=w, o=o, y=y, xs=xs,
-                             x_diag=x_diag, q2=q2, l2=l2, out_f32=out)
+        intermediates.update(k2v=k2v, o=o, y=y, xs=xs, x_diag=x_diag,
+                             q2=q2, l2=l2, out_f32=out)
+        if w is not None:
+            intermediates["p_bf16"] = w
     return out.to(dt)
 
 
@@ -575,20 +563,24 @@ def k2v_pass_plan(N):
     """The pass's shared-memory plan at N keys a frame, as
     ``csrc/trajectory_k2v.cuh`` computes it (``kp_slots``, ``kp_stages``,
     ``k2v_pass_smem_bytes``): keys padded to an instantiated wgmma width,
-    Q tiles, and xs staging tiles a warpgroup (two of each, one at NP =
-    256), frame slots of K, V and k2v (at most four, as many as fit), and
-    the bytes. Raises ``ValueError`` where the kernel takes no such N."""
-    from focus_tpu_torch.ops import trajectory_attention as ta
-
+    Q tiles, and xs staging tiles a warpgroup (two of each, one past NP =
+    208), slots of K, V and k2v (at most four, as many as fit), and the
+    bytes; past MAX_KEYS the chunked form's, a slot holding one chunk of a
+    frame's keys (``chunk_keys``, two chunks a frame). Raises
+    ``ValueError`` where the kernel takes no such N."""
     ta._check_keys(N)
-    np_ = next(w for w in (64, 128, 208, 256) if N <= w)
+    chunked = N > MAX_KEYS
+    np_ = (chunk_keys(N) if chunked
+           else next(w for w in (64, 128, 208, 256) if N <= w))
     row_bytes = 2 * HEAD_DIM
     slots = 1 if np_ > 208 else 2
     stage_bytes = 3 * np_ * row_bytes
     fixed = (1024 + slots * K2V_PASS_ROWS * row_bytes
              + 2 * slots * 64 * row_bytes + 1024)
     stages = min(4, (SMEM_LIMIT - fixed) // stage_bytes)
-    return {"padded_keys": np_, "slots": slots,
+    chunks = STAGE1_CHUNKS if chunked else 1
+    return {"padded_keys": chunks * np_, "chunk_keys": np_,
+            "chunks": chunks, "slots": slots,
             "stage_bytes": stage_bytes, "stages": stages,
             "smem_bytes": fixed + stages * stage_bytes}
 
@@ -789,12 +781,10 @@ def _variant_kernel_fn(version):
                        n_float=1)
 
 
-def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=(),
-                    max_keys=MAX_KEYS):
-    """Raises where the kernel takes no such operands: bf16 alone,
-    contiguous on one device, the layout's shapes, and N <= ``max_keys``
-    keys a frame (kernels 1 and 7: MAX_KEYS_CHUNKED; the others:
-    MAX_KEYS)."""
+def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
+    """Raises where the kernels take no such operands: bf16 alone,
+    contiguous on one device, the layout's shapes, and N <=
+    MAX_KEYS_CHUNKED keys a frame."""
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     args = (q, kf, vf, wq2, bq2, wk2) + tuple(extra)
@@ -814,15 +804,11 @@ def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=(),
     if not shapes_ok:
         raise ValueError(f"bad shapes for the trajectory kernel: "
                          f"{[tuple(t.shape) for t in args]}")
-    if (C != heads * HEAD_DIM or C % 128 or F > 8 or N > max_keys
+    if (C != heads * HEAD_DIM or C % 128 or F > 8 or N > MAX_KEYS_CHUNKED
             or heads > 16):
-        wider = ("" if max_keys > MAX_KEYS else
-                 f"; N > {MAX_KEYS} (HR-336) is kernel 1's and its "
-                 "backward's alone, the others wait for ROADMAP.md section "
-                 "2 A1")
         raise ValueError(f"trajectory kernel needs head dim {HEAD_DIM}, "
-                         f"C % 128 == 0, F <= 8, N <= {max_keys}, heads <= "
-                         f"16 (C={C}, heads={heads}, F={F}, N={N}){wider}")
+                         f"C % 128 == 0, F <= 8, N <= {MAX_KEYS_CHUNKED}, "
+                         f"heads <= 16 (C={C}, heads={heads}, F={F}, N={N})")
 
 
 def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
@@ -830,8 +816,7 @@ def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
     are the stage-1 aggregates and stage-2 queries it writes on the way,
     which the backward reads."""
     global LAUNCHES
-    _check_operands(q, kf, vf, wq2, bq2, wk2, heads,
-                    max_keys=MAX_KEYS_CHUNKED)
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads)
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     xs = torch.empty(B, S, F, C, dtype=torch.bfloat16, device=q.device)
@@ -863,9 +848,10 @@ def _launch_one(kernel_fn, symbol, q, kf, vf, wq2, bq2, wk2, scale, heads):
     q2 = torch.empty(B, S, C, dtype=torch.bfloat16, device=q.device)
     out = torch.empty(B, S, C, dtype=torch.bfloat16, device=q.device)
     launched = ctypes.c_int(0)
+    kernel = kernel_fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = kernel_fn()(
+        err = kernel(
             q.data_ptr(), kf.data_ptr(), vf.data_ptr(), wq2.data_ptr(),
             bq2.data_ptr(), wk2.data_ptr(), xs.data_ptr(), q2.data_ptr(),
             out.data_ptr(), ctypes.addressof(launched),
@@ -922,9 +908,10 @@ def _launch_variant(version, q, kf, vf, wq2, bq2, wk2, scale, heads):
     q2, out = buf(B, S, C), buf(B, S, C)
     aggregates = xs if version == 6 else scratch["x_diag"]
     launched = ctypes.c_int(0)
+    kernel = _variant_kernel_fn(version)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _variant_kernel_fn(version)(
+        err = kernel(
             q.data_ptr(), kf.data_ptr(), vf.data_ptr(), wq2.data_ptr(),
             bq2.data_ptr(), wk2.data_ptr(), scratch["k2v"].data_ptr(),
             aggregates.data_ptr(), q2.data_ptr(), out.data_ptr(),
@@ -950,8 +937,7 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
     heads); N <= 512 keys a frame (past 256 its dq kernel's chunked
     form), and 513 is refused before any build."""
     global BWD_LAUNCHES, BWD_DEVICE_LAUNCHES
-    _check_operands(q, kf, vf, wq2, bq2, wk2, heads, (dout, xs, q2),
-                    max_keys=MAX_KEYS_CHUNKED)
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads, (dout, xs, q2))
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     if (tuple(dout.shape) != (B, S, C) or tuple(xs.shape) != (B, S, F, C)
@@ -1006,12 +992,6 @@ class _FusedCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads, version):
-        N = kf.shape[2]
-        if N > MAX_KEYS and version != 4 and any(ctx.needs_input_grad[:6]):
-            raise ValueError(
-                f"trajectory forward kernel of FWD_VERSION={version} takes "
-                f"N <= {MAX_KEYS} (N={N}): past {MAX_KEYS} keys a frame "
-                "version 4 trains alone (ROADMAP.md section 2 A1)")
         if version in (3, 4, 7):
             launch = {3: _launch_v3, 4: _launch, 7: _launch_v7}[version]
             out, xs, q2 = launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
@@ -1041,10 +1021,9 @@ def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
     A CPU tensor takes the plain version at every ``FWD_VERSION`` (its
     gradient is autograd's); a CUDA tensor launches the forward kernel of
     ``FWD_VERSION`` (3, 4, 5, 6 or 7; others raise before any launch), and
-    its gradient the backward kernel (bf16, contiguous, head dim 64), or
-    raises: a float32 operand raises ``TypeError``, and N > 256 keys a
-    frame ``ValueError`` except in version 4, whose forward and backward
-    take N <= 512."""
+    its gradient the backward kernel (bf16, contiguous, head dim 64, N <=
+    512 keys a frame at every version), or raises: a float32 operand raises
+    ``TypeError``, N > 512 ``ValueError``."""
     if q.device.type == "cpu":
         return trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2,
                                          scale, heads)

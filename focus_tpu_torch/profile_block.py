@@ -109,16 +109,19 @@ class LearnedVStack(nn.Module):
         return x
 
 
-def learned_v_stack(device="cuda", batch=8, seed=0, tiny=False):
+def learned_v_stack(device="cuda", batch=8, seed=0, tiny=False, hr=False):
     """(model, x): the learned-v slice, 12 blocks of D=768 and 12 heads at
     8 frames of 14 x 14 patches plus CLS, bf16 activations with float32
     weights drawn from N(0, 0.02^2) (seeded), and x [batch, 1569, 768] from
-    numpy's RandomState(seed). ``tiny``: 2 blocks of D=32, 4 heads, 2
-    frames of 2 x 2, float32, for the CPU."""
+    numpy's RandomState(seed). ``hr``: the 336 crop's patch grid, 8 frames
+    of 21 x 21 (N = 441 keys a frame), x [batch, 3529, 768]. ``tiny``: 2
+    blocks of D=32, 4 heads, 2 frames of 2 x 2, float32, for the CPU (at
+    every ``hr``)."""
     device = resolve_device(device)
+    side = 21 if hr else 14
     dim, heads, depth, thw, dtype = ((32, 4, 2, (2, 2, 2), torch.float32)
                                      if tiny else
-                                     (768, 12, 12, (8, 14, 14),
+                                     (768, 12, 12, (8, side, side),
                                       torch.bfloat16))
     model = LearnedVStack(dim, heads, depth, thw, dtype).to(device).eval()
     gen = torch.Generator(device=device)

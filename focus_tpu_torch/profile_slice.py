@@ -5,6 +5,7 @@
         [--batch 8] \
         [--iters 2] \
         [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 3|4|5|6|7]
+        [--hr]
 
 Builds ``entry(device="cuda")`` (the flagship eval forward),
 ``train_entry(device="cuda")`` (one flagship train step: forward, backward
@@ -28,10 +29,11 @@ Chrome trace to the path given. The labeled serving variants:
 ``--int8`` (``TPU.INT8_SERVING``: W8A8 dense layers in the flagship, the
 W8A8 decode step in STEVE) and ``--fast-gelu`` (``TPU.FAST_GELU``, the
 flagship only). ``--fwd-version`` sets the trajectory core's
-``FWD_VERSION`` (flagship and train). ``--model learned_v`` is the eval
-forward of ``profile_block.learned_v_stack``: 12 learned-v trajectory
-blocks (``use_original_code=False``) at D=768, 12 heads, 8 x 14 x 14
-tokens plus CLS.
+``FWD_VERSION`` (flagship, train, hr336 and hr336_train). ``--model
+learned_v`` is the eval forward of ``profile_block.learned_v_stack``: 12
+learned-v trajectory blocks (``use_original_code=False``) at D=768, 12
+heads, 8 x 14 x 14 tokens plus CLS; with ``--hr`` at the 336 crop's 8 x 21
+x 21 (N = 441 keys a frame, kernel 8's chunked form).
 """
 
 import argparse
@@ -58,22 +60,27 @@ from focus_tpu_torch.profile_block import learned_v_stack
 # names (a regular expression; a kernel counts in the first group it
 # matches): kernel 1's three stages apart (its stage 1 is the space stage's
 # kernel, which kernel 8 launches in the learned-v model, or at N > 256 its
-# chunked form), and kernels 3
+# chunked form, which kernels 3, 4 and 8 run there too), and kernels 3
 # and 4's (FWD_VERSION 3 and 7: the same kernels in the rounding mode V3,
 # template argument true; the GEMM is one kernel for all versions), kernels
 # 5 and 6's own-frame launch and pass (FWD_VERSION 6 and 5; the pass's
-# second template argument is true for v5), kernel 2, and kernel 7's eight
-# kernels one by one (its dq kernel at N > 256 in its chunked form)
+# second template argument is true for v5, its third 2 in the chunked form
+# at N > 256, as the own-frame launch's second), kernel 2, and kernel 7's
+# eight kernels one by one (its dq kernel at N > 256 in its chunked form)
 _TRUE = r"(?:true|\(bool\)1)"
 _FALSE = r"(?:false|\(bool\)0)"
 KERNEL_GROUPS = (
     (rf"space_stage_kernel<\d+, {_TRUE}>", "kernels 3 / 4 stage 1 (mode V3)"),
     (rf"traj_stage2_kernel<{_TRUE}>", "kernels 3 / 4 stage 2 (mode V3)"),
     ("space_stage_kernel", "kernel 1 stage 1 (flagship) / kernel 8 (learned_v)"),
-    ("space_stage_chunked_kernel", "kernel 1 stage 1, chunked (N > 256, HR-336)"),
+    ("space_stage_chunked_kernel",
+     "stage 1, chunked (N > 256, HR-336): kernels 1, 3, 4 and 8"),
+    (r"own_frame_kernel<\d+, 2>", "kernels 5 / 6 own-frame x_diag, chunked"),
     ("own_frame_kernel", "kernels 5 / 6 own-frame x_diag"),
-    (rf"k2v_pass_kernel<\d+, {_TRUE}>", "kernel 6 pass (v5)"),
-    (rf"k2v_pass_kernel<\d+, {_FALSE}>", "kernel 5 pass (v6)"),
+    (rf"k2v_pass_kernel<\d+, {_TRUE}, 2>", "kernel 6 pass (v5), chunked"),
+    (rf"k2v_pass_kernel<\d+, {_FALSE}, 2>", "kernel 5 pass (v6), chunked"),
+    (rf"k2v_pass_kernel<\d+, {_TRUE}, 1>", "kernel 6 pass (v5)"),
+    (rf"k2v_pass_kernel<\d+, {_FALSE}, 1>", "kernel 5 pass (v6)"),
     ("traj_gemm_kernel",
      "kernel 1 / 3 / 4 q2 GEMM, kernels 5 / 6 k2v and q2 GEMMs"),
     ("traj_stage2_kernel", "kernel 1 stage 2"),
@@ -138,7 +145,7 @@ def main():
                              "hr336", "hr336_train"),
                     default="flagship")
     ap.add_argument("--batch", type=int, default=None,
-                    help="8 (hr336, hr336_train: 4)")
+                    help="8 (hr336, hr336_train, learned_v --hr: 4)")
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
@@ -148,7 +155,10 @@ def main():
                     help="TPU.FAST_GELU (flagship)")
     ap.add_argument("--fwd-version", type=int, choices=trajectory_block.PORTED_FWD_VERSIONS,
                     default=4,
-                    help="the trajectory core's FWD_VERSION (flagship, train)")
+                    help="the trajectory core's FWD_VERSION (flagship, train, "
+                         "hr336, hr336_train)")
+    ap.add_argument("--hr", action="store_true",
+                    help="learned_v at the 336 crop (8 x 21 x 21 patches)")
     args = ap.parse_args()
 
     variant = {}
@@ -159,13 +169,17 @@ def main():
     if args.model in ("train", "learned_v", "hr336", "hr336_train") and variant or (
             args.model == "steve" and args.fast_gelu):
         ap.error(f"--model {args.model} takes no {sorted(variant)}")
-    if args.fwd_version != 4 and args.model not in ("flagship", "train"):
+    if args.fwd_version != 4 and args.model not in (
+            "flagship", "train", "hr336", "hr336_train"):
         ap.error(f"--model {args.model} takes no --fwd-version")
+    if args.hr and args.model != "learned_v":
+        ap.error(f"--model {args.model} takes no --hr")
     trajectory_block.FWD_VERSION = args.fwd_version
     if args.batch is None:
-        args.batch = 4 if args.model.startswith("hr336") else 8
+        args.batch = 4 if args.model.startswith("hr336") or args.hr else 8
     if args.model == "learned_v":
-        model, x = learned_v_stack(device="cuda", batch=args.batch)
+        model, x = learned_v_stack(device="cuda", batch=args.batch,
+                                   hr=args.hr)
 
         @torch.no_grad()
         def fn(x):
@@ -210,7 +224,7 @@ def main():
                     "hr336": "HR-336 EPIC-Kitchens eval forward",
                     "hr336_train": "HR-336 EPIC-Kitchens train step"}[
                         args.model],
-        "variant": variant, "fwd_version": args.fwd_version,
+        "variant": variant, "fwd_version": args.fwd_version, "hr": args.hr,
         "batch": args.batch,
         "gpu": smi, "wall_ms_per_call": wall_ms,
         "device_ms_per_call": device_ms if rows else "not measured",

@@ -195,7 +195,7 @@ def test_kernel_1_runs_stage_1_on_the_shared_wgmma_core():
         assert '#include "trajectory_k2v.cuh"' in _source(variant)
     assert '#include "space_stage_core.cuh"' in _source("trajectory_k2v.cuh")
     assert "launch_stage1" not in _source("trajectory_k2v.cuh")
-    assert "launch_own_frame<NP>(" in _source("trajectory_k2v.cuh")
+    assert "launch_own_frame<NP, CH>(" in _source("trajectory_k2v.cuh")
 
 
 def test_kernel_1_stage_2_holds_every_head_in_one_block():

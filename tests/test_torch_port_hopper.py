@@ -60,9 +60,9 @@ def test_space_stage_plan_at_the_learned_v_shapes():
         assert plan["threads"] == 384
 
 
-@pytest.mark.parametrize("N", [257, 441, 0])
+@pytest.mark.parametrize("N", [513, 1024, 0])
 def test_space_stage_plan_refuses_what_the_kernel_does_not_take(N):
-    with pytest.raises(ValueError, match="N <= 256"):
+    with pytest.raises(ValueError, match="N <= 512"):
         tta.space_stage_plan(4, 8 * max(N, 1), 8, N)
 
 
@@ -105,14 +105,21 @@ def test_space_stage_kernel_is_its_own_hopper_kernel():
 
 def test_space_stage_wrapper_refuses_257_keys_before_any_build(monkeypatch):
     """On a CUDA tensor the wrapper checks the plan before it builds or
-    launches anything (meta tensors stand in for the card's here)."""
+    launches anything (meta tensors stand in for the card's here): 257 and
+    512 keys a frame pass the check (the chunked form) and reach the
+    build, 513 raises before it."""
     def no_build(*a, **k):
         raise AssertionError("built a kernel")
 
     monkeypatch.setattr(tta, "_kernel_fn", no_build)
-    q = torch.empty(2, 8 * 257, 64, dtype=torch.bfloat16, device="meta")
-    kf = torch.empty(2, 8, 257, 64, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="N <= 256"):
+    for N in (257, 512):
+        q = torch.empty(2, 8 * N, 64, dtype=torch.bfloat16, device="meta")
+        kf = torch.empty(2, 8, N, 64, dtype=torch.bfloat16, device="meta")
+        with pytest.raises(AssertionError, match="built a kernel"):
+            tta._launch(q, kf, kf, 0.125)
+    q = torch.empty(2, 8 * 513, 64, dtype=torch.bfloat16, device="meta")
+    kf = torch.empty(2, 8, 513, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="N <= 512"):
         tta._launch(q, kf, kf, 0.125)
 
 

@@ -4,9 +4,8 @@ against the JAX package on the same numpy inputs and weights; kernel 1's
 chunked stage 1 (N > 256 keys a frame) through its plain mirror
 (``ops/trajectory_block.trajectory_core_chunked_mirror``) against the
 interpret-mode Pallas kernel, ``_xla_reference`` and the plain version; its
-launch plan held to the CUDA source's constants; the wrappers of
-kernels 3 to 6 and 8 refusing N > 256 before any build, and the backward's
-(kernel 7) N > 512."""
+launch plan held to the CUDA source's constants; every kernel's wrapper
+taking N <= 512 and refusing 513 before any build."""
 
 import os
 import re
@@ -217,10 +216,11 @@ def test_chunked_stage1_plan(N, chunk, stages):
     """Two chunks a frame that cover its keys, at most 256 each (one
     instantiated wgmma width), at least two ring slots (three at the 336
     crop's N), one output staging tile a warpgroup, within the card's
-    shared memory; kernel 1's plan takes it, the others' refuse N."""
+    shared memory; kernel 1's plan takes it, and so do kernel 8's and
+    kernels 3 and 4's (their stage 1 is the same chunked kernel)."""
     B, F, heads = 4, 8, 12
     S = F * N
-    p = ttb.chunked_stage1_plan(B * heads, S, F, N)
+    p = tta.chunked_stage1_plan(B * heads, S, F, N)
     assert (p["chunk_keys"], p["stages"], p["chunks"]) == (chunk, stages, 2)
     assert p["chunks"] * p["chunk_keys"] >= N > p["chunk_keys"]
     assert p["chunk_keys"] <= tta.MAX_KEYS and p["chunk_keys"] % 16 == 0
@@ -230,10 +230,9 @@ def test_chunked_stage1_plan(N, chunk, stages):
     assert plan["stage1"] == p and plan["device_launches"] == 3
     assert plan["stage2"]["smem_bytes"] <= SMEM_LIMIT
     assert plan["stage2"]["blocks"] * plan["stage2"]["rows_per_block"] >= B * S
-    with pytest.raises(ValueError):
-        ttb.trajectory_core_plan(B, S, F, N, heads, v3=True)
-    with pytest.raises(ValueError, match="N <= 256"):
-        tta.space_stage_plan(B * heads, S, F, N)
+    v3 = ttb.trajectory_core_plan(B, S, F, N, heads, v3=True)
+    assert v3["stage1"] == p and v3["rounding"] == "v3"
+    assert tta.space_stage_plan(B * heads, S, F, N) == p
 
 
 def test_chunked_stage1_plan_matches_the_cuda_source():
@@ -249,13 +248,17 @@ def test_chunked_stage1_plan_matches_the_cuda_source():
     assert "return ch > 1 ? 1 : SS_OUT_SLOTS;" in src
     assert "SS_WG * ss_out_slots(ch) * SS_OUT_BYTES + SS_BAR_BYTES" in src
     assert "static_assert(ss_stages(224, SS_CHUNKS) >= 3" in src
+    assert "launch_space_stage<224, false, SS_CHUNKS>(" in src
+    assert "launch_space_stage<256, false, SS_CHUNKS>(" in src
+    # kernels 1, 3 and 4 (both roundings), 5, 6 and 8 take N <= 512, the
+    # chunked form past 256
     k1 = _source("trajectory_block.cu")
-    assert "constexpr int max_keys = V3 ? SS_MAX_NP : SS_MAX_KEYS;" in k1
-    assert "launch_space_stage<224, false, SS_CHUNKS>(" in k1
-    assert "launch_space_stage<256, false, SS_CHUNKS>(" in k1
-    # kernels 5, 6 and 8 keep their limit
-    assert "N > SS_MAX_NP" in _source("trajectory_k2v.cuh")
-    assert "N > SS_MAX_NP" in _source("trajectory_attention.cu")
+    assert "N > SS_MAX_KEYS ||" in k1 and "max_keys" not in k1
+    assert ("err = N > SS_MAX_NP\n"
+            "            ? launch_space_stage_chunked(") in k1
+    for name in ("trajectory_k2v.cuh", "trajectory_attention.cu"):
+        assert "N > SS_MAX_KEYS ||" in _source(name)
+        assert "N > SS_MAX_NP" in _source(name)
     hdr = _source("hopper_async.cuh")
     assert "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16" in hdr
 
@@ -274,13 +277,13 @@ def _meta_args(N, B=1, F=2, C=128, grad=False):
 
 
 def test_kernel_1_takes_512_keys_and_refuses_513(monkeypatch):
-    """Kernel 1's check passes up to N = 512 keys a frame, the others' stop
-    at 256; kernel 1's wrapper refuses 513 before any build."""
+    """The kernels' one check passes up to N = 512 keys a frame and refuses
+    513, for every kernel; kernel 1's wrapper refuses 513 before any
+    build."""
     monkeypatch.setattr(ttb, "_kernel_fn", _no_build)
-    args = _meta_args(512)[:6]
-    ttb._check_operands(*args, 2, max_keys=ttb.MAX_KEYS_CHUNKED)
-    with pytest.raises(ValueError, match="N <= 256"):
-        ttb._check_operands(*args, 2)
+    ttb._check_operands(*_meta_args(512)[:6], 2)
+    with pytest.raises(ValueError, match="N <= 512"):
+        ttb._check_operands(*_meta_args(513)[:6], 2)
     with pytest.raises(ValueError, match="N <= 512"):
         ttb._launch(*_meta_args(513)[:6], 0.125, 2)
 
@@ -296,59 +299,56 @@ def _launch_backward_at(N):
                                     "space_stage"])
 def test_kernels_3_to_8_refuse_257_keys_before_any_build(monkeypatch,
                                                          kernel):
-    """Kernels 3 to 6 and 8 stop at N <= 256 and say so before any build.
-    The backward (kernel 7) takes N <= 512: it passes its check at 512 (and
-    reaches the build) and refuses 513 with "N <= 512" before any build."""
+    """Kernels 3 to 8 take N <= 512 keys a frame (257 and 512 among them):
+    each wrapper passes its check at 512 and reaches the build, and refuses
+    513 with "N <= 512" before any build."""
     from focus_tpu_torch.ops import _build
 
     monkeypatch.setattr(_build, "bind", _no_build)
-    args = _meta_args(257)
-    calls = {
-        "v3": lambda: ttb._launch_v3(*args[:6], 0.125, 2),
-        "v7": lambda: ttb._launch_v7(*args[:6], 0.125, 2),
-        "v5": lambda: ttb._launch_variant(5, *args[:6], 0.125, 2),
-        "v6": lambda: ttb._launch_variant(6, *args[:6], 0.125, 2),
-        "space_stage": lambda: tta._launch(
-            args[0].reshape(2, 514, 64), args[1].reshape(2, 2, 257, 64),
-            args[2].reshape(2, 2, 257, 64), 0.125),
-    }
-    if kernel == "backward":
-        with pytest.raises(AssertionError, match="kernel built"):
-            _launch_backward_at(512)
-        with pytest.raises(ValueError, match="N <= 512"):
-            _launch_backward_at(513)
-        return
-    with pytest.raises(ValueError, match="N <= 256"):
-        calls[kernel]()
+
+    def call(N):
+        args = _meta_args(N)
+        return {
+            "v3": lambda: ttb._launch_v3(*args[:6], 0.125, 2),
+            "v7": lambda: ttb._launch_v7(*args[:6], 0.125, 2),
+            "v5": lambda: ttb._launch_variant(5, *args[:6], 0.125, 2),
+            "v6": lambda: ttb._launch_variant(6, *args[:6], 0.125, 2),
+            "backward": lambda: _launch_backward_at(N),
+            "space_stage": lambda: tta._launch(
+                args[0].reshape(2, 2 * N, 64),
+                args[1].reshape(2, 2, N, 64),
+                args[2].reshape(2, 2, N, 64), 0.125),
+        }[kernel]()
+
+    with pytest.raises(AssertionError, match="kernel built"):
+        call(512)
+    with pytest.raises(ValueError, match="N <= 512"):
+        call(513)
 
 
 @pytest.mark.parametrize("version", [3, 4, 5, 6, 7])
 def test_hr_train_step_refuses_before_the_forward_launches(monkeypatch,
                                                            version):
-    """At N = 441 with a gradient wanted, version 4 reaches its forward
-    launch (the backward kernel takes N <= 512); versions 3, 5, 6 and 7
-    raise before theirs, whose kernels take N <= 256. Without a gradient
-    every version reaches its launch."""
+    """At N = 441 every version reaches its forward launch, with a
+    gradient wanted (the forward kernels and the backward kernel take N <=
+    512) and without one."""
     def no_launch(*a, **k):
         raise AssertionError("forward launched")
 
     for name in ("_launch", "_launch_v3", "_launch_v7", "_launch_variant"):
         monkeypatch.setattr(ttb, name, no_launch)
     args = _meta_args(441, grad=True)
-    if version == 4:
-        with pytest.raises(AssertionError, match="forward launched"):
-            ttb._FusedCore.apply(*args, 0.125, 2, version)
-    else:
-        with pytest.raises(ValueError, match="N <= 256"):
-            ttb._FusedCore.apply(*args, 0.125, 2, version)
+    with pytest.raises(AssertionError, match="forward launched"):
+        ttb._FusedCore.apply(*args, 0.125, 2, version)
     args = _meta_args(441)
     with pytest.raises(AssertionError, match="forward launched"):
         ttb._FusedCore.apply(*args, 0.125, 2, version)
 
 
 def test_profile_groups_name_the_chunked_stage_1():
-    """``profile_slice.py`` counts the chunked stage-1 kernel in a group of
-    its own, apart from the space stage's."""
+    """``profile_slice.py`` counts the chunked stage-1 kernel (kernels 1,
+    3, 4 and 8 past 256 keys) in a group of its own, apart from the space
+    stage's."""
     from focus_tpu_torch.profile_slice import kernel_groups
 
     ns = "void (anonymous namespace)::"
@@ -357,5 +357,6 @@ def test_profile_groups_name_the_chunked_stage_1():
             (ns + "space_stage_kernel<208, false>(CUtensorMap_st, int)", 12,
              2700.0)]
     ms = {k: v["device_ms_per_call"] for k, v in kernel_groups(rows, 1).items()}
-    assert ms == {"kernel 1 stage 1, chunked (N > 256, HR-336)": 7.0,
+    assert ms == {"stage 1, chunked (N > 256, HR-336): kernels 1, 3, 4 "
+                  "and 8": 7.0,
                   "kernel 1 stage 1 (flagship) / kernel 8 (learned_v)": 2.7}

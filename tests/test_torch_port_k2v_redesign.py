@@ -195,8 +195,8 @@ def test_k2v_plan_at_each_width(N, slots, stages, smem):
 
 
 def test_k2v_plan_refuses_what_the_kernels_do_not_take():
-    for N in (0, 257):
-        with pytest.raises(ValueError, match="N <= 256"):
+    for N in (0, 513):
+        with pytest.raises(ValueError, match="N <= 512"):
             ttb.k2v_pass_plan(N)
 
 
@@ -238,8 +238,8 @@ def test_k2v_sources_hold_the_new_design_alone():
     for gone in ("traj_k2v_stage2_kernel", "launch_k2v_stage2", "pass B"):
         assert gone not in src
     assert '#include "space_stage_core.cuh"' in src
-    assert "launch_own_frame<NP>(" in src
-    assert "k2v_pass_kernel<NP, V5><<<" in src
+    assert "launch_own_frame<NP, CH>(" in src
+    assert "k2v_pass_kernel<NP, V5, CH><<<" in src
     assert "wgmma_ss<NP>(sacc" in src and "wgmma_rs_n64_tb(yacc" in src
     assert "ss_frame_softmax<NP, false>(" in src
     # two ping-pong turns a frame: the logits, then both products
@@ -248,7 +248,7 @@ def test_k2v_sources_hold_the_new_design_alone():
     host = src[src.index("int traj_core_k2v("):]
     assert host.count("launch_gemm(") == 1  # k2v; q2's is in launch_k2v_keys
     assert "own_frame_kernel(" in src
-    assert "space_stage_body<NP, false, true>(" in src
+    assert "space_stage_body<NP, false, true, CH>(" in src
     core = _source("space_stage_core.cuh")
     assert "space_stage_body<NP, V3, false>(" in core
     assert "if constexpr (DIAG)" in core
@@ -261,7 +261,7 @@ def test_k2v_sources_hold_the_new_design_alone():
 
 @pytest.mark.parametrize("version", [5, 6])
 def test_k2v_wrappers_refuse_before_any_build(version, monkeypatch):
-    """float32 operands raise TypeError and N > 256 ValueError before the
+    """float32 operands raise TypeError and N > 512 ValueError before the
     library is built or bound, and no counter moves."""
     from focus_tpu_torch.ops import _build
 
@@ -274,8 +274,8 @@ def test_k2v_wrappers_refuse_before_any_build(version, monkeypatch):
     args = _torch(core_inputs(B=1, F=2, N=8, C=128))
     with pytest.raises(TypeError, match="float32 mode is open"):
         ttb._launch_variant(version, *args[:6], 0.125, 2)
-    args = _torch(core_inputs(B=1, F=1, N=257, C=128), torch.bfloat16)
-    with pytest.raises(ValueError, match="N <= 256"):
+    args = _torch(core_inputs(B=1, F=1, N=513, C=128), torch.bfloat16)
+    with pytest.raises(ValueError, match="N <= 512"):
         ttb._launch_variant(version, *args[:6], 0.125, 2)
     assert (ttb.V5_LAUNCHES, ttb.V5_DEVICE_LAUNCHES, ttb.V6_LAUNCHES,
             ttb.V6_DEVICE_LAUNCHES) == counts
@@ -288,11 +288,18 @@ def test_profile_groups_name_the_k2v_kernels():
     from focus_tpu_torch.profile_slice import kernel_groups
 
     ns = "void (anonymous namespace)::"
-    rows = [(ns + "own_frame_kernel<208>(CUtensorMap_st, int)", 12, 500.0),
-            (ns + "k2v_pass_kernel<208, true>(CUtensorMap_st, int)", 12,
+    rows = [(ns + "own_frame_kernel<208, 1>(CUtensorMap_st, int)", 12,
+             500.0),
+            (ns + "k2v_pass_kernel<208, true, 1>(CUtensorMap_st, int)", 12,
              3000.0),
-            (ns + "k2v_pass_kernel<208, false>(CUtensorMap_st, int)", 12,
+            (ns + "k2v_pass_kernel<208, false, 1>(CUtensorMap_st, int)", 12,
              3300.0),
+            (ns + "own_frame_kernel<224, 2>(CUtensorMap_st, int)", 12,
+             900.0),
+            (ns + "k2v_pass_kernel<224, true, 2>(CUtensorMap_st, int)", 12,
+             7000.0),
+            (ns + "k2v_pass_kernel<224, (bool)0, 2>(CUtensorMap_st, int)",
+             12, 7500.0),
             (ns + "space_stage_kernel<208, false>(CUtensorMap_st, int)", 12,
              2700.0),
             (ns + "traj_gemm_kernel(const __nv_bfloat16*, int)", 24, 1900.0)]
@@ -300,6 +307,9 @@ def test_profile_groups_name_the_k2v_kernels():
           for k, v in kernel_groups(rows, 1).items()}
     assert ms == {"kernels 5 / 6 own-frame x_diag": 0.5,
                   "kernel 6 pass (v5)": 3.0, "kernel 5 pass (v6)": 3.3,
+                  "kernels 5 / 6 own-frame x_diag, chunked": 0.9,
+                  "kernel 6 pass (v5), chunked": 7.0,
+                  "kernel 5 pass (v6), chunked": 7.5,
                   "kernel 1 stage 1 (flagship) / kernel 8 (learned_v)": 2.7,
                   "kernel 1 / 3 / 4 q2 GEMM, kernels 5 / 6 k2v and q2 GEMMs":
                       1.9}

@@ -253,7 +253,7 @@ def test_v3_and_v7_run_stage_1_on_the_shared_wgmma_core():
 
 @pytest.mark.parametrize("launch", ["_launch_v3", "_launch_v7"])
 def test_v3_wrappers_refuse_before_any_build(launch, monkeypatch):
-    """float32 operands raise TypeError and N > 256 ValueError before the
+    """float32 operands raise TypeError and N > 512 ValueError before the
     library is built or bound, and no counter moves."""
     from focus_tpu_torch.ops import _build
 
@@ -267,8 +267,8 @@ def test_v3_wrappers_refuse_before_any_build(launch, monkeypatch):
     args = [torch.from_numpy(a) for a in core_inputs(B=1, F=2, N=8, C=C)]
     with pytest.raises(TypeError, match="float32 mode is open"):
         fn(*args[:6], 0.125, HEADS)
-    args = _bf16(core_inputs(B=1, F=1, N=257, C=C))
-    with pytest.raises(ValueError, match="N <= 256"):
+    args = _bf16(core_inputs(B=1, F=1, N=513, C=C))
+    with pytest.raises(ValueError, match="N <= 512"):
         fn(*args[:6], 0.125, HEADS)
     assert (ttb.V3_LAUNCHES, ttb.V3_DEVICE_LAUNCHES, ttb.V7_LAUNCHES,
             ttb.V7_DEVICE_LAUNCHES) == counts
