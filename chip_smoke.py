@@ -82,7 +82,17 @@ Phases (one JSON line each; any failure exits non-zero):
      loss and gradients, v3 and v7's loss against version 4's), after
      kernels 3 to 6 and 8 are held past 256 keys a frame (their chunked
      forms: N = 441 and 445 at B = 4, 257 and 512 at B = 2, extreme inputs
-     at 441) in phase 2.
+     at 441) in phase 2;
+ 13. the multi-view test path (``tools.run_net`` -> ``engine.tester.test``:
+     the loader, the checkpoint reader, the test meters) on in-script test
+     splits: the HR-336 EK model through ``configs/ORViT/EK_ORVIT_MF_HR.yaml``,
+     2 videos x 10 views x 3 crops at batch 16, and the flagship SSv2, 4
+     videos x 1 view x 3 crops at batch 8, each from a checkpoint written
+     first: every clip counted once, the checkpoint's weights in the model,
+     12 kernel-1 and 1 kernel-2 launches a batch, the ensembled
+     probabilities against a direct loop through ``EvalForward`` (1e-3),
+     the loop's and the forward's clips per second and the loop's share
+     waiting for batches.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -91,6 +101,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2151,18 +2162,28 @@ KERNEL_1_DEVICE_LAUNCHES_PER_CALL = 3
 HR_HEADS = {"verb": 97, "noun": 300}
 
 
+PROFILE_ATTEMPTS = 3
+
+
 def device_kernels(fn):
     """Names of the device kernels one call of ``fn`` launches, as
-    torch.profiler traces them on the card."""
+    torch.profiler traces them on the card. A trace that holds no device
+    event at all (the profiler now and then returns one, after a call that
+    did launch) is taken again, up to PROFILE_ATTEMPTS traces; the callers
+    check the names of the first trace that holds any."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
 
 
 def check_kernel_1_launches(tb, args, scale, heads, tag):
@@ -2920,6 +2941,309 @@ def phase_hr336_train(smi, per_call):
     return launches
 
 
+# the multi-view test path (phase 13): a seeded in-script test split of each
+# model at TEST.BATCH_SIZE 64, both yamls' own, 300 clips each (five
+# batches, the last 44 clips and 20 pad rows): 10 EK videos x 10 views x 3
+# crops and 100 SSv2 videos x 1 view x 3 crops. The package's log (the
+# config dump, the meters' lines) goes to TEST_ENGINE_LOG, not to stdout.
+TEST_ENGINE_DIR = os.path.join(REPO, "build", "test_engine")
+TEST_ENGINE_LOG = os.path.join(REPO, "build", "test_engine.log")
+TEST_ENGINE_BATCH = 64
+TEST_ENGINE_ATOL = 1e-3  # the ensembled (summed) probabilities, direct loop
+
+
+class TestClips:
+    """A test split as the real datasets' test mode yields it: uint8
+    frames of each view [T, crop, crop, 3], the label (EPIC-Kitchens' a
+    dict of verb and noun), the clip index and {"orvit_bboxes": [T, O, 4]}
+    (normalised cxcywh, empty boxes zeroed). Each view is a temporal window
+    (``decoder.get_start_end_idx``, linspace sampling) and a spatial crop
+    (``transform.uniform_crop``) of a seeded source video held in memory
+    (2T frames, crop x 4/3 crop), its boxes carried through the crop and
+    ``EKBoxes.prepare_boxes``; no file is read."""
+
+    VIDEOS = 10
+    EK = True
+
+    def __init__(self, cfg, mode):
+        assert mode == "test", mode
+        self.cfg = cfg
+        T, crop, O = cfg.DATA.NUM_FRAMES, cfg.DATA.TEST_CROP_SIZE, cfg.ORVIT.O
+        self.views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+        rs = np.random.default_rng(cfg.RNG_SEED + 7)
+        self.videos = rs.integers(0, 256, (self.VIDEOS, 2 * T, crop,
+                                           crop * 4 // 3, 3), dtype=np.uint8)
+        xy = rs.random((self.VIDEOS, 2 * T, O, 2)) * 0.6
+        wh = rs.random((self.VIDEOS, 2 * T, O, 2)) * 0.4 - 0.05
+        self.boxes = np.concatenate([xy, xy + wh], axis=-1)  # some empty
+        self.labels = [(int(rs.integers(97)), int(rs.integers(300)))
+                       for _ in range(self.VIDEOS)]
+
+    def __len__(self):
+        return self.VIDEOS * self.views
+
+    def __getitem__(self, index):
+        from focus_tpu_torch.datasets import decoder
+        from focus_tpu_torch.datasets import transform as xf
+        from focus_tpu_torch.datasets.epickitchens import EKBoxes
+
+        cfg = self.cfg
+        v, view = divmod(index, self.views)
+        T = cfg.DATA.NUM_FRAMES
+        start, end = decoder.get_start_end_idx(
+            2 * T, T, view // cfg.TEST.NUM_SPATIAL_CROPS,
+            cfg.TEST.NUM_ENSEMBLE_VIEWS)
+        idx = np.clip(np.linspace(start, end, T), 0, 2 * T - 1).astype(
+            np.int64)
+        frames = self.videos[v][idx]
+        h, w = frames.shape[1:3]
+        boxes = self.boxes[v][idx] * np.array([w, h, w, h])
+        frames, boxes = xf.uniform_crop(frames, cfg.DATA.TEST_CROP_SIZE,
+                                        view % cfg.TEST.NUM_SPATIAL_CROPS,
+                                        boxes=boxes)
+        boxes = boxes / cfg.DATA.TEST_CROP_SIZE
+        boxes = EKBoxes.prepare_boxes(boxes.transpose(1, 0, 2))
+        verb, noun = self.labels[v]
+        label = ({"verb": np.int32(verb), "noun": np.int32(noun)} if self.EK
+                 else np.int32(verb % self.cfg.MODEL.NUM_CLASSES))
+        return (np.ascontiguousarray(frames), label, np.int32(index),
+                {"orvit_bboxes": boxes.astype(np.float32)})
+
+
+class SSv2TestClips(TestClips):
+    VIDEOS = 100
+    EK = False
+
+
+def register_test_clips():
+    from focus_tpu_torch.datasets.build import DATASET_REGISTRY
+
+    for name, cls in (("Chip_ek", TestClips), ("Chip_ssv2", SSv2TestClips)):
+        if name not in DATASET_REGISTRY:
+            DATASET_REGISTRY.register(cls, name=name)
+
+
+def counted_test_run(run):
+    """``run()`` (one pass of the test path) with the launch counts and the
+    peak of allocated device memory reset just before it: (its result,
+    launches, peak GB)."""
+    from focus_tpu_torch.ops import patch_embed as pe
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb.LAUNCHES = tb.V3_LAUNCHES = tb.V5_LAUNCHES = tb.V6_LAUNCHES = 0
+    tb.V7_LAUNCHES = pe.LAUNCHES = 0
+    result = run()
+    torch.cuda.synchronize()
+    launches = {"trajectory_block": tb.LAUNCHES,
+                "trajectory_block_v3": tb.V3_LAUNCHES,
+                "trajectory_block_v7": tb.V7_LAUNCHES,
+                "trajectory_block_v5": tb.V5_LAUNCHES,
+                "trajectory_block_v6": tb.V6_LAUNCHES,
+                "patch_embed": pe.LAUNCHES}
+    return result, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def test_engine_case(cfg, first, tag):
+    """Write a checkpoint of ``cfg``'s model built with seed RNG_SEED + 1
+    (the tester builds RNG_SEED's weights), point TEST.CHECKPOINT_FILE_PATH
+    at it, and run the test path twice: ``first()`` (returns the stats),
+    then ``tester.run_test`` on ``cfg`` (returns the ``TestRun``), the
+    launch counts reset just before each. Then check: 12 kernel-1 and 1
+    kernel-2 launches a batch and none of the other versions' in each run;
+    the same stats from both; every clip counted once; the stats the
+    meter's keys; the whole checkpoint loaded, with tensors that differ
+    from the ones the tester built; the ensembled probabilities against a
+    direct loop over the same batches through ``EvalForward`` on the model
+    that was saved (TEST_ENGINE_ATOL, and whether bit-equal), which shows
+    the checkpoint's weights in use. Reports the second run's loop: clips/s
+    (host clock, loader included), the share of it spent waiting for a
+    batch (with and without the first batch's wait) and its peak of
+    allocated device memory; and the forward's clips/s alone on the same
+    batches."""
+    from focus_tpu_torch.datasets.build import build_dataset
+    from focus_tpu_torch.engine import tester
+    from focus_tpu_torch.entry import EvalForward
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.ops.preprocess import device_normalize
+    from focus_tpu_torch.utils import checkpoint as cu
+
+    seed = cfg.RNG_SEED + 1
+    written = build_model(cfg, DEV, seed=seed)
+    path = cu.save_checkpoint(os.path.join(TEST_ENGINE_DIR, tag), written, 0,
+                              cfg, name=f"seed{seed}")
+    cfg.TEST.CHECKPOINT_FILE_PATH = path
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    stats, first_launches, first_peak = counted_test_run(first)
+    run, launches, peak_gb = counted_test_run(
+        lambda: tester.run_test(cfg, device=DEV))
+    meter, report = run.meter, run.checkpoint
+    batches, clips = run.batches, run.clips
+    expect = {k: 0 for k in launches}
+    expect["trajectory_block"] = len(written.blocks) * batches
+    expect["patch_embed"] = batches
+    problems = []
+    for name, got in (("first", first_launches), ("second", launches)):
+        if got != expect:
+            problems.append(f"{name} run's launches {got}, expected {expect}")
+    if run.stats != stats:
+        problems.append("the second run's stats differ from the first's")
+    ek = isinstance(meter, tester.EPICTestMeter)
+    num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    counted_once = bool((meter.clip_count == num_clips).all()
+                        and meter.seen_clips.sum() == clips)
+    if not counted_once:
+        problems.append(f"clip counts {meter.clip_count.tolist()}")
+    keys = ({f"{h}_top{k}_acc" for h in ("verb", "noun", "action")
+             for k in (1, 5)} if ek else {"top1_acc", "top5_acc"})
+    if set(stats) != keys | {"split"}:
+        problems.append(f"stats keys {sorted(stats)}")
+
+    state = written.state_dict()
+    initial = build_model(cfg, DEV)  # the weights the tester built
+    changed = sum(not torch.equal(v, state[k])
+                  for k, v in initial.state_dict().items())
+    del initial
+    if not (report["path"] == path and not report["missing"]
+            and len(report["loaded"]) == len(state) and changed):
+        problems.append("the checkpoint was not loaded whole, or changes "
+                        "nothing")
+
+    # the same batches (the loader's order, pad rows included) straight
+    # through EvalForward on the saved model, the forward timed alone
+    dataset = build_dataset(cfg.TEST.DATASET, cfg, "test")
+    forward = EvalForward(written)
+    bs, n = cfg.TEST.BATCH_SIZE, len(dataset)
+    ensembles = ((meter.verb_preds, meter.noun_preds) if ek
+                 else (meter.video_preds,))
+    sums = [np.zeros_like(p) for p in ensembles]
+    seconds = 0.0
+    for start in range(0, n, bs):
+        idx = list(range(start, min(start + bs, n)))
+        real = len(idx)
+        idx += idx[: bs - real]
+        items = [dataset[i] for i in idx]
+        video = torch.from_numpy(np.stack([it[0] for it in items])).to(DEV)
+        boxes = torch.from_numpy(np.stack([it[3]["orvit_bboxes"]
+                                           for it in items])).to(DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward(device_normalize(video, cfg), boxes)
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        heads = (out[1]["verb"], out[1]["noun"]) if ek else (out,)
+        for acc, probs in zip(sums, heads):
+            probs = probs.float().cpu().numpy().astype(np.float64)
+            for row, i in enumerate(idx[:real]):
+                acc[i // num_clips] += probs[row]
+    max_abs = max(float(np.abs(a - b).max()) for a, b in zip(ensembles, sums))
+    bit_equal = all(np.array_equal(a, b) for a, b in zip(ensembles, sums))
+    if not max_abs <= TEST_ENGINE_ATOL:
+        problems.append(f"ensembled probabilities {max_abs} from the loop")
+    result = {"ok": not problems, "problems": problems, "stats": stats,
+              "videos": len(meter.clip_count), "clips": clips,
+              "batch_size": bs, "batches": batches,
+              "pad_rows": batches * bs - clips,
+              "every_clip_counted_once": counted_once,
+              "checkpoint": {"path": os.path.relpath(path, REPO),
+                             "loaded": len(report["loaded"]),
+                             "missing": len(report["missing"]),
+                             "unused": len(report["unused"]),
+                             "tensors_changed_by_the_load": changed},
+              "launches": launches, "launches_first_run": first_launches,
+              "launches_per_batch": {k: v / batches
+                                     for k, v in launches.items()},
+              "vs_direct_loop": {"max_abs_summed_prob": max_abs,
+                                 "atol": TEST_ENGINE_ATOL,
+                                 "bit_equal": bit_equal},
+              "test_loop_clips_per_sec": clips / run.seconds,
+              "loop": {"seconds": run.seconds,
+                       "wait_seconds": run.wait_seconds,
+                       "first_wait_seconds": run.first_wait_seconds,
+                       "wait_share": run.wait_seconds / run.seconds,
+                       "wait_share_after_the_first_batch":
+                           (run.wait_seconds - run.first_wait_seconds)
+                           / run.seconds,
+                       "peak_memory_gb": peak_gb,
+                       "peak_memory_gb_first_run": first_peak,
+                       "allocated_before_gb": resident_gb,
+                       "allocated_before_note": "the saved model, kept for "
+                                                "the direct loop"},
+              "forward_clips_per_sec": clips / seconds,
+              "forward_seconds": seconds}
+    del written, forward, run, meter
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_test_engine(smi):
+    """The multi-view test path end to end on the card (phase 13), on two
+    in-script test splits (``TestClips``) registered in the port's
+    DATASET_REGISTRY, each 300 clips at TEST.BATCH_SIZE 64: ORViT-MF-HR
+    EK100 16x336 on ``configs/ORViT/EK_ORVIT_MF_HR.yaml`` (the model of
+    ``entry.hr_cfg``: full width and depth), first through
+    ``tools.run_net.main``; then the flagship SSv2 16x224
+    (``entry.flagship_cfg``, the SSv2 yaml's test batch and workers), first
+    through ``engine.tester.test``. Each is held by ``test_engine_case``;
+    the package's log goes to TEST_ENGINE_LOG."""
+    import contextlib
+
+    from focus_tpu_torch.config.defaults import assert_and_infer_cfg
+    from focus_tpu_torch.engine import tester
+    from focus_tpu_torch.entry import flagship_cfg
+    from focus_tpu_torch.tools import run_net
+    from focus_tpu_torch.utils import logging as port_logging
+    from focus_tpu_torch.utils.parser import load_config, parse_args
+
+    register_test_clips()
+    shutil.rmtree(TEST_ENGINE_DIR, ignore_errors=True)
+    os.makedirs(TEST_ENGINE_DIR)
+    yaml = os.path.join(REPO, "configs", "ORViT", "EK_ORVIT_MF_HR.yaml")
+    argv = ["--device", DEV, "--cfg", yaml, "--exp_name", "chip_smoke",
+            "TRAIN.ENABLE", "False", "TEST.EVAL_TASK", "ar",
+            "TEST.DATASET", "chip_ek",
+            "OUTPUT_DIR", os.path.join(TEST_ENGINE_DIR, "hr336")]
+    hr_cfg = assert_and_infer_cfg(load_config(parse_args(argv)))
+    assert hr_cfg.TEST.BATCH_SIZE == TEST_ENGINE_BATCH, hr_cfg.TEST.BATCH_SIZE
+
+    cfg = flagship_cfg()
+    cfg.MODEL.ARCH = "slow"
+    cfg.TEST.DATASET = "chip_ssv2"
+    cfg.DATA.TEST_CROP_SIZE = 224
+    cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.NUM_SPATIAL_CROPS = 1, 3
+    cfg.TEST.BATCH_SIZE = TEST_ENGINE_BATCH  # SSv2_ORViT-MF_224_16x4.yaml's
+    cfg.DATA_LOADER.NUM_WORKERS = 6  # as the SSv2 yaml
+    cfg.OUTPUT_DIR = os.path.join(TEST_ENGINE_DIR, "flagship")
+
+    result = {"phase": "test_engine", "gpu": smi}
+    try:
+        with open(TEST_ENGINE_LOG, "w") as log, \
+                contextlib.redirect_stdout(log):
+            result["hr336_ek"] = {
+                "model": "ORViT-MF-HR EK100 16x336 (configs/ORViT/"
+                         "EK_ORVIT_MF_HR.yaml, first run through "
+                         "tools.run_net), D=768, 12 layers, 12 heads, bf16; "
+                         "10 videos x 10 views x 3 crops",
+                **test_engine_case(hr_cfg, lambda: run_net.main(
+                    argv + ["TEST.CHECKPOINT_FILE_PATH",
+                            hr_cfg.TEST.CHECKPOINT_FILE_PATH]), "hr336")}
+            result["flagship_ssv2"] = {
+                "model": "ORViT-MF SSv2 16x224 (entry.flagship_cfg, first "
+                         "run through engine.tester.test), D=768, 12 "
+                         "layers, 12 heads, bf16; 100 videos x 1 view x 3 "
+                         "crops",
+                **test_engine_case(
+                    cfg, lambda: tester.test(cfg, device=DEV), "flagship")}
+    finally:
+        port_logging.close_logging()
+        shutil.rmtree(TEST_ENGINE_DIR, ignore_errors=True)
+    result["ok"] = result["hr336_ek"]["ok"] and result["flagship_ssv2"]["ok"]
+    emit(result)
+    if not result["ok"]:
+        raise AssertionError("test engine phase failed")
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -3036,6 +3360,7 @@ def main():
         "steve_entry(int8=True), each rollout one replay of its captured "
         "graph; device_launches are the kernels those steps launched "
         "(counted at the capture), every one with the PDL attribute")
+    phase_test_engine(smi)
     emit({"kernels": [traj, patch, bwd, ar, arq, space, v5, v6, v3, v7]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
