@@ -97,6 +97,7 @@ Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -3244,6 +3245,604 @@ def phase_test_engine(smi):
         raise AssertionError("test engine phase failed")
 
 
+# the supervised train loop (phase 14): in-script train / val splits of each
+# model, run through the loop at the yamls' batch, then held against a direct
+# step loop, a direct validation loop, a resumed run and a preempted one. The
+# package's log goes to TRAIN_ENGINE_LOG, not to stdout.
+TRAIN_ENGINE_DIR = os.path.join(REPO, "build", "train_engine")
+TRAIN_ENGINE_LOG = os.path.join(REPO, "build", "train_engine.log")
+TRAIN_ENGINE_VAL = 40  # val clips of each model: one padded batch
+HR_TRAIN_STEPS = 4  # steps an epoch at the EK yaml's TRAIN.BATCH_SIZE 16
+FLAGSHIP_TRAIN_BATCH = 48  # SSv2_ORViT-MF_224_16x4.yaml's
+FLAGSHIP_GRAD_ACCUM = 2
+FLAGSHIP_TRAIN_STEPS = 2
+# the loop against the direct step loop over the same batches from the same
+# weights and generator seed, where the two are not bit-equal (atomic sums
+# in a backward reorder float32 additions): each step's loss within this
+# share of it, and the parameters after the last step within this share of
+# their norm (relative L2)
+TRAIN_LOOP_LOSS_REL = 1e-3
+TRAIN_LOOP_PARAM_REL = 1e-4
+VAL_STATS_ATOL = 1e-9  # percentages: the meter's weighted means, float64
+
+
+class TrainClips:
+    """A train or val split as the real datasets' train mode yields it:
+    uint8 frames [T, crop, crop, 3], the label (EPIC-Kitchens' a dict of
+    verb and noun), the clip index and {"orvit_bboxes": [T, O, 4]}
+    (normalised cxcywh, empty boxes zeroed), T boxes a clip as the datasets
+    give them. A clip is a random temporal window and a random crop
+    (``transform.random_crop``, the boxes carried through) of one of
+    SOURCES seeded source videos in memory (2T frames, 9/8 x 5/4 of the
+    crop), drawn from a generator seeded by the clip index and, for the
+    train split, the epoch (``epoch``, which ``epoch_seeded_splits`` sets
+    at each shuffle): two runs see the same clips; no file is read."""
+
+    SOURCES = 8
+
+    def __init__(self, cfg, mode, clips, ek):
+        self.cfg, self.mode, self.clips, self.ek = cfg, mode, clips, ek
+        self.epoch = 0
+        T, crop, O = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE, cfg.ORVIT.O
+        rs = np.random.default_rng(cfg.RNG_SEED + 11)
+        self.videos = rs.integers(
+            0, 256, (self.SOURCES, 2 * T, crop * 9 // 8, crop * 5 // 4, 3),
+            dtype=np.uint8)
+        xy = rs.random((self.SOURCES, 2 * T, O, 2)) * 0.6
+        wh = rs.random((self.SOURCES, 2 * T, O, 2)) * 0.4 - 0.05
+        self.boxes = np.concatenate([xy, xy + wh], axis=-1)  # some empty
+
+    def __len__(self):
+        return self.clips
+
+    def __getitem__(self, index):
+        from focus_tpu_torch.datasets import transform as xf
+        from focus_tpu_torch.datasets.epickitchens import EKBoxes
+
+        cfg = self.cfg
+        T, crop = cfg.DATA.NUM_FRAMES, cfg.DATA.TRAIN_CROP_SIZE
+        seed = [cfg.RNG_SEED, index] + (
+            [self.epoch] if self.mode == "train" else [])
+        rng = np.random.RandomState(seed)
+        v = index % self.SOURCES
+        start = rng.randint(0, T + 1)
+        frames = self.videos[v, start:start + T]
+        h, w = frames.shape[1:3]
+        boxes = self.boxes[v, start:start + T] * np.array([w, h, w, h])
+        frames, boxes = xf.random_crop(frames, crop, rng, boxes=boxes)
+        boxes = EKBoxes.prepare_boxes((boxes / crop).transpose(1, 0, 2))
+        label = ({"verb": np.int32(index * 7 % 97),
+                  "noun": np.int32(index * 13 % 300)} if self.ek
+                 else np.int32(index * 7 % cfg.MODEL.NUM_CLASSES))
+        return (np.ascontiguousarray(frames), label, np.int32(index),
+                {"orvit_bboxes": boxes.astype(np.float32)})
+
+
+class EKTestClips(TestClips):
+    VIDEOS = 2  # x 10 views x 3 crops: 60 clips
+
+
+def chip_splits(ek, train_clips, val_clips):
+    """The dataset factory of one model's in-script splits: TrainClips for
+    train and val, EKTestClips for test."""
+    def make(cfg, mode):
+        if mode == "test":
+            return EKTestClips(cfg, mode)
+        return TrainClips(cfg, mode, train_clips if mode == "train"
+                          else val_clips, ek)
+
+    return make
+
+
+@contextlib.contextmanager
+def registered_splits(splits):
+    """``splits`` ({registry name: factory}) in the port's
+    DATASET_REGISTRY, over any class of the same name (the trainer and the
+    tester key EPIC-Kitchens on the name); the registry restored after."""
+    import focus_tpu_torch.datasets.epickitchens  # noqa: F401 (registration)
+    from focus_tpu_torch.datasets.build import DATASET_REGISTRY
+
+    table = DATASET_REGISTRY._map
+    saved = {name: table.get(name) for name in splits}
+    table.update(splits)
+    try:
+        yield
+    finally:
+        for name, obj in saved.items():
+            if obj is None:
+                table.pop(name, None)
+            else:
+                table[name] = obj
+
+
+@contextlib.contextmanager
+def epoch_seeded_splits():
+    """The train loop's ``shuffle_dataset`` also tells an in-script split
+    the epoch it draws."""
+    from focus_tpu_torch.datasets import loader
+
+    shuffle = loader.shuffle_dataset
+
+    def shuffle_dataset(train_loader, cur_epoch):
+        train_loader.dataset.epoch = cur_epoch
+        shuffle(train_loader, cur_epoch)
+
+    loader.shuffle_dataset = shuffle_dataset
+    try:
+        yield
+    finally:
+        loader.shuffle_dataset = shuffle
+
+
+def reset_counts():
+    from focus_tpu_torch.ops import patch_embed as pe
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    tb.LAUNCHES = tb.V3_LAUNCHES = tb.V5_LAUNCHES = tb.V6_LAUNCHES = 0
+    tb.V7_LAUNCHES = tb.BWD_LAUNCHES = tb.BWD_DEVICE_LAUNCHES = 0
+    pe.LAUNCHES = 0
+
+
+def counted(run):
+    """``run()`` with every launch count and the peak of allocated device
+    memory reset just before it: (its result, launches, peak GB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = run()
+    torch.cuda.synchronize()
+    return result, train_counts(), torch.cuda.max_memory_allocated() / 1e9
+
+
+@contextlib.contextmanager
+def captured_engine(runs):
+    """``trainer.train`` and ``tester.test``, as ``tools.run_net`` calls
+    them, each ``counted``: the TrainRun / TestRun, its launches and peak
+    memory appended to ``runs["train"]`` / ``runs["test"]``."""
+    from focus_tpu_torch.engine import tester, trainer
+
+    train, test = trainer.train, tester.test
+
+    def counted_train(cfg, device="cuda"):
+        runs["train"].append(counted(lambda: trainer.run_train(cfg, device)))
+        return runs["train"][-1][0].state
+
+    def counted_test(cfg, device="cuda"):
+        runs["test"].append(counted(lambda: tester.run_test(cfg, device)))
+        return runs["test"][-1][0].stats
+
+    trainer.train, tester.test = counted_train, counted_test
+    try:
+        yield
+    finally:
+        trainer.train, tester.test = train, test
+
+
+def host_params(model):
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+
+
+def params_rel_l2(a, b):
+    num = math.sqrt(sum(float((a[k].double() - b[k].double()).pow(2).sum())
+                        for k in a))
+    den = math.sqrt(sum(float(b[k].double().pow(2).sum()) for k in b))
+    return num / den
+
+
+def direct_train_loop(cfg, init_path, epochs):
+    """``make_supervised_train_step`` over the train split's batches of
+    ``epochs`` epochs (the loader's order and clips), from the weights at
+    ``init_path`` and a state seeded as the loop seeds it; each step timed
+    alone (synchronized). Returns (losses by epoch, host parameters,
+    seconds, clips)."""
+    from focus_tpu_torch.datasets import loader as data_loader
+    from focus_tpu_torch.engine import trainer
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.models.losses import get_loss_func
+    from focus_tpu_torch.utils import checkpoint as cu
+
+    train_loader = data_loader.construct_loader(cfg, "train", DEV)
+    model = build_model(cfg, DEV)
+    state = trainer.build_supervised_state(cfg, model, len(train_loader))
+    cu.load_checkpoint(init_path, model, cfg)
+    step = trainer.make_supervised_train_step(model, cfg, get_loss_func(cfg))
+    model.train()
+    losses, seconds, clips = [], 0.0, 0
+    for epoch in range(epochs):
+        train_loader.dataset.epoch = epoch
+        data_loader.shuffle_dataset(train_loader, epoch)
+        losses.append([])
+        for batch in train_loader:
+            video, labels, metadata = trainer.split_batch(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, stats = step(state, video, labels, metadata)
+            torch.cuda.synchronize()
+            seconds += time.perf_counter() - t0
+            losses[-1].append(stats["loss"].item())
+            clips += video.shape[0]
+    params = host_params(model)
+    del model, state, step, train_loader
+    torch.cuda.empty_cache()
+    return losses, params, seconds, clips
+
+
+def direct_val(cfg, checkpoint, ek):
+    """The val split's clips in the loader's order and batches (the last
+    filled from its own rows, as ``pad_last`` fills it), through
+    ``EvalForward`` on a model loaded from ``checkpoint``; the pad rows
+    dropped; the val meter's means computed over all clips at once:
+    top-1 / top-5 errors, or EPIC-Kitchens' verb, noun and action top-1 /
+    top-5 accuracies."""
+    from focus_tpu_torch.datasets.build import build_dataset
+    from focus_tpu_torch.entry import EvalForward
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.ops.preprocess import device_normalize
+    from focus_tpu_torch.utils import checkpoint as cu
+    from focus_tpu_torch.utils import metrics
+
+    dataset = build_dataset(cfg.TRAIN.DATASET, cfg, "val")
+    model = build_model(cfg, DEV)
+    cu.load_checkpoint(checkpoint, model, cfg)
+    forward = EvalForward(model)
+    bs, n = cfg.TRAIN.BATCH_SIZE, len(dataset)
+    preds, labels = [], []
+    for start in range(0, n, bs):
+        idx = list(range(start, min(start + bs, n)))
+        real = len(idx)
+        idx += idx[: bs - real]
+        items = [dataset[i] for i in idx]
+        video = torch.from_numpy(np.stack([it[0] for it in items])).to(DEV)
+        boxes = torch.from_numpy(np.stack([it[3]["orvit_bboxes"]
+                                           for it in items])).to(DEV)
+        out = forward(device_normalize(video, cfg), boxes)
+        heads = (out[1]["verb"], out[1]["noun"]) if ek else (out,)
+        preds.append([h[:real].float().cpu().numpy() for h in heads])
+        labels += [it[1] for it in items[:real]]
+    del model, forward
+    torch.cuda.empty_cache()
+    heads = [np.concatenate([p[i] for p in preds]) for i in range(len(preds[0]))]
+    if not ek:
+        y = np.array(labels)
+        err = metrics.topk_errors(heads[0], y, (1, 5))
+        return {"top1_err": err[0], "top5_err": err[1]}
+    verb = np.array([lab["verb"] for lab in labels])
+    noun = np.array([lab["noun"] for lab in labels])
+    v = metrics.topk_accuracies(heads[0], verb, (1, 5))
+    nn_ = metrics.topk_accuracies(heads[1], noun, (1, 5))
+    a = metrics.multitask_topk_accuracies(heads, (verb, noun), (1, 5))
+    return {f"{name}_top{k}": acc[i] for name, acc in
+            (("verb", v), ("noun", nn_), ("action", a))
+            for i, k in enumerate((1, 5))}
+
+
+def train_engine_case(cfg, drive, tag, ek, per_call):
+    """Check one model's train loop. ``drive()`` runs the main path inside
+    ``captured_engine`` (TRAIN.CHECKPOINT_FILE_PATH, written first, holds
+    a model of seed RNG_SEED + 1). Then: the launches of the loop (12
+    kernel-1, 12 kernel-7 calls of ``per_call`` device kernels and 1
+    kernel-2 a microbatch, 12 + 1 a val batch, no other version); finite
+    losses; the loop against ``direct_train_loop`` (bit-equal, or within
+    TRAIN_LOOP_LOSS_REL and TRAIN_LOOP_PARAM_REL); each validation's stats
+    against ``direct_val`` on that epoch's checkpoint (VAL_STATS_ATOL);
+    the test run (where ``drive`` tests) reading the last checkpoint whole,
+    12 + 1 launches a test batch, every clip once; an AUTO_RESUME run from
+    the epoch-1 checkpoint ending with the loop's parameters and epoch-2
+    losses; a run preempted at its first sync point (PREEMPT_SYNC_PERIOD
+    2, the flag set before the run) saving epoch 0 at step 2 and exiting
+    0, and the next run replaying epoch 0 from step 2. Reports the loop's
+    clips/s (host clock, loader, validation and checkpoints included), its
+    wait share (each epoch's first batch's wait with and without), each
+    checkpoint save's seconds, validation's clips/s and peak memory, and
+    the step's clips/s alone on the same batches."""
+    from focus_tpu_torch.engine import trainer
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.utils import checkpoint as cu
+    from focus_tpu_torch.utils import preemption
+
+    base = os.path.join(TRAIN_ENGINE_DIR, tag)
+    written = build_model(cfg, DEV, seed=cfg.RNG_SEED + 1)
+    init = cu.save_checkpoint(base, written, 0, cfg, name="init")
+    del written
+    torch.cuda.empty_cache()
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = init
+    cfg.OUTPUT_DIR = os.path.join(base, "run")
+    runs = {"train": [], "test": []}
+    with captured_engine(runs):
+        drive()
+    (run, launches, peak_gb), = runs["train"]
+    problems = []
+    accum = max(int(cfg.TPU.GRAD_ACCUM or 1), 1)
+    epochs = cfg.SOLVER.MAX_EPOCH
+    val_batches = len(run.val_stats) * -(-TRAIN_ENGINE_VAL // cfg.TRAIN.BATCH_SIZE)
+    micro = run.steps * accum
+    depth = cfg.MF.DEPTH  # one trajectory core a block, both ways
+    expect = {k: 0 for k in launches}
+    expect.update({"trajectory_block": depth * (micro + val_batches),
+                   "trajectory_block_bwd": depth * micro,
+                   "trajectory_block_bwd_device": depth * micro * per_call,
+                   "patch_embed": micro + val_batches})
+    if launches != expect:
+        problems.append(f"loop launches {launches}, expected {expect}")
+    flat = [x for epoch in run.losses for x in epoch]
+    if not (run.steps == len(flat) and all(math.isfinite(x) for x in flat)):
+        problems.append(f"losses {run.losses}")
+    if run.checkpoint is None or run.checkpoint.get("missing"):
+        problems.append(f"the .pyth was not loaded whole: {run.checkpoint}")
+    loop_params = host_params(run.state.model)
+    ckpts = [cu.get_path_to_checkpoint(cfg.OUTPUT_DIR, e + 1)
+             for e in range(epochs)]
+    del run.state
+    torch.cuda.empty_cache()
+
+    direct, direct_params, step_seconds, step_clips = direct_train_loop(
+        cfg, init, epochs)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        flat, [x for epoch in direct for x in epoch]))
+    param_rel = params_rel_l2(loop_params, direct_params)
+    loop_bit_equal = run.losses == direct and all(
+        torch.equal(loop_params[k], direct_params[k]) for k in loop_params)
+    if not (loss_rel <= TRAIN_LOOP_LOSS_REL
+            and param_rel <= TRAIN_LOOP_PARAM_REL):
+        problems.append(f"loop vs direct loop: loss {loss_rel:.3e}, params "
+                        f"{param_rel:.3e}")
+
+    val = []
+    for stats in run.val_stats:
+        want = direct_val(cfg, ckpts[stats["epoch"] - 1], ek)
+        err = max(abs(stats[k] - v) for k, v in want.items())
+        val.append({"epoch": stats["epoch"], "max_abs_err": err,
+                    "stats": stats})
+        if sorted(want) != sorted(k for k in stats if k != "epoch") or (
+                err > VAL_STATS_ATOL):
+            problems.append(f"val stats {stats} vs direct {want}")
+
+    result = {}
+    if runs["test"]:
+        (test_run, test_launches, test_peak), = runs["test"]
+        report = test_run.checkpoint
+        meter = test_run.meter
+        test_expect = {k: 0 for k in test_launches}
+        test_expect.update({"trajectory_block": depth * test_run.batches,
+                            "patch_embed": test_run.batches})
+        whole = (report["path"] == ckpts[-1] and not report["missing"]
+                 and len(report["loaded"]) == len(loop_params))
+        once = bool(meter.seen_clips.sum() == test_run.clips)
+        if not (whole and once and test_launches == test_expect):
+            problems.append(f"test run: checkpoint {report['path']} whole "
+                            f"{whole}, every clip once {once}, launches "
+                            f"{test_launches}")
+        result["test"] = {"stats": test_run.stats, "clips": test_run.clips,
+                          "batches": test_run.batches,
+                          "checkpoint": os.path.relpath(report["path"], REPO),
+                          "loaded_whole": whole,
+                          "every_clip_counted_once": once,
+                          "launches": test_launches, "peak_memory_gb": test_peak,
+                          "test_loop_clips_per_sec":
+                              test_run.clips / test_run.seconds}
+
+    # resume: a second job given the epoch-1 checkpoint
+    rcfg = cfg.clone()
+    rcfg.OUTPUT_DIR = os.path.join(base, "resume")
+    os.makedirs(cu.get_checkpoint_dir(rcfg.OUTPUT_DIR))
+    os.link(ckpts[0], os.path.join(cu.get_checkpoint_dir(rcfg.OUTPUT_DIR),
+                                   os.path.basename(ckpts[0])))
+    rcfg.TRAIN.AUTO_RESUME = True
+    resumed = trainer.run_train(rcfg, DEV)
+    resumed_params = host_params(resumed.state.model)
+    resume_rel = params_rel_l2(resumed_params, loop_params)
+    resume = {"start_epoch": resumed.start_epoch,
+              "losses": resumed.losses, "params_rel_l2": resume_rel,
+              "bit_equal": resumed.losses == run.losses[1:] and all(
+                  torch.equal(resumed_params[k], loop_params[k])
+                  for k in loop_params)}
+    if not (resumed.start_epoch == 1 and resume_rel <= TRAIN_LOOP_PARAM_REL):
+        problems.append(f"resume: {resume}")
+    del resumed, resumed_params
+    shutil.rmtree(os.path.join(base, "run"), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # preemption: the flag set before a run of one epoch
+    pcfg = cfg.clone()
+    pcfg.OUTPUT_DIR = os.path.join(base, "preempt")
+    pcfg.SOLVER.MAX_EPOCH = 1
+    pcfg.TRAIN.AUTO_RESUME = True
+    pcfg.TPU.PREEMPT_SYNC_PERIOD = 2
+    preemption.request_preemption()
+    code = None
+    try:
+        trainer.run_train(pcfg, DEV)
+    except SystemExit as e:
+        code = e.code
+    finally:
+        preemption.clear_preemption()
+    saved = cu.get_last_checkpoint(pcfg.OUTPUT_DIR)
+    torch.cuda.empty_cache()
+    replay = trainer.run_train(pcfg, DEV)
+    preempt = {"exit_code": code,
+               "saved": saved and os.path.basename(saved),
+               "replay_start_epoch": replay.start_epoch,
+               "replay_steps": replay.steps,
+               "replay_resumed_from": replay.checkpoint
+               and os.path.basename(replay.checkpoint["path"]),
+               "step_after_replay": replay.state.step}
+    if not (code == 0 and preempt["saved"] == "checkpoint_epoch_00000.pyth"
+            and preempt["replay_resumed_from"] == preempt["saved"]
+            and replay.start_epoch == 0
+            and replay.state.step == 2 + replay.steps):
+        problems.append(f"preemption: {preempt}")
+    del replay
+    torch.cuda.empty_cache()
+    shutil.rmtree(base, ignore_errors=True)
+
+    result.update({
+        "ok": not problems, "problems": problems,
+        "batch_size": cfg.TRAIN.BATCH_SIZE, "grad_accum": accum,
+        "epochs": epochs, "steps": run.steps, "clips": run.clips,
+        "losses": run.losses, "val": val,
+        "launches": launches,
+        "launches_per_train_step": {
+            "trajectory_block": depth * accum,
+            "trajectory_block_bwd": depth * accum,
+            "trajectory_block_bwd_device": depth * accum * per_call,
+            "patch_embed": accum},
+        "launches_per_val_batch": {"trajectory_block": depth,
+                                   "patch_embed": 1},
+        "val_batches": val_batches,
+        "checkpoint": {k: v for k, v in run.checkpoint.items()
+                       if k in ("kind", "path")} | {
+            "loaded": len(run.checkpoint["loaded"]),
+            "missing": len(run.checkpoint["missing"])},
+        "vs_direct_loop": {"bit_equal": loop_bit_equal,
+                           "max_loss_rel_err": loss_rel,
+                           "params_rel_l2": param_rel,
+                           "rule": f"losses within {TRAIN_LOOP_LOSS_REL} "
+                                   f"relative, parameters within "
+                                   f"{TRAIN_LOOP_PARAM_REL} relative L2"},
+        "resume": resume, "preemption": preempt,
+        "train_loop_clips_per_sec": run.clips / run.seconds,
+        "step_clips_per_sec": step_clips / step_seconds,
+        "loop": {"seconds": run.seconds, "wait_seconds": run.wait_seconds,
+                 "first_wait_seconds": run.first_wait_seconds,
+                 "wait_share": run.wait_seconds / run.seconds,
+                 "wait_share_without_first_batches":
+                     (run.wait_seconds - run.first_wait_seconds) / run.seconds,
+                 "checkpoint_seconds": run.checkpoint_seconds,
+                 "val_seconds": run.val_seconds, "val_clips": run.val_clips,
+                 "peak_memory_gb": peak_gb},
+        "val_clips_per_sec": run.val_clips / run.val_seconds,
+        "step_seconds": step_seconds,
+    })
+    return result, launches
+
+
+def mixup_on_card():
+    """Device mixup on the card: 16 draws from a CUDA generator
+    (``sample_mixup``), each applied on the card and, moved to the CPU, on
+    the CPU to the same [8, 2, 224, 224, 3] video and labels; the largest
+    difference of the mixed videos and soft labels, and the kinds drawn."""
+    from focus_tpu_torch.engine.trainer import apply_mixup, sample_mixup
+    from focus_tpu_torch.entry import flagship_cfg
+
+    cfg = flagship_cfg()
+    cfg.MIXUP.ENABLE = True
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    rs = np.random.RandomState(0)
+    video = torch.from_numpy(rs.randn(8, 2, 224, 224, 3).astype(np.float32))
+    labels = torch.from_numpy(rs.randint(0, 174, 8))
+    kinds, err, lams = set(), 0.0, []
+    for _ in range(16):
+        draws = sample_mixup(cfg, gen, video.shape, DEV)
+        got = apply_mixup(video.to(DEV), labels.to(DEV), cfg, draws)
+        want = apply_mixup(video, labels, cfg,
+                           {k: t.cpu() for k, t in draws.items()})
+        err = max([err] + [(g.cpu() - w).abs().max().item()
+                           for g, w in zip(got, want)])
+        kinds.add("cutmix" if bool(draws["use_cutmix"]) else "mixup")
+        lams.append(float(draws["lam"]))
+    ok = err <= 1e-6 and all(0.0 <= x <= 1.0 for x in lams)
+    return {"ok": ok, "draws": 16, "kinds": sorted(kinds), "lams": lams,
+            "max_abs_err_card_vs_cpu": err, "atol": 1e-6}
+
+
+def phase_train_engine(smi, per_call):
+    """The supervised train loop on the card (phase 14), on in-script
+    splits (``TrainClips``, ``EKTestClips``): ORViT-MF-HR EK100 16x336 on
+    ``configs/ORViT/EK_ORVIT_MF_HR.yaml`` (full width and depth, its
+    TRAIN.BATCH_SIZE 16 and solver under EK_loss) through
+    ``tools.run_net.main``: 2 epochs of 4 steps, validation and a
+    checkpoint after each, fine-tuned from a ``.pyth`` of another seed,
+    then the test path on 60 clips; and the flagship SSv2 16x224
+    (``entry.flagship_cfg`` with the SSv2 yaml's solver and drop path) at
+    its TRAIN.BATCH_SIZE 48 under TPU.GRAD_ACCUM 2, 2 epochs of 2 steps,
+    through ``engine.trainer.train``. Each is held by
+    ``train_engine_case``; device mixup by ``mixup_on_card``. The
+    package's log goes to TRAIN_ENGINE_LOG. Returns the two loops'
+    launches."""
+    from focus_tpu_torch.config.defaults import assert_and_infer_cfg
+    from focus_tpu_torch.engine import trainer
+    from focus_tpu_torch.entry import flagship_cfg
+    from focus_tpu_torch.tools import run_net
+    from focus_tpu_torch.utils import logging as port_logging
+    from focus_tpu_torch.utils.parser import load_config, parse_args
+
+    shutil.rmtree(TRAIN_ENGINE_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_ENGINE_DIR)
+    yaml = os.path.join(REPO, "configs", "ORViT", "EK_ORVIT_MF_HR.yaml")
+    argv = ["--device", DEV, "--cfg", yaml, "--exp_name", "chip_smoke",
+            "TRAIN.METHOD", "sup", "TEST.EVAL_TASK", "ar",
+            "MODEL.LOSS_FUNC", "EK_loss", "SOLVER.MAX_EPOCH", "2",
+            "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD", "1",
+            "LOG_PERIOD", "2"]
+    hr = assert_and_infer_cfg(load_config(parse_args(argv)))
+    assert hr.TRAIN.BATCH_SIZE == 16, hr.TRAIN.BATCH_SIZE
+
+    fl = flagship_cfg()
+    fl.MODEL.ARCH = "slow"
+    fl.TRAIN.DATASET = "chip_train_ssv2"
+    fl.TRAIN.BATCH_SIZE = FLAGSHIP_TRAIN_BATCH
+    fl.TPU.GRAD_ACCUM = FLAGSHIP_GRAD_ACCUM
+    s = fl.SOLVER  # configs/ORViT/SSv2_ORViT-MF_224_16x4.yaml's, 2 epochs
+    s.OPTIMIZING_METHOD, s.BASE_LR, s.WEIGHT_DECAY = "adamw", 5e-5, 5e-2
+    s.LR_POLICY, s.LRS, s.STEPS = "steps_with_relative_lrs", [1, 0.1, 0.01], \
+        [0, 20, 30]
+    s.MAX_EPOCH, s.WARMUP_EPOCHS, s.MOMENTUM = 2, 0.0, 0.9
+    fl.MF.DROP_PATH = 0.2
+    fl.TRAIN.EVAL_PERIOD = fl.TRAIN.CHECKPOINT_PERIOD = 1
+    fl.TRAIN.AUTO_RESUME = fl.TRAIN.CHECKPOINT_EPOCH_RESET = True
+    fl.DATA_LOADER.NUM_WORKERS = 6  # as the SSv2 yaml
+    fl.LOG_PERIOD = 1
+
+    splits = {"Epickitchens": chip_splits(True, HR_TRAIN_STEPS * 16,
+                                          TRAIN_ENGINE_VAL),
+              "Chip_train_ssv2": chip_splits(
+                  False, FLAGSHIP_TRAIN_STEPS * FLAGSHIP_TRAIN_BATCH,
+                  TRAIN_ENGINE_VAL)}
+    result = {"phase": "train_engine", "gpu": smi}
+    launches = []
+    try:
+        with open(TRAIN_ENGINE_LOG, "w") as log, \
+                contextlib.redirect_stdout(log), registered_splits(splits), \
+                epoch_seeded_splits():
+            case, counts = train_engine_case(
+                hr, lambda: run_net.main(argv + [
+                    "TRAIN.CHECKPOINT_FILE_PATH",
+                    hr.TRAIN.CHECKPOINT_FILE_PATH,
+                    "OUTPUT_DIR", hr.OUTPUT_DIR]), "hr336", True, per_call)
+            launches.append(counts)
+            result["hr336_ek"] = {
+                "model": "ORViT-MF-HR EK100 16x336 (configs/ORViT/"
+                         "EK_ORVIT_MF_HR.yaml through tools.run_net, "
+                         "EK_loss), D=768, 12 layers, 12 heads, bf16 "
+                         "(float32 masters); 2 epochs of 4 steps at batch "
+                         "16, 40 val clips, then 2 videos x 10 views x 3 "
+                         "crops tested",
+                **case}
+            case, counts = train_engine_case(
+                fl, lambda: trainer.train(fl, device=DEV), "flagship", False,
+                per_call)
+            launches.append(counts)
+            result["flagship_ssv2"] = {
+                "model": "ORViT-MF SSv2 16x224 (entry.flagship_cfg with the "
+                         "SSv2 yaml's solver and drop path 0.2, through "
+                         "engine.trainer.train), D=768, 12 layers, 12 heads, "
+                         "bf16 (float32 masters); 2 epochs of 2 steps at "
+                         f"batch {FLAGSHIP_TRAIN_BATCH} under TPU.GRAD_ACCUM "
+                         f"{FLAGSHIP_GRAD_ACCUM}, 40 val clips",
+                **case}
+        result["mixup"] = mixup_on_card()
+    finally:
+        port_logging.close_logging()
+        shutil.rmtree(TRAIN_ENGINE_DIR, ignore_errors=True)
+    result["ok"] = (result["hr336_ek"]["ok"] and result["flagship_ssv2"]["ok"]
+                    and result["mixup"]["ok"])
+    emit(result)
+    if not result["ok"]:
+        raise AssertionError("train engine phase failed")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -3361,6 +3960,20 @@ def main():
         "graph; device_launches are the kernels those steps launched "
         "(counted at the capture), every one with the PDL attribute")
     phase_test_engine(smi)
+    loops = phase_train_engine(smi, bwd["device_launches_per_call"])
+    for row, key in ((traj, "trajectory_block"), (patch, "patch_embed"),
+                     (bwd, "trajectory_block_bwd")):
+        row["launches_train_loop"] = sum(c[key] for c in loops)
+        row["launches_note"] += (
+            "; launches_train_loop over the train loop's two runs (phase 14: "
+            f"HR-336 EK, {2 * HR_TRAIN_STEPS} steps at batch 16 and its "
+            "validations; the flagship, "
+            f"{2 * FLAGSHIP_TRAIN_STEPS} steps at batch "
+            f"{FLAGSHIP_TRAIN_BATCH} in microbatches of "
+            f"{FLAGSHIP_TRAIN_BATCH // FLAGSHIP_GRAD_ACCUM} and its "
+            "validations)")
+    bwd["device_launches_train_loop"] = sum(
+        c["trajectory_block_bwd_device"] for c in loops)
     emit({"kernels": [traj, patch, bwd, ar, arq, space, v5, v6, v3, v7]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

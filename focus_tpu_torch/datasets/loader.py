@@ -273,12 +273,12 @@ def construct_loader(cfg, split: str, device="cuda"):
     if split == "train" and cfg.MULTIGRID.SHORT_CYCLE:
         raise NotImplementedError(
             "MULTIGRID.SHORT_CYCLE: the multigrid short cycle comes with the "
-            "train loop's slice of the port"
+            "multigrid slice of the port"
         )
     if split == "train" and cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1:
         raise NotImplementedError(
-            "AUG.NUM_SAMPLE > 1: repeated augmentation comes with the train "
-            "loop's slice of the port"
+            "AUG.NUM_SAMPLE > 1: repeated augmentation comes with the "
+            "Kinetics slice of the port"
         )
     if split == "train":
         dataset_name = cfg.TRAIN.DATASET
@@ -304,3 +304,8 @@ def construct_loader(cfg, split: str, device="cuda"):
         prefetch=cfg.TPU.PREFETCH,
         pad_last=not drop_last,
     )
+
+
+def shuffle_dataset(loader: DataLoader, cur_epoch: int) -> None:
+    """Draw the train split's order of epoch ``cur_epoch``."""
+    loader.set_epoch(cur_epoch)

@@ -7,6 +7,10 @@ detectron2-detected ``.npy`` per-frame boxes (hands pinned to slots 0-1,
 objects from slot 2; reference ssv2.py:557-599) or GT ``bbox_jsons``
 (:478-548). Returns (pathways, label, index, metadata) with
 ``metadata['orvit_bboxes']`` as normalised cxcywh, empty boxes zeroed.
+Training takes RandAugment (``AUG.ENABLE``, ``datasets/rand_augment.py``,
+boxes moved with the frames) before the normalisation, then the scale
+jitter, the random crop and the flip; the train mode's generator is
+unseeded, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 from focus_tpu_torch.datasets import transform as xf
 from focus_tpu_torch.datasets import utils as data_utils
 from focus_tpu_torch.datasets.build import DATASET_REGISTRY
+from focus_tpu_torch.datasets.rand_augment import rand_augment_video
 from focus_tpu_torch.utils import logging
 from focus_tpu_torch.utils.box_ops import zero_empty_boxes_np
 
@@ -50,11 +55,6 @@ class Ssv2:
         )
         self._construct_loader()
         self.aug = mode == "train" and cfg.AUG.ENABLE
-        if self.aug:
-            raise NotImplementedError(
-                "AUG.ENABLE in training: RandAugment comes with the train "
-                "loop's slice of the port"
-            )
 
     def _construct_loader(self):
         split = self.cfg.SSV2.SPLIT
@@ -263,6 +263,12 @@ class Ssv2:
             data_utils.retry_load_images(fpaths, self._num_retries)
         )  # [T, H, W, C] uint8
 
+        if self.aug:
+            frames, boxes = rand_augment_video(
+                frames, boxes, cfg.AUG.AA_TYPE,
+                different_per_frame=cfg.AUG.DIFFERENT_AUG_PER_FRAME, rng=rng,
+                interpolation=cfg.AUG.INTERPOLATION,
+            )
 
         frames = data_utils.maybe_normalize(frames, cfg)
 

@@ -2,9 +2,12 @@
 
     python -m focus_tpu_torch.tools.run_net [--device cuda|cpu] --cfg X.yaml [--exp_name N] [KEY VAL ...]
 
-``TEST.ENABLE`` with ``TEST.EVAL_TASK: ar`` runs ``engine.tester.test``.
-Training, the segmentation eval, the visualizations and the demo are not
-ported yet: each raises ``NotImplementedError`` before anything runs.
+``TRAIN.ENABLE`` with ``TRAIN.METHOD: sup`` runs ``engine.trainer.train``,
+then ``TEST.ENABLE`` with ``TEST.EVAL_TASK: ar`` runs
+``engine.tester.test`` (which reads the last checkpoint in OUTPUT_DIR).
+Slot-model training and segmentation eval, the visualizations and the
+demo are not ported yet: each raises ``NotImplementedError`` before
+anything runs.
 """
 
 import os
@@ -14,11 +17,10 @@ from focus_tpu_torch.utils.parser import load_config, parse_args
 
 
 def _check_ported(cfg):
-    if cfg.TRAIN.ENABLE:
+    if cfg.TRAIN.ENABLE and cfg.TRAIN.METHOD == "slots":
         raise NotImplementedError(
-            "TRAIN.ENABLE: the train loop (train, train_epoch, validation, "
-            "resume) is the next slice of the port; set TRAIN.ENABLE False "
-            "to test a checkpoint"
+            "TRAIN.METHOD slots: slot-model training comes with the STEVE "
+            "training slice of the port"
         )
     if cfg.TEST.ENABLE and cfg.TEST.EVAL_TASK != "ar":
         raise NotImplementedError(
@@ -48,6 +50,10 @@ def main(argv=None):
     cfg.EXP.NAME = args.exp_name
     cfg.EXP.PATH = os.path.join(cfg.OUTPUT_DIR, args.exp_name)
     _check_ported(cfg)
+    if cfg.TRAIN.ENABLE and cfg.TRAIN.METHOD == "sup":
+        from focus_tpu_torch.engine.trainer import train
+
+        train(cfg, device=args.device)
     if cfg.TEST.ENABLE:
         from focus_tpu_torch.engine.tester import test
 

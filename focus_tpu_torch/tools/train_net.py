@@ -1,0 +1,25 @@
+"""Standalone supervised training entry (counterpart of
+``tools/train_net.py``):
+
+    python -m focus_tpu_torch.tools.train_net [--device cuda|cpu] --cfg X.yaml [KEY VAL ...]
+"""
+
+import os
+
+from focus_tpu_torch.config.defaults import assert_and_infer_cfg
+from focus_tpu_torch.engine.trainer import train
+from focus_tpu_torch.utils.parser import load_config, parse_args
+
+
+def main(argv=None):
+    """Returns the final train state."""
+    args = parse_args(argv)
+    cfg = load_config(args)
+    cfg = assert_and_infer_cfg(cfg)
+    cfg.EXP.NAME = args.exp_name
+    cfg.EXP.PATH = os.path.join(cfg.OUTPUT_DIR, args.exp_name)
+    return train(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

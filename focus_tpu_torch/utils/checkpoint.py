@@ -20,12 +20,24 @@ reader keeps the JAX importer's rules on them:
 
 The JAX package's own checkpoints (a flax msgpack state) and Caffe2
 checkpoints are not read: each raises, naming its format.
+
+The train loop's checkpoint is the same ``.pyth`` with the reference's
+``optimizer_state`` (the ``torch.optim`` state dict: AdamW's moments) and
+the port's ``step`` and ``generator_state`` beside ``model_state``, so the
+test path and upstream readers read its weights as they read any other.
+The copy to host memory is synchronous (the next step updates the
+parameters in place); under ``TPU.ASYNC_CHECKPOINT`` the file is written
+by one ordered writer thread, ``.tmp`` then rename, and every read waits
+for the writes in flight (``wait_for_saves``). ``load_train_checkpoint``
+resumes: the last checkpoint in OUTPUT_DIR under ``TRAIN.AUTO_RESUME``,
+else ``TRAIN.CHECKPOINT_FILE_PATH``.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -37,7 +49,16 @@ logger = logging.get_logger(__name__)
 CKPT_DIR = "checkpoints"
 
 
-def get_checkpoint_dir(path_to_job: str) -> str:
+def make_checkpoint_dir(path_to_job: str, exp_name: Optional[str] = None) -> str:
+    d = get_checkpoint_dir(path_to_job, exp_name)
+    if logging.is_master_process():
+        os.makedirs(d, exist_ok=True)
+    return d
+
+
+def get_checkpoint_dir(path_to_job: str, exp_name: Optional[str] = None) -> str:
+    if exp_name:
+        return os.path.join(path_to_job, exp_name, CKPT_DIR)
     return os.path.join(path_to_job, CKPT_DIR)
 
 
@@ -62,31 +83,105 @@ def has_checkpoint(path_to_job: str) -> bool:
     return get_last_checkpoint(path_to_job) is not None
 
 
-def save_checkpoint(path_to_job: str, model: torch.nn.Module, epoch: int, cfg,
-                    name: Optional[str] = None, fmt: str = ".pyth"
-                    ) -> Optional[str]:
-    """Write ``model``'s state (on the CPU) to the epoch's checkpoint, or to
-    ``name + fmt`` in the checkpoint directory; rank 0 alone writes, through
-    a ``.tmp`` file renamed into place. Returns the path."""
+def is_checkpoint_epoch(cfg, cur_epoch: int, multigrid_schedule=None) -> bool:
+    """Whether to save after ``cur_epoch``: the last epoch, each
+    TRAIN.CHECKPOINT_PERIOD-th, or under a multigrid schedule
+    MULTIGRID.EVAL_FREQ times a stage (reference checkpoint.py:76-98)."""
+    if cur_epoch + 1 == cfg.SOLVER.MAX_EPOCH:
+        return True
+    if multigrid_schedule is not None:
+        prev_epoch = 0
+        for s in multigrid_schedule:
+            if cur_epoch < s[-1]:
+                period = max(
+                    (s[-1] - prev_epoch) // cfg.MULTIGRID.EVAL_FREQ + 1, 1
+                )
+                return (s[-1] - 1 - cur_epoch) % period == 0
+            prev_epoch = s[-1]
+    return (cur_epoch + 1) % cfg.TRAIN.CHECKPOINT_PERIOD == 0
+
+
+def _host_copy(tree):
+    """``tree`` with every tensor copied to the CPU (a copy even where it
+    lies there already)."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree
+
+
+# the keys a train-state checkpoint adds to the weights' ``.pyth``
+TRAIN_STATE_KEYS = ("optimizer_state", "step", "generator_state")
+
+_PENDING_SAVES: list = []
+
+
+def save_checkpoint(path_to_job: str, state, epoch: int, cfg,
+                    name: Optional[str] = None, fmt: str = ".pyth",
+                    async_write: Optional[bool] = None) -> Optional[str]:
+    """Write ``state`` to the epoch's checkpoint, or to ``name + fmt`` in
+    the checkpoint directory: a module's weights, or a ``TrainState``'s
+    weights, optimizer state, step and generator state. Rank 0 alone
+    writes, through a ``.tmp`` file renamed into place; the copy to host
+    memory is made before this returns. With ``async_write`` (default
+    ``TPU.ASYNC_CHECKPOINT``) the file is written on a writer thread
+    chained behind the earlier ones. Returns the path."""
     if not logging.is_master_process():
         return None
+    if async_write is None:
+        async_write = bool(getattr(cfg.TPU, "ASYNC_CHECKPOINT", False))
     d = get_checkpoint_dir(path_to_job)
     os.makedirs(d, exist_ok=True)
     if name is not None:
         path = os.path.join(d, name + fmt)
     else:
         path = get_path_to_checkpoint(path_to_job, epoch, fmt)
+    model = getattr(state, "model", state)
     payload = {
-        "model_state": {k: v.detach().cpu()
-                        for k, v in model.state_dict().items()},
+        "model_state": _host_copy(model.state_dict()),
         "epoch": epoch,
         "cfg": cfg.dump() if hasattr(cfg, "dump") else None,
     }
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    logger.info(f"Saved checkpoint to {path}")
+    if model is not state:
+        payload.update({
+            "optimizer_state": _host_copy(
+                state.optimizer.optimizer.state_dict()),
+            "step": int(state.step),
+            "generator_state": state.generator.get_state(),
+        })
+
+    def write():
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        logger.info(f"Saved checkpoint to {path}")
+
+    if not async_write:
+        write()
+        return path
+    prev = _PENDING_SAVES[-1] if _PENDING_SAVES else None
+
+    def chained():
+        if prev is not None:
+            prev.join()
+        write()
+
+    t = threading.Thread(target=chained, daemon=False)
+    t.start()
+    _PENDING_SAVES.append(t)
+    # prune landed writers (keep the tail: it anchors the chain)
+    while len(_PENDING_SAVES) > 1 and not _PENDING_SAVES[0].is_alive():
+        _PENDING_SAVES.pop(0)
     return path
+
+
+def wait_for_saves() -> None:
+    """Block until every async checkpoint write has landed."""
+    while _PENDING_SAVES:
+        _PENDING_SAVES.pop().join()
 
 
 def _is_jax_checkpoint(path: str) -> bool:
@@ -104,16 +199,25 @@ def _is_jax_checkpoint(path: str) -> bool:
     return isinstance(payload, dict) and "state" in payload
 
 
-def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
-    """The torch state dict of a ``.pyth`` / ``.pt`` file, ``module.``
-    stripped; raises on the JAX package's own format."""
+def read_payload(path: str):
+    """The object a ``.pyth`` / ``.pt`` file holds, on the CPU, after every
+    checkpoint write in flight; raises on the JAX package's own format."""
+    wait_for_saves()  # in-process read-after-async-write ordering
     if _is_jax_checkpoint(path):
         raise NotImplementedError(
             f"{path} is a JAX-package checkpoint (a flax msgpack train state "
             "under 'state'); the PyTorch port reads torch .pyth / .pt "
             "state dicts only"
         )
-    payload = torch.load(path, map_location="cpu", weights_only=False)
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def load_state_dict_file(path: str, payload=None) -> Dict[str, torch.Tensor]:
+    """The torch state dict of a ``.pyth`` / ``.pt`` file (or of its
+    ``payload``, read already), ``module.`` stripped; raises on the JAX
+    package's own format."""
+    if payload is None:
+        payload = read_payload(path)
     if isinstance(payload, dict):
         for key in ("model_state", "state_dict", "model"):
             if key in payload:
@@ -209,11 +313,12 @@ def import_state_dict(sd, model: torch.nn.Module, split_qkv: bool = False,
     return {"loaded": loaded, "missing": missing, "unused": unused}
 
 
-def load_checkpoint(path: str, model: torch.nn.Module, cfg) -> dict:
-    """Load the checkpoint at ``path`` into ``model`` under ``cfg``'s
-    naming options; returns the report of ``import_state_dict`` with the
-    path."""
-    sd = load_state_dict_file(path)
+def load_checkpoint(path: str, model: torch.nn.Module, cfg,
+                    payload=None) -> dict:
+    """Load the checkpoint at ``path`` (or its ``payload``, read already)
+    into ``model`` under ``cfg``'s naming options; returns the report of
+    ``import_state_dict`` with the path."""
+    sd = load_state_dict_file(path, payload)
     sd = apply_name_patterns(
         sd,
         clear_patterns=tuple(cfg.TRAIN.CHECKPOINT_CLEAR_NAME_PATTERN or ()),
@@ -266,3 +371,68 @@ def load_test_checkpoint(cfg, model: torch.nn.Module) -> Optional[dict]:
             "not read by the PyTorch port yet"
         )
     return load_checkpoint(path, model, cfg)
+
+
+def is_train_state(payload) -> bool:
+    """Whether a checkpoint's payload is the train loop's whole state."""
+    return isinstance(payload, dict) and all(k in payload
+                                             for k in TRAIN_STATE_KEYS)
+
+
+def restore_train_state(payload, state) -> int:
+    """Load a train-state payload into ``state``: the weights (every name,
+    strictly), the optimizer's state, the step and the generator's state.
+    Returns the checkpoint's epoch."""
+    state.model.load_state_dict(payload["model_state"])
+    state.optimizer.optimizer.load_state_dict(payload["optimizer_state"])
+    state.step = int(payload["step"])
+    state.generator.set_state(payload["generator_state"])
+    return int(payload["epoch"])
+
+
+def load_train_state(path: str, state) -> int:
+    """Resume ``state`` from the train checkpoint at ``path``; returns its
+    epoch."""
+    payload = read_payload(path)
+    if not is_train_state(payload):
+        raise ValueError(f"{path} holds no train state (its keys: "
+                         f"{sorted(payload) if isinstance(payload, dict) else type(payload)})")
+    epoch = restore_train_state(payload, state)
+    logger.info(f"Loaded checkpoint from {path} (epoch {epoch}, step "
+                f"{state.step})")
+    return epoch
+
+
+def load_train_checkpoint(cfg, state):
+    """The train loop's start (reference checkpoint.py:544-584): under
+    TRAIN.AUTO_RESUME the last checkpoint in OUTPUT_DIR, whole, at its
+    epoch; else TRAIN.CHECKPOINT_FILE_PATH: the port's own train
+    checkpoint whole, at its epoch (0 under TRAIN.CHECKPOINT_EPOCH_RESET),
+    or any other ``.pyth`` / ``.pt`` as weights alone through
+    ``import_state_dict`` at epoch 0; else the initialisation at epoch 0.
+    A missing file raises, as do Caffe2 and JAX-package checkpoints.
+    Returns (start epoch, report: the path, "kind" resume / train_state /
+    weights, the import's names for weights; None where nothing loads)."""
+    if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR):
+        path = get_last_checkpoint(cfg.OUTPUT_DIR)
+        return load_train_state(path, state), {"path": path, "kind": "resume"}
+    path = cfg.TRAIN.CHECKPOINT_FILE_PATH
+    if not path:
+        return 0, None
+    if cfg.TRAIN.CHECKPOINT_TYPE == "caffe2":
+        raise NotImplementedError(
+            f"{path}: Caffe2 checkpoints (TRAIN.CHECKPOINT_TYPE caffe2) are "
+            "not read by the PyTorch port yet"
+        )
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"TRAIN.CHECKPOINT_FILE_PATH {path} does not "
+                                "exist")
+    payload = read_payload(path)
+    if is_train_state(payload):
+        epoch = restore_train_state(payload, state)
+        logger.info(f"Loaded train state from {path} (epoch {epoch})")
+        if cfg.TRAIN.CHECKPOINT_EPOCH_RESET:
+            epoch = 0
+        return epoch, {"path": path, "kind": "train_state"}
+    report = load_checkpoint(path, state.model, cfg, payload)
+    return 0, {"kind": "weights", **report}

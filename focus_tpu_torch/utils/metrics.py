@@ -1,5 +1,5 @@
 """Classification metrics (counterpart of ``focus_tpu/utils/metrics.py``):
-top-k correct counts and accuracies, and the joint verb + noun accuracy of
+top-k correct counts, errors and accuracies, and the joint verb + noun accuracy of
 EPIC-Kitchens. Host numpy."""
 
 from __future__ import annotations
@@ -17,6 +17,11 @@ def topks_correct(preds, labels, ks):
     top_inds = np.argsort(-preds, axis=1)[:, :max_k]
     correct = top_inds == labels[:, None]
     return [float(correct[:, :k].any(axis=1).sum()) for k in ks]
+
+
+def topk_errors(preds, labels, ks):
+    num = preds.shape[0]
+    return [(1.0 - x / num) * 100.0 for x in topks_correct(preds, labels, ks)]
 
 
 def topk_accuracies(preds, labels, ks):

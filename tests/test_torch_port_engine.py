@@ -437,8 +437,8 @@ def test_cli_runs_the_test_path_on_the_cpu(tmp_path):
     assert run.stats == stats and run.clips == 16 and run.batches == 2
     assert run.checkpoint is None  # random init: none found
     assert os.path.isdir(os.path.join(str(tmp_path), "e", "checkpoints"))
-    with pytest.raises(NotImplementedError, match="train loop"):
-        run_net.main(args)
+    with pytest.raises(NotImplementedError, match="STEVE training"):
+        run_net.main(args + ["TRAIN.METHOD", "slots"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run_net.main(args[2:] + ["TRAIN.ENABLE", "False"])

@@ -96,7 +96,7 @@ def test_dropout_outside_the_slice_raises(key, value):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("MIXUP.ENABLE", True), ("TPU.GRAD_ACCUM", 2), ("DETECTION.ENABLE", True),
+    ("DETECTION.ENABLE", True),
     ("TPU.MOE.NUM_EXPERTS", 4), ("TPU.REMAT", True), ("TPU.ZERO1", True),
 ])
 def test_train_options_outside_the_slice_raise(key, value):
