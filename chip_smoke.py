@@ -92,7 +92,24 @@ Phases (one JSON line each; any failure exits non-zero):
      12 kernel-1 and 1 kernel-2 launches a batch, the ensembled
      probabilities against a direct loop through ``EvalForward`` (1e-3),
      the loop's and the forward's clips per second and the loop's share
-     waiting for batches.
+     waiting for batches;
+ 14. the supervised train loop (``tools.run_net`` ->
+     ``engine.trainer.train``) on in-script splits: HR-336 EK and the
+     flagship SSv2 at their yamls' batches, held against a direct step
+     loop, a resumed run and a preempted one;
+ 15. STEVE training and its segmentation eval (``tools.run_net`` ->
+     ``engine.slot_trainer``): the MOVi-E recipe (configs/movi_e/base.yaml,
+     res18, 64 px, 15 slots, decoder D=192 x 4 x 4, vocabulary 4096, bf16)
+     on synthetic two-frame clips, 2 epochs of 4 steps at batch 16 (finite
+     losses, best_model.pt, checkpoint.pt.tar and the epoch checkpoints,
+     every val and test clip once, mBO in [0, 100], FG-ARI in [-100,
+     100]), then
+     best_model.pt in a fresh model rolled out at 32 rows through kernel 9
+     (counted; its graph recaptured for loaded weights; ids and logits
+     against the plain path); one step at batch 2 in float32 on the card
+     against the CPU (loss 1e-4, each gradient 1e-3 relative L2); the step
+     at batch 16 timed by CUDA events on a fixed batch, the loss falling,
+     the device's busy share under torch.profiler, peak memory.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -3843,6 +3860,462 @@ def phase_train_engine(smi, per_call):
     return launches
 
 
+# STEVE training and its segmentation eval (phase 15): the MOVi-E recipe
+# (configs/movi_e/base.yaml) at its width on synthetic clips (the card's
+# machine has no PIL to read the MOVi-E PNGs), through tools.run_net, then
+# the trained model rolled out through kernel 9. The package's log goes to
+# SLOT_TRAIN_LOG, not to stdout.
+SLOT_TRAIN_DIR = os.path.join(REPO, "build", "slot_train")
+SLOT_TRAIN_LOG = os.path.join(REPO, "build", "slot_train.log")
+SLOT_YAML = os.path.join(REPO, "configs", "movi_e", "base.yaml")
+SLOT_EPOCHS = 2  # of 4 steps: synthetic_video's 64 train clips at batch 16
+SLOT_BATCH = 16  # the recipe's TRAIN.BATCH_SIZE
+SLOT_WARMUP_STEPS = 2
+SLOT_TIMED_STEPS = 10  # on one fixed batch: the loss must fall over them
+SLOT_PROFILED_STEPS = 3
+SLOT_TEST_CLIPS = 16  # synthetic_video_with_masks's test split
+# one step at batch 2 in float32, on the card against the CPU, from the same
+# weights and the same noise (Gumbel and slot noise drawn on the host and
+# passed to both, dropout at 0 on both; dropout is held on the CPU by the
+# tests): the loss within SLOT_LOSS_REL of it, the whole gradient (every
+# parameter's together) within SLOT_GRAD_REL of its norm (relative L2), and
+# each parameter's within SLOT_GRAD_TENSOR_REL: the CPU's own float32
+# gradient of a parameter can stand ~1e-3 from float64's, so a float32
+# reference cannot hold one parameter's gradient to 1e-3. Where it stands
+# furthest, the dVAE decoder, the card's float32 gradients are held against
+# float64 on the step's weights and tokens instead (slot_dvae_float32_error:
+# each within SLOT_GRAD_REL), and the CPU's are reported beside them. A
+# gradient zero but for rounding (BatchNorm removes the bias before it; one
+# bias shifts every slot's logits alike) within SLOT_ZERO_GRAD of the whole
+# gradient's norm
+SLOT_CMP_BATCH = 2
+SLOT_LOSS_REL = 1e-4
+SLOT_GRAD_REL = 1e-3
+SLOT_GRAD_TENSOR_REL = 5e-3
+SLOT_ZERO_GRAD = 1e-6
+
+
+def slot_argv(exp_name):
+    """``tools.run_net``'s arguments: the MOVi-E recipe with the synthetic
+    datasets, two-frame clips, SLOT_EPOCHS epochs, then the eval."""
+    return ["--device", DEV, "--cfg", SLOT_YAML, "--exp_name", exp_name,
+            "OUTPUT_DIR", SLOT_TRAIN_DIR,
+            "TRAIN.DATASET", "synthetic_video",
+            "TEST.DATASET", "synthetic_video_with_masks",
+            "DATA.NUM_FRAMES", "2", "SOLVER.MAX_EPOCH", str(SLOT_EPOCHS),
+            "TEST.ENABLE", "True", "LOG_PERIOD", "2"]
+
+
+@contextlib.contextmanager
+def captured_slot_engine(runs):
+    """``slot_trainer.slot_train`` and ``slot_eval``, as ``tools.run_net``
+    calls them, keeping their SlotTrainRun / SlotEvalRun in ``runs``."""
+    from focus_tpu_torch.engine import slot_trainer as st
+
+    train, evaluate = st.slot_train, st.slot_eval
+
+    def kept_train(cfg, device="cuda"):
+        runs["train"] = st.run_slot_train(cfg, device)
+        return runs["train"].state
+
+    def kept_eval(cfg, device="cuda"):
+        runs["eval"] = st.run_slot_eval(cfg, device)
+        return runs["eval"].results
+
+    st.slot_train, st.slot_eval = kept_train, kept_eval
+    try:
+        yield
+    finally:
+        st.slot_train, st.slot_eval = train, evaluate
+
+
+def slot_test_video(cfg):
+    """synthetic_video_with_masks's test clips [16, 2, 64, 64, 3] on the
+    card: the rollout's 32 rows."""
+    from focus_tpu_torch.datasets.build import build_dataset
+
+    data = build_dataset(cfg.TEST.DATASET, cfg, "test")
+    video = np.stack([data[i][0] for i in range(len(data))])
+    return torch.from_numpy(video).to(DEV)
+
+
+def slot_step_noise(cfg, B, T):
+    """The noise of one train step, drawn on the host from seed 0: the two
+    Gumbel noises [B*T, h, w, V] and the slot noise [B, S, D], as
+    ``STEVE.forward`` takes them."""
+    gen = torch.Generator().manual_seed(0)
+    h = cfg.SLOTS.IMG_SIZE // 4
+    tiny = torch.finfo(torch.float32).tiny
+    gumbel = [-torch.log(torch.empty(B * T, h, h, cfg.SLOTS.VOCAB_SIZE)
+                         .exponential_(generator=gen) + tiny)
+              for _ in range(2)]
+    slots = torch.randn(B, cfg.SLOTS.NUM_SLOTS, cfg.SLOTS.SIZE,
+                        generator=gen)
+    return {"gumbel": gumbel, "slots": slots}
+
+
+def without_dropout(model):
+    """``model`` with every dropout rate set to 0 (the position embedding's
+    fixed 0.1 too)."""
+    for m in model.modules():
+        if isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
+    return model
+
+
+def slot_grads_card_vs_cpu():
+    """One ``steve_train_entry`` step at batch 2 in float32 on the card and
+    on the CPU from the card model's weights, on the same host-drawn noise
+    and without dropout: the loss and every parameter's gradient."""
+    from focus_tpu_torch.entry import steve_train_cfg, steve_train_entry
+
+    card, (video,) = steve_train_entry(device=DEV, batch=SLOT_CMP_BATCH,
+                                       float32=True)
+    host, _ = steve_train_entry(device="cpu", batch=SLOT_CMP_BATCH,
+                                float32=True)
+    host.model.load_state_dict(host_params(card.model))
+    for fn in (card, host):
+        without_dropout(fn.model)
+    noise = slot_step_noise(steve_train_cfg(float32=True), *video.shape[:2])
+    on_card = {"gumbel": [g.to(DEV) for g in noise["gumbel"]],
+               "slots": noise["slots"].to(DEV)}
+    ids = slot_step_tokens(host.model, video.cpu(), noise["gumbel"][0])
+    float32_error = {side: slot_dvae_float32_error(
+        host.model.dvae.decoder, ids, video.cpu(), dev)
+        for side, dev in (("card", DEV), ("cpu", "cpu"))}
+    card_float32 = max(float32_error["card"].values())
+    got, ref = card(video, on_card), host(video.cpu(), noise)
+    loss_rel = abs(float(got["loss"]) - float(ref["loss"])) / abs(
+        float(ref["loss"]))
+    grads = {n: (p.grad.float().cpu(), dict(host.model.named_parameters())[
+        n].grad) for n, p in card.model.named_parameters()}
+    total = math.sqrt(sum(float(r.double().pow(2).sum())
+                          for _, r in grads.values()))
+    whole = math.sqrt(sum(float((g.double() - r.double()).pow(2).sum())
+                          for g, r in grads.values())) / total
+    worst, worst_zero, bad, rels = 0.0, 0.0, [], {}
+    for name, (g, r) in grads.items():
+        diff = float((g.double() - r.double()).norm())
+        norm = float(r.double().norm())
+        if norm > SLOT_ZERO_GRAD * total:
+            rels[name] = diff / norm
+            worst = max(worst, diff / norm)
+            if diff > SLOT_GRAD_TENSOR_REL * norm:
+                bad.append((name, diff / norm))
+        else:
+            worst_zero = max(worst_zero, diff / total)
+            if diff > SLOT_ZERO_GRAD * total:
+                bad.append((name, diff / total))
+    ok = (loss_rel <= SLOT_LOSS_REL and whole <= SLOT_GRAD_REL and not bad
+          and card_float32 <= SLOT_GRAD_REL
+          and all(bool(torch.isfinite(g).all()) for g, _ in grads.values()))
+    return ok, {"batch": SLOT_CMP_BATCH, "dtype": "float32, TF32 off",
+                "loss_card": float(got["loss"]), "loss_cpu": float(ref["loss"]),
+                "loss_rel_err": loss_rel, "params": len(grads),
+                "whole_grad_rel_l2": whole,
+                "max_grad_rel_l2": worst,
+                "worst_grads": sorted(rels.items(), key=lambda kv: -kv[1])[:6],
+                "dvae_decoder_float32_vs_float64": float32_error,
+                "max_zero_grad_err_over_total_norm": worst_zero,
+                "beyond_tolerance": bad[:8],
+                "tolerance": f"loss {SLOT_LOSS_REL} relative; the whole "
+                             f"gradient {SLOT_GRAD_REL} relative L2, each "
+                             f"parameter's {SLOT_GRAD_TENSOR_REL}, the card's "
+                             f"dVAE decoder against float64 {SLOT_GRAD_REL}, "
+                             "a gradient "
+                             f"under {SLOT_ZERO_GRAD} of the whole gradient's "
+                             "norm (zero but for rounding) within that of it"}
+
+
+@torch.no_grad()
+def slot_step_tokens(model, video, g_soft):
+    """The tokens the step's dVAE decoder takes from ``video`` [B, T, H, W,
+    C] on the CPU: the argmax of the dVAE encoder's log-probabilities plus
+    z_soft's Gumbel noise ``g_soft``, [B*T, h, w]."""
+    B, T, H, W, C = video.shape
+    logits = torch.nn.functional.log_softmax(model.dvae.encoder(
+        video.reshape(B * T, H, W, C)).float(), dim=-1)
+    return (logits + g_soft).argmax(-1)
+
+
+def slot_dvae_float32_error(decoder, ids, video, device):
+    """A copy of the dVAE ``decoder``'s gradients of the summed squared
+    error against ``video`` [B, T, H, W, C] from the one-hot ``ids`` (the
+    step's mse term) in float32 against float64 on ``device``: {name:
+    relative L2} of the four worst among its parameters' and the tokens'
+    ("input")."""
+    import copy
+
+    dec = copy.deepcopy(decoder)
+    V = dec[0].m.in_channels
+    target = video.reshape(-1, *video.shape[2:])
+    grads = {}
+    for dt in (torch.float32, torch.float64):
+        d = dec.to(device, dt)
+        d.zero_grad(set_to_none=True)
+        z = torch.nn.functional.one_hot(ids, V).to(device, dt).requires_grad_()
+        ((target.to(device, dt) - d(z)) ** 2).sum().backward()
+        grads[dt] = {n: p.grad.double().cpu() for n, p in d.named_parameters()}
+        grads[dt]["input"] = z.grad.double().cpu()
+    a, b = grads[torch.float32], grads[torch.float64]
+    rels = sorted(((float((a[k] - b[k]).norm() / b[k].norm()), k) for k in a),
+                  reverse=True)
+    return {k: r for r, k in rels[:4]}
+
+
+def slot_steps_on_card(smi):
+    """``steve_train_entry`` at the recipe's batch 16, bf16, on one fixed
+    batch: SLOT_WARMUP_STEPS, then SLOT_TIMED_STEPS each timed by CUDA
+    events and together on the host clock (the loss must fall over them),
+    then SLOT_PROFILED_STEPS under torch.profiler for the device's busy
+    share; the peak of allocated memory over the timed steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from focus_tpu_torch.entry import steve_train_entry
+    from focus_tpu_torch.profile_slice import _busy_us
+
+    fn, (video,) = steve_train_entry(device=DEV, batch=SLOT_BATCH)
+    losses = [fn(video)["loss"] for _ in range(SLOT_WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    t0 = time.perf_counter()
+    for _ in range(SLOT_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(fn(video)["loss"])
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = [a.elapsed_time(b) for a, b in times]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        p0 = time.perf_counter()
+        for _ in range(SLOT_PROFILED_STEPS):
+            fn(video)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - p0) / SLOT_PROFILED_STEPS
+    busy_us, _ = _busy_us(prof)
+    busy_ms = busy_us / 1e3 / SLOT_PROFILED_STEPS
+    losses = torch.stack(losses).tolist()
+    frames = SLOT_BATCH * video.shape[1]
+    ok = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    return ok, {"batch": SLOT_BATCH, "frames_per_clip": int(video.shape[1]),
+                "dtype": "bf16 (float32 masters)",
+                "losses": losses, "loss_fell": losses[-1] < losses[0],
+                "step_ms_cuda_events_median": statistics.median(ms),
+                "step_ms_cuda_events": ms,
+                "train_clips_per_sec": SLOT_BATCH * SLOT_TIMED_STEPS / seconds,
+                "train_frames_per_sec": frames * SLOT_TIMED_STEPS / seconds,
+                "peak_memory_gb": peak_gb,
+                "profiled_wall_ms_per_step": wall_ms,
+                "device_busy_ms_per_step": busy_ms if busy_us else
+                "not measured",
+                "device_busy_share": busy_ms / wall_ms if busy_us else
+                "not measured", "gpu": smi}
+
+
+def slot_rollout(cfg, best, per_step):
+    """The trained model rolled out: a fresh STEVE of the recipe loaded from
+    ``best`` (best_model.pt), ``reconstruct_autoregressive`` of the 16 test
+    clips (32 rows) through kernel 9, the first rollout capturing its graph
+    and STEVE_ITERS more replaying it, counted from zero. Returns the
+    report, the counts, the model and its slots."""
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.ops import ar_decode as ar
+    from focus_tpu_torch.utils import checkpoint as cu
+
+    model = build_model(cfg, DEV)
+    report = cu.load_checkpoint(best, model, cfg)
+    video = slot_test_video(cfg)
+    gen = torch.Generator(device=DEV)
+    rows = video.shape[0] * video.shape[1]
+    gen_len = (model.image_size // 4) ** 2
+    torch.cuda.synchronize()
+    captures = ar.GRAPH_CAPTURES
+    reset_ar_counts(ar)
+    gen.manual_seed(0)
+    recon, first_s = timed(lambda: model.reconstruct_autoregressive(
+        video, generator=gen))
+    times = []
+    for _ in range(STEVE_ITERS):
+        gen.manual_seed(0)
+        times.append(timed(lambda: model.reconstruct_autoregressive(
+            video, generator=gen))[1])
+    got = ar_counts(ar)
+    rollouts = 1 + STEVE_ITERS
+    counts = {"wrapper": got["bf16"], "device": got["bf16_device"]}
+    expect = {"wrapper": 1 + gen_len * rollouts,
+              "device": (1 + gen_len * rollouts) * per_step}
+    if (counts != expect or got["bf16_pdl"] != counts["device"]
+            or got["graph_replays"] != rollouts or got["w8a8"]
+            or ar.GRAPH_CAPTURES != captures + 1):
+        raise AssertionError(
+            f"trained-model rollout launches {got}, captures "
+            f"{ar.GRAPH_CAPTURES - captures}, expected {expect} (one warm "
+            f"step at the capture, then {rollouts} replays of {gen_len} steps "
+            f"x {per_step} kernels, all with PDL) and one capture")
+    recon = recon.float()
+    ok = (tuple(recon.shape) == tuple(video.shape)
+          and bool(torch.isfinite(recon).all())
+          and recon.min().item() >= 0.0 and recon.max().item() <= 1.0)
+    if not ok:
+        raise AssertionError("trained STEVE's reconstruction: bad shape or "
+                             "values")
+    gen.manual_seed(0)
+    slots = model.encode(video, generator=gen)[0].reshape(
+        rows, model.num_slots, -1)
+    seconds = statistics.median(times)
+    return {"checkpoint": os.path.basename(best),
+            "checkpoint_loaded": len(report["loaded"]),
+            "checkpoint_missing": report["missing"],
+            "rows": rows, "steps_per_rollout": gen_len,
+            "counted_rollouts": rollouts,
+            "first_rollout_ms_incl_packing_and_capture": 1e3 * first_s,
+            "ms_per_rollout_median": 1e3 * seconds,
+            "frames_per_sec": rows / seconds}, counts, model, slots
+
+
+def slot_graph_follows_weights(cfg, best, model, slots):
+    """A fresh model rolled out at its initial weights (a capture), then
+    ``best`` loaded into it and rolled out again: a second capture, and the
+    ids of the trained model's rollout from the same slots."""
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.ops import ar_decode as ar
+    from focus_tpu_torch.utils import checkpoint as cu
+
+    fresh = build_model(cfg, DEV)
+    before = ar.GRAPH_CAPTURES
+    ids_init = fresh.decode_ids(slots)
+    cu.load_checkpoint(best, fresh, cfg)
+    ids_loaded = fresh.decode_ids(slots)
+    captures = ar.GRAPH_CAPTURES - before
+    same = torch.equal(ids_loaded, model.decode_ids(slots))
+    fresh.free_rollout_graphs()
+    return captures == 2 and same, {
+        "captures": captures, "ids_equal_trained_model": same,
+        "ids_changed_with_the_weights": not torch.equal(ids_init, ids_loaded)}
+
+
+def phase_slot_train(smi):
+    """STEVE training and its segmentation eval on the card (phase 15): the
+    MOVi-E recipe (configs/movi_e/base.yaml: res18 encoder, 64 px, 15
+    slots of 192, decoder D=192 x 4 blocks x 4 heads, vocabulary 4096, bf16,
+    the three-group Adam behind clipping at 0.05) on synthetic_video /
+    synthetic_video_with_masks with two-frame clips, through
+    ``tools.run_net``: SLOT_EPOCHS epochs of 4 steps at batch 16 with
+    validation and the three checkpoint names, then ``slot_eval`` of the
+    epoch-1 checkpoint (TEST.TEST_EPOCH_NUM 1) on 16 clips; then
+    best_model.pt loaded into a fresh model and rolled out through kernel 9
+    at 32 rows. Counts are zeroed before the run and read after the
+    rollout. Then the step on the card against the CPU in float32, the
+    loss falling over the timed steps on a fixed batch, the rollout's graph
+    recaptured for loaded weights and its ids and logits against the plain
+    path. Returns kernel 9's counts."""
+    from focus_tpu_torch.config.defaults import assert_and_infer_cfg
+    from focus_tpu_torch.ops import ar_decode as ar
+    from focus_tpu_torch.tools import run_net
+    from focus_tpu_torch.utils import logging as port_logging
+    from focus_tpu_torch.utils.parser import load_config, parse_args
+
+    per_step = ar.launches_per_step(4)
+    shutil.rmtree(SLOT_TRAIN_DIR, ignore_errors=True)
+    os.makedirs(SLOT_TRAIN_DIR)
+    argv = slot_argv("chip_smoke")
+    cfg = assert_and_infer_cfg(load_config(parse_args(argv)))
+    assert (cfg.TRAIN.BATCH_SIZE, cfg.SLOTS.DECODER.DIM,
+            cfg.MODEL.CNN_NAME) == (SLOT_BATCH, 192, "res18")
+    cfg.EXP.PATH = os.path.join(cfg.OUTPUT_DIR, "chip_smoke")
+    ckpt_dir = os.path.join(cfg.EXP.PATH, "checkpoints")
+    best = os.path.join(ckpt_dir, "best_model.pt")
+    result = {"phase": "slot_train", "gpu": smi,
+              "model": "STEVE, configs/movi_e/base.yaml through "
+                       "tools.run_net: res18 encoder, 64 px, 15 slots of "
+                       "192, 2 corrector iterations, decoder D=192 x 4 "
+                       "blocks x 4 heads, vocabulary 4096, bf16 (float32 "
+                       "masters), Adam in three groups, clipping 0.05; "
+                       "synthetic_video / synthetic_video_with_masks, "
+                       f"two-frame clips, {SLOT_EPOCHS} epochs of 4 steps "
+                       "at batch 16"}
+    runs = {}
+    try:
+        with open(SLOT_TRAIN_LOG, "w") as log, contextlib.redirect_stdout(log):
+            torch.cuda.synchronize()
+            reset_ar_counts(ar)
+            with captured_slot_engine(runs):
+                results, loop_s = timed(lambda: run_net.main(argv))
+            rollout, counts, model, slots = slot_rollout(cfg, best, per_step)
+            tr, ev = runs["train"], runs["eval"]
+            names = sorted(os.listdir(ckpt_dir))
+            losses = [x for epoch in tr.losses for x in epoch]
+            checks = {
+                "losses_finite": all(math.isfinite(x) for x in losses)
+                and all(math.isfinite(x) for x in tr.val_losses),
+                "steps": tr.steps == SLOT_EPOCHS * 4,
+                "checkpoints": names == [
+                    "best_model.pt", "checkpoint.pt.tar",
+                    *[f"checkpoint_epoch_{e:05d}.pyth"
+                      for e in range(1, SLOT_EPOCHS + 1)]],
+                "eval_checkpoint": ev.checkpoint is not None and ev.checkpoint[
+                    "path"].endswith("checkpoint_epoch_00001.pyth")
+                and not ev.checkpoint["missing"],
+                "test_clips_once": ev.clips == SLOT_TEST_CLIPS,
+                "val_clips_once": tr.val_clips == SLOT_EPOCHS * 16,
+                # mBO is a mean IoU; FG-ARI an adjusted Rand index, which
+                # falls below 0 for a clustering worse than chance
+                "scores_in_range": all(math.isfinite(results[k])
+                                       for k in ("fg_ari", "mbo"))
+                and -100.0 <= results["fg_ari"] <= 100.0
+                and 0.0 <= results["mbo"] <= 100.0,
+                "rollout_loaded_whole": not rollout["checkpoint_missing"],
+            }
+            result["train"] = {
+                "losses": tr.losses, "taus": tr.taus,
+                "val_losses": tr.val_losses, "steps": tr.steps,
+                "checkpoints": names,
+                "loop_clips_per_sec": tr.clips / tr.seconds,
+                "loop_seconds": tr.seconds,
+                "wait_seconds": tr.wait_seconds,
+                "save_seconds": tr.save_seconds,
+                "val_clips": tr.val_clips,
+                "val_clips_per_sec": tr.val_clips / tr.val_seconds}
+            result["eval"] = {
+                **results, "clips": ev.clips, "batches": len(ev.fg_aris),
+                "checkpoint": os.path.basename(ev.checkpoint["path"]),
+                "clips_per_sec": ev.clips / ev.seconds,
+                "wait_seconds": ev.wait_seconds}
+            result["run_net_seconds"] = loop_s
+            result["rollout"] = rollout
+            result["kernel_9_counts"] = counts
+            ok, result["vs_plain_path"] = ids_vs_plain_path(model, slots)
+            checks["rollout_vs_plain_path"] = ok
+            result["graph_vs_per_call"] = graph_vs_per_call(model, slots)
+            ok, result["graph_follows_weights"] = slot_graph_follows_weights(
+                cfg, best, model, slots)
+            checks["graph_recaptured"] = ok
+            model.free_rollout_graphs()
+            del model, slots
+            torch.cuda.empty_cache()
+            ok, result["card_vs_cpu"] = slot_grads_card_vs_cpu()
+            checks["card_vs_cpu"] = ok
+            ok, result["steps_on_card"] = slot_steps_on_card(smi)
+            checks["loss_falls"] = ok
+    finally:
+        port_logging.close_logging()
+        shutil.rmtree(SLOT_TRAIN_DIR, ignore_errors=True)
+    result["checks"] = checks
+    result["ok"] = all(checks.values())
+    emit(result)
+    if not result["ok"]:
+        raise AssertionError(
+            f"slot train phase failed: "
+            f"{sorted(k for k, v in checks.items() if not v)}")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -3974,6 +4447,14 @@ def main():
             "validations)")
     bwd["device_launches_train_loop"] = sum(
         c["trajectory_block_bwd_device"] for c in loops)
+    slot = phase_slot_train(smi)
+    ar["launches_slot_train"] = slot["wrapper"]
+    ar["device_launches_slot_train"] = slot["device"]
+    ar["launches_note"] += (
+        "; launches_slot_train in phase 15: the MOVi-E STEVE trained through "
+        f"tools.run_net, best_model.pt rolled out at 32 rows (D=192, 4 "
+        f"blocks), {1 + STEVE_ITERS} rollouts of 256 steps, one graph "
+        "capture (its one warm step counted) and a replay each")
     emit({"kernels": [traj, patch, bwd, ar, arq, space, v5, v6, v3, v7]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,8 +9,14 @@ def build_dataset(dataset_name: str, cfg, split: str):
     """Instantiate the dataset registered under ``dataset_name``
     capitalised, as the reference looks it up."""
     import focus_tpu_torch.datasets.epickitchens  # noqa: F401 (registration)
+    import focus_tpu_torch.datasets.movi_e  # noqa: F401
     import focus_tpu_torch.datasets.ssv2  # noqa: F401
     import focus_tpu_torch.datasets.synthetic  # noqa: F401
 
     name = dataset_name.capitalize()
+    if name == "Cholec80":
+        raise NotImplementedError(
+            "the Cholec80 dataset is not ported yet (the slot models train "
+            "on movi_e or synthetic_video)"
+        )
     return DATASET_REGISTRY.get(name)(cfg, split)

@@ -17,6 +17,11 @@ tensor of the batch is recorded on the consumer's stream, so the allocator
 reuses none of it until the work queued there has read it. uint8 frames
 stay uint8: ``ops/preprocess.device_normalize`` runs on the card.
 
+Samples are any tree of arrays: the classification datasets' (video,
+label, index, metadata), the slot datasets' video alone (train and val)
+or (video, masks) (test). Only the first form marks its pad rows;
+``real_rows(i)`` gives any batch's count of samples that are not repeats.
+
 ``wait_seconds`` is the time the consumer of the last epoch spent waiting
 for a batch, ``first_wait_seconds`` the part of it spent on the first.
 A consumer that leaves an epoch early stops the producer: every put the
@@ -145,6 +150,12 @@ class DataLoader:
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def real_rows(self, batch_index: int) -> int:
+        """The samples of batch ``batch_index`` of an epoch that are not
+        ``pad_last`` repeats: its leading rows."""
+        n = len(self._epoch_indices())
+        return min(self.batch_size, n - batch_index * self.batch_size)
 
     def _epoch_indices(self) -> np.ndarray:
         n = len(self.dataset)

@@ -28,7 +28,14 @@ labels.
 (64 px, 7 slots, decoder D=2048 with 8 blocks, vocabulary 4096, bf16) with
 the JAX package's initialisers, reconstructing a video through ``encode``
 and the KV-cached token rollout.
+``steve_train_entry`` is STEVE's train step at the MOVi-E recipe
+(``configs/movi_e/base.yaml``: res18 encoder, 64 px, 15 slots of 192,
+decoder D=192 x 4 blocks x 4 heads, vocabulary 4096, bf16, the three-group
+Adam behind global-norm clipping), one update a call on a batch of
+two-frame clips.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -211,16 +218,15 @@ def hr_train_cfg(tiny: bool = False):
 
 
 class TrainStep:
-    """``fn(video, labels, boxes) -> stats``: one supervised train step of
-    ``fn.model`` from ``fn.state``; the stats (the loss, and the top-1 and
-    top-5 errors where the step computes them) stay on the device."""
+    """``fn(*inputs) -> stats``: one train step of ``fn.model`` from
+    ``fn.state``, ``step(state, *inputs) -> (state, stats)``; the stats
+    stay on the device."""
 
     def __init__(self, model, state, step):
         self.model, self.state, self.step = model, state, step
 
-    def __call__(self, video, labels, boxes):
-        self.state, stats = self.step(self.state, video, labels,
-                                      {"orvit_bboxes": boxes})
+    def __call__(self, *inputs):
+        self.state, stats = self.step(self.state, *inputs)
         return stats
 
 
@@ -240,7 +246,11 @@ def _train_entry(cfg, device, batch, seed):
     init_weights(model, gen, scale=INIT_SCALE)
     state = build_supervised_state(cfg, model, STEPS_PER_EPOCH)
     step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
-    return (TrainStep(model, state, step),
+
+    def step_with_boxes(state, video, labels, boxes):
+        return step(state, video, labels, {"orvit_bboxes": boxes})
+
+    return (TrainStep(model, state, step_with_boxes),
             example_inputs(cfg, batch, seed, device, labels=True))
 
 
@@ -316,3 +326,48 @@ def steve_entry(device="cuda", batch: int = 8, frames: int = 4, seed: int = 0,
     size = cfg.SLOTS.IMG_SIZE
     video = rs.rand(batch, frames, size, size, 3).astype(np.float32)
     return Reconstruct(model, gen), (torch.from_numpy(video).to(device),)
+
+
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "configs")
+
+
+def steve_train_cfg(tiny: bool = False, float32: bool = False):
+    """``configs/movi_e/base.yaml``; ``tiny`` merges the CPU size of
+    ``configs/tests/steve_synthetic.yaml`` over it (32 px, 3 slots of 16,
+    base CNN, decoder D=16 x 1 block, vocabulary 32, float32). ``float32``
+    sets the compute dtype to float32."""
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(CONFIGS, "movi_e", "base.yaml"))
+    if tiny:
+        cfg.merge_from_file(os.path.join(CONFIGS, "tests",
+                                         "steve_synthetic.yaml"))
+    if float32:
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def steve_train_entry(device="cuda", batch: int = 16, tiny: bool = False,
+                      seed: int = 0, float32: bool = False):
+    """(fn, (video,)): STEVE's train step (``steve_train_cfg``) from the JAX
+    package's initialisers (seeded with ``seed``) and an example batch
+    [batch, SLOTS.NUM_ITERS, IMG_SIZE, IMG_SIZE, 3] in [0, 1) from numpy's
+    RandomState(seed), on ``device`` (CUDA unless the caller asks for the
+    CPU). Batch 16 is the recipe's TRAIN.BATCH_SIZE. ``fn(video,
+    noise=None)`` returns loss, mse and cross_entropy on the device and tau
+    as a float; ``noise`` as ``STEVE.forward`` takes it."""
+    from focus_tpu_torch.engine.slot_trainer import (
+        build_slot_state,
+        make_train_step,
+    )
+
+    device = resolve_device(device)
+    cfg = steve_train_cfg(tiny, float32)
+    cfg.RNG_SEED = seed
+    model = build_model(cfg, device=device, seed=seed)
+    state = build_slot_state(cfg, model)
+    size = cfg.SLOTS.IMG_SIZE
+    video = np.random.RandomState(seed).rand(
+        batch, cfg.SLOTS.NUM_ITERS, size, size, 3).astype(np.float32)
+    return (TrainStep(model, state, make_train_step(model, cfg)),
+            (torch.from_numpy(video).to(device),))

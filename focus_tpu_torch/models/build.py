@@ -176,6 +176,12 @@ def build_model(cfg, device="cuda", seed=None):
     import focus_tpu_torch.models.steve.steve  # noqa: F401 (registration)
 
     device = resolve_device(device)
+    if cfg.MODEL.MODEL_NAME not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"MODEL.MODEL_NAME {cfg.MODEL.MODEL_NAME}: not ported yet (the "
+            f"port builds {sorted(MODEL_REGISTRY)}; the other backbones come "
+            "with a later slice)"
+        )
     model_cls = MODEL_REGISTRY[cfg.MODEL.MODEL_NAME]
     with torch.device("meta"):
         model = model_cls(cfg, dtype=compute_dtype(cfg))

@@ -7,8 +7,15 @@ Module and parameter names are the upstream torch names, so a reference
 float32 master weights, dense layers and convolutions at the input's dtype,
 LayerNorm statistics in float32 with eps 1e-6, attention logits and softmax
 in float32. Each layer carries the name of its JAX initialiser in ``.init``
-(read by ``models/build.py:init_weights``). Eval only: dropout rates are
-accepted and never applied.
+(read by ``models/build.py:init_weights``).
+
+Dropout sits where the JAX modules put it: on the attention weights and on
+the attention output, on the FFN's output. It is active only where the
+caller passes ``train=True``, and its masks are drawn from the explicit
+``torch.Generator`` it passes beside it. Every draw of the STEVE family
+(dropout masks, Gumbel and slot-initialisation noise) is made on the
+data's device; a generator on another device is refused, so no draw moves
+between the host and the card.
 """
 
 import torch
@@ -16,6 +23,62 @@ import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
+
+
+def _draw_device(generator, device):
+    """``device``, once ``generator`` (if any) is seen to draw there."""
+    device = torch.device(device)
+    if generator is not None and generator.device.type != device.type:
+        raise ValueError(f"a generator on {generator.device} cannot draw "
+                         f"for data on {device}: pass one on {device.type}")
+    return device
+
+
+def uniform(shape, generator, device):
+    """Float32 draws from U[0, 1) on ``device``, made by ``generator``."""
+    return torch.rand(shape, generator=generator,
+                      device=_draw_device(generator, device))
+
+
+def normal(shape, generator, device):
+    """Float32 draws from N(0, 1) on ``device``, made by ``generator``."""
+    return torch.randn(shape, generator=generator,
+                       device=_draw_device(generator, device))
+
+
+def exponential(shape, generator, device):
+    """Float32 draws from Exp(1) on ``device``, made by ``generator``."""
+    out = torch.empty(shape, device=_draw_device(generator, device))
+    return out.exponential_(generator=generator)
+
+
+def dropout(x, p: float, train: bool, generator=None):
+    """flax ``nn.Dropout``: each element kept with probability 1 - p and
+    scaled by 1 / (1 - p), else zeroed; ``x`` itself unless ``train`` and
+    p > 0. The mask comes from ``generator``."""
+    if not train or p == 0.0:
+        return x
+    keep = uniform(x.shape, generator, x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+
+
+def gumbel_softmax(logits, tau, hard: bool, generator=None, noise=None):
+    """Gumbel-softmax over the last axis with optional straight-through hard
+    sampling (counterpart of ``focus_tpu/models/common.py:395-405``;
+    reference STEVE/utils.py:44-58). ``noise`` is the Gumbel noise, of
+    ``logits``' shape; else it is -log(e + tiny) with e ~ Exp(1) drawn from
+    ``generator``."""
+    if noise is None:
+        tiny = torch.finfo(logits.dtype).tiny
+        e = exponential(logits.shape, generator, logits.device)
+        noise = -torch.log(e.to(logits.dtype) + tiny)
+    y_soft = torch.softmax((logits + noise) / tau, dim=-1)
+    if not hard:
+        return y_soft
+    y_hard = F.one_hot(y_soft.argmax(dim=-1), logits.shape[-1]).to(
+        logits.dtype)
+    return y_hard - y_soft.detach() + y_soft
 
 
 def linear(x, layer: nn.Linear):
@@ -100,11 +163,13 @@ class MultiHeadAttention(nn.Module):
     JAX module: ``project_kv_only`` returns the per-head K/V of a
     rollout-constant key set, ``precomputed_kv`` takes them back, and
     ``cache=(k_cache, v_cache, t)`` decodes the single token at position t
-    against caches ``[B, L, h, hd]``, which it updates in place."""
+    against caches ``[B, L, h, hd]``, which it updates in place. With
+    ``train`` the attention weights and the output take dropout."""
 
     def __init__(self, d_model, num_heads, dropout=0.0, gain=1.0):
         super().__init__()
         self.d_model, self.num_heads = d_model, num_heads
+        self.dropout = dropout
         self.proj_q = Dense(d_model, d_model, bias=False)
         self.proj_k = Dense(d_model, d_model, bias=False)
         self.proj_v = Dense(d_model, d_model, bias=False)
@@ -114,7 +179,7 @@ class MultiHeadAttention(nn.Module):
         return x.reshape(x.shape[0], x.shape[1], self.num_heads, -1)
 
     def forward(self, q, k, v, causal=False, cache=None, precomputed_kv=None,
-                project_kv_only=False):
+                project_kv_only=False, train=False, generator=None):
         if project_kv_only:
             return (self._heads(linear(k, self.proj_k)),
                     self._heads(linear(v, self.proj_v)))
@@ -143,17 +208,18 @@ class MultiHeadAttention(nn.Module):
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         attn = torch.softmax(logits, dim=-1).to(qh.dtype)
+        attn = dropout(attn, self.dropout, train, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, vh.to(attn.dtype))
         out = linear(out.reshape(B, T, self.d_model), self.proj_o)
+        out = dropout(out, self.dropout, train, generator)
         if cache is not None:
             return out, (k_cache, v_cache)
         return out
 
 
-def FFN(d_model, dropout=0.0, gain=1.0):
+def FFN(d_model, gain=1.0):
     """linear(kaiming) / relu / linear(gain), an ``nn.Sequential`` as
-    upstream (indices 0 and 2)."""
-    del dropout
+    upstream (indices 0 and 2); its dropout is ``ffn``'s."""
     return nn.Sequential(
         Dense(d_model, 4 * d_model, weight_init="kaiming"),
         nn.ReLU(),
@@ -161,9 +227,11 @@ def FFN(d_model, dropout=0.0, gain=1.0):
     )
 
 
-def ffn(x, seq: nn.Sequential):
-    """A linear / ReLU / linear ``nn.Sequential`` applied at x's dtype."""
-    return linear(F.relu(linear(x, seq[0])), seq[2])
+def ffn(x, seq: nn.Sequential, p=0.0, train=False, generator=None):
+    """A linear / ReLU / linear ``nn.Sequential`` applied at x's dtype, its
+    output dropped at rate ``p`` in training."""
+    return dropout(linear(F.relu(linear(x, seq[0])), seq[2]), p, train,
+                   generator)
 
 
 class TransformerEncoderBlock(nn.Module):
@@ -174,18 +242,19 @@ class TransformerEncoderBlock(nn.Module):
     def __init__(self, d_model, num_heads, dropout=0.0, gain=1.0,
                  is_first=False):
         super().__init__()
-        self.is_first = is_first
+        self.is_first, self.dropout = is_first, dropout
         self.attn_layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.attn = MultiHeadAttention(d_model, num_heads, dropout, gain)
         self.ffn_layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ffn = FFN(d_model, dropout, gain)
+        self.ffn = FFN(d_model, gain)
 
-    def forward(self, x):
+    def forward(self, x, train=False, generator=None):
         y = layer_norm(x, self.attn_layer_norm)
         if self.is_first:
             x = y
-        x = x + self.attn(y, y, y)
-        return x + ffn(layer_norm(x, self.ffn_layer_norm), self.ffn)
+        x = x + self.attn(y, y, y, train=train, generator=generator)
+        return x + ffn(layer_norm(x, self.ffn_layer_norm), self.ffn,
+                       self.dropout, train, generator)
 
 
 class TransformerEncoder(nn.Module):
@@ -201,9 +270,9 @@ class TransformerEncoder(nn.Module):
             for i in range(num_blocks))
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, train=False, generator=None):
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, train, generator)
         return layer_norm(x, self.layer_norm)
 
 
@@ -214,7 +283,7 @@ class TransformerDecoderBlock(nn.Module):
     def __init__(self, d_model, num_heads, dropout=0.0, gain=1.0,
                  is_first=False, dtype=None):
         super().__init__()
-        self.is_first, self.dtype = is_first, dtype
+        self.is_first, self.dtype, self.dropout = is_first, dtype, dropout
         self.self_attn_layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.self_attn = MultiHeadAttention(d_model, num_heads, dropout, gain)
         self.encoder_decoder_attn_layer_norm = nn.LayerNorm(d_model,
@@ -222,10 +291,10 @@ class TransformerDecoderBlock(nn.Module):
         self.encoder_decoder_attn = MultiHeadAttention(d_model, num_heads,
                                                        dropout, gain)
         self.ffn_layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ffn = FFN(d_model, dropout, gain)
+        self.ffn = FFN(d_model, gain)
 
     def forward(self, x, enc_out, cache=None, cross_kv=None,
-                project_kv_only=False):
+                project_kv_only=False, train=False, generator=None):
         if project_kv_only:
             return self.encoder_decoder_attn(enc_out, enc_out, enc_out,
                                              project_kv_only=True)
@@ -235,15 +304,17 @@ class TransformerDecoderBlock(nn.Module):
         if self.is_first:
             x = y
         new_cache = None
+        drop = {"train": train, "generator": generator}
         if cache is not None:
-            a, new_cache = self.self_attn(y, y, y, cache=cache)
+            a, new_cache = self.self_attn(y, y, y, cache=cache, **drop)
         else:
-            a = self.self_attn(y, y, y, causal=True)
+            a = self.self_attn(y, y, y, causal=True, **drop)
         x = x + a
         y = layer_norm(x, self.encoder_decoder_attn_layer_norm)
         x = x + self.encoder_decoder_attn(y, enc_out, enc_out,
-                                          precomputed_kv=cross_kv)
-        x = x + ffn(layer_norm(x, self.ffn_layer_norm), self.ffn)
+                                          precomputed_kv=cross_kv, **drop)
+        x = x + ffn(layer_norm(x, self.ffn_layer_norm), self.ffn,
+                    self.dropout, **drop)
         if cache is not None:
             return x, new_cache
         return x
@@ -255,7 +326,7 @@ class TransformerDecoder(nn.Module):
     ``(k_cache, v_cache)`` pair per block and ``t`` the position decoded;
     ``project_kv_only`` returns each block's cross-attention K/V of
     ``enc_out``. ``dtype`` is the compute dtype the first LayerNorm rounds
-    to (default: the input's)."""
+    to (default: the input's). ``train`` turns the blocks' dropout on."""
 
     def __init__(self, num_blocks, d_model, num_heads, dropout=0.0,
                  dtype=None):
@@ -269,7 +340,7 @@ class TransformerDecoder(nn.Module):
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, enc_out, caches=None, t=None, cross_kvs=None,
-                project_kv_only=False):
+                project_kv_only=False, train=False, generator=None):
         if project_kv_only:
             return tuple(blk(x, enc_out, project_kv_only=True)
                          for blk in self.blocks)
@@ -278,10 +349,11 @@ class TransformerDecoder(nn.Module):
             cross_kv = None if cross_kvs is None else cross_kvs[i]
             if caches is not None:
                 x, nc = blk(x, enc_out, cache=(*caches[i], t),
-                            cross_kv=cross_kv)
+                            cross_kv=cross_kv, train=train,
+                            generator=generator)
                 new_caches.append(nc)
             else:
-                x = blk(x, enc_out)
+                x = blk(x, enc_out, train=train, generator=generator)
         out = layer_norm(x, self.layer_norm)
         if caches is not None:
             return out, tuple(new_caches)

@@ -1,5 +1,5 @@
-"""Supervised optimizer (counterpart of the supervised half of
-``focus_tpu/models/optimizer.py``; reference ``slowfast/models/optimizer.py``).
+"""Optimizers (counterpart of ``focus_tpu/models/optimizer.py``; reference
+``slowfast/models/optimizer.py``): the supervised one and STEVE's.
 
 As in the JAX package, every group's LR is a function of the update count
 (``epoch_lr_schedule``), which reproduces the reference's per-iteration
@@ -18,8 +18,17 @@ optimizer, with optax's semantics:
   one); value clipping clamps each element;
 - a parameter that received no gradient is updated with a zero gradient,
   as optax updates every leaf (weight decay still applies).
+
+STEVE's (``construct_optimizer_slot``, reference optimizer.py:13-45 and
+``set_slot_lr``) is Adam in three groups by parameter prefix, ``dvae`` at
+a constant LR and ``enc`` / ``dec`` (``steve_encoder``, ``steve_decoder``)
+at a linear warm-up times a half-life decay, behind the same clipping;
+its schedules are computed in float32 as optax computes them.
 """
 
+import math
+
+import numpy as np
 import torch
 
 from focus_tpu_torch.utils import lr_policy
@@ -115,5 +124,60 @@ def construct_optimizer(model, cfg, steps_per_epoch: int,
         cfg, steps_per_epoch,
         "orvit_lr" if g["label"].startswith("orvit") else "lr") for g in groups]
     return Optimizer(_torch_optimizer(cfg, groups), schedules,
+                     clip_value=cfg.SOLVER.CLIP_GRAD_VAL or None,
+                     clip_norm=cfg.SOLVER.CLIP_GRAD_L2NORM or None)
+
+
+# ---- STEVE ---------------------------------------------------------------
+
+SLOT_GROUPS = ("dvae", "enc", "dec")
+
+
+def slot_lr_schedules(cfg) -> dict:
+    """The three slot groups' LR as functions of the update count
+    (``slot_lr_schedules``): ``dvae`` SLOTS_OPTIM.DVAE; ``enc`` and ``dec``
+    ENC and DEC x linear warm-up over WARMUP_STEPS (the reference's
+    step + 1, so the first update has 1 / WARMUP_STEPS of it) x
+    0.5^(step / HALF_LIFE), each in float32."""
+    so = cfg.SLOTS_OPTIM
+    f32 = np.float32
+
+    def warm_decay(base):
+        def sched(step):
+            decay = np.exp(f32(f32(step) / f32(so.HALF_LIFE))
+                           * f32(math.log(0.5)))
+            warm = f32(lr_policy.linear_warmup(step, 0.0, 1.0, 0,
+                                                so.WARMUP_STEPS))
+            return float(decay * warm * f32(base))
+
+        return sched
+
+    return {"dvae": lambda step: float(f32(so.DVAE)),
+            "enc": warm_decay(so.ENC), "dec": warm_decay(so.DEC)}
+
+
+def slot_label(name: str) -> str:
+    """A STEVE parameter's group by its prefix; a name of none of the
+    three falls in ``dvae``, as the JAX label rule puts it."""
+    if name.startswith("steve_encoder"):
+        return "enc"
+    if name.startswith("steve_decoder"):
+        return "dec"
+    return "dvae"
+
+
+def construct_optimizer_slot(model, cfg) -> Optimizer:
+    """Global-norm clipping (SOLVER.CLIP_GRAD_L2NORM) or value clipping
+    (SOLVER.CLIP_GRAD_VAL, which wins where set), then Adam in the three
+    slot groups (``construct_optimizer_slot``). SLOTS_OPTIM.CLIP is read
+    nowhere, as in the JAX package."""
+    members = {label: [] for label in SLOT_GROUPS}
+    for name, p in model.named_parameters():
+        members[slot_label(name)].append(p)
+    schedules = slot_lr_schedules(cfg)
+    labels = [label for label in SLOT_GROUPS if members[label]]
+    groups = [{"params": members[label], "label": label} for label in labels]
+    return Optimizer(torch.optim.Adam(groups, lr=0.0, eps=1e-8),
+                     [schedules[label] for label in labels],
                      clip_value=cfg.SOLVER.CLIP_GRAD_VAL or None,
                      clip_norm=cfg.SOLVER.CLIP_GRAD_L2NORM or None)

@@ -3,7 +3,10 @@
 ``slowfast/models/STEVE/steve.py:11-105``).
 
 The k/v projections of all frames are one matmul; the per-frame recurrence
-is a Python loop (the JAX package scans it).
+is a Python loop (the JAX package scans it). In training the predictor
+takes its dropout (``SLOTS.PREDICTOR_DROPOUT``) as the reference's does;
+the JAX module calls its predictor deterministically, which is the same
+at the rate 0.0 of every recipe.
 """
 
 import torch
@@ -17,7 +20,15 @@ from focus_tpu_torch.models.common import (
     ffn,
     layer_norm,
     linear,
+    normal,
 )
+
+
+def sample_slot_noise(shape, generator, device):
+    """Slot-initialisation noise, N(0, 1) float32 (counterpart of
+    ``_sample_slot_noise``; reference steve.py:56); module-level so that
+    parity tests can replay recorded noise."""
+    return normal(shape, generator, device)
 
 
 class SlotAttentionVideo(nn.Module):
@@ -67,18 +78,19 @@ class SlotAttentionVideo(nn.Module):
                                     self.mlp)
         return slots, attn_vis
 
-    def forward(self, inputs, noise=None, generator=None):
+    def forward(self, inputs, noise=None, generator=None, train=False):
         """inputs [B, T, N, input_size] -> (slots [B, T, S, D],
         attns [B, T, N, S] float32).
 
         ``noise`` is the slot-init noise [B, S, D]; when None it is drawn
-        from ``generator`` (a ``torch.Generator`` on the inputs' device).
-        A frame's emitted slots are the corrector's, before the predictor.
+        from ``generator`` (``sample_slot_noise``), as the predictor's
+        dropout masks are under ``train``. A frame's emitted slots are the
+        corrector's, before the predictor.
         """
         B, T = inputs.shape[:2]
         if noise is None:
-            noise = torch.randn(B, self.num_slots, self.slot_size,
-                                generator=generator, device=inputs.device)
+            noise = sample_slot_noise((B, self.num_slots, self.slot_size),
+                                      generator, inputs.device)
         slots = (self.slot_mu + torch.exp(self.slot_log_sigma) * noise).to(
             inputs.dtype)
         x = layer_norm(inputs, self.norm_inputs)
@@ -89,5 +101,5 @@ class SlotAttentionVideo(nn.Module):
             slots, attn_vis = self._corrector(slots, k[:, t], v[:, t])
             slots_seq.append(slots)
             attns_seq.append(attn_vis)
-            slots = self.predictor(slots)
+            slots = self.predictor(slots, train, generator)
         return torch.stack(slots_seq, dim=1), torch.stack(attns_seq, dim=1)

@@ -1,11 +1,17 @@
-"""STEVE: slot-attention video autoencoder, inference (counterpart of
+"""STEVE: slot-attention video autoencoder (counterpart of
 ``focus_tpu/models/steve/steve.py``; reference
 ``slowfast/models/STEVE/steve.py:253-392``).
 
 Video tensors are ``[B, T, H, W, C]`` as in the JAX package; the CNNs run
-NCHW inside. Ported: ``encode`` (CNN, slot attention over video) and
-``decode`` (the autoregressive token rollout, then the dVAE decoder), that
-is ``reconstruct_autoregressive``. The rollout has three forms:
+NCHW inside. ``forward`` is the training forward: the dVAE branch with its
+Gumbel draws, the slot branch and the teacher-forced token decoder, giving
+the reconstruction, the cross-entropy and the dVAE's squared error; under
+``train`` the res18 encoder's BatchNorm normalises with the batch's
+statistics and updates its running ones, and dropout is on, its masks and
+all noise drawn from the caller's generator. ``encode`` (CNN, slot
+attention over video) and ``decode`` (the autoregressive token rollout,
+then the dVAE decoder) make ``reconstruct_autoregressive``. The rollout has
+three forms:
 
 - ``_decode_ids_cached_fused``: one fused step per token
   (``ops/ar_decode.py``: the CUDA kernels on the card, their plain version
@@ -14,8 +20,6 @@ is ``reconstruct_autoregressive``. The rollout has three forms:
   steps is replayed per rollout (``ar_decode.RolloutGraph``);
 - ``_decode_ids_cached``: the KV-cached rollout through the modules;
 - ``_decode_ids_full``: the full-prefix re-decode, the parity oracle.
-
-The training forward (Gumbel noise, losses) is not ported yet.
 """
 
 import copy
@@ -32,7 +36,9 @@ from focus_tpu_torch.models.common import (
     TransformerDecoder,
     conv,
     conv2d,
+    dropout,
     ffn,
+    gumbel_softmax,
     layer_norm,
     linear,
 )
@@ -62,17 +68,21 @@ class CartesianPositionalEmbedding(nn.Module):
 
 class LearnedPositionalEmbedding1D(nn.Module):
     """(reference steve.py:108-122). ``at`` adds the embedding of one
-    position (KV-cached decode). The sum is float32, as the table is."""
+    position (KV-cached decode). The sum is float32, as the table is. In
+    training the sum takes dropout at ``dropout``, 0.1 as the decoder builds
+    it whatever ``SLOTS.DECODER.DROPOUT`` says (JAX steve.py:56, :200)."""
 
-    def __init__(self, num_inputs, input_size):
+    def __init__(self, num_inputs, input_size, dropout=0.1):
         super().__init__()
+        self.dropout = dropout
         self.pe = nn.Parameter(torch.empty(1, num_inputs, input_size))
 
     def at(self, x_t, t):
         return x_t + self.pe[:, t:t + 1]
 
-    def forward(self, x):
-        return x + self.pe[:, :x.shape[1]]
+    def forward(self, x, train=False, generator=None):
+        return dropout(x + self.pe[:, :x.shape[1]], self.dropout, train,
+                       generator)
 
 
 class BaseCNN(nn.Module):
@@ -88,17 +98,37 @@ class BaseCNN(nn.Module):
             conv2d(hid, out_dim, 5, 1, 2),
         )
 
-    def forward(self, x):
+    def forward(self, x, train=False):
+        del train  # no batch statistics
         for blk in self.fenc[:3]:
             x = blk(x)
         return conv(x, self.fenc[3])
 
 
-def batch_norm(x, bn: nn.BatchNorm2d):
-    """Eval BatchNorm (running statistics) in float32, result at x's
-    dtype."""
-    return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps).to(x.dtype)
+BN_MOMENTUM = 0.9  # flax nn.BatchNorm's, as the JAX encoder builds it
+
+
+def batch_norm(x, bn: nn.BatchNorm2d, train=False):
+    """BatchNorm of NCHW ``x`` in float32, result at x's dtype. Eval: the
+    running statistics. Train, as flax's ``nn.BatchNorm``: the batch's mean
+    and biased variance over N, H and W (E[x^2] - E[x]^2, clipped at 0),
+    and the running statistics updated in place, ra = 0.9 ra + 0.1 stat,
+    the variance biased too (``nn.BatchNorm2d``'s own update takes the
+    unbiased one, so it is not used)."""
+    xf = x.float()
+    if not train:
+        return F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps).to(x.dtype)
+    dims = (0, 2, 3)
+    mean = xf.mean(dims)
+    var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        for ra, stat in ((bn.running_mean, mean), (bn.running_var, var)):
+            ra.copy_(BN_MOMENTUM * ra + (1.0 - BN_MOMENTUM) * stat)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None,
+                                                                  None]
+    return y.to(x.dtype)
 
 
 def _plain_conv(in_channels, out_channels, bias):
@@ -117,16 +147,16 @@ class _BasicBlock(nn.Module):
         self.conv2 = _plain_conv(features, features, bias=False)
         self.bn2 = nn.BatchNorm2d(features, eps=1e-5)
 
-    def forward(self, x):
-        y = F.relu(batch_norm(conv(x, self.conv1), self.bn1))
-        y = batch_norm(conv(y, self.conv2), self.bn2)
+    def forward(self, x, train=False):
+        y = F.relu(batch_norm(conv(x, self.conv1), self.bn1, train))
+        y = batch_norm(conv(y, self.conv2), self.bn2, train)
         return F.relu(x + y)
 
 
 class Res18Stem(nn.Module):
     """ResNet-18 stem (3x3/s1 conv1) + layer1, then a stride-2 transposed
-    conv back to full resolution (reference steve.py:175-202). NCHW, eval
-    BatchNorm. The JAX module's ``ConvTranspose(3x3, stride 2, "SAME")``
+    conv back to full resolution (reference steve.py:175-202). NCHW;
+    ``train`` normalises with the batch's statistics. The JAX module's ``ConvTranspose(3x3, stride 2, "SAME")``
     pads the dilated input by (2, 1) and does not flip its kernel; here
     that is ``ConvTranspose2d(padding=0)`` cropped to twice the input size,
     with the kernel flipped when weights are carried across
@@ -141,10 +171,10 @@ class Res18Stem(nn.Module):
         self.upconv = nn.ConvTranspose2d(hid, out_dim, 3, stride=2)
         self.upconv.init = ("lecun", 1.0)
 
-    def forward(self, x):
-        x = F.relu(batch_norm(conv(x, self.conv1), self.bn1))
+    def forward(self, x, train=False):
+        x = F.relu(batch_norm(conv(x, self.conv1), self.bn1, train))
         x = F.max_pool2d(x, 3, 2, 1)
-        x = F.relu(self.layer1_1(self.layer1_0(x)))
+        x = F.relu(self.layer1_1(self.layer1_0(x, train), train))
         h, w = x.shape[-2:]
         up = self.upconv
         y = F.conv_transpose2d(x, up.weight.to(x.dtype), up.bias.to(x.dtype),
@@ -180,10 +210,10 @@ class STEVEEncoder(nn.Module):
         )
         self.slot_proj = Dense(c.SIZE, d, bias=False)
 
-    def embed(self, video_flat):
+    def embed(self, video_flat, train=False):
         """CNN features -> tokens. video_flat [B*T, H, W, C] ->
         ([B*T, h*w, d], (h, w))."""
-        emb = self.pos(self.cnn(video_flat.permute(0, 3, 1, 2)))
+        emb = self.pos(self.cnn(video_flat.permute(0, 3, 1, 2), train))
         h, w = emb.shape[-2:]
         tokens = emb.flatten(2).transpose(1, 2)
         return ffn(layer_norm(tokens, self.layer_norm), self.mlp), (h, w)
@@ -220,8 +250,10 @@ class STEVEDecoder(nn.Module):
 
 @register
 class STEVE(nn.Module):
-    """STEVE video autoencoder, inference (reference steve.py:253-392).
+    """STEVE video autoencoder (reference steve.py:253-392).
 
+    ``forward(video, tau, hard, train, generator, noise) -> (recon,
+    cross_entropy, mse, attns)``, the training forward;
     ``reconstruct_autoregressive(video) -> recon [B, T, H, W, C]`` in
     [0, 1]; ``encode(video) -> (slots, attns_vis, attns)``;
     ``decode(slots) -> pixels``. ``use_kernels = False`` runs the fused
@@ -249,19 +281,68 @@ class STEVE(nn.Module):
         self.steve_encoder = STEVEEncoder(cfg)
         self.steve_decoder = STEVEDecoder(cfg, dtype=dtype)
 
-    def forward(self, video, tau=None, hard=None, train=False):
-        raise NotImplementedError(
-            "the STEVE training forward (Gumbel noise, losses) is not ported "
-            "yet; call encode / decode / reconstruct_autoregressive")
+    def forward(self, video, tau, hard, train=False, generator=None,
+                noise=None):
+        """The training forward (JAX ``STEVE.__call__``, reference
+        steve.py:295-331): video [B, T, H, W, C] in [0, 1] -> (the dVAE's
+        reconstruction clipped to [0, 1], the token cross-entropy and the
+        dVAE's squared error, each summed and divided by B*T, float32, and
+        the video masked by each slot's attention [B, T, S, H, W, C]).
 
-    def _slot_pipeline(self, video, noise=None, generator=None):
+        The dVAE branch draws two Gumbel samples of its token logits:
+        ``z_soft`` at ``hard`` feeds the dVAE decoder, ``z_hard`` at True
+        (no gradient) gives the target tokens, which the decoder predicts
+        teacher-forced from the slots. ``tau`` is the Gumbel temperature.
+        ``train`` turns on dropout and the res18 encoder's batch
+        statistics. ``noise`` replaces draws: ``"gumbel"``, the two Gumbel
+        noises [B*T, h, w, V] (z_soft's, z_hard's), and ``"slots"``, the
+        slot-initialisation noise [B, S, D]; the rest comes from
+        ``generator``. The token logits, their Gumbel softmax and the losses
+        are float32; the layers run at the model's dtype."""
+        noise = noise or {}
+        B, T, H, W, C = video.shape
+        V, d = self.vocab_size, self.d_model
+        dec = self.steve_decoder
+        flat = video.reshape(B * T, H, W, C).to(self.dtype)
+
+        # -- dVAE branch
+        z_logits = F.log_softmax(self.dvae.encoder(flat).float(), dim=-1)
+        g_soft, g_hard = noise.get("gumbel", (None, None))
+        z_soft = gumbel_softmax(z_logits, tau, hard, generator, g_soft)
+        z_hard = gumbel_softmax(z_logits, tau, True, generator,
+                                g_hard).detach()
+        h_enc, w_enc = z_logits.shape[1:3]
+        z_hard_tok = z_hard.reshape(B * T, h_enc * w_enc, V)
+        z_emb = dec.dict(z_hard_tok.argmax(dim=-1)).to(self.dtype)
+        bos = dec.bos.expand(B * T, 1, d)
+        z_emb = torch.cat([bos, z_emb.to(bos.dtype)], dim=1)
+        z_emb = dec.pos(z_emb, train, generator)
+        recon = self.dvae.decoder(z_soft.to(self.dtype)).float().reshape(
+            B, T, H, W, C)
+        mse = ((video - recon) ** 2).sum() / (B * T)
+
+        # -- slot branch
+        slots, attns = self._slot_pipeline(video, noise.get("slots"),
+                                           generator, train)
+        attns = video[:, :, None] * attns + (1.0 - attns)
+
+        # -- teacher-forced token prediction
+        slots = linear(slots, self.steve_encoder.slot_proj).reshape(
+            B * T, self.num_slots, d)
+        pred = dec.tf(z_emb[:, :-1], slots, train=train, generator=generator)
+        logp = F.log_softmax(linear(pred, dec.head).float(), dim=-1)
+        cross_entropy = -(z_hard_tok * logp).sum() / (B * T)
+        return recon.clamp(0.0, 1.0), cross_entropy, mse, attns
+
+    def _slot_pipeline(self, video, noise=None, generator=None, train=False):
         """CNN -> tokens -> slot attention: slots [B, T, S, slot_size] and
         the attention maps upsampled to pixels [B, T, S, H, W, 1]."""
         B, T, H, W, C = video.shape
         flat = video.reshape(B * T, H, W, C).to(self.dtype)
-        tokens, (h_enc, w_enc) = self.steve_encoder.embed(flat)
+        tokens, (h_enc, w_enc) = self.steve_encoder.embed(flat, train)
         tokens = tokens.reshape(B, T, h_enc * w_enc, self.d_model)
-        slots, attns = self.steve_encoder.savi(tokens, noise, generator)
+        slots, attns = self.steve_encoder.savi(tokens, noise, generator,
+                                               train)
         attns = attns.transpose(2, 3).reshape(
             B, T, self.num_slots, h_enc, w_enc, 1)
         attns = attns.repeat_interleave(H // h_enc, dim=3)

@@ -1,7 +1,7 @@
 """Where the time of a slice's main path goes, on one GPU.
 
     python3 -m focus_tpu_torch.profile_slice \
-        [--model flagship|steve|train|learned_v|hr336|hr336_train] \
+        [--model flagship|steve|train|learned_v|hr336|hr336_train|steve_train] \
         [--batch 8] \
         [--iters 2] \
         [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 3|4|5|6|7]
@@ -13,7 +13,9 @@ and the AdamW update), ``hr_entry(device="cuda")`` (the HR-336
 EPIC-Kitchens eval forward; ``--batch`` defaults to 4 there, as the JAX
 companion's), ``hr_train_entry(device="cuda")`` (``hr336_train``: one
 HR-336 train step, batch 4) or ``steve_entry(device="cuda")`` (STEVE's encode +
-KV-cached rollout + dVAE decode; ``--batch`` videos of 4 frames), warms up,
+KV-cached rollout + dVAE decode; ``--batch`` videos of 4 frames) or
+``steve_train_entry(device="cuda")`` (``steve_train``: one STEVE train step
+of the MOVi-E recipe, batch 16 of two-frame clips), warms up,
 then traces ``--iters`` calls with ``torch.profiler`` (CPU and CUDA
 activities). Prints one JSON
 line: the wall time per call, the summed device time of the device-side
@@ -50,6 +52,7 @@ from focus_tpu_torch.entry import (
     hr_entry,
     hr_train_entry,
     steve_entry,
+    steve_train_entry,
     train_entry,
 )
 from focus_tpu_torch.ops import trajectory_block
@@ -142,10 +145,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model",
                     choices=("flagship", "steve", "train", "learned_v",
-                             "hr336", "hr336_train"),
+                             "hr336", "hr336_train", "steve_train"),
                     default="flagship")
     ap.add_argument("--batch", type=int, default=None,
-                    help="8 (hr336, hr336_train, learned_v --hr: 4)")
+                    help="8 (hr336, hr336_train, learned_v --hr: 4; "
+                         "steve_train: 16)")
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
@@ -166,7 +170,8 @@ def main():
         variant["int8"] = True
     if args.fast_gelu:
         variant["fast_gelu"] = True
-    if args.model in ("train", "learned_v", "hr336", "hr336_train") and variant or (
+    if args.model in ("train", "learned_v", "hr336", "hr336_train",
+                      "steve_train") and variant or (
             args.model == "steve" and args.fast_gelu):
         ap.error(f"--model {args.model} takes no {sorted(variant)}")
     if args.fwd_version != 4 and args.model not in (
@@ -177,6 +182,8 @@ def main():
     trajectory_block.FWD_VERSION = args.fwd_version
     if args.batch is None:
         args.batch = 4 if args.model.startswith("hr336") or args.hr else 8
+        if args.model == "steve_train":
+            args.batch = 16
     if args.model == "learned_v":
         model, x = learned_v_stack(device="cuda", batch=args.batch,
                                    hr=args.hr)
@@ -189,7 +196,8 @@ def main():
     else:
         make = {"flagship": entry, "steve": steve_entry,
                 "train": train_entry, "hr336": hr_entry,
-                "hr336_train": hr_train_entry}[args.model]
+                "hr336_train": hr_train_entry,
+                "steve_train": steve_train_entry}[args.model]
         fn, inputs = make(device="cuda", batch=args.batch, **variant)
     for _ in range(2):
         fn(*inputs)
@@ -222,7 +230,8 @@ def main():
                     "train": "flagship train step",
                     "learned_v": "12 learned-v trajectory blocks, eval",
                     "hr336": "HR-336 EPIC-Kitchens eval forward",
-                    "hr336_train": "HR-336 EPIC-Kitchens train step"}[
+                    "hr336_train": "HR-336 EPIC-Kitchens train step",
+                    "steve_train": "STEVE train step, MOVi-E recipe"}[
                         args.model],
         "variant": variant, "fwd_version": args.fwd_version, "hr": args.hr,
         "batch": args.batch,

@@ -2,12 +2,13 @@
 
     python -m focus_tpu_torch.tools.run_net [--device cuda|cpu] --cfg X.yaml [--exp_name N] [KEY VAL ...]
 
-``TRAIN.ENABLE`` with ``TRAIN.METHOD: sup`` runs ``engine.trainer.train``,
-then ``TEST.ENABLE`` with ``TEST.EVAL_TASK: ar`` runs
-``engine.tester.test`` (which reads the last checkpoint in OUTPUT_DIR).
-Slot-model training and segmentation eval, the visualizations and the
-demo are not ported yet: each raises ``NotImplementedError`` before
-anything runs.
+``TRAIN.ENABLE`` runs ``engine.trainer.train`` under ``TRAIN.METHOD: sup``
+and ``engine.slot_trainer.slot_train`` under ``slots``; then
+``TEST.ENABLE`` runs ``engine.tester.test`` under ``TEST.EVAL_TASK: ar``
+and ``engine.slot_trainer.slot_eval`` under ``segmentation`` (each reads
+its checkpoint through the test path's chain, EXP.PATH included). The
+visualizations and the demo are not ported yet: each raises
+``NotImplementedError`` before anything runs.
 """
 
 import os
@@ -17,16 +18,6 @@ from focus_tpu_torch.utils.parser import load_config, parse_args
 
 
 def _check_ported(cfg):
-    if cfg.TRAIN.ENABLE and cfg.TRAIN.METHOD == "slots":
-        raise NotImplementedError(
-            "TRAIN.METHOD slots: slot-model training comes with the STEVE "
-            "training slice of the port"
-        )
-    if cfg.TEST.ENABLE and cfg.TEST.EVAL_TASK != "ar":
-        raise NotImplementedError(
-            f"TEST.EVAL_TASK {cfg.TEST.EVAL_TASK}: the slot-model "
-            "segmentation eval comes with the STEVE training slice of the port"
-        )
     if cfg.TENSORBOARD.ENABLE and (
         cfg.TENSORBOARD.MODEL_VIS.ENABLE or cfg.TENSORBOARD.WRONG_PRED_VIS.ENABLE
     ):
@@ -42,7 +33,8 @@ def _check_ported(cfg):
 
 
 def main(argv=None):
-    """Returns the test's stats (None where TEST.ENABLE is off)."""
+    """Returns the test's stats or the segmentation eval's results (None
+    where TEST.ENABLE is off)."""
     args = parse_args(argv)
     cfg = load_config(args)
     cfg = assert_and_infer_cfg(cfg)
@@ -54,7 +46,15 @@ def main(argv=None):
         from focus_tpu_torch.engine.trainer import train
 
         train(cfg, device=args.device)
-    if cfg.TEST.ENABLE:
+    elif cfg.TRAIN.ENABLE and cfg.TRAIN.METHOD == "slots":
+        from focus_tpu_torch.engine.slot_trainer import slot_train
+
+        slot_train(cfg, device=args.device)
+    if cfg.TEST.ENABLE and cfg.TEST.EVAL_TASK == "segmentation":
+        from focus_tpu_torch.engine.slot_trainer import slot_eval
+
+        return slot_eval(cfg, device=args.device)
+    if cfg.TEST.ENABLE and cfg.TEST.EVAL_TASK == "ar":
         from focus_tpu_torch.engine.tester import test
 
         return test(cfg, device=args.device)

@@ -29,8 +29,11 @@ The copy to host memory is synchronous (the next step updates the
 parameters in place); under ``TPU.ASYNC_CHECKPOINT`` the file is written
 by one ordered writer thread, ``.tmp`` then rename, and every read waits
 for the writes in flight (``wait_for_saves``). ``load_train_checkpoint``
-resumes: the last checkpoint in OUTPUT_DIR under ``TRAIN.AUTO_RESUME``,
-else ``TRAIN.CHECKPOINT_FILE_PATH``.
+resumes: the last checkpoint in OUTPUT_DIR (the slot trainer's: EXP.PATH)
+under ``TRAIN.AUTO_RESUME``, else ``TRAIN.CHECKPOINT_FILE_PATH``. The slot
+trainer writes the same train state as ``best_model.pt``,
+``checkpoint.pt.tar`` and ``checkpoint_epoch_NNNNN.pyth``; STEVE's
+BatchNorm running statistics are buffers of its ``model_state``.
 """
 
 from __future__ import annotations
@@ -403,18 +406,19 @@ def load_train_state(path: str, state) -> int:
     return epoch
 
 
-def load_train_checkpoint(cfg, state):
+def load_train_checkpoint(cfg, state, path_to_job: Optional[str] = None):
     """The train loop's start (reference checkpoint.py:544-584): under
-    TRAIN.AUTO_RESUME the last checkpoint in OUTPUT_DIR, whole, at its
-    epoch; else TRAIN.CHECKPOINT_FILE_PATH: the port's own train
+    TRAIN.AUTO_RESUME the last checkpoint in ``path_to_job`` (default
+    OUTPUT_DIR), whole, at its epoch; else TRAIN.CHECKPOINT_FILE_PATH: the port's own train
     checkpoint whole, at its epoch (0 under TRAIN.CHECKPOINT_EPOCH_RESET),
     or any other ``.pyth`` / ``.pt`` as weights alone through
     ``import_state_dict`` at epoch 0; else the initialisation at epoch 0.
     A missing file raises, as do Caffe2 and JAX-package checkpoints.
     Returns (start epoch, report: the path, "kind" resume / train_state /
     weights, the import's names for weights; None where nothing loads)."""
-    if cfg.TRAIN.AUTO_RESUME and has_checkpoint(cfg.OUTPUT_DIR):
-        path = get_last_checkpoint(cfg.OUTPUT_DIR)
+    job = path_to_job or cfg.OUTPUT_DIR
+    if cfg.TRAIN.AUTO_RESUME and has_checkpoint(job):
+        path = get_last_checkpoint(job)
         return load_train_state(path, state), {"path": path, "kind": "resume"}
     path = cfg.TRAIN.CHECKPOINT_FILE_PATH
     if not path:

@@ -2,36 +2,43 @@
 ``focus_tpu/utils/lr_policy.py``; reference ``slowfast/utils/lr_policy.py``).
 
 Epoch-based policies for supervised training (cosine with warmup,
-steps_with_relative_lrs) and the step-based anneals of STEVE. The JAX
-module's ``*_jnp`` twins exist to run inside a jitted step; the port
-evaluates its schedules on the host, so it has no need of them.
+steps_with_relative_lrs) and the step-based anneals of STEVE. The port
+evaluates its schedules on the host; the anneals compute in float32, as the
+JAX package's ``*_jnp`` ones do inside its jitted step.
 """
 
 import math
 
+import numpy as np
+
 
 # ---- step-based anneals (STEVE; reference lr_policy.py:8-41) ------------
 
-def cosine_anneal(step, start_value, final_value, start_step, final_step):
-    assert start_value >= final_value and start_step <= final_step
-    if step < start_step:
-        return start_value
-    if step >= final_step:
-        return final_value
-    a = 0.5 * (start_value - final_value)
-    b = 0.5 * (start_value + final_value)
-    progress = (step - start_step) / (final_step - start_step)
-    return a * math.cos(math.pi * progress) + b
+def cosine_anneal(step, start_value, final_value, start_step,
+                  final_step) -> float:
+    """Cosine from ``start_value`` at ``start_step`` to ``final_value`` at
+    ``final_step``, in float32 as ``cosine_anneal_jnp`` (progress clipped
+    to [0, 1])."""
+    f32 = np.float32
+    progress = np.clip(f32(f32(step) - f32(start_step))
+                       / f32(max(final_step - start_step, 1)), f32(0), f32(1))
+    a = f32(0.5 * (start_value - final_value))
+    b = f32(0.5 * (start_value + final_value))
+    return float(a * np.cos(f32(math.pi) * progress) + b)
 
 
-def linear_warmup(step, start_value, final_value, start_step, final_step):
-    assert start_value <= final_value and start_step <= final_step
+def linear_warmup(step, start_value, final_value, start_step,
+                  final_step) -> float:
+    """Linear from ``start_value`` to ``final_value`` over
+    [``start_step``, ``final_step``], in float32 as ``linear_warmup_jnp``
+    (the reference's step + 1)."""
+    f32 = np.float32
     if step < start_step:
-        return start_value
-    if step >= final_step:
-        return final_value
-    progress = (step + 1 - start_step) / (final_step - start_step)
-    return (final_value - start_value) * progress + start_value
+        return float(f32(start_value))
+    progress = np.clip(f32(step + 1 - start_step)
+                       / f32(max(final_step - start_step, 1)), f32(0), f32(1))
+    return float(f32(final_value - start_value) * progress
+                 + f32(start_value))
 
 
 # ---- epoch-based policies (supervised; reference lr_policy.py:42-135) ----

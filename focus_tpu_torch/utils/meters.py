@@ -1,7 +1,8 @@
 """Meters (counterpart of ``focus_tpu/utils/meters.py``): the timers, the
 windowed scalar, the train loop's ``TrainMeter``, ``ValMeter`` and
 ``EPICValMeter`` (the same json lines as the JAX package's), and the
-multi-view ensembles of the test path, ``TestMeter`` and ``EPICTestMeter``.
+multi-view ensembles of the test path, ``TestMeter`` and ``EPICTestMeter``,
+and the slot trainer's running average ``MetricTracker``.
 The JAX train loop logs EPIC-Kitchens training through ``TrainMeter`` (no
 top-k), so ``EPICTrainMeter`` is not ported; the AVA meter comes with the
 detection path.
@@ -72,6 +73,27 @@ class ScalarMeter:
 
     def get_global_avg(self) -> float:
         return self.total / max(self.count, 1)
+
+
+class MetricTracker:
+    """Running average (reference meters.py:1445-1464)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val: float, n: int = 1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+
+    @property
+    def avg(self) -> float:
+        return self.sum / max(self.count, 1)
 
 
 class EpochTimer:

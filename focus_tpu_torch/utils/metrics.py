@@ -1,6 +1,7 @@
-"""Classification metrics (counterpart of ``focus_tpu/utils/metrics.py``):
-top-k correct counts, errors and accuracies, and the joint verb + noun accuracy of
-EPIC-Kitchens. Host numpy."""
+"""Metrics (counterpart of ``focus_tpu/utils/metrics.py``): top-k correct
+counts, errors and accuracies, the joint verb + noun accuracy of
+EPIC-Kitchens, and the slot models' segmentation scores (the adjusted Rand
+index and the mean best overlap). Host numpy."""
 
 from __future__ import annotations
 
@@ -40,3 +41,68 @@ def multitask_topk_accuracies(preds, labels, ks):
         joint = correct if joint is None else (joint & correct)
     num = joint.shape[0]
     return [float(joint[:, :k].any(axis=1).sum()) / num * 100.0 for k in ks]
+
+
+# ---- segmentation --------------------------------------------------------
+
+def _comb2(x):
+    x = x.astype(np.float64)
+    return x * (x - 1.0) / 2.0
+
+
+def compute_ari(table: np.ndarray) -> float:
+    """Adjusted Rand Index from a contingency table [r, s]
+    (reference metrics.py:10-37)."""
+    a = table.sum(axis=1)
+    b = table.sum(axis=0)
+    n = a.sum()
+    comb_a = _comb2(a).sum()
+    comb_b = _comb2(b).sum()
+    comb_n = _comb2(np.asarray(n))
+    comb_table = _comb2(table).sum()
+    if comb_b == comb_a == comb_n == comb_table:
+        return 1.0
+    return float(
+        (comb_table - comb_a * comb_b / comb_n)
+        / (0.5 * (comb_a + comb_b) - comb_a * comb_b / comb_n)
+    )
+
+
+def _hard_masks(pred_mask: np.ndarray) -> np.ndarray:
+    """Predicted masks [B, K, D] binarised by a per-pixel argmax over K."""
+    B, K, D = pred_mask.shape
+    hard = np.zeros((B, K, D), dtype=bool)
+    idx = np.argmax(pred_mask, axis=1)  # [B, D]
+    hard[np.arange(B)[:, None], idx, np.arange(D)[None, :]] = True
+    return hard
+
+
+def evaluate_ari(true_mask: np.ndarray, pred_mask: np.ndarray) -> float:
+    """Average ARI over a batch (reference metrics.py:59-83). true_mask:
+    [B, N0, D] binary; pred_mask: [B, N1, D] soft or binary, binarised by a
+    per-pixel argmax over N1. The contingency tables of all samples are one
+    einsum."""
+    true_mask = np.asarray(true_mask, dtype=np.float64)
+    hard = _hard_masks(np.asarray(pred_mask, dtype=np.float64))
+    tables = np.einsum("bnd,bkd->bnk", (true_mask != 0).astype(np.float64),
+                       hard.astype(np.float64))  # [B, N0, N1]
+    return float(np.mean([compute_ari(t) for t in tables]))
+
+
+def evaluate_mbo(true_mask: np.ndarray, pred_mask: np.ndarray) -> float:
+    """Mean Best Overlap: each ground-truth mask matched to the predicted
+    mask of highest IoU, the IoUs averaged over the non-empty ground-truth
+    masks (the reference leaves this a stub, metrics.py:86-102)."""
+    true_mask = np.asarray(true_mask) != 0  # [B, N0, D]
+    hard = _hard_masks(np.asarray(pred_mask, dtype=np.float64))
+    inter = np.einsum("bnd,bkd->bnk", true_mask.astype(np.float64),
+                      hard.astype(np.float64))  # [B, N0, N1]
+    area_t = true_mask.sum(-1)[:, :, None]
+    area_p = hard.sum(-1)[:, None, :]
+    union = area_t + area_p - inter
+    iou = np.where(union > 0, inter / np.maximum(union, 1), 0.0)
+    best = iou.max(axis=-1)  # [B, N0]
+    nonempty = area_t[:, :, 0] > 0
+    if nonempty.sum() == 0:
+        return 0.0
+    return float(best[nonempty].mean())

@@ -25,7 +25,11 @@ the models ported so far (Motionformer/ORViT, STEVE):
   unstacked into ``blocks.{a+j}.*``.
 
 ``load_jax_params`` loads the result with missing, unexpected or
-mis-shaped keys reported as errors.
+mis-shaped keys reported as errors; a slot train state's BatchNorm
+``batch_stats`` (``mean``, ``var``) load beside the params as the running
+statistics. ``load_jax_adam_state`` carries an optax Adam state (the slot
+train state's ``opt_state``, every group's moments and count) into a
+``torch.optim.Adam`` over the same model.
 """
 
 from __future__ import annotations
@@ -170,3 +174,54 @@ def load_jax_params(model: torch.nn.Module, params, batch_stats=None,
         raise ValueError(f"shape mismatches: {bad}")
     model.load_state_dict(sd, strict=True)
     return sd
+
+
+def _adam_states(tree):
+    """Every Adam state (a node with ``count``, ``mu`` and ``nu``) of an
+    optax state tree taken to the host: clip, partition and mask states are
+    tuples and dicts around them."""
+    if all(hasattr(tree, a) for a in ("count", "mu", "nu")):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _adam_states(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _adam_states(v)
+
+
+def _arrays_only(tree):
+    """A params-shaped tree without the leaves that are not arrays (optax's
+    ``MaskedNode`` stands where a group does not own the parameter)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, "items"):
+            sub = _arrays_only(v)
+            if sub:
+                out[k] = sub
+        elif getattr(v, "shape", None) is not None:
+            out[k] = v
+    return out
+
+
+@torch.no_grad()
+def load_jax_adam_state(optimizer: torch.optim.Optimizer,
+                        model: torch.nn.Module, opt_state) -> int:
+    """Set ``optimizer``'s state (``torch.optim.Adam`` over ``model``'s
+    parameters) from ``opt_state``: each parameter's ``exp_avg`` and
+    ``exp_avg_sq`` from its group's ``mu`` and ``nu`` (laid out as the
+    params are), ``step`` from its count. A parameter no group owns keeps
+    its state. Returns the parameters set."""
+    params = dict(model.named_parameters())
+    done = set()
+    for st in _adam_states(opt_state):
+        count = float(np.asarray(st.count))
+        mu = jax_params_to_state_dict(_arrays_only(st.mu))
+        nu = jax_params_to_state_dict(_arrays_only(st.nu))
+        for name, m in mu.items():
+            p = params[name]
+            optimizer.state[p] = {"step": torch.tensor(count),
+                                  "exp_avg": m.to(p.device),
+                                  "exp_avg_sq": nu[name].to(p.device)}
+            done.add(name)
+    return len(done)

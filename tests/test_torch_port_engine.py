@@ -437,7 +437,7 @@ def test_cli_runs_the_test_path_on_the_cpu(tmp_path):
     assert run.stats == stats and run.clips == 16 and run.batches == 2
     assert run.checkpoint is None  # random init: none found
     assert os.path.isdir(os.path.join(str(tmp_path), "e", "checkpoints"))
-    with pytest.raises(NotImplementedError, match="STEVE training"):
+    with pytest.raises(ValueError, match="slot model"):
         run_net.main(args + ["TRAIN.METHOD", "slots"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -445,7 +445,7 @@ def test_cli_runs_the_test_path_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("TEST.EVAL_TASK", "segmentation", "segmentation"),
+    ("TEST.DATASET", "cholec80", "Cholec80"),
     ("DEMO.ENABLE", True, "DEMO"),
     ("TENSORBOARD.MODEL_VIS.ENABLE", True, "MODEL_VIS"),
     ("DETECTION.ENABLE", True, "AVA"),

@@ -712,7 +712,7 @@ def test_cli_trains_then_tests(tmp_path):
 
 
 @pytest.mark.parametrize("opts,error,match", [
-    (["TRAIN.METHOD", "slots"], NotImplementedError, "STEVE training"),
+    (["TRAIN.METHOD", "slots"], ValueError, "slot model"),
     (["TRAIN.DATASET", "epickitchens"], ValueError, "EK_loss"),
     (["MULTIGRID.LONG_CYCLE", "True"], NotImplementedError, "multigrid"),
     (["LOG_MODEL_INFO", "True"], NotImplementedError, "LOG_MODEL_INFO"),
@@ -720,10 +720,10 @@ def test_cli_trains_then_tests(tmp_path):
 ])
 def test_cli_refuses_what_the_port_does_not_train(tmp_path, opts, error,
                                                   match):
-    """Raised before anything is built: slot-model training, EPIC-Kitchens
-    under a loss other than EK_loss (the EK yaml's
-    label_smoothing_cross_entropy fails in JAX on the dict labels), and
-    the options not yet ported."""
+    """Raised before anything is built: slot-model training of a model
+    that is not STEVE, EPIC-Kitchens under a loss other than EK_loss (the
+    EK yaml's label_smoothing_cross_entropy fails in JAX on the dict
+    labels), and the options not yet ported."""
     from focus_tpu_torch.tools import run_net
 
     args = ["--device", "cpu", "--cfg", MF_YAML, "OUTPUT_DIR", str(tmp_path)]
@@ -741,7 +741,7 @@ def test_cli_refuses_the_ek_yamls_loss(tmp_path):
 
     yaml = os.path.join(REPO, "configs", "ORViT", "EK_ORVIT_MF_HR.yaml")
     args = ["--device", "cpu", "--cfg", yaml, "OUTPUT_DIR", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="STEVE training"):
+    with pytest.raises(ValueError, match="slot model"):
         run_net.main(args)
     with pytest.raises(ValueError, match="label_smoothing_cross_entropy.*"
                                          "EK_loss"):
