@@ -109,12 +109,26 @@ Phases (one JSON line each; any failure exits non-zero):
      against the plain path); one step at batch 2 in float32 on the card
      against the CPU (loss 1e-4, each gradient 1e-3 relative L2); the step
      at batch 16 timed by CUDA events on a fixed batch, the loss falling,
-     the device's busy share under torch.profiler, peak memory.
+     the device's busy share under torch.profiler, peak memory;
+ 16. the ResNet video family (no hand-written kernel: F.conv3d, BatchNorm in
+     float32): the four conv-family fixtures of the executed reference in
+     float32 (5e-5); SlowFast 8x8 R50 (configs/Kinetics/SLOWFAST_8x8_R50.yaml,
+     full width, bf16) at batch 8, its eval forward at the 256 test crop
+     (clips/s in channels_last_3d and NCDHW, peak memory, probabilities
+     against float32) and its SGD step at the 224 crop (train clips/s, peak
+     memory, the busy share and the device time by kind under
+     torch.profiler; at batch 2 in float32 the card against the CPU: loss,
+     each gradient, the running statistics); ``tools.run_net`` on in-script
+     Kinetics splits (2 epochs with precise BN, validation and checkpoints,
+     then the test path from the last checkpoint, 4 videos x 3 crops, held
+     against a direct loop); X3D-M's forward and step against float32 and
+     its depthwise convolutions' times.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -748,8 +762,13 @@ def space_stage_case(ta, attn_ops, q, k, v, F, scale, tag):
             "max_abs_err": err, "max_abs_ref": ref_max,
             "two_calls_bitwise_equal": True}
     if S // F > 256:
-        names = device_kernels(lambda: ta.space_stage(q, k, v, F, scale))
-        if len(names) != 1 or "space_stage_chunked_kernel" not in names[0]:
+        def alone(names):
+            return (len(names) == 1
+                    and "space_stage_chunked_kernel" in names[0])
+
+        names = device_kernels(lambda: ta.space_stage(q, k, v, F, scale),
+                               alone)
+        if not alone(names):
             raise AssertionError(f"space_stage {tag}: device kernels "
                                  f"{names}, expected the chunked form alone")
         case["device_kernels"] = names
@@ -955,16 +974,21 @@ def check_variant_device_kernels(tb, version, args, scale, heads, tag):
     in their chunked form (template argument CH = 2)."""
     if version in SAME_FUNCTION:
         launch = {3: tb._launch_v3, 7: tb._launch_v7}[version]
-        names = device_kernels(lambda: launch(*args[:6], scale, heads))
+        call = functools.partial(launch, *args[:6], scale, heads)
         expect = [r"space_stage_chunked_kernel<", r"traj_gemm_kernel",
                   r"traj_stage2_kernel<"]
     else:
-        names = device_kernels(lambda: tb._launch_variant(
-            version, *args[:6], scale, heads))
+        call = functools.partial(tb._launch_variant, version, *args[:6],
+                                 scale, heads)
         expect = [r"traj_gemm_kernel", r"own_frame_kernel<\d+, 2>",
                   r"traj_gemm_kernel", r"k2v_pass_kernel<\d+, [^,]+, 2>"]
-    if len(names) != len(expect) or not all(
-            re.search(e, n) for e, n in zip(expect, names)):
+
+    def as_expected(names):
+        return len(names) == len(expect) and all(
+            re.search(e, n) for e, n in zip(expect, names))
+
+    names = device_kernels(call, as_expected)
+    if not as_expected(names):
         raise AssertionError(f"v{version} {tag}: device kernels {names}, "
                              f"expected {expect}")
     return names
@@ -2180,26 +2204,41 @@ KERNEL_1_DEVICE_LAUNCHES_PER_CALL = 3
 HR_HEADS = {"verb": 97, "noun": 300}
 
 
-PROFILE_ATTEMPTS = 3
+PROFILE_ATTEMPTS = 5
+# the kernel of torch.cuda._sleep, which opens every trace of
+# device_kernels
+PROFILE_MARKER = "spin_kernel"
 
 
-def device_kernels(fn):
+def device_kernels(fn, complete=None):
     """Names of the device kernels one call of ``fn`` launches, as
-    torch.profiler traces them on the card. A trace that holds no device
-    event at all (the profiler now and then returns one, after a call that
-    did launch) is taken again, up to PROFILE_ATTEMPTS traces; the callers
-    check the names of the first trace that holds any."""
+    torch.profiler traces them on the card, in the order they started.
+    The profiler now and then leaves kernels out of a trace: all of them,
+    or the first one it would hold (v3's chunked stage 1 once, with its
+    GEMM and stage 2 traced). So each trace opens with a marker kernel
+    (``torch.cuda._sleep``) and a synchronisation, and the names are those
+    that started after the marker (all of them where the marker itself
+    was left out). A trace that holds none, or whose names ``complete``
+    refuses, is taken again, up to PROFILE_ATTEMPTS traces; the callers
+    check the names of the last trace taken."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        marks = [i for i, n in enumerate(names) if PROFILE_MARKER in n]
+        if marks:
+            names = names[marks[-1] + 1:]
+        if names and (complete is None or complete(names)):
             break
     return names
 
@@ -2207,11 +2246,16 @@ def device_kernels(fn):
 def check_kernel_1_launches(tb, args, scale, heads, tag):
     """One call of kernel 1's wrapper launches its three device kernels
     (at N > 256 the chunked stage 1 first); returns their names."""
-    names = device_kernels(lambda: tb._launch(*args[:6], scale, heads))
     stage1 = ("space_stage_chunked_kernel" if args[1].shape[2] > 256
               else "space_stage_kernel")
-    if (len(names) != KERNEL_1_DEVICE_LAUNCHES_PER_CALL
-            or stage1 not in names[0]):
+
+    def as_expected(names):
+        return (len(names) == KERNEL_1_DEVICE_LAUNCHES_PER_CALL
+                and stage1 in names[0])
+
+    names = device_kernels(lambda: tb._launch(*args[:6], scale, heads),
+                           as_expected)
+    if not as_expected(names):
         raise AssertionError(f"trajectory_block {tag}: device kernels "
                              f"{names}, expected {stage1}, the GEMM and "
                              "stage 2")
@@ -4316,6 +4360,652 @@ def phase_slot_train(smi):
     return counts
 
 
+# The ResNet video family (phase 16): SlowFast 8x8 R50 on Kinetics-400
+# (configs/Kinetics/SLOWFAST_8x8_R50.yaml) at full width, and X3D-M. No
+# hand-written kernel: the convolutions are F.conv3d (cuDNN), BatchNorm
+# models/norms.py's in float32. The package's log goes to CONV_ENGINE_LOG.
+CONV_ENGINE_DIR = os.path.join(REPO, "build", "conv_engine")
+CONV_ENGINE_LOG = os.path.join(REPO, "build", "conv_engine.log")
+KINETICS = os.path.join(REPO, "configs", "Kinetics")
+CONV_FIXTURE_ATOL = 5e-5  # tests/test_conv_full_golden.py's
+CONV_BATCH = 8  # the yaml's TRAIN.BATCH_SIZE 64 over NUM_GPUS 8
+CONV_EVAL_ITERS = 10
+CONV_TRAIN_WARMUP, CONV_TRAIN_ITERS = 2, 5
+# bf16 against float32 on the same weights and clips: each probability
+# within this share of the largest (~50 layers, each rounding its output
+# to bf16, 2^-9 relative)
+CONV_PROB_REL = 0.05
+# X3D-M's step in bf16 against float32 from the same weights and batch
+CONV_BF16_LOSS_REL = 2e-2
+CONV_BF16_GRAD_COS = 0.99
+# SlowFast's step at batch 2 in float32, the card against the CPU from the
+# same weights and batch (cuDNN's and the CPU's sums in another order)
+CONV_LOSS_REL = 1e-4
+CONV_GRAD_REL_L2 = 1e-3
+CONV_STATS_REL = 1e-4
+# a gradient whose two float32 forms lie farther apart than
+# CONV_GRAD_REL_L2: the card's within this of the float64 gradient (the
+# fast pathway's BatchNorm parameters and the convolutions behind them:
+# both devices' float32 lie ~1e-3 or more from float64 there)
+CONV_F64_REL_L2 = 1e-2
+CONV_LOOP_ATOL = 1e-3  # the ensembled (summed) probabilities, direct loop
+# the loops' in-script Kinetics splits: 4 train steps an epoch at batch 8,
+# two val batches, 4 test videos x 1 view x 3 crops
+CONV_TRAIN_CLIPS, CONV_VAL_CLIPS, CONV_TEST_VIDEOS = 32, 16, 4
+CONV_PRECISE_BATCHES = 2  # BN.NUM_BATCHES_PRECISE, cut from the yaml's 200
+CONV_FORMATS = (("ncdhw", torch.contiguous_format),
+                ("channels_last_3d", torch.channels_last_3d))
+CONV_FORMAT_NAMES = {fmt: name for name, fmt in CONV_FORMATS}
+
+
+def conv_fixture_cfg(name):
+    """The configs of the reference's executed conv-family fixtures
+    (``scripts/make_golden_fixtures.py``, as ``tests/test_conv_full_golden.py``
+    mirrors them), float32."""
+    from focus_tpu_torch.config import get_cfg
+
+    p = 2 if name.startswith("slowfast") else 1
+    cfg = get_cfg()
+    cfg.MODEL.NUM_CLASSES = 9
+    cfg.DATA.NUM_FRAMES = 8 if p == 2 else 4
+    cfg.DATA.TRAIN_CROP_SIZE = 64
+    cfg.DATA.INPUT_CHANNEL_NUM = [3] * p
+    cfg.RESNET.DEPTH, cfg.RESNET.NUM_GROUPS = 50, 1
+    cfg.RESNET.WIDTH_PER_GROUP = 8
+    cfg.RESNET.NUM_BLOCK_TEMP_KERNEL = [[n] * p for n in (3, 4, 6, 3)]
+    cfg.RESNET.SPATIAL_STRIDES = [[1] * p] + [[2] * p] * 3
+    cfg.RESNET.SPATIAL_DILATIONS = [[1] * p] * 4
+    cfg.NONLOCAL.LOCATION = [[[]] * p] * 4
+    cfg.NONLOCAL.GROUP = [[1] * p] * 4
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    if p == 2:
+        cfg.MODEL.MODEL_NAME, cfg.MODEL.ARCH = "SlowFast", "slowfast"
+        cfg.SLOWFAST.ALPHA, cfg.SLOWFAST.BETA_INV = 4, 8
+        cfg.SLOWFAST.FUSION_CONV_CHANNEL_RATIO = 2
+        cfg.SLOWFAST.FUSION_KERNEL_SZ = 5
+        cfg.NONLOCAL.LOCATION = [[[], []], [[], []], [[1], []], [[], []]]
+        cfg.NONLOCAL.INSTANTIATION = "dot_product"
+    if name == "slowfast_det_full":
+        cfg.DETECTION.ENABLE = cfg.DETECTION.ALIGNED = True
+        cfg.DETECTION.ROI_XFORM_RESOLUTION = 7
+        cfg.DETECTION.SPATIAL_SCALE_FACTOR = 16
+        cfg.RESNET.SPATIAL_STRIDES = [[1, 1], [2, 2], [2, 2], [1, 1]]
+        cfg.RESNET.SPATIAL_DILATIONS = [[1, 1], [1, 1], [1, 1], [2, 2]]
+        cfg.MODEL.HEAD_ACT = "sigmoid"
+    if name == "slow_full":
+        cfg.MODEL.MODEL_NAME, cfg.MODEL.ARCH = "ResNet", "slow"
+        cfg.NONLOCAL.LOCATION = [[[]], [[1]], [[]], [[]]]
+        cfg.NONLOCAL.INSTANTIATION = "softmax"
+    if name == "x3d_full":
+        cfg.MODEL.MODEL_NAME, cfg.MODEL.ARCH = "X3D", "x3d"
+        cfg.RESNET.TRANS_FUNC, cfg.RESNET.STRIDE_1X1 = "x3d_transform", False
+        cfg.X3D.DIM_C1, cfg.X3D.WIDTH_FACTOR, cfg.X3D.DEPTH_FACTOR = 12, 1.5, 1.0
+        cfg.X3D.BOTTLENECK_FACTOR, cfg.X3D.DIM_C5 = 2.25, 64
+        cfg.X3D.CHANNELWISE_3x3x3, cfg.X3D.SCALE_RES2 = True, False
+        cfg.X3D.BN_LIN5 = False
+    return cfg
+
+
+@torch.no_grad()
+def conv_fixtures():
+    """(a) The four fixtures of the executed reference on the card in
+    float32, their state dicts read by the checkpoint reader's
+    ``import_state_dict``: max |err| of each."""
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.utils import checkpoint as cu
+
+    errs = {}
+    for name in ("slowfast_full", "slowfast_det_full", "slow_full",
+                 "x3d_full"):
+        d = dict(np.load(os.path.join(REPO, "tests", "fixtures",
+                                      f"{name}.npz")))
+        sd = {k[3:]: torch.from_numpy(v) for k, v in d.items()
+              if k.startswith("sd/")}
+        model = build_model(conv_fixture_cfg(name), DEV)
+        report = cu.import_state_dict(sd, model)
+        if report["missing"] or report["unused"]:
+            raise AssertionError(f"fixture {name}: {report['missing']} "
+                                 f"missing, {report['unused']} unused")
+        v = torch.from_numpy(d["video"].transpose(0, 2, 3, 4, 1).copy())
+        xs = [v[:, ::4].contiguous(), v] if "slowfast" in name else [v]
+        boxes = torch.from_numpy(d["boxes"]).to(DEV) if "boxes" in d else None
+        out = model([x.to(DEV) for x in xs], bboxes=boxes)
+        errs[name] = (out.float().cpu().reshape(d["out"].shape)
+                      - torch.from_numpy(d["out"])).abs().max().item()
+    return errs
+
+
+def same_probs(got, want, rel):
+    """Max |got - want| of two probability tables, its bound (``rel`` of
+    the largest), and their top-1 agreement."""
+    err = (got.float() - want.float()).abs().max().item()
+    bound = rel * want.abs().max().item()
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    return {"max_abs_err": err, "bound": bound, "ok": err <= bound,
+            "top1_agreement": top1}
+
+
+def slowfast_eval():
+    """(b) ``slowfast_entry(batch=8)``: the eval forward at the 256 test
+    crop in bf16, clips/s by CUDA events (median) in dense NCDHW and in
+    channels_last_3d, in turns, peak memory, and the probabilities against
+    the same weights and clips in float32."""
+    from focus_tpu_torch.entry import slowfast_entry
+
+    fn, (xs,) = slowfast_entry(device=DEV, batch=CONV_BATCH)
+    model = fn.model
+    times = {name: [] for name, _ in CONV_FORMATS}
+    torch.cuda.reset_peak_memory_stats()
+    for name, fmt in CONV_FORMATS + CONV_FORMATS[::-1]:
+        model.memory_format = fmt
+        times[name].append(time_ms(lambda: fn(xs), warmup=2,
+                                   iters=CONV_EVAL_ITERS))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    model.memory_format = type(model).memory_format
+    probs = fn(xs)
+    dtype, model.dtype = model.dtype, torch.float32
+    probs32 = fn(xs)
+    model.dtype = dtype
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    best = min(ms, key=ms.get)
+    result = {
+        "model": "SlowFast 8x8 R50, Kinetics-400 (configs/Kinetics/"
+                 "SLOWFAST_8x8_R50.yaml), bf16, the JAX package's "
+                 "initialisers (seed 0)",
+        "clips": [list(x.shape) for x in xs], "batch": CONV_BATCH,
+        "default_memory_format": CONV_FORMAT_NAMES[type(model).memory_format],
+        "ms": ms, "ms_in_turns": times, "faster_format": best,
+        "clips_per_sec": {k: CONV_BATCH / (v / 1e3) for k, v in ms.items()},
+        "peak_memory_gb": peak,
+        "probs_shape": list(probs.shape),
+        "finite": bool(torch.isfinite(probs).all()),
+        "sums_to_one": (probs.float().sum(-1) - 1).abs().max().item(),
+        "vs_float32": same_probs(probs, probs32, CONV_PROB_REL)}
+    result["ok"] = (result["finite"] and result["vs_float32"]["ok"]
+                    and result["sums_to_one"] < 1e-3
+                    and list(probs.shape) == [CONV_BATCH, 400])
+    del fn, model, xs
+    torch.cuda.empty_cache()
+    return result
+
+
+def profiled_share(fn, iters=2):
+    """The device's busy share of ``iters`` calls of ``fn`` under
+    torch.profiler and the device time by kind of kernel
+    (``profile_slice.op_groups``), per call; "not measured" where the trace
+    holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from focus_tpu_torch.profile_slice import _busy_us, device_rows, op_groups
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / iters
+    rows = device_rows(prof)
+    if not rows:
+        return {"busy_share": "not measured", "wall_ms_per_call": wall_ms}
+    busy_ms = _busy_us(prof)[0] / 1e3 / iters
+    return {"wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "device_ms_per_call": sum(r[2] for r in rows) / 1e3 / iters,
+            "op_groups": op_groups(rows, iters)}
+
+
+def finite_grads(model):
+    return all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+               if p.grad is not None)
+
+
+def slowfast_train():
+    """(c) ``slowfast_train_entry(batch=8)``: SGD steps at the 224 train
+    crop in bf16 (float32 masters), ms a step by CUDA events (median) in
+    NCDHW and channels_last_3d, in turns, train clips/s in the models'
+    default layout, peak memory, finite loss and gradients, the busy share
+    and the device time by kind under torch.profiler."""
+    from focus_tpu_torch.entry import slowfast_train_entry
+
+    fn, (xs, labels) = slowfast_train_entry(device=DEV, batch=CONV_BATCH)
+    model = fn.model
+    times = {name: [] for name, _ in CONV_FORMATS}
+    torch.cuda.reset_peak_memory_stats()
+    for name, fmt in CONV_FORMATS + CONV_FORMATS[::-1]:
+        model.memory_format = fmt
+        times[name].append(time_ms(lambda: fn(xs, labels),
+                                   warmup=CONV_TRAIN_WARMUP,
+                                   iters=CONV_TRAIN_ITERS))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    model.memory_format = type(model).memory_format
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    default = CONV_FORMAT_NAMES[type(model).memory_format]
+    stats = {k: v.item() for k, v in fn(xs, labels).items()}
+    result = {"batch": CONV_BATCH, "clips": [list(x.shape) for x in xs],
+              "solver": "SGD, Nesterov momentum 0.9, weight decay 1e-4, "
+                        "global-norm clip 0.05 (the config defaults'), "
+                        "cosine with warm-up from 0.01; head dropout 0.5",
+              "default_memory_format": default,
+              "ms_per_step": ms[default], "ms_by_format": ms,
+              "ms_in_turns": times,
+              "train_clips_per_sec": CONV_BATCH / (ms[default] / 1e3),
+              "peak_memory_gb": peak, "stats": stats,
+              "finite": math.isfinite(stats["loss"])
+              and finite_grads(fn.model),
+              "profile": profiled_share(lambda: fn(xs, labels))}
+    result["ok"] = result["finite"]
+    del fn, xs, labels
+    torch.cuda.empty_cache()
+    return result
+
+
+def slowfast_card_vs_cpu():
+    """(c) One step at batch 2 in float32 (no dropout: the two devices draw
+    apart) from the same weights and batch, on the card and on the CPU,
+    and the same step in float64 on the card as the exact reference: the
+    loss, the running statistics after the step and the whole gradient
+    (clipped, as the step leaves it) card against CPU; each gradient within
+    CONV_GRAD_REL_L2 relative L2 of the CPU's, or, where the two float32
+    gradients of a tensor lie farther apart, the card's within
+    CONV_F64_REL_L2 of the float64 one (the train-mode gradients of some
+    BatchNorm parameters are ill-conditioned in float32: sums of terms that
+    nearly cancel); a gradient that is zero on the CPU, behind a transform's
+    zero-init final BatchNorm, is zero on the card."""
+    from focus_tpu_torch.engine.trainer import (
+        build_supervised_state,
+        make_supervised_train_step,
+    )
+    from focus_tpu_torch.entry import slowfast_cfg, slowfast_inputs
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    cfg = slowfast_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.MODEL.DROPOUT_RATE = 0.0
+    weights = build_model(cfg, "cpu", seed=0).state_dict()
+    runs = {}
+    for dev, dtype in (("cpu", torch.float32), (DEV, torch.float32),
+                       (DEV, torch.float64)):
+        # one set of weights: the two devices' generators draw apart
+        model = build_model(cfg, dev, seed=0)
+        model.load_state_dict(weights)
+        model = model.to(dtype)
+        model.dtype = dtype
+        state = build_supervised_state(cfg, model, 100)
+        step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
+        xs, labels = slowfast_inputs(cfg, 2, 1, dev, cfg.DATA.TRAIN_CROP_SIZE,
+                                     labels=True)
+        t0 = time.perf_counter()
+        _, stats = step(state, xs, labels, {})
+        loss = stats["loss"].item()
+        seconds = time.perf_counter() - t0
+        runs[dev, dtype] = (
+            loss, {n: p.grad.detach().double().cpu()
+                   for n, p in model.named_parameters()},
+            {k: v.detach().double().cpu()
+             for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}, seconds)
+        del model, state, step, xs, labels
+    torch.cuda.empty_cache()
+    (loss_c, g_c, s_c, sec_c), (loss_g, g_g, s_g, sec_g), (_, g64, _, _) = (
+        runs["cpu", torch.float32], runs[DEV, torch.float32],
+        runs[DEV, torch.float64])
+
+    def rel(a, b):
+        return (a - b).norm().item() / b.norm().item()
+
+    compared, over, zero_mismatch = {}, {}, []
+    for n, ref in g_c.items():
+        if ref.norm().item() == 0.0:
+            if g_g[n].abs().max().item() != 0.0:
+                zero_mismatch.append(n)
+            continue
+        compared[n] = rel(g_g[n], ref)
+        if compared[n] > CONV_GRAD_REL_L2:
+            over[n] = {"card_vs_cpu": compared[n],
+                       "card_vs_float64": rel(g_g[n], g64[n]),
+                       "cpu_vs_float64": rel(ref, g64[n])}
+    stats_err = max((s_g[k] - v).abs().max().item()
+                    / max(v.abs().max().item(), 1e-30) for k, v in s_c.items())
+    worst = max(compared, key=compared.get)
+    whole = math.sqrt(sum((g_g[n] - g_c[n]).pow(2).sum().item() for n in g_c)
+                      ) / math.sqrt(sum(g.pow(2).sum().item()
+                                        for g in g_c.values()))
+    result = {"batch": 2, "dtype": "float32 (TF32 off); float64 on the card "
+                                   "as the reference",
+              "loss": {"card": loss_g, "cpu": loss_c,
+                       "rel_err": abs(loss_g - loss_c) / abs(loss_c)},
+              "grads_compared": len(compared),
+              "grads_zero_on_both": len(g_c) - len(compared)
+              - len(zero_mismatch),
+              "grads_zero_on_cpu_alone": zero_mismatch,
+              "worst_grad_rel_l2": {"name": worst, "value": compared[worst]},
+              "grads_over_rel_l2": over,
+              "whole_grad_rel_l2": whole,
+              "running_stats_rel_err": stats_err,
+              "step_seconds": {"card": sec_g, "cpu": sec_c},
+              "tolerances": {"loss_rel": CONV_LOSS_REL,
+                             "grad_rel_l2": CONV_GRAD_REL_L2,
+                             "grad_rel_l2_to_float64": CONV_F64_REL_L2,
+                             "running_stats_rel": CONV_STATS_REL}}
+    result["ok"] = (result["loss"]["rel_err"] <= CONV_LOSS_REL
+                    and whole <= CONV_GRAD_REL_L2
+                    and all(o["card_vs_float64"] <= CONV_F64_REL_L2
+                            for o in over.values())
+                    and not zero_mismatch and stats_err <= CONV_STATS_REL)
+    return result
+
+
+class KineticsClips:
+    """A Kinetics-400 split as the real dataset's modes yield it: each clip
+    uint8 frames [T, crop, crop, 3] split into the slow and fast pathways by
+    ``datasets/utils.pack_pathway_output``, its label, index and no
+    metadata. Train and val clips are a random window and crop (the train
+    crop) of one of SOURCES seeded source videos in memory; a test video's
+    views are its middle window at each of the three spatial crops
+    (``transform.uniform_crop``) of the test crop. No file is read."""
+
+    SOURCES = 4
+
+    def __init__(self, cfg, mode):
+        self.cfg, self.mode = cfg, mode
+        test = mode == "test"
+        self.crop = (cfg.DATA.TEST_CROP_SIZE if test
+                     else cfg.DATA.TRAIN_CROP_SIZE)
+        self.views = (cfg.TEST.NUM_ENSEMBLE_VIEWS
+                      * cfg.TEST.NUM_SPATIAL_CROPS) if test else 1
+        self.size = {"train": CONV_TRAIN_CLIPS, "val": CONV_VAL_CLIPS,
+                     "test": CONV_TEST_VIDEOS * self.views}[mode]
+        T = cfg.DATA.NUM_FRAMES
+        rs = np.random.default_rng(cfg.RNG_SEED + 13)
+        self.videos = rs.integers(
+            0, 256, (self.SOURCES, 2 * T, self.crop, self.crop * 4 // 3, 3),
+            dtype=np.uint8)
+
+    def __len__(self):
+        return self.size
+
+    def __getitem__(self, index):
+        from focus_tpu_torch.datasets import transform as xf
+        from focus_tpu_torch.datasets.utils import pack_pathway_output
+
+        cfg, T = self.cfg, self.cfg.DATA.NUM_FRAMES
+        video = index // self.views
+        source = self.videos[video % self.SOURCES]
+        if self.mode == "test":
+            frames = xf.uniform_crop(source[T // 2:T // 2 + T], self.crop,
+                                     index % cfg.TEST.NUM_SPATIAL_CROPS)
+        else:
+            rng = np.random.RandomState([cfg.RNG_SEED, index])
+            start = rng.randint(0, T + 1)
+            frames = xf.random_crop(source[start:start + T], self.crop, rng)
+        label = np.int32(video * 7 % cfg.MODEL.NUM_CLASSES)
+        return (tuple(pack_pathway_output(cfg, np.ascontiguousarray(frames))),
+                label, np.int32(index), {})
+
+
+def conv_direct_test(cfg, checkpoint, meter):
+    """The test split's clips through ``EvalForward`` on a model loaded
+    from ``checkpoint``, in the loader's batches (pad rows dropped), summed
+    per video: max |meter's ensembles - these sums|."""
+    from focus_tpu_torch.datasets.build import build_dataset
+    from focus_tpu_torch.entry import EvalForward
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.ops.preprocess import device_normalize
+    from focus_tpu_torch.utils import checkpoint as cu
+
+    dataset = build_dataset(cfg.TEST.DATASET, cfg, "test")
+    model = build_model(cfg, DEV)
+    cu.load_checkpoint(checkpoint, model, cfg)
+    forward = EvalForward(model)
+    views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    sums = np.zeros_like(meter.video_preds)
+    bs = cfg.TEST.BATCH_SIZE
+    for start in range(0, len(dataset), bs):
+        idx = list(range(start, min(start + bs, len(dataset))))
+        items = [dataset[i] for i in idx]
+        pathways = [torch.from_numpy(np.stack([it[0][p] for it in items]))
+                    .to(DEV) for p in range(len(items[0][0]))]
+        probs = forward(device_normalize(pathways, cfg)).float().cpu()
+        for row, i in enumerate(idx):
+            sums[i // views] += probs[row].numpy()
+    del model, forward
+    torch.cuda.empty_cache()
+    return float(np.abs(meter.video_preds - sums).max())
+
+
+def slowfast_loops():
+    """(d) ``tools.run_net`` on ``configs/Kinetics/SLOWFAST_8x8_R50.yaml``
+    over in-script Kinetics splits (``KineticsClips`` as the registry's
+    ``Kinetics``): 2 epochs of 4 steps at batch 8, precise BN over 2 batches
+    and validation and a checkpoint after each, then the test path from the
+    last checkpoint at the 256 crop, 4 videos x 1 view x 3 crops: every clip
+    counted once, the checkpoint loaded whole, the ensembles against a
+    direct loop; the loop's, validation's and the test's clips/s."""
+    from focus_tpu_torch.config.defaults import assert_and_infer_cfg
+    from focus_tpu_torch.engine import trainer
+    from focus_tpu_torch.tools import run_net
+    from focus_tpu_torch.utils.parser import load_config, parse_args
+
+    reductions = {
+        "SOLVER.MAX_EPOCH": "2 (196): the cosine schedule over 2 epochs",
+        "BN.NUM_BATCHES_PRECISE": f"{CONV_PRECISE_BATCHES} (200)",
+        "TRAIN.EVAL_PERIOD": "1 (10)",
+        "TRAIN.BATCH_SIZE / TEST.BATCH_SIZE": f"{CONV_BATCH} (64 over "
+                                              "NUM_GPUS 8: one card's share)",
+        "NUM_GPUS": "1 (8): one card",
+        "TEST.NUM_ENSEMBLE_VIEWS": "1 (10)",
+        "TRAIN.AUTO_RESUME": "False (True): a fresh output directory",
+        "data": f"in-script: {CONV_TRAIN_CLIPS} train, {CONV_VAL_CLIPS} val "
+                f"clips, {CONV_TEST_VIDEOS} test videos (Kinetics-400: "
+                "240k / 20k / 20k videos, decoded by PyAV, which the card's "
+                "machine lacks)"}
+    argv = ["--device", DEV, "--cfg",
+            os.path.join(KINETICS, "SLOWFAST_8x8_R50.yaml"),
+            "TRAIN.METHOD", "sup", "TEST.EVAL_TASK", "ar", "NUM_GPUS", "1",
+            "TRAIN.BATCH_SIZE", str(CONV_BATCH),
+            "TEST.BATCH_SIZE", str(CONV_BATCH),
+            "SOLVER.MAX_EPOCH", "2", "TRAIN.EVAL_PERIOD", "1",
+            "BN.NUM_BATCHES_PRECISE", str(CONV_PRECISE_BATCHES),
+            "TEST.NUM_ENSEMBLE_VIEWS", "1", "TRAIN.AUTO_RESUME", "False",
+            "DATA_LOADER.NUM_WORKERS", "4", "LOG_PERIOD", "1",
+            "OUTPUT_DIR", CONV_ENGINE_DIR]
+    precise = []
+    compute = trainer.compute_precise_bn_stats
+
+    def counted_precise(*args, **kwargs):
+        precise.append(compute(*args, **kwargs))
+        return precise[-1]
+
+    runs = {"train": [], "test": []}
+    trainer.compute_precise_bn_stats = counted_precise
+    try:
+        with captured_engine(runs), registered_splits(
+                {"Kinetics": KineticsClips}):
+            t0 = time.perf_counter()
+            run_net.main(argv)
+            loop_s = time.perf_counter() - t0
+            (tr, _, train_peak), = runs["train"]
+            (te, _, test_peak), = runs["test"]
+            cfg = assert_and_infer_cfg(load_config(parse_args(argv)))
+            views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+            direct = conv_direct_test(cfg, te.checkpoint["path"], te.meter)
+    finally:
+        trainer.compute_precise_bn_stats = compute
+    losses = [x for epoch in tr.losses for x in epoch]
+    counted_once = bool((te.meter.clip_count == views).all()
+                        and te.meter.seen_clips.sum() == te.clips)
+    result = {
+        "reductions": reductions,
+        "train": {"steps": tr.steps, "clips": tr.clips,
+                  "losses": losses,
+                  "finite": all(math.isfinite(x) for x in losses),
+                  "precise_bn_batches": precise,
+                  "val_stats": tr.val_stats, "val_clips": tr.val_clips,
+                  "checkpoint_seconds": tr.checkpoint_seconds,
+                  "train_loop_clips_per_sec": tr.clips / tr.seconds,
+                  "wait_share": tr.wait_seconds / tr.seconds,
+                  "val_clips_per_sec": tr.val_clips / tr.val_seconds,
+                  "peak_memory_gb": train_peak},
+        "test": {"checkpoint": os.path.relpath(te.checkpoint["path"], REPO),
+                 "loaded": len(te.checkpoint["loaded"]),
+                 "missing": len(te.checkpoint["missing"]),
+                 "clips": int(te.clips), "batches": int(te.batches),
+                 "every_clip_counted_once": counted_once,
+                 "stats": {k: v if isinstance(v, str) else float(v)
+                           for k, v in te.stats.items()},
+                 "vs_direct_loop": {"max_abs_summed_prob": direct,
+                                    "atol": CONV_LOOP_ATOL},
+                 "test_loop_clips_per_sec": te.clips / te.seconds,
+                 "peak_memory_gb": test_peak},
+        "run_net_seconds": loop_s}
+    result["ok"] = (result["train"]["finite"] and tr.steps == 8
+                    and precise == [CONV_PRECISE_BATCHES] * 2
+                    and len(tr.val_stats) == 2
+                    and len(tr.checkpoint_seconds) == 2
+                    and not te.checkpoint["missing"] and counted_once
+                    and direct <= CONV_LOOP_ATOL)
+    return result
+
+
+def depthwise_ms(model, batch):
+    """X3D-M's depthwise 3x3x3 convolution of each stage's second block
+    (stride 1, as all but the first) at the shape the train crop gives it,
+    bf16, in channels_last_3d and NCDHW: ms a call by CUDA events
+    (median)."""
+    from focus_tpu_torch.models.resnet_helper import conv
+
+    out, T = {}, model.cfg.DATA.NUM_FRAMES
+    side = model.cfg.DATA.TRAIN_CROP_SIZE // 4
+    for s in (2, 3, 4, 5):
+        layer = getattr(model, f"s{s}").pathway0_res1.branch2.b
+        c = layer.in_channels
+        x = torch.randn(batch, c, T, side, side, device=DEV,
+                        dtype=torch.bfloat16)
+        row = {"shape": [batch, c, T, side, side],
+               "stride": list(layer.stride)}
+        for name, fmt in CONV_FORMATS:
+            xf = x.contiguous(memory_format=fmt)
+            row[f"ms_{name}"] = time_ms(lambda: conv(xf, layer))
+        out[f"s{s}"] = row
+        side //= 2
+    return out
+
+
+def x3d_m():
+    """(e) X3D-M (``configs/Kinetics/X3D_M.yaml``: width factor 2.0, depth
+    factor 2.2, 16 frames, bf16) at batch 4: the eval forward at the 256
+    test crop against float32 on the same weights, and one SGD step at the
+    224 train crop against a float32 copy from the same weights and batch
+    (no dropout): loss, the whole gradient's cosine and relative L2;
+    forward and step ms by CUDA events, the depthwise convolutions' ms."""
+    from focus_tpu_torch.config import get_cfg
+    from focus_tpu_torch.engine.trainer import (
+        build_supervised_state,
+        make_supervised_train_step,
+    )
+    from focus_tpu_torch.entry import EvalForward
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    batch = 4
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(KINETICS, "X3D_M.yaml"))
+    cfg.MODEL.DROPOUT_RATE = 0.0
+    rs = np.random.RandomState(3)
+    T = cfg.DATA.NUM_FRAMES
+
+    def clip(crop):
+        return torch.from_numpy(rs.rand(batch, T, crop, crop, 3).astype(
+            np.float32)).to(DEV)
+
+    model = build_model(cfg, DEV)
+    fn = EvalForward(model)
+    x_test = clip(cfg.DATA.TEST_CROP_SIZE)
+    fwd_ms = time_ms(lambda: fn(x_test), warmup=2, iters=CONV_EVAL_ITERS)
+    probs = fn(x_test)
+    dtype, model.dtype = model.dtype, torch.float32
+    probs32 = fn(x_test)
+    model.dtype = dtype
+    dw = depthwise_ms(model, batch)
+    x_train = clip(cfg.DATA.TRAIN_CROP_SIZE)
+    labels = torch.from_numpy(rs.randint(0, 400, batch)).to(DEV)
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg.TPU.COMPUTE_DTYPE = dtype
+        m = build_model(cfg, DEV)
+        state = build_supervised_state(cfg, m, 100)
+        step = make_supervised_train_step(m, cfg, get_loss_func(cfg))
+        _, stats = step(state, x_train, labels, {})
+        runs[dtype] = (stats["loss"].item(), torch.cat(
+            [p.grad.flatten().double() for p in m.parameters()]))
+        if dtype == "bfloat16":
+            step_ms = time_ms(lambda: step(state, x_train, labels, {}),
+                              warmup=1, iters=CONV_TRAIN_ITERS)
+        del m, state, step
+    (lb, gb), (lf, gf) = runs["bfloat16"], runs["float32"]
+    cos = float(torch.dot(gb, gf) / (gb.norm() * gf.norm()))
+    result = {"model": "X3D-M (configs/Kinetics/X3D_M.yaml), 400 classes",
+              "batch": batch, "forward_ms": fwd_ms,
+              "clips_per_sec": batch / (fwd_ms / 1e3),
+              "step_ms": step_ms,
+              "train_clips_per_sec": batch / (step_ms / 1e3),
+              "forward_vs_float32": same_probs(probs, probs32, CONV_PROB_REL),
+              "step_vs_float32": {
+                  "loss": [lb, lf], "loss_rel_err": abs(lb - lf) / abs(lf),
+                  "grad_cosine": cos,
+                  "grad_rel_l2": float((gb - gf).norm() / gf.norm())},
+              "depthwise_conv_ms": dw,
+              "tolerances": {"prob_rel": CONV_PROB_REL,
+                             "loss_rel": CONV_BF16_LOSS_REL,
+                             "grad_cosine": CONV_BF16_GRAD_COS}}
+    result["ok"] = (result["forward_vs_float32"]["ok"]
+                    and result["step_vs_float32"]["loss_rel_err"]
+                    <= CONV_BF16_LOSS_REL and cos >= CONV_BF16_GRAD_COS)
+    del model, fn
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_conv_family(smi):
+    """Phase 16: the ResNet video family on the card. (a) the four
+    reference fixtures in float32 (CONV_FIXTURE_ATOL); (b) SlowFast 8x8
+    R50's eval forward at batch 8; (c) its train step at batch 8, and at
+    batch 2 in float32 the card against the CPU; (d) the train and test
+    loops through ``tools.run_net``; (e) X3D-M's forward and step against
+    float32. No hand-written kernel runs here, so no launch is counted."""
+    from focus_tpu_torch.utils import logging as port_logging
+
+    shutil.rmtree(CONV_ENGINE_DIR, ignore_errors=True)
+    result = {"phase": "conv_family", "gpu": smi}
+    t0 = time.perf_counter()
+    try:
+        errs = conv_fixtures()
+        result["fixtures"] = {"max_abs_err": errs, "atol": CONV_FIXTURE_ATOL,
+                              "ok": all(e <= CONV_FIXTURE_ATOL
+                                        for e in errs.values())}
+        result["slowfast_eval"] = slowfast_eval()
+        result["slowfast_train"] = slowfast_train()
+        result["slowfast_card_vs_cpu"] = slowfast_card_vs_cpu()
+        with open(CONV_ENGINE_LOG, "w") as log, contextlib.redirect_stdout(
+                log):
+            result["slowfast_loops"] = slowfast_loops()
+        result["x3d_m"] = x3d_m()
+    finally:
+        port_logging.close_logging()
+        shutil.rmtree(CONV_ENGINE_DIR, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t0
+    parts = [v for v in result.values() if isinstance(v, dict) and "ok" in v]
+    result["ok"] = len(parts) == 6 and all(v["ok"] for v in parts)
+    emit(result)
+    if not result["ok"]:
+        raise AssertionError(
+            "conv family phase failed: "
+            f"{sorted(k for k, v in result.items() if isinstance(v, dict) and not v.get('ok', True))}")
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -4448,6 +5138,7 @@ def main():
     bwd["device_launches_train_loop"] = sum(
         c["trajectory_block_bwd_device"] for c in loops)
     slot = phase_slot_train(smi)
+    phase_conv_family(smi)
     ar["launches_slot_train"] = slot["wrapper"]
     ar["device_launches_slot_train"] = slot["device"]
     ar["launches_note"] += (

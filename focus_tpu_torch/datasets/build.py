@@ -19,4 +19,10 @@ def build_dataset(dataset_name: str, cfg, split: str):
             "the Cholec80 dataset is not ported yet (the slot models train "
             "on movi_e or synthetic_video)"
         )
+    if name in ("Kinetics", "Charades", "Ava") and name not in DATASET_REGISTRY:
+        raise NotImplementedError(
+            f"the {name} dataset is not ported yet (the port reads ssv2, "
+            "epickitchens, movi_e and the synthetic sets; the models of its "
+            "configs build)"
+        )
     return DATASET_REGISTRY.get(name)(cfg, split)

@@ -19,9 +19,18 @@ save. The stats reach the host once per ``LOG_PERIOD``, and each epoch's
 per-iteration losses once at its end. ``train`` returns the state, as the
 JAX package's does; ``run_train`` returns the whole ``TrainRun``.
 
+A model with BatchNorm (the ResNet family) normalises each microbatch by
+its own statistics in the step and moves the running buffers once a
+microbatch, in order, as the JAX step's ``scan`` carries ``batch_stats``;
+validation reads the running buffers. Under ``BN.USE_PRECISE_STATS`` they
+are recomputed (``engine/precise_bn.py``) before each checkpoint or
+validation, where the JAX loop recomputes them. A multi-pathway batch
+(SlowFast's slow and fast clips) goes whole through the step, mixup (the
+same draws on every pathway) and the batch count.
+
 The detection loss, MoE, remat, ZeRO-1, multigrid, timm weights
-(``MODEL.LOAD_IN_PRETRAIN``), ``LOG_MODEL_INFO`` and precise BN for a
-model with BatchNorm are not ported and raise.
+(``MODEL.LOAD_IN_PRETRAIN``) and ``LOG_MODEL_INFO`` are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from focus_tpu_torch.datasets import loader as data_loader
+from focus_tpu_torch.engine.precise_bn import compute_precise_bn_stats
 from focus_tpu_torch.engine.tester import make_eval_forward
 from focus_tpu_torch.models import optimizer as optim
 from focus_tpu_torch.models.build import (
@@ -205,15 +215,9 @@ def sample_mixup(cfg, generator, shape, device) -> dict:
             "cy": cy, "cx": cx}
 
 
-def apply_mixup(video, labels, cfg, draws):
-    """``_device_mixup``'s application of ``draws`` to a normalised video
-    [B, T, H, W, C] and its integer labels: mixup blends each clip with
-    the batch reversed; CutMix pastes the reversed batch into a box of
-    side sqrt(1 - lam) around (cy, cx), clipped, and takes lam from the box
-    as cut; the labels become label-smoothed (MIXUP.LABEL_SMOOTH_VALUE)
-    one-hot rows mixed by that lam. Returns (video, soft labels)."""
-    n = cfg.MODEL.NUM_CLASSES
-    smoothing = cfg.MIXUP.LABEL_SMOOTH_VALUE
+def _mix_video(video, draws):
+    """One pathway [B, T, H, W, C] mixed by ``draws``; returns it and the
+    lam of its labels."""
     use_mix, lam = draws["use_mix"], draws["lam"]
     cut = use_mix & draws["use_cutmix"]
     H, W = video.shape[-3], video.shape[-2]
@@ -231,7 +235,25 @@ def apply_mixup(video, labels, cfg, draws):
     lam_cut = 1.0 - ((y2 - y1) * (x2 - x1)).float() / (H * W)
     mix_video = video * lam + flipped * (1.0 - lam)
     video = torch.where(cut, cut_video, torch.where(use_mix, mix_video, video))
-    lam_final = torch.where(cut, lam_cut, lam)
+    return video, torch.where(cut, lam_cut, lam)
+
+
+def apply_mixup(video, labels, cfg, draws):
+    """``_device_mixup``'s application of ``draws`` to a normalised video
+    [B, T, H, W, C] and its integer labels: mixup blends each clip with
+    the batch reversed; CutMix pastes the reversed batch into a box of
+    side sqrt(1 - lam) around (cy, cx), clipped, and takes lam from the box
+    as cut; the labels become label-smoothed (MIXUP.LABEL_SMOOTH_VALUE)
+    one-hot rows mixed by that lam. A list of pathways (which share H and
+    W) is mixed pathway by pathway with the same draws; the JAX function
+    takes one array. Returns (video, soft labels)."""
+    n = cfg.MODEL.NUM_CLASSES
+    smoothing = cfg.MIXUP.LABEL_SMOOTH_VALUE
+    if isinstance(video, (tuple, list)):
+        mixed = [_mix_video(v, draws) for v in video]
+        video, lam_final = type(video)(m[0] for m in mixed), mixed[0][1]
+    else:
+        video, lam_final = _mix_video(video, draws)
 
     on = 1.0 - smoothing + smoothing / n
     off = smoothing / n
@@ -242,6 +264,11 @@ def apply_mixup(video, labels, cfg, draws):
 
 
 # ---- the step ------------------------------------------------------------
+
+def _batch_size(video) -> int:
+    # multi-pathway models (SlowFast) carry a tuple of videos
+    return (video[0] if isinstance(video, (tuple, list)) else video).shape[0]
+
 
 def _microbatch(tree, a: int, accum: int):
     """Microbatch ``a`` of ``accum``: rows a, a + accum, ... of every leaf
@@ -283,8 +310,9 @@ def make_supervised_train_step(model, cfg, loss_fn):
         video = device_normalize(video, cfg)
         hard_labels = labels
         if use_mixup:
-            draws = sample_mixup(cfg, state.generator, video.shape,
-                                 video.device)
+            first = video[0] if isinstance(video, (tuple, list)) else video
+            draws = sample_mixup(cfg, state.generator, first.shape,
+                                 first.device)
             video, labels = apply_mixup(video, labels, cfg, draws)
         topk_labels = hard_labels if (
             want_topk and hard_labels.ndim == 1) else None
@@ -293,8 +321,8 @@ def make_supervised_train_step(model, cfg, loss_fn):
             stats = forward_backward(state, video, labels, metadata,
                                      topk_labels)
         else:
-            if video.shape[0] % accum:
-                raise ValueError(f"batch {video.shape[0]} does not split "
+            if _batch_size(video) % accum:
+                raise ValueError(f"batch {_batch_size(video)} does not split "
                                  f"into TPU.GRAD_ACCUM={accum} microbatches")
             parts = [forward_backward(
                 state, *(_microbatch(x, a, accum) for x in (
@@ -337,11 +365,6 @@ class TrainRun:
     checkpoint_seconds: List[float] = dataclasses.field(default_factory=list)
     val_seconds: float = 0.0
     val_clips: int = 0
-
-
-def _batch_size(video) -> int:
-    # multi-pathway models (SlowFast) carry a tuple of videos
-    return (video[0] if isinstance(video, (tuple, list)) else video).shape[0]
 
 
 def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg,
@@ -466,11 +489,6 @@ def _build_val(cfg, device):
     return val_loader, ValMeter(len(val_loader), cfg)
 
 
-def _has_batch_norm(model) -> bool:
-    return any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
-               for m in model.modules())
-
-
 def train(cfg, device="cuda"):
     """Supervised training (reference train_net.py:573-747) on ``device``
     (CUDA unless the caller asks for the CPU); returns the final state."""
@@ -488,11 +506,6 @@ def run_train(cfg, device="cuda") -> TrainRun:
     logger.info(cfg.dump())
 
     model = build_model(cfg, device)
-    if cfg.BN.USE_PRECISE_STATS and _has_batch_norm(model):
-        raise NotImplementedError(
-            "BN.USE_PRECISE_STATS on a model with BatchNorm: precise BN "
-            "comes with the backbones slice of the port"
-        )
     train_loader = data_loader.construct_loader(cfg, "train", device)
     val_loader, val_meter = _build_val(cfg, device)
     state = build_supervised_state(cfg, model, len(train_loader))
@@ -556,14 +569,17 @@ def _train_epochs(cfg, run, train_loader, val_loader, val_meter, train_step,
         logger.info(
             f"Epoch {cur_epoch} takes {epoch_timer.last_epoch_time():.2f}s."
         )
-        # BN.USE_PRECISE_STATS: the model has no BatchNorm (run_train
-        # raises otherwise), so there are no statistics to recompute, as
-        # the JAX loop skips them where batch_stats is None
-        if cu.is_checkpoint_epoch(cfg, cur_epoch):
+        is_checkp = cu.is_checkpoint_epoch(cfg, cur_epoch)
+        is_eval = misc.is_eval_epoch(cfg, cur_epoch)
+        if (is_checkp or is_eval) and cfg.BN.USE_PRECISE_STATS:
+            compute_precise_bn_stats(state.model, train_loader,
+                                     cfg.BN.NUM_BATCHES_PRECISE, split_batch,
+                                     cfg)
+        if is_checkp:
             t_save = time.perf_counter()
             cu.save_checkpoint(cfg.OUTPUT_DIR, state, cur_epoch + 1, cfg)
             run.checkpoint_seconds.append(time.perf_counter() - t_save)
-        if misc.is_eval_epoch(cfg, cur_epoch):
+        if is_eval:
             state.model.eval()
             t_val = time.perf_counter()
             run.val_clips += eval_epoch(val_loader, forward, val_meter,

@@ -33,6 +33,13 @@ and the KV-cached token rollout.
 decoder D=192 x 4 blocks x 4 heads, vocabulary 4096, bf16, the three-group
 Adam behind global-norm clipping), one update a call on a batch of
 two-frame clips.
+``slowfast_entry`` is SlowFast 8x8 R50 on Kinetics-400
+(``configs/Kinetics/SLOWFAST_8x8_R50.yaml``: ResNet-50, alpha 4, beta^-1
+8, fusion kernel 7, 400 classes, bf16) with the JAX package's initialisers,
+its eval forward on the slow and fast clips of the 256 test crop;
+``slowfast_train_entry`` its train step at the 224 train crop under the
+yaml's solver (SGD with Nesterov momentum 0.9, weight decay 1e-4, cosine
+with warm-up) and head dropout 0.5.
 """
 
 import os
@@ -109,14 +116,15 @@ def example_inputs(cfg, batch: int, seed: int, device, labels=False):
 
 
 class EvalForward:
-    """``fn(video, boxes) -> probabilities`` (the EPIC-Kitchens model's
-    verb and noun pair); ``fn.model`` is the module."""
+    """``fn(video, boxes=None) -> probabilities`` (the EPIC-Kitchens
+    model's verb and noun pair); ``video`` is one clip tensor or a list of
+    pathways; ``fn.model`` is the module."""
 
     def __init__(self, model):
         self.model = model
 
     @torch.no_grad()
-    def __call__(self, video, boxes):
+    def __call__(self, video, boxes=None):
         return self.model(video, {"orvit_bboxes": boxes})
 
 
@@ -371,3 +379,89 @@ def steve_train_entry(device="cuda", batch: int = 16, tiny: bool = False,
         batch, cfg.SLOTS.NUM_ITERS, size, size, 3).astype(np.float32)
     return (TrainStep(model, state, make_train_step(model, cfg)),
             (torch.from_numpy(video).to(device),))
+
+
+SLOWFAST_YAML = os.path.join(CONFIGS, "Kinetics", "SLOWFAST_8x8_R50.yaml")
+
+
+def slowfast_cfg(tiny: bool = False):
+    """``configs/Kinetics/SLOWFAST_8x8_R50.yaml`` (32 frames, the slow
+    pathway 8; crops 224 train, 256 test; bf16), ``TRAIN.BATCH_SIZE`` and
+    ``TEST.BATCH_SIZE`` at one card's share, 64 over ``NUM_GPUS`` 8.
+    ``tiny`` is a CPU size: ``WIDTH_PER_GROUP`` 8, 8 frames, crops 32 and
+    48, 10 classes, float32."""
+    cfg = get_cfg()
+    cfg.merge_from_file(SLOWFAST_YAML)
+    cfg.TRAIN.BATCH_SIZE //= cfg.NUM_GPUS
+    cfg.TEST.BATCH_SIZE //= cfg.NUM_GPUS
+    if tiny:
+        cfg.RESNET.WIDTH_PER_GROUP = 8
+        cfg.DATA.NUM_FRAMES = 8
+        cfg.DATA.TRAIN_CROP_SIZE = 32
+        cfg.DATA.TEST_CROP_SIZE = 48
+        cfg.MODEL.NUM_CLASSES = 10
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def slowfast_inputs(cfg, batch: int, seed: int, device, crop: int,
+                    labels=False):
+    """The slow and fast clips [B, T, crop, crop, 3] in [0, 1) of one
+    video from numpy's RandomState(seed), split as
+    ``datasets/utils.pack_pathway_output`` splits a clip; with ``labels``,
+    integer labels drawn next."""
+    from focus_tpu_torch.datasets.utils import pack_pathway_output
+
+    rs = np.random.RandomState(seed)
+    video = rs.rand(cfg.DATA.NUM_FRAMES, batch, crop, crop, 3).astype(
+        np.float32)
+    pathways = [torch.from_numpy(np.ascontiguousarray(p.swapaxes(0, 1))).to(
+        device) for p in pack_pathway_output(cfg, video)]
+    if not labels:
+        return pathways
+    return pathways, torch.from_numpy(rs.randint(
+        0, cfg.MODEL.NUM_CLASSES, (batch,)).astype(np.int64)).to(device)
+
+
+def slowfast_entry(device="cuda", batch: int = 8, seed: int = 0,
+                   tiny: bool = False):
+    """(fn, (pathways,)): SlowFast 8x8 R50's eval forward, ``fn(pathways)
+    -> probabilities [batch, 400]``, from the JAX package's initialisers
+    (seeded with ``seed``), and the slow and fast clips of the test crop
+    (``[batch, 8, 256, 256, 3]`` and ``[batch, 32, 256, 256, 3]``), on
+    ``device`` (CUDA unless the caller asks for the CPU). The head pools
+    at the train crop's 7 x 7, so the 8 x 8 of the test crop is scored at
+    4 positions and their probabilities averaged."""
+    device = resolve_device(device)
+    cfg = slowfast_cfg(tiny)
+    model = build_model(cfg, device=device, seed=seed)
+    return EvalForward(model), (slowfast_inputs(
+        cfg, batch, seed, device, cfg.DATA.TEST_CROP_SIZE),)
+
+
+def slowfast_train_entry(device="cuda", batch: int = 8, seed: int = 0,
+                         tiny: bool = False):
+    """(fn, (pathways, labels)): one SGD step of SlowFast 8x8 R50 a call
+    (``fn(pathways, labels) -> {"loss", "top1_err", "top5_err"}`` on the
+    device) from the JAX package's initialisers (seeded with ``seed``), on
+    a batch of the 224 train crop, on ``device`` (CUDA unless the caller
+    asks for the CPU); 100 steps an epoch, as ``train_entry``. BatchNorm
+    normalises by the batch's statistics and moves its running buffers."""
+    from focus_tpu_torch.engine.trainer import (
+        build_supervised_state,
+        make_supervised_train_step,
+    )
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    device = resolve_device(device)
+    cfg = slowfast_cfg(tiny)
+    model = build_model(cfg, device=device, seed=seed)
+    state = build_supervised_state(cfg, model, STEPS_PER_EPOCH)
+    step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
+
+    def step_without_metadata(state, pathways, labels):
+        return step(state, pathways, labels, {})
+
+    return (TrainStep(model, state, step_without_metadata),
+            slowfast_inputs(cfg, batch, seed, device,
+                            cfg.DATA.TRAIN_CROP_SIZE, labels=True))

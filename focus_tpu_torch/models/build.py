@@ -66,9 +66,11 @@ def _orthogonal_(p, generator):
 
 
 def _init_tagged_(layer, generator):
-    """A layer tagged by ``models/common.py`` with its JAX initialiser:
-    xavier-uniform (with gain), kaiming-uniform or the flax default
-    (lecun-normal); zero bias."""
+    """A layer tagged by ``models/common.py`` or the ResNet family's modules
+    with its JAX initialiser: xavier-uniform (with gain), kaiming-uniform,
+    the flax default (lecun-normal), kaiming-normal on the fan-out
+    (``variance_scaling(2.0, "fan_out", "normal")``) or the classifier's
+    N(0, 0.01^2); zero bias."""
     kind, gain = layer.init
     w = layer.weight
     if isinstance(layer, nn.ConvTranspose2d):  # weight [in, out, kh, kw]
@@ -77,6 +79,10 @@ def _init_tagged_(layer, generator):
         fan_in, fan_out = _fans(w.shape)
     if kind == "xavier":
         _uniform_(w, gain * math.sqrt(6.0 / (fan_in + fan_out)), generator)
+    elif kind == "kaiming_fan_out":
+        w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+    elif kind == "fc":
+        w.normal_(0.0, 0.01, generator=generator)
     elif kind == "kaiming":
         _uniform_(w, math.sqrt(6.0 / fan_in), generator)
     elif kind == "lecun":
@@ -118,8 +124,10 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     ``weight_ih`` xavier-uniform, ``weight_hh`` orthogonal; otherwise a
     truncated normal, std 0.02, for dense kernels, the class token and
     position embedding; xavier-uniform patch-embed kernel; zero biases, box
-    categories and temporal embedding; unit norm scales. BatchNorm running
-    statistics are reset. ``scale=s``: every parameter drawn from
+    categories and temporal embedding; unit norm scales, and zero ones for
+    the BatchNorms marked ``zero_init`` (``RESNET.ZERO_INIT_FINAL_BN``).
+    BatchNorm running statistics are reset (mean 0, variance 1).
+    ``scale=s``: every parameter drawn from
     N(0, s^2), as the benchmark's random init-scale weights are.
     """
     for m in model.modules():
@@ -153,6 +161,9 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             p.fill_(1.0)
         else:  # biases, temp_embed, box_categories*
             p.zero_()
+    for m in model.modules():
+        if getattr(m, "zero_init", False):
+            m.weight.zero_()
 
 
 @torch.no_grad()
@@ -173,14 +184,16 @@ def build_model(cfg, device="cuda", seed=None):
     (eval mode), initialised as the JAX package initialises it from a
     generator seeded with ``seed`` (default ``cfg.RNG_SEED``)."""
     import focus_tpu_torch.models.motionformer  # noqa: F401 (registration)
+    import focus_tpu_torch.models.ptv_variants  # noqa: F401 (registration)
     import focus_tpu_torch.models.steve.steve  # noqa: F401 (registration)
 
     device = resolve_device(device)
     if cfg.MODEL.MODEL_NAME not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"MODEL.MODEL_NAME {cfg.MODEL.MODEL_NAME}: not ported yet (the "
-            f"port builds {sorted(MODEL_REGISTRY)}; the other backbones come "
-            "with a later slice)"
+            f"port builds {sorted(MODEL_REGISTRY)}; MViT and PTVMViT come "
+            "with the MViT slice of the port, the MoE layers of "
+            "models/moe.py after it)"
         )
     model_cls = MODEL_REGISTRY[cfg.MODEL.MODEL_NAME]
     with torch.device("meta"):

@@ -42,6 +42,7 @@ from focus_tpu_torch.models.common import (
     layer_norm,
     linear,
 )
+from focus_tpu_torch.models.norms import batch_norm
 from focus_tpu_torch.models.steve.dvae import DVAE
 from focus_tpu_torch.models.steve.slot_attention import SlotAttentionVideo
 from focus_tpu_torch.ops import ar_decode
@@ -103,32 +104,6 @@ class BaseCNN(nn.Module):
         for blk in self.fenc[:3]:
             x = blk(x)
         return conv(x, self.fenc[3])
-
-
-BN_MOMENTUM = 0.9  # flax nn.BatchNorm's, as the JAX encoder builds it
-
-
-def batch_norm(x, bn: nn.BatchNorm2d, train=False):
-    """BatchNorm of NCHW ``x`` in float32, result at x's dtype. Eval: the
-    running statistics. Train, as flax's ``nn.BatchNorm``: the batch's mean
-    and biased variance over N, H and W (E[x^2] - E[x]^2, clipped at 0),
-    and the running statistics updated in place, ra = 0.9 ra + 0.1 stat,
-    the variance biased too (``nn.BatchNorm2d``'s own update takes the
-    unbiased one, so it is not used)."""
-    xf = x.float()
-    if not train:
-        return F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight,
-                            bn.bias, False, 0.0, bn.eps).to(x.dtype)
-    dims = (0, 2, 3)
-    mean = xf.mean(dims)
-    var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
-    with torch.no_grad():
-        for ra, stat in ((bn.running_mean, mean), (bn.running_var, var)):
-            ra.copy_(BN_MOMENTUM * ra + (1.0 - BN_MOMENTUM) * stat)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    y = (xf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None,
-                                                                  None]
-    return y.to(x.dtype)
 
 
 def _plain_conv(in_channels, out_channels, bias):

@@ -1,7 +1,8 @@
 """Where the time of a slice's main path goes, on one GPU.
 
     python3 -m focus_tpu_torch.profile_slice \
-        [--model flagship|steve|train|learned_v|hr336|hr336_train|steve_train] \
+        [--model flagship|steve|train|learned_v|hr336|hr336_train|steve_train
+                 |slowfast|slowfast_train] \
         [--batch 8] \
         [--iters 2] \
         [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 3|4|5|6|7]
@@ -15,7 +16,10 @@ companion's), ``hr_train_entry(device="cuda")`` (``hr336_train``: one
 HR-336 train step, batch 4) or ``steve_entry(device="cuda")`` (STEVE's encode +
 KV-cached rollout + dVAE decode; ``--batch`` videos of 4 frames) or
 ``steve_train_entry(device="cuda")`` (``steve_train``: one STEVE train step
-of the MOVi-E recipe, batch 16 of two-frame clips), warms up,
+of the MOVi-E recipe, batch 16 of two-frame clips) or
+``slowfast_entry(device="cuda")`` / ``slowfast_train_entry(device="cuda")``
+(``slowfast``: SlowFast 8x8 R50's eval forward at the 256 test crop;
+``slowfast_train``: one SGD step at the 224 train crop; batch 8), warms up,
 then traces ``--iters`` calls with ``torch.profiler`` (CPU and CUDA
 activities). Prints one JSON
 line: the wall time per call, the summed device time of the device-side
@@ -24,7 +28,11 @@ least one of them (kernels launched with programmatic dependent launch
 overlap, so the sum can exceed it) and its share of the wall time, the
 events with the most device time, and the events that add the most to the
 busy time (``top_exposed``: from the later of an event's start and the end
-of every event before it, to its own end), and the peak device memory
+of every event before it, to its own end), the device time by kind of
+kernel (``op_groups``: convolutions, cuDNN's layout transforms, reductions
+such as BatchNorm's statistics, copies and casts, pooling, the other
+elementwise kernels such as BatchNorm's normalisation, ReLU and the adds,
+the optimizer's multi-tensor kernels), and the peak device memory
 allocated over the traced calls. STEVE's rollout is one replay of its
 captured CUDA graph (made in the warm-up). ``--trace`` also writes the
 Chrome trace to the path given. The labeled serving variants:
@@ -51,6 +59,8 @@ from focus_tpu_torch.entry import (
     entry,
     hr_entry,
     hr_train_entry,
+    slowfast_entry,
+    slowfast_train_entry,
     steve_entry,
     steve_train_entry,
     train_entry,
@@ -114,6 +124,50 @@ def kernel_groups(rows, iters):
     return groups
 
 
+# kinds of device kernel by name (a regular expression, searched; a kernel
+# counts in the first kind it matches): the ResNet family's time is in
+# library kernels, whose names say what they do. ``kernel_groups`` names the
+# port's own kernels.
+OP_GROUPS = (
+    (r"nchwToNhwc|nhwcToNchw|[Tt]ranspose", "layout transforms"),
+    (r"multi_tensor_apply", "optimizer (multi-tensor)"),
+    (r"copy|[Cc]ast|convert", "copies and casts"),
+    (r"reduce_kernel|[Rr]eduction", "reductions (BatchNorm statistics)"),
+    (r"conv|xmma|cudnn|implicit_gemm|wgrad|dgrad|fprop|cutlass|gemm",
+     "convolutions and GEMMs"),
+    (r"pool", "pooling"),
+    (r"elementwise|vectorized", "other elementwise (BatchNorm's "
+     "normalisation, ReLU, adds)"),
+)
+
+
+def op_groups(rows, iters):
+    """{kind: device ms and launches per call} over every device kernel
+    (``OP_GROUPS``; the rest under "other")."""
+    groups = {}
+    for name, count, us in rows:
+        label = next((lab for pat, lab in OP_GROUPS if re.search(pat, name)),
+                     "other")
+        g = groups.setdefault(label, {"device_ms_per_call": 0.0,
+                                      "launches_per_call": 0.0})
+        g["device_ms_per_call"] += us / 1e3 / iters
+        g["launches_per_call"] += count / iters
+    return groups
+
+
+def device_rows(prof):
+    """(name, launches, device us) of each device-side event name of a
+    trace, the most device time first: a CPU op's device time repeats its
+    kernels', and so does a user annotation's span on the device (the
+    optimizer's), so neither counts."""
+    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    rows = [r for r in rows if r[2] > 0]
+    rows.sort(key=lambda r: -r[2])
+    return rows
+
+
 def _device_us(evt):
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, attr, None)
@@ -145,7 +199,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model",
                     choices=("flagship", "steve", "train", "learned_v",
-                             "hr336", "hr336_train", "steve_train"),
+                             "hr336", "hr336_train", "steve_train",
+                             "slowfast", "slowfast_train"),
                     default="flagship")
     ap.add_argument("--batch", type=int, default=None,
                     help="8 (hr336, hr336_train, learned_v --hr: 4; "
@@ -171,7 +226,8 @@ def main():
     if args.fast_gelu:
         variant["fast_gelu"] = True
     if args.model in ("train", "learned_v", "hr336", "hr336_train",
-                      "steve_train") and variant or (
+                      "steve_train", "slowfast", "slowfast_train"
+                      ) and variant or (
             args.model == "steve" and args.fast_gelu):
         ap.error(f"--model {args.model} takes no {sorted(variant)}")
     if args.fwd_version != 4 and args.model not in (
@@ -197,7 +253,9 @@ def main():
         make = {"flagship": entry, "steve": steve_entry,
                 "train": train_entry, "hr336": hr_entry,
                 "hr336_train": hr_train_entry,
-                "steve_train": steve_train_entry}[args.model]
+                "steve_train": steve_train_entry,
+                "slowfast": slowfast_entry,
+                "slowfast_train": slowfast_train_entry}[args.model]
         fn, inputs = make(device="cuda", batch=args.batch, **variant)
     for _ in range(2):
         fn(*inputs)
@@ -210,16 +268,10 @@ def main():
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.iters
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # device-side events only: a CPU op's device time repeats its kernels',
-    # and so does a user annotation's span on the device (the optimizer's)
-    rows = [(e.key, e.count, _device_us(e)) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    rows = [r for r in rows if r[2] > 0]
-    rows.sort(key=lambda r: -r[2])
+    rows = device_rows(prof)
     device_ms = sum(r[2] for r in rows) / 1e3 / args.iters
-    busy_us, exposed = _busy_us(prof)
-    busy_ms = busy_us / 1e3 / args.iters
+    busy, exposed = _busy_us(prof)
+    busy_ms = busy / 1e3 / args.iters
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -231,8 +283,10 @@ def main():
                     "learned_v": "12 learned-v trajectory blocks, eval",
                     "hr336": "HR-336 EPIC-Kitchens eval forward",
                     "hr336_train": "HR-336 EPIC-Kitchens train step",
-                    "steve_train": "STEVE train step, MOVi-E recipe"}[
-                        args.model],
+                    "steve_train": "STEVE train step, MOVi-E recipe",
+                    "slowfast": "SlowFast 8x8 R50 eval forward, 256 crop",
+                    "slowfast_train": "SlowFast 8x8 R50 train step, 224 "
+                                      "crop"}[args.model],
         "variant": variant, "fwd_version": args.fwd_version, "hr": args.hr,
         "batch": args.batch,
         "gpu": smi, "wall_ms_per_call": wall_ms,
@@ -241,6 +295,7 @@ def main():
         "device_busy_share": busy_ms / wall_ms if rows else "not measured",
         "peak_memory_gb": peak_gb,
         "kernel_groups": kernel_groups(rows, args.iters),
+        "op_groups": op_groups(rows, args.iters),
         "top_kernels": [
             {"name": k[:120], "launches_per_call": c / args.iters,
              "device_ms_per_call": us / 1e3 / args.iters}

@@ -32,8 +32,10 @@ for the writes in flight (``wait_for_saves``). ``load_train_checkpoint``
 resumes: the last checkpoint in OUTPUT_DIR (the slot trainer's: EXP.PATH)
 under ``TRAIN.AUTO_RESUME``, else ``TRAIN.CHECKPOINT_FILE_PATH``. The slot
 trainer writes the same train state as ``best_model.pt``,
-``checkpoint.pt.tar`` and ``checkpoint_epoch_NNNNN.pyth``; STEVE's
-BatchNorm running statistics are buffers of its ``model_state``.
+``checkpoint.pt.tar`` and ``checkpoint_epoch_NNNNN.pyth``. BatchNorm
+running statistics (STEVE's, the ResNet family's) are buffers of the
+``model_state``, under the reference's names, ``num_batches_tracked``
+among them (read and written, never used).
 """
 
 from __future__ import annotations

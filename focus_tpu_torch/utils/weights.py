@@ -4,7 +4,7 @@
 of numpy arrays, as ``model.init(...)["params"]`` gives after
 ``jax.device_get``) into the port's ``state_dict``. It keeps its own copy
 of the naming and layout rules of ``focus_tpu/utils/torch_import.py`` for
-the models ported so far (Motionformer/ORViT, STEVE):
+the models ported so far (Motionformer/ORViT, STEVE, the ResNet family):
 
 - Dense kernel ``[in, out]`` -> ``weight [out, in]``; the STEVE ``Dense``
   wrapper's inner ``linear`` has no torch name;
@@ -13,9 +13,15 @@ the models ported so far (Motionformer/ORViT, STEVE):
   ``Conv2dBlock``'s inner ``conv`` is attribute ``m``;
 - the ``ConvTranspose`` kernel of ``upconv`` ``[kh, kw, I, O]`` ->
   ``weight [I, O, kh, kw]`` flipped in both spatial axes (flax does not
-  flip its kernel, ``torch.nn.ConvTranspose2d`` does);
+  flip its kernel, ``torch.nn.ConvTranspose2d`` does); a grouped or
+  depthwise kernel ``[kt, kh, kw, C/g, D]`` -> ``[D, C/g, kt, kh, kw]``, the
+  same transpose;
 - LayerNorm / BatchNorm ``scale`` -> ``weight``; Embed ``embedding`` ->
   ``weight``; the GRU's ``weight_ih`` / ``weight_hh`` transposed;
+- ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
+  the conv family's BatchNorm module wraps flax's, also named ``bn``, and
+  that inner name has no torch counterpart (``a_bn/bn/scale`` ->
+  ``a_bn.weight``);
 - ``patch_to_d`` / ``c_coord_to_feature`` / ``ffn`` ``fc1``/``fc2`` ->
   ``0``/``2``; ``mlp_fc1``/``mlp_fc2`` -> ``mlp.0``/``mlp.2``; ``dict`` ->
   ``dict.dictionary``; the dVAE and BaseCNN stages -> their
@@ -25,9 +31,10 @@ the models ported so far (Motionformer/ORViT, STEVE):
   unstacked into ``blocks.{a+j}.*``.
 
 ``load_jax_params`` loads the result with missing, unexpected or
-mis-shaped keys reported as errors; a slot train state's BatchNorm
-``batch_stats`` (``mean``, ``var``) load beside the params as the running
-statistics. ``load_jax_adam_state`` carries an optax Adam state (the slot
+mis-shaped keys reported as errors; BatchNorm ``batch_stats`` (``mean``,
+``var``) load beside the params as the running statistics, and the
+model's ``num_batches_tracked`` (which nothing reads) is accepted and
+ignored. ``load_jax_adam_state`` carries an optax Adam state (the slot
 train state's ``opt_state``, every group's moments and count) into a
 ``torch.optim.Adam`` over the same model.
 """
@@ -43,7 +50,7 @@ import torch
 _SEQ_MLPS = ("patch_to_d", "c_coord_to_feature", "ffn")
 _SCANNED = re.compile(r"^blocks_(\d+)_(\d+)$")
 _RENAMES = {"pre_logits_fc": "pre_logits.fc", "dict": "dict.dictionary",
-            "mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2", "conv": "m"}
+            "mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2"}
 # nn.Sequential slots of the dVAE and BaseCNN stages (the gaps are the
 # PixelShuffle slots), keyed by the parent module's name
 _STAGES = {
@@ -56,6 +63,9 @@ _STAGES = {
     "cnn": {"block_0": "fenc.0", "block_1": "fenc.1", "block_2": "fenc.2",
             "head": "fenc.3"},
 }
+# the stages that are a ``Conv2dBlock``, whose inner ``conv`` is ``m``
+_CONV_BLOCKS = frozenset(k for table in _STAGES.values() for k in table
+                         if k != "head")
 
 
 def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -82,6 +92,10 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, str]:
             parts.append("blocks." + m[len("blocks_"):])
         elif m in ("fc1", "fc2") and parent in _SEQ_MLPS:
             parts.append("0" if m == "fc1" else "2")
+        elif m == "conv" and parent in _CONV_BLOCKS:
+            parts.append("m")
+        elif m == "bn" and parent is not None and parent.endswith("bn"):
+            continue  # the conv family's BatchNorm wraps flax's, "bn"
         else:
             parts.append(_RENAMES.get(m, m))
     leaf = path[-1]
@@ -106,12 +120,15 @@ def _to_torch(arr: np.ndarray, kind: str) -> torch.Tensor:
             arr = arr.transpose(4, 3, 0, 1, 2)
     elif kind == "transposed_conv":  # [kh, kw, I, O] -> [I, O, kh, kw], flipped
         arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
-    return torch.from_numpy(np.array(arr, dtype=np.float32))
+    # float32, or float64 where the JAX value is (an x64 comparison's)
+    dtype = np.float64 if arr.dtype == np.float64 else np.float32
+    return torch.from_numpy(np.array(arr, dtype=dtype))
 
 
 def jax_params_to_state_dict(params, under: Tuple[str, ...] = ()
                              ) -> Dict[str, torch.Tensor]:
-    """JAX params -> the port's state_dict (CPU, float32). ``under`` is the
+    """JAX params -> the port's state_dict (CPU, float32; float64 values
+    stay float64). ``under`` is the
     module path the tree hangs from in its model, for a sub-module's params
     taken alone (``("dvae",)``, ``("steve_encoder", "cnn")``): the stage
     tables read it, and the names returned do not carry it."""
