@@ -122,7 +122,19 @@ Phases (one JSON line each; any failure exits non-zero):
      Kinetics splits (2 epochs with precise BN, validation and checkpoints,
      then the test path from the last checkpoint, 4 videos x 3 crops, held
      against a direct loop); X3D-M's forward and step against float32 and
-     its depthwise convolutions' times.
+     its depthwise convolutions' times;
+ 17. MViT (no hand-written kernel: ``F.conv3d`` stem and pooling, the
+     attention two matmuls): the reference's mvit_full and
+     multiscale_attention fixtures in float32 (1e-4, 3e-5); MViT-B 16x4
+     (configs/Kinetics/MVIT_B_16x4_CONV.yaml, full width and depth, bf16)
+     at batch 8, its eval forward at the 224 crop (clips/s, peak memory,
+     the busy share, probabilities against float32, the W8A8 model within
+     0.05) and its AdamW step under the yaml's mixup (train clips/s, peak
+     memory, the busy share; at batch 2 in float32 the card against the
+     CPU: loss, each gradient); ``tools.run_net`` on in-script Kinetics
+     splits (2 epochs, validation, the test path from the checkpoint,
+     against a direct loop); every MViT yaml built and run at its own
+     width; ORViT at MViT's head dim 96 refused before any launch.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -5006,6 +5018,475 @@ def phase_conv_family(smi):
             f"{sorted(k for k, v in result.items() if isinstance(v, dict) and not v.get('ok', True))}")
 
 
+MVIT_ENGINE_DIR = os.path.join(REPO, "build", "mvit_engine")
+MVIT_ENGINE_LOG = os.path.join(REPO, "build", "mvit_engine.log")
+MVIT_YAMLS = ("Kinetics/MVIT_B_16x4_CONV.yaml",
+              "Kinetics/MVIT_B_32x3_CONV.yaml",
+              "Kinetics/pytorchvideo/MVIT_B_16x4_CONV.yaml",
+              "ImageNet/MVIT_B_16_CONV.yaml", "AVA/MVIT_16X4.yaml")
+MVIT_FIXTURE_ATOL = 1e-4  # tests/test_full_model_golden.py's
+MVIT_ATTN_FIXTURE_ATOL = 3e-5  # tests/test_golden_parity.py's
+MVIT_BATCH = 8  # the yaml's TEST.BATCH_SIZE 64 over NUM_GPUS 8
+MVIT_EVAL_ITERS = 10
+MVIT_TRAIN_WARMUP, MVIT_TRAIN_ITERS = 2, 5
+# bf16 against float32 on the same weights and clip: each probability
+# within this share of the largest (as phase 16)
+MVIT_PROB_REL = 0.05
+# the W8A8 forward against the bf16 one, as tests/test_int8_serving.py's
+# test_int8_mvit_runs_and_reuses_params holds JAX's (absolute)
+MVIT_INT8_ATOL = 0.05
+# the float32 step at batch 2, the card against the CPU (as phase 16)
+MVIT_LOSS_REL = 1e-4
+MVIT_GRAD_REL_L2 = 1e-3
+MVIT_F64_REL_L2 = 1e-2
+MVIT_CMP_BATCH = 2
+MVIT_EXACT_ZERO_GRADS = ("attn.norm_k.bias",)
+# the depthwise pooling convolutions of MViT-B at batch 8: (where, input
+# [N, C, T, H, W], stride)
+MVIT_POOL_CONVS = (("block 0 k and v", (8, 96, 8, 56, 56), (1, 8, 8)),
+                   ("block 1 q", (16, 96, 8, 56, 56), (1, 2, 2)),
+                   ("blocks 4-13 k and v", (32, 96, 8, 14, 14), (1, 1, 1)))
+
+
+def mvit_fixture_cfg():
+    """``tests/test_full_model_golden.py::test_mvit_full_golden``'s config:
+    D=24 over 4 blocks, 4 frames, the 64 crop, float32."""
+    from focus_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.MODEL.MODEL_NAME, cfg.MODEL.ARCH = "MViT", "mvit"
+    cfg.MODEL.NUM_CLASSES = 7
+    cfg.DATA.NUM_FRAMES = 4
+    cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = 64
+    cfg.MVIT.EMBED_DIM, cfg.MVIT.NUM_HEADS, cfg.MVIT.DEPTH = 24, 2, 4
+    cfg.MVIT.DIM_MUL = cfg.MVIT.HEAD_MUL = [[1, 2.0]]
+    cfg.MVIT.POOL_Q_STRIDE = [[1, 1, 2, 2]]
+    cfg.MVIT.POOL_KVQ_KERNEL = [3, 3, 3]
+    cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = [1, 4, 4]
+    cfg.MVIT.PATCH_PADDING = [1, 3, 3]
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+@torch.no_grad()
+def mvit_fixtures():
+    """(a) ``mvit_full.npz`` and ``multiscale_attention.npz`` of the
+    executed reference on the card in float32 (TF32 off since the build
+    phase), their state dicts loaded by name: max |err| of each."""
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.models.mvit import MultiScaleAttention
+
+    def load(name):
+        d = dict(np.load(os.path.join(REPO, "tests", "fixtures",
+                                      f"{name}.npz")))
+        return d, {k[3:]: torch.from_numpy(v) for k, v in d.items()
+                   if k.startswith("sd/")}
+
+    d, sd = load("mvit_full")
+    model = build_model(mvit_fixture_cfg(), DEV)
+    model.load_state_dict(sd, strict=True)
+    out = model(torch.from_numpy(d["video"].transpose(0, 2, 3, 4, 1).copy()
+                                 ).to(DEV))
+    errs = {"mvit_full": (out.cpu() - torch.from_numpy(d["out"])).abs().max()
+            .item()}
+    d, sd = load("multiscale_attention")
+    attn = MultiScaleAttention(
+        d["x"].shape[-1], int(d["num_heads"]), qkv_bias=True,
+        kernel_q=(1, 3, 3), kernel_kv=(1, 3, 3), stride_q=(1, 1, 1),
+        stride_kv=(1, 2, 2)).to(DEV)
+    attn.load_state_dict(sd, strict=True)
+    out, thw = attn(torch.from_numpy(d["x"]).to(DEV), tuple(d["thw"]))
+    errs["multiscale_attention"] = (out.cpu() - torch.from_numpy(d["out"])
+                                    ).abs().max().item()
+    atol = {"mvit_full": MVIT_FIXTURE_ATOL,
+            "multiscale_attention": MVIT_ATTN_FIXTURE_ATOL}
+    return {"max_abs_err": errs, "atol": atol,
+            "ok": all(errs[k] <= atol[k] for k in errs)
+            and list(thw) == list(d["out_thw"])}
+
+
+def mvit_eval():
+    """(b) ``mvit_entry(batch=8)``: MViT-B 16x4's eval forward at the 224
+    crop in bf16, ms by CUDA events (median), clips/s, peak memory, the
+    device's busy share and time by kind under torch.profiler; the
+    probabilities against float32 on the same weights and clip; the W8A8
+    model (``int8=True``, the same weights) timed and held to the bf16
+    probabilities."""
+    from focus_tpu_torch.entry import mvit_entry
+
+    fn, (video,) = mvit_entry(device=DEV, batch=MVIT_BATCH)
+    model = fn.model
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: fn(video), warmup=2, iters=MVIT_EVAL_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    probs = fn(video)
+    dtype, model.dtype = model.dtype, torch.float32
+    probs32 = fn(video)
+    model.dtype = dtype
+    profile = profiled_share(lambda: fn(video))
+    fn8, _ = mvit_entry(device=DEV, batch=MVIT_BATCH, int8=True)
+    fn8.model.load_state_dict(model.state_dict(), strict=True)
+    ms8 = time_ms(lambda: fn8(video), warmup=2, iters=MVIT_EVAL_ITERS)
+    probs8 = fn8(video)
+    int8_err = (probs8.float() - probs.float()).abs().max().item()
+    result = {
+        "model": "MViT-B 16x4, Kinetics-400 (configs/Kinetics/"
+                 "MVIT_B_16x4_CONV.yaml), bf16, the JAX package's "
+                 "initialisers (seed 0)",
+        "clip": list(video.shape), "batch": MVIT_BATCH,
+        "ms": ms, "clips_per_sec": MVIT_BATCH / (ms / 1e3),
+        "peak_memory_gb": peak, "profile": profile,
+        "probs_shape": list(probs.shape),
+        "finite": bool(torch.isfinite(probs).all()),
+        "sums_to_one": (probs.float().sum(-1) - 1).abs().max().item(),
+        "vs_float32": same_probs(probs, probs32, MVIT_PROB_REL),
+        "w8a8": {"ms": ms8, "clips_per_sec": MVIT_BATCH / (ms8 / 1e3),
+                 "max_abs_err_vs_bf16": int8_err, "atol": MVIT_INT8_ATOL,
+                 "top1_agreement": (probs8.argmax(-1) == probs.argmax(-1))
+                 .float().mean().item(),
+                 "finite": bool(torch.isfinite(probs8).all())}}
+    result["ok"] = (result["finite"] and result["vs_float32"]["ok"]
+                    and result["sums_to_one"] < 1e-3
+                    and list(probs.shape) == [MVIT_BATCH, 400]
+                    and result["w8a8"]["finite"]
+                    and int8_err <= MVIT_INT8_ATOL)
+    del fn, fn8, model, video
+    torch.cuda.empty_cache()
+    return result
+
+
+def mvit_pool_conv_ms():
+    """The depthwise 3x3x3 pooling convolution (bf16, groups = head dim 96)
+    at three of MViT-B's shapes: ms a call by CUDA events (median) on the
+    tokens' channels-last view [N, C, T, H, W] of [N, T, H, W, C], on a
+    dense NCDHW copy of it, and the copy and the convolution together (what
+    ``attention_pool`` runs), in turns."""
+    import torch.nn.functional as F
+
+    out = {}
+    w = torch.randn(96, 1, 3, 3, 3, device=DEV, dtype=torch.bfloat16)
+    for where, (n, c, t, h, wd), stride in MVIT_POOL_CONVS:
+        view = torch.randn(n, t, h, wd, c, device=DEV,
+                           dtype=torch.bfloat16).permute(0, 4, 1, 2, 3)
+        dense = view.contiguous()
+
+        def conv(x):
+            return F.conv3d(x, w, None, stride, 1, groups=c)
+
+        fns = {"channels_last_view": lambda: conv(view),
+               "ncdhw": lambda: conv(dense),
+               "copy_then_ncdhw": lambda: conv(view.contiguous())}
+        times = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            times[k].append(time_ms(fns[k], warmup=2, iters=10))
+        out[where] = {"input": [n, c, t, h, wd], "stride": list(stride),
+                      "ms": {k: statistics.median(v)
+                             for k, v in times.items()},
+                      "ms_in_turns": times}
+    return out
+
+
+def mvit_train():
+    """(c) ``mvit_train_entry(batch=8)``: AdamW steps at the 224 crop in
+    bf16 (float32 masters) under the yaml's mixup / CutMix, soft-target
+    loss, head dropout and drop path: ms a step by CUDA events (median),
+    train clips/s, peak memory, finite loss and gradients, the busy share
+    and the device time by kind under torch.profiler."""
+    from focus_tpu_torch.entry import mvit_train_entry
+
+    fn, (video, labels) = mvit_train_entry(device=DEV, batch=MVIT_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: fn(video, labels), warmup=MVIT_TRAIN_WARMUP,
+                 iters=MVIT_TRAIN_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stats = {k: v.item() for k, v in fn(video, labels).items()}
+    result = {"batch": MVIT_BATCH, "clip": list(video.shape),
+              "solver": "AdamW, weight decay 0.05 off the 1-D parameters, "
+                        "global-norm clip 1.0, cosine after 30 warm-up "
+                        "epochs; mixup 0.8 / CutMix 1.0 with label "
+                        "smoothing 0.1, soft-target cross-entropy; head "
+                        "dropout 0.5, drop path to 0.2",
+              "ms_per_step": ms,
+              "train_clips_per_sec": MVIT_BATCH / (ms / 1e3),
+              "peak_memory_gb": peak, "stats": stats,
+              "finite": math.isfinite(stats["loss"])
+              and finite_grads(fn.model),
+              "profile": profiled_share(lambda: fn(video, labels))}
+    result["ok"] = result["finite"]
+    del fn, video, labels
+    torch.cuda.empty_cache()
+    return result
+
+
+def mvit_card_vs_cpu():
+    """(c) One step at batch 2 in float32 (no mixup, dropout or drop path:
+    the two devices draw apart; label-smoothed one-hot targets through the
+    yaml's soft-target loss) from the same weights and batch, on the card
+    and on the CPU, and the same step in float64 on the card (attention
+    logits float32, as the model takes them) as the exact reference: the
+    loss and the whole gradient (clipped, as the step leaves it) card
+    against CPU; each gradient within MVIT_GRAD_REL_L2 relative L2 of the
+    CPU's, or, where the two float32 gradients of a tensor lie farther
+    apart, the card's within MVIT_F64_REL_L2 of the float64 one. The keys'
+    LayerNorm biases have a gradient of zero in exact arithmetic (each adds
+    one constant to a query's logits, which the softmax removes): what the
+    three steps give there is rounding, so the card's is held to
+    MVIT_GRAD_REL_L2 of the whole gradient's norm instead."""
+    from focus_tpu_torch.engine.trainer import (
+        build_supervised_state,
+        make_supervised_train_step,
+    )
+    from focus_tpu_torch.entry import mvit_cfg, mvit_inputs
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    cfg = mvit_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.MODEL.DROPOUT_RATE = cfg.MVIT.DROPPATH_RATE = 0.0
+    cfg.MIXUP.ENABLE = False
+    weights = build_model(cfg, "cpu", seed=0).state_dict()
+    n = cfg.MODEL.NUM_CLASSES
+    runs = {}
+    for dev, dtype in (("cpu", torch.float32), (DEV, torch.float32),
+                       (DEV, torch.float64)):
+        model = build_model(cfg, dev, seed=0)
+        model.load_state_dict(weights)
+        model = model.to(dtype)
+        model.dtype = dtype
+        state = build_supervised_state(cfg, model, 100)
+        step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
+        video, labels = mvit_inputs(cfg, MVIT_CMP_BATCH, 1, dev, labels=True)
+        soft = torch.nn.functional.one_hot(labels, n).float() * 0.9 + 0.1 / n
+        t0 = time.perf_counter()
+        _, stats = step(state, video, soft, {})
+        loss = stats["loss"].item()
+        seconds = time.perf_counter() - t0
+        runs[dev, dtype] = (loss, {k: p.grad.detach().double().cpu()
+                                   for k, p in model.named_parameters()},
+                            seconds)
+        del model, state, step, video, labels
+    torch.cuda.empty_cache()
+    (loss_c, g_c, sec_c), (loss_g, g_g, sec_g), (_, g64, _) = (
+        runs["cpu", torch.float32], runs[DEV, torch.float32],
+        runs[DEV, torch.float64])
+
+    def rel(a, b):
+        return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+    whole_norm = math.sqrt(sum(g.pow(2).sum().item() for g in g_c.values()))
+    compared, over, zero, exact_zero = {}, {}, [], {}
+    for k, ref in g_c.items():
+        if ref.norm().item() == 0.0:
+            zero.append(k)
+            continue
+        if k.endswith(MVIT_EXACT_ZERO_GRADS):
+            exact_zero[k] = {"card": g_g[k].norm().item() / whole_norm,
+                             "cpu": ref.norm().item() / whole_norm,
+                             "float64": g64[k].norm().item() / whole_norm}
+            continue
+        compared[k] = rel(g_g[k], ref)
+        if compared[k] > MVIT_GRAD_REL_L2:
+            over[k] = {"card_vs_cpu": compared[k],
+                       "card_vs_float64": rel(g_g[k], g64[k]),
+                       "cpu_vs_float64": rel(ref, g64[k])}
+    worst = max(compared, key=compared.get)
+    whole = math.sqrt(sum((g_g[k] - g_c[k]).pow(2).sum().item()
+                          for k in g_c)) / whole_norm
+    result = {"batch": MVIT_CMP_BATCH,
+              "dtype": "float32 (TF32 off); float64 on the card as the "
+                       "reference",
+              "loss": {"card": loss_g, "cpu": loss_c,
+                       "rel_err": abs(loss_g - loss_c) / abs(loss_c)},
+              "grads_compared": len(compared), "grads_zero_on_cpu": zero,
+              "worst_grad_rel_l2": {"name": worst, "value": compared[worst]},
+              "grads_over_rel_l2": over, "whole_grad_rel_l2": whole,
+              "exact_zero_grads_over_whole_norm": exact_zero,
+              "step_seconds": {"card": sec_g, "cpu": sec_c},
+              "tolerances": {"loss_rel": MVIT_LOSS_REL,
+                             "grad_rel_l2": MVIT_GRAD_REL_L2,
+                             "grad_rel_l2_to_float64": MVIT_F64_REL_L2}}
+    result["ok"] = (result["loss"]["rel_err"] <= MVIT_LOSS_REL
+                    and whole <= MVIT_GRAD_REL_L2
+                    and all(o["card_vs_float64"] <= MVIT_F64_REL_L2
+                            for o in over.values())
+                    and all(z["card"] <= MVIT_GRAD_REL_L2
+                            for z in exact_zero.values()))
+    return result
+
+
+def mvit_loops():
+    """(d) ``tools.run_net`` on ``configs/Kinetics/MVIT_B_16x4_CONV.yaml``
+    over in-script Kinetics splits (``KineticsClips``, one pathway): 2
+    epochs of 4 steps at batch 8 with mixup, validation after each and the
+    yaml's checkpoint at the last, then the test path from it: every clip
+    counted once, the checkpoint loaded whole, the ensembles against a
+    direct loop; the loop's, validation's and the test's clips/s."""
+    from focus_tpu_torch.config.defaults import assert_and_infer_cfg
+    from focus_tpu_torch.tools import run_net
+    from focus_tpu_torch.utils.parser import load_config, parse_args
+
+    reductions = {
+        "SOLVER.MAX_EPOCH": "2 (200): the schedule over 2 epochs, inside "
+                            "its 30 warm-up epochs",
+        "TRAIN.EVAL_PERIOD": "1 (10)",
+        "TRAIN.BATCH_SIZE / TEST.BATCH_SIZE": f"{MVIT_BATCH} ({MVIT_BATCH} "
+                                              "is 4 x the yaml's 16 over "
+                                              "NUM_GPUS 8; 64 over 8)",
+        "NUM_GPUS": "1 (8): one card",
+        "AUG.NUM_SAMPLE": "1 (2): repeated augmentation waits for the "
+                          "Kinetics data slice",
+        "AUG.ENABLE": "True, but the in-script clips apply no RandAugment "
+                      "or random erasing (the Kinetics dataset's host "
+                      "transforms); mixup / CutMix run in the step",
+        "TEST.NUM_ENSEMBLE_VIEWS": "1 (10)",
+        "TRAIN.AUTO_RESUME": "False (True): a fresh output directory",
+        "data": f"in-script: {CONV_TRAIN_CLIPS} train, {CONV_VAL_CLIPS} val "
+                f"clips, {CONV_TEST_VIDEOS} test videos (Kinetics-400: "
+                "240k / 20k / 20k videos, decoded by PyAV, which the card's "
+                "machine lacks)"}
+    argv = ["--device", DEV, "--cfg",
+            os.path.join(KINETICS, "MVIT_B_16x4_CONV.yaml"),
+            "TRAIN.METHOD", "sup", "TEST.EVAL_TASK", "ar", "NUM_GPUS", "1",
+            "TRAIN.BATCH_SIZE", str(MVIT_BATCH),
+            "TEST.BATCH_SIZE", str(MVIT_BATCH), "AUG.NUM_SAMPLE", "1",
+            "SOLVER.MAX_EPOCH", "2", "TRAIN.EVAL_PERIOD", "1",
+            "TEST.NUM_ENSEMBLE_VIEWS", "1", "TRAIN.AUTO_RESUME", "False",
+            "DATA_LOADER.NUM_WORKERS", "4", "LOG_PERIOD", "1",
+            "OUTPUT_DIR", MVIT_ENGINE_DIR]
+    runs = {"train": [], "test": []}
+    with captured_engine(runs), registered_splits(
+            {"Kinetics": KineticsClips}):
+        t0 = time.perf_counter()
+        run_net.main(argv)
+        loop_s = time.perf_counter() - t0
+        (tr, _, train_peak), = runs["train"]
+        (te, _, test_peak), = runs["test"]
+        cfg = assert_and_infer_cfg(load_config(parse_args(argv)))
+        views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+        direct = conv_direct_test(cfg, te.checkpoint["path"], te.meter)
+    losses = [x for epoch in tr.losses for x in epoch]
+    counted_once = bool((te.meter.clip_count == views).all()
+                        and te.meter.seen_clips.sum() == te.clips)
+    result = {
+        "reductions": reductions,
+        "train": {"steps": tr.steps, "clips": tr.clips, "losses": losses,
+                  "finite": all(math.isfinite(x) for x in losses),
+                  "val_stats": tr.val_stats, "val_clips": tr.val_clips,
+                  "checkpoint_seconds": tr.checkpoint_seconds,
+                  "train_loop_clips_per_sec": tr.clips / tr.seconds,
+                  "wait_share": tr.wait_seconds / tr.seconds,
+                  "val_clips_per_sec": tr.val_clips / tr.val_seconds,
+                  "peak_memory_gb": train_peak},
+        "test": {"checkpoint": os.path.relpath(te.checkpoint["path"], REPO),
+                 "loaded": len(te.checkpoint["loaded"]),
+                 "missing": len(te.checkpoint["missing"]),
+                 "clips": int(te.clips), "batches": int(te.batches),
+                 "every_clip_counted_once": counted_once,
+                 "stats": {k: v if isinstance(v, str) else float(v)
+                           for k, v in te.stats.items()},
+                 "vs_direct_loop": {"max_abs_summed_prob": direct,
+                                    "atol": CONV_LOOP_ATOL},
+                 "test_loop_clips_per_sec": te.clips / te.seconds,
+                 "peak_memory_gb": test_peak},
+        "run_net_seconds": loop_s}
+    result["ok"] = (result["train"]["finite"] and tr.steps == 8
+                    and len(tr.val_stats) == 2
+                    and len(tr.checkpoint_seconds) == 1
+                    and not te.checkpoint["missing"] and counted_once
+                    and direct <= CONV_LOOP_ATOL)
+    return result
+
+
+@torch.no_grad()
+def mvit_yamls():
+    """(e) Every MViT yaml built on the card at its own architecture and
+    width (bf16) and run once on a clip of its frames at its 224 crop:
+    finite outputs of the head's shape (AVA's per box); then an ORViT
+    block beside MViT-B's fifth (384 wide, 4 heads of 96: an added block
+    needs one that keeps its grid and width) refusing on the card with the
+    trajectory kernel's operand check, no kernel launched."""
+    from focus_tpu_torch.config import get_cfg
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    rows = {}
+    for rel in MVIT_YAMLS:
+        cfg = get_cfg()
+        cfg.merge_from_file(os.path.join(REPO, "configs", rel))
+        model = build_model(cfg, DEV)
+        crop, T = cfg.DATA.TRAIN_CROP_SIZE, cfg.DATA.NUM_FRAMES
+        x = torch.rand(1, T, crop, crop, 3, device=DEV)
+        boxes = torch.tensor([[[20.0, 30.0, 150.0, 200.0]]], device=DEV)
+        out = model(x, bboxes=boxes) if cfg.DETECTION.ENABLE else model(x)
+        want = ([1, 1, cfg.MODEL.NUM_CLASSES] if cfg.DETECTION.ENABLE
+                else [1, cfg.MODEL.NUM_CLASSES])
+        rows[rel] = {"model": type(model).__name__,
+                     "name": cfg.MODEL.MODEL_NAME,
+                     "params_m": sum(p.numel() for p in model.parameters())
+                     / 1e6, "clip": [1, T, crop, crop, 3],
+                     "out_shape": list(out.shape),
+                     "ok": list(out.shape) == want
+                     and bool(torch.isfinite(out).all())}
+        del model
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(KINETICS, "MVIT_B_16x4_CONV.yaml"))
+    cfg.ORVIT.ENABLE, cfg.ORVIT.ADD_LAYERS, cfg.ORVIT.O = True, [4], 4
+    model = build_model(cfg, DEV)
+    boxes = torch.rand(1, cfg.DATA.NUM_FRAMES, 4, 4, device=DEV) * 0.4 + 0.3
+    before = tb.LAUNCHES
+    try:
+        crop = cfg.DATA.TRAIN_CROP_SIZE
+        model(torch.rand(1, cfg.DATA.NUM_FRAMES, crop, crop, 3, device=DEV),
+              {"orvit_bboxes": boxes})
+        refusal = "no error"
+    except ValueError as e:
+        refusal = str(e)
+    orvit = {"head_dim": 96, "refusal": refusal,
+             "launches": tb.LAUNCHES - before,
+             "ok": "head dim 64" in refusal and tb.LAUNCHES == before}
+    del model
+    torch.cuda.empty_cache()
+    return {"yamls": rows, "orvit_head_dim_96": orvit,
+            "ok": all(r["ok"] for r in rows.values()) and orvit["ok"]}
+
+
+def phase_mvit(smi):
+    """Phase 17: MViT on the card. (a) the two reference fixtures in
+    float32; (b) MViT-B 16x4's eval forward at batch 8 (and its W8A8
+    form); (c) its train step at batch 8, and at batch 2 in float32 the
+    card against the CPU; (d) the train and test loops through
+    ``tools.run_net``; (e) every MViT yaml built and run, and ORViT at head
+    dim 96 refused. No hand-written kernel runs on this path (the
+    attention is two matmuls, the stem and pooling ``F.conv3d``), so no
+    launch is counted."""
+    from focus_tpu_torch.utils import logging as port_logging
+
+    shutil.rmtree(MVIT_ENGINE_DIR, ignore_errors=True)
+    result = {"phase": "mvit", "gpu": smi}
+    t0 = time.perf_counter()
+    try:
+        result["fixtures"] = mvit_fixtures()
+        result["pool_conv_ms"] = mvit_pool_conv_ms()
+        result["mvit_eval"] = mvit_eval()
+        result["mvit_train"] = mvit_train()
+        result["mvit_card_vs_cpu"] = mvit_card_vs_cpu()
+        with open(MVIT_ENGINE_LOG, "w") as log, contextlib.redirect_stdout(
+                log):
+            result["mvit_loops"] = mvit_loops()
+        result["mvit_yamls"] = mvit_yamls()
+    finally:
+        port_logging.close_logging()
+        shutil.rmtree(MVIT_ENGINE_DIR, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t0
+    parts = [v for v in result.values() if isinstance(v, dict) and "ok" in v]
+    result["ok"] = len(parts) == 6 and all(v["ok"] for v in parts)
+    emit(result)
+    if not result["ok"]:
+        failed = sorted(k for k, v in result.items()
+                        if isinstance(v, dict) and not v.get("ok", True))
+        raise AssertionError(f"MViT phase failed: {failed}")
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -5139,6 +5620,7 @@ def main():
         c["trajectory_block_bwd_device"] for c in loops)
     slot = phase_slot_train(smi)
     phase_conv_family(smi)
+    phase_mvit(smi)
     ar["launches_slot_train"] = slot["wrapper"]
     ar["device_launches_slot_train"] = slot["device"]
     ar["launches_note"] += (

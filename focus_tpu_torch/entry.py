@@ -40,6 +40,14 @@ its eval forward on the slow and fast clips of the 256 test crop;
 ``slowfast_train_entry`` its train step at the 224 train crop under the
 yaml's solver (SGD with Nesterov momentum 0.9, weight decay 1e-4, cosine
 with warm-up) and head dropout 0.5.
+``mvit_entry`` is MViT-B 16x4 on Kinetics-400
+(``configs/Kinetics/MVIT_B_16x4_CONV.yaml``: D=96 -> 768 over 16 blocks,
+heads 1 -> 8, 16 frames at the 224 crop, 400 classes, bf16) with the JAX
+package's initialisers, its eval forward (``int8``: ``TPU.INT8_SERVING``);
+``mvit_train_entry`` its train step under the yaml's solver (AdamW, weight
+decay 0.05 off the 1-D parameters, global-norm clip 1.0, cosine after
+warm-up), mixup / CutMix with label smoothing into the soft-target
+cross-entropy, head dropout 0.5 and drop path to 0.2.
 """
 
 import os
@@ -465,3 +473,85 @@ def slowfast_train_entry(device="cuda", batch: int = 8, seed: int = 0,
     return (TrainStep(model, state, step_without_metadata),
             slowfast_inputs(cfg, batch, seed, device,
                             cfg.DATA.TRAIN_CROP_SIZE, labels=True))
+
+
+MVIT_YAML = os.path.join(CONFIGS, "Kinetics", "MVIT_B_16x4_CONV.yaml")
+
+
+def mvit_cfg(tiny: bool = False, int8: bool = False):
+    """``configs/Kinetics/MVIT_B_16x4_CONV.yaml`` (16 frames, the 224 crop,
+    bf16), ``TRAIN.BATCH_SIZE`` and ``TEST.BATCH_SIZE`` at one card's share
+    of ``NUM_GPUS`` 8 (2 and 8); ``int8`` sets ``TPU.INT8_SERVING``. ``tiny``
+    is a CPU size: D=16 over 4 blocks (widths and heads doubled at blocks 1
+    and 3, where the queries are strided), 4 frames, the 32 crop, 10
+    classes, float32."""
+    cfg = get_cfg()
+    cfg.merge_from_file(MVIT_YAML)
+    cfg.TRAIN.BATCH_SIZE //= cfg.NUM_GPUS
+    cfg.TEST.BATCH_SIZE //= cfg.NUM_GPUS
+    cfg.TPU.INT8_SERVING = int8
+    if tiny:
+        cfg.MVIT.EMBED_DIM, cfg.MVIT.DEPTH = 16, 4
+        cfg.MVIT.DIM_MUL = cfg.MVIT.HEAD_MUL = [[1, 2.0], [3, 2.0]]
+        cfg.MVIT.POOL_Q_STRIDE = [[1, 1, 2, 2], [3, 1, 2, 2]]
+        cfg.MVIT.POOL_KV_STRIDE_ADAPTIVE = [1, 4, 4]
+        cfg.DATA.NUM_FRAMES = 4
+        cfg.DATA.TRAIN_CROP_SIZE = cfg.DATA.TEST_CROP_SIZE = 32
+        cfg.MODEL.NUM_CLASSES = 10
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def mvit_inputs(cfg, batch: int, seed: int, device, labels=False):
+    """A clip [B, T, crop, crop, 3] in [0, 1) from numpy's
+    RandomState(seed) at the train crop (the yaml's test crop is the
+    same); with ``labels``, integer labels drawn next."""
+    rs = np.random.RandomState(seed)
+    crop = cfg.DATA.TRAIN_CROP_SIZE
+    video = torch.from_numpy(rs.rand(batch, cfg.DATA.NUM_FRAMES, crop, crop,
+                                     3).astype(np.float32)).to(device)
+    if not labels:
+        return video
+    return video, torch.from_numpy(rs.randint(
+        0, cfg.MODEL.NUM_CLASSES, (batch,)).astype(np.int64)).to(device)
+
+
+def mvit_entry(device="cuda", batch: int = 8, seed: int = 0,
+               tiny: bool = False, int8: bool = False):
+    """(fn, (video,)): MViT-B 16x4's eval forward, ``fn(video) ->
+    probabilities [batch, 400]``, from the JAX package's initialisers
+    (seeded with ``seed``), and a clip batch of the 224 crop, on
+    ``device`` (CUDA unless the caller asks for the CPU). Batch 8 is the
+    yaml's ``TEST.BATCH_SIZE`` 64 over ``NUM_GPUS`` 8. ``int8`` runs q, k, v,
+    proj and the MLPs as W8A8 dense layers (``TPU.INT8_SERVING``)."""
+    device = resolve_device(device)
+    cfg = mvit_cfg(tiny, int8)
+    model = build_model(cfg, device=device, seed=seed)
+    return EvalForward(model), (mvit_inputs(cfg, batch, seed, device),)
+
+
+def mvit_train_entry(device="cuda", batch: int = 8, seed: int = 0,
+                     tiny: bool = False):
+    """(fn, (video, labels)): one AdamW step of MViT-B 16x4 a call
+    (``fn(video, labels) -> {"loss", "top1_err", "top5_err"}`` on the
+    device) from the JAX package's initialisers (seeded with ``seed``), on
+    a batch of the 224 crop, on ``device`` (CUDA unless the caller asks for
+    the CPU); 100 steps an epoch, as ``train_entry``. Batch 8 is four times
+    the yaml's 2 a card (16 over 8 GPUs)."""
+    from focus_tpu_torch.engine.trainer import (
+        build_supervised_state,
+        make_supervised_train_step,
+    )
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    device = resolve_device(device)
+    cfg = mvit_cfg(tiny)
+    model = build_model(cfg, device=device, seed=seed)
+    state = build_supervised_state(cfg, model, STEPS_PER_EPOCH)
+    step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
+
+    def step_without_metadata(state, video, labels):
+        return step(state, video, labels, {})
+
+    return (TrainStep(model, state, step_without_metadata),
+            mvit_inputs(cfg, batch, seed, device, labels=True))

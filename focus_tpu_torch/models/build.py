@@ -66,11 +66,12 @@ def _orthogonal_(p, generator):
 
 
 def _init_tagged_(layer, generator):
-    """A layer tagged by ``models/common.py`` or the ResNet family's modules
-    with its JAX initialiser: xavier-uniform (with gain), kaiming-uniform,
-    the flax default (lecun-normal), kaiming-normal on the fan-out
-    (``variance_scaling(2.0, "fan_out", "normal")``) or the classifier's
-    N(0, 0.01^2); zero bias."""
+    """A layer tagged by ``models/common.py``, the ResNet family's or MViT's
+    modules with its JAX initialiser: xavier-uniform (with gain),
+    kaiming-uniform, the flax default (lecun-normal), kaiming-normal on the
+    fan-out (``variance_scaling(2.0, "fan_out", "normal")``), the
+    classifier's N(0, 0.01^2) or the truncated normal of std 0.02; zero
+    bias."""
     kind, gain = layer.init
     w = layer.weight
     if isinstance(layer, nn.ConvTranspose2d):  # weight [in, out, kh, kw]
@@ -85,6 +86,8 @@ def _init_tagged_(layer, generator):
         w.normal_(0.0, 0.01, generator=generator)
     elif kind == "kaiming":
         _uniform_(w, math.sqrt(6.0 / fan_in), generator)
+    elif kind == "trunc_normal_02":
+        _trunc_normal_(w, 0.02, generator)
     elif kind == "lecun":
         _trunc_normal_(w, math.sqrt(1.0 / fan_in) / 0.87962566103423978,
                        generator)
@@ -123,7 +126,7 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     normal of std 1, ``bos`` / ``slot_mu`` / ``slot_log_sigma`` and the GRU's
     ``weight_ih`` xavier-uniform, ``weight_hh`` orthogonal; otherwise a
     truncated normal, std 0.02, for dense kernels, the class token and
-    position embedding; xavier-uniform patch-embed kernel; zero biases, box
+    position embeddings; xavier-uniform patch-embed kernel; zero biases, box
     categories and temporal embedding; unit norm scales, and zero ones for
     the BatchNorms marked ``zero_init`` (``RESNET.ZERO_INIT_FINAL_BN``).
     BatchNorm running statistics are reset (mean 0, variance 1).
@@ -153,7 +156,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
         elif name.startswith("patch_embed_3d.proj.weight"):
             fan_in, fan_out = _fans(p.shape)
             _uniform_(p, math.sqrt(6.0 / (fan_in + fan_out)), generator)
-        elif leaf in ("cls_token", "pos_embed") or (
+        elif leaf in ("cls_token", "pos_embed", "pos_embed_spatial",
+                      "pos_embed_temporal", "pos_embed_class") or (
             leaf == "weight" and p.ndim == 2
         ):
             _trunc_normal_(p, 0.02, generator)
@@ -184,16 +188,16 @@ def build_model(cfg, device="cuda", seed=None):
     (eval mode), initialised as the JAX package initialises it from a
     generator seeded with ``seed`` (default ``cfg.RNG_SEED``)."""
     import focus_tpu_torch.models.motionformer  # noqa: F401 (registration)
+    import focus_tpu_torch.models.mvit  # noqa: F401 (registration)
     import focus_tpu_torch.models.ptv_variants  # noqa: F401 (registration)
     import focus_tpu_torch.models.steve.steve  # noqa: F401 (registration)
 
     device = resolve_device(device)
     if cfg.MODEL.MODEL_NAME not in MODEL_REGISTRY:
         raise NotImplementedError(
-            f"MODEL.MODEL_NAME {cfg.MODEL.MODEL_NAME}: not ported yet (the "
-            f"port builds {sorted(MODEL_REGISTRY)}; MViT and PTVMViT come "
-            "with the MViT slice of the port, the MoE layers of "
-            "models/moe.py after it)"
+            f"MODEL.MODEL_NAME {cfg.MODEL.MODEL_NAME}: not a model of the "
+            f"port, which builds {sorted(MODEL_REGISTRY)} (the MoE layers of "
+            "models/moe.py are not ported yet)"
         )
     model_cls = MODEL_REGISTRY[cfg.MODEL.MODEL_NAME]
     with torch.device("meta"):

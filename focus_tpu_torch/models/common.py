@@ -88,10 +88,11 @@ def linear(x, layer: nn.Linear):
 
 
 def layer_norm(x, ln: nn.LayerNorm, dtype=None):
-    """LayerNorm with float32 statistics, result at ``dtype`` (default
-    x's)."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
-                        ln.bias.float(), ln.eps).to(dtype or x.dtype)
+    """LayerNorm with float32 statistics (float64 ones for a float64 x),
+    result at ``dtype`` (default x's)."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    return F.layer_norm(x.to(wide), ln.normalized_shape, ln.weight.to(wide),
+                        ln.bias.to(wide), ln.eps).to(dtype or x.dtype)
 
 
 def conv(x, layer: nn.Conv2d):

@@ -2,8 +2,8 @@
 ``focus_tpu/models/ptv_variants.py``), registered under the reference's
 pytorchvideo names (``slowfast/models/ptv_model_builder.py:516-700``) so
 ``configs/Kinetics/pytorchvideo/*.yaml`` build; ``PTVResNet``,
-``PTVSlowFast`` and ``PTVX3D`` are the native models of the same
-architectures (``PTVMViT`` comes with the MViT slice of the port).
+``PTVSlowFast``, ``PTVX3D`` and ``PTVMViT`` are the native models of the
+same architectures.
 
 - CSN (ir-CSN): a bottleneck whose 3x3x3 ``b`` is depthwise and carries
   the block's whole (t, s, s) stride; stem 3x7x7 / (1, 2, 2) with a
@@ -24,6 +24,7 @@ from torch import nn
 
 from focus_tpu_torch.models.build import MODEL_REGISTRY, register
 from focus_tpu_torch.models.heads import ResNetBasicHead
+from focus_tpu_torch.models.mvit import MViT
 from focus_tpu_torch.models.norms import get_norm
 from focus_tpu_torch.models.resnet_helper import conv, conv3d, max_pool3d
 from focus_tpu_torch.models.resnet_video import (
@@ -187,4 +188,5 @@ class PTVR2plus1D(_PTVModel):
     head_frames_div = 4
 
 
-MODEL_REGISTRY.update(PTVResNet=ResNet, PTVSlowFast=SlowFast, PTVX3D=X3D)
+MODEL_REGISTRY.update(PTVResNet=ResNet, PTVSlowFast=SlowFast, PTVX3D=X3D,
+                      PTVMViT=MViT)

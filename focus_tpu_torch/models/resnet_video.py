@@ -22,6 +22,7 @@ from torch import nn
 
 from focus_tpu_torch.models.build import register
 from focus_tpu_torch.models.heads import ResNetBasicHead, ResNetRoIHead, X3DHead
+from focus_tpu_torch.models.mvit import round_width
 from focus_tpu_torch.models.norms import get_norm
 from focus_tpu_torch.models.resnet_helper import (
     ResStage,
@@ -56,19 +57,6 @@ _POOL1 = {
     "slowfast": [[1, 1, 1], [1, 1, 1]],
     "x3d": [[1, 1, 1]],
 }
-
-
-def round_width(width, multiplier, min_width=1, divisor=1):
-    """(reference models/utils.py:31-44; the port's copy of
-    ``focus_tpu/models/mvit.py``'s)."""
-    if not multiplier:
-        return width
-    width *= multiplier
-    min_width = min_width or divisor
-    width_out = max(min_width, int(width + divisor / 2) // divisor * divisor)
-    if width_out < 0.9 * width:
-        width_out += divisor
-    return int(width_out)
 
 
 class FuseFastToSlow(nn.Module):

@@ -2,11 +2,11 @@
 
     python3 -m focus_tpu_torch.profile_slice \
         [--model flagship|steve|train|learned_v|hr336|hr336_train|steve_train
-                 |slowfast|slowfast_train] \
+                 |slowfast|slowfast_train|mvit|mvit_train] \
         [--batch 8] \
         [--iters 2] \
         [--trace trace.json] [--int8] [--fast-gelu] [--fwd-version 3|4|5|6|7]
-        [--hr]
+        [--hr] [--conv-ops]
 
 Builds ``entry(device="cuda")`` (the flagship eval forward),
 ``train_entry(device="cuda")`` (one flagship train step: forward, backward
@@ -19,7 +19,10 @@ KV-cached rollout + dVAE decode; ``--batch`` videos of 4 frames) or
 of the MOVi-E recipe, batch 16 of two-frame clips) or
 ``slowfast_entry(device="cuda")`` / ``slowfast_train_entry(device="cuda")``
 (``slowfast``: SlowFast 8x8 R50's eval forward at the 256 test crop;
-``slowfast_train``: one SGD step at the 224 train crop; batch 8), warms up,
+``slowfast_train``: one SGD step at the 224 train crop; batch 8) or
+``mvit_entry(device="cuda")`` / ``mvit_train_entry(device="cuda")``
+(``mvit``: MViT-B 16x4's eval forward at the 224 crop, ``--int8`` its W8A8
+form; ``mvit_train``: one AdamW step; batch 8), warms up,
 then traces ``--iters`` calls with ``torch.profiler`` (CPU and CUDA
 activities). Prints one JSON
 line: the wall time per call, the summed device time of the device-side
@@ -29,11 +32,16 @@ overlap, so the sum can exceed it) and its share of the wall time, the
 events with the most device time, and the events that add the most to the
 busy time (``top_exposed``: from the later of an event's start and the end
 of every event before it, to its own end), the device time by kind of
-kernel (``op_groups``: convolutions, cuDNN's layout transforms, reductions
-such as BatchNorm's statistics, copies and casts, pooling, the other
-elementwise kernels such as BatchNorm's normalisation, ReLU and the adds,
-the optimizer's multi-tensor kernels), and the peak device memory
-allocated over the traced calls. STEVE's rollout is one replay of its
+kernel (``op_groups``: convolutions, GEMMs, cuDNN's layout transforms,
+reductions such as BatchNorm's statistics, softmax, LayerNorm, GELU,
+copies and casts, pooling, the other elementwise kernels such as
+BatchNorm's normalisation, ReLU and the adds, the optimizer's multi-tensor
+kernels), and the peak device memory allocated over the traced calls.
+``--conv-ops`` records the operators' input shapes and dtypes and adds
+``conv_ops``: each convolution operator that launched device kernels, by
+its input and weight shapes and dtypes, with its calls, device time and
+kernel names per call and the model's convolution layers of that weight
+shape. STEVE's rollout is one replay of its
 captured CUDA graph (made in the warm-up). ``--trace`` also writes the
 Chrome trace to the path given. The labeled serving variants:
 ``--int8`` (``TPU.INT8_SERVING``: W8A8 dense layers in the flagship, the
@@ -55,10 +63,14 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from torch import nn
+
 from focus_tpu_torch.entry import (
     entry,
     hr_entry,
     hr_train_entry,
+    mvit_entry,
+    mvit_train_entry,
     slowfast_entry,
     slowfast_train_entry,
     steve_entry,
@@ -132,9 +144,12 @@ OP_GROUPS = (
     (r"nchwToNhwc|nhwcToNchw|[Tt]ranspose", "layout transforms"),
     (r"multi_tensor_apply", "optimizer (multi-tensor)"),
     (r"copy|[Cc]ast|convert", "copies and casts"),
+    (r"[Ss]oft[Mm]ax", "softmax"),
+    (r"layer_norm|LayerNorm", "LayerNorm"),
+    (r"[Gg]elu", "GELU"),
     (r"reduce_kernel|[Rr]eduction", "reductions (BatchNorm statistics)"),
-    (r"conv|xmma|cudnn|implicit_gemm|wgrad|dgrad|fprop|cutlass|gemm",
-     "convolutions and GEMMs"),
+    (r"conv|cudnn|implicit_gemm|wgrad|dgrad|fprop", "convolutions"),
+    (r"xmma|cutlass|gemm|_int_mm", "GEMMs"),
     (r"pool", "pooling"),
     (r"elementwise|vectorized", "other elementwise (BatchNorm's "
      "normalisation, ReLU, adds)"),
@@ -153,6 +168,51 @@ def op_groups(rows, iters):
         g["device_ms_per_call"] += us / 1e3 / iters
         g["launches_per_call"] += count / iters
     return groups
+
+
+def _dtypes_by_id(prof):
+    """The recorded input dtypes of each CPU operator of a trace, by its
+    event id (the profiler's own events where its ``FunctionEvent`` does
+    not carry them)."""
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError:
+        return {}
+    return {k.correlation_id(): list(k.dtypes()) for k in events
+            if k.device_type() == torch.autograd.DeviceType.CPU}
+
+
+def conv_ops(prof, iters, model=None):
+    """Each convolution operator of a trace taken with ``record_shapes``
+    that launched device kernels, grouped by its name and its input and
+    weight shapes and dtypes: calls, device ms and launches of each kernel
+    name per call, and ``model``'s Conv2d / Conv3d layers of that weight
+    shape (the layer that ran it), the most device time first."""
+    layers = {}
+    for name, m in (model.named_modules() if model is not None else ()):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+            layers.setdefault(tuple(m.weight.shape), []).append(name)
+    dtypes_of = _dtypes_by_id(prof)
+    groups = {}
+    for e in prof.events():
+        if "convolution" not in e.name or not e.kernels:
+            continue
+        shapes = [list(s) for s in (e.input_shapes or [])[:2]]
+        dtypes = [str(d) for d in (getattr(e, "input_dtypes", None)
+                                   or dtypes_of.get(e.id, []))[:2]]
+        g = groups.setdefault((e.name, str(shapes), str(dtypes)), {
+            "op": e.name, "input_and_weight_shapes": shapes,
+            "input_and_weight_dtypes": dtypes, "calls_per_call": 0.0,
+            "device_ms_per_call": 0.0, "kernels_per_call": {},
+            "layers": layers.get(tuple(shapes[1]), []) if len(shapes) > 1
+            else []})
+        g["calls_per_call"] += 1 / iters
+        for k in e.kernels:
+            g["device_ms_per_call"] += k.duration / 1e3 / iters
+            name = k.name[:120]
+            g["kernels_per_call"][name] = (
+                g["kernels_per_call"].get(name, 0.0) + 1 / iters)
+    return sorted(groups.values(), key=lambda g: -g["device_ms_per_call"])
 
 
 def device_rows(prof):
@@ -200,7 +260,8 @@ def main():
     ap.add_argument("--model",
                     choices=("flagship", "steve", "train", "learned_v",
                              "hr336", "hr336_train", "steve_train",
-                             "slowfast", "slowfast_train"),
+                             "slowfast", "slowfast_train", "mvit",
+                             "mvit_train"),
                     default="flagship")
     ap.add_argument("--batch", type=int, default=None,
                     help="8 (hr336, hr336_train, learned_v --hr: 4; "
@@ -209,7 +270,7 @@ def main():
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     ap.add_argument("--int8", action="store_true",
-                    help="TPU.INT8_SERVING (flagship or steve)")
+                    help="TPU.INT8_SERVING (flagship, steve or mvit)")
     ap.add_argument("--fast-gelu", action="store_true",
                     help="TPU.FAST_GELU (flagship)")
     ap.add_argument("--fwd-version", type=int, choices=trajectory_block.PORTED_FWD_VERSIONS,
@@ -218,6 +279,9 @@ def main():
                          "hr336, hr336_train)")
     ap.add_argument("--hr", action="store_true",
                     help="learned_v at the 336 crop (8 x 21 x 21 patches)")
+    ap.add_argument("--conv-ops", action="store_true",
+                    help="record input shapes and dtypes; report each "
+                         "convolution operator (conv_ops)")
     args = ap.parse_args()
 
     variant = {}
@@ -226,9 +290,9 @@ def main():
     if args.fast_gelu:
         variant["fast_gelu"] = True
     if args.model in ("train", "learned_v", "hr336", "hr336_train",
-                      "steve_train", "slowfast", "slowfast_train"
-                      ) and variant or (
-            args.model == "steve" and args.fast_gelu):
+                      "steve_train", "slowfast", "slowfast_train",
+                      "mvit_train") and variant or (
+            args.model in ("steve", "mvit") and args.fast_gelu):
         ap.error(f"--model {args.model} takes no {sorted(variant)}")
     if args.fwd_version != 4 and args.model not in (
             "flagship", "train", "hr336", "hr336_train"):
@@ -240,6 +304,7 @@ def main():
         args.batch = 4 if args.model.startswith("hr336") or args.hr else 8
         if args.model == "steve_train":
             args.batch = 16
+    model = None
     if args.model == "learned_v":
         model, x = learned_v_stack(device="cuda", batch=args.batch,
                                    hr=args.hr)
@@ -255,13 +320,17 @@ def main():
                 "hr336_train": hr_train_entry,
                 "steve_train": steve_train_entry,
                 "slowfast": slowfast_entry,
-                "slowfast_train": slowfast_train_entry}[args.model]
+                "slowfast_train": slowfast_train_entry,
+                "mvit": mvit_entry,
+                "mvit_train": mvit_train_entry}[args.model]
         fn, inputs = make(device="cuda", batch=args.batch, **variant)
+        model = fn.model
     for _ in range(2):
         fn(*inputs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=args.conv_ops) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
             fn(*inputs)
@@ -286,7 +355,10 @@ def main():
                     "steve_train": "STEVE train step, MOVi-E recipe",
                     "slowfast": "SlowFast 8x8 R50 eval forward, 256 crop",
                     "slowfast_train": "SlowFast 8x8 R50 train step, 224 "
-                                      "crop"}[args.model],
+                                      "crop",
+                    "mvit": "MViT-B 16x4 eval forward, 224 crop",
+                    "mvit_train": "MViT-B 16x4 train step, 224 crop"
+                    }[args.model],
         "variant": variant, "fwd_version": args.fwd_version, "hr": args.hr,
         "batch": args.batch,
         "gpu": smi, "wall_ms_per_call": wall_ms,
@@ -301,6 +373,8 @@ def main():
              "device_ms_per_call": us / 1e3 / args.iters}
             for k, c, us in rows[: args.top]
         ],
+        **({"conv_ops": conv_ops(prof, args.iters, model)}
+           if args.conv_ops else {}),
         "top_exposed": [
             {"name": k[:120], "exposed_device_ms_per_call": us / 1e3 / args.iters}
             for k, us in sorted(exposed.items(), key=lambda kv: -kv[1])[: args.top]

@@ -4,7 +4,8 @@
 of numpy arrays, as ``model.init(...)["params"]`` gives after
 ``jax.device_get``) into the port's ``state_dict``. It keeps its own copy
 of the naming and layout rules of ``focus_tpu/utils/torch_import.py`` for
-the models ported so far (Motionformer/ORViT, STEVE, the ResNet family):
+the models ported so far (Motionformer/ORViT, STEVE, the ResNet family,
+MViT):
 
 - Dense kernel ``[in, out]`` -> ``weight [out, in]``; the STEVE ``Dense``
   wrapper's inner ``linear`` has no torch name;
@@ -26,7 +27,11 @@ the models ported so far (Motionformer/ORViT, STEVE, the ResNet family):
   ``0``/``2``; ``mlp_fc1``/``mlp_fc2`` -> ``mlp.0``/``mlp.2``; ``dict`` ->
   ``dict.dictionary``; the dVAE and BaseCNN stages -> their
   ``nn.Sequential`` slots;
-- ``pre_logits_fc`` -> ``pre_logits.fc``; ``blocks_{i}`` -> ``blocks.{i}``;
+- ``pre_logits_fc`` -> ``pre_logits.fc``; ``blocks_{i}`` -> ``blocks.{i}``,
+  ``orvit_blocks_{i}`` -> ``orvit_blocks.{i}``; ``patch_embed_proj`` ->
+  ``patch_embed.proj``; MViT's ``pool_q/pool`` -> ``pool_q`` and
+  ``pool_q/norm`` -> ``norm_q`` (and k, v; the depthwise kernel
+  ``[kt, kh, kw, 1, C]`` transposed as every Conv3d kernel);
 - a scanned stack ``blocks_{a}_{b}/body/...`` (leading layer axis) is
   unstacked into ``blocks.{a+j}.*``.
 
@@ -50,7 +55,12 @@ import torch
 _SEQ_MLPS = ("patch_to_d", "c_coord_to_feature", "ffn")
 _SCANNED = re.compile(r"^blocks_(\d+)_(\d+)$")
 _RENAMES = {"pre_logits_fc": "pre_logits.fc", "dict": "dict.dictionary",
-            "mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2"}
+            "mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2",
+            "patch_embed_proj": "patch_embed.proj"}
+# the parts of the JAX MViT's AttentionPool modules, conv ``pool`` and
+# LayerNorm ``norm``, sit on the attention module as ``pool_q`` / ``norm_q``
+# (and k, v)
+_ATTENTION_POOLS = ("pool_q", "pool_k", "pool_v")
 # nn.Sequential slots of the dVAE and BaseCNN stages (the gaps are the
 # PixelShuffle slots), keyed by the parent module's name
 _STAGES = {
@@ -90,6 +100,10 @@ def _torch_name(path: Tuple[str, ...]) -> Tuple[str, str]:
             parts.append(_STAGES[parent][m])
         elif m.startswith("blocks_"):
             parts.append("blocks." + m[len("blocks_"):])
+        elif m.startswith("orvit_blocks_"):
+            parts.append("orvit_blocks." + m[len("orvit_blocks_"):])
+        elif parent in _ATTENTION_POOLS and m in ("pool", "norm"):
+            parts[-1] = parent if m == "pool" else "norm_" + parent[-1]
         elif m in ("fc1", "fc2") and parent in _SEQ_MLPS:
             parts.append("0" if m == "fc1" else "2")
         elif m == "conv" and parent in _CONV_BLOCKS:

@@ -385,9 +385,12 @@ def test_kinetics_yaml_builds_and_runs(yaml):
 
 
 def test_builder_refuses_mvit_and_the_missing_card():
-    """PTVMViT and MViT raise naming the MViT slice; the registry holds the
-    family and the PTV aliases; ``build_model(cfg, "cuda")`` raises where
-    CUDA is absent (no move to the CPU)."""
+    """PTVMViT and MViT build (the MViT slice of the port: the registry's
+    one class under both names); the registry holds the family and the PTV
+    aliases; ``build_model(cfg, "cuda")`` raises where CUDA is absent (no
+    move to the CPU)."""
+    from focus_tpu_torch.models.mvit import MViT
+
     cfg = slow_cfg(width=4, crop=32)
     build_model(cfg, device="cpu")
     for name in ("SlowFast", "ResNet", "X3D", "PTVCSN", "PTVR2plus1D",
@@ -395,8 +398,8 @@ def test_builder_refuses_mvit_and_the_missing_card():
         assert name in MODEL_REGISTRY
     for name in ("PTVMViT", "MViT"):
         cfg.MODEL.MODEL_NAME = name
-        with pytest.raises(NotImplementedError, match="MViT slice"):
-            build_model(cfg, device="cpu")
+        cfg.MVIT.EMBED_DIM, cfg.MVIT.DEPTH = 8, 2
+        assert isinstance(build_model(cfg, device="cpu"), MViT)
     if not torch.cuda.is_available():
         cfg.MODEL.MODEL_NAME = "ResNet"
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -48,6 +48,18 @@ from focus_tpu_torch.utils.weights import (
     load_jax_params,
 )
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: these models are small, so one runs
+    them as fast as many, and beside the other test workers many spin
+    against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SYNTH = os.path.join(REPO, "configs", "tests", "steve_synthetic.yaml")
 B, T = 2, 2
@@ -608,9 +620,12 @@ def test_train_state_step_noise_depends_on_step_alone():
 
 
 def test_unported_backbones_raise():
-    """A model the port does not build (MViT, since SlowFast is ported)
-    raises, naming itself."""
+    """A model name the port does not build raises, naming itself; MViT,
+    the last backbone of the JAX package's registry to be ported, builds."""
     cfg = get_cfg()
-    cfg.MODEL.MODEL_NAME = "MViT"
-    with pytest.raises(NotImplementedError, match="MViT"):
+    cfg.MODEL.MODEL_NAME = "NoSuchNet"
+    with pytest.raises(NotImplementedError, match="NoSuchNet"):
         build_model(cfg, "cpu")
+    cfg.MODEL.MODEL_NAME = "MViT"
+    cfg.MVIT.EMBED_DIM, cfg.MVIT.DEPTH = 8, 2
+    assert type(build_model(cfg, "cpu")).__name__ == "MViT"

@@ -32,6 +32,18 @@ from focus_tpu_torch.utils.parser import load_config, parse_args
 from focus_tpu_torch.utils.weights import jax_params_to_state_dict
 from torch_port_trees import jax_cfg_like, make_ek_tree
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread a test: these models are small, so one runs
+    them as fast as many, and beside the other test workers many spin
+    against each other."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MF_YAML = os.path.join(REPO, "configs", "tests", "mf_synthetic.yaml")
 
