@@ -134,7 +134,22 @@ Phases (one JSON line each; any failure exits non-zero):
      CPU: loss, each gradient); ``tools.run_net`` on in-script Kinetics
      splits (2 epochs, validation, the test path from the checkpoint,
      against a direct loop); every MViT yaml built and run at its own
-     width; ORViT at MViT's head dim 96 refused before any launch.
+     width; ORViT at MViT's head dim 96 refused before any launch;
+ 18. the remaining datasets behind the card (host numpy, no hand-written
+     kernel; only the three file readers substituted, ``InScriptReaders``,
+     since the checkout holds no such data files): Kinetics
+     (configs/Kinetics/MVIT_B_16x4_CONV.yaml: 4 videos x 2 repeated
+     augmentations a step, RandAugment, random erasing, mixup), Charades
+     (configs/Charades/SLOWFAST_16x8_R50.yaml: 64 frames, 157 multi-hot
+     classes, precise BN, mAP, 10 x 3 views under max) and ImageNet
+     (configs/ImageNet/MVIT_B_16_CONV.yaml, batch 32) through
+     ``tools.train_net`` then ``tools.test_net`` at full width in bf16:
+     every step's batch, the loop against a direct step loop on the same
+     batches (the first loss bit-equal, losses 1e-3, parameters 1e-4, the
+     update 5e-2 relative L2), validation's stats, every test clip once, the ensembles
+     against a direct loop (1e-3); each loop's clips/s, the step's alone,
+     the wait share, the host's ms per clip of each dataset's
+     ``__getitem__`` without its read, peak memory.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -3917,8 +3932,8 @@ def phase_train_engine(smi, per_call):
 
 
 # STEVE training and its segmentation eval (phase 15): the MOVi-E recipe
-# (configs/movi_e/base.yaml) at its width on synthetic clips (the card's
-# machine has no PIL to read the MOVi-E PNGs), through tools.run_net, then
+# (configs/movi_e/base.yaml) at its width on synthetic clips (the checkout
+# holds no MOVi-E PNGs), through tools.run_net, then
 # the trained model rolled out through kernel 9. The package's log goes to
 # SLOT_TRAIN_LOG, not to stdout.
 SLOT_TRAIN_DIR = os.path.join(REPO, "build", "slot_train")
@@ -4758,10 +4773,13 @@ class KineticsClips:
                 label, np.int32(index), {})
 
 
+@torch.no_grad()
 def conv_direct_test(cfg, checkpoint, meter):
     """The test split's clips through ``EvalForward`` on a model loaded
-    from ``checkpoint``, in the loader's batches (pad rows dropped), summed
-    per video: max |meter's ensembles - these sums|."""
+    from ``checkpoint``, in the loader's batches (the last one short, not
+    padded), ensembled per video as the meter ensembles them (the sum, or
+    the max over views): max |the meter's ensembles - these|. A clip is
+    one tensor or a tuple of pathways."""
     from focus_tpu_torch.datasets.build import build_dataset
     from focus_tpu_torch.entry import EvalForward
     from focus_tpu_torch.models.build import build_model
@@ -4773,19 +4791,25 @@ def conv_direct_test(cfg, checkpoint, meter):
     cu.load_checkpoint(checkpoint, model, cfg)
     forward = EvalForward(model)
     views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
-    sums = np.zeros_like(meter.video_preds)
+    use_max = meter.ensemble_method == "max"
+    scores = np.full_like(meter.video_preds, -np.inf if use_max else 0.0)
     bs = cfg.TEST.BATCH_SIZE
     for start in range(0, len(dataset), bs):
         idx = list(range(start, min(start + bs, len(dataset))))
-        items = [dataset[i] for i in idx]
-        pathways = [torch.from_numpy(np.stack([it[0][p] for it in items]))
-                    .to(DEV) for p in range(len(items[0][0]))]
-        probs = forward(device_normalize(pathways, cfg)).float().cpu()
+        items = [dataset[i][0] for i in idx]
+        if isinstance(items[0], (tuple, list)):
+            video = [torch.from_numpy(np.stack([it[p] for it in items]))
+                     .to(DEV) for p in range(len(items[0]))]
+        else:
+            video = torch.from_numpy(np.stack(items)).to(DEV)
+        probs = forward(device_normalize(video, cfg)).float().cpu().numpy()
         for row, i in enumerate(idx):
-            sums[i // views] += probs[row].numpy()
+            v = i // views
+            scores[v] = (np.maximum(scores[v], probs[row]) if use_max
+                         else scores[v] + probs[row])
     del model, forward
     torch.cuda.empty_cache()
-    return float(np.abs(meter.video_preds - sums).max())
+    return float(np.abs(meter.video_preds - scores).max())
 
 
 def slowfast_loops():
@@ -5487,6 +5511,519 @@ def phase_mvit(smi):
         raise AssertionError(f"MViT phase failed: {failed}")
 
 
+# ---- phase 18: the datasets' host side behind the card ----------------------
+
+DATA_ENGINE_DIR = os.path.join(REPO, "build", "data_engine")
+DATA_ENGINE_LOG = os.path.join(REPO, "build", "data_engine.log")
+DATA_SOURCE_VIDEOS = 4  # Kinetics source videos in memory
+DATA_VIDEO_FRAMES = 300  # each 10 s at 30 fps
+DATA_FRAME = (256, 340)  # Kinetics' and Charades' frames: short side 256
+DATA_IMAGE = (375, 500)  # an ImageNet image
+DATA_BANK_FRAMES = 160  # Charades frames in memory, cycled over the videos
+DATA_CHARADES_FRAMES = 150  # frames of a Charades video
+DATA_IMAGES = 8  # ImageNet images in memory, cycled over the files
+DATA_HOST_ITEMS = 4  # items a dataset's __getitem__ is timed over
+DATA_LOOP_ATOL = 1e-3  # test ensembles against a direct loop (phase 13's)
+# The train loop against the direct step loop on its batches, which the
+# card's nondeterministic backward (max_pool3d's atomic scatter in MViT's
+# pooled skip) keeps from bit-equality; the direct loop run twice shows the
+# same spread. Gates: the first step's loss bit-equal (same weights, same
+# batch), phase 14's TRAIN_LOOP_LOSS_REL and TRAIN_LOOP_PARAM_REL, and the
+# update |loop - direct| / |direct - initial| (relative L2 over the
+# parameters) within this share: one step missed or applied twice moves it
+# by ~1 / steps (1/8, 1/4); MViT on Kinetics reads ~1e-2, the others less.
+DATA_LOOP_UPDATE_REL = 0.05
+DATA_YAMLS = {"kinetics": "Kinetics/MVIT_B_16x4_CONV.yaml",
+              "charades": "Charades/SLOWFAST_16x8_R50.yaml",
+              "imagenet": "ImageNet/MVIT_B_16_CONV.yaml"}
+
+
+def _file_number(path):
+    """The last run of digits in ``path``'s base name (0 if none)."""
+    digits = re.findall(r"\d+", os.path.basename(path))
+    return int(digits[-1]) if digits else 0
+
+
+class InScriptReaders:
+    """The one substitution of phase 18: the datasets' three file readers
+    (cv2 for videos, PIL for frames and images; the checkout holds no
+    Kinetics, Charades or ImageNet files) return in-script uint8 data of
+    the real data's sizes, a function of the file name alone. Kinetics' ``decoder.decode`` places and samples the clip in
+    a 300-frame 256 x 340 video with the port's own ``get_start_end_idx``
+    and ``temporal_sampling``, as its whole-file path does (30 fps);
+    Charades' ``retry_load_images`` returns 256 x 340 frames and ImageNet's
+    ``read_image`` 375 x 500 images. Every read adds its seconds to
+    ``seconds``, so a dataset's host time can be read without its reads.
+    Everything after the read runs as shipped."""
+
+    def __init__(self, seed=0):
+        import threading
+
+        rs = np.random.default_rng(seed)
+        self.videos = rs.integers(
+            0, 256, (DATA_SOURCE_VIDEOS, DATA_VIDEO_FRAMES, *DATA_FRAME, 3),
+            dtype=np.uint8)
+        self.frames = rs.integers(0, 256, (DATA_BANK_FRAMES, *DATA_FRAME, 3),
+                                  dtype=np.uint8)
+        self.images = rs.integers(0, 256, (DATA_IMAGES, *DATA_IMAGE, 3),
+                                  dtype=np.uint8)
+        self.lock = threading.Lock()
+        self.seconds = 0.0
+
+    def _timed(self, read):
+        t0 = time.perf_counter()
+        out = read()
+        with self.lock:
+            self.seconds += time.perf_counter() - t0
+        return out
+
+    def decode(self, path, sampling_rate, num_frames, clip_idx=-1,
+               num_clips=10, target_fps=30, rng=None, selective=True,
+               use_offset=False):
+        from focus_tpu_torch.datasets import decoder
+
+        def read():
+            frames = self.videos[_file_number(path) % DATA_SOURCE_VIDEOS]
+            clip_size = sampling_rate * num_frames / target_fps * 30.0
+            start, end = decoder.get_start_end_idx(
+                len(frames), clip_size, clip_idx, num_clips, rng,
+                use_offset=use_offset)
+            return decoder.temporal_sampling(frames, start, end, num_frames)
+
+        return self._timed(read)
+
+    def load_images(self, paths, retry=10):
+        return self._timed(lambda: [
+            self.frames[(37 * _file_number(os.path.dirname(p))
+                         + _file_number(p)) % DATA_BANK_FRAMES]
+            for p in paths])
+
+    def read_image(self, path):
+        return self._timed(
+            lambda: self.images[_file_number(path) % DATA_IMAGES])
+
+    @contextlib.contextmanager
+    def installed(self):
+        from focus_tpu_torch.datasets import charades, decoder
+        from focus_tpu_torch.datasets import utils as data_utils
+
+        saved = (decoder.decode, data_utils.retry_load_images,
+                 charades.read_image)
+        decoder.decode = self.decode
+        data_utils.retry_load_images = self.load_images
+        charades.read_image = self.read_image
+        try:
+            yield self
+        finally:
+            (decoder.decode, data_utils.retry_load_images,
+             charades.read_image) = saved
+
+
+DATA_SPLITS = {  # videos (images) a split lists
+    "kinetics": {"train": 16, "val": 8, "test": 4},
+    "charades": {"train": 16, "val": 4},  # test reads val
+    "imagenet": {"train": 128, "val": 32},
+}
+
+
+def write_data_lists(root):
+    """The lists the real datasets read, under ``root``: Kinetics'
+    ``{train,val,test}.csv`` (``vid<k>.mp4 <label>``), Charades'
+    ``{train,val}.csv`` frame lists (150 frames a video, each frame's
+    labels 0-2 of the 157 classes, some runs of frames unlabelled) and
+    ImageNet's ``{train,val}/<class>/`` files (8 classes), every file
+    empty: the substituted readers map each name to their data."""
+    rs = np.random.RandomState(11)
+    kin = os.path.join(root, "kinetics")
+    os.makedirs(kin)
+    for split, n in DATA_SPLITS["kinetics"].items():
+        offset = {"train": 0, "val": 100, "test": 200}[split]
+        with open(os.path.join(kin, f"{split}.csv"), "w") as f:
+            f.write("".join(f"vid{offset + k}.mp4 {(offset + k) * 7 % 400}\n"
+                            for k in range(n)))
+    cha = os.path.join(root, "charades")
+    os.makedirs(cha)
+    for split, n in DATA_SPLITS["charades"].items():
+        rows = ["original_vido_id video_id frame_id path labels"]
+        for v in range(n):
+            name = f"{split}{v}"
+            actions = rs.randint(0, 157, 3)
+            for t in range(DATA_CHARADES_FRAMES):
+                labels = sorted(set(actions[:rs.randint(0, 3)])) if (
+                    t // 30) % 2 == 0 else []
+                text = ('"' + ",".join(map(str, labels)) + '"' if labels
+                        else '""')
+                rows.append(f"{name} {v} {t} {name}/{name}-{t + 1:06d}.jpg "
+                            f"{text}")
+        with open(os.path.join(cha, f"{split}.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    img = os.path.join(root, "imagenet")
+    for split, n in DATA_SPLITS["imagenet"].items():
+        for k in range(n):
+            d = os.path.join(img, split, f"n{k % 8:08d}")
+            os.makedirs(d, exist_ok=True)
+            open(os.path.join(d, f"img_{k}.JPEG"), "w").close()
+    return {"kinetics": kin, "charades": cha, "imagenet": img}
+
+
+@contextlib.contextmanager
+def recorded_tools(runs, steps, precise):
+    """``tools.train_net`` and ``tools.test_net`` as shipped, each run
+    ``counted`` (its TrainRun / TestRun, launches, peak GB appended to
+    ``runs``); every train step's batch as the step received it (a copy
+    on the device) appended to ``steps``; precise BN's (batches, seconds)
+    to ``precise``."""
+    from focus_tpu_torch.engine import tester, trainer
+    from focus_tpu_torch.tools import test_net, train_net
+
+    saved = (train_net.train, test_net.test,
+             trainer.make_supervised_train_step,
+             trainer.compute_precise_bn_stats)
+    make, compute = saved[2], saved[3]
+
+    def counted_train(cfg, device="cuda"):
+        runs["train"].append(counted(lambda: trainer.run_train(cfg, device)))
+        return runs["train"][-1][0].state
+
+    def counted_test(cfg, device="cuda"):
+        runs["test"].append(counted(lambda: tester.run_test(cfg, device)))
+        return runs["test"][-1][0].stats
+
+    def recording_make(model, cfg, loss_fn):
+        step = make(model, cfg, loss_fn)
+
+        def recorded_step(state, video, labels, metadata):
+            copy = ([v.clone() for v in video]
+                    if isinstance(video, (tuple, list)) else video.clone())
+            steps.append((copy, labels.clone(), metadata))
+            return step(state, video, labels, metadata)
+
+        return recorded_step
+
+    def counted_precise(*args, **kwargs):
+        t0 = time.perf_counter()
+        batches = compute(*args, **kwargs)
+        precise.append((batches, time.perf_counter() - t0))
+        return batches
+
+    train_net.train, test_net.test = counted_train, counted_test
+    trainer.make_supervised_train_step = recording_make
+    trainer.compute_precise_bn_stats = counted_precise
+    try:
+        yield
+    finally:
+        (train_net.train, test_net.test, trainer.make_supervised_train_step,
+         trainer.compute_precise_bn_stats) = saved
+
+
+def trained_params(model):
+    """The parameters on the host (float32), without the BatchNorm running
+    buffers, which precise BN replaces in the loop alone and which no
+    train-mode step reads."""
+    return {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def direct_data_steps(cfg, steps, steps_per_epoch):
+    """``make_supervised_train_step`` over the batches the loop's steps
+    received, in order, from the model and state the loop starts from
+    (``build_model`` and ``build_supervised_state`` seeded with
+    RNG_SEED; no checkpoint); each step timed alone (synchronized).
+    Returns (losses, host parameters, seconds, clips, the initial host
+    parameters)."""
+    from focus_tpu_torch.engine import trainer
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    model = build_model(cfg, DEV)
+    state = trainer.build_supervised_state(cfg, model, steps_per_epoch)
+    step = trainer.make_supervised_train_step(model, cfg, get_loss_func(cfg))
+    model.train()
+    init = trained_params(model)
+    losses, seconds, clips = [], 0.0, 0
+    for video, labels, metadata in steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = step(state, video, labels, metadata)
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        losses.append(stats["loss"].item())
+        clips += trainer._batch_size(video)
+    params = trained_params(model)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return losses, params, seconds, clips, init
+
+
+def host_ms_per_clip(cfg, dataset_name, split, readers, clips_per_item=1):
+    """``__getitem__`` of the dataset's split on DATA_HOST_ITEMS items, in
+    this thread alone, with the substituted reads' seconds taken out: ms
+    per clip, and the reads' ms per clip beside it."""
+    from focus_tpu_torch.datasets.build import build_dataset
+
+    dataset = build_dataset(dataset_name, cfg, split)
+    read0 = readers.seconds
+    t0 = time.perf_counter()
+    for i in range(DATA_HOST_ITEMS):
+        dataset[i]
+    total = time.perf_counter() - t0
+    read = readers.seconds - read0
+    clips = DATA_HOST_ITEMS * clips_per_item
+    return {"ms_per_clip": 1e3 * (total - read) / clips,
+            "read_ms_per_clip": 1e3 * read / clips, "clips": clips}
+
+
+def data_run(name, overrides, reductions, readers, epochs, steps_per_epoch,
+             clips_per_item=1):
+    """``tools.train_net`` then ``tools.test_net`` on ``DATA_YAMLS[name]``
+    with ``overrides``, through the real dataset, transforms, loader and
+    engine (only the reads substituted), in bf16; then the gates: finite
+    losses, every step's batch of the expected clips, the loop against a
+    direct step loop on the same batches (run twice, the second run
+    showing the step's own spread; gated as DATA_LOOP_UPDATE_REL says),
+    each validation's stats, the test reading the last checkpoint whole,
+    every test clip scored once, the ensembles against a direct loop (DATA_LOOP_ATOL); and the
+    numbers: each loop's clips/s, the step's alone, the wait share, the
+    host's ms per clip of __getitem__ (read excluded), peak memory."""
+    from focus_tpu_torch.config.defaults import assert_and_infer_cfg
+    from focus_tpu_torch.tools import test_net, train_net
+    from focus_tpu_torch.utils import checkpoint as cu
+    from focus_tpu_torch.utils.parser import load_config, parse_args
+
+    out_dir = os.path.join(DATA_ENGINE_DIR, name, "out")
+    argv = ["--device", DEV, "--cfg",
+            os.path.join(REPO, "configs", DATA_YAMLS[name]),
+            "NUM_GPUS", "1", "TRAIN.AUTO_RESUME", "False",
+            "SOLVER.MAX_EPOCH", str(epochs), "TRAIN.EVAL_PERIOD", "1",
+            "OUTPUT_DIR", out_dir] + overrides
+    cfg = assert_and_infer_cfg(load_config(parse_args(argv)))
+    runs, steps, precise = {"train": [], "test": []}, [], []
+    t0 = time.perf_counter()
+    with recorded_tools(runs, steps, precise):
+        train_net.main(argv)
+        test_net.main(argv)
+    tools_s = time.perf_counter() - t0
+    (tr, train_launches, train_peak), = runs["train"]
+    (te, test_launches, test_peak), = runs["test"]
+    problems = []
+    losses = [x for epoch in tr.losses for x in epoch]
+    want_clips = cfg.TRAIN.BATCH_SIZE * clips_per_item
+    batch_clips = [len(labels) for _, labels, _ in steps]
+    if not (tr.steps == epochs * steps_per_epoch == len(steps)
+            and all(math.isfinite(x) for x in losses)
+            and batch_clips == [want_clips] * len(steps)):
+        problems.append(f"train: {tr.steps} steps, losses {losses}, clips a "
+                        f"step {batch_clips}")
+    if any(train_launches.values()) or any(test_launches.values()):
+        problems.append("a hand-written kernel launched: "
+                        f"{train_launches} {test_launches}")
+    pairs = None
+    if clips_per_item > 1:  # each video's views adjacent, one label
+        pairs = all(torch.equal(lab[0::2], lab[1::2])
+                    for _, lab, _ in steps)
+        if not pairs:
+            problems.append("repeated views' labels do not pair")
+    loop_params = trained_params(tr.state.model)
+    state_tensors = len(tr.state.model.state_dict())
+    del tr.state
+    torch.cuda.empty_cache()
+    direct, direct_params, step_s, step_clips, init = direct_data_steps(
+        cfg, steps, steps_per_epoch)
+    # the direct loop once more: the step's own run-to-run spread on the card
+    again, again_params = direct_data_steps(cfg, steps, steps_per_epoch)[:2]
+    multi = bool(cfg.DATA.MULTI_LABEL)
+    first_step_labels = steps[0][1].cpu()
+    del steps
+    torch.cuda.empty_cache()
+
+    def gaps(losses_a, params_a, losses_b, params_b):
+        by_step = [abs(a - b) / abs(b) for a, b in zip(losses_a, losses_b)]
+        return {"bit_equal": losses_a == losses_b and all(
+                    torch.equal(params_a[k], params_b[k]) for k in params_a),
+                "loss_rel_err_by_step": by_step,
+                "max_loss_rel_err": max(by_step),
+                "params_rel_l2": params_rel_l2(params_a, params_b)}
+
+    vs_direct = gaps(losses, loop_params, direct, direct_params)
+    repeat = gaps(again, again_params, direct, direct_params)
+    moved = {k: direct_params[k] - init[k] for k in init}
+    vs_direct["params_moved_rel_l2"] = params_rel_l2(direct_params, init)
+    vs_direct["update_rel_l2"] = params_rel_l2(
+        {k: loop_params[k] - init[k] for k in init}, moved)
+    del init, moved
+    if not (losses[0] == direct[0]
+            and vs_direct["max_loss_rel_err"] <= TRAIN_LOOP_LOSS_REL
+            and vs_direct["params_rel_l2"] <= TRAIN_LOOP_PARAM_REL
+            and vs_direct["update_rel_l2"] <= DATA_LOOP_UPDATE_REL):
+        problems.append(f"loop vs direct loop: {vs_direct}")
+    want_keys = ["epoch", "map"] if multi else ["epoch", "top1_err",
+                                                 "top5_err"]
+    for stats in tr.val_stats:
+        values = [v for k, v in stats.items() if k != "epoch"]
+        if sorted(stats) != want_keys or not all(
+                v is not None and math.isfinite(v) for v in values) or (
+                multi and not 0.0 <= stats["map"] <= 1.0):
+            problems.append(f"val stats {stats}")
+    if len(tr.val_stats) != epochs or [b for b, _ in precise] != (
+            [cfg.BN.NUM_BATCHES_PRECISE] * epochs
+            if cfg.BN.USE_PRECISE_STATS else []):
+        problems.append(f"{len(tr.val_stats)} validations, precise BN "
+                        f"{precise}")
+    meter = te.meter
+    views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    last = cu.get_last_checkpoint(cfg.OUTPUT_DIR)
+    whole = bool(te.checkpoint and te.checkpoint["path"] == last
+                 and not te.checkpoint["missing"]
+                 and len(te.checkpoint["loaded"]) == state_tensors)
+    once = bool((meter.clip_count == views).all()
+                and meter.seen_clips.sum() == te.clips)
+    direct_err = conv_direct_test(cfg, last, meter)
+    if not (whole and once and direct_err <= DATA_LOOP_ATOL):
+        problems.append(f"test: checkpoint whole {whole}, every clip once "
+                        f"{once}, vs direct {direct_err:.3e}")
+    if multi and not 0.0 <= te.stats["map"] <= 1.0:
+        problems.append(f"test map {te.stats['map']}")
+    host = {}
+    for split in ("train", "val", "test"):
+        host[split] = host_ms_per_clip(
+            cfg, cfg.TEST.DATASET if split == "test" else cfg.TRAIN.DATASET,
+            split, readers, clips_per_item if split == "train" else 1)
+    return {
+        "ok": not problems, "problems": problems,
+        "yaml": "configs/" + DATA_YAMLS[name], "reductions": reductions,
+        "train": {"steps": tr.steps, "clips": tr.clips,
+                  "clips_per_step": want_clips, "losses": tr.losses,
+                  "labels_pair_up": pairs,
+                  "first_step_labels_shape": list(first_step_labels.shape),
+                  "val_stats": tr.val_stats, "val_clips": tr.val_clips,
+                  "precise_bn_batches": [b for b, _ in precise],
+                  "precise_bn_seconds": [t for _, t in precise],
+                  "checkpoint_seconds": tr.checkpoint_seconds,
+                  "train_loop_clips_per_sec": tr.clips / tr.seconds,
+                  "step_clips_per_sec": step_clips / step_s,
+                  "wait_share": tr.wait_seconds / tr.seconds,
+                  "wait_share_without_first_batches":
+                      (tr.wait_seconds - tr.first_wait_seconds) / tr.seconds,
+                  "val_clips_per_sec": tr.val_clips / tr.val_seconds,
+                  "loop_seconds": tr.seconds, "step_seconds": step_s,
+                  "peak_memory_gb": train_peak,
+                  "launches": train_launches},
+        "vs_direct_loop": vs_direct, "direct_loop_vs_its_repeat": repeat,
+        "test": {"stats": {k: v if isinstance(v, str) else float(v)
+                           for k, v in te.stats.items()},
+                 "clips": int(te.clips), "batches": int(te.batches),
+                 "views": views, "ensemble": meter.ensemble_method,
+                 "checkpoint": os.path.relpath(last, REPO),
+                 "loaded_whole": whole, "every_clip_counted_once": once,
+                 "vs_direct_loop_max_abs": direct_err,
+                 "atol": DATA_LOOP_ATOL,
+                 "test_loop_clips_per_sec": te.clips / te.seconds,
+                 "wait_share": te.wait_seconds / te.seconds,
+                 "peak_memory_gb": test_peak},
+        "host_ms_per_clip_read_excluded": host,
+        "tools_seconds": tools_s}
+
+
+def data_kinetics(root, readers):
+    """(A) MViT-B 16x4's Kinetics recipe: 2 epochs of 4 steps at 4 videos
+    x NUM_SAMPLE 2 = 8 clips a step (the loader flattens the views),
+    RandAugment (PIL), pixel random erasing at RE_PROB 0.25, the relative
+    scale / aspect crop, mixup / CutMix in the step; validation each epoch; then the test at
+    batch 8 with the yaml's 10 temporal views x 1 crop."""
+    reductions = {
+        "SOLVER.MAX_EPOCH": "2 (200)", "TRAIN.EVAL_PERIOD": "1 (10)",
+        "TRAIN.BATCH_SIZE": "4 (16 over NUM_GPUS 8 is 2): 8 clips a step",
+        "TEST.BATCH_SIZE": "8 (64 over NUM_GPUS 8)",
+        "NUM_GPUS": "1 (8)", "TRAIN.AUTO_RESUME": "False (True)",
+        "data": "16 train, 8 val, 4 test videos (Kinetics-400: 240k / 20k "
+                "/ 20k); the reads substituted (InScriptReaders)"}
+    overrides = ["DATA.PATH_TO_DATA_DIR", root, "TRAIN.BATCH_SIZE", "4",
+                 "TEST.BATCH_SIZE", "8"]
+    return data_run("kinetics", overrides, reductions, readers, epochs=2,
+                    steps_per_epoch=4, clips_per_item=2)
+
+
+def data_charades(root, readers):
+    """(B) SlowFast 16x8 R50's Charades recipe: 64 fast / 16 slow frames,
+    157 classes, multi-hot labels under bce_logit, 2 epochs of 4 steps at
+    batch 4 with precise BN over 2 batches and validation's mAP each
+    epoch; then 10 views x 3 crops under max at batch 8, scored by mAP."""
+    reductions = {
+        "TRAIN.CHECKPOINT_FILE_PATH": '"" (SLOWFAST_8x8_R50.pkl, caffe2): '
+                                      "not in the repository; random init",
+        "SOLVER.MAX_EPOCH": "2 (57)", "TRAIN.EVAL_PERIOD": "1 (6)",
+        "TRAIN.BATCH_SIZE": "4 (16 over NUM_GPUS 8 is 2)",
+        "TEST.BATCH_SIZE": "8 (16)", "BN.NUM_BATCHES_PRECISE": "2 (200)",
+        "NUM_GPUS": "1 (8)", "TRAIN.AUTO_RESUME": "False (True)",
+        "data": f"16 train, 4 val / test videos of {DATA_CHARADES_FRAMES} "
+                "frames (Charades: 7985 / 1863 videos); the reads "
+                "substituted (InScriptReaders)"}
+    overrides = ["DATA.PATH_TO_DATA_DIR", root,
+                 "DATA.PATH_PREFIX", os.path.join(root, "frames"),
+                 "TRAIN.CHECKPOINT_FILE_PATH", "", "TRAIN.BATCH_SIZE", "4",
+                 "TEST.BATCH_SIZE", "8", "BN.NUM_BATCHES_PRECISE", "2"]
+    return data_run("charades", overrides, reductions, readers, epochs=2,
+                    steps_per_epoch=4)
+
+
+def data_imagenet(root, readers):
+    """(C) MViT-B's ImageNet recipe (2-D patches): 4 steps at batch 32
+    with mixup / CutMix, validation, then a test pass over the val
+    images."""
+    reductions = {
+        "SOLVER.MAX_EPOCH": "1 (300)", "TRAIN.EVAL_PERIOD": "1 (10)",
+        "TRAIN.BATCH_SIZE": "32 (256 over NUM_GPUS 8)",
+        "TEST.BATCH_SIZE": "32 (256)", "TEST.ENABLE": "False, but "
+        "tools.test_net tests all the same",
+        "TEST.NUM_ENSEMBLE_VIEWS / NUM_SPATIAL_CROPS": "1 / 1 (10 / 3): "
+        "an image is one centre crop",
+        "NUM_GPUS": "1 (8)", "TRAIN.AUTO_RESUME": "False (True)",
+        "data": "128 train, 32 val images (ImageNet-1k: 1.28M / 50k); the "
+                "reads substituted (InScriptReaders)"}
+    overrides = ["DATA.PATH_TO_DATA_DIR", root, "TRAIN.BATCH_SIZE", "32",
+                 "TEST.BATCH_SIZE", "32", "TEST.NUM_ENSEMBLE_VIEWS", "1",
+                 "TEST.NUM_SPATIAL_CROPS", "1"]
+    return data_run("imagenet", overrides, reductions, readers, epochs=1,
+                    steps_per_epoch=4)
+
+
+def phase_datasets(smi):
+    """Phase 18: the remaining datasets behind the card. Kinetics (MViT-B
+    16x4, repeated augmentation and random erasing), Charades (SlowFast
+    16x8, multi-label, mAP) and ImageNet (MViT-B, 2-D) through
+    ``tools.train_net`` then ``tools.test_net`` as shipped, at full width
+    in bf16, with only the file reads substituted (``InScriptReaders``);
+    the first numbers of the port with real host transforms behind the
+    card. No hand-written kernel runs on these paths, so none is counted
+    (each run's launch counts are checked to be 0)."""
+    from focus_tpu_torch.utils import logging as port_logging
+
+    shutil.rmtree(DATA_ENGINE_DIR, ignore_errors=True)
+    result = {"phase": "datasets", "gpu": smi}
+    t0 = time.perf_counter()
+    try:
+        roots = write_data_lists(DATA_ENGINE_DIR)
+        readers = InScriptReaders()
+        with open(DATA_ENGINE_LOG, "w") as log, contextlib.redirect_stdout(
+                log), readers.installed():
+            result["kinetics_mvit"] = data_kinetics(roots["kinetics"],
+                                                    readers)
+            result["charades_slowfast"] = data_charades(roots["charades"],
+                                                        readers)
+            result["imagenet_mvit"] = data_imagenet(roots["imagenet"],
+                                                    readers)
+    finally:
+        port_logging.close_logging()
+        shutil.rmtree(DATA_ENGINE_DIR, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t0
+    parts = [v for v in result.values() if isinstance(v, dict) and "ok" in v]
+    result["ok"] = len(parts) == 3 and all(v["ok"] for v in parts)
+    emit(result)
+    if not result["ok"]:
+        failed = sorted(k for k, v in result.items()
+                        if isinstance(v, dict) and not v.get("ok", True))
+        raise AssertionError(f"datasets phase failed: {failed}")
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -5621,6 +6158,7 @@ def main():
     slot = phase_slot_train(smi)
     phase_conv_family(smi)
     phase_mvit(smi)
+    phase_datasets(smi)
     ar["launches_slot_train"] = slot["wrapper"]
     ar["device_launches_slot_train"] = slot["device"]
     ar["launches_note"] += (

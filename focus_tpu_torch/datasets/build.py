@@ -4,25 +4,31 @@ from focus_tpu_torch.utils.registry import Registry
 
 DATASET_REGISTRY = Registry("DATASET")
 
+# the reference's pytorchvideo constructors, read by the native datasets
+# (``focus_tpu/datasets/registry_imports.py``)
+PTV_ALIASES = {"Ptvkinetics": "Kinetics", "Ptvssv2": "Ssv2",
+               "Ptvcharades": "Charades"}
+
 
 def build_dataset(dataset_name: str, cfg, split: str):
     """Instantiate the dataset registered under ``dataset_name``
-    capitalised, as the reference looks it up."""
-    import focus_tpu_torch.datasets.epickitchens  # noqa: F401 (registration)
+    capitalised, as the reference looks it up; a pytorchvideo name
+    (``ptvkinetics``, ``ptvssv2``, ``ptvcharades``) builds the dataset it
+    stands for. No module here imports cv2 or PIL: a missing one raises
+    ``ImportError`` at the first read."""
+    import focus_tpu_torch.datasets.charades  # noqa: F401 (registration)
+    import focus_tpu_torch.datasets.cholec80  # noqa: F401
+    import focus_tpu_torch.datasets.epickitchens  # noqa: F401
+    import focus_tpu_torch.datasets.kinetics  # noqa: F401
     import focus_tpu_torch.datasets.movi_e  # noqa: F401
     import focus_tpu_torch.datasets.ssv2  # noqa: F401
     import focus_tpu_torch.datasets.synthetic  # noqa: F401
 
     name = dataset_name.capitalize()
-    if name == "Cholec80":
+    name = PTV_ALIASES.get(name, name)
+    if name == "Ava" and name not in DATASET_REGISTRY:
         raise NotImplementedError(
-            "the Cholec80 dataset is not ported yet (the slot models train "
-            "on movi_e or synthetic_video)"
-        )
-    if name in ("Kinetics", "Charades", "Ava") and name not in DATASET_REGISTRY:
-        raise NotImplementedError(
-            f"the {name} dataset is not ported yet (the port reads ssv2, "
-            "epickitchens, movi_e and the synthetic sets; the models of its "
-            "configs build)"
+            "the Ava dataset is not ported yet (it comes with the detection "
+            "slice of the port)"
         )
     return DATASET_REGISTRY.get(name)(cfg, split)

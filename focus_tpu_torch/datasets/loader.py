@@ -20,7 +20,10 @@ stay uint8: ``ops/preprocess.device_normalize`` runs on the card.
 Samples are any tree of arrays: the classification datasets' (video,
 label, index, metadata), the slot datasets' video alone (train and val)
 or (video, masks) (test). Only the first form marks its pad rows;
-``real_rows(i)`` gives any batch's count of samples that are not repeats.
+``real_rows(i)`` gives any batch's count of clips that are not repeats.
+With ``flatten_samples`` n > 1 (repeated augmentation: each sample holds n
+views stacked on a leading axis) every leaf of a batch [B, n, ...] becomes
+[B * n, ...], so a batch holds B * n clips.
 
 ``wait_seconds`` is the time the consumer of the last epoch spent waiting
 for a batch, ``first_wait_seconds`` the part of it spent on the first.
@@ -126,6 +129,7 @@ class DataLoader:
         device="cuda",
         prefetch: int = 2,
         pad_last: bool = False,
+        flatten_samples: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -136,6 +140,7 @@ class DataLoader:
         self.device = resolve_device(device)
         self.prefetch = prefetch
         self.pad_last = pad_last
+        self.flatten_samples = max(1, flatten_samples)
         self.epoch = 0
         self.wait_seconds = self.first_wait_seconds = 0.0
         self._stream = (torch.cuda.Stream(device=self.device)
@@ -152,10 +157,11 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def real_rows(self, batch_index: int) -> int:
-        """The samples of batch ``batch_index`` of an epoch that are not
+        """The clips of batch ``batch_index`` of an epoch that are not
         ``pad_last`` repeats: its leading rows."""
         n = len(self._epoch_indices())
-        return min(self.batch_size, n - batch_index * self.batch_size)
+        return self.flatten_samples * min(self.batch_size,
+                                          n - batch_index * self.batch_size)
 
     def _epoch_indices(self) -> np.ndarray:
         n = len(self.dataset)
@@ -220,6 +226,9 @@ class DataLoader:
                             break
                         samples = list(pool.map(self.dataset.__getitem__, idx))
                         batch = _mark_padded(_stack_tree(samples), pad_mask)
+                        if self.flatten_samples > 1:
+                            batch = _map_tree(
+                                lambda a: a.reshape(-1, *a.shape[2:]), batch)
                         if not put(self._to_device(batch)):
                             break
             except Exception as e:  # noqa: BLE001
@@ -266,10 +275,14 @@ def _process_count(cfg) -> int:
     return int(cfg.NUM_SHARDS)
 
 
-def construct_loader(cfg, split: str, device="cuda"):
+def construct_loader(cfg, split: str, device="cuda",
+                     is_precise_bn: bool = False):
     """The split's (dataset, batch size, shuffle, drop_last) as the
     reference's table has them; evaluation splits keep full batches by
-    padding the last one."""
+    padding the last one. The train split flattens AUG.NUM_SAMPLE > 1
+    repeated augmentations (``AUG.ENABLE``) into its batches, unless the
+    loader is precise BN's; a dataset that does not stack them
+    (``STACKS_VIEWS``) raises there."""
     assert split in ["train", "val", "test"]
     if _process_count(cfg) > 1:
         raise NotImplementedError(
@@ -286,11 +299,6 @@ def construct_loader(cfg, split: str, device="cuda"):
             "MULTIGRID.SHORT_CYCLE: the multigrid short cycle comes with the "
             "multigrid slice of the port"
         )
-    if split == "train" and cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1:
-        raise NotImplementedError(
-            "AUG.NUM_SAMPLE > 1: repeated augmentation comes with the "
-            "Kinetics slice of the port"
-        )
     if split == "train":
         dataset_name = cfg.TRAIN.DATASET
         batch_size = cfg.TRAIN.BATCH_SIZE
@@ -304,6 +312,16 @@ def construct_loader(cfg, split: str, device="cuda"):
         batch_size = cfg.TEST.BATCH_SIZE
         shuffle, drop_last = False, False
     dataset = build_dataset(dataset_name, cfg, split)
+    flatten = (
+        cfg.AUG.NUM_SAMPLE
+        if split == "train" and cfg.AUG.ENABLE and cfg.AUG.NUM_SAMPLE > 1
+        and not is_precise_bn
+        else 1
+    )
+    if flatten > 1 and not getattr(dataset, "STACKS_VIEWS", False):
+        raise NotImplementedError(
+            f"AUG.NUM_SAMPLE {flatten} on {dataset_name}: only Kinetics "
+            "stacks repeated augmentations")
     return DataLoader(
         dataset,
         batch_size=batch_size,
@@ -314,6 +332,7 @@ def construct_loader(cfg, split: str, device="cuda"):
         device=device,
         prefetch=cfg.TPU.PREFETCH,
         pad_last=not drop_last,
+        flatten_samples=flatten,
     )
 
 

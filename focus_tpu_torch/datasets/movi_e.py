@@ -5,7 +5,7 @@ Episodes are directories of PNG frames cut into clips of
 ``SLOTS.NUM_ITERS`` frames (the reference's episode length, movi_e.py:32).
 A clip is float32 ``[T, H, W, C]`` in [0, 1]; the masks variant adds
 binary masks ``[T, NUM_SEGS, H, W, 1]``. PIL is imported where a file is
-read: the card's machine has none.
+read, so that the package imports without it.
 """
 
 import glob

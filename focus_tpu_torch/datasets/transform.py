@@ -1,11 +1,13 @@
 """Spatial transforms on host numpy video [T, H, W, C] (a copy of
 ``focus_tpu/datasets/transform.py``; box co-transform variants carry boxes
-through the same geometry). Resizes are OpenCV's INTER_LINEAR, imported
-where a frame is resized.
+through the same geometry). Resizes are OpenCV's INTER_LINEAR, through
+cv2 where it imports; without cv2, uint8 frames take the same fixed-point
+arithmetic in numpy and float frames raise.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -68,9 +70,15 @@ def random_crop(frames, size, rng, boxes=None):
 def _resize_frames_linear(frames: np.ndarray, new_h: int, new_w: int):
     """Bilinear resize without antialias — matches the reference's
     ``F.interpolate(mode='bilinear', align_corners=False)`` (cv2's
-    INTER_LINEAR is the same filter; PIL's BILINEAR antialiases)."""
-    import cv2
-
+    INTER_LINEAR is the same filter; PIL's BILINEAR antialiases). Through
+    cv2 where it imports; without it, uint8 frames take ``_resize_uint8``,
+    cv2's fixed-point arithmetic in numpy (bit-equal, ~40x slower), and
+    float frames raise ``ImportError``."""
+    cv2 = _cv2()
+    if cv2 is None and frames.dtype == np.uint8:
+        return _resize_uint8(frames, new_h, new_w)
+    if cv2 is None:
+        raise ImportError("cv2 (opencv-python) resizes float frames")
     out = np.empty(
         (frames.shape[0], new_h, new_w, frames.shape[3]), frames.dtype
     )
@@ -79,6 +87,72 @@ def _resize_frames_linear(frames: np.ndarray, new_h: int, new_w: int):
             frames[t], (new_w, new_h), interpolation=cv2.INTER_LINEAR
         ).reshape(new_h, new_w, frames.shape[3])
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _cv2():
+    """The cv2 module, or None where it does not import (looked up once)."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+_COEF_SCALE = 2048  # cv2's INTER_RESIZE_COEF_SCALE (11 fraction bits)
+
+
+def _linear_taps(n_in: int, n_out: int, clamp: bool):
+    """Source indices and fixed-point weights of one axis, as cv2 computes
+    them: the source coordinate in float32, its floor and fraction, the
+    weights rounded to 1/2048. Along x (``clamp``) a tap past either border
+    takes the border pixel at full weight; along y only the row indices
+    are clipped."""
+    d = np.arange(n_out, dtype=np.float64)
+    f = ((d + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp:
+        low, high = s < 0, s + 1 >= n_in
+        f[low | high] = 0.0
+        s[low] = 0
+        s[high] = n_in - 1
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_SCALE))
+    w1 = np.rint(f * np.float32(_COEF_SCALE))
+    return (np.clip(s, 0, n_in - 1), np.clip(s + 1, 0, n_in - 1),
+            w0.astype(np.int32), w1.astype(np.int32))
+
+
+def _resize_uint8(frames: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """``cv2.resize(..., INTER_LINEAR)`` of uint8 [T, H, W, C] frames, bit
+    for bit, without cv2: the horizontal pass sums pixel x weight in
+    integers over the source rows that some output row reads, the vertical
+    pass is cv2's vector form,
+    ``((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16) + 2) >> 2``."""
+    t, h, w, c = frames.shape
+    x0, x1, a0, a1 = _linear_taps(w, new_w, clamp=True)
+    y0, y1, b0, b1 = _linear_taps(h, new_h, clamp=False)
+    need = np.unique(np.concatenate([y0, y1]))
+    flat = frames[:, need].reshape(t, len(need), w * c)
+    lanes = np.arange(c)
+    rows = np.take(flat, (x0[:, None] * c + lanes).ravel(), axis=2).astype(
+        np.int32)
+    rows *= np.repeat(a0, c)
+    right = np.take(flat, (x1[:, None] * c + lanes).ravel(), axis=2).astype(
+        np.int32)
+    right *= np.repeat(a1, c)
+    rows += right
+    rows >>= 4
+    out = np.take(rows, np.searchsorted(need, y0), axis=1)
+    out *= b0[:, None]
+    out >>= 16
+    below = np.take(rows, np.searchsorted(need, y1), axis=1)
+    below *= b1[:, None]
+    below >>= 16
+    out += below
+    out += 2
+    out >>= 2
+    return out.astype(np.uint8).reshape(t, new_h, new_w, c)
 
 
 def uniform_crop(frames, size, spatial_idx, boxes=None, scale_size=None):

@@ -6,7 +6,11 @@ video by the test meter (sum or max): ``TestMeter``, or ``EPICTestMeter``
 where the model has EPIC-Kitchens' verb and noun heads. The model builds
 those heads for ``TRAIN.DATASET`` epickitchens, and the meter follows the
 model; the JAX package keys the meter on ``TEST.DATASET``, which names the
-same dataset in every config of the repo. One process drives one device.
+same dataset in every config of the repo. Multi-label data
+(``DATA.MULTI_LABEL``, Charades: multi-hot labels, ``MODEL.HEAD_ACT
+sigmoid``) is ensembled the same way (``DATA.ENSEMBLE_METHOD max`` in its
+yamls) and scored by the mean average precision. One process drives one
+device.
 
 ``test`` returns the meter's stats, as the JAX package's does;
 ``run_test`` also returns the meter, the checkpoint report and the loop's

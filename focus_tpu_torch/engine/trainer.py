@@ -10,6 +10,10 @@ returns the loss and the top-1 / top-5 errors as device tensors: nothing in
 it waits for the device. EPIC-Kitchens (``TRAIN.DATASET: epickitchens``)
 takes a dict of verb and noun labels, trains under ``EK_loss`` alone and
 without mixup (the JAX rule), and its stats are the loss alone.
+Multi-label data (``DATA.MULTI_LABEL``, Charades) takes multi-hot [B, C]
+labels (``bce_logit``) and no top-k; its validation reports the mean
+average precision ``map``. Repeated augmentation (``AUG.NUM_SAMPLE``)
+reaches the step already flattened by the loader: B x NUM_SAMPLE clips.
 
 ``train`` runs the epochs: the shuffled train split, a checkpoint every
 ``TRAIN.CHECKPOINT_PERIOD`` epochs, validation every ``TRAIN.EVAL_PERIOD``
@@ -420,11 +424,14 @@ def _host(x):
 
 
 def val_stats(val_meter) -> dict:
-    """The val meter's means over the split: top-1 / top-5 errors, or
-    EPIC-Kitchens' verb, noun and action accuracies."""
+    """The val meter's means over the split: top-1 / top-5 errors,
+    EPIC-Kitchens' verb, noun and action accuracies, or for multi-label
+    data the mean average precision."""
     n = max(val_meter.num_samples, 1)
     if isinstance(val_meter, EPICValMeter):
         return {k: v / n for k, v in val_meter.totals.items()}
+    if val_meter.multi_label:
+        return {"map": val_meter.map}
     return {"top1_err": val_meter.num_top1_mis / n,
             "top5_err": val_meter.num_top5_mis / n}
 
@@ -433,8 +440,11 @@ def val_stats(val_meter) -> dict:
 def eval_epoch(val_loader, forward, val_meter, cur_epoch, cfg, writer=None):
     """Validation (``eval_epoch``'s non-detection path): ``forward(video,
     metadata)`` on every batch; the loader's pad rows (index -1) are
-    dropped on the host, so each val clip counts once. Returns the clips
-    counted."""
+    dropped on the host, so each val clip counts once. Multi-label data
+    (``DATA.MULTI_LABEL``) keeps the probabilities and multi-hot labels for
+    the meter's mean average precision and takes no top-k errors (the JAX
+    package's ``eval_epoch`` takes them, and raises on such labels).
+    Returns the clips counted."""
     is_ek = isinstance(val_meter, EPICValMeter)
     val_meter.reset()
     clips = 0
@@ -468,8 +478,9 @@ def eval_epoch(val_loader, forward, val_meter, cur_epoch, cfg, writer=None):
                 logits_h, labels_h = logits_h[valid], labels_h[valid]
             if logits_h.shape[0] == 0:
                 continue
-            errs = metrics.topk_errors(logits_h, labels_h, (1, 5))
-            val_meter.update_stats(errs[0], errs[1], logits_h.shape[0])
+            if not val_meter.multi_label:  # multi-hot labels: mAP at the end
+                errs = metrics.topk_errors(logits_h, labels_h, (1, 5))
+                val_meter.update_stats(errs[0], errs[1], logits_h.shape[0])
             val_meter.update_predictions(logits_h, labels_h)
             clips += logits_h.shape[0]
         val_meter.log_iter_stats(cur_epoch, cur_iter)
@@ -564,7 +575,8 @@ def _train_epochs(cfg, run, train_loader, val_loader, val_meter, train_step,
             run.first_wait_seconds += train_loader.first_wait_seconds
         run.losses.append(losses)
         run.steps += len(losses)
-        run.clips += len(losses) * cfg.TRAIN.BATCH_SIZE
+        run.clips += len(losses) * (train_loader.batch_size
+                                    * train_loader.flatten_samples)
         epoch_timer.epoch_toc()
         logger.info(
             f"Epoch {cur_epoch} takes {epoch_timer.last_epoch_time():.2f}s."

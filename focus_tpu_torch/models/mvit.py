@@ -457,6 +457,10 @@ class MViT(nn.Module):
                 bboxes=None):
         if isinstance(x, (list, tuple)):
             (x,) = x
+        if self.use_2d and x.ndim == 4:
+            # an image batch [B, H, W, C] (the ImageNet dataset's) is one
+            # frame; the JAX model fails on it (its stem reads H as time)
+            x = x[:, None]
         metadata = metadata or {}
         tokens, thw = self.tokenize(x)
         for i, blk in enumerate(self.blocks):

@@ -209,10 +209,17 @@ class TrainMeter:
 
 
 class ValMeter:
-    """(reference meters.py:616-759)"""
+    """(reference meters.py:616-759). Under ``DATA.MULTI_LABEL`` the epoch
+    is scored by the mean average precision of the kept probabilities and
+    multi-hot labels (``map``, and the best so far ``max_map``) instead of
+    top-k errors, as the reference's val meter and the JAX test meter score
+    such data."""
 
     def __init__(self, max_iter: int, cfg):
         self.cfg = cfg
+        self.multi_label = bool(cfg.DATA.MULTI_LABEL)
+        self.map = None
+        self.max_map = 0.0
         self.max_iter = max_iter
         self.iter_timer = Timer()
         self.mb_top1_err = ScalarMeter(cfg.LOG_PERIOD)
@@ -233,6 +240,7 @@ class ValMeter:
         self.num_samples = 0
         self.all_preds = []
         self.all_labels = []
+        self.map = None
 
     def iter_tic(self):
         self.iter_timer.reset()
@@ -254,23 +262,29 @@ class ValMeter:
     def log_iter_stats(self, cur_epoch: int, cur_iter: int):
         if (cur_iter + 1) % self.cfg.LOG_PERIOD != 0:
             return
-        logging.log_json_stats(
-            {
-                "_type": "val_iter",
-                "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}",
-                "iter": f"{cur_iter + 1}/{self.max_iter}",
-                "time_diff": self.iter_timer.seconds(),
-                "top1_err": self.mb_top1_err.get_win_median(),
-                "top5_err": self.mb_top5_err.get_win_median(),
-            }
-        )
+        stats = {
+            "_type": "val_iter",
+            "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}",
+            "iter": f"{cur_iter + 1}/{self.max_iter}",
+            "time_diff": self.iter_timer.seconds(),
+        }
+        if not self.multi_label:
+            stats["top1_err"] = self.mb_top1_err.get_win_median()
+            stats["top5_err"] = self.mb_top5_err.get_win_median()
+        logging.log_json_stats(stats)
 
     def log_epoch_stats(self, cur_epoch: int):
         stats = {
             "_type": "val_epoch",
             "epoch": f"{cur_epoch + 1}/{self.cfg.SOLVER.MAX_EPOCH}",
         }
-        if self.num_samples > 0:
+        if self.multi_label:
+            if self.all_preds:
+                self.map = metrics.mean_ap(np.concatenate(self.all_preds),
+                                           np.concatenate(self.all_labels))
+                self.max_map = max(self.max_map, self.map)
+                stats.update({"map": self.map, "max_map": self.max_map})
+        elif self.num_samples > 0:
             top1 = self.num_top1_mis / self.num_samples
             top5 = self.num_top5_mis / self.num_samples
             self.min_top1_err = min(self.min_top1_err, top1)
@@ -411,9 +425,10 @@ class EPICTestMeter:
 
 
 class TestMeter:
-    """Multi-view ensemble meter: sums or maxes per-view softmax scores
-    into per-video predictions. Multi-label data (mean average precision,
-    Charades) is not ported yet and raises."""
+    """Multi-view ensemble meter: sums or maxes per-view probabilities into
+    per-video predictions, scored by top-1 / top-5 accuracy, or for
+    multi-label data (Charades: multi-hot labels [V, C], the sigmoid head)
+    by the mean average precision ``map``."""
 
     def __init__(
         self,
@@ -425,18 +440,15 @@ class TestMeter:
         ensemble_method: str = "sum",
     ):
         assert ensemble_method in ["sum", "max"]
-        if multi_label:
-            raise NotImplementedError(
-                "DATA.MULTI_LABEL: the multi-label test meter (mean average "
-                "precision) comes with the Charades slice of the port"
-            )
         self.num_clips = num_clips
         self.overall_iters = overall_iters
         self.multi_label = multi_label
         self.ensemble_method = ensemble_method
         self.iter_timer = Timer()
         self.video_preds = np.zeros((num_videos, num_cls), np.float64)
-        self.video_labels = np.zeros((num_videos,), np.int64)
+        self.video_labels = np.zeros(
+            (num_videos, num_cls) if multi_label else (num_videos,), np.int64
+        )
         self.clip_count = np.zeros(num_videos, np.int64)
         self.seen_clips = np.zeros(num_videos * num_clips, bool)
         self.stats = {}
@@ -465,7 +477,7 @@ class TestMeter:
                 continue
             self.seen_clips[cid] = True
             vid_id = cid // self.num_clips
-            if self.clip_count[vid_id] > 0:
+            if self.clip_count[vid_id] > 0 and not self.multi_label:
                 assert self.video_labels[vid_id] == labels[i]
             self.video_labels[vid_id] = labels[i]
             if self.ensemble_method == "sum":
@@ -497,13 +509,16 @@ class TestMeter:
                 )
             )
         stats = {"split": "test_final"}
-        num_topks = metrics.topks_correct(
-            self.video_preds, self.video_labels, ks
-        )
-        for k, correct in zip(ks, num_topks):
-            stats[f"top{k}_acc"] = "{:.2f}".format(
-                correct / self.video_preds.shape[0] * 100.0
+        if self.multi_label:
+            stats["map"] = metrics.mean_ap(self.video_preds, self.video_labels)
+        else:
+            num_topks = metrics.topks_correct(
+                self.video_preds, self.video_labels, ks
             )
+            for k, correct in zip(ks, num_topks):
+                stats[f"top{k}_acc"] = "{:.2f}".format(
+                    correct / self.video_preds.shape[0] * 100.0
+                )
         self.stats = stats
         logging.log_json_stats(stats)
         return stats

@@ -1,7 +1,8 @@
 """Metrics (counterpart of ``focus_tpu/utils/metrics.py``): top-k correct
 counts, errors and accuracies, the joint verb + noun accuracy of
-EPIC-Kitchens, and the slot models' segmentation scores (the adjusted Rand
-index and the mean best overlap). Host numpy."""
+EPIC-Kitchens, the multi-label mean average precision (Charades), and the
+slot models' segmentation scores (the adjusted Rand index and the mean
+best overlap). Host numpy."""
 
 from __future__ import annotations
 
@@ -41,6 +42,37 @@ def multitask_topk_accuracies(preds, labels, ks):
         joint = correct if joint is None else (joint & correct)
     num = joint.shape[0]
     return [float(joint[:, :k].any(axis=1).sum()) / num * 100.0 for k in ks]
+
+
+def average_precision(scores, positive):
+    """Average precision of one class: the precision at each distinct
+    score (tied scores form one threshold), from the highest down,
+    weighted by the recall it adds; scikit-learn's
+    ``average_precision_score`` of one column."""
+    scores = np.asarray(scores, np.float64)
+    positive = np.asarray(positive) > 0
+    order = np.argsort(-scores, kind="mergesort")
+    scores, positive = scores[order], positive[order]
+    # the last row of each run of equal scores closes a threshold
+    last = np.r_[np.diff(scores) != 0, True]
+    tps = np.cumsum(positive)[last]
+    seen = np.arange(1, len(scores) + 1)[last]
+    precision = tps / seen
+    recall = tps / tps[-1]
+    return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
+
+
+def mean_ap(preds, labels):
+    """Mean average precision over the classes of multi-hot ``labels``
+    [N, C] that have a positive (the others are dropped), of the scores
+    ``preds`` [N, C]; 0.0 where no class has one."""
+    preds = np.asarray(preds)
+    labels = np.asarray(labels)
+    keep = np.flatnonzero(labels.sum(axis=0) > 0)
+    if keep.size == 0:
+        return 0.0
+    return float(np.mean([average_precision(preds[:, c], labels[:, c])
+                          for c in keep]))
 
 
 # ---- segmentation --------------------------------------------------------

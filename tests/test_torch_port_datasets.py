@@ -434,6 +434,35 @@ def test_construct_loader_raises_on_unported_options(key, value, match):
         loader.construct_loader(cfg, "train", device="cpu")
 
 
+class StackedViews(DictDataset):
+    """Samples of two views stacked on a leading axis (repeated
+    augmentation): [2, T, H, W, C] frames, two labels, two indices."""
+
+    def __getitem__(self, i):
+        video, labels, index, _ = super().__getitem__(i)
+        return (np.stack([video, 255 - video]),
+                np.full((2,), labels["verb"], np.int32),
+                np.full((2,), index, np.int32), {})
+
+
+def test_loader_flattens_stacked_views_as_jax():
+    """``flatten_samples`` 2 (AUG.NUM_SAMPLE 2 on a dataset that stacks
+    its views, as Kinetics does): every leaf [B, 2, ...] becomes
+    [B * 2, ...], each sample's views adjacent, bit-equal to JAX's loader;
+    ``real_rows`` counts clips."""
+    port = loader.DataLoader(StackedViews(), 4, True, True, num_workers=2,
+                             seed=3, device="cpu", flatten_samples=2)
+    ref = jax_loader.DataLoader(StackedViews(), 4, True, True, num_workers=2,
+                                seed=3, sharding=None, flatten_samples=2)
+    got, want = list(port), list(ref)
+    assert len(got) == len(want) == 2
+    assert_same(got, want)
+    video, labels, index, meta = got[0]
+    assert video.shape == (8, 2, 4, 4, 3) and labels.shape == (8,)
+    assert index[0::2].tolist() == index[1::2].tolist() and meta == {}
+    assert port.real_rows(0) == 8
+
+
 def test_construct_loader_split_table():
     cfg = get_cfg()
     cfg.TRAIN.DATASET = cfg.TEST.DATASET = "synthetic_classification"

@@ -82,8 +82,12 @@ def test_test_meter_label_assert_and_multi_label():
     m.update_stats(np.ones((1, 3)), np.array([1]), np.array([0]))
     with pytest.raises(AssertionError):
         m.update_stats(np.ones((1, 3)), np.array([2]), np.array([1]))
-    with pytest.raises(NotImplementedError, match="MULTI_LABEL"):
-        meters.TestMeter(1, 2, 3, 1, multi_label=True)
+    # multi-label: [V, C] labels, and no check that the views' labels agree
+    multi = meters.TestMeter(1, 2, 3, 1, multi_label=True)
+    multi.update_stats(np.ones((1, 3)), np.array([[1, 0, 1]]), np.array([0]))
+    multi.update_stats(np.ones((1, 3)), np.array([[0, 1, 0]]), np.array([1]))
+    np.testing.assert_array_equal(multi.video_labels, [[0, 1, 0]])
+    assert sorted(multi.finalize_metrics()) == ["map", "split"]
 
 
 @flax.struct.dataclass
@@ -445,7 +449,7 @@ def test_cli_runs_the_test_path_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("TEST.DATASET", "cholec80", "Cholec80"),
+    ("TPU.MOE.NUM_EXPERTS", 2, "MoE"),
     ("DEMO.ENABLE", True, "DEMO"),
     ("TENSORBOARD.MODEL_VIS.ENABLE", True, "MODEL_VIS"),
     ("DETECTION.ENABLE", True, "AVA"),

@@ -4,6 +4,8 @@ the MOVi-E export is (``frames/<episode>/NNNNNNNN_image.png`` and
 ``masks/<episode>/NNNNNNNN_mask_SS.png``): bit-equal clips, masks and
 batches."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -112,11 +114,21 @@ def test_loader_batches_bit_equal(movi_tree, split):
                     else len(gb) * got.batch_size)
 
 
-def test_dataset_registry(movi_tree):
-    """Both datasets are registered; Cholec80 raises, naming itself."""
+def test_dataset_registry(movi_tree, tmp_path):
+    """Both datasets are registered, and Cholec80 (the slot models' other
+    dataset) builds from its pickle of frame records."""
+    import pickle
+
+    from focus_tpu_torch.datasets.cholec80 import Cholec80
+
     cfg = configure(get_cfg(), movi_tree)
     assert isinstance(build_dataset("movi_e", cfg, "val"), tmovi.Movi_e)
     assert isinstance(build_dataset("movi_e_with_masks", cfg, "test"),
                       tmovi.Movi_e_with_masks)
-    with pytest.raises(NotImplementedError, match="Cholec80"):
-        build_dataset("cholec80", cfg, "train")
+    cfg.CHOLEC.PATH = str(tmp_path)
+    os.makedirs(tmp_path / "train")
+    with open(tmp_path / "train" / cfg.CHOLEC.TRAIN_PKL, "wb") as f:
+        pickle.dump({"video01": [{"Frame_id": 0, "Phase_gt": 3},
+                                 {"Frame_id": 25, "Phase_gt": 4}]}, f)
+    cholec = build_dataset("cholec80", cfg, "train")
+    assert isinstance(cholec, Cholec80) and len(cholec) == 2
