@@ -150,6 +150,26 @@ Phases (one JSON line each; any failure exits non-zero):
      against a direct loop (1e-3); each loop's clips/s, the step's alone,
      the wait share, the host's ms per clip of each dataset's
      ``__getitem__`` without its read, peak memory.
+ 19. the Switch-MoE Motionformer (configs/TPU/SSv2_MF_224_16x4_pp_moe.yaml
+     with TPU.MESH.PIPE 1 TPU.MESH.EXPERT 1 NUM_GPUS 1: every expert on the
+     card; D=768, 12 blocks of 4 top-1 experts at capacity 1.25, bf16)
+     through kernels 1, 2 and 7: its eval forward and AdamW step at batch 8
+     (clips/s, peak memory, tokens dropped and expert loads by layer, the
+     busy share, one MoE layer's routing / dispatch and combine / expert
+     products split; 12 + 1 launches a forward, 12 + 12 + 1 a step); at
+     batch 2 in float32 the card against the CPU (routing of every layer,
+     loss, moe_aux, gradients); ``tools.train_net`` and ``tools.test_net``
+     on in-script SSv2 splits against a direct loop; the yaml's own mesh
+     refused before any launch;
+ 20. AVA detection (no hand-written kernel; only the frame reads
+     substituted, ``AvaFrames``): SlowFast 32x2 R50
+     (configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml, 80 classes, batch 8, bf16)
+     through ``tools.train_net`` then ``tools.test_net`` over an in-script
+     AVA tree (frame mAP under the official protocol, every test keyframe
+     once, the pad rows dropped, the loop against a direct loop, clips/s,
+     the wait share, the host's ms per clip); MViT-B 16x4's AVA forward and
+     step; the Caffe2 RoIAlign (``DETECTION.ALIGNED False``) against
+     float32.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -6024,6 +6044,873 @@ def phase_datasets(smi):
         raise AssertionError(f"datasets phase failed: {failed}")
 
 
+# ---- phase 19: the Switch-MoE Motionformer ----------------------------------
+
+MOE_ENGINE_DIR = os.path.join(REPO, "build", "moe_engine")
+MOE_ENGINE_LOG = os.path.join(REPO, "build", "moe_engine.log")
+MOE_YAML_REL = "configs/TPU/SSv2_MF_224_16x4_pp_moe.yaml"
+MOE_BATCH = 8  # the flagship's; the yaml's 48 is over 8 TPU chips
+MOE_EVAL_ITERS = 10
+MOE_TRAIN_WARMUP, MOE_TRAIN_ITERS = 2, 5
+# the bf16 model on the kernels against the same model on the plain path:
+# a token routed to another expert by a last-bit difference changes its MLP
+# output wholesale, so the probabilities are held as the serving variants'
+MOE_PROB_ATOL = VARIANT_PROB_ATOL
+MOE_CMP_BATCH = 2
+MOE_LOSS_REL = 1e-4
+MOE_GRAD_REL_L2 = 1e-3
+MOE_ROUTE_GAP = 1e-3  # a routing flip is a tie only within this gap
+MOE_LOOP_STEPS = 4  # steps an epoch, 2 epochs
+MOE_TRAIN_CLIPS, MOE_VAL_CLIPS = MOE_LOOP_STEPS * MOE_BATCH, 12
+
+
+@contextlib.contextmanager
+def recorded_routes(records):
+    """Every ``MoEMlp.route`` call's (probabilities, expert, gate,
+    position, cap), detached, appended to ``records`` in call order (the
+    blocks' order in a forward); the method restored after."""
+    from focus_tpu_torch.models import moe
+
+    route = moe.MoEMlp.route
+
+    def recording(self, x):
+        out = route(self, x)
+        records.append(tuple(o.detach() if torch.is_tensor(o) else o
+                             for o in out))
+        return out
+
+    moe.MoEMlp.route = recording
+    try:
+        yield
+    finally:
+        moe.MoEMlp.route = route
+
+
+def route_stats(records):
+    """Each layer's share of tokens dropped at capacity and each expert's
+    load (its share of the tokens routed to it, drops included)."""
+    dropped, load = [], []
+    for _, idx, _, pos, cap in records:
+        e = records[0][0].shape[-1]
+        dropped.append((pos >= cap).float().mean().item())
+        load.append((torch.bincount(idx.reshape(-1), minlength=e).float()
+                     / idx.numel()).tolist())
+    return {"dropped_share_by_layer": dropped, "expert_load_by_layer": load,
+            "cap": records[0][4] if records else None}
+
+
+def layer_kernels(fn, iters=3, top=12):
+    """The ``top`` device kernels of ``fn`` by time under torch.profiler:
+    ms and launches a call, the most time first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from focus_tpu_torch.profile_slice import device_rows
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {name[:90]: {"device_ms_per_call": us / 1e3 / iters,
+                        "launches_per_call": count / iters}
+            for name, count, us in device_rows(prof)[:top]}
+
+
+def moe_layer_split(model, backward=False):
+    """One MoE layer (block 0's) on a LayerNorm-scaled input of the main
+    path's shape [8, 1569, 768] bf16: ms by CUDA events of the whole layer,
+    the routing (``route``) and the expert products (``experts`` on
+    [4, 8 * cap, 768]) alone, the dispatch and combine as the rest; and the
+    layer's device kernels by name. ``backward``: each part forward and
+    backward."""
+    mlp = model.blocks[0].mlp
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    x = torch.randn(MOE_BATCH, 1569, model.embed_dim, generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    cap = mlp.route(x)[4]
+    xe = torch.randn(mlp.num_experts, MOE_BATCH * cap, model.embed_dim,
+                     generator=gen, device=DEV).to(torch.bfloat16)
+    if backward:
+        x.requires_grad_()
+        xe.requires_grad_()
+
+    def run(f):
+        def call():
+            out = f()
+            if backward:
+                out = out[0] if isinstance(out, tuple) else out
+                out.float().sum().backward()
+        return call
+
+    parts = {"layer": run(lambda: mlp(x)),
+             "routing": run(lambda: mlp.route(x)[0]),
+             "expert_products": run(lambda: mlp.experts(xe))}
+    ms = {k: time_ms(f, warmup=2, iters=10) for k, f in parts.items()}
+    ms["dispatch_and_combine"] = (ms["layer"] - ms["routing"]
+                                  - ms["expert_products"])
+    return {"input": [MOE_BATCH, 1569, model.embed_dim], "cap": cap,
+            "backward": backward, "ms": ms,
+            "kernels": layer_kernels(parts["layer"])}
+
+
+def moe_eval():
+    """(a) ``moe_entry(batch=8)``: the eval forward in bf16 through kernels
+    1 and 2, ms by CUDA events (median), clips/s, peak memory, the tokens
+    dropped at capacity and each expert's load by layer, the busy share and
+    the device time by kind under torch.profiler, one MoE layer's split;
+    12 kernel-1 and 1 kernel-2 launches a forward (over SLICE_ITERS, the
+    counts reset just before); the probabilities against the same model on
+    the plain path."""
+    from focus_tpu_torch.entry import moe_entry
+    from focus_tpu_torch.ops import patch_embed as pe
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    fn, (video,) = moe_entry(device=DEV, batch=MOE_BATCH)
+    model = fn.model
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: fn(video), warmup=2, iters=MOE_EVAL_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(SLICE_ITERS):
+        fn(video)
+    torch.cuda.synchronize()
+    launches = {"trajectory_block": tb.LAUNCHES, "patch_embed": pe.LAUNCHES,
+                "trajectory_block_bwd": tb.BWD_LAUNCHES}
+    records = []
+    with recorded_routes(records):
+        probs = fn(video)
+    model.use_kernels = False
+    plain_records = []
+    with recorded_routes(plain_records):
+        plain = fn(video)
+    model.use_kernels = True
+    agree = [float((a[1] == b[1]).float().mean())
+             for a, b in zip(records, plain_records)]
+    result = {
+        "model": f"Switch-MoE Motionformer ({MOE_YAML_REL} with "
+                 "TPU.MESH.PIPE 1 TPU.MESH.EXPERT 1 NUM_GPUS 1: D=768, 12 "
+                 "blocks, 4 experts, capacity factor 1.25), bf16, the JAX "
+                 "package's initialisers (seed 0)",
+        "clip": list(video.shape), "batch": MOE_BATCH,
+        "ms": ms, "clips_per_sec": MOE_BATCH / (ms / 1e3),
+        "peak_memory_gb": peak, "launches": launches,
+        "routes": route_stats(records),
+        "profile": profiled_share(lambda: fn(video)),
+        "layer_split": moe_layer_split(model),
+        "probs_shape": list(probs.shape),
+        "finite": bool(torch.isfinite(probs).all()),
+        "sums_to_one": (probs.float().sum(-1) - 1).abs().max().item(),
+        "vs_plain_path": {"max_abs_err": (probs - plain).abs().max().item(),
+                          "atol": MOE_PROB_ATOL,
+                          "routing_agreement_by_layer": agree}}
+    result["ok"] = (result["finite"] and result["sums_to_one"] < 1e-3
+                    and list(probs.shape) == [MOE_BATCH, 174]
+                    and len(records) == 12
+                    and launches == {"trajectory_block": 12 * SLICE_ITERS,
+                                     "patch_embed": SLICE_ITERS,
+                                     "trajectory_block_bwd": 0}
+                    and result["vs_plain_path"]["max_abs_err"]
+                    <= MOE_PROB_ATOL)
+    del fn, model, video
+    torch.cuda.empty_cache()
+    return result
+
+
+def moe_train():
+    """(b) ``moe_train_entry(batch=8)``: AdamW steps in bf16 (float32
+    masters) with the load-balance loss and drop path 0.2: ms a step by
+    CUDA events (median), train clips/s, peak memory, finite loss, aux and
+    gradients, the drops and loads of one step, the busy share and device
+    time by kind, one MoE layer's split forward and backward; 12 kernel-1,
+    12 kernel-7 and 1 kernel-2 launches a step (over TRAIN_ITERS)."""
+    from focus_tpu_torch.entry import moe_train_entry
+    from focus_tpu_torch.ops import patch_embed as pe
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    fn, (video, labels) = moe_train_entry(device=DEV, batch=MOE_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: fn(video, labels), warmup=MOE_TRAIN_WARMUP,
+                 iters=MOE_TRAIN_ITERS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(TRAIN_ITERS):
+        fn(video, labels)
+    torch.cuda.synchronize()
+    launches = {"trajectory_block": tb.LAUNCHES, "patch_embed": pe.LAUNCHES,
+                "trajectory_block_bwd": tb.BWD_LAUNCHES}
+    records = []
+    with recorded_routes(records):
+        stats = {k: v.item() for k, v in fn(video, labels).items()}
+    result = {"batch": MOE_BATCH, "clip": list(video.shape),
+              "solver": "the yaml's: AdamW, weight decay 5e-2 "
+                        "(ZERO_WD_1D_PARAM off), steps_with_relative_lrs; "
+                        "label-smoothing cross-entropy + 0.01 x moe_aux; "
+                        "drop path to 0.2",
+              "ms_per_step": ms,
+              "train_clips_per_sec": MOE_BATCH / (ms / 1e3),
+              "peak_memory_gb": peak, "stats": stats, "launches": launches,
+              "routes": route_stats(records),
+              "finite": math.isfinite(stats["loss"])
+              and math.isfinite(stats["moe_aux"]) and finite_grads(fn.model),
+              "profile": profiled_share(lambda: fn(video, labels)),
+              "layer_split": moe_layer_split(fn.model, backward=True)}
+    result["ok"] = (result["finite"] and len(records) == 12
+                    and launches == {"trajectory_block": 12 * TRAIN_ITERS,
+                                     "patch_embed": TRAIN_ITERS,
+                                     "trajectory_block_bwd":
+                                         12 * TRAIN_ITERS})
+    del fn, video, labels
+    torch.cuda.empty_cache()
+    return result
+
+
+def moe_card_vs_cpu():
+    """(c) One train step at batch 2 in float32 (plain path on both, the
+    kernels being bf16; no drop path: the devices draw apart) from the same
+    weights and batch on the card and on the CPU: every layer's routing
+    compared; where none flips, the loss and moe_aux within MOE_LOSS_REL
+    and each gradient within MOE_GRAD_REL_L2 relative L2. A flipped token
+    is printed with its probability gap on the CPU (top-1 minus top-2), the
+    gap must be a tie's (MOE_ROUTE_GAP), and the first flipping layer's
+    routing inputs are held on the agreeing tokens instead."""
+    from focus_tpu_torch.engine.trainer import (
+        build_supervised_state,
+        make_supervised_train_step,
+    )
+    from focus_tpu_torch.entry import example_inputs, moe_cfg
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    cfg = moe_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.MF.DROP_PATH = 0.0
+    weights = build_model(cfg, "cpu", seed=0).state_dict()
+    runs = {}
+    for dev in ("cpu", DEV):
+        model = build_model(cfg, dev, seed=0)
+        model.load_state_dict(weights)
+        model.use_kernels = False
+        state = build_supervised_state(cfg, model, 100)
+        step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
+        video, labels, _ = example_inputs(cfg, MOE_CMP_BATCH, 1, dev,
+                                          labels=True)
+        records = []
+        t0 = time.perf_counter()
+        with recorded_routes(records):
+            _, stats = step(state, video, labels, {})
+        stats = {k: v.item() for k, v in stats.items()}
+        runs[dev] = (stats, {k: p.grad.detach().double().cpu()
+                             for k, p in model.named_parameters()},
+                     [tuple(o.cpu() if torch.is_tensor(o) else o for o in r)
+                      for r in records], time.perf_counter() - t0)
+        del model, state, step, video, labels
+    torch.cuda.empty_cache()
+    (s_c, g_c, r_c, sec_c), (s_g, g_g, r_g, sec_g) = runs["cpu"], runs[DEV]
+    flips = []
+    for layer, (rc, rg) in enumerate(zip(r_c, r_g)):
+        for b, t in (rc[1] != rg[1]).nonzero().tolist():
+            top2 = rc[0][b, t].topk(2).values
+            flips.append({"layer": layer, "sample": b, "token": t,
+                          "cpu_expert": int(rc[1][b, t]),
+                          "card_expert": int(rg[1][b, t]),
+                          "cpu_prob_gap": float(top2[0] - top2[1])})
+    for f in flips:
+        print(f"moe routing flip: {f}", flush=True)
+
+    def rel(a, b):
+        return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+    compared = {k: rel(g_g[k], g_c[k]) for k in g_c if g_c[k].norm() > 0}
+    worst = max(compared, key=compared.get)
+    result = {"batch": MOE_CMP_BATCH,
+              "dtype": "float32 (TF32 off), the plain path on both",
+              "routing_flips": flips,
+              "routing_compared_layers": len(r_c),
+              "loss": {"card": s_g["loss"], "cpu": s_c["loss"],
+                       "rel_err": abs(s_g["loss"] - s_c["loss"])
+                       / abs(s_c["loss"])},
+              "moe_aux": {"card": s_g["moe_aux"], "cpu": s_c["moe_aux"],
+                          "rel_err": abs(s_g["moe_aux"] - s_c["moe_aux"])
+                          / abs(s_c["moe_aux"])},
+              "grads_compared": len(compared),
+              "worst_grad_rel_l2": {"name": worst, "value": compared[worst]},
+              "step_seconds": {"card": sec_g, "cpu": sec_c},
+              "tolerances": {"loss_rel": MOE_LOSS_REL,
+                             "grad_rel_l2": MOE_GRAD_REL_L2,
+                             "route_gap": MOE_ROUTE_GAP}}
+    if not flips:
+        result["ok"] = (len(r_c) == len(r_g) == 12
+                        and result["loss"]["rel_err"] <= MOE_LOSS_REL
+                        and result["moe_aux"]["rel_err"] <= MOE_LOSS_REL
+                        and compared[worst] <= MOE_GRAD_REL_L2)
+    else:
+        first = flips[0]["layer"]
+        agree = r_c[first][1] == r_g[first][1]
+        gap = (r_c[first][0] - r_g[first][0]).abs()[agree].max().item()
+        result["first_flip_layer_probs_on_agreeing_tokens"] = gap
+        result["ok"] = (all(f["cpu_prob_gap"] <= MOE_ROUTE_GAP for f in flips)
+                        and gap <= MOE_ROUTE_GAP)
+    return result
+
+
+class MoETestClips(SSv2TestClips):
+    VIDEOS = 4  # x 1 view x 3 crops: 12 clips, a padded last batch at 8
+
+
+def moe_loops():
+    """(d) ``tools.train_net`` then ``tools.test_net`` on the MoE yaml with
+    the one-card overrides over in-script SSv2 splits (``TrainClips``,
+    ``MoETestClips``): 2 epochs of 4 steps at batch 8 with validation after
+    each and a checkpoint at the last, then the test path from it; the loop
+    against a direct step loop on the same batches (phase 18's gates), the
+    validation's stats, every test clip scored once, the ensembles against
+    a direct loop; 12 kernel-1, 12 kernel-7 and 1 kernel-2 launches a
+    step."""
+    from focus_tpu_torch.config.defaults import assert_and_infer_cfg
+    from focus_tpu_torch.tools import test_net, train_net
+    from focus_tpu_torch.utils import checkpoint as cu
+    from focus_tpu_torch.utils.parser import load_config, parse_args
+
+    reductions = {
+        "SOLVER.MAX_EPOCH": "2 (35)", "TRAIN.EVAL_PERIOD": "1 (5)",
+        "TRAIN.CHECKPOINT_PERIOD": "2 (1): one save",
+        "TRAIN.BATCH_SIZE / TEST.BATCH_SIZE": f"{MOE_BATCH} ({MOE_BATCH}: "
+                                              "the yaml's 48 and 64 are over "
+                                              "8 TPU chips)",
+        "TPU.MESH.PIPE / EXPERT, NUM_GPUS": "1 / 1, 1 (2 / 2, 8): one card",
+        "TRAIN.AUTO_RESUME": "False (True): a fresh output directory",
+        "data": f"in-script: {MOE_TRAIN_CLIPS} train, {MOE_VAL_CLIPS} val "
+                f"clips, {MoETestClips.VIDEOS} test videos x 3 crops "
+                "(SSv2: 169k / 25k videos)"}
+    argv = ["--device", DEV, "--cfg", os.path.join(REPO, MOE_YAML_REL),
+            "TRAIN.METHOD", "sup", "TEST.EVAL_TASK", "ar",
+            "TPU.MESH.PIPE", "1", "TPU.MESH.EXPERT", "1", "NUM_GPUS", "1",
+            "TRAIN.BATCH_SIZE", str(MOE_BATCH),
+            "TEST.BATCH_SIZE", str(MOE_BATCH), "SOLVER.MAX_EPOCH", "2",
+            "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD", "2",
+            "TRAIN.AUTO_RESUME", "False", "DATA_LOADER.NUM_WORKERS", "4",
+            "LOG_PERIOD", "1", "OUTPUT_DIR", MOE_ENGINE_DIR]
+    cfg = assert_and_infer_cfg(load_config(parse_args(argv)))
+
+    def splits(cfg_, mode):
+        if mode == "test":
+            return MoETestClips(cfg_, mode)
+        return TrainClips(cfg_, mode, MOE_TRAIN_CLIPS if mode == "train"
+                          else MOE_VAL_CLIPS, False)
+
+    import focus_tpu_torch.datasets.ssv2  # noqa: F401 (registered first)
+
+    runs, steps, precise = {"train": [], "test": []}, [], []
+    t0 = time.perf_counter()
+    with registered_splits({"Ssv2": splits}), epoch_seeded_splits():
+        with recorded_tools(runs, steps, precise):
+            train_net.main(argv)
+            test_net.main(argv)
+        tools_s = time.perf_counter() - t0
+        (tr, train_launches, train_peak), = runs["train"]
+        (te, test_launches, test_peak), = runs["test"]
+        losses = [x for epoch in tr.losses for x in epoch]
+        loop_params = trained_params(tr.state.model)
+        del tr.state
+        torch.cuda.empty_cache()
+        direct, direct_params, step_s, step_clips, init = direct_data_steps(
+            cfg, steps, MOE_LOOP_STEPS)
+        n_steps = len(steps)
+        del steps
+        last = cu.get_last_checkpoint(cfg.OUTPUT_DIR)
+        direct_err = conv_direct_test(cfg, last, te.meter)
+    vs_direct = {
+        "loss_rel_err_by_step": [abs(a - b) / abs(b)
+                                 for a, b in zip(losses, direct)],
+        "params_rel_l2": params_rel_l2(loop_params, direct_params),
+        "update_rel_l2": params_rel_l2(
+            {k: loop_params[k] - init[k] for k in init},
+            {k: direct_params[k] - init[k] for k in init}),
+        "first_loss_bit_equal": losses[0] == direct[0]}
+    views = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
+    once = bool((te.meter.clip_count == views).all()
+                and te.meter.seen_clips.sum() == te.clips)
+    per_step = 12 * 2 * MOE_LOOP_STEPS  # kernel-1 launches of the steps
+    val_batches = -(-MOE_VAL_CLIPS // MOE_BATCH)
+    want_train = {"trajectory_block": per_step + 12 * 2 * val_batches,
+                  "trajectory_block_bwd": per_step,
+                  "patch_embed": 2 * MOE_LOOP_STEPS + 2 * val_batches}
+    got_train = {k: train_launches[k] for k in want_train}
+    result = {
+        "reductions": reductions,
+        "train": {"steps": tr.steps, "clips": tr.clips, "losses": tr.losses,
+                  "val_stats": tr.val_stats, "val_clips": tr.val_clips,
+                  "checkpoint_seconds": tr.checkpoint_seconds,
+                  "train_loop_clips_per_sec": tr.clips / tr.seconds,
+                  "step_clips_per_sec": step_clips / step_s,
+                  "wait_share": tr.wait_seconds / tr.seconds,
+                  "val_clips_per_sec": tr.val_clips / tr.val_seconds,
+                  "peak_memory_gb": train_peak, "launches": got_train,
+                  "launches_expected": want_train},
+        "vs_direct_loop": vs_direct,
+        "test": {"stats": {k: v if isinstance(v, str) else float(v)
+                           for k, v in te.stats.items()},
+                 "clips": int(te.clips), "batches": int(te.batches),
+                 "every_clip_counted_once": once,
+                 "vs_direct_loop_max_abs": direct_err,
+                 "atol": DATA_LOOP_ATOL,
+                 "test_loop_clips_per_sec": te.clips / te.seconds,
+                 "peak_memory_gb": test_peak,
+                 "launches": {k: test_launches[k]
+                              for k in ("trajectory_block", "patch_embed")}},
+        "tools_seconds": tools_s}
+    result["ok"] = (
+        tr.steps == n_steps == 2 * MOE_LOOP_STEPS
+        and all(math.isfinite(x) for x in losses)
+        and vs_direct["first_loss_bit_equal"]
+        and max(vs_direct["loss_rel_err_by_step"]) <= TRAIN_LOOP_LOSS_REL
+        and vs_direct["params_rel_l2"] <= TRAIN_LOOP_PARAM_REL
+        and vs_direct["update_rel_l2"] <= DATA_LOOP_UPDATE_REL
+        and len(tr.val_stats) == 2 and got_train == want_train
+        and once and direct_err <= DATA_LOOP_ATOL
+        and test_launches["trajectory_block"] == 12 * te.batches)
+    return result
+
+
+def moe_mesh_refusal():
+    """(e) The yaml as shipped (TPU.MESH.PIPE 2, EXPERT 2) through
+    ``tools.run_net`` on the card: NotImplementedError naming the axes
+    before any model, loader or launch."""
+    from focus_tpu_torch.tools import run_net
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    try:
+        run_net.main(["--device", DEV, "--cfg",
+                      os.path.join(REPO, MOE_YAML_REL), "TRAIN.METHOD", "sup",
+                      "TEST.EVAL_TASK", "ar", "OUTPUT_DIR", MOE_ENGINE_DIR])
+        refusal = "no error"
+    except NotImplementedError as e:
+        refusal = str(e)
+    launches = train_counts()
+    return {"refusal": refusal, "launches": launches,
+            "allocated_bytes_added": torch.cuda.memory_allocated() - before,
+            "ok": "TPU.MESH.PIPE 2" in refusal and "TPU.MESH.EXPERT 2" in
+            refusal and not any(launches.values())
+            and torch.cuda.memory_allocated() == before}
+
+
+def phase_moe(smi):
+    """Phase 19: the Switch-MoE Motionformer on one card, every expert on
+    it. (a) its eval forward at batch 8, (b) its train step at batch 8,
+    (c) at batch 2 in float32 the card against the CPU, (d) the train and
+    test loops through the tools, (e) the yaml's own mesh refused. The
+    path runs kernels 1, 2 and 7; the MoE layers are plain PyTorch (the
+    JAX package computes them outside any Pallas kernel). Returns the
+    launch counts of (a) and (b)."""
+    from focus_tpu_torch.utils import logging as port_logging
+
+    shutil.rmtree(MOE_ENGINE_DIR, ignore_errors=True)
+    result = {"phase": "moe", "gpu": smi}
+    t0 = time.perf_counter()
+    try:
+        result["moe_eval"] = moe_eval()
+        result["moe_train"] = moe_train()
+        result["moe_card_vs_cpu"] = moe_card_vs_cpu()
+        with open(MOE_ENGINE_LOG, "w") as log, contextlib.redirect_stdout(
+                log):
+            result["moe_loops"] = moe_loops()
+        result["moe_mesh_refusal"] = moe_mesh_refusal()
+    finally:
+        port_logging.close_logging()
+        shutil.rmtree(MOE_ENGINE_DIR, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t0
+    parts = [v for v in result.values() if isinstance(v, dict) and "ok" in v]
+    result["ok"] = len(parts) == 5 and all(v["ok"] for v in parts)
+    emit(result)
+    if not result["ok"]:
+        failed = sorted(k for k, v in result.items()
+                        if isinstance(v, dict) and not v.get("ok", True))
+        raise AssertionError(f"MoE phase failed: {failed}")
+    return {"eval": result["moe_eval"]["launches"],
+            "train": result["moe_train"]["launches"]}
+
+
+# ---- phase 20: AVA detection --------------------------------------------------
+
+AVA_ENGINE_DIR = os.path.join(REPO, "build", "ava_engine")
+AVA_ENGINE_LOG = os.path.join(REPO, "build", "ava_engine.log")
+AVA_YAMLS = {"slowfast": "AVA/SLOWFAST_32x2_R50_SHORT.yaml",
+             "mvit": "AVA/MVIT_16X4.yaml", "slow_c2": "AVA/c2/SLOW_8x8_R50.yaml"}
+AVA_BATCH = 8  # the yamls' TRAIN.BATCH_SIZE 64 / TEST.BATCH_SIZE 64 over 8
+AVA_CLASSES = 80
+AVA_TRAIN = (8, (902, 903, 904, 905))  # videos x seconds: 4 steps at 8
+AVA_STEPS = AVA_TRAIN[0] * len(AVA_TRAIN[1]) // AVA_BATCH  # an epoch
+AVA_VAL = (3, (904, 908, 912))  # 9 keyframes: 2 batches, 7 pad rows
+AVA_VIDEO_FRAMES = 420  # 14 s at 30 fps: every clip of the seconds above
+AVA_FRAME = DATA_FRAME  # short side 256
+AVA_BANK_FRAMES = 96
+AVA_PROB_REL = CONV_PROB_REL
+AVA_MVIT_ITERS = 3
+
+
+class AvaFrames:
+    """The one substitution of phase 20: ``datasets/utils.retry_load_images``
+    returns in-script uint8 frames of AVA_FRAME, a function of the file's
+    name alone (the checkout holds no AVA frames), every read's seconds
+    added to ``seconds``; the lists, annotations, dataset, transforms,
+    loader and engine run as shipped."""
+
+    def __init__(self, seed=0):
+        import threading
+
+        self.bank = np.random.default_rng(seed).integers(
+            0, 256, (AVA_BANK_FRAMES, *AVA_FRAME, 3), dtype=np.uint8)
+        self.lock = threading.Lock()
+        self.seconds = 0.0
+
+    def load_images(self, paths, retry=10):
+        t0 = time.perf_counter()
+        out = [self.bank[(37 * _file_number(os.path.dirname(p))
+                          + _file_number(p)) % AVA_BANK_FRAMES]
+               for p in paths]
+        with self.lock:
+            self.seconds += time.perf_counter() - t0
+        return out
+
+    @contextlib.contextmanager
+    def installed(self):
+        from focus_tpu_torch.datasets import utils as data_utils
+
+        saved = data_utils.retry_load_images
+        data_utils.retry_load_images = self.load_images
+        try:
+            yield self
+        finally:
+            data_utils.retry_load_images = saved
+
+
+def write_ava_tree(root):
+    """The files the AVA yamls read, under ``root``, named as the yamls and
+    the config's defaults name them: ``frame_lists/{train,val}.csv``
+    (AVA_VIDEO_FRAMES frames a video), the train ground truth
+    (``ava_train_v2.2.csv``: 1-4 people a keyframe, 1-3 of the 80 actions
+    each, a person id), the person detections of train (the ground truth's
+    boxes jittered, and extra ones, some under the 0.8 score threshold) and
+    val, the val ground truth, one excluded timestamp and a labelmap of 60
+    of the 80 actions, as the official one has. Returns the overrides that
+    point the yaml at them."""
+    rs = np.random.RandomState(17)
+    lists, ann = os.path.join(root, "frame_lists"), os.path.join(root,
+                                                                  "annotations")
+    det_dir = os.path.join(ann, "person_box_67091280_iou90")
+    os.makedirs(lists)
+    os.makedirs(det_dir)
+
+    def box():
+        x1, y1 = rs.rand(2) * 0.6
+        w, h = rs.rand(2) * 0.3 + 0.08
+        return [x1, y1, min(x1 + w, 1.0), min(y1 + h, 1.0)]
+
+    def fmt(b):
+        return [f"{v:.3f}" for v in b]
+
+    tables = {}
+    for split, (videos, secs) in (("train", AVA_TRAIN), ("val", AVA_VAL)):
+        offset = 0 if split == "train" else 100
+        names = [f"vid{offset + v}" for v in range(videos)]
+        with open(os.path.join(lists, f"{split}.csv"), "w") as f:
+            f.write("original_vido_id video_id frame_id path labels\n")
+            for vi, name in enumerate(names):
+                f.write("".join(f'{name} {vi} {t} {name}/{name}_{t + 1:06d}'
+                                f'.jpg ""\n' for t in range(AVA_VIDEO_FRAMES)))
+        gt, det = [], []
+        for name in names:
+            for sec in secs:
+                for person in range(rs.randint(1, 5)):
+                    b = box()
+                    for label in rs.choice(np.arange(1, AVA_CLASSES + 1),
+                                           rs.randint(1, 4), replace=False):
+                        gt.append([name, sec, *fmt(b), int(label), person])
+                    jit = np.clip(np.asarray(b) + rs.randn(4) * 0.01, 0, 1)
+                    det.append([name, sec, *fmt(jit), "",
+                                f"{0.85 + 0.15 * rs.rand():.6f}"])
+                for _ in range(rs.randint(0, 3)):
+                    det.append([name, sec, *fmt(box()), "",
+                                f"{rs.rand():.6f}"])
+        tables[split] = (gt, det)
+    files = {"ava_train_v2.2.csv": tables["train"][0],
+             "person_box_67091280_iou90/ava_detection_train_boxes_and_labels_"
+             "include_negative_v2.2.csv": tables["train"][1],
+             "person_box_67091280_iou90/ava_detection_val_boxes_and_labels"
+             ".csv": tables["val"][1],
+             "ava_val_v2.2.csv": tables["val"][0],
+             "ava_val_excluded_timestamps_v2.2.csv": [["vid100", 912]]}
+    for rel, rows in files.items():
+        with open(os.path.join(ann, rel), "w") as f:
+            f.write("".join(",".join(map(str, r)) + "\n" for r in rows))
+    with open(os.path.join(
+            ann, "ava_action_list_v2.2_for_activitynet_2019.pbtxt"), "w") as f:
+        f.write("".join(f'item {{\n  name: "action {c}"\n  id: {c}\n}}\n'
+                        for c in range(1, AVA_CLASSES + 1) if c % 4))
+    return ["AVA.FRAME_DIR", os.path.join(root, "frames"),
+            "AVA.FRAME_LIST_DIR", lists, "AVA.ANNOTATION_DIR", ann]
+
+
+def ava_slowfast_loops(overrides, readers):
+    """(a) ``tools.train_net`` then ``tools.test_net`` on
+    configs/AVA/SLOWFAST_32x2_R50_SHORT.yaml at full width in bf16 (80
+    classes, batch 8) over the in-script tree: 2 epochs of 4 steps with
+    validation through AVAMeter after each (frame mAP, the official
+    protocol's mini ground truth), a checkpoint at the last, then the test
+    (the full ground truth). Gates: finite losses, no hand-written kernel
+    launched, the loop against a direct step loop on the same batches
+    (phase 18's gates), both validations' and the test's mAP in [0, 1],
+    every test keyframe scored once with the loader's pad rows dropped.
+    Numbers: the loop's and the step's clips/s, the wait share, the host's
+    ms per clip of ``Ava.__getitem__`` without its read, peak memory."""
+    from focus_tpu_torch.config.defaults import assert_and_infer_cfg
+    from focus_tpu_torch.datasets.build import build_dataset
+    from focus_tpu_torch.tools import test_net, train_net
+    from focus_tpu_torch.utils.parser import load_config, parse_args
+
+    reductions = {
+        "SOLVER.MAX_EPOCH": "2 (20), inside the 5 warm-up epochs",
+        "TRAIN.EVAL_PERIOD": "1 (5)",
+        "TRAIN.CHECKPOINT_PERIOD": "2 (1): one save",
+        "TRAIN.BATCH_SIZE / TEST.BATCH_SIZE": f"{AVA_BATCH} (64 over "
+                                              "NUM_GPUS 8; 8)",
+        "NUM_GPUS": "1 (8)", "TRAIN.AUTO_RESUME": "False (True)",
+        "data": f"in-script: {AVA_TRAIN[0]} train videos x "
+                f"{len(AVA_TRAIN[1])} keyframes, {AVA_VAL[0]} val x "
+                f"{len(AVA_VAL[1])}, frames {AVA_FRAME[0]} x {AVA_FRAME[1]} "
+                "(AVA v2.2: 235 / 64 videos, 211k / 57k keyframes); the reads "
+                "substituted (AvaFrames)"}
+    out_dir = os.path.join(AVA_ENGINE_DIR, "out")
+    argv = ["--device", DEV, "--cfg",
+            os.path.join(REPO, "configs", AVA_YAMLS["slowfast"]),
+            "TRAIN.METHOD", "sup", "TEST.EVAL_TASK", "ar", "NUM_GPUS", "1",
+            "TRAIN.BATCH_SIZE", str(AVA_BATCH),
+            "TEST.BATCH_SIZE", str(AVA_BATCH), "SOLVER.MAX_EPOCH", "2",
+            "TRAIN.EVAL_PERIOD", "1", "TRAIN.CHECKPOINT_PERIOD", "2",
+            "TRAIN.AUTO_RESUME", "False", "LOG_PERIOD", "1",
+            "OUTPUT_DIR", out_dir] + overrides
+    cfg = assert_and_infer_cfg(load_config(parse_args(argv)))
+    runs, steps, precise = {"train": [], "test": []}, [], []
+    t0 = time.perf_counter()
+    with recorded_tools(runs, steps, precise):
+        train_net.main(argv)
+        test_net.main(argv)
+    tools_s = time.perf_counter() - t0
+    (tr, train_launches, train_peak), = runs["train"]
+    (te, test_launches, test_peak), = runs["test"]
+    losses = [x for epoch in tr.losses for x in epoch]
+    loop_params = trained_params(tr.state.model)
+    del tr.state
+    torch.cuda.empty_cache()
+    direct, direct_params, step_s, step_clips, init = direct_data_steps(
+        cfg, steps, AVA_STEPS)
+    n_steps = len(steps)
+    del steps
+    torch.cuda.empty_cache()
+    vs_direct = {
+        "loss_rel_err_by_step": [abs(a - b) / abs(b)
+                                 for a, b in zip(losses, direct)],
+        "params_rel_l2": params_rel_l2(loop_params, direct_params),
+        "update_rel_l2": params_rel_l2(
+            {k: loop_params[k] - init[k] for k in init},
+            {k: direct_params[k] - init[k] for k in init}),
+        "first_loss_bit_equal": losses[0] == direct[0]}
+    test_keyframes = len(build_dataset("ava", cfg, "test"))
+    keys = te.meter.all_keys
+    pad_rows = te.batches * AVA_BATCH - test_keyframes
+    maps = [s["map"] for s in tr.val_stats] + [te.stats["map"]]
+    host = {split: host_ms_per_clip(cfg, "ava", split, readers)
+            for split in ("train", "test")}
+    result = {
+        "yaml": "configs/" + AVA_YAMLS["slowfast"], "reductions": reductions,
+        "train": {"steps": tr.steps, "clips": tr.clips, "losses": tr.losses,
+                  "val_stats": tr.val_stats, "val_clips": tr.val_clips,
+                  "checkpoint_seconds": tr.checkpoint_seconds,
+                  "train_loop_clips_per_sec": tr.clips / tr.seconds,
+                  "step_clips_per_sec": step_clips / step_s,
+                  "wait_share": tr.wait_seconds / tr.seconds,
+                  "wait_share_without_first_batches":
+                      (tr.wait_seconds - tr.first_wait_seconds) / tr.seconds,
+                  "val_clips_per_sec": tr.val_clips / tr.val_seconds,
+                  "loop_seconds": tr.seconds, "step_seconds": step_s,
+                  "peak_memory_gb": train_peak, "launches": train_launches},
+        "vs_direct_loop": vs_direct,
+        "test": {"map": te.stats["map"],
+                 "ap_classes": len(te.stats["ap_per_class"]),
+                 "keyframes": test_keyframes, "scored": len(keys),
+                 "distinct_keys": len(set(keys)), "batches": int(te.batches),
+                 "pad_rows_dropped": pad_rows,
+                 "test_loop_keyframes_per_sec": te.clips / te.seconds,
+                 "wait_share": te.wait_seconds / te.seconds,
+                 "peak_memory_gb": test_peak, "launches": test_launches},
+        "host_ms_per_clip_read_excluded": host, "tools_seconds": tools_s}
+    result["ok"] = (
+        tr.steps == n_steps == 2 * AVA_STEPS
+        and all(math.isfinite(x) for x in losses)
+        and not any(train_launches.values())
+        and not any(test_launches.values())
+        and vs_direct["first_loss_bit_equal"]
+        and max(vs_direct["loss_rel_err_by_step"]) <= TRAIN_LOOP_LOSS_REL
+        and vs_direct["params_rel_l2"] <= TRAIN_LOOP_PARAM_REL
+        and vs_direct["update_rel_l2"] <= DATA_LOOP_UPDATE_REL
+        and len(tr.val_stats) == 2 and all(0.0 <= m <= 1.0 for m in maps)
+        and te.clips == len(keys) == len(set(keys)) == test_keyframes
+        and pad_rows > 0)
+    return result
+
+
+def ava_batch(cfg, gen, crop):
+    """A detection batch on the card: clips [8, T, crop, crop, 3] (the
+    yaml's pathways), 1-4 person boxes a clip in the crop's pixels (the
+    rest of the 16 zero, masked), multi-hot labels of the valid ones."""
+    from focus_tpu_torch.datasets.utils import pack_pathway_output
+
+    rs = np.random.RandomState(int(torch.randint(1 << 30, (1,),
+                                                 generator=gen)))
+    video = rs.rand(cfg.DATA.NUM_FRAMES, AVA_BATCH, crop, crop, 3).astype(
+        np.float32)
+    paths = [torch.from_numpy(np.ascontiguousarray(p.swapaxes(0, 1))).to(DEV)
+             for p in pack_pathway_output(cfg, video)]
+    boxes = np.zeros((AVA_BATCH, 16, 4), np.float32)
+    mask = np.zeros((AVA_BATCH, 16), np.float32)
+    for b in range(AVA_BATCH):
+        n = rs.randint(1, 5)
+        xy = rs.rand(n, 2) * crop * 0.6
+        boxes[b, :n] = np.concatenate([xy, xy + rs.rand(n, 2) * crop * 0.35
+                                       + 8], axis=1)
+        mask[b, :n] = 1.0
+    labels = (rs.rand(AVA_BATCH, 16, cfg.MODEL.NUM_CLASSES) < 0.05) * mask[
+        ..., None]
+    video = paths[0] if len(paths) == 1 else paths
+    return (video, torch.from_numpy(labels.astype(np.int32)).to(DEV),
+            {"boxes": torch.from_numpy(boxes).to(DEV),
+             "boxes_mask": torch.from_numpy(mask).to(DEV)})
+
+
+def ava_mvit():
+    """(b) configs/AVA/MVIT_16X4.yaml (MViT-B 16x4 with the RoI head, 80
+    classes, bf16, the JAX package's initialisers) on a batch of 8: its
+    eval forward (per-box probabilities [8, 16, 80]) and its SGD train step
+    under the masked BCE, ms by CUDA events, peak memory, finite."""
+    from focus_tpu_torch.config import get_cfg
+    from focus_tpu_torch.engine import trainer
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", AVA_YAMLS["mvit"]))
+    cfg.NUM_GPUS = 1
+    model = build_model(cfg, DEV)
+    gen = torch.Generator().manual_seed(3)
+    video, labels, meta = ava_batch(cfg, gen, cfg.DATA.TRAIN_CROP_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        probs = model(video, bboxes=meta["boxes"])
+        eval_ms = time_ms(lambda: model(video, bboxes=meta["boxes"]),
+                          warmup=1, iters=AVA_MVIT_ITERS)
+    eval_peak = torch.cuda.max_memory_allocated() / 1e9
+    state = trainer.build_supervised_state(cfg, model, 100)
+    step = trainer.make_supervised_train_step(model, cfg, get_loss_func(cfg))
+    model.train()
+    torch.cuda.reset_peak_memory_stats()
+    _, stats = step(state, video, labels, meta)
+    loss = stats["loss"].item()
+    step_ms = time_ms(lambda: step(state, video, labels, meta), warmup=1,
+                      iters=AVA_MVIT_ITERS)
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    result = {"yaml": "configs/" + AVA_YAMLS["mvit"], "batch": AVA_BATCH,
+              "clip": list(video.shape), "probs_shape": list(probs.shape),
+              "eval_ms": eval_ms, "eval_clips_per_sec": AVA_BATCH
+              / (eval_ms / 1e3), "eval_peak_memory_gb": eval_peak,
+              "step_ms": step_ms,
+              "train_clips_per_sec": AVA_BATCH / (step_ms / 1e3),
+              "step_peak_memory_gb": step_peak, "first_loss": loss,
+              "stats_keys": sorted(stats)}
+    result["ok"] = (list(probs.shape) == [AVA_BATCH, 16, AVA_CLASSES]
+                    and bool(torch.isfinite(probs).all())
+                    and float(probs.min()) >= 0.0
+                    and float(probs.max()) <= 1.0 and math.isfinite(loss)
+                    and sorted(stats) == ["loss"] and finite_grads(model))
+    del model, state, step, video, labels, meta
+    torch.cuda.empty_cache()
+    return result
+
+
+@torch.no_grad()
+def ava_unaligned():
+    """(c) configs/AVA/c2/SLOW_8x8_R50.yaml (DETECTION.ALIGNED False, the
+    Caffe2 RoIAlign) at batch 8 on the 256 test crop: the bf16 eval
+    forward's per-box probabilities against float32 on the same weights
+    (AVA_PROB_REL of the largest)."""
+    from focus_tpu_torch.config import get_cfg
+    from focus_tpu_torch.models.build import build_model
+
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", AVA_YAMLS["slow_c2"]))
+    cfg.NUM_GPUS = 1
+    model = build_model(cfg, DEV)
+    gen = torch.Generator().manual_seed(4)
+    video, _, meta = ava_batch(cfg, gen, cfg.DATA.TEST_CROP_SIZE)
+    probs = model(video, bboxes=meta["boxes"])
+    ms = time_ms(lambda: model(video, bboxes=meta["boxes"]), warmup=1,
+                 iters=AVA_MVIT_ITERS)
+    dtype, model.dtype = model.dtype, torch.float32
+    probs32 = model(video, bboxes=meta["boxes"])
+    model.dtype = dtype
+    valid = meta["boxes_mask"] > 0
+    result = {"yaml": "configs/" + AVA_YAMLS["slow_c2"],
+              "aligned": model.head.aligned, "clip": list(video.shape),
+              "ms": ms, "probs_shape": list(probs.shape),
+              "vs_float32": same_probs(probs[valid], probs32[valid],
+                                       AVA_PROB_REL)}
+    result["ok"] = (not model.head.aligned and result["vs_float32"]["ok"]
+                    and bool(torch.isfinite(probs).all()))
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_ava(smi):
+    """Phase 20: AVA detection on the card (no hand-written kernel:
+    ``F.conv3d``, the RoI head's plain RoIAlign; every launch count is
+    checked to be 0). (a) SlowFast 32x2 R50 through ``tools.train_net``
+    and ``tools.test_net`` over an in-script AVA tree with only the frame
+    reads substituted; (b) MViT-B 16x4's AVA eval forward and train step;
+    (c) the unaligned Caffe2 RoIAlign's forward against float32."""
+    from focus_tpu_torch.utils import logging as port_logging
+
+    shutil.rmtree(AVA_ENGINE_DIR, ignore_errors=True)
+    result = {"phase": "ava", "gpu": smi}
+    t0 = time.perf_counter()
+    try:
+        overrides = write_ava_tree(AVA_ENGINE_DIR)
+        readers = AvaFrames()
+        with open(AVA_ENGINE_LOG, "w") as log, contextlib.redirect_stdout(
+                log), readers.installed():
+            result["ava_slowfast_loops"] = ava_slowfast_loops(overrides,
+                                                              readers)
+        result["ava_mvit"] = ava_mvit()
+        result["ava_unaligned"] = ava_unaligned()
+    finally:
+        port_logging.close_logging()
+        shutil.rmtree(AVA_ENGINE_DIR, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t0
+    parts = [v for v in result.values() if isinstance(v, dict) and "ok" in v]
+    result["ok"] = len(parts) == 3 and all(v["ok"] for v in parts)
+    emit(result)
+    if not result["ok"]:
+        failed = sorted(k for k, v in result.items()
+                        if isinstance(v, dict) and not v.get("ok", True))
+        raise AssertionError(f"AVA phase failed: {failed}")
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -6159,6 +7046,19 @@ def main():
     phase_conv_family(smi)
     phase_mvit(smi)
     phase_datasets(smi)
+    moe = phase_moe(smi)
+    phase_ava(smi)
+    for row, key in ((traj, "trajectory_block"), (patch, "patch_embed"),
+                     (bwd, "trajectory_block_bwd")):
+        if key != "trajectory_block_bwd":
+            row["launches_moe"] = moe["eval"][key]
+        row["launches_moe_train"] = moe["train"][key]
+        row["launches_note"] += (
+            f"; launches_moe over {SLICE_ITERS} eval forwards of the "
+            f"Switch-MoE Motionformer at batch {MOE_BATCH} (phase 19; 12 "
+            "kernel-1 and 1 kernel-2 launches a forward), launches_moe_train "
+            f"over {TRAIN_ITERS} of its train steps (12 kernel-1, 12 kernel-7 "
+            "and 1 kernel-2 launches a step)")
     ar["launches_slot_train"] = slot["wrapper"]
     ar["device_launches_slot_train"] = slot["device"]
     ar["launches_note"] += (

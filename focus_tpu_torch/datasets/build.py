@@ -16,7 +16,8 @@ def build_dataset(dataset_name: str, cfg, split: str):
     (``ptvkinetics``, ``ptvssv2``, ``ptvcharades``) builds the dataset it
     stands for. No module here imports cv2 or PIL: a missing one raises
     ``ImportError`` at the first read."""
-    import focus_tpu_torch.datasets.charades  # noqa: F401 (registration)
+    import focus_tpu_torch.datasets.ava_dataset  # noqa: F401 (registration)
+    import focus_tpu_torch.datasets.charades  # noqa: F401
     import focus_tpu_torch.datasets.cholec80  # noqa: F401
     import focus_tpu_torch.datasets.epickitchens  # noqa: F401
     import focus_tpu_torch.datasets.kinetics  # noqa: F401
@@ -26,9 +27,4 @@ def build_dataset(dataset_name: str, cfg, split: str):
 
     name = dataset_name.capitalize()
     name = PTV_ALIASES.get(name, name)
-    if name == "Ava" and name not in DATASET_REGISTRY:
-        raise NotImplementedError(
-            "the Ava dataset is not ported yet (it comes with the detection "
-            "slice of the port)"
-        )
     return DATASET_REGISTRY.get(name)(cfg, split)

@@ -9,8 +9,10 @@ model; the JAX package keys the meter on ``TEST.DATASET``, which names the
 same dataset in every config of the repo. Multi-label data
 (``DATA.MULTI_LABEL``, Charades: multi-hot labels, ``MODEL.HEAD_ACT
 sigmoid``) is ensembled the same way (``DATA.ENSEMBLE_METHOD max`` in its
-yamls) and scored by the mean average precision. One process drives one
-device.
+yamls) and scored by the mean average precision. AVA detection
+(``DETECTION.ENABLE``) scores each keyframe's boxes once, by the frame mAP
+of ``AVAMeter`` (``run_detection_eval``, shared with validation). One
+process drives one device.
 
 ``test`` returns the meter's stats, as the JAX package's does;
 ``run_test`` also returns the meter, the checkpoint report and the loop's
@@ -32,6 +34,7 @@ from focus_tpu_torch.datasets import loader as data_loader
 from focus_tpu_torch.entry import EvalForward
 from focus_tpu_torch.models.build import (
     build_model,
+    check_mesh,
     maybe_zero_init_orvit,
     resolve_device,
 )
@@ -39,7 +42,8 @@ from focus_tpu_torch.models.motionformer import EK_CLASSES
 from focus_tpu_torch.ops.preprocess import device_normalize
 from focus_tpu_torch.utils import checkpoint as cu
 from focus_tpu_torch.utils import logging
-from focus_tpu_torch.utils.meters import EPICTestMeter, TestMeter
+from focus_tpu_torch.utils.ava_eval import make_image_key
+from focus_tpu_torch.utils.meters import AVAMeter, EPICTestMeter, TestMeter
 
 logger = logging.get_logger(__name__)
 
@@ -80,14 +84,50 @@ def _host(x):
 
 def make_eval_forward(model, cfg):
     """``fn(video, metadata)``: a batch normalised on its device (uint8
-    frames; float frames pass unchanged) through ``entry.EvalForward``."""
+    frames; float frames pass unchanged) through ``entry.EvalForward``; a
+    detection model scores the metadata's ``boxes``."""
     forward = EvalForward(model)
+    detection = bool(cfg.DETECTION.ENABLE)
 
     def fn(video, metadata):
         return forward(device_normalize(video, cfg),
-                       metadata.get("orvit_bboxes"))
+                       metadata.get("orvit_bboxes"),
+                       metadata["boxes"] if detection else None)
 
     return fn
+
+
+def run_detection_eval(loader, forward, meter, cur_epoch=None):
+    """AVA's detection eval loop, for validation and the test (JAX
+    ``run_detection_eval``; reference test_net.py:57-79): each batch's
+    per-box probabilities, boxes in the original frame, masks, keys
+    (``video,%04d``) and labels buffered in ``meter``, the frame mAP at the
+    end. The loader's pad duplicates (sample index -1) are dropped before
+    buffering: a duplicated detection of a matched box is a false positive
+    to the greedy matcher. Returns (the meter's metrics, the keyframes
+    buffered)."""
+    names = meter.video_idx_to_name or []
+    clips = 0
+    for cur_iter, batch in enumerate(loader):
+        video, labels, sample_idx, metadata = _split_test_batch(batch)
+        meter.iter_tic()
+        preds = forward(video, metadata)
+        preds = preds[0] if isinstance(preds, tuple) else preds
+        rows = [_host(x) for x in (
+            preds, metadata["boxes_mask"], metadata["ori_boxes"],
+            metadata["video_idx"], metadata["sec"], labels)]
+        if sample_idx is not None:
+            keep = _host(sample_idx) >= 0
+            rows = [x[keep] for x in rows]
+        preds_h, masks_h, ori_h, vidx_h, sec_h, labels_h = rows
+        keys = [make_image_key(
+            names[int(v)] if int(v) < len(names) else str(int(v)), int(s))
+            for v, s in zip(vidx_h, sec_h)]
+        meter.update_stats(preds_h, ori_h, masks_h, keys, labels_h)
+        clips += len(keys)
+        meter.iter_toc()
+        meter.log_iter_stats(cur_epoch, cur_iter)
+    return meter.finalize_metrics(), clips
 
 
 def perform_test(test_loader, forward, test_meter, cfg):
@@ -125,11 +165,7 @@ def _ek_heads(cfg):
 
 def _check_ported(cfg):
     """Raise on the test options that the port does not run yet."""
-    if cfg.DETECTION.ENABLE:
-        raise NotImplementedError(
-            "DETECTION.ENABLE: the AVA detection test comes with the "
-            "detection slice of the port"
-        )
+    check_mesh(cfg)
     tb = cfg.TENSORBOARD
     if (tb.ENABLE and not _ek_heads(cfg)
             and (tb.CONFUSION_MATRIX.ENABLE or tb.HISTOGRAM.ENABLE)):
@@ -167,6 +203,8 @@ def run_test(cfg, device="cuda") -> TestRun:
     maybe_zero_init_orvit(cfg, model)
     report = cu.load_test_checkpoint(cfg, model)
     forward = make_eval_forward(model, cfg)
+    if cfg.DETECTION.ENABLE:
+        return perform_test_detection(cfg, test_loader, forward, report)
 
     num_clips = cfg.TEST.NUM_ENSEMBLE_VIEWS * cfg.TEST.NUM_SPATIAL_CROPS
     num_videos = len(test_loader.dataset) // num_clips
@@ -206,3 +244,18 @@ def run_test(cfg, device="cuda") -> TestRun:
             )
         logger.info(f"Successfully saved prediction results to {save_path}")
     return run
+
+
+def perform_test_detection(cfg, test_loader, forward, report) -> TestRun:
+    """The AVA test: every keyframe of the test split once through
+    ``run_detection_eval``; the stats are the meter's metrics (``map``,
+    ``ap_per_class``), as the JAX tester returns them."""
+    meter = AVAMeter(len(test_loader), cfg, "test",
+                     video_idx_to_name=test_loader.dataset._video_idx_to_name)
+    t0 = time.perf_counter()
+    stats, clips = run_detection_eval(test_loader, forward, meter)
+    return TestRun(stats=stats, meter=meter, checkpoint=report,
+                   seconds=time.perf_counter() - t0,
+                   wait_seconds=test_loader.wait_seconds,
+                   first_wait_seconds=test_loader.first_wait_seconds,
+                   batches=len(test_loader), clips=clips)

@@ -32,9 +32,19 @@ validation, where the JAX loop recomputes them. A multi-pathway batch
 (SlowFast's slow and fast clips) goes whole through the step, mixup (the
 same draws on every pathway) and the batch count.
 
-The detection loss, MoE, remat, ZeRO-1, multigrid, timm weights
-(``MODEL.LOAD_IN_PRETRAIN``) and ``LOG_MODEL_INFO`` are not ported and
-raise.
+A MoE model (``TPU.MOE.NUM_EXPERTS > 1``) adds ``AUX_LOSS_WEIGHT`` times
+its load-balance value, the mean over its MoE layers (the JAX ``_moe_aux``
+with every weight 1), to the loss, one value a microbatch under
+GRAD_ACCUM, and reports it as ``moe_aux``. AVA detection
+(``DETECTION.ENABLE``) runs the model on the batch's boxes and takes the
+masked binary cross-entropy of the per-box probabilities
+(``detection_loss``), normalised by the whole batch's box count under
+GRAD_ACCUM, without mixup or top-k; its validation scores the frame mAP
+through ``AVAMeter`` (``engine/tester.run_detection_eval``).
+
+Remat, ZeRO-1, multigrid, timm weights (``MODEL.LOAD_IN_PRETRAIN``),
+``LOG_MODEL_INFO`` and a ``TPU.MESH`` pipeline, sequence, model or expert
+axis are not ported and raise.
 """
 
 from __future__ import annotations
@@ -50,10 +60,11 @@ import torch.nn.functional as F
 
 from focus_tpu_torch.datasets import loader as data_loader
 from focus_tpu_torch.engine.precise_bn import compute_precise_bn_stats
-from focus_tpu_torch.engine.tester import make_eval_forward
+from focus_tpu_torch.engine.tester import make_eval_forward, run_detection_eval
 from focus_tpu_torch.models import optimizer as optim
 from focus_tpu_torch.models.build import (
     build_model,
+    check_mesh,
     maybe_zero_init_orvit,
     resolve_device,
 )
@@ -63,6 +74,7 @@ from focus_tpu_torch.parallel.train_state import TrainState
 from focus_tpu_torch.utils import checkpoint as cu
 from focus_tpu_torch.utils import logging, lr_policy, metrics, misc
 from focus_tpu_torch.utils.meters import (
+    AVAMeter,
     EPICValMeter,
     EpochTimer,
     TrainMeter,
@@ -94,9 +106,8 @@ def _is_ek(cfg) -> bool:
 
 
 def _check_options(cfg):
+    check_mesh(cfg)
     unported = {
-        "DETECTION.ENABLE": bool(cfg.DETECTION.ENABLE),
-        "MoE (TPU.MOE.NUM_EXPERTS > 1)": int(cfg.TPU.MOE.NUM_EXPERTS or 0) > 1,
         "TPU.REMAT": bool(cfg.TPU.REMAT),
         "TPU.ZERO1": bool(cfg.TPU.ZERO1),
     }
@@ -269,6 +280,22 @@ def apply_mixup(video, labels, cfg, draws):
 
 # ---- the step ------------------------------------------------------------
 
+def detection_loss(preds, labels, mask, denom=None):
+    """Masked binary cross-entropy of the RoI head's per-box probabilities
+    (``_detection_loss``): preds, labels [B, O, C], mask [B, O]; the
+    probabilities clipped to [1e-7, 1 - 1e-7], the mean over classes, the
+    sum over valid boxes over ``denom`` (default: their count, at least 1;
+    GRAD_ACCUM passes the whole batch's count over the microbatches, so the
+    microbatches' mean is the whole batch's loss)."""
+    eps = 1e-7
+    p = preds.clamp(eps, 1 - eps)
+    labels = labels.to(p.dtype)
+    bce = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p)).mean(-1)
+    if denom is None:
+        denom = mask.sum().clamp_min(1.0)
+    return (bce * mask).sum() / denom
+
+
 def _batch_size(video) -> int:
     # multi-pathway models (SlowFast) carry a tuple of videos
     return (video[0] if isinstance(video, (tuple, list)) else video).shape[0]
@@ -289,22 +316,40 @@ def _microbatch(tree, a: int, accum: int):
 
 def make_supervised_train_step(model, cfg, loss_fn):
     """``step(state, video, labels, metadata) -> (state, stats)``: one
-    optimizer update; ``stats`` holds ``loss`` and, for single-label data
-    other than EPIC-Kitchens, ``top1_err`` and ``top5_err`` (device
-    tensors; under TPU.GRAD_ACCUM each the mean over the microbatches).
-    ``labels`` is a tensor, or for EPIC-Kitchens a dict of the verb and
-    noun labels."""
+    optimizer update; ``stats`` holds ``loss``, for single-label data
+    other than EPIC-Kitchens and AVA ``top1_err`` and ``top5_err``, and for
+    a MoE model ``moe_aux`` (device tensors; under TPU.GRAD_ACCUM each the
+    mean over the microbatches). ``labels`` is a tensor, for EPIC-Kitchens
+    a dict of the verb and noun labels; AVA's metadata holds ``boxes`` and
+    ``boxes_mask``."""
     _check_options(cfg)
     is_ek = _is_ek(cfg)
-    use_mixup = cfg.MIXUP.ENABLE and not is_ek
-    want_topk = not is_ek and not cfg.DATA.MULTI_LABEL
+    detection = bool(cfg.DETECTION.ENABLE)
+    use_mixup = cfg.MIXUP.ENABLE and not is_ek and not detection
+    want_topk = not is_ek and not cfg.DATA.MULTI_LABEL and not detection
     accum = max(int(cfg.TPU.GRAD_ACCUM or 1), 1)
+    moe_on = int(cfg.TPU.MOE.NUM_EXPERTS or 0) > 1
+    moe_w = float(cfg.TPU.MOE.AUX_LOSS_WEIGHT)
 
-    def forward_backward(state, video, labels, metadata, hard_labels):
-        logits = model(video, metadata, train=True, generator=state.generator)
-        loss = loss_fn(logits, labels)
+    def forward_backward(state, video, labels, metadata, hard_labels,
+                         det_denom=None):
+        extra = {"bboxes": metadata["boxes"]} if detection else {}
+        if moe_on:
+            moe_aux = extra["moe_aux"] = []
+        logits = model(video, metadata, train=True, generator=state.generator,
+                       **extra)
+        if detection:
+            loss = detection_loss(logits, labels, metadata["boxes_mask"],
+                                  det_denom)
+        else:
+            loss = loss_fn(logits, labels)
+        stats = {}
+        if moe_on:
+            aux = torch.stack(moe_aux).mean()
+            loss = loss + moe_w * aux
+            stats["moe_aux"] = aux.detach()
         loss.backward()
-        stats = {"loss": loss.detach()}
+        stats["loss"] = loss.detach()
         if hard_labels is not None:
             stats.update(topk_errors(logits.detach(), hard_labels))
         return stats
@@ -328,9 +373,12 @@ def make_supervised_train_step(model, cfg, loss_fn):
             if _batch_size(video) % accum:
                 raise ValueError(f"batch {_batch_size(video)} does not split "
                                  f"into TPU.GRAD_ACCUM={accum} microbatches")
+            # the whole batch's box count, each microbatch's share of it
+            det_denom = (metadata["boxes_mask"].sum().clamp_min(1.0) / accum
+                         if detection else None)
             parts = [forward_backward(
                 state, *(_microbatch(x, a, accum) for x in (
-                    video, labels, metadata, topk_labels)))
+                    video, labels, metadata, topk_labels)), det_denom)
                 for a in range(accum)]
             with torch.no_grad():  # the gradients' sum over microbatches / A
                 for p in model.parameters():
@@ -396,7 +444,7 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg,
             lr = lr_policy.get_lr_at_epoch(cfg, epoch_f)["lr"]
             train_meter.update_stats(
                 host.get("top1_err"), host.get("top5_err"), host["loss"], lr,
-                _batch_size(video),
+                _batch_size(video), host.get("moe_aux"),
             )
             if writer is not None:
                 # (reference train_net.py:262-274)
@@ -426,7 +474,9 @@ def _host(x):
 def val_stats(val_meter) -> dict:
     """The val meter's means over the split: top-1 / top-5 errors,
     EPIC-Kitchens' verb, noun and action accuracies, or for multi-label
-    data the mean average precision."""
+    data and AVA the mean average precision."""
+    if isinstance(val_meter, AVAMeter):
+        return {"map": val_meter.full_map}
     n = max(val_meter.num_samples, 1)
     if isinstance(val_meter, EPICValMeter):
         return {k: v / n for k, v in val_meter.totals.items()}
@@ -443,8 +493,13 @@ def eval_epoch(val_loader, forward, val_meter, cur_epoch, cfg, writer=None):
     dropped on the host, so each val clip counts once. Multi-label data
     (``DATA.MULTI_LABEL``) keeps the probabilities and multi-hot labels for
     the meter's mean average precision and takes no top-k errors (the JAX
-    package's ``eval_epoch`` takes them, and raises on such labels).
-    Returns the clips counted."""
+    package's ``eval_epoch`` takes them, and raises on such labels). AVA
+    (an ``AVAMeter``) goes through ``run_detection_eval``. Returns the clips
+    counted."""
+    if isinstance(val_meter, AVAMeter):
+        val_meter.reset()
+        return run_detection_eval(val_loader, forward, val_meter,
+                                  cur_epoch=cur_epoch)[1]
     is_ek = isinstance(val_meter, EPICValMeter)
     val_meter.reset()
     clips = 0
@@ -495,6 +550,10 @@ def eval_epoch(val_loader, forward, val_meter, cur_epoch, cfg, writer=None):
 def _build_val(cfg, device):
     """The val loader and its meter (``_build_val``)."""
     val_loader = data_loader.construct_loader(cfg, "val", device)
+    if cfg.DETECTION.ENABLE:
+        return val_loader, AVAMeter(
+            len(val_loader), cfg, "val",
+            video_idx_to_name=val_loader.dataset._video_idx_to_name)
     if _is_ek(cfg):
         return val_loader, EPICValMeter(len(val_loader), cfg)
     return val_loader, ValMeter(len(val_loader), cfg)

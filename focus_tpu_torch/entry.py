@@ -48,6 +48,14 @@ package's initialisers, its eval forward (``int8``: ``TPU.INT8_SERVING``);
 decay 0.05 off the 1-D parameters, global-norm clip 1.0, cosine after
 warm-up), mixup / CutMix with label smoothing into the soft-target
 cross-entropy, head dropout 0.5 and drop path to 0.2.
+``moe_entry`` is the Switch-MoE Motionformer of
+``configs/TPU/SSv2_MF_224_16x4_pp_moe.yaml`` (D=768, 12 blocks of 12
+heads, every block's MLP 4 top-1-routed experts at capacity factor 1.25,
+no ORViT, 174 classes, bf16) on one card, with the JAX package's
+initialisers, its eval forward; ``moe_train_entry`` its train step under
+the yaml's solver (AdamW, weight decay 5e-2, steps_with_relative_lrs), the
+label-smoothing cross-entropy plus 0.01 times the load-balance value, and
+drop path to 0.2.
 """
 
 import os
@@ -124,16 +132,19 @@ def example_inputs(cfg, batch: int, seed: int, device, labels=False):
 
 
 class EvalForward:
-    """``fn(video, boxes=None) -> probabilities`` (the EPIC-Kitchens
-    model's verb and noun pair); ``video`` is one clip tensor or a list of
-    pathways; ``fn.model`` is the module."""
+    """``fn(video, boxes=None, bboxes=None) -> probabilities`` (the
+    EPIC-Kitchens model's verb and noun pair; a detection model's per-box
+    probabilities of ``bboxes`` [B, O, 4]); ``video`` is one clip tensor or
+    a list of pathways; ``boxes`` are the ORViT tracks; ``fn.model`` is the
+    module."""
 
     def __init__(self, model):
         self.model = model
 
     @torch.no_grad()
-    def __call__(self, video, boxes=None):
-        return self.model(video, {"orvit_bboxes": boxes})
+    def __call__(self, video, boxes=None, bboxes=None):
+        extra = {} if bboxes is None else {"bboxes": bboxes}
+        return self.model(video, {"orvit_bboxes": boxes}, **extra)
 
 
 def _eval_entry(cfg, device, batch, seed):
@@ -555,3 +566,70 @@ def mvit_train_entry(device="cuda", batch: int = 8, seed: int = 0,
 
     return (TrainStep(model, state, step_without_metadata),
             mvit_inputs(cfg, batch, seed, device, labels=True))
+
+
+MOE_YAML = os.path.join(CONFIGS, "TPU", "SSv2_MF_224_16x4_pp_moe.yaml")
+# the yaml's mesh is dp x pp2 x ep2 over 8 TPU chips; on one card every
+# expert and every block sits on the card
+ONE_CARD = ["TPU.MESH.PIPE", 1, "TPU.MESH.EXPERT", 1, "NUM_GPUS", 1]
+
+
+def moe_cfg(tiny: bool = False):
+    """``configs/TPU/SSv2_MF_224_16x4_pp_moe.yaml`` with ``ONE_CARD``'s
+    overrides (without them the port refuses the yaml's pipeline and expert
+    axes, ``models/build.check_mesh``). ``tiny`` is the flagship's CPU size
+    (D=24 over 4 blocks of 2 heads, 56-pixel patches, 4 frames, float32),
+    the 4 experts kept."""
+    cfg = get_cfg()
+    cfg.merge_from_file(MOE_YAML)
+    cfg.merge_from_list(ONE_CARD)
+    if tiny:
+        cfg.DATA.NUM_FRAMES = 4
+        cfg.MF.PATCH_SIZE = 56
+        cfg.MF.EMBED_DIM = 24
+        cfg.MF.DEPTH = 4
+        cfg.MF.NUM_HEADS = 2
+        cfg.MF.TEMPORAL_RESOLUTION = 2
+        cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def moe_entry(device="cuda", batch: int = 8, seed: int = 0,
+              tiny: bool = False):
+    """(fn, (video,)): the Switch-MoE Motionformer's eval forward,
+    ``fn(video) -> probabilities [batch, 174]``, from the JAX package's
+    initialisers (seeded with ``seed``), and a clip batch [batch, 16, 224,
+    224, 3] in [0, 1) drawn as ``example_inputs`` draws it, on ``device``
+    (CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    cfg = moe_cfg(tiny)
+    model = build_model(cfg, device=device, seed=seed)
+    return EvalForward(model), example_inputs(cfg, batch, seed, device)[:1]
+
+
+def moe_train_entry(device="cuda", batch: int = 8, seed: int = 0,
+                    tiny: bool = False):
+    """(fn, (video, labels)): one AdamW step of the Switch-MoE Motionformer
+    a call (``fn(video, labels) -> {"loss", "moe_aux", "top1_err",
+    "top5_err"}`` on the device; the loss includes AUX_LOSS_WEIGHT times
+    ``moe_aux``) from the JAX package's initialisers (seeded with
+    ``seed``), on ``device`` (CUDA unless the caller asks for the CPU); 100
+    steps an epoch, as ``train_entry``. Batch 8 is the yaml's 48 over its 8
+    chips rounded up to the flagship's."""
+    from focus_tpu_torch.engine.trainer import (
+        build_supervised_state,
+        make_supervised_train_step,
+    )
+    from focus_tpu_torch.models.losses import get_loss_func
+
+    device = resolve_device(device)
+    cfg = moe_cfg(tiny)
+    model = build_model(cfg, device=device, seed=seed)
+    state = build_supervised_state(cfg, model, STEPS_PER_EPOCH)
+    step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
+
+    def step_without_metadata(state, video, labels):
+        return step(state, video, labels, {})
+
+    video, labels, _ = example_inputs(cfg, batch, seed, device, labels=True)
+    return TrainStep(model, state, step_without_metadata), (video, labels)

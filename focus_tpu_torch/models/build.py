@@ -36,6 +36,27 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+MESH_AXES = ("PIPE", "SEQ", "MODEL", "EXPERT")
+
+
+def check_mesh(cfg) -> None:
+    """Raise, before anything is built, where ``TPU.MESH`` asks for a
+    pipeline, sequence, model or expert axis above 1: the port runs one
+    process on one card (``MESH.DATA`` aside), and those layouts change
+    what the JAX package builds (``PIPE`` pipelines the trajectory blocks)
+    or refuse a single device (``focus_tpu/parallel/mesh.py``). On one card
+    a MoE config runs with ``TPU.MESH.PIPE 1 TPU.MESH.EXPERT 1``: every
+    expert on the card."""
+    mesh = cfg.TPU.MESH
+    over = [f"TPU.MESH.{k} {mesh[k]}" for k in MESH_AXES
+            if int(mesh.get(k, 1) or 1) > 1]
+    if over:
+        raise NotImplementedError(
+            f"{', '.join(over)}: the port runs no pipeline, sequence, model "
+            "or expert axis yet (ROADMAP.md section 1 item 8, more than one "
+            "process); set them to 1 to run on one card")
+
+
 def _trunc_normal_(t, std, generator):
     """Truncated normal in [-2 std, 2 std] (inverse-CDF sampling)."""
     lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, \
@@ -125,9 +146,10 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     lecun normal); the token dictionary is N(0, 1), ``pe`` a truncated
     normal of std 1, ``bos`` / ``slot_mu`` / ``slot_log_sigma`` and the GRU's
     ``weight_ih`` xavier-uniform, ``weight_hh`` orthogonal; otherwise a
-    truncated normal, std 0.02, for dense kernels, the class token and
-    position embeddings; xavier-uniform patch-embed kernel; zero biases, box
-    categories and temporal embedding; unit norm scales, and zero ones for
+    truncated normal, std 0.02, for dense kernels (the MoE experts' stacked
+    ones too), the class token and position embeddings; xavier-uniform
+    patch-embed kernel; zero biases, box categories and temporal embedding;
+    unit norm scales, and zero ones for
     the BatchNorms marked ``zero_init`` (``RESNET.ZERO_INIT_FINAL_BN``).
     BatchNorm running statistics are reset (mean 0, variance 1).
     ``scale=s``: every parameter drawn from
@@ -157,7 +179,8 @@ def init_weights(model: nn.Module, generator: torch.Generator,
             fan_in, fan_out = _fans(p.shape)
             _uniform_(p, math.sqrt(6.0 / (fan_in + fan_out)), generator)
         elif leaf in ("cls_token", "pos_embed", "pos_embed_spatial",
-                      "pos_embed_temporal", "pos_embed_class") or (
+                      "pos_embed_temporal", "pos_embed_class", "kernel1",
+                      "kernel2") or (
             leaf == "weight" and p.ndim == 2
         ):
             _trunc_normal_(p, 0.02, generator)
@@ -193,11 +216,11 @@ def build_model(cfg, device="cuda", seed=None):
     import focus_tpu_torch.models.steve.steve  # noqa: F401 (registration)
 
     device = resolve_device(device)
+    check_mesh(cfg)
     if cfg.MODEL.MODEL_NAME not in MODEL_REGISTRY:
         raise NotImplementedError(
             f"MODEL.MODEL_NAME {cfg.MODEL.MODEL_NAME}: not a model of the "
-            f"port, which builds {sorted(MODEL_REGISTRY)} (the MoE layers of "
-            "models/moe.py are not ported yet)"
+            f"port, which builds {sorted(MODEL_REGISTRY)}"
         )
     model_cls = MODEL_REGISTRY[cfg.MODEL.MODEL_NAME]
     with torch.device("meta"):

@@ -106,18 +106,16 @@ class X3DHead(nn.Module):
 
 class ResNetRoIHead(nn.Module):
     """Detection head (reference head_helper.py:11-130): each pathway's
-    volume averaged over time, RoIAlign (``aligned``, adaptive sampling) of
-    the boxes ``[B, O, 4]`` (xyxy, input pixels), a spatial max, the
-    pathways concatenated, dropout, the projection and the activation:
-    ``[B, O, K]``. Training and eval differ only in dropout."""
+    volume averaged over time, RoIAlign (adaptive sampling; ``aligned``
+    False is the Caffe2 form, ``DETECTION.ALIGNED``) of the boxes
+    ``[B, O, 4]`` (xyxy, input pixels), a spatial max, the pathways
+    concatenated, dropout, the projection and the activation: ``[B, O, K]``.
+    Training and eval differ only in dropout."""
 
     def __init__(self, dim_in, num_classes, resolution, scale_factor,
                  dropout_rate=0.0, act_func="softmax", aligned=True):
         super().__init__()
-        if not aligned:
-            raise NotImplementedError(
-                "DETECTION.ALIGNED False: the port's RoIAlign takes the "
-                "aligned form alone")
+        self.aligned = bool(aligned)
         self.resolution = [tuple(r) for r in resolution]
         self.scale_factor = list(scale_factor)
         self.dropout_rate, self.act_func = dropout_rate, act_func
@@ -128,7 +126,7 @@ class ResNetRoIHead(nn.Module):
         for p, volume in enumerate(inputs):
             feat = volume.mean(dim=2).permute(0, 2, 3, 1)  # [B, H, W, C]
             out = roi_align(feat, bboxes, self.resolution[p],
-                            1.0 / self.scale_factor[p])
+                            1.0 / self.scale_factor[p], self.aligned)
             pooled.append(out.amax(dim=(2, 3)))  # [B, O, C]
         x = dropout(torch.cat(pooled, dim=-1), self.dropout_rate, train,
                     generator)

@@ -13,8 +13,11 @@ activations at the compute dtype (``TPU.COMPUTE_DTYPE``), LayerNorm
 statistics in float32 with eps 1e-6, the classifier head and the eval
 softmax in float32. ``forward(train=True)`` returns float32 logits and
 applies stochastic depth (``DropPath``) from an explicit
-``torch.Generator``. The unscanned, unpipelined form, without MoE or
-dropout.
+``torch.Generator``. The unscanned, unpipelined form, without dropout.
+``TPU.MOE.NUM_EXPERTS > 1`` makes the MLP of every trajectory block a
+Switch-routed MoE (``models/moe.py``; ORViT blocks keep the dense MLP); a
+train-mode forward given a list as ``moe_aux`` appends each MoE layer's
+load-balance value to it, in block order.
 
 Trajectory attention takes both of the reference's forms: the original
 code (the default; the fused trajectory core, whose kernel version the
@@ -43,6 +46,7 @@ from torch import nn
 
 from focus_tpu_torch.models.build import register
 from focus_tpu_torch.models.common import layer_norm, linear
+from focus_tpu_torch.models.moe import MoEMlp
 from focus_tpu_torch.ops import attention as attn_ops
 from focus_tpu_torch.ops.patch_embed import patch_embed_3d, patch_embed_reference
 from focus_tpu_torch.ops.quant import quantized_linear
@@ -198,26 +202,39 @@ class TrajectoryAttention(nn.Module):
 
 
 class TrajectoryAttentionBlock(nn.Module):
-    """(reference attention.py:443-476)"""
+    """(reference attention.py:443-476); with ``moe_experts`` > 1 its MLP is
+    ``moe.MoEMlp`` (JAX ``_block_mlp``), whose experts stay at the compute
+    dtype under ``int8_dense``."""
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, qkv_bias=False,
                  attn_drop=0.0, drop_path_rate=0.0, fast_gelu=False,
-                 int8_dense=False, use_original_code=True):
+                 int8_dense=False, use_original_code=True, moe_experts=0,
+                 moe_capacity=1.25):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = TrajectoryAttention(dim, num_heads, qkv_bias, attn_drop,
                                         int8_dense, use_original_code)
         self.drop_path = DropPath(drop_path_rate)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu=fast_gelu,
-                       int8_dense=int8_dense)
+        self.moe = moe_experts > 1
+        if self.moe:
+            self.mlp = MoEMlp(dim, int(dim * mlp_ratio), moe_experts,
+                              moe_capacity, fast_gelu=fast_gelu)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu=fast_gelu,
+                           int8_dense=int8_dense)
 
     def forward(self, x, metadata, thw, use_kernels=True, train=False,
-                generator=None):
+                generator=None, moe_aux=None):
         y = self.attn(layer_norm(x, self.norm1), thw, use_kernels=use_kernels,
                       train=train)
         x = x + self.drop_path(y, train, generator)
-        y = self.mlp(layer_norm(x, self.norm2), train)
+        if self.moe:
+            y, aux = self.mlp(layer_norm(x, self.norm2), train, generator)
+            if moe_aux is not None:
+                moe_aux.append(aux)
+        else:
+            y = self.mlp(layer_norm(x, self.norm2), train)
         return x + self.drop_path(y, train, generator)
 
 
@@ -356,7 +373,6 @@ class Motionformer(nn.Module):
 
         c = cfg
         unported = {
-            "MoE block MLPs": int(c.TPU.MOE.NUM_EXPERTS or 0) > 1,
             "MF.POS_EMBED other than 'separate' on video input":
                 c.MF.POS_EMBED != "separate" or not c.MF.VIDEO_INPUT,
             "MF.HEAD_ACT other than 'tanh'": c.MF.USE_MLP and c.MF.HEAD_ACT != "tanh",
@@ -398,6 +414,8 @@ class Motionformer(nn.Module):
                     c.MF.ATTN_DROPOUT, drop_path_rate=dpr[i],
                     fast_gelu=bool(c.TPU.FAST_GELU),
                     int8_dense=bool(c.TPU.INT8_SERVING),
+                    moe_experts=int(c.TPU.MOE.NUM_EXPERTS or 0),
+                    moe_capacity=float(c.TPU.MOE.CAPACITY_FACTOR),
                 ))
         self.blocks = nn.ModuleList(blocks)
         self.norm = nn.LayerNorm(D, eps=1e-6)
@@ -429,24 +447,29 @@ class Motionformer(nn.Module):
         side = int(npatch ** 0.5)
         return tokens, (self.temporal_resolution, side, side)
 
-    def forward_features(self, x, metadata, train=False, generator=None):
+    def forward_features(self, x, metadata, train=False, generator=None,
+                         moe_aux=None):
         """x: [B, T, H, W, C] -> pooled feature [B, d]."""
         tokens, thw = self.tokenize(x)
         for blk in self.blocks:
+            extra = {"moe_aux": moe_aux} if getattr(blk, "moe", False) else {}
             tokens = blk(tokens, metadata, thw, use_kernels=self.use_kernels,
-                         train=train, generator=generator)
+                         train=train, generator=generator, **extra)
         feat = layer_norm(tokens, self.norm)[:, 0]
         if self.cfg.MF.USE_MLP:
             feat = torch.tanh(linear(feat, self.pre_logits.fc))
         return feat
 
-    def forward(self, x, metadata=None, train: bool = False, generator=None):
+    def forward(self, x, metadata=None, train: bool = False, generator=None,
+                moe_aux=None):
         """Class probabilities [B, num_classes] in float32; with ``train``,
         the float32 logits, stochastic depth drawn from ``generator``. The
         EPIC-Kitchens model returns ``(verb, {"verb": verb, "noun": noun})``
         as the JAX model does, probabilities [B, 97] and [B, 300] (logits
-        with ``train``)."""
-        feat = self.forward_features(x, metadata or {}, train, generator)
+        with ``train``). ``moe_aux``, a list, receives each MoE layer's
+        load-balance value (a tensor in the graph), in block order."""
+        feat = self.forward_features(x, metadata or {}, train, generator,
+                                     moe_aux)
         # the heads run in float32, as flax promotes bf16 features against
         # its float32 kernel
         heads = (self.head0, self.head1) if self.ek_heads else (self.head,)

@@ -8,12 +8,15 @@ matrices per box,
 
     out[o, i, j, c] = sum_{y, x}  Wy[o, i, y] * Wx[o, j, x] * feat[y, x, c].
 
-Semantics match torchvision with ``aligned=True`` and ``sampling_ratio=-1``
-(adaptive ceil(bin_size) samples per bin, emulated with a static max sample
-count and masking), including the boundary rules (positions < -1 or > size
-are dropped; otherwise clamped to [0, size-1]). Empty or degenerate boxes
-give all-zero weight rows. These are the only settings the model uses; the
-JAX function's ``sampling_ratio > 0`` and ``aligned=False`` are not ported.
+Semantics match torchvision with ``sampling_ratio=-1`` (adaptive
+ceil(bin_size) samples per bin, emulated with a static max sample count and
+masking), including the boundary rules (positions < -1 or > size are
+dropped; otherwise clamped to [0, size-1]), in both forms: ``aligned=True``
+shifts the box by half a pixel, ``aligned=False`` (``DETECTION.ALIGNED
+False``, the Caffe2 yamls') does not and takes each box at least one pixel
+wide and tall. Empty or degenerate boxes give all-zero weight rows in the
+aligned form. The JAX function's ``sampling_ratio > 0`` is not ported: the
+models take the adaptive count alone.
 """
 
 from __future__ import annotations
@@ -53,9 +56,9 @@ def _axis_weights(start, roi_size, n_out: int, n_in: int, max_samples: int):
     return w.sum(dim=2) / count[:, None, None]  # [O, n_out, n_in]
 
 
-def roi_align(features, boxes, output_size, spatial_scale: float):
-    """RoIAlign (``aligned=True``, ``sampling_ratio=-1``) over a batch of
-    feature maps, NHWC.
+def roi_align(features, boxes, output_size, spatial_scale: float,
+              aligned: bool = True):
+    """RoIAlign (``sampling_ratio=-1``) over a batch of feature maps, NHWC.
 
     features: [N, H, W, C]
     boxes: [N, O, 4] xyxy in *input-image* coordinates (one fixed set of O
@@ -67,9 +70,13 @@ def roi_align(features, boxes, output_size, spatial_scale: float):
     dtype = torch.promote_types(features.dtype, torch.float32)
     boxes = boxes.to(dtype)
 
-    x0, y0, x1, y1 = (boxes * spatial_scale - 0.5).unbind(-1)
+    offset = 0.5 if aligned else 0.0
+    x0, y0, x1, y1 = (boxes * spatial_scale - offset).unbind(-1)
     roi_w = x1 - x0
     roi_h = y1 - y0
+    if not aligned:
+        roi_w = roi_w.clamp_min(1.0)
+        roi_h = roi_h.clamp_min(1.0)
 
     max_s_h = max(1, math.ceil(H / n_out_h) + 1)
     max_s_w = max(1, math.ceil(W / n_out_w) + 1)

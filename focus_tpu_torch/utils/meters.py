@@ -2,10 +2,11 @@
 windowed scalar, the train loop's ``TrainMeter``, ``ValMeter`` and
 ``EPICValMeter`` (the same json lines as the JAX package's), and the
 multi-view ensembles of the test path, ``TestMeter`` and ``EPICTestMeter``,
-and the slot trainer's running average ``MetricTracker``.
+the slot trainer's running average ``MetricTracker``, and ``AVAMeter``,
+AVA's frame mAP under the official protocol where the annotation files
+exist, else against the ground truth buffered from the batches.
 The JAX train loop logs EPIC-Kitchens training through ``TrainMeter`` (no
-top-k), so ``EPICTrainMeter`` is not ported; the AVA meter comes with the
-detection path.
+top-k), so ``EPICTrainMeter`` is not ported.
 
 Timing is wall-clock on the host; the train loop brings its stats to the
 host once per LOG_PERIOD, where the meters see them.
@@ -126,7 +127,8 @@ class EpochTimer:
 
 class TrainMeter:
     """Iteration/epoch statistics for supervised training
-    (reference meters.py:462-613)."""
+    (reference meters.py:462-613); a MoE model's load-balance value
+    (``moe_aux``) beside the loss in the iteration lines."""
 
     def __init__(self, epoch_iters: int, cfg):
         self.cfg = cfg
@@ -140,12 +142,14 @@ class TrainMeter:
         self.lr = None
         self.mb_top1_err = ScalarMeter(cfg.LOG_PERIOD)
         self.mb_top5_err = ScalarMeter(cfg.LOG_PERIOD)
+        self.moe_aux = ScalarMeter(cfg.LOG_PERIOD)
         self.num_top1_mis = 0
         self.num_top5_mis = 0
         self.num_samples = 0
 
     def reset(self):
         self.loss.reset()
+        self.moe_aux.reset()
         self.loss_total = 0.0
         self.lr = None
         self.mb_top1_err.reset()
@@ -166,8 +170,11 @@ class TrainMeter:
         self.data_timer.pause()
         self.net_timer.reset()
 
-    def update_stats(self, top1_err, top5_err, loss, lr, mb_size):
+    def update_stats(self, top1_err, top5_err, loss, lr, mb_size,
+                     moe_aux=None):
         self.loss.add_value(loss)
+        if moe_aux is not None:
+            self.moe_aux.add_value(moe_aux)
         self.lr = lr
         self.loss_total += loss * mb_size
         self.num_samples += mb_size
@@ -193,6 +200,8 @@ class TrainMeter:
         if self.mb_top1_err.count > 0:
             stats["top1_err"] = self.mb_top1_err.get_win_median()
             stats["top5_err"] = self.mb_top5_err.get_win_median()
+        if self.moe_aux.count > 0:
+            stats["moe_aux"] = self.moe_aux.get_win_median()
         logging.log_json_stats(stats)
 
     def log_epoch_stats(self, cur_epoch: int):
@@ -522,3 +531,147 @@ class TestMeter:
         self.stats = stats
         logging.log_json_stats(stats)
         return stats
+
+
+class AVAMeter:
+    """Buffers detection predictions for frame-mAP (reference meters.py:50-232;
+    ``focus_tpu/utils/meters.py`` ``AVAMeter``).
+
+    When the official annotation files exist (cfg.AVA.ANNOTATION_DIR +
+    EXCLUSION_FILE / LABEL_MAP_FILE / GROUNDTRUTH_FILE), evaluation
+    follows the published protocol: GT from the official CSV, excluded
+    timestamps dropped, classes restricted to the labelmap whitelist
+    (reference meters.py:73-87 + ava_eval_helper.py). Otherwise it falls
+    back to scoring against the ground truth buffered from the batches
+    (synthetic-data tests)."""
+
+    def __init__(self, overall_iters, cfg, mode, video_idx_to_name=None):
+        import os
+
+        from focus_tpu_torch.utils import ava_eval
+
+        self.cfg = cfg
+        self.mode = mode
+        self.iter_timer = Timer()
+        self.all_preds = []
+        self.all_ori_boxes = []
+        self.all_masks = []
+        self.all_keys = []
+        self.all_labels = []
+        self.full_map = 0.0
+        self.full_ava_test = cfg.AVA.FULL_TEST_ON_VAL
+        self.video_idx_to_name = video_idx_to_name
+
+        ann = cfg.AVA.ANNOTATION_DIR
+        self.excluded_keys = ava_eval.read_exclusions(
+            os.path.join(ann, cfg.AVA.EXCLUSION_FILE) if ann else None
+        )
+        self.categories, self.class_whitelist = ava_eval.read_labelmap(
+            os.path.join(ann, cfg.AVA.LABEL_MAP_FILE) if ann else None
+        )
+        gt_path = os.path.join(ann, cfg.AVA.GROUNDTRUTH_FILE) if ann else ""
+        if gt_path and os.path.exists(gt_path):
+            self.full_groundtruth = ava_eval.read_csv(
+                gt_path, self.class_whitelist or None
+            )
+            self.mini_groundtruth = ava_eval.get_ava_mini_groundtruth(
+                self.full_groundtruth
+            )
+        else:
+            self.full_groundtruth = None
+            self.mini_groundtruth = None
+
+    def reset(self):
+        self.all_preds.clear()
+        self.all_ori_boxes.clear()
+        self.all_masks.clear()
+        self.all_keys.clear()
+        self.all_labels.clear()
+
+    def iter_tic(self):
+        self.iter_timer.reset()
+
+    def iter_toc(self):
+        self.iter_timer.pause()
+
+    def update_stats(self, preds, ori_boxes, masks, video_keys, labels=None):
+        self.all_preds.extend(np.asarray(preds))
+        self.all_ori_boxes.extend(np.asarray(ori_boxes))
+        self.all_masks.extend(np.asarray(masks))
+        self.all_keys.extend(list(video_keys))
+        if labels is not None:
+            self.all_labels.extend(np.asarray(labels))
+
+    def log_iter_stats(self, cur_epoch, cur_iter):
+        if (cur_iter + 1) % self.cfg.LOG_PERIOD != 0:
+            return
+        logging.log_json_stats(
+            {
+                "_type": f"ava_{self.mode}_iter",
+                "cur_iter": cur_iter + 1,
+                "time_diff": self.iter_timer.seconds(),
+            }
+        )
+
+    def finalize_metrics(self):
+        from collections import defaultdict
+
+        from focus_tpu_torch.utils import ava_eval
+
+        if self.full_groundtruth is not None:
+            # official protocol: GT from csv, exclusions, class whitelist
+            det_boxes = defaultdict(list)
+            det_labels = defaultdict(list)
+            det_scores = defaultdict(list)
+            for preds, boxes, mask, key in zip(
+                self.all_preds, self.all_ori_boxes, self.all_masks,
+                self.all_keys,
+            ):
+                valid = mask > 0
+                for b, p in zip(boxes[valid], preds[valid]):
+                    box = [b[1], b[0], b[3], b[2]]  # -> [y1,x1,y2,x2]
+                    for cls_idx, score in enumerate(p):
+                        if (
+                            not self.class_whitelist
+                            or (cls_idx + 1) in self.class_whitelist
+                        ):
+                            det_boxes[key].append(box)
+                            det_labels[key].append(cls_idx + 1)
+                            det_scores[key].append(float(score))
+            gt = (
+                self.full_groundtruth
+                if (self.mode == "test" or self.full_ava_test)
+                else self.mini_groundtruth
+            )
+            result = ava_eval.run_evaluation(
+                self.categories, gt, (det_boxes, det_labels, det_scores),
+                self.excluded_keys,
+            )
+        else:
+            groundtruth = []
+            for boxes, mask, key, labels in zip(
+                self.all_ori_boxes, self.all_masks, self.all_keys,
+                self.all_labels,
+            ):
+                valid = mask > 0
+                b = boxes[valid]
+                l = labels[valid]
+                rows_b, rows_c = [], []
+                for bi in range(len(b)):
+                    for c in np.nonzero(l[bi])[0]:
+                        rows_b.append(b[bi])
+                        rows_c.append(c + 1)
+                if rows_b:
+                    groundtruth.append(
+                        (key, np.asarray(rows_b), np.asarray(rows_c))
+                    )
+            result = ava_eval.run_evaluation_from_buffers(
+                self.all_preds, self.all_ori_boxes, self.all_masks,
+                self.all_keys, self.cfg.MODEL.NUM_CLASSES,
+                groundtruth=groundtruth,
+            )
+        self.full_map = result["map"]
+        logging.log_json_stats(
+            {"_type": "ava_final", "mode": self.mode, "map": self.full_map}
+        )
+        return result

@@ -33,7 +33,11 @@ MViT):
   ``pool_q/norm`` -> ``norm_q`` (and k, v; the depthwise kernel
   ``[kt, kh, kw, 1, C]`` transposed as every Conv3d kernel);
 - a scanned stack ``blocks_{a}_{b}/body/...`` (leading layer axis) is
-  unstacked into ``blocks.{a+j}.*``.
+  unstacked into ``blocks.{a+j}.*``;
+- a MoE MLP's router is a Dense (``mlp/router/kernel`` ->
+  ``mlp.router.weight``, transposed) and its stacked experts
+  (``mlp/experts/{kernel1,bias1,kernel2,bias2}``) keep their layout and
+  names.
 
 ``load_jax_params`` loads the result with missing, unexpected or
 mis-shaped keys reported as errors; BatchNorm ``batch_stats`` (``mean``,

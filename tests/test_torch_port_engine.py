@@ -449,10 +449,10 @@ def test_cli_runs_the_test_path_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("TPU.MOE.NUM_EXPERTS", 2, "MoE"),
+    ("TPU.MESH.PIPE", 2, "TPU.MESH.PIPE 2"),
     ("DEMO.ENABLE", True, "DEMO"),
     ("TENSORBOARD.MODEL_VIS.ENABLE", True, "MODEL_VIS"),
-    ("DETECTION.ENABLE", True, "AVA"),
+    ("TPU.MESH.MODEL", 2, "TPU.MESH.MODEL 2"),
     ("TENSORBOARD.HISTOGRAM.ENABLE", True, "HISTOGRAM"),
     ("MODEL.LOAD_IN_PRETRAIN", "vit.pth", "LOAD_IN_PRETRAIN"),
     ("--num_shards", 2, "more than one process"),

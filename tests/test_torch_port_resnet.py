@@ -447,16 +447,18 @@ def test_batch_norm_train_update_is_flaxs():
 
 @pytest.mark.parametrize("name", ["kinetics", "charades", "ava"])
 def test_unported_video_datasets_raise(name):
-    """AVA is not ported: building it raises ``NotImplementedError``, naming
-    it. Kinetics and Charades are (``datasets/kinetics.py``,
-    ``charades.py``): they read the split's list at once, so without one
-    they raise there, naming the missing file."""
+    """Kinetics, Charades and AVA are ported (``datasets/kinetics.py``,
+    ``charades.py``, ``ava_dataset.py``): they read the split's list at
+    once, so without one they raise there, naming the missing file (AVA's
+    frame list under ``AVA.FRAME_LIST_DIR``)."""
     from focus_tpu_torch.datasets.build import build_dataset
 
     cfg = get_cfg()
     cfg.DATA.PATH_TO_DATA_DIR = "/nonexistent/k400"
     if name == "ava":
-        with pytest.raises(NotImplementedError, match="Ava"):
+        cfg.AVA.FRAME_LIST_DIR = "/nonexistent/ava"
+        with pytest.raises(FileNotFoundError,
+                           match="/nonexistent/ava/" + cfg.AVA.TRAIN_LISTS[0]):
             build_dataset(name, cfg, "train")
     else:
         with pytest.raises((AssertionError, FileNotFoundError),
