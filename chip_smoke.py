@@ -170,6 +170,18 @@ Phases (one JSON line each; any failure exits non-zero):
      the wait share, the host's ms per clip); MViT-B 16x4's AVA forward and
      step; the Caffe2 RoIAlign (``DETECTION.ALIGNED False``) against
      float32.
+ 21. data parallelism and multigrid: the flagship train loop (mixup on)
+     through ``tools.run_net.launch_job`` with ``init_distributed`` at world
+     1 on NCCL (the gradient all-reduce, mixup's partner all-gather, the
+     eval gathers through NCCL; 12 + 12 + 1 launches a step), then two
+     ranks spawned on the one card (gloo: NCCL refuses two ranks on one
+     device) at global batch 8 under TPU.GRAD_ACCUM 2 against one process
+     (losses 1e-3, the update 5e-2, the test ensembles 1e-3, every val and
+     test clip once), the step's ms and the all-reduce's share by CUDA
+     events; configs/Kinetics/SLOWFAST_8x8_R50_stepwise_multigrid.yaml on
+     one process (reads substituted as in phase 18, cut to 7 epochs) through
+     every long-cycle shape and short-cycle phase: the LR of every step
+     against the rewritten schedule, a line per shape.
 Then the kernel table, the card's nvidia-smi line, and the result line.
 The script imports nothing of JAX.
 """
@@ -6911,6 +6923,511 @@ def phase_ava(smi):
         raise AssertionError(f"AVA phase failed: {failed}")
 
 
+# Data parallelism and multigrid (phase 21): the flagship train loop over
+# torch.distributed, at world 1 through NCCL and at two ranks on the one
+# card through gloo, against one process; then the Kinetics multigrid yaml
+# through its long and short cycles. The package's logs go to DDP_LOG (and
+# DDP_LOG's rank files for the spawned ranks), not to stdout.
+DDP_DIR = os.path.join(REPO, "build", "ddp_engine")
+DDP_LOG = os.path.join(REPO, "build", "ddp_engine.log")
+DDP_BATCH = 8  # global batch: 4 a rank at two ranks
+DDP_STEPS = 4  # one epoch
+DDP_VAL = 12  # val clips: two batches, the second with 4 pad rows
+DDP_TEST_VIDEOS = 4  # x 3 crops: 12 clips, two batches, 4 pad rows
+DDP_RANKS = 2
+# two ranks against one process on the same batches, bf16 on the card: each
+# step's loss within this share of it (the first too: the same weights and
+# batch, the microbatches and the BN-free model's rows split otherwise); the
+# update |2-rank - 1-rank| / |1-rank - initial| (relative L2) within
+# DDP_UPDATE_REL, phase 18's rule; the ensembled probabilities within
+# DDP_ENSEMBLE_ATOL (phase 13's)
+DDP_LOSS_REL = 1e-3
+DDP_UPDATE_REL = 5e-2
+DDP_ENSEMBLE_ATOL = 1e-3
+MG_YAML = "Kinetics/SLOWFAST_8x8_R50_stepwise_multigrid.yaml"
+# TRAIN.BATCH_SIZE (DEFAULT_B): the yaml's 64 over its NUM_GPUS 8, so the
+# one card holds what each of the yaml's cards holds
+MG_BATCH = 8
+MG_EPOCH_FACTOR = 0.03  # cut from 1.5: the schedule ends at epoch 7
+MG_TRAIN_CLIPS = 448  # one short cycle [256, 128, 64] at the largest B
+MG_VAL_CLIPS = 8
+MG_PRECISE = 2  # BN.NUM_BATCHES_PRECISE, cut from 200
+
+
+class DDPTestClips(TestClips):
+    VIDEOS = DDP_TEST_VIDEOS
+    EK = False
+
+
+def ddp_splits():
+    """The flagship's in-script splits: TrainClips for train (one epoch)
+    and val, DDPTestClips for test."""
+    def make(cfg, mode):
+        if mode == "test":
+            return DDPTestClips(cfg, mode)
+        return TrainClips(cfg, mode, DDP_BATCH * DDP_STEPS if mode == "train"
+                          else DDP_VAL, False)
+
+    return {"Chip_ddp_ssv2": make}
+
+
+def ddp_cfg(out_dir, backend, accum):
+    """Phase 14's flagship (entry.flagship_cfg with the SSv2 yaml's solver
+    and drop path 0.2) with mixup on, at global batch DDP_BATCH under
+    TPU.GRAD_ACCUM ``accum``: one epoch, one validation, then the test of
+    DDP_TEST_VIDEOS x 3 crops."""
+    from focus_tpu_torch.entry import flagship_cfg
+
+    cfg = flagship_cfg()
+    cfg.MODEL.ARCH = "slow"
+    cfg.TRAIN.DATASET = cfg.TEST.DATASET = "chip_ddp_ssv2"
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = DDP_BATCH
+    cfg.TEST.NUM_ENSEMBLE_VIEWS, cfg.TEST.NUM_SPATIAL_CROPS = 1, 3
+    cfg.TPU.GRAD_ACCUM = accum
+    cfg.MIXUP.ENABLE = True
+    s = cfg.SOLVER
+    s.OPTIMIZING_METHOD, s.BASE_LR, s.WEIGHT_DECAY = "adamw", 5e-5, 5e-2
+    s.LR_POLICY, s.LRS, s.STEPS = "steps_with_relative_lrs", [1, 0.1, 0.01], \
+        [0, 20, 30]
+    s.MAX_EPOCH, s.WARMUP_EPOCHS = 1, 0.0
+    cfg.MF.DROP_PATH = 0.2
+    cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 1
+    cfg.TRAIN.AUTO_RESUME = False
+    cfg.TENSORBOARD.ENABLE = False
+    cfg.DATA_LOADER.NUM_WORKERS = 4
+    cfg.LOG_PERIOD = 1
+    cfg.DIST_BACKEND = backend
+    cfg.NUM_GPUS = 1
+    cfg.OUTPUT_DIR = out_dir
+    return cfg
+
+
+@contextlib.contextmanager
+def timed_steps():
+    """Every train step (``make_supervised_train_step``'s) and every
+    gradient all-reduce (``parallel.mesh.all_reduce_mean_``, which the
+    optimizer calls) between CUDA events; yields {"step": [ms],
+    "all_reduce": [ms]}, filled at the exit."""
+    from focus_tpu_torch.engine import trainer
+    from focus_tpu_torch.parallel import mesh
+
+    make, reduce_ = trainer.make_supervised_train_step, mesh.all_reduce_mean_
+    events = {"step": [], "all_reduce": []}
+    times = {"step": [], "all_reduce": []}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events[key].append((start, end))
+            return out
+
+        return run
+
+    trainer.make_supervised_train_step = lambda *a: timed(make(*a), "step")
+    mesh.all_reduce_mean_ = timed(reduce_, "all_reduce")
+    try:
+        yield times
+    finally:
+        trainer.make_supervised_train_step, mesh.all_reduce_mean_ = \
+            make, reduce_
+        torch.cuda.synchronize()
+        for key, pairs in events.items():
+            times[key].extend(s.elapsed_time(e) for s, e in pairs)
+
+
+def ddp_loop(cfg):
+    """The flagship's train loop and test through ``tools.run_net``'s
+    ``launch_job`` (a direct call: the process group, if any, is set up),
+    each ``counted``; returns the runs, their launches, the step and
+    all-reduce times, the initial parameters, and the meters' ensembles."""
+    from focus_tpu_torch.engine import tester, trainer
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.tools import run_net
+
+    init = host_params(build_model(cfg, DEV))  # as the loop builds it
+    torch.cuda.empty_cache()
+    runs = {"train": [], "test": []}
+    with registered_splits(ddp_splits()), epoch_seeded_splits(), \
+            captured_engine(runs), timed_steps() as times:
+        run_net.launch_job(cfg, None, trainer.train, DEV)
+        run_net.launch_job(cfg, None, tester.test, DEV)
+    (run, launches, peak), = runs["train"]
+    (test_run, test_launches, test_peak), = runs["test"]
+    meter = test_run.meter
+    out = {"losses": run.losses, "val_stats": run.val_stats,
+           "val_clips": run.val_clips, "steps": run.steps, "clips": run.clips,
+           "params": host_params(run.state.model), "init": init,
+           "launches": launches, "test_launches": test_launches,
+           "peak_memory_gb": peak, "test_peak_memory_gb": test_peak,
+           "test_stats": test_run.stats, "test_clips": test_run.clips,
+           "test_counted": int(meter.seen_clips.sum()),
+           "ensembles": torch.from_numpy(np.asarray(meter.video_preds)),
+           "step_ms": times["step"], "all_reduce_ms": times["all_reduce"]}
+    del run, test_run
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_rank(local_rank, world, init_method, out_dir):
+    """One of the two ranks on the one card (spawned): gloo, both on
+    cuda:0, the loop of ``ddp_cfg`` under TPU.GRAD_ACCUM 2; its results to
+    ``rank<r>.pt`` under ``out_dir``."""
+    from focus_tpu_torch.parallel import mesh
+
+    cfg = ddp_cfg(os.path.join(out_dir, "run"), "gloo", 2)
+    mesh.init_distributed(cfg, local_rank, init_method, "cuda:0", world)
+    try:
+        with open(f"{DDP_LOG}.rank{local_rank}", "w") as log, \
+                contextlib.redirect_stdout(log):
+            result = ddp_loop(cfg)
+        torch.save(result, os.path.join(out_dir, f"rank{local_rank}.pt"))
+    finally:
+        mesh.destroy()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mean_after_first(ms):
+    return statistics.fmean(ms[1:]) if len(ms) > 1 else float("nan")
+
+
+def ddp_launch_expect(steps, accum, val_batches, test_batches, per_call):
+    depth = 12
+    micro = steps * accum
+    return ({"trajectory_block": depth * (micro + val_batches),
+             "trajectory_block_bwd": depth * micro,
+             "trajectory_block_bwd_device": depth * micro * per_call,
+             "patch_embed": micro + val_batches},
+            {"trajectory_block": depth * test_batches,
+             "patch_embed": test_batches})
+
+
+def launches_match(got, want):
+    return all(got.get(k, 0) == want.get(k, 0) for k in set(got) | set(want))
+
+
+def ddp_nccl_world1(per_call, problems):
+    """(a): NCCL at world 1 on the card through ``init_distributed``: the
+    gradient all-reduce, mixup's partner all-gather, the eval gathers and
+    the stats' all-reduce go through NCCL."""
+    from focus_tpu_torch.parallel import mesh
+
+    cfg = ddp_cfg(os.path.join(DDP_DIR, "nccl"), "nccl", 1)
+    device = mesh.init_distributed(cfg, 0, f"tcp://localhost:{_free_port()}",
+                                   DEV, 1)
+    try:
+        backend = torch.distributed.get_backend()
+        out = ddp_loop(cfg)
+    finally:
+        mesh.destroy()
+    want, test_want = ddp_launch_expect(DDP_STEPS, 1, 2, 2, per_call)
+    flat = [x for e in out["losses"] for x in e]
+    ok = (backend == "nccl" and str(device) == "cuda:0"
+          and launches_match(out["launches"], want)
+          and launches_match(out["test_launches"], test_want)
+          and out["steps"] == DDP_STEPS and all(map(math.isfinite, flat))
+          and out["val_clips"] == DDP_VAL
+          and out["test_counted"] == out["test_clips"] == 3 * DDP_TEST_VIDEOS
+          and len(out["all_reduce_ms"]) == DDP_STEPS)
+    if not ok:
+        problems.append(f"NCCL world 1: backend {backend}, launches "
+                        f"{out['launches']} / {out['test_launches']}, losses "
+                        f"{flat}, clips {out['val_clips']} "
+                        f"{out['test_counted']}")
+    step = _mean_after_first(out["step_ms"])
+    reduce_ = _mean_after_first(out["all_reduce_ms"])
+    return out, {
+        "backend": backend, "world": 1, "device": str(device),
+        "batch": DDP_BATCH, "grad_accum": 1, "steps": out["steps"],
+        "losses": flat, "val": out["val_stats"], "val_clips": out["val_clips"],
+        "test_stats": out["test_stats"],
+        "test_clips_counted": out["test_counted"],
+        "launches_train_loop": out["launches"],
+        "launches_test": out["test_launches"],
+        "launches_per_train_step": {"trajectory_block": 12,
+                                    "trajectory_block_bwd": 12,
+                                    "patch_embed": 1},
+        "step_ms": step, "all_reduce_ms": reduce_,
+        "all_reduce_share_of_step": reduce_ / step,
+        "peak_memory_gb": out["peak_memory_gb"]}
+
+
+def ddp_two_ranks(per_call, problems):
+    """(b): two ranks on the one card (gloo, both on cuda:0; NCCL refuses
+    two ranks on one device) spawned here through ``init_distributed``, the
+    loop at global batch DDP_BATCH (4 a rank) under mixup and TPU.GRAD_ACCUM
+    2, against one process (no process group) on the same batches."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(DDP_DIR, "gloo")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(ddp_rank, nprocs=DDP_RANKS,
+             args=(DDP_RANKS, f"tcp://localhost:{_free_port()}", out_dir))
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DDP_RANKS)]
+    cfg = ddp_cfg(os.path.join(DDP_DIR, "one"), "gloo", 2)
+    one = ddp_loop(cfg)
+    two = ranks[0]
+    a = [x for e in two["losses"] for x in e]
+    b = [x for e in one["losses"] for x in e]
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    init = one["init"]
+    update = params_rel_l2({k: two["params"][k] - init[k] for k in init},
+                           {k: one["params"][k] - init[k] for k in init})
+    ens = (two["ensembles"] - one["ensembles"]).abs().max().item()
+    same_ranks = all(torch.equal(ranks[1]["params"][k], two["params"][k])
+                     for k in two["params"]) and ranks[1]["losses"] == \
+        two["losses"]
+    val_err = max(abs(two["val_stats"][0][k] - v)
+                  for k, v in one["val_stats"][0].items() if k != "epoch")
+    # each rank's kernels: its microbatches of 2 clips, its val and test
+    # batches of 4 (every global batch's share)
+    want, test_want = ddp_launch_expect(DDP_STEPS, 2, 2, 2, per_call)
+    ok = (len(a) == len(b) == DDP_STEPS and max(loss_rel) <= DDP_LOSS_REL
+          and update <= DDP_UPDATE_REL and ens <= DDP_ENSEMBLE_ATOL
+          and same_ranks
+          and all(r["val_clips"] == DDP_VAL for r in ranks)
+          and all(r["test_counted"] == r["test_clips"] == 3 * DDP_TEST_VIDEOS
+                  for r in ranks)
+          and all(launches_match(r["launches"], want)
+                  and launches_match(r["test_launches"], test_want)
+                  for r in ranks)
+          and launches_match(one["launches"], want))
+    if not ok:
+        problems.append(
+            f"two ranks: losses {a} vs {b}, update {update:.3e}, ensembles "
+            f"{ens:.3e}, ranks agree {same_ranks}, val {val_err}, launches "
+            f"{[r['launches'] for r in ranks]} / {one['launches']}")
+    step2 = _mean_after_first(two["step_ms"])
+    reduce2 = _mean_after_first(two["all_reduce_ms"])
+    return {
+        "backend": "gloo", "world": DDP_RANKS, "device": "cuda:0 (both)",
+        "global_batch": DDP_BATCH, "grad_accum": 2, "mixup": True,
+        "losses_two_ranks": a, "losses_one_process": b,
+        "first_loss_rel_err": loss_rel[0], "max_loss_rel_err": max(loss_rel),
+        "update_rel_l2": update, "ensembles_max_abs_err": ens,
+        "val_stats_max_abs_err": val_err, "ranks_bit_equal": same_ranks,
+        "val_clips_counted": [r["val_clips"] for r in ranks],
+        "test_clips_counted": [r["test_counted"] for r in ranks],
+        "launches_train_loop_per_rank": [r["launches"] for r in ranks],
+        "launches_test_per_rank": [r["test_launches"] for r in ranks],
+        "step_ms_one_process": _mean_after_first(one["step_ms"]),
+        "step_ms_two_ranks": step2, "all_reduce_ms_two_ranks": reduce2,
+        "all_reduce_share_of_step": reduce2 / step2,
+        "spawn_and_run_seconds": spawn_s,
+        "rule": f"losses within {DDP_LOSS_REL} relative, update within "
+                f"{DDP_UPDATE_REL}, ensembles within {DDP_ENSEMBLE_ATOL}"}
+
+
+def multigrid_run(problems):
+    """(c): configs/Kinetics/SLOWFAST_8x8_R50_stepwise_multigrid.yaml on
+    one process through ``engine.trainer.run_train``, the file reads
+    substituted (``InScriptReaders``) and cut so that every long-cycle
+    (B, T, S) and the three short-cycle phases run: TRAIN.BATCH_SIZE
+    MG_BATCH, MULTIGRID.EPOCH_FACTOR MG_EPOCH_FACTOR (the schedule's
+    MAX_EPOCH 7), MG_TRAIN_CLIPS train clips an epoch, NUM_GPUS 1 (the
+    card holds one of the yaml's 8 cards' share, so each shape takes the
+    BN type and splits that each of those cards takes: sub_batchnorm at
+    NUM_SPLITS 8, 4, 2 and batchnorm),
+    BN.NUM_BATCHES_PRECISE MG_PRECISE, no test. Each step's LR held to
+    ``epoch_lr_schedule`` on the rewritten config from the stage's (epoch,
+    step); a line per shape."""
+    from focus_tpu_torch.config import get_cfg
+    from focus_tpu_torch.engine import trainer
+    from focus_tpu_torch.models import optimizer as optim
+    from focus_tpu_torch.models.norms import SubBatchNorm
+    from focus_tpu_torch.utils.multigrid import (
+        MultigridSchedule,
+        get_current_long_cycle_shape,
+    )
+
+    root = os.path.join(DDP_DIR, "kinetics")
+    os.makedirs(root)
+    for split, n in (("train", MG_TRAIN_CLIPS), ("val", MG_VAL_CLIPS)):
+        with open(os.path.join(root, f"{split}.csv"), "w") as f:
+            f.write("".join(f"vid{k}.mp4 {k * 7 % 400}\n" for k in range(n)))
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(REPO, "configs", MG_YAML))
+    cfg.DATA.PATH_TO_DATA_DIR = root
+    cfg.TRAIN.BATCH_SIZE = MG_BATCH
+    cfg.MULTIGRID.EPOCH_FACTOR = MG_EPOCH_FACTOR
+    cfg.NUM_GPUS = 1
+    cfg.BN.NUM_BATCHES_PRECISE = MG_PRECISE
+    cfg.TEST.ENABLE = False
+    cfg.TRAIN.AUTO_RESUME = False
+    cfg.TENSORBOARD.ENABLE = False
+    cfg.OUTPUT_DIR = os.path.join(DDP_DIR, "multigrid")
+    ref = MultigridSchedule()
+    ref_cfg = ref.init_multigrid(cfg.clone())
+    epochs, lrs = [], []
+    train_epoch, step_fn = trainer.train_epoch, optim.Optimizer.step
+    make = trainer.make_supervised_train_step
+
+    def spy_epoch(train_loader, state, train_step, train_meter, cur_epoch,
+                  cfg_, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        record = {"epoch": cur_epoch, "B": cfg_.TRAIN.BATCH_SIZE,
+                  "T": cfg_.DATA.NUM_FRAMES, "S": cfg_.DATA.TRAIN_CROP_SIZE,
+                  "bn": cfg_.BN.NORM_TYPE, "num_splits": cfg_.BN.NUM_SPLITS,
+                  "sub_batchnorm_layers": sum(
+                      isinstance(m, SubBatchNorm)
+                      for m in state.model.modules()),
+                  "steps_per_epoch": len(train_loader),
+                  "first_step": state.step, "ms": [], "batches": [],
+                  "losses": []}
+        epochs.append(record)
+        out = train_epoch(train_loader, state, train_step, train_meter,
+                          cur_epoch, cfg_, **kw)
+        torch.cuda.synchronize()
+        record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        record["losses"] = out[1]
+        return out
+
+    def timed_make(model, cfg_, loss_fn):
+        step = make(model, cfg_, loss_fn)
+
+        def run(state, video, labels, metadata):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, video, labels, metadata)
+            end.record()
+            end.synchronize()
+            epochs[-1]["ms"].append(start.elapsed_time(end))
+            epochs[-1]["batches"].append(tuple(video[1].shape[:3]))
+            return out
+
+        return run
+
+    def spy_step(self, count):
+        out = step_fn(self, count)
+        lrs.append((count, self.optimizer.param_groups[0]["lr"]))
+        return out
+
+    trainer.train_epoch, optim.Optimizer.step = spy_epoch, spy_step
+    trainer.make_supervised_train_step = timed_make
+    try:
+        with InScriptReaders().installed():
+            run = trainer.run_train(cfg, DEV)
+    finally:
+        trainer.train_epoch, optim.Optimizer.step = train_epoch, step_fn
+        trainer.make_supervised_train_step = make
+    # the LR each step should have: the rewritten config's schedule from
+    # the (epoch, step) where its shape began
+    expected, start, prev = {}, (0, 0), None
+    for e in epochs:
+        shape = tuple(get_current_long_cycle_shape(ref.schedule, e["epoch"]))
+        if shape != prev:
+            start, prev = (e["epoch"], e["first_step"]), shape
+        sched = optim.epoch_lr_schedule(ref_cfg, e["steps_per_epoch"], "lr",
+                                        float(start[0]), start[1])
+        for k in range(e["first_step"], e["first_step"] + len(e["ms"])):
+            expected[k] = sched(k)
+    lr_ok = [c for c, _ in lrs] == list(range(run.state.step)) and all(
+        lr == expected[c] for c, lr in lrs)
+    flat = [x for e in epochs for x in e["losses"]]
+    shapes = {tuple(s[1]) for s in ref.schedule}
+    ran = {(e["B"] // MG_BATCH, e["T"], e["S"]) for e in epochs}
+    # each epoch opens the short cycle: [4B, 2B, B] clips, crops 0.5 and
+    # 0.71 x DEFAULT_S, then the stage's own
+    cycles = all([b[0] for b in e["batches"][:3]] == [
+        4 * e["B"], 2 * e["B"], e["B"]] and e["batches"][0][2] == round(
+            0.5 * ref_cfg.MULTIGRID.DEFAULT_S) for e in epochs)
+    # each epoch's BN type and splits: the schedule's rewrite, and the
+    # model built with them
+    want_bn, walk = {}, ref_cfg.clone()
+    for epoch in range(ref_cfg.SOLVER.MAX_EPOCH):
+        walk, _ = ref.update_long_cycle(walk, epoch)
+        want_bn[epoch] = (walk.BN.NORM_TYPE, walk.BN.NUM_SPLITS)
+    bn_ok = all((e["bn"], e["num_splits"]) == want_bn[e["epoch"]] and (
+        e["sub_batchnorm_layers"] > 0) == (e["bn"] == "sub_batchnorm")
+        for e in epochs)
+    bn_types = {e["bn"] for e in epochs}
+    ok = (lr_ok and all(map(math.isfinite, flat)) and ran == shapes
+          and len(epochs) == ref_cfg.SOLVER.MAX_EPOCH and bn_ok
+          and {"sub_batchnorm", "batchnorm"} <= bn_types and cycles)
+    if not ok:
+        problems.append(f"multigrid: lr {lr_ok}, shapes {sorted(ran)} of "
+                        f"{sorted(shapes)}, bn {bn_types} as the schedule "
+                        f"{bn_ok}, short cycles {cycles}, losses {flat}")
+    per_shape = {}
+    for e in epochs:
+        key = (e["B"], e["T"], e["S"])
+        row = per_shape.setdefault(key, {
+            "B": e["B"], "T": e["T"], "S": e["S"], "bn": e["bn"],
+            "num_splits": e["num_splits"],
+            "sub_batchnorm_layers": e["sub_batchnorm_layers"],
+            "epochs": [], "steps": 0, "ms": [], "short_cycle_batches": set(),
+            "peak_memory_gb": 0.0})
+        row["epochs"].append(e["epoch"])
+        row["steps"] += len(e["ms"])
+        row["ms"] += e["ms"][1:] if len(e["ms"]) > 1 else e["ms"]
+        row["short_cycle_batches"] |= set(e["batches"])
+        row["peak_memory_gb"] = max(row["peak_memory_gb"],
+                                    e["peak_memory_gb"])
+    lines = []
+    for row in per_shape.values():
+        row["ms_per_step"] = statistics.fmean(row.pop("ms"))
+        row["short_cycle_batches"] = sorted(
+            list(b) for b in row["short_cycle_batches"])
+        lines.append(row)
+    return {"yaml": f"configs/{MG_YAML}",
+            "cuts": {"TRAIN.BATCH_SIZE": [64, MG_BATCH],
+                     "MULTIGRID.EPOCH_FACTOR": [1.5, MG_EPOCH_FACTOR],
+                     "SOLVER.MAX_EPOCH (rewritten)": [
+                         None, ref_cfg.SOLVER.MAX_EPOCH],
+                     "train clips an epoch": MG_TRAIN_CLIPS,
+                     "val clips": MG_VAL_CLIPS, "NUM_GPUS": [8, 1],
+                     "BN.NUM_BATCHES_PRECISE": [200, MG_PRECISE],
+                     "TEST.ENABLE": [True, False]},
+            "schedule": ref.schedule, "steps": run.steps,
+            "lr_matches_schedule": lr_ok, "bn_matches_schedule": bn_ok,
+            "losses_finite": all(
+                map(math.isfinite, flat)), "short_cycles": cycles,
+            "val": run.val_stats, "shapes": lines,
+            "train_loop_seconds": run.seconds}
+
+
+def phase_ddp(smi, per_call):
+    """Phase 21: (a) NCCL at world 1, (b) two ranks on the one card against
+    one process, (c) the Kinetics multigrid yaml. Returns the kernels'
+    launches in (a) and in rank 0 of (b)."""
+    from focus_tpu_torch.utils import logging as port_logging
+
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    os.makedirs(DDP_DIR)
+    problems = []
+    result = {"phase": "ddp_multigrid", "gpu": smi}
+    try:
+        with open(DDP_LOG, "w") as log, contextlib.redirect_stdout(log):
+            nccl, result["nccl_world_1"] = ddp_nccl_world1(per_call, problems)
+            port_logging.close_logging()
+            result["two_ranks_one_card"] = ddp_two_ranks(per_call, problems)
+            result["multigrid"] = multigrid_run(problems)
+    finally:
+        port_logging.close_logging()
+        shutil.rmtree(DDP_DIR, ignore_errors=True)
+    two = result["two_ranks_one_card"]["launches_train_loop_per_rank"][0]
+    result["ok"], result["problems"] = not problems, problems
+    emit(result)
+    if problems:
+        raise AssertionError("ddp / multigrid phase failed")
+    return {"nccl": nccl["launches"], "gloo_rank0": two}
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -7048,6 +7565,7 @@ def main():
     phase_datasets(smi)
     moe = phase_moe(smi)
     phase_ava(smi)
+    ddp = phase_ddp(smi, bwd["device_launches_per_call"])
     for row, key in ((traj, "trajectory_block"), (patch, "patch_embed"),
                      (bwd, "trajectory_block_bwd")):
         if key != "trajectory_block_bwd":
@@ -7059,6 +7577,17 @@ def main():
             "kernel-1 and 1 kernel-2 launches a forward), launches_moe_train "
             f"over {TRAIN_ITERS} of its train steps (12 kernel-1, 12 kernel-7 "
             "and 1 kernel-2 launches a step)")
+    for row, key in ((traj, "trajectory_block"), (patch, "patch_embed"),
+                     (bwd, "trajectory_block_bwd")):
+        row["launches_ddp_nccl"] = ddp["nccl"][key]
+        row["launches_ddp_gloo_rank0"] = ddp["gloo_rank0"][key]
+        row["launches_note"] += (
+            "; launches_ddp_nccl over phase 21's NCCL world-1 train loop "
+            f"({DDP_STEPS} steps at batch {DDP_BATCH} under mixup, 12 "
+            "kernel-1, 12 kernel-7 and 1 kernel-2 launches a step, and its "
+            "2 val batches), launches_ddp_gloo_rank0 over rank 0's of the "
+            f"two-rank loop on the one card ({DDP_STEPS} steps of 2 "
+            "microbatches of 2 clips, and 2 val batches of 4)")
     ar["launches_slot_train"] = slot["wrapper"]
     ar["device_launches_slot_train"] = slot["device"]
     ar["launches_note"] += (

@@ -76,6 +76,11 @@ class CfgNode(dict):
             dict.__setitem__(out, k, copy.deepcopy(v, memo))
         return out
 
+    def __reduce__(self):
+        """Pickled as its items (the processes that
+        ``tools.run_net.launch_job`` spawns receive the config)."""
+        return (CfgNode, (dict(self), getattr(self, CfgNode.NEW_ALLOWED)))
+
     def freeze(self) -> None:
         self._set_immutable(True)
 

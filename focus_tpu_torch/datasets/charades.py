@@ -6,7 +6,10 @@ train samples one clip, val one clip under the video's labels, test
 enumerates NUM_ENSEMBLE_VIEWS x NUM_SPATIAL_CROPS views; the label is
 multi-hot over MODEL.NUM_CLASSES, the union over the sampled frames
 (video-level outside train). Frames are read by
-``datasets/utils.retry_load_images`` (PIL), looked up at every read.
+``datasets/utils.retry_load_images`` (PIL), looked up at every read. Under
+the multigrid short cycle an index comes as (index, phase), cropped as
+SSv2's (``utils.multigrid_train_crop``); the JAX dataset indexes its lists
+with the tuple and raises (ROADMAP.md section 3, defect 8).
 
 ImageNet: ``root/<split>/<class>/<image>``, each image read by
 ``read_image`` (PIL), looked up at every read; one [H, W, C] frame an item.
@@ -126,6 +129,7 @@ class Charades:
 
     def __getitem__(self, index):
         cfg = self.cfg
+        index, phase = data_utils.split_short_cycle_index(index)
         rng = np.random.RandomState(None if self.mode == "train" else index)
         seq = self.get_seq_frames(index, rng)
         frames = np.stack(
@@ -136,7 +140,8 @@ class Charades:
         if self.mode in ["train", "val"]:
             spatial_idx = -1
             min_scale, max_scale = cfg.DATA.TRAIN_JITTER_SCALES
-            crop_size = cfg.DATA.TRAIN_CROP_SIZE
+            min_scale, crop_size = data_utils.multigrid_train_crop(
+                cfg, phase, min_scale, cfg.DATA.TRAIN_CROP_SIZE)
         else:
             spatial_idx = (
                 self._spatial_temporal_idx[index] % cfg.TEST.NUM_SPATIAL_CROPS

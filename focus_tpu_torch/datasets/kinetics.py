@@ -10,7 +10,10 @@ RandAugment, the normalisation (skipped for uint8 under
 with ``DATA.TRAIN_JITTER_MOTION_SHIFT``) and random erasing; ``AUG.NUM_SAMPLE``
 views come back stacked on a leading axis with their labels and indices,
 and the loader flattens them into the batch. The train mode's generator is
-unseeded, as the JAX package's.
+unseeded, as the JAX package's. Under the multigrid short cycle an index
+comes as (index, phase), and phases 0 and 1 crop smaller by the factors
+(``utils.multigrid_train_crop``, SSv2's rule); the JAX dataset indexes its
+path list with the tuple and raises there (ROADMAP.md section 3, defect 8).
 """
 
 from __future__ import annotations
@@ -73,12 +76,14 @@ class Kinetics:
 
     def __getitem__(self, index):
         cfg = self.cfg
+        index, phase = data_utils.split_short_cycle_index(index)
         rng = np.random.RandomState(None if self.mode == "train" else index)
         if self.mode in ["train", "val"]:
             temporal_idx = -1
             spatial_idx = -1
             min_scale, max_scale = cfg.DATA.TRAIN_JITTER_SCALES
-            crop_size = cfg.DATA.TRAIN_CROP_SIZE
+            min_scale, crop_size = data_utils.multigrid_train_crop(
+                cfg, phase, min_scale, cfg.DATA.TRAIN_CROP_SIZE)
         else:
             temporal_idx = (
                 self._spatial_temporal_idx[index] // cfg.TEST.NUM_SPATIAL_CROPS

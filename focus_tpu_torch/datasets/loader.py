@@ -17,10 +17,21 @@ tensor of the batch is recorded on the consumer's stream, so the allocator
 reuses none of it until the work queued there has read it. uint8 frames
 stay uint8: ``ops/preprocess.device_normalize`` runs on the card.
 
+Each of the W processes of a data-parallel run (``parallel/mesh.py``)
+loads only its contiguous slice of every global batch, the pad flags of
+``pad_last`` with it, in the epoch order every process draws alike; the
+global batch must divide by W, as the JAX loader asserts. Under the
+multigrid short cycle (``MULTIGRID.SHORT_CYCLE``, train split) the global
+batches cycle through the sizes [B / f0^2, B / f1^2, B], and each index
+reaches the dataset as (index, phase), which crops phases 0 and 1 by the
+factors (``_short_cycle_batches``); ``len`` stays the count of full
+batches, as the JAX loader's (and the LR schedule's steps per epoch) is.
+
 Samples are any tree of arrays: the classification datasets' (video,
 label, index, metadata), the slot datasets' video alone (train and val)
 or (video, masks) (test). Only the first form marks its pad rows;
-``real_rows(i)`` gives any batch's count of clips that are not repeats.
+``real_rows(i)`` gives any batch's count of clips that are not repeats in
+this process's slice, ``real_slice(i)`` where they lie in the batch.
 With ``flatten_samples`` n > 1 (repeated augmentation: each sample holds n
 views stacked on a leading axis) every leaf of a batch [B, n, ...] becomes
 [B * n, ...], so a batch holds B * n clips.
@@ -42,10 +53,10 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from focus_tpu_torch.datasets.build import build_dataset
 from focus_tpu_torch.models.build import resolve_device
+from focus_tpu_torch.parallel import mesh
 
 
 def _stack_tree(samples):
@@ -130,6 +141,7 @@ class DataLoader:
         prefetch: int = 2,
         pad_last: bool = False,
         flatten_samples: int = 1,
+        short_cycle_factors=None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -141,6 +153,13 @@ class DataLoader:
         self.prefetch = prefetch
         self.pad_last = pad_last
         self.flatten_samples = max(1, flatten_samples)
+        self.short_cycle_factors = short_cycle_factors
+        self.process_index = mesh.rank()
+        self.process_count = mesh.world_size()
+        if batch_size % self.process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{self.process_count} processes")
+        self.local_batch_size = batch_size // self.process_count
         self.epoch = 0
         self.wait_seconds = self.first_wait_seconds = 0.0
         self._stream = (torch.cuda.Stream(device=self.device)
@@ -156,12 +175,22 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def real_rows(self, batch_index: int) -> int:
-        """The clips of batch ``batch_index`` of an epoch that are not
-        ``pad_last`` repeats: its leading rows."""
+    def real_slice(self, batch_index: int):
+        """(first, rows, total): this process's clips of batch
+        ``batch_index`` of an epoch that are not ``pad_last`` repeats (its
+        leading ``rows``) are clips [first, first + rows) of the batch's
+        ``total`` such clips."""
         n = len(self._epoch_indices())
-        return self.flatten_samples * min(self.batch_size,
-                                          n - batch_index * self.batch_size)
+        real = min(self.batch_size, n - batch_index * self.batch_size)
+        first = self.process_index * self.local_batch_size
+        rows = max(0, min(self.local_batch_size, real - first))
+        f = self.flatten_samples
+        return f * min(first, real), f * rows, f * real
+
+    def real_rows(self, batch_index: int) -> int:
+        """The clips of this process's slice of batch ``batch_index`` of an
+        epoch that are not ``pad_last`` repeats: its leading rows."""
+        return self.real_slice(batch_index)[1]
 
     def _epoch_indices(self) -> np.ndarray:
         n = len(self.dataset)
@@ -175,8 +204,13 @@ class DataLoader:
         return order
 
     def _batches(self) -> Iterator[tuple]:
-        """(sample indices, pad mask) of each batch of the epoch."""
+        """(sample indices, pad mask) of this process's slice of each batch
+        of the epoch."""
         order = self._epoch_indices()
+        if self.short_cycle_factors:
+            for local in self._short_cycle_batches(order):
+                yield local, np.zeros(len(local), bool)
+            return
         bs = self.batch_size
         for start in range(0, len(order), bs):
             batch_idx = order[start : start + bs]
@@ -185,7 +219,30 @@ class DataLoader:
                 batch_idx = np.concatenate(
                     [batch_idx, batch_idx[: bs - n_real]]
                 )
-            yield batch_idx, np.arange(len(batch_idx)) >= n_real
+            pad = np.arange(len(batch_idx)) >= n_real
+            pos = np.array_split(np.arange(len(batch_idx)),
+                                 self.process_count)[self.process_index]
+            if len(pos):
+                yield batch_idx[pos], pad[pos]
+
+    def _short_cycle_batches(self, order) -> Iterator[list]:
+        """The short cycle (``_short_cycle_batches``; reference
+        datasets/multigrid_helper.py:19): global batches of [B / f0^2,
+        B / f1^2, B] in turn from the epoch order, each sliced per process,
+        each index carried with its phase; a batch that the order can no
+        longer fill ends the epoch."""
+        f0, f1 = self.short_cycle_factors
+        sizes = [int(round(self.batch_size / (f0 * f0))),
+                 int(round(self.batch_size / (f1 * f1))), self.batch_size]
+        pos, phase = 0, 0
+        while pos + sizes[phase] <= len(order):
+            batch_idx = order[pos:pos + sizes[phase]]
+            pos += sizes[phase]
+            local = np.array_split(batch_idx,
+                                   self.process_count)[self.process_index]
+            if len(local):
+                yield [(int(i), phase) for i in local]
+            phase = (phase + 1) % 3
 
     def _to_device(self, batch):
         """(batch of tensors on the device, the event its copies record or
@@ -269,12 +326,6 @@ class DataLoader:
                     break
 
 
-def _process_count(cfg) -> int:
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(cfg.NUM_SHARDS)
-
-
 def construct_loader(cfg, split: str, device="cuda",
                      is_precise_bn: bool = False):
     """The split's (dataset, batch size, shuffle, drop_last) as the
@@ -282,22 +333,14 @@ def construct_loader(cfg, split: str, device="cuda",
     padding the last one. The train split flattens AUG.NUM_SAMPLE > 1
     repeated augmentations (``AUG.ENABLE``) into its batches, unless the
     loader is precise BN's; a dataset that does not stack them
-    (``STACKS_VIEWS``) raises there."""
+    (``STACKS_VIEWS``) raises there. The train split runs the multigrid
+    short cycle under ``MULTIGRID.SHORT_CYCLE``, unless the loader is
+    precise BN's. Each process loads its slice of the global batches."""
     assert split in ["train", "val", "test"]
-    if _process_count(cfg) > 1:
-        raise NotImplementedError(
-            "more than one process: the sharded loader comes with the DDP "
-            "slice of the port"
-        )
     if (getattr(cfg.DATA_LOADER, "WORKER_BACKEND", "thread") or "thread") != "thread":
         raise NotImplementedError(
             "DATA_LOADER.WORKER_BACKEND process: the port's loader has "
             "thread workers only"
-        )
-    if split == "train" and cfg.MULTIGRID.SHORT_CYCLE:
-        raise NotImplementedError(
-            "MULTIGRID.SHORT_CYCLE: the multigrid short cycle comes with the "
-            "multigrid slice of the port"
         )
     if split == "train":
         dataset_name = cfg.TRAIN.DATASET
@@ -322,6 +365,9 @@ def construct_loader(cfg, split: str, device="cuda",
         raise NotImplementedError(
             f"AUG.NUM_SAMPLE {flatten} on {dataset_name}: only Kinetics "
             "stacks repeated augmentations")
+    short_cycle = (tuple(cfg.MULTIGRID.SHORT_CYCLE_FACTORS)
+                   if split == "train" and cfg.MULTIGRID.SHORT_CYCLE
+                   and not is_precise_bn else None)
     return DataLoader(
         dataset,
         batch_size=batch_size,
@@ -333,6 +379,7 @@ def construct_loader(cfg, split: str, device="cuda",
         prefetch=cfg.TPU.PREFETCH,
         pad_last=not drop_last,
         flatten_samples=flatten,
+        short_cycle_factors=short_cycle,
     )
 
 

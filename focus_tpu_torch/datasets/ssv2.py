@@ -211,28 +211,16 @@ class Ssv2:
 
     def __getitem__(self, index):
         cfg = self.cfg
-        short_cycle_idx = None
-        if isinstance(index, tuple):
-            index, short_cycle_idx = index
+        index, phase = data_utils.split_short_cycle_index(index)
         rng = np.random.RandomState(
             None if self.mode == "train" else index
         )
         if self.mode in ["train", "val"]:
             spatial_idx = -1
             min_scale, max_scale = cfg.DATA.TRAIN_JITTER_SCALES
-            crop_size = cfg.DATA.TRAIN_CROP_SIZE
             # multigrid short-cycle crop scaling (reference ssv2.py:245-262)
-            if short_cycle_idx in (0, 1):
-                crop_size = int(
-                    round(
-                        cfg.MULTIGRID.SHORT_CYCLE_FACTORS[short_cycle_idx]
-                        * cfg.MULTIGRID.DEFAULT_S
-                    )
-                )
-            if cfg.MULTIGRID.DEFAULT_S > 0:
-                min_scale = int(
-                    round(float(min_scale) * crop_size / cfg.MULTIGRID.DEFAULT_S)
-                )
+            min_scale, crop_size = data_utils.multigrid_train_crop(
+                cfg, phase, min_scale, cfg.DATA.TRAIN_CROP_SIZE)
         else:
             spatial_idx = (
                 self._spatial_temporal_idx[index] % cfg.TEST.NUM_SPATIAL_CROPS

@@ -52,6 +52,28 @@ def get_random_sampling_rate(long_cycle_sampling_rate, sampling_rate, rng):
     return sampling_rate
 
 
+def multigrid_train_crop(cfg, phase, min_scale: int, crop_size: int):
+    """(min_scale, crop_size) of a train or val clip under multigrid
+    (reference ssv2.py / kinetics.py:245-262): short-cycle phases 0 and 1
+    crop SHORT_CYCLE_FACTORS[phase] x MULTIGRID.DEFAULT_S, and once
+    DEFAULT_S is set the lower jitter scale shrinks with the crop."""
+    if phase in (0, 1):
+        crop_size = int(round(cfg.MULTIGRID.SHORT_CYCLE_FACTORS[phase]
+                              * cfg.MULTIGRID.DEFAULT_S))
+    if cfg.MULTIGRID.DEFAULT_S > 0:
+        min_scale = int(round(float(min_scale) * crop_size
+                              / cfg.MULTIGRID.DEFAULT_S))
+    return min_scale, crop_size
+
+
+def split_short_cycle_index(index):
+    """(sample index, short-cycle phase or None) of a loader index: the
+    short cycle hands the dataset (index, phase)."""
+    if isinstance(index, tuple):
+        return index
+    return index, None
+
+
 def pack_pathway_output(cfg, frames: np.ndarray) -> List[np.ndarray]:
     """Slow/fast pathway split (reference utils.py:75-108).
 

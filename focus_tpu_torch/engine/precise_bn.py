@@ -11,15 +11,21 @@ JAX function recovers them from flax's momentum update, (new - 0.9 old) /
 norms and move no statistic, draw from a generator seeded with 0, as the
 JAX forward passes ``PRNGKey(0)``. A uint8 batch is normalised first, as
 the train step normalises it (the JAX function hands the loader's batch to
-the model as it comes).
+the model as it comes). Under data parallelism each batch is the global
+batch: the train-mode norms take its statistics over the processes
+(``models/norms.py``), and the draws are the global batch's, sliced
+(``models/common.sharded_draws``), so every process records the same
+averages.
 """
 
 from __future__ import annotations
 
 import torch
 
+from focus_tpu_torch.models.common import sharded_draws
 from focus_tpu_torch.models.norms import BatchNorm
 from focus_tpu_torch.ops.preprocess import device_normalize
+from focus_tpu_torch.parallel import mesh
 from focus_tpu_torch.utils import logging
 
 logger = logging.get_logger(__name__)
@@ -46,8 +52,10 @@ def compute_precise_bn_stats(model, loader, num_batches: int, split_batch_fn,
             if i >= num_batches:
                 break
             video, _, metadata = split_batch_fn(batch)
-            model(device_normalize(video, cfg), metadata, train=True,
-                  generator=generator)
+            first = video[0] if isinstance(video, (tuple, list)) else video
+            with sharded_draws(*mesh.batch_rows(first.shape[0])):
+                model(device_normalize(video, cfg), metadata, train=True,
+                      generator=generator)
             count += 1
         if count:
             for bn in norms:

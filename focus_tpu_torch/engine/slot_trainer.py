@@ -28,6 +28,16 @@ mBO in percent, each the mean of the batches' means. A batch's ``pad_last``
 repeats are dropped before its forward here and in validation, so every
 clip counts once; the JAX loops score the repeats as well, which changes
 nothing where the split fills its batches.
+
+Under data parallelism (``parallel/mesh.py``) each process steps on its
+slice of the global batch, drawing its rows of the global batch's noise
+(``models/common.sharded_draws``); the gradients are averaged over the
+processes before the global-norm clip (``models/optimizer.py``), the
+res18 stem's BatchNorm takes the global batch's statistics, and the stats
+are the processes' mean. Validation's losses and the eval's FG-ARI and mBO
+sum each batch's clips over the processes (each clip once) before the
+batch means; their noise is drawn for the batch's clips that are not
+repeats, each process keeping its rows' (``DataLoader.real_slice``).
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ import torch
 from focus_tpu_torch.datasets import loader as data_loader
 from focus_tpu_torch.models import optimizer as optim
 from focus_tpu_torch.models.build import build_model, resolve_device
+from focus_tpu_torch.models.common import sharded_draws
+from focus_tpu_torch.parallel import mesh
 from focus_tpu_torch.parallel.train_state import TrainState
 from focus_tpu_torch.utils import checkpoint as cu
 from focus_tpu_torch.utils import logging, lr_policy, metrics
@@ -95,13 +107,18 @@ def make_train_step(model, cfg):
         tau = slot_tau(cfg, state.step)
         generator = step_generator(state, cfg)
         state.optimizer.zero_grad()
-        _, ce, mse, _ = model(video, tau, hard, train=True,
-                              generator=generator, noise=noise)
+        with sharded_draws(*mesh.batch_rows(video.shape[0])):
+            _, ce, mse, _ = model(video, tau, hard, train=True,
+                                  generator=generator, noise=noise)
         loss = mse + ce
         loss.backward()
+        stats = torch.stack([loss.detach(), mse.detach(), ce.detach()])
+        if mesh.is_distributed():  # the global batch's means
+            stats = mesh.all_reduce_(stats.float()) / mesh.world_size()
         state.apply_gradients()
-        return state, {"loss": loss.detach(), "mse": mse.detach(),
-                       "cross_entropy": ce.detach(), "tau": tau}
+        loss, mse, ce = stats.unbind()
+        return state, {"loss": loss, "mse": mse, "cross_entropy": ce,
+                       "tau": tau}
 
     return train_step
 
@@ -211,17 +228,25 @@ def slot_train_epoch(train_loader, state, train_step, cur_epoch, cfg,
 def slot_eval_epoch(val_loader, state, eval_step, cur_epoch, cfg, opd,
                     writer=None):
     """Validation at the last train step's tau; returns (val_loss, the clips
-    scored)."""
+    scored over every process). Each batch's mse and cross-entropy are
+    its clips' means over the processes."""
     mse_meter, ce_meter = MetricTracker(), MetricTracker()
-    per_batch, clips = [], 0
+    device = next(state.model.parameters()).device
+    per_batch = []  # each batch's (rows x mse, rows x ce, rows) here
     for i, video in enumerate(val_loader):
-        video = video[:val_loader.real_rows(i)]
-        _, ce, mse, _ = eval_step(state, video, opd["tau"])
-        per_batch.append(torch.stack([mse, ce]))
-        clips += video.shape[0]
-    for mse, ce in (torch.stack(per_batch).tolist() if per_batch else []):
-        mse_meter.update(mse)
-        ce_meter.update(ce)
+        first, n, total = val_loader.real_slice(i)
+        sums = torch.zeros(3, device=device)  # all pad_last repeats here
+        if n:
+            with sharded_draws(first, n, total):
+                _, ce, mse, _ = eval_step(state, video[:n], opd["tau"])
+            sums = n * torch.stack([mse.float(), ce.float(), sums[0] + 1])
+        per_batch.append(sums)
+    sums = (mesh.all_reduce_(torch.stack(per_batch)).tolist()
+            if per_batch else [])
+    clips = int(sum(row[2] for row in sums))
+    for mse_n, ce_n, n in sums:
+        mse_meter.update(mse_n / n)
+        ce_meter.update(ce_n / n)
     val_loss = mse_meter.avg + ce_meter.avg
     logging.log_json_stats({
         "_type": "slot_val_epoch", "epoch": cur_epoch + 1, "loss": val_loss,
@@ -273,10 +298,12 @@ def run_slot_train(cfg, device="cuda") -> SlotTrainRun:
         )
         cu.save_checkpoint(ckpt_dir, p.state, p.epoch, cfg, async_write=False)
         cu.wait_for_saves()
+        mesh.barrier()
         if writer is not None:
             writer.close()
         raise SystemExit(0)
     cu.wait_for_saves()  # land any async checkpoint writes before returning
+    mesh.barrier()  # every process may read them next
     if writer is not None:
         writer.close()
     return run
@@ -378,11 +405,15 @@ def run_slot_eval(cfg, device="cuda") -> SlotEvalRun:
     report = cu.load_test_checkpoint(cfg, model)
     encode_step = make_encode_step(model, cfg)
 
-    fgaris, mbos, clips = [], [], 0
+    sums = []  # each batch's (ARI sum, clips, best-IoU sum, masks) here
     t0 = time.perf_counter()
     for batch_idx, (video, true_masks) in enumerate(eval_loader):
-        real = eval_loader.real_rows(batch_idx)
-        _, _, pred_masks = encode_step(state, video[:real])
+        first, real, total = eval_loader.real_slice(batch_idx)
+        if not real:  # this process's slice is all pad_last repeats
+            sums.append([0.0, 0.0, 0.0, 0.0])
+            continue
+        with sharded_draws(first, real, total):
+            _, _, pred_masks = encode_step(state, video[:real])
         pred = pred_masks.float().cpu().numpy()  # [B, T, S, H, W, 1]
         true = true_masks[:real].float().cpu().numpy()  # [B, T, S0, H, W, 1]
         B = pred.shape[0]
@@ -390,12 +421,19 @@ def run_slot_eval(cfg, device="cuda") -> SlotEvalRun:
         true_f = true.transpose(0, 2, 1, 3, 4, 5)[:, 1:].reshape(
             B, true.shape[2] - 1, -1)
         pred_f = pred.transpose(0, 2, 1, 3, 4, 5).reshape(B, pred.shape[2], -1)
-        fgaris.append(100 * metrics.evaluate_ari(true_f, pred_f))
-        mbos.append(100 * metrics.evaluate_mbo(true_f, pred_f))
-        clips += B
+        sums.append([float(metrics.ari_per_clip(true_f, pred_f).sum()), B,
+                     *metrics.mbo_sums(true_f, pred_f)])
+    if sums:
+        sums = mesh.all_reduce_(torch.tensor(
+            sums, dtype=torch.float64, device=device)).tolist()
+    fgaris = [100 * a / n for a, n, _, _ in sums]
+    mbos = [100 * (b / m if m else 0.0) for _, _, b, m in sums]
+    clips = int(sum(n for _, n, _, _ in sums))
+    for i in range(len(fgaris)):
         logger.info(
-            f"Done batches {batch_idx + 1}. FG-ARI MEAN = {np.mean(fgaris):.3f} "
-            f"STD = {np.std(fgaris):.3f}  mBO MEAN = {np.mean(mbos):.3f}"
+            f"Done batches {i + 1}. FG-ARI MEAN = {np.mean(fgaris[:i + 1]):.3f} "
+            f"STD = {np.std(fgaris[:i + 1]):.3f}  mBO MEAN = "
+            f"{np.mean(mbos[:i + 1]):.3f}"
         )
     seconds = time.perf_counter() - t0
     results = {"fg_ari": float(np.mean(fgaris)) if fgaris else 0.0,

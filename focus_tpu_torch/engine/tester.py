@@ -11,8 +11,14 @@ same dataset in every config of the repo. Multi-label data
 sigmoid``) is ensembled the same way (``DATA.ENSEMBLE_METHOD max`` in its
 yamls) and scored by the mean average precision. AVA detection
 (``DETECTION.ENABLE``) scores each keyframe's boxes once, by the frame mAP
-of ``AVAMeter`` (``run_detection_eval``, shared with validation). One
-process drives one device.
+of ``AVAMeter`` (``run_detection_eval``, shared with validation).
+
+Under data parallelism (``parallel/mesh.py``) each process runs its slice
+of every global batch, and before any meter update the outputs, labels,
+video indices and pad flags of every process are gathered, tiled
+process-major (``gathered_host``, JAX ``_to_host``): every process holds
+the same meter, every clip is counted once, and rank 0 writes the results
+file.
 
 ``test`` returns the meter's stats, as the JAX package's does;
 ``run_test`` also returns the meter, the checkpoint report and the loop's
@@ -34,12 +40,12 @@ from focus_tpu_torch.datasets import loader as data_loader
 from focus_tpu_torch.entry import EvalForward
 from focus_tpu_torch.models.build import (
     build_model,
-    check_mesh,
     maybe_zero_init_orvit,
     resolve_device,
 )
 from focus_tpu_torch.models.motionformer import EK_CLASSES
 from focus_tpu_torch.ops.preprocess import device_normalize
+from focus_tpu_torch.parallel import mesh
 from focus_tpu_torch.utils import checkpoint as cu
 from focus_tpu_torch.utils import logging
 from focus_tpu_torch.utils.ava_eval import make_image_key
@@ -75,11 +81,13 @@ def _split_test_batch(batch):
     raise ValueError("test dataset must yield (video, label, index[, meta])")
 
 
-def _host(x):
-    """A batch leaf on the host as numpy (probabilities as float32)."""
+def gathered_host(x):
+    """A batch leaf of every process, tiled process-major, on the host as
+    numpy (probabilities as float32); this process's alone without a
+    process group."""
     if torch.is_floating_point(x):
         x = x.float()
-    return x.cpu().numpy()
+    return mesh.all_gather_tiled(x).cpu().numpy()
 
 
 def make_eval_forward(model, cfg):
@@ -113,11 +121,11 @@ def run_detection_eval(loader, forward, meter, cur_epoch=None):
         meter.iter_tic()
         preds = forward(video, metadata)
         preds = preds[0] if isinstance(preds, tuple) else preds
-        rows = [_host(x) for x in (
+        rows = [gathered_host(x) for x in (
             preds, metadata["boxes_mask"], metadata["ori_boxes"],
             metadata["video_idx"], metadata["sec"], labels)]
         if sample_idx is not None:
-            keep = _host(sample_idx) >= 0
+            keep = gathered_host(sample_idx) >= 0
             rows = [x[keep] for x in rows]
         preds_h, masks_h, ori_h, vidx_h, sec_h, labels_h = rows
         keys = [make_image_key(
@@ -136,7 +144,8 @@ def perform_test(test_loader, forward, test_meter, cfg):
         test_meter.iter_tic()
         preds = forward(video, metadata)
         logits = preds[0] if isinstance(preds, tuple) else preds
-        test_meter.update_stats(_host(logits), _host(labels), _host(video_idx))
+        test_meter.update_stats(gathered_host(logits), gathered_host(labels),
+                                gathered_host(video_idx))
         test_meter.iter_toc()
         test_meter.log_iter_stats(cur_iter, cfg.LOG_PERIOD)
     return test_meter.finalize_metrics()
@@ -148,9 +157,10 @@ def perform_test_ek(test_loader, forward, test_meter, cfg):
         test_meter.iter_tic()
         _, both = forward(video, metadata)
         test_meter.update_stats(
-            (_host(both["verb"]), _host(both["noun"])),
-            {"verb": _host(labels["verb"]), "noun": _host(labels["noun"])},
-            _host(video_idx),
+            (gathered_host(both["verb"]), gathered_host(both["noun"])),
+            {"verb": gathered_host(labels["verb"]),
+             "noun": gathered_host(labels["noun"])},
+            gathered_host(video_idx),
         )
         test_meter.iter_toc()
         test_meter.log_iter_stats(cur_iter, cfg.LOG_PERIOD)
@@ -165,7 +175,7 @@ def _ek_heads(cfg):
 
 def _check_ported(cfg):
     """Raise on the test options that the port does not run yet."""
-    check_mesh(cfg)
+    mesh.check_mesh(cfg)
     tb = cfg.TENSORBOARD
     if (tb.ENABLE and not _ek_heads(cfg)
             and (tb.CONFUSION_MATRIX.ENABLE or tb.HISTOGRAM.ENABLE)):

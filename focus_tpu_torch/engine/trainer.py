@@ -42,9 +42,33 @@ masked binary cross-entropy of the per-box probabilities
 GRAD_ACCUM, without mixup or top-k; its validation scores the frame mAP
 through ``AVAMeter`` (``engine/tester.run_detection_eval``).
 
-Remat, ZeRO-1, multigrid, timm weights (``MODEL.LOAD_IN_PRETRAIN``),
-``LOG_MODEL_INFO`` and a ``TPU.MESH`` pipeline, sequence, model or expert
-axis are not ported and raise.
+Under data parallelism (``parallel/mesh.py``, one process a card) each
+process steps on its slice of the global batch and the step equals one
+process's over the whole of it: the gradients are averaged over the
+processes once, after the last microbatch (``models/optimizer.py``);
+BatchNorm takes the global batch's statistics (``models/norms.py``); mixup
+pairs each clip with the global batch reversed, so local clip i of
+process r meets clip L - 1 - i of process W - 1 - r, whose rows an
+all-gather brings (the draws are alike on every process, from generators
+seeded alike); every batch-shaped draw is made at the global size and
+sliced (``models/common.sharded_draws``); the loss and the top-k errors are
+the processes' mean; AVA's box count is the global batch's. Validation
+gathers every process's outputs before the meter, so each clip counts once
+and every process holds the same meter. Rank 0 writes the checkpoints and
+the TensorBoard events.
+
+Multigrid training (``MULTIGRID.LONG_CYCLE`` / ``SHORT_CYCLE``,
+``utils/multigrid.py``) rewrites the config before the build; at each
+long-cycle shape change the model is rebuilt with the schedule's BN type
+and the weights, the optimizer state, the step and the generator carry
+over, the loaders and meters are rebuilt, and the LR schedule continues
+from (epoch, step) under the new steps per epoch
+(``_rebuild_for_long_cycle``). The short cycle is the loader's.
+
+Remat, ZeRO-1, timm weights (``MODEL.LOAD_IN_PRETRAIN``),
+``LOG_MODEL_INFO``, a MoE model on more than one process and a
+``TPU.MESH`` pipeline, sequence, model or expert axis are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -60,19 +84,25 @@ import torch.nn.functional as F
 
 from focus_tpu_torch.datasets import loader as data_loader
 from focus_tpu_torch.engine.precise_bn import compute_precise_bn_stats
-from focus_tpu_torch.engine.tester import make_eval_forward, run_detection_eval
+from focus_tpu_torch.engine.tester import (
+    gathered_host,
+    make_eval_forward,
+    run_detection_eval,
+)
 from focus_tpu_torch.models import optimizer as optim
 from focus_tpu_torch.models.build import (
     build_model,
-    check_mesh,
     maybe_zero_init_orvit,
     resolve_device,
 )
+from focus_tpu_torch.models.common import sharded_draws
 from focus_tpu_torch.models.losses import get_loss_func
 from focus_tpu_torch.ops.preprocess import device_normalize
+from focus_tpu_torch.parallel import mesh
 from focus_tpu_torch.parallel.train_state import TrainState
 from focus_tpu_torch.utils import checkpoint as cu
 from focus_tpu_torch.utils import logging, lr_policy, metrics, misc
+from focus_tpu_torch.utils.multigrid import MultigridSchedule
 from focus_tpu_torch.utils.meters import (
     AVAMeter,
     EPICValMeter,
@@ -106,10 +136,13 @@ def _is_ek(cfg) -> bool:
 
 
 def _check_options(cfg):
-    check_mesh(cfg)
+    mesh.check_mesh(cfg)
     unported = {
         "TPU.REMAT": bool(cfg.TPU.REMAT),
         "TPU.ZERO1": bool(cfg.TPU.ZERO1),
+        # the load-balance term is a product of global-batch means
+        "TPU.MOE on more than one process": (
+            int(cfg.TPU.MOE.NUM_EXPERTS or 0) > 1 and mesh.world_size() > 1),
     }
     missing = [k for k, v in unported.items() if v]
     if missing:
@@ -126,11 +159,6 @@ def _check_options(cfg):
 def _check_train_options(cfg):
     """Raise, before anything is built, on what the loop does not run."""
     _check_options(cfg)
-    if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
-        raise NotImplementedError(
-            "MULTIGRID.LONG_CYCLE / SHORT_CYCLE: multigrid training comes "
-            "with the multigrid slice of the port"
-        )
     if getattr(cfg.MODEL, "LOAD_IN_PRETRAIN", ""):
         raise NotImplementedError(
             "MODEL.LOAD_IN_PRETRAIN: timm-format image weights are not read "
@@ -230,13 +258,15 @@ def sample_mixup(cfg, generator, shape, device) -> dict:
             "cy": cy, "cx": cx}
 
 
-def _mix_video(video, draws):
-    """One pathway [B, T, H, W, C] mixed by ``draws``; returns it and the
-    lam of its labels."""
+def _mix_video(video, draws, flipped=None):
+    """One pathway [B, T, H, W, C] mixed by ``draws`` with its partner
+    rows ``flipped`` (default: the batch reversed); returns it and the lam
+    of its labels."""
     use_mix, lam = draws["use_mix"], draws["lam"]
     cut = use_mix & draws["use_cutmix"]
     H, W = video.shape[-3], video.shape[-2]
-    flipped = torch.flip(video, dims=(0,))
+    if flipped is None:
+        flipped = torch.flip(video, dims=(0,))
     ratio = torch.sqrt(1.0 - lam)
     cut_h = (H * ratio).to(torch.int32)
     cut_w = (W * ratio).to(torch.int32)
@@ -253,7 +283,16 @@ def _mix_video(video, draws):
     return video, torch.where(cut, lam_cut, lam)
 
 
-def apply_mixup(video, labels, cfg, draws):
+def global_partner(x):
+    """The rows that mixup pairs with this process's rows of ``x`` (a
+    tensor or a list of pathways): this process's slice of the global
+    batch reversed, which is process W - 1 - r's rows reversed."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(global_partner(v) for v in x)
+    return torch.flip(mesh.from_mirror(x), dims=(0,))
+
+
+def apply_mixup(video, labels, cfg, draws, partner=None):
     """``_device_mixup``'s application of ``draws`` to a normalised video
     [B, T, H, W, C] and its integer labels: mixup blends each clip with
     the batch reversed; CutMix pastes the reversed batch into a box of
@@ -261,20 +300,26 @@ def apply_mixup(video, labels, cfg, draws):
     as cut; the labels become label-smoothed (MIXUP.LABEL_SMOOTH_VALUE)
     one-hot rows mixed by that lam. A list of pathways (which share H and
     W) is mixed pathway by pathway with the same draws; the JAX function
-    takes one array. Returns (video, soft labels)."""
+    takes one array. ``partner`` is (video, labels) of the rows each row
+    meets, ``global_partner``'s, as a process of a data-parallel step
+    passes it; by default the batch reversed. Returns (video, soft
+    labels)."""
     n = cfg.MODEL.NUM_CLASSES
     smoothing = cfg.MIXUP.LABEL_SMOOTH_VALUE
+    if partner is None:
+        partner = (None, torch.flip(labels, dims=(0,)))
+    p_video, p_labels = partner
     if isinstance(video, (tuple, list)):
-        mixed = [_mix_video(v, draws) for v in video]
+        p_video = p_video or [None] * len(video)
+        mixed = [_mix_video(v, draws, p) for v, p in zip(video, p_video)]
         video, lam_final = type(video)(m[0] for m in mixed), mixed[0][1]
     else:
-        video, lam_final = _mix_video(video, draws)
+        video, lam_final = _mix_video(video, draws, p_video)
 
     on = 1.0 - smoothing + smoothing / n
     off = smoothing / n
     y1h = F.one_hot(labels.long(), n).float() * (on - off) + off
-    y2h = F.one_hot(torch.flip(labels, dims=(0,)).long(),
-                    n).float() * (on - off) + off
+    y2h = F.one_hot(p_labels.long(), n).float() * (on - off) + off
     return video, y1h * lam_final + y2h * (1.0 - lam_final)
 
 
@@ -319,9 +364,10 @@ def make_supervised_train_step(model, cfg, loss_fn):
     optimizer update; ``stats`` holds ``loss``, for single-label data
     other than EPIC-Kitchens and AVA ``top1_err`` and ``top5_err``, and for
     a MoE model ``moe_aux`` (device tensors; under TPU.GRAD_ACCUM each the
-    mean over the microbatches). ``labels`` is a tensor, for EPIC-Kitchens
-    a dict of the verb and noun labels; AVA's metadata holds ``boxes`` and
-    ``boxes_mask``."""
+    mean over the microbatches; under data parallelism each the processes'
+    mean). ``labels`` is a tensor, for EPIC-Kitchens a dict of the verb
+    and noun labels; AVA's metadata holds ``boxes`` and ``boxes_mask``.
+    The batch is this process's slice of the global batch."""
     _check_options(cfg)
     is_ek = _is_ek(cfg)
     detection = bool(cfg.DETECTION.ENABLE)
@@ -355,6 +401,14 @@ def make_supervised_train_step(model, cfg, loss_fn):
         return stats
 
     def train_step(state, video, labels, metadata):
+        distributed = mesh.is_distributed()
+        world = mesh.world_size()
+        partner = None
+        if use_mixup and distributed:
+            # the rows each local row meets, gathered before normalising
+            # (elementwise, so it commutes with the reversal)
+            partner = (device_normalize(global_partner(video), cfg),
+                       global_partner(labels))
         # normalised before mixup, so that clips blend in normalised space
         video = device_normalize(video, cfg)
         hard_labels = labels
@@ -362,30 +416,41 @@ def make_supervised_train_step(model, cfg, loss_fn):
             first = video[0] if isinstance(video, (tuple, list)) else video
             draws = sample_mixup(cfg, state.generator, first.shape,
                                  first.device)
-            video, labels = apply_mixup(video, labels, cfg, draws)
+            video, labels = apply_mixup(video, labels, cfg, draws, partner)
         topk_labels = hard_labels if (
             want_topk and hard_labels.ndim == 1) else None
+        # the whole global batch's box count; each process's and each
+        # microbatch's loss is its boxes' sum over its share of it
+        det_denom = None
+        if detection and (accum > 1 or distributed):
+            det_denom = mesh.all_reduce_(
+                metadata["boxes_mask"].sum().float()).clamp_min(1.0) / (
+                    accum * world)
         state.optimizer.zero_grad()
-        if accum == 1:
-            stats = forward_backward(state, video, labels, metadata,
-                                     topk_labels)
-        else:
-            if _batch_size(video) % accum:
-                raise ValueError(f"batch {_batch_size(video)} does not split "
-                                 f"into TPU.GRAD_ACCUM={accum} microbatches")
-            # the whole batch's box count, each microbatch's share of it
-            det_denom = (metadata["boxes_mask"].sum().clamp_min(1.0) / accum
-                         if detection else None)
-            parts = [forward_backward(
-                state, *(_microbatch(x, a, accum) for x in (
-                    video, labels, metadata, topk_labels)), det_denom)
-                for a in range(accum)]
-            with torch.no_grad():  # the gradients' sum over microbatches / A
-                for p in model.parameters():
-                    if p.grad is not None:
-                        p.grad.div_(accum)
-            stats = {k: torch.stack([s[k] for s in parts]).mean()
-                     for k in parts[0]}
+        with sharded_draws(*mesh.batch_rows(_batch_size(video))):
+            if accum == 1:
+                stats = forward_backward(state, video, labels, metadata,
+                                         topk_labels, det_denom)
+            else:
+                if _batch_size(video) % accum:
+                    raise ValueError(
+                        f"batch {_batch_size(video)} does not split into "
+                        f"TPU.GRAD_ACCUM={accum} microbatches")
+                parts = [forward_backward(
+                    state, *(_microbatch(x, a, accum) for x in (
+                        video, labels, metadata, topk_labels)), det_denom)
+                    for a in range(accum)]
+                with torch.no_grad():  # the gradients' sum over microbatches / A
+                    for p in model.parameters():
+                        if p.grad is not None:
+                            p.grad.div_(accum)
+                stats = {k: torch.stack([s[k] for s in parts]).mean()
+                         for k in parts[0]}
+        if distributed:  # the global batch's loss and errors
+            keys = sorted(stats)
+            flat = mesh.all_reduce_(torch.stack([stats[k].float()
+                                                 for k in keys])) / world
+            stats = dict(zip(keys, flat.unbind()))
         state.apply_gradients()
         return state, stats
 
@@ -422,12 +487,16 @@ class TrainRun:
 def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg,
                 writer=None, profiler=None, preempt_guard=None):
     """One epoch over ``train_loader``; returns (state, the epoch's
-    per-iteration losses). The stats reach the host at each LOG_PERIOD-th
-    iteration and the losses once at the end, so between them the loop
-    never waits for the device."""
+    per-iteration losses, the clips it trained on over every process).
+    The stats reach the host at each LOG_PERIOD-th iteration and the
+    losses once at the end, so between them the loop never waits for the
+    device. Under the short cycle the epoch has fewer batches than
+    ``len(train_loader)``, the full batches the LR schedule counts."""
     data_size = len(train_loader)
+    world = mesh.world_size()
     device = next(state.model.parameters()).device
     losses = torch.zeros(data_size, dtype=torch.float32, device=device)
+    steps = clips = 0
     train_meter.iter_tic()
     for cur_iter, batch in enumerate(train_loader):
         if profiler is not None:
@@ -436,6 +505,7 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg,
         train_meter.data_toc()
         state, stats = train_step(state, video, labels, metadata)
         losses[cur_iter] = stats["loss"]
+        steps, clips = cur_iter + 1, clips + _batch_size(video) * world
         if (cur_iter + 1) % cfg.LOG_PERIOD == 0:
             keys = sorted(stats)
             host = dict(zip(keys, torch.stack(
@@ -444,7 +514,7 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg,
             lr = lr_policy.get_lr_at_epoch(cfg, epoch_f)["lr"]
             train_meter.update_stats(
                 host.get("top1_err"), host.get("top5_err"), host["loss"], lr,
-                _batch_size(video), host.get("moe_aux"),
+                _batch_size(video) * world, host.get("moe_aux"),
             )
             if writer is not None:
                 # (reference train_net.py:262-274)
@@ -461,14 +531,7 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg,
         train_meter.iter_tic()
     train_meter.log_epoch_stats(cur_epoch)
     train_meter.reset()
-    return state, losses.tolist()
-
-
-def _host(x):
-    """A batch leaf on the host as numpy (probabilities as float32)."""
-    if torch.is_floating_point(x):
-        x = x.float()
-    return x.cpu().numpy()
+    return state, losses[:steps].tolist(), clips
 
 
 def val_stats(val_meter) -> dict:
@@ -489,13 +552,14 @@ def val_stats(val_meter) -> dict:
 @torch.no_grad()
 def eval_epoch(val_loader, forward, val_meter, cur_epoch, cfg, writer=None):
     """Validation (``eval_epoch``'s non-detection path): ``forward(video,
-    metadata)`` on every batch; the loader's pad rows (index -1) are
-    dropped on the host, so each val clip counts once. Multi-label data
-    (``DATA.MULTI_LABEL``) keeps the probabilities and multi-hot labels for
-    the meter's mean average precision and takes no top-k errors (the JAX
-    package's ``eval_epoch`` takes them, and raises on such labels). AVA
-    (an ``AVAMeter``) goes through ``run_detection_eval``. Returns the clips
-    counted."""
+    metadata)`` on every batch, the outputs, labels and sample indices of
+    every process gathered (``gathered_host``); the loader's pad rows
+    (index -1) are dropped on the host, so each val clip counts once.
+    Multi-label data (``DATA.MULTI_LABEL``) keeps the probabilities and
+    multi-hot labels for the meter's mean average precision and takes no
+    top-k errors (the JAX package's ``eval_epoch`` takes them, and raises
+    on such labels). AVA (an ``AVAMeter``) goes through
+    ``run_detection_eval``. Returns the clips counted."""
     if isinstance(val_meter, AVAMeter):
         val_meter.reset()
         return run_detection_eval(val_loader, forward, val_meter,
@@ -507,14 +571,14 @@ def eval_epoch(val_loader, forward, val_meter, cur_epoch, cfg, writer=None):
         video, labels, metadata = split_batch(batch)
         valid = None
         if isinstance(batch, (tuple, list)) and len(batch) >= 4:
-            idx_h = _host(batch[2])
+            idx_h = gathered_host(batch[2])
             if idx_h.ndim == 1 and (idx_h < 0).any():
                 valid = idx_h >= 0
         preds = forward(video, metadata)
         if is_ek:
             _, both = preds
-            verb, noun = _host(both["verb"]), _host(both["noun"])
-            lv, ln = _host(labels["verb"]), _host(labels["noun"])
+            verb, noun = gathered_host(both["verb"]), gathered_host(both["noun"])
+            lv, ln = gathered_host(labels["verb"]), gathered_host(labels["noun"])
             if valid is not None:
                 verb, noun, lv, ln = verb[valid], noun[valid], lv[valid], ln[valid]
             if verb.shape[0] == 0:
@@ -528,7 +592,7 @@ def eval_epoch(val_loader, forward, val_meter, cur_epoch, cfg, writer=None):
             clips += verb.shape[0]
         else:
             logits = preds[0] if isinstance(preds, tuple) else preds
-            logits_h, labels_h = _host(logits), _host(labels)
+            logits_h, labels_h = gathered_host(logits), gathered_host(labels)
             if valid is not None:
                 logits_h, labels_h = logits_h[valid], labels_h[valid]
             if logits_h.shape[0] == 0:
@@ -559,6 +623,47 @@ def _build_val(cfg, device):
     return val_loader, ValMeter(len(val_loader), cfg)
 
 
+@dataclasses.dataclass
+class _Loop:
+    """What the epochs run with, rebuilt at a long-cycle shape change."""
+
+    train_loader: object
+    val_loader: object
+    val_meter: object
+    train_step: object
+    forward: object
+    train_meter: object
+
+
+def _build_loop(cfg, device, state, train_loader) -> _Loop:
+    val_loader, val_meter = _build_val(cfg, device)
+    return _Loop(train_loader, val_loader, val_meter,
+                 make_supervised_train_step(state.model, cfg,
+                                            get_loss_func(cfg)),
+                 make_eval_forward(state.model, cfg),
+                 TrainMeter(len(train_loader), cfg))
+
+
+def _rebuild_for_long_cycle(cfg, state, cur_epoch, device):
+    """A multigrid long-cycle shape change (JAX ``_rebuild_for_long_cycle``;
+    reference train_net.py:653-675): the model built anew for the new
+    (B, T, S) with the schedule's BN type (BatchNorm and SubBatchNorm keep
+    the same state, ``models/norms.py``), the weights and BatchNorm
+    statistics, the optimizer's state, the step and the generator carried
+    over, the LR schedule continued from (``cur_epoch``, step) under the
+    new steps per epoch. Returns (state, the epochs' loop)."""
+    model = build_model(cfg, device)
+    model.load_state_dict(state.model.state_dict())
+    train_loader = data_loader.construct_loader(cfg, "train", device)
+    optimizer = optim.construct_optimizer(
+        model, cfg, len(train_loader), no_wd_paths(cfg),
+        epoch_offset=float(cur_epoch), step_offset=int(state.step))
+    optimizer.optimizer.load_state_dict(
+        state.optimizer.optimizer.state_dict())
+    state = TrainState(model, optimizer, state.generator, state.step)
+    return state, _build_loop(cfg, device, state, train_loader)
+
+
 def train(cfg, device="cuda"):
     """Supervised training (reference train_net.py:573-747) on ``device``
     (CUDA unless the caller asks for the CPU); returns the final state."""
@@ -572,13 +677,19 @@ def run_train(cfg, device="cuda") -> TrainRun:
     np.random.seed(cfg.RNG_SEED)
     torch.manual_seed(cfg.RNG_SEED)
     logging.setup_logging(cfg.OUTPUT_DIR)
+    multigrid = None
+    if cfg.MULTIGRID.LONG_CYCLE or cfg.MULTIGRID.SHORT_CYCLE:
+        multigrid = MultigridSchedule()
+        cfg = multigrid.init_multigrid(cfg)
+        if cfg.MULTIGRID.LONG_CYCLE:
+            cfg, _ = multigrid.update_long_cycle(cfg, cur_epoch=0)
     logger.info("Train with config:")
     logger.info(cfg.dump())
 
     model = build_model(cfg, device)
     train_loader = data_loader.construct_loader(cfg, "train", device)
-    val_loader, val_meter = _build_val(cfg, device)
     state = build_supervised_state(cfg, model, len(train_loader))
+    loop = _build_loop(cfg, device, state, train_loader)
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(
         f"{cfg.MODEL.MODEL_NAME} initialised: {n_params / 1e6:.2f}M params"
@@ -586,16 +697,12 @@ def run_train(cfg, device="cuda") -> TrainRun:
     start_epoch, report = cu.load_train_checkpoint(cfg, state)
     run = TrainRun(state=state, start_epoch=start_epoch, checkpoint=report)
 
-    train_step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
-    forward = make_eval_forward(model, cfg)
-    train_meter = TrainMeter(len(train_loader), cfg)
     writer = TensorboardWriter(cfg) if logging.is_master_process() else None
     profiler = StepProfiler(cfg)
     preempt_guard = PreemptionGuard(cfg)
     try:
-        _train_epochs(cfg, run, train_loader, val_loader, val_meter,
-                      train_step, forward, train_meter, writer, profiler,
-                      preempt_guard)
+        _train_epochs(cfg, run, loop, writer, profiler, preempt_guard,
+                      multigrid, device)
     except PreemptionSignaled as p:
         logger.info(
             f"Preempted during epoch {p.epoch}: saving checkpoint and "
@@ -604,44 +711,54 @@ def run_train(cfg, device="cuda") -> TrainRun:
         cu.save_checkpoint(cfg.OUTPUT_DIR, p.state, p.epoch, cfg,
                            async_write=False)
         cu.wait_for_saves()
+        mesh.barrier()
         profiler.stop()
         if writer is not None:
             writer.close()
         raise SystemExit(0)
     profiler.stop()
     cu.wait_for_saves()  # land any async checkpoint writes before returning
+    mesh.barrier()  # every process may read them next
     if writer is not None:
         writer.close()
     return run
 
 
-def _train_epochs(cfg, run, train_loader, val_loader, val_meter, train_step,
-                  forward, train_meter, writer, profiler, preempt_guard):
+def _train_epochs(cfg, run, loop, writer, profiler, preempt_guard, multigrid,
+                  device):
     state = run.state
     epoch_timer = EpochTimer()
+    schedule = multigrid.schedule if multigrid is not None else None
     t0 = time.perf_counter()
     for cur_epoch in range(run.start_epoch, cfg.SOLVER.MAX_EPOCH):
+        if multigrid is not None and cfg.MULTIGRID.LONG_CYCLE:
+            cfg, changed = multigrid.update_long_cycle(cfg, cur_epoch)
+            if changed:
+                state, loop = _rebuild_for_long_cycle(cfg, state, cur_epoch,
+                                                      device)
+                run.state = state
+        train_loader = loop.train_loader
         data_loader.shuffle_dataset(train_loader, cur_epoch)
         epoch_timer.epoch_tic()
         state.model.train()
         try:
-            state, losses = train_epoch(
-                train_loader, state, train_step, train_meter, cur_epoch, cfg,
-                writer=writer, profiler=profiler, preempt_guard=preempt_guard,
+            state, losses, clips = train_epoch(
+                train_loader, state, loop.train_step, loop.train_meter,
+                cur_epoch, cfg, writer=writer, profiler=profiler,
+                preempt_guard=preempt_guard,
             )
         finally:
             run.wait_seconds += train_loader.wait_seconds
             run.first_wait_seconds += train_loader.first_wait_seconds
         run.losses.append(losses)
         run.steps += len(losses)
-        run.clips += len(losses) * (train_loader.batch_size
-                                    * train_loader.flatten_samples)
+        run.clips += clips
         epoch_timer.epoch_toc()
         logger.info(
             f"Epoch {cur_epoch} takes {epoch_timer.last_epoch_time():.2f}s."
         )
-        is_checkp = cu.is_checkpoint_epoch(cfg, cur_epoch)
-        is_eval = misc.is_eval_epoch(cfg, cur_epoch)
+        is_checkp = cu.is_checkpoint_epoch(cfg, cur_epoch, schedule)
+        is_eval = misc.is_eval_epoch(cfg, cur_epoch, schedule)
         if (is_checkp or is_eval) and cfg.BN.USE_PRECISE_STATS:
             compute_precise_bn_stats(state.model, train_loader,
                                      cfg.BN.NUM_BATCHES_PRECISE, split_batch,
@@ -653,11 +770,12 @@ def _train_epochs(cfg, run, train_loader, val_loader, val_meter, train_step,
         if is_eval:
             state.model.eval()
             t_val = time.perf_counter()
-            run.val_clips += eval_epoch(val_loader, forward, val_meter,
-                                        cur_epoch, cfg, writer=writer)
+            run.val_clips += eval_epoch(loop.val_loader, loop.forward,
+                                        loop.val_meter, cur_epoch, cfg,
+                                        writer=writer)
             run.val_seconds += time.perf_counter() - t_val
             run.val_stats.append({"epoch": cur_epoch + 1,
-                                  **val_stats(val_meter)})
+                                  **val_stats(loop.val_meter)})
             state.model.train()
     if torch.cuda.is_available():
         torch.cuda.synchronize()

@@ -12,6 +12,8 @@ import math
 import torch
 from torch import nn
 
+from focus_tpu_torch.parallel.mesh import check_mesh
+
 MODEL_REGISTRY = {}
 
 
@@ -34,27 +36,6 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return device
-
-
-MESH_AXES = ("PIPE", "SEQ", "MODEL", "EXPERT")
-
-
-def check_mesh(cfg) -> None:
-    """Raise, before anything is built, where ``TPU.MESH`` asks for a
-    pipeline, sequence, model or expert axis above 1: the port runs one
-    process on one card (``MESH.DATA`` aside), and those layouts change
-    what the JAX package builds (``PIPE`` pipelines the trajectory blocks)
-    or refuse a single device (``focus_tpu/parallel/mesh.py``). On one card
-    a MoE config runs with ``TPU.MESH.PIPE 1 TPU.MESH.EXPERT 1``: every
-    expert on the card."""
-    mesh = cfg.TPU.MESH
-    over = [f"TPU.MESH.{k} {mesh[k]}" for k in MESH_AXES
-            if int(mesh.get(k, 1) or 1) > 1]
-    if over:
-        raise NotImplementedError(
-            f"{', '.join(over)}: the port runs no pipeline, sequence, model "
-            "or expert axis yet (ROADMAP.md section 1 item 8, more than one "
-            "process); set them to 1 to run on one card")
 
 
 def _trunc_normal_(t, std, generator):

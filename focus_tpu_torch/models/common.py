@@ -18,6 +18,8 @@ data's device; a generator on another device is refused, so no draw moves
 between the host and the card.
 """
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,22 +36,64 @@ def _draw_device(generator, device):
     return device
 
 
+# (first, rows, total) of this process's rows of a batch; see sharded_draws
+_DRAW_SHARD = None
+
+
+@contextlib.contextmanager
+def sharded_draws(first: int, rows: int, total: int):
+    """Within it this process holds rows [first, first + rows) of a batch
+    of ``total`` rows (a data-parallel step's or eval's slice), and every
+    draw of ``uniform``, ``normal`` and ``exponential``, whose leading axis
+    runs over the rows (a row, a microbatch's share of it, or several
+    frames a row), is made at the whole batch's size and this process's
+    part of it kept: a process draws what one process would draw for its
+    rows of the whole batch, and its generator advances as that process's
+    would. Where this process holds the whole batch (one process) the
+    draws are made as they are outside it. Each process thus draws W
+    times the random numbers that its rows use."""
+    global _DRAW_SHARD
+    prev, _DRAW_SHARD = _DRAW_SHARD, (int(first), int(rows), int(total))
+    try:
+        yield
+    finally:
+        _DRAW_SHARD = prev
+
+
+def _draw(make, shape):
+    shape = tuple(shape)
+    if _DRAW_SHARD is None or not shape:
+        return make(shape)
+    first, rows, total = _DRAW_SHARD
+    if rows == total:  # this process holds the whole batch
+        return make(shape)
+    n = shape[0]
+    if (n % rows and rows % n) or (n * total) % rows or (n * first) % rows:
+        raise ValueError(f"a draw of {n} rows does not run over the batch's "
+                         f"{rows} rows here")
+    start = n * first // rows
+    return make((n * total // rows,) + shape[1:])[start:start + n]
+
+
 def uniform(shape, generator, device):
     """Float32 draws from U[0, 1) on ``device``, made by ``generator``."""
-    return torch.rand(shape, generator=generator,
-                      device=_draw_device(generator, device))
+    device = _draw_device(generator, device)
+    return _draw(lambda s: torch.rand(s, generator=generator, device=device),
+                 shape)
 
 
 def normal(shape, generator, device):
     """Float32 draws from N(0, 1) on ``device``, made by ``generator``."""
-    return torch.randn(shape, generator=generator,
-                       device=_draw_device(generator, device))
+    device = _draw_device(generator, device)
+    return _draw(lambda s: torch.randn(s, generator=generator, device=device),
+                 shape)
 
 
 def exponential(shape, generator, device):
     """Float32 draws from Exp(1) on ``device``, made by ``generator``."""
-    out = torch.empty(shape, device=_draw_device(generator, device))
-    return out.exponential_(generator=generator)
+    device = _draw_device(generator, device)
+    return _draw(lambda s: torch.empty(s, device=device).exponential_(
+        generator=generator), shape)
 
 
 def dropout(x, p: float, train: bool, generator=None):

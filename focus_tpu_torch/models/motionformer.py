@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from focus_tpu_torch.models.build import register
-from focus_tpu_torch.models.common import layer_norm, linear
+from focus_tpu_torch.models.common import layer_norm, linear, uniform
 from focus_tpu_torch.models.moe import MoEMlp
 from focus_tpu_torch.ops import attention as attn_ops
 from focus_tpu_torch.ops.patch_embed import patch_embed_3d, patch_embed_reference
@@ -64,7 +64,7 @@ def drop_path(x, drop_prob: float, generator=None):
     generator of x's device)."""
     keep = 1.0 - drop_prob
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    u = torch.rand(shape, generator=generator, device=x.device)
+    u = uniform(shape, generator, x.device)
     mask = torch.floor(keep + u).to(x.dtype)
     return x / keep * mask
 

@@ -11,15 +11,27 @@ parameters and buffers alone, so its state-dict names are the reference's
 (``weight``, ``bias``, ``running_mean``, ``running_var``,
 ``num_batches_tracked``, the last never read or moved).
 
-One process drives one device, so ``sync_batchnorm`` is ``batchnorm``.
-``SubBatchNorm`` is the JAX package's redesign: per-split statistics in
-training, and ONE ``[C]`` running buffer updated with the splits' mixture
-(not the reference's per-split buffers), so its state is BatchNorm's.
+``batchnorm`` and ``sync_batchnorm`` are one layer, and under data
+parallelism (``parallel/mesh.py``) both take the global batch's
+statistics: each process's per-channel sums and sums of squares, in
+float32, are summed over the processes (differentiably, so the gradient
+reaches every process's rows through the global statistics), as XLA
+reduces the JAX package's batch-sharded array. The reference's plain
+BatchNorm is per GPU; the port follows the JAX package (ROADMAP.md
+section 3). ``SubBatchNorm`` is the JAX package's redesign: per-split
+statistics in training, and ONE ``[C]`` running buffer updated with the
+splits' mixture (not the reference's per-split buffers), so its state is
+BatchNorm's. Split j is the samples whose index in the global batch is j
+modulo the splits; where the local batch does not divide by the splits, a
+process's rows fall in the splits unevenly and each split's statistics
+still gather over every process.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from focus_tpu_torch.parallel import mesh
 
 BN_MOMENTUM = 0.9  # flax nn.BatchNorm's (torch's momentum 0.1)
 BN_EPS = 1e-5
@@ -57,8 +69,10 @@ def batch_norm(x, bn: nn.modules.batchnorm._BatchNorm, train=False):
         return F.batch_norm(xf, *(t.to(xf.dtype) for t in stats), False,
                             0.0, bn.eps).to(x.dtype)
     dims = (0,) + tuple(range(2, x.ndim))
-    mean = xf.mean(dims)
-    var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+    sums = mesh.all_reduce_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]))
+    count = xf.numel() // x.shape[1] * mesh.world_size()
+    mean = sums[0] / count
+    var = (sums[1] / count - mean * mean).clamp_min(0.0)
     _update_running(bn, mean, var)
     shape = (-1,) + (1,) * (x.ndim - 2)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
@@ -82,11 +96,12 @@ class BatchNorm(nn.BatchNorm3d):
 
 class SubBatchNorm(BatchNorm):
     """Per-split training statistics (``_SubBNCore``): split j is samples
-    j, j + s, ... of the batch; each split is normalised by its own mean
-    and biased variance (in at least float32, then cast), and the one running buffer
-    moves toward the splits' mixture. Eval normalises by the running
-    statistics in float32, casts, then applies scale and bias at x's dtype,
-    as the JAX layer does in both modes."""
+    j, j + s, ... of the (global) batch; each split is normalised by its
+    own mean and biased variance, the JAX layer's two passes (in at least
+    float32, then cast), and the one running buffer moves toward the
+    splits' mixture. Eval normalises by the running statistics in float32,
+    casts, then applies scale and bias at x's dtype, as the JAX layer does
+    in both modes."""
 
     def __init__(self, num_features, num_splits, zero_init=False):
         super().__init__(num_features, zero_init)
@@ -98,23 +113,34 @@ class SubBatchNorm(BatchNorm):
             xf = (at_least_float32(x) - self.running_mean.view(shape)) / torch.sqrt(
                 self.running_var.view(shape) + self.eps)
         else:
-            B, s = x.shape[0], self.num_splits
-            if B % s:
-                raise ValueError(f"batch {B} does not split into "
-                                 f"BN.NUM_SPLITS={s}")
-            xs = at_least_float32(x).reshape((B // s, s) + x.shape[1:])
-            dims = (0,) + tuple(range(3, xs.ndim))
-            split_shape = (1, s, -1) + (1,) * (x.ndim - 2)
-            mean_s = xs.mean(dims)  # [s, C]
-            centred = xs - mean_s.view(split_shape)
-            var_s = (centred ** 2).mean(dims)
-            xf = (centred / torch.sqrt(var_s.view(split_shape) + self.eps)
-                  ).reshape(x.shape)
-            mean = mean_s.mean(0)
-            _update_running(self, mean, var_s.mean(0)
-                            + (mean_s ** 2).mean(0) - mean ** 2)
+            xf = self._split_norm(x)
         return (xf.to(x.dtype) * self.weight.to(x.dtype).view(shape)
                 + self.bias.to(x.dtype).view(shape))
+
+    def _split_norm(self, x):
+        """The training normalisation: each row's split is its index in
+        the global batch (rank x local batch + row) modulo the splits; each
+        split's sums, then its centred sums of squares, are summed over the
+        processes."""
+        B, s = x.shape[0], self.num_splits
+        if (B * mesh.world_size()) % s:
+            raise ValueError(f"batch {B * mesh.world_size()} does not split "
+                             f"into BN.NUM_SPLITS={s}")
+        xf = at_least_float32(x)
+        split = (mesh.rank() * B + torch.arange(B, device=x.device)) % s
+        onehot = F.one_hot(split, s).to(xf.dtype)  # [B, s]
+        spatial = tuple(range(2, x.ndim))
+        per_row = xf.shape[2:].numel()
+        count = (B * mesh.world_size() // s) * per_row
+        row_shape = (B, -1) + (1,) * (x.ndim - 2)
+        mean_s = mesh.all_reduce_sum(onehot.t() @ xf.sum(spatial)) / count
+        centred = xf - mean_s[split].view(row_shape)
+        var_s = mesh.all_reduce_sum(
+            onehot.t() @ (centred * centred).sum(spatial)) / count
+        mean = mean_s.mean(0)
+        _update_running(self, mean, var_s.mean(0)
+                        + (mean_s ** 2).mean(0) - mean ** 2)
+        return centred / torch.sqrt(var_s[split].view(row_shape) + self.eps)
 
 
 def get_norm(cfg):

@@ -17,7 +17,10 @@ optimizer, with optax's semantics:
   ``max_norm``, with no epsilon (``torch.nn.utils.clip_grad_norm_`` adds
   one); value clipping clamps each element;
 - a parameter that received no gradient is updated with a zero gradient,
-  as optax updates every leaf (weight decay still applies).
+  as optax updates every leaf (weight decay still applies);
+- under data parallelism (``parallel/mesh.py``) the gradients are
+  averaged over the processes, in one all-reduce, before the clip, so each
+  process applies the global batch's update.
 
 STEVE's (``construct_optimizer_slot``, reference optimizer.py:13-45 and
 ``set_slot_lr``) is Adam in three groups by parameter prefix, ``dvae`` at
@@ -31,6 +34,7 @@ import math
 import numpy as np
 import torch
 
+from focus_tpu_torch.parallel import mesh
 from focus_tpu_torch.utils import lr_policy
 
 
@@ -48,12 +52,17 @@ def param_label(name: str, ndim: int, cfg, no_weight_decay_paths=()) -> str:
     return f"orvit_{kind}" if orvit else kind
 
 
-def epoch_lr_schedule(cfg, steps_per_epoch: int, which: str = "lr"):
-    """LR(step) = the reference's LR at epoch step / steps_per_epoch, warmup
-    included (``_epoch_lr_schedule``); ``which`` is "lr" or "orvit_lr"."""
+def epoch_lr_schedule(cfg, steps_per_epoch: int, which: str = "lr",
+                      epoch_offset: float = 0.0, step_offset: int = 0):
+    """LR(step) = the reference's LR at epoch epoch_offset + (step -
+    step_offset) / steps_per_epoch, warmup included
+    (``_epoch_lr_schedule``); ``which`` is "lr" or "orvit_lr". The offsets
+    carry the schedule across a multigrid long-cycle rebuild, where the
+    steps per epoch change mid-run."""
 
     def sched(step):
-        return lr_policy.get_lr_at_epoch(cfg, step / steps_per_epoch)[which]
+        epoch = epoch_offset + (step - step_offset) / steps_per_epoch
+        return lr_policy.get_lr_at_epoch(cfg, epoch)[which]
 
     return sched
 
@@ -92,6 +101,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        mesh.all_reduce_mean_(grads)
         if self.clip_value:
             for g in grads:
                 g.clamp_(-self.clip_value, self.clip_value)
@@ -107,9 +117,11 @@ class Optimizer:
 
 
 def construct_optimizer(model, cfg, steps_per_epoch: int,
-                        no_weight_decay_paths=()) -> Optimizer:
+                        no_weight_decay_paths=(), epoch_offset: float = 0.0,
+                        step_offset: int = 0) -> Optimizer:
     """The supervised optimizer with the reference's group structure over
-    ``model``'s parameters (``construct_optimizer``)."""
+    ``model``'s parameters (``construct_optimizer``); the offsets as in
+    ``epoch_lr_schedule``."""
     use_orvit_lr = cfg.SOLVER.ORVIT_BASE_LR > 0
     labels = ["main", "zero"] + (["orvit_main", "orvit_zero"]
                                  if use_orvit_lr else [])
@@ -122,7 +134,8 @@ def construct_optimizer(model, cfg, steps_per_epoch: int,
               for label in labels if members[label]]
     schedules = [epoch_lr_schedule(
         cfg, steps_per_epoch,
-        "orvit_lr" if g["label"].startswith("orvit") else "lr") for g in groups]
+        "orvit_lr" if g["label"].startswith("orvit") else "lr",
+        epoch_offset, step_offset) for g in groups]
     return Optimizer(_torch_optimizer(cfg, groups), schedules,
                      clip_value=cfg.SOLVER.CLIP_GRAD_VAL or None,
                      clip_norm=cfg.SOLVER.CLIP_GRAD_L2NORM or None)

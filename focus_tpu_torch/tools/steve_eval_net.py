@@ -3,6 +3,8 @@
 
     python -m focus_tpu_torch.tools.steve_eval_net [--device cuda|cpu] --cfg X.yaml [--exp_name N] [KEY VAL ...]
 
+through ``tools.run_net.launch_job`` (``NUM_GPUS`` processes a host).
+
 The checkpoint comes from the test path's chain, OUTPUT_DIR/<exp_name>
 included.
 """
@@ -11,17 +13,19 @@ import os
 
 from focus_tpu_torch.config.defaults import assert_and_infer_cfg
 from focus_tpu_torch.engine.slot_trainer import slot_eval
+from focus_tpu_torch.tools.run_net import launch_job
 from focus_tpu_torch.utils.parser import load_config, parse_args
 
 
 def main(argv=None):
-    """Returns {"fg_ari", "mbo"}, in percent."""
+    """Returns {"fg_ari", "mbo"}, in percent (None where more than one
+    process ran it)."""
     args = parse_args(argv)
     cfg = load_config(args)
     cfg = assert_and_infer_cfg(cfg)
     cfg.EXP.NAME = args.exp_name
     cfg.EXP.PATH = os.path.join(cfg.OUTPUT_DIR, args.exp_name)
-    return slot_eval(cfg, device=args.device)
+    return launch_job(cfg, args.init_method, slot_eval, args.device)
 
 
 if __name__ == "__main__":

@@ -2,23 +2,27 @@
 ``tools/train_net.py``):
 
     python -m focus_tpu_torch.tools.train_net [--device cuda|cpu] --cfg X.yaml [KEY VAL ...]
+
+through ``tools.run_net.launch_job`` (``NUM_GPUS`` processes a host).
 """
 
 import os
 
 from focus_tpu_torch.config.defaults import assert_and_infer_cfg
 from focus_tpu_torch.engine.trainer import train
+from focus_tpu_torch.tools.run_net import launch_job
 from focus_tpu_torch.utils.parser import load_config, parse_args
 
 
 def main(argv=None):
-    """Returns the final train state."""
+    """Returns the final train state (None where more than one process
+    ran it)."""
     args = parse_args(argv)
     cfg = load_config(args)
     cfg = assert_and_infer_cfg(cfg)
     cfg.EXP.NAME = args.exp_name
     cfg.EXP.PATH = os.path.join(cfg.OUTPUT_DIR, args.exp_name)
-    return train(cfg, device=args.device)
+    return launch_job(cfg, args.init_method, train, args.device)
 
 
 if __name__ == "__main__":

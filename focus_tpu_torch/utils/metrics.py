@@ -109,22 +109,26 @@ def _hard_masks(pred_mask: np.ndarray) -> np.ndarray:
     return hard
 
 
+def ari_per_clip(true_mask: np.ndarray, pred_mask: np.ndarray) -> np.ndarray:
+    """Each sample's ARI [B] (``evaluate_ari`` before its mean)."""
+    true_mask = np.asarray(true_mask, dtype=np.float64)
+    hard = _hard_masks(np.asarray(pred_mask, dtype=np.float64))
+    tables = np.einsum("bnd,bkd->bnk", (true_mask != 0).astype(np.float64),
+                       hard.astype(np.float64))  # [B, N0, N1]
+    return np.asarray([compute_ari(t) for t in tables], np.float64)
+
+
 def evaluate_ari(true_mask: np.ndarray, pred_mask: np.ndarray) -> float:
     """Average ARI over a batch (reference metrics.py:59-83). true_mask:
     [B, N0, D] binary; pred_mask: [B, N1, D] soft or binary, binarised by a
     per-pixel argmax over N1. The contingency tables of all samples are one
     einsum."""
-    true_mask = np.asarray(true_mask, dtype=np.float64)
-    hard = _hard_masks(np.asarray(pred_mask, dtype=np.float64))
-    tables = np.einsum("bnd,bkd->bnk", (true_mask != 0).astype(np.float64),
-                       hard.astype(np.float64))  # [B, N0, N1]
-    return float(np.mean([compute_ari(t) for t in tables]))
+    return float(np.mean(ari_per_clip(true_mask, pred_mask)))
 
 
-def evaluate_mbo(true_mask: np.ndarray, pred_mask: np.ndarray) -> float:
-    """Mean Best Overlap: each ground-truth mask matched to the predicted
-    mask of highest IoU, the IoUs averaged over the non-empty ground-truth
-    masks (the reference leaves this a stub, metrics.py:86-102)."""
+def mbo_sums(true_mask: np.ndarray, pred_mask: np.ndarray):
+    """(the best IoUs' sum, the non-empty ground-truth masks' count) of a
+    batch: ``evaluate_mbo`` is their ratio."""
     true_mask = np.asarray(true_mask) != 0  # [B, N0, D]
     hard = _hard_masks(np.asarray(pred_mask, dtype=np.float64))
     inter = np.einsum("bnd,bkd->bnk", true_mask.astype(np.float64),
@@ -135,6 +139,12 @@ def evaluate_mbo(true_mask: np.ndarray, pred_mask: np.ndarray) -> float:
     iou = np.where(union > 0, inter / np.maximum(union, 1), 0.0)
     best = iou.max(axis=-1)  # [B, N0]
     nonempty = area_t[:, :, 0] > 0
-    if nonempty.sum() == 0:
-        return 0.0
-    return float(best[nonempty].mean())
+    return float(best[nonempty].sum()), int(nonempty.sum())
+
+
+def evaluate_mbo(true_mask: np.ndarray, pred_mask: np.ndarray) -> float:
+    """Mean Best Overlap: each ground-truth mask matched to the predicted
+    mask of highest IoU, the IoUs averaged over the non-empty ground-truth
+    masks (the reference leaves this a stub, metrics.py:86-102)."""
+    total, count = mbo_sums(true_mask, pred_mask)
+    return total / count if count else 0.0

@@ -1,5 +1,5 @@
 """Preemption-aware checkpointing (a copy of
-``focus_tpu/utils/preemption.py`` for one process).
+``focus_tpu/utils/preemption.py``).
 
 Spot capacity, defragmentation and maintenance end a job with a SIGTERM
 and a grace window. The handler here only sets a flag; the train loop
@@ -15,9 +15,10 @@ and generator carry the mid-epoch position, so the step-driven LR
 schedule continues exactly; the replayed epoch's data order is drawn again
 from the epoch seed.
 
-The guard is single-process: the JAX package agrees on the flag across
-hosts with an all-gather, and the port's loader raises on more than one
-process.
+Under data parallelism every process polls at the same iterations, and
+there the processes agree on the flag (an all-reduce max, as the JAX
+package's all-gather of the hosts' flags): a signal to any one stops all
+of them at the same iteration, and rank 0 writes the one checkpoint.
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ from __future__ import annotations
 import signal
 import threading
 
-import torch.distributed as dist
-
+from focus_tpu_torch.parallel import mesh
 from focus_tpu_torch.utils import logging
 
 logger = logging.get_logger(__name__)
@@ -86,15 +86,10 @@ class PreemptionSignaled(Exception):
 class PreemptionGuard:
     """Polls the preemption flag every ``TPU.PREEMPT_SYNC_PERIOD``
     iterations (``TPU.PREEMPTION_SAVE`` turns it on); ``poll(cur_iter)`` is
-    a host-side modulo off the period and a flag check on it."""
+    a host-side modulo off the period and, on it, the flag agreed over the
+    processes (every process calls it at the same iterations)."""
 
     def __init__(self, cfg):
-        if dist.is_available() and dist.is_initialized() and (
-                dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "preemption across processes: the flag's agreement comes "
-                "with the DDP slice of the port"
-            )
         self.enabled = bool(getattr(cfg.TPU, "PREEMPTION_SAVE", True))
         self.period = max(
             int(getattr(cfg.TPU, "PREEMPT_SYNC_PERIOD", 10) or 10), 1
@@ -105,4 +100,4 @@ class PreemptionGuard:
     def poll(self, cur_iter: int) -> bool:
         if not self.enabled or (cur_iter + 1) % self.period:
             return False
-        return preemption_requested()
+        return mesh.any_process(preemption_requested())

@@ -416,9 +416,7 @@ def test_loader_passes_dataset_errors_on():
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("NUM_SHARDS", 2, "more than one process"),
     ("DATA_LOADER.WORKER_BACKEND", "process", "WORKER_BACKEND"),
-    ("MULTIGRID.SHORT_CYCLE", True, "SHORT_CYCLE"),
     ("AUG.NUM_SAMPLE", 2, "NUM_SAMPLE"),
 ])
 def test_construct_loader_raises_on_unported_options(key, value, match):

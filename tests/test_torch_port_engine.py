@@ -455,18 +455,15 @@ def test_cli_runs_the_test_path_on_the_cpu(tmp_path):
     ("TPU.MESH.MODEL", 2, "TPU.MESH.MODEL 2"),
     ("TENSORBOARD.HISTOGRAM.ENABLE", True, "HISTOGRAM"),
     ("MODEL.LOAD_IN_PRETRAIN", "vit.pth", "LOAD_IN_PRETRAIN"),
-    ("--num_shards", 2, "more than one process"),
+    ("TPU.MESH.SEQ", 2, "TPU.MESH.SEQ 2"),
 ])
 def test_unported_options_raise(tmp_path, key, value, match):
     from focus_tpu_torch.tools import run_net
 
     yaml = os.path.join(REPO, "configs", "tests", "mf_synthetic.yaml")
     args = ["--device", "cpu", "--cfg", yaml]
-    opts = ["TRAIN.ENABLE", "False", "OUTPUT_DIR", str(tmp_path)]
-    if key.startswith("--"):
-        args = [key, str(value)] + args
-    else:
-        opts += [key, str(value)]
+    opts = ["TRAIN.ENABLE", "False", "OUTPUT_DIR", str(tmp_path), key,
+            str(value)]
     if key.startswith("TENSORBOARD."):
         opts += ["TENSORBOARD.ENABLE", "True"]
     with pytest.raises(NotImplementedError, match=match):

@@ -306,7 +306,10 @@ def test_tiny_hr_three_train_steps_match_jax(tiny_hr):
     mesh = mesh_lib.build_mesh(jcfg)
     tx = joptim.construct_optimizer(tiny_hr["params"], jcfg, spe,
                                     no_weight_decay_paths=_no_wd_paths(jcfg))
-    jstate = TrainState.create(tiny_hr["params"], tx)
+    # placed as the step places its output state, so that the later steps
+    # reuse the first one's compile
+    jstate = jax.device_put(TrainState.create(tiny_hr["params"], tx),
+                            mesh_lib.replicated(mesh))
     jstep = jmake(tiny_hr["jmodel"], jcfg, mesh, jlosses.get_loss_func(jcfg))
 
     model = _port_model(tiny_hr)

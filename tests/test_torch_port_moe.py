@@ -326,7 +326,10 @@ def test_three_moe_train_steps_match_jax(tiny_moe, accum):
     mesh = mesh_lib.build_mesh(jcfg)
     tx = joptim.construct_optimizer(tiny_moe["params"], jcfg, spe,
                                     no_weight_decay_paths=_no_wd_paths(jcfg))
-    jstate = TrainState.create(tiny_moe["params"], tx)
+    # placed as the step places its output state, so that the later steps
+    # reuse the first one's compile
+    jstate = jax.device_put(TrainState.create(tiny_moe["params"], tx),
+                            mesh_lib.replicated(mesh))
     jstep = jmake(tiny_moe["jmodel"], jcfg, mesh, jlosses.get_loss_func(jcfg))
 
     model = build_model(cfg, device="cpu")

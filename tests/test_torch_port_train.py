@@ -337,7 +337,10 @@ def test_three_train_steps_match_jax(tiny, case):
     # build_supervised_state without its init: the params are the fixture's
     tx = joptim.construct_optimizer(tiny["params"], jcfg, spe,
                                     no_weight_decay_paths=_no_wd_paths(jcfg))
-    jstate = TrainState.create(tiny["params"], tx)
+    # placed as the step places its output state, so that the later steps
+    # reuse the first one's compile
+    jstate = jax.device_put(TrainState.create(tiny["params"], tx),
+                            mesh_lib.replicated(mesh))
     jstep = jmake(tiny["jmodel"], jcfg, mesh, jlosses.get_loss_func(jcfg))
 
     model = port_model(tiny, cfg)
