@@ -7428,6 +7428,621 @@ def phase_ddp(smi, per_call):
     return {"nccl": nccl["launches"], "gloo_rank0": two}
 
 
+# ---- phase 22: tensor and sequence parallelism, ZeRO-1, remat ---------------
+
+MESH_DIR = os.path.join(REPO, "build", "mesh_engine")
+MESH_LOG = os.path.join(REPO, "build", "mesh_engine.log")
+MESH_YAML = os.path.join(REPO, "configs", "TPU",
+                         "SSv2_ORViT-MF_224_16x4_dp_sp_tp.yaml")
+MESH_RANKS = 8  # DATA 2 x SEQ 2 x MODEL 2, gloo, every rank on cuda:0
+MESH_BATCH = 8  # global batch (the yaml's 48 cut so one card holds 8 ranks)
+MESH_ACCUM = 2  # __graft_entry__._dryrun_multichip_impl's GRAD_ACCUM
+MESH_STEPS = 3
+MESH_VAL = 8  # val clips: one global batch
+MESH_TEST_VIDEOS = 2  # x 3 crops: 6 clips, one batch with 2 pad rows
+# against one process on the same batches, bf16 on the card (phase 21's
+# gates): each loss within this share of it, the update's relative L2
+# distance, the test ensembles
+MESH_LOSS_REL = 1e-3
+MESH_UPDATE_REL = 5e-2
+MESH_ENSEMBLE_ATOL = 1e-3
+WINDOW_CASES = ((8, 196), (8, 200), (4, 441))
+WINDOW_SEQS = (2, 4)
+REMAT_BATCH, REMAT_BIG_BATCH = 8, 16  # scripts/profile_train.py's pallas_b16r
+REMAT_STEPS = 5
+REMAT_GRAD_REL_L2 = 1e-3
+HR_SEQ_PROB_ATOL = 1e-3
+
+
+def window_kernels(problems):
+    """(a): kernels 1 and 7 over each window of F / SEQ query frames
+    (SEQ 2 and 4) at B = 8, N = 196 and 200, and B = 4, N = 441: the
+    window's out, xs and q2 bit-equal to those rows of the whole launch;
+    its dq within kernel 7's gate (``grad_errors``) of those rows of the
+    whole launch's, and whether bit-equal; the windows' summed dK, dV,
+    dWq2, dbq2 and dWk2 within the gate of the plain float32 backward of
+    the whole core. The last window (f0 > 0) timed, forward and
+    backward."""
+    from focus_tpu_torch.ops import trajectory_block as tb
+
+    heads, scale, C, F = 12, 64 ** -0.5, 768, 8
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(22)
+    cases = []
+    for B, N in WINDOW_CASES:
+        S = F * N
+        args = core_inputs(B, N, gen)
+        q, kf, vf, wq2, bq2, wk2, _ = args
+        dout = (torch.randn(B, S, C, generator=gen, device=DEV)
+                * 0.1).bfloat16()
+        out, xs, q2 = tb._launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
+        dq = tb._launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2,
+                                 scale, heads)[0]
+        ref = tb.trajectory_core_backward_reference(
+            *[a.float() for a in args], dout.float(), scale, heads)
+        for seq in WINDOW_SEQS:
+            n, tag = F // seq, f"B={B} N={N} SEQ={seq}"
+            case = {"case": tag, "query_rows": n * N}
+            sums, fwd_equal, dq_equal = None, True, True
+            for w in range(seq):
+                rows = slice(w * n * N, (w + 1) * n * N)
+                qw = q[:, rows].contiguous()
+                dw = dout[:, rows].contiguous()
+                ow, xw, q2w = tb._launch(qw, kf, vf, wq2, bq2, wk2, scale,
+                                         heads, f0=w * n)
+                fwd_equal &= (torch.equal(ow, out[:, rows])
+                              and torch.equal(xw, xs[:, rows])
+                              and torch.equal(q2w, q2[:, rows]))
+                g = tb._launch_backward(qw, kf, vf, wq2, bq2, wk2, dw, xw,
+                                        q2w, scale, heads, f0=w * n)
+                dq_equal &= torch.equal(g[0], dq[:, rows])
+                case[f"dq_window_{w}"] = grad_errors(f"{tag} window {w} dq",
+                                                     g[0], dq[:, rows])
+                part = [x.float() for x in g[1:]]
+                sums = part if sums is None else [
+                    a + b for a, b in zip(sums, part)]
+            for name, got, r in zip(GRAD_NAMES[1:], sums, ref[1:6]):
+                case[f"summed_{name}"] = grad_errors(f"{tag} summed {name}",
+                                                     got, r)
+            case["out_xs_q2_bitwise_equal_to_whole_rows"] = fwd_equal
+            case["dq_bitwise_equal_to_whole_rows"] = dq_equal
+            if not fwd_equal:
+                problems.append(f"window {tag}: out / xs / q2 differ from "
+                                "the whole launch's rows")
+            f0 = (seq - 1) * n
+            qw = q[:, f0 * N:].contiguous()
+            dw = dout[:, f0 * N:].contiguous()
+            _, xw, q2w = tb._launch(qw, kf, vf, wq2, bq2, wk2, scale, heads,
+                                    f0=f0)
+            Sw = n * N
+            fwd_bound = bound(core_flops(B, Sw, F, N, C),
+                              nbytes(qw, kf, vf, wq2, bq2, wk2, qw, xw, q2w))
+            bwd_bound = bound(core_bwd_flops(B, Sw, F, N, C, heads),
+                              nbytes(qw, kf, vf, wq2, wk2, dw, xw, q2w)
+                              + nbytes(qw, kf, vf) + 4 * (2 * C * C + C))
+            case.update({
+                "window_fwd_ms": time_ms(lambda: tb._launch(
+                    qw, kf, vf, wq2, bq2, wk2, scale, heads, f0=f0)),
+                "window_fwd_bound_ms": fwd_bound[0],
+                "window_fwd_bound_by": fwd_bound[1],
+                "window_bwd_ms": time_ms(lambda: tb._launch_backward(
+                    qw, kf, vf, wq2, bq2, wk2, dw, xw, q2w, scale, heads,
+                    f0=f0)),
+                "window_bwd_bound_ms": bwd_bound[0],
+                "window_bwd_bound_by": bwd_bound[1],
+                "timed_window_f0": f0})
+            cases.append(case)
+            del qw, dw, xw, q2w
+        del args, dout, out, xs, q2, dq, ref
+        torch.cuda.empty_cache()
+    return cases
+
+
+def remat_train(remat, batch):
+    """(TrainStep, inputs) of the flagship train step (``entry.train_cfg``
+    with the yaml's drop path 0.2, which the recompute replays) from the
+    seeded weights and batch, with or without TPU.REMAT."""
+    from focus_tpu_torch import entry
+
+    cfg = entry.train_cfg()
+    cfg.MF.DROP_PATH = 0.2
+    cfg.TPU.REMAT = remat
+    return entry._train_entry(cfg, DEV, batch, 0)
+
+
+def remat_run(remat, batch, grads=False):
+    """The flagship train step at ``batch`` with or without TPU.REMAT, from
+    the seeded weights and batch. With ``grads``, first one train forward
+    and backward with drop path from a seeded generator: the loss, every
+    gradient on the host, the generator's state after, the launches and
+    the peak. Then REMAT_STEPS timed train steps (one warm-up): ms a step
+    (CUDA events), peak allocated memory, and the device's busy ms and
+    share of two steps under torch.profiler."""
+    from focus_tpu_torch.models.losses import get_loss_func
+    from focus_tpu_torch.ops.preprocess import device_normalize
+
+    fn, inputs = remat_train(remat, batch)
+    out = {}
+    if grads:
+        video, labels, boxes = inputs
+        model, cfg = fn.model, fn.model.cfg
+        model.train()
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(7)
+
+        def run():
+            logits = model(device_normalize(video, cfg),
+                           {"orvit_bboxes": boxes}, train=True, generator=gen)
+            loss = get_loss_func(cfg)(logits, labels)
+            loss.backward()
+            return loss.item()
+
+        loss, launches, peak = counted(run)
+        out = {"loss": loss, "generator": gen.get_state().cpu(),
+               "grads": {n: p.grad.detach().float().cpu()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None},
+               "launches": launches, "peak_memory_gb": peak}
+    fn(*inputs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: fn(*inputs), warmup=0, iters=REMAT_STEPS)
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    busy = profiled_share(lambda: fn(*inputs))
+    del fn, inputs
+    torch.cuda.empty_cache()
+    out["steps"] = {"remat": remat, "batch": batch, "step_ms": ms,
+                    "peak_memory_gb": step_peak,
+                    "profiled_wall_ms": busy["wall_ms_per_call"],
+                    "device_busy_ms": busy.get("device_busy_ms_per_call",
+                                               "not measured"),
+                    "busy_share": busy["busy_share"]}
+    return out
+
+
+def remat_phase(problems):
+    """(b): the flagship's train step at batch 8 with TPU.REMAT and
+    without: the same loss, every gradient within REMAT_GRAD_REL_L2
+    relative L2 (and whether bit-equal), the generator's state after the
+    step equal, kernel 1 launched 12 + 7 times (blocks 2-5 and 7-9
+    recomputed) and kernel 7 12 times; then ms a step and peak memory at
+    batch 8 without and with remat and at batch 16 with it."""
+    plain = remat_run(False, REMAT_BATCH, grads=True)
+    remat = remat_run(True, REMAT_BATCH, grads=True)
+    rel = {n: ((remat["grads"][n] - g).norm()
+               / g.norm().clamp_min(1e-30)).item()
+           for n, g in plain["grads"].items()}
+    worst = max(rel, key=rel.get)
+    bit_equal = all(torch.equal(remat["grads"][n], g)
+                    for n, g in plain["grads"].items())
+    same_gen = torch.equal(remat["generator"], plain["generator"])
+    loss_rel = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+    want = {"plain": (12, 12, 1), "remat": (19, 12, 1)}
+    got = {k: (r["launches"]["trajectory_block"],
+               r["launches"]["trajectory_block_bwd"],
+               r["launches"]["patch_embed"])
+           for k, r in (("plain", plain), ("remat", remat))}
+    ok = (sorted(remat["grads"]) == sorted(plain["grads"])
+          and loss_rel <= 1e-6 and rel[worst] <= REMAT_GRAD_REL_L2
+          and same_gen and got == want)
+    if not ok:
+        problems.append(f"remat: loss {remat['loss']} vs {plain['loss']}, "
+                        f"worst grad {worst} {rel[worst]:.3e}, generator "
+                        f"{same_gen}, launches {got} (want {want})")
+    runs = [plain["steps"], remat["steps"],
+            remat_run(True, REMAT_BIG_BATCH)["steps"]]
+    return {"loss_plain": plain["loss"], "loss_remat": remat["loss"],
+            "loss_rel_err": loss_rel, "worst_grad": worst,
+            "worst_grad_rel_l2": rel[worst], "grads_bitwise_equal": bit_equal,
+            "generator_state_equal": same_gen,
+            "launches_per_step": {k: dict(zip(
+                ("trajectory_block", "trajectory_block_bwd", "patch_embed"),
+                v)) for k, v in got.items()},
+            "peak_memory_gb_one_step": {"plain": plain["peak_memory_gb"],
+                                        "remat": remat["peak_memory_gb"]},
+            "steps": runs,
+            "rule": f"loss within 1e-6 relative, every gradient within "
+                    f"{REMAT_GRAD_REL_L2} relative L2, the generator's state "
+                    "equal, kernel 1 19 and kernel 7 12 launches a step "
+                    "under remat"}
+
+
+def mesh_splits():
+    def make(cfg, mode):
+        if mode == "test":
+            return MeshTestClips(cfg, mode)
+        return TrainClips(cfg, mode, MESH_BATCH * MESH_STEPS
+                          if mode == "train" else MESH_VAL, False)
+
+    return {"Chip_mesh_ssv2": make}
+
+
+def mesh_cfg(out_dir, mesh_axes=True):
+    """The dp x sp x tp yaml as shipped (the flagship recipe, drop path 0.2,
+    no mixup, DATA -1 x SEQ 2 x MODEL 2) with the dry run's TPU.ZERO1 and
+    GRAD_ACCUM 2, cut to global batch MESH_BATCH and MESH_STEPS steps of one
+    epoch, one validation and the test of MESH_TEST_VIDEOS x 3 crops, in
+    the in-script splits. ``mesh_axes=False``: the one-process run it is
+    held against (no seq or model axis, no ZeRO-1)."""
+    from focus_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(MESH_YAML)
+    cfg.TRAIN.DATASET = cfg.TEST.DATASET = "chip_mesh_ssv2"
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = MESH_BATCH
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = ""
+    cfg.TRAIN.AUTO_RESUME = False
+    cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 1
+    cfg.TRAIN.METHOD, cfg.TEST.EVAL_TASK = "sup", "ar"
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.TPU.GRAD_ACCUM = MESH_ACCUM
+    cfg.TENSORBOARD.ENABLE = False
+    cfg.DATA_LOADER.NUM_WORKERS = 2
+    cfg.LOG_PERIOD = 1
+    cfg.DIST_BACKEND = "gloo"
+    cfg.OUTPUT_DIR = out_dir
+    if mesh_axes:
+        cfg.TPU.ZERO1 = True
+        cfg.NUM_GPUS = MESH_RANKS
+    else:
+        cfg.TPU.MESH.SEQ = cfg.TPU.MESH.MODEL = 1
+        cfg.NUM_GPUS = 1
+    return cfg
+
+
+class MeshTestClips(TestClips):
+    VIDEOS = MESH_TEST_VIDEOS
+    EK = False
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Every ``torch.distributed.all_reduce`` (gloo's CUDA tensors take
+    every collective of the port as one) timed on the host clock between
+    two synchronisations of the card, and each train step's share of them;
+    yields {"all": [s], "step": [s a step]}."""
+    import torch.distributed as dist
+
+    from focus_tpu_torch.engine import trainer
+
+    reduce_, make = dist.all_reduce, trainer.make_supervised_train_step
+    times = {"all": [], "step": []}
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce_(*args, **kwargs)
+        torch.cuda.synchronize()
+        times["all"].append(time.perf_counter() - t0)
+        return out
+
+    def make_timed(*args):
+        step = make(*args)
+
+        def run(*a, **k):
+            before = sum(times["all"])
+            out = step(*a, **k)
+            times["step"].append(sum(times["all"]) - before)
+            return out
+
+        return run
+
+    dist.all_reduce, trainer.make_supervised_train_step = timed, make_timed
+    try:
+        yield times
+    finally:
+        dist.all_reduce, trainer.make_supervised_train_step = reduce_, make
+
+
+def mesh_loop(cfg):
+    """The yaml's train loop and test through ``tools.run_net.launch_job``
+    (a process of a group calls them itself), each ``counted``: the runs'
+    results, the full parameters before and after (gathered over the model
+    line), this rank's bytes, step and collective times."""
+    from focus_tpu_torch.engine import tester, trainer
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.parallel import mesh, tensor
+    from focus_tpu_torch.tools import run_net
+
+    init = {k: v.float().cpu() for k, v in tensor.full_state_dict(
+        build_model(cfg, DEV)).items()}
+    torch.cuda.empty_cache()
+    runs = {"train": [], "test": []}
+    with registered_splits(mesh_splits()), epoch_seeded_splits(), \
+            captured_engine(runs), timed_collectives() as collective_s, \
+            timed_steps() as times:
+        run_net.launch_job(cfg, None, trainer.train, DEV)
+        run_net.launch_job(cfg, None, tester.test, DEV)
+    (run, launches, peak), = runs["train"]
+    (test_run, test_launches, test_peak), = runs["test"]
+    meter = test_run.meter
+    out = {"losses": run.losses, "val_clips": run.val_clips,
+           "steps": run.steps, "init": init,
+           "params": {k: v.float().cpu() for k, v in
+                      tensor.full_state_dict(run.state.model).items()},
+           "bytes": trainer.state_bytes(run.state),
+           "launches": launches, "test_launches": test_launches,
+           "peak_memory_gb": peak, "test_peak_memory_gb": test_peak,
+           "test_clips": test_run.clips,
+           "test_counted": int(meter.seen_clips.sum()),
+           "ensembles": torch.from_numpy(np.asarray(meter.video_preds)),
+           "step_ms": times["step"],
+           "step_collective_ms": [1e3 * t for t in collective_s["step"]],
+           "collective_ms": 1e3 * sum(collective_s["all"]),
+           "collectives": len(collective_s["all"]),
+           "rank": mesh.rank(),
+           "coords": (mesh.data_rank(), mesh.seq_rank(), mesh.model_rank())}
+    del run, test_run
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(local_rank, world, init_method, out_dir, job):
+    """One rank of phase 22 on the one card (spawned, gloo on cuda:0):
+    ``job`` "yaml" runs ``mesh_loop`` on the yaml's mesh, "hr" the HR-336
+    eval forward under SEQ 2; results to ``<job>_rank<r>.pt``."""
+    from focus_tpu_torch.parallel import mesh
+
+    cfg = (mesh_cfg(os.path.join(out_dir, "run")) if job == "yaml"
+           else hr_seq_cfg())
+    mesh.init_distributed(cfg, local_rank, init_method,
+                          "cuda:0" if DEV == "cuda" else DEV, world)
+    try:
+        with open(f"{MESH_LOG}.{job}.rank{local_rank}", "w") as log, \
+                contextlib.redirect_stdout(log):
+            result = mesh_loop(cfg) if job == "yaml" else hr_seq_eval(cfg)
+        torch.save(result, os.path.join(out_dir, f"{job}_rank{local_rank}.pt"))
+    finally:
+        mesh.destroy()
+
+
+def split_and_whole_bytes(cfg, model_size):
+    """(bytes of the leaves a model axis of ``model_size`` splits, bytes of
+    all leaves) of the whole model."""
+    import focus_tpu_torch.models.motionformer  # noqa: F401 (registration)
+    from focus_tpu_torch.models.build import MODEL_REGISTRY
+    from focus_tpu_torch.parallel import tensor
+
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[cfg.MODEL.MODEL_NAME](cfg)
+    split = whole = 0
+    for name, p in model.named_parameters():
+        b = p.numel() * 4
+        whole += b
+        if tensor.param_dim(name, p.shape, model_size) is not None:
+            split += b
+    return split, whole
+
+
+def mesh_yaml_run(per_call, problems):
+    """(c): the yaml's mesh as MESH_RANKS gloo ranks on cuda:0 against one
+    process on the same batches; the checkpoint the ranks write loaded in
+    one process."""
+    import torch.multiprocessing as mp
+
+    from focus_tpu_torch.engine.trainer import build_supervised_state
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.utils import checkpoint as cu
+
+    out_dir = os.path.join(MESH_DIR, "yaml")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(mesh_rank, nprocs=MESH_RANKS,
+             args=(MESH_RANKS, f"tcp://localhost:{_free_port()}", out_dir,
+                   "yaml"))
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"yaml_rank{r}.pt"),
+                        weights_only=False) for r in range(MESH_RANKS)]
+    one_cfg = mesh_cfg(os.path.join(MESH_DIR, "one"), mesh_axes=False)
+    one = mesh_loop(one_cfg)
+    r0 = ranks[0]
+    a = [x for e in r0["losses"] for x in e]
+    b = [x for e in one["losses"] for x in e]
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    init = one["init"]
+    init_same = all(torch.equal(r0["init"][k], v) for k, v in init.items())
+    update = params_rel_l2({k: r0["params"][k] - init[k] for k in init},
+                           {k: one["params"][k] - init[k] for k in init})
+    ens = (r0["ensembles"] - one["ensembles"]).abs().max().item()
+    same_ranks = all(torch.equal(r["params"][k], r0["params"][k])
+                     for r in ranks[1:] for k in r0["params"])
+    # the checkpoint rank 0 wrote, loaded in one process bit for bit
+    path = cu.get_last_checkpoint(os.path.join(out_dir, "run"))
+    payload = cu.read_payload(path)
+    model = build_model(one_cfg, DEV)
+    state = build_supervised_state(one_cfg, model, MESH_STEPS)
+    cu.restore_train_state(payload, state)
+    loaded = (all(torch.equal(v.cpu(), payload["model_state"][k])
+                  for k, v in model.state_dict().items())
+              and all(torch.equal(payload["model_state"][k].float(), v)
+                      for k, v in r0["params"].items()))
+    opt = state.optimizer.state_dict()["state"]
+    saved = payload["optimizer_state"]["state"]
+    loaded = loaded and sorted(opt) == sorted(saved) and all(
+        torch.equal(opt[i][k].cpu(), saved[i][k])
+        for i in saved for k in saved[i] if torch.is_tensor(saved[i][k]))
+    del model, state, payload
+    torch.cuda.empty_cache()
+    split, whole = split_and_whole_bytes(one_cfg, 2)
+    groups = 2  # the flagship's main and zero-decay groups
+    bytes_ok = all(r["bytes"]["param_bytes"] == whole - split // 2 and
+                   r["bytes"]["param_bytes"] <= r["bytes"]["optimizer_bytes"]
+                   <= r["bytes"]["param_bytes"] + groups * 12
+                   for r in ranks)
+    val_batches = -(-MESH_VAL // MESH_BATCH)
+    test_batches = -(-3 * MESH_TEST_VIDEOS // MESH_BATCH)
+    want, test_want = ddp_launch_expect(MESH_STEPS, MESH_ACCUM, val_batches,
+                                        test_batches, per_call)
+    ok = (len(a) == len(b) == MESH_STEPS and init_same
+          and max(loss_rel) <= MESH_LOSS_REL and update <= MESH_UPDATE_REL
+          and ens <= MESH_ENSEMBLE_ATOL and same_ranks and loaded
+          and bytes_ok
+          and all(r["val_clips"] == MESH_VAL for r in ranks)
+          and all(r["test_counted"] == r["test_clips"] == 3 * MESH_TEST_VIDEOS
+                  for r in ranks)
+          and all(launches_match(r["launches"], want)
+                  and launches_match(r["test_launches"], test_want)
+                  for r in ranks)
+          and launches_match(one["launches"], want))
+    if not ok:
+        problems.append(
+            f"yaml mesh: losses {a} vs {b}, init equal {init_same}, update "
+            f"{update:.3e}, ensembles {ens:.3e}, ranks agree {same_ranks}, "
+            f"checkpoint loads {loaded}, bytes {[r['bytes'] for r in ranks]} "
+            f"(split {split}, whole {whole}), val "
+            f"{[r['val_clips'] for r in ranks]}, test "
+            f"{[(r['test_counted'], r['test_clips']) for r in ranks]}, "
+            f"launches {[r['launches'] for r in ranks]} / {one['launches']}")
+    step = [_mean_after_first(r["step_ms"]) for r in ranks]
+    return {
+        "backend": "gloo", "world": MESH_RANKS, "device": "cuda:0 (all)",
+        "mesh": "DATA 2 x SEQ 2 x MODEL 2", "zero1": True,
+        "grad_accum": MESH_ACCUM, "global_batch": MESH_BATCH, "mixup": False,
+        "losses_mesh": a, "losses_one_process": b,
+        "first_loss_rel_err": loss_rel[0], "max_loss_rel_err": max(loss_rel),
+        "update_rel_l2": update, "ensembles_max_abs_err": ens,
+        "ranks_bit_equal": same_ranks, "checkpoint_loads_bitwise": loaded,
+        "val_clips_counted": [r["val_clips"] for r in ranks],
+        "test_clips_counted": [r["test_counted"] for r in ranks],
+        "per_rank": [{
+            "rank": r["rank"], "data_seq_model": r["coords"],
+            "peak_memory_gb": r["peak_memory_gb"],
+            "test_peak_memory_gb": r["test_peak_memory_gb"],
+            "param_bytes": r["bytes"]["param_bytes"],
+            "optimizer_bytes": r["bytes"]["optimizer_bytes"],
+            "launches_train_loop": r["launches"],
+            "launches_test": r["test_launches"],
+            "step_ms": _mean_after_first(r["step_ms"]),
+            "step_collective_ms": _mean_after_first(r["step_collective_ms"]),
+            "loop_collective_ms": r["collective_ms"],
+            "loop_collectives": r["collectives"]} for r in ranks],
+        "one_process": {"peak_memory_gb": one["peak_memory_gb"],
+                        "param_bytes": one["bytes"]["param_bytes"],
+                        "optimizer_bytes": one["bytes"]["optimizer_bytes"],
+                        "step_ms": _mean_after_first(one["step_ms"]),
+                        "launches_train_loop": one["launches"]},
+        "whole_param_bytes": whole, "split_param_bytes": split,
+        "step_ms_mesh_rank0": step[0],
+        "collective_share_of_step_rank0": (
+            _mean_after_first(r0["step_collective_ms"])
+            / _mean_after_first(r0["step_ms"])),
+        "collective_note": "host ms inside torch.distributed.all_reduce "
+                           "(every collective under gloo's CUDA tensors), "
+                           "between synchronisations of the card, within "
+                           "each train step (after the first), against the "
+                           "step's CUDA-event time; loop_ counts the whole "
+                           "train loop, validation and test; gloo through "
+                           "the host with 8 ranks on one card: no "
+                           "multi-card time",
+        "spawn_and_run_seconds": spawn_s,
+        "rule": f"losses within {MESH_LOSS_REL} relative, update within "
+                f"{MESH_UPDATE_REL}, ensembles within {MESH_ENSEMBLE_ATOL}, "
+                "every val and test clip counted once on every rank, the "
+                "checkpoint loads in one process bit for bit, the split "
+                "leaves' bytes halved, the moments halved up to padding"}
+
+
+def hr_seq_cfg():
+    from focus_tpu_torch.entry import hr_cfg
+
+    cfg = hr_cfg()
+    cfg.TPU.MESH.SEQ = 2
+    cfg.NUM_GPUS = 2
+    cfg.DIST_BACKEND = "gloo"
+    return cfg
+
+
+def hr_seq_eval(cfg):
+    """The HR-336 eval forward at batch HR_BATCH (entry._eval_entry's
+    weights and inputs) on this rank: probabilities on the host, launches
+    and peak memory."""
+    from focus_tpu_torch import entry
+
+    fn, (video, boxes) = entry._eval_entry(cfg, DEV, HR_BATCH, 0)
+    (verb, both), launches, peak = counted(lambda: fn(video, boxes))
+    out = {"verb": both["verb"].float().cpu(),
+           "noun": both["noun"].float().cpu(), "launches": launches,
+           "peak_memory_gb": peak}
+    del fn, video, boxes
+    torch.cuda.empty_cache()
+    return out
+
+
+def hr_seq_run(problems):
+    """(d): the HR-336 eval under SEQ 2 as two gloo ranks on cuda:0 against
+    one process: the probabilities within HR_SEQ_PROB_ATOL, each rank's
+    peak memory beside one process's."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(MESH_DIR, "hr")
+    os.makedirs(out_dir, exist_ok=True)
+    mp.spawn(mesh_rank, nprocs=2,
+             args=(2, f"tcp://localhost:{_free_port()}", out_dir, "hr"))
+    ranks = [torch.load(os.path.join(out_dir, f"hr_rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    cfg = hr_seq_cfg()
+    cfg.TPU.MESH.SEQ, cfg.NUM_GPUS = 1, 1
+    one = hr_seq_eval(cfg)
+    err = max((r[k] - one[k]).abs().max().item()
+              for r in ranks for k in ("verb", "noun"))
+    want = {"trajectory_block": 12, "patch_embed": 1}
+    ok = err <= HR_SEQ_PROB_ATOL and all(
+        launches_match(r["launches"], want) for r in ranks) and \
+        launches_match(one["launches"], want)
+    if not ok:
+        problems.append(f"HR-336 SEQ 2: probabilities {err:.3e}, launches "
+                        f"{[r['launches'] for r in ranks]} / "
+                        f"{one['launches']}")
+    return {"batch": HR_BATCH, "probs_max_abs_err": err,
+            "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+            "peak_memory_gb_one_process": one["peak_memory_gb"],
+            "launches_per_rank": [r["launches"] for r in ranks],
+            "rule": f"verb and noun probabilities within {HR_SEQ_PROB_ATOL}"}
+
+
+def phase_mesh(smi, per_call):
+    """Phase 22: (a) kernels 1 and 7 over windows of query frames, (b)
+    remat on one process, (c) the dp x sp x tp yaml's mesh on the card,
+    (d) HR-336 eval under SEQ 2. Returns the windows' cases and the
+    launches of (b)-(d)."""
+    from focus_tpu_torch.utils import logging as port_logging
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    problems = []
+    result = {"phase": "mesh", "gpu": smi}
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    try:
+        result["windows"] = window_kernels(problems)
+        lap("windows")
+        with open(MESH_LOG, "w") as log, contextlib.redirect_stdout(log):
+            result["remat"] = remat_phase(problems)
+            lap("remat")
+            result["yaml_mesh"] = mesh_yaml_run(per_call, problems)
+            lap("yaml_mesh")
+            port_logging.close_logging()
+            result["hr336_seq2"] = hr_seq_run(problems)
+            lap("hr336_seq2")
+    finally:
+        result["seconds"] = seconds
+        port_logging.close_logging()
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    result["ok"], result["problems"] = not problems, problems
+    emit(result)
+    if problems:
+        raise AssertionError("mesh phase failed")
+    rank0 = result["yaml_mesh"]["per_rank"][0]
+    return {"windows": result["windows"],
+            "remat": result["remat"]["launches_per_step"]["remat"],
+            "mesh_rank0": rank0["launches_train_loop"],
+            "hr_seq_rank0": result["hr336_seq2"]["launches_per_rank"][0]}
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -7566,6 +8181,7 @@ def main():
     moe = phase_moe(smi)
     phase_ava(smi)
     ddp = phase_ddp(smi, bwd["device_launches_per_call"])
+    mesh_phase = phase_mesh(smi, bwd["device_launches_per_call"])
     for row, key in ((traj, "trajectory_block"), (patch, "patch_embed"),
                      (bwd, "trajectory_block_bwd")):
         if key != "trajectory_block_bwd":
@@ -7588,6 +8204,30 @@ def main():
             "2 val batches), launches_ddp_gloo_rank0 over rank 0's of the "
             f"two-rank loop on the one card ({DDP_STEPS} steps of 2 "
             "microbatches of 2 clips, and 2 val batches of 4)")
+    for row, key in ((traj, "trajectory_block"), (patch, "patch_embed"),
+                     (bwd, "trajectory_block_bwd")):
+        row["launches_remat"] = mesh_phase["remat"].get(key, 0)
+        row["launches_mesh_rank0"] = mesh_phase["mesh_rank0"][key]
+        if key != "trajectory_block_bwd":
+            row["launches_hr336_seq2_rank0"] = mesh_phase["hr_seq_rank0"][key]
+        row["launches_note"] += (
+            "; launches_remat in one flagship train step at batch "
+            f"{REMAT_BATCH} under TPU.REMAT (phase 22 b: kernel 1 12 + 7 "
+            "recomputed, kernel 7 12, kernel 2 1), launches_mesh_rank0 over "
+            "rank 0's train loop of the dp x sp x tp yaml on the one card "
+            f"(phase 22 c: {MESH_STEPS} steps of {MESH_ACCUM} microbatches "
+            "and one validation, kernel 1 and 7 over its window of 4 query "
+            "frames on all 12 heads), launches_hr336_seq2_rank0 in rank 0's "
+            "HR-336 eval forward under SEQ 2 (phase 22 d)")
+    windows = mesh_phase["windows"]
+    traj["window"] = [{k: c[k] for k in (
+        "case", "query_rows", "window_fwd_ms", "window_fwd_bound_ms",
+        "window_fwd_bound_by", "timed_window_f0",
+        "out_xs_q2_bitwise_equal_to_whole_rows")} for c in windows]
+    bwd["window"] = [{k: c[k] for k in (
+        "case", "query_rows", "window_bwd_ms", "window_bwd_bound_ms",
+        "window_bwd_bound_by", "timed_window_f0",
+        "dq_bitwise_equal_to_whole_rows")} for c in windows]
     ar["launches_slot_train"] = slot["wrapper"]
     ar["device_launches_slot_train"] = slot["device"]
     ar["launches_note"] += (

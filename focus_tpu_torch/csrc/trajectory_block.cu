@@ -413,7 +413,8 @@ __global__ void __launch_bounds__(S2_THREADS, 1) traj_stage2_kernel(
   }
 }
 
-// the three launches on ``st``, each counted in *launched; N <= SS_MAX_KEYS
+// the three launches on ``st``, each counted in *launched, for the S / N
+// query frames from frame f0 (all F at f0 = 0, S = F N); N <= SS_MAX_KEYS
 // in both roundings. Past SS_MAX_NP stage 1 is the chunked form in both
 // (launch_space_stage_chunked), whose weights are rounded unnormalised as
 // the mode V3 rounds them, so the mode V3 runs kernel 1's stage 1 there and
@@ -423,9 +424,11 @@ template <bool V3>
 int traj_core_run(const void* q, const void* kf, const void* vf,
                   const void* wq2, const void* bq2, const void* wk2, void* xs,
                   void* q2, void* out, int* launched, int B, int S, int F,
-                  int N, int C, int heads, float scale, cudaStream_t st) {
+                  int N, int C, int heads, float scale, cudaStream_t st,
+                  int f0 = 0) {
   *launched = 0;
-  if (B <= 0 || N <= 0 || N > SS_MAX_KEYS || F <= 0 || F > MAX_F || S != F * N ||
+  if (B <= 0 || N <= 0 || N > SS_MAX_KEYS || F <= 0 || F > MAX_F || S <= 0 ||
+      S % N != 0 || f0 < 0 || f0 + S / N > F ||
       heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0 ||
       !aligned16(q) || !aligned16(kf) || !aligned16(vf) || !aligned16(xs) ||
       !aligned16(q2) || !aligned16(out) || !aligned16(wk2))
@@ -446,7 +449,8 @@ int traj_core_run(const void* q, const void* kf, const void* vf,
   ++*launched;
 
   const int M = B * S;
-  err = launch_gemm(xs_, static_cast<const bf16*>(wq2),
+  // a window's own frame f0 + s / N: the gather's rows start f0 frames in
+  err = launch_gemm(xs_ + (size_t)f0 * C, static_cast<const bf16*>(wq2),
                     static_cast<const bf16*>(bq2), static_cast<bf16*>(q2), M,
                     S, F, N, C, st, V3 ? out_ : nullptr, scale);
   if (err != cudaSuccess) return (int)err;
@@ -507,6 +511,24 @@ extern "C" int traj_core_bf16(const void* q, const void* kf, const void* vf,
   return traj_core_run<false>(q, kf, vf, wq2, bq2, wk2, xs, q2, out,
                               &launched, B, S, F, N, C, heads, scale,
                               static_cast<cudaStream_t>(stream));
+}
+
+// Kernel 1 over a window of query frames (sequence parallelism): q [B, S,
+// C] holds the queries of frames [f0, f0 + S / N), kf and vf all F frames;
+// xs [B, S, F, C], q2 and out [B, S, C] are those rows'. A query's stage 1,
+// stage 2 and own frame depend on its own row and f0 alone, so the rows are
+// the whole launch's. S a multiple of N, f0 + S / N <= F; otherwise as
+// traj_core_bf16.
+extern "C" int traj_core_window_bf16(const void* q, const void* kf,
+                                     const void* vf, const void* wq2,
+                                     const void* bq2, const void* wk2,
+                                     void* xs, void* q2, void* out, int B,
+                                     int S, int F, int N, int C, int heads,
+                                     int f0, float scale, void* stream) {
+  int launched = 0;
+  return traj_core_run<false>(q, kf, vf, wq2, bq2, wk2, xs, q2, out,
+                              &launched, B, S, F, N, C, heads, scale,
+                              static_cast<cudaStream_t>(stream), f0);
 }
 
 // The forward versions 3 and 7 (the rounding mode V3; one function, so one

@@ -871,7 +871,8 @@ __global__ void __launch_bounds__(S2_THREADS, 1) stage2_dxs_kernel(
     const bf16* __restrict__ q2, const bf16* __restrict__ wk2,
     const bf16* __restrict__ dout, const float* __restrict__ a2,
     const float* __restrict__ dl2, const float* __restrict__ dd,
-    bf16* __restrict__ dxs, int M, int S, int N, int F, int C, int heads) {
+    bf16* __restrict__ dxs, int M, int S, int N, int F, int C, int heads,
+    int f0) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int LQ = s2_lq(C), HF = heads * F, LH = s2_lhf(HF);
   bf16* Q2s = reinterpret_cast<bf16*>(smem);            // [RT][LQ]
@@ -926,7 +927,8 @@ __global__ void __launch_bounds__(S2_THREADS, 1) stage2_dxs_kernel(
 
   // own frames and dout rows of this thread's two rows
   const int mA = m0 + rA, mB = m0 + rB;
-  const int ownA = mA < M ? (mA % S) / N : -1, ownB = mB < M ? (mB % S) / N : -1;
+  const int ownA = mA < M ? f0 + (mA % S) / N : -1;
+  const int ownB = mB < M ? f0 + (mB % S) / N : -1;
 
   load_w(0, 0);
   for (int cs = 0; cs < ncs; ++cs) {
@@ -2058,7 +2060,7 @@ int backward(const bf16* q, const bf16* kf, const bf16* vf, const bf16* wq2,
              float* dwk2, float* a2, float* dl2, bf16* dxs, float* dq2,
              bf16* dq2b, float* dd, float* part, float* wpart, float* bpart,
              float* stats, int B, int S, int F, int N, int C, int heads,
-             float scale, cudaStream_t st) {
+             float scale, cudaStream_t st, int f0) {
   cudaError_t err;
   const int M = B * S;
   const int S4 = (int)round_up((size_t)S, 4);
@@ -2085,7 +2087,9 @@ int backward(const bf16* q, const bf16* kf, const bf16* vf, const bf16* wq2,
 
   // dWq2 = x_diag^T . dq2 over the M rows (own-frame rows of xs), split-K
   GemmArgs gq = {};
-  gq.a = xs; gq.lda = C; gq.gather = 1; gq.S = S; gq.Nk = N; gq.F = F;
+  // a window's own frame f0 + s / N: the gather's rows start f0 frames in
+  gq.a = xs + (size_t)f0 * C; gq.lda = C; gq.gather = 1; gq.S = S; gq.Nk = N;
+  gq.F = F;
   gq.b = dq2b; gq.ldb = C;
   gq.M = C; gq.N = C; gq.K = M; gq.k_chunk = split_chunk(M);
   gq.out = part; gq.out_z = (size_t)C * C;
@@ -2111,7 +2115,7 @@ int backward(const bf16* q, const bf16* kf, const bf16* vf, const bf16* wq2,
     if ((err = set_smem((const void*)stage2_dxs_kernel, smem)) != cudaSuccess)
       return err;
     stage2_dxs_kernel<<<(M + S2_RT - 1) / S2_RT, S2_THREADS, smem, st>>>(
-        q2, wk2, dout, a2, dl2, dd, dxs, M, S, N, F, C, heads);
+        q2, wk2, dout, a2, dl2, dd, dxs, M, S, N, F, C, heads, f0);
     ++launches;
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -2165,21 +2169,25 @@ bool aligned16(const void* p) {
 // heads, F]; dxs bf16 [B, S, F, C]; dq2 float32 and dq2b bf16 [B S, C]; dd
 // float32 [B S, C]; part float32 [16, C, C]; wpart float32 [5, C, C];
 // bpart float32 [2 ceil(B S / 32), C]; stats float32 [2, B, heads, F, S4]
-// with S4 = S rounded up to 4. S = F * N, C = heads * 64 (a multiple of
+// with S4 = S rounded up to 4. S = F * N (a window of query frames:
+// traj_core_bwd_window_bf16 below), C = heads * 64 (a multiple of
 // 128, at most 768: the stage-2 tiles' shared memory), F <= 8, N <= 512
 // (past 256 the dq kernel's chunked form).
 // Launches on ``stream``, stores the number of device kernels launched in
 // *launched, and returns the first cudaError_t met.
-extern "C" int traj_core_bwd_bf16(
+namespace {
+
+int backward_entry(
     const void* q, const void* kf, const void* vf, const void* wq2,
     const void* wk2, const void* dout, const void* xs, const void* q2,
     void* dq, void* dkf, void* dvf, void* dwq2, void* dbq2, void* dwk2,
     void* a2, void* dl2, void* dxs, void* dq2, void* dq2b, void* dd,
     void* part, void* wpart, void* bpart, void* stats, int* launched, int B,
-    int S, int F, int N, int C, int heads, float scale, void* stream) {
+    int S, int F, int N, int C, int heads, int f0, float scale, void* stream) {
   launches = 0;
   *launched = 0;
-  if (B <= 0 || N <= 0 || N > MAX_KEYS || F <= 0 || F > MAX_F || S != F * N ||
+  if (B <= 0 || N <= 0 || N > MAX_KEYS || F <= 0 || F > MAX_F || S <= 0 ||
+      S % N != 0 || f0 < 0 || f0 + S / N > F ||
       heads <= 0 || heads > MAX_HEADS || C != heads * HD || C % GN != 0 ||
       C > 768)
     return (int)cudaErrorInvalidValue;
@@ -2199,7 +2207,46 @@ extern "C" int traj_core_bwd_bf16(
       static_cast<float*>(dd), static_cast<float*>(part),
       static_cast<float*>(wpart), static_cast<float*>(bpart),
       static_cast<float*>(stats), B, S, F, N, C, heads, scale,
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream), f0);
   *launched = launches;
   return err;
+}
+
+}  // namespace
+
+extern "C" int traj_core_bwd_bf16(
+    const void* q, const void* kf, const void* vf, const void* wq2,
+    const void* wk2, const void* dout, const void* xs, const void* q2,
+    void* dq, void* dkf, void* dvf, void* dwq2, void* dbq2, void* dwk2,
+    void* a2, void* dl2, void* dxs, void* dq2, void* dq2b, void* dd,
+    void* part, void* wpart, void* bpart, void* stats, int* launched, int B,
+    int S, int F, int N, int C, int heads, float scale, void* stream) {
+  if (S != F * N) {
+    *launched = 0;
+    return (int)cudaErrorInvalidValue;
+  }
+  return backward_entry(q, kf, vf, wq2, wk2, dout, xs, q2, dq, dkf, dvf, dwq2,
+                        dbq2, dwk2, a2, dl2, dxs, dq2, dq2b, dd, part, wpart,
+                        bpart, stats, launched, B, S, F, N, C, heads, 0, scale,
+                        stream);
+}
+
+// The backward over a window of query frames (sequence parallelism): q,
+// dout, xs, q2 and dq hold the rows of frames [f0, f0 + S / N) (S a
+// multiple of N, f0 + S / N <= F), kf, vf, dkf and dvf all F frames. dq is
+// those rows' of the whole launch's; dkf, dvf, dwq2, dbq2 and dwk2 are the
+// window's partial sums, which the caller sums over the windows. Otherwise
+// as traj_core_bwd_bf16.
+extern "C" int traj_core_bwd_window_bf16(
+    const void* q, const void* kf, const void* vf, const void* wq2,
+    const void* wk2, const void* dout, const void* xs, const void* q2,
+    void* dq, void* dkf, void* dvf, void* dwq2, void* dbq2, void* dwk2,
+    void* a2, void* dl2, void* dxs, void* dq2, void* dq2b, void* dd,
+    void* part, void* wpart, void* bpart, void* stats, int* launched, int B,
+    int S, int F, int N, int C, int heads, int f0, float scale,
+    void* stream) {
+  return backward_entry(q, kf, vf, wq2, wk2, dout, xs, q2, dq, dkf, dvf, dwq2,
+                        dbq2, dwk2, a2, dl2, dxs, dq2, dq2b, dd, part, wpart,
+                        bpart, stats, launched, B, S, F, N, C, heads, f0,
+                        scale, stream);
 }

@@ -154,8 +154,8 @@ class DataLoader:
         self.pad_last = pad_last
         self.flatten_samples = max(1, flatten_samples)
         self.short_cycle_factors = short_cycle_factors
-        self.process_index = mesh.rank()
-        self.process_count = mesh.world_size()
+        self.process_index = mesh.data_rank()
+        self.process_count = mesh.data_size()
         if batch_size % self.process_count:
             raise ValueError(f"global batch {batch_size} not divisible by "
                              f"{self.process_count} processes")

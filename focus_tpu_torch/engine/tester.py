@@ -87,7 +87,7 @@ def gathered_host(x):
     process group."""
     if torch.is_floating_point(x):
         x = x.float()
-    return mesh.all_gather_tiled(x).cpu().numpy()
+    return mesh.all_gather_tiled(x, mesh.group("data")).cpu().numpy()
 
 
 def make_eval_forward(model, cfg):

@@ -65,10 +65,18 @@ over, the loaders and meters are rebuilt, and the LR schedule continues
 from (epoch, step) under the new steps per epoch
 (``_rebuild_for_long_cycle``). The short cycle is the loader's.
 
-Remat, ZeRO-1, timm weights (``MODEL.LOAD_IN_PRETRAIN``),
-``LOG_MODEL_INFO``, a MoE model on more than one process and a
-``TPU.MESH`` pipeline, sequence, model or expert axis are not ported and
-raise.
+Sequence and tensor parallelism (``TPU.MESH.SEQ``, ``TPU.MESH.MODEL``),
+ZeRO-1 (``TPU.ZERO1``) and remat (``TPU.REMAT``) run on the Motionformer /
+ORViT-MF family (``parallel/mesh.py``, ``parallel/tensor.py``,
+``models/optimizer.py``, ``models/motionformer.py``): the seq and model
+ranks of a data line step on the same clips, the loss and errors are the
+data line's mean, and the step equals one process's over the global
+batch. Each rank logs its parameter and optimizer-state bytes.
+
+Timm weights (``MODEL.LOAD_IN_PRETRAIN``), ``LOG_MODEL_INFO``, a MoE model
+on more than one process and what ``parallel/mesh.check_mesh`` refuses
+(a pipeline or expert axis, a seq or model axis elsewhere) are not ported
+and raise.
 """
 
 from __future__ import annotations
@@ -138,8 +146,6 @@ def _is_ek(cfg) -> bool:
 def _check_options(cfg):
     mesh.check_mesh(cfg)
     unported = {
-        "TPU.REMAT": bool(cfg.TPU.REMAT),
-        "TPU.ZERO1": bool(cfg.TPU.ZERO1),
         # the load-balance term is a product of global-batch means
         "TPU.MOE on more than one process": (
             int(cfg.TPU.MOE.NUM_EXPERTS or 0) > 1 and mesh.world_size() > 1),
@@ -188,6 +194,17 @@ def split_batch(batch):
             return batch[0], batch[1], batch[3]
         return batch[0], batch[1], {}
     return batch, None, {}
+
+
+def state_bytes(state) -> dict:
+    """This rank's bytes of parameters and of optimizer state (after a
+    step: the moments exist from the first update)."""
+    params = sum(p.numel() * p.element_size()
+                 for p in state.model.parameters())
+    opt = sum(v.numel() * v.element_size()
+              for st in state.optimizer.optimizer.state.values()
+              for v in st.values() if torch.is_tensor(v))
+    return {"param_bytes": params, "optimizer_bytes": opt}
 
 
 def build_supervised_state(cfg, model, steps_per_epoch: int) -> TrainState:
@@ -402,7 +419,8 @@ def make_supervised_train_step(model, cfg, loss_fn):
 
     def train_step(state, video, labels, metadata):
         distributed = mesh.is_distributed()
-        world = mesh.world_size()
+        world = mesh.data_size()  # the data line's processes
+        data_group = mesh.group("data")
         partner = None
         if use_mixup and distributed:
             # the rows each local row meets, gathered before normalising
@@ -424,8 +442,8 @@ def make_supervised_train_step(model, cfg, loss_fn):
         det_denom = None
         if detection and (accum > 1 or distributed):
             det_denom = mesh.all_reduce_(
-                metadata["boxes_mask"].sum().float()).clamp_min(1.0) / (
-                    accum * world)
+                metadata["boxes_mask"].sum().float(),
+                data_group).clamp_min(1.0) / (accum * world)
         state.optimizer.zero_grad()
         with sharded_draws(*mesh.batch_rows(_batch_size(video))):
             if accum == 1:
@@ -449,7 +467,8 @@ def make_supervised_train_step(model, cfg, loss_fn):
         if distributed:  # the global batch's loss and errors
             keys = sorted(stats)
             flat = mesh.all_reduce_(torch.stack([stats[k].float()
-                                                 for k in keys])) / world
+                                                 for k in keys]),
+                                    data_group) / world
             stats = dict(zip(keys, flat.unbind()))
         state.apply_gradients()
         return state, stats
@@ -493,7 +512,7 @@ def train_epoch(train_loader, state, train_step, train_meter, cur_epoch, cfg,
     device. Under the short cycle the epoch has fewer batches than
     ``len(train_loader)``, the full batches the LR schedule counts."""
     data_size = len(train_loader)
-    world = mesh.world_size()
+    world = mesh.data_size()
     device = next(state.model.parameters()).device
     losses = torch.zeros(data_size, dtype=torch.float32, device=device)
     steps = clips = 0
@@ -658,8 +677,7 @@ def _rebuild_for_long_cycle(cfg, state, cur_epoch, device):
     optimizer = optim.construct_optimizer(
         model, cfg, len(train_loader), no_wd_paths(cfg),
         epoch_offset=float(cur_epoch), step_offset=int(state.step))
-    optimizer.optimizer.load_state_dict(
-        state.optimizer.optimizer.state_dict())
+    optimizer.load_state_dict(state.optimizer.state_dict())
     state = TrainState(model, optimizer, state.generator, state.step)
     return state, _build_loop(cfg, device, state, train_loader)
 
@@ -717,6 +735,9 @@ def run_train(cfg, device="cuda") -> TrainRun:
             writer.close()
         raise SystemExit(0)
     profiler.stop()
+    logger.info(f"rank {mesh.rank()} (data {mesh.data_rank()}, seq "
+                f"{mesh.seq_rank()}, model {mesh.model_rank()}): "
+                f"{state_bytes(run.state)}")
     cu.wait_for_saves()  # land any async checkpoint writes before returning
     mesh.barrier()  # every process may read them next
     if writer is not None:

@@ -12,6 +12,7 @@ import math
 import torch
 from torch import nn
 
+from focus_tpu_torch.parallel import mesh
 from focus_tpu_torch.parallel.mesh import check_mesh
 
 MODEL_REGISTRY = {}
@@ -190,7 +191,10 @@ def maybe_zero_init_orvit(cfg, model: nn.Module) -> None:
 def build_model(cfg, device="cuda", seed=None):
     """Construct the module named by ``cfg.MODEL.MODEL_NAME`` on ``device``
     (eval mode), initialised as the JAX package initialises it from a
-    generator seeded with ``seed`` (default ``cfg.RNG_SEED``)."""
+    generator seeded with ``seed`` (default ``cfg.RNG_SEED``). Under a
+    seq or model axis (``parallel/mesh.py``) the whole model is
+    initialised, then cut to this rank's shards
+    (``parallel/tensor.shard_model``)."""
     import focus_tpu_torch.models.motionformer  # noqa: F401 (registration)
     import focus_tpu_torch.models.mvit  # noqa: F401 (registration)
     import focus_tpu_torch.models.ptv_variants  # noqa: F401 (registration)
@@ -210,4 +214,8 @@ def build_model(cfg, device="cuda", seed=None):
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.RNG_SEED if seed is None else seed)
     init_weights(model, gen)
+    if mesh.seq_size() > 1 or mesh.model_size() > 1:
+        from focus_tpu_torch.parallel import tensor
+
+        tensor.shard_model(model)
     return model.eval()

@@ -29,6 +29,30 @@ and learned values (``use_original_code=False`` on ``TrajectoryAttention``
 and ``TrajectoryAttentionBlock``, through the space-stage kernel). As in
 the JAX package, no config key reaches the latter from ``Motionformer``.
 
+Tensor and sequence parallelism (``parallel/tensor.py``, after
+``shard_model``): under ``TPU.MESH.MODEL`` the MLPs are column then row
+parallel with one all-reduce, and a trajectory attention's ``qkv`` is
+column parallel, so a model rank holds H / MODEL heads. The fused core
+mixes every head in stage 2 (q2 = x_diag Wq2, k2 = xs_f Wk2 over all C),
+so q, k and v are gathered over the model line and the core runs on all
+heads on every model rank, as GSPMD runs a custom call it cannot
+partition; the rank's channels of its output (a split whose backward
+all-gathers, so kernel 7 takes the whole gradient) go into the
+row-parallel ``proj``. The CLS attention and ``SelfAttention`` split by
+heads. Under ``TPU.MESH.SEQ`` a seq rank holds the CLS row and the patch
+tokens of F / SEQ frames (``tokenize`` embeds its tubelets alone); K and V
+of the patch tokens are gathered over the seq line (a reduce-scatter
+backward) and the core takes the rank's window of query frames
+(``ops/trajectory_block.py``, ``f0``). Every seq rank holds the CLS row;
+the loss gradient enters it on seq rank 0 alone (``seq_grad_gate``).
+Under ``TPU.REMAT`` the trajectory blocks that the JAX package stacks
+into a scan (a run of more than one between ORViT layers, under
+``TPU.SCAN_LAYERS``) are recomputed in the backward
+(``torch.utils.checkpoint``, the dense layers' matmul outputs saved as
+``dots_with_no_batch_dims_saveable`` saves them, kernel 1 recomputed),
+with the same drop-path masks and the generator left where the plain
+step leaves it.
+
 The serving variants are labeled, as in the JAX package:
 ``TPU.INT8_SERVING`` runs the big dense layers (qkv and proj of both
 attentions, fc1 and fc2 of every MLP) as dynamic W8A8 dense layers
@@ -36,6 +60,7 @@ attentions, fc1 and fc2 of every MLP) as dynamic W8A8 dense layers
 train and eval alike.
 """
 
+import functools
 import math
 from collections import OrderedDict
 
@@ -44,6 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from focus_tpu_torch.models import common
 from focus_tpu_torch.models.build import register
 from focus_tpu_torch.models.common import layer_norm, linear, uniform
 from focus_tpu_torch.models.moe import MoEMlp
@@ -55,6 +81,7 @@ from focus_tpu_torch.ops.trajectory_block import (
     fused_trajectory_core,
     trajectory_core_reference,
 )
+from focus_tpu_torch.parallel import tensor as tp
 
 
 def drop_path(x, drop_prob: float, generator=None):
@@ -83,6 +110,79 @@ class DropPath(nn.Module):
         return drop_path(x, self.drop_prob, generator)
 
 
+def remat_blocks(cfg) -> frozenset:
+    """The blocks the JAX package stacks into a scanned, rematerialised
+    run (``ScannedTrajBlocks`` under ``TPU.REMAT``): every trajectory block
+    of a run of more than one between ORViT layers, under
+    ``TPU.SCAN_LAYERS``; none without it."""
+    if not cfg.TPU.SCAN_LAYERS:
+        return frozenset()
+    out, run = set(), []
+    for i in list(range(cfg.MF.DEPTH)) + [None]:
+        if i is not None and i not in cfg.ORVIT.LAYERS:
+            run.append(i)
+            continue
+        if len(run) > 1:
+            out.update(run)
+        run = []
+    return frozenset(out)
+
+
+# aten ops whose outputs a recomputed block keeps: the dense layers'
+# products, matmuls with no batch dims (JAX's
+# dots_with_no_batch_dims_saveable); everything else is recomputed
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _remat_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def recomputed(blk, x, metadata, thw, kwargs):
+    """``blk(x, metadata, thw, **kwargs)`` under non-reentrant
+    ``torch.utils.checkpoint`` with the dense-products policy. The
+    recompute in the backward replays the forward's drop-path masks: it
+    runs from the generator's state at the forward (and the batch rows
+    ``sharded_draws`` held then), and puts the generator back where the
+    backward found it. A MoE block's load-balance value is appended once,
+    by the forward."""
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    gen = kwargs.get("generator")
+    state = gen.get_state() if gen is not None else None
+    shard = common._DRAW_SHARD
+    ran = []
+
+    def run(t):
+        if not ran:
+            ran.append(True)
+            return blk(t, metadata, thw, **kwargs)
+        again = dict(kwargs)
+        if "moe_aux" in again:
+            again["moe_aux"] = []
+        now = gen.get_state() if gen is not None else None
+        prev, common._DRAW_SHARD = common._DRAW_SHARD, shard
+        if gen is not None:
+            gen.set_state(state)
+        try:
+            return blk(t, metadata, thw, **again)
+        finally:
+            common._DRAW_SHARD = prev
+            if gen is not None:
+                gen.set_state(now)
+
+    return checkpoint(
+        run, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _remat_policy))
+
+
 def int8_or_dense(x, layer: nn.Linear, quant: bool):
     """One dense layer: W8A8 (``ops/quant.py``) where ``quant`` (int8
     serving, eval), else at x's dtype. The parameters are the same either
@@ -95,6 +195,8 @@ class Mlp(nn.Module):
     form with ``fast_gelu`` (flax's ``nn.gelu(approximate=True)``);
     ``int8_dense`` makes fc1 and fc2 W8A8 in eval."""
 
+    par, sharded = None, False
+
     def __init__(self, in_features, hidden_features, out_features=None,
                  fast_gelu=False, int8_dense=False):
         super().__init__()
@@ -102,11 +204,33 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features or in_features)
 
+    def attach_parallel(self, par, dims):
+        """Column then row parallel where the model axis split fc1."""
+        self.par = par
+        self.sharded = self.fc1.weight.shape[0] != self.fc1.out_features
+
     def forward(self, x, train=False):
+        act = "tanh" if self.fast_gelu else "none"
+        if self.sharded:
+            h = F.gelu(linear(tp.copy_in(x, self.par), self.fc1),
+                       approximate=act)
+            return tp.row_linear(h, self.fc2, self.par)
         quant = self.int8_dense and not train
         h = int8_or_dense(x, self.fc1, quant)
-        h = F.gelu(h, approximate="tanh" if self.fast_gelu else "none")
+        h = F.gelu(h, approximate=act)
         return int8_or_dense(h, self.fc2, quant)
+
+
+def _check_heads(module, heads, par):
+    """A head-split module needs its qkv and proj split and the heads
+    dividing over the model line."""
+    if not module.sharded:
+        return
+    if heads % par.model_size or (module.proj.weight.shape[1]
+                                  == module.proj.in_features):
+        raise NotImplementedError(
+            f"{heads} heads of {module.qkv.in_features} channels do not "
+            f"split over TPU.MESH.MODEL {par.model_size}")
 
 
 class TrajectoryAttention(nn.Module):
@@ -127,7 +251,15 @@ class TrajectoryAttention(nn.Module):
 
     ``use_kernels=False`` runs the plain versions anywhere. ``int8_dense``
     makes qkv and proj W8A8 in eval; proj_q and proj_kv stay at the compute
-    dtype."""
+    dtype.
+
+    After ``parallel/tensor.shard_model`` (``par``): under the model axis
+    its heads split (the core on the gathered q, k, v of all heads),
+    under the seq axis x holds the CLS row and F / SEQ frames of tokens
+    (``thw[0]`` stays F) and K, V of every frame are gathered. The
+    learned-value form takes neither."""
+
+    par, sharded = None, False
 
     def __init__(self, dim, num_heads=8, qkv_bias=False, attn_drop=0.0,
                  int8_dense=False, use_original_code=True):
@@ -142,8 +274,16 @@ class TrajectoryAttention(nn.Module):
         self.proj_kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
+    def attach_parallel(self, par, dims):
+        self.par = par
+        self.sharded = self.qkv.weight.shape[0] != self.qkv.out_features
+        _check_heads(self, self.num_heads, par)
+
     def forward(self, x, thw, with_cls_token=True, use_kernels=True,
                 train=False):
+        if self.sharded or (self.par is not None and self.par.seq):
+            return self._forward_parallel(x, thw, with_cls_token,
+                                          use_kernels, train)
         B, N, C = x.shape
         nf = thw[0]
         h = self.num_heads
@@ -184,6 +324,61 @@ class TrajectoryAttention(nn.Module):
                    scale, h)
         if with_cls_token:
             out = torch.cat([cls_out, out], dim=1)
+        return int8_or_dense(out, self.proj, quant)
+
+    def _forward_parallel(self, x, thw, with_cls_token, use_kernels, train):
+        """``forward`` on this rank's heads (model axis) and frames (seq
+        axis)."""
+        if not self.use_original_code:
+            raise NotImplementedError(
+                "learned-value trajectory attention under TPU.MESH.SEQ or "
+                "MODEL (ROADMAP.md section 2)")
+        par = self.par
+        B, _, C = x.shape
+        nf = thw[0]
+        hd = C // self.num_heads
+        h = self.num_heads // (par.model_size if self.sharded else 1)
+        scale = hd ** -0.5
+        quant = self.int8_dense and not train and not self.sharded
+        if self.sharded:
+            x = tp.copy_in(x, par)
+        q, k, v = int8_or_dense(x, self.qkv, quant).chunk(3, dim=-1)
+        start = 1 if with_cls_token else 0
+        kp = tp.gather_seq(k[:, start:], 1, par)  # every frame's tokens
+        vp = tp.gather_seq(v[:, start:], 1, par)
+
+        def split_heads(t):
+            return t.reshape(B, -1, h, hd).transpose(1, 2).reshape(
+                B * h, -1, hd)
+
+        if with_cls_token:
+            k_all = torch.cat([k[:, :1], kp], dim=1)
+            v_all = torch.cat([v[:, :1], vp], dim=1)
+            cls_out = attn_ops.cls_attention(
+                split_heads(q[:, :1]), split_heads(k_all), split_heads(v_all),
+                scale).reshape(B, h, 1, hd).transpose(1, 2).reshape(
+                    B, 1, h * hd)
+        # the core on all heads: q, k and v gathered over the model line
+        q_p = tp.gather(q[:, start:], -1, par).contiguous()
+        kp, vp = tp.gather(kp, -1, par), tp.gather(vp, -1, par)
+        n_per_f = kp.shape[1] // nf
+        kf = kp.reshape(B, nf, n_per_f, C).contiguous()
+        vf = vp.reshape(B, nf, n_per_f, C).contiguous()
+        f0 = par.window(nf)[0] if par.seq else 0
+        dt = q_p.dtype
+        zeros = torch.zeros(C, dtype=dt, device=x.device)
+        wq2 = self.proj_q.weight.t().to(dt).contiguous()
+        wk2 = self.proj_kv.weight[:C].t().to(dt).contiguous()
+        bq2 = zeros if self.proj_q.bias is None else self.proj_q.bias.to(dt)
+        bk2 = zeros if self.proj_kv.bias is None else self.proj_kv.bias[:C].to(dt)
+        core = fused_trajectory_core if use_kernels else trajectory_core_reference
+        out = core(q_p, kf, vf, wq2, bq2.contiguous(), wk2, bk2.contiguous(),
+                   scale, self.num_heads, f0)
+        out = tp.split(out, -1, par)  # this rank's heads, for the row split
+        if with_cls_token:
+            out = torch.cat([cls_out, out], dim=1)
+        if self.sharded:
+            return tp.row_linear(out, self.proj, par)
         return int8_or_dense(out, self.proj, quant)
 
     def _learned_v(self, q_, k_, v_, B, nf, scale, use_kernels):
@@ -241,6 +436,8 @@ class TrajectoryAttentionBlock(nn.Module):
 class SelfAttention(nn.Module):
     """Joint space-time MHA (reference attention.py:355-385)."""
 
+    par, sharded = None, False
+
     def __init__(self, dim, num_heads=8, qkv_bias=False, int8_dense=False):
         super().__init__()
         self.num_heads = num_heads
@@ -248,10 +445,23 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
+    def attach_parallel(self, par, dims):
+        """Split by heads where the model axis split qkv."""
+        self.par = par
+        self.sharded = self.qkv.weight.shape[0] != self.qkv.out_features
+        _check_heads(self, self.num_heads, par)
+
     def forward(self, x, train=False):
         B, N, C = x.shape
         h = self.num_heads
         hd = C // h
+        if self.sharded:
+            h //= self.par.model_size
+            qkv = linear(tp.copy_in(x, self.par), self.qkv).reshape(
+                B, N, 3, h, hd).permute(2, 0, 3, 1, 4)
+            out = attn_ops.joint_attention(qkv[0], qkv[1], qkv[2], hd ** -0.5)
+            return tp.row_linear(out.transpose(1, 2).reshape(B, N, h * hd),
+                                 self.proj, self.par)
         quant = self.int8_dense and not train
         qkv = int8_or_dense(x, self.qkv, quant).reshape(B, N, 3, h, hd)
         qkv = qkv.permute(2, 0, 3, 1, 4)
@@ -418,6 +628,7 @@ class Motionformer(nn.Module):
                     moe_capacity=float(c.TPU.MOE.CAPACITY_FACTOR),
                 ))
         self.blocks = nn.ModuleList(blocks)
+        self.remat_blocks = remat_blocks(c) if c.TPU.REMAT else frozenset()
         self.norm = nn.LayerNorm(D, eps=1e-6)
         if c.MF.USE_MLP:
             self.pre_logits = nn.Sequential(OrderedDict(fc=nn.Linear(D, D)))
@@ -430,10 +641,23 @@ class Motionformer(nn.Module):
         else:
             self.head = nn.Linear(D, c.MODEL.NUM_CLASSES)
 
+    par = None
+
+    def attach_parallel(self, par, dims):
+        self.par = par
+
     def tokenize(self, x):
         """Patch-embed + CLS + separate space and time position embeddings
-        -> (tokens, thw)."""
+        -> (tokens, thw). Under the seq axis the rank's temporal slice of
+        the video alone is embedded: its F / SEQ frames of tokens after the
+        CLS row (thw keeps all F)."""
         B = x.shape[0]
+        F_ = self.temporal_resolution
+        f0, nf = (self.par.window(F_) if self.par is not None
+                  and self.par.seq else (0, F_))
+        if nf != F_:
+            kt = x.shape[1] // F_
+            x = x[:, f0 * kt:(f0 + nf) * kt].contiguous()
         tokens, (_, h_, w_) = self.patch_embed_3d(
             x, self.dtype, use_kernels=self.use_kernels)
         npatch = h_ * w_
@@ -442,7 +666,10 @@ class Motionformer(nn.Module):
         pos_embed = interpolate_pos_embed(self.pos_embed, npatch)
         tile_pos = pos_embed[:, 1:].repeat(1, self.temporal_resolution, 1)
         tile_temp = self.temp_embed.repeat_interleave(npatch, dim=1)
-        total = torch.cat([self.pos_embed[:, :1], tile_pos + tile_temp], dim=1)
+        patches = tile_pos + tile_temp
+        if nf != F_:
+            patches = patches[:, f0 * npatch:(f0 + nf) * npatch]
+        total = torch.cat([self.pos_embed[:, :1], patches], dim=1)
         tokens = tokens + total.to(tokens.dtype)
         side = int(npatch ** 0.5)
         return tokens, (self.temporal_resolution, side, side)
@@ -451,10 +678,14 @@ class Motionformer(nn.Module):
                          moe_aux=None):
         """x: [B, T, H, W, C] -> pooled feature [B, d]."""
         tokens, thw = self.tokenize(x)
-        for blk in self.blocks:
+        for i, blk in enumerate(self.blocks):
             extra = {"moe_aux": moe_aux} if getattr(blk, "moe", False) else {}
-            tokens = blk(tokens, metadata, thw, use_kernels=self.use_kernels,
-                         train=train, generator=generator, **extra)
+            kwargs = dict(use_kernels=self.use_kernels, train=train,
+                          generator=generator, **extra)
+            if train and i in self.remat_blocks and torch.is_grad_enabled():
+                tokens = recomputed(blk, tokens, metadata, thw, kwargs)
+            else:
+                tokens = blk(tokens, metadata, thw, **kwargs)
         feat = layer_norm(tokens, self.norm)[:, 0]
         if self.cfg.MF.USE_MLP:
             feat = torch.tanh(linear(feat, self.pre_logits.fc))
@@ -474,6 +705,8 @@ class Motionformer(nn.Module):
         # its float32 kernel
         heads = (self.head0, self.head1) if self.ek_heads else (self.head,)
         outs = [F.linear(feat.float(), h.weight, h.bias) for h in heads]
+        if self.par is not None:  # the CLS row's loss gradient enters once
+            outs = [tp.seq_grad_gate(o, self.par) for o in outs]
         if not train:
             outs = [torch.softmax(o, dim=-1) for o in outs]
         if self.ek_heads:

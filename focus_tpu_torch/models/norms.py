@@ -69,8 +69,9 @@ def batch_norm(x, bn: nn.modules.batchnorm._BatchNorm, train=False):
         return F.batch_norm(xf, *(t.to(xf.dtype) for t in stats), False,
                             0.0, bn.eps).to(x.dtype)
     dims = (0,) + tuple(range(2, x.ndim))
-    sums = mesh.all_reduce_sum(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]))
-    count = xf.numel() // x.shape[1] * mesh.world_size()
+    sums = mesh.all_reduce_sum(
+        torch.stack([xf.sum(dims), (xf * xf).sum(dims)]), mesh.group("data"))
+    count = xf.numel() // x.shape[1] * mesh.data_size()
     mean = sums[0] / count
     var = (sums[1] / count - mean * mean).clamp_min(0.0)
     _update_running(bn, mean, var)
@@ -123,20 +124,22 @@ class SubBatchNorm(BatchNorm):
         split's sums, then its centred sums of squares, are summed over the
         processes."""
         B, s = x.shape[0], self.num_splits
-        if (B * mesh.world_size()) % s:
-            raise ValueError(f"batch {B * mesh.world_size()} does not split "
+        if (B * mesh.data_size()) % s:
+            raise ValueError(f"batch {B * mesh.data_size()} does not split "
                              f"into BN.NUM_SPLITS={s}")
         xf = at_least_float32(x)
-        split = (mesh.rank() * B + torch.arange(B, device=x.device)) % s
+        split = (mesh.data_rank() * B + torch.arange(B, device=x.device)) % s
         onehot = F.one_hot(split, s).to(xf.dtype)  # [B, s]
         spatial = tuple(range(2, x.ndim))
         per_row = xf.shape[2:].numel()
-        count = (B * mesh.world_size() // s) * per_row
+        count = (B * mesh.data_size() // s) * per_row
         row_shape = (B, -1) + (1,) * (x.ndim - 2)
-        mean_s = mesh.all_reduce_sum(onehot.t() @ xf.sum(spatial)) / count
+        mean_s = mesh.all_reduce_sum(onehot.t() @ xf.sum(spatial),
+                                     mesh.group("data")) / count
         centred = xf - mean_s[split].view(row_shape)
         var_s = mesh.all_reduce_sum(
-            onehot.t() @ (centred * centred).sum(spatial)) / count
+            onehot.t() @ (centred * centred).sum(spatial),
+            mesh.group("data")) / count
         mean = mean_s.mean(0)
         _update_running(self, mean, var_s.mean(0)
                         + (mean_s ** 2).mean(0) - mean ** 2)

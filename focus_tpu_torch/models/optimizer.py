@@ -20,7 +20,20 @@ optimizer, with optax's semantics:
   as optax updates every leaf (weight decay still applies);
 - under data parallelism (``parallel/mesh.py``) the gradients are
   averaged over the processes, in one all-reduce, before the clip, so each
-  process applies the global batch's update.
+  process applies the global batch's update. Under a seq or model axis
+  the reduction runs over the data x seq plane (the seq ranks' partial
+  sums added, the data ranks' averaged); a model rank keeps its shards'
+  gradients, and a whole leaf's gradient is the same on every model rank.
+  The global-norm clip sums a split leaf's squares over the model line
+  and counts a whole leaf once;
+- under ``TPU.ZERO1`` (``construct_optimizer``, more than one data rank)
+  each data rank keeps the optimizer's state for a 1 / DATA chunk of each
+  parameter group's flat concatenation (padded to a multiple of DATA),
+  updates that chunk from the reduced gradient and all-gathers the new
+  parameters over the data line: the update is elementwise, so any split
+  is the same step. ``state_dict`` / ``load_state_dict`` read and write
+  the one-process optimizer's state (every parameter's full moments) on
+  any mesh.
 
 STEVE's (``construct_optimizer_slot``, reference optimizer.py:13-45 and
 ``set_slot_lr``) is Adam in three groups by parameter prefix, ``dvae`` at
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 
 from focus_tpu_torch.parallel import mesh
+from focus_tpu_torch.parallel import tensor as tp
 from focus_tpu_torch.utils import lr_policy
 
 
@@ -83,37 +97,178 @@ class Optimizer:
     """A ``torch.optim`` optimizer over labelled parameter groups, each with
     its LR schedule, behind the optional gradient clip. ``step(count)``
     applies one update from the parameters' ``.grad``; ``count`` is the
-    number of updates made before it."""
+    number of updates made before it. ``names`` and ``dims`` (each
+    parameter's name and model-axis split dim, in group order) come with a
+    sharded model; ``zero1`` holds each group's parameters, its flat chunk
+    (the parameter ``optimizer`` updates) and the chunk's length."""
 
-    def __init__(self, optimizer, schedules, clip_value=None, clip_norm=None):
+    def __init__(self, optimizer, schedules, clip_value=None, clip_norm=None,
+                 params=None, names=None, dims=None, model_group=None,
+                 zero1=None):
         self.optimizer = optimizer
         self.schedules = schedules
         self.clip_value = clip_value
         self.clip_norm = clip_norm
+        self.params = params or [p for g in optimizer.param_groups
+                                 for p in g["params"]]
+        self.names = names
+        self.dims = dims or [None] * len(self.params)
+        self.model_group = model_group
+        self.zero1 = zero1
+
+    @property
+    def sharded(self) -> bool:
+        """Whether its state is split over processes (its ``state_dict`` is
+        a collective)."""
+        return bool(self.zero1) or any(d is not None for d in self.dims)
 
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
+
+    def _global_norm(self, grads):
+        if not any(d is not None for d in self.dims):
+            return torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads]))
+        sq = [torch.linalg.vector_norm(g.float()) ** 2 for g in grads]
+        split = torch.stack([s for s, d in zip(sq, self.dims)
+                             if d is not None]).sum()
+        whole = [s for s, d in zip(sq, self.dims) if d is None]
+        split = mesh.all_reduce_(split, self.model_group)
+        return torch.sqrt(split + (torch.stack(whole).sum() if whole else 0.0))
 
     @torch.no_grad()
     def step(self, count: int):
-        params = [p for g in self.optimizer.param_groups for p in g["params"]]
+        params = self.params
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
-        mesh.all_reduce_mean_(grads)
+        mesh.all_reduce_mean_(grads, group=mesh.group("data_seq"),
+                              divide=mesh.data_size())
         if self.clip_value:
             for g in grads:
                 g.clamp_(-self.clip_value, self.clip_value)
         elif self.clip_norm:
-            norm = torch.linalg.vector_norm(torch.stack(
-                [torch.linalg.vector_norm(g.float()) for g in grads]))
+            norm = self._global_norm(grads)
             keep = norm < self.clip_norm
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.clip_norm))
         for group, sched in zip(self.optimizer.param_groups, self.schedules):
             group["lr"] = sched(count)
+        if not self.zero1:
+            self.optimizer.step()
+            return
+        d = mesh.data_rank()
+        for ps, chunk, n in self.zero1:
+            lo = d * n
+            chunk.data.copy_(_flat(ps, n * mesh.data_size())[lo:lo + n])
+            chunk.grad = _flat([p.grad for p in ps],
+                               n * mesh.data_size())[lo:lo + n].clone()
         self.optimizer.step()
+        for ps, chunk, n in self.zero1:
+            flat = mesh.all_gather_tiled(chunk.detach(), mesh.group("data"))
+            _unflat_(ps, flat)
+
+    # -- the one-process optimizer's state on any mesh (collectives) -------
+
+    def _full(self, t, i):
+        """Parameter i's state tensor ``t`` gathered over the model line."""
+        d = self.dims[i]
+        if d is None:
+            return t
+        parts = mesh.all_gather_tiled(t.contiguous()[None], self.model_group)
+        return tp.unshard(list(parts.unbind(0)), self.names[i], d)
+
+    def _local(self, t, i):
+        d = self.dims[i]
+        if d is None or not torch.is_tensor(t) or t.ndim == 0:
+            return t
+        return tp.shard(t, self.names[i], d, mesh.model_rank(),
+                        mesh.model_size())
+
+    def state_dict(self) -> dict:
+        """The state dict of the one-process ``torch.optim`` optimizer over
+        the whole model: every parameter's full state, in group order."""
+        inner = self.optimizer.state_dict()
+        if not self.sharded:
+            return inner
+        groups, state, i = [], {}, 0
+        if not self.zero1:
+            for idx, st in inner["state"].items():
+                state[idx] = {k: (self._full(v, idx) if torch.is_tensor(v)
+                                  and v.ndim else v) for k, v in st.items()}
+            return {"state": state, "param_groups": inner["param_groups"]}
+        for gi, (g, (ps, chunk, n)) in enumerate(zip(inner["param_groups"],
+                                                     self.zero1)):
+            ids = list(range(i, i + len(ps)))
+            groups.append({**g, "params": ids})
+            st = inner["state"].get(gi)
+            if st:
+                per = {}
+                for k, v in st.items():
+                    if torch.is_tensor(v) and v.ndim:
+                        flat = mesh.all_gather_tiled(v.contiguous(),
+                                                     mesh.group("data"))
+                        per[k] = _split_flat(ps, flat)
+                for j, idx in enumerate(ids):
+                    state[idx] = {k: (self._full(per[k][j], idx) if k in per
+                                      else v.clone() if torch.is_tensor(v)
+                                      else v) for k, v in st.items()}
+            i += len(ps)
+        return {"state": state, "param_groups": groups}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load ``state_dict``'s form (the one-process optimizer's state)."""
+        if not self.sharded:
+            self.optimizer.load_state_dict(sd)
+            return
+        local = {idx: {k: self._local(v, idx) for k, v in st.items()}
+                 for idx, st in sd["state"].items()}
+        if not self.zero1:
+            self.optimizer.load_state_dict(
+                {"state": local, "param_groups": sd["param_groups"]})
+            return
+        groups, state, d = [], {}, mesh.data_rank()
+        for gi, (g, (ps, chunk, n)) in enumerate(zip(sd["param_groups"],
+                                                     self.zero1)):
+            groups.append({**g, "params": [gi]})
+            sts = [local.get(idx) for idx in g["params"]]
+            if not all(sts):
+                continue
+            st = {}
+            for k, v in sts[0].items():
+                if torch.is_tensor(v) and v.ndim:
+                    flat = _flat([s[k] for s in sts], n * mesh.data_size())
+                    st[k] = flat[d * n:(d + 1) * n].clone()
+                else:
+                    st[k] = v
+            state[gi] = st
+        self.optimizer.load_state_dict({"state": state,
+                                        "param_groups": groups})
+
+
+def _flat(tensors, length):
+    """The float32 concatenation of ``tensors``, zero-padded to
+    ``length``."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    return torch.nn.functional.pad(flat, (0, length - flat.numel()))
+
+
+def _split_flat(like, flat):
+    """``flat`` cut into tensors shaped as ``like``."""
+    out, offset = [], 0
+    for p in like:
+        out.append(flat[offset:offset + p.numel()].view_as(p).clone())
+        offset += p.numel()
+    return out
+
+
+def _unflat_(params, flat):
+    """Copy the concatenation ``flat`` into ``params``."""
+    for p, t in zip(params, _split_flat(params, flat)):
+        p.data.copy_(t)
 
 
 def construct_optimizer(model, cfg, steps_per_epoch: int,
@@ -136,9 +291,27 @@ def construct_optimizer(model, cfg, steps_per_epoch: int,
         cfg, steps_per_epoch,
         "orvit_lr" if g["label"].startswith("orvit") else "lr",
         epoch_offset, step_offset) for g in groups]
+    params = [p for g in groups for p in g["params"]]
+    by_id = {id(p): n for n, p in model.named_parameters()}
+    names = [by_id[id(p)] for p in params]
+    dims = [tp.specs(model).get(n) for n in names]
+    zero1 = None
+    if cfg.TPU.ZERO1 and mesh.data_size() > 1:
+        zero1, chunked = [], []
+        for g in groups:
+            ps = g["params"]
+            n = -(-sum(p.numel() for p in ps) // mesh.data_size())
+            chunk = torch.nn.Parameter(torch.zeros(n, device=ps[0].device))
+            zero1.append((ps, chunk, n))
+            chunked.append({**g, "params": [chunk]})
+        groups = chunked
+    par = getattr(model, "parallel", None)
     return Optimizer(_torch_optimizer(cfg, groups), schedules,
                      clip_value=cfg.SOLVER.CLIP_GRAD_VAL or None,
-                     clip_norm=cfg.SOLVER.CLIP_GRAD_L2NORM or None)
+                     clip_norm=cfg.SOLVER.CLIP_GRAD_L2NORM or None,
+                     params=params, names=names, dims=dims,
+                     model_group=par.model_group if par else None,
+                     zero1=zero1)
 
 
 # ---- STEVE ---------------------------------------------------------------

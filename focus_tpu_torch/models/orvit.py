@@ -10,6 +10,15 @@
    attention splatted back to the patch grid by ``boxes_to_layout``) added
    to the patch tokens (orvit.py:160-163);
 5. residual + MLP (orvit.py:169-170).
+
+Under ``TPU.MESH.SEQ`` (``parallel/tensor.py``) a seq rank holds the patch
+tokens of its F / SEQ frames: RoIAlign and the object tokens are its
+frames', the trajectory attention runs over its window of query frames at
+N = H W + O, and the motion stream runs on every frame's boxes (its input)
+on every seq rank, each keeping its frames' rows of the layout. Under
+``TPU.MESH.MODEL`` the ``TwoLayerReluMlp``s are column then row parallel
+(the JAX names ``fc1`` / ``fc2``), as are the MLPs and the heads of the
+attentions.
 """
 
 import torch
@@ -26,6 +35,7 @@ from focus_tpu_torch.models.motionformer import (
 )
 from focus_tpu_torch.ops.layout import box2spatial_layout
 from focus_tpu_torch.ops.roi_align import roi_align
+from focus_tpu_torch.parallel import tensor as tp
 from focus_tpu_torch.utils.box_ops import box_cxcywh_to_xyxy
 
 
@@ -50,7 +60,10 @@ class ObjectsCrops(nn.Module):
 
 class TwoLayerReluMlp(nn.Sequential):
     """linear(no bias)/relu/linear(no bias)/relu (reference orvit.py:59-72),
-    a torch Sequential so its weights are named ``0`` and ``2``."""
+    a torch Sequential so its weights are named ``0`` and ``2``; column
+    then row parallel where the model axis split ``0``."""
+
+    par, sharded = None, False
 
     def __init__(self, in_features, hidden, out):
         super().__init__(
@@ -58,7 +71,14 @@ class TwoLayerReluMlp(nn.Sequential):
             nn.Linear(hidden, out, bias=False), nn.ReLU(),
         )
 
+    def attach_parallel(self, par, dims):
+        self.par = par
+        self.sharded = self[0].weight.shape[0] != self[0].out_features
+
     def forward(self, x):
+        if self.sharded:
+            h = F.relu(linear(tp.copy_in(x, self.par), self[0]))
+            return F.relu(tp.row_linear(h, self[2], self.par))
         return F.relu(linear(F.relu(linear(x, self[0])), self[2]))
 
 
@@ -132,38 +152,50 @@ class ORViTBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), fast_gelu=fast_gelu,
                        int8_dense=int8_dense)
 
+    par = None
+
+    def attach_parallel(self, par, dims):
+        self.par = par
+
     def forward(self, x, metadata, thw, use_kernels=True, train=False,
                 generator=None):
         box_tensors = metadata["orvit_bboxes"]
         cls_token, patch_tokens = x[:, :1], x[:, 1:]
         BS, _, d = x.shape
         T, H, W = thw
-        patch_grid = patch_tokens.reshape(BS, T, H, W, d)
+        seq = self.par is not None and self.par.seq
+        f0, nf = self.par.window(T) if seq else (0, T)
+        patch_grid = patch_tokens.reshape(BS, nf, H, W, d)
 
         t_ratio = box_tensors.shape[1] // T
         box_tensors = box_tensors[:, ::t_ratio].to(patch_tokens.dtype)
         O = box_tensors.shape[-2]
+        boxes = box_tensors[:, f0:f0 + nf] if seq else box_tensors
+        categories = self.box_categories[f0:f0 + nf] if seq else \
+            self.box_categories
 
         # object tokens: crop -> MLP -> spatial amax (reference :135-139)
-        obj = self.patch_to_d(self.crop_layer(patch_grid, box_tensors))
+        obj = self.patch_to_d(self.crop_layer(patch_grid, boxes))
         obj = obj.amax(dim=(3, 4))  # [BS, T, O, d]
-        box_emb = self.c_coord_to_feature(box_tensors)
-        obj = obj + self.box_categories[None].to(obj.dtype) + box_emb
+        box_emb = self.c_coord_to_feature(boxes)
+        obj = obj + categories[None].to(obj.dtype) + box_emb
 
         all_tokens = torch.cat(
-            [patch_grid.reshape(BS, T, H * W, d), obj], dim=2
-        ).reshape(BS, T * (H * W + O), d)
+            [patch_grid.reshape(BS, nf, H * W, d), obj], dim=2
+        ).reshape(BS, nf * (H * W + O), d)
         all_tokens = torch.cat([cls_token, all_tokens], dim=1)
         all_tokens = self.attn(layer_norm(all_tokens, self.norm1),
                                (T, H * W + O, 1), use_kernels=use_kernels,
                                train=train)
 
         cls_token_out, rest = all_tokens[:, :1], all_tokens[:, 1:]
-        patch_out = rest.reshape(BS, T, H * W + O, d)[:, :, : H * W].reshape(
-            BS, T * H * W, d
+        patch_out = rest.reshape(BS, nf, H * W + O, d)[:, :, : H * W].reshape(
+            BS, nf * H * W, d
         )
         if self.cfg.ORVIT.USE_MOTION_STREAM:
             motion = self.motion_stream(box_tensors, H, W, train)
+            if seq:  # this rank's frames' rows of every frame's layout
+                motion = motion[:, f0 * H * W:(f0 + nf) * H * W]
             patch_out = patch_out + self.motion_mlp(motion, train)
         y = torch.cat([cls_token_out, patch_out], dim=1)
         x = x + self.drop_path(y, train, generator)

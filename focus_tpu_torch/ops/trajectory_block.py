@@ -42,6 +42,17 @@ the softmax online across them, the weights rounded unnormalised), the
 pass of kernels 5 and 6 in its own chunked form (``k2v_pass_plan``), and
 the backward's dq kernel in its own, ``stage1_dq_chunked_kernel``.
 
+A window of query frames (sequence parallelism, ``models/motionformer.py``):
+every function here takes ``f0``, the first of the S / N query frames q
+holds (0, the default, with S = F N, is the whole core); kf and vf hold all
+F frames. A query's stage 1, stage 2 and own frame depend on its row and f0
+alone, so the window's out, xs, q2 and dq are those rows of the whole
+core's, and its dK, dV, dWq2, dbq2 and dWk2 are the window's partial sums,
+which the caller sums over the windows. On the card the window is version
+4 alone (``traj_core_window_bf16`` and ``traj_core_bwd_window_bf16``, the
+same launches with f0 in the own-frame pick); the other versions raise
+before any launch.
+
 Float32 operands on the card: the kernels take bf16 alone, so a CUDA call
 with a float32 operand (the ``TPU.COMPUTE_DTYPE: float32`` case, which the
 JAX kernel serves in float32) raises ``TypeError``: the kernels' float32
@@ -89,9 +100,29 @@ HEAD_DIM = 64  # the kernels' head dim; also C % 128 == 0, F <= 8, heads <= 16
 MAX_KEYS = 256
 
 
-def trajectory_core_stage1_reference(q, kf, vf, wq2, bq2, scale, heads):
+def own_frames(S, N, f0, device=None):
+    """(rows, own frame of each row) of a window of S query rows from frame
+    ``f0``, N rows a frame."""
+    rows = torch.arange(S, device=device)
+    return rows, f0 + rows // N
+
+
+def take_own_frame(xs, N, f0=0):
+    """xs [B, S, F, C] -> each row's own-frame aggregate [B, S, C]: the
+    diagonal (``take_diagonal``) for the whole core, a gather for a
+    window."""
+    B, S, F, C = xs.shape
+    if f0 == 0 and S == F * N:
+        return attn_ops.take_diagonal(xs, F)
+    rows, frame = own_frames(S, N, f0, xs.device)
+    return xs[:, rows, frame]
+
+
+def trajectory_core_stage1_reference(q, kf, vf, wq2, bq2, scale, heads,
+                                     f0=0):
     """The plain version's first half -> (xs [B, S, F, C], q2 [B, S, C]) at
-    q's dtype: stage 1 (``space_stage``) per head, the diagonal, and q2 =
+    q's dtype: stage 1 (``space_stage``) per head, the own frame (the
+    diagonal, or in a window from frame ``f0`` its rows'), and q2 =
     x_diag . Wq2 + bq2, the two tensors the forward kernel writes on the
     way and the backward reads."""
     B, S, C = q.shape
@@ -110,19 +141,21 @@ def trajectory_core_stage1_reference(q, kf, vf, wq2, bq2, scale, heads):
     xs = xs.reshape(B, heads, S, F, hd).permute(0, 2, 3, 1, 4).reshape(
         B, S, F, C
     )
-    x_diag = attn_ops.take_diagonal(xs, F)
+    x_diag = take_own_frame(xs, N, f0)
     q2 = torch.matmul(x_diag.float(), wq2.to(q.dtype).float()).to(q.dtype)
     return xs, q2 + bq2.to(q.dtype)
 
 
-def trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
-    """Plain version: stage 1 (``space_stage``), the diagonal, q2, then
+def trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
+                              f0=0):
+    """Plain version: stage 1 (``space_stage``), the own frame, q2, then
     stage 2 with the k2 projection on the query side
-    (``temporal_stage_k2w``). bk2 is constant over frames and drops out."""
+    (``temporal_stage_k2w``); q holds the query frames from ``f0``. bk2 is
+    constant over frames and drops out."""
     del bk2
     F = kf.shape[1]
     xs, q2 = trajectory_core_stage1_reference(q, kf, vf, wq2, bq2, scale,
-                                              heads)
+                                              heads, f0)
     return attn_ops.temporal_stage_k2w(q2, wk2, xs, F, scale, heads)
 
 
@@ -181,10 +214,11 @@ def trajectory_core_plan(B, S, F, N, heads, sms=132, v3=False):
     such shape."""
     C = heads * HEAD_DIM
     if not (1 <= heads <= MAX_HEADS and C % 128 == 0 and 1 <= F <= MAX_FRAMES
-            and S == F * N and B >= 1):
+            and S >= N and S % N == 0 and S // N <= F and B >= 1):
         raise ValueError(f"trajectory kernel needs C % 128 == 0, heads <= "
-                         f"{MAX_HEADS}, F <= {MAX_FRAMES}, S = F N (B={B}, "
-                         f"S={S}, F={F}, N={N}, heads={heads})")
+                         f"{MAX_HEADS}, F <= {MAX_FRAMES}, S = F' N with "
+                         f"F' <= F query frames (B={B}, S={S}, F={F}, N={N}, "
+                         f"heads={heads})")
     stage1 = ta.space_stage_plan(B * heads, S, F, N, sms)
     M = B * S
     rows = stage2_rows(M, sms, heads, v3)
@@ -586,7 +620,8 @@ def k2v_pass_plan(N):
 
 
 def trajectory_core_backward_reference(q, kf, vf, wq2, bq2, wk2, bk2, dout,
-                                       scale, heads, intermediates=None):
+                                       scale, heads, intermediates=None,
+                                       f0=0):
     """Plain version of the backward, in float32, step by step as the TPU
     kernel (``_fused_bwd_kernel``) computes it: the stage-1 and stage-2
     forward recomputed, then the stage-2 backward (per head g_h, the logits
@@ -595,14 +630,14 @@ def trajectory_core_backward_reference(q, kf, vf, wq2, bq2, wk2, bk2, dout,
     dk per batch row, head and frame). Returns (dq, dkf, dvf, dwq2, dbq2,
     dwk2, dbk2) in the operands' dtypes; dbk2 is zero (bk2 drops out of the
     softmax). A dict passed as ``intermediates`` receives xs, q2, dq2 and
-    dxs (float32)."""
+    dxs (float32). In a window from frame ``f0`` the weight, key and
+    value gradients are the window's partial sums."""
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     hd = C // heads
     q_, k_, v_, w_q2, b_q2, w_k2, do = (
         t.float() for t in (q, kf, vf, wq2, bq2, wk2, dout))
-    frame = torch.arange(S, device=q.device) // N
-    rows = torch.arange(S, device=q.device)
+    rows, frame = own_frames(S, N, f0, q.device)
 
     # stage-1 forward: a1[b, h, s, f, n], xs[b, s, f, c]
     qh = q_.reshape(B, S, heads, hd).permute(0, 2, 1, 3)
@@ -670,7 +705,7 @@ def _chunked_softmax_and_r(logits, dp, cw):
 
 
 def trajectory_core_backward_mirror(q, kf, vf, wq2, wk2, dout, xs, q2,
-                                    scale, heads, r_from_stage2=False):
+                                    scale, heads, r_from_stage2=False, f0=0):
     """Plain mirror of the backward kernel (``csrc/trajectory_block_bwd.cu``):
     its order of work and its rounding points, in float32 arithmetic on
     operands at q's dtype, from the forward's residuals xs [B, S, F, C] and
@@ -702,8 +737,7 @@ def trajectory_core_backward_mirror(q, kf, vf, wq2, wk2, dout, xs, q2,
     q2h = q2.float().reshape(B, S, heads, hd)
     wk2h = wk2.float().reshape(C, heads, hd)
     doh = dout.float().reshape(B, S, heads, hd)
-    rows = torch.arange(S, device=q.device)
-    frame = rows // N
+    rows, frame = own_frames(S, N, f0, q.device)
 
     # stage 2: logits and dl2
     g = torch.einsum("bshd,chd->bshc", q2h, wk2h)
@@ -754,6 +788,18 @@ def _kernel_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def _window_kernel_fn():
+    return _build.bind("trajectory_block", "traj_core_window_bf16",
+                       n_ptr=9, n_int=7, n_float=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_window_kernel_fn():
+    return _build.bind("trajectory_block_bwd", "traj_core_bwd_window_bf16",
+                       n_ptr=25, n_int=7, n_float=1)
+
+
+@functools.lru_cache(maxsize=None)
 def _v3_kernel_fn():
     return _build.bind("trajectory_block", "traj_core_v3_bf16",
                        n_ptr=10, n_int=6, n_float=1)
@@ -781,10 +827,16 @@ def _variant_kernel_fn(version):
                        n_float=1)
 
 
-def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
+def is_window(q, kf, f0=0):
+    """Whether q holds a window of query frames (not all F from 0)."""
+    return f0 != 0 or q.shape[1] != kf.shape[1] * kf.shape[2]
+
+
+def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=(), f0=0):
     """Raises where the kernels take no such operands: bf16 alone,
-    contiguous on one device, the layout's shapes, and N <=
-    MAX_KEYS_CHUNKED keys a frame."""
+    contiguous on one device, the layout's shapes (q's rows whole query
+    frames from ``f0``, within the F frames), and N <= MAX_KEYS_CHUNKED
+    keys a frame."""
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     args = (q, kf, vf, wq2, bq2, wk2) + tuple(extra)
@@ -799,7 +851,8 @@ def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
     shapes_ok = (
         tuple(kf.shape) == (B, F, N, C) and tuple(vf.shape) == (B, F, N, C)
         and tuple(wq2.shape) == (C, C) and tuple(wk2.shape) == (C, C)
-        and tuple(bq2.shape) == (C,) and S == F * N
+        and tuple(bq2.shape) == (C,) and S >= N and S % N == 0
+        and 0 <= f0 and f0 + S // N <= F
     )
     if not shapes_ok:
         raise ValueError(f"bad shapes for the trajectory kernel: "
@@ -811,26 +864,29 @@ def _check_operands(q, kf, vf, wq2, bq2, wk2, heads, extra=()):
                          f"heads <= 16 (C={C}, heads={heads}, F={F}, N={N})")
 
 
-def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads):
+def _launch(q, kf, vf, wq2, bq2, wk2, scale, heads, f0=0):
     """Forward kernel -> (out, xs, q2); xs [B, S, F, C] and q2 [B, S, C]
     are the stage-1 aggregates and stage-2 queries it writes on the way,
-    which the backward reads."""
+    which the backward reads. A window of query frames from ``f0`` goes
+    through ``traj_core_window_bf16``, the whole core through
+    ``traj_core_bf16``."""
     global LAUNCHES
-    _check_operands(q, kf, vf, wq2, bq2, wk2, heads)
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads, f0=f0)
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     xs = torch.empty(B, S, F, C, dtype=torch.bfloat16, device=q.device)
     q2 = torch.empty(B, S, C, dtype=torch.bfloat16, device=q.device)
     out = torch.empty(B, S, C, dtype=torch.bfloat16, device=q.device)
+    window = is_window(q, kf, f0)
+    ints = (B, S, F, N, C, heads) + ((f0,) if window else ())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel_fn()(
+        err = (_window_kernel_fn if window else _kernel_fn)()(
             q.data_ptr(), kf.data_ptr(), vf.data_ptr(), wq2.data_ptr(),
             bq2.data_ptr(), wk2.data_ptr(), xs.data_ptr(), q2.data_ptr(),
-            out.data_ptr(),
-            B, S, F, N, C, heads, float(scale), stream,
+            out.data_ptr(), *ints, float(scale), stream,
         )
-    _build.check(err, "traj_core_bf16")
+    _build.check(err, "traj_core_window_bf16" if window else "traj_core_bf16")
     LAUNCHES += 1
     return out, xs, q2
 
@@ -929,15 +985,17 @@ def _launch_variant(version, q, kf, vf, wq2, bq2, wk2, scale, heads):
 
 
 def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
-                     scratch=None):
+                     scratch=None, f0=0):
     """Backward kernel -> (dq, dkf, dvf, dwq2, dbq2, dwk2) in the operands'
     dtype (bf16). A dict passed as ``scratch`` receives the kernel's scratch
     tensors (among them dxs [B, S, F, C] and dq2 [B, S, C]); none of them is
     a float32 [B S F, C] tensor. Its stage-2 tiles hold C <= 768 (12
     heads); N <= 512 keys a frame (past 256 its dq kernel's chunked
-    form), and 513 is refused before any build."""
+    form), and 513 is refused before any build. A window of query frames
+    from ``f0`` goes through ``traj_core_bwd_window_bf16``: dq is its
+    rows', the other gradients its partial sums."""
     global BWD_LAUNCHES, BWD_DEVICE_LAUNCHES
-    _check_operands(q, kf, vf, wq2, bq2, wk2, heads, (dout, xs, q2))
+    _check_operands(q, kf, vf, wq2, bq2, wk2, heads, (dout, xs, q2), f0=f0)
     B, S, C = q.shape
     F, N = kf.shape[1], kf.shape[2]
     if (tuple(dout.shape) != (B, S, C) or tuple(xs.shape) != (B, S, F, C)
@@ -961,7 +1019,9 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
             "bpart": buf(2 * -(-M // 32), C),
             "stats": buf(2, B, heads, F, -(-S // 4) * 4)}
     launched = ctypes.c_int(0)
-    kernel = _bwd_kernel_fn()
+    window = is_window(q, kf, f0)
+    kernel = (_bwd_window_kernel_fn if window else _bwd_kernel_fn)()
+    ints = (B, S, F, N, C, heads) + ((f0,) if window else ())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = kernel(
@@ -969,10 +1029,10 @@ def _launch_backward(q, kf, vf, wq2, bq2, wk2, dout, xs, q2, scale, heads,
             wk2.data_ptr(), dout.data_ptr(), xs.data_ptr(), q2.data_ptr(),
             *(g.data_ptr() for g in grads),
             *(w.data_ptr() for w in work.values()),
-            ctypes.addressof(launched),
-            B, S, F, N, C, heads, float(scale), stream,
+            ctypes.addressof(launched), *ints, float(scale), stream,
         )
-    _build.check(err, "traj_core_bwd_bf16")
+    _build.check(err, "traj_core_bwd_window_bf16" if window
+                 else "traj_core_bwd_bf16")
     BWD_LAUNCHES += 1
     BWD_DEVICE_LAUNCHES += launched.value
     if scratch is not None:
@@ -991,9 +1051,15 @@ class _FusedCore(torch.autograd.Function):
     ``LAUNCHES``), as the TPU backward recomputes stage 1 itself."""
 
     @staticmethod
-    def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads, version):
-        if version in (3, 4, 7):
-            launch = {3: _launch_v3, 4: _launch, 7: _launch_v7}[version]
+    def forward(ctx, q, kf, vf, wq2, bq2, wk2, bk2, scale, heads, version,
+                f0=0):
+        # the whole core calls the launches as they were before windows
+        ctx.window = {"f0": f0} if is_window(q, kf, f0) else {}
+        if version == 4:
+            out, xs, q2 = _launch(q, kf, vf, wq2, bq2, wk2, scale, heads,
+                                  **ctx.window)
+        elif version in (3, 7):
+            launch = {3: _launch_v3, 7: _launch_v7}[version]
             out, xs, q2 = launch(q, kf, vf, wq2, bq2, wk2, scale, heads)
         else:
             out, xs, q2, _ = _launch_variant(version, q, kf, vf, wq2, bq2,
@@ -1011,11 +1077,22 @@ class _FusedCore(torch.autograd.Function):
             _, xs, q2 = _launch(q, kf, vf, wq2, bq2, wk2, ctx.scale,
                                 ctx.heads)
         grads = _launch_backward(q, kf, vf, wq2, bq2, wk2, dout.contiguous(),
-                                 xs, q2, ctx.scale, ctx.heads)
-        return (*grads, torch.zeros_like(bk2), None, None, None)
+                                 xs, q2, ctx.scale, ctx.heads, **ctx.window)
+        return (*grads, torch.zeros_like(bk2), None, None, None, None)
 
 
-def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
+def check_window_version(version, q, kf, f0=0):
+    """Raise, before any launch, where a window of query frames meets a
+    forward version other than 4: versions 3, 5, 6 and 7 take the whole
+    core alone (ROADMAP.md section 2)."""
+    if version != 4 and is_window(q, kf, f0):
+        raise NotImplementedError(
+            f"trajectory-core FWD_VERSION={version} over a window of query "
+            "frames (sequence parallelism): only version 4 takes a window "
+            "(ROADMAP.md section 2)")
+
+
+def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads, f0=0):
     """Trajectory attention for the non-CLS tokens -> [B, S, C].
 
     A CPU tensor takes the plain version at every ``FWD_VERSION`` (its
@@ -1023,12 +1100,18 @@ def fused_trajectory_core(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads):
     ``FWD_VERSION`` (3, 4, 5, 6 or 7; others raise before any launch), and
     its gradient the backward kernel (bf16, contiguous, head dim 64, N <=
     512 keys a frame at every version), or raises: a float32 operand raises
-    ``TypeError``, N > 512 ``ValueError``."""
+    ``TypeError``, N > 512 ``ValueError``. q may hold a window of query
+    frames from ``f0`` (version 4 alone; the others raise before any
+    launch)."""
     if q.device.type == "cpu":
         return trajectory_core_reference(q, kf, vf, wq2, bq2, wk2, bk2,
-                                         scale, heads)
+                                         scale, heads, f0)
     if q.device.type != "cuda":
         raise ValueError(f"no trajectory kernel for device {q.device}")
     version = check_fwd_version()
+    check_window_version(version, q, kf, f0)
+    if f0 == 0 and not is_window(q, kf):
+        return _FusedCore.apply(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
+                                version)
     return _FusedCore.apply(q, kf, vf, wq2, bq2, wk2, bk2, scale, heads,
-                            version)
+                            version, f0)

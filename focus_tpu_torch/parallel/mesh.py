@@ -22,8 +22,22 @@ group is set up; once one is, it runs its collective even at world 1.
 Gloo's CUDA tensors take all-reduce and broadcast only, so under any
 backend but NCCL a gather is an all-reduce of a zero buffer with this
 process's rows filled in; mixup's partner rows (``from_mirror``) are a
-send and a receive with the one process that holds them, except there. Only the ``DATA`` axis is ported: ``check_mesh``
-refuses the others before anything is built.
+send and a receive with the one process that holds them, except there.
+
+The sequence and model axes (``TPU.MESH.SEQ``, ``TPU.MESH.MODEL``): rank r
+sits on the grid (data, pipe, seq, model, expert) in ``build_mesh``'s
+order, expert fastest and model next, so r = (d SEQ + s) MODEL + m with
+pipe and expert 1. ``DATA`` absorbs what ``SEQ x MODEL`` leaves of the
+world, as in the JAX package. ``init_distributed`` makes one process group
+for every data, seq and model line and one for every data x seq plane (the
+gradients' reduction, ``models/optimizer.py``); every rank makes every
+group, in the same order. The model and seq ranks of one data line hold
+the same clips, so the loader, the drawn rows (``batch_rows``), mixup's
+partner, BatchNorm, the stats and the eval gathers read the data axis
+(``data_rank``, ``data_size``, the collectives' ``group``); with no seq or
+model axis the data line is the world. ``check_mesh`` refuses what the
+JAX package refuses and what the port does not run, before anything is
+built.
 """
 
 from __future__ import annotations
@@ -40,22 +54,81 @@ logger = logging.get_logger(__name__)
 MESH_AXES = ("PIPE", "SEQ", "MODEL", "EXPERT")
 
 
-def check_mesh(cfg) -> None:
-    """Raise, before anything is built, where ``TPU.MESH`` asks for a
-    pipeline, sequence, model or expert axis above 1: the port shards the
-    batch over processes and nothing else, and those layouts change what
-    the JAX package builds (``PIPE`` pipelines the trajectory blocks) or
-    refuse a single device (``focus_tpu/parallel/mesh.py``). A MoE config
+def mesh_axes(cfg):
+    """(pipe, seq, model, expert) of ``cfg.TPU.MESH``, each at least 1."""
+    return tuple(max(int(cfg.TPU.MESH.get(k, 1) or 1), 1) for k in MESH_AXES)
+
+
+# (seq, model) of the job this process belongs to; set by init_distributed
+_AXES = (1, 1)
+# the process groups of this rank's lines, by axis ("data", "seq",
+# "model", "data_seq"); empty without seq or model axis
+_GROUPS = {}
+
+
+def check_mesh(cfg, world=None) -> None:
+    """Raise, before anything is built, where ``cfg.TPU.MESH`` asks for a
+    layout that the JAX package refuses (``build_mesh``: sequence together
+    with pipeline parallelism; a world that SEQ x MODEL x PIPE x EXPERT
+    does not divide, ``world`` processes, default this job's) or that the
+    port does not run (``check_axes``)."""
+    check_axes(cfg)
+    pipe, seq, model, expert = mesh_axes(cfg)
+    world = world_size() if world is None else int(world)
+    if world % (model * seq * pipe * expert):
+        raise ValueError(
+            f"{world} devices not divisible by model axis {model} x seq axis "
+            f"{seq} x pipe axis {pipe} x expert axis {expert} (TPU.MESH.MODEL "
+            f"{model}, TPU.MESH.SEQ {seq}: a world of TPU.MESH.DATA x SEQ x "
+            "MODEL processes)")
+
+
+def check_axes(cfg) -> None:
+    """``check_mesh``'s refusals that need no world: sequence together with
+    pipeline parallelism (the JAX package's), and what the port does not
+    run: a pipeline or expert axis above 1 (``PIPE`` pipelines the
+    trajectory blocks, ``EXPERT`` shards the MoE experts), and a sequence
+    or model axis on another model than the Motionformer / ORViT-MF
+    family, on a MoE model, or a model axis under ``TPU.INT8_SERVING`` (its
+    dynamic activation scale is a max over the whole input row, which a
+    row split would need reduced). SEQ must divide
+    ``MF.TEMPORAL_RESOLUTION``: the tokens split by frames. A MoE config
     runs with ``TPU.MESH.PIPE 1 TPU.MESH.EXPERT 1``: every expert on every
     card."""
-    mesh = cfg.TPU.MESH
-    over = [f"TPU.MESH.{k} {mesh[k]}" for k in MESH_AXES
-            if int(mesh.get(k, 1) or 1) > 1]
+    pipe, seq, model, expert = mesh_axes(cfg)
+    if seq > 1 and pipe > 1:
+        raise ValueError(
+            "sequence and pipeline parallelism each compose with data/model "
+            "axes but not with each other (shard_tokens' token constraint "
+            "conflicts with the pipeline microbatch layout)")
+    over = [f"TPU.MESH.{k} {v}"
+            for k, v in (("PIPE", pipe), ("EXPERT", expert)) if v > 1]
     if over:
         raise NotImplementedError(
-            f"{', '.join(over)}: the port runs no pipeline, sequence, model "
-            "or expert axis yet (ROADMAP.md section 1 item 8); set them to 1 "
-            "to shard the batch alone")
+            f"{', '.join(over)}: the port runs no pipeline or expert axis yet "
+            "(ROADMAP.md section 1 item 8); set them to 1")
+    if seq > 1 or model > 1:
+        axes = f"TPU.MESH.SEQ {seq} / TPU.MESH.MODEL {model}"
+        if cfg.MODEL.MODEL_NAME != "Motionformer":
+            raise NotImplementedError(
+                f"{axes} on MODEL.MODEL_NAME {cfg.MODEL.MODEL_NAME}: the port "
+                "shards the sequence and the dense layers of the Motionformer "
+                "/ ORViT-MF family alone (ROADMAP.md section 1 item 8)")
+        experts = int(cfg.TPU.MOE.NUM_EXPERTS or 0)
+        if experts > 1:
+            raise NotImplementedError(
+                f"{axes} with TPU.MOE.NUM_EXPERTS {experts}: the MoE layers "
+                "are not sharded yet (ROADMAP.md section 1 item 8)")
+        if model > 1 and cfg.TPU.INT8_SERVING:
+            raise NotImplementedError(
+                f"{axes} with TPU.INT8_SERVING: the W8A8 activation scale is "
+                "a max over the whole input row, which a row split would need "
+                "reduced (ROADMAP.md section 1 item 8)")
+        if cfg.MF.TEMPORAL_RESOLUTION % seq:
+            raise ValueError(
+                f"TPU.MESH.SEQ {seq} does not divide MF.TEMPORAL_RESOLUTION "
+                f"{cfg.MF.TEMPORAL_RESOLUTION}: the port splits the tokens by "
+                "frames")
 
 
 def local_processes(cfg, device="cuda") -> int:
@@ -98,7 +171,41 @@ def init_distributed(cfg, local_rank: int, init_method: str,
     dist.init_process_group(backend=cfg.DIST_BACKEND, init_method=init_method,
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(minutes=30))
+    set_axes(cfg)
     return device
+
+
+def set_axes(cfg) -> None:
+    """This job's seq and model axes from ``cfg`` (checked by
+    ``check_mesh`` against the world), and the process groups of every
+    data, seq and model line and every data x seq plane: every rank makes
+    every group, in the same order."""
+    global _AXES
+    check_mesh(cfg)
+    _, seq, model, _ = mesh_axes(cfg)
+    _AXES = (seq, model)
+    _GROUPS.clear()
+    if seq * model == 1:
+        return
+    world = dist.get_world_size()
+    data = world // (seq * model)
+    me = dist.get_rank()
+
+    def make(name, members):
+        for ranks in members:
+            g = dist.new_group(ranks)
+            if me in ranks:
+                _GROUPS[name] = g
+
+    grid = [[[(d * seq + s) * model + m for m in range(model)]
+             for s in range(seq)] for d in range(data)]
+    make("data", [[grid[d][s][m] for d in range(data)]
+                  for s in range(seq) for m in range(model)])
+    make("seq", [[grid[d][s][m] for s in range(seq)]
+                 for d in range(data) for m in range(model)])
+    make("model", [grid[d][s] for d in range(data) for s in range(seq)])
+    make("data_seq", [[grid[d][s][m] for d in range(data) for s in range(seq)]
+                      for m in range(model)])
 
 
 def is_distributed() -> bool:
@@ -114,20 +221,58 @@ def rank() -> int:
     return dist.get_rank() if is_distributed() else 0
 
 
+def seq_size() -> int:
+    return _AXES[0]
+
+
+def model_size() -> int:
+    return _AXES[1]
+
+
+def data_size() -> int:
+    """Processes on the data axis: the world over SEQ x MODEL."""
+    return world_size() // (_AXES[0] * _AXES[1])
+
+
+def data_rank() -> int:
+    return rank() // (_AXES[0] * _AXES[1])
+
+
+def seq_rank() -> int:
+    return rank() // _AXES[1] % _AXES[0]
+
+
+def model_rank() -> int:
+    return rank() % _AXES[1]
+
+
+def group(axis: str):
+    """The process group of this rank's ``axis`` line ("data", "seq",
+    "model") or plane ("data_seq"): None (the world) for the data line and
+    plane without a seq or model axis."""
+    return _GROUPS.get(axis)
+
+
 def batch_rows(rows: int):
     """(first, rows, total) of this process's ``rows`` of a global batch
-    that every process shares evenly (``models/common.sharded_draws``)."""
-    return rank() * rows, rows, world_size() * rows
+    that every data rank shares evenly (``models/common.sharded_draws``);
+    the seq and model ranks of a data line hold the same rows."""
+    return data_rank() * rows, rows, data_size() * rows
 
 
 def _nccl() -> bool:
     return dist.get_backend() == "nccl"
 
 
-def all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the processes, in place."""
+def _size(group=None) -> int:
+    return dist.get_world_size(group)
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the processes of ``group`` (default: the world),
+    in place."""
     if is_distributed():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
 
 
@@ -137,83 +282,89 @@ class _AllReduceSum(torch.autograd.Function):
     (each process's loss term reaches every input of the sum)."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, group):
+        ctx.group = group
         out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out)
-        return out
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the processes, out of place and differentiable
-    (BatchNorm's statistics); ``t`` itself without a process group."""
-    return _AllReduceSum.apply(t) if is_distributed() else t
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over the processes of ``group``, out of place and
+    differentiable (BatchNorm's statistics); ``t`` itself without a process
+    group."""
+    return _AllReduceSum.apply(t, group) if is_distributed() else t
 
 
-def all_reduce_mean_(tensors) -> None:
-    """Each of ``tensors`` replaced by its mean over the processes, in one
-    collective over their flat concatenation (by dtype)."""
+def all_reduce_mean_(tensors, group=None, divide=None) -> None:
+    """Each of ``tensors`` replaced by its sum over the processes of
+    ``group`` (default: the world) over ``divide`` (default: their
+    number), in one collective over their flat concatenation (by dtype)."""
     if not is_distributed():
         return
-    w = dist.get_world_size()
+    w = _size(group) if divide is None else divide
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        dist.all_reduce(flat, group=group)
         flat.div_(w)
         offset = 0
-        for t in group:
+        for t in ts:
             n = t.numel()
             t.copy_(flat[offset:offset + n].view_as(t))
             offset += n
 
 
-def all_gather_tiled(t: torch.Tensor) -> torch.Tensor:
-    """The processes' ``t`` [n, ...] stacked process-major into
-    [W n, ...] (every process passes the same shape); ``t`` itself without
-    a process group."""
+def all_gather_tiled(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The processes' ``t`` [n, ...] of ``group`` (default: the world)
+    stacked in their order into [W n, ...] (every process passes the same
+    shape); ``t`` itself without a process group."""
     if not is_distributed():
         return t
-    w, r = dist.get_world_size(), dist.get_rank()
+    w, r = _size(group), dist.get_rank(group)
     src = t.contiguous()
     if src.dtype == torch.bool:
-        return all_gather_tiled(src.to(torch.uint8)).bool()
+        return all_gather_tiled(src.to(torch.uint8), group).bool()
     if _nccl():
         out = torch.empty((w * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
-        dist.all_gather_into_tensor(out, src)
+        dist.all_gather_into_tensor(out, src, group=group)
         return out
     out = torch.zeros((w,) + tuple(src.shape), dtype=src.dtype,
                       device=src.device)
     out[r] = src
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out.reshape((w * src.shape[0],) + tuple(src.shape[1:]))
 
 
 def from_mirror(t: torch.Tensor) -> torch.Tensor:
-    """Process W - 1 - r's ``t`` on process r (every process passes the
-    same shape); ``t`` itself without a process group and on the middle
-    process of an odd world. A send to and a receive from that process
-    alone, except for gloo's CUDA tensors, which take all-reduce alone:
-    there its rows of ``all_gather_tiled``."""
+    """Data rank D - 1 - d's ``t`` on data rank d (the same seq and model
+    ranks; every process passes the same shape); ``t`` itself without a
+    process group and on the middle rank of an odd data axis. A send to
+    and a receive from that process alone, except for gloo's CUDA tensors,
+    which take all-reduce alone: there its rows of ``all_gather_tiled``
+    over the data line."""
     if not is_distributed():
         return t
-    w, r = dist.get_world_size(), dist.get_rank()
+    g = group("data")
+    w, r = _size(g), dist.get_rank(g)
     peer = w - 1 - r
     if peer == r:
         return t
     src = t.contiguous()
     if src.device.type == "cuda" and not _nccl():
         n = src.shape[0]
-        return all_gather_tiled(src)[peer * n:(peer + 1) * n]
+        return all_gather_tiled(src, g)[peer * n:(peer + 1) * n]
     out = torch.empty_like(src)
+    peer = peer if g is None else dist.get_global_rank(g, peer)
     for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, src, peer),
                                        dist.P2POp(dist.irecv, out, peer)]):
         req.wait()
@@ -239,5 +390,8 @@ def barrier() -> None:
 
 def destroy() -> None:
     """Leave the process group, if any."""
+    global _AXES
+    _AXES = (1, 1)
+    _GROUPS.clear()
     if is_distributed():
         dist.destroy_process_group()

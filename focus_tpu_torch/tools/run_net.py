@@ -41,10 +41,18 @@ def launch_job(cfg, init_method, func, device="cuda"):
     launcher): one process in all (``NUM_GPUS`` and ``NUM_SHARDS`` 1, or a
     host with one card) calls it here and returns what it returns; more
     are spawned with ``torch.multiprocessing``, one a card, each joining
-    the process group first, and return None. A ``TPU.MESH`` axis the
-    port does not run is refused before any process starts."""
-    mesh.check_mesh(cfg)
+    the process group first, and return None. The world is the processes
+    of every host: ``TPU.MESH.SEQ x MODEL`` ranks a data line, the data
+    axis the rest (``DATA -1`` absorbs it, as in the JAX package). A
+    process already in a process group calls ``func`` itself. A
+    ``TPU.MESH`` layout that the JAX package or the port refuses
+    (``parallel/mesh.check_mesh``) raises before any process starts."""
+    if mesh.is_distributed():
+        mesh.check_mesh(cfg)
+        return func(cfg, device=device)
+    mesh.check_axes(cfg)  # before local_processes' warning
     procs = mesh.local_processes(cfg, device)
+    mesh.check_mesh(cfg, world=procs * max(int(cfg.NUM_SHARDS), 1))
     if procs * max(int(cfg.NUM_SHARDS), 1) == 1:
         return func(cfg, device=device)
     torch.multiprocessing.spawn(

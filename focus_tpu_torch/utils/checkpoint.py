@@ -21,6 +21,13 @@ reader keeps the JAX importer's rules on them:
 The JAX package's own checkpoints (a flax msgpack state) and Caffe2
 checkpoints are not read: each raises, naming its format.
 
+Under a model axis or ``TPU.ZERO1`` every process gathers the shards and
+the optimizer's chunks first (``parallel/tensor.full_state_dict``,
+``Optimizer.state_dict``), so a checkpoint keeps the bridge's full names
+and shapes and the one-process optimizer's state: one written on any mesh
+loads on any other, or in one process, and a sharded model loads a full
+one by taking its shards.
+
 The train loop's checkpoint is the same ``.pyth`` with the reference's
 ``optimizer_state`` (the ``torch.optim`` state dict: AdamW's moments) and
 the port's ``step`` and ``generator_state`` beside ``model_state``, so the
@@ -47,6 +54,7 @@ from typing import Dict, Optional
 
 import torch
 
+from focus_tpu_torch.parallel import tensor as tp
 from focus_tpu_torch.utils import logging
 
 logger = logging.get_logger(__name__)
@@ -133,7 +141,17 @@ def save_checkpoint(path_to_job: str, state, epoch: int, cfg,
     writes, through a ``.tmp`` file renamed into place; the copy to host
     memory is made before this returns. With ``async_write`` (default
     ``TPU.ASYNC_CHECKPOINT``) the file is written on a writer thread
-    chained behind the earlier ones. Returns the path."""
+    chained behind the earlier ones. A sharded state (model axis,
+    ``TPU.ZERO1``) is gathered first, by every process. Returns the
+    path."""
+    model = getattr(state, "model", state)
+    sharded = bool(tp.specs(model)) or (
+        model is not state and state.optimizer.sharded)
+    if not logging.is_master_process() and not sharded:
+        return None
+    model_state = tp.full_state_dict(model)
+    optimizer_state = (state.optimizer.state_dict() if model is not state
+                       else None)
     if not logging.is_master_process():
         return None
     if async_write is None:
@@ -144,16 +162,14 @@ def save_checkpoint(path_to_job: str, state, epoch: int, cfg,
         path = os.path.join(d, name + fmt)
     else:
         path = get_path_to_checkpoint(path_to_job, epoch, fmt)
-    model = getattr(state, "model", state)
     payload = {
-        "model_state": _host_copy(model.state_dict()),
+        "model_state": _host_copy(model_state),
         "epoch": epoch,
         "cfg": cfg.dump() if hasattr(cfg, "dump") else None,
     }
     if model is not state:
         payload.update({
-            "optimizer_state": _host_copy(
-                state.optimizer.optimizer.state_dict()),
+            "optimizer_state": _host_copy(optimizer_state),
             "step": int(state.step),
             "generator_state": state.generator.get_state(),
         })
@@ -301,6 +317,8 @@ def import_state_dict(sd, model: torch.nn.Module, split_qkv: bool = False,
     for name, target in model_sd.items():
         if name in sd:
             src = sd[name]
+            if tuple(src.shape) != tuple(target.shape):  # a full leaf
+                src = tp.local_tensor(model, name, src)
             if tuple(src.shape) == tuple(target.shape):
                 target.copy_(src)
                 loaded.append(name)
@@ -388,8 +406,8 @@ def restore_train_state(payload, state) -> int:
     """Load a train-state payload into ``state``: the weights (every name,
     strictly), the optimizer's state, the step and the generator's state.
     Returns the checkpoint's epoch."""
-    state.model.load_state_dict(payload["model_state"])
-    state.optimizer.optimizer.load_state_dict(payload["optimizer_state"])
+    tp.load_full_state_dict(state.model, payload["model_state"])
+    state.optimizer.load_state_dict(payload["optimizer_state"])
     state.step = int(payload["step"])
     state.generator.set_state(payload["generator_state"])
     return int(payload["epoch"])

@@ -190,11 +190,15 @@ def reference_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
 def load_jax_params(model: torch.nn.Module, params, batch_stats=None,
                     under: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
     """Load JAX params (and BatchNorm ``batch_stats``) into ``model``;
-    missing, unexpected or mis-shaped keys raise. Returns the converted
-    state_dict."""
-    sd = jax_params_to_state_dict(params, under)
+    missing, unexpected or mis-shaped keys raise. A model sharded over the
+    model axis (``parallel/tensor.shard_model``) takes this rank's shard of
+    each split leaf. Returns the converted (full) state_dict."""
+    from focus_tpu_torch.parallel import tensor
+
+    full = jax_params_to_state_dict(params, under)
     if batch_stats is not None:
-        sd.update(jax_params_to_state_dict(batch_stats, under))
+        full.update(jax_params_to_state_dict(batch_stats, under))
+    sd = {k: tensor.local_tensor(model, k, v) for k, v in full.items()}
     want = model.state_dict()
     for k, v in want.items():  # torch's own BatchNorm step counter
         if k.endswith("num_batches_tracked"):
@@ -208,7 +212,7 @@ def load_jax_params(model: torch.nn.Module, params, batch_stats=None,
     if bad:
         raise ValueError(f"shape mismatches: {bad}")
     model.load_state_dict(sd, strict=True)
-    return sd
+    return full
 
 
 def _adam_states(tree):

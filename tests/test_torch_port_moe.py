@@ -366,11 +366,13 @@ def test_three_moe_train_steps_match_jax(tiny_moe, accum):
 @pytest.mark.parametrize("yaml", ["SSv2_MF_224_16x4_pp_moe.yaml",
                                   "SSv2_ORViT-MF_224_16x4_dp_sp_tp.yaml"])
 def test_mesh_axes_raise_before_anything_is_built(yaml, tmp_path):
-    """Both configs/TPU yamls as shipped (PIPE 2 and EXPERT 2; SEQ 2 and
-    MODEL 2) raise NotImplementedError naming the axes and ROADMAP.md from
-    the model builder, the train step and the test path, on the CPU,
-    before any module or loader exists; with every axis set to 1 the MoE
-    yaml's tiny model builds."""
+    """Both configs/TPU yamls as shipped raise from the model builder, the
+    train step and the test path, on the CPU, before any module or loader
+    exists: the MoE yaml (PIPE 2 and EXPERT 2) NotImplementedError naming
+    the axes and ROADMAP.md; the dp x sp x tp yaml (SEQ 2 and MODEL 2), on
+    one process, the JAX package's refusal of a world that SEQ x MODEL
+    does not divide (ValueError). With every axis set to 1 the MoE yaml's
+    tiny model builds."""
     from focus_tpu_torch.engine import tester
     from focus_tpu_torch.engine.trainer import (
         make_supervised_train_step,
@@ -389,8 +391,13 @@ def test_mesh_axes_raise_before_anything_is_built(yaml, tmp_path):
                                                     get_loss_func(cfg)),
                  lambda: run_train(cfg, device="cpu"),
                  lambda: tester.run_test(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=f"TPU.MESH.{axes[0]} 2.*ROADMAP.md"):
+        if "moe" in yaml:
+            error, match = NotImplementedError, \
+                f"TPU.MESH.{axes[0]} 2.*ROADMAP.md"
+        else:
+            error, match = ValueError, \
+                "1 devices not divisible by model axis 2 x seq axis 2"
+        with pytest.raises(error, match=match):
             call()
     assert not os.listdir(tmp_path)
     if "moe" in yaml:

@@ -294,6 +294,17 @@ def run_both(cfg, tmp_path, monkeypatch):
     run = trainer.run_train(cfg, device="cpu")
     rec = {"losses": [], "val": []}
     _recording_jax_meters(monkeypatch, rec)
+
+    def template(model, cfg_, sample, rng=None, **kwargs):
+        """The variables' shapes, zero, without the init's compile: the
+        ``.pyth`` loads every tensor over them."""
+        keys = {"params": jax.random.PRNGKey(0),
+                "dropout": jax.random.PRNGKey(1)}
+        shapes = jax.eval_shape(lambda: model.init(keys, *sample, **kwargs))
+        return jax.tree_util.tree_map(lambda v: jnp.zeros(v.shape, v.dtype),
+                                      shapes)
+
+    monkeypatch.setattr(jtrainer, "init_model", template)
     jcfg = jax_cfg_like(cfg)
     jcfg.OUTPUT_DIR = str(tmp_path / "jax")
     state = jtrainer.train(jcfg)
@@ -729,16 +740,18 @@ def test_cli_trains_then_tests(tmp_path):
 @pytest.mark.parametrize("opts,error,match", [
     (["TRAIN.METHOD", "slots"], ValueError, "slot model"),
     (["TRAIN.DATASET", "epickitchens"], ValueError, "EK_loss"),
-    (["TPU.REMAT", "True"], NotImplementedError, "REMAT"),
+    (["TPU.MESH.SEQ", "4"], ValueError, "does not divide MF.TEMPORAL"),
     (["LOG_MODEL_INFO", "True"], NotImplementedError, "LOG_MODEL_INFO"),
-    (["TPU.ZERO1", "True"], NotImplementedError, "ZERO1"),
+    (["TPU.MESH.MODEL", "2"], ValueError, "not divisible by model axis 2"),
 ])
 def test_cli_refuses_what_the_port_does_not_train(tmp_path, opts, error,
                                                   match):
     """Raised before anything is built: slot-model training of a model
     that is not STEVE, EPIC-Kitchens under a loss other than EK_loss (the
     EK yaml's label_smoothing_cross_entropy fails in JAX on the dict
-    labels), and the options not yet ported."""
+    labels), the options not yet ported, a seq axis that does not divide
+    the frames and a model axis that one process cannot hold (the JAX
+    package's divisibility refusal)."""
     from focus_tpu_torch.tools import run_net
 
     args = ["--device", "cpu", "--cfg", MF_YAML, "OUTPUT_DIR", str(tmp_path)]
