@@ -182,12 +182,25 @@ Phases (one JSON line each; any failure exits non-zero):
      one process (reads substituted as in phase 18, cut to 7 epochs) through
      every long-cycle shape and short-cycle phase: the LR of every step
      against the rewritten schedule, a line per shape.
-Then the kernel table, the card's nvidia-smi line, and the result line.
+ 22. tensor and sequence parallelism (``phase_mesh``): kernels 1 and 7
+     over windows of query frames, remat, the dp x sp x tp yaml as 8 gloo
+     ranks, HR-336 under SEQ 2.
+ 23. pipeline and expert parallelism (``phase_pipe_expert``): the pp_moe
+     yaml as 8 gloo ranks (DATA 2 x PIPE 2 x EXPERT 2) through
+     ``tools.run_net`` against the one-process pipelined model that plays
+     both data ranks (losses and moe_aux 1e-3, the update 5e-2, ensembles
+     1e-3, every clip once, the checkpoint bit for bit, each rank's bytes
+     and launches), the flagship under PIPE 2 on two ranks, and the
+     pipelined eval against the plain one (1e-3).
+Every phase line carries ``wall_seconds``, the seconds since the previous
+phase line. Then the kernel table, the card's nvidia-smi line, and the
+result line.
 The script imports nothing of JAX.
 """
 
 import contextlib
 import functools
+import hashlib
 import json
 import math
 import os
@@ -264,7 +277,17 @@ TRAIN_PARAM_REL_L2 = 1e-3
 BF16_SLACK = 1.25
 
 
+# the host clock at the last phase line
+_PHASE_CLOCK = [time.perf_counter()]
+
+
 def emit(obj):
+    """Print ``obj`` as one JSON line; a phase's line carries its wall
+    seconds, since the previous phase line (``wall_seconds``)."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = {**obj, "wall_seconds": now - _PHASE_CLOCK[0]}
+        _PHASE_CLOCK[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -6491,8 +6514,10 @@ def moe_loops():
 
 def moe_mesh_refusal():
     """(e) The yaml as shipped (TPU.MESH.PIPE 2, EXPERT 2) through
-    ``tools.run_net`` on the card: NotImplementedError naming the axes
-    before any model, loader or launch."""
+    ``tools.run_net`` on the one card: the JAX package's refusal of a
+    world that the axes do not divide (ValueError naming them; phase 23
+    runs the yaml's mesh as 8 ranks) before any model, loader or
+    launch."""
     from focus_tpu_torch.tools import run_net
 
     torch.cuda.synchronize()
@@ -6503,7 +6528,7 @@ def moe_mesh_refusal():
                       os.path.join(REPO, MOE_YAML_REL), "TRAIN.METHOD", "sup",
                       "TEST.EVAL_TASK", "ar", "OUTPUT_DIR", MOE_ENGINE_DIR])
         refusal = "no error"
-    except NotImplementedError as e:
+    except ValueError as e:
         refusal = str(e)
     launches = train_counts()
     return {"refusal": refusal, "launches": launches,
@@ -8043,6 +8068,606 @@ def phase_mesh(smi, per_call):
             "hr_seq_rank0": result["hr336_seq2"]["launches_per_rank"][0]}
 
 
+# ---- phase 23: pipeline and expert parallelism -------------------------------
+
+PP_DIR = os.path.join(REPO, "build", "pp_engine")
+PP_LOG = os.path.join(REPO, "build", "pp_engine.log")
+PP_YAML = os.path.join(REPO, "configs", "TPU", "SSv2_MF_224_16x4_pp_moe.yaml")
+PP_RANKS = 8  # DATA 2 x PIPE 2 x EXPERT 2, gloo, every rank on cuda:0
+PP_DATA = 2  # the data ranks the one-process reference plays
+PP_BATCH = 8  # global train and test batch (the yaml's 48 and 64 cut so
+# one card holds 8 ranks)
+PP_STEPS = 3
+PP_VAL = 8  # val clips: one global batch
+PP_TEST_VIDEOS = 2  # x 3 crops: 6 clips, one batch with 2 pad rows
+PP_FLAGSHIP_STEPS = 2
+PP_EVAL_ATOL = 1e-3
+
+
+def pp_splits():
+    def make(cfg, mode):
+        if mode == "test":
+            return PPTestClips(cfg, mode)
+        return TrainClips(cfg, mode, PP_BATCH * PP_STEPS
+                          if mode == "train" else PP_VAL, False)
+
+    return {"Chip_pp_ssv2": make}
+
+
+class PPTestClips(TestClips):
+    VIDEOS = PP_TEST_VIDEOS
+    EK = False
+
+
+def pp_cfg(out_dir, ranks=PP_RANKS):
+    """The pp_moe yaml as shipped (DATA -1 x PIPE 2 x EXPERT 2, 4
+    microbatches, 4 Switch experts, drop path 0.2), cut to global batch
+    PP_BATCH and PP_STEPS steps of one epoch, one validation and the test
+    of PP_TEST_VIDEOS x 3 crops, in the in-script splits, on ``ranks`` gloo
+    processes (1: the one-process pipelined model, every stage and
+    expert)."""
+    from focus_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(PP_YAML)
+    cfg.TRAIN.DATASET = cfg.TEST.DATASET = "chip_pp_ssv2"
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = PP_BATCH
+    cfg.TRAIN.CHECKPOINT_FILE_PATH = ""
+    cfg.TRAIN.AUTO_RESUME = False
+    cfg.TRAIN.EVAL_PERIOD = cfg.TRAIN.CHECKPOINT_PERIOD = 1
+    cfg.TRAIN.METHOD, cfg.TEST.EVAL_TASK = "sup", "ar"
+    cfg.SOLVER.MAX_EPOCH = 1
+    cfg.TENSORBOARD.ENABLE = False
+    cfg.DATA_LOADER.NUM_WORKERS = 2
+    cfg.LOG_PERIOD = 1
+    cfg.DIST_BACKEND = "gloo"
+    cfg.OUTPUT_DIR = out_dir
+    cfg.NUM_GPUS = ranks
+    return cfg
+
+
+@contextlib.contextmanager
+def recorded_pipe():
+    """Each train step's stats on the host, and the host seconds (between
+    synchronisations of the card) of the pipeline's hand-offs
+    (``parallel/pipeline._exchange`` and ``_broadcast``) and of the expert
+    gathers and copy-ins (``parallel/tensor._all_gather`` / ``_all_reduce``,
+    which nothing else calls without a model axis) within each step; yields
+    {"stats": [...], "handoff_s": [...], "expert_s": [...]}."""
+    from focus_tpu_torch.engine import trainer
+    from focus_tpu_torch.parallel import pipeline
+    from focus_tpu_torch.parallel import tensor as tp
+
+    saved = {(pipeline, "_exchange"): pipeline._exchange,
+             (pipeline, "_broadcast"): pipeline._broadcast,
+             (tp, "_all_gather"): tp._all_gather,
+             (tp, "_all_reduce"): tp._all_reduce,
+             (trainer, "make_supervised_train_step"):
+                 trainer.make_supervised_train_step}
+    out = {"stats": [], "handoff_s": [], "expert_s": []}
+    acc = {"handoff": 0.0, "expert": 0.0}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            acc[key] += time.perf_counter() - t0
+            return result
+
+        return run
+
+    def make(*args):
+        step = saved[(trainer, "make_supervised_train_step")](*args)
+
+        def run(*a, **k):
+            acc["handoff"] = acc["expert"] = 0.0
+            state, stats = step(*a, **k)
+            out["stats"].append({k: float(v) for k, v in stats.items()})
+            out["handoff_s"].append(acc["handoff"])
+            out["expert_s"].append(acc["expert"])
+            return state, stats
+
+        return run
+
+    pipeline._exchange = timed(saved[(pipeline, "_exchange")], "handoff")
+    pipeline._broadcast = timed(saved[(pipeline, "_broadcast")], "handoff")
+    tp._all_gather = timed(saved[(tp, "_all_gather")], "expert")
+    tp._all_reduce = timed(saved[(tp, "_all_reduce")], "expert")
+    trainer.make_supervised_train_step = make
+    try:
+        yield out
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def pp_loop(cfg, virtual=1):
+    """The yaml's train loop and test, each ``counted``: through
+    ``tools.run_net.launch_job`` on a process of the group, or, in one
+    process, ``trainer.train`` and ``tester.test`` called directly under
+    ``mesh.single_process_mesh(virtual)`` (``run_net`` keeps the JAX
+    package's refusal of a world the axes do not divide). Returns the runs' results,
+    the full parameters before and after (rank 0 and one process; every
+    rank their digests), this rank's bytes, the steps' stats and times."""
+    from focus_tpu_torch.engine import tester, trainer
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.parallel import mesh, tensor
+    from focus_tpu_torch.tools import run_net
+
+    one = not mesh.is_distributed()
+
+    def whole():
+        return (mesh.single_process_mesh(virtual) if one
+                else contextlib.nullcontext())
+
+    keep = mesh.rank() == 0  # the host copies rank 0 returns (memory)
+    with whole():
+        full = tensor.full_state_dict(build_model(cfg, DEV))
+        init = ({k: v.float().cpu().clone() for k, v in full.items()}
+                if keep else None)
+        del full
+    torch.cuda.empty_cache()
+    runs = {"train": [], "test": []}
+    with registered_splits(pp_splits()), epoch_seeded_splits(), \
+            captured_engine(runs), timed_steps() as times, \
+            recorded_pipe() as pipe, whole():
+        if one:
+            trainer.train(cfg, DEV)
+            tester.test(cfg, DEV)
+        else:
+            run_net.launch_job(cfg, None, trainer.train, DEV)
+            run_net.launch_job(cfg, None, tester.test, DEV)
+    (run, launches, peak), = runs["train"]
+    (test_run, test_launches, test_peak), = runs["test"]
+    meter = test_run.meter
+    params, digest = {}, {}
+    for k, v in tensor.full_state_dict(run.state.model).items():
+        v = v.float().cpu()
+        digest[k] = hashlib.sha1(v.numpy().tobytes()).hexdigest()
+        if keep:
+            params[k] = v
+    out = {"losses": run.losses, "val_clips": run.val_clips,
+           "steps": run.steps, "init": init,
+           "params": params if keep else None, "digest": digest,
+           "bytes": trainer.state_bytes(run.state),
+           "launches": launches, "test_launches": test_launches,
+           "peak_memory_gb": peak, "test_peak_memory_gb": test_peak,
+           "test_clips": test_run.clips,
+           "test_counted": int(meter.seen_clips.sum()),
+           "ensembles": torch.from_numpy(np.asarray(meter.video_preds)),
+           "step_ms": times["step"], "stats": pipe["stats"],
+           "handoff_ms": [1e3 * t for t in pipe["handoff_s"]],
+           "expert_ms": [1e3 * t for t in pipe["expert_s"]],
+           "rank": mesh.rank(),
+           "coords": (mesh.data_rank(), mesh.pipe_rank(),
+                      mesh.expert_rank())}
+    del run, test_run
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_flagship_cfg(ranks):
+    """The ORViT-MF flagship's train config under PIPE 2 and 4
+    microbatches (blocks 2-5 pipelined; the rest replicated), on ``ranks``
+    gloo processes."""
+    from focus_tpu_torch.entry import train_cfg
+
+    cfg = train_cfg()
+    cfg.TPU.MESH.PIPE = 2
+    cfg.TPU.MESH.PIPE_MICROBATCHES = 4
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = PP_BATCH
+    cfg.NUM_GPUS = ranks
+    cfg.DIST_BACKEND = "gloo"
+    return cfg
+
+
+def pp_flagship_steps(cfg):
+    """PP_FLAGSHIP_STEPS direct train steps of the flagship (its seeded
+    init, ``entry.example_inputs``' batch of PP_BATCH) on this rank, or in
+    one process the whole pipelined model: the losses, the full parameters
+    before and after, the launches and peak memory."""
+    from focus_tpu_torch.engine.trainer import (
+        build_supervised_state,
+        make_supervised_train_step,
+    )
+    from focus_tpu_torch.entry import example_inputs
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.models.losses import get_loss_func
+    from focus_tpu_torch.parallel import mesh, tensor
+
+    whole = (mesh.single_process_mesh() if not mesh.is_distributed()
+             else contextlib.nullcontext())
+    with whole:
+        model = build_model(cfg, DEV, seed=0)
+        state = build_supervised_state(cfg, model, 100)
+        step = make_supervised_train_step(model, cfg, get_loss_func(cfg))
+    init = {k: v.float().cpu().clone() for k, v in
+            tensor.full_state_dict(model).items()}
+    video, labels, boxes = example_inputs(cfg, PP_BATCH, 0, DEV, labels=True)
+    n = PP_BATCH // mesh.data_size()
+    rows = slice(mesh.data_rank() * n, (mesh.data_rank() + 1) * n)
+    model.train()
+
+    def run():
+        nonlocal state
+        losses = []
+        for _ in range(PP_FLAGSHIP_STEPS):
+            state, stats = step(state, video[rows], labels[rows],
+                                {"orvit_bboxes": boxes[rows]})
+            losses.append(float(stats["loss"]))
+        return losses
+
+    losses, launches, peak = counted(run)
+    out = {"losses": losses, "init": init, "launches": launches,
+           "peak_memory_gb": peak,
+           "params": {k: v.float().cpu() for k, v in
+                      tensor.full_state_dict(model).items()}}
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_rank(local_rank, world, init_method, out_dir, job):
+    """One rank of phase 23 on the one card (spawned, gloo on cuda:0):
+    ``job`` "yaml" runs ``pp_loop`` on the pp_moe yaml's mesh, "flagship"
+    the flagship's train steps under PIPE 2, "one" the yaml's one-process
+    reference (no process group, playing PP_DATA data ranks, with the
+    cuBLAS workspace the mesh's ranks fix, ``parallel/mesh.set_axes``);
+    results to ``<job>_rank<r>.pt``."""
+    from focus_tpu_torch.parallel import mesh
+
+    if job == "one":
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        with open(f"{PP_LOG}.one", "w") as log, \
+                contextlib.redirect_stdout(log):
+            result = pp_loop(pp_cfg(os.path.join(out_dir, "run"), ranks=1),
+                             PP_DATA)
+        torch.save(result, os.path.join(out_dir, "one_rank0.pt"))
+        return
+    cfg = (pp_cfg(os.path.join(out_dir, "run")) if job == "yaml"
+           else pp_flagship_cfg(world))
+    mesh.init_distributed(cfg, local_rank, init_method,
+                          "cuda:0" if DEV == "cuda" else DEV, world)
+    try:
+        with open(f"{PP_LOG}.{job}.rank{local_rank}", "w") as log, \
+                contextlib.redirect_stdout(log):
+            result = pp_loop(cfg) if job == "yaml" else pp_flagship_steps(cfg)
+        torch.save(result, os.path.join(out_dir, f"{job}_rank{local_rank}.pt"))
+    finally:
+        mesh.destroy()
+
+
+def pp_spawn(job, world):
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(PP_DIR, job)
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(pp_rank, nprocs=world,
+             args=(world, f"tcp://localhost:{_free_port()}", out_dir, job))
+    spawn_s = time.perf_counter() - t0
+    return out_dir, spawn_s, [torch.load(
+        os.path.join(out_dir, f"{job}_rank{r}.pt"), weights_only=False)
+        for r in range(world)]
+
+
+def pp_bytes(cfg, pipe, expert):
+    """(whole model's parameter bytes, what a rank of ``pipe`` stages and
+    ``expert`` expert shards holds: every replicated leaf, its stage's
+    blocks, its share of their experts)."""
+    import focus_tpu_torch.models.motionformer  # noqa: F401 (registration)
+    from focus_tpu_torch.models.build import MODEL_REGISTRY
+    from focus_tpu_torch.parallel import pipeline, tensor
+
+    with torch.device("meta"):
+        model = MODEL_REGISTRY[cfg.MODEL.MODEL_NAME](cfg)
+    segs = pipeline.segments(cfg)
+    whole = rank = 0
+    for name, p in model.named_parameters():
+        b = p.numel() * 4
+        whole += b
+        block = pipeline.block_of(name)
+        if block is not None and pipeline.stage_of(segs, pipe, block) \
+                not in (None, 0):
+            continue
+        if tensor.expert_dim(name, p.shape, expert) is not None:
+            b //= expert
+        rank += b
+    return whole, rank
+
+
+def pp_launch_expect(steps, val_batches, test_batches, per_call, layers,
+                     micro):
+    """The kernels a rank's loop launches: ``layers`` pipelined layers of
+    this rank run on each of ``micro`` microbatches a forward."""
+    per = layers * micro
+    return ({"trajectory_block": per * (steps + val_batches),
+             "trajectory_block_bwd": per * steps,
+             "trajectory_block_bwd_device": per * steps * per_call,
+             "patch_embed": steps + val_batches},
+            {"trajectory_block": per * test_batches,
+             "patch_embed": test_batches})
+
+
+def pp_yaml_run(per_call, problems):
+    """(a): the pp_moe yaml as PP_RANKS gloo ranks on cuda:0 against the
+    one-process pipelined model on the same batches, playing the PP_DATA
+    data ranks too: its microbatches hold a mesh rank's rows (1 clip, where
+    JAX's microbatch holds 2), so every GEMM has a rank's shape and the two
+    differ in the order of the float32 reductions alone (with JAX's
+    microbatches the weight gradients' bf16 partials differ by ~2.5e-3 and
+    AdamW's first steps turn that into a 0.109 update apart: PERF.md PR
+    26); the checkpoint the ranks write loaded in one process."""
+    from focus_tpu_torch.engine.trainer import build_supervised_state
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.parallel import mesh, pipeline
+    from focus_tpu_torch.utils import checkpoint as cu
+
+    out_dir, spawn_s, ranks = pp_spawn("yaml", PP_RANKS)
+    one_cfg = pp_cfg(os.path.join(PP_DIR, "one", "run"), ranks=1)
+    (one,) = pp_spawn("one", 1)[2]
+    r0 = ranks[0]
+    a = [x for e in r0["losses"] for x in e]
+    b = [x for e in one["losses"] for x in e]
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    aux_rel = [abs(x["moe_aux"] - y["moe_aux"]) / abs(y["moe_aux"])
+               for x, y in zip(r0["stats"], one["stats"])]
+    init = one["init"]
+    init_same = all(torch.equal(r0["init"][k], v) for k, v in init.items())
+    update = params_rel_l2({k: r0["params"][k] - init[k] for k in init},
+                           {k: one["params"][k] - init[k] for k in init})
+    by_param = sorted(
+        ((float((r0["params"][k] - one["params"][k]).norm()
+                / max(float((one["params"][k] - init[k]).norm()), 1e-30)), k)
+         for k in init), reverse=True)[:6]
+    ens = (r0["ensembles"] - one["ensembles"]).abs().max().item()
+    apart = sorted({k for r in ranks[1:] for k, h in r["digest"].items()
+                    if h != r0["digest"][k]})
+    same_ranks = not apart
+    same_aux = all(r["stats"] == r0["stats"] for r in ranks[1:])
+    path = cu.get_last_checkpoint(os.path.join(out_dir, "run"))
+    payload = cu.read_payload(path)
+    with mesh.single_process_mesh():
+        model = build_model(one_cfg, DEV)
+        state = build_supervised_state(one_cfg, model, PP_STEPS)
+    cu.restore_train_state(payload, state)
+    loaded = (all(torch.equal(v.cpu(), payload["model_state"][k])
+                  for k, v in model.state_dict().items())
+              and all(torch.equal(payload["model_state"][k].float(), v)
+                      for k, v in r0["params"].items()))
+    opt = state.optimizer.state_dict()["state"]
+    saved = payload["optimizer_state"]["state"]
+    loaded = loaded and sorted(opt) == sorted(saved) and all(
+        torch.equal(opt[i][k].cpu(), saved[i][k])
+        for i in saved for k in saved[i] if torch.is_tensor(saved[i][k]))
+    n_params = len(list(model.parameters()))
+    del model, state, payload
+    torch.cuda.empty_cache()
+    whole, held = pp_bytes(one_cfg, 2, 2)
+    bytes_ok = all(r["bytes"]["param_bytes"] == held and
+                   2 * held <= r["bytes"]["optimizer_bytes"]
+                   <= 2 * held + 4 * n_params for r in ranks)
+    stages, micro = 2, pipeline.microbatches(one_cfg)
+    layers = one_cfg.MF.DEPTH // stages
+    val_batches = -(-PP_VAL // PP_BATCH)
+    test_batches = -(-3 * PP_TEST_VIDEOS // PP_BATCH)
+    want, test_want = pp_launch_expect(PP_STEPS, val_batches, test_batches,
+                                       per_call, layers, micro)
+    one_want, one_test_want = pp_launch_expect(
+        PP_STEPS, val_batches, test_batches, per_call, 2 * layers,
+        micro * PP_DATA)
+    ok = (len(a) == len(b) == PP_STEPS and init_same
+          and max(loss_rel) <= MESH_LOSS_REL and max(aux_rel) <= MESH_LOSS_REL
+          and update <= MESH_UPDATE_REL and ens <= MESH_ENSEMBLE_ATOL
+          and same_ranks and same_aux and loaded and bytes_ok
+          and all(r["val_clips"] == PP_VAL for r in ranks)
+          and all(r["test_counted"] == r["test_clips"] == 3 * PP_TEST_VIDEOS
+                  for r in ranks)
+          and all(launches_match(r["launches"], want)
+                  and launches_match(r["test_launches"], test_want)
+                  for r in ranks)
+          and launches_match(one["launches"], one_want)
+          and launches_match(one["test_launches"], one_test_want))
+    if not ok:
+        problems.append(
+            f"pp_moe yaml: losses {a} vs {b}, moe_aux "
+            f"{[s['moe_aux'] for s in r0['stats']]} vs "
+            f"{[s['moe_aux'] for s in one['stats']]}, init equal {init_same}, "
+            f"update {update:.3e} (largest by parameter {by_param}), "
+            f"ensembles {ens:.3e}, ranks agree {same_ranks} {same_aux} "
+            f"(apart: {apart[:12]}), checkpoint loads {loaded}, bytes "
+            f"{[r['bytes'] for r in ranks]} (whole {whole}, a rank {held}), "
+            f"val {[r['val_clips'] for r in ranks]}, test "
+            f"{[(r['test_counted'], r['test_clips']) for r in ranks]}, "
+            f"launches {[r['launches'] for r in ranks]} / {one['launches']} "
+            f"(want {want} / {one_want})")
+    step = [_mean_after_first(r["step_ms"]) for r in ranks]
+    handoff = [_mean_after_first(r["handoff_ms"]) for r in ranks]
+    expert = [_mean_after_first(r["expert_ms"]) for r in ranks]
+    return {
+        "backend": "gloo", "world": PP_RANKS, "device": "cuda:0 (all)",
+        "mesh": "DATA 2 x PIPE 2 x EXPERT 2", "microbatches": micro,
+        "one_process_plays_data_ranks": PP_DATA,
+        "global_batch": PP_BATCH, "drop_path": one_cfg.MF.DROP_PATH,
+        "losses_mesh": a, "losses_one_process": b,
+        "moe_aux_mesh": [s["moe_aux"] for s in r0["stats"]],
+        "moe_aux_one_process": [s["moe_aux"] for s in one["stats"]],
+        "first_loss_rel_err": loss_rel[0], "max_loss_rel_err": max(loss_rel),
+        "max_moe_aux_rel_err": max(aux_rel),
+        "update_rel_l2": update, "update_rel_l2_largest_params": by_param,
+        "ensembles_max_abs_err": ens,
+        "ranks_bit_equal": same_ranks, "checkpoint_loads_bitwise": loaded,
+        "val_clips_counted": [r["val_clips"] for r in ranks],
+        "test_clips_counted": [r["test_counted"] for r in ranks],
+        "whole_param_bytes": whole, "rank_param_bytes_expected": held,
+        "rank_param_share": held / whole,
+        "per_rank": [{
+            "rank": r["rank"], "data_pipe_expert": r["coords"],
+            "peak_memory_gb": r["peak_memory_gb"],
+            "test_peak_memory_gb": r["test_peak_memory_gb"],
+            "param_bytes": r["bytes"]["param_bytes"],
+            "optimizer_bytes": r["bytes"]["optimizer_bytes"],
+            "launches_train_loop": r["launches"],
+            "launches_test": r["test_launches"],
+            "step_ms": s, "handoff_ms": h, "expert_gather_ms": e,
+            "handoff_share": h / s, "expert_gather_share": e / s}
+            for r, s, h, e in zip(ranks, step, handoff, expert)],
+        "one_process": {"peak_memory_gb": one["peak_memory_gb"],
+                        "param_bytes": one["bytes"]["param_bytes"],
+                        "optimizer_bytes": one["bytes"]["optimizer_bytes"],
+                        "step_ms": _mean_after_first(one["step_ms"]),
+                        "launches_train_loop": one["launches"]},
+        "step_ms_mesh_rank0": step[0],
+        "bubble_share": (stages - 1) / (micro + stages - 1),
+        "timing_note": "step ms between CUDA events (after the first step); "
+                       "the hand-offs' and expert gathers' host ms between "
+                       "synchronisations of the card within each step; the "
+                       "bubble share is the schedule's idle stage-ticks, "
+                       "(PIPE - 1) / (M + PIPE - 1); gloo through the host "
+                       "with 8 ranks on one card: no multi-card time",
+        "spawn_and_run_seconds": spawn_s,
+        "rule": f"first loss, losses and moe_aux within {MESH_LOSS_REL} "
+                f"relative, update within {MESH_UPDATE_REL}, ensembles within "
+                f"{MESH_ENSEMBLE_ATOL}, every val and test clip counted once "
+                "on every rank, the checkpoint loads in one process bit for "
+                "bit, a rank's parameter bytes its stage's blocks and half of "
+                "their experts with every replicated leaf, the moments two "
+                "of them and a step count a leaf, kernels 1 and 7 6 x 4 a "
+                "step on a rank (12 x 8 in one process, which plays both "
+                "data ranks' microbatches)"}
+
+
+def pp_flagship_run(per_call, problems):
+    """(b): the ORViT-MF flagship under PIPE 2 as two gloo ranks on cuda:0
+    against the one-process pipelined model, PP_FLAGSHIP_STEPS steps."""
+    from focus_tpu_torch.parallel import pipeline
+
+    _, spawn_s, ranks = pp_spawn("flagship", 2)
+    one_cfg = pp_flagship_cfg(1)
+    one = pp_flagship_steps(one_cfg)
+    segs = pipeline.segments(one_cfg)
+    r0 = ranks[0]
+    loss_rel = [abs(x - y) / abs(y) for x, y in zip(r0["losses"],
+                                                    one["losses"])]
+    init = one["init"]
+    update = params_rel_l2({k: r0["params"][k] - init[k] for k in init},
+                           {k: one["params"][k] - init[k] for k in init})
+    init_same = all(torch.equal(r0["init"][k], v) for k, v in init.items())
+    steps, micro = PP_FLAGSHIP_STEPS, pipeline.microbatches(one_cfg)
+    piped = sum(b - a for a, b in segs)
+    rest = one_cfg.MF.DEPTH - piped
+
+    def expect(layers):
+        per = rest + layers * micro
+        return {"trajectory_block": per * steps,
+                "trajectory_block_bwd": per * steps,
+                "trajectory_block_bwd_device": per * steps * per_call,
+                "patch_embed": steps}
+
+    ok = (segs == [(2, 6)] and init_same and max(loss_rel) <= MESH_LOSS_REL
+          and update <= MESH_UPDATE_REL
+          and all(launches_match(r["launches"], expect(piped // 2))
+                  for r in ranks)
+          and launches_match(one["launches"], expect(piped)))
+    if not ok:
+        problems.append(
+            f"flagship PIPE 2: segments {segs}, losses "
+            f"{[r['losses'] for r in ranks]} vs {one['losses']}, init equal "
+            f"{init_same}, update {update:.3e}, launches "
+            f"{[r['launches'] for r in ranks]} / {one['launches']}")
+    return {"ranks": 2, "mesh": "PIPE 2", "microbatches": micro,
+            "batch": PP_BATCH, "segments": segs,
+            "losses_mesh": r0["losses"], "losses_one_process": one["losses"],
+            "first_loss_rel_err": loss_rel[0],
+            "max_loss_rel_err": max(loss_rel), "update_rel_l2": update,
+            "launches_per_rank": [r["launches"] for r in ranks],
+            "launches_one_process": one["launches"],
+            "peak_memory_gb_per_rank": [r["peak_memory_gb"] for r in ranks],
+            "peak_memory_gb_one_process": one["peak_memory_gb"],
+            "spawn_and_run_seconds": spawn_s,
+            "rule": f"blocks 2-5 pipelined, losses within {MESH_LOSS_REL} "
+                    f"relative, update within {MESH_UPDATE_REL}, kernels 1 "
+                    "and 7 (8 replicated blocks + 2 stage blocks x 4 "
+                    "microbatches) a step on a rank"}
+
+
+def pp_eval_run(problems):
+    """(c): the one-process pipelined pp_moe model (PIPE 2, 4
+    microbatches) against the same weights at PIPE 1, eval at batch
+    PP_BATCH."""
+    from focus_tpu_torch.entry import example_inputs
+    from focus_tpu_torch.models.build import build_model
+    from focus_tpu_torch.parallel import mesh
+
+    cfg = pp_cfg(os.path.join(PP_DIR, "eval"), ranks=1)
+    plain = cfg.clone()
+    plain.TPU.MESH.PIPE = plain.TPU.MESH.EXPERT = 1
+    video, _ = example_inputs(cfg, PP_BATCH, 0, DEV)
+    out = {}
+    for name, c in (("pipelined", cfg), ("plain", plain)):
+        with mesh.single_process_mesh():
+            model = build_model(c, DEV, seed=0)
+        with torch.no_grad():
+            out[name] = counted(lambda: model(video).float().cpu())
+        del model
+        torch.cuda.empty_cache()
+    err = (out["pipelined"][0] - out["plain"][0]).abs().max().item()
+    depth = cfg.MF.DEPTH
+    want = {"pipelined": {"trajectory_block": depth * cfg.TPU.MESH.
+                          PIPE_MICROBATCHES, "patch_embed": 1},
+            "plain": {"trajectory_block": depth, "patch_embed": 1}}
+    ok = err <= PP_EVAL_ATOL and all(
+        launches_match(out[k][1], want[k]) for k in want)
+    if not ok:
+        problems.append(f"eval pipelined vs plain: probabilities {err:.3e}, "
+                        f"launches {out['pipelined'][1]} / {out['plain'][1]}")
+    return {"batch": PP_BATCH, "probs_max_abs_err": err,
+            "launches": {k: v[1] for k, v in out.items()},
+            "peak_memory_gb": {k: v[2] for k, v in out.items()},
+            "rule": f"probabilities within {PP_EVAL_ATOL}; 12 blocks x 4 "
+                    "microbatches kernel-1 launches pipelined, 12 plain"}
+
+
+def phase_pipe_expert(smi, per_call):
+    """Phase 23: (a) the pp_moe yaml's mesh on the card, (b) the ORViT-MF
+    flagship under PIPE 2, (c) the pipelined eval against the plain one.
+    Returns the launches of (a) and (b) on rank 0."""
+    from focus_tpu_torch.utils import logging as port_logging
+
+    shutil.rmtree(PP_DIR, ignore_errors=True)
+    os.makedirs(PP_DIR)
+    problems = []
+    result = {"phase": "pipe_expert", "gpu": smi}
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name], t0 = time.perf_counter() - t0, time.perf_counter()
+
+    try:
+        with open(PP_LOG, "w") as log, contextlib.redirect_stdout(log):
+            result["yaml_mesh"] = pp_yaml_run(per_call, problems)
+            lap("yaml_mesh")
+            port_logging.close_logging()
+            result["flagship_pipe2"] = pp_flagship_run(per_call, problems)
+            lap("flagship_pipe2")
+            result["eval_pipelined_vs_plain"] = pp_eval_run(problems)
+            lap("eval")
+    finally:
+        result["seconds"] = seconds
+        port_logging.close_logging()
+        shutil.rmtree(PP_DIR, ignore_errors=True)
+    result["ok"], result["problems"] = not problems, problems
+    emit(result)
+    if problems:
+        raise AssertionError("pipe / expert phase failed")
+    return {"yaml_rank0": result["yaml_mesh"]["per_rank"][0][
+                "launches_train_loop"],
+            "flagship_rank0": result["flagship_pipe2"]["launches_per_rank"][0]}
+
+
 def main():
     if not torch.cuda.is_available():
         emit({"ok": False, "error": "CUDA is not available"})
@@ -8182,6 +8807,7 @@ def main():
     phase_ava(smi)
     ddp = phase_ddp(smi, bwd["device_launches_per_call"])
     mesh_phase = phase_mesh(smi, bwd["device_launches_per_call"])
+    pp_phase = phase_pipe_expert(smi, bwd["device_launches_per_call"])
     for row, key in ((traj, "trajectory_block"), (patch, "patch_embed"),
                      (bwd, "trajectory_block_bwd")):
         if key != "trajectory_block_bwd":
@@ -8219,6 +8845,18 @@ def main():
             "and one validation, kernel 1 and 7 over its window of 4 query "
             "frames on all 12 heads), launches_hr336_seq2_rank0 in rank 0's "
             "HR-336 eval forward under SEQ 2 (phase 22 d)")
+    for row, key in ((traj, "trajectory_block"), (patch, "patch_embed"),
+                     (bwd, "trajectory_block_bwd")):
+        row["launches_pp_moe_rank0"] = pp_phase["yaml_rank0"][key]
+        row["launches_flagship_pipe2_rank0"] = pp_phase["flagship_rank0"][key]
+        row["launches_note"] += (
+            "; launches_pp_moe_rank0 over rank 0's train loop of the pp_moe "
+            f"yaml on the one card (phase 23 a: {PP_STEPS} steps of 4 "
+            "microbatches and one validation, kernels 1 and 7 on its stage's "
+            "6 blocks a microbatch), launches_flagship_pipe2_rank0 over rank "
+            f"0's {PP_FLAGSHIP_STEPS} flagship train steps under PIPE 2 "
+            "(phase 23 b: 8 replicated blocks and 2 stage blocks x 4 "
+            "microbatches a step)")
     windows = mesh_phase["windows"]
     traj["window"] = [{k: c[k] for k in (
         "case", "query_rows", "window_fwd_ms", "window_fwd_bound_ms",

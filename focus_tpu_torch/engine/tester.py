@@ -18,7 +18,10 @@ of every global batch, and before any meter update the outputs, labels,
 video indices and pad flags of every process are gathered, tiled
 process-major (``gathered_host``, JAX ``_to_host``): every process holds
 the same meter, every clip is counted once, and rank 0 writes the results
-file.
+file. The pipe, seq, model and expert ranks of a data line run the same
+clips, and the gathers run over the data line; under ``TPU.MESH.PIPE``
+the eval forward is the pipeline's forward schedule alone
+(``parallel/pipeline.py``).
 
 ``test`` returns the meter's stats, as the JAX package's does;
 ``run_test`` also returns the meter, the checkpoint report and the loop's

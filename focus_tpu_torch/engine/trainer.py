@@ -33,9 +33,11 @@ validation, where the JAX loop recomputes them. A multi-pathway batch
 same draws on every pathway) and the batch count.
 
 A MoE model (``TPU.MOE.NUM_EXPERTS > 1``) adds ``AUX_LOSS_WEIGHT`` times
-its load-balance value, the mean over its MoE layers (the JAX ``_moe_aux``
-with every weight 1), to the loss, one value a microbatch under
-GRAD_ACCUM, and reports it as ``moe_aux``. AVA detection
+its load-balance value (``models/moe.load_balance``: the JAX ``_moe_aux``,
+the mean over its MoE layers and, in a pipelined segment, over JAX's
+global microbatches, the sums over rows reduced over the data line), to
+the loss, one value a microbatch under GRAD_ACCUM, and reports it as
+``moe_aux``, the same on every rank. AVA detection
 (``DETECTION.ENABLE``) runs the model on the batch's boxes and takes the
 masked binary cross-entropy of the per-box probabilities
 (``detection_loss``), normalised by the whole batch's box count under
@@ -65,18 +67,19 @@ over, the loaders and meters are rebuilt, and the LR schedule continues
 from (epoch, step) under the new steps per epoch
 (``_rebuild_for_long_cycle``). The short cycle is the loader's.
 
-Sequence and tensor parallelism (``TPU.MESH.SEQ``, ``TPU.MESH.MODEL``),
-ZeRO-1 (``TPU.ZERO1``) and remat (``TPU.REMAT``) run on the Motionformer /
-ORViT-MF family (``parallel/mesh.py``, ``parallel/tensor.py``,
-``models/optimizer.py``, ``models/motionformer.py``): the seq and model
-ranks of a data line step on the same clips, the loss and errors are the
-data line's mean, and the step equals one process's over the global
-batch. Each rank logs its parameter and optimizer-state bytes.
+Sequence, tensor, pipeline and expert parallelism (``TPU.MESH.SEQ``,
+``MODEL``, ``PIPE``, ``EXPERT``), ZeRO-1 (``TPU.ZERO1``) and remat
+(``TPU.REMAT``) run on the Motionformer / ORViT-MF family
+(``parallel/mesh.py``, ``parallel/tensor.py``, ``parallel/pipeline.py``,
+``models/optimizer.py``, ``models/motionformer.py``, ``models/moe.py``):
+the pipe, seq, model and expert ranks of a data line step on the same
+clips, the loss and errors are the data line's mean, and the step equals
+one process's over the global batch (under PIPE, the one-process
+pipelined model's, ``mesh.single_process_mesh``). Each rank logs its
+parameter and optimizer-state bytes.
 
-Timm weights (``MODEL.LOAD_IN_PRETRAIN``), ``LOG_MODEL_INFO``, a MoE model
-on more than one process and what ``parallel/mesh.check_mesh`` refuses
-(a pipeline or expert axis, a seq or model axis elsewhere) are not ported
-and raise.
+Timm weights (``MODEL.LOAD_IN_PRETRAIN``), ``LOG_MODEL_INFO`` and what
+``parallel/mesh.check_mesh`` refuses are not ported and raise.
 """
 
 from __future__ import annotations
@@ -105,6 +108,7 @@ from focus_tpu_torch.models.build import (
 )
 from focus_tpu_torch.models.common import sharded_draws
 from focus_tpu_torch.models.losses import get_loss_func
+from focus_tpu_torch.models.moe import load_balance
 from focus_tpu_torch.ops.preprocess import device_normalize
 from focus_tpu_torch.parallel import mesh
 from focus_tpu_torch.parallel.train_state import TrainState
@@ -145,14 +149,6 @@ def _is_ek(cfg) -> bool:
 
 def _check_options(cfg):
     mesh.check_mesh(cfg)
-    unported = {
-        # the load-balance term is a product of global-batch means
-        "TPU.MOE on more than one process": (
-            int(cfg.TPU.MOE.NUM_EXPERTS or 0) > 1 and mesh.world_size() > 1),
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {missing}")
     if _is_ek(cfg) and cfg.MODEL.LOSS_FUNC != "EK_loss":
         raise ValueError(
             f"MODEL.LOSS_FUNC {cfg.MODEL.LOSS_FUNC} on EPIC-Kitchens: the "
@@ -408,7 +404,7 @@ def make_supervised_train_step(model, cfg, loss_fn):
             loss = loss_fn(logits, labels)
         stats = {}
         if moe_on:
-            aux = torch.stack(moe_aux).mean()
+            aux = load_balance(moe_aux)
             loss = loss + moe_w * aux
             stats["moe_aux"] = aux.detach()
         loss.backward()
@@ -735,8 +731,9 @@ def run_train(cfg, device="cuda") -> TrainRun:
             writer.close()
         raise SystemExit(0)
     profiler.stop()
-    logger.info(f"rank {mesh.rank()} (data {mesh.data_rank()}, seq "
-                f"{mesh.seq_rank()}, model {mesh.model_rank()}): "
+    logger.info(f"rank {mesh.rank()} (data {mesh.data_rank()}, pipe "
+                f"{mesh.pipe_rank()}, seq {mesh.seq_rank()}, model "
+                f"{mesh.model_rank()}, expert {mesh.expert_rank()}): "
                 f"{state_bytes(run.state)}")
     cu.wait_for_saves()  # land any async checkpoint writes before returning
     mesh.barrier()  # every process may read them next

@@ -192,9 +192,11 @@ def build_model(cfg, device="cuda", seed=None):
     """Construct the module named by ``cfg.MODEL.MODEL_NAME`` on ``device``
     (eval mode), initialised as the JAX package initialises it from a
     generator seeded with ``seed`` (default ``cfg.RNG_SEED``). Under a
-    seq or model axis (``parallel/mesh.py``) the whole model is
-    initialised, then cut to this rank's shards
-    (``parallel/tensor.shard_model``)."""
+    pipe, seq, model or expert axis of the process group
+    (``parallel/mesh.py``) the whole model is initialised, then cut to this
+    rank's shards and stages (``parallel/tensor.shard_model``); in one
+    process it stays whole, every stage and expert
+    (``mesh.single_process_mesh``)."""
     import focus_tpu_torch.models.motionformer  # noqa: F401 (registration)
     import focus_tpu_torch.models.mvit  # noqa: F401 (registration)
     import focus_tpu_torch.models.ptv_variants  # noqa: F401 (registration)
@@ -214,7 +216,8 @@ def build_model(cfg, device="cuda", seed=None):
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.RNG_SEED if seed is None else seed)
     init_weights(model, gen)
-    if mesh.seq_size() > 1 or mesh.model_size() > 1:
+    if max(mesh.pipe_size(), mesh.seq_size(), mesh.model_size(),
+           mesh.expert_size()) > 1:
         from focus_tpu_torch.parallel import tensor
 
         tensor.shard_model(model)

@@ -17,7 +17,8 @@ applies stochastic depth (``DropPath``) from an explicit
 ``TPU.MOE.NUM_EXPERTS > 1`` makes the MLP of every trajectory block a
 Switch-routed MoE (``models/moe.py``; ORViT blocks keep the dense MLP); a
 train-mode forward given a list as ``moe_aux`` appends each MoE layer's
-load-balance value to it, in block order.
+load-balance sums (``moe.LoadBalance``; a pipelined segment's layers one
+record) to it, in block order: ``moe.load_balance`` makes the term.
 
 Trajectory attention takes both of the reference's forms: the original
 code (the default; the fused trajectory core, whose kernel version the
@@ -45,6 +46,14 @@ of the patch tokens are gathered over the seq line (a reduce-scatter
 backward) and the core takes the rank's window of query frames
 (``ops/trajectory_block.py``, ``f0``). Every seq rank holds the CLS row;
 the loss gradient enters it on seq rank 0 alone (``seq_grad_gate``).
+Under ``TPU.MESH.PIPE`` the runs of trajectory blocks that the JAX
+package pipelines (``parallel/pipeline.segments``) run as stages over
+``PIPE_MICROBATCHES`` microbatches of the batch's rows (``_pipelined``):
+a pipe rank holds its stage's blocks, the other blocks run replicated, and
+in one process (no pipe axis) every stage runs in turn, the reference.
+Kernels 1 and 7 run inside each stage, where the JAX package takes its
+XLA attention path. Under ``TPU.MESH.EXPERT`` a MoE MLP runs its rank's
+experts (``models/moe.py``).
 Under ``TPU.REMAT`` the trajectory blocks that the JAX package stacks
 into a scan (a run of more than one between ORViT layers, under
 ``TPU.SCAN_LAYERS``) are recomputed in the backward
@@ -72,7 +81,7 @@ from torch import nn
 from focus_tpu_torch.models import common
 from focus_tpu_torch.models.build import register
 from focus_tpu_torch.models.common import layer_norm, linear, uniform
-from focus_tpu_torch.models.moe import MoEMlp
+from focus_tpu_torch.models.moe import LoadBalance, MoEMlp
 from focus_tpu_torch.ops import attention as attn_ops
 from focus_tpu_torch.ops.patch_embed import patch_embed_3d, patch_embed_reference
 from focus_tpu_torch.ops.quant import quantized_linear
@@ -81,6 +90,7 @@ from focus_tpu_torch.ops.trajectory_block import (
     fused_trajectory_core,
     trajectory_core_reference,
 )
+from focus_tpu_torch.parallel import mesh, pipeline
 from focus_tpu_torch.parallel import tensor as tp
 
 
@@ -96,17 +106,27 @@ def drop_path(x, drop_prob: float, generator=None):
     return x / keep * mask
 
 
+def drop_path_mask(rows: int, drop_prob: float, generator, device):
+    """The keep mask [rows, 1, 1] (float32, 0 or 1) that ``drop_path``
+    draws for a batch of ``rows`` rows."""
+    return torch.floor(1.0 - drop_prob
+                       + uniform((rows, 1, 1), generator, device))
+
+
 class DropPath(nn.Module):
     """``drop_path`` at a fixed rate in training; the identity in eval or at
-    rate 0."""
+    rate 0. ``mask`` (``drop_path_mask``'s rows for x) stands for the
+    draw."""
 
     def __init__(self, drop_prob: float = 0.0):
         super().__init__()
         self.drop_prob = float(drop_prob)
 
-    def forward(self, x, train: bool = False, generator=None):
+    def forward(self, x, train: bool = False, generator=None, mask=None):
         if not train or self.drop_prob == 0.0:
             return x
+        if mask is not None:
+            return x / (1.0 - self.drop_prob) * mask.to(x.dtype)
         return drop_path(x, self.drop_prob, generator)
 
 
@@ -420,17 +440,21 @@ class TrajectoryAttentionBlock(nn.Module):
                            int8_dense=int8_dense)
 
     def forward(self, x, metadata, thw, use_kernels=True, train=False,
-                generator=None, moe_aux=None):
+                generator=None, moe_aux=None, drop_masks=(None, None)):
+        """``moe_aux``, a list, receives a MoE MLP's ``moe.LoadBalance``;
+        ``drop_masks`` stand for the two drop-path draws
+        (``drop_path_mask``)."""
         y = self.attn(layer_norm(x, self.norm1), thw, use_kernels=use_kernels,
                       train=train)
-        x = x + self.drop_path(y, train, generator)
+        x = x + self.drop_path(y, train, generator, drop_masks[0])
         if self.moe:
-            y, aux = self.mlp(layer_norm(x, self.norm2), train, generator)
+            y, aux = self.mlp(layer_norm(x, self.norm2), train, generator,
+                              sums=True)
             if moe_aux is not None:
                 moe_aux.append(aux)
         else:
             y = self.mlp(layer_norm(x, self.norm2), train)
-        return x + self.drop_path(y, train, generator)
+        return x + self.drop_path(y, train, generator, drop_masks[1])
 
 
 class SelfAttention(nn.Module):
@@ -629,6 +653,11 @@ class Motionformer(nn.Module):
                 ))
         self.blocks = nn.ModuleList(blocks)
         self.remat_blocks = remat_blocks(c) if c.TPU.REMAT else frozenset()
+        # the pipelined runs of blocks (TPU.MESH.PIPE; parallel/pipeline.py)
+        self.segments = pipeline.segments(c)
+        self.stages = max(int(c.TPU.MESH.PIPE or 1), 1)
+        self.microbatches = pipeline.microbatches(c)
+        self.dpr = dpr
         self.norm = nn.LayerNorm(D, eps=1e-6)
         if c.MF.USE_MLP:
             self.pre_logits = nn.Sequential(OrderedDict(fc=nn.Linear(D, D)))
@@ -678,7 +707,15 @@ class Motionformer(nn.Module):
                          moe_aux=None):
         """x: [B, T, H, W, C] -> pooled feature [B, d]."""
         tokens, thw = self.tokenize(x)
-        for i, blk in enumerate(self.blocks):
+        ends = dict(self.segments)
+        i = 0
+        while i < len(self.blocks):
+            if i in ends:
+                tokens = self._pipelined(i, ends[i], tokens, thw, train,
+                                         generator, moe_aux)
+                i = ends[i]
+                continue
+            blk = self.blocks[i]
             extra = {"moe_aux": moe_aux} if getattr(blk, "moe", False) else {}
             kwargs = dict(use_kernels=self.use_kernels, train=train,
                           generator=generator, **extra)
@@ -686,10 +723,74 @@ class Motionformer(nn.Module):
                 tokens = recomputed(blk, tokens, metadata, thw, kwargs)
             else:
                 tokens = blk(tokens, metadata, thw, **kwargs)
+            i += 1
         feat = layer_norm(tokens, self.norm)[:, 0]
         if self.cfg.MF.USE_MLP:
             feat = torch.tanh(linear(feat, self.pre_logits.fc))
         return feat
+
+    def _pipelined(self, first, end, x, thw, train, generator, moe_aux):
+        """Blocks [first, end) as a pipelined segment
+        (``parallel/pipeline.py``) over M microbatches of this data rank's
+        rows (M times the data ranks a process plays alone,
+        ``mesh.virtual_data``): the drop-path masks of every layer drawn
+        first, in one process's order; each stage's blocks recomputed in
+        the backward under ``TPU.REMAT``; a MoE segment's load-balance sums
+        gathered over the pipe line into one ``LoadBalance`` [layers, K,
+        E], each local microbatch k in JAX microbatch (d M + k) // DATA
+        (JAX's microbatch j is rows [j B / M, (j + 1) B / M) of the global
+        batch)."""
+        stages, virtual = self.stages, mesh.virtual_data()
+        m = self.microbatches * virtual
+        B = x.shape[0]
+        data = mesh.data_size() * virtual
+        if B % m:
+            pipeline.check_rows(B * mesh.data_size(), data,
+                                self.microbatches)
+        masks = []
+        for i in range(first, end):
+            rate = self.dpr[i] if train else 0.0
+            masks.append([drop_path_mask(B, rate, generator, x.device)
+                          if rate > 0.0 else None for _ in range(2)])
+        per = (end - first) // stages
+        rows = B // m
+        remat = (train and bool(self.cfg.TPU.REMAT)
+                 and torch.is_grad_enabled())
+        moe = int(self.cfg.TPU.MOE.NUM_EXPERTS or 0) > 1
+        place = getattr(self, "pipe_place", None)
+        line = place["line"] if place else pipeline.Line()
+
+        def run(xk, k, stage):
+            sink = []
+            for i in range(first + stage * per, first + (stage + 1) * per):
+                mk = tuple(None if t is None else t[k * rows:(k + 1) * rows]
+                           for t in masks[i - first])
+                kwargs = dict(use_kernels=self.use_kernels, train=train,
+                              generator=generator, drop_masks=mk)
+                if moe:
+                    kwargs["moe_aux"] = sink
+                if remat:
+                    xk = recomputed(self.blocks[i], xk, {}, thw, kwargs)
+                else:
+                    xk = self.blocks[i](xk, {}, thw, **kwargs)
+            if not sink:
+                return pipeline.StageOut(xk)
+            return pipeline.StageOut(
+                xk, torch.cat([r.probs for r in sink]),
+                torch.cat([r.mask for r in sink]),
+                torch.cat([r.tokens for r in sink]))
+
+        y, probs, mask, tokens = pipeline.run_schedule(run, x, stages, m,
+                                                       line)
+        if probs is not None and moe_aux is not None:
+            if line.size > 1:  # every stage's layers, in layer order
+                probs = tp.gather(probs, 0, None, line.group)
+                mask = mesh.all_gather_tiled(mask, line.group)
+                tokens = mesh.all_gather_tiled(tokens, line.group)
+            groups = [(mesh.data_rank() * m + k) // data for k in range(m)]
+            moe_aux.append(LoadBalance(probs, mask, tokens,
+                                       (groups, self.microbatches)))
+        return y
 
     def forward(self, x, metadata=None, train: bool = False, generator=None,
                 moe_aux=None):

@@ -24,15 +24,20 @@ optimizer, with optax's semantics:
   the reduction runs over the data x seq plane (the seq ranks' partial
   sums added, the data ranks' averaged); a model rank keeps its shards'
   gradients, and a whole leaf's gradient is the same on every model rank.
-  The global-norm clip sums a split leaf's squares over the model line
-  and counts a whole leaf once;
+  Likewise a pipe rank's stage parameters and an expert rank's experts
+  are reduced over their data line alone, never over the pipe or expert
+  line, and a replicated leaf's gradient is the same on every pipe and
+  expert rank. The global-norm clip sums a split leaf's squares over the
+  model or expert line, a stage leaf's over the pipe line, and counts a
+  whole leaf once;
 - under ``TPU.ZERO1`` (``construct_optimizer``, more than one data rank)
   each data rank keeps the optimizer's state for a 1 / DATA chunk of each
   parameter group's flat concatenation (padded to a multiple of DATA),
   updates that chunk from the reduced gradient and all-gathers the new
   parameters over the data line: the update is elementwise, so any split
-  is the same step. ``state_dict`` / ``load_state_dict`` read and write
-  the one-process optimizer's state (every parameter's full moments) on
+  is the same step (each rank's own parameters: its shards and stage).
+  ``state_dict`` / ``load_state_dict`` read and write the one-process
+  optimizer's state (every parameter's full moments, every stage's) on
   any mesh.
 
 STEVE's (``construct_optimizer_slot``, reference optimizer.py:13-45 and
@@ -47,7 +52,7 @@ import math
 import numpy as np
 import torch
 
-from focus_tpu_torch.parallel import mesh
+from focus_tpu_torch.parallel import mesh, pipeline
 from focus_tpu_torch.parallel import tensor as tp
 from focus_tpu_torch.utils import lr_policy
 
@@ -97,13 +102,15 @@ class Optimizer:
     """A ``torch.optim`` optimizer over labelled parameter groups, each with
     its LR schedule, behind the optional gradient clip. ``step(count)``
     applies one update from the parameters' ``.grad``; ``count`` is the
-    number of updates made before it. ``names`` and ``dims`` (each
-    parameter's name and model-axis split dim, in group order) come with a
-    sharded model; ``zero1`` holds each group's parameters, its flat chunk
-    (the parameter ``optimizer`` updates) and the chunk's length."""
+    number of updates made before it. ``model`` and ``names`` (each
+    parameter's name, in group order) come with a sharded model, and
+    ``full_groups`` (each group's parameter names in the whole model, in
+    the one-process order) with one whose pipe rank holds a stage;
+    ``zero1`` holds each group's parameters, its flat chunk (the parameter
+    ``optimizer`` updates) and the chunk's length."""
 
     def __init__(self, optimizer, schedules, clip_value=None, clip_norm=None,
-                 params=None, names=None, dims=None, model_group=None,
+                 params=None, names=None, model=None, full_groups=None,
                  zero1=None):
         self.optimizer = optimizer
         self.schedules = schedules
@@ -112,31 +119,57 @@ class Optimizer:
         self.params = params or [p for g in optimizer.param_groups
                                  for p in g["params"]]
         self.names = names
-        self.dims = dims or [None] * len(self.params)
-        self.model_group = model_group
+        self.model = model
+        self.full_groups = full_groups
         self.zero1 = zero1
+        # each parameter's lines beyond the data axis: bit 0 split over the
+        # model line, bit 1 over the expert line, bit 2 held by one stage
+        self.lines = [0] * len(self.params)
+        if model is not None and tp.is_sharded(model):
+            stage = set(pipeline.stage_names(model, names))
+            self.lines = [(n in tp.specs(model)) | (n in tp.expert_specs(
+                model)) << 1 | (n in stage) << 2 for n in names]
 
     @property
     def sharded(self) -> bool:
         """Whether its state is split over processes (its ``state_dict`` is
         a collective)."""
-        return bool(self.zero1) or any(d is not None for d in self.dims)
+        return bool(self.zero1) or any(self.lines)
 
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
         for p in self.params:
             p.grad = None
 
+    def _line_groups(self):
+        """The process groups of the model, expert and pipe lines (None
+        where the line is this rank alone)."""
+        par = getattr(self.model, "parallel", None)
+        place = getattr(self.model, "pipe_place", None)
+        return (par.model_group if par and par.model_size > 1 else None,
+                par.expert_group if par and par.expert_size > 1 else None,
+                place["line"].group if place else None)
+
     def _global_norm(self, grads):
-        if not any(d is not None for d in self.dims):
+        if not any(self.lines):
             return torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(g.float()) for g in grads]))
+        # the squares by lines (summed in a fixed order, so every rank of a
+        # line holds the same), each summed over the lines that split it; a
+        # whole leaf counts once
         sq = [torch.linalg.vector_norm(g.float()) ** 2 for g in grads]
-        split = torch.stack([s for s, d in zip(sq, self.dims)
-                             if d is not None]).sum()
-        whole = [s for s, d in zip(sq, self.dims) if d is None]
-        split = mesh.all_reduce_(split, self.model_group)
-        return torch.sqrt(split + (torch.stack(whole).sum() if whole else 0.0))
+        zero = sq[0].new_zeros(())
+        kinds = torch.stack([
+            torch.stack([s for s, k in zip(sq, self.lines) if k == kind]).sum()
+            if kind in self.lines else zero for kind in range(8)])
+        for bit, group in enumerate(self._line_groups()):
+            if group is None:
+                continue
+            mask = torch.tensor([(k >> bit) & 1 for k in range(8)],
+                                dtype=kinds.dtype, device=kinds.device)
+            part = mesh.all_reduce_(kinds * mask, group)
+            kinds = kinds * (1 - mask) + part
+        return torch.sqrt(kinds.sum())
 
     @torch.no_grad()
     def step(self, count: int):
@@ -173,20 +206,36 @@ class Optimizer:
 
     # -- the one-process optimizer's state on any mesh (collectives) -------
 
-    def _full(self, t, i):
-        """Parameter i's state tensor ``t`` gathered over the model line."""
-        d = self.dims[i]
-        if d is None:
-            return t
-        parts = mesh.all_gather_tiled(t.contiguous()[None], self.model_group)
-        return tp.unshard(list(parts.unbind(0)), self.names[i], d)
+    def _group_names(self):
+        """Each group's parameter names in the one-process optimizer."""
+        if self.full_groups:
+            return self.full_groups
+        sizes = ([len(ps) for ps, _, _ in self.zero1] if self.zero1 else
+                 [len(g["params"]) for g in self.optimizer.param_groups])
+        out, i = [], 0
+        for n in sizes:
+            out.append(self.names[i:i + n])
+            i += n
+        return out
 
-    def _local(self, t, i):
-        d = self.dims[i]
-        if d is None or not torch.is_tensor(t) or t.ndim == 0:
-            return t
-        return tp.shard(t, self.names[i], d, mesh.model_rank(),
-                        mesh.model_size())
+    def _local_states(self, inner):
+        """Each parameter's state (this rank's shapes), in group order:
+        ZeRO-1's chunks gathered over the data line."""
+        if not self.zero1:
+            return [inner["state"].get(i) for i in range(len(self.params))]
+        out = []
+        for gi, (ps, chunk, n) in enumerate(self.zero1):
+            st = inner["state"].get(gi)
+            if not st:
+                out += [None] * len(ps)
+                continue
+            per = {k: _split_flat(ps, mesh.all_gather_tiled(
+                v.contiguous(), mesh.group("data")))
+                for k, v in st.items() if torch.is_tensor(v) and v.ndim}
+            out += [{k: (per[k][j] if k in per else v.clone()
+                         if torch.is_tensor(v) else v)
+                     for k, v in st.items()} for j in range(len(ps))]
+        return out
 
     def state_dict(self) -> dict:
         """The state dict of the one-process ``torch.optim`` optimizer over
@@ -194,29 +243,33 @@ class Optimizer:
         inner = self.optimizer.state_dict()
         if not self.sharded:
             return inner
+        by_name = {}
+        for i, st in enumerate(self._local_states(inner)):
+            if st is not None:
+                by_name[self.names[i]] = {
+                    k: (tp.full_tensor(self.model, self.names[i], v)
+                        if torch.is_tensor(v) and v.ndim else v)
+                    for k, v in st.items()}
+        stage = pipeline.stage_names(self.model, list(by_name))
+        if stage:  # the other stages' parameters' state
+            keys = list(by_name[stage[0]])
+            every = {k: pipeline.gather_stages(self.model, {
+                n: by_name[n][k] for n in stage}) for k in keys
+                if torch.is_tensor(by_name[stage[0]][k])
+                and by_name[stage[0]][k].ndim}
+            for n in next(iter(every.values())) if every else ():
+                by_name.setdefault(n, {k: (
+                    every[k][n] if k in every else by_name[stage[0]][k].clone()
+                    if torch.is_tensor(by_name[stage[0]][k])
+                    else by_name[stage[0]][k]) for k in keys})
         groups, state, i = [], {}, 0
-        if not self.zero1:
-            for idx, st in inner["state"].items():
-                state[idx] = {k: (self._full(v, idx) if torch.is_tensor(v)
-                                  and v.ndim else v) for k, v in st.items()}
-            return {"state": state, "param_groups": inner["param_groups"]}
-        for gi, (g, (ps, chunk, n)) in enumerate(zip(inner["param_groups"],
-                                                     self.zero1)):
-            ids = list(range(i, i + len(ps)))
+        for g, names in zip(inner["param_groups"], self._group_names()):
+            ids = list(range(i, i + len(names)))
             groups.append({**g, "params": ids})
-            st = inner["state"].get(gi)
-            if st:
-                per = {}
-                for k, v in st.items():
-                    if torch.is_tensor(v) and v.ndim:
-                        flat = mesh.all_gather_tiled(v.contiguous(),
-                                                     mesh.group("data"))
-                        per[k] = _split_flat(ps, flat)
-                for j, idx in enumerate(ids):
-                    state[idx] = {k: (self._full(per[k][j], idx) if k in per
-                                      else v.clone() if torch.is_tensor(v)
-                                      else v) for k, v in st.items()}
-            i += len(ps)
+            for j, n in zip(ids, names):
+                if n in by_name:
+                    state[j] = by_name[n]
+            i += len(names)
         return {"state": state, "param_groups": groups}
 
     def load_state_dict(self, sd: dict) -> None:
@@ -224,17 +277,31 @@ class Optimizer:
         if not self.sharded:
             self.optimizer.load_state_dict(sd)
             return
-        local = {idx: {k: self._local(v, idx) for k, v in st.items()}
-                 for idx, st in sd["state"].items()}
+        name_of = {}
+        for g, names in zip(sd["param_groups"], self._group_names()):
+            name_of.update(zip(g["params"], names))
+        by_name = {name_of[j]: st for j, st in sd["state"].items()}
+        local = [None if by_name.get(n) is None else {
+            k: (tp.local_tensor(self.model, n, v) if torch.is_tensor(v)
+                and v.ndim else v) for k, v in by_name[n].items()}
+            for n in self.names]
+        groups, state, d, i = [], {}, mesh.data_rank(), 0
         if not self.zero1:
-            self.optimizer.load_state_dict(
-                {"state": local, "param_groups": sd["param_groups"]})
+            for g, mine in zip(sd["param_groups"],
+                               self.optimizer.param_groups):
+                ids = list(range(i, i + len(mine["params"])))
+                groups.append({**g, "params": ids})
+                state.update({j: local[j] for j in ids
+                              if local[j] is not None})
+                i += len(ids)
+            self.optimizer.load_state_dict({"state": state,
+                                            "param_groups": groups})
             return
-        groups, state, d = [], {}, mesh.data_rank()
         for gi, (g, (ps, chunk, n)) in enumerate(zip(sd["param_groups"],
                                                      self.zero1)):
             groups.append({**g, "params": [gi]})
-            sts = [local.get(idx) for idx in g["params"]]
+            sts = local[i:i + len(ps)]
+            i += len(ps)
             if not all(sts):
                 continue
             st = {}
@@ -294,7 +361,17 @@ def construct_optimizer(model, cfg, steps_per_epoch: int,
     params = [p for g in groups for p in g["params"]]
     by_id = {id(p): n for n, p in model.named_parameters()}
     names = [by_id[id(p)] for p in params]
-    dims = [tp.specs(model).get(n) for n in names]
+    full_groups = None
+    if getattr(model, "pipe_place", None):  # the whole model's groups
+        whole = {label: [] for label in labels}
+        for name, shape in model.full_shapes.items():
+            whole[param_label(name, len(shape), cfg,
+                              no_weight_decay_paths)].append(name)
+        full_groups = [whole[g["label"]] for g in groups]
+        if [label for label in labels if whole[label]] != [
+                g["label"] for g in groups]:
+            raise ValueError("a pipeline stage lacks a parameter group of "
+                             "the whole model")
     zero1 = None
     if cfg.TPU.ZERO1 and mesh.data_size() > 1:
         zero1, chunked = [], []
@@ -305,13 +382,11 @@ def construct_optimizer(model, cfg, steps_per_epoch: int,
             zero1.append((ps, chunk, n))
             chunked.append({**g, "params": [chunk]})
         groups = chunked
-    par = getattr(model, "parallel", None)
     return Optimizer(_torch_optimizer(cfg, groups), schedules,
                      clip_value=cfg.SOLVER.CLIP_GRAD_VAL or None,
                      clip_norm=cfg.SOLVER.CLIP_GRAD_L2NORM or None,
-                     params=params, names=names, dims=dims,
-                     model_group=par.model_group if par else None,
-                     zero1=zero1)
+                     params=params, names=names, model=model,
+                     full_groups=full_groups, zero1=zero1)
 
 
 # ---- STEVE ---------------------------------------------------------------

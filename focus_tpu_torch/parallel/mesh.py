@@ -24,25 +24,33 @@ backend but NCCL a gather is an all-reduce of a zero buffer with this
 process's rows filled in; mixup's partner rows (``from_mirror``) are a
 send and a receive with the one process that holds them, except there.
 
-The sequence and model axes (``TPU.MESH.SEQ``, ``TPU.MESH.MODEL``): rank r
-sits on the grid (data, pipe, seq, model, expert) in ``build_mesh``'s
-order, expert fastest and model next, so r = (d SEQ + s) MODEL + m with
-pipe and expert 1. ``DATA`` absorbs what ``SEQ x MODEL`` leaves of the
-world, as in the JAX package. ``init_distributed`` makes one process group
-for every data, seq and model line and one for every data x seq plane (the
-gradients' reduction, ``models/optimizer.py``); every rank makes every
-group, in the same order. The model and seq ranks of one data line hold
-the same clips, so the loader, the drawn rows (``batch_rows``), mixup's
-partner, BatchNorm, the stats and the eval gathers read the data axis
-(``data_rank``, ``data_size``, the collectives' ``group``); with no seq or
-model axis the data line is the world. ``check_mesh`` refuses what the
-JAX package refuses and what the port does not run, before anything is
-built.
+The sequence, model, pipe and expert axes (``TPU.MESH.SEQ``, ``MODEL``,
+``PIPE``, ``EXPERT``): rank r sits on the grid (data, pipe, seq, model,
+expert) in ``build_mesh``'s order, expert fastest, so r = (((d PIPE + p)
+SEQ + s) MODEL + m) EXPERT + e. ``DATA`` absorbs what ``PIPE x SEQ x MODEL
+x EXPERT`` leaves of the world, as in the JAX package. ``set_axes`` makes
+one process group for every data, pipe, seq, model and expert line, one for
+every data x seq plane (the gradients' reduction, ``models/optimizer.py``)
+and one for every pair of neighbouring stages of a pipe line (the
+pipeline's hand-offs under gloo, ``parallel/pipeline.py``); every rank
+makes every group, in the same order. The pipe, seq, model and expert
+ranks of one data line hold the same clips, so the loader, the drawn rows
+(``batch_rows``), mixup's partner, BatchNorm, the stats and the eval
+gathers read the data axis (``data_rank``, ``data_size``, the collectives'
+``group``); with no other axis the data line is the world. ``check_mesh``
+refuses what the JAX package refuses and what the port does not run,
+before anything is built. Within ``single_process_mesh`` a process with no
+process group plays every rank of the mesh its config names (every stage
+and every expert, and with ``data`` that many data ranks' microbatches):
+the one-process reference of a mesh run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import itertools
+import os
 
 import torch
 import torch.distributed as dist
@@ -59,71 +67,126 @@ def mesh_axes(cfg):
     return tuple(max(int(cfg.TPU.MESH.get(k, 1) or 1), 1) for k in MESH_AXES)
 
 
-# (seq, model) of the job this process belongs to; set by init_distributed
-_AXES = (1, 1)
-# the process groups of this rank's lines, by axis ("data", "seq",
-# "model", "data_seq"); empty without seq or model axis
+# (pipe, seq, model, expert) of the job this process belongs to; set by
+# init_distributed
+_AXES = (1, 1, 1, 1)
+# the process groups of this rank's lines, by axis ("data", "pipe", "seq",
+# "model", "expert", "data_seq", and ("pipe_pair", p) for stages p and
+# p + 1 of its pipe line); empty where every axis but data is 1
 _GROUPS = {}
+# the data ranks a process with no process group plays (0: none, it is
+# not playing a mesh)
+_SINGLE = 0
+
+
+@contextlib.contextmanager
+def single_process_mesh(data: int = 1):
+    """Within it, a process with no process group holds every rank's share
+    of the mesh that a config names: ``check_mesh`` takes the world as the
+    axes' product times ``data``, the model is built whole (every pipeline
+    stage and every expert) and runs the pipeline's schedule alone. It is
+    the one-process reference that a mesh run is held against (the JAX
+    package applies its pipelined model with no mesh the same way); with
+    ``data`` above 1 it also cuts each batch into the microbatches that
+    ``data`` data ranks cut (``virtual_data``), so that every microbatch
+    holds the rows a mesh rank's holds. ``tools.run_net`` keeps the
+    refusal of a world the axes do not divide."""
+    global _SINGLE
+    prev, _SINGLE = _SINGLE, max(int(data), 1)
+    try:
+        yield
+    finally:
+        _SINGLE = prev
+
+
+def virtual_data() -> int:
+    """The data ranks this process plays alone (``single_process_mesh``'s
+    ``data``; 1 otherwise)."""
+    return _SINGLE if _SINGLE and not is_distributed() else 1
 
 
 def check_mesh(cfg, world=None) -> None:
     """Raise, before anything is built, where ``cfg.TPU.MESH`` asks for a
     layout that the JAX package refuses (``build_mesh``: sequence together
     with pipeline parallelism; a world that SEQ x MODEL x PIPE x EXPERT
-    does not divide, ``world`` processes, default this job's) or that the
-    port does not run (``check_axes``)."""
+    does not divide, ``world`` processes, default this job's; a pipeline
+    axis with no trajectory segment it divides, reference defect 3) or
+    that the port does not run (``check_axes``); under a pipeline axis, a
+    train or test batch that the data axis times the microbatches does not
+    divide (``parallel/pipeline.check_batches``)."""
     check_axes(cfg)
     pipe, seq, model, expert = mesh_axes(cfg)
-    world = world_size() if world is None else int(world)
+    if world is None:
+        world = (world_size() if is_distributed() or not _SINGLE
+                 else pipe * seq * model * expert * _SINGLE)
+    world = int(world)
     if world % (model * seq * pipe * expert):
         raise ValueError(
             f"{world} devices not divisible by model axis {model} x seq axis "
             f"{seq} x pipe axis {pipe} x expert axis {expert} (TPU.MESH.MODEL "
-            f"{model}, TPU.MESH.SEQ {seq}: a world of TPU.MESH.DATA x SEQ x "
-            "MODEL processes)")
+            f"{model}, TPU.MESH.SEQ {seq}, TPU.MESH.PIPE {pipe}, "
+            f"TPU.MESH.EXPERT {expert}: a world of TPU.MESH.DATA x PIPE x SEQ "
+            "x MODEL x EXPERT processes)")
+    if pipe > 1:
+        from focus_tpu_torch.parallel import pipeline
+
+        pipeline.check_batches(cfg, world // (model * seq * pipe * expert))
 
 
 def check_axes(cfg) -> None:
     """``check_mesh``'s refusals that need no world: sequence together with
-    pipeline parallelism (the JAX package's), and what the port does not
-    run: a pipeline or expert axis above 1 (``PIPE`` pipelines the
-    trajectory blocks, ``EXPERT`` shards the MoE experts), and a sequence
-    or model axis on another model than the Motionformer / ORViT-MF
-    family, on a MoE model, or a model axis under ``TPU.INT8_SERVING`` (its
-    dynamic activation scale is a max over the whole input row, which a
-    row split would need reduced). SEQ must divide
-    ``MF.TEMPORAL_RESOLUTION``: the tokens split by frames. A MoE config
-    runs with ``TPU.MESH.PIPE 1 TPU.MESH.EXPERT 1``: every expert on every
-    card."""
+    pipeline parallelism (the JAX package's), a pipeline axis that divides
+    no run of trajectory blocks (``parallel/pipeline.segments``; the JAX
+    package silently runs every block replicated there, reference defect
+    3), and what the port does not run: any axis but data on another model
+    than the Motionformer / ORViT-MF family, a pipeline axis together with
+    the model axis, a sequence or model axis on a MoE model, and a model
+    axis under ``TPU.INT8_SERVING`` (its dynamic activation scale is a max
+    over the whole input row, which a row split would need reduced). SEQ
+    must divide ``MF.TEMPORAL_RESOLUTION``: the tokens split by frames. An
+    expert axis on a model without experts makes its ranks replicas, as in
+    the JAX package."""
     pipe, seq, model, expert = mesh_axes(cfg)
     if seq > 1 and pipe > 1:
         raise ValueError(
             "sequence and pipeline parallelism each compose with data/model "
             "axes but not with each other (shard_tokens' token constraint "
             "conflicts with the pipeline microbatch layout)")
-    over = [f"TPU.MESH.{k} {v}"
-            for k, v in (("PIPE", pipe), ("EXPERT", expert)) if v > 1]
-    if over:
+    over = [f"TPU.MESH.{k} {v}" for k, v in zip(MESH_AXES, (pipe, seq, model,
+                                                           expert)) if v > 1]
+    if over and cfg.MODEL.MODEL_NAME != "Motionformer":
         raise NotImplementedError(
-            f"{', '.join(over)}: the port runs no pipeline or expert axis yet "
-            "(ROADMAP.md section 1 item 8); set them to 1")
+            f"{' / '.join(over)} on MODEL.MODEL_NAME {cfg.MODEL.MODEL_NAME}: "
+            "the port shards the Motionformer / ORViT-MF family alone "
+            "(ROADMAP.md section 1 item 4)")
+    if pipe > 1 and model > 1:
+        raise NotImplementedError(
+            f"TPU.MESH.PIPE {pipe} with TPU.MESH.MODEL {model}: the port does "
+            "not split a pipeline stage's dense layers yet (ROADMAP.md "
+            "section 1 item 4)")
+    if pipe > 1:
+        from focus_tpu_torch.parallel import pipeline
+
+        if not pipeline.segments(cfg):
+            raise ValueError(
+                f"TPU.MESH.PIPE {pipe}: no run of trajectory blocks between "
+                f"the ORViT layers {list(cfg.ORVIT.LAYERS)} of MF.DEPTH "
+                f"{cfg.MF.DEPTH} is at least {pipe} long and divisible by "
+                f"{pipe}, so nothing would be pipelined (the JAX package runs "
+                "every block replicated there, reference defect 3)")
     if seq > 1 or model > 1:
         axes = f"TPU.MESH.SEQ {seq} / TPU.MESH.MODEL {model}"
-        if cfg.MODEL.MODEL_NAME != "Motionformer":
-            raise NotImplementedError(
-                f"{axes} on MODEL.MODEL_NAME {cfg.MODEL.MODEL_NAME}: the port "
-                "shards the sequence and the dense layers of the Motionformer "
-                "/ ORViT-MF family alone (ROADMAP.md section 1 item 8)")
         experts = int(cfg.TPU.MOE.NUM_EXPERTS or 0)
         if experts > 1:
             raise NotImplementedError(
                 f"{axes} with TPU.MOE.NUM_EXPERTS {experts}: the MoE layers "
-                "are not sharded yet (ROADMAP.md section 1 item 8)")
+                "are not split over the sequence or model axis yet "
+                "(ROADMAP.md section 1 item 4)")
         if model > 1 and cfg.TPU.INT8_SERVING:
             raise NotImplementedError(
                 f"{axes} with TPU.INT8_SERVING: the W8A8 activation scale is "
                 "a max over the whole input row, which a row split would need "
-                "reduced (ROADMAP.md section 1 item 8)")
+                "reduced (ROADMAP.md section 1 item 4)")
         if cfg.MF.TEMPORAL_RESOLUTION % seq:
             raise ValueError(
                 f"TPU.MESH.SEQ {seq} does not divide MF.TEMPORAL_RESOLUTION "
@@ -176,20 +239,50 @@ def init_distributed(cfg, local_rank: int, init_method: str,
 
 
 def set_axes(cfg) -> None:
-    """This job's seq and model axes from ``cfg`` (checked by
+    """This job's pipe, seq, model and expert axes from ``cfg`` (checked by
     ``check_mesh`` against the world), and the process groups of every
-    data, seq and model line and every data x seq plane: every rank makes
-    every group, in the same order."""
+    data, pipe, seq, model and expert line, every data x seq plane and
+    every pair of neighbouring pipeline stages: every rank makes every
+    group, in the same order."""
     global _AXES
     check_mesh(cfg)
-    _, seq, model, _ = mesh_axes(cfg)
-    _AXES = (seq, model)
+    _AXES = mesh_axes(cfg)
     _GROUPS.clear()
-    if seq * model == 1:
+    pipe, seq, model, expert = _AXES
+    if pipe * seq * model * expert == 1:
         return
-    world = dist.get_world_size()
-    data = world // (seq * model)
+    # the ranks of a pipe, seq, model or expert line compute their
+    # replicated leaves' gradients alike, and must get them bit for bit
+    # alike: cuBLAS picks its internal implementation by the streams in
+    # flight (the collectives' copies run on side streams) unless its
+    # workspace is fixed, which this does for the handles made after it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    data = dist.get_world_size() // (pipe * seq * model * expert)
     me = dist.get_rank()
+    sizes = (data, pipe, seq, model, expert)
+
+    def rank_of(c):
+        r = 0
+        for v, n in zip(c, sizes):
+            r = r * n + v
+        return r
+
+    def lines(axes):
+        """Every line over ``axes`` (indices into the grid): the ranks
+        along them, the others fixed, in grid order."""
+        rest = [a for a in range(5) if a not in axes]
+        out = []
+        for fixed in itertools.product(*(range(sizes[a]) for a in rest)):
+            members = []
+            for free in itertools.product(*(range(sizes[a]) for a in axes)):
+                c = [0] * 5
+                for a, v in zip(rest, fixed):
+                    c[a] = v
+                for a, v in zip(axes, free):
+                    c[a] = v
+                members.append(rank_of(c))
+            out.append(members)
+        return out
 
     def make(name, members):
         for ranks in members:
@@ -197,15 +290,15 @@ def set_axes(cfg) -> None:
             if me in ranks:
                 _GROUPS[name] = g
 
-    grid = [[[(d * seq + s) * model + m for m in range(model)]
-             for s in range(seq)] for d in range(data)]
-    make("data", [[grid[d][s][m] for d in range(data)]
-                  for s in range(seq) for m in range(model)])
-    make("seq", [[grid[d][s][m] for s in range(seq)]
-                 for d in range(data) for m in range(model)])
-    make("model", [grid[d][s] for d in range(data) for s in range(seq)])
-    make("data_seq", [[grid[d][s][m] for d in range(data) for s in range(seq)]
-                      for m in range(model)])
+    for name, axes in (("data", (0,)), ("pipe", (1,)), ("seq", (2,)),
+                       ("model", (3,)), ("expert", (4,)),
+                       ("data_seq", (0, 2))):
+        make(name, lines(axes))
+    for line in lines((1,)):
+        for p in range(pipe - 1):
+            g = dist.new_group(line[p:p + 2])
+            if me in line[p:p + 2]:
+                _GROUPS[("pipe_pair", p)] = g
 
 
 def is_distributed() -> bool:
@@ -221,42 +314,66 @@ def rank() -> int:
     return dist.get_rank() if is_distributed() else 0
 
 
-def seq_size() -> int:
+def pipe_size() -> int:
     return _AXES[0]
 
 
-def model_size() -> int:
+def seq_size() -> int:
     return _AXES[1]
 
 
+def model_size() -> int:
+    return _AXES[2]
+
+
+def expert_size() -> int:
+    return _AXES[3]
+
+
+def _across() -> int:
+    """Ranks a data line holds: PIPE x SEQ x MODEL x EXPERT."""
+    return _AXES[0] * _AXES[1] * _AXES[2] * _AXES[3]
+
+
 def data_size() -> int:
-    """Processes on the data axis: the world over SEQ x MODEL."""
-    return world_size() // (_AXES[0] * _AXES[1])
+    """Processes on the data axis: the world over PIPE x SEQ x MODEL x
+    EXPERT."""
+    return world_size() // _across()
 
 
 def data_rank() -> int:
-    return rank() // (_AXES[0] * _AXES[1])
+    return rank() // _across()
+
+
+def pipe_rank() -> int:
+    return rank() // (_AXES[1] * _AXES[2] * _AXES[3]) % _AXES[0]
 
 
 def seq_rank() -> int:
-    return rank() // _AXES[1] % _AXES[0]
+    return rank() // (_AXES[2] * _AXES[3]) % _AXES[1]
 
 
 def model_rank() -> int:
-    return rank() % _AXES[1]
+    return rank() // _AXES[3] % _AXES[2]
 
 
-def group(axis: str):
-    """The process group of this rank's ``axis`` line ("data", "seq",
-    "model") or plane ("data_seq"): None (the world) for the data line and
-    plane without a seq or model axis."""
+def expert_rank() -> int:
+    return rank() % _AXES[3]
+
+
+def group(axis):
+    """The process group of this rank's ``axis`` line ("data", "pipe",
+    "seq", "model", "expert"), plane ("data_seq") or pair of stages
+    (("pipe_pair", p): stages p and p + 1): None (the world) for the data
+    line and plane where every other axis is 1."""
     return _GROUPS.get(axis)
 
 
 def batch_rows(rows: int):
     """(first, rows, total) of this process's ``rows`` of a global batch
     that every data rank shares evenly (``models/common.sharded_draws``);
-    the seq and model ranks of a data line hold the same rows."""
+    the pipe, seq, model and expert ranks of a data line hold the same
+    rows."""
     return data_rank() * rows, rows, data_size() * rows
 
 
@@ -391,7 +508,7 @@ def barrier() -> None:
 def destroy() -> None:
     """Leave the process group, if any."""
     global _AXES
-    _AXES = (1, 1)
+    _AXES = (1, 1, 1, 1)
     _GROUPS.clear()
     if is_distributed():
         dist.destroy_process_group()

@@ -25,11 +25,18 @@ summed, back to the frame's rank. ``seq_grad_gate`` lets the loss's
 gradient into the replicated CLS row on seq rank 0 alone, so that the seq
 line's sum of gradients counts it once.
 
-``shard_model`` cuts a built model's leaves to this rank's shards and
-tells its modules their lines (``Parallel``); ``full_state_dict`` gathers
-the shards back to the bridge's full names and shapes and
-``load_full_state_dict`` cuts full tensors into a sharded model, so a
-checkpoint written on any mesh loads on any other.
+The expert and pipe axes (``TPU.MESH.EXPERT``, ``PIPE``): a MoE
+layer's four expert leaves (``experts.{kernel1,bias1,kernel2,bias2}``)
+are cut on their expert dim, dim 0, over the expert line where it divides
+E (``expert_dim``, ``_param_spec``'s rule), and a pipe rank holds its
+stage's blocks of every pipelined segment alone
+(``parallel/pipeline.py``); everything else is whole on every rank.
+
+``shard_model`` cuts a built model's leaves to this rank's shards, drops
+the other stages' blocks and tells its modules their lines (``Parallel``);
+``full_state_dict`` gathers the shards and the stages back to the bridge's
+full names and shapes and ``load_full_state_dict`` cuts full tensors into
+a sharded model, so a checkpoint written on any mesh loads on any other.
 """
 
 from __future__ import annotations
@@ -74,6 +81,20 @@ def param_dim(name: str, shape, model_size: int):
     return None
 
 
+_EXPERT_LEAVES = ("kernel1", "bias1", "kernel2", "bias2")
+
+
+def expert_dim(name: str, shape, expert_size: int):
+    """The dim of a MoE expert leaf that the expert axis splits (0, the
+    expert dim), or None (whole): where EXPERT divides the experts, as
+    ``_param_spec`` places the stacked experts."""
+    comps = name.split(".")
+    if (expert_size <= 1 or len(comps) < 2 or comps[-2] != "experts"
+            or comps[-1] not in _EXPERT_LEAVES):
+        return None
+    return 0 if shape[0] % expert_size == 0 else None
+
+
 def _is_qkv(name: str) -> bool:
     return "qkv" in name.split(".")
 
@@ -106,7 +127,8 @@ def unshard(parts, name: str, dim):
 
 @dataclasses.dataclass
 class Parallel:
-    """This rank's place on the seq and model lines, and their groups."""
+    """This rank's place on the seq, model and expert lines, and their
+    groups."""
 
     seq_rank: int = 0
     seq_size: int = 1
@@ -114,6 +136,9 @@ class Parallel:
     model_rank: int = 0
     model_size: int = 1
     model_group: object = None
+    expert_rank: int = 0
+    expert_size: int = 1
+    expert_group: object = None
 
     @property
     def seq(self) -> bool:
@@ -132,7 +157,9 @@ class Parallel:
 def current() -> Parallel:
     """This process's lines, from ``parallel/mesh.py``."""
     return Parallel(mesh.seq_rank(), mesh.seq_size(), mesh.group("seq"),
-                    mesh.model_rank(), mesh.model_size(), mesh.group("model"))
+                    mesh.model_rank(), mesh.model_size(), mesh.group("model"),
+                    mesh.expert_rank(), mesh.expert_size(),
+                    mesh.group("expert"))
 
 
 # ---- collectives with their autograd pairs ---------------------------------
@@ -224,8 +251,11 @@ class _GradGate(torch.autograd.Function):
         return (grad if ctx.keep else torch.zeros_like(grad)), None
 
 
-def copy_in(x, par: Parallel):
-    """Identity forward, the model line's sum of the gradients backward."""
+def copy_in(x, par: Parallel, group=None):
+    """Identity forward, the model line's (or ``group``'s) sum of the
+    gradients backward."""
+    if group is not None:
+        return _CopyIn.apply(x, group)
     return _CopyIn.apply(x, par.model_group) if par.model else x
 
 
@@ -234,9 +264,11 @@ def reduce_out(x, par: Parallel):
     return _ReduceOut.apply(x, par.model_group) if par.model else x
 
 
-def gather(x, dim: int, par: Parallel):
-    """The model line's shards concatenated along ``dim``; backward, this
-    rank's share of the gradient."""
+def gather(x, dim: int, par: Parallel, group=None):
+    """The model line's (or ``group``'s) shards concatenated along
+    ``dim``; backward, this rank's share of the gradient."""
+    if group is not None:
+        return _Gather.apply(x, dim % x.ndim, group)
     return _Gather.apply(x, dim % x.ndim, par.model_group) if par.model else x
 
 
@@ -269,70 +301,134 @@ def row_linear(x, layer, par: Parallel):
 # ---- a model's shards ------------------------------------------------------
 
 def specs(model) -> dict:
-    """{name: split dim} of a sharded model's split leaves (empty if
-    none)."""
+    """{name: split dim} of a model's leaves split over the model line
+    (empty if none)."""
     return getattr(model, "tp_specs", {})
+
+
+def expert_specs(model) -> dict:
+    """{name: split dim} of a model's leaves split over the expert line."""
+    return getattr(model, "ep_specs", {})
+
+
+def is_sharded(model) -> bool:
+    """Whether any leaf of ``model`` is split or held by one stage (its
+    full state dict is a collective)."""
+    return bool(specs(model) or expert_specs(model)
+                or getattr(model, "pipe_place", None))
+
+
+class StageElsewhere(torch.nn.Module):
+    """Stands in a pipe rank's model for a block another stage holds."""
+
+    def __init__(self, stage: int):
+        super().__init__()
+        self.stage = stage
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError(f"this block runs on pipeline stage {self.stage}")
+
+
+def _cut(model, name, local):
+    owner = model.get_submodule(name.rsplit(".", 1)[0])
+    leaf = name.rsplit(".", 1)[1]
+    p = getattr(owner, leaf)
+    setattr(owner, leaf, torch.nn.Parameter(local,
+                                            requires_grad=p.requires_grad))
 
 
 @torch.no_grad()
 def shard_model(model):
     """Cut ``model``'s split leaves to this rank's shards (in place, as new
-    parameters) and give its modules this process's lines
-    (``current()``). Raises where a layer's heads do not split evenly."""
+    parameters), put the other stages' blocks out of it and give its
+    modules this process's lines (``current()``). Raises where a layer's
+    heads do not split evenly. The whole model's parameter names and
+    shapes stay on it (``full_shapes``)."""
+    from focus_tpu_torch.parallel import pipeline
+
     par = current()
-    dims = {}
-    if par.model:
-        for name, p in list(model.named_parameters()):
-            d = param_dim(name, p.shape, par.model_size)
-            if d is None:
-                continue
-            owner = model.get_submodule(name.rsplit(".", 1)[0])
-            leaf = name.rsplit(".", 1)[1]
-            local = shard(p.data, name, d, par.model_rank, par.model_size)
-            setattr(owner, leaf, torch.nn.Parameter(
-                local, requires_grad=p.requires_grad))
+    model.full_shapes = {n: tuple(p.shape)
+                         for n, p in model.named_parameters()}
+    dims, edims = {}, {}
+    for name, p in list(model.named_parameters()):
+        d = param_dim(name, p.shape, par.model_size)
+        if d is not None:
+            _cut(model, name, shard(p.data, name, d, par.model_rank,
+                                    par.model_size))
             dims[name] = d
+            continue
+        d = expert_dim(name, p.shape, par.expert_size)
+        if d is not None:
+            n = p.shape[d] // par.expert_size
+            _cut(model, name, p.data.narrow(d, par.expert_rank * n, n)
+                 .clone())
+            edims[name] = d
+    line = pipeline.current()
+    segs = getattr(model, "segments", [])
+    if line.size > 1 and segs:
+        model.pipe_place = {"line": line, "segments": segs,
+                            "stages": line.size}
+        for i in range(len(model.blocks)):
+            s = pipeline.stage_of(segs, line.size, i)
+            if s is not None and s != line.rank:
+                model.blocks[i] = StageElsewhere(s)
     for module in model.modules():
         if hasattr(module, "attach_parallel"):
             module.attach_parallel(par, dims)
-    model.tp_specs = dims
+    model.tp_specs, model.ep_specs = dims, edims
     model.parallel = par
     return model
 
 
-def full_state_dict(model) -> dict:
-    """``model.state_dict()`` with every split leaf gathered over the model
-    line to its full shape (a collective: every rank calls it)."""
-    sd = model.state_dict()
-    dims = specs(model)
-    if not dims:
-        return sd
-    par = model.parallel
-    out = {}
-    for name, t in sd.items():
-        d = dims.get(name)
-        if d is None:
-            out[name] = t
-            continue
+def full_tensor(model, name: str, t: torch.Tensor) -> torch.Tensor:
+    """The full tensor of this rank's ``t`` of leaf ``name``, gathered over
+    the model or expert line (a collective on a split leaf)."""
+    d = specs(model).get(name)
+    if d is not None:
         parts = mesh.all_gather_tiled(t.detach().contiguous()[None],
-                                      par.model_group)
-        out[name] = unshard(list(parts.unbind(0)), name, d)
-    return out
+                                      model.parallel.model_group)
+        return unshard(list(parts.unbind(0)), name, d)
+    d = expert_specs(model).get(name)
+    if d is not None:
+        return torch.movedim(mesh.all_gather_tiled(
+            torch.movedim(t.detach(), d, 0).contiguous(),
+            model.parallel.expert_group), 0, d)
+    return t
+
+
+def full_state_dict(model) -> dict:
+    """``model.state_dict()`` with every split leaf gathered to its full
+    shape and every stage's blocks gathered over the pipe line (a
+    collective: every rank calls it)."""
+    from focus_tpu_torch.parallel import pipeline
+
+    sd = model.state_dict()
+    if not is_sharded(model):
+        return sd
+    out = {name: full_tensor(model, name, t) for name, t in sd.items()}
+    return pipeline.gather_stages(model, out)
 
 
 def local_tensor(model, name: str, full: torch.Tensor) -> torch.Tensor:
     """This rank's shard of the full tensor ``full`` of parameter ``name``
     (``full`` itself where the leaf is whole)."""
     d = specs(model).get(name)
-    if d is None:
-        return full
-    par = model.parallel
-    return shard(full, name, d, par.model_rank, par.model_size)
+    par = getattr(model, "parallel", None)
+    if d is not None:
+        return shard(full, name, d, par.model_rank, par.model_size)
+    d = expert_specs(model).get(name)
+    if d is not None:
+        n = full.shape[d] // par.expert_size
+        return full.narrow(d, par.expert_rank * n, n)
+    return full
 
 
 @torch.no_grad()
 def load_full_state_dict(model, sd, strict: bool = True):
     """Load full tensors (the bridge's names and shapes) into a model,
-    sharded or not."""
-    local = {k: local_tensor(model, k, v) for k, v in sd.items()}
+    sharded or not; a pipe rank takes its stage's blocks."""
+    from focus_tpu_torch.parallel import pipeline
+
+    local = {k: local_tensor(model, k, v) for k, v in sd.items()
+             if pipeline.held(model, k)}
     return model.load_state_dict(local, strict=strict)

@@ -42,8 +42,10 @@ def launch_job(cfg, init_method, func, device="cuda"):
     host with one card) calls it here and returns what it returns; more
     are spawned with ``torch.multiprocessing``, one a card, each joining
     the process group first, and return None. The world is the processes
-    of every host: ``TPU.MESH.SEQ x MODEL`` ranks a data line, the data
-    axis the rest (``DATA -1`` absorbs it, as in the JAX package). A
+    of every host: ``TPU.MESH.PIPE x SEQ x MODEL x EXPERT`` ranks a data
+    line, the data axis the rest (``DATA -1`` absorbs it, as in the JAX
+    package); each rank logs its parameter and optimizer bytes after
+    training. A
     process already in a process group calls ``func`` itself. A
     ``TPU.MESH`` layout that the JAX package or the port refuses
     (``parallel/mesh.check_mesh``) raises before any process starts."""

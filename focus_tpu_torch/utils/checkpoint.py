@@ -21,12 +21,13 @@ reader keeps the JAX importer's rules on them:
 The JAX package's own checkpoints (a flax msgpack state) and Caffe2
 checkpoints are not read: each raises, naming its format.
 
-Under a model axis or ``TPU.ZERO1`` every process gathers the shards and
-the optimizer's chunks first (``parallel/tensor.full_state_dict``,
+Under a model or expert axis, a pipeline or ``TPU.ZERO1`` every process
+gathers the shards, the stages' blocks and the optimizer's chunks and
+moments first (``parallel/tensor.full_state_dict``,
 ``Optimizer.state_dict``), so a checkpoint keeps the bridge's full names
 and shapes and the one-process optimizer's state: one written on any mesh
 loads on any other, or in one process, and a sharded model loads a full
-one by taking its shards.
+one by taking its shards and its stage.
 
 The train loop's checkpoint is the same ``.pyth`` with the reference's
 ``optimizer_state`` (the ``torch.optim`` state dict: AdamW's moments) and
@@ -142,10 +143,10 @@ def save_checkpoint(path_to_job: str, state, epoch: int, cfg,
     memory is made before this returns. With ``async_write`` (default
     ``TPU.ASYNC_CHECKPOINT``) the file is written on a writer thread
     chained behind the earlier ones. A sharded state (model axis,
-    ``TPU.ZERO1``) is gathered first, by every process. Returns the
-    path."""
+    ``TPU.ZERO1``, expert axis, pipeline stages) is gathered first, by
+    every process. Returns the path."""
     model = getattr(state, "model", state)
-    sharded = bool(tp.specs(model)) or (
+    sharded = tp.is_sharded(model) or (
         model is not state and state.optimizer.sharded)
     if not logging.is_master_process() and not sharded:
         return None

@@ -33,7 +33,10 @@ MViT):
   ``pool_q/norm`` -> ``norm_q`` (and k, v; the depthwise kernel
   ``[kt, kh, kw, 1, C]`` transposed as every Conv3d kernel);
 - a scanned stack ``blocks_{a}_{b}/body/...`` (leading layer axis) is
-  unstacked into ``blocks.{a+j}.*``;
+  unstacked into ``blocks.{a+j}.*``, and a pipelined one
+  ``blocks_{a}_{b}/ticks/pipe_stages/layers/...`` (leading [stages, layers
+  a stage] axes: stage s holds layers s L / stages onward, the layout
+  ``focus_tpu/parallel/pipeline.py`` converts) likewise;
 - a MoE MLP's router is a Dense (``mlp/router/kernel`` ->
   ``mlp.router.weight``, transposed) and its stacked experts
   (``mlp/experts/{kernel1,bias1,kernel2,bias2}``) keep their layout and
@@ -158,7 +161,11 @@ def jax_params_to_state_dict(params, under: Tuple[str, ...] = ()
             layers = [(path, arr)]
         else:
             a = int(m.group(1))
-            sub = tuple(p for p in path[1:] if p != "body")
+            if path[1:4] == ("ticks", "pipe_stages", "layers"):
+                sub = path[4:]
+                arr = arr.reshape((-1,) + arr.shape[2:])
+            else:
+                sub = tuple(p for p in path[1:] if p != "body")
             layers = [((f"blocks_{a + j}",) + sub, arr[j])
                       for j in range(arr.shape[0])]
         for p, a_ in layers:
@@ -193,12 +200,13 @@ def load_jax_params(model: torch.nn.Module, params, batch_stats=None,
     missing, unexpected or mis-shaped keys raise. A model sharded over the
     model axis (``parallel/tensor.shard_model``) takes this rank's shard of
     each split leaf. Returns the converted (full) state_dict."""
-    from focus_tpu_torch.parallel import tensor
+    from focus_tpu_torch.parallel import pipeline, tensor
 
     full = jax_params_to_state_dict(params, under)
     if batch_stats is not None:
         full.update(jax_params_to_state_dict(batch_stats, under))
-    sd = {k: tensor.local_tensor(model, k, v) for k, v in full.items()}
+    sd = {k: tensor.local_tensor(model, k, v) for k, v in full.items()
+          if pipeline.held(model, k)}
     want = model.state_dict()
     for k, v in want.items():  # torch's own BatchNorm step counter
         if k.endswith("num_batches_tracked"):

@@ -98,15 +98,24 @@ class _State:
 
 
 def jax_model(cfg, video, boxes, seed=0):
+    """(JAX config, model, params): the params the port's seeded init,
+    carried onto their ``eval_shape`` by the JAX package's importer (no
+    init compile)."""
     from focus_tpu.models.build import build_model as jax_build_model
-    from focus_tpu.models.build import init_model
+    from focus_tpu.utils.torch_import import import_torch_params
 
     jcfg = jax_cfg_like(cfg)
     model = jax_build_model(jcfg)
-    variables = init_model(model, jcfg, (jnp.asarray(video),
-                                         {"orvit_bboxes": jnp.asarray(boxes)}),
-                           rng=jax.random.PRNGKey(seed))
-    return jcfg, model, jax.device_get(variables["params"])
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": jax.random.PRNGKey(seed),
+         "dropout": jax.random.PRNGKey(seed)}, jnp.asarray(video),
+        {"orvit_bboxes": jnp.asarray(boxes)}))["params"]
+    template = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                                      shapes)
+    sd = build_model(cfg, device="cpu", seed=seed).state_dict()
+    params, _ = import_torch_params({k: v.numpy() for k, v in sd.items()},
+                                    template, allow_missing=False)
+    return jcfg, model, params
 
 
 def reference_state_dict(params):
@@ -461,7 +470,7 @@ def test_cli_runs_the_test_path_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("TPU.MESH.PIPE", 2, "TPU.MESH.PIPE 2"),
+    ("TPU.MESH.PIPE", 2, "x pipe axis 2 .*TPU.MESH.PIPE 2"),
     ("DEMO.ENABLE", True, "DEMO"),
     ("TENSORBOARD.MODEL_VIS.ENABLE", True, "MODEL_VIS"),
     ("TPU.MESH.MODEL", 2, "TPU.MESH.MODEL 2"),
@@ -470,9 +479,9 @@ def test_cli_runs_the_test_path_on_the_cpu(tmp_path):
     ("TPU.MESH.SEQ", 2, "TPU.MESH.SEQ 2"),
 ])
 def test_unported_options_raise(tmp_path, key, value, match):
-    """Raised before anything runs; a model or seq axis on one process
-    meets the JAX package's divisibility refusal (ValueError), the rest are
-    not run by the port (NotImplementedError)."""
+    """Raised before anything runs; a pipe, model or seq axis on one
+    process meets the JAX package's divisibility refusal (ValueError), the
+    rest are not run by the port (NotImplementedError)."""
     from focus_tpu_torch.tools import run_net
 
     yaml = os.path.join(REPO, "configs", "tests", "mf_synthetic.yaml")
@@ -481,7 +490,7 @@ def test_unported_options_raise(tmp_path, key, value, match):
             str(value)]
     if key.startswith("TENSORBOARD."):
         opts += ["TENSORBOARD.ENABLE", "True"]
-    error = (ValueError if key in ("TPU.MESH.MODEL", "TPU.MESH.SEQ")
+    error = (ValueError if key.startswith("TPU.MESH.")
              else NotImplementedError)
     with pytest.raises(error, match=match):
         run_net.main(args + opts)

@@ -5,8 +5,8 @@ load-balance value against the JAX model's and its ``_moe_aux``, three
 train steps against ``make_supervised_train_step`` (and one under
 ``TPU.GRAD_ACCUM`` 2), the weight bridge of the stacked expert parameters
 (scanned and unscanned), ``TPU.INT8_SERVING`` leaving the experts at the
-compute dtype, and the refusal of ``TPU.MESH`` pipeline, sequence, model
-and expert axes on both ``configs/TPU`` yamls. float32 unless stated, one
+compute dtype, and the refusal of a world that the ``TPU.MESH`` axes of
+both ``configs/TPU`` yamls do not divide. float32 unless stated, one
 torch thread a test."""
 
 import functools
@@ -21,7 +21,7 @@ import torch
 from focus_tpu_torch.config import get_cfg
 from focus_tpu_torch.entry import moe_cfg
 from focus_tpu_torch.models.build import build_model
-from focus_tpu_torch.models.moe import MoEMlp
+from focus_tpu_torch.models.moe import MoEMlp, load_balance
 from focus_tpu_torch.utils.weights import (
     jax_params_to_state_dict,
     load_jax_params,
@@ -141,13 +141,29 @@ def moe_model_cfg(get_cfg_fn, experts, orvit_layers=(), depth=4):
     return cfg
 
 
+def jax_params_from_port(jmodel, port_cfg, inputs, seed=0):
+    """JAX params for ``jmodel`` holding the port's seeded init of
+    ``port_cfg``: the JAX package's importer carries the port's state_dict
+    onto the params' ``eval_shape`` (no init compile)."""
+    from focus_tpu.utils.torch_import import import_torch_params
+
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(seed),
+         "dropout": jax.random.PRNGKey(seed)}, *inputs))["params"]
+    template = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                                      shapes)
+    sd = build_model(port_cfg, device="cpu", seed=seed).state_dict()
+    params, _ = import_torch_params({k: v.numpy() for k, v in sd.items()},
+                                    template, allow_missing=False)
+    return params
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_model(experts, orvit_layers, scan=True, seed=0):
-    """The JAX tiny MoE Motionformer, its params and a batch (built once a
-    case in this process)."""
+    """The JAX tiny MoE Motionformer, its params (the port's seeded init)
+    and a batch (built once a case in this process)."""
     from focus_tpu.config import get_cfg as jax_get_cfg
     from focus_tpu.models.build import build_model as jax_build_model
-    from focus_tpu.models.build import init_model
 
     jcfg = moe_model_cfg(jax_get_cfg, experts, orvit_layers)
     jcfg.TPU.SCAN_LAYERS = scan
@@ -155,10 +171,9 @@ def _jax_model(experts, orvit_layers, scan=True, seed=0):
     video = rs.rand(2, 4, 224, 224, 3).astype(np.float32)
     boxes = (rs.rand(2, 2, 3, 4) * 0.5 + 0.25).astype(np.float32)
     jmodel = jax_build_model(jcfg)
-    variables = init_model(jmodel, jcfg, (jnp.asarray(video),
-                                          {"orvit_bboxes": jnp.asarray(boxes)}),
-                           rng=jax.random.PRNGKey(seed))
-    params = jax.device_get(variables["params"])
+    params = jax_params_from_port(
+        jmodel, moe_model_cfg(get_cfg, experts, orvit_layers),
+        (jnp.asarray(video), {"orvit_bboxes": jnp.asarray(boxes)}), seed)
     return jmodel, params, video, boxes
 
 
@@ -193,7 +208,7 @@ def test_tiny_moe_model_matches_jax(experts, orvit_layers):
     moe_blocks = 4 - len(orvit_layers)
     assert len(aux) == moe_blocks
     assert sum(isinstance(b.mlp, MoEMlp) for b in model.blocks) == moe_blocks
-    assert abs(float(torch.stack(aux).mean()) - jax_moe_aux(new_vars)) <= 1e-6
+    assert abs(float(load_balance(aux)) - jax_moe_aux(new_vars)) <= 1e-6
 
 
 @pytest.mark.parametrize("scan", [True, False])
@@ -263,9 +278,9 @@ def test_int8_serving_leaves_experts_at_the_compute_dtype():
 @pytest.fixture(scope="module")
 def tiny_moe():
     """``moe_cfg(tiny=True)`` (the MoE yaml at D=24 over 4 blocks, 4
-    experts, float32) without drop path, built by the JAX package."""
+    experts, float32) without drop path, built by the JAX package (the
+    port's seeded init as its params)."""
     from focus_tpu.models.build import build_model as jax_build_model
-    from focus_tpu.models.build import init_model
 
     cfg = moe_cfg(tiny=True)
     cfg.MF.DROP_PATH = 0.0  # the two packages draw their masks apart
@@ -278,10 +293,8 @@ def tiny_moe():
     rs = np.random.RandomState(3)
     video = rs.rand(4, 4, 224, 224, 3).astype(np.float32)
     jmodel = jax_build_model(jcfg)
-    variables = init_model(jmodel, jcfg, (jnp.asarray(video), {}),
-                           rng=jax.random.PRNGKey(0))
-    return {"cfg": cfg, "jcfg": jcfg, "jmodel": jmodel,
-            "params": jax.device_get(variables["params"])}
+    params = jax_params_from_port(jmodel, cfg, (jnp.asarray(video), {}))
+    return {"cfg": cfg, "jcfg": jcfg, "jmodel": jmodel, "params": params}
 
 
 def _batches(cfg, n, batch):
@@ -367,12 +380,11 @@ def test_three_moe_train_steps_match_jax(tiny_moe, accum):
                                   "SSv2_ORViT-MF_224_16x4_dp_sp_tp.yaml"])
 def test_mesh_axes_raise_before_anything_is_built(yaml, tmp_path):
     """Both configs/TPU yamls as shipped raise from the model builder, the
-    train step and the test path, on the CPU, before any module or loader
-    exists: the MoE yaml (PIPE 2 and EXPERT 2) NotImplementedError naming
-    the axes and ROADMAP.md; the dp x sp x tp yaml (SEQ 2 and MODEL 2), on
-    one process, the JAX package's refusal of a world that SEQ x MODEL
-    does not divide (ValueError). With every axis set to 1 the MoE yaml's
-    tiny model builds."""
+    train step and the test path, on one process on the CPU, before any
+    module or loader exists: the JAX package's refusal of a world that the
+    axes do not divide (ValueError; the MoE yaml's PIPE 2 and EXPERT 2, the
+    dp x sp x tp yaml's SEQ 2 and MODEL 2). With every axis set to 1 the
+    MoE yaml's tiny model builds."""
     from focus_tpu_torch.engine import tester
     from focus_tpu_torch.engine.trainer import (
         make_supervised_train_step,
@@ -392,12 +404,11 @@ def test_mesh_axes_raise_before_anything_is_built(yaml, tmp_path):
                  lambda: run_train(cfg, device="cpu"),
                  lambda: tester.run_test(cfg, device="cpu")):
         if "moe" in yaml:
-            error, match = NotImplementedError, \
-                f"TPU.MESH.{axes[0]} 2.*ROADMAP.md"
+            match = ("1 devices not divisible by model axis 1 x seq axis 1 "
+                     "x pipe axis 2 x expert axis 2")
         else:
-            error, match = ValueError, \
-                "1 devices not divisible by model axis 2 x seq axis 2"
-        with pytest.raises(error, match=match):
+            match = "1 devices not divisible by model axis 2 x seq axis 2"
+        with pytest.raises(ValueError, match=match):
             call()
     assert not os.listdir(tmp_path)
     if "moe" in yaml:

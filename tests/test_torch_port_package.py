@@ -101,10 +101,10 @@ def test_dropout_outside_the_slice_raises(key, value):
     ("TPU.INT8_SERVING", True),
 ])
 def test_train_options_outside_the_slice_raise(key, value):
-    """Before anything is built: a seq axis on one process meets the JAX
-    package's divisibility refusal (ValueError); an expert axis, and a
-    model axis (set beside the other keys) on a MoE model or under
-    TPU.INT8_SERVING, are not run by the port (NotImplementedError)."""
+    """Before anything is built: a seq or expert axis on one process meets
+    the JAX package's divisibility refusal (ValueError, naming the axis);
+    a model axis (set beside the other keys) on a MoE model or under
+    TPU.INT8_SERVING is not run by the port (NotImplementedError)."""
     from focus_tpu_torch.engine.trainer import make_supervised_train_step
     from focus_tpu_torch.models.losses import get_loss_func
 
@@ -116,7 +116,7 @@ def test_train_options_outside_the_slice_raise(key, value):
     setattr(node, name, value)
     if not key.startswith("TPU.MESH."):
         cfg.TPU.MESH.MODEL = 2
-    error = ValueError if key == "TPU.MESH.SEQ" else NotImplementedError
+    error = ValueError if key.startswith("TPU.MESH.") else NotImplementedError
     with pytest.raises(error, match=key):
         make_supervised_train_step(None, cfg, get_loss_func(cfg))
 

@@ -141,14 +141,39 @@ _JAX_INIT = {}
 
 
 def jax_init(cnn):
-    """(JAX model, its initial variables) of ``configure(cnn)``, made once
-    (a traced init is a compile)."""
+    """(JAX model, its initial variables) of ``configure(cnn)``, made once.
+    The base CNN's are the port's seeded init carried onto the variables'
+    ``eval_shape`` by the JAX package's importer (no init compile; its
+    importer reads a ConvTranspose weight as a convolution's, so the port's
+    ``upconv`` weight, [I, O, kh, kw] flipped, goes in as the [O, I, kh,
+    kw] that gives flax's kernel). res18's are the JAX package's own init
+    (a traced init is a compile): at the port's init one gradient of its
+    float32 step lies 1.4e-4 from JAX's, past the tests' 1e-4."""
+    from focus_tpu.utils.torch_import import import_torch_params
+
     if cnn not in _JAX_INIT:
         jcfg = configure(jax_get_cfg(), cnn)
         jm = jax_build_model(jcfg)
         S = jcfg.SLOTS.IMG_SIZE
-        _JAX_INIT[cnn] = jm, jax.device_get(init_model(
-            jm, jcfg, (jnp.zeros((B, T, S, S, 3)), 1.0, True)))
+        if cnn != "base":
+            _JAX_INIT[cnn] = jm, jax.device_get(init_model(
+                jm, jcfg, (jnp.zeros((B, T, S, S, 3)), 1.0, True)))
+            return _JAX_INIT[cnn]
+        rngs = {k: jax.random.PRNGKey(i) for i, k in enumerate(
+            ("params", "slots", "gumbel", "dropout"))}
+        shapes = jax.eval_shape(lambda: jm.init(
+            rngs, jnp.zeros((B, T, S, S, 3)), 1.0, True))
+        zeros = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                                       shapes)
+        sd = {k: v.numpy() for k, v in build_model(
+            configure(get_cfg(), cnn), "cpu").state_dict().items()}
+        for k in sd:
+            if k.endswith("upconv.weight"):
+                kernel = sd[k].transpose(2, 3, 0, 1)[::-1, ::-1]
+                sd[k] = np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))
+        variables = {"params": import_torch_params(
+            sd, zeros["params"], allow_missing=False)[0]}
+        _JAX_INIT[cnn] = jm, jax.device_get(variables)
     return _JAX_INIT[cnn]
 
 

@@ -67,18 +67,24 @@ def _free_port():
 def _jax_model():
     """The JAX tiny flagship (the SGD case's config: drop path and solver
     leave the parameters as they are) and its initial parameters, made
-    once (a traced init is a compile)."""
+    once: the port's seeded init carried onto the params' ``eval_shape``
+    by the JAX package's importer (no init compile)."""
     from focus_tpu.models.build import build_model as jax_build_model
-    from focus_tpu.models.build import init_model
+    from focus_tpu.utils.torch_import import import_torch_params
 
     cfg = sc.tiny_cfg(drop_path=0.0, sgd=True)
     jcfg = jax_cfg(cfg)
     video, _, boxes = sc.batch(cfg, 0)
     jmodel = jax_build_model(jcfg)
-    params = jax.device_get(init_model(
-        jmodel, jcfg, (jnp.asarray(video.numpy()),
-                       {"orvit_bboxes": jnp.asarray(boxes.numpy())}),
-        rng=jax.random.PRNGKey(0))["params"])
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
+        jnp.asarray(video.numpy()),
+        {"orvit_bboxes": jnp.asarray(boxes.numpy())}))["params"]
+    template = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                                      shapes)
+    sd = build_model(cfg, device="cpu", seed=0).state_dict()
+    params, _ = import_torch_params({k: v.numpy() for k, v in sd.items()},
+                                    template, allow_missing=False)
     return jcfg, jmodel, params
 
 

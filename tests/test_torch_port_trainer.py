@@ -430,9 +430,9 @@ def test_grad_accum_matches_jax_and_the_single_shot_step():
     from focus_tpu.models import losses as jlosses
     from focus_tpu.models import optimizer as joptim
     from focus_tpu.models.build import build_model as jax_build_model
-    from focus_tpu.models.build import init_model
     from focus_tpu.parallel import mesh as mesh_lib
     from focus_tpu.parallel.train_state import TrainState
+    from focus_tpu.utils.torch_import import import_torch_params
     from focus_tpu_torch.engine.trainer import (
         build_supervised_state,
         make_supervised_train_step,
@@ -448,9 +448,16 @@ def test_grad_accum_matches_jax_and_the_single_shot_step():
     batches = _tiny_flagship_batches(cfg)
     video, labels, boxes = batches[0]
     jmodel = jax_build_model(jcfg)
-    params = jax.device_get(init_model(
-        jmodel, jcfg, (jnp.asarray(video), {"orvit_bboxes": jnp.asarray(boxes)}),
-        rng=jax.random.PRNGKey(0))["params"])
+    # the port's seeded init as JAX's params, carried onto their
+    # eval_shape by the JAX package's importer (no init compile)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(0)},
+        jnp.asarray(video), {"orvit_bboxes": jnp.asarray(boxes)}))["params"]
+    params, _ = import_torch_params(
+        {k: v.numpy() for k, v in build_model(cfg, device="cpu", seed=0)
+         .state_dict().items()},
+        jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes),
+        allow_missing=False)
     spe = 2
     tx = joptim.construct_optimizer(params, jcfg, spe,
                                     no_weight_decay_paths=_no_wd_paths(jcfg))
